@@ -1,0 +1,204 @@
+"""Config dataclasses, presets and the model builder (PyTorch port).
+
+Field for field the same as ``lina_speech_tpu/config.py`` so a YAML config
+or a preset means the same model in both packages; only ``build_model``
+differs, building the PyTorch modules. The port covers the flagship
+backbone (``kind="gla"`` without ``cross_att_layers``); every other kind
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class BackboneConfig:
+    kind: str = "gla"  # gla | simple_gla | rwkv6 | mamba | transformer
+    d_model: int = 1024
+    n_layer: int = 12
+    heads: int = 4
+    dropout_att: float = 0.0
+    dropout: float = 0.0
+    blind: bool = True
+    cross_att_pp: bool = False
+    d_blind: Optional[int] = None
+    rotary: bool = False
+    use_short_conv: bool = True
+    expand_k: float = 1.0
+    expand_v: float = 2.0
+    pos_type: str = "convolutional"
+    chunk_size: int = 64
+    remat: bool = False
+    cross_att_layers: Tuple[int, ...] = ()
+    state_dtype: str = "float32"  # "bfloat16" halves decode state traffic
+    # auto  -- the CUDA kernels for CUDA tensors, their plain PyTorch
+    #          versions for CPU tensors (ops/gla_cuda.py);
+    # chunk -- the plain PyTorch versions on every device (the reference
+    #          path the kernels are held against on the card).
+    kernel_mode: str = "auto"
+    cp_axis: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TextEncoderConfig:
+    dim: int = 1024
+    heads: int = 4
+    n_layers: int = 4
+    dropout: float = 0.1
+    rotary: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeakerEncoderConfig:
+    dim_inner: int = 256
+    heads: int = 4
+    n_layers: int = 6
+    window_length: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    backbone: BackboneConfig = BackboneConfig()
+    text_encoder: TextEncoderConfig = TextEncoderConfig()
+    spk_encoder: Optional[SpeakerEncoderConfig] = None
+    d_model: int = 1024
+    quant_layer: Tuple[int, ...] = (0,)
+    n_codebook: int = 4096
+    n_special_token_in: int = 3
+    n_special_token_out: int = 3
+    n_txt_vocab: int = 256
+    tie_embed: bool = False
+    mask_text_p: float = 0.0
+    compute_dtype: str = "float32"  # float32 | bfloat16
+
+    @property
+    def n_quant(self) -> int:
+        return len(self.quant_layer)
+
+
+def lina_gla_169m(**overrides) -> ModelConfig:
+    """The released flagship, Lina-GLA "169M" (359,302,978 parameters at
+    the reference's own defaults; see lina_speech_tpu/config.py)."""
+    return dataclasses.replace(ModelConfig(), **overrides)
+
+
+def lina_gla_tiny(**overrides) -> ModelConfig:
+    """Small config for tests / smoke runs."""
+    cfg = ModelConfig(
+        backbone=BackboneConfig(d_model=64, n_layer=2, heads=2, chunk_size=16,
+                                pos_type="sinusoidal"),
+        text_encoder=TextEncoderConfig(dim=64, heads=2, n_layers=2, dropout=0.0),
+        d_model=64,
+        n_codebook=50,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+# backbone kinds the JAX package builds and this port does not yet, with the
+# ROADMAP.md Queue 1 item that ports each
+_NOT_PORTED = {
+    "simple_gla": "Queue 1 item 9 (variant backbones)",
+    "rwkv6": "Queue 1 item 9 (variant backbones)",
+    "mamba": "Queue 1 item 9 (variant backbones)",
+    "mamba2": "Queue 1 item 9 (variant backbones)",
+    "transformer": "Queue 1 item 9 (variant backbones)",
+}
+
+
+def build_model(cfg: ModelConfig, device=None, seed: int = 0):
+    """Construct the LinaModel with f32 parameters initialized from a
+    ``torch.Generator`` seeded with ``seed`` (models/lina.py:init_params)."""
+    from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA
+    from lina_speech_tpu_torch.models.encoder import TextEncoder
+    from lina_speech_tpu_torch.models.lina import LinaModel, init_params
+
+    b = cfg.backbone
+    if b.kind == "gla" and b.cross_att_layers:
+        raise NotImplementedError(
+            "the interleaved CrossAttGLA backbone is not ported yet "
+            "(ROADMAP.md Queue 1 item 9)")
+    if b.kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backbone kind {b.kind!r} is not ported yet "
+            f"(ROADMAP.md {_NOT_PORTED[b.kind]})")
+    if b.kind != "gla":
+        raise ValueError(f"unknown backbone kind {b.kind}")
+    if cfg.spk_encoder is not None:
+        raise NotImplementedError(
+            "SimpleSpeakerEncoder is not ported yet (ROADMAP.md Queue 1 item 9)")
+    if b.cp_axis is not None:
+        raise NotImplementedError(
+            "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
+
+    dtype = torch_dtype(cfg.compute_dtype)
+    rnn = AttentiveGLA(
+        d_model=b.d_model, n_layer=b.n_layer, heads=b.heads,
+        d_blind=b.d_blind, blind=b.blind, cross_att_pp=b.cross_att_pp,
+        rotary=b.rotary, use_short_conv=b.use_short_conv,
+        expand_k=b.expand_k, expand_v=b.expand_v, pos_type=b.pos_type,
+        chunk_size=b.chunk_size, dtype=dtype,
+        state_dtype=torch_dtype(b.state_dtype), kernel_mode=b.kernel_mode,
+    )
+    te = cfg.text_encoder
+    txt_encoder = TextEncoder(dim=te.dim, heads=te.heads, n_layers=te.n_layers,
+                              rotary=te.rotary, dtype=dtype)
+    model = LinaModel(
+        attentive_rnn=rnn,
+        d_model=cfg.d_model,
+        n_quant=cfg.n_quant,
+        n_codebook=cfg.n_codebook,
+        n_special_token_in=cfg.n_special_token_in,
+        n_special_token_out=cfg.n_special_token_out,
+        n_txt_vocab_base=cfg.n_txt_vocab,
+        tie_embed=cfg.tie_embed,
+        txt_encoder=txt_encoder,
+        mask_text_p=cfg.mask_text_p,
+        dtype=dtype,
+    )
+    init_params(model, torch.Generator().manual_seed(seed))
+    return model.to(device) if device is not None else model
+
+
+_NESTED_CONFIGS = {
+    "backbone": BackboneConfig,
+    "text_encoder": TextEncoderConfig,
+    "spk_encoder": SpeakerEncoderConfig,
+}
+
+
+def _dataclass_from_dict(cls, d: Dict[str, Any]):
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in fields:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        if isinstance(v, dict) and k in _NESTED_CONFIGS:
+            kwargs[k] = _dataclass_from_dict(_NESTED_CONFIGS[k], v)
+        elif isinstance(v, list):
+            kwargs[k] = tuple(v)
+        else:
+            kwargs[k] = v
+    return cls(**kwargs)
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    """Load a YAML config's model section (``data.quant_layer`` overrides
+    ``model.quant_layer``, as in the JAX package). The ``train`` section is
+    returned as a plain dict until the training slice is ported."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    model_d = raw.get("model", {})
+    data_d = raw.get("data", {})
+    if "quant_layer" in data_d:
+        model_d["quant_layer"] = data_d["quant_layer"]
+    return {"model": _dataclass_from_dict(ModelConfig, model_d),
+            "train": raw.get("train", {}), "data": data_d}

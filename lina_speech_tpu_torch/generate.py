@@ -1,0 +1,163 @@
+"""Autoregressive generation (voice cloning by prompt continuation).
+
+Counterpart of ``lina_speech_tpu/generate.py`` (reference
+modeling_lina.py:111-192): the text is encoded, the prompt is prefilled
+chunk-parallel through the GLA prefill kernel, and a Python token loop runs
+:meth:`LinaModel.decode_step` until every row has emitted the all-stop
+token (or ``max_seqlen`` with ``force_max_seqlen``). Sampling takes an
+explicit ``torch.Generator``: top-k + temperature for quantizers below
+``first_greedy_quant``, greedy for the rest. :func:`cut_outputs` applies
+the reference's per-row stop trimming.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from lina_speech_tpu_torch.models.lina import LinaModel
+from lina_speech_tpu_torch.ops.sampling import topk_sampling
+from lina_speech_tpu_torch.ops.tools import undelay_rvq
+
+
+class GenerateResult(NamedTuple):
+    tokens: torch.Tensor      # (q, b, max_seqlen) sampled (delayed) codec tokens
+    stop_mask: torch.Tensor   # (b, max_seqlen) True where an all-stop was emitted
+    lengths: torch.Tensor     # (b,) 1 + index of first stop (== steps generated)
+    att: Optional[torch.Tensor]  # (b, max_seqlen, heads, m) or None
+    n_steps: int              # decode-loop steps actually executed (incl. prefill)
+
+
+def _sample_tokens(generator, logits, k, temp, first_greedy_quant,
+                   reference_compat=False):
+    """logits: (..., q, l) -> (..., q) ids; top-k for q < first_greedy_quant."""
+    cols = []
+    for i in range(logits.shape[-2]):
+        if i < first_greedy_quant:
+            cols.append(topk_sampling(generator, logits[..., i, :], k=k,
+                                      temp=temp,
+                                      reference_compat=reference_compat))
+        else:
+            cols.append(topk_sampling(generator, logits[..., i, :], k=1))
+    return torch.stack(cols, dim=-1)
+
+
+@torch.no_grad()
+def generate_batch(
+    model: LinaModel,
+    x: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    prompt: Optional[torch.Tensor] = None,
+    init_state=None,
+    max_seqlen: int = 1000,
+    k: int = 100,
+    first_greedy_quant: int = 1,
+    temp: float = 1.0,
+    force_max_seqlen: bool = False,
+    return_att: bool = False,
+    reference_compat_sampling: bool = False,
+    approx_topk: bool = False,
+    lazy_window: int = 0,
+    weight_quant: Optional[str] = None,
+    state_quant: Optional[str] = None,
+    cfg_coef: Optional[float] = None,
+) -> GenerateResult:
+    """Generate codec tokens for a batch.
+
+    x: (b, m) BPE text ids; prompt: optional (q, b, p) raw codec codes
+    (offset by ``n_special_token_in`` here); init_state: optional
+    BackboneState. ``generator`` drives top-k sampling and may be None for
+    fully greedy decoding.
+
+    The model's f32 parameters are cast to its compute dtype IN PLACE
+    after the text is encoded, once (the JAX package pre-casts its param
+    tree the same way); norms keep f32 statistics.
+    """
+    for name, val, ready in (
+            ("lazy_window", lazy_window, "ROADMAP.md Queue 1 item 4"),
+            ("weight_quant", weight_quant, "ROADMAP.md Queue 1 item 8"),
+            ("state_quant", state_quant, "ROADMAP.md Queue 1 item 8"),
+            ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),
+            ("approx_topk", approx_topk, "a TPU op; the port samples exact top-k")):
+        if val:
+            raise NotImplementedError(f"generate_batch({name}=...) is not "
+                                      f"ported ({ready})")
+    b = x.shape[0]
+    nq = model.n_quant
+    stop_id = 2
+    dev = x.device
+    sample = lambda lg: _sample_tokens(generator, lg, k, temp,
+                                       first_greedy_quant,
+                                       reference_compat_sampling)
+
+    x_enc = model.encode_text(x)
+    model.cast_float_params_(model.dtype)
+    embed = model.embed_tokens
+    y_embd0 = embed(torch.ones(nq, b, 1, dtype=torch.long, device=dev))
+    if init_state is None:
+        init_state = model.empty_state(b, device=dev)
+
+    # ---- chunk-parallel prompt prefill ----
+    if prompt is not None:
+        prompt_in = embed(prompt.long() + model.n_special_token_in)
+        forced = torch.cat([y_embd0, prompt_in], dim=1)  # (b, p+1, d)
+    else:
+        forced = y_embd0
+    logits_pre, att_pre, state = model.prefill(forced, x_enc, init_state,
+                                               return_att=return_att)
+    n_pre = forced.shape[1]
+    pre_tokens = sample(logits_pre)  # (b, n_pre, q)
+
+    tokens = torch.zeros(max_seqlen, b, nq, dtype=torch.long, device=dev)
+    stops = torch.zeros(max_seqlen, b, dtype=torch.bool, device=dev)
+    keep = min(n_pre, max_seqlen)
+    tokens[:keep] = pre_tokens.transpose(0, 1)[:keep]
+    pre_stop = (pre_tokens == stop_id).all(dim=-1)  # (b, n_pre)
+    stops[:keep] = pre_stop.T[:keep]
+    att_buf = None
+    if return_att:
+        att_buf = torch.zeros(max_seqlen, b, att_pre.shape[1], x_enc.shape[1],
+                              dtype=att_pre.dtype, device=dev)
+        att_buf[:keep] = att_pre.permute(2, 0, 1, 3)[:keep]
+    stopped = pre_stop.any(dim=1)
+    y_embd = embed(pre_tokens[:, -1].T[:, :, None])[:, 0]  # (b, d)
+
+    t = n_pre
+    while t < max_seqlen and (force_max_seqlen or not bool(stopped.all())):
+        logits, att, state = model.decode_step(y_embd, x_enc, state, time_step=t)
+        toks = sample(logits)  # (b, q)
+        tokens[t] = toks
+        is_stop = (toks == stop_id).all(dim=-1)
+        stops[t] = is_stop
+        if return_att:
+            att_buf[t] = att
+        y_embd = embed(toks.T[:, :, None])[:, 0]
+        stopped = stopped | is_stop
+        t += 1
+
+    stop_mask = stops.T  # (b, max_seqlen)
+    first_stop = stop_mask.float().argmax(dim=1)
+    n_steps = min(t, max_seqlen)
+    lengths = torch.where(stop_mask.any(dim=1), first_stop + 1,
+                          torch.full_like(first_stop, n_steps))
+    att = att_buf.permute(1, 0, 2, 3) if return_att else None
+    return GenerateResult(tokens.permute(2, 1, 0), stop_mask, lengths, att, n_steps)
+
+
+def cut_outputs(result: GenerateResult, n_quant: int, n_special_token_in: int = 3):
+    """Host-side per-row trimming (reference modeling_lina.py:181-192).
+
+    Returns a list of (codes (q, 1, len_i) numpy, att_i or None) with the
+    delay pattern inverted and the special-token offset removed.
+    """
+    qs = result.tokens.cpu()
+    rvq = np.clip(undelay_rvq(qs).numpy() - n_special_token_in, 0, None)
+    att = result.att.float().cpu().numpy() if result.att is not None else None
+    stop = result.stop_mask.cpu().numpy()
+    outs = []
+    for i, L in enumerate(result.lengths.cpu().numpy()):
+        idx = int(L) - 1 if stop[i].any() else int(L)
+        end = max(idx - n_quant, 0)
+        outs.append((rvq[:, [i], :end], att[i, :idx] if att is not None else None))
+    return outs

@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+``nvcc`` compiles every source under ``csrc/`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+file name carries a hash of the sources and flags, so an edited source
+rebuilds and a built library is reused. Nothing here runs at import time:
+the package imports on a machine without ``nvcc`` or a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of the last nvcc run
+build_log: str = ""  # nvcc / ptxas output of the build (registers, spills)
+
+
+def build_dir() -> Path:
+    """``build/torch_kernels`` beside the package (the repository root in a
+    checkout)."""
+    return CSRC.parents[1] / "build" / "torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    return str(path)
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    hdrs = sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256()
+    for p in srcs + hdrs:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return srcs, digest.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the same sources exists."""
+    global build_seconds, build_log
+    srcs, digest = _sources()
+    out = build_dir() / f"libgla_kernels_{digest}.so"
+    if out.exists():
+        log = out.with_suffix(".log")
+        build_log = log.read_text() if log.exists() else ""
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(s) for s in srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    out.with_suffix(".log").write_text(build_log)
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once, and declare the C signatures."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gla_chunk_conv_fwd.argtypes = [p] * 10 + [i] * 5 + [f, i, i, p]
+    lib.gla_chunk_conv_fwd.restype = i
+    lib.gla_decode_conv_step.argtypes = [p] * 15 + [i] * 4 + [f, i, i, p]
+    lib.gla_decode_conv_step.restype = i
+    _lib = lib
+    return lib

@@ -1,0 +1,223 @@
+"""PyTorch port modules vs the JAX package on the tiny config, on the CPU.
+
+One JAX LinaModel per variant (the tiny config with SinPos, its ConvPos +
+short-conv variant in the released checkpoint's architecture, and a
+non-blind variant with rotary CrossAttention) is initialized by JAX; its params cross into the port through
+``utils/convert.py``. Inputs are numpy arrays from a seed. Tolerance 1e-4:
+both sides compute in f32 and differ only in summation order.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from lina_speech_tpu.config import build_model as jax_build, lina_gla_tiny
+from lina_speech_tpu.models.lina import LinaModel as JaxLina
+from lina_speech_tpu.utils.checkpoint import convert_torch_lina
+from lina_speech_tpu_torch.config import build_model as torch_build
+from lina_speech_tpu_torch.config import lina_gla_tiny as torch_tiny
+from lina_speech_tpu_torch.utils.convert import (
+    jax_params_to_state_dict, load_jax_params,
+)
+from test_torch_naming import _reference_state_dict
+
+TOL = 1e-4
+
+
+def _variant(cfg, pos_type):
+    """pos_type "sinusoidal" / "convolutional" (blind cross-attention), or
+    "rotary": the vanilla multi-head CrossAttention with rotary queries."""
+    if pos_type == "rotary":
+        bb = dict(blind=False, rotary=True, use_short_conv=True)
+    else:
+        bb = dict(pos_type=pos_type, use_short_conv=True)
+    return dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, **bb))
+
+
+def _torch_cfg(pos_type):
+    return _variant(torch_tiny(), pos_type)
+
+
+def _make_pair(pos_type):
+    cfg = _variant(lina_gla_tiny(), pos_type)
+    jm = jax_build(cfg)
+    b, m, n = 2, 7, 9
+    x = jnp.ones((b, m), jnp.int32)
+    y = jnp.ones((b, n, cfg.n_quant), jnp.int32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), x, y, jnp.ones((b, m, m), bool),
+                              jnp.ones((b, n, m), bool), jnp.ones((b, n), bool))
+    tm = load_jax_params(torch_build(_torch_cfg(pos_type)), params)
+    return jm, params, tm.eval()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module", params=["sinusoidal", "convolutional"])
+def pair(request):
+    """(jax model, jax params, port model with the same weights)."""
+    return _make_pair(request.param)
+
+
+def _close(t, j, tol=TOL):
+    np.testing.assert_allclose(t.detach().float().numpy(), np.asarray(j, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _rng_inputs(seed, b=2, m=7, t=11, d=64):
+    rng = np.random.default_rng(seed)
+    text = rng.integers(3, 256, size=(b, m))
+    x = rng.normal(size=(b, t, d)).astype(np.float32)
+    return text, x
+
+
+def test_weight_bridge_round_trip(pair):
+    _, params, _ = pair
+    flat = {k: np.array(v) for k, v in
+            traverse_util.flatten_dict(params, sep="/").items()}
+    back = convert_torch_lina(jax_params_to_state_dict(flat), params, strict=True)
+    for path, val in traverse_util.flatten_dict(back, sep="/").items():
+        np.testing.assert_array_equal(np.asarray(val), flat[path], err_msg=path)
+
+
+def test_reference_state_dict_loads_strict():
+    cfg = _torch_cfg("convolutional")
+    model = torch_build(cfg)
+    sd = _reference_state_dict(
+        np.random.default_rng(7), d=64, n_layer=cfg.backbone.n_layer,
+        heads=cfg.backbone.heads, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook,
+        n_special_in=cfg.n_special_token_in, n_special_out=cfg.n_special_token_out,
+        n_txt_vocab=cfg.n_txt_vocab, te_layers=cfg.text_encoder.n_layers,
+        te_dim=cfg.text_encoder.dim)
+    sd = {k.removeprefix("model."): torch.from_numpy(v) for k, v in sd.items()}
+    model.load_state_dict(sd, strict=True)
+    key = "attentive_rnn.cross_att.pos_embed.dw_conv.weight"
+    assert torch.equal(model.state_dict()[key], sd[key])
+
+
+def test_text_encoder_matches_jax(pair):
+    jm, params, tm = pair
+    text, _ = _rng_inputs(1)
+    j = jm.apply(params, jnp.asarray(text), method=JaxLina.encode_text)
+    with torch.no_grad():
+        _close(tm.encode_text(torch.from_numpy(text)), j)
+
+
+def test_gla_layer_prefill_and_step_match_jax(pair):
+    jm, params, tm = pair
+    _, x = _rng_inputs(2)
+    x_t = np.random.default_rng(3).normal(size=(2, 64)).astype(np.float32)
+
+    def jrun(m, x, x_t):
+        tmix = m.attentive_rnn.encoder[1].tmix
+        st0 = tmix.empty_state(x.shape[0])
+        out, st = tmix(x, initial_state=st0, output_final_state=True)
+        out_t, st_t = tmix.step(x_t, st)
+        return out, st, out_t, st_t
+
+    jo, js, jo_t, js_t = jm.apply(params, jnp.asarray(x), jnp.asarray(x_t), method=jrun)
+    tmix = tm.attentive_rnn.encoder[1].tmix
+    with torch.no_grad():
+        to, ts = tmix(torch.from_numpy(x), initial_state=tmix.empty_state(2),
+                      output_final_state=True)
+        to_t, ts_t = tmix.step(torch.from_numpy(x_t), ts)
+    _close(to, jo)
+    _close(to_t, jo_t)
+    for name in ("s", "conv_q", "conv_k", "conv_v"):
+        _close(getattr(ts, name), getattr(js, name))
+        _close(getattr(ts_t, name), getattr(js_t, name))
+
+
+def test_blind_cross_attention_matches_jax(pair):
+    jm, params, tm = pair
+    _, x = _rng_inputs(4)
+    ctx = np.random.default_rng(5).normal(size=(2, 7, 64)).astype(np.float32)
+
+    def jrun(m, x, ctx):
+        ca = m.attentive_rnn.cross_att
+        st0 = ca.pos_net.tmix.empty_state(x.shape[0])
+        v, att, st = ca(x, ctx, pos_net_state=st0, return_weights=True)
+        v_t, att_t, st_t = ca.step(x[:, 0], ctx, st)
+        return v, att, st, v_t, att_t, st_t
+
+    jv, jatt, js, jv_t, jatt_t, js_t = jm.apply(params, jnp.asarray(x), jnp.asarray(ctx),
+                                                method=jrun)
+    ca = tm.attentive_rnn.cross_att
+    with torch.no_grad():
+        tv, tatt, ts = ca(torch.from_numpy(x), torch.from_numpy(ctx),
+                          pos_net_state=ca.pos_net.tmix.empty_state(2),
+                          return_weights=True)
+        tv_t, tatt_t, ts_t = ca.step(torch.from_numpy(x[:, 0]), torch.from_numpy(ctx), ts)
+    for t_val, j_val in ((tv, jv), (tatt, jatt), (ts.s, js.s), (tv_t, jv_t),
+                         (tatt_t, jatt_t), (ts_t.s, js_t.s)):
+        _close(t_val, j_val)
+
+
+def _prefill_decode_logits_match(jm, params, tm):
+    text, _ = _rng_inputs(6)
+    codes = np.random.default_rng(7).integers(3, 53, size=(1, 2, 10))
+
+    def jrun(m, text, codes):
+        x_enc = m.encode_text(text)
+        y = m.embed_tokens(codes)
+        logits, _, st = m.prefill(y[:, :-1], x_enc, m.empty_state(text.shape[0]))
+        logits_t, _, _ = m.decode_step(y[:, -1], x_enc, st, time_step=9)
+        return logits, logits_t
+
+    jl, jl_t = jm.apply(params, jnp.asarray(text), jnp.asarray(codes), method=jrun)
+    with torch.no_grad():
+        x_enc = tm.encode_text(torch.from_numpy(text))
+        y = tm.embed_tokens(torch.from_numpy(codes))
+        tl, _, st = tm.prefill(y[:, :-1], x_enc, tm.empty_state(2))
+        tl_t, _, _ = tm.decode_step(y[:, -1], x_enc, st, time_step=9)
+    assert tl.shape == jl.shape and tl_t.shape == jl_t.shape
+    _close(tl, jl)
+    _close(tl_t, jl_t)
+
+
+def test_lina_prefill_and_decode_logits_match_jax(pair):
+    _prefill_decode_logits_match(*pair)
+
+
+def test_rotary_cross_attention_model_matches_jax():
+    """The non-blind backbone: vanilla CrossAttention with rotary queries
+    offset by the decode time step."""
+    _prefill_decode_logits_match(*_make_pair("rotary"))
+
+
+def test_unported_options_raise():
+    from lina_speech_tpu_torch.models.gla_layer import GatedLinearAttention
+
+    with pytest.raises(NotImplementedError):
+        GatedLinearAttention(hidden_size=32, num_heads=2, kernel_mode="chunk_pallas")
+    layer = GatedLinearAttention(hidden_size=32, num_heads=2, use_short_conv=True)
+    with pytest.raises(NotImplementedError):
+        layer(torch.zeros(1, 3, 32), initial_state=layer.empty_state(1), conv_history=True)
+    with pytest.raises(NotImplementedError):
+        layer.step_lazy(torch.zeros(1, 32), layer.empty_state(1), 0)
+    with pytest.raises(NotImplementedError):
+        torch_build(dataclasses.replace(torch_tiny(), backbone=dataclasses.replace(
+            torch_tiny().backbone, kind="rwkv6")))
+
+
+def test_decode_continues_prefill(pair):
+    """Prefill of t tokens then one step == prefill of t + 1 tokens."""
+    _, _, tm = pair
+    text, _ = _rng_inputs(8)
+    codes = torch.from_numpy(np.random.default_rng(9).integers(3, 53, size=(1, 2, 8)))
+    with torch.no_grad():
+        x_enc = tm.encode_text(torch.from_numpy(text))
+        y = tm.embed_tokens(codes)
+        full, _, _ = tm.prefill(y, x_enc)
+        _, _, st = tm.prefill(y[:, :-1], x_enc)
+        last, _, _ = tm.decode_step(y[:, -1], x_enc, st)
+    _close(last, full[:, -1].numpy())
