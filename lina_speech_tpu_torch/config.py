@@ -114,7 +114,12 @@ _NOT_PORTED = {
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     """Construct the LinaModel with f32 parameters initialized from a
-    ``torch.Generator`` seeded with ``seed`` (models/lina.py:init_params)."""
+    ``torch.Generator`` seeded with ``seed`` (models/lina.py:init_params).
+
+    The model is built on the GPU: ``device=None`` means ``"cuda"`` and
+    raises without one. The CPU is used only when the caller asks for it
+    (``device="cpu"``).
+    """
     from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA
     from lina_speech_tpu_torch.models.encoder import TextEncoder
     from lina_speech_tpu_torch.models.lina import LinaModel, init_params
@@ -136,6 +141,13 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     if b.cp_axis is not None:
         raise NotImplementedError(
             "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_model: no CUDA device; pass device=\"cpu\" to build "
+                "the model on the CPU")
+        device = "cuda"
 
     dtype = torch_dtype(cfg.compute_dtype)
     rnn = AttentiveGLA(
@@ -163,7 +175,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         dtype=dtype,
     )
     init_params(model, torch.Generator().manual_seed(seed))
-    return model.to(device) if device is not None else model
+    return model.to(device)
 
 
 _NESTED_CONFIGS = {

@@ -1,184 +1,19 @@
 // GLA prefill with the q/k/v short convs fused in (inference forward).
 //
 // Replaces the TPU kernel gla_chunk_conv_pallas (lina_speech_tpu/ops/
-// gla_pallas.py:1289, bodies _conv_kernel_infer / _conv_fwd_kernel). Per
-// (batch, head), with pre-conv projections xq, xk (t, DK), xv (t, DV),
-// f32 log-gates g <= 0 and the width-4 depthwise causal taps:
-//
-//   q_t = silu(rnd(sum_i wq_i xq_{t-3+i})) * scale       (f32)
-//   k_t = silu(rnd(sum_i wk_i xk_{t-3+i}))               (f32)
-//   v_t = rnd(silu(rnd(sum_i wv_i xv_{t-3+i})))          (IO dtype)
-//   S_t = diag(exp g_t) S_{t-1} + k_t^T v_t,   o_t = q_t S_t
-//
-// rnd() rounds to the IO dtype (the Pallas kernel's rounding points,
-// gla_pallas.py:797-798 and :833); conv history before t = 0 is zero.
-//
-// Design: the TPU kernel walks chunks on a sequential grid axis and turns
-// each chunk into MXU matmuls. Here a block owns a (DK x 32) f32 state tile
-// in registers (lane = value column, each warp a band of DK/8 key rows)
-// and walks the time axis in a loop, the recurrent form of the same
-// function. Every exp argument is a gate <= 0, so it needs no chunk
-// factorization for stability. The block recomputes the q/k convs of all
-// DK channels from a register history (cheap next to the state update),
-// which keeps blocks of one (batch, head) independent.
-//
-// What bounds it on the H100: the serial time loop (one dependent update
-// per token, two block barriers per step), not bytes or FLOPs. Inputs are
-// staged in shared memory 16 steps at a time (8 in f32) so that
-// global-load latency is paid once per stage rather than once per step;
-// the state tile stays in registers. At the
-// flagship prefill (b8 h4 t151 dk256 dv512) it moves ~40 MB and does
-// ~3 GFLOP in f32. The chunked tensor-core form (wgmma for the inter/intra
-// products) is the follow-up that removes the serial dependency.
-#include "gla_common.cuh"
-
-namespace {
-
-using namespace gla;
-
-template <typename IO, typename ST, int DK>
-__global__ void __launch_bounds__(kThreads)
-gla_chunk_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
-                      const IO* __restrict__ xv, const float* __restrict__ gk,
-                      const IO* __restrict__ wq, const IO* __restrict__ wk,
-                      const IO* __restrict__ wv, const ST* __restrict__ s0,
-                      IO* __restrict__ o, ST* __restrict__ sf,
-                      int H, int T, int DV, float scale) {
-  constexpr int RPT = DK / kGroups;  // key rows per thread
-  const int bh = blockIdx.x;
-  const int h = bh % H;
-  const int tid = threadIdx.x;
-  const int lane = tid % kBV;
-  const int grp = tid / kBV;
-  const int col = blockIdx.y * kBV + lane;  // value column of this thread
-  const int row0 = grp * RPT;
-
-  // steps staged per pass: 16 in bf16, 8 in f32 (static shared memory
-  // stays under 48 KB)
-  constexpr int STAGE = sizeof(IO) == 2 ? 16 : 8;
-  __shared__ IO stq[STAGE * DK], stk[STAGE * DK], stv[STAGE * kBV];
-  __shared__ float stg[STAGE * DK];
-  __shared__ float sq[DK], sk[DK], seg[DK], sv[kBV];
-  __shared__ float part[kGroups][kBV];
-
-  // state tile in registers
-  float s[RPT];
-  const size_t sbase = (size_t)bh * DK * DV;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    s[r] = s0 ? to_f(s0[sbase + (size_t)(row0 + r) * DV + col]) : 0.f;
-
-  // conv taps and histories: thread tid < DK owns q/k channel tid; thread
-  // tid < kBV owns the block's value column blockIdx.y * kBV + tid
-  const bool qk_owner = tid < DK;
-  const bool v_owner = tid < kBV;
-  const int vcol = blockIdx.y * kBV + tid;
-  float tq[kConv] = {}, tk[kConv] = {}, tv[kConv] = {};
-  float hq[kConv - 1] = {}, hk[kConv - 1] = {}, hv[kConv - 1] = {};
-  if (qk_owner) {
-#pragma unroll
-    for (int i = 0; i < kConv; ++i) {
-      tq[i] = to_f(wq[(size_t)(h * DK + tid) * kConv + i]);
-      tk[i] = to_f(wk[(size_t)(h * DK + tid) * kConv + i]);
-    }
-  }
-  if (v_owner) {
-#pragma unroll
-    for (int i = 0; i < kConv; ++i) tv[i] = to_f(wv[(size_t)(h * DV + vcol) * kConv + i]);
-  }
-
-  const size_t kbase = (size_t)bh * T * DK;
-  const size_t vbase = (size_t)bh * T * DV;
-  for (int t0 = 0; t0 < T; t0 += STAGE) {
-    const int n = min(STAGE, T - t0);  // uniform across the block
-    // stage the inputs of STAGE steps in shared memory with coalesced,
-    // independent loads: their latency is paid once per stage. The last
-    // step of the previous stage ended on a barrier after every read.
-    for (int idx = tid; idx < n * DK; idx += kThreads) {
-      const size_t off = kbase + (size_t)t0 * DK + idx;
-      stq[idx] = xq[off];
-      stk[idx] = xk[off];
-      stg[idx] = gk[off];
-    }
-    for (int idx = tid; idx < n * kBV; idx += kThreads) {
-      const int j = idx / kBV, c = idx % kBV;
-      stv[idx] = xv[vbase + (size_t)(t0 + j) * DV + blockIdx.y * kBV + c];
-    }
-    __syncthreads();
-
-    for (int j = 0; j < n; ++j) {
-      if (qk_owner) {
-        const float x_q = to_f(stq[j * DK + tid]);
-        const float x_k = to_f(stk[j * DK + tid]);
-        sq[tid] = silu(round_io<IO>(tap_sum(tq, hq, x_q))) * scale;
-        sk[tid] = silu(round_io<IO>(tap_sum(tk, hk, x_k)));
-        seg[tid] = expf(stg[j * DK + tid]);
-        hq[0] = hq[1]; hq[1] = hq[2]; hq[2] = x_q;
-        hk[0] = hk[1]; hk[1] = hk[2]; hk[2] = x_k;
-      }
-      if (v_owner) {
-        const float x_v = to_f(stv[j * kBV + tid]);
-        sv[tid] = round_io<IO>(silu(round_io<IO>(tap_sum(tv, hv, x_v))));
-        hv[0] = hv[1]; hv[1] = hv[2]; hv[2] = x_v;
-      }
-      __syncthreads();
-
-      const float vj = sv[lane];
-      float acc = 0.f;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int i = row0 + r;
-        s[r] = seg[i] * s[r] + sk[i] * vj;
-        acc += sq[i] * s[r];
-      }
-      part[grp][lane] = acc;
-      __syncthreads();
-
-      if (grp == 0) {
-        float out = 0.f;
-#pragma unroll
-        for (int g = 0; g < kGroups; ++g) out += part[g][lane];
-        o[vbase + (size_t)(t0 + j) * DV + col] = from_f<IO>(out);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    sf[sbase + (size_t)(row0 + r) * DV + col] = from_f<ST>(s[r]);
-}
-
-template <typename IO, typename ST, int DK>
-int launch(const void* xq, const void* xk, const void* xv, const void* gk,
-           const void* wq, const void* wk, const void* wv, const void* s0,
-           void* o, void* sf, int B, int H, int T, int DV, float scale,
-           cudaStream_t stream) {
-  const dim3 grid(B * H, DV / kBV);
-  gla_chunk_conv_kernel<IO, ST, DK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const IO*>(xq), static_cast<const IO*>(xk),
-      static_cast<const IO*>(xv), static_cast<const float*>(gk),
-      static_cast<const IO*>(wq), static_cast<const IO*>(wk),
-      static_cast<const IO*>(wv), static_cast<const ST*>(s0),
-      static_cast<IO*>(o), static_cast<ST*>(sf), H, T, DV, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// gla_pallas.py:1289, bodies _conv_kernel_infer / _conv_fwd_kernel). The
+// kernel, its design and what bounds it are in gla_chunk.cuh (CONV = true).
+#include "gla_chunk.cuh"
 
 // C entry point (bound with ctypes in ops/gla_cuda.py). Layouts: xq, xk, gk
 // (B, H, T, DK); xv (B, H, T, DV); taps (H*D, 4), tap 0 oldest; s0 (B, H,
 // DK, DV) or null for a zero state; o (B, H, T, DV); sf (B, H, DK, DV). All
-// contiguous. Returns cudaGetLastError() after the launch, -1 for an
-// unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 != 0.
+// contiguous. Return codes as gla::dispatch_chunk.
 extern "C" int gla_chunk_conv_fwd(const void* xq, const void* xk, const void* xv,
                                   const void* gk, const void* wq, const void* wk,
                                   const void* wv, const void* s0, void* o, void* sf,
                                   int B, int H, int T, int DK, int DV, float scale,
                                   int io_dtype, int state_dtype, void* stream) {
-  if (DV % gla::kBV != 0) return -3;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GLA_DISPATCH_TYPES(io_dtype, state_dtype,
-                     GLA_DISPATCH_DK(DK, return launch<IO, ST, DK>(
-                         xq, xk, xv, gk, wq, wk, wv, s0, o, sf, B, H, T, DV, scale, st)))
-  return -2;
+  return gla::dispatch_chunk<true>(xq, xk, xv, gk, wq, wk, wv, s0, o, sf, B, H, T,
+                                   DK, DV, scale, io_dtype, state_dtype, stream);
 }

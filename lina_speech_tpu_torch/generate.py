@@ -4,7 +4,8 @@ Counterpart of ``lina_speech_tpu/generate.py`` (reference
 modeling_lina.py:111-192): the text is encoded, the prompt is prefilled
 chunk-parallel through the GLA prefill kernel, and a Python token loop runs
 :meth:`LinaModel.decode_step` until every row has emitted the all-stop
-token (or ``max_seqlen`` with ``force_max_seqlen``). Sampling takes an
+token (or ``max_seqlen`` with ``force_max_seqlen``) -- token by token, or in
+lazy windows (``lazy_window``). Sampling takes an
 explicit ``torch.Generator``: top-k + temperature for quantizers below
 ``first_greedy_quant``, greedy for the rest. :func:`cut_outputs` applies
 the reference's per-row stop trimming.
@@ -16,6 +17,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from lina_speech_tpu_torch.models.attentive_rnn import add_lazy_buffers
 from lina_speech_tpu_torch.models.lina import LinaModel
 from lina_speech_tpu_torch.ops.sampling import topk_sampling
 from lina_speech_tpu_torch.ops.tools import undelay_rvq
@@ -70,12 +72,17 @@ def generate_batch(
     BackboneState. ``generator`` drives top-k sampling and may be None for
     fully greedy decoding.
 
+    ``lazy_window`` > 0 decodes in windows of that many lazy steps: the
+    recurrent states are only read between folds, each token rides small
+    (L, ...) window buffers, and one fold per window does the single state
+    read and write -- the same recurrence. Early stop is then at window
+    granularity.
+
     The model's f32 parameters are cast to its compute dtype IN PLACE
     after the text is encoded, once (the JAX package pre-casts its param
     tree the same way); norms keep f32 statistics.
     """
     for name, val, ready in (
-            ("lazy_window", lazy_window, "ROADMAP.md Queue 1 item 4"),
             ("weight_quant", weight_quant, "ROADMAP.md Queue 1 item 8"),
             ("state_quant", state_quant, "ROADMAP.md Queue 1 item 8"),
             ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),
@@ -109,40 +116,55 @@ def generate_batch(
     n_pre = forced.shape[1]
     pre_tokens = sample(logits_pre)  # (b, n_pre, q)
 
-    tokens = torch.zeros(max_seqlen, b, nq, dtype=torch.long, device=dev)
-    stops = torch.zeros(max_seqlen, b, dtype=torch.bool, device=dev)
+    # lazy mode decodes whole windows: the buffers get the overshoot room
+    # and the outputs are sliced back to max_seqlen at the end
+    L = lazy_window
+    buf_len = max_seqlen
+    if L:
+        buf_len = max(n_pre + -(-max(max_seqlen - n_pre, 0) // L) * L, max_seqlen)
+
+    tokens = torch.zeros(buf_len, b, nq, dtype=torch.long, device=dev)
+    stops = torch.zeros(buf_len, b, dtype=torch.bool, device=dev)
     keep = min(n_pre, max_seqlen)
     tokens[:keep] = pre_tokens.transpose(0, 1)[:keep]
     pre_stop = (pre_tokens == stop_id).all(dim=-1)  # (b, n_pre)
     stops[:keep] = pre_stop.T[:keep]
     att_buf = None
     if return_att:
-        att_buf = torch.zeros(max_seqlen, b, att_pre.shape[1], x_enc.shape[1],
+        att_buf = torch.zeros(buf_len, b, att_pre.shape[1], x_enc.shape[1],
                               dtype=att_pre.dtype, device=dev)
         att_buf[:keep] = att_pre.permute(2, 0, 1, 3)[:keep]
     stopped = pre_stop.any(dim=1)
     y_embd = embed(pre_tokens[:, -1].T[:, :, None])[:, 0]  # (b, d)
 
+    if L:
+        state = add_lazy_buffers(state, L, dtype=y_embd0.dtype)
+
     t = n_pre
     while t < max_seqlen and (force_max_seqlen or not bool(stopped.all())):
-        logits, att, state = model.decode_step(y_embd, x_enc, state, time_step=t)
-        toks = sample(logits)  # (b, q)
-        tokens[t] = toks
-        is_stop = (toks == stop_id).all(dim=-1)
-        stops[t] = is_stop
-        if return_att:
-            att_buf[t] = att
-        y_embd = embed(toks.T[:, :, None])[:, 0]
-        stopped = stopped | is_stop
-        t += 1
+        # one token, or in lazy mode one window of L tokens and a fold
+        for j in range(L or 1):
+            logits, att, state = model.decode_step(
+                y_embd, x_enc, state, time_step=t, lazy_p=j if L else None)
+            toks = sample(logits)  # (b, q)
+            tokens[t] = toks
+            is_stop = (toks == stop_id).all(dim=-1)
+            stops[t] = is_stop
+            if return_att:
+                att_buf[t] = att
+            y_embd = embed(toks.T[:, :, None])[:, 0]
+            stopped = stopped | is_stop
+            t += 1
+        if L:
+            state = model.fold_lazy_state(state)
 
-    stop_mask = stops.T  # (b, max_seqlen)
+    stop_mask = stops[:max_seqlen].T  # (b, max_seqlen)
     first_stop = stop_mask.float().argmax(dim=1)
     n_steps = min(t, max_seqlen)
     lengths = torch.where(stop_mask.any(dim=1), first_stop + 1,
                           torch.full_like(first_stop, n_steps))
-    att = att_buf.permute(1, 0, 2, 3) if return_att else None
-    return GenerateResult(tokens.permute(2, 1, 0), stop_mask, lengths, att, n_steps)
+    att = att_buf[:max_seqlen].permute(1, 0, 2, 3) if return_att else None
+    return GenerateResult(tokens[:max_seqlen].permute(2, 1, 0), stop_mask, lengths, att, n_steps)
 
 
 def cut_outputs(result: GenerateResult, n_quant: int, n_special_token_in: int = 3):

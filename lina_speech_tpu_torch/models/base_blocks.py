@@ -154,7 +154,12 @@ class MixingBlock(nn.Module):
         x = self.cmix(self.norm2(x)) + x
         return (x, *aux) if aux is not None else x
 
-    def step(self, x_t: torch.Tensor, state):
-        y, state = self.tmix.step(self.norm1(x_t), state)
+    def step(self, x_t: torch.Tensor, state, lazy_p: Optional[int] = None):
+        """One decode token; ``lazy_p`` (the window position) takes the
+        tmix's lazy-window step instead of its classic one."""
+        if lazy_p is None:
+            y, state = self.tmix.step(self.norm1(x_t), state)
+        else:
+            y, state = self.tmix.step_lazy(self.norm1(x_t), state, lazy_p)
         x = y + x_t
         return self.cmix(self.norm2(x)) + x, state

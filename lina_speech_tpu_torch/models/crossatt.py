@@ -40,6 +40,12 @@ class ConvPos(nn.Module):
 
     The conv is a grouped ``F.conv1d``; on a GPU cuDNN runs f32 in TF32
     unless ``torch.backends.cudnn.allow_tf32`` is False.
+
+    ``valid`` ((b, p) bool, optional) zeroes the conv INPUT at padded
+    positions, so for any valid prefix the SAME-padded conv output equals
+    an unpadded run of that length exactly. Slot-based serving mixes text
+    lengths in one padded batch; without this the non-causal 31-tap window
+    sees learned embeddings of positions past the text tail.
     """
 
     def __init__(self, dim: int, max_seq_len: int = 2000, kernel_size: int = 31,
@@ -50,8 +56,12 @@ class ConvPos(nn.Module):
                                  groups=dim)
         self.dtype = dtype
 
-    def forward(self, pos: torch.Tensor) -> torch.Tensor:
+    def forward(self, pos: torch.Tensor,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         emb = self.embed(pos)  # (b, p, d)
+        if valid is not None:
+            emb = torch.where(valid[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                                 device=emb.device))
         out = F.conv1d(emb.transpose(1, 2), self.dw_conv.weight.to(self.dtype),
                        None, padding=self.dw_conv.padding,
                        groups=self.dw_conv.groups)
@@ -85,6 +95,10 @@ class CrossAttention(nn.Module):
         if self.rotary:
             rot = d_head // 2
             off = 0 if time_step is None else time_step
+            if isinstance(off, torch.Tensor) and off.ndim == 1:
+                # per-row decode offsets (slot-based serving: each slot sits
+                # at its own position) -> (b, 1, 1) over (b, h, n, rot)
+                off = off[:, None, None]
             qh = apply_rotary(qh, torch.arange(n, device=q.device) + off, rot)
             kh = apply_rotary(kh, torch.arange(m, device=q.device), rot)
         if mask is not None and mask.ndim == 3:
@@ -118,26 +132,39 @@ class BlindCrossAttention(nn.Module):
         else:
             raise ValueError(f"unknown pos_type {pos_type}")
 
-    def _proj_and_pos(self, q, k):
+    def _proj_and_pos(self, q, k, pos_valid=None):
         qh = self.ln_q(self.q(q))[:, None]  # single head: (b, 1, n, d)
         vh = self.ln_v(self.v(k))[:, None]
         kh = self.ln_k(self.k(k))[:, None]
         b, _, j, _ = kh.shape
-        pos_emb = self.pos_embed(torch.arange(j, device=k.device)[None, :]).to(qh.dtype)
-        pe = pos_emb[:, None].expand(b, 1, j, pos_emb.shape[-1])
+        pos = torch.arange(j, device=k.device)[None, :]
+        # pos_valid only matters for ConvPos: the sinusoidal embedding is
+        # per position, hence padding-invariant
+        if pos_valid is not None and isinstance(self.pos_embed, ConvPos):
+            pos_emb = self.pos_embed(pos, valid=pos_valid)
+        else:
+            pos_emb = self.pos_embed(pos)
+        pe = pos_emb.to(qh.dtype)[:, None].expand(b, 1, j, pos_emb.shape[-1])
         return qh, kh, vh, pe
 
     def forward(self, q, k, mask=None, pos_net_state=None,
-                return_weights: bool = False):
-        """Full sequence. Returns (out, att, pos_net_final_state)."""
-        qh, kh, vh, pe = self._proj_and_pos(q, k)
+                return_weights: bool = False, conv_history: bool = False,
+                pos_valid: Optional[torch.Tensor] = None):
+        """Full sequence. Returns (out, att, pos_net_final_state).
+
+        ``conv_history`` makes the pos_net consume its incoming conv rings
+        as causal history (see GatedLinearAttention.forward); ``pos_valid``
+        ((b, j) bool) makes ConvPos padding-exact for mixed text lengths.
+        """
+        qh, kh, vh, pe = self._proj_and_pos(q, k, pos_valid)
         if mask is not None and mask.ndim == 3:
             mask = mask[:, None]
         x, att1 = sdpa(qh, kh, pe, mask=mask, return_weights=return_weights)
         x = x[:, 0]
         if pos_net_state is not None:
             x, pos_net_final = self.pos_net(x, initial_state=pos_net_state,
-                                            output_final_state=True)
+                                            output_final_state=True,
+                                            conv_history=conv_history)
         else:
             x, pos_net_final = self.pos_net(x), None
         x, att2 = sdpa(x[:, None], pe, vh, mask=mask,
@@ -145,14 +172,17 @@ class BlindCrossAttention(nn.Module):
         att = torch.cat([att1, att2], dim=1) if att1 is not None else None
         return x[:, 0], att, pos_net_final
 
-    def step(self, q_t, k, pos_net_state, mask=None):
+    def step(self, q_t, k, pos_net_state, mask=None,
+             lazy_p: Optional[int] = None,
+             pos_valid: Optional[torch.Tensor] = None):
         """One decode token. q_t: (b, d); k: (b, j, d). Returns
-        (out (b, d), att (b, 2, j), new_pos_net_state)."""
-        qh, kh, vh, pe = self._proj_and_pos(q_t[:, None], k)
+        (out (b, d), att (b, 2, j), new_pos_net_state). ``lazy_p`` takes
+        the pos_net's lazy-window step."""
+        qh, kh, vh, pe = self._proj_and_pos(q_t[:, None], k, pos_valid)
         if mask is not None and mask.ndim == 3:
             mask = mask[:, None]
         x, att1 = sdpa(qh, kh, pe, mask=mask, return_weights=True)
-        x, pos_net_state = self.pos_net.step(x[:, 0, 0], pos_net_state)
+        x, pos_net_state = self.pos_net.step(x[:, 0, 0], pos_net_state, lazy_p)
         x, att2 = sdpa(x[:, None, None], pe, vh, mask=mask, return_weights=True)
         att = torch.cat([att1, att2], dim=1)[:, :, 0]
         return x[:, 0, 0], att, pos_net_state

@@ -69,21 +69,38 @@ class LinaModel(nn.Module):
         return self.txt_encoder(x_embd, mask=encoder_mask)
 
     def prefill(self, y_embd, x_enc, state: Optional[BackboneState] = None,
-                return_att: bool = False, crossatt_mask=None):
+                return_att: bool = False, crossatt_mask=None,
+                conv_history: bool = False, time_offset=0,
+                crossatt_pos_valid: Optional[torch.Tensor] = None):
         """Chunk-parallel prefill of (b, t, d) forced embeddings. Returns
-        (logits (b, t, q, l), att, final_state)."""
+        (logits (b, t, q, l), att, final_state). ``conv_history`` and
+        ``time_offset`` make a chunk that continues a stream exact (see
+        AttentiveGLA.forward)."""
         y_hat, att, final_state = self.attentive_rnn(
             y_embd, x_enc, mask=crossatt_mask, init_state=state,
-            return_att=return_att, output_final_state=True)
+            return_att=return_att, output_final_state=True,
+            conv_history=conv_history, time_offset=time_offset,
+            crossatt_pos_valid=crossatt_pos_valid)
         return self._head(y_hat), att, final_state
 
     def decode_step(self, y_embd, x_enc, state: BackboneState, time_step=None,
-                    crossatt_mask=None):
-        """One AR token: (b, d) -> (logits (b, q, l), att, new_state)."""
-        y, att, state = self.attentive_rnn.step(y_embd, x_enc, state,
-                                                mask=crossatt_mask,
-                                                time_step=time_step)
+                    crossatt_mask=None, lazy_p: Optional[int] = None,
+                    crossatt_pos_valid: Optional[torch.Tensor] = None):
+        """One AR token: (b, d) -> (logits (b, q, l), att, new_state).
+
+        ``lazy_p`` selects the lazy-window decode step (read-only recurrent
+        states + window buffers; see generate.py ``lazy_window``).
+        ``crossatt_mask`` (b, 1, m) hides padded text positions and
+        ``crossatt_pos_valid`` (b, m) makes ConvPos padding-exact
+        (slot-based serving mixes text lengths in one batch).
+        """
+        y, att, state = self.attentive_rnn.step(
+            y_embd, x_enc, state, mask=crossatt_mask, time_step=time_step,
+            lazy_p=lazy_p, crossatt_pos_valid=crossatt_pos_valid)
         return self._head(y[:, None])[:, 0], att, state
+
+    def fold_lazy_state(self, state: BackboneState) -> BackboneState:
+        return self.attentive_rnn.fold_lazy_state(state)
 
     def empty_state(self, batch_size: int, device=None) -> BackboneState:
         return self.attentive_rnn.empty_state(batch_size, device=device)

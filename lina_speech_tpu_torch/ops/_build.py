@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles every source under ``csrc/`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-file name carries a hash of the sources and flags, so an edited source
-rebuilds and a built library is reused. Nothing here runs at import time:
+``nvcc`` compiles every source under ``csrc/`` for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, loaded with ``ctypes``. The file
+name carries a hash of the sources and flags, so an edited source rebuilds
+and a built library is reused. Nothing here runs at import time:
 the package imports on a machine without ``nvcc`` or a GPU.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of the last nvcc run
@@ -64,15 +65,29 @@ def build() -> Path:
         build_log = log.read_text() if log.exists() else ""
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(s) for s in srcs)]
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
+    objs = [out.parent / f"{s.stem}.{tag}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+    if not failed:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)
     return out
@@ -89,5 +104,11 @@ def load_library() -> ctypes.CDLL:
     lib.gla_chunk_conv_fwd.restype = i
     lib.gla_decode_conv_step.argtypes = [p] * 15 + [i] * 4 + [f, i, i, p]
     lib.gla_decode_conv_step.restype = i
+    lib.gla_chunk_fwd.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
+    lib.gla_chunk_fwd.restype = i
+    lib.gla_decode_lazy_conv_step.argtypes = [p] * 20 + [i] * 6 + [f, i, i, p]
+    lib.gla_decode_lazy_conv_step.restype = i
+    lib.gla_fold_window.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.gla_fold_window.restype = i
     _lib = lib
     return lib

@@ -8,7 +8,10 @@ Counterpart of ``lina_speech_tpu/ops/gla.py``. Per head, with log-gates
 - :func:`gla_scan_ref` -- the O(T) recurrence, the correctness oracle;
 - :func:`gla_chunk` -- the chunk-parallel form (every ``exp`` argument is
   <= 0, so it is stable under hard resets);
-- :func:`gla_decode_step` -- one token, update and readout.
+- :func:`gla_decode_step` -- one token, update and readout;
+- :func:`gla_decode_lazy_step` / :func:`gla_decode_lazy_fold` -- the same
+  recurrence with a read-only state between folds: a window of L tokens
+  rides small buffers and is folded into the state once per window.
 
 These are the plain versions; the CUDA kernels of the main path live in
 ``ops/gla_cuda.py``.
@@ -61,6 +64,49 @@ def gla_decode_step(q, k, v, gk, state, scale=None
     o = (torch.einsum("bhk,bhkv->bhv", qf * scale * eg, sf)
          + (qf * scale * kf).sum(-1, keepdim=True) * vf)
     return o.to(q.dtype), new_state.to(state.dtype)
+
+
+def gla_decode_lazy_step(q, k, v, gk, s_base, kbuf, vbuf, cbuf, cc, p: int,
+                         scale=None):
+    """Lazy-window decode step: the base state is only read.
+
+    q, k, gk: (b, h, dk); v: (b, h, dv); s_base: (b, h, dk, dv) state as of
+    the last fold; kbuf: (L, b, h, dk), vbuf: (L, b, h, dv) window token
+    buffers; cbuf: (L, b, h, dk) f32 gate cumsums at each buffered token;
+    cc: (b, h, dk) f32 gate cumsum since the last fold; p: position in the
+    window (0-based).
+
+    Returns (o, kbuf, vbuf, cbuf, cc) with the token appended at slot ``p``
+    (new tensors; the inputs are left untouched). Slots ``j > p`` may hold
+    stale tokens of the previous window: they are masked, and the clamp
+    keeps every exp argument <= 0 whatever they hold (cc is non-increasing,
+    and cc <= cbuf[j] for the live slots j <= p).
+    """
+    scale = _default_scale(q, scale)
+    L = kbuf.shape[0]
+    qf, gf = q.float(), gk.float()
+    cc = cc + gf
+    kbuf, vbuf, cbuf = kbuf.clone(), vbuf.clone(), cbuf.clone()
+    kbuf[p], vbuf[p], cbuf[p] = k.to(kbuf.dtype), v.to(vbuf.dtype), cc.to(cbuf.dtype)
+
+    o = torch.einsum("bhk,bhkv->bhv", qf * scale * cc.exp(), s_base.float())
+    live = (torch.arange(L, device=q.device) <= p).float()[:, None, None, None]
+    w = (cc[None] - cbuf.float()).clamp(max=0.0).exp() * live
+    a = torch.einsum("bhk,lbhk->lbh", qf * scale, kbuf.float() * w)
+    o = o + torch.einsum("lbh,lbhv->bhv", a, vbuf.float())
+    return o.to(q.dtype), kbuf, vbuf, cbuf, cc
+
+
+def gla_decode_lazy_fold(s_base, kbuf, vbuf, cbuf, cc) -> torch.Tensor:
+    """Fold a FULL window of buffered tokens into the base state:
+    S = exp(cc) * S + sum_j (k_j * exp(min(cc - c_j, 0)))^T v_j, the
+    chunk-scan state update. Returns the new state only (a new tensor in
+    the base state's dtype); the buffers stay stale by contract and the
+    caller resets ``cc`` to zero."""
+    dec = (cc[None] - cbuf.float()).clamp(max=0.0).exp()
+    s = cc.exp()[..., None] * s_base.float() + torch.einsum(
+        "lbhk,lbhv->bhkv", kbuf.float() * dec, vbuf.float())
+    return s.to(s_base.dtype)
 
 
 def gla_chunk(q, k, v, gk, initial_state=None, scale=None,

@@ -95,3 +95,59 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
             sd[key] = val
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# ------------------------------------------------------------ decode states
+_STATE_FIELDS = ("s", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf", "cc")
+
+
+def backbone_state_from_arrays(state, device=None):
+    """A JAX ``BackboneState`` given as arrays -> the port's.
+
+    ``state`` is any object with ``layers`` (a sequence) and ``pos_net``,
+    each entry carrying the GLA state fields (``s``, the conv rings and,
+    in lazy mode, the window buffers) as numpy-convertible arrays or None;
+    the JAX package's state dataclasses fit as they are. Layouts are the
+    same on both sides. bfloat16 arrays stay bfloat16, everything else
+    keeps its numpy dtype. Quantized states (``s_scale``) are not ported.
+    """
+    from lina_speech_tpu_torch.models.attentive_rnn import BackboneState
+    from lina_speech_tpu_torch.models.gla_layer import GLAState
+
+    def leaf(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes; numpy has no bf16
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))  # a writable copy
+        return t.to(device) if device is not None else t
+
+    def one(st):
+        if st is None:
+            return None
+        if getattr(st, "s_scale", None) is not None:
+            raise NotImplementedError("quantized states are not ported "
+                                      "(ROADMAP.md Queue 1 item 8)")
+        return GLAState(**{f: leaf(getattr(st, f, None)) for f in _STATE_FIELDS})
+
+    return BackboneState(layers=tuple(one(st) for st in state.layers),
+                         pos_net=one(state.pos_net))
+
+
+def backbone_state_to_arrays(state) -> Dict[str, np.ndarray]:
+    """The port's ``BackboneState`` -> {"layers/3/conv_q": f32 array, ...}
+    (``pos_net/...`` for the cross-attention's block), for comparison with
+    the JAX package's state leaf by leaf."""
+    out = {}
+    named = [(f"layers/{i}", st) for i, st in enumerate(state.layers)]
+    named.append(("pos_net", state.pos_net))
+    for prefix, st in named:
+        if st is None:
+            continue
+        for f in _STATE_FIELDS:
+            val = getattr(st, f)
+            if val is not None:
+                out[f"{prefix}/{f}"] = val.detach().float().cpu().numpy()
+    return out

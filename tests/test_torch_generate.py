@@ -45,7 +45,7 @@ def _jax_tiny(seed):
 def test_golden_tiny_reproduced():
     golden = json.load(open(GOLDEN))
     _, params, x = _jax_tiny(golden["seed"])
-    tm = load_jax_params(torch_build(torch_tiny()), params)
+    tm = load_jax_params(torch_build(torch_tiny(), device="cpu"), params)
     res = generate_batch(tm, torch.from_numpy(x), max_seqlen=golden["steps"],
                          first_greedy_quant=0, force_max_seqlen=True)
     assert res.tokens.tolist() == golden["tokens"]
@@ -57,7 +57,7 @@ def test_greedy_generate_with_prompt_matches_jax():
     kw = dict(max_seqlen=20, first_greedy_quant=0, return_att=True)
     jres = jax_generate(jm, params, jnp.asarray(x), jax.random.PRNGKey(0),
                         prompt=jnp.asarray(prompt), **kw)
-    tm = load_jax_params(torch_build(torch_tiny()), params)
+    tm = load_jax_params(torch_build(torch_tiny(), device="cpu"), params)
     tres = generate_batch(tm, torch.from_numpy(x), prompt=torch.from_numpy(prompt), **kw)
     np.testing.assert_array_equal(tres.tokens.numpy(), np.asarray(jres.tokens))
     np.testing.assert_array_equal(tres.stop_mask.numpy(), np.asarray(jres.stop_mask))
@@ -70,13 +70,13 @@ def test_greedy_generate_with_prompt_matches_jax():
 
 
 def test_sampled_generate_and_unported_options():
-    tm = torch_build(torch_tiny(), seed=1)
+    tm = torch_build(torch_tiny(), device="cpu", seed=1)
     x = torch.randint(3, 256, (3, 5), generator=torch.Generator().manual_seed(0))
     res = generate_batch(tm, x, torch.Generator().manual_seed(1), max_seqlen=9, k=5,
                          force_max_seqlen=True)
     assert res.tokens.shape == (1, 3, 9) and res.n_steps == 9
     assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < tm.n_target_vocab
-    for kw in ({"lazy_window": 4}, {"weight_quant": "int8"}, {"cfg_coef": 1.5},
+    for kw in ({"weight_quant": "int8"}, {"state_quant": "int8"}, {"cfg_coef": 1.5},
                {"approx_topk": True}):
         with pytest.raises(NotImplementedError):
             generate_batch(tm, x, max_seqlen=4, **kw)

@@ -18,7 +18,7 @@ from lina_speech_tpu.ops import short_conv as jconv
 from lina_speech_tpu.ops import rotary as jrot
 from lina_speech_tpu.ops import tools as jtools
 from lina_speech_tpu.ops.gla_pallas import (
-    gla_chunk_conv_pallas, gla_decode_conv_fused,
+    gla_chunk_conv_pallas, gla_chunk_pallas, gla_decode_conv_fused,
 )
 from lina_speech_tpu_torch.ops import gla as tgla
 from lina_speech_tpu_torch.ops import gla_cuda
@@ -142,6 +142,28 @@ def test_chunk_conv_plain_matches_pallas(state_dtype, random_s0):
     _close(ts, js, F32_TOL if state_dtype == jnp.float32 else BF16_TOL)
 
 
+@pytest.mark.parametrize("state_dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("t", [37, 16, 2, 1])
+def test_chunk_plain_matches_pallas(state_dtype, t):
+    """gla_chunk (post-conv q, k, v) with a non-zero initial state and a
+    ragged t, down to a single token."""
+    q, k, v, gk, s0 = _gla_inputs(9, b=2, h=2, t=t, dk=16, dv=32)
+    js0 = jnp.asarray(s0).astype(state_dtype)
+    jo, js = gla_chunk_pallas(*map(jnp.asarray, (q, k, v, gk)), initial_state=js0,
+                              chunk_size=16, interpret=True)
+    ts0 = torch.from_numpy(np.array(js0.astype(jnp.float32))).to(
+        torch.bfloat16 if state_dtype == jnp.bfloat16 else torch.float32)
+    to, ts = gla_cuda.gla_chunk(*map(torch.from_numpy, (q, k, v, gk)), initial_state=ts0,
+                                chunk_size=16)
+    assert ts.dtype == ts0.dtype and to.dtype == torch.float32
+    _close(to, jo, F32_TOL)
+    _close(ts, js, F32_TOL if state_dtype == jnp.float32 else BF16_TOL)
+    o0, s_zero = gla_cuda.gla_chunk(*map(torch.from_numpy, (q, k, v, gk)))
+    assert s_zero.dtype == torch.float32
+    _close(o0, gla_chunk_pallas(*map(jnp.asarray, (q, k, v, gk)), chunk_size=16,
+                                interpret=True)[0], F32_TOL)
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_decode_conv_plain_matches_pallas(dtype):
     b, h, dk, dv, w = 2, 2, 16, 32, 4
@@ -171,4 +193,6 @@ def test_wrappers_count_no_launch_on_cpu():
     w = torch.ones(32, 4)
     gla_cuda.gla_chunk_conv(*map(torch.from_numpy, (xq, xk, xv, gk)), w, w,
                             torch.ones(64, 4))
-    assert gla_cuda.launch_counts() == {"gla_chunk_conv": 0, "gla_decode_conv": 0}
+    assert gla_cuda.launch_counts() == dict.fromkeys(
+        ("gla_chunk_conv", "gla_chunk", "gla_decode_conv", "gla_decode_lazy_conv",
+         "gla_fold"), 0)

@@ -50,7 +50,7 @@ def _make_pair(pos_type):
     y = jnp.ones((b, n, cfg.n_quant), jnp.int32)
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), x, y, jnp.ones((b, m, m), bool),
                               jnp.ones((b, n, m), bool), jnp.ones((b, n), bool))
-    tm = load_jax_params(torch_build(_torch_cfg(pos_type)), params)
+    tm = load_jax_params(torch_build(_torch_cfg(pos_type), device="cpu"), params)
     return jm, params, tm.eval()
 
 
@@ -91,7 +91,7 @@ def test_weight_bridge_round_trip(pair):
 
 def test_reference_state_dict_loads_strict():
     cfg = _torch_cfg("convolutional")
-    model = torch_build(cfg)
+    model = torch_build(cfg, device="cpu")
     sd = _reference_state_dict(
         np.random.default_rng(7), d=64, n_layer=cfg.backbone.n_layer,
         heads=cfg.backbone.heads, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook,
@@ -135,6 +135,63 @@ def test_gla_layer_prefill_and_step_match_jax(pair):
     for name in ("s", "conv_q", "conv_k", "conv_v"):
         _close(getattr(ts, name), getattr(js, name))
         _close(getattr(ts_t, name), getattr(js_t, name))
+
+
+@pytest.mark.parametrize("split", [[8, 4, 1], [2, 1, 10], [13]], ids=str)
+def test_gla_layer_chunked_prefill_matches_one_shot_and_jax(pair, split):
+    """forward() over chunks that thread the state, with conv_history from
+    the second chunk on (a chunk shorter than the conv width keeps the
+    tail of the incoming rings): equal to the one-shot forward, and to the
+    JAX layer run over the same chunks."""
+    jm, params, tm = pair
+    _, x = _rng_inputs(10, t=13)
+
+    def jrun(m, x):
+        tmix = m.attentive_rnn.encoder[0].tmix
+        st, off, outs = tmix.empty_state(x.shape[0]), 0, []
+        for i, c in enumerate(split):
+            o, st = tmix(x[:, off:off + c], initial_state=st, output_final_state=True,
+                         conv_history=i > 0)
+            outs.append(o)
+            off += c
+        return jnp.concatenate(outs, axis=1), st
+
+    jo, js = jm.apply(params, jnp.asarray(x), method=jrun)
+    tmix = tm.attentive_rnn.encoder[0].tmix
+    tx = torch.from_numpy(x)
+    with torch.no_grad():
+        full, st_full = tmix(tx, initial_state=tmix.empty_state(2), output_final_state=True)
+        st, off, outs = tmix.empty_state(2), 0, []
+        for i, c in enumerate(split):
+            o, st = tmix(tx[:, off:off + c], initial_state=st, output_final_state=True,
+                         conv_history=i > 0)
+            outs.append(o)
+            off += c
+    out = torch.cat(outs, dim=1)
+    _close(out, jo)
+    _close(out, full.numpy())
+    for name in ("s", "conv_q", "conv_k", "conv_v"):
+        _close(getattr(st, name), getattr(js, name))
+        _close(getattr(st, name), getattr(st_full, name).numpy())
+
+
+@pytest.mark.parametrize("pair", ["convolutional"], indirect=True)
+def test_conv_pos_valid_makes_padding_exact(pair):
+    """ConvPos(valid=...): a padded run equals the unpadded run at the valid
+    positions, and the JAX module's padded run."""
+    jm, params, tm = pair
+    pos_embed = tm.attentive_rnn.cross_att.pos_embed
+    m, mlen = 12, 7
+    valid = np.arange(m)[None] < mlen
+    with torch.no_grad():
+        unpadded = pos_embed(torch.arange(mlen)[None])
+        padded = pos_embed(torch.arange(m)[None])
+        masked = pos_embed(torch.arange(m)[None], valid=torch.from_numpy(valid))
+    assert not np.allclose(padded[:, :mlen].numpy(), unpadded.numpy(), atol=1e-6)
+    _close(masked[:, :mlen], unpadded.numpy(), 1e-6)
+    jmasked = jm.apply(params, jnp.arange(m)[None], jnp.asarray(valid),
+                       method=lambda mod, p, v: mod.attentive_rnn.cross_att.pos_embed(p, valid=v))
+    _close(masked, jmasked)
 
 
 def test_blind_cross_attention_matches_jax(pair):
@@ -200,10 +257,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         GatedLinearAttention(hidden_size=32, num_heads=2, kernel_mode="chunk_pallas")
     layer = GatedLinearAttention(hidden_size=32, num_heads=2, use_short_conv=True)
-    with pytest.raises(NotImplementedError):
-        layer(torch.zeros(1, 3, 32), initial_state=layer.empty_state(1), conv_history=True)
-    with pytest.raises(NotImplementedError):
-        layer.step_lazy(torch.zeros(1, 32), layer.empty_state(1), 0)
+    with pytest.raises(ValueError):  # a continuation needs the rings it continues
+        layer(torch.zeros(1, 3, 32), conv_history=True)
     with pytest.raises(NotImplementedError):
         torch_build(dataclasses.replace(torch_tiny(), backbone=dataclasses.replace(
             torch_tiny().backbone, kind="rwkv6")))

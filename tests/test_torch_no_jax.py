@@ -21,11 +21,17 @@ for info in pkgutil.walk_packages(lina_speech_tpu_torch.__path__, "lina_speech_t
     importlib.import_module(info.name)
 from lina_speech_tpu_torch.config import build_model, lina_gla_tiny
 from lina_speech_tpu_torch.generate import generate_batch
-model = build_model(lina_gla_tiny())
+model = build_model(lina_gla_tiny(), device="cpu")
 res = generate_batch(model, torch.randint(3, 256, (2, 5)), torch.Generator().manual_seed(0),
                      prompt=torch.randint(0, 50, (1, 2, 3)), max_seqlen=8, k=5,
                      force_max_seqlen=True)
 assert res.tokens.shape == (1, 2, 8)
+from lina_speech_tpu_torch.serving import DecodeServer
+srv = DecodeServer(model, n_slots=1, max_text_len=8, chunk=4, lazy=True)
+for n in (3, 5):
+    srv.submit(list(range(3, 3 + n)), prompt=[[7, 8, 9]], max_len=10)
+assert sorted(c.length for c in srv.run()) == [10, 10]
+assert not any(m.split(".")[0] == "lina_speech_tpu" for m in sys.modules)
 post = {m for m in sys.modules
         if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None}
 assert post == pre, sorted(post - pre)
