@@ -28,7 +28,32 @@ Phases, in order; any failure raises and exits non-zero:
    one a shape the kernel phase checked) and launch counts are checked, the
    5-chunk prefill against the one-shot prefill, and the server's logits and
    final states on the kernel path against the plain path under teacher
-   forcing, every state tensor within a share of its own magnitude.
+   forcing, every state tensor within a share of its own magnitude;
+6. backward kernel phase: gla_chunk_conv as training calls it (autograd
+   recording: the forward kernel, and the five CUDA kernels of the
+   hand-written backward behind a torch.autograd.Function) against the plain
+   version and autograd through it at the training shape b 8, t 512, 317 and
+   128, bf16 IO, with an f32, a bf16 and no initial state, random do and
+   dsf: o and the final state, and all eight gradient leaves, each within a
+   share of its own max|plain|, finite and non-zero; forward and backward
+   times beside their bounds and the plain version's;
+7. training phase: the flagship at full depth and width (f32 parameters,
+   bf16 compute, dropout 0.1 in the text encoder) takes five optimizer steps
+   of make_train_step on synthetic batches of 8 (audio length 128-512), the
+   last with grad_accum_steps=2; loss and grad_norm finite, launch counts per
+   micro-batch 25 forward and 25 backward and nothing else, every parameter
+   moved; on a batch of 2 the kernel path against the plain path: loss and
+   every parameter's gradient (finite, each within a share of its own
+   max|plain|); ms per step, frames per second, peak memory;
+8. tuning phase: initial-state tuning on the flagship through
+   train_initial_state (rank 1, batch 2, grad_acc 2, two optimizer updates):
+   the model takes no gradient and does not move, each of the 48 S0 params
+   has a finite non-zero gradient (the kernel's ds0), held against the plain
+   path on one micro-step;
+9. launched shapes phase: every (batch, length, initial state, wanted
+   gradients) on which phases 7 and 8 launched the forward and backward
+   kernels is held against the plain version as in phase 6, so no shape
+   that trained went unchecked at the kernel's own level.
 Each main-path run starts with the launch counts at 0 and reads them right
 after. The line before the last is a JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -73,6 +98,23 @@ TOL_LOGITS = 5e-2
 # other shapes, so the bf16 hidden stream differs by a few ulps and the leaves
 # of the late layers with it (an H100 reads 3.4e-2 at worst).
 TOL_STATE = 1e-1
+# Gradients of the hand-written backward vs autograd through the plain
+# version, relative to each leaf's own max|plain| (no floor): both compute in
+# f32 and round dx to bf16 (one ulp is 4e-3 of a value), and a bf16
+# pre-activation that rounds the other way moves silu' by an ulp.
+TOL_GRAD = 2e-2
+# Parameter gradients of the whole flagship, kernel path vs plain path
+# (bf16 compute through 25 layers): the o of every layer differs by bf16 ulps
+# between the paths, and the difference rides through the bf16 GEMMs (an
+# H100 reads 1.4e-2 at worst). Leaves whose gradient is zero in exact
+# arithmetic are left out (zero_gradient_mask).
+TOL_PARAM_GRAD = 3e-2
+TRAIN_T = (512, 317, 128)
+# (b, t, initial-state dtype or None, need_ds0, need_taps) at which the
+# training forward and its backward were held against their plain versions,
+# and what the training and tuning phases launched them on
+HELD, LAUNCHED = set(), set()
+TRAIN_BATCH, TRAIN_STEPS, MIN_AUDIO, MAX_AUDIO = 8, 5, 128, 512
 DEVICE = "cuda"
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores
@@ -80,6 +122,8 @@ PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("gla_chunk_conv", "lina_speech_tpu_torch/csrc/gla_chunk_conv.cu",
      "lina_speech_tpu/ops/gla_pallas.py:1289"),
+    ("gla_chunk_conv_bwd", "lina_speech_tpu_torch/csrc/gla_chunk_conv_bwd.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:861"),
     ("gla_chunk", "lina_speech_tpu_torch/csrc/gla_chunk.cu",
      "lina_speech_tpu/ops/gla_pallas.py:699"),
     ("gla_decode_conv", "lina_speech_tpu_torch/csrc/gla_decode_conv.cu",
@@ -168,7 +212,9 @@ def cold_pool(state):
 def ptxas_summary(log: str):
     """ptxas register / spill lines of the instantiations the main path
     launches (bf16 IO, bf16 state, head key dim 256)."""
-    labels = (("gla_decode_lazy_conv_kernel", "gla_decode_lazy_conv"),
+    labels = (("bwd_dq_kernel", "gla_chunk_conv_bwd dq sweep"),
+              ("bwd_dkv_kernel", "gla_chunk_conv_bwd dk/dv sweep"),
+              ("gla_decode_lazy_conv_kernel", "gla_decode_lazy_conv"),
               ("gla_decode_conv_kernel", "gla_decode_conv"),
               ("gla_fold_kernel", "gla_fold"), ("Lb1E", "gla_chunk_conv"),
               ("Lb0E", "gla_chunk"))
@@ -270,7 +316,8 @@ def kernel_inputs(torch, b, t, state_dtype, seed):
     return dict(
         xq=r(b, H, t, DK).to(bf), xk=r(b, H, t, DK).to(bf), xv=r(b, H, t, DV).to(bf),
         gk=gk, wq=(r(H * DK, 4) * 0.5).to(bf), wk=(r(H * DK, 4) * 0.5).to(bf),
-        wv=(r(H * DV, 4) * 0.5).to(bf), s0=r(b, H, DK, DV).to(state_dtype),
+        wv=(r(H * DV, 4) * 0.5).to(bf),
+        s0=None if state_dtype is None else r(b, H, DK, DV).to(state_dtype),
         rings=[r(4, b, H, d).to(bf) for d in (DK, DK, DV)])
 
 
@@ -856,6 +903,12 @@ def profile_decode(torch, model, x_enc, forced, follow, steps=8):
                 st = model.decode_step(follow[:, i], x_enc, st)[2]
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(prof, f"{steps} decode steps b{BATCH}", wall_ms)
+
+
+def print_profile(prof, what, wall_ms, top=8):
+    """Device busy share and the kernels with the most device time of a
+    torch.profiler run (the profiler's own overhead is in the wall time)."""
     from torch.autograd import DeviceType
 
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
@@ -866,10 +919,369 @@ def profile_decode(torch, model, x_enc, forced, follow, steps=8):
     if not events:
         print("profiler: no device time recorded; device busy share not measured")
         return
-    print(f"profiler, {steps} decode steps b{BATCH}: wall {wall_ms:.3f} ms, device busy "
+    print(f"profiler, {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.4f} of wall)")
-    for e in sorted(events, key=dev, reverse=True)[:8]:
+    for e in sorted(events, key=dev, reverse=True)[:top]:
         print(f"  {dev(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+
+def profiled(torch, fn, what, top=8):
+    """Run ``fn`` once under torch.profiler and print its device profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(prof, what, wall_ms, top)
+
+
+GRAD_LEAVES = ("xq", "xk", "xv", "gk", "wq", "wk", "wv", "s0")
+
+
+def check_grads(name, got, ref, rel, skip=lambda leaf: None, worst=None, named=()):
+    """Every gradient leaf of ``got`` (a dict) against ``ref``: finite,
+    non-zero, and within ``rel`` of that leaf's own max|ref| (no floor).
+    ``skip(leaf)`` may return a bool mask of elements that are not held.
+    Prints every leaf's error beside its max|ref| (or the ``worst`` ones and
+    those whose name holds one of ``named``), fails after printing, and
+    returns the largest error as a share of its leaf's max|ref|."""
+    import torch
+
+    rows, failed = [], []
+    for leaf, r in ref.items():
+        a = got[leaf]
+        if a is None or a.shape != r.shape or a.dtype != r.dtype:
+            failed.append(f"{leaf}: missing, or differs in shape or dtype")
+            continue
+        a, r = a.float(), r.float()
+        mask = skip(leaf)
+        if mask is not None:
+            if bool(mask.all()):
+                continue
+            a, r = a[~mask], r[~mask]
+        err, ref_max = float((a - r).abs().max()), float(r.abs().max())
+        if not bool(torch.isfinite(a).all()):
+            failed.append(f"{leaf}: not finite")
+        if not (ref_max > 0 and float(a.abs().max()) > 0):
+            failed.append(f"{leaf}: all zeros")
+        if not err <= rel * ref_max:
+            failed.append(f"{leaf}: max_abs_err {err} > {rel * ref_max}")
+        rows.append((err / max(ref_max, 1e-30), err, ref_max, leaf))
+    print(f"{name} (each leaf within {rel:.1e} of its own max|ref|):")
+    rows.sort(reverse=True)
+    shown = rows if worst is None else rows[:worst] + [
+        r for r in rows[worst:] if any(n in r[3] for n in named)][:12]
+    for share, err, ref_max, leaf in shown:
+        print(f"  {leaf}: max_abs_err {err:.3e}, max|ref| {ref_max:.3e}, relative {share:.3e}")
+    require(not failed, f"{name}: " + "; ".join(failed[:8]))
+    print(f"  {len(rows)} leaves ok")
+    return rows[0][0]
+
+
+def conv_grads(torch, fn, x, do, dsf, need_ds0=True, need_taps=True):
+    """(o, sf, gradients) of sum(o * do) + sum(sf * dsf) through ``fn`` (the
+    wrapper or its plain version) w.r.t. its inputs: the initial state only
+    where there is one and ``need_ds0``, the taps only with ``need_taps``."""
+    wanted = [n for n in GRAD_LEAVES if x[n] is not None
+              and (need_ds0 or n != "s0") and (need_taps or n not in ("wq", "wk", "wv"))]
+    args = {n: x[n] if n not in wanted else x[n].detach().clone().requires_grad_(True)
+            for n in GRAD_LEAVES}
+    o, sf = fn(*(args[n] for n in GRAD_LEAVES[:7]), initial_state=args["s0"])
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf.float()).sum()
+    grads = torch.autograd.grad(loss, [args[n] for n in wanted])
+    return o.detach(), sf.detach(), dict(zip(wanted, grads))
+
+
+def bwd_flops(b, t):
+    """Operations of the recurrent backward over t tokens: per token and
+    head the state recomputed and read out for dq (5 DK DV) and the dS
+    update, its decay, dk and dv (7 DK DV), plus the three convs forward and
+    transposed and their tap sums (24 per channel)."""
+    return b * H * t * (12 * DK * DV + 24 * (2 * DK + DV))
+
+
+def hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps):
+    """gla_chunk_conv as a training path calls it (autograd recording, bf16
+    IO) at one shape against its plain version: o, the final state and every
+    gradient leaf. ``st`` is the initial state's dtype, or None for no
+    initial state. Returns (inputs, do, dsf, gradients, largest error of a
+    gradient leaf relative to its max|plain|)."""
+    bf = torch.bfloat16
+    need_ds0 = need_ds0 and st is not None
+    x = kernel_inputs(torch, b, t, st, seed=300 + t)
+    g = torch.Generator(device=DEVICE).manual_seed(t)
+    do = torch.randn(b, H, t, DV, generator=g, device=DEVICE).to(bf)
+    dsf = torch.randn(b, H, DK, DV, generator=g, device=DEVICE).to(st or torch.float32)
+    before = gla_cuda.launch_counts()
+    o_k, s_k, got = conv_grads(torch, gla_cuda.gla_chunk_conv, x, do, dsf, need_ds0, need_taps)
+    after = gla_cuda.launch_counts()
+    o_p, s_p, ref = conv_grads(torch, gla_cuda.gla_chunk_conv_plain, x, do, dsf, need_ds0,
+                               need_taps)
+    torch.cuda.synchronize()
+    require(after["gla_chunk_conv_bwd"] == before["gla_chunk_conv_bwd"] + 1
+            and after["gla_chunk_conv"] == before["gla_chunk_conv"] + 1,
+            "the gradient did not go through the forward and backward kernels")
+    state = "none" if st is None else str(st).split(".")[-1]
+    name = (f"gla_chunk_conv b{b} t{t} initial state {state}"
+            f"{'' if need_taps else ', no tap gradients'}"
+            f"{'' if need_ds0 or st is None else ', no ds0'}")
+    print(f"{name}, forward:")
+    require(o_k.dtype == bf and s_k.dtype == s_p.dtype, "gla_chunk_conv output dtypes")
+    check("o", max_err(o_k, o_p), bound(o_p, TOL_BF16))
+    check("final state", max_err(s_k, s_p), bound(s_p, TOL_BF16 if st == bf else TOL_F32))
+    worst = check_grads(f"{name}, backward", got, ref, TOL_GRAD)
+    HELD.add((b, t, st, need_ds0, need_taps))
+    return x, do, dsf, got, worst
+
+
+def bwd_kernel_phase(torch, gla_cuda, summary):
+    """gla_chunk_conv's forward and hand-written backward vs the plain
+    version and autograd through it at the training shape (b8 h4 dk256
+    dv512, bf16 IO), t 512, 317 and 128, with an f32, a bf16 and no initial
+    state; times at t512 with the bf16 state."""
+    bf = torch.bfloat16
+    for st in (torch.float32, bf, None):
+        for t in TRAIN_T:
+            x, do, dsf, got, worst = hold_training_shape(
+                torch, gla_cuda, TRAIN_BATCH, t, st, True, True)
+            if st != bf or t != TRAIN_T[0]:
+                continue
+            args = tuple(x[n] for n in GRAD_LEAVES[:7])
+            with torch.no_grad():
+                fwd_ms, fwd_plain_ms = timed_pair(
+                    f"gla_chunk_conv forward t{t}",
+                    lambda: gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"]),
+                    lambda: gla_cuda.gla_chunk_conv_plain(*args, initial_state=x["s0"]), 5)
+            o_k, s_k = gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"])
+            fwd_bound, by = roofline(nbytes(*args, x["s0"], o_k, s_k),
+                                     scan_flops(TRAIN_BATCH, t, True), bf)
+            print(f"  gla_chunk_conv forward t{t}: kernel {fwd_ms:.6f} ms, plain "
+                  f"{fwd_plain_ms:.6f} ms, bound {fwd_bound:.6f} ms by {by}")
+            bwd = lambda: gla_cuda.gla_chunk_conv_bwd(*args, x["s0"], do, dsf)
+            plain_both = lambda: conv_grads(torch, gla_cuda.gla_chunk_conv_plain, x, do, dsf)
+            ms, plain = [], []
+            for which in ("plain", "kernel", "kernel", "plain"):
+                if which == "kernel":
+                    ms.append(device_ms(bwd, 5))
+                else:  # autograd's backward is not captured in a graph: eager
+                    plain.append(eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms)
+            print(f"  gla_chunk_conv_bwd device ms: kernel {ms}; plain backward (eager forward "
+                  f"and backward on the host's clock, less the plain forward) {plain}")
+            mean = lambda xs: sum(xs) / len(xs)
+            # the backward's max_abs_err is the largest error of a leaf as a
+            # share of that leaf's max|plain|: the leaves' sizes differ 1e3-fold
+            record(summary, "gla_chunk_conv_bwd", worst, mean(ms), mean(plain),
+                   nbytes(*args, x["s0"], do, dsf, *got.values()),
+                   bwd_flops(TRAIN_BATCH, t), bf)
+            scratch = 2 * (DV // 32) * TRAIN_BATCH * H * t * DK * 4
+            print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of dq/dk parts")
+            profiled(torch, lambda: [bwd() for _ in range(3)],
+                     f"3 calls of gla_chunk_conv_bwd t{t}", top=4)
+
+
+def read_launches(gla_cuda):
+    """The wrappers' launch counts, with the shapes the two training kernels
+    were launched on since the last reset noted in LAUNCHED."""
+    shapes = gla_cuda.training_launch_shapes()
+    LAUNCHED.update(shapes["gla_chunk_conv_bwd"])
+    require({s[:3] for s in shapes["gla_chunk_conv_bwd"]} == shapes["gla_chunk_conv"],
+            f"forward and backward launched on different shapes: {shapes}")
+    return gla_cuda.launch_counts()
+
+
+def launched_shapes_phase(torch, gla_cuda):
+    """Every (batch, length, initial state, wanted gradients) the training
+    and tuning phases gave the forward and backward kernels is held against
+    the plain version now, unless the backward kernel phase held it."""
+    require(LAUNCHED, "the training and tuning phases noted no launch")
+    new = sorted(LAUNCHED - HELD, key=str)
+    print(f"the training and tuning phases launched gla_chunk_conv and its backward on "
+          f"{len(LAUNCHED)} shapes, {len(new)} of them not held yet:")
+    for b, t, st, need_ds0, need_taps in new:
+        hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps)
+    require(LAUNCHED <= HELD, f"launched but not held: {sorted(LAUNCHED - HELD, key=str)}")
+
+
+def zero_gradient_mask(torch, name, grad):
+    """Elements whose gradient is zero in exact arithmetic, so that what a
+    run computes there is rounding noise: the key-side bias of a softmax
+    attention (adding a constant to every key moves no softmax), be it the
+    bias of the key projection or of the norm in front of it."""
+    mask = torch.zeros_like(grad, dtype=torch.bool)
+    if name.endswith(("cross_att.ln_k.bias", "cross_att.k.bias")):
+        mask[:] = True
+    elif name.endswith("qkv.bias"):
+        n = grad.shape[0] // 3
+        mask[n:2 * n] = True
+    return mask
+
+
+def model_grads(torch, model, batch):
+    """(loss, {name: gradient}) of the model's training forward."""
+    model.zero_grad(set_to_none=True)
+    loss = model(batch["text_token"], batch["audio_token"], batch["encoder_mask"],
+                 batch["crossatt_mask"], logits_mask=batch["y_mask"])[1]
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def training_phase(torch, np, gla_cuda, card_line):
+    """The flagship trains: five optimizer steps at b8, the last with two
+    micro-batches, then the kernel path against the plain path on a batch
+    of 2 (the plain version's autograd saves several GB per layer at b8)."""
+    from lina_speech_tpu_torch.config import build_model, lina_gla_169m
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.train.harness import (
+        TrainConfig, batch_to_device, create_train_state, make_train_step,
+    )
+
+    cfg = lina_gla_169m(compute_dtype="bfloat16")
+    model = build_model(cfg, device=DEVICE, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == N_PARAMS, f"{n_params} parameters, expected {N_PARAMS}")
+    require(all(p.dtype == torch.float32 for p in model.parameters()), "parameters not f32")
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = create_train_state(model, TrainConfig(n_warmup_steps=2, n_training_steps=100))
+    steps = {1: make_train_step(model), 2: make_train_step(model, grad_accum_steps=2)}
+    batches = synthetic_tts_batches(batch_size=TRAIN_BATCH, n_quant=cfg.n_quant,
+                                    n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
+                                    max_audio_len=MAX_AUDIO, seed=0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    total = dict.fromkeys(gla_cuda.launch_counts(), 0)
+    torch.cuda.reset_peak_memory_stats()
+    print(f"training the flagship: {n_params:,} f32 parameters, bf16 compute, batches of "
+          f"{TRAIN_BATCH}, audio length {MIN_AUDIO}-{MAX_AUDIO}")
+    for i in range(TRAIN_STEPS):
+        accum = 2 if i == TRAIN_STEPS - 1 else 1
+        batch = batch_to_device(next(batches), DEVICE)
+        frames, padded = int(batch["y_mask"].sum()), batch["y_mask"].numel()
+        torch.cuda.synchronize()
+        gla_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = steps[accum](state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches(gla_cuda)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        print(f"  step {i} (grad_accum_steps={accum}, lr {state.schedule(i):.2e}): loss "
+              f"{loss:.4f}, grad_norm {norm:.4f}, acc_0 {float(metrics['acc_0']):.4f}, "
+              f"{ms:.1f} ms, {frames} frames ({padded} padded, t {batch['y_mask'].shape[1]}) -> "
+              f"{frames / ms * 1e3:.0f} frames/s [{card_line}]")
+        require(np.isfinite(loss) and np.isfinite(norm) and norm > 0,
+                f"step {i}: loss {loss}, grad_norm {norm}")
+        expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS * accum,
+                        gla_chunk_conv_bwd=N_GLA_LAYERS * accum)
+        add_launches(total, launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory over the {TRAIN_STEPS} steps: {peak / 2**30:.2f} GiB "
+          f"({peak} bytes) [{card_line}]")
+    require(state.step == TRAIN_STEPS, f"{state.step} optimizer steps")
+    still = [n for n, p in model.named_parameters()
+             if not bool(torch.isfinite(p).all()) or torch.equal(p, start[n])]
+    require(not still, f"parameters that did not move or are not finite: {still[:6]}")
+    print(f"  all {len(start)} parameter tensors moved and are finite")
+    del start
+    batch = batch_to_device(next(batches), DEVICE)
+    gla_cuda.reset_launch_counts()
+    profiled(torch, lambda: steps[1](state, batch, gen), "one train step b8", top=10)
+    read_launches(gla_cuda)
+    del state, steps
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # kernel path vs plain path: same weights, dropout off, a batch of 2
+    model.eval()
+    small = batch_to_device(next(synthetic_tts_batches(
+        batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
+        max_audio_len=MAX_AUDIO, seed=1)), DEVICE)
+    gla_cuda.reset_launch_counts()
+    loss_k, grads_k = model_grads(torch, model, small)
+    expect_launches(read_launches(gla_cuda), gla_chunk_conv=N_GLA_LAYERS,
+                    gla_chunk_conv_bwd=N_GLA_LAYERS)
+    set_kernel_mode(model, "chunk")
+    gla_cuda.reset_launch_counts()
+    loss_p, grads_p = model_grads(torch, model, small)
+    expect_launches(gla_cuda.launch_counts())
+    set_kernel_mode(model, "auto")
+    torch.cuda.synchronize()
+    print(f"flagship training forward and backward, kernel path vs plain path, batch of 2 "
+          f"(t {small['y_mask'].shape[1]}): loss {loss_k:.6f} vs {loss_p:.6f}")
+    check("loss", abs(loss_k - loss_p), 1e-2 * abs(loss_p))
+    check_grads("parameter gradients, kernel path vs plain path", grads_k, grads_p,
+                TOL_PARAM_GRAD, worst=6, named=("conv1d", "gk_proj"),
+                skip=lambda leaf: zero_gradient_mask(torch, leaf, grads_p[leaf]))
+    return model, cfg, total
+
+
+def tuning_phase(torch, np, gla_cuda, model, cfg, card_line):
+    """Initial-state tuning on the flagship: rank 1, batch 2, grad_acc 2."""
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+    from lina_speech_tpu_torch.train.initial_state import (
+        InitialStateTuningConfig, make_tuning_step, train_initial_state, tuning_leaves,
+    )
+
+    config = InitialStateTuningConfig(rank=1, batch_size=2, grad_acc=2)
+    data = synthetic_tts_batches(batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook,
+                                 min_audio_len=MIN_AUDIO, max_audio_len=MAX_AUDIO, seed=2,
+                                 structured=True, speaker=1)
+    batches = [batch_to_device(next(data), DEVICE) for _ in range(4)]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_blocks = 2 * cfg.backbone.n_layer
+
+    # one micro-step on each path from the same S0 params: the gradients
+    grads = {}
+    for mode in ("auto", "chunk"):
+        set_kernel_mode(model, mode)
+        params = model.attentive_rnn.init_state_tuning_params(
+            torch.Generator(device=DEVICE).manual_seed(config.seed), rank=1, scale=config.scale)
+        leaves = tuning_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        step = make_tuning_step(model, config, params, torch.optim.Adam(leaves, lr=config.lr))
+        gla_cuda.reset_launch_counts()
+        step(0, batches[0])
+        if mode == "auto":
+            expect_launches(read_launches(gla_cuda), gla_chunk_conv=N_GLA_LAYERS,
+                            gla_chunk_conv_bwd=N_GLA_LAYERS)
+        else:
+            expect_launches(gla_cuda.launch_counts())
+        grads[mode] = {f"block {i} {'kv'[j]}": leaf.grad
+                       for i, p in enumerate(params) for j, leaf in enumerate(p)}
+    set_kernel_mode(model, "auto")
+    require(len(grads["auto"]) == 2 * n_blocks, f"{len(grads['auto'])} S0 gradient leaves")
+    check_grads(f"S0 gradients of {n_blocks} blocks (the kernel's ds0), kernel path vs plain "
+                "path", grads["auto"], grads["chunk"], TOL_PARAM_GRAD, worst=6)
+
+    torch.cuda.synchronize()
+    gla_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    tuned, losses = train_initial_state(model, batches, config)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    launches = read_launches(gla_cuda)
+    print(f"train_initial_state: {len(batches)} micro-steps of batch 2, "
+          f"{len(batches) // config.grad_acc} optimizer updates, losses "
+          f"{[round(x, 4) for x in losses]}, {ms:.1f} ms per micro-step [{card_line}]")
+    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS * len(batches),
+                    gla_chunk_conv_bwd=N_GLA_LAYERS * len(batches))
+    require(all(np.isfinite(x) for x in losses), f"losses {losses}")
+    fresh = tuning_leaves(model.attentive_rnn.init_state_tuning_params(
+        torch.Generator(device=DEVICE).manual_seed(config.seed), rank=1, scale=config.scale))
+    moved = [bool(torch.isfinite(a).all()) and not torch.equal(a.detach(), b)
+             for a, b in zip(tuning_leaves(tuned), fresh)]
+    require(len(moved) == 2 * n_blocks and all(moved), "S0 params that did not move")
+    require(all(p.grad is None for p in model.parameters()), "the model took a gradient")
+    require(all(torch.equal(p, before[n]) for n, p in model.named_parameters()),
+            "the model's parameters moved")
+    print(f"  {len(moved)} S0 params moved; the model's {len(before)} tensors took no "
+          "gradient and did not move")
+    return launches
 
 
 def main():
@@ -899,6 +1311,13 @@ def main():
     lazy_kernel_phase(torch, gla_cuda, summary)
     model, cfg, launches = generate_phase(torch, np, gla_cuda, card_line)
     add_launches(launches, serving_phase(torch, np, gla_cuda, model, cfg, card_line))
+    del model
+    torch.cuda.empty_cache()
+    bwd_kernel_phase(torch, gla_cuda, summary)
+    model, cfg, train_launches = training_phase(torch, np, gla_cuda, card_line)
+    add_launches(launches, train_launches)
+    add_launches(launches, tuning_phase(torch, np, gla_cuda, model, cfg, card_line))
+    launched_shapes_phase(torch, gla_cuda)
     kernels = []
     for name, source, replaces in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")

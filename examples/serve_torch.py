@@ -36,7 +36,7 @@ def main():
 
     from lina_speech_tpu_torch.config import build_model, lina_gla_tiny, load_config
     from lina_speech_tpu_torch.serving import DecodeServer
-    from lina_speech_tpu_torch.utils.tokenizer import ByteTokenizer
+    from lina_speech_tpu_torch.data.tokenizer import ByteTokenizer
 
     cfg = load_config(args.config)["model"] if args.config else lina_gla_tiny()
     model = build_model(cfg, device="cpu" if args.cpu else None, seed=2).eval()

@@ -118,7 +118,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
 
     The model is built on the GPU: ``device=None`` means ``"cuda"`` and
     raises without one. The CPU is used only when the caller asks for it
-    (``device="cpu"``).
+    (``device="cpu"``). It comes back in eval mode (no dropout).
     """
     from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA
     from lina_speech_tpu_torch.models.encoder import TextEncoder
@@ -141,6 +141,9 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     if b.cp_axis is not None:
         raise NotImplementedError(
             "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
+    if b.remat:
+        raise NotImplementedError(
+            "rematerialization is not ported yet (ROADMAP.md Queue 1 item 6)")
 
     if device is None:
         if not torch.cuda.is_available():
@@ -152,7 +155,8 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     dtype = torch_dtype(cfg.compute_dtype)
     rnn = AttentiveGLA(
         d_model=b.d_model, n_layer=b.n_layer, heads=b.heads,
-        d_blind=b.d_blind, blind=b.blind, cross_att_pp=b.cross_att_pp,
+        dropout=b.dropout, d_blind=b.d_blind, blind=b.blind,
+        cross_att_pp=b.cross_att_pp,
         rotary=b.rotary, use_short_conv=b.use_short_conv,
         expand_k=b.expand_k, expand_v=b.expand_v, pos_type=b.pos_type,
         chunk_size=b.chunk_size, dtype=dtype,
@@ -160,7 +164,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     )
     te = cfg.text_encoder
     txt_encoder = TextEncoder(dim=te.dim, heads=te.heads, n_layers=te.n_layers,
-                              rotary=te.rotary, dtype=dtype)
+                              dropout=te.dropout, rotary=te.rotary, dtype=dtype)
     model = LinaModel(
         attentive_rnn=rnn,
         d_model=cfg.d_model,
@@ -175,7 +179,9 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         dtype=dtype,
     )
     init_params(model, torch.Generator().manual_seed(seed))
-    return model.to(device)
+    # inference mode, as the JAX package's ``deterministic=True`` default:
+    # the train step switches dropout on (``model.train()``)
+    return model.to(device).eval()
 
 
 _NESTED_CONFIGS = {

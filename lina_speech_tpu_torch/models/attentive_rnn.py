@@ -7,7 +7,7 @@ the state an explicit :class:`BackboneState` threaded by the caller.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,6 +58,7 @@ def add_lazy_buffers(state: BackboneState, window: int,
 
 class AttentiveGLA(nn.Module):
     def __init__(self, d_model: int = 1024, n_layer: int = 12, heads: int = 4,
+                 dropout: float = 0.0,
                  d_blind: Optional[int] = None, blind: bool = False,
                  cross_att_pp: bool = False, rotary: bool = False,
                  use_short_conv: bool = False, expand_k: float = 1.0,
@@ -71,6 +72,7 @@ class AttentiveGLA(nn.Module):
                 "CrossAttentionPP is not ported yet (ROADMAP.md Queue 1 item 3)")
         self.d_model, self.n_layer, self.heads = d_model, n_layer, heads
         self.blind = blind
+        self.expand_k, self.expand_v = expand_k, expand_v
         self.d_blind = d_model if d_blind is None else d_blind
         self.dtype, self.state_dtype = dtype, state_dtype
 
@@ -78,7 +80,8 @@ class AttentiveGLA(nn.Module):
             return MixingBlock(d, GatedLinearAttention(
                 hidden_size=d, num_heads=heads, use_short_conv=use_short_conv,
                 expand_k=expand_k, expand_v=expand_v, chunk_size=chunk_size,
-                kernel_mode=kernel_mode, dtype=dtype), SwiGLU(d, dtype=dtype))
+                kernel_mode=kernel_mode, dtype=dtype), SwiGLU(d, dtype=dtype),
+                dropout=dropout)
 
         self.encoder = nn.ModuleList(block(d_model) for _ in range(n_layer))
         self.decoder = nn.ModuleList(block(d_model) for _ in range(n_layer))
@@ -97,9 +100,16 @@ class AttentiveGLA(nn.Module):
     def forward(self, x, ctx, mask=None, init_state: Optional[BackboneState] = None,
                 return_att: bool = False, output_final_state: bool = False,
                 conv_history: bool = False, time_offset=0,
-                crossatt_pos_valid: Optional[torch.Tensor] = None):
+                crossatt_pos_valid: Optional[torch.Tensor] = None,
+                reset_mask: Optional[torch.Tensor] = None,
+                crossatt_pos: Optional[torch.Tensor] = None):
         """x: (b, t, d) audio embeddings; ctx: (b, m, d) text encoding.
         Returns (y, att) or (y, att, final_state).
+
+        ``reset_mask`` ((b, t) bool) wipes every mixer's state where it is
+        True (the first token of each packed segment) and ``crossatt_pos``
+        gives the blind cross-attention its text positions (training on
+        packed batches).
 
         ``conv_history`` makes every mixer consume ``init_state``'s conv
         rings as causal history and ``time_offset`` offsets the rotary
@@ -115,8 +125,8 @@ class AttentiveGLA(nn.Module):
         def run(blk, x, st):
             if use_state:
                 return blk(x, initial_state=st, output_final_state=True,
-                           conv_history=conv_history)
-            return blk(x), None
+                           conv_history=conv_history, reset_mask=reset_mask)
+            return blk(x, reset_mask=reset_mask), None
 
         finals = []
         for i, blk in enumerate(self.encoder):
@@ -128,7 +138,8 @@ class AttentiveGLA(nn.Module):
                 x, ctx, mask=mask,
                 pos_net_state=init_state.pos_net if use_state else None,
                 return_weights=return_att, conv_history=conv_history,
-                pos_valid=crossatt_pos_valid)
+                pos_valid=crossatt_pos_valid, pos=crossatt_pos,
+                reset_mask=reset_mask)
         else:
             v, att = self.cross_att(x, ctx, mask=mask, time_step=time_offset,
                                     return_weights=return_att)
@@ -188,3 +199,43 @@ class AttentiveGLA(nn.Module):
         layers = tuple(mk(b) for b in list(self.encoder) + list(self.decoder))
         pos_net = mk(self.cross_att.pos_net) if self.blind else None
         return BackboneState(layers=layers, pos_net=pos_net)
+
+    # ---------- initial-state tuning (speaker adaptation) ----------
+    def _layer_dims(self) -> Tuple[int, int]:
+        key_dim = int(self.d_model * self.expand_k)
+        value_dim = int(self.d_model * self.expand_v)
+        return key_dim // self.heads, value_dim // self.heads
+
+    def init_state_tuning_params(self, generator: torch.Generator,
+                                 rank: Optional[int] = 1, scale: float = 0.02) -> List:
+        """Per-block LoRA-factorized S0 params (reference gla.py:336-356),
+        drawn from ``generator`` on its device.
+
+        Each of the 2*n_layer blocks gets (k: (1, r, h, d_k, 1),
+        v: (1, r, h, 1, d_v)); with rank=None a full (1, h, d_k, d_v)."""
+        dk, dv = self._layer_dims()
+        randn = lambda *s: torch.randn(*s, generator=generator, device=generator.device)
+        params = []
+        for _ in range(2 * self.n_layer):
+            if rank is not None:
+                params.append((randn(1, rank, self.heads, dk, 1),
+                               randn(1, rank, self.heads, 1, dv) * scale))
+            else:
+                params.append(randn(1, self.heads, dk, dv) * scale)
+        return params
+
+    def state_from_params(self, params: List, batch_size: int,
+                          scale: float = 0.02) -> BackboneState:
+        """Materialize tuning params into a BackboneState (gla.py:315-325):
+        f32 states on the params' device, differentiable w.r.t. them."""
+        first = params[0][0] if isinstance(params[0], tuple) else params[0]
+        state = self.empty_state(batch_size, device=first.device)
+        layers = list(state.layers)
+        for i, p in enumerate(params):
+            if isinstance(p, tuple):
+                s = torch.einsum("brhko,brhov->bhkv", p[0], p[1]) * scale
+            else:
+                s = p
+            s = s.expand(batch_size, *s.shape[1:]).float().contiguous()
+            layers[i] = dataclasses.replace(layers[i], s=s)
+        return dataclasses.replace(state, layers=tuple(layers))

@@ -79,6 +79,37 @@ def sdpa(q, k, v, mask=None, return_weights: bool = False
     return out, (w if return_weights else None)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout drawn from an explicit ``torch.Generator``.
+
+    Active in training mode only. The generator is not a constructor
+    argument: the owner of the model hands one to every Dropout with
+    :func:`set_dropout_generator` (it must live on the device of the
+    activations). Training with ``p > 0`` and no generator raises.
+    """
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in training mode needs a generator: "
+                               "call set_dropout_generator(model, generator)")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Hand ``generator`` to every :class:`Dropout` of ``model``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class SwiGLU(nn.Module):
     """SwiGLU MLP, hidden d*4//3, gate first (reference base_blocks.py:42-50)."""
 
@@ -132,18 +163,19 @@ class SelfAttention(nn.Module):
 
 
 class MixingBlock(nn.Module):
-    """Pre-norm residual block: x += tmix(ln(x)); x += cmix(ln(x)).
+    """Pre-norm residual block: x += tmix(ln(x)); x += cmix(ln(x)); dropout.
 
     ``tmix`` may return (y, aux) (GLA returning its state); aux goes back
     to the caller. ``step`` runs one decode token through a stateful tmix.
-    Reference base_blocks.py:56-69; dropout is a training matter.
+    Reference base_blocks.py:56-69.
     """
 
-    def __init__(self, d: int, tmix: nn.Module, cmix: nn.Module):
+    def __init__(self, d: int, tmix: nn.Module, cmix: nn.Module, dropout: float = 0.0):
         super().__init__()
         self.tmix, self.cmix = tmix, cmix
         self.norm1 = LayerNorm(d)
         self.norm2 = LayerNorm(d)
+        self.drop = Dropout(dropout) if dropout > 0.0 else None
 
     def forward(self, x: torch.Tensor, **tmix_kwargs):
         out = self.tmix(self.norm1(x), **tmix_kwargs)
@@ -152,6 +184,8 @@ class MixingBlock(nn.Module):
             out, aux = out[0], out[1:]
         x = out + x
         x = self.cmix(self.norm2(x)) + x
+        if self.drop is not None:
+            x = self.drop(x)
         return (x, *aux) if aux is not None else x
 
     def step(self, x_t: torch.Tensor, state, lazy_p: Optional[int] = None):

@@ -132,12 +132,13 @@ class BlindCrossAttention(nn.Module):
         else:
             raise ValueError(f"unknown pos_type {pos_type}")
 
-    def _proj_and_pos(self, q, k, pos_valid=None):
+    def _proj_and_pos(self, q, k, pos_valid=None, pos=None):
         qh = self.ln_q(self.q(q))[:, None]  # single head: (b, 1, n, d)
         vh = self.ln_v(self.v(k))[:, None]
         kh = self.ln_k(self.k(k))[:, None]
         b, _, j, _ = kh.shape
-        pos = torch.arange(j, device=k.device)[None, :]
+        if pos is None:
+            pos = torch.arange(j, device=k.device)[None, :]
         # pos_valid only matters for ConvPos: the sinusoidal embedding is
         # per position, hence padding-invariant
         if pos_valid is not None and isinstance(self.pos_embed, ConvPos):
@@ -149,14 +150,19 @@ class BlindCrossAttention(nn.Module):
 
     def forward(self, q, k, mask=None, pos_net_state=None,
                 return_weights: bool = False, conv_history: bool = False,
-                pos_valid: Optional[torch.Tensor] = None):
+                pos_valid: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None,
+                reset_mask: Optional[torch.Tensor] = None):
         """Full sequence. Returns (out, att, pos_net_final_state).
 
         ``conv_history`` makes the pos_net consume its incoming conv rings
         as causal history (see GatedLinearAttention.forward); ``pos_valid``
         ((b, j) bool) makes ConvPos padding-exact for mixed text lengths.
+        ``pos`` ((1 or b, j) int) replaces the text positions 0..j-1 (a
+        packed batch restarts them per segment) and ``reset_mask`` ((b, n)
+        bool) wipes the pos_net's state at segment starts.
         """
-        qh, kh, vh, pe = self._proj_and_pos(q, k, pos_valid)
+        qh, kh, vh, pe = self._proj_and_pos(q, k, pos_valid, pos)
         if mask is not None and mask.ndim == 3:
             mask = mask[:, None]
         x, att1 = sdpa(qh, kh, pe, mask=mask, return_weights=return_weights)
@@ -164,9 +170,10 @@ class BlindCrossAttention(nn.Module):
         if pos_net_state is not None:
             x, pos_net_final = self.pos_net(x, initial_state=pos_net_state,
                                             output_final_state=True,
-                                            conv_history=conv_history)
+                                            conv_history=conv_history,
+                                            reset_mask=reset_mask)
         else:
-            x, pos_net_final = self.pos_net(x), None
+            x, pos_net_final = self.pos_net(x, reset_mask=reset_mask), None
         x, att2 = sdpa(x[:, None], pe, vh, mask=mask,
                        return_weights=return_weights)
         att = torch.cat([att1, att2], dim=1) if att1 is not None else None

@@ -19,11 +19,12 @@ class TextEncoder(nn.Module):
     """
 
     def __init__(self, dim: int, heads: int, n_layers: int = 4,
-                 rotary: bool = True, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.1, rotary: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.sa = nn.ModuleList(
             MixingBlock(dim, SelfAttention(dim, heads, rotary=rotary, dtype=dtype),
-                        SwiGLU(dim, dtype=dtype))
+                        SwiGLU(dim, dtype=dtype), dropout=dropout)
             for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor,

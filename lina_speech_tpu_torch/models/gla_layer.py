@@ -8,7 +8,9 @@ gate. Each path runs a wrapper of ``ops/gla_cuda.py`` -- the CUDA kernel
 for CUDA tensors, its plain version for CPU tensors -- unless
 ``kernel_mode="chunk"`` asks for the plain versions on every device:
 
-- a prefill from the start of a stream: ``gla_chunk_conv`` (convs fused);
+- a prefill from the start of a stream, and the training forward:
+  ``gla_chunk_conv`` (convs fused), differentiable on the card through its
+  hand-written backward;
 - a prefill chunk that continues a stream (``conv_history=True``): the
   convs run here on the carried rings, then ``gla_chunk``;
 - a classic decode token (``step``): ``gla_decode_conv``;
@@ -187,9 +189,14 @@ class GatedLinearAttention(nn.Module):
                                self.conv_size, self.dtype, state_dtype, device)
 
     # ---------- shared math ----------
-    def _gates(self, x: torch.Tensor) -> torch.Tensor:
+    def _gates(self, x: torch.Tensor, reset_mask: Optional[torch.Tensor] = None,
+               reset_val: float = -20.0) -> torch.Tensor:
         g = self.gk_proj[1](self.gk_proj[0](x))
-        return F.logsigmoid(g.float()) / self.gate_logit_normalizer
+        gk = F.logsigmoid(g.float()) / self.gate_logit_normalizer
+        if reset_mask is not None:
+            # reset_mask broadcasts over the gate feature dim (gla.py:182-184)
+            gk = gk.masked_fill(reset_mask[..., None], reset_val)
+        return gk
 
     def _heads(self, z: torch.Tensor, d: int) -> torch.Tensor:
         """(b, t, h*d) -> contiguous (b, h, t, d)."""
@@ -206,11 +213,15 @@ class GatedLinearAttention(nn.Module):
 
     # ---------- full sequence (prefill) ----------
     def forward(self, x: torch.Tensor, initial_state: Optional[GLAState] = None,
-                output_final_state: bool = False, conv_history: bool = False):
+                output_final_state: bool = False, conv_history: bool = False,
+                reset_mask: Optional[torch.Tensor] = None, reset_val: float = -20.0):
         """x: (b, t, d) -> (b, t, d) [, GLAState if output_final_state].
 
         By default the conv rings are zero at sequence start (causal
-        padding) and ``initial_state.s`` seeds the recurrence.
+        padding) and ``initial_state.s`` seeds the recurrence (generation
+        prefill, initial-state tuning). ``reset_mask`` ((b, t) bool) sets
+        the log-gates to ``reset_val`` where it is True, which wipes the
+        state at the first token of each packed segment.
         ``conv_history=True`` also consumes ``initial_state``'s conv rings
         as the causal history of this chunk: an exact continuation of a
         stream (serving prefills a prompt as a few power-of-two chunks).
@@ -220,7 +231,7 @@ class GatedLinearAttention(nn.Module):
             raise ValueError("conv_history=True requires initial_state")
         s0 = initial_state.s if initial_state is not None else None
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        gh = self._heads(self._gates(x), self.head_qk_dim)
+        gh = self._heads(self._gates(x, reset_mask, reset_val), self.head_qk_dim)
         if self.use_short_conv and not use_hist:
             o, s_final = self._kernel("gla_chunk_conv")(
                 self._heads(q, self.head_qk_dim), self._heads(k, self.head_qk_dim),

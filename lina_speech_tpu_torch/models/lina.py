@@ -1,9 +1,13 @@
 """LinaModel: embeddings, text encoder, backbone and logits head (port).
 
 Counterpart of ``lina_speech_tpu/models/lina.py`` (reference
-model/modeling_lina.py) for generation: ``embed_tokens``, ``encode_text``,
-the chunk-parallel ``prefill`` and the one-token ``decode_step``. The
-training forward and loss come with the training slice.
+model/modeling_lina.py): the training ``forward`` with its masked
+cross-entropy, and for generation ``embed_tokens``, ``encode_text``, the
+chunk-parallel ``prefill`` and the one-token ``decode_step``.
+
+Dropout and the classifier-free text masking act in training mode only
+(``model.train()``) and draw from the generator handed to
+:meth:`LinaModel.set_generator`.
 """
 from __future__ import annotations
 
@@ -14,8 +18,8 @@ import torch
 import torch.nn as nn
 
 from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA, BackboneState
-from lina_speech_tpu_torch.models.base_blocks import Embedding
-from lina_speech_tpu_torch.models.multiembed import MultiEmbedding
+from lina_speech_tpu_torch.models.base_blocks import Embedding, set_dropout_generator
+from lina_speech_tpu_torch.models.multiembed import MultiEmbedding, head_logits
 
 
 class LogitsHead(nn.Module):
@@ -46,6 +50,13 @@ class LinaModel(nn.Module):
             self.logits_head = LogitsHead(n_quant, self.n_target_vocab, d_model)
         self.txt_encoder = txt_encoder
         self.attentive_rnn = attentive_rnn
+        self.generator: Optional[torch.Generator] = None
+
+    def set_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator (on the model's device) that dropout and the text
+        masking draw from in training mode."""
+        self.generator = generator
+        set_dropout_generator(self, generator)
 
     @property
     def n_target_vocab(self) -> int:
@@ -54,8 +65,7 @@ class LinaModel(nn.Module):
     def _head(self, y_hat: torch.Tensor) -> torch.Tensor:
         if self.tie_embed:
             return self.rvq_embed.attend(y_hat)
-        return torch.einsum("bnd,qld->bnql", y_hat,
-                            self.logits_head.weight.to(self.dtype))
+        return head_logits(y_hat, self.logits_head.weight.to(self.dtype))
 
     def embed_tokens(self, y: torch.Tensor) -> torch.Tensor:
         """(q, b, n) token ids -> (b, n, d) summed quantizer embeddings."""
@@ -67,6 +77,45 @@ class LinaModel(nn.Module):
         if self.txt_encoder is None:
             return x_embd
         return self.txt_encoder(x_embd, mask=encoder_mask)
+
+    def forward(self, x, y, encoder_mask=None, crossatt_mask=None, logits_mask=None,
+                reset_mask=None, init_state: Optional[BackboneState] = None,
+                crossatt_pos=None, return_att: bool = False):
+        """The training forward. x: (b, m) text ids; y: (b, n, q) delayed
+        codec ids. Returns (logits (b, n-1, q, l), loss, att).
+
+        The loss is the cross-entropy of y[:, 1:] in f32, ignoring target 1
+        (modeling_lina.py:106) and positions outside ``logits_mask`` (b, n),
+        averaged over the positions that count (at least 1).
+        """
+        if self.mask_text_p > 0.0 and self.training:
+            if self.generator is None:
+                raise RuntimeError("text masking in training mode needs a "
+                                   "generator: call model.set_generator(generator)")
+            drop = torch.rand(x.shape[0], generator=self.generator,
+                              device=x.device) < self.mask_text_p
+            x = torch.where(drop[:, None], self.n_txt_vocab - 1, x)
+
+        y_embd = self.embed_tokens(y.permute(2, 0, 1))  # (b, n, d)
+        x_enc = self.encode_text(x, encoder_mask)
+        ca_mask = crossatt_mask[:, :-1] if crossatt_mask is not None else None
+        # the backbone consumes y[:, :-1]; align per-position masks with it
+        if reset_mask is not None and reset_mask.shape[1] == y.shape[1]:
+            reset_mask = reset_mask[:, :-1]
+        y_hat, att = self.attentive_rnn(
+            y_embd[:, :-1], x_enc, mask=ca_mask, reset_mask=reset_mask,
+            init_state=init_state, crossatt_pos=crossatt_pos,
+            return_att=return_att)[:2]
+
+        logits = self._head(y_hat)
+        target = y[:, 1:]  # (b, n-1, q)
+        logf = logits.float()
+        ce = torch.logsumexp(logf, dim=-1) - logf.gather(-1, target[..., None])[..., 0]
+        valid = target != 1
+        if logits_mask is not None:
+            valid = valid & logits_mask[:, 1:, None]
+        loss = (ce * valid).sum() / valid.sum().clamp(min=1)
+        return logits, loss, att
 
     def prefill(self, y_embd, x_enc, state: Optional[BackboneState] = None,
                 return_att: bool = False, crossatt_mask=None,

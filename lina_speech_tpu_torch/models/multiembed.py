@@ -12,6 +12,15 @@ import torch
 import torch.nn as nn
 
 
+def head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(b, n, d) x (q, l, d) -> (b, n, q, l) in the promoted dtype of the two,
+    as ``jnp.einsum`` promotes: with f32 parameters and bf16 compute the
+    hidden stream leaves the last LayerNorm in f32, and the head then runs in
+    f32 on the bf16-rounded weight."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum("bnd,qld->bnql", x.to(dtype), w.to(dtype))
+
+
 class MultiEmbedding(nn.Module):
     def __init__(self, n_level: int, n_emb: int, d_emb: int,
                  padding_idx: Optional[int] = 0,
@@ -28,4 +37,4 @@ class MultiEmbedding(nn.Module):
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied logits: (b, n, d) -> (b, n, q, l) against the embedding."""
-        return torch.einsum("bnd,qld->bnql", x, self.weight.to(self.dtype))
+        return head_logits(x, self.weight.to(self.dtype))

@@ -102,6 +102,8 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gla_chunk_conv_fwd.argtypes = [p] * 10 + [i] * 5 + [f, i, i, p]
     lib.gla_chunk_conv_fwd.restype = i
+    lib.gla_chunk_conv_bwd.argtypes = [p] * 22 + [i] * 5 + [f, i, i, p]
+    lib.gla_chunk_conv_bwd.restype = i
     lib.gla_decode_conv_step.argtypes = [p] * 15 + [i] * 4 + [f, i, i, p]
     lib.gla_decode_conv_step.restype = i
     lib.gla_chunk_fwd.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]

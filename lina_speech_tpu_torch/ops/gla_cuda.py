@@ -1,9 +1,14 @@
-"""The GLA kernels of the generate and serving paths: CUDA wrappers and
-their plain versions.
+"""The GLA kernels of the generate, serving and training paths: CUDA
+wrappers and their plain versions.
 
 - :func:`gla_chunk_conv` replaces ``gla_chunk_conv_pallas``
-  (lina_speech_tpu/ops/gla_pallas.py:1289), the prefill of every GLA layer
-  with the q/k/v short convs fused in. Kernel: ``csrc/gla_chunk_conv.cu``.
+  (lina_speech_tpu/ops/gla_pallas.py:1289), the prefill and the training
+  forward of every GLA layer with the q/k/v short convs fused in. Kernel:
+  ``csrc/gla_chunk_conv.cu``. It is differentiable: when autograd records,
+  it runs through a ``torch.autograd.Function`` whose backward is
+  :func:`gla_chunk_conv_bwd` (``csrc/gla_chunk_conv_bwd.cu``, replacing
+  ``_conv_bwd_kernel``, gla_pallas.py:861). The plain backward is autograd
+  through :func:`gla_chunk_conv_plain`.
 - :func:`gla_chunk` replaces ``gla_chunk_pallas`` (gla_pallas.py:699), the
   same scan on post-conv q/k/v: the prefill chunks that continue a stream
   from carried conv rings. Kernel: ``csrc/gla_chunk.cu``.
@@ -20,7 +25,9 @@ their plain versions.
 Each wrapper takes the JAX function's arguments in the JAX layout. For a
 CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
 tensor it launches the kernel or raises -- there is no fallback. Each
-counts its launches in a plain int attribute (``gla_chunk_conv.launches``).
+counts its launches in a plain int attribute (``gla_chunk_conv.launches``);
+the two training kernels also note the shapes they were launched on
+(:func:`training_launch_shapes`).
 The plain versions follow the Pallas kernels' conv rounding points: the f32
 tap sum is rounded to the IO dtype before an f32 silu.
 
@@ -42,20 +49,30 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CONV_WIDTH = 4
 _DK_SUPPORTED = (64, 128, 256)
 _BV = 32  # value columns per block (csrc/gla_common.cuh:kBV)
+_BWD_SEG = 64  # time steps per thread of the backward's finishing kernel (kFinishSeg)
 
 
 def _wrappers():
-    return (gla_chunk_conv, gla_chunk, gla_decode_conv, gla_decode_lazy_conv,
-            gla_fold)
+    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_decode_conv,
+            gla_decode_lazy_conv, gla_fold)
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
+    gla_chunk_conv.shapes, gla_chunk_conv_bwd.shapes = set(), set()
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _wrappers()}
+
+
+def training_launch_shapes() -> dict:
+    """What the conv-fused forward and its backward were launched on since
+    the last reset: for each a set of (b, t, dtype of the initial state or
+    None), the backward's with (need_ds0, need_taps) appended. A check that
+    drives a training path reads it to hold the kernels at those shapes."""
+    return {fn.__name__: set(fn.shapes) for fn in (gla_chunk_conv, gla_chunk_conv_bwd)}
 
 
 def _check(name: str, cond: bool, msg: str) -> None:
@@ -131,15 +148,31 @@ def gla_chunk_conv(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     if not xq.is_cuda:
         return gla_chunk_conv_plain(xq, xk, xv, gk, conv_q_w, conv_k_w,
                                     conv_v_w, initial_state, scale, chunk_size)
-    name = "gla_chunk_conv"
+    scale = xq.shape[-1] ** -0.5 if scale is None else scale
+    tensors = [xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w]
+    if initial_state is not None:
+        tensors.append(initial_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _GLAChunkConv.apply(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
+                                   initial_state, scale)
+    return _chunk_conv_launch(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
+                              initial_state, scale)
+
+
+def _check_chunk_conv_args(name, xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
+                           initial_state, *more):
+    """What the conv-fused prefill kernels take (``more``: further tensors
+    that must be contiguous on the same device); returns (b, h, t, dk, dv,
+    IO dtype, state dtype)."""
     b, h, t, dk = xq.shape
     dv = xv.shape[-1]
     io = xq.dtype
     st = torch.float32 if initial_state is None else initial_state.dtype
-    tensors = [xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w]
+    tensors = [xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w, *more]
     if initial_state is not None:
         tensors.append(initial_state)
     _check_cuda_args(name, tensors, io, dk, dv, st)
+    _check(name, t >= 1, "needs at least one step")
     _check(name, xk.shape == xq.shape and xk.dtype == io, "xk must match xq")
     _check(name, xv.shape == (b, h, t, dv) and xv.dtype == io, "xv shape/dtype")
     _check(name, gk.shape == xq.shape and gk.dtype == torch.float32,
@@ -149,7 +182,15 @@ def gla_chunk_conv(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
                f"taps must be ({h * d}, {_CONV_WIDTH}) in {io}")
     if initial_state is not None:
         _check(name, initial_state.shape == (b, h, dk, dv), "state shape")
-    scale = dk ** -0.5 if scale is None else scale
+    return b, h, t, dk, dv, io, st
+
+
+def _chunk_conv_launch(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
+                       initial_state, scale):
+    """Check the arguments and launch the forward kernel (CUDA tensors)."""
+    name = "gla_chunk_conv"
+    b, h, t, dk, dv, io, st = _check_chunk_conv_args(
+        name, xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w, initial_state)
     o = torch.empty(b, h, t, dv, dtype=io, device=xq.device)
     sf = torch.empty(b, h, dk, dv, dtype=st, device=xq.device)
     lib = _build.load_library()
@@ -161,10 +202,95 @@ def gla_chunk_conv(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
         ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk_conv.launches += 1
+    gla_chunk_conv.shapes.add((b, t, None if initial_state is None else st))
     return o, sf
 
 
-gla_chunk_conv.launches = 0
+gla_chunk_conv.launches, gla_chunk_conv.shapes = 0, set()
+
+
+def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
+                       initial_state, do, dsf, scale=None,
+                       need_ds0: bool = True, need_taps: bool = True):
+    """Backward of :func:`gla_chunk_conv` on CUDA tensors.
+
+    Inputs as the forward's, plus ``do`` (b, h, t, dv) in the IO dtype and
+    ``dsf`` (b, h, dk, dv) in the state dtype, the gradients of its two
+    outputs. Returns (dxq, dxk, dxv, dg, dwq, dwk, dwv, ds0): dx* in the IO
+    dtype, dg f32, the tap gradients (h * d, 4) in the IO dtype summed over
+    batch and time (None without ``need_taps``), ds0 in the state dtype
+    (None without ``need_ds0`` or without an initial state).
+
+    One call launches the five kernels of ``csrc/gla_chunk_conv_bwd.cu`` and
+    counts as one launch. Its scratch (the per-tile parts of dq and dk, 2 *
+    dv/32 * b*h*t*dk f32 values) is freed when the call returns.
+    """
+    name = "gla_chunk_conv_bwd"
+    _check(name, xq.is_cuda, "runs on CUDA tensors only; on the CPU take "
+           "autograd through gla_chunk_conv_plain")
+    b, h, t, dk, dv, io, st = _check_chunk_conv_args(
+        name, xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w, initial_state, do, dsf)
+    _check(name, do.shape == xv.shape and do.dtype == io, "do must match xv")
+    _check(name, dsf.shape == (b, h, dk, dv) and dsf.dtype == st,
+           f"dsf must be ({b}, {h}, {dk}, {dv}) in {st}")
+    scale = dk ** -0.5 if scale is None else scale
+    dev = xq.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dxq, dxk, dxv = torch.empty_like(xq), torch.empty_like(xk), torch.empty_like(xv)
+    dg = torch.empty_like(gk)
+    ds0 = (torch.empty_like(initial_state)
+           if need_ds0 and initial_state is not None else None)
+    n_ch = h * (2 * dk + dv)
+    dw = torch.empty(n_ch, _CONV_WIDTH, dtype=io, device=dev) if need_taps else None
+    n_seg = -(-t // _BWD_SEG)
+    dwp = torch.empty(b * n_seg, n_ch, _CONV_WIDTH, **f32) if need_taps else None
+    dgt = torch.empty(n_seg, b, h, dk, **f32)
+    tiles = dv // _BV
+    dqp = torch.empty(tiles, b, h, t, dk, **f32)
+    dkp = torch.empty(tiles, b, h, t, dk, **f32)
+    dsgp = torch.empty(tiles, b, h, dk, **f32)
+    dvf = torch.empty(b, h, t, dv, **f32)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.gla_chunk_conv_bwd(
+        _ptr(xq), _ptr(xk), _ptr(xv), _ptr(gk), _ptr(conv_q_w), _ptr(conv_k_w),
+        _ptr(conv_v_w), _ptr(initial_state), _ptr(do), _ptr(dsf), _ptr(dxq),
+        _ptr(dxk), _ptr(dxv), _ptr(dg), _ptr(ds0), _ptr(dw), _ptr(dqp),
+        _ptr(dkp), _ptr(dsgp), _ptr(dvf), _ptr(dgt), _ptr(dwp), b, h, t, dk, dv,
+        float(scale), _DTYPE_CODE[io], _DTYPE_CODE[st], ctypes.c_void_p(stream))
+    _raise_on(name, err)
+    gla_chunk_conv_bwd.launches += 1
+    gla_chunk_conv_bwd.shapes.add((b, t, None if initial_state is None else st,
+                                   ds0 is not None, need_taps))
+    if dw is None:
+        return dxq, dxk, dxv, dg, None, None, None, ds0
+    dwq, dwk, dwv = dw.split([h * dk, h * dk, h * dv])
+    return dxq, dxk, dxv, dg, dwq, dwk, dwv, ds0
+
+
+gla_chunk_conv_bwd.launches, gla_chunk_conv_bwd.shapes = 0, set()
+
+
+class _GLAChunkConv(torch.autograd.Function):
+    """:func:`gla_chunk_conv` on CUDA tensors under autograd: the forward
+    kernel, and :func:`gla_chunk_conv_bwd` as its backward. Nothing is saved
+    but the inputs: the backward recomputes the states from ``s0``."""
+
+    @staticmethod
+    def forward(ctx, xq, xk, xv, gk, wq, wk, wv, s0, scale):
+        o, sf = _chunk_conv_launch(xq, xk, xv, gk, wq, wk, wv, s0, scale)
+        ctx.save_for_backward(xq, xk, xv, gk, wq, wk, wv, s0)
+        ctx.scale = scale
+        return o, sf
+
+    @staticmethod
+    def backward(ctx, do, dsf):
+        *inputs, s0 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = gla_chunk_conv_bwd(
+            *inputs, s0, do.contiguous(), dsf.contiguous(), ctx.scale,
+            need_ds0=need[7], need_taps=any(need[4:7]))
+        return (*grads, None)
 
 
 # ------------------------------------------------------------- decode kernel
@@ -274,6 +400,10 @@ def gla_chunk(q, k, v, gk, initial_state=None, scale=None, chunk_size: int = 64
     io = q.dtype
     st = torch.float32 if initial_state is None else initial_state.dtype
     tensors = [q, k, v, gk] + ([] if initial_state is None else [initial_state])
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise NotImplementedError(
+            "gla_chunk has no backward kernel yet (ROADMAP.md Queue 2 row 2): "
+            "call it under torch.no_grad(), or train through gla_chunk_conv")
     _check_cuda_args(name, tensors, io, dk, dv, st)
     _check(name, t >= 1, "needs at least one step")
     _check(name, k.shape == q.shape and k.dtype == io, "k must match q")

@@ -1,1 +1,1 @@
-"""Utilities: weight conversion from the JAX package."""
+"""Utilities: weights, gradients and states to and from the JAX package's layout."""

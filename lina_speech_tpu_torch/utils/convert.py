@@ -1,11 +1,14 @@
-"""JAX param tree -> reference-named torch state_dict.
+"""JAX param tree <-> reference-named torch state_dict.
 
 The inverse of ``lina_speech_tpu/utils/checkpoint.py:convert_torch_lina``
 (its ``torch_key_for`` / ``_to_flax`` rules, re-stated here so this module
 imports no JAX). The port's modules carry the reference torch names, so
 the result loads with ``load_state_dict(strict=True)`` -- and so does the
 released reference checkpoint, after stripping its Lightning ``model.``
-root.
+root. :func:`named_tensors_to_jax` goes the other way, for gradients and
+updated parameters: tensors by torch name -> the JAX tree's paths and
+layouts, so that a training step compares leaf by leaf. Decode states and
+the S0 tuning params cross as arrays too.
 """
 from __future__ import annotations
 
@@ -54,6 +57,49 @@ def _to_torch(value: np.ndarray, flax_path: str) -> np.ndarray:
     if flax_path.endswith("/kernel") and v.ndim == 2:
         return v.T  # flax (in, out) -> Linear (out, in)
     return v
+
+
+def flax_path_for(torch_key: str) -> str:
+    """Reference state_dict key -> slash-joined flax param path: the
+    inverse of :func:`torch_key_for` on the port's parameter names."""
+    top = {"txt_embed.weight": "txt_embed/embedding", "rvq_embed.weight": "rvq_embed/weight",
+           "logits_head.weight": "logits_weight"}
+    if torch_key in top:
+        return top[torch_key]
+    p = re.sub(r"\.gk_proj\.0\.", ".gk_proj_1.", torch_key)
+    p = re.sub(r"\.gk_proj\.1\.", ".gk_proj_2.", p)
+    p = re.sub(r"\.(encoder|decoder|sa|blocks|convnext)\.(\d+)", r".\1_\2", p)
+    p = re.sub(rf"\.{_CONV}\.weight$", r".\1.kernel", p)
+    p = re.sub(r"\.pos_embed\.embed\.weight$", ".pos_embed.embed.embedding", p)
+    p = re.sub(r"\.pos_embed\.dw_conv\.weight$", ".pos_embed.conv_kernel", p)
+    p = re.sub(r"\.pos_embed\.dw_conv\.bias$", ".pos_embed.conv_bias", p)
+    p = re.sub(r"\.(norm1|norm2|ln_q|ln_k|ln_v)\.weight$", r".\1.scale", p)
+    if not p.endswith(".g_norm_swish_gate.weight"):
+        p = re.sub(r"\.weight$", ".kernel", p)
+    return p.replace(".", "/")
+
+
+def _to_flax(value: np.ndarray, flax_path: str) -> np.ndarray:
+    """Inverse of :func:`_to_torch`."""
+    v = np.asarray(value)
+    if re.search(rf"{_CONV}/kernel$", flax_path):
+        return v[:, 0, :]  # Conv1d (d, 1, w) -> (d, w)
+    if flax_path.endswith("pos_embed/conv_kernel"):
+        return v.transpose(2, 1, 0)  # Conv1d (d, 1, k) -> lax HIO (k, 1, d)
+    if flax_path.endswith("/kernel") and v.ndim == 2:
+        return v.T  # Linear (out, in) -> flax (in, out)
+    return v
+
+
+def named_tensors_to_jax(named) -> Dict[str, np.ndarray]:
+    """Tensors by torch parameter name (``named_parameters()``, or their
+    ``.grad``s) -> {flax path: f32 array in the JAX layout}."""
+    out = {}
+    for key, val in dict(named).items():
+        path = flax_path_for(key)
+        out[path] = np.ascontiguousarray(
+            _to_flax(val.detach().float().cpu().numpy(), path))
+    return out
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -151,3 +197,20 @@ def backbone_state_to_arrays(state) -> Dict[str, np.ndarray]:
             if val is not None:
                 out[f"{prefix}/{f}"] = val.detach().float().cpu().numpy()
     return out
+
+
+# ------------------------------------------------------- S0 tuning params
+def tuning_params_from_arrays(params, device=None):
+    """The JAX package's S0 tuning params (a list with, per block, a
+    ``(k, v)`` pair of arrays or one full-state array) -> the port's: the
+    same list of f32 tensors on ``device``."""
+    leaf = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
+    return [tuple(leaf(a) for a in p) if isinstance(p, (tuple, list)) else leaf(p)
+            for p in params]
+
+
+def tuning_params_to_arrays(params):
+    """The port's S0 tuning params (or their gradients, in the same
+    structure) -> the same list with numpy arrays."""
+    leaf = lambda t: t.detach().float().cpu().numpy()
+    return [tuple(leaf(t) for t in p) if isinstance(p, tuple) else leaf(p) for p in params]

@@ -194,5 +194,120 @@ def test_wrappers_count_no_launch_on_cpu():
     gla_cuda.gla_chunk_conv(*map(torch.from_numpy, (xq, xk, xv, gk)), w, w,
                             torch.ones(64, 4))
     assert gla_cuda.launch_counts() == dict.fromkeys(
-        ("gla_chunk_conv", "gla_chunk", "gla_decode_conv", "gla_decode_lazy_conv",
-         "gla_fold"), 0)
+        ("gla_chunk_conv", "gla_chunk_conv_bwd", "gla_chunk", "gla_decode_conv",
+         "gla_decode_lazy_conv", "gla_fold"), 0)
+
+
+# ------------------------------------------------ gla_chunk_conv gradients
+_LEAVES = ("xq", "xk", "xv", "gk", "wq", "wk", "wv", "s0")
+
+
+def _conv_grad_inputs(seed, t, b=2, h=2, dk=16, dv=32):
+    xq, xk, xv, gk, s0 = _gla_inputs(seed, b=b, h=h, t=t, dk=dk, dv=dv)
+    rng = np.random.default_rng(seed + 1)
+    taps = [rng.normal(size=(h * d, 4)).astype(np.float32) * 0.5 for d in (dk, dk, dv)]
+    return dict(zip(_LEAVES, (xq, xk, xv, gk, *taps, s0)))
+
+
+def _torch_conv_grads(x, loss_of):
+    leaves = [torch.from_numpy(x[n]).requires_grad_(True) for n in _LEAVES]
+    o, sf = gla_cuda.gla_chunk_conv(*leaves[:7], initial_state=leaves[7], chunk_size=16)
+    return torch.autograd.grad(loss_of(o, sf), leaves)
+
+
+@pytest.mark.parametrize("t", [40, 7])
+def test_chunk_conv_gradients_match_pallas_backward(t):
+    """All eight gradient leaves of the plain version under autograd against
+    jax.grad through the Pallas kernel's hand-written backward (interpret
+    mode, f32 residuals), f32 IO, non-zero s0, loss sum(o^2) + sum(sf^2);
+    each leaf within 2e-3 of max(1, max|ref|), as tests/test_gla_pallas.py
+    holds the Pallas backward itself."""
+    x = _conv_grad_inputs(20 + t, t)
+
+    def loss_jax(*a):
+        o, s = gla_chunk_conv_pallas(*a[:7], initial_state=a[7], chunk_size=16,
+                                     interpret=True, residual_dtype=jnp.float32)
+        return jnp.sum(o ** 2) + jnp.sum(s ** 2)
+
+    g_jax = jax.grad(loss_jax, argnums=tuple(range(8)))(*(jnp.asarray(x[n]) for n in _LEAVES))
+    g_torch = _torch_conv_grads(x, lambda o, sf: (o ** 2).sum() + (sf ** 2).sum())
+    for name, a, r in zip(_LEAVES, g_torch, g_jax):
+        r = np.asarray(r, np.float32).reshape(a.shape)
+        assert float(np.abs(r).max()) > 0, name
+        err = float(np.abs(a.numpy() - r).max())
+        assert err <= 2e-3 * max(1.0, float(np.abs(r).max())), (name, err)
+
+
+def _silu_grad(z):
+    s = torch.sigmoid(z)
+    return s * (1 + z * (1 - s))
+
+
+def _recurrent_backward(x, do, dsf, tile=8):
+    """The CUDA backward's algorithm (csrc/gla_chunk_conv_bwd.cu) written
+    with tensors: a forward sweep that recomputes S_t and emits dq and the
+    dsf . S_final term, a reverse sweep that carries the decayed dS and emits
+    dk, dv and ds0 -- both per tile of ``tile`` value columns, dq and dk
+    summed over the tiles afterwards --, then the running sum for dg, silu'
+    and the transposed conv with the tap sums."""
+    xq, xk, xv, gk, wq, wk, wv, s0 = (torch.from_numpy(x[n]) for n in _LEAVES)
+    b, h, t, dk = xq.shape
+    dv = xv.shape[-1]
+    scale = dk ** -0.5
+
+    def pre(xx, w):  # conv pre-activation (b, h, t, d); tap 0 oldest
+        xp = torch.nn.functional.pad(xx, (0, 0, 3, 0))
+        wh = w.reshape(h, -1, 4)
+        return sum(xp[:, :, i:i + t] * wh[None, :, None, :, i] for i in range(4))
+
+    zq, zk, zv = pre(xq, wq), pre(xk, wk), pre(xv, wv)
+    q, k, v = (z * torch.sigmoid(z) for z in (zq, zk, zv))
+    eg = gk.exp()
+    dq, dk_ = torch.zeros_like(q), torch.zeros_like(k)
+    dvv, ds0 = torch.zeros_like(v), torch.zeros_like(s0)
+    dsg = torch.zeros(b, h, dk)
+    for c0 in range(0, dv, tile):
+        cols = slice(c0, c0 + tile)
+        S = s0[..., cols].clone()
+        for i in range(t):
+            S = eg[:, :, i, :, None] * S + k[:, :, i, :, None] * v[:, :, i, None, cols]
+            dq[:, :, i] += scale * (S * do[:, :, i, None, cols]).sum(-1)
+        dsg += (dsf[..., cols] * S).sum(-1)
+        carry = dsf[..., cols].clone()
+        for i in reversed(range(t)):
+            dS = carry + scale * q[:, :, i, :, None] * do[:, :, i, None, cols]
+            dk_[:, :, i] += (dS * v[:, :, i, None, cols]).sum(-1)
+            dvv[:, :, i, cols] = (k[:, :, i, :, None] * dS).sum(-2)
+            carry = eg[:, :, i, :, None] * dS
+        ds0[..., cols] = carry
+    dg = torch.flip(torch.cumsum(torch.flip(q * dq - k * dk_, [2]), 2), [2]) + dsg[:, :, None]
+
+    def conv_bwd(dy, z, xx, w):
+        dz = dy * _silu_grad(z)
+        wh = w.reshape(h, -1, 4)
+        dzp = torch.nn.functional.pad(dz, (0, 0, 0, 3))
+        dx = sum(wh[None, :, None, :, 3 - j] * dzp[:, :, j:j + t] for j in range(4))
+        xp = torch.nn.functional.pad(xx, (0, 0, 3, 0))
+        dw = torch.stack([(dz * xp[:, :, i:i + t]).sum((0, 2)) for i in range(4)], -1)
+        return dx, dw.reshape(w.shape)
+
+    dxq, dwq = conv_bwd(dq, zq, xq, wq)
+    dxk, dwk = conv_bwd(dk_, zk, xk, wk)
+    dxv, dwv = conv_bwd(dvv, zv, xv, wv)
+    return dxq, dxk, dxv, dg, dwq, dwk, dwv, ds0
+
+
+@pytest.mark.parametrize("t", [40, 7, 1])
+def test_recurrent_backward_algorithm_matches_autograd(t):
+    """The identities the CUDA backward rests on, on the CPU in f32: the
+    recurrent formulas with random do and dsf give autograd's gradients of
+    the plain version (1e-4 of max(1, max|ref|): summation order only)."""
+    x = _conv_grad_inputs(30 + t, t)
+    rng = np.random.default_rng(t)
+    do = torch.from_numpy(rng.normal(size=x["xv"].shape).astype(np.float32))
+    dsf = torch.from_numpy(rng.normal(size=x["s0"].shape).astype(np.float32))
+    ref = _torch_conv_grads(x, lambda o, sf: (o * do).sum() + (sf * dsf).sum())
+    got = _recurrent_backward(x, do, dsf)
+    for name, a, r in zip(_LEAVES, got, ref):
+        err = float((a - r).abs().max())
+        assert err <= 1e-4 * max(1.0, float(r.abs().max())), (name, err)

@@ -236,3 +236,90 @@ def test_generate_kernel_path_matches_plain_path(cuda):
             assert counts == dict.fromkeys(counts, 0)
         tokens[mode] = res.tokens.cpu()
     assert torch.equal(tokens["auto"], tokens["chunk"])
+
+
+_GRAD_LEAVES = ("xq", "xk", "xv", "gk", "wq", "wk", "wv", "s0")
+
+
+def _chunk_conv_grads(fn, x, with_s0, seed=3):
+    """Gradients of sum(o * do) + sum(sf * dsf) through ``fn`` w.r.t. every
+    input (random do and dsf from ``seed``)."""
+    leaves = {n: x[n].detach().clone().requires_grad_(True)
+              for n in _GRAD_LEAVES if with_s0 or n != "s0"}
+    o, sf = fn(*(leaves[n] for n in _GRAD_LEAVES[:7]), initial_state=leaves.get("s0"))
+    g = torch.Generator(device=o.device).manual_seed(seed)
+    do = torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+    dsf = torch.randn(sf.shape, generator=g, device=o.device).to(sf.dtype)
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf.float()).sum()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return dict(zip(leaves, grads))
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 151, 256, 512), (3, 2, 5, 64, 96), (1, 3, 3, 128, 32),
+                                   (2, 2, 1, 64, 64), (1, 2, 70, 128, 64)])
+def test_chunk_conv_backward_kernel_matches_plain_backward(cuda, io, st, shape):
+    """All eight gradient leaves of the hand-written backward against
+    autograd through the plain version, each within a share of its own
+    max|plain|: 2e-3 for f32 IO (summation order), 2e-2 for bf16 IO (the
+    gradients are rounded to bf16, and a bf16 pre-activation that rounds the
+    other way moves silu' by an ulp). ``st=None``: no initial state."""
+    b, h, t, dk, dv = shape
+    x = _inputs(cuda, b, h, t, dk, dv, io, st or torch.float32, seed=t)
+    before = gla_cuda.launch_counts()
+    got = _chunk_conv_grads(gla_cuda.gla_chunk_conv, x, st is not None)
+    after = gla_cuda.launch_counts()
+    ref = _chunk_conv_grads(gla_cuda.gla_chunk_conv_plain, x, st is not None)
+    torch.cuda.synchronize()
+    assert after["gla_chunk_conv"] == before["gla_chunk_conv"] + 1
+    assert after["gla_chunk_conv_bwd"] == before["gla_chunk_conv_bwd"] + 1
+    tol = 2e-3 if io == torch.float32 else 2e-2
+    for name, r in ref.items():
+        a = got[name]
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        ref_max = float(r.float().abs().max())
+        if name == "gk" and t == 1 and st is None:
+            # one step from a zero state: the gate's gradient is zero, and the
+            # kernel's is a difference of equal terms of dxq's size
+            assert ref_max == 0
+            ref_max = float(ref["xq"].float().abs().max())
+        assert ref_max > 0, name
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * ref_max, (name, err, ref_max)
+
+
+def test_chunk_conv_backward_skips_what_needs_no_gradient(cuda):
+    """Only s0 requires grad (initial-state tuning): ds0 alone comes back and
+    matches, and the wrappers note the shape and what was wanted; under
+    no_grad the wrapper launches the forward only."""
+    x = _inputs(cuda, 2, 2, 9, 64, 64, torch.float32, torch.float32)
+    args = [x[n] for n in _GRAD_LEAVES[:7]]
+    s0 = x["s0"].clone().requires_grad_(True)
+    gla_cuda.reset_launch_counts()
+    o, sf = gla_cuda.gla_chunk_conv(*args, initial_state=s0)
+    (g,) = torch.autograd.grad((o ** 2).sum() + (sf ** 2).sum(), [s0])
+    assert gla_cuda.training_launch_shapes() == {
+        "gla_chunk_conv": {(2, 9, torch.float32)},
+        "gla_chunk_conv_bwd": {(2, 9, torch.float32, True, False)}}
+    s0p = x["s0"].clone().requires_grad_(True)
+    o, sf = gla_cuda.gla_chunk_conv_plain(*args, initial_state=s0p)
+    (gp,) = torch.autograd.grad((o ** 2).sum() + (sf ** 2).sum(), [s0p])
+    assert float((g - gp).abs().max()) <= 2e-3 * float(gp.abs().max())
+    before = gla_cuda.launch_counts()
+    with torch.no_grad():
+        o, _ = gla_cuda.gla_chunk_conv(*args, initial_state=s0)
+    assert o.grad_fn is None
+    after = gla_cuda.launch_counts()
+    assert after["gla_chunk_conv_bwd"] == before["gla_chunk_conv_bwd"]
+
+
+def test_chunk_without_conv_raises_when_a_gradient_is_asked(cuda):
+    x = _inputs(cuda, 1, 2, 8, 64, 64, torch.bfloat16, torch.bfloat16)
+    q = x["xq"].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 2 row 2"):
+        gla_cuda.gla_chunk(q, x["xk"], x["xv"], x["gk"])
+    with torch.no_grad():
+        o, _ = gla_cuda.gla_chunk(q, x["xk"], x["xv"], x["gk"])
+    assert o.grad_fn is None

@@ -276,3 +276,116 @@ def test_decode_continues_prefill(pair):
         _, _, st = tm.prefill(y[:, :-1], x_enc)
         last, _, _ = tm.decode_step(y[:, -1], x_enc, st)
     _close(last, full[:, -1].numpy())
+
+
+# ------------------------------------------------------------ training path
+def test_gla_layer_and_backbone_reset_mask_match_jax(pair):
+    """reset_mask through one GLA layer and through the whole AttentiveGLA
+    (every mixer and the blind cross-attention's pos_net), against JAX."""
+    jm, params, tm = pair
+    _, x = _rng_inputs(11, t=13)
+    ctx = np.random.default_rng(12).normal(size=(2, 7, 64)).astype(np.float32)
+    reset = np.zeros((2, 13), bool)
+    reset[:, 0] = reset[0, 5] = reset[1, 9] = True
+
+    def jrun(m, x, ctx, reset):
+        layer = m.attentive_rnn.encoder[0].tmix(x, reset_mask=reset)
+        y, _ = m.attentive_rnn(x, ctx, reset_mask=reset)
+        return layer, y
+
+    jl, jy = jm.apply(params, jnp.asarray(x), jnp.asarray(ctx), jnp.asarray(reset), method=jrun)
+    with torch.no_grad():
+        tx, tr = torch.from_numpy(x), torch.from_numpy(reset)
+        tl = tm.attentive_rnn.encoder[0].tmix(tx, reset_mask=tr)
+        ty, _ = tm.attentive_rnn(tx, torch.from_numpy(ctx), reset_mask=tr)
+        plain = tm.attentive_rnn.encoder[0].tmix(tx)
+    # the mixer's output is small at initialization: hold it to its own size
+    for t_val, j_val in ((tl, jl), (ty, jy)):
+        j_val = np.asarray(j_val)
+        assert float(np.abs(t_val.numpy() - j_val).max()) <= TOL * float(np.abs(j_val).max())
+    # the mask acts
+    assert float((tl - plain).abs().max()) > 0.1 * float(plain.abs().max())
+
+
+def _train_batch(kind, n_quant=1):
+    from lina_speech_tpu_torch.data.collate import collate_tts, packed_collate_tts
+    from lina_speech_tpu_torch.data.tokenizer import TextTokenizer
+
+    rng = np.random.default_rng(13)
+    items = [{"audio_token": rng.integers(0, 50, (n_quant, n)), "text": text}
+             for n, text in ((12, "pack one"), (9, "two"), (7, "and three"))]
+    if kind == "packed":
+        return packed_collate_tts(items, TextTokenizer())
+    batch = collate_tts(items, TextTokenizer())
+    batch["y_mask"][0, 4:6] = False  # a logits_mask that is not just padding
+    return batch
+
+
+@pytest.mark.parametrize("kind", ["padded", "packed"])
+def test_lina_forward_loss_and_gradients_match_jax(pair, kind):
+    """LinaModel.forward in eval mode: logits, loss and the gradient of
+    every parameter by name against jax.value_and_grad of the JAX model, on
+    a padded batch with a logits_mask and on a packed batch with reset_mask
+    and crossatt_pos. Each gradient leaf within 1e-4 of its own max|ref|
+    (plus 1e-7 for leaves whose gradient is zero in exact arithmetic, such
+    as the attention's key bias)."""
+    from lina_speech_tpu_torch.utils.convert import named_tensors_to_jax
+
+    jm, params, tm = pair
+    batch = _train_batch(kind)
+    keys = ("text_token", "audio_token", "encoder_mask", "crossatt_mask")
+
+    def loss_fn(p):
+        logits, loss, _ = jm.apply(
+            p, *(jnp.asarray(batch[k]) for k in keys), logits_mask=jnp.asarray(batch["y_mask"]),
+            reset_mask=None if kind == "padded" else jnp.asarray(batch["reset_mask"]),
+            crossatt_pos=None if kind == "padded" else jnp.asarray(batch["crossatt_pos"]))
+        return loss, logits
+
+    (jloss, jlogits), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    tm.zero_grad(set_to_none=True)
+    logits, loss, att = tm(*(tb[k] for k in keys), logits_mask=tb["y_mask"],
+                           reset_mask=tb.get("reset_mask"), crossatt_pos=tb.get("crossatt_pos"))
+    loss.backward()
+    assert att is None
+    _close(logits, jlogits)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    got = named_tensors_to_jax({n: p.grad for n, p in tm.named_parameters()})
+    ref = traverse_util.flatten_dict(jgrads["params"], sep="/")
+    assert set(got) == set(ref)
+    for path, r in ref.items():
+        r = np.asarray(r, np.float32)
+        assert got[path].shape == r.shape, path
+        err = float(np.abs(got[path] - r).max())
+        assert err <= 1e-4 * float(np.abs(r).max()) + 1e-7, (path, err, float(np.abs(r).max()))
+    tm.zero_grad(set_to_none=True)
+
+
+def test_training_mode_dropout_is_reproducible_and_absent_in_eval():
+    """Dropout (text encoder blocks) and the text masking draw from the
+    model's generator: the same seed gives the same loss, another seed
+    another loss, eval mode ignores the generator, and training without a
+    generator raises."""
+    cfg = torch_tiny(mask_text_p=0.3)
+    cfg = dataclasses.replace(cfg, text_encoder=dataclasses.replace(cfg.text_encoder, dropout=0.2),
+                              backbone=dataclasses.replace(cfg.backbone, dropout=0.1))
+    model = torch_build(cfg, device="cpu", seed=1)
+    assert not model.training
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in _train_batch("padded").items()}
+    args = (batch["text_token"], batch["audio_token"], batch["encoder_mask"],
+            batch["crossatt_mask"], batch["y_mask"])
+
+    def loss(seed):
+        model.set_generator(None if seed is None else torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            return float(model(*args)[1])
+
+    eval_loss = loss(None)
+    assert loss(5) == eval_loss
+    model.train()
+    a, b, c = loss(5), loss(5), loss(6)
+    assert a == b and a != c and a != eval_loss
+    with pytest.raises(RuntimeError, match="generator"):
+        loss(None)
+    model.eval()

@@ -1,8 +1,11 @@
 """The PyTorch port imports neither jax nor flax.
 
 A fresh interpreter blocks both (``sys.modules[name] = None`` makes any
-import of them fail), imports every module of the port and runs a tiny
-``generate_batch``; it then checks that no jax/flax module was loaded.
+import of them fail), imports every module of the port (``train/``,
+``data/`` and ``models/accuracy.py`` among them), runs a tiny
+``generate_batch``, a server, one train step, one S0 tuning step and
+``examples/train_torch.py``; it then checks that no jax/flax module and
+nothing of ``lina_speech_tpu`` was loaded.
 """
 import os
 import subprocess
@@ -31,6 +34,26 @@ srv = DecodeServer(model, n_slots=1, max_text_len=8, chunk=4, lazy=True)
 for n in (3, 5):
     srv.submit(list(range(3, 3 + n)), prompt=[[7, 8, 9]], max_len=10)
 assert sorted(c.length for c in srv.run()) == [10, 10]
+# the training path: data, one train step, one S0 tuning step, the example
+from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+from lina_speech_tpu_torch.train.harness import (
+    TrainConfig, batch_to_device, create_train_state, make_train_step)
+from lina_speech_tpu_torch.train.initial_state import (
+    InitialStateTuningConfig, train_initial_state)
+batch = batch_to_device(next(synthetic_tts_batches(
+    batch_size=2, n_codebook=50, min_audio_len=8, max_audio_len=8, pad_to_multiple=8)), "cpu")
+state = create_train_state(model, TrainConfig(n_warmup_steps=1, n_training_steps=4))
+state, metrics = make_train_step(model)(state, batch)
+assert state.step == 1 and float(metrics["grad_norm"]) > 0
+_, losses = train_initial_state(model, [batch], InitialStateTuningConfig(grad_acc=1))
+assert len(losses) == 1
+import importlib.util
+spec = importlib.util.spec_from_file_location("train_torch", "examples/train_torch.py")
+example = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(example)
+sys.argv = ["train_torch.py", "--cpu", "--steps", "1", "--batch", "2", "--min-len", "8",
+            "--max-len", "8"]
+example.main()
 assert not any(m.split(".")[0] == "lina_speech_tpu" for m in sys.modules)
 post = {m for m in sys.modules
         if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None}
