@@ -54,6 +54,27 @@ Phases, in order; any failure raises and exits non-zero:
    gradients) on which phases 7 and 8 launched the forward and backward
    kernels is held against the plain version as in phase 6, so no shape
    that trained went unchecked at the kernel's own level.
+Between phases 5 and 6, on the flagship of phase 4, quantized serving:
+5a. quantized kernel phase: int8_linear (both modes) at m 1, 8, 64 and 128
+   for every (K, N) of the flagship's quantized layers, fused_ffn_int8 at m
+   1, 8 and 64, the lazy step over an int8 state (b 8 and 64, p 0, 7, 15) and
+   the requantizing fold gla_fold_q, each against its plain version (int8
+   states by integers, at most one step apart, and by their scales); times
+   on a rotation of cold weights and states beside the bounds and beside
+   the bf16 library call the int8 stream has to beat;
+5b. quantized generate phase: generate_batch(weight_quant="int8") with the
+   classic loop at b 1 and b 8 and generate_batch(weight_quant="int8",
+   lazy_window=16, state_quant="int8") at b 8, launch counts against a
+   formula written from the model's structure; one lazy window
+   teacher-forced through the kernel path and the plain path (finite logits
+   at every step, every state leaf, the int8 states by integers); ms per
+   token quantized beside unquantized, resident weight bytes, and a profile
+   of 8 decode steps at b 1 with int8 weights;
+5c. quantized serving phase: DecodeServer(lazy=True, state_quant="int8",
+   weight_quant="int8") serves 12 requests through 8 recycled slots, then a
+   server with int8_prefill_full_precision=False (the float weights leave
+   the model) serves 4; every shape those runs gave int8_linear and
+   fused_ffn_int8 is held against the plain version, or the phase fails.
 Each main-path run starts with the launch counts at 0 and reads them right
 after. The line before the last is a JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -118,7 +139,32 @@ TRAIN_BATCH, TRAIN_STEPS, MIN_AUDIO, MAX_AUDIO = 8, 5, 128, 512
 DEVICE = "cuda"
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores
-PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+PEAK_BYTES, PEAK_BF16, PEAK_F32, PEAK_INT8 = 3.35e12, 989e12, 67e12, 1979e12
+D_MODEL, FFN_HIDDEN, N_TEXT_LAYERS = 1024, 1365, 4
+# int8 products per decode step: q, k, v, g, o of each GLA layer and q, k, v of
+# the cross-attention (the 16-wide gate projections stay float); one fused FFN
+# per block. A full forward (an int8 prefill chunk) launches the same.
+INT8_LINEARS_PER_STEP = 5 * N_GLA_LAYERS + 3
+# (K, N) of the flagship's quantized layers that reach int8_linear, and the
+# FFN's two (ragged: 1365 and 2730 are no multiples of 16), which reach it
+# under w8a8 and in the unfused route
+QLINEAR_KN = ((1024, 1024), (1024, 2048), (2048, 1024), (1024, 2 * FFN_HIDDEN),
+              (FFN_HIDDEN, 1024))
+QLINEAR_M = (1, 8, 64, 128)
+FFN_M = (1, 8, 64)
+# shapes at which int8_linear and fused_ffn_int8 were held against their plain
+# versions (ops/qlinear.py:launch_shapes keys)
+Q_HELD = {"int8_linear": set(), "fused_ffn_int8": set()}
+# ... and the shapes the driven paths launched them on (read_counts notes them)
+Q_LAUNCHED = {"int8_linear": set(), "fused_ffn_int8": set()}
+# the int8 product's outputs are bf16: one bf16 step of the leaf's own size
+TOL_Q = 2.0 ** -7
+# State leaves, kernel path vs plain path, ON INT8 WEIGHTS: the two paths then
+# differ at every Linear's output (an f32 sum in another order, rounded to
+# bf16), not only at the GLA kernels', and the bf16 steps add up through the
+# 25 layers (an H100 reads 1.9e-2 of a leaf's max at worst, two bf16 steps of
+# its largest values)
+TOL_QPATH = 4e-2
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("gla_chunk_conv", "lina_speech_tpu_torch/csrc/gla_chunk_conv.cu",
      "lina_speech_tpu/ops/gla_pallas.py:1289"),
@@ -131,7 +177,38 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("gla_decode_lazy_conv", "lina_speech_tpu_torch/csrc/gla_decode_lazy_conv.cu",
      "lina_speech_tpu/ops/gla_pallas.py:2197"),
     ("gla_fold", "lina_speech_tpu_torch/csrc/gla_fold.cu",
-     "lina_speech_tpu/ops/gla_pallas.py:2232"))
+     "lina_speech_tpu/ops/gla_pallas.py:2232"),
+    ("gla_decode_lazy_conv_int8", "lina_speech_tpu_torch/csrc/gla_decode_lazy_conv.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:2197 (int8 state, body :1802)"),
+    ("gla_fold_q", "lina_speech_tpu_torch/csrc/gla_fold_q.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:2097"),
+    ("int8_linear", "lina_speech_tpu_torch/csrc/int8_linear.cu",
+     "lina_speech_tpu/ops/qlinear.py:127"),
+    ("fused_ffn_int8", "lina_speech_tpu_torch/csrc/fused_ffn_int8.cu",
+     "lina_speech_tpu/ops/qlinear.py:241"))
+# times at further shapes than a kernel's row of the summary, each with its
+# bound: {kernel name: [{shape, ms, plain_ms, bound_ms, bound_by}, ...]}
+OTHER_SHAPES = {}
+
+
+def reset_counts():
+    from lina_speech_tpu_torch.ops import gla_cuda, qlinear
+
+    gla_cuda.reset_launch_counts()
+    qlinear.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every wrapper's launch count; the lazy step's launches on an int8
+    state are counted a second time under a name of their own. Also notes,
+    in Q_LAUNCHED, the shapes the int8 products were launched on since the
+    last reset."""
+    from lina_speech_tpu_torch.ops import gla_cuda, qlinear
+
+    for name, shapes in qlinear.launch_shapes().items():
+        Q_LAUNCHED[name] |= shapes
+    return {**gla_cuda.launch_counts(), **qlinear.launch_counts(),
+            "gla_decode_lazy_conv_int8": gla_cuda.gla_decode_lazy_conv.q_launches}
 
 
 def card() -> str:
@@ -199,14 +276,22 @@ def timed_pair(name, kernel_fn, plain_fn, iters):
     return mean(dev["kernel"]), mean(dev["plain"])
 
 
-def cold_pool(state):
-    """A callable that hands out copies of ``state`` in turn, twice the
-    50 MB L2 cache in all: the model cycles through 25 layers' states, so a
-    decode kernel finds its state in device memory, not in the cache. Timing
-    one state over and over would measure the cache."""
-    n = max(2, -(-100_000_000 // (state.numel() * state.element_size())))
-    pool = itertools.cycle([state.clone() for _ in range(n)])
+def cold_rotation(*tensors):
+    """A callable that hands out copies of a group of tensors used together
+    (a state and its scales, an int8 weight) in turn, twice the 50 MB L2
+    cache in all: the model cycles through 25 layers' states and weights, so
+    a decode kernel finds them in device memory, not in the cache. Timing
+    one copy over and over would measure the cache."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(2, -(-100_000_000 // size))
+    pool = itertools.cycle([tuple(t.clone() for t in tensors) for _ in range(n)])
     return lambda: next(pool)
+
+
+def cold_pool(state):
+    """:func:`cold_rotation` of one tensor, handed out bare."""
+    rotation = cold_rotation(state)
+    return lambda: rotation()[0]
 
 
 def ptxas_summary(log: str):
@@ -218,15 +303,28 @@ def ptxas_summary(log: str):
               ("gla_decode_conv_kernel", "gla_decode_conv"),
               ("gla_fold_kernel", "gla_fold"), ("Lb1E", "gla_chunk_conv"),
               ("Lb0E", "gla_chunk"))
+    # the quantized kernels' bf16 instantiations (m-tile 1 and 8; dv 512)
+    quant = (("int8_linear_wonly_kernelI13__nv_bfloat16S", "int8_linear wonly<bf16, bf16>"),
+             ("int8_linear_w8a8_kernelI13__nv_bfloat16L", "int8_linear w8a8<bf16>"),
+             ("ffn_chunk_kernelI13__nv_bfloat16L", "fused_ffn_int8 chunk<bf16>"),
+             ("gla_fold_q_kernelI13__nv_bfloat16Li16E", "gla_fold_q<bf16, dv 512>"),
+             ("gla_decode_lazy_conv_kernelI13__nv_bfloat16aLi256E",
+              "gla_decode_lazy_conv<bf16, int8, 256>"))
     name, out = "", []
     for line in log.splitlines():
         if "entry function" in line or "Function properties for" in line:
             name = line.split("'")[1] if "'" in line else line.split("for")[-1].strip()
             continue
-        if re.search(r"I13__nv_bfloat16S\d*_Li256E", name) and (
-                "registers" in line or "spill" in line):
+        if not ("registers" in line or "spill" in line):
+            continue
+        info = line.split(":", 1)[-1].strip()
+        if re.search(r"I13__nv_bfloat16S\d*_Li256E", name):
             kernel = next((label for key, label in labels if key in name), name)
-            out.append(f"{kernel}<bf16, bf16, 256>: {line.split(':', 1)[-1].strip()}")
+            out.append(f"{kernel}<bf16, bf16, 256>: {info}")
+        for key, label in quant:
+            if key in name and re.search(r"Li(1|8|16|256)E", name):
+                tile = re.search(r"Li(\d+)E", name).group(1)
+                out.append(f"{label} (tile {tile}): {info}")
     return out
 
 
@@ -238,12 +336,13 @@ def roofline(n_bytes, flops, io_dtype):
     """(bound_ms, bound_by): the least time one H100 could take -- the
     bytes of every input read once and every output written once over the
     card's memory rate, or the function's operations over the card's peak
-    rate for the inputs' type (bf16: tensor cores; f32: outside them),
-    whichever is larger."""
+    rate for the inputs' type (bf16 and int8: tensor cores; f32: outside
+    them), whichever is larger."""
     import torch
 
     t_bytes = n_bytes / PEAK_BYTES
-    t_ops = flops / (PEAK_BF16 if io_dtype == torch.bfloat16 else PEAK_F32)
+    peak = {torch.bfloat16: PEAK_BF16, torch.int8: PEAK_INT8}.get(io_dtype, PEAK_F32)
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -288,10 +387,33 @@ def check_states(name, got, ref, rel, live):
     ``rel`` of that leaf's own max|ref| (no floor). The fields named in
     ``live`` must hold something: max|ref| > 0. Prints, for each field, the
     leaf with the largest error beside its max|ref|; fails after printing."""
-    worst, failed = {}, []
+    import torch
+
+    worst, failed, ints = {}, [], None
+    got_sc, ref_sc = ({place: t for field, place, t in state_leaves(st) if field == "s_scale"}
+                      for st in (got, ref))
     for (field, place, a), (_, _, r) in zip(state_leaves(got), state_leaves(ref)):
         require(a.shape == r.shape and a.dtype == r.dtype, f"{name}: {place} {field} differs "
                 f"in shape or dtype: {tuple(a.shape)} {a.dtype} vs {tuple(r.shape)} {r.dtype}")
+        if a.dtype == torch.int8:
+            # an int8 state of one model run against another's: by integers,
+            # and dequantized with its row scales like a float state. The two
+            # runs fold in windows that differ by bf16 steps, so a value near
+            # a rounding boundary lands one step apart; a row of small keys,
+            # whose relative difference is larger, or a row whose scale moved,
+            # lands further (an H100 reads 7 steps in 1.4e-3 of a leaf)
+            steps = (a.int() - r.int()).abs()
+            top, off = int(steps.max()), float((steps > 0).float().mean())
+            far = float((steps > 1).float().mean())
+            if not bool(r.any()):
+                failed.append(f"{place} {field}: reference is all zeros")
+            if far > 1e-2 or off > 0.5:
+                failed.append(f"{place} {field}: int8 steps apart: max {top}, share off "
+                              f"{off}, share more than one step off {far}")
+            if ints is None or (top, off) > ints[:2]:
+                ints = (top, off, far, place)
+            field = "s dequantized"
+            a, r = (q.float() * sc[place][..., None] for q, sc in ((a, got_sc), (r, ref_sc)))
         err, ref_max = max_err(a, r), float(r.float().abs().max())
         if field in live and not ref_max > 0:
             failed.append(f"{place} {field}: reference is all zeros")
@@ -304,6 +426,9 @@ def check_states(name, got, ref, rel, live):
     for field, (share, err, ref_max, place) in worst.items():
         print(f"  {field} ({place}): max_abs_err {err:.3e}, max|ref| {ref_max:.3e}, "
               f"relative {share:.3e}")
+    if ints is not None:
+        print(f"  int8 s ({ints[3]}), the leaf furthest apart: at most {ints[0]} integer steps, "
+              f"{ints[1]:.4f} of its elements differ, {ints[2]:.6f} by more than one step")
     require(not failed, f"{name}: " + "; ".join(failed[:8]))
     print(f"  {len(state_leaves(ref))} leaves ok")
 
@@ -321,13 +446,26 @@ def kernel_inputs(torch, b, t, state_dtype, seed):
         rings=[r(4, b, H, d).to(bf) for d in (DK, DK, DV)])
 
 
-def record(summary, name, err, ms, plain_ms, n_bytes, flops, io_dtype):
+def record(summary, name, err, ms, plain_ms, n_bytes, flops, io_dtype, library_ms=None):
+    """The kernel's row of the summary. ``library_ms`` stays None where no
+    single PyTorch call computes the function (every GLA kernel)."""
     bound_ms, bound_by = roofline(n_bytes, flops, io_dtype)
     print(f"  {name} bound {bound_ms:.6f} ms by {bound_by} "
           f"({n_bytes} bytes, {flops} operations); kernel {ms:.6f} ms")
-    # no single PyTorch call computes any of these functions: no library time
     summary[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None)
+                         bound_by=bound_by, library_ms=library_ms)
+
+
+def note_shape(name, shape, ms, plain_ms, n_bytes, flops, io_dtype, library_ms=None):
+    """A time at a further shape, with its bound; goes into the kernel's
+    ``shapes`` list of the summary line."""
+    bound_ms, bound_by = roofline(n_bytes, flops, io_dtype)
+    print(f"  {name} {shape}: kernel {ms:.6f} ms, plain {plain_ms if plain_ms is None else round(plain_ms, 6)} "
+          f"ms, bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes)"
+          + (f", library {library_ms:.6f} ms" if library_ms is not None else ""))
+    OTHER_SHAPES.setdefault(name, []).append(dict(
+        shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms))
 
 
 def kernel_phase(torch, gla_cuda):
@@ -356,9 +494,13 @@ def kernel_phase(torch, gla_cuda):
                 lambda: gla_cuda.gla_chunk_conv(*chunk_args, initial_state=x["s0"]),
                 lambda: gla_cuda.gla_chunk_conv_plain(*chunk_args, initial_state=x["s0"]),
                 10)
+            moved = nbytes(*chunk_args, x["s0"], o_k, s_k)
             if b == BATCH and st == torch.bfloat16:
-                record(summary, "gla_chunk_conv", err_o, ms, plain_ms,
-                       nbytes(*chunk_args, x["s0"], o_k, s_k), scan_flops(b, t, True), bf)
+                record(summary, "gla_chunk_conv", err_o, ms, plain_ms, moved,
+                       scan_flops(b, t, True), bf)
+            else:
+                note_shape("gla_chunk_conv", f"{tag} t{t}", ms, plain_ms, moved,
+                           scan_flops(b, t, True), bf)
 
             # decode: one token from the prefill's state (JAX layouts)
             dec = (x["xq"][:, :, 0].contiguous(), x["xk"][:, :, 0].contiguous(),
@@ -386,10 +528,13 @@ def kernel_phase(torch, gla_cuda):
                 "gla_decode_conv",
                 lambda: gla_cuda.gla_decode_conv(*dec, states()),
                 lambda: gla_cuda.gla_decode_conv_plain(*dec, states()), 50)
+            # state read and written; every other input and output once
+            moved = nbytes(*dec, state, *out_k)
             if b == BATCH and st == torch.bfloat16:
-                # state read and written; every other input and output once
-                record(summary, "gla_decode_conv", err_o, ms, plain_ms,
-                       nbytes(*dec, state, *out_k), scan_flops(b, 1, True), bf)
+                record(summary, "gla_decode_conv", err_o, ms, plain_ms, moved,
+                       scan_flops(b, 1, True), bf)
+            else:
+                note_shape("gla_decode_conv", tag, ms, plain_ms, moved, scan_flops(b, 1, True), bf)
 
     # a served prompt's first chunk: b1, a power of two down to a single token
     for st in (torch.bfloat16, torch.float32):
@@ -405,11 +550,13 @@ def kernel_phase(torch, gla_cuda):
             check("o", max_err(o_k, o_p), bound(o_p, TOL_BF16))
             check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
             if st == bf and t in (128, 1):
-                timed_pair(
+                ms, plain_ms = timed_pair(
                     f"gla_chunk_conv b1 t{t}",
                     lambda: gla_cuda.gla_chunk_conv(*chunk_args, initial_state=x["s0"]),
                     lambda: gla_cuda.gla_chunk_conv_plain(*chunk_args, initial_state=x["s0"]),
                     10)
+                note_shape("gla_chunk_conv", f"b1 state bfloat16 t{t}", ms, plain_ms,
+                           nbytes(*chunk_args, x["s0"], o_k, s_k), scan_flops(1, t, True), bf)
     return summary
 
 
@@ -437,9 +584,13 @@ def chunk_kernel_phase(torch, gla_cuda, summary):
                         f"gla_chunk t{t}",
                         lambda: gla_cuda.gla_chunk(*args, initial_state=x["s0"]),
                         lambda: gla_cuda.gla_chunk_plain(*args, initial_state=x["s0"]), 10)
+                    moved = nbytes(*args, x["s0"], o_k, s_k)
                     if t == 128:
-                        record(summary, "gla_chunk", err_o, ms, plain_ms,
-                               nbytes(*args, x["s0"], o_k, s_k), scan_flops(b, t, False), bf)
+                        record(summary, "gla_chunk", err_o, ms, plain_ms, moved,
+                               scan_flops(b, t, False), bf)
+                    else:
+                        note_shape("gla_chunk", f"b1 state bfloat16 t{t}", ms, plain_ms, moved,
+                                   scan_flops(b, t, False), bf)
 
 
 def lazy_inputs(torch, b, st, seed):
@@ -457,6 +608,17 @@ def lazy_inputs(torch, b, st, seed):
             torch.full((WINDOW, b, H, DK), 200.0, device=DEVICE),
             torch.zeros(b, H, DK, device=DEVICE)]
     return toks, taps, rings, r(b, H, DK, DV).to(st), bufs
+
+
+def lazy_step_work(tok, taps, rings, state, s_scale, bufs, out, p):
+    """(bytes, operations) of one lazy step at window position p: the live
+    slots j < p are read, slot p is written, the state (and the row scales
+    of an int8 one) read once."""
+    b = tok[0].shape[0]
+    moved = nbytes(*tok, *taps, *rings, state, s_scale, bufs[3], out[0], *out[1:4],
+                   out[7]) + nbytes(*(t[:p + 1] for t in bufs[:3]))
+    flops = b * H * (2 * DK * DV + (p + 1) * (3 * DK + 2 * DV) + 8 * (2 * DK + DV))
+    return moved, flops
 
 
 def lazy_kernel_phase(torch, gla_cuda, summary):
@@ -501,13 +663,14 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
                         check(f"{name}[:p+1]", max_err(a[:p + 1], r_[:p + 1]),
                               bound(r_[:p + 1], TOL_BF16 if a.dtype == bf else 1e-6))
                     check("cc", max_err(out[7], ref[7]), bound(ref[7], 1e-6))
-                    if p in timed and b == BATCH and p == WINDOW - 1:
-                        # the live slots j < p are read, slot p is written
-                        moved = nbytes(*tok, *taps, *k_rings, s0, k_bufs[3], out[0], *out[1:4],
-                                       out[7]) + nbytes(*(t[:p + 1] for t in k_bufs[:3]))
-                        flops = b * H * (2 * DK * DV + (p + 1) * (3 * DK + 2 * DV)
-                                         + 8 * (2 * DK + DV))
-                        record(summary, "gla_decode_lazy_conv", err_o, *timed[p], moved, flops, bf)
+                    if p in timed:
+                        moved, flops = lazy_step_work(tok, taps, k_rings, s0, None, k_bufs, out, p)
+                        if b == BATCH and p == WINDOW - 1:
+                            record(summary, "gla_decode_lazy_conv", err_o, *timed[p], moved,
+                                   flops, bf)
+                        else:
+                            note_shape("gla_decode_lazy_conv", f"{tag} p{p}", *timed[p], moved,
+                                       flops, bf)
                 k_rings, k_bufs = out[1:4], list(out[4:8])
                 p_rings, p_bufs = ref[1:4], list(ref[4:8])
                 c_state, c_rings = cls[1], cls[2:]
@@ -528,18 +691,26 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
                     *toks[-1], *taps, *rings, states()), 50)
                 print(f"  classic gla_decode_conv step at {tag}, for comparison: device ms "
                       f"{classic_ms:.6f}")
+                if b != BATCH:  # b8 is the summary's row (kernel_phase)
+                    cls_out = gla_cuda.gla_decode_conv_plain(*toks[-1], *taps, *rings, s0)
+                    note_shape("gla_decode_conv", tag, classic_ms, None,
+                               nbytes(*toks[-1], *taps, *rings, s0, *cls_out),
+                               scan_flops(b, 1, True), bf)
                 ms, plain_ms = timed_pair(
                     f"gla_fold {tag}", lambda: gla_cuda.gla_fold(states(), *k_bufs),
                     lambda: gla_cuda.gla_fold_plain(states(), *k_bufs), 50)
+                fold_work = (nbytes(state, state, *k_bufs),
+                             b * H * DK * (DV * (2 * WINDOW + 1) + 2 * WINDOW))
                 if b == BATCH:
-                    record(summary, "gla_fold", err_s, ms, plain_ms,
-                           nbytes(state, state, *k_bufs),
-                           b * H * DK * (DV * (2 * WINDOW + 1) + 2 * WINDOW), bf)
+                    record(summary, "gla_fold", err_s, ms, plain_ms, *fold_work, bf)
+                else:
+                    note_shape("gla_fold", tag, ms, plain_ms, *fold_work, bf)
 
 
 def set_kernel_mode(model, mode):
-    for layer in model.attentive_rnn.gla_layers():
-        layer.kernel_mode = mode
+    """"auto": the kernels; "chunk": the plain versions, for every GLA layer
+    and every quantized Linear / SwiGLU."""
+    model.set_kernel_mode(mode)
 
 
 def expect_launches(launches, **expected):
@@ -574,13 +745,13 @@ def generate_phase(torch, np, gla_cuda, card_line):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
 
     torch.cuda.synchronize()
-    gla_cuda.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = generate_batch(model, text, gen, prompt=prompt, max_seqlen=MAX_SEQLEN, k=TOPK,
                          force_max_seqlen=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = gla_cuda.launch_counts()
+    launches = read_counts()
     n_pre = T_PROMPT + 1
     steps = res.n_steps - n_pre
     print(f"generate_batch: {BATCH} requests, {res.n_steps} steps ({steps} decoded), "
@@ -597,13 +768,13 @@ def generate_phase(torch, np, gla_cuda, card_line):
     print(f"tokens in range; cut lengths {[c[0].shape[-1] for c in cuts]}")
 
     # the same requests, greedy, through lazy windows of 16 steps and a fold
-    gla_cuda.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     lazy = generate_batch(model, text, prompt=prompt, max_seqlen=MAX_SEQLEN, k=1,
                           force_max_seqlen=True, lazy_window=WINDOW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    lazy_launches = gla_cuda.launch_counts()
+    lazy_launches = read_counts()
     windows = -(-(MAX_SEQLEN - n_pre) // WINDOW)
     print(f"generate_batch(lazy_window={WINDOW}): {BATCH} requests, {lazy.n_steps} steps "
           f"({windows} windows decoded), {wall:.3f} s wall [{card_line}]")
@@ -712,13 +883,9 @@ def prefill_times(torch, model, requests, card_line, repeats=3):
               f"({len(_pow2_chunks(n_forced))} chunks, b1): {ms} ms [{card_line}]")
 
 
-def serving_phase(torch, np, gla_cuda, model, cfg, card_line):
-    """DecodeServer at the flagship's full width and depth: 12 requests
-    through 8 recycled slots in lazy mode, 8 in classic mode (every slot
-    busy, so that both modes are timed at 8 slots)."""
-    from lina_speech_tpu_torch.generate import generate_batch
-    from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
-
+def serving_requests(np, cfg):
+    """The serving phases' requests: (text ids, prompt codes or None, max_len),
+    prompts of 150, 97, 33 and 0 codes in turn."""
     rng = np.random.default_rng(1)
     requests = []
     for i in range(SERVE_REQUESTS):
@@ -726,18 +893,63 @@ def serving_phase(torch, np, gla_cuda, model, cfg, card_line):
         prompt = rng.integers(0, cfg.n_codebook, size=(cfg.n_quant, p_len)) if p_len else None
         requests.append((rng.integers(3, cfg.n_txt_vocab, size=TEXT_LEN), prompt,
                          240 + 40 * (i % 5)))
-    total = dict.fromkeys(gla_cuda.launch_counts(), 0)
+    return requests
+
+
+def check_served(model, cfg, srv, reqs, done, chunks):
+    """Completions in range and of the asked length; the prefill chunk sizes
+    are the binary decompositions ``chunks``, each a shape the kernel phase
+    held the prefill kernels at."""
+    for (text, prompt, max_len), c in zip(reqs, (done[r] for r in sorted(done))):
+        require(c.tokens.shape == (c.length, cfg.n_quant) and c.length <= max_len
+                and (c.stopped or c.length == max_len), f"request {c.rid}: length {c.length}")
+        require(int(c.tokens.min()) >= 0 and int(c.tokens.max()) < model.n_target_vocab,
+                f"request {c.rid}: tokens out of range")
+    sizes = sorted(srv.prefill_chunk_sizes)
+    require(all(c & (c - 1) == 0 for c in sizes), f"prefill chunk sizes {sizes}")
+    require(sizes == sorted({c for cs in chunks for c in cs}), f"prefill chunk sizes {sizes}")
+    require({cs[0] for cs in chunks} <= set(CONV_CHUNK_T)
+            and {c for cs in chunks for c in cs[1:]} <= set(CHUNK_T),
+            f"prefill chunks {chunks} not all covered by the kernel phase")
+    print(f"  prefill chunk sizes {sizes}")
+
+
+def report_chunk_times(mode, n_requests, chunk_ms, card_line):
+    if n_requests > SERVE_SLOTS:
+        print(f"  {n_requests - SERVE_SLOTS} requests were served from recycled slots")
+    full = [ms for ms, active in chunk_ms if active == SERVE_SLOTS]
+    if full:
+        mean = sum(full) / len(full)
+        print(f"  {mode} decode chunk (no prefill in the call) at {SERVE_SLOTS} slots: "
+              f"mean {mean:.3f} ms, min "
+              f"{min(full):.3f}, max {max(full):.3f} over {len(full)} chunks -> "
+              f"{SERVE_SLOTS * WINDOW / mean * 1e3:.1f} tokens/s [{card_line}]")
+    part = [ms for ms, active in chunk_ms if active < SERVE_SLOTS]
+    if part:
+        print(f"  {mode} decode chunk below {SERVE_SLOTS} active slots: mean "
+              f"{sum(part) / len(part):.3f} ms over {len(part)} chunks [{card_line}]")
+
+
+def serving_phase(torch, np, gla_cuda, model, cfg, card_line):
+    """DecodeServer at the flagship's full width and depth: 12 requests
+    through 8 recycled slots in lazy mode, 8 in classic mode (every slot
+    busy, so that both modes are timed at 8 slots)."""
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
+
+    requests = serving_requests(np, cfg)
+    total = dict.fromkeys(read_counts(), 0)
     tokens_by_mode = {}
     for lazy, reqs in ((True, requests), (False, requests[:SERVE_CLASSIC_REQUESTS])):
         mode = "lazy" if lazy else "classic"
         srv = DecodeServer(model, n_slots=SERVE_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW,
                            lazy=lazy, k=1)
         torch.cuda.synchronize()
-        gla_cuda.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         done, n_chunks, chunk_ms = serve(torch, srv, reqs)
         wall = time.perf_counter() - t0
-        launches = gla_cuda.launch_counts()
+        launches = read_counts()
         n_tokens = sum(c.length for c in done.values())
         print(f"DecodeServer {mode}: {len(reqs)} requests through {SERVE_SLOTS} slots, "
               f"{n_chunks} decode chunks of {WINDOW}, {n_tokens} tokens, {wall:.3f} s wall "
@@ -751,33 +963,8 @@ def serving_phase(torch, np, gla_cuda, model, cfg, card_line):
         expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS * len(reqs),
                         gla_chunk=N_GLA_LAYERS * later, **step)
         add_launches(total, launches)
-        for (text, prompt, max_len), c in zip(reqs, (done[r] for r in sorted(done))):
-            require(c.tokens.shape == (c.length, cfg.n_quant) and c.length <= max_len
-                    and (c.stopped or c.length == max_len), f"request {c.rid}: length {c.length}")
-            require(int(c.tokens.min()) >= 0 and int(c.tokens.max()) < model.n_target_vocab,
-                    f"request {c.rid}: tokens out of range")
-        sizes = sorted(srv.prefill_chunk_sizes)
-        require(all(c & (c - 1) == 0 for c in sizes), f"prefill chunk sizes {sizes}")
-        require(sizes == sorted({c for cs in chunks for c in cs}), f"prefill chunk sizes {sizes}")
-        # every shape the server gave a prefill kernel was held against its
-        # plain version in the kernel phase
-        require({cs[0] for cs in chunks} <= set(CONV_CHUNK_T)
-                and {c for cs in chunks for c in cs[1:]} <= set(CHUNK_T),
-                f"prefill chunks {chunks} not all covered by the kernel phase")
-        if len(reqs) > SERVE_SLOTS:
-            print(f"  {len(reqs) - SERVE_SLOTS} requests were served from recycled slots")
-        full = [ms for ms, active in chunk_ms if active == SERVE_SLOTS]
-        if full:
-            mean = sum(full) / len(full)
-            print(f"  {mode} decode chunk (no prefill in the call) at {SERVE_SLOTS} slots: "
-                  f"mean {mean:.3f} ms, min "
-                  f"{min(full):.3f}, max {max(full):.3f} over {len(full)} chunks -> "
-                  f"{SERVE_SLOTS * WINDOW / mean * 1e3:.1f} tokens/s [{card_line}]")
-        part = [ms for ms, active in chunk_ms if active < SERVE_SLOTS]
-        if part:
-            print(f"  {mode} decode chunk below {SERVE_SLOTS} active slots: mean "
-                  f"{sum(part) / len(part):.3f} ms over {len(part)} chunks [{card_line}]")
-        print(f"  prefill chunk sizes {sizes}")
+        check_served(model, cfg, srv, reqs, done, chunks)
+        report_chunk_times(mode, len(reqs), chunk_ms, card_line)
         tokens_by_mode[mode] = done
 
     # lazy and classic serving of the same request, and generate_batch: the
@@ -856,14 +1043,14 @@ def serving_paths_check(torch, np, gla_cuda, model, requests):
             return tokens[-1]
 
         srv._sample = sample
-        gla_cuda.reset_launch_counts()
+        reset_counts()
         for text, prompt, max_len in reqs:
             srv.submit(text, prompt=prompt, max_len=max_len)
         done = srv.run()
         require(len(done) == len(reqs), f"{mode}: {len(done)} completions")
         states[mode] = srv._state
         if mode == "chunk":
-            expect_launches(gla_cuda.launch_counts())
+            expect_launches(read_counts())
     set_kernel_mode(model, "auto")
     torch.cuda.synchronize()
     require(len(logits["auto"]) == len(logits["chunk"]), "sampling calls differ")
@@ -889,6 +1076,464 @@ def serving_paths_check(torch, np, gla_cuda, model, requests):
                  live=("s", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf"))
 
 
+# ------------------------------------------------------- quantized serving
+def quantized_weight(torch, n, k, seed):
+    """A random (n, k) bf16 weight quantized as the model's are: (packed int8
+    (n, kp), scales (n,), int8 (n, k), the weight dequantized to bf16)."""
+    from lina_speech_tpu_torch.ops import qlinear
+    from lina_speech_tpu_torch.utils.quantize import QKEY, SKEY, quantize_leaf
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    w = (torch.randn(n, k, generator=g, device=DEVICE) * k ** -0.5).to(torch.bfloat16)
+    pair = quantize_leaf(w)
+    deq = (pair[QKEY].float() * pair[SKEY]).to(torch.bfloat16)
+    return (qlinear.pack_int8_weight(pair[QKEY]), pair[SKEY].reshape(-1).contiguous(),
+            pair[QKEY], deq)
+
+
+def hold_leaf(name, out, ref, rel):
+    """``out`` within ``rel`` of its plain version's own max|ref| (no floor;
+    a NaN or an all-zero reference fails); returns the error."""
+    err, ref_max = max_err(out, ref), float(ref.float().abs().max())
+    require(ref_max > 0, f"{name}: the plain version is all zeros")
+    check(name, err, rel * ref_max)
+    return err
+
+
+def hold_int8_linear(torch, shape, summary=None, timed=False):
+    """int8_linear against its plain version at one launch shape (m, K, N,
+    mode, x dtype, out dtype); with ``timed`` its time on a rotation of cold
+    weights beside the plain version's, the bound, and the library call the
+    int8 stream has to beat: F.linear on the weight dequantized to bf16
+    beforehand, which reads twice the bytes."""
+    from lina_speech_tpu_torch.ops import qlinear
+
+    m, k, n, mode, xdt, odt = shape
+    q, s, _, deq = quantized_weight(torch, n, k, seed=k + n)
+    g = torch.Generator(device=DEVICE).manual_seed(m)
+    x = torch.randn(m, k, generator=g, device=DEVICE).to(xdt)
+    out = qlinear.int8_linear(x, q, s, out_dtype=odt, mode=mode)
+    ref = qlinear.int8_linear_plain(x, q, s, out_dtype=odt, mode=mode)
+    torch.cuda.synchronize()
+    require(out.shape == (m, n) and out.dtype == odt, "int8_linear output shape or dtype")
+    tag = (f"{mode} m{m} K{k} N{n} {str(xdt).split('.')[-1]}->{str(odt).split('.')[-1]}")
+    err = hold_leaf(f"int8_linear {tag}", out, ref, TOL_Q if odt == torch.bfloat16 else 1e-4)
+    Q_HELD["int8_linear"].add(shape)
+    if not timed:
+        return
+    weights, dense = cold_rotation(q), cold_rotation(deq)
+    ms, plain_ms = timed_pair(
+        f"int8_linear {tag}",
+        lambda: qlinear.int8_linear(x, *weights(), s, out_dtype=odt, mode=mode),
+        lambda: qlinear.int8_linear_plain(x, *weights(), s, out_dtype=odt, mode=mode), 50)
+    xb = x.to(torch.bfloat16)
+    library_ms = device_ms(lambda: torch.nn.functional.linear(xb, *dense()), 50)
+    work = (nbytes(x, q, s, out), 2 * m * k * n,
+            torch.int8 if mode == "w8a8" else torch.bfloat16)
+    if summary is not None:
+        record(summary, "int8_linear", err, ms, plain_ms, *work, library_ms=library_ms)
+        print(f"  library (F.linear on the bf16 weight, {nbytes(deq)} weight bytes): "
+              f"{library_ms:.6f} ms")
+    else:
+        note_shape("int8_linear", tag, ms, plain_ms, *work, library_ms=library_ms)
+
+
+def hold_fused_ffn(torch, shape, summary=None, timed=False):
+    """fused_ffn_int8 against its plain version at one launch shape (m, d,
+    hidden, x dtype, out dtype), run twice (the fixed-order reduction gives
+    the same bits); with ``timed`` its times, the bound and the library's:
+    the two F.linear calls on bf16 weights and the activation between."""
+    from lina_speech_tpu_torch.ops import qlinear
+
+    F = torch.nn.functional
+    m, d, hidden, xdt, odt = shape
+    q_in, s_in, _, w_in = quantized_weight(torch, 2 * hidden, d, seed=d + 1)
+    _, s_out, q_out, w_out = quantized_weight(torch, d, hidden, seed=d + 2)
+    q_out_t = q_out.T.contiguous()
+    g = torch.Generator(device=DEVICE).manual_seed(m)
+    x = torch.randn(m, d, generator=g, device=DEVICE).to(xdt)
+    b_in = (torch.randn(2 * hidden, generator=g, device=DEVICE) * 0.02).to(torch.bfloat16)
+    b_out = (torch.randn(d, generator=g, device=DEVICE) * 0.02).to(torch.bfloat16)
+    call = lambda fn, qi, qo: fn(x, qi, s_in, b_in, qo, s_out, b_out, out_dtype=odt)
+    out = call(qlinear.fused_ffn_int8, q_in, q_out_t)
+    again = call(qlinear.fused_ffn_int8, q_in, q_out_t)
+    ref = call(qlinear.fused_ffn_int8_plain, q_in, q_out_t)
+    torch.cuda.synchronize()
+    require(out.shape == (m, d) and out.dtype == odt, "fused_ffn_int8 output shape or dtype")
+    require(torch.equal(out, again), "fused_ffn_int8 differs from run to run")
+    tag = f"m{m} d{d} hidden{hidden} {str(xdt).split('.')[-1]}->{str(odt).split('.')[-1]}"
+    err = hold_leaf(f"fused_ffn_int8 {tag}", out, ref, TOL_Q)
+    Q_HELD["fused_ffn_int8"].add(shape)
+    if not timed:
+        return
+    weights, dense = cold_rotation(q_in, q_out_t), cold_rotation(w_in, w_out)
+    ms, plain_ms = timed_pair(
+        f"fused_ffn_int8 {tag}", lambda: call(qlinear.fused_ffn_int8, *weights()),
+        lambda: call(qlinear.fused_ffn_int8_plain, *weights()), 50)
+    xb = x.to(torch.bfloat16)
+
+    def library():
+        wi, wo = dense()
+        gate, h = F.linear(xb, wi, b_in).chunk(2, dim=-1)
+        return F.linear(F.silu(gate) * h, wo, b_out)
+
+    library_ms = device_ms(library, 50)
+    work = (nbytes(x, q_in, s_in, b_in, q_out_t, s_out, b_out, out), 6 * m * d * hidden,
+            torch.bfloat16)
+    if summary is not None:
+        record(summary, "fused_ffn_int8", err, ms, plain_ms, *work, library_ms=library_ms)
+        print(f"  library (two F.linear on bf16 weights and the activation): "
+              f"{library_ms:.6f} ms")
+    else:
+        note_shape("fused_ffn_int8", tag, ms, plain_ms, *work, library_ms=library_ms)
+
+
+def quant_linear_kernel_phase(torch, summary):
+    """int8_linear at m 1, 8, 64 and 128 for every (K, N) of QLINEAR_KN in
+    both modes, fused_ffn_int8 at m 1, 8 and 64, bf16 in and out as the
+    flagship runs them; timed at m 1, 8 and 64 (w8a8 at one (K, N)). The
+    summary's rows: the b1 decode shapes, m 1."""
+    bf = torch.bfloat16
+    for k, n in QLINEAR_KN:
+        for mode in ("wonly", "w8a8"):
+            for m in QLINEAR_M:
+                timed = m != 128 and (mode == "wonly" or (k, n) == (1024, 2048))
+                main = (m, k, n, mode) == (1, 1024, 2048, "wonly")
+                hold_int8_linear(torch, (m, k, n, mode, bf, bf), summary if main else None, timed)
+    # f32 activations reach the kernel too (an f32 compute dtype)
+    hold_int8_linear(torch, (3, FFN_HIDDEN, 1024, "wonly", torch.float32, torch.float32))
+    hold_int8_linear(torch, (3, FFN_HIDDEN, 1024, "w8a8", torch.float32, bf))
+    for m in FFN_M:
+        hold_fused_ffn(torch, (m, D_MODEL, FFN_HIDDEN, bf, bf), summary if m == 1 else None, True)
+    hold_fused_ffn(torch, (5, D_MODEL, FFN_HIDDEN, torch.float32, torch.float32))
+
+
+def quant_lazy_kernel_phase(torch, gla_cuda, summary):
+    """A whole lazy window over an int8 base state at b8 and b64: every step
+    of gla_decode_lazy_conv with ``s_scale`` against its plain version, timed
+    at p 0, 7 and 15 on a rotation of cold states, then gla_fold_q against
+    its plain version: the new int8 state by integers (at most one step
+    apart, and how many differ), the new scales, and the dequantized product;
+    updated in place."""
+    from lina_speech_tpu_torch.ops.gla import dequantize_state_rows, quantize_state_rows
+
+    bf = torch.bfloat16
+    for b in (8, 64):
+        tag = f"b{b} state int8"
+        toks, taps, rings, s_float, bufs = lazy_inputs(torch, b, torch.float32, seed=b + 1)
+        state_q, s_scale = quantize_state_rows(s_float * 0.05)
+        require(bool(state_q.any()) and float(s_scale.min()) > 0, "an empty int8 state")
+        k_rings = p_rings = rings
+        k_bufs, p_bufs = [t.clone() for t in bufs], [t.clone() for t in bufs]
+        timed, states = {}, cold_rotation(state_q, s_scale)
+
+        def step(fn, rings_, bufs_, p):
+            q, sc = states()
+            return fn(*tok, *taps, *rings_, q, *bufs_, p, s_scale=sc)
+
+        for p, tok in enumerate(toks):
+            ptrs = [t.data_ptr() for t in k_bufs[:3]]
+            if p in (0, 7, 15):  # time the step before taking it
+                scratch = [t.clone() for t in k_bufs]
+                timed[p] = timed_pair(
+                    f"gla_decode_lazy_conv {tag} p{p}",
+                    lambda: step(gla_cuda.gla_decode_lazy_conv, k_rings, scratch, p),
+                    lambda: step(gla_cuda.gla_decode_lazy_conv_plain, k_rings, scratch, p), 50)
+            out = gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, state_q, *k_bufs, p,
+                                                s_scale=s_scale)
+            ref = gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *p_rings, state_q, *p_bufs, p,
+                                                      s_scale=s_scale)
+            torch.cuda.synchronize()
+            require([t.data_ptr() for t in out[4:7]] == ptrs, "window buffers not written in place")
+            if p in (0, 7, 15):
+                print(f"gla_decode_lazy_conv {tag} p{p}:")
+                err_o = hold_leaf("o", out[0], ref[0], TOL_BF16)
+                for name, a, r_ in zip(("ring q", "ring k", "ring v"), out[1:4], ref[1:4]):
+                    check(name, max_err(a, r_), 0.0)
+                for name, a, r_ in zip(("kbuf", "vbuf", "cbuf"), out[4:7], ref[4:7]):
+                    hold_leaf(f"{name}[:p+1]", a[:p + 1], r_[:p + 1],
+                              TOL_BF16 if a.dtype == bf else 1e-6)
+                hold_leaf("cc", out[7], ref[7], 1e-6)
+                work = lazy_step_work(tok, taps, k_rings, state_q, s_scale, k_bufs, out, p)
+                if b == BATCH and p == WINDOW - 1:
+                    record(summary, "gla_decode_lazy_conv_int8", err_o, *timed[p], *work, bf)
+                else:
+                    note_shape("gla_decode_lazy_conv_int8", f"{tag} p{p}", *timed[p], *work, bf)
+            k_rings, k_bufs = out[1:4], list(out[4:8])
+            p_rings, p_bufs = ref[1:4], list(ref[4:8])
+
+        ref_q, ref_sc = gla_cuda.gla_fold_q_plain(state_q, s_scale, *p_bufs)
+        q_in, sc_in = state_q.clone(), s_scale.clone()
+        new_q, new_sc = gla_cuda.gla_fold_q(q_in, sc_in, *k_bufs)
+        torch.cuda.synchronize()
+        require(new_q.data_ptr() == q_in.data_ptr() and new_sc.data_ptr() == sc_in.data_ptr()
+                and new_q.dtype == torch.int8, "int8 state not folded in place")
+        print(f"gla_fold_q {tag}:")
+        steps = (new_q.int() - ref_q.int()).abs()
+        top, off = int(steps.max()), int((steps > 0).sum())
+        print(f"  int8 state: at most {top} integer steps from the plain version, {off} of "
+              f"{steps.numel()} elements differ; {int((new_q != state_q).sum())} changed by "
+              "the fold")
+        require(top <= 1 and off <= 1e-3 * steps.numel(), "int8 state differs from the plain fold")
+        require(bool(ref_q.any()) and not torch.equal(new_q, state_q), "the fold changed nothing")
+        hold_leaf("s_scale", new_sc, ref_sc, 1e-5)
+        err_s = hold_leaf("dequantized state", dequantize_state_rows(new_q, new_sc),
+                          dequantize_state_rows(ref_q, ref_sc), TOL_BF16)
+        ms, plain_ms = timed_pair(
+            f"gla_fold_q {tag}", lambda: gla_cuda.gla_fold_q(*states(), *k_bufs),
+            lambda: gla_cuda.gla_fold_q_plain(*states(), *k_bufs), 50)
+        work = (nbytes(state_q, state_q, s_scale, s_scale, *k_bufs),
+                b * H * DK * (DV * (2 * WINDOW + 4) + 2 * WINDOW))
+        if b == BATCH:
+            record(summary, "gla_fold_q", err_s, ms, plain_ms, *work, bf)
+        else:
+            note_shape("gla_fold_q", tag, ms, plain_ms, *work, bf)
+
+
+def hold_launched_q_shapes(torch):
+    """Every shape the driven paths gave int8_linear and fused_ffn_int8 so
+    far is held against the plain version now, unless it was held before; a
+    path that launched a kernel at a shape that disagrees fails here."""
+    new = {name: sorted(Q_LAUNCHED[name] - Q_HELD[name], key=str) for name in Q_LAUNCHED}
+    print(f"the quantized paths launched int8_linear on {len(Q_LAUNCHED['int8_linear'])} shapes "
+          f"and fused_ffn_int8 on {len(Q_LAUNCHED['fused_ffn_int8'])}; not held yet: "
+          f"{len(new['int8_linear'])} and {len(new['fused_ffn_int8'])}")
+    for shape in new["int8_linear"]:
+        hold_int8_linear(torch, shape)
+    for shape in new["fused_ffn_int8"]:
+        hold_fused_ffn(torch, shape)
+    for name in Q_LAUNCHED:
+        require(Q_LAUNCHED[name] and Q_LAUNCHED[name] <= Q_HELD[name],
+                f"{name}: launched but not held: {Q_LAUNCHED[name] - Q_HELD[name]}")
+
+
+def quant_generate_phase(torch, np, model, cfg, card_line):
+    """The flagship of the generate phase with int8 weights, then with int8
+    weights and int8 lazy-window states."""
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.models.attentive_rnn import add_lazy_buffers, map_state
+    from lina_speech_tpu_torch.models.base_blocks import use_int8_weights
+    from lina_speech_tpu_torch.utils.quantize import is_quantized_leaf, quantized_bytes
+
+    rng = np.random.default_rng(0)
+    text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab, size=(BATCH, TEXT_LEN))).to(DEVICE)
+    prompt = torch.from_numpy(rng.integers(0, cfg.n_codebook, size=(1, BATCH, T_PROMPT))).to(DEVICE)
+    n_pre = T_PROMPT + 1
+    steps = MAX_SEQLEN - n_pre
+    reset_counts()  # the kernel phase's launches are no path's
+    total = dict.fromkeys(read_counts(), 0)
+
+    # classic loop on int8 weights at b1 and b8: prefill at full precision
+    for b in (1, BATCH):
+        gen = torch.Generator(device=DEVICE).manual_seed(b)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = generate_batch(model, text[:b], gen, prompt=prompt[:, :b], max_seqlen=MAX_SEQLEN,
+                             k=TOPK, force_max_seqlen=True, weight_quant="int8")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"generate_batch(weight_quant=\"int8\"): {b} requests, {res.n_steps} steps "
+              f"({steps} decoded), {wall:.3f} s wall [{card_line}]")
+        print(f"launches: {launches}")
+        expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS,
+                        gla_decode_conv=N_GLA_LAYERS * steps,
+                        int8_linear=INT8_LINEARS_PER_STEP * steps,
+                        fused_ffn_int8=N_GLA_LAYERS * steps)
+        require(res.tokens.shape == (cfg.n_quant, b, MAX_SEQLEN) and int(res.tokens.min()) >= 0
+                and int(res.tokens.max()) < model.n_target_vocab, "int8 tokens out of range")
+        require(not any(getattr(m, "use_int8", False) for m in model.modules()),
+                "the int8 route stayed on after generate_batch")
+        add_launches(total, launches)
+
+    # lazy windows over int8 states, on int8 weights, greedy, b8
+    windows = -(-(MAX_SEQLEN - n_pre) // WINDOW)
+    lazy_steps = windows * WINDOW
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lazy = generate_batch(model, text, prompt=prompt, max_seqlen=MAX_SEQLEN, k=1,
+                          force_max_seqlen=True, lazy_window=WINDOW, weight_quant="int8",
+                          state_quant="int8")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"generate_batch(weight_quant=\"int8\", lazy_window={WINDOW}, state_quant=\"int8\"): "
+          f"{BATCH} requests, {lazy.n_steps} steps ({windows} windows decoded), {wall:.3f} s "
+          f"wall [{card_line}]")
+    print(f"launches: {launches}")
+    # the 24 layer states are int8; the pos_net's stays in the state dtype
+    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS,
+                    gla_decode_lazy_conv=N_GLA_LAYERS * lazy_steps,
+                    gla_decode_lazy_conv_int8=(N_GLA_LAYERS - 1) * lazy_steps,
+                    gla_fold_q=(N_GLA_LAYERS - 1) * windows, gla_fold=windows,
+                    int8_linear=INT8_LINEARS_PER_STEP * lazy_steps,
+                    fused_ffn_int8=N_GLA_LAYERS * lazy_steps)
+    require(lazy.tokens.shape == (cfg.n_quant, BATCH, MAX_SEQLEN) and int(lazy.tokens.min()) >= 0
+            and int(lazy.tokens.max()) < model.n_target_vocab, "lazy int8 tokens out of range")
+    add_launches(total, launches)
+
+    named = dict(model.named_parameters())
+    tree = model.quantize_weights_()
+    n_int8 = sum(is_quantized_leaf(v) for v in tree.values())
+    print(f"resident weight bytes (quantized_bytes): {quantized_bytes(named)} as they are "
+          f"(bf16), {quantized_bytes(tree)} with the {n_int8} quantized weights int8")
+    require(n_int8 == INT8_LINEARS_PER_STEP + 2 * N_GLA_LAYERS + 2 * N_TEXT_LAYERS
+            + N_TEXT_LAYERS + 1, f"{n_int8} weights were quantized")
+
+    # one lazy window teacher-forced through the kernel path and the plain
+    # path, both on int8 weights, from the same int8 states
+    with torch.no_grad():
+        x_enc = model.encode_text(text)
+        start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
+        forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
+        follow = model.embed_tokens(lazy.tokens[:, :, n_pre:n_pre + WINDOW])
+        st0 = model.prefill(forced, x_enc, model.empty_state(BATCH, DEVICE))[2]
+        base = add_lazy_buffers(st0, WINDOW, dtype=model.dtype, state_quant="int8")
+        runs = {}
+        with use_int8_weights(model):
+            for mode in ("auto", "chunk"):
+                set_kernel_mode(model, mode)
+                st = map_state(lambda t: t.clone(), base)
+                reset_counts()
+                logits = []
+                for p in range(WINDOW):
+                    lg, _, st = model.decode_step(follow[:, p], x_enc, st, time_step=n_pre + p,
+                                                  lazy_p=p)
+                    require(bool(torch.isfinite(lg).all()), f"{mode}: non-finite logits, step {p}")
+                    logits.append(lg)
+                st = model.fold_lazy_state(st)
+                counts = read_counts()
+                if mode == "chunk":
+                    expect_launches(counts)
+                else:
+                    require(counts["gla_fold_q"] == N_GLA_LAYERS - 1, "the kernel path's fold")
+                runs[mode] = (torch.stack(logits, 1), st)
+            set_kernel_mode(model, "auto")
+        torch.cuda.synchronize()
+        print(f"one lazy window of {WINDOW} steps on int8 weights and int8 states, "
+              "teacher-forced, kernel path vs plain path:")
+        check("logits", max_err(runs["auto"][0], runs["chunk"][0]),
+              bound(runs["chunk"][0], TOL_LOGITS))
+        check_states("states after the fold, kernel path vs plain path", runs["auto"][1],
+                     runs["chunk"][1], TOL_QPATH,
+                     live=("s", "s_scale", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf"))
+
+        # ms per token, quantized beside unquantized, in turns
+        def steps_ms(b, int8, lazy_mode):
+            xe, f = x_enc[:b], follow[:b]
+            s = model.prefill(forced[:b, :8], xe, model.empty_state(b, DEVICE))[2]
+            if lazy_mode:
+                s = add_lazy_buffers(s, WINDOW, dtype=model.dtype,
+                                     state_quant="int8" if int8 else None)
+            torch.cuda.synchronize()
+            t_0 = time.perf_counter()
+            with use_int8_weights(model, on=int8):
+                for i in range(WINDOW):
+                    s = model.decode_step(f[:, i], xe, s, lazy_p=i if lazy_mode else None)[2]
+                if lazy_mode:
+                    s = model.fold_lazy_state(s)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t_0) * 1e3 / WINDOW
+
+        cases = [(1, False, False), (1, True, False), (BATCH, False, False),
+                 (BATCH, True, False), (BATCH, False, True), (BATCH, True, True)]
+        times = {case: [] for case in cases}
+        for case in cases:
+            steps_ms(*case)  # warm
+        for case in cases + cases[::-1]:
+            times[case].append(steps_ms(*case))
+        for (b, int8, lazy_mode), ms in times.items():
+            what = ("int8 weights" + (" and int8 states" if lazy_mode else "")) if int8 else "bf16"
+            print(f"decode b{b} {'lazy windows' if lazy_mode else 'classic'}, {what}: {ms} "
+                  f"ms/token (kernel path, {WINDOW} steps) [{card_line}]")
+        profile_int8_decode(torch, model, x_enc[:1], forced[:1], follow[:1])
+    return total
+
+
+def profile_int8_decode(torch, model, x_enc, forced, follow, steps=8):
+    """torch.profiler over 8 classic decode steps at b1 on int8 weights:
+    device busy share, and the device time in int8_linear, fused_ffn_int8,
+    the GLA kernels and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lina_speech_tpu_torch.models.base_blocks import use_int8_weights
+
+    with use_int8_weights(model):
+        st = model.prefill(forced[:, :8], x_enc, model.empty_state(1, DEVICE))[2]
+        for i in range(2):
+            st = model.decode_step(follow[:, i], x_enc, st)[2]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                st = model.decode_step(follow[:, i], x_enc, st)[2]
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(prof, f"{steps} decode steps b1, int8 weights", wall_ms, groups=(
+        ("int8_linear", ("int8_linear_", "quantize_rows_kernel")),
+        ("fused_ffn_int8", ("ffn_chunk_kernel", "ffn_sum_kernel")),
+        ("GLA kernels", ("gla_",))))
+
+
+def quant_serving_phase(torch, np, model, cfg, card_line):
+    """DecodeServer on int8 weights and int8 lazy-window states: 12 requests
+    through 8 recycled slots with prefill at full precision, then 4 requests
+    through a server that keeps only the int8 weights (prefill and text
+    encoding through the int8 route). The second server takes the float
+    weights out of ``model``: nothing else may use it afterwards."""
+    from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
+
+    requests = serving_requests(np, cfg)
+    total = dict.fromkeys(read_counts(), 0)
+    quant = dict(lazy=True, k=1, state_quant="int8", weight_quant="int8")
+    short = [(text, prompt, (1 if prompt is None else 1 + prompt.shape[1]) + 2 * WINDOW)
+             for text, prompt, _ in requests[:len(SERVE_PROMPTS)]]
+    for full_precision, reqs in ((True, requests), (False, short)):
+        mode = "lazy, int8 weights and states" + (
+            "" if full_precision else ", prefill through the int8 weights")
+        srv = DecodeServer(model, n_slots=SERVE_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW,
+                           int8_prefill_full_precision=full_precision, **quant)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        done, n_chunks, chunk_ms = serve(torch, srv, reqs)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        n_tokens = sum(c.length for c in done.values())
+        print(f"DecodeServer {mode}: {len(reqs)} requests through {SERVE_SLOTS} slots, "
+              f"{n_chunks} decode chunks of {WINDOW}, {n_tokens} tokens, {wall:.3f} s wall "
+              f"[{card_line}]")
+        print(f"launches: {launches}")
+        chunks = [_pow2_chunks(1 + (0 if p is None else p.shape[1])) for _, p, _ in reqs]
+        later = sum(len(c) - 1 for c in chunks)
+        # forwards on int8 weights: every decode step, and with the float
+        # weights gone every prefill chunk and every text encoding too
+        forwards = WINDOW * n_chunks + (0 if full_precision else len(reqs) + later)
+        encodes = 0 if full_precision else N_TEXT_LAYERS * len(reqs)
+        expect_launches(
+            launches, gla_chunk_conv=N_GLA_LAYERS * len(reqs), gla_chunk=N_GLA_LAYERS * later,
+            gla_decode_lazy_conv=N_GLA_LAYERS * WINDOW * n_chunks,
+            gla_decode_lazy_conv_int8=(N_GLA_LAYERS - 1) * WINDOW * n_chunks,
+            gla_fold_q=(N_GLA_LAYERS - 1) * n_chunks, gla_fold=n_chunks,
+            int8_linear=INT8_LINEARS_PER_STEP * forwards + encodes,
+            fused_ffn_int8=N_GLA_LAYERS * forwards + encodes)
+        add_launches(total, launches)
+        check_served(model, cfg, srv, reqs, done, chunks)
+        report_chunk_times(mode, len(reqs), chunk_ms, card_line)
+        for place, st in [("layer 0", srv._state.layers[0]), ("pos_net", srv._state.pos_net)]:
+            quantized = place != "pos_net"
+            require(st.s.dtype == (torch.int8 if quantized else model.dtype)
+                    and (st.s_scale is not None) == quantized and bool(st.s.any())
+                    and st.kbuf.dtype == model.dtype,
+                    f"slot container, {place}: s {st.s.dtype}, kbuf {st.kbuf.dtype}")
+        # the server launched no int8 kernel at a shape that was not held
+        hold_launched_q_shapes(torch)
+    require(model.logits_head.weight is None, "the float weights are still resident")
+    return total
+
+
 def profile_decode(torch, model, x_enc, forced, follow, steps=8):
     """Device busy share and top kernels of the kernel path's decode steps
     under torch.profiler (the profiler's own overhead included)."""
@@ -906,9 +1551,11 @@ def profile_decode(torch, model, x_enc, forced, follow, steps=8):
     print_profile(prof, f"{steps} decode steps b{BATCH}", wall_ms)
 
 
-def print_profile(prof, what, wall_ms, top=8):
+def print_profile(prof, what, wall_ms, top=8, groups=()):
     """Device busy share and the kernels with the most device time of a
-    torch.profiler run (the profiler's own overhead is in the wall time)."""
+    torch.profiler run (the profiler's own overhead is in the wall time).
+    ``groups``: (label, substrings of kernel names) whose device time is
+    summed and printed, with the rest."""
     from torch.autograd import DeviceType
 
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
@@ -923,6 +1570,14 @@ def print_profile(prof, what, wall_ms, top=8):
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.4f} of wall)")
     for e in sorted(events, key=dev, reverse=True)[:top]:
         print(f"  {dev(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    rest = busy_ms
+    for label, keys in groups:
+        mine = [e for e in events if any(k in e.key for k in keys)]
+        ms = sum(dev(e) for e in mine) / 1e3
+        rest -= ms
+        print(f"  {label}: {ms:.3f} ms in {sum(e.count for e in mine)} launches")
+    if groups:
+        print(f"  the rest: {rest:.3f} ms")
 
 
 def profiled(torch, fn, what, top=8):
@@ -1015,9 +1670,9 @@ def hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps):
     g = torch.Generator(device=DEVICE).manual_seed(t)
     do = torch.randn(b, H, t, DV, generator=g, device=DEVICE).to(bf)
     dsf = torch.randn(b, H, DK, DV, generator=g, device=DEVICE).to(st or torch.float32)
-    before = gla_cuda.launch_counts()
+    before = read_counts()
     o_k, s_k, got = conv_grads(torch, gla_cuda.gla_chunk_conv, x, do, dsf, need_ds0, need_taps)
-    after = gla_cuda.launch_counts()
+    after = read_counts()
     o_p, s_p, ref = conv_grads(torch, gla_cuda.gla_chunk_conv_plain, x, do, dsf, need_ds0,
                                need_taps)
     torch.cuda.synchronize()
@@ -1089,7 +1744,7 @@ def read_launches(gla_cuda):
     LAUNCHED.update(shapes["gla_chunk_conv_bwd"])
     require({s[:3] for s in shapes["gla_chunk_conv_bwd"]} == shapes["gla_chunk_conv"],
             f"forward and backward launched on different shapes: {shapes}")
-    return gla_cuda.launch_counts()
+    return read_counts()
 
 
 def launched_shapes_phase(torch, gla_cuda):
@@ -1152,7 +1807,7 @@ def training_phase(torch, np, gla_cuda, card_line):
                                     n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
                                     max_audio_len=MAX_AUDIO, seed=0)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    total = dict.fromkeys(gla_cuda.launch_counts(), 0)
+    total = dict.fromkeys(read_counts(), 0)
     torch.cuda.reset_peak_memory_stats()
     print(f"training the flagship: {n_params:,} f32 parameters, bf16 compute, batches of "
           f"{TRAIN_BATCH}, audio length {MIN_AUDIO}-{MAX_AUDIO}")
@@ -1161,7 +1816,7 @@ def training_phase(torch, np, gla_cuda, card_line):
         batch = batch_to_device(next(batches), DEVICE)
         frames, padded = int(batch["y_mask"].sum()), batch["y_mask"].numel()
         torch.cuda.synchronize()
-        gla_cuda.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         state, metrics = steps[accum](state, batch, gen)
         torch.cuda.synchronize()
@@ -1187,7 +1842,7 @@ def training_phase(torch, np, gla_cuda, card_line):
     print(f"  all {len(start)} parameter tensors moved and are finite")
     del start
     batch = batch_to_device(next(batches), DEVICE)
-    gla_cuda.reset_launch_counts()
+    reset_counts()
     profiled(torch, lambda: steps[1](state, batch, gen), "one train step b8", top=10)
     read_launches(gla_cuda)
     del state, steps
@@ -1199,14 +1854,14 @@ def training_phase(torch, np, gla_cuda, card_line):
     small = batch_to_device(next(synthetic_tts_batches(
         batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
         max_audio_len=MAX_AUDIO, seed=1)), DEVICE)
-    gla_cuda.reset_launch_counts()
+    reset_counts()
     loss_k, grads_k = model_grads(torch, model, small)
     expect_launches(read_launches(gla_cuda), gla_chunk_conv=N_GLA_LAYERS,
                     gla_chunk_conv_bwd=N_GLA_LAYERS)
     set_kernel_mode(model, "chunk")
-    gla_cuda.reset_launch_counts()
+    reset_counts()
     loss_p, grads_p = model_grads(torch, model, small)
-    expect_launches(gla_cuda.launch_counts())
+    expect_launches(read_counts())
     set_kernel_mode(model, "auto")
     torch.cuda.synchronize()
     print(f"flagship training forward and backward, kernel path vs plain path, batch of 2 "
@@ -1244,13 +1899,13 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line):
         for leaf in leaves:
             leaf.requires_grad_(True)
         step = make_tuning_step(model, config, params, torch.optim.Adam(leaves, lr=config.lr))
-        gla_cuda.reset_launch_counts()
+        reset_counts()
         step(0, batches[0])
         if mode == "auto":
             expect_launches(read_launches(gla_cuda), gla_chunk_conv=N_GLA_LAYERS,
                             gla_chunk_conv_bwd=N_GLA_LAYERS)
         else:
-            expect_launches(gla_cuda.launch_counts())
+            expect_launches(read_counts())
         grads[mode] = {f"block {i} {'kv'[j]}": leaf.grad
                        for i, p in enumerate(params) for j, leaf in enumerate(p)}
     set_kernel_mode(model, "auto")
@@ -1259,7 +1914,7 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line):
                 "path", grads["auto"], grads["chunk"], TOL_PARAM_GRAD, worst=6)
 
     torch.cuda.synchronize()
-    gla_cuda.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     tuned, losses = train_initial_state(model, batches, config)
     torch.cuda.synchronize()
@@ -1311,6 +1966,10 @@ def main():
     lazy_kernel_phase(torch, gla_cuda, summary)
     model, cfg, launches = generate_phase(torch, np, gla_cuda, card_line)
     add_launches(launches, serving_phase(torch, np, gla_cuda, model, cfg, card_line))
+    quant_linear_kernel_phase(torch, summary)
+    quant_lazy_kernel_phase(torch, gla_cuda, summary)
+    add_launches(launches, quant_generate_phase(torch, np, model, cfg, card_line))
+    add_launches(launches, quant_serving_phase(torch, np, model, cfg, card_line))
     del model
     torch.cuda.empty_cache()
     bwd_kernel_phase(torch, gla_cuda, summary)
@@ -1322,7 +1981,8 @@ def main():
     for name, source, replaces in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], **summary[name]))
+                            launches=launches[name], **summary[name],
+                            shapes=OTHER_SHAPES.get(name, [])))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

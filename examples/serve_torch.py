@@ -7,6 +7,7 @@ the serving flow (queue -> slots -> chunked decode -> completions). Point
 the GPU unless --cpu is given.
 
   python examples/serve_torch.py --requests 6 --slots 2 --cpu
+  python examples/serve_torch.py --cpu --lazy --chunk 4 --weight-quant int8 --state-quant int8
 """
 import argparse
 import os
@@ -29,6 +30,14 @@ def main():
     p.add_argument("--lazy", action="store_true",
                    help="lazy-window decode (chunk == lazy window; for high "
                         "slot occupancy, GLA backbones)")
+    p.add_argument("--weight-quant", choices=["int8"], default=None,
+                   help="decode on int8 copies of the large weights (prefill "
+                        "and text encoding stay at full precision)")
+    p.add_argument("--state-quant", choices=["int8"], default=None,
+                   help="int8 base states with per-row scales (needs --lazy)")
+    p.add_argument("--quant-min-size", type=int, default=None,
+                   help="least element count of a weight that is quantized "
+                        "(default: 65536, or 256 for the tiny config)")
     args = p.parse_args()
 
     import numpy as np
@@ -48,8 +57,11 @@ def main():
         model.load_state_dict(sd, strict=False)
 
     texts = [f"hello stream number {i} from the gpu" for i in range(args.requests)]
+    min_size = args.quant_min_size or (1 << 16 if args.config else 1 << 8)
     srv = DecodeServer(model, n_slots=args.slots, max_text_len=64,
-                       chunk=args.chunk, lazy=args.lazy)
+                       chunk=args.chunk, lazy=args.lazy,
+                       weight_quant=args.weight_quant, quant_min_size=min_size,
+                       state_quant=args.state_quant)
     t0 = time.perf_counter()
     for t in texts:
         srv.submit(np.asarray(tok.encode(t)), max_len=args.max_len)

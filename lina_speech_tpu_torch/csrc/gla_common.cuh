@@ -21,6 +21,8 @@ constexpr int kConv = 4;  // short-conv width
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// an element of a row-quantized int8 state (its row scale is applied elsewhere)
+__device__ __forceinline__ float to_f(signed char x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }

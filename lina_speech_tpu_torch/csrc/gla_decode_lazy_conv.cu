@@ -4,8 +4,8 @@
 // state.
 //
 // Replaces the TPU kernel gla_decode_lazy_conv_fused (lina_speech_tpu/ops/
-// gla_pallas.py:2197, body _lazy_conv_kernel :1759) without its int8 state
-// scale. Per (batch, head), with cc the f32 gate cumsum since the last fold:
+// gla_pallas.py:2197, body _lazy_conv_kernel :1759), its int8 state route
+// included. Per (batch, head), with cc the f32 gate cumsum since the last fold:
 //
 //   ring <- [ring[1:], x]                         (q, k, v rings, width 4)
 //   q = silu(rnd(sum_i wq_i ring_i)) * scale      (f32)
@@ -13,6 +13,10 @@
 //   v = rnd(silu(rnd(sum_i wv_i ring_i)))         (buffer dtype)
 //   cc <- cc + g;  kbuf[p] = k, vbuf[p] = v, cbuf[p] = cc
 //   o = (q e^{cc}) S + sum_{j <= p} (q . k_j e^{min(cc - c_j, 0)}) v_j
+//
+// With an int8 state S_q and its f32 row scales s_scale (b, h, dk) the row
+// scale rides the query: o = (q e^{cc} s_scale) S_q + the same window terms
+// (:1802-1810); the int8 element is converted in registers.
 //
 // rnd() rounds to the IO dtype (the Pallas kernel's conv rounding points,
 // :1775-1778 and :1791-1792). Slots j > p hold stale tokens of the previous
@@ -38,7 +42,12 @@
 // own. The state rows and the first two slots of each warp (a window of 16)
 // are loaded before the first barrier, so that every global load of the
 // token is in flight at once: the step is a chain of load latencies, not of
-// bytes, at small batch.
+// bytes, at small batch. An int8 state is a byte an element, so there a lane
+// owns four neighbouring value columns and loads them as one 32-bit word (a
+// warp reads 128 bytes of a row, the block a (DK x 128) tile): a quarter of
+// the blocks and of the load instructions of the one-column layout, and a
+// quarter of the recomputed q and k. The words stay packed in registers until
+// the query is ready.
 #include "gla_common.cuh"
 
 namespace {
@@ -46,6 +55,25 @@ namespace {
 using namespace gla;
 
 constexpr int kPre = 2;  // window slots a warp loads ahead of the barrier
+constexpr int kI8 = 2;   // state dtype code of a row-quantized int8 state
+
+// How a lane holds its share of a state row: CPL neighbouring columns loaded
+// as one Raw word and unpacked to f32 when they are used.
+template <typename ST> struct Tile {
+  static constexpr int kCPL = 1;
+  using Raw = ST;
+  static __device__ __forceinline__ void unpack(Raw w, float (&f)[1]) { f[0] = to_f(w); }
+};
+template <> struct Tile<signed char> {
+  static constexpr int kCPL = 4;
+  using Raw = unsigned int;
+  static __device__ __forceinline__ void unpack(Raw w, float (&f)[4]) {
+    f[0] = static_cast<float>(static_cast<signed char>(w & 0xff));
+    f[1] = static_cast<float>(static_cast<signed char>((w >> 8) & 0xff));
+    f[2] = static_cast<float>(static_cast<signed char>((w >> 16) & 0xff));
+    f[3] = static_cast<float>(static_cast<signed char>(w >> 24));
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -60,31 +88,36 @@ gla_decode_lazy_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk
                             const IO* __restrict__ wq, const IO* __restrict__ wk,
                             const IO* __restrict__ wv, const IO* __restrict__ cq,
                             const IO* __restrict__ ck, const IO* __restrict__ cv,
-                            const ST* __restrict__ state, IO* kbuf, IO* vbuf,
+                            const ST* __restrict__ state,
+                            const float* __restrict__ s_scale, IO* kbuf, IO* vbuf,
                             float* cbuf, const float* __restrict__ cc,
                             IO* __restrict__ o, IO* __restrict__ cq_out,
                             IO* __restrict__ ck_out, IO* __restrict__ cv_out,
                             float* __restrict__ cc_out, int BH, int H, int DV,
                             int p, float scale) {
   constexpr int RPT = DK / kGroups;
+  constexpr int CPL = Tile<ST>::kCPL;  // value columns per lane
+  constexpr int W = kBV * CPL;         // value columns per block
+  using Raw = typename Tile<ST>::Raw;
   const int bh = blockIdx.x;
   const int h = bh % H;
   const int tid = threadIdx.x;
   const int lane = tid % kBV;
   const int grp = tid / kBV;  // == warp index (kBV == 32)
-  const int col = blockIdx.y * kBV + lane;
+  const int col0 = blockIdx.y * W;      // the block's first column
+  const int col = col0 + lane * CPL;    // this lane's first column
   const int row0 = grp * RPT;
 
   constexpr int EPL = DK / kBV;  // key elements per lane in a slot's dot product
-  __shared__ float sq[DK], sk[DK], scc[DK], sv[kBV];
+  __shared__ float sq[DK], sk[DK], scc[DK], sv[W];
   __shared__ __align__(16) float sqe[DK];
-  __shared__ float part[kGroups][kBV];
+  __shared__ float part[kGroups][W];
 
   // the long-latency loads first: this thread's rows of the state tile
   const ST* srow = state + (size_t)bh * DK * DV + (size_t)row0 * DV + col;
-  float s[RPT];
+  Raw s[RPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) s[r] = to_f(srow[(size_t)r * DV]);
+  for (int r = 0; r < RPT; ++r) s[r] = *reinterpret_cast<const Raw*>(srow + (size_t)r * DV);
 
   // rings are (4, BH, D): element (j, bh, c) at j * BH * D + bh * D + c;
   // window buffers (L, BH, D) likewise
@@ -92,24 +125,25 @@ gla_decode_lazy_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk
   const size_t vstride = (size_t)BH * DV;
 
   // slot j < p of the window: this lane's share of k_j and c_j, and v_j at
-  // this lane's column
-  auto load_slot = [&](int j, float (&kj)[EPL], float (&cj)[EPL], float& vj) {
+  // this lane's columns
+  auto load_slot = [&](int j, float (&kj)[EPL], float (&cj)[EPL], float (&vj)[CPL]) {
     const size_t base = j * kstride + (size_t)bh * DK + lane;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       kj[e] = to_f(kbuf[base + e * kBV]);
       cj[e] = cbuf[base + e * kBV];
     }
-    vj = to_f(vbuf[j * vstride + (size_t)bh * DV + col]);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) vj[c] = to_f(vbuf[j * vstride + (size_t)bh * DV + col + c]);
   };
-  // a_j v_j with a_j = sum_i q_i k_j,i e^{min(cc_i - c_j,i, 0)}. Slot p is
-  // this token: k and v from shared memory, exp argument 0.
-  auto slot_term = [&](int j, const float (&kj)[EPL], const float (&cj)[EPL], float vj) {
+  // acc += a_j v_j with a_j = sum_i q_i k_j,i e^{min(cc_i - c_j,i, 0)}. Slot p
+  // is this token: k and v from shared memory, exp argument 0.
+  auto add_slot = [&](int j, const float (&kj)[EPL], const float (&cj)[EPL],
+                      const float (&vj)[CPL], float (&acc)[CPL]) {
     float a = 0.f;
     if (j == p) {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) a += sq[lane + e * kBV] * sk[lane + e * kBV];
-      vj = sv[lane];
     } else {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
@@ -117,12 +151,14 @@ gla_decode_lazy_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk
         a += sq[i] * kj[e] * expf(fminf(scc[i] - cj[e], 0.f));
       }
     }
-    return warp_sum(a) * vj;
+    a = warp_sum(a);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[c] += a * (j == p ? sv[lane * CPL + c] : vj[c]);
   };
 
   // this warp's first window slots j = grp, grp + kGroups are loaded ahead
   // of the barrier too
-  float pk[kPre][EPL], pc[kPre][EPL], pv[kPre];
+  float pk[kPre][EPL], pc[kPre][EPL], pv[kPre][CPL];
 #pragma unroll
   for (int u = 0; u < kPre; ++u) {
     const int j = grp + u * kGroups;
@@ -148,7 +184,8 @@ gla_decode_lazy_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk
     const IO k_io = from_f<IO>(silu(round_io<IO>(tap_sum(tk, hk, x_k))));
     const float ccn = cc[off] + gk[off];
     sq[tid] = q;
-    sqe[tid] = q * expf(ccn);
+    // an int8 state's row scale rides the query of the base readout
+    sqe[tid] = q * expf(ccn) * (s_scale != nullptr ? s_scale[off] : 1.f);
     sk[tid] = to_f(k_io);
     scc[tid] = ccn;
     if (blockIdx.y == 0) {
@@ -164,8 +201,8 @@ gla_decode_lazy_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk
       cc_out[off] = ccn;
     }
   }
-  if (tid < kBV) {
-    const int vcol = blockIdx.y * kBV + tid;
+  if (tid < W) {
+    const int vcol = col0 + tid;
     const size_t off = (size_t)bh * DV + vcol;
     const float x_v = to_f(xv[off]);
     float hv[kConv - 1], tv[kConv];
@@ -184,12 +221,21 @@ gla_decode_lazy_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk
 
   // base readout from the read-only state
   // (the warp's band of q e^{cc}, four rows per shared-memory load)
-  float acc = 0.f;
+  float acc[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) acc[c] = 0.f;
   const float4* qe = reinterpret_cast<const float4*>(&sqe[row0]);
 #pragma unroll
   for (int r = 0; r < RPT; r += 4) {
     const float4 q4 = qe[r / 4];
-    acc += q4.x * s[r] + q4.y * s[r + 1] + q4.z * s[r + 2] + q4.w * s[r + 3];
+    const float q[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float f[CPL];
+      Tile<ST>::unpack(s[r + i], f);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[c] += q[i] * f[c];
+    }
   }
 
   // window: o += a_j v_j over this warp's slots j <= p; those past the
@@ -197,39 +243,43 @@ gla_decode_lazy_conv_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk
 #pragma unroll
   for (int u = 0; u < kPre; ++u) {
     const int j = grp + u * kGroups;
-    if (j <= p) acc += slot_term(j, pk[u], pc[u], pv[u]);
+    if (j <= p) add_slot(j, pk[u], pc[u], pv[u], acc);
   }
   for (int j = grp + kPre * kGroups; j <= p; j += kGroups) {
-    float kj[EPL], cj[EPL], vj = 0.f;
+    float kj[EPL], cj[EPL], vj[CPL];
     if (j < p) load_slot(j, kj, cj, vj);
-    acc += slot_term(j, kj, cj, vj);
+    add_slot(j, kj, cj, vj, acc);
   }
-  part[grp][lane] = acc;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) part[grp][lane * CPL + c] = acc[c];
   __syncthreads();
 
-  if (grp == 0) {
+  if (tid < W) {
     float out = 0.f;
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) out += part[g][lane];
-    o[(size_t)bh * DV + col] = from_f<IO>(out);
+    for (int g = 0; g < kGroups; ++g) out += part[g][tid];
+    o[(size_t)bh * DV + col0 + tid] = from_f<IO>(out);
   }
 }
 
 template <typename IO, typename ST, int DK>
 int launch(const void* xq, const void* xk, const void* xv, const void* gk,
            const void* wq, const void* wk, const void* wv, const void* cq,
-           const void* ck, const void* cv, const void* state, void* kbuf,
-           void* vbuf, void* cbuf, const void* cc, void* o, void* cq_out,
+           const void* ck, const void* cv, const void* state, const void* s_scale,
+           void* kbuf, void* vbuf, void* cbuf, const void* cc, void* o, void* cq_out,
            void* ck_out, void* cv_out, void* cc_out, int B, int H, int DV, int p,
            float scale, cudaStream_t stream) {
-  const dim3 grid(B * H, DV / kBV);
+  constexpr int W = kBV * Tile<ST>::kCPL;
+  if (DV % W != 0) return -3;
+  const dim3 grid(B * H, DV / W);
   gla_decode_lazy_conv_kernel<IO, ST, DK><<<grid, kThreads, 0, stream>>>(
       static_cast<const IO*>(xq), static_cast<const IO*>(xk),
       static_cast<const IO*>(xv), static_cast<const float*>(gk),
       static_cast<const IO*>(wq), static_cast<const IO*>(wk),
       static_cast<const IO*>(wv), static_cast<const IO*>(cq),
       static_cast<const IO*>(ck), static_cast<const IO*>(cv),
-      static_cast<const ST*>(state), static_cast<IO*>(kbuf), static_cast<IO*>(vbuf),
+      static_cast<const ST*>(state), static_cast<const float*>(s_scale),
+      static_cast<IO*>(kbuf), static_cast<IO*>(vbuf),
       static_cast<float*>(cbuf), static_cast<const float*>(cc), static_cast<IO*>(o),
       static_cast<IO*>(cq_out), static_cast<IO*>(ck_out), static_cast<IO*>(cv_out),
       static_cast<float*>(cc_out), B * H, H, DV, p, scale);
@@ -241,25 +291,37 @@ int launch(const void* xq, const void* xk, const void* xv, const void* gk,
 // C entry point (bound with ctypes in ops/gla_cuda.py). Layouts: xq, xk, gk,
 // cc (B, H, DK); xv (B, H, DV); taps wq, wk (4, H, DK), wv (4, H, DV), tap 0
 // oldest; rings cq, ck (4, B, H, DK), cv (4, B, H, DV), index 3 newest;
-// state (B, H, DK, DV), read only; window buffers kbuf (L, B, H, DK), vbuf
+// state (B, H, DK, DV), read only, f32, bf16 or (state_dtype 2) int8 with
+// its row scales s_scale (B, H, DK) f32, else s_scale null; window buffers
+// kbuf (L, B, H, DK), vbuf
 // (L, B, H, DV) in the IO dtype and cbuf (L, B, H, DK) f32, slot p written
 // in place; cc f32; outputs o (B, H, DV), the new rings and the new cc. All
 // contiguous. Returns cudaGetLastError() after the launch, -1 for an
-// unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 != 0, -4
-// for p outside the window.
+// unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 != 0 (% 128
+// with an int8 state), -4
+// for p outside the window, -5 for an int8 state without scales or scales
+// with a float state.
 extern "C" int gla_decode_lazy_conv_step(
     const void* xq, const void* xk, const void* xv, const void* gk, const void* wq,
     const void* wk, const void* wv, const void* cq, const void* ck, const void* cv,
-    const void* state, void* kbuf, void* vbuf, void* cbuf, const void* cc, void* o,
+    const void* state, const void* s_scale, void* kbuf, void* vbuf, void* cbuf,
+    const void* cc, void* o,
     void* cq_out, void* ck_out, void* cv_out, void* cc_out, int B, int H, int DK,
     int DV, int L, int p, float scale, int io_dtype, int state_dtype, void* stream) {
   if (DV % gla::kBV != 0) return -3;
   if (p < 0 || p >= L) return -4;
+  if ((state_dtype == kI8) != (s_scale != nullptr)) return -5;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GLA_DISPATCH_TYPES(io_dtype, state_dtype,
-                     GLA_DISPATCH_DK(DK, return launch<IO, ST, DK>(
-                         xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf,
-                         cbuf, cc, o, cq_out, ck_out, cv_out, cc_out, B, H, DV, p,
-                         scale, st)))
+#define LAZY_LAUNCH(IO_T, ST_T)                                                  \
+  GLA_DISPATCH_DK(DK, return (launch<IO_T, ST_T, DK>(                            \
+      xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, s_scale, kbuf, vbuf, cbuf,  \
+      cc, o, cq_out, ck_out, cv_out, cc_out, B, H, DV, p, scale, st)))
+  if (state_dtype == kI8) {
+    if (io_dtype == gla::kF32) { LAZY_LAUNCH(float, signed char) }
+    if (io_dtype == gla::kBF16) { LAZY_LAUNCH(__nv_bfloat16, signed char) }
+    return -2;
+  }
+  GLA_DISPATCH_TYPES(io_dtype, state_dtype, LAZY_LAUNCH(IO, ST))
+#undef LAZY_LAUNCH
   return -2;
 }

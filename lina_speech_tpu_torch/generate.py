@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from lina_speech_tpu_torch.models.attentive_rnn import add_lazy_buffers
+from lina_speech_tpu_torch.models.base_blocks import use_int8_weights
+from lina_speech_tpu_torch.models.gla_layer import check_state_quant
 from lina_speech_tpu_torch.models.lina import LinaModel
 from lina_speech_tpu_torch.ops.sampling import topk_sampling
 from lina_speech_tpu_torch.ops.tools import undelay_rvq
@@ -62,6 +64,8 @@ def generate_batch(
     approx_topk: bool = False,
     lazy_window: int = 0,
     weight_quant: Optional[str] = None,
+    quant_min_size: int = 1 << 16,
+    quant_exclude=None,
     state_quant: Optional[str] = None,
     cfg_coef: Optional[float] = None,
 ) -> GenerateResult:
@@ -78,18 +82,46 @@ def generate_batch(
     read and write -- the same recurrence. Early stop is then at window
     granularity.
 
+    ``weight_quant="int8"`` runs the TOKEN LOOP on int8 copies of the large
+    Linear weights and of the logits head (``utils/quantize.py``; kernels
+    ``int8_linear`` and ``fused_ffn_int8``): decode at batch 1 reads every
+    weight once per token, and int8 halves those bytes. Text encoding and
+    prefill stay at full precision. The copies are made from the weights
+    after the cast to the compute dtype, as the JAX package makes them.
+    ``quant_min_size`` is the least element count of a weight that is
+    quantized (tests lower it so that tiny configs qualify) and
+    ``quant_exclude`` an optional ``fn(parameter name) -> bool`` for weights
+    that stay full precision. ``state_quant="int8"`` (needs ``lazy_window``)
+    keeps the read-only base states of the lazy windows int8 with one scale
+    per row, requantized at every fold (kernels ``gla_decode_lazy_conv``
+    with ``s_scale`` and ``gla_fold_q``). Both are opt-in quality knobs.
+
+    Still raising ``NotImplementedError``: ``state_quant="int4"`` (ROADMAP.md
+    Queue 1 item 8), ``cfg_coef`` (Queue 1 item 4) and ``approx_topk`` (a TPU
+    op). Not ported from the JAX package on purpose: its ``sf_emit_dtype``
+    switch (``LINA_SF32_BUDGET_GB``), which makes the TPU prefill kernels
+    emit f32 states and cast outside for a scheduling reason -- the value
+    that is quantized is the state-dtype final state either way, and that is
+    what the port quantizes; and the ``QLINEAR_MODE`` / ``QLINEAR_FUSED_FFN``
+    environment variables -- the port reads no environment variable, w8a8
+    is the ``quant_mode`` attribute of a quantized ``Linear``.
+
     The model's f32 parameters are cast to its compute dtype IN PLACE
     after the text is encoded, once (the JAX package pre-casts its param
     tree the same way); norms keep f32 statistics.
     """
     for name, val, ready in (
-            ("weight_quant", weight_quant, "ROADMAP.md Queue 1 item 8"),
-            ("state_quant", state_quant, "ROADMAP.md Queue 1 item 8"),
             ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),
             ("approx_topk", approx_topk, "a TPU op; the port samples exact top-k")):
         if val:
             raise NotImplementedError(f"generate_batch({name}=...) is not "
                                       f"ported ({ready})")
+    check_state_quant(state_quant)
+    if state_quant is not None and lazy_window <= 0:
+        raise ValueError("state_quant requires lazy_window > 0 (the read-only "
+                         "base state is what gets quantized)")
+    if weight_quant not in (None, "int8"):
+        raise ValueError(f"unknown weight_quant {weight_quant!r}")
     b = x.shape[0]
     nq = model.n_quant
     stop_id = 2
@@ -100,6 +132,8 @@ def generate_batch(
 
     x_enc = model.encode_text(x)
     model.cast_float_params_(model.dtype)
+    if weight_quant == "int8":
+        model.quantize_weights_(min_size=quant_min_size, exclude=quant_exclude)
     embed = model.embed_tokens
     y_embd0 = embed(torch.ones(nq, b, 1, dtype=torch.long, device=dev))
     if init_state is None:
@@ -138,25 +172,26 @@ def generate_batch(
     y_embd = embed(pre_tokens[:, -1].T[:, :, None])[:, 0]  # (b, d)
 
     if L:
-        state = add_lazy_buffers(state, L, dtype=y_embd0.dtype)
+        state = add_lazy_buffers(state, L, dtype=y_embd0.dtype, state_quant=state_quant)
 
     t = n_pre
-    while t < max_seqlen and (force_max_seqlen or not bool(stopped.all())):
-        # one token, or in lazy mode one window of L tokens and a fold
-        for j in range(L or 1):
-            logits, att, state = model.decode_step(
-                y_embd, x_enc, state, time_step=t, lazy_p=j if L else None)
-            toks = sample(logits)  # (b, q)
-            tokens[t] = toks
-            is_stop = (toks == stop_id).all(dim=-1)
-            stops[t] = is_stop
-            if return_att:
-                att_buf[t] = att
-            y_embd = embed(toks.T[:, :, None])[:, 0]
-            stopped = stopped | is_stop
-            t += 1
-        if L:
-            state = model.fold_lazy_state(state)
+    with use_int8_weights(model, on=weight_quant == "int8"):
+        while t < max_seqlen and (force_max_seqlen or not bool(stopped.all())):
+            # one token, or in lazy mode one window of L tokens and a fold
+            for j in range(L or 1):
+                logits, att, state = model.decode_step(
+                    y_embd, x_enc, state, time_step=t, lazy_p=j if L else None)
+                toks = sample(logits)  # (b, q)
+                tokens[t] = toks
+                is_stop = (toks == stop_id).all(dim=-1)
+                stops[t] = is_stop
+                if return_att:
+                    att_buf[t] = att
+                y_embd = embed(toks.T[:, :, None])[:, 0]
+                stopped = stopped | is_stop
+                t += 1
+            if L:
+                state = model.fold_lazy_state(state)
 
     stop_mask = stops[:max_seqlen].T  # (b, max_seqlen)
     first_stop = stop_mask.float().argmax(dim=1)

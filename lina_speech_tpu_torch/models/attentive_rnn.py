@@ -48,12 +48,16 @@ def map_state(fn: Callable, state: BackboneState, *others: BackboneState
 
 
 def add_lazy_buffers(state: BackboneState, window: int,
-                     dtype: torch.dtype = torch.bfloat16) -> BackboneState:
-    """Attach zeroed lazy-window buffers to every GLA layer state."""
-    one = lambda st: gla_add_lazy_buffers(st, window, dtype)
+                     dtype: torch.dtype = torch.bfloat16,
+                     state_quant: Optional[str] = None) -> BackboneState:
+    """Attach zeroed lazy-window buffers to every GLA layer state;
+    ``state_quant="int8"`` also row-quantizes the LAYER base states (the
+    bulk of the bytes a decode step reads); the one pos_net state stays
+    full precision, as in the JAX package."""
+    one = lambda st, quant: gla_add_lazy_buffers(st, window, dtype, quant)
     return BackboneState(
-        layers=tuple(one(st) for st in state.layers),
-        pos_net=one(state.pos_net) if state.pos_net is not None else None)
+        layers=tuple(one(st, state_quant) for st in state.layers),
+        pos_net=one(state.pos_net, None) if state.pos_net is not None else None)
 
 
 class AttentiveGLA(nn.Module):

@@ -7,20 +7,41 @@ reference's torch module names (``norm1``, ``tmix``, ``cmix``, ``p_in``,
 dtype flow (as the JAX package's flax modules): parameters are stored f32
 and cast to the compute dtype ``dtype`` at each matmul; norms take f32
 statistics and return the promoted dtype of input and weight.
+
+Quantized route (the JAX package's ``QDense`` and its fused ``SwiGLU``): a
+:class:`Linear` may hold an int8 copy of its weight with per-output-channel
+scales beside (or, once :meth:`Linear.drop_float_weight_` is called, in place
+of) the float weight. While ``use_int8`` is set its forward goes through
+``ops/qlinear.py:int8_linear``; a :class:`SwiGLU` whose two layers are both
+switched on in weight-only mode runs ``fused_ffn_int8`` instead. The switch
+is per module so that a caller can run the token loop on the int8 weights
+and prefill on the float ones (:func:`use_int8_weights`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lina_speech_tpu_torch.ops import qlinear
 from lina_speech_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 
 
 class Linear(nn.Module):
-    """``y = x W^T + b`` in the compute dtype; weight (out, in) f32."""
+    """``y = x W^T + b`` in the compute dtype; weight (out, in) f32.
+
+    The quantized route: :meth:`set_int8` attaches an int8 weight and its
+    scales (plain attributes, not parameters or buffers: they are derived
+    from the weight, stay out of the state_dict and live where the weight
+    lived when they were made). With ``use_int8`` set, ``forward`` computes
+    ``int8_linear(x, q, s)`` in the compute dtype and adds the bias after it,
+    in the output dtype. ``quant_mode`` is ``"wonly"`` (the default) or
+    ``"w8a8"``; ``kernel_mode="chunk"`` takes the plain version of the int8
+    product on every device.
+    """
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -28,10 +49,50 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
         self.bias = nn.Parameter(torch.empty(d_out)) if bias else None
         self.dtype = dtype
+        self.int8_q: Optional[torch.Tensor] = None  # (out, in padded to 16) int8
+        self.int8_s: Optional[torch.Tensor] = None  # (out,) f32
+        self.use_int8 = False
+        self.quant_mode = "wonly"
+        self.kernel_mode = "auto"
+
+    def set_int8(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        """Attach the int8 weight ``q`` (out, in) and its scales ``s`` (out
+        elements), as ``utils/quantize.py:quantize_leaf`` makes them."""
+        self.int8_q = qlinear.pack_int8_weight(q)
+        self.int8_s = s.reshape(-1).float().contiguous()
+
+    def drop_float_weight_(self) -> None:
+        """Keep only the int8 weight resident; the layer then always takes
+        the quantized route."""
+        if self.int8_q is None:
+            raise RuntimeError("no int8 weight to keep")
+        self.weight = None
+        self.use_int8 = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.bias.to(self.dtype) if self.bias is not None else None
+        if self.use_int8:
+            fn = (qlinear.int8_linear_plain if self.kernel_mode == "chunk"
+                  else qlinear.int8_linear)
+            y = fn(x, self.int8_q, self.int8_s, out_dtype=self.dtype, mode=self.quant_mode)
+            return y if b is None else y + b
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+@contextlib.contextmanager
+def use_int8_weights(model: nn.Module, on: bool = True):
+    """Within the block every module of ``model`` that holds an int8 weight
+    takes its quantized route (``on=False``: leaves things as they are).
+    Layers whose float weight was dropped stay quantized outside it too."""
+    holders = [m for m in model.modules()
+               if on and getattr(m, "int8_q", None) is not None and not m.use_int8]
+    for m in holders:
+        m.use_int8 = True
+    try:
+        yield
+    finally:
+        for m in holders:
+            m.use_int8 = False
 
 
 class Embedding(nn.Module):
@@ -111,17 +172,41 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
 
 
 class SwiGLU(nn.Module):
-    """SwiGLU MLP, hidden d*4//3, gate first (reference base_blocks.py:42-50)."""
+    """SwiGLU MLP, hidden d*4//3, gate first (reference base_blocks.py:42-50).
+
+    When both of its layers take the quantized route in weight-only mode the
+    whole FFN is one ``fused_ffn_int8`` call (the hidden activation stays out
+    of device memory), as the JAX ``SwiGLU`` does by default. Under ``w8a8``
+    it is two quantized :class:`Linear` calls, so that the whole quantized
+    forward keeps one numerics class.
+    """
 
     def __init__(self, d_model: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = d_model * 4 // 3
+        self.hidden, self.dtype = hidden, dtype
         self.p_in = Linear(d_model, 2 * hidden, dtype=dtype)
         self.p_out = Linear(hidden, d_model, dtype=dtype)
+        self._q_out_t: Optional[torch.Tensor] = None  # (hidden, d) int8, for the fused call
+
+    def prepare_fused_(self) -> None:
+        """(Re)make p_out's int8 weight hidden-major from the packed (d, H)
+        one; call it after p_out's int8 weight was set or replaced."""
+        q = self.p_out.int8_q
+        self._q_out_t = None if q is None else q[:, :self.hidden].T.contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, h = self.p_in(x).chunk(2, dim=-1)
-        return self.p_out(F.silu(gate) * h)
+        p_in, p_out = self.p_in, self.p_out
+        if (p_in.use_int8 and p_out.use_int8
+                and p_in.quant_mode == p_out.quant_mode == "wonly"):
+            fn = (qlinear.fused_ffn_int8_plain if p_in.kernel_mode == "chunk"
+                  else qlinear.fused_ffn_int8)
+            if self._q_out_t is None:
+                self.prepare_fused_()
+            return fn(x, p_in.int8_q, p_in.int8_s, p_in.bias, self._q_out_t,
+                      p_out.int8_s, p_out.bias, out_dtype=self.dtype)
+        gate, h = p_in(x).chunk(2, dim=-1)
+        return p_out(F.silu(gate) * h)
 
 
 class Rotary(nn.Module):

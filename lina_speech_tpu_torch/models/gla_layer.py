@@ -15,14 +15,18 @@ for CUDA tensors, its plain version for CPU tensors -- unless
   convs run here on the carried rings, then ``gla_chunk``;
 - a classic decode token (``step``): ``gla_decode_conv``;
 - a lazy-window decode token (``step_lazy``): ``gla_decode_lazy_conv``, the
-  state read only, and once per window ``gla_fold`` (``fold_lazy_state``).
+  state read only, and once per window ``gla_fold`` (``fold_lazy_state``);
+  with an int8 base state (``state_quant="int8"``: ``GLAState.s`` int8 and
+  its row scales in ``GLAState.s_scale``) the step passes ``s_scale`` and the
+  fold is ``gla_fold_q``.
 
 A layer without short convs prefills through ``gla_chunk`` too, but its
 decode steps run the plain ``gla_decode_step`` / ``gla_decode_lazy_step``
 on the CPU only: their kernel (``gla_decode_fused``) is not ported yet, so
 on CUDA they raise. Context parallelism, the scalar gate, the shared conv,
-quantized states and the folded projection layout have no switch in the
-port yet.
+int4 states and the folded projection layout have no switch in the port
+yet. The JAX layer merges q|k|v|g into one projection per decode step; the
+port launches one per projection (column-independent, the same numbers).
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ import torch.nn.functional as F
 
 from lina_speech_tpu_torch.models.base_blocks import Linear
 from lina_speech_tpu_torch.ops import gla_cuda
-from lina_speech_tpu_torch.ops.gla import gla_decode_lazy_step, gla_decode_step
+from lina_speech_tpu_torch.ops.gla import (
+    gla_decode_lazy_step, gla_decode_lazy_step_q, gla_decode_step, quantize_state_rows,
+)
 from lina_speech_tpu_torch.ops.short_conv import causal_depthwise_conv
 
 
@@ -54,19 +60,41 @@ class GLAState:
     vbuf: Optional[torch.Tensor] = None  # (L, b, h, dv)
     cbuf: Optional[torch.Tensor] = None  # (L, b, h, dk) f32 gate cumsums
     cc: Optional[torch.Tensor] = None    # (b, h, dk) f32 cumsum since fold
+    # int8 state quantization (state_quant="int8"): the f32 scale of each
+    # (b, h, dk) row; ``s`` is then int8 (ops/gla.py:quantize_state_rows)
+    s_scale: Optional[torch.Tensor] = None
+
+
+def check_state_quant(state_quant: Optional[str]) -> None:
+    """``None`` and ``"int8"`` are ported; ``"int4"`` is not yet."""
+    if state_quant == "int4":
+        raise NotImplementedError('state_quant="int4" is not ported '
+                                  "(ROADMAP.md Queue 1 item 8)")
+    if state_quant not in (None, "int8"):
+        raise ValueError(f"unknown state_quant {state_quant!r}")
 
 
 def gla_add_lazy_buffers(state: GLAState, window: int,
-                         dtype: torch.dtype = torch.bfloat16) -> GLAState:
-    """Attach zeroed lazy-decode window buffers sized from ``state.s``."""
+                         dtype: torch.dtype = torch.bfloat16,
+                         state_quant: Optional[str] = None) -> GLAState:
+    """Attach zeroed lazy-decode window buffers sized from ``state.s``.
+
+    ``state_quant="int8"`` also row-quantizes the base state: decode at
+    many slots reads every state once per token, and int8 halves those
+    bytes (an opt-in quality knob; the scale rides the readout's query)."""
+    check_state_quant(state_quant)
     b, h, dk, dv = state.s.shape
     dev = state.s.device
-    return dataclasses.replace(
+    state = dataclasses.replace(
         state,
         kbuf=torch.zeros(window, b, h, dk, dtype=dtype, device=dev),
         vbuf=torch.zeros(window, b, h, dv, dtype=dtype, device=dev),
         cbuf=torch.zeros(window, b, h, dk, dtype=torch.float32, device=dev),
         cc=torch.zeros(b, h, dk, dtype=torch.float32, device=dev))
+    if state_quant == "int8":
+        s_q, sc = quantize_state_rows(state.s)
+        state = dataclasses.replace(state, s=s_q, s_scale=sc)
+    return state
 
 
 def gla_fold_lazy_state(state: GLAState, plain: bool = False) -> GLAState:
@@ -76,10 +104,16 @@ def gla_fold_lazy_state(state: GLAState, plain: bool = False) -> GLAState:
     zeroing writes): the lazy step masks slots ``> p`` and rewrites every
     slot before the next fold reads it. ``plain`` takes the plain version
     on every device; otherwise a CUDA state is folded in place by the
-    ``gla_fold`` kernel.
+    ``gla_fold`` kernel, or an int8 one (``s_scale`` present), with its
+    scales, by ``gla_fold_q``.
     """
+    window = (state.kbuf, state.vbuf, state.cbuf, state.cc)
+    if state.s_scale is not None:
+        fold = gla_cuda.gla_fold_q_plain if plain else gla_cuda.gla_fold_q
+        s, sc = fold(state.s, state.s_scale, *window)
+        return dataclasses.replace(state, s=s, s_scale=sc, cc=torch.zeros_like(state.cc))
     fold = gla_cuda.gla_fold_plain if plain else gla_cuda.gla_fold
-    s = fold(state.s, state.kbuf, state.vbuf, state.cbuf, state.cc)
+    s = fold(state.s, *window)
     return dataclasses.replace(state, s=s, cc=torch.zeros_like(state.cc))
 
 
@@ -319,7 +353,7 @@ class GatedLinearAttention(nn.Module):
                     csplit(state.conv_k, dk), csplit(state.conv_v, dv), state.s)
             if lazy:
                 o, cq, ck, cv, *window = self._kernel("gla_decode_lazy_conv")(
-                    *args, *window, lazy_p)
+                    *args, *window, lazy_p, s_scale=state.s_scale)
                 s = state.s
             else:
                 o, s, cq, ck, cv = self._kernel("gla_decode_conv")(*args)
@@ -328,13 +362,18 @@ class GatedLinearAttention(nn.Module):
         else:
             self._no_conv_on_cpu(x_t)
             qkvg = (hsplit(qp, dk), hsplit(kp, dk), hsplit(vp, dv), gk)
-            if lazy:
+            if lazy and state.s_scale is not None:
+                o, *window = gla_decode_lazy_step_q(*qkvg, state.s, state.s_scale,
+                                                    *window, lazy_p)
+                s = state.s
+            elif lazy:
                 o, *window = gla_decode_lazy_step(*qkvg, state.s, *window, lazy_p)
                 s = state.s
             else:
                 o, s = gla_decode_step(*qkvg, state.s)
             rings = {}
         kbuf, vbuf, cbuf, cc = window
-        state = GLAState(s=s, kbuf=kbuf, vbuf=vbuf, cbuf=cbuf, cc=cc, **rings)
+        state = GLAState(s=s, kbuf=kbuf, vbuf=vbuf, cbuf=cbuf, cc=cc,
+                         s_scale=state.s_scale, **rings)
         out = self._output(o[:, :, None, :], x_t[:, None, :], g=gp[:, None])[:, 0]
         return out, state

@@ -18,17 +18,42 @@ import torch
 import torch.nn as nn
 
 from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA, BackboneState
-from lina_speech_tpu_torch.models.base_blocks import Embedding, set_dropout_generator
+from lina_speech_tpu_torch.models.base_blocks import (
+    Embedding, SwiGLU, set_dropout_generator,
+)
 from lina_speech_tpu_torch.models.multiembed import MultiEmbedding, head_logits
+from lina_speech_tpu_torch.utils.quantize import (
+    QKEY, SKEY, is_quantized_leaf, quantize_dense_params,
+)
 
 
 class LogitsHead(nn.Module):
     """EinMix "b n d -> b n q l" with weight (q, l, d), no bias
-    (modeling_lina.py:51-57)."""
+    (modeling_lina.py:51-57). Like a Linear it may hold an int8 copy of its
+    weight with (q, l, 1) scales; with ``use_int8`` set the head dequantizes
+    it in the compute dtype before the einsum (plain tensor code in the JAX
+    package too: no kernel)."""
 
     def __init__(self, n_quant: int, n_vocab: int, d_model: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(n_quant, n_vocab, d_model))
+        self.int8_q: Optional[torch.Tensor] = None  # (q, l, d) int8
+        self.int8_s: Optional[torch.Tensor] = None  # (q, l, 1) f32
+        self.use_int8 = False
+
+    def set_int8(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        self.int8_q, self.int8_s = q.contiguous(), s.float().contiguous()
+
+    def drop_float_weight_(self) -> None:
+        if self.int8_q is None:
+            raise RuntimeError("no int8 weight to keep")
+        self.weight = None
+        self.use_int8 = True
+
+    def matrix(self, dtype: torch.dtype) -> torch.Tensor:
+        if self.use_int8:
+            return self.int8_q.to(dtype) * self.int8_s.to(dtype)
+        return self.weight.to(dtype)
 
 
 class LinaModel(nn.Module):
@@ -65,7 +90,7 @@ class LinaModel(nn.Module):
     def _head(self, y_hat: torch.Tensor) -> torch.Tensor:
         if self.tie_embed:
             return self.rvq_embed.attend(y_hat)
-        return head_logits(y_hat, self.logits_head.weight.to(self.dtype))
+        return head_logits(y_hat, self.logits_head.matrix(self.dtype))
 
     def embed_tokens(self, y: torch.Tensor) -> torch.Tensor:
         """(q, b, n) token ids -> (b, n, d) summed quantizer embeddings."""
@@ -153,6 +178,52 @@ class LinaModel(nn.Module):
 
     def empty_state(self, batch_size: int, device=None) -> BackboneState:
         return self.attentive_rnn.empty_state(batch_size, device=device)
+
+    # ---------- int8 weights ----------
+    def quantize_weights_(self, min_size: int = 1 << 16, exclude=None) -> dict:
+        """Make int8 copies of the Linear weights (and the logits head) that
+        ``utils/quantize.py:quantize_dense_params`` selects, from the weights
+        as they are now (call it after :meth:`cast_float_params_`, or ``q``
+        differs from the JAX package's), and attach them to their modules.
+        Nothing runs on them until ``use_int8`` is switched on
+        (``base_blocks.use_int8_weights``). Returns the quantized mapping
+        ``{parameter name: tensor or {int8_q, int8_s}}``."""
+        tree = quantize_dense_params(dict(self.named_parameters()), min_size, exclude)
+        self.load_int8_({k: v for k, v in tree.items() if is_quantized_leaf(v)})
+        return tree
+
+    def load_int8_(self, pairs) -> None:
+        """Attach ``{parameter name: {int8_q, int8_s}}`` (the port's layout:
+        a Linear's q (out, in), s (out, 1)) to the modules that own those
+        parameters; an int8 weight a module held before beside its float
+        weight is dropped."""
+        for m in self.modules():
+            # a module that gave up its float weight keeps its int8 one
+            if getattr(m, "int8_q", None) is not None and m.weight is not None:
+                m.int8_q = m.int8_s = None
+        for name, pair in pairs.items():
+            owner = self.get_submodule(name.rsplit(".", 1)[0])
+            owner.set_int8(pair[QKEY], pair[SKEY])
+        for m in self.modules():
+            if isinstance(m, SwiGLU):
+                m.prepare_fused_()
+
+    def drop_float_weights_(self) -> None:
+        """Keep only the int8 copy of every weight that has one: those
+        layers then take the quantized route in every call."""
+        for m in self.modules():
+            if getattr(m, "int8_q", None) is not None:
+                m.drop_float_weight_()
+
+    def set_kernel_mode(self, mode: str) -> None:
+        """``"auto"`` (kernels on CUDA tensors) or ``"chunk"`` (the plain
+        PyTorch versions on every device) for every module that launches a
+        kernel: the GLA layers and the quantized Linears."""
+        if mode not in ("auto", "chunk"):
+            raise ValueError(f"kernel_mode {mode!r} not in ('auto', 'chunk')")
+        for m in self.modules():
+            if hasattr(m, "kernel_mode"):
+                m.kernel_mode = mode
 
     def cast_float_params_(self, dtype: torch.dtype) -> None:
         """Cast every f32 parameter to ``dtype`` in place (the JAX

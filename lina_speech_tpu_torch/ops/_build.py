@@ -108,9 +108,15 @@ def load_library() -> ctypes.CDLL:
     lib.gla_decode_conv_step.restype = i
     lib.gla_chunk_fwd.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
     lib.gla_chunk_fwd.restype = i
-    lib.gla_decode_lazy_conv_step.argtypes = [p] * 20 + [i] * 6 + [f, i, i, p]
+    lib.gla_decode_lazy_conv_step.argtypes = [p] * 21 + [i] * 6 + [f, i, i, p]
     lib.gla_decode_lazy_conv_step.restype = i
     lib.gla_fold_window.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.gla_fold_window.restype = i
+    lib.gla_fold_q_window.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.gla_fold_q_window.restype = i
+    lib.int8_linear_fwd.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.int8_linear_fwd.restype = i
+    lib.fused_ffn_int8_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.fused_ffn_int8_fwd.restype = i
     _lib = lib
     return lib

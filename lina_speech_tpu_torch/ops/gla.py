@@ -11,7 +11,10 @@ Counterpart of ``lina_speech_tpu/ops/gla.py``. Per head, with log-gates
 - :func:`gla_decode_step` -- one token, update and readout;
 - :func:`gla_decode_lazy_step` / :func:`gla_decode_lazy_fold` -- the same
   recurrence with a read-only state between folds: a window of L tokens
-  rides small buffers and is folded into the state once per window.
+  rides small buffers and is folded into the state once per window;
+- :func:`quantize_state_rows`, :func:`gla_decode_lazy_step_q` and
+  :func:`gla_decode_lazy_fold_q` -- the lazy window over an int8 base state
+  with one f32 scale per (batch, head, key row).
 
 These are the plain versions; the CUDA kernels of the main path live in
 ``ops/gla_cuda.py``.
@@ -107,6 +110,52 @@ def gla_decode_lazy_fold(s_base, kbuf, vbuf, cbuf, cc) -> torch.Tensor:
     s = cc.exp()[..., None] * s_base.float() + torch.einsum(
         "lbhk,lbhv->bhkv", kbuf.float() * dec, vbuf.float())
     return s.to(s_base.dtype)
+
+
+def quantize_state_rows(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of a recurrent state (b, h, dk, dv), one
+    scale per (b, h, dk) row: ``sc = max(max_v |S|, 1e-30) / 127``,
+    ``S_q = clip(round(S / sc), +-127)``. Lazy decode at many slots reads
+    every state once per token, and int8 halves those bytes; the row scale
+    rides the readout's query. Returns (S_q int8, sc f32 (b, h, dk))."""
+    sf = s.float()
+    sc = sf.abs().amax(dim=-1).clamp(min=1e-30) / 127.0
+    q = torch.round(sf / sc[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, sc
+
+
+def dequantize_state_rows(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    return q.float() * sc[..., None]
+
+
+def gla_decode_lazy_step_q(q, k, v, gk, s_base_q, s_scale, kbuf, vbuf, cbuf, cc,
+                           p: int, scale=None):
+    """:func:`gla_decode_lazy_step` over an int8 base state: the row scale
+    multiplies the query, ``o = (q e^{cc} s_scale) S_q + window terms``."""
+    scale = _default_scale(q, scale)
+    L = kbuf.shape[0]
+    qf, gf = q.float(), gk.float()
+    cc = cc + gf
+    kbuf, vbuf, cbuf = kbuf.clone(), vbuf.clone(), cbuf.clone()
+    kbuf[p], vbuf[p], cbuf[p] = k.to(kbuf.dtype), v.to(vbuf.dtype), cc.to(cbuf.dtype)
+
+    o = torch.einsum("bhk,bhkv->bhv", qf * scale * cc.exp() * s_scale, s_base_q.float())
+    live = (torch.arange(L, device=q.device) <= p).float()[:, None, None, None]
+    w = (cc[None] - cbuf.float()).clamp(max=0.0).exp() * live
+    a = torch.einsum("bhk,lbhk->lbh", qf * scale, kbuf.float() * w)
+    o = o + torch.einsum("lbh,lbhv->bhv", a, vbuf.float())
+    return o.to(q.dtype), kbuf, vbuf, cbuf, cc
+
+
+def gla_decode_lazy_fold_q(s_base_q, s_scale, kbuf, vbuf, cbuf, cc
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gla_decode_lazy_fold` over an int8 base state: dequantize,
+    fold the window, requantize every row afresh. Returns new (S_q,
+    s_scale); the buffers stay stale and the caller resets ``cc``."""
+    dec = (cc[None] - cbuf.float()).clamp(max=0.0).exp()
+    s = (cc.exp() * s_scale)[..., None] * s_base_q.float()
+    s = s + torch.einsum("lbhk,lbhv->bhkv", kbuf.float() * dec, vbuf.float())
+    return quantize_state_rows(s)
 
 
 def gla_chunk(q, k, v, gk, initial_state=None, scale=None,

@@ -17,10 +17,13 @@ wrappers and their plain versions.
   in. Kernel: ``csrc/gla_decode_conv.cu``.
 - :func:`gla_decode_lazy_conv` replaces ``gla_decode_lazy_conv_fused``
   (gla_pallas.py:2197), one lazy-window decode token: ring updates, append
-  to the window buffers, readout from a read-only state. Kernel:
-  ``csrc/gla_decode_lazy_conv.cu``.
+  to the window buffers, readout from a read-only state, which may be int8
+  with a row scale (``s_scale``). Kernel: ``csrc/gla_decode_lazy_conv.cu``.
 - :func:`gla_fold` replaces ``gla_fold_fused`` (gla_pallas.py:2232), the
   fold of a full window into the state. Kernel: ``csrc/gla_fold.cu``.
+- :func:`gla_fold_q` replaces ``gla_fold_fused_q`` (gla_pallas.py:2097), the
+  same fold on an int8 state with a fresh requantization of every row.
+  Kernel: ``csrc/gla_fold_q.cu``.
 
 Each wrapper takes the JAX function's arguments in the JAX layout. For a
 CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
@@ -46,6 +49,7 @@ from lina_speech_tpu_torch.ops import _build
 from lina_speech_tpu_torch.ops import gla as gla_ops
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_INT8_CODE = 2  # a row-quantized state (the lazy step only)
 _CONV_WIDTH = 4
 _DK_SUPPORTED = (64, 128, 256)
 _BV = 32  # value columns per block (csrc/gla_common.cuh:kBV)
@@ -54,12 +58,13 @@ _BWD_SEG = 64  # time steps per thread of the backward's finishing kernel (kFini
 
 def _wrappers():
     return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_decode_conv,
-            gla_decode_lazy_conv, gla_fold)
+            gla_decode_lazy_conv, gla_fold, gla_fold_q)
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
+    gla_decode_lazy_conv.q_launches = 0
     gla_chunk_conv.shapes, gla_chunk_conv_bwd.shapes = set(), set()
 
 
@@ -431,20 +436,35 @@ gla_chunk.launches = 0
 
 # -------------------------------------------------- lazy-window decode kernel
 def gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
-                               kbuf, vbuf, cbuf, cc, p: int, scale=None):
+                               kbuf, vbuf, cbuf, cc, p: int, scale=None,
+                               s_scale=None):
     """Plain version of :func:`gla_decode_lazy_conv` (same signature;
     returns new tensors and leaves every input untouched)."""
     q, cq2 = _ring_conv(xq, wq, cq)
     k, ck2 = _ring_conv(xk, wk, ck)
     v, cv2 = _ring_conv(xv, wv, cv)
-    o, kbuf, vbuf, cbuf, cc = gla_ops.gla_decode_lazy_step(
-        q, k.to(kbuf.dtype), v.to(vbuf.dtype), gk, state, kbuf, vbuf, cbuf, cc,
+    _check_state_scale("gla_decode_lazy_conv", state, s_scale)
+    base = (state,) if s_scale is None else (state, s_scale)
+    step = gla_ops.gla_decode_lazy_step if s_scale is None else gla_ops.gla_decode_lazy_step_q
+    o, kbuf, vbuf, cbuf, cc = step(
+        q, k.to(kbuf.dtype), v.to(vbuf.dtype), gk, *base, kbuf, vbuf, cbuf, cc,
         p, scale=scale)
     return o.to(xq.dtype), cq2, ck2, cv2, kbuf, vbuf, cbuf, cc
 
 
+def _check_state_scale(name, state, s_scale) -> None:
+    """An int8 state comes with its f32 row scales (b, h, dk), a float
+    state without."""
+    if state.dtype == torch.int8:
+        _check(name, s_scale is not None, "an int8 state needs s_scale")
+        _check(name, s_scale.shape == state.shape[:-1] and s_scale.dtype == torch.float32,
+               f"s_scale must be {tuple(state.shape[:-1])} in f32")
+    else:
+        _check(name, s_scale is None, "s_scale goes with an int8 state only")
+
+
 def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
-                         kbuf, vbuf, cbuf, cc, p: int, scale=None):
+                         kbuf, vbuf, cbuf, cc, p: int, scale=None, s_scale=None):
     """One lazy-window GLA decode token with the conv ring updates fused in.
 
     Arguments as :func:`gla_decode_conv`, plus the window buffers kbuf (L,
@@ -453,6 +473,10 @@ def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     < L). ``state`` is only read. Slots ``j > p`` of the buffers may hold
     anything. Returns (o (b, h, dv), cq, ck, cv, kbuf, vbuf, cbuf, cc).
 
+    ``state`` is f32 or bf16 with ``s_scale=None``, or int8 with its row
+    scales ``s_scale`` (b, h, dk) in f32 (``ops/gla.py:quantize_state_rows``):
+    the readout is then ``(q e^{cc} s_scale) S_q``.
+
     On CUDA the kernel writes slot ``p`` of kbuf, vbuf and cbuf IN PLACE and
     returns the same tensors (as the JAX kernel aliases them); the rings
     and cc come back as new tensors.
@@ -460,13 +484,19 @@ def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     if not xq.is_cuda:
         return gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck,
                                           cv, state, kbuf, vbuf, cbuf, cc, p,
-                                          scale)
+                                          scale, s_scale)
     name = "gla_decode_lazy_conv"
     b, h, dk = xq.shape
     dv = xv.shape[-1]
     io = xq.dtype
-    _check_cuda_args(name, [xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
-                            kbuf, vbuf, cbuf, cc], io, dk, dv, state.dtype)
+    _check_state_scale(name, state, s_scale)
+    quant = s_scale is not None
+    tensors = [xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf, cc]
+    _check_cuda_args(name, tensors + ([s_scale] if quant else []), io, dk, dv,
+                     torch.float32 if quant else state.dtype)
+    _check(name, not quant or dv % (4 * _BV) == 0,
+           f"with an int8 state the head value dim {dv} must be a multiple of {4 * _BV}")
+    state_code = _INT8_CODE if quant else _DTYPE_CODE[state.dtype]
     _check(name, xk.shape == xq.shape and xk.dtype == io, "xk must match xq")
     _check(name, xv.shape == (b, h, dv) and xv.dtype == io, "xv shape/dtype")
     _check(name, gk.shape == xq.shape and gk.dtype == torch.float32,
@@ -488,16 +518,19 @@ def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = lib.gla_decode_lazy_conv_step(
         _ptr(xq), _ptr(xk), _ptr(xv), _ptr(gk), _ptr(wq), _ptr(wk), _ptr(wv),
-        _ptr(cq), _ptr(ck), _ptr(cv), _ptr(state), _ptr(kbuf), _ptr(vbuf),
-        _ptr(cbuf), _ptr(cc), _ptr(o), _ptr(cq2), _ptr(ck2), _ptr(cv2),
-        _ptr(cc2), b, h, dk, dv, L, p, float(scale), _DTYPE_CODE[io],
-        _DTYPE_CODE[state.dtype], ctypes.c_void_p(stream))
+        _ptr(cq), _ptr(ck), _ptr(cv), _ptr(state), _ptr(s_scale), _ptr(kbuf),
+        _ptr(vbuf), _ptr(cbuf), _ptr(cc), _ptr(o), _ptr(cq2), _ptr(ck2),
+        _ptr(cv2), _ptr(cc2), b, h, dk, dv, L, p, float(scale), _DTYPE_CODE[io],
+        state_code, ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_decode_lazy_conv.launches += 1
+    if quant:
+        gla_decode_lazy_conv.q_launches += 1
     return o, cq2, ck2, cv2, kbuf, vbuf, cbuf, cc2
 
 
-gla_decode_lazy_conv.launches = 0
+# q_launches: how many of the launches read an int8 state
+gla_decode_lazy_conv.launches = gla_decode_lazy_conv.q_launches = 0
 
 
 def _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, buf_dtype) -> int:
@@ -548,3 +581,46 @@ def gla_fold(state, kbuf, vbuf, cbuf, cc) -> torch.Tensor:
 
 
 gla_fold.launches = 0
+
+
+# --------------------------------------------- window fold of an int8 state
+_FOLD_Q_DV = (128, 256, 512)  # value widths the int8 fold kernel is built for
+
+
+def gla_fold_q_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc):
+    """Plain version of :func:`gla_fold_q` (returns new tensors)."""
+    return gla_ops.gla_decode_lazy_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc)
+
+
+def gla_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc):
+    """Fold a FULL lazy window into an int8 recurrent state and requantize
+    every row: ``S = (e^{cc} s_scale) S_q + sum_j (k_j e^{min(cc - c_j,
+    0)})^T v_j``, then ``sc = max(max_v |S|, 1e-30) / 127`` and ``S_q =
+    clip(round(S / sc), +-127)``.
+
+    state_q (b, h, dk, dv) int8; s_scale (b, h, dk) f32; the window buffers
+    as :func:`gla_fold`. Returns (state_q, s_scale); the buffers are left as
+    they are and the caller resets ``cc``. On CUDA the kernel updates
+    ``state_q`` and ``s_scale`` IN PLACE and returns the same tensors.
+    """
+    if not state_q.is_cuda:
+        return gla_fold_q_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc)
+    name = "gla_fold_q"
+    b, h, dk, dv = state_q.shape
+    _check(name, state_q.dtype == torch.int8, "the state must be int8")
+    _check_state_scale(name, state_q, s_scale)
+    _check_cuda_args(name, [state_q, s_scale, kbuf, vbuf, cbuf, cc], kbuf.dtype, dk, dv,
+                     torch.float32)
+    _check(name, dv in _FOLD_Q_DV, f"head value dim {dv} not in {_FOLD_Q_DV}")
+    L = _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, kbuf.dtype)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(state_q.device).cuda_stream
+    err = lib.gla_fold_q_window(
+        _ptr(state_q), _ptr(s_scale), _ptr(kbuf), _ptr(vbuf), _ptr(cbuf), _ptr(cc),
+        b, h, dk, dv, L, _DTYPE_CODE[kbuf.dtype], ctypes.c_void_p(stream))
+    _raise_on(name, err)
+    gla_fold_q.launches += 1
+    return state_q, s_scale
+
+
+gla_fold_q.launches = 0

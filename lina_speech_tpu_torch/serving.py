@@ -31,10 +31,17 @@ happens after the fold, which is the condition of generate's post-prefill
 ``generate_batch(lazy_window=chunk)`` run. The classic mode steps
 ``gla_decode_conv`` token by token.
 
+``weight_quant="int8"`` runs the decode chunks on int8 copies of the large
+Linear weights and the logits head (``generate_batch``'s contract: prefill
+and text encoding at full precision, so int8 serving equals
+``generate_batch(weight_quant="int8")``); ``int8_prefill_full_precision=
+False`` keeps only the int8 copies resident and then prefills through them
+too. ``state_quant="int8"`` (lazy mode only) keeps the slots' base states
+int8 with one scale per row.
+
 The JAX server's jitted programs are plain host loops here, under
 ``torch.no_grad()``, with one host read of the sampled tokens per chunk.
-``weight_quant``, ``state_quant``, ``cfg_coef`` and ``mesh`` are not ported
-and raise.
+``state_quant="int4"``, ``cfg_coef`` and ``mesh`` are not ported and raise.
 """
 from __future__ import annotations
 
@@ -49,7 +56,9 @@ from lina_speech_tpu_torch.generate import _sample_tokens
 from lina_speech_tpu_torch.models.attentive_rnn import (
     BackboneState, add_lazy_buffers, map_state,
 )
+from lina_speech_tpu_torch.models.base_blocks import use_int8_weights
 from lina_speech_tpu_torch.models.crossatt import ConvPos
+from lina_speech_tpu_torch.models.gla_layer import check_state_quant
 from lina_speech_tpu_torch.models.lina import LinaModel
 
 STOP_ID = 2
@@ -105,6 +114,25 @@ class DecodeServer:
     The server runs where the model's parameters are, and casts the
     model's f32 parameters to its compute dtype in place (as
     ``generate_batch`` does).
+
+    ``weight_quant="int8"`` (with ``quant_min_size`` and ``quant_exclude`` as
+    in ``generate_batch``) makes int8 copies of the weights at construction
+    and runs every decode chunk on them. With
+    ``int8_prefill_full_precision=True`` (the default) prefill and text
+    encoding use the float weights; ``False`` drops the float weights of the
+    quantized layers FROM THE MODEL, so only the int8 copies stay resident
+    and every later forward of that model goes through them, at m = chunk
+    length in a prefill. ``state_quant="int8"`` needs ``lazy=True``: the
+    slot container then holds an int8 ``s`` and an f32 ``s_scale`` per
+    layer, as a prefill followed by ``add_lazy_buffers`` produced them.
+
+    Raising ``NotImplementedError``: ``state_quant="int4"`` (ROADMAP.md
+    Queue 1 item 8), ``cfg_coef`` (Queue 1 item 4), ``mesh`` (Queue 1 item
+    11), ``approx_topk`` (a TPU op). Not ported on purpose: the JAX server's
+    ``sf_emit_dtype`` policy (f32 emission of the prefill kernels' final
+    state, a TPU scheduling matter: the value quantized is the same) and
+    the ``QLINEAR_*`` environment variables (w8a8 is the ``quant_mode``
+    attribute of a quantized ``Linear``).
     """
 
     def __init__(
@@ -118,26 +146,35 @@ class DecodeServer:
         first_greedy_quant: int = 1,
         seed: int = 0,
         weight_quant: Optional[str] = None,
+        quant_min_size: int = 1 << 16,
+        quant_exclude=None,
         approx_topk: bool = False,
+        int8_prefill_full_precision: bool = True,
         mesh=None,
         cfg_coef: Optional[float] = None,
         lazy: bool = False,
         state_quant: Optional[str] = None,
     ):
         for name, val, ready in (
-                ("weight_quant", weight_quant, "ROADMAP.md Queue 1 item 8"),
-                ("state_quant", state_quant, "ROADMAP.md Queue 1 item 8"),
                 ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),
                 ("mesh", mesh, "ROADMAP.md Queue 1 item 11"),
                 ("approx_topk", approx_topk, "a TPU op; the port samples exact top-k")):
             if val:
                 raise NotImplementedError(f"DecodeServer({name}=...) is not "
                                           f"ported ({ready})")
+        check_state_quant(state_quant)
+        if state_quant is not None and not lazy:
+            raise ValueError("state_quant requires lazy=True (it rides the "
+                             "lazy base-state layout)")
+        if weight_quant not in (None, "int8"):
+            raise ValueError(f"unknown weight_quant {weight_quant!r}")
         self.model = model
         self.n_slots = n_slots
         self.max_text_len = max_text_len
         self.chunk = chunk
         self._lazy = lazy
+        self._state_quant = state_quant
+        self._int8 = weight_quant == "int8"
         self.sample_args = (k, temp, first_greedy_quant)
         self.device = next(model.parameters()).device
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -150,6 +187,10 @@ class DecodeServer:
         self.prefill_chunk_sizes: set = set()
 
         model.cast_float_params_(model.dtype)
+        if self._int8:
+            model.quantize_weights_(min_size=quant_min_size, exclude=quant_exclude)
+            if not int8_prefill_full_precision:
+                model.drop_float_weights_()
         cdt, dev = model.dtype, self.device
         d, m, B = model.d_model, max_text_len, n_slots
         self._x_enc = torch.zeros(B, m, d, dtype=cdt, device=dev)
@@ -181,7 +222,8 @@ class DecodeServer:
     def _with_buffers(self, state: BackboneState) -> BackboneState:
         if not self._lazy:
             return state
-        return add_lazy_buffers(state, self.chunk, dtype=self.model.dtype)
+        return add_lazy_buffers(state, self.chunk, dtype=self.model.dtype,
+                                state_quant=self._state_quant)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         k, temp, fgq = self.sample_args
@@ -229,15 +271,16 @@ class DecodeServer:
         pv = self._ca_mask[:, 0] if self._pos_needs_valid else None  # (B, m)
         state, y_embd, t = self._state, self._y_embd, self._t
         rows = []
-        for j in range(self.chunk):
-            logits, _, state = model.decode_step(
-                y_embd, self._x_enc, state, time_step=t,
-                lazy_p=j if self._lazy else None,
-                crossatt_mask=self._ca_mask, crossatt_pos_valid=pv)
-            toks = self._sample(logits)  # (B, q)
-            y_embd = model.embed_tokens(toks.T[:, :, None])[:, 0]
-            t = t + 1
-            rows.append(toks)
+        with use_int8_weights(model, on=self._int8):
+            for j in range(self.chunk):
+                logits, _, state = model.decode_step(
+                    y_embd, self._x_enc, state, time_step=t,
+                    lazy_p=j if self._lazy else None,
+                    crossatt_mask=self._ca_mask, crossatt_pos_valid=pv)
+                toks = self._sample(logits)  # (B, q)
+                y_embd = model.embed_tokens(toks.T[:, :, None])[:, 0]
+                t = t + 1
+                rows.append(toks)
         if self._lazy:
             # one unconditional fold per chunk: the buffered window lands
             # in the base states; the buffers stay stale (masked by the

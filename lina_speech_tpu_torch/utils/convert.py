@@ -7,8 +7,9 @@ the result loads with ``load_state_dict(strict=True)`` -- and so does the
 released reference checkpoint, after stripping its Lightning ``model.``
 root. :func:`named_tensors_to_jax` goes the other way, for gradients and
 updated parameters: tensors by torch name -> the JAX tree's paths and
-layouts, so that a training step compares leaf by leaf. Decode states and
-the S0 tuning params cross as arrays too.
+layouts, so that a training step compares leaf by leaf. Decode states
+(int8 ones with their row scales included), the S0 tuning params and the
+JAX package's int8-quantized weight tree cross as arrays too.
 """
 from __future__ import annotations
 
@@ -144,7 +145,7 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
 
 
 # ------------------------------------------------------------ decode states
-_STATE_FIELDS = ("s", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf", "cc")
+_STATE_FIELDS = ("s", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf", "cc", "s_scale")
 
 
 def backbone_state_from_arrays(state, device=None):
@@ -155,7 +156,8 @@ def backbone_state_from_arrays(state, device=None):
     in lazy mode, the window buffers) as numpy-convertible arrays or None;
     the JAX package's state dataclasses fit as they are. Layouts are the
     same on both sides. bfloat16 arrays stay bfloat16, everything else
-    keeps its numpy dtype. Quantized states (``s_scale``) are not ported.
+    keeps its numpy dtype: an int8 state ``s`` stays int8 and brings its f32
+    row scales ``s_scale``.
     """
     from lina_speech_tpu_torch.models.attentive_rnn import BackboneState
     from lina_speech_tpu_torch.models.gla_layer import GLAState
@@ -173,9 +175,6 @@ def backbone_state_from_arrays(state, device=None):
     def one(st):
         if st is None:
             return None
-        if getattr(st, "s_scale", None) is not None:
-            raise NotImplementedError("quantized states are not ported "
-                                      "(ROADMAP.md Queue 1 item 8)")
         return GLAState(**{f: leaf(getattr(st, f, None)) for f in _STATE_FIELDS})
 
     return BackboneState(layers=tuple(one(st) for st in state.layers),
@@ -197,6 +196,36 @@ def backbone_state_to_arrays(state) -> Dict[str, np.ndarray]:
             if val is not None:
                 out[f"{prefix}/{f}"] = val.detach().float().cpu().numpy()
     return out
+
+
+# ------------------------------------------------------- int8 weight trees
+def quantized_tree_from_jax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The int8 leaves of the JAX package's quantized params tree (nested,
+    values numpy-convertible; a quantized leaf is an ``{int8_q, int8_s}``
+    mapping, in the JAX layout: a Dense kernel's q (in, out) and s (1,
+    out)) -> ``{torch parameter name: {int8_q, int8_s}}`` in the port's
+    layout (q (out, in), s (out, 1); the logits head's (q, l, d) and (q, l,
+    1) as they are), which ``LinaModel.load_int8_`` takes. Float leaves are
+    left out."""
+    def walk(node, prefix):
+        out = {}
+        for k, v in node.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping) and "int8_q" in v:
+                rel = re.sub(r"^params/", "", path)
+                key = torch_key_for(rel)
+                if key is None:
+                    raise KeyError(f"no torch name for JAX param {path!r}")
+                q, sc = np.asarray(v["int8_q"]), np.asarray(v["int8_s"], np.float32)
+                if q.ndim == 2:
+                    q, sc = q.T, sc.T
+                out[key] = {"int8_q": torch.from_numpy(np.array(q)),  # writable copies
+                            "int8_s": torch.from_numpy(np.array(sc))}
+            elif isinstance(v, Mapping):
+                out.update(walk(v, path))
+        return out
+
+    return walk(tree, "")
 
 
 # ------------------------------------------------------- S0 tuning params

@@ -76,7 +76,10 @@ def test_sampled_generate_and_unported_options():
                          force_max_seqlen=True)
     assert res.tokens.shape == (1, 3, 9) and res.n_steps == 9
     assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < tm.n_target_vocab
-    for kw in ({"weight_quant": "int8"}, {"state_quant": "int8"}, {"cfg_coef": 1.5},
+    # int8 weights and states are ported (tests/test_torch_quant.py)
+    for kw in ({"state_quant": "int4", "lazy_window": 4}, {"cfg_coef": 1.5},
                {"approx_topk": True}):
         with pytest.raises(NotImplementedError):
             generate_batch(tm, x, max_seqlen=4, **kw)
+    with pytest.raises(ValueError):
+        generate_batch(tm, x, max_seqlen=4, state_quant="int8")  # needs lazy_window

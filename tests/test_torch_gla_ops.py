@@ -195,7 +195,8 @@ def test_wrappers_count_no_launch_on_cpu():
                             torch.ones(64, 4))
     assert gla_cuda.launch_counts() == dict.fromkeys(
         ("gla_chunk_conv", "gla_chunk_conv_bwd", "gla_chunk", "gla_decode_conv",
-         "gla_decode_lazy_conv", "gla_fold"), 0)
+         "gla_decode_lazy_conv", "gla_fold", "gla_fold_q"), 0)
+    assert gla_cuda.gla_decode_lazy_conv.q_launches == 0
 
 
 # ------------------------------------------------ gla_chunk_conv gradients

@@ -323,3 +323,186 @@ def test_chunk_without_conv_raises_when_a_gradient_is_asked(cuda):
     with torch.no_grad():
         o, _ = gla_cuda.gla_chunk(q, x["xk"], x["xv"], x["gk"])
     assert o.grad_fn is None
+
+
+# ------------------------------------------------------ quantized serving
+def _packed_weight(dev, n, k, seed):
+    from lina_speech_tpu_torch.ops import qlinear
+    from lina_speech_tpu_torch.utils.quantize import QKEY, SKEY, quantize_leaf
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pair = quantize_leaf(torch.randn(n, k, generator=g, device=dev) * 0.05)
+    return qlinear.pack_int8_weight(pair[QKEY]), pair[SKEY].reshape(-1), pair[QKEY]
+
+
+@pytest.mark.parametrize("mode", ["wonly", "w8a8"])
+@pytest.mark.parametrize("xdt,odt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 2048), (3, 85, 130), (8, 1365, 1024),
+                                   (19, 341, 67), (64, 2048, 1024), (5, 4100, 40)])
+def test_int8_linear_kernel_matches_plain(cuda, mode, xdt, odt, m, k, n):
+    """K and N that are no multiples of 16 or 8, an m that is no multiple
+    of the m-tile, a K longer than one staged pass."""
+    from lina_speech_tpu_torch.ops import qlinear
+
+    q, s, _ = _packed_weight(cuda, n, k, seed=k)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(2, m, k, generator=g, device=cuda).to(xdt)
+    before = qlinear.int8_linear.launches
+    out = qlinear.int8_linear(x, q, s, out_dtype=odt, mode=mode)
+    ref = qlinear.int8_linear_plain(x, q, s, out_dtype=odt, mode=mode)
+    torch.cuda.synchronize()
+    assert qlinear.int8_linear.launches == before + 1
+    assert out.shape == (2, m, n) and out.dtype == odt
+    err = float((out.float() - ref.float()).abs().max())
+    ref_max = float(ref.float().abs().max())
+    # w8a8 is an exact integer sum; wonly an f32 sum in another order
+    tol = 2.0 ** -7 if odt == torch.bfloat16 else (1e-6 if mode == "w8a8" else 1e-4)
+    assert ref_max > 0 and err <= tol * ref_max, (err, ref_max)
+
+
+@pytest.mark.parametrize("xdt,odt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("m,d,hidden", [(1, 1024, 1365), (8, 1024, 1365), (3, 64, 85),
+                                        (11, 256, 341), (1, 128, 512), (64, 1024, 1365)])
+def test_fused_ffn_kernel_matches_plain(cuda, xdt, odt, bias, m, d, hidden):
+    from lina_speech_tpu_torch.ops import qlinear
+
+    q_in, s_in, _ = _packed_weight(cuda, 2 * hidden, d, seed=hidden)
+    _, s_out, q_out = _packed_weight(cuda, d, hidden, seed=hidden + 1)
+    q_out_t = q_out.T.contiguous()
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, d, generator=g, device=cuda).to(xdt)
+    b_in = torch.randn(2 * hidden, generator=g, device=cuda) * 0.01 if bias else None
+    b_out = torch.randn(d, generator=g, device=cuda) * 0.01 if bias else None
+    args = (x, q_in, s_in, b_in, q_out_t, s_out, b_out)
+    before = qlinear.fused_ffn_int8.launches
+    out = qlinear.fused_ffn_int8(*args, out_dtype=odt)
+    again = qlinear.fused_ffn_int8(*args, out_dtype=odt)
+    ref = qlinear.fused_ffn_int8_plain(*args, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert qlinear.fused_ffn_int8.launches == before + 2
+    assert out.shape == (m, d) and out.dtype == odt
+    assert torch.equal(out, again)  # fixed-order reduction: the same from run to run
+    # a hidden unit whose bf16 rounding falls the other way moves the output
+    # by a bf16 step of that unit: held to one bf16 step of the output's size
+    err = float((out.float() - ref.float()).abs().max())
+    ref_max = float(ref.float().abs().max())
+    assert ref_max > 0 and err <= 2.0 ** -7 * ref_max, (err, ref_max)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 4, 256, 512, 16), (3, 3, 64, 128, 4), (1, 5, 128, 256, 16),
+                                   (2, 2, 256, 512, 21)])
+def test_int8_state_lazy_window_kernels_match_plain(cuda, io, shape):
+    """A whole window over an int8 base state: every lazy step with
+    ``s_scale`` and the requantizing fold against their plain versions."""
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows
+
+    b, h, dk, dv, L = shape
+    g = torch.Generator(device=cuda).manual_seed(L)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    state_q, s_scale = quantize_state_rows(r(b, h, dk, dv) * 0.05)
+    taps = [(r(4, h, d) * 0.5).to(io) for d in (dk, dk, dv)]
+    k_rings = p_rings = [r(4, b, h, d).to(io) for d in (dk, dk, dv)]
+    bufs = [(r(L, b, h, dk) * 9).to(io), (r(L, b, h, dv) * 9).to(io),
+            torch.full((L, b, h, dk), 200.0, device=cuda), torch.zeros(b, h, dk, device=cuda)]
+    k_bufs, p_bufs = [t.clone() for t in bufs], [t.clone() for t in bufs]
+    tol = 1e-4 if io == torch.float32 else 1e-2
+    for p in range(L):
+        tok = (r(b, h, dk).to(io), r(b, h, dk).to(io), r(b, h, dv).to(io),
+               torch.nn.functional.logsigmoid(r(b, h, dk)) / 4)
+        before = gla_cuda.gla_decode_lazy_conv.q_launches
+        out = gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, state_q, *k_bufs, p,
+                                            s_scale=s_scale)
+        ref = gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *p_rings, state_q, *p_bufs, p,
+                                                  s_scale=s_scale)
+        torch.cuda.synchronize()
+        assert gla_cuda.gla_decode_lazy_conv.q_launches == before + 1
+        assert out[0].dtype == io and _rel_err(out[0], ref[0]) <= tol
+        assert _rel_err(out[7], ref[7]) <= 1e-6
+        k_rings, k_bufs = out[1:4], list(out[4:8])
+        p_rings, p_bufs = ref[1:4], list(ref[4:8])
+    ref_q, ref_sc = gla_cuda.gla_fold_q_plain(state_q, s_scale, *p_bufs)
+    q_in, sc_in = state_q.clone(), s_scale.clone()
+    before = gla_cuda.gla_fold_q.launches
+    new_q, new_sc = gla_cuda.gla_fold_q(q_in, sc_in, *k_bufs)
+    torch.cuda.synchronize()
+    assert gla_cuda.gla_fold_q.launches == before + 1
+    assert new_q.data_ptr() == q_in.data_ptr() and new_sc.data_ptr() == sc_in.data_ptr()
+    steps = (new_q.int() - ref_q.int()).abs()
+    assert int(steps.max()) <= 1 and float((steps > 0).float().mean()) < 0.02
+    assert float(((new_sc - ref_sc).abs() / ref_sc).max()) <= 1e-5
+    assert bool(new_q.any()) and not torch.equal(new_q, state_q)
+
+
+def test_quantized_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from lina_speech_tpu_torch.ops import qlinear
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows
+
+    q, s, raw = _packed_weight(cuda, 40, 85, seed=0)
+    x = torch.randn(2, 85, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qlinear.int8_linear(x, raw.contiguous(), s)  # unpadded rows
+    with pytest.raises(ValueError, match="mode"):
+        qlinear.int8_linear(x, q, s, mode="w4a4")
+    with pytest.raises(ValueError, match="dtype"):
+        qlinear.int8_linear(x.half(), q, s)
+    with pytest.raises(ValueError, match="device"):
+        qlinear.int8_linear(x, q.cpu(), s)
+    state_q, sc = quantize_state_rows(torch.randn(1, 2, 64, 96, device=cuda))
+    bufs = [torch.zeros(4, 1, 2, 64, device=cuda), torch.zeros(4, 1, 2, 96, device=cuda),
+            torch.zeros(4, 1, 2, 64, device=cuda), torch.zeros(1, 2, 64, device=cuda)]
+    with pytest.raises(ValueError, match="value dim"):
+        gla_cuda.gla_fold_q(state_q, sc, *bufs)  # dv 96: no row-owning layout built
+    with pytest.raises(ValueError, match="s_scale"):
+        gla_cuda.gla_fold_q(state_q, None, *bufs)
+
+
+def test_quantized_generate_kernel_path_matches_plain_path(cuda):
+    """generate_batch with int8 weights and int8 lazy-window states on a
+    small bf16 model: the kernel path's launches, and its teacher-forced
+    logits against the plain path's."""
+    from lina_speech_tpu_torch.config import BackboneConfig, ModelConfig, TextEncoderConfig
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.models.attentive_rnn import add_lazy_buffers
+    from lina_speech_tpu_torch.models.base_blocks import use_int8_weights
+    from lina_speech_tpu_torch.ops import qlinear
+
+    cfg = ModelConfig(
+        backbone=BackboneConfig(d_model=256, n_layer=2, heads=2, chunk_size=16,
+                                state_dtype="bfloat16"),
+        text_encoder=TextEncoderConfig(dim=256, heads=2, n_layers=1, dropout=0.0),
+        d_model=256, n_codebook=50, compute_dtype="bfloat16")
+    model = build_model(cfg, device=cuda, seed=3).eval()
+    x = torch.randint(3, 256, (2, 6), device=cuda)
+    gla_cuda.reset_launch_counts()
+    qlinear.reset_launch_counts()
+    res = generate_batch(model, x, max_seqlen=9, k=1, force_max_seqlen=True, lazy_window=4,
+                         weight_quant="int8", quant_min_size=1 << 12, state_quant="int8")
+    counts = {**gla_cuda.launch_counts(), **qlinear.launch_counts()}
+    # 2 windows of 4 steps; 5 GLA layers, 4 of them with an int8 state
+    assert counts["gla_decode_lazy_conv"] == 5 * 8 and counts["gla_fold_q"] == 4 * 2
+    assert gla_cuda.gla_decode_lazy_conv.q_launches == 4 * 8 and counts["gla_fold"] == 2
+    assert counts["fused_ffn_int8"] == 5 * 8 and counts["int8_linear"] > 0
+    assert res.tokens.shape == (1, 2, 9)
+    logits = {}
+    with torch.no_grad(), use_int8_weights(model):
+        x_enc = model.encode_text(x)
+        y = model.embed_tokens(res.tokens[:, :, :5])
+        for mode in ("auto", "chunk"):
+            model.set_kernel_mode(mode)
+            st = add_lazy_buffers(model.empty_state(2, device=cuda), 4, dtype=torch.bfloat16,
+                                  state_quant="int8")
+            out = []
+            for p in range(4):
+                lg, _, st = model.decode_step(y[:, p], x_enc, st, lazy_p=p)
+                out.append(lg)
+            st = model.fold_lazy_state(st)
+            logits[mode] = torch.stack(out).float()
+        model.set_kernel_mode("auto")
+    assert bool(torch.isfinite(logits["auto"]).all())
+    assert _rel_err(logits["auto"], logits["chunk"]) <= 5e-2

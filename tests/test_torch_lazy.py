@@ -125,6 +125,53 @@ def test_lazy_conv_plain_window_matches_pallas(L, io):
     _close(t_new, gla_fold_fused(js, *jb, interpret=True, donate=False), PALLAS_TOL)
 
 
+@pytest.mark.parametrize("io", ["float32", "bfloat16"])
+def test_lazy_conv_plain_window_with_int8_state_matches_pallas(io):
+    """The same window over an int8 base state: gla_decode_lazy_conv with
+    ``s_scale`` against the Pallas kernel's int8 route, and gla_fold_q
+    against gla_fold_fused_q, both in interpret mode. The fold's integers
+    may sit one step apart where a value lies on a rounding boundary (the
+    Pallas kernel rounds the decayed keys to bf16, as its own test allows)."""
+    from lina_speech_tpu.ops.gla_pallas import gla_fold_fused_q
+
+    L = 4
+    toks, taps, rings, state, bufs = _window_inputs(7, L)
+    jdt, tdt = (jnp.float32, torch.float32) if io == "float32" else (jnp.bfloat16, torch.bfloat16)
+    bufs = [np.zeros_like(a) for a in bufs]
+
+    def both(a, jd, td):
+        j = jnp.asarray(a).astype(jd)
+        return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(td)
+
+    jt, tt = zip(*(both(a, jdt, tdt) for a in taps))
+    jr, tr = map(list, zip(*(both(a, jdt, tdt) for a in rings)))
+    jq, jsc = jgla.quantize_state_rows(jnp.asarray(state * 0.1))
+    tq, tsc = torch.from_numpy(np.array(jq)), torch.from_numpy(np.array(jsc))
+    jb, tb = map(list, zip(*(both(a, d, t) for a, d, t in zip(
+        bufs, (jdt, jdt, jnp.float32, jnp.float32), (tdt, tdt, torch.float32, torch.float32)))))
+    for p, tok in enumerate(toks):
+        jx, tx = zip(*(both(a, jdt, tdt) for a in tok[:3]))
+        jo, *jrest = gla_decode_lazy_conv_fused(
+            *jx, jnp.asarray(tok[3]), *jt, *jr, jq, *jb, jnp.int32(p),
+            interpret=True, donate=False, s_scale=jsc)
+        to, *trest = gla_cuda.gla_decode_lazy_conv(
+            *tx, torch.from_numpy(tok[3]), *tt, *tr, tq, *tb, p, s_scale=tsc)
+        jr, jb, tr, tb = jrest[:3], jrest[3:], trest[:3], trest[3:]
+        assert to.dtype == tdt
+        _close(to, jo, PALLAS_TOL)
+        for a, j in zip(tr, jr):
+            _close(a, j, 0.0)
+        _close(tb[3], jb[3], OPS_TOL)
+    with pytest.raises(ValueError, match="s_scale"):
+        gla_cuda.gla_decode_lazy_conv(*tx, torch.from_numpy(tok[3]), *tt, *tr, tq, *tb, 0)
+    new_q, new_sc = gla_cuda.gla_fold_q(tq, tsc, *tb)
+    kq, ksc = gla_fold_fused_q(jq, jsc, *jb, interpret=True, donate=False)
+    assert new_q.dtype == torch.int8 and new_sc.dtype == torch.float32
+    steps = np.abs(new_q.numpy().astype(np.int32) - np.asarray(kq, np.int32))
+    assert steps.max() <= 1 and (steps > 0).mean() < 0.05, (steps.max(), (steps > 0).mean())
+    np.testing.assert_allclose(new_sc.numpy(), np.asarray(ksc), rtol=5e-3, atol=1e-7)
+
+
 @pytest.mark.parametrize("L", [4, 16])
 def test_lazy_window_equals_classic_steps(L):
     """L lazy steps and one fold are L classic steps: the same outputs,

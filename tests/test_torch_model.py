@@ -3,8 +3,9 @@
 One JAX LinaModel per variant (the tiny config with SinPos, its ConvPos +
 short-conv variant in the released checkpoint's architecture, and a
 non-blind variant with rotary CrossAttention) is initialized by JAX; its params cross into the port through
-``utils/convert.py``. Inputs are numpy arrays from a seed. Tolerance 1e-4:
-both sides compute in f32 and differ only in summation order.
+``utils/convert.py``. Inputs are numpy arrays from a seed. Tolerance: 1e-4
+of each output's own max|reference|; both sides compute in f32 and differ
+only in summation order.
 """
 import dataclasses
 
@@ -69,8 +70,13 @@ def pair(request):
 
 
 def _close(t, j, tol=TOL):
-    np.testing.assert_allclose(t.detach().float().numpy(), np.asarray(j, np.float32),
-                               rtol=tol, atol=tol)
+    """``t`` within ``tol`` of its reference's own size, max|j|, with no
+    floor: a GLA layer's output is ~1e-5 at initialization, so an absolute
+    tolerance of 1e-4 on it would prove nothing."""
+    t, j = t.detach().float().numpy(), np.asarray(j, np.float32)
+    assert t.shape == j.shape, (t.shape, j.shape)
+    err, ref = float(np.abs(t - j).max()), float(np.abs(j).max())
+    assert ref > 0 and err <= tol * ref, (err, ref)
 
 
 def _rng_inputs(seed, b=2, m=7, t=11, d=64):

@@ -3,9 +3,10 @@
 A fresh interpreter blocks both (``sys.modules[name] = None`` makes any
 import of them fail), imports every module of the port (``train/``,
 ``data/`` and ``models/accuracy.py`` among them), runs a tiny
-``generate_batch``, a server, one train step, one S0 tuning step and
-``examples/train_torch.py``; it then checks that no jax/flax module and
-nothing of ``lina_speech_tpu`` was loaded.
+``generate_batch``, a server (both also with int8 weights and int8
+lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``), one train
+step, one S0 tuning step and ``examples/train_torch.py``; it then checks
+that no jax/flax module and nothing of ``lina_speech_tpu`` was loaded.
 """
 import os
 import subprocess
@@ -34,6 +35,17 @@ srv = DecodeServer(model, n_slots=1, max_text_len=8, chunk=4, lazy=True)
 for n in (3, 5):
     srv.submit(list(range(3, 3 + n)), prompt=[[7, 8, 9]], max_len=10)
 assert sorted(c.length for c in srv.run()) == [10, 10]
+# the quantized serving path: int8 weights and int8 lazy-window states
+for name in ("lina_speech_tpu_torch.utils.quantize", "lina_speech_tpu_torch.ops.qlinear"):
+    assert name in sys.modules, name
+quant = dict(weight_quant="int8", quant_min_size=256, state_quant="int8")
+res = generate_batch(model, torch.randint(3, 256, (2, 5)), max_seqlen=9, k=1,
+                     force_max_seqlen=True, lazy_window=4, **quant)
+assert res.tokens.shape == (1, 2, 9) and model.logits_head.int8_q.dtype == torch.int8
+srv = DecodeServer(model, n_slots=2, max_text_len=8, chunk=4, lazy=True, **quant)
+for n in (3, 5, 4):
+    srv.submit(list(range(3, 3 + n)), prompt=[[7, 8, 9]], max_len=10)
+assert len(srv.run()) == 3 and srv._state.layers[0].s.dtype == torch.int8
 # the training path: data, one train step, one S0 tuning step, the example
 from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
 from lina_speech_tpu_torch.train.harness import (
@@ -68,3 +80,30 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_sources_import_no_jax():
+    """Every module of the port (``utils/quantize.py`` and ``ops/qlinear.py``
+    among them), ``chip_smoke.py`` and the port's examples, read as source:
+    no import statement names jax, flax or the JAX package."""
+    import ast
+    import glob
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = glob.glob(os.path.join(root, "lina_speech_tpu_torch", "**", "*.py"), recursive=True)
+    files += [os.path.join(root, "chip_smoke.py")]
+    files += glob.glob(os.path.join(root, "examples", "*_torch.py"))
+    names = {os.path.relpath(f, root) for f in files}
+    for must in ("lina_speech_tpu_torch/utils/quantize.py", "lina_speech_tpu_torch/ops/qlinear.py",
+                 "chip_smoke.py", "examples/serve_torch.py"):
+        assert must in names, must
+    banned = ("jax", "flax", "lina_speech_tpu")
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            for mod in mods:
+                assert mod.split(".")[0] not in banned, (os.path.relpath(path, root), mod)

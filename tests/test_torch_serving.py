@@ -158,25 +158,35 @@ def test_queue_drains_when_requests_end_at_prefill(setup):
         srv.run()
 
 
-@pytest.mark.parametrize("lazy", [False, True], ids=["classic", "lazy"])
-def test_bf16_server_keeps_prefill_dtypes(lazy):
+@pytest.mark.parametrize("lazy,squant", [(False, None), (True, None), (True, "int8")],
+                         ids=["classic", "lazy", "lazy-int8"])
+def test_bf16_server_keeps_prefill_dtypes(lazy, squant):
     """A bf16 compute/state config: the slot container takes the dtypes a
     prefill produces (bf16 states, rings and window buffers; f32 gate
-    cumsums), and the server equals generate_batch."""
+    cumsums; with state_quant="int8" the layers' states int8 with f32 row
+    scales, quantized from the bf16 final state, and the pos_net's still
+    bf16), and the server equals generate_batch."""
     cfg = _flagship_like(torch_tiny(compute_dtype="bfloat16"), state_dtype="bfloat16")
     tm = torch_build(cfg, device="cpu", seed=4).eval()
-    srv = DecodeServer(tm, n_slots=2, max_text_len=MAX_TEXT, chunk=CHUNK, lazy=lazy)
+    srv = DecodeServer(tm, n_slots=2, max_text_len=MAX_TEXT, chunk=CHUNK, lazy=lazy,
+                       state_quant=squant)
     texts = [[5, 9, 3, 17, 8], [12, 4, 33, 7]]
     rids = [srv.submit(np.asarray(t), max_len=11) for t in texts]
     done = {c.rid: c for c in srv.run()}
     for st in srv._state.layers + (srv._state.pos_net,):
-        for name in ("s", "conv_q", "conv_k", "conv_v") + (("kbuf", "vbuf") if lazy else ()):
+        quant = squant is not None and st is not srv._state.pos_net
+        assert st.s.dtype == (torch.int8 if quant else torch.bfloat16)
+        assert (st.s_scale is not None) == quant
+        if quant:
+            assert st.s_scale.dtype == torch.float32 and bool(st.s.any())
+        for name in ("conv_q", "conv_k", "conv_v") + (("kbuf", "vbuf") if lazy else ()):
             assert getattr(st, name).dtype == torch.bfloat16, name
         if lazy:
             assert st.cbuf.dtype == st.cc.dtype == torch.float32
     for rid, text in zip(rids, texts):
         ref = generate_batch(tm, torch.tensor([text]), max_seqlen=11, k=1,
-                             force_max_seqlen=True, lazy_window=CHUNK if lazy else 0)
+                             force_max_seqlen=True, lazy_window=CHUNK if lazy else 0,
+                             state_quant=squant)
         np.testing.assert_array_equal(done[rid].tokens,
                                       ref.tokens[:, 0, :].T.numpy()[:done[rid].length])
 
@@ -213,12 +223,15 @@ def test_batch_axis():
         _batch_axis((8, 3), (1, 4), 8)
 
 
-@pytest.mark.parametrize("kw", [{"weight_quant": "int8"}, {"state_quant": "int8", "lazy": True},
+@pytest.mark.parametrize("kw", [{"weight_quant": "int4"}, {"state_quant": "int4", "lazy": True},
                                 {"cfg_coef": 1.5}, {"mesh": object()}],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_server_options_raise(kw):
+    """int8 weights and states are ported (tests/test_torch_quant.py); an
+    int4 state, CFG and a mesh are not, and there is no int4 weight."""
     tm = torch_build(torch_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    error = ValueError if "weight_quant" in kw else NotImplementedError
+    with pytest.raises(error):
         DecodeServer(tm, n_slots=2, **kw)
 
 
