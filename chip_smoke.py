@@ -172,8 +172,12 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "lina_speech_tpu/ops/gla_pallas.py:861"),
     ("gla_chunk", "lina_speech_tpu_torch/csrc/gla_chunk.cu",
      "lina_speech_tpu/ops/gla_pallas.py:699"),
+    ("gla_chunk_bwd", "lina_speech_tpu_torch/csrc/gla_chunk_bwd.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:210"),
     ("gla_decode_conv", "lina_speech_tpu_torch/csrc/gla_decode_conv.cu",
      "lina_speech_tpu/ops/gla_pallas.py:1641"),
+    ("gla_decode", "lina_speech_tpu_torch/csrc/gla_decode.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:1709"),
     ("gla_decode_lazy_conv", "lina_speech_tpu_torch/csrc/gla_decode_lazy_conv.cu",
      "lina_speech_tpu/ops/gla_pallas.py:2197"),
     ("gla_fold", "lina_speech_tpu_torch/csrc/gla_fold.cu",
@@ -189,6 +193,21 @@ KERNELS = (  # name, source, the TPU kernel it replaces
 # times at further shapes than a kernel's row of the summary, each with its
 # bound: {kernel name: [{shape, ms, plain_ms, bound_ms, bound_by}, ...]}
 OTHER_SHAPES = {}
+# The GLA-family variants at the flagship's width (d 1024, 12 + 12 layers and
+# the blind pos_net): simple-GLA without convs (4 heads, dk 256, dv 256, bf16
+# IO) and Mamba-2 (32 heads, d_state 64 as dk, headdim 64 as dv, f32 IO);
+# both keep f32 states, as the JAX package builds them
+SIMPLE_HEAD = (4, 256, 256)
+MAMBA_HEAD = (32, 64, 64)
+VARIANT_TRAIN_STEPS = {"simple_gla": 5, "mamba2": 3}
+INTERLEAVED_LAYERS, SHORT_STEPS, SHORT_BATCH = (5, 11), 16, 2
+# (b, h, t, dk, dv, IO dtype, initial-state dtype or None, scale) at which
+# gla_chunk was held against its plain version; with need_ds0 appended, the
+# same for its backward; (b, h, dk, dv, IO dtype, state dtype) for
+# gla_decode. GLA_LAUNCHED gathers what the driven paths launched them on
+# (ops/gla_cuda.py:launch_shapes), and the last phase holds the rest.
+CHUNK_HELD, CHUNK_BWD_HELD, DECODE_HELD = set(), set(), set()
+GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode": set()}
 
 
 def reset_counts():
@@ -201,12 +220,15 @@ def reset_counts():
 def read_counts() -> dict:
     """Every wrapper's launch count; the lazy step's launches on an int8
     state are counted a second time under a name of their own. Also notes,
-    in Q_LAUNCHED, the shapes the int8 products were launched on since the
-    last reset."""
+    in Q_LAUNCHED and GLA_LAUNCHED, the shapes the int8 products, gla_chunk,
+    its backward and gla_decode were launched on since the last reset."""
     from lina_speech_tpu_torch.ops import gla_cuda, qlinear
 
     for name, shapes in qlinear.launch_shapes().items():
         Q_LAUNCHED[name] |= shapes
+    for name, shapes in gla_cuda.launch_shapes().items():
+        if name in GLA_LAUNCHED:
+            GLA_LAUNCHED[name] |= shapes
     return {**gla_cuda.launch_counts(), **qlinear.launch_counts(),
             "gla_decode_lazy_conv_int8": gla_cuda.gla_decode_lazy_conv.q_launches}
 
@@ -297,12 +319,15 @@ def cold_pool(state):
 def ptxas_summary(log: str):
     """ptxas register / spill lines of the instantiations the main path
     launches (bf16 IO, bf16 state, head key dim 256)."""
-    labels = (("bwd_dq_kernel", "gla_chunk_conv_bwd dq sweep"),
-              ("bwd_dkv_kernel", "gla_chunk_conv_bwd dk/dv sweep"),
-              ("gla_decode_lazy_conv_kernel", "gla_decode_lazy_conv"),
-              ("gla_decode_conv_kernel", "gla_decode_conv"),
-              ("gla_fold_kernel", "gla_fold"), ("Lb1E", "gla_chunk_conv"),
-              ("Lb0E", "gla_chunk"))
+    labels = ((("bwd_dq_kernel", "Lb1E"), "gla_chunk_conv_bwd dq sweep"),
+              (("bwd_dkv_kernel", "Lb1E"), "gla_chunk_conv_bwd dk/dv sweep"),
+              (("bwd_dq_kernel", "Lb0E"), "gla_chunk_bwd dq sweep"),
+              (("bwd_dkv_kernel", "Lb0E"), "gla_chunk_bwd dk/dv sweep"),
+              (("gla_decode_lazy_conv_kernel",), "gla_decode_lazy_conv"),
+              (("gla_decode_kernel", "Lb1E"), "gla_decode_conv"),
+              (("gla_decode_kernel", "Lb0E"), "gla_decode"),
+              (("gla_fold_kernel",), "gla_fold"), (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv"),
+              (("gla_chunk_kernel", "Lb0E"), "gla_chunk"))
     # the quantized kernels' bf16 instantiations (m-tile 1 and 8; dv 512)
     quant = (("int8_linear_wonly_kernelI13__nv_bfloat16S", "int8_linear wonly<bf16, bf16>"),
              ("int8_linear_w8a8_kernelI13__nv_bfloat16L", "int8_linear w8a8<bf16>"),
@@ -319,7 +344,8 @@ def ptxas_summary(log: str):
             continue
         info = line.split(":", 1)[-1].strip()
         if re.search(r"I13__nv_bfloat16S\d*_Li256E", name):
-            kernel = next((label for key, label in labels if key in name), name)
+            kernel = next((label for keys, label in labels
+                           if all(key in name for key in keys)), name)
             out.append(f"{kernel}<bf16, bf16, 256>: {info}")
         for key, label in quant:
             if key in name and re.search(r"Li(1|8|16|256)E", name):
@@ -579,6 +605,7 @@ def chunk_kernel_phase(torch, gla_cuda, summary):
                 err_o = max_err(o_k, o_p)
                 check("o", err_o, bound(o_p, TOL_BF16))
                 check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
+                CHUNK_HELD.add((b, H, t, DK, DV, bf, st, DK ** -0.5))
                 if b == 1 and st == bf and t in (128, 1):
                     ms, plain_ms = timed_pair(
                         f"gla_chunk t{t}",
@@ -787,49 +814,52 @@ def generate_phase(torch, np, gla_cuda, card_line):
             "lazy tokens out of range")
     add_launches(launches, lazy_launches)
 
-    # teacher-forced prefill + TF_STEPS decode steps, kernel path vs plain
-    with torch.no_grad():
-        x_enc = model.encode_text(text)
-        start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
-        forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
-        follow = model.embed_tokens(toks[:, :, n_pre:n_pre + TF_STEPS])
-        results = {}
-        for mode in ("auto", "chunk", "chunk", "auto"):
-            set_kernel_mode(model, mode)
-            logits_pre, _, st = model.prefill(forced, x_enc, model.empty_state(BATCH, DEVICE))
-            logits = [logits_pre[:, -1]]
-            for i in range(TF_STEPS):
-                lg, _, st = model.decode_step(follow[:, i], x_enc, st, time_step=n_pre + i)
-                logits.append(lg)
-            pre_ms = eager_ms(lambda: model.prefill(
-                forced, x_enc, model.empty_state(BATCH, DEVICE)), 3, warmup=1)
-
-            def decode_steps():
-                s = model.prefill(forced[:, :8], x_enc, model.empty_state(BATCH, DEVICE))[2]
-                torch.cuda.synchronize()
-                t_0 = time.perf_counter()
+    # teacher-forced prefill + TF_STEPS decode steps, kernel path vs plain, on
+    # the copies of the parameters in the compute dtype that generate_batch
+    # decodes with (the model keeps its f32 parameters)
+    with model.using_params(model.cast_param_copies()):
+        with torch.no_grad():
+            x_enc = model.encode_text(text)
+            start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
+            forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
+            follow = model.embed_tokens(toks[:, :, n_pre:n_pre + TF_STEPS])
+            results = {}
+            for mode in ("auto", "chunk", "chunk", "auto"):
+                set_kernel_mode(model, mode)
+                logits_pre, _, st = model.prefill(forced, x_enc, model.empty_state(BATCH, DEVICE))
+                logits = [logits_pre[:, -1]]
                 for i in range(TF_STEPS):
-                    s = model.decode_step(follow[:, i], x_enc, s)[2]
-                torch.cuda.synchronize()
-                return (time.perf_counter() - t_0) * 1e3 / TF_STEPS
+                    lg, _, st = model.decode_step(follow[:, i], x_enc, st, time_step=n_pre + i)
+                    logits.append(lg)
+                pre_ms = eager_ms(lambda: model.prefill(
+                    forced, x_enc, model.empty_state(BATCH, DEVICE)), 3, warmup=1)
 
-            decode_steps()
-            dec_ms = decode_steps()
-            results.setdefault(mode, dict(logits=torch.stack(logits, 1), pre=[], dec=[]))
-            results[mode]["pre"].append(pre_ms)
-            results[mode]["dec"].append(dec_ms)
-        set_kernel_mode(model, "auto")
-    ref = results["chunk"]["logits"]
-    err = max_err(results["auto"]["logits"], ref)
-    agree = float((results["auto"]["logits"].argmax(-1) == ref.argmax(-1)).float().mean())
-    print(f"teacher-forced logits (prefill + {TF_STEPS} steps), kernel vs plain path:")
-    check("logits", err, bound(ref, TOL_LOGITS))
-    print(f"  argmax agreement {agree:.4f}")
-    for mode, name in (("auto", "kernel"), ("chunk", "plain")):
-        r = results[mode]
-        print(f"{name} path: prefill b{BATCH} t{n_pre} {r['pre']} ms, decode "
-              f"{r['dec']} ms/token (b{BATCH}) [{card_line}]")
-    profile_decode(torch, model, x_enc, forced, follow)
+                def decode_steps():
+                    s = model.prefill(forced[:, :8], x_enc, model.empty_state(BATCH, DEVICE))[2]
+                    torch.cuda.synchronize()
+                    t_0 = time.perf_counter()
+                    for i in range(TF_STEPS):
+                        s = model.decode_step(follow[:, i], x_enc, s)[2]
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - t_0) * 1e3 / TF_STEPS
+
+                decode_steps()
+                dec_ms = decode_steps()
+                results.setdefault(mode, dict(logits=torch.stack(logits, 1), pre=[], dec=[]))
+                results[mode]["pre"].append(pre_ms)
+                results[mode]["dec"].append(dec_ms)
+            set_kernel_mode(model, "auto")
+        ref = results["chunk"]["logits"]
+        err = max_err(results["auto"]["logits"], ref)
+        agree = float((results["auto"]["logits"].argmax(-1) == ref.argmax(-1)).float().mean())
+        print(f"teacher-forced logits (prefill + {TF_STEPS} steps), kernel vs plain path:")
+        check("logits", err, bound(ref, TOL_LOGITS))
+        print(f"  argmax agreement {agree:.4f}")
+        for mode, name in (("auto", "kernel"), ("chunk", "plain")):
+            r = results[mode]
+            print(f"{name} path: prefill b{BATCH} t{n_pre} {r['pre']} ms, decode "
+                  f"{r['dec']} ms/token (b{BATCH}) [{card_line}]")
+        profile_decode(torch, model, x_enc, forced, follow)
     return model, cfg, launches
 
 
@@ -995,7 +1025,7 @@ def chunked_prefill_check(torch, model, cfg, request):
     from lina_speech_tpu_torch.serving import _pow2_chunks
 
     text, prompt, _ = request
-    with torch.no_grad():
+    with torch.no_grad(), model.using_params(model.cast_param_copies()):
         x_enc = model.encode_text(torch.from_numpy(text)[None].to(DEVICE))
         codes = torch.cat([torch.ones(cfg.n_quant, 1, 1, dtype=torch.long),
                            torch.from_numpy(prompt)[:, None] + cfg.n_special_token_in], 2)
@@ -1374,81 +1404,84 @@ def quant_generate_phase(torch, np, model, cfg, card_line):
             and int(lazy.tokens.max()) < model.n_target_vocab, "lazy int8 tokens out of range")
     add_launches(total, launches)
 
-    named = dict(model.named_parameters())
-    tree = model.quantize_weights_()
-    n_int8 = sum(is_quantized_leaf(v) for v in tree.values())
-    print(f"resident weight bytes (quantized_bytes): {quantized_bytes(named)} as they are "
-          f"(bf16), {quantized_bytes(tree)} with the {n_int8} quantized weights int8")
-    require(n_int8 == INT8_LINEARS_PER_STEP + 2 * N_GLA_LAYERS + 2 * N_TEXT_LAYERS
-            + N_TEXT_LAYERS + 1, f"{n_int8} weights were quantized")
+    # as generate_batch: the int8 copies and the float route in the compute
+    # dtype, from copies of the parameters cast to it
+    with model.using_params(model.cast_param_copies()):
+        named = dict(model.named_parameters())
+        tree = model.quantize_weights_()
+        n_int8 = sum(is_quantized_leaf(v) for v in tree.values())
+        print(f"resident weight bytes (quantized_bytes): {quantized_bytes(named)} as they are "
+              f"(bf16), {quantized_bytes(tree)} with the {n_int8} quantized weights int8")
+        require(n_int8 == INT8_LINEARS_PER_STEP + 2 * N_GLA_LAYERS + 2 * N_TEXT_LAYERS
+                + N_TEXT_LAYERS + 1, f"{n_int8} weights were quantized")
 
-    # one lazy window teacher-forced through the kernel path and the plain
-    # path, both on int8 weights, from the same int8 states
-    with torch.no_grad():
-        x_enc = model.encode_text(text)
-        start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
-        forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
-        follow = model.embed_tokens(lazy.tokens[:, :, n_pre:n_pre + WINDOW])
-        st0 = model.prefill(forced, x_enc, model.empty_state(BATCH, DEVICE))[2]
-        base = add_lazy_buffers(st0, WINDOW, dtype=model.dtype, state_quant="int8")
-        runs = {}
-        with use_int8_weights(model):
-            for mode in ("auto", "chunk"):
-                set_kernel_mode(model, mode)
-                st = map_state(lambda t: t.clone(), base)
-                reset_counts()
-                logits = []
-                for p in range(WINDOW):
-                    lg, _, st = model.decode_step(follow[:, p], x_enc, st, time_step=n_pre + p,
-                                                  lazy_p=p)
-                    require(bool(torch.isfinite(lg).all()), f"{mode}: non-finite logits, step {p}")
-                    logits.append(lg)
-                st = model.fold_lazy_state(st)
-                counts = read_counts()
-                if mode == "chunk":
-                    expect_launches(counts)
-                else:
-                    require(counts["gla_fold_q"] == N_GLA_LAYERS - 1, "the kernel path's fold")
-                runs[mode] = (torch.stack(logits, 1), st)
-            set_kernel_mode(model, "auto")
-        torch.cuda.synchronize()
-        print(f"one lazy window of {WINDOW} steps on int8 weights and int8 states, "
-              "teacher-forced, kernel path vs plain path:")
-        check("logits", max_err(runs["auto"][0], runs["chunk"][0]),
-              bound(runs["chunk"][0], TOL_LOGITS))
-        check_states("states after the fold, kernel path vs plain path", runs["auto"][1],
-                     runs["chunk"][1], TOL_QPATH,
-                     live=("s", "s_scale", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf"))
-
-        # ms per token, quantized beside unquantized, in turns
-        def steps_ms(b, int8, lazy_mode):
-            xe, f = x_enc[:b], follow[:b]
-            s = model.prefill(forced[:b, :8], xe, model.empty_state(b, DEVICE))[2]
-            if lazy_mode:
-                s = add_lazy_buffers(s, WINDOW, dtype=model.dtype,
-                                     state_quant="int8" if int8 else None)
+        # one lazy window teacher-forced through the kernel path and the plain
+        # path, both on int8 weights, from the same int8 states
+        with torch.no_grad():
+            x_enc = model.encode_text(text)
+            start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
+            forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
+            follow = model.embed_tokens(lazy.tokens[:, :, n_pre:n_pre + WINDOW])
+            st0 = model.prefill(forced, x_enc, model.empty_state(BATCH, DEVICE))[2]
+            base = add_lazy_buffers(st0, WINDOW, dtype=model.dtype, state_quant="int8")
+            runs = {}
+            with use_int8_weights(model):
+                for mode in ("auto", "chunk"):
+                    set_kernel_mode(model, mode)
+                    st = map_state(lambda t: t.clone(), base)
+                    reset_counts()
+                    logits = []
+                    for p in range(WINDOW):
+                        lg, _, st = model.decode_step(follow[:, p], x_enc, st, time_step=n_pre + p,
+                                                      lazy_p=p)
+                        require(bool(torch.isfinite(lg).all()), f"{mode}: non-finite logits, step {p}")
+                        logits.append(lg)
+                    st = model.fold_lazy_state(st)
+                    counts = read_counts()
+                    if mode == "chunk":
+                        expect_launches(counts)
+                    else:
+                        require(counts["gla_fold_q"] == N_GLA_LAYERS - 1, "the kernel path's fold")
+                    runs[mode] = (torch.stack(logits, 1), st)
+                set_kernel_mode(model, "auto")
             torch.cuda.synchronize()
-            t_0 = time.perf_counter()
-            with use_int8_weights(model, on=int8):
-                for i in range(WINDOW):
-                    s = model.decode_step(f[:, i], xe, s, lazy_p=i if lazy_mode else None)[2]
+            print(f"one lazy window of {WINDOW} steps on int8 weights and int8 states, "
+                  "teacher-forced, kernel path vs plain path:")
+            check("logits", max_err(runs["auto"][0], runs["chunk"][0]),
+                  bound(runs["chunk"][0], TOL_LOGITS))
+            check_states("states after the fold, kernel path vs plain path", runs["auto"][1],
+                         runs["chunk"][1], TOL_QPATH,
+                         live=("s", "s_scale", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf"))
+
+            # ms per token, quantized beside unquantized, in turns
+            def steps_ms(b, int8, lazy_mode):
+                xe, f = x_enc[:b], follow[:b]
+                s = model.prefill(forced[:b, :8], xe, model.empty_state(b, DEVICE))[2]
                 if lazy_mode:
-                    s = model.fold_lazy_state(s)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t_0) * 1e3 / WINDOW
+                    s = add_lazy_buffers(s, WINDOW, dtype=model.dtype,
+                                         state_quant="int8" if int8 else None)
+                torch.cuda.synchronize()
+                t_0 = time.perf_counter()
+                with use_int8_weights(model, on=int8):
+                    for i in range(WINDOW):
+                        s = model.decode_step(f[:, i], xe, s, lazy_p=i if lazy_mode else None)[2]
+                    if lazy_mode:
+                        s = model.fold_lazy_state(s)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t_0) * 1e3 / WINDOW
 
-        cases = [(1, False, False), (1, True, False), (BATCH, False, False),
-                 (BATCH, True, False), (BATCH, False, True), (BATCH, True, True)]
-        times = {case: [] for case in cases}
-        for case in cases:
-            steps_ms(*case)  # warm
-        for case in cases + cases[::-1]:
-            times[case].append(steps_ms(*case))
-        for (b, int8, lazy_mode), ms in times.items():
-            what = ("int8 weights" + (" and int8 states" if lazy_mode else "")) if int8 else "bf16"
-            print(f"decode b{b} {'lazy windows' if lazy_mode else 'classic'}, {what}: {ms} "
-                  f"ms/token (kernel path, {WINDOW} steps) [{card_line}]")
-        profile_int8_decode(torch, model, x_enc[:1], forced[:1], follow[:1])
+            cases = [(1, False, False), (1, True, False), (BATCH, False, False),
+                     (BATCH, True, False), (BATCH, False, True), (BATCH, True, True)]
+            times = {case: [] for case in cases}
+            for case in cases:
+                steps_ms(*case)  # warm
+            for case in cases + cases[::-1]:
+                times[case].append(steps_ms(*case))
+            for (b, int8, lazy_mode), ms in times.items():
+                what = ("int8 weights" + (" and int8 states" if lazy_mode else "")) if int8 else "bf16"
+                print(f"decode b{b} {'lazy windows' if lazy_mode else 'classic'}, {what}: {ms} "
+                      f"ms/token (kernel path, {WINDOW} steps) [{card_line}]")
+            profile_int8_decode(torch, model, x_enc[:1], forced[:1], follow[:1])
     return total
 
 
@@ -1740,7 +1773,7 @@ def bwd_kernel_phase(torch, gla_cuda, summary):
 def read_launches(gla_cuda):
     """The wrappers' launch counts, with the shapes the two training kernels
     were launched on since the last reset noted in LAUNCHED."""
-    shapes = gla_cuda.training_launch_shapes()
+    shapes = gla_cuda.launch_shapes()
     LAUNCHED.update(shapes["gla_chunk_conv_bwd"])
     require({s[:3] for s in shapes["gla_chunk_conv_bwd"]} == shapes["gla_chunk_conv"],
             f"forward and backward launched on different shapes: {shapes}")
@@ -1785,20 +1818,24 @@ def model_grads(torch, model, batch):
     return float(loss.detach()), grads
 
 
-def training_phase(torch, np, gla_cuda, card_line):
-    """The flagship trains: five optimizer steps at b8, the last with two
-    micro-batches, then the kernel path against the plain path on a batch
-    of 2 (the plain version's autograd saves several GB per layer at b8)."""
+def training_phase(torch, np, gla_cuda, card_line, cfg=None, fwd="gla_chunk_conv",
+                   bwd="gla_chunk_conv_bwd", n_steps=TRAIN_STEPS):
+    """A backbone at the flagship's width trains: ``n_steps`` optimizer
+    steps at b8, the last with two micro-batches, then the kernel path
+    against the plain path on a batch of 2 (the plain version's autograd
+    saves several GB per layer at b8). ``cfg`` None is the flagship; its GLA
+    layers train through ``fwd`` and its backward ``bwd``."""
     from lina_speech_tpu_torch.config import build_model, lina_gla_169m
     from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
     from lina_speech_tpu_torch.train.harness import (
         TrainConfig, batch_to_device, create_train_state, make_train_step,
     )
 
-    cfg = lina_gla_169m(compute_dtype="bfloat16")
+    flagship = cfg is None
+    cfg = lina_gla_169m(compute_dtype="bfloat16") if flagship else cfg
     model = build_model(cfg, device=DEVICE, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    require(n_params == N_PARAMS, f"{n_params} parameters, expected {N_PARAMS}")
+    require(not flagship or n_params == N_PARAMS, f"{n_params} parameters, expected {N_PARAMS}")
     require(all(p.dtype == torch.float32 for p in model.parameters()), "parameters not f32")
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     state = create_train_state(model, TrainConfig(n_warmup_steps=2, n_training_steps=100))
@@ -1809,10 +1846,11 @@ def training_phase(torch, np, gla_cuda, card_line):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     total = dict.fromkeys(read_counts(), 0)
     torch.cuda.reset_peak_memory_stats()
-    print(f"training the flagship: {n_params:,} f32 parameters, bf16 compute, batches of "
-          f"{TRAIN_BATCH}, audio length {MIN_AUDIO}-{MAX_AUDIO}")
-    for i in range(TRAIN_STEPS):
-        accum = 2 if i == TRAIN_STEPS - 1 else 1
+    print(f"training {'the flagship' if flagship else cfg.backbone.kind}: {n_params:,} f32 "
+          f"parameters, bf16 compute, batches of {TRAIN_BATCH}, audio length "
+          f"{MIN_AUDIO}-{MAX_AUDIO}")
+    for i in range(n_steps):
+        accum = 2 if i == n_steps - 1 else 1
         batch = batch_to_device(next(batches), DEVICE)
         frames, padded = int(batch["y_mask"].sum()), batch["y_mask"].numel()
         torch.cuda.synchronize()
@@ -1829,13 +1867,12 @@ def training_phase(torch, np, gla_cuda, card_line):
               f"{frames / ms * 1e3:.0f} frames/s [{card_line}]")
         require(np.isfinite(loss) and np.isfinite(norm) and norm > 0,
                 f"step {i}: loss {loss}, grad_norm {norm}")
-        expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS * accum,
-                        gla_chunk_conv_bwd=N_GLA_LAYERS * accum)
+        expect_launches(launches, **{fwd: N_GLA_LAYERS * accum, bwd: N_GLA_LAYERS * accum})
         add_launches(total, launches)
     peak = torch.cuda.max_memory_allocated()
-    print(f"  peak device memory over the {TRAIN_STEPS} steps: {peak / 2**30:.2f} GiB "
+    print(f"  peak device memory over the {n_steps} steps: {peak / 2**30:.2f} GiB "
           f"({peak} bytes) [{card_line}]")
-    require(state.step == TRAIN_STEPS, f"{state.step} optimizer steps")
+    require(state.step == n_steps, f"{state.step} optimizer steps")
     still = [n for n, p in model.named_parameters()
              if not bool(torch.isfinite(p).all()) or torch.equal(p, start[n])]
     require(not still, f"parameters that did not move or are not finite: {still[:6]}")
@@ -1843,38 +1880,53 @@ def training_phase(torch, np, gla_cuda, card_line):
     del start
     batch = batch_to_device(next(batches), DEVICE)
     reset_counts()
-    profiled(torch, lambda: steps[1](state, batch, gen), "one train step b8", top=10)
+    profiled(torch, lambda: steps[1](state, batch, gen),
+             f"one train step b8 ({cfg.backbone.kind})", top=10)
     read_launches(gla_cuda)
     del state, steps
     model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
-    # kernel path vs plain path: same weights, dropout off, a batch of 2
+    # kernel path vs plain path: same weights, dropout off, a batch of 2. A
+    # variant is compared on a copy built in f32 compute: simple-GLA's
+    # per-head gate gradient sums dg over 256 key channels, and in bf16 the
+    # paths' hidden streams part by bf16 steps that this sum turns into 5-9%
+    # of small leaves (an H100 read 0.51 on a pos_net leaf of 1.3e-7); the
+    # bf16 instantiations are held at the kernel's own level
     model.eval()
+    check_model = model if flagship else build_model(
+        dataclasses.replace(cfg, compute_dtype="float32"), device=DEVICE, seed=0)
     small = batch_to_device(next(synthetic_tts_batches(
         batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
         max_audio_len=MAX_AUDIO, seed=1)), DEVICE)
     reset_counts()
-    loss_k, grads_k = model_grads(torch, model, small)
-    expect_launches(read_launches(gla_cuda), gla_chunk_conv=N_GLA_LAYERS,
-                    gla_chunk_conv_bwd=N_GLA_LAYERS)
-    set_kernel_mode(model, "chunk")
+    loss_k, grads_k = model_grads(torch, check_model, small)
+    expect_launches(read_launches(gla_cuda), **{fwd: N_GLA_LAYERS, bwd: N_GLA_LAYERS})
+    set_kernel_mode(check_model, "chunk")
     reset_counts()
-    loss_p, grads_p = model_grads(torch, model, small)
+    loss_p, grads_p = model_grads(torch, check_model, small)
     expect_launches(read_counts())
-    set_kernel_mode(model, "auto")
+    set_kernel_mode(check_model, "auto")
     torch.cuda.synchronize()
-    print(f"flagship training forward and backward, kernel path vs plain path, batch of 2 "
-          f"(t {small['y_mask'].shape[1]}): loss {loss_k:.6f} vs {loss_p:.6f}")
+    print(f"{cfg.backbone.kind} training forward and backward ({check_model.dtype} compute), "
+          f"kernel path vs plain path, batch of 2 (t {small['y_mask'].shape[1]}): loss "
+          f"{loss_k:.6f} vs {loss_p:.6f}")
     check("loss", abs(loss_k - loss_p), 1e-2 * abs(loss_p))
     check_grads("parameter gradients, kernel path vs plain path", grads_k, grads_p,
                 TOL_PARAM_GRAD, worst=6, named=("conv1d", "gk_proj"),
                 skip=lambda leaf: zero_gradient_mask(torch, leaf, grads_p[leaf]))
-    return model, cfg, total
+    del grads_k, grads_p
+    return model, cfg, total, check_model
 
 
-def tuning_phase(torch, np, gla_cuda, model, cfg, card_line):
-    """Initial-state tuning on the flagship: rank 1, batch 2, grad_acc 2."""
+def tuning_phase(torch, np, gla_cuda, model, cfg, card_line, fwd="gla_chunk_conv",
+                 bwd="gla_chunk_conv_bwd", check_model=None):
+    """Initial-state tuning on ``model`` (the flagship, or simple-GLA whose
+    layers run ``fwd`` and its backward ``bwd``): rank 1, batch 2, grad_acc
+    2, four micro-steps. The S0 gradients of the two paths are compared on
+    ``check_model`` (default: ``model``; the training phase's f32 copy for a
+    variant)."""
+    check_model = model if check_model is None else check_model
     from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
     from lina_speech_tpu_torch.train.harness import batch_to_device
     from lina_speech_tpu_torch.train.initial_state import (
@@ -1892,23 +1944,23 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line):
     # one micro-step on each path from the same S0 params: the gradients
     grads = {}
     for mode in ("auto", "chunk"):
-        set_kernel_mode(model, mode)
-        params = model.attentive_rnn.init_state_tuning_params(
+        set_kernel_mode(check_model, mode)
+        params = check_model.attentive_rnn.init_state_tuning_params(
             torch.Generator(device=DEVICE).manual_seed(config.seed), rank=1, scale=config.scale)
         leaves = tuning_leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
-        step = make_tuning_step(model, config, params, torch.optim.Adam(leaves, lr=config.lr))
+        step = make_tuning_step(check_model, config, params,
+                                torch.optim.Adam(leaves, lr=config.lr))
         reset_counts()
         step(0, batches[0])
         if mode == "auto":
-            expect_launches(read_launches(gla_cuda), gla_chunk_conv=N_GLA_LAYERS,
-                            gla_chunk_conv_bwd=N_GLA_LAYERS)
+            expect_launches(read_launches(gla_cuda), **{fwd: N_GLA_LAYERS, bwd: N_GLA_LAYERS})
         else:
             expect_launches(read_counts())
         grads[mode] = {f"block {i} {'kv'[j]}": leaf.grad
                        for i, p in enumerate(params) for j, leaf in enumerate(p)}
-    set_kernel_mode(model, "auto")
+    set_kernel_mode(check_model, "auto")
     require(len(grads["auto"]) == 2 * n_blocks, f"{len(grads['auto'])} S0 gradient leaves")
     check_grads(f"S0 gradients of {n_blocks} blocks (the kernel's ds0), kernel path vs plain "
                 "path", grads["auto"], grads["chunk"], TOL_PARAM_GRAD, worst=6)
@@ -1920,11 +1972,11 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     launches = read_launches(gla_cuda)
-    print(f"train_initial_state: {len(batches)} micro-steps of batch 2, "
+    print(f"train_initial_state ({cfg.backbone.kind}): {len(batches)} micro-steps of batch 2, "
           f"{len(batches) // config.grad_acc} optimizer updates, losses "
           f"{[round(x, 4) for x in losses]}, {ms:.1f} ms per micro-step [{card_line}]")
-    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS * len(batches),
-                    gla_chunk_conv_bwd=N_GLA_LAYERS * len(batches))
+    expect_launches(launches, **{fwd: N_GLA_LAYERS * len(batches),
+                                 bwd: N_GLA_LAYERS * len(batches)})
     require(all(np.isfinite(x) for x in losses), f"losses {losses}")
     fresh = tuning_leaves(model.attentive_rnn.init_state_tuning_params(
         torch.Generator(device=DEVICE).manual_seed(config.seed), rank=1, scale=config.scale))
@@ -1939,10 +1991,472 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line):
     return launches
 
 
+# ------------------------------------------- GLA layers without per-projection convs
+def head_name(h, dk, dv):
+    return f"h{h} dk{dk} dv{dv}"
+
+
+def qkv_inputs(torch, b, h, t, dk, dv, io, st, seed):
+    """Post-conv q, k, v in the IO dtype, f32 log-gates (slow decays, as a
+    trained gate gives) and an initial state of dtype ``st`` (None: none)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    return dict(q=r(b, h, t, dk).to(io), k=r(b, h, t, dk).to(io), v=r(b, h, t, dv).to(io),
+                gk=torch.nn.functional.logsigmoid(r(b, h, t, dk)) / 16,
+                s0=None if st is None else r(b, h, dk, dv).to(st))
+
+
+def plain_qkv_flops(b, h, t, dk, dv, backward=False):
+    """Operations of the recurrence on post-conv q, k, v: per token and head
+    a decay, a rank-1 update and a readout (5 dk dv); the backward adds the
+    dS update, its decay, dk and dv (7 dk dv) to the recomputation."""
+    return b * h * t * (12 if backward else 5) * dk * dv
+
+
+def chunk_grads(torch, fn, x, do, dsf, scale, need_ds0):
+    """(o, sf, gradients) of sum(o * do) + sum(sf * dsf) through ``fn``
+    (gla_chunk or its plain version) w.r.t. q, k, v, gk, and s0 where there
+    is one and ``need_ds0``."""
+    names = ["q", "k", "v", "gk"] + (["s0"] if x["s0"] is not None and need_ds0 else [])
+    args = {n: x[n] if n not in names else x[n].detach().clone().requires_grad_(True)
+            for n in ("q", "k", "v", "gk", "s0")}
+    o, sf = fn(args["q"], args["k"], args["v"], args["gk"], initial_state=args["s0"],
+               scale=scale)
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf.float()).sum()
+    grads = torch.autograd.grad(loss, [args[n] for n in names])
+    return o.detach(), sf.detach(), dict(zip(names, grads))
+
+
+def hold_chunk(torch, gla_cuda, shape, need_ds0=None):
+    """gla_chunk at ``shape`` = (b, h, t, dk, dv, IO dtype, initial-state
+    dtype or None, scale) against its plain version: with ``need_ds0`` None
+    the inference forward (o, final state); otherwise as training calls it
+    (autograd recording: the forward kernel and the hand-written backward)
+    against autograd through the plain version, o, the final state and
+    every gradient leaf each within a share of its own max|plain|. Returns
+    (inputs, do, dsf, gradients, worst gradient share)."""
+    b, h, t, dk, dv, io, st, scale = shape
+    x = qkv_inputs(torch, b, h, t, dk, dv, io, st, seed=400 + t + h)
+    state = "none" if st is None else str(st).split(".")[-1]
+    name = (f"gla_chunk b{b} {head_name(h, dk, dv)} t{t} IO {str(io).split('.')[-1]} "
+            f"initial state {state} scale {scale:g}")
+    tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
+    tol_s = TOL_BF16 if torch.bfloat16 in (io, st) else TOL_F32
+    before = gla_cuda.launch_counts()
+    if need_ds0 is None:
+        with torch.no_grad():
+            o_k, s_k = gla_cuda.gla_chunk(x["q"], x["k"], x["v"], x["gk"], x["s0"], scale=scale)
+            o_p, s_p = gla_cuda.gla_chunk_plain(x["q"], x["k"], x["v"], x["gk"], x["s0"],
+                                                scale=scale)
+        result = None
+    else:
+        g = torch.Generator(device=DEVICE).manual_seed(t)
+        do = torch.randn(b, h, t, dv, generator=g, device=DEVICE).to(io)
+        dsf = torch.randn(b, h, dk, dv, generator=g, device=DEVICE).to(st or torch.float32)
+        o_k, s_k, got = chunk_grads(torch, gla_cuda.gla_chunk, x, do, dsf, scale, need_ds0)
+        o_p, s_p, ref = chunk_grads(torch, gla_cuda.gla_chunk_plain, x, do, dsf, scale,
+                                    need_ds0)
+        name += "" if need_ds0 or st is None else ", no ds0"
+    after = gla_cuda.launch_counts()
+    torch.cuda.synchronize()
+    require(after["gla_chunk"] == before["gla_chunk"] + 1
+            and after["gla_chunk_bwd"] == before["gla_chunk_bwd"] + (need_ds0 is not None),
+            f"{name}: not launched through the kernels")
+    print(f"{name}, forward:")
+    require(o_k.dtype == io and s_k.dtype == (st or torch.float32), "gla_chunk output dtypes")
+    check("o", max_err(o_k, o_p), bound(o_p, tol))
+    check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
+    CHUNK_HELD.add(shape)
+    if need_ds0 is not None:
+        worst = check_grads(f"{name}, backward", got, ref,
+                            TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32)
+        CHUNK_BWD_HELD.add((*shape, need_ds0 and st is not None))
+        result = (x, do, dsf, got, worst)
+    return result
+
+
+def chunk_bwd_kernel_phase(torch, gla_cuda, summary):
+    """gla_chunk's forward and hand-written backward against the plain
+    version and autograd through it at the training shapes: b8, t 512, 317
+    and 128, with an f32, a bf16 and no initial state; simple-GLA's heads
+    (bf16 IO) and Mamba-2's (f32 IO, scale 1.0). Times at t512 without an
+    initial state (what training runs); the summary takes simple-GLA's."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for (h, dk, dv), io, scale in ((SIMPLE_HEAD, bf, SIMPLE_HEAD[1] ** -0.5),
+                                   (MAMBA_HEAD, f32, 1.0)):
+        for st in (f32, bf, None):
+            for t in TRAIN_T:
+                shape = (TRAIN_BATCH, h, t, dk, dv, io, st, scale)
+                x, do, dsf, got, worst = hold_chunk(torch, gla_cuda, shape, need_ds0=True)
+                if st is not None or t != TRAIN_T[0]:
+                    continue
+                args = (x["q"], x["k"], x["v"], x["gk"])
+                with torch.no_grad():
+                    fwd_ms, fwd_plain_ms = timed_pair(
+                        f"gla_chunk forward {head_name(h, dk, dv)} t{t}",
+                        lambda: gla_cuda.gla_chunk(*args, scale=scale),
+                        lambda: gla_cuda.gla_chunk_plain(*args, scale=scale), 5)
+                    o_k, s_k = gla_cuda.gla_chunk(*args, scale=scale)
+                note_shape("gla_chunk", f"training forward b{TRAIN_BATCH} {head_name(h, dk, dv)} "
+                           f"t{t}", fwd_ms, fwd_plain_ms, nbytes(*args, o_k, s_k),
+                           plain_qkv_flops(TRAIN_BATCH, h, t, dk, dv), io)
+                bwd = lambda: gla_cuda.gla_chunk_bwd(*args, None, do, dsf, scale)
+                plain_both = lambda: chunk_grads(torch, gla_cuda.gla_chunk_plain, x, do, dsf,
+                                                 scale, True)
+                ms, plain = [], []
+                for which in ("plain", "kernel", "kernel", "plain"):
+                    if which == "kernel":
+                        ms.append(device_ms(bwd, 5))
+                    else:  # autograd's backward is not captured in a graph: eager
+                        plain.append(eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms)
+                print(f"  gla_chunk_bwd {head_name(h, dk, dv)} device ms: kernel {ms}; plain "
+                      f"backward (eager forward and backward on the host's clock, less the "
+                      f"plain forward) {plain}")
+                mean = lambda xs: sum(xs) / len(xs)
+                work = (nbytes(*args, do, dsf, *got.values()),
+                        plain_qkv_flops(TRAIN_BATCH, h, t, dk, dv, backward=True), io)
+                if h == SIMPLE_HEAD[0]:
+                    record(summary, "gla_chunk_bwd", worst, mean(ms), mean(plain), *work)
+                else:
+                    note_shape("gla_chunk_bwd", f"b{TRAIN_BATCH} {head_name(h, dk, dv)} t{t} "
+                               "IO float32 scale 1", mean(ms), mean(plain), *work)
+                scratch = 2 * (dv // 32) * TRAIN_BATCH * h * t * dk * 4
+                print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of dq/dk parts")
+    reset_counts()  # the kernel phases' launches are no path's
+
+
+def hold_decode(torch, gla_cuda, shape, summary=None, timed=False):
+    """gla_decode at ``shape`` = (b, h, dk, dv, IO dtype, state dtype)
+    against gla_decode_plain: o and the state, updated in place. ``timed``:
+    kernel and plain on a rotation of cold states (100 MB), beside the bound;
+    into the summary at ``summary``'s shape, else a further shape."""
+    b, h, dk, dv, io, st = shape
+    x = qkv_inputs(torch, b, h, 1, dk, dv, io, st, seed=500 + b + h)
+    tok = tuple(x[n][:, :, 0].contiguous() for n in ("q", "k", "v", "gk"))
+    s = x["s0"]
+    before = gla_cuda.launch_counts()["gla_decode"]
+    o_p, s_p = gla_cuda.gla_decode_plain(*tok, s)
+    s_in = s.clone()
+    o_k, s_k = gla_cuda.gla_decode(*tok, s_in)
+    torch.cuda.synchronize()
+    require(gla_cuda.launch_counts()["gla_decode"] == before + 1, "gla_decode not launched")
+    require(s_k.data_ptr() == s_in.data_ptr(), "state not updated in place")
+    tag = f"b{b} {head_name(h, dk, dv)} IO {str(io).split('.')[-1]} state {str(st).split('.')[-1]}"
+    print(f"gla_decode {tag}:")
+    tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
+    err_o = max_err(o_k, o_p)
+    check("o", err_o, bound(o_p, tol))
+    check("state", max_err(s_k, s_p), bound(s_p, TOL_BF16 if torch.bfloat16 in (io, st)
+                                                  else TOL_F32))
+    DECODE_HELD.add(shape)
+    if not timed:
+        return
+    states = cold_pool(s_p)
+    ms, plain_ms = timed_pair(f"gla_decode {tag}", lambda: gla_cuda.gla_decode(*tok, states()),
+                              lambda: gla_cuda.gla_decode_plain(*tok, states()), 50)
+    work = (nbytes(*tok, s, s, o_k), plain_qkv_flops(b, h, 1, dk, dv), io)
+    if summary is not None:
+        record(summary, "gla_decode", err_o, ms, plain_ms, *work)
+    else:
+        note_shape("gla_decode", tag, ms, plain_ms, *work)
+
+
+def decode_kernel_phase(torch, gla_cuda, summary):
+    """gla_decode (one token without convs) against its plain version at
+    b1, b8 and b64 for simple-GLA's heads (bf16 IO) and at b8 for Mamba-2's
+    (f32 IO), with bf16 and f32 states, timed on cold states. The summary
+    takes b8 simple-GLA with its f32 state (what the driven path runs)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for b, (h, dk, dv), io in [(b, SIMPLE_HEAD, bf) for b in (1, BATCH, 64)] + [
+            (BATCH, MAMBA_HEAD, f32)]:
+        for st in (bf, f32):
+            main = (b, h, io, st) == (BATCH, SIMPLE_HEAD[0], bf, f32)
+            hold_decode(torch, gla_cuda, (b, h, dk, dv, io, st),
+                        summary=summary if main else None, timed=True)
+    reset_counts()  # the kernel phases' launches are no path's
+
+
+def variant_cfg(kind, **backbone):
+    """The flagship config (bf16 compute, 12 + 12 layers and the blind
+    pos_net at d 1024) with another backbone kind or options."""
+    from lina_speech_tpu_torch.config import lina_gla_169m
+
+    cfg = lina_gla_169m(compute_dtype="bfloat16")
+    return dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kind=kind,
+                                                                  **backbone))
+
+
+def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy):
+    """generate_batch at the flagship's width for a backbone whose layers
+    run gla_chunk and gla_decode: 8 requests (32 text tokens, a 150-code
+    prompt, top-k 100, 200 steps) with the classic loop and, with ``lazy``,
+    greedy in lazy windows of 16 (the plain lazy step, the gla_fold kernel);
+    launch counts; then the prefill and 16 decode steps teacher-forced
+    through the kernel path and the plain path: logits and every state leaf
+    of the two, each within a share of its own magnitude."""
+    from lina_speech_tpu_torch.generate import generate_batch
+
+    kind = cfg.backbone.kind
+    rng = np.random.default_rng(0)
+    text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab, size=(BATCH, TEXT_LEN))).to(DEVICE)
+    prompt = torch.from_numpy(rng.integers(0, cfg.n_codebook, size=(1, BATCH, T_PROMPT))).to(DEVICE)
+    n_pre = T_PROMPT + 1
+    steps = MAX_SEQLEN - n_pre
+    total = dict.fromkeys(read_counts(), 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = generate_batch(model, text, torch.Generator(device=DEVICE).manual_seed(0),
+                         prompt=prompt, max_seqlen=MAX_SEQLEN, k=TOPK, force_max_seqlen=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"{kind} generate_batch: {BATCH} requests, {res.n_steps} steps ({steps} decoded), "
+          f"{wall:.3f} s wall [{card_line}]")
+    print(f"launches: {launches}")
+    expect_launches(launches, gla_chunk=N_GLA_LAYERS, gla_decode=N_GLA_LAYERS * steps)
+    require(res.tokens.shape == (cfg.n_quant, BATCH, MAX_SEQLEN) and int(res.tokens.min()) >= 0
+            and int(res.tokens.max()) < model.n_target_vocab, "tokens out of range")
+    add_launches(total, launches)
+    if lazy:
+        windows = -(-steps // WINDOW)
+        reset_counts()
+        t0 = time.perf_counter()
+        res_l = generate_batch(model, text, prompt=prompt, max_seqlen=MAX_SEQLEN, k=1,
+                               force_max_seqlen=True, lazy_window=WINDOW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"{kind} generate_batch(lazy_window={WINDOW}): {BATCH} requests, {windows} "
+              f"windows, {wall:.3f} s wall [{card_line}]; launches {launches}")
+        expect_launches(launches, gla_chunk=N_GLA_LAYERS, gla_fold=N_GLA_LAYERS * windows)
+        require(int(res_l.tokens.min()) >= 0 and int(res_l.tokens.max()) < model.n_target_vocab,
+                "lazy tokens out of range")
+        add_launches(total, launches)
+
+    live = ("h", "conv") if kind == "mamba2" else ("s",)
+    with torch.no_grad(), model.using_params(model.cast_param_copies()):
+        x_enc = model.encode_text(text)
+        start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
+        forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
+        follow = model.embed_tokens(res.tokens[:, :, n_pre:n_pre + TF_STEPS])
+        runs = {}
+        for mode in ("auto", "chunk", "chunk", "auto"):
+            set_kernel_mode(model, mode)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_pre, _, st = model.prefill(forced, x_enc, model.empty_state(BATCH, DEVICE))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = [logits_pre[:, -1]]
+            for i in range(TF_STEPS):
+                lg, _, st = model.decode_step(follow[:, i], x_enc, st, time_step=n_pre + i)
+                logits.append(lg)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if mode == "chunk":
+                expect_launches(read_counts())
+            runs.setdefault(mode, dict(logits=torch.stack(logits, 1), state=st, pre=[], dec=[]))
+            runs[mode]["pre"].append((t1 - t0) * 1e3)
+            runs[mode]["dec"].append((t2 - t1) * 1e3 / TF_STEPS)
+        set_kernel_mode(model, "auto")
+    ref = runs["chunk"]["logits"]
+    print(f"{kind} teacher-forced logits (prefill + {TF_STEPS} steps), kernel vs plain path:")
+    check("logits", max_err(runs["auto"]["logits"], ref), bound(ref, TOL_LOGITS))
+    # the first layer reads the same embeddings on both paths: its state is
+    # the kernels' own difference; deeper layers add the bf16 steps by which
+    # the paths' hidden streams part (an H100 reads 1e-2 of a leaf's max at
+    # layer 5 and 2.7e-2 at layer 23 for simple-GLA), as a chunked prefill
+    # does against the one-shot prefill
+    field = live[0]
+    first = [getattr(runs[m]["state"].layers[0], field) for m in ("auto", "chunk")]
+    print(f"{kind} layer 0 {field} (the same input on both paths), kernel vs plain path:")
+    check(field, max_err(*first), TOL_BF16 * float(first[1].float().abs().max()))
+    check_states(f"{kind} states after prefill + {TF_STEPS} steps, kernel path vs plain path",
+                 runs["auto"]["state"], runs["chunk"]["state"], TOL_STATE, live=live)
+    for mode, name in (("auto", "kernel"), ("chunk", "plain")):
+        r = runs[mode]
+        print(f"{kind} {name} path: prefill b{BATCH} t{n_pre} {r['pre']} ms, decode "
+              f"{r['dec']} ms/token (b{BATCH}, host clock) [{card_line}]")
+    return total
+
+
+def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line):
+    """DecodeServer on simple-GLA without convs: 8 requests through 8
+    slots in classic mode (prefill chunks all on gla_chunk, tokens on
+    gla_decode), launch counts against the formula."""
+    from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
+
+    reqs = serving_requests(np, cfg)[:SERVE_CLASSIC_REQUESTS]
+    srv = DecodeServer(model, n_slots=SERVE_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW, k=1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done, n_chunks, chunk_ms = serve(torch, srv, reqs)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_tokens = sum(c.length for c in done.values())
+    print(f"{cfg.backbone.kind} DecodeServer classic: {len(reqs)} requests through "
+          f"{SERVE_SLOTS} slots, {n_chunks} decode chunks of {WINDOW}, {n_tokens} tokens, "
+          f"{wall:.3f} s wall [{card_line}]")
+    print(f"launches: {launches}")
+    n_prefill = sum(len(_pow2_chunks(1 + (0 if p is None else p.shape[1]))) for _, p, _ in reqs)
+    expect_launches(launches, gla_chunk=N_GLA_LAYERS * n_prefill,
+                    gla_decode=N_GLA_LAYERS * WINDOW * n_chunks)
+    for (_, _, max_len), c in zip(reqs, (done[r] for r in sorted(done))):
+        require(c.tokens.shape == (c.length, cfg.n_quant) and c.length <= max_len
+                and (c.stopped or c.length == max_len), f"request {c.rid}: length {c.length}")
+        require(int(c.tokens.min()) >= 0 and int(c.tokens.max()) < model.n_target_vocab,
+                f"request {c.rid}: tokens out of range")
+    report_chunk_times("classic", len(reqs), chunk_ms, card_line)
+    return launches
+
+
+def simple_gla_phase(torch, np, gla_cuda, card_line):
+    """Simple-GLA without convs at the flagship's width (lina_gla_169m with
+    kind="simple_gla", use_short_conv=False: 4 heads, dk 256, dv 256, random
+    weights, bf16 compute): generate_batch classic and lazy, a DecodeServer,
+    five train steps and four S0 tuning micro-steps."""
+    from lina_speech_tpu_torch.config import build_model
+
+    cfg = variant_cfg("simple_gla", use_short_conv=False)
+    model = build_model(cfg, device=DEVICE, seed=0)
+    heads = {(m.num_heads, m.head_qk_dim, m.head_v_dim) for m in model.attentive_rnn.gla_layers()}
+    print(f"simple-GLA (no convs): {sum(p.numel() for p in model.parameters()):,} parameters, "
+          f"heads {heads}")
+    require(len(model.attentive_rnn.gla_layers()) == N_GLA_LAYERS and heads == {SIMPLE_HEAD},
+            f"simple-GLA layers {heads}")
+    total = variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy=True)
+    add_launches(total, variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line))
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, train, check_model = training_phase(
+        torch, np, gla_cuda, card_line, cfg, "gla_chunk", "gla_chunk_bwd",
+        VARIANT_TRAIN_STEPS["simple_gla"])
+    add_launches(total, train)
+    add_launches(total, tuning_phase(torch, np, gla_cuda, model, cfg, card_line, "gla_chunk",
+                                     "gla_chunk_bwd", check_model))
+    del model, check_model
+    torch.cuda.empty_cache()
+    return total
+
+
+def mamba2_phase(torch, np, gla_cuda, card_line):
+    """Mamba-2 at the flagship's width (kind="mamba2": d_inner 2048, 32
+    heads of headdim 64, d_state 64): generate_batch at b8 and three train
+    steps, with the same checks."""
+    from lina_speech_tpu_torch.config import build_model
+
+    cfg = variant_cfg("mamba2")
+    model = build_model(cfg, device=DEVICE, seed=0)
+    mixers = [m.tmix for m in model.modules() if type(m).__name__ == "MixingBlock"
+              and type(m.tmix).__name__ == "Mamba2Mixer"]
+    heads = {(m.n_heads, m.d_state, m.headdim) for m in mixers}
+    print(f"Mamba-2: {sum(p.numel() for p in model.parameters()):,} parameters, "
+          f"{len(mixers)} mixers, heads {heads}")
+    require(len(mixers) == N_GLA_LAYERS and heads == {MAMBA_HEAD}, f"Mamba-2 mixers {heads}")
+    total = variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy=False)
+    del model
+    torch.cuda.empty_cache()
+    model, _, train, check_model = training_phase(torch, np, gla_cuda, card_line, cfg,
+                                                  "gla_chunk", "gla_chunk_bwd",
+                                                  VARIANT_TRAIN_STEPS["mamba2"])
+    add_launches(total, train)
+    del model, check_model
+    torch.cuda.empty_cache()
+    return total
+
+
+def interleaved_and_pp_phase(torch, np, gla_cuda, card_line):
+    """The interleaved CrossAttGLA (cross-attention after layers 5 and 11 of
+    one stack of 12) and the CrossAttentionPP backbone at the flagship's
+    width, short convs on (the conv-fused kernels): one greedy
+    generate_batch of 16 tokens at b2 each, launch counts, and the two conv
+    kernels held against their plain versions at b2 with these backbones'
+    f32 states."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.generate import generate_batch
+
+    total = dict.fromkeys(read_counts(), 0)
+    rng = np.random.default_rng(3)
+    for label, backbone in (
+            ("interleaved CrossAttGLA", dict(cross_att_layers=INTERLEAVED_LAYERS, blind=False)),
+            ("CrossAttentionPP", dict(cross_att_pp=True, blind=False))):
+        cfg = variant_cfg("gla", **backbone)
+        # one stack of n_layer blocks; or 2 n_layer blocks and the inter_net
+        n_layers = cfg.backbone.n_layer * (1 if "cross_att_layers" in backbone else 2)
+        n_layers += "cross_att_pp" in backbone
+        model = build_model(cfg, device=DEVICE, seed=0)
+        require(len(model.attentive_rnn.gla_layers()) == n_layers, f"{label}: GLA layers")
+        text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab, size=(SHORT_BATCH, TEXT_LEN)))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = generate_batch(model, text.to(DEVICE), max_seqlen=1 + SHORT_STEPS, k=1,
+                             force_max_seqlen=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"{label}: {sum(p.numel() for p in model.parameters()):,} parameters, "
+              f"generate_batch b{SHORT_BATCH} {SHORT_STEPS} tokens, {wall:.3f} s wall "
+              f"[{card_line}]; launches {launches}")
+        expect_launches(launches, gla_chunk_conv=n_layers, gla_decode_conv=n_layers * SHORT_STEPS)
+        require(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < model.n_target_vocab,
+                f"{label}: tokens out of range")
+        add_launches(total, launches)
+        del model
+        torch.cuda.empty_cache()
+    # the conv kernels at the shapes these runs gave them: b2, t1, f32 state
+    x = kernel_inputs(torch, SHORT_BATCH, 1, torch.float32, seed=600)
+    args = (x["xq"], x["xk"], x["xv"], x["gk"], x["wq"], x["wk"], x["wv"])
+    o_k, s_k = gla_cuda.gla_chunk_conv(*args)
+    o_p, s_p = gla_cuda.gla_chunk_conv_plain(*args)
+    dec = (x["xq"][:, :, 0].contiguous(), x["xk"][:, :, 0].contiguous(),
+           x["xv"][:, :, 0].contiguous(), x["gk"][:, :, 0].contiguous(),
+           *(w.reshape(H, -1, 4).permute(2, 0, 1).contiguous() for w in (x["wq"], x["wk"], x["wv"])),
+           *x["rings"])
+    out_p = gla_cuda.gla_decode_conv_plain(*dec, x["s0"])
+    out_k = gla_cuda.gla_decode_conv(*dec, x["s0"].clone())
+    torch.cuda.synchronize()
+    print(f"gla_chunk_conv and gla_decode_conv b{SHORT_BATCH} t1, f32 state:")
+    check("prefill o", max_err(o_k, o_p), bound(o_p, TOL_BF16))
+    check("prefill final state", max_err(s_k, s_p), bound(s_p, TOL_F32))
+    check("decode o", max_err(out_k[0], out_p[0]), bound(out_p[0], TOL_BF16))
+    check("decode state", max_err(out_k[1], out_p[1]), bound(out_p[1], TOL_F32))
+    return total
+
+
+def launched_gla_shapes_phase(torch, gla_cuda):
+    """Every shape the driven paths launched gla_chunk (forward), its
+    backward and gla_decode on is held against the plain version now,
+    unless a kernel phase held it already."""
+    fwd = sorted(GLA_LAUNCHED["gla_chunk"] - CHUNK_HELD, key=str)
+    bwd = sorted(GLA_LAUNCHED["gla_chunk_bwd"] - CHUNK_BWD_HELD, key=str)
+    # (the holds below launch the kernels too, but read no counts: GLA_LAUNCHED
+    # keeps only what the driven paths launched)
+    dec = sorted(GLA_LAUNCHED["gla_decode"] - DECODE_HELD, key=str)
+    print(f"the driven paths launched gla_chunk on {len(GLA_LAUNCHED['gla_chunk'])} shapes "
+          f"({len(fwd)} not held yet), its backward on {len(GLA_LAUNCHED['gla_chunk_bwd'])} "
+          f"({len(bwd)}), gla_decode on {len(GLA_LAUNCHED['gla_decode'])} ({len(dec)})")
+    require(all(GLA_LAUNCHED.values()), f"a kernel launched on no shape: {GLA_LAUNCHED}")
+    for shape in bwd:
+        hold_chunk(torch, gla_cuda, shape[:-1], need_ds0=shape[-1])
+    for shape in sorted(GLA_LAUNCHED["gla_chunk"] - CHUNK_HELD, key=str):
+        hold_chunk(torch, gla_cuda, shape)
+    for shape in dec:
+        hold_decode(torch, gla_cuda, shape)
+    require(GLA_LAUNCHED["gla_chunk"] <= CHUNK_HELD
+            and GLA_LAUNCHED["gla_chunk_bwd"] <= CHUNK_BWD_HELD
+            and GLA_LAUNCHED["gla_decode"] <= DECODE_HELD, "launched but not held")
+
+
+
 def main():
     import numpy as np
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on a GPU only")
     from lina_speech_tpu_torch.ops import _build, gla_cuda
@@ -1973,16 +2487,25 @@ def main():
     del model
     torch.cuda.empty_cache()
     bwd_kernel_phase(torch, gla_cuda, summary)
-    model, cfg, train_launches = training_phase(torch, np, gla_cuda, card_line)
+    model, cfg, train_launches, _ = training_phase(torch, np, gla_cuda, card_line)
     add_launches(launches, train_launches)
     add_launches(launches, tuning_phase(torch, np, gla_cuda, model, cfg, card_line))
     launched_shapes_phase(torch, gla_cuda)
+    del model
+    torch.cuda.empty_cache()
+    chunk_bwd_kernel_phase(torch, gla_cuda, summary)
+    decode_kernel_phase(torch, gla_cuda, summary)
+    add_launches(launches, simple_gla_phase(torch, np, gla_cuda, card_line))
+    add_launches(launches, mamba2_phase(torch, np, gla_cuda, card_line))
+    add_launches(launches, interleaved_and_pp_phase(torch, np, gla_cuda, card_line))
+    launched_gla_shapes_phase(torch, gla_cuda)
     kernels = []
     for name, source, replaces in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
+    print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

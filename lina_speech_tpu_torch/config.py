@@ -2,9 +2,10 @@
 
 Field for field the same as ``lina_speech_tpu/config.py`` so a YAML config
 or a preset means the same model in both packages; only ``build_model``
-differs, building the PyTorch modules. The port covers the flagship
-backbone (``kind="gla"`` without ``cross_att_layers``); every other kind
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+differs, building the PyTorch modules. The port covers the GLA family:
+``kind="gla"`` (with ``cross_att_pp``, and with ``cross_att_layers`` the
+interleaved CrossAttGLA), ``"simple_gla"`` and ``"mamba2"``; every other
+kind raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -35,9 +36,11 @@ class BackboneConfig:
     cross_att_layers: Tuple[int, ...] = ()
     state_dtype: str = "float32"  # "bfloat16" halves decode state traffic
     # auto  -- the CUDA kernels for CUDA tensors, their plain PyTorch
-    #          versions for CPU tensors (ops/gla_cuda.py);
+    #          versions for CPU tensors and for heads the kernels do not
+    #          take (ops/gla_cuda.py:kernel_takes);
     # chunk -- the plain PyTorch versions on every device (the reference
-    #          path the kernels are held against on the card).
+    #          path the kernels are held against on the card);
+    # scan  -- as chunk, with the O(T) recurrence for the GLA prefill.
     kernel_mode: str = "auto"
     cp_axis: Optional[str] = None
 
@@ -104,11 +107,9 @@ def torch_dtype(name: str) -> torch.dtype:
 # backbone kinds the JAX package builds and this port does not yet, with the
 # ROADMAP.md Queue 1 item that ports each
 _NOT_PORTED = {
-    "simple_gla": "Queue 1 item 9 (variant backbones)",
-    "rwkv6": "Queue 1 item 9 (variant backbones)",
-    "mamba": "Queue 1 item 9 (variant backbones)",
-    "mamba2": "Queue 1 item 9 (variant backbones)",
-    "transformer": "Queue 1 item 9 (variant backbones)",
+    "rwkv6": "Queue 1 item 9b (RWKV6)",
+    "mamba": "Queue 1 item 9c (Mamba, transformer, speaker encoder)",
+    "transformer": "Queue 1 item 9c (Mamba, transformer, speaker encoder)",
 }
 
 
@@ -120,24 +121,22 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     raises without one. The CPU is used only when the caller asks for it
     (``device="cpu"``). It comes back in eval mode (no dropout).
     """
-    from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA
+    from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA, CrossAttGLA
     from lina_speech_tpu_torch.models.encoder import TextEncoder
     from lina_speech_tpu_torch.models.lina import LinaModel, init_params
+    from lina_speech_tpu_torch.models.mamba import AttentiveMamba2
+    from lina_speech_tpu_torch.models.simple_gla import AttentiveSimpleGLA
 
     b = cfg.backbone
-    if b.kind == "gla" and b.cross_att_layers:
-        raise NotImplementedError(
-            "the interleaved CrossAttGLA backbone is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
     if b.kind in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone kind {b.kind!r} is not ported yet "
             f"(ROADMAP.md {_NOT_PORTED[b.kind]})")
-    if b.kind != "gla":
+    if b.kind not in ("gla", "simple_gla", "mamba2"):
         raise ValueError(f"unknown backbone kind {b.kind}")
     if cfg.spk_encoder is not None:
         raise NotImplementedError(
-            "SimpleSpeakerEncoder is not ported yet (ROADMAP.md Queue 1 item 9)")
+            "SimpleSpeakerEncoder is not ported yet (ROADMAP.md Queue 1 item 9c)")
     if b.cp_axis is not None:
         raise NotImplementedError(
             "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
@@ -152,16 +151,28 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
                 "the model on the CPU")
         device = "cuda"
 
+    # as the JAX package's build_model (config.py:132-191): only the
+    # AttentiveGLA of kind "gla" takes state_dtype, simple-GLA takes
+    # use_short_conv but not expand_k / expand_v
     dtype = torch_dtype(cfg.compute_dtype)
-    rnn = AttentiveGLA(
-        d_model=b.d_model, n_layer=b.n_layer, heads=b.heads,
-        dropout=b.dropout, d_blind=b.d_blind, blind=b.blind,
-        cross_att_pp=b.cross_att_pp,
-        rotary=b.rotary, use_short_conv=b.use_short_conv,
-        expand_k=b.expand_k, expand_v=b.expand_v, pos_type=b.pos_type,
-        chunk_size=b.chunk_size, dtype=dtype,
-        state_dtype=torch_dtype(b.state_dtype), kernel_mode=b.kernel_mode,
-    )
+    common = dict(d_model=b.d_model, n_layer=b.n_layer, heads=b.heads, dropout=b.dropout,
+                  kernel_mode=b.kernel_mode, dtype=dtype)
+    stack = dict(d_blind=b.d_blind, blind=b.blind, cross_att_pp=b.cross_att_pp,
+                 rotary=b.rotary, pos_type=b.pos_type)
+    if b.kind == "gla" and b.cross_att_layers:
+        rnn = CrossAttGLA(cross_att_layers=b.cross_att_layers, rotary=b.rotary,
+                          use_short_conv=b.use_short_conv, expand_k=b.expand_k,
+                          expand_v=b.expand_v, chunk_size=b.chunk_size, **common)
+    elif b.kind == "gla":
+        rnn = AttentiveGLA(use_short_conv=b.use_short_conv, expand_k=b.expand_k,
+                           expand_v=b.expand_v, chunk_size=b.chunk_size,
+                           state_dtype=torch_dtype(b.state_dtype), **stack, **common)
+    elif b.kind == "simple_gla":
+        rnn = AttentiveSimpleGLA(use_short_conv=b.use_short_conv, chunk_size=b.chunk_size,
+                                 **stack, **common)
+    else:
+        rnn = AttentiveMamba2(headdim=64 if (2 * b.d_model) % 64 == 0 else 16,
+                              **stack, **common)
     te = cfg.text_encoder
     txt_encoder = TextEncoder(dim=te.dim, heads=te.heads, n_layers=te.n_layers,
                               dropout=te.dropout, rotary=te.rotary, dtype=dtype)

@@ -106,9 +106,12 @@ def generate_batch(
     environment variables -- the port reads no environment variable, w8a8
     is the ``quant_mode`` attribute of a quantized ``Linear``.
 
-    The model's f32 parameters are cast to its compute dtype IN PLACE
-    after the text is encoded, once (the JAX package pre-casts its param
-    tree the same way); norms keep f32 statistics.
+    The text is encoded with the model's own (f32) parameters; prefill and
+    the token loop run on copies cast to the compute dtype, made once per
+    call (the JAX package pre-casts a copy of its param tree the same way;
+    norms keep f32 statistics). The caller's parameters are left as they
+    were. ``lazy_window`` needs a GLA backbone (Mamba-2 states have no lazy
+    window: ``TypeError``, as in JAX).
     """
     for name, val, ready in (
             ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),
@@ -131,67 +134,67 @@ def generate_batch(
                                        reference_compat_sampling)
 
     x_enc = model.encode_text(x)
-    model.cast_float_params_(model.dtype)
-    if weight_quant == "int8":
-        model.quantize_weights_(min_size=quant_min_size, exclude=quant_exclude)
-    embed = model.embed_tokens
-    y_embd0 = embed(torch.ones(nq, b, 1, dtype=torch.long, device=dev))
-    if init_state is None:
-        init_state = model.empty_state(b, device=dev)
+    with model.using_params(model.cast_param_copies()):
+        if weight_quant == "int8":
+            model.quantize_weights_(min_size=quant_min_size, exclude=quant_exclude)
+        embed = model.embed_tokens
+        y_embd0 = embed(torch.ones(nq, b, 1, dtype=torch.long, device=dev))
+        if init_state is None:
+            init_state = model.empty_state(b, device=dev)
 
-    # ---- chunk-parallel prompt prefill ----
-    if prompt is not None:
-        prompt_in = embed(prompt.long() + model.n_special_token_in)
-        forced = torch.cat([y_embd0, prompt_in], dim=1)  # (b, p+1, d)
-    else:
-        forced = y_embd0
-    logits_pre, att_pre, state = model.prefill(forced, x_enc, init_state,
-                                               return_att=return_att)
-    n_pre = forced.shape[1]
-    pre_tokens = sample(logits_pre)  # (b, n_pre, q)
+        # ---- chunk-parallel prompt prefill ----
+        if prompt is not None:
+            prompt_in = embed(prompt.long() + model.n_special_token_in)
+            forced = torch.cat([y_embd0, prompt_in], dim=1)  # (b, p+1, d)
+        else:
+            forced = y_embd0
+        logits_pre, att_pre, state = model.prefill(forced, x_enc, init_state,
+                                                   return_att=return_att)
+        n_pre = forced.shape[1]
+        pre_tokens = sample(logits_pre)  # (b, n_pre, q)
 
-    # lazy mode decodes whole windows: the buffers get the overshoot room
-    # and the outputs are sliced back to max_seqlen at the end
-    L = lazy_window
-    buf_len = max_seqlen
-    if L:
-        buf_len = max(n_pre + -(-max(max_seqlen - n_pre, 0) // L) * L, max_seqlen)
+        # lazy mode decodes whole windows: the buffers get the overshoot room
+        # and the outputs are sliced back to max_seqlen at the end
+        L = lazy_window
+        buf_len = max_seqlen
+        if L:
+            buf_len = max(n_pre + -(-max(max_seqlen - n_pre, 0) // L) * L, max_seqlen)
 
-    tokens = torch.zeros(buf_len, b, nq, dtype=torch.long, device=dev)
-    stops = torch.zeros(buf_len, b, dtype=torch.bool, device=dev)
-    keep = min(n_pre, max_seqlen)
-    tokens[:keep] = pre_tokens.transpose(0, 1)[:keep]
-    pre_stop = (pre_tokens == stop_id).all(dim=-1)  # (b, n_pre)
-    stops[:keep] = pre_stop.T[:keep]
-    att_buf = None
-    if return_att:
-        att_buf = torch.zeros(buf_len, b, att_pre.shape[1], x_enc.shape[1],
-                              dtype=att_pre.dtype, device=dev)
-        att_buf[:keep] = att_pre.permute(2, 0, 1, 3)[:keep]
-    stopped = pre_stop.any(dim=1)
-    y_embd = embed(pre_tokens[:, -1].T[:, :, None])[:, 0]  # (b, d)
+        tokens = torch.zeros(buf_len, b, nq, dtype=torch.long, device=dev)
+        stops = torch.zeros(buf_len, b, dtype=torch.bool, device=dev)
+        keep = min(n_pre, max_seqlen)
+        tokens[:keep] = pre_tokens.transpose(0, 1)[:keep]
+        pre_stop = (pre_tokens == stop_id).all(dim=-1)  # (b, n_pre)
+        stops[:keep] = pre_stop.T[:keep]
+        att_buf = None
+        if return_att:
+            att_buf = torch.zeros(buf_len, b, att_pre.shape[1], x_enc.shape[1],
+                                  dtype=att_pre.dtype, device=dev)
+            att_buf[:keep] = att_pre.permute(2, 0, 1, 3)[:keep]
+        stopped = pre_stop.any(dim=1)
+        y_embd = embed(pre_tokens[:, -1].T[:, :, None])[:, 0]  # (b, d)
 
-    if L:
-        state = add_lazy_buffers(state, L, dtype=y_embd0.dtype, state_quant=state_quant)
+        if L:
+            state = add_lazy_buffers(state, L, dtype=y_embd0.dtype, state_quant=state_quant)
 
-    t = n_pre
-    with use_int8_weights(model, on=weight_quant == "int8"):
-        while t < max_seqlen and (force_max_seqlen or not bool(stopped.all())):
-            # one token, or in lazy mode one window of L tokens and a fold
-            for j in range(L or 1):
-                logits, att, state = model.decode_step(
-                    y_embd, x_enc, state, time_step=t, lazy_p=j if L else None)
-                toks = sample(logits)  # (b, q)
-                tokens[t] = toks
-                is_stop = (toks == stop_id).all(dim=-1)
-                stops[t] = is_stop
-                if return_att:
-                    att_buf[t] = att
-                y_embd = embed(toks.T[:, :, None])[:, 0]
-                stopped = stopped | is_stop
-                t += 1
-            if L:
-                state = model.fold_lazy_state(state)
+        t = n_pre
+        with use_int8_weights(model, on=weight_quant == "int8"):
+            while t < max_seqlen and (force_max_seqlen or not bool(stopped.all())):
+                # one token, or in lazy mode one window of L tokens and a fold
+                for j in range(L or 1):
+                    logits, att, state = model.decode_step(
+                        y_embd, x_enc, state, time_step=t, lazy_p=j if L else None)
+                    toks = sample(logits)  # (b, q)
+                    tokens[t] = toks
+                    is_stop = (toks == stop_id).all(dim=-1)
+                    stops[t] = is_stop
+                    if return_att:
+                        att_buf[t] = att
+                    y_embd = embed(toks.T[:, :, None])[:, 0]
+                    stopped = stopped | is_stop
+                    t += 1
+                if L:
+                    state = model.fold_lazy_state(state)
 
     stop_mask = stops[:max_seqlen].T  # (b, max_seqlen)
     first_stop = stop_mask.float().argmax(dim=1)

@@ -1,19 +1,29 @@
-"""Attentive-RNN backbone: GLA encoder -> cross-attention -> GLA decoder.
+"""Attentive-RNN backbones: recurrent encoder -> cross-attention -> decoder.
 
-Counterpart of ``lina_speech_tpu/models/attentive_rnn.py``
-(``EncoderCrossDecoder`` / ``AttentiveGLA``, reference gla.py:252-365) with
-the state an explicit :class:`BackboneState` threaded by the caller.
+Counterpart of ``lina_speech_tpu/models/attentive_rnn.py`` with the state
+an explicit :class:`BackboneState` threaded by the caller.
+:class:`EncoderCrossDecoder` is the shared scaffold (JAX
+``EncoderCrossDecoder``): n_layer mixer blocks, ONE cross-attention (blind,
+PP or vanilla), n_layer mixer blocks; a concrete backbone gives it its
+mixer block (``_block``) and that block's empty state (``_layer_state``).
+:class:`AttentiveGLA` (reference gla.py:252-365) and ``AttentiveMamba2``
+(``models/mamba.py``) plug into it. :class:`CrossAttGLA` is the interleaved
+variant (reference gla.py:367-420, JAX ``InterleavedCrossAtt``): a single
+stack with a vanilla CrossAttention after the listed layers, per-layer
+states and no pos_net.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from lina_speech_tpu_torch.models.base_blocks import MixingBlock, SwiGLU
-from lina_speech_tpu_torch.models.crossatt import BlindCrossAttention, CrossAttention
+from lina_speech_tpu_torch.models.crossatt import (
+    BlindCrossAttention, CrossAttention, CrossAttentionPP,
+)
 from lina_speech_tpu_torch.models.gla_layer import (
     GatedLinearAttention, GLAState, gla_add_lazy_buffers,
 )
@@ -22,24 +32,25 @@ from lina_speech_tpu_torch.models.gla_layer import (
 @dataclasses.dataclass
 class BackboneState:
     """Per-block mixer states (encoder blocks, then decoder blocks) plus
-    the blind cross-attention's pos_net state."""
+    the state of the cross-attention's pos_net / inter_net block, if any."""
 
-    layers: Tuple[GLAState, ...]
-    pos_net: Optional[GLAState] = None
+    layers: Tuple
+    pos_net: Optional[object] = None
 
 
 def map_state(fn: Callable, state: BackboneState, *others: BackboneState
               ) -> BackboneState:
     """``fn(leaf, *other_leaves)`` over every tensor of ``state`` (and the
     tensors at the same place in ``others``); fields that are None stay
-    None. The result replaces each tensor with what ``fn`` returns."""
+    None. The result replaces each tensor with what ``fn`` returns. The
+    layer states may be of any dataclass (``GLAState``, ``MambaState``)."""
     def one(st, *os):
         if st is None:
             return None
-        return GLAState(**{
+        return type(st)(**{
             f.name: None if getattr(st, f.name) is None
             else fn(getattr(st, f.name), *(getattr(o, f.name) for o in os))
-            for f in dataclasses.fields(GLAState)})
+            for f in dataclasses.fields(st)})
 
     return BackboneState(
         layers=tuple(one(st, *(o.layers[i] for o in others))
@@ -53,49 +64,76 @@ def add_lazy_buffers(state: BackboneState, window: int,
     """Attach zeroed lazy-window buffers to every GLA layer state;
     ``state_quant="int8"`` also row-quantizes the LAYER base states (the
     bulk of the bytes a decode step reads); the one pos_net state stays
-    full precision, as in the JAX package."""
-    one = lambda st, quant: gla_add_lazy_buffers(st, window, dtype, quant)
+    full precision, as in the JAX package. A state of another mixer
+    (Mamba-2) has no lazy window: ``TypeError``, as in JAX."""
+    def one(st, quant):
+        if not isinstance(st, GLAState):
+            raise TypeError(f"lazy decode unsupported for {type(st).__name__}")
+        return gla_add_lazy_buffers(st, window, dtype, quant)
+
     return BackboneState(
         layers=tuple(one(st, state_quant) for st in state.layers),
         pos_net=one(state.pos_net, None) if state.pos_net is not None else None)
 
 
-class AttentiveGLA(nn.Module):
+def _gla_block(d: int, heads: int, use_short_conv: bool, expand_k: float, expand_v: float,
+               dropout: float, chunk_size: int, dtype: torch.dtype, scalar_gate: bool,
+               kernel_mode: str) -> MixingBlock:
+    return MixingBlock(d, GatedLinearAttention(
+        hidden_size=d, num_heads=heads, use_short_conv=use_short_conv,
+        expand_k=expand_k, expand_v=expand_v, chunk_size=chunk_size,
+        scalar_gate=scalar_gate, kernel_mode=kernel_mode, dtype=dtype),
+        SwiGLU(d, dtype=dtype), dropout=dropout)
+
+
+class EncoderCrossDecoder(nn.Module):
+    """Shared scaffold: n_layer mixer blocks -> ONE cross-attention -> n_layer
+    mixer blocks, with an explicit state threading through all of it. A
+    subclass sets its own attributes after ``super().__init__`` and then
+    calls :meth:`_build`, which asks its ``_block`` for every mixer block
+    (the blind cross-attention's pos_net and the PP inter_net included)."""
+
     def __init__(self, d_model: int = 1024, n_layer: int = 12, heads: int = 4,
-                 dropout: float = 0.0,
-                 d_blind: Optional[int] = None, blind: bool = False,
+                 dropout: float = 0.0, d_blind: Optional[int] = None, blind: bool = False,
                  cross_att_pp: bool = False, rotary: bool = False,
-                 use_short_conv: bool = False, expand_k: float = 1.0,
-                 expand_v: float = 2.0, pos_type: str = "sinusoidal",
-                 chunk_size: int = 64, dtype: torch.dtype = torch.float32,
-                 state_dtype: torch.dtype = torch.float32,
-                 kernel_mode: str = "auto"):
+                 pos_type: str = "sinusoidal", dtype: torch.dtype = torch.float32,
+                 state_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cross_att_pp and not blind:
-            raise NotImplementedError(
-                "CrossAttentionPP is not ported yet (ROADMAP.md Queue 1 item 3)")
         self.d_model, self.n_layer, self.heads = d_model, n_layer, heads
-        self.blind = blind
-        self.expand_k, self.expand_v = expand_k, expand_v
+        self.dropout, self.blind, self.cross_att_pp = dropout, blind, cross_att_pp
+        self.rotary, self.pos_type = rotary, pos_type
         self.d_blind = d_model if d_blind is None else d_blind
         self.dtype, self.state_dtype = dtype, state_dtype
 
-        def block(d):
-            return MixingBlock(d, GatedLinearAttention(
-                hidden_size=d, num_heads=heads, use_short_conv=use_short_conv,
-                expand_k=expand_k, expand_v=expand_v, chunk_size=chunk_size,
-                kernel_mode=kernel_mode, dtype=dtype), SwiGLU(d, dtype=dtype),
-                dropout=dropout)
+    # ---- subclass hooks ----
+    def _block(self, d: int) -> MixingBlock:
+        raise NotImplementedError
 
-        self.encoder = nn.ModuleList(block(d_model) for _ in range(n_layer))
-        self.decoder = nn.ModuleList(block(d_model) for _ in range(n_layer))
-        if blind:
+    def _layer_state(self, block: MixingBlock, batch_size: int, device):
+        raise NotImplementedError
+
+    # ---- construction ----
+    def _build(self) -> None:
+        self.encoder = nn.ModuleList(self._block(self.d_model) for _ in range(self.n_layer))
+        self.decoder = nn.ModuleList(self._block(self.d_model) for _ in range(self.n_layer))
+        d = self.d_model
+        if self.blind:
             self.cross_att = BlindCrossAttention(
-                d_model, d_model, d_model, pos_net=block(self.d_blind),
-                pos_dim=self.d_blind, pos_type=pos_type, dtype=dtype)
+                d, d, d, pos_net=self._block(self.d_blind), pos_dim=self.d_blind,
+                pos_type=self.pos_type, dtype=self.dtype)
+        elif self.cross_att_pp:
+            self.cross_att = CrossAttentionPP(d, inter_net=self._block(d), ca_heads=1,
+                                              dtype=self.dtype)
         else:
-            self.cross_att = CrossAttention(d_model, d_model, d_model, heads,
-                                            rotary=rotary, dtype=dtype)
+            self.cross_att = CrossAttention(d, d, d, self.heads, rotary=self.rotary,
+                                            dtype=self.dtype)
+
+    def _stateful_block(self) -> Optional[MixingBlock]:
+        """The cross-attention's own mixer block (blind pos_net or PP
+        inter_net), whose state rides in ``BackboneState.pos_net``."""
+        if self.blind:
+            return self.cross_att.pos_net
+        return self.cross_att.inter_net if self.cross_att_pp else None
 
     def gla_layers(self):
         """Every GatedLinearAttention of the backbone (25 in the flagship)."""
@@ -136,14 +174,17 @@ class AttentiveGLA(nn.Module):
         for i, blk in enumerate(self.encoder):
             x, st = run(blk, x, init_state.layers[i] if use_state else None)
             finals.append(st)
+        ca_state = init_state.pos_net if use_state else None
         ca_final = None
         if self.blind:
             v, att, ca_final = self.cross_att(
-                x, ctx, mask=mask,
-                pos_net_state=init_state.pos_net if use_state else None,
-                return_weights=return_att, conv_history=conv_history,
-                pos_valid=crossatt_pos_valid, pos=crossatt_pos,
+                x, ctx, mask=mask, pos_net_state=ca_state, return_weights=return_att,
+                conv_history=conv_history, pos_valid=crossatt_pos_valid, pos=crossatt_pos,
                 reset_mask=reset_mask)
+        elif self.cross_att_pp:
+            v, att, ca_final = self.cross_att(
+                x, ctx, mask=mask, pos_net_state=ca_state, return_weights=return_att,
+                conv_history=conv_history, reset_mask=reset_mask, time_step=time_offset)
         else:
             v, att = self.cross_att(x, ctx, mask=mask, time_step=time_offset,
                                     return_weights=return_att)
@@ -175,6 +216,9 @@ class AttentiveGLA(nn.Module):
             v, att, pos_net_state = self.cross_att.step(
                 y_embd, x_enc, state.pos_net, mask=mask, lazy_p=lazy_p,
                 pos_valid=crossatt_pos_valid)
+        elif self.cross_att_pp:
+            v, att, pos_net_state = self.cross_att.step(
+                y_embd, x_enc, state.pos_net, mask=mask, lazy_p=lazy_p, time_step=time_step)
         else:
             v, att = self.cross_att(y_embd[:, None], x_enc, mask=mask,
                                     time_step=time_step, return_weights=True)
@@ -189,7 +233,7 @@ class AttentiveGLA(nn.Module):
         """Fold every layer's buffered window into its base state, each
         through its own layer's ``kernel_mode``. Full windows only."""
         blocks = list(self.encoder) + list(self.decoder)
-        pos_net = (self.cross_att.pos_net.tmix.fold_lazy_state(state.pos_net)
+        pos_net = (self._stateful_block().tmix.fold_lazy_state(state.pos_net)
                    if state.pos_net is not None else None)
         return BackboneState(
             layers=tuple(blk.tmix.fold_lazy_state(st)
@@ -198,11 +242,39 @@ class AttentiveGLA(nn.Module):
 
     def empty_state(self, batch_size: int, device=None) -> BackboneState:
         """Zero state for all 2*n_layer blocks (+ pos_net); gla.py:302-313."""
-        mk = lambda blk: blk.tmix.empty_state(
-            batch_size, state_dtype=self.state_dtype, device=device)
-        layers = tuple(mk(b) for b in list(self.encoder) + list(self.decoder))
-        pos_net = mk(self.cross_att.pos_net) if self.blind else None
-        return BackboneState(layers=layers, pos_net=pos_net)
+        blocks = list(self.encoder) + list(self.decoder)
+        ca = self._stateful_block()
+        return BackboneState(
+            layers=tuple(self._layer_state(b, batch_size, device) for b in blocks),
+            pos_net=None if ca is None else self._layer_state(ca, batch_size, device))
+
+
+class AttentiveGLA(EncoderCrossDecoder):
+    """The GLA backbone (the flagship; with ``scalar_gate`` simple-GLA)."""
+
+    def __init__(self, d_model: int = 1024, n_layer: int = 12, heads: int = 4,
+                 dropout: float = 0.0,
+                 d_blind: Optional[int] = None, blind: bool = False,
+                 cross_att_pp: bool = False, rotary: bool = False,
+                 use_short_conv: bool = False, expand_k: float = 1.0,
+                 expand_v: float = 2.0, pos_type: str = "sinusoidal",
+                 chunk_size: int = 64, scalar_gate: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 state_dtype: torch.dtype = torch.float32,
+                 kernel_mode: str = "auto"):
+        super().__init__(d_model, n_layer, heads, dropout, d_blind, blind, cross_att_pp,
+                         rotary, pos_type, dtype, state_dtype)
+        self.use_short_conv, self.expand_k, self.expand_v = use_short_conv, expand_k, expand_v
+        self.chunk_size, self.scalar_gate, self.kernel_mode = chunk_size, scalar_gate, kernel_mode
+        self._build()
+
+    def _block(self, d: int) -> MixingBlock:
+        return _gla_block(d, self.heads, self.use_short_conv, self.expand_k, self.expand_v,
+                          self.dropout, self.chunk_size, self.dtype, self.scalar_gate,
+                          self.kernel_mode)
+
+    def _layer_state(self, block: MixingBlock, batch_size: int, device) -> GLAState:
+        return block.tmix.empty_state(batch_size, state_dtype=self.state_dtype, device=device)
 
     # ---------- initial-state tuning (speaker adaptation) ----------
     def _layer_dims(self) -> Tuple[int, int]:
@@ -243,3 +315,93 @@ class AttentiveGLA(nn.Module):
             s = s.expand(batch_size, *s.shape[1:]).float().contiguous()
             layers[i] = dataclasses.replace(layers[i], s=s)
         return dataclasses.replace(state, layers=tuple(layers))
+
+
+class CrossAttGLA(nn.Module):
+    """A single stack of ``n_layer`` GLA blocks with a vanilla CrossAttention
+    (``cross_att_heads`` heads) after each layer of ``cross_att_layers``
+    (JAX ``InterleavedCrossAtt`` / ``CrossAttGLA``, reference gla.py:367-477).
+    The attention maps of those layers are concatenated over the head axis.
+    The cross-attentions are named ``cross_att_<i>``, as the JAX package's
+    ``torch_key_for`` names them."""
+
+    blind = cross_att_pp = False
+
+    def __init__(self, d_model: int, n_layer: int, cross_att_layers: Sequence[int],
+                 heads: int, cross_att_heads: int = 1, dropout: float = 0.0,
+                 rotary: bool = False, use_short_conv: bool = False, expand_k: float = 1.0,
+                 expand_v: float = 2.0, chunk_size: int = 64, kernel_mode: str = "auto",
+                 dtype: torch.dtype = torch.float32,
+                 state_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model, self.n_layer, self.heads = d_model, n_layer, heads
+        self.cross_att_layers = tuple(cross_att_layers)
+        self.dtype, self.state_dtype = dtype, state_dtype
+        self.blocks = nn.ModuleList(
+            _gla_block(d_model, heads, use_short_conv, expand_k, expand_v, dropout,
+                       chunk_size, dtype, False, kernel_mode) for _ in range(n_layer))
+        for i, _ in enumerate(self.cross_att_layers):
+            setattr(self, f"cross_att_{i}", CrossAttention(
+                d_model, d_model, d_model, cross_att_heads, rotary=rotary, dtype=dtype))
+
+    def _cross_att(self, layer: int) -> Optional[CrossAttention]:
+        if layer not in self.cross_att_layers:
+            return None
+        return getattr(self, f"cross_att_{self.cross_att_layers.index(layer)}")
+
+    def gla_layers(self):
+        return [m for m in self.modules() if isinstance(m, GatedLinearAttention)]
+
+    def forward(self, x, ctx, mask=None, init_state: Optional[BackboneState] = None,
+                return_att: bool = False, output_final_state: bool = False,
+                conv_history: bool = False, time_offset=0,
+                crossatt_pos_valid: Optional[torch.Tensor] = None,
+                reset_mask: Optional[torch.Tensor] = None,
+                crossatt_pos: Optional[torch.Tensor] = None):
+        """As :meth:`EncoderCrossDecoder.forward`; ``crossatt_pos_valid`` and
+        ``crossatt_pos`` are taken for the same signature and unused (the
+        vanilla CrossAttention has no positional values)."""
+        use_state = init_state is not None or output_final_state
+        if init_state is None and use_state:
+            init_state = self.empty_state(x.shape[0], device=x.device)
+        atts, finals = [], []
+        for i, blk in enumerate(self.blocks):
+            if use_state:
+                x, st = blk(x, initial_state=init_state.layers[i], output_final_state=True,
+                            conv_history=conv_history, reset_mask=reset_mask)
+            else:
+                x, st = blk(x, reset_mask=reset_mask), None
+            finals.append(st)
+            ca = self._cross_att(i)
+            if ca is not None:
+                v, att = ca(x, ctx, mask=mask, time_step=time_offset, return_weights=return_att)
+                x = x + v
+                if att is not None:
+                    atts.append(att)
+        att = torch.cat(atts, dim=1) if atts else None
+        if output_final_state:
+            return x, att, BackboneState(layers=tuple(finals))
+        return x, att
+
+    def step(self, y_embd, x_enc, state: BackboneState, mask=None, time_step=None,
+             lazy_p: Optional[int] = None, crossatt_pos_valid: Optional[torch.Tensor] = None):
+        layers, atts = list(state.layers), []
+        for i, blk in enumerate(self.blocks):
+            y_embd, layers[i] = blk.step(y_embd, layers[i], lazy_p)
+            ca = self._cross_att(i)
+            if ca is not None:
+                v, att = ca(y_embd[:, None], x_enc, mask=mask, time_step=time_step,
+                            return_weights=True)
+                y_embd = y_embd + v[:, 0]
+                atts.append(att[:, :, 0])
+        att = torch.cat(atts, dim=1) if atts else None
+        return y_embd, att, BackboneState(layers=tuple(layers))
+
+    def fold_lazy_state(self, state: BackboneState) -> BackboneState:
+        return BackboneState(layers=tuple(blk.tmix.fold_lazy_state(st)
+                                          for blk, st in zip(self.blocks, state.layers)))
+
+    def empty_state(self, batch_size: int, device=None) -> BackboneState:
+        return BackboneState(layers=tuple(
+            blk.tmix.empty_state(batch_size, state_dtype=self.state_dtype, device=device)
+            for blk in self.blocks))

@@ -1,10 +1,12 @@
-"""Cross-attention: vanilla and "blind" two-pass (PyTorch port).
+"""Cross-attention: vanilla, "blind" two-pass and PP (PyTorch port).
 
 Counterpart of ``lina_speech_tpu/models/crossatt.py`` (reference
 model/crossatt.py) with the reference's torch names (``q``, ``ln_q``,
-``pos_net``, ``pos_embed.embed``, ``pos_embed.dw_conv`` ...). The blind
-cross-attention's stateful ``pos_net`` GLA block threads its state through
-the caller, as in the JAX package.
+``pos_net``, ``pos_embed.embed``, ``pos_embed.dw_conv`` ...) and, for
+:class:`CrossAttentionPP`, the names the JAX package's
+``utils/checkpoint.py:torch_key_for`` gives it (``ca_0``, ``ca_1``,
+``pos_emb``, ``inter_net``). The stateful ``pos_net`` / ``inter_net``
+blocks thread their state through the caller, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -193,3 +195,56 @@ class BlindCrossAttention(nn.Module):
         x, att2 = sdpa(x[:, None, None], pe, vh, mask=mask, return_weights=True)
         att = torch.cat([att1, att2], dim=1)[:, :, 0]
         return x[:, 0, 0], att, pos_net_state
+
+
+class CrossAttentionPP(nn.Module):
+    """Two single-head CrossAttentions around a stateful ``inter_net`` block,
+    with learned absolute positions added to the keys (crossatt.py:50-72;
+    JAX ``CrossAttentionPP``): pass 1 reads the text with position-aware
+    values, the inter_net block (a recurrent mixer carrying its own state)
+    transforms the result, pass 2 attends with it onto the position-aware
+    keys and fetches the text."""
+
+    def __init__(self, dim: int, inter_net: nn.Module, ca_heads: int = 1,
+                 max_seqlen: int = 512, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ca_0 = CrossAttention(dim, dim, dim, ca_heads, dtype=dtype)
+        self.ca_1 = CrossAttention(dim, dim, dim, ca_heads, dtype=dtype)
+        self.pos_emb = Embedding(max_seqlen, dim, dtype=dtype)
+        self.inter_net = inter_net
+
+    def _k_pos(self, k):
+        return k + self.pos_emb(torch.arange(k.shape[1], device=k.device))[None]
+
+    def forward(self, q, k, mask=None, pos_net_state=None, return_weights: bool = False,
+                conv_history: bool = False, reset_mask: Optional[torch.Tensor] = None,
+                time_step=None):
+        """Full sequence. Returns (out, att, inter_net_final_state);
+        ``conv_history`` makes the inter_net consume its incoming conv rings
+        as causal history, ``reset_mask`` wipes its state at segment starts."""
+        k_pos = self._k_pos(k)
+        y, att1 = self.ca_0(q, k, k_pos, mask=mask, time_step=time_step,
+                            return_weights=return_weights)
+        if pos_net_state is not None:
+            y, final = self.inter_net(y, initial_state=pos_net_state, output_final_state=True,
+                                      conv_history=conv_history, reset_mask=reset_mask)
+        else:
+            y, final = self.inter_net(y, reset_mask=reset_mask), None
+        y, att2 = self.ca_1(y, k_pos, k, mask=mask, time_step=time_step,
+                            return_weights=return_weights)
+        att = torch.cat([att1, att2], dim=1) if att1 is not None else None
+        return y, att, final
+
+    def step(self, q_t, k, pos_net_state, mask=None, lazy_p: Optional[int] = None,
+             time_step=None):
+        """One decode token. q_t: (b, d); k: (b, j, d). Returns (out (b, d),
+        att (b, 2 heads, j), new_inter_net_state)."""
+        k_pos = self._k_pos(k)
+        if mask is not None and mask.ndim == 3:
+            mask = mask[:, None]
+        y, att1 = self.ca_0(q_t[:, None], k, k_pos, mask=mask, time_step=time_step,
+                            return_weights=True)
+        y, pos_net_state = self.inter_net.step(y[:, 0], pos_net_state, lazy_p)
+        y, att2 = self.ca_1(y[:, None], k_pos, k, mask=mask, return_weights=True)
+        att = torch.cat([att1, att2], dim=1)[:, :, 0]
+        return y[:, 0], att, pos_net_state

@@ -11,13 +11,14 @@ Dropout and the classifier-free text masking act in training mode only
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
-from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA, BackboneState
+from lina_speech_tpu_torch.models.attentive_rnn import BackboneState
 from lina_speech_tpu_torch.models.base_blocks import (
     Embedding, SwiGLU, set_dropout_generator,
 )
@@ -57,7 +58,7 @@ class LogitsHead(nn.Module):
 
 
 class LinaModel(nn.Module):
-    def __init__(self, attentive_rnn: AttentiveGLA, d_model: int, n_quant: int,
+    def __init__(self, attentive_rnn: nn.Module, d_model: int, n_quant: int,
                  n_codebook: int, n_special_token_in: int,
                  n_special_token_out: int, n_txt_vocab_base: int,
                  tie_embed: bool = False, txt_encoder: Optional[nn.Module] = None,
@@ -183,11 +184,12 @@ class LinaModel(nn.Module):
     def quantize_weights_(self, min_size: int = 1 << 16, exclude=None) -> dict:
         """Make int8 copies of the Linear weights (and the logits head) that
         ``utils/quantize.py:quantize_dense_params`` selects, from the weights
-        as they are now (call it after :meth:`cast_float_params_`, or ``q``
-        differs from the JAX package's), and attach them to their modules.
+        as they are now, and attach them to their modules.
         Nothing runs on them until ``use_int8`` is switched on
         (``base_blocks.use_int8_weights``). Returns the quantized mapping
-        ``{parameter name: tensor or {int8_q, int8_s}}``."""
+        ``{parameter name: tensor or {int8_q, int8_s}}``. The serving paths
+        call it inside :meth:`using_params` of the compute-dtype copies, as
+        the JAX package quantizes its pre-cast tree."""
         tree = quantize_dense_params(dict(self.named_parameters()), min_size, exclude)
         self.load_int8_({k: v for k, v in tree.items() if is_quantized_leaf(v)})
         return tree
@@ -225,14 +227,29 @@ class LinaModel(nn.Module):
             if hasattr(m, "kernel_mode"):
                 m.kernel_mode = mode
 
-    def cast_float_params_(self, dtype: torch.dtype) -> None:
-        """Cast every f32 parameter to ``dtype`` in place (the JAX
-        generate_batch's one-time pre-cast; norms keep f32 statistics)."""
-        if dtype == torch.float32:
-            return
-        for p in self.parameters():
-            if p.dtype == torch.float32:
-                p.data = p.data.to(dtype)
+    def cast_param_copies(self) -> Dict[nn.Parameter, torch.Tensor]:
+        """Copies of the f32 parameters cast to the compute dtype, by
+        parameter (none for f32 compute): the JAX generate_batch's one-time
+        pre-cast of its param tree, made for the decode loop without
+        touching the model. Norms keep f32 statistics either way."""
+        if self.dtype == torch.float32:
+            return {}
+        return {p: p.detach().to(self.dtype) for p in self.parameters()
+                if p.dtype == torch.float32}
+
+    @contextlib.contextmanager
+    def using_params(self, copies: Dict[nn.Parameter, torch.Tensor]):
+        """Within the block each parameter of ``copies`` holds its copy
+        (:meth:`cast_param_copies`); its own tensor comes back after, so the
+        caller's model leaves the block as it entered it."""
+        saved = [(p, p.data) for p in copies]
+        try:
+            for p, copy in copies.items():
+                p.data = copy
+            yield
+        finally:
+            for p, data in saved:
+                p.data = data
 
 
 @torch.no_grad()
@@ -241,7 +258,9 @@ def init_params(model: LinaModel, generator: torch.Generator) -> LinaModel:
     initializers by parameter name: GLA projections xavier-uniform with
     gain 2**-2.5 (gla.py:122-129), other Linear / head / conv weights
     normal with std 1/sqrt(fan_in), embeddings normal(1) (ConvPos table
-    1/sqrt(d)), biases zero, norm weights one, the rvq padding row zero."""
+    1/sqrt(d)), biases zero, norm weights one, the rvq padding row zero;
+    Mamba-2: ``A_log`` = log U(1, 16), ``D`` and ``norm_weight`` one, the
+    conv taps (conv_dim, d_conv) normal with std 1/sqrt(conv_dim)."""
     gla_proj = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj", "gk_proj")
 
     def normal(p, std):
@@ -249,10 +268,15 @@ def init_params(model: LinaModel, generator: torch.Generator) -> LinaModel:
 
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[-1] == "bias":
+        if parts[-1] in ("bias", "conv_bias", "dt_bias"):
             p.zero_()
-        elif any(n in parts for n in ("norm1", "norm2", "ln_q", "ln_k", "ln_v",
-                                      "g_norm_swish_gate")):
+        elif parts[-1] == "A_log":
+            p.copy_(torch.log(1.0 + 15.0 * torch.rand(p.shape, generator=generator)))
+        elif parts[-1] == "conv_kernel":
+            normal(p, p.shape[0] ** -0.5)
+        elif parts[-1] in ("D", "norm_weight") or any(
+                n in parts for n in ("norm1", "norm2", "ln_q", "ln_k", "ln_v",
+                                     "g_norm_swish_gate")):
             p.fill_(1.0)
         elif name in ("txt_embed.weight", "rvq_embed.weight"):
             normal(p, 1.0)

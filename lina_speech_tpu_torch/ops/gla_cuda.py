@@ -11,10 +11,17 @@ wrappers and their plain versions.
   through :func:`gla_chunk_conv_plain`.
 - :func:`gla_chunk` replaces ``gla_chunk_pallas`` (gla_pallas.py:699), the
   same scan on post-conv q/k/v: the prefill chunks that continue a stream
-  from carried conv rings. Kernel: ``csrc/gla_chunk.cu``.
+  from carried conv rings, and the prefill and training of the layers
+  without per-projection convs (simple-GLA, the shared conv, Mamba-2).
+  Kernel: ``csrc/gla_chunk.cu``. It is differentiable: when autograd
+  records, its backward is :func:`gla_chunk_bwd` (``csrc/gla_chunk_bwd.cu``,
+  replacing ``_bwd_kernel``, gla_pallas.py:210).
 - :func:`gla_decode_conv` replaces ``gla_decode_conv_fused``
   (gla_pallas.py:1641), one decode token with the conv ring updates fused
   in. Kernel: ``csrc/gla_decode_conv.cu``.
+- :func:`gla_decode` replaces ``gla_decode_fused`` (gla_pallas.py:1709),
+  one decode token on q/k/v as they are, the state updated in place.
+  Kernel: ``csrc/gla_decode.cu``.
 - :func:`gla_decode_lazy_conv` replaces ``gla_decode_lazy_conv_fused``
   (gla_pallas.py:2197), one lazy-window decode token: ring updates, append
   to the window buffers, readout from a read-only state, which may be int8
@@ -29,8 +36,12 @@ Each wrapper takes the JAX function's arguments in the JAX layout. For a
 CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
 tensor it launches the kernel or raises -- there is no fallback. Each
 counts its launches in a plain int attribute (``gla_chunk_conv.launches``);
-the two training kernels also note the shapes they were launched on
-(:func:`training_launch_shapes`).
+the training kernels and ``gla_decode`` also note the shapes they were
+launched on (:func:`launch_shapes`). Which heads the kernels take is one
+predicate, :func:`kernel_takes`: a layer asks it before it calls a wrapper
+and takes the plain version for a head the kernels do not take, as the JAX
+layer takes XLA where its Pallas kernels do not fit; a wrapper called on
+such a head raises.
 The plain versions follow the Pallas kernels' conv rounding points: the f32
 tap sum is rounded to the IO dtype before an f32 silu.
 
@@ -53,31 +64,52 @@ _INT8_CODE = 2  # a row-quantized state (the lazy step only)
 _CONV_WIDTH = 4
 _DK_SUPPORTED = (64, 128, 256)
 _BV = 32  # value columns per block (csrc/gla_common.cuh:kBV)
-_BWD_SEG = 64  # time steps per thread of the backward's finishing kernel (kFinishSeg)
+_BWD_SEG = 64  # time steps per thread of the backward's finishing kernels (kFinishSeg)
+_FOLD_Q_DV = (128, 256, 512)  # value widths the int8 fold kernel is built for
 
 
 def _wrappers():
-    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_decode_conv,
-            gla_decode_lazy_conv, gla_fold, gla_fold_q)
+    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd, gla_decode_conv,
+            gla_decode, gla_decode_lazy_conv, gla_fold, gla_fold_q)
+
+
+def _shape_noters():
+    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd, gla_decode)
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
     gla_decode_lazy_conv.q_launches = 0
-    gla_chunk_conv.shapes, gla_chunk_conv_bwd.shapes = set(), set()
+    for fn in _shape_noters():
+        fn.shapes = set()
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
-def training_launch_shapes() -> dict:
-    """What the conv-fused forward and its backward were launched on since
-    the last reset: for each a set of (b, t, dtype of the initial state or
-    None), the backward's with (need_ds0, need_taps) appended. A check that
-    drives a training path reads it to hold the kernels at those shapes."""
-    return {fn.__name__: set(fn.shapes) for fn in (gla_chunk_conv, gla_chunk_conv_bwd)}
+def launch_shapes() -> dict:
+    """What the kernels that note their shapes were launched on since the
+    last reset, a set of tuples each. ``gla_chunk_conv``: every launch as (b,
+    t, dtype of the initial state or None); ``gla_chunk_conv_bwd``: the same
+    with (need_ds0, need_taps) appended. ``gla_chunk``: every launch as (b,
+    h, t, dk, dv, IO dtype, initial state dtype or None, scale);
+    ``gla_chunk_bwd``: the same with need_ds0 appended. ``gla_decode``: (b, h, dk, dv, IO dtype, state dtype). A check
+    that drives a path reads it to hold the kernels at those shapes."""
+    return {fn.__name__: set(fn.shapes) for fn in _shape_noters()}
+
+
+def kernel_takes(dk: int, dv: int, io: torch.dtype, state_dtype: torch.dtype) -> bool:
+    """Whether the GLA kernels take a head of key dim ``dk`` and value dim
+    ``dv`` with IO dtype ``io`` and state dtype ``state_dtype`` (int8: a
+    row-quantized lazy-window state, which the int8 readout and
+    ``gla_fold_q`` take at value widths of 128, 256 and 512). Decided from
+    shapes and dtypes alone, before any launch; the wrappers raise on what
+    it refuses."""
+    if io not in _DTYPE_CODE or dk not in _DK_SUPPORTED or dv % _BV:
+        return False
+    return dv in _FOLD_Q_DV if state_dtype == torch.int8 else state_dtype in _DTYPE_CODE
 
 
 def _check(name: str, cond: bool, msg: str) -> None:
@@ -395,20 +427,28 @@ def gla_chunk(q, k, v, gk, initial_state=None, scale=None, chunk_size: int = 64
     dk) f32 log-gates; initial_state: (b, h, dk, dv) or None (zeros, f32).
     Returns o (b, h, t, dv) in the IO dtype and the final state in the
     initial state's dtype. ``chunk_size`` shapes the plain version only;
-    the kernel is recurrent and takes any t >= 1.
+    the kernel is recurrent and takes any t >= 1. Differentiable: when
+    autograd records it runs through a ``torch.autograd.Function`` whose
+    backward is :func:`gla_chunk_bwd`.
     """
     if not q.is_cuda:
         return gla_chunk_plain(q, k, v, gk, initial_state, scale, chunk_size)
-    name = "gla_chunk"
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    tensors = [q, k, v, gk] + ([] if initial_state is None else [initial_state])
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return _GLAChunk.apply(q, k, v, gk, initial_state, scale)
+    return _chunk_launch(q, k, v, gk, initial_state, scale)
+
+
+def _check_chunk_args(name, q, k, v, gk, initial_state, *more):
+    """What the prefill kernels on post-conv q, k, v take (``more``: further
+    tensors that must be contiguous on the same device); returns (b, h, t,
+    dk, dv, IO dtype, state dtype)."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     io = q.dtype
     st = torch.float32 if initial_state is None else initial_state.dtype
-    tensors = [q, k, v, gk] + ([] if initial_state is None else [initial_state])
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            "gla_chunk has no backward kernel yet (ROADMAP.md Queue 2 row 2): "
-            "call it under torch.no_grad(), or train through gla_chunk_conv")
+    tensors = [q, k, v, gk, *more] + ([] if initial_state is None else [initial_state])
     _check_cuda_args(name, tensors, io, dk, dv, st)
     _check(name, t >= 1, "needs at least one step")
     _check(name, k.shape == q.shape and k.dtype == io, "k must match q")
@@ -417,7 +457,13 @@ def gla_chunk(q, k, v, gk, initial_state=None, scale=None, chunk_size: int = 64
            "gk must be f32 of q's shape")
     if initial_state is not None:
         _check(name, initial_state.shape == (b, h, dk, dv), "state shape")
-    scale = dk ** -0.5 if scale is None else scale
+    return b, h, t, dk, dv, io, st
+
+
+def _chunk_launch(q, k, v, gk, initial_state, scale):
+    """Check the arguments and launch the forward kernel (CUDA tensors)."""
+    name = "gla_chunk"
+    b, h, t, dk, dv, io, st = _check_chunk_args(name, q, k, v, gk, initial_state)
     o = torch.empty(b, h, t, dv, dtype=io, device=q.device)
     sf = torch.empty(b, h, dk, dv, dtype=st, device=q.device)
     lib = _build.load_library()
@@ -428,10 +474,124 @@ def gla_chunk(q, k, v, gk, initial_state=None, scale=None, chunk_size: int = 64
         _DTYPE_CODE[st], ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk.launches += 1
+    gla_chunk.shapes.add((b, h, t, dk, dv, io, None if initial_state is None else st,
+                          float(scale)))
     return o, sf
 
 
-gla_chunk.launches = 0
+gla_chunk.launches, gla_chunk.shapes = 0, set()
+
+
+def gla_chunk_bwd(q, k, v, gk, initial_state, do, dsf, scale=None, need_ds0: bool = True):
+    """Backward of :func:`gla_chunk` on CUDA tensors.
+
+    Inputs as the forward's, plus ``do`` (b, h, t, dv) in the IO dtype and
+    ``dsf`` (b, h, dk, dv) in the state dtype, the gradients of its two
+    outputs. Returns (dq, dk, dv, dg, ds0): dq, dk, dv in the IO dtype, dg
+    f32, ds0 in the state dtype (None without ``need_ds0`` or without an
+    initial state).
+
+    One call launches the four kernels of ``csrc/gla_chunk_bwd.cu`` and
+    counts as one launch. Its scratch (the per-tile parts of dq and dk, 2 *
+    dv/32 * b*h*t*dk f32 values) is freed when the call returns.
+    """
+    name = "gla_chunk_bwd"
+    _check(name, q.is_cuda, "runs on CUDA tensors only; on the CPU take "
+           "autograd through gla_chunk_plain")
+    b, h, t, dk, dv, io, st = _check_chunk_args(name, q, k, v, gk, initial_state, do, dsf)
+    _check(name, do.shape == v.shape and do.dtype == io, "do must match v")
+    _check(name, dsf.shape == (b, h, dk, dv) and dsf.dtype == st,
+           f"dsf must be ({b}, {h}, {dk}, {dv}) in {st}")
+    scale = dk ** -0.5 if scale is None else scale
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk_, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dg = torch.empty_like(gk)
+    ds0 = (torch.empty_like(initial_state)
+           if need_ds0 and initial_state is not None else None)
+    tiles = dv // _BV
+    dqp = torch.empty(tiles, b, h, t, dk, **f32)
+    dkp = torch.empty(tiles, b, h, t, dk, **f32)
+    dsgp = torch.empty(tiles, b, h, dk, **f32)
+    dgt = torch.empty(-(-t // _BWD_SEG), b, h, dk, **f32)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.gla_chunk_bwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(gk), _ptr(initial_state), _ptr(do), _ptr(dsf),
+        _ptr(dq), _ptr(dk_), _ptr(dv_), _ptr(dg), _ptr(ds0), _ptr(dqp), _ptr(dkp),
+        _ptr(dsgp), _ptr(dgt), b, h, t, dk, dv, float(scale), _DTYPE_CODE[io],
+        _DTYPE_CODE[st], ctypes.c_void_p(stream))
+    _raise_on(name, err)
+    gla_chunk_bwd.launches += 1
+    gla_chunk_bwd.shapes.add((b, h, t, dk, dv, io, None if initial_state is None else st,
+                              float(scale), ds0 is not None))
+    return dq, dk_, dv_, dg, ds0
+
+
+gla_chunk_bwd.launches, gla_chunk_bwd.shapes = 0, set()
+
+
+class _GLAChunk(torch.autograd.Function):
+    """:func:`gla_chunk` on CUDA tensors under autograd: the forward kernel,
+    and :func:`gla_chunk_bwd` as its backward. Nothing is saved but the
+    inputs: the backward recomputes the states from ``s0``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gk, s0, scale):
+        o, sf = _chunk_launch(q, k, v, gk, s0, scale)
+        ctx.save_for_backward(q, k, v, gk, s0)
+        ctx.scale = scale
+        return o, sf
+
+    @staticmethod
+    def backward(ctx, do, dsf):
+        *inputs, s0 = ctx.saved_tensors
+        grads = gla_chunk_bwd(*inputs, s0, do.contiguous(), dsf.contiguous(), ctx.scale,
+                              need_ds0=ctx.needs_input_grad[4])
+        return (*grads, None)
+
+
+# ----------------------------------------------- decode kernel, convs outside
+def gla_decode_plain(q, k, v, gk, state, scale=None):
+    """Plain version of :func:`gla_decode` (same signature; returns new
+    tensors and leaves ``state`` untouched): ``ops/gla.py:gla_decode_step``."""
+    return gla_ops.gla_decode_step(q, k, v, gk, state, scale=scale)
+
+
+def gla_decode(q, k, v, gk, state, scale=None):
+    """One GLA decode token on q, k, v as they are: S <- diag(e^g) S + k^T v,
+    o = (scale q) S.
+
+    q, k: (b, h, dk) and v: (b, h, dv) in the IO dtype; gk: (b, h, dk) f32
+    log-gates; state (b, h, dk, dv) in f32 or bf16. Returns (o (b, h, dv) in
+    the IO dtype, state). On CUDA the kernel updates ``state`` IN PLACE and
+    returns the same tensor (as the JAX kernel aliases its state buffer).
+    """
+    if not q.is_cuda:
+        return gla_decode_plain(q, k, v, gk, state, scale)
+    name = "gla_decode"
+    b, h, dk = q.shape
+    dv = v.shape[-1]
+    io = q.dtype
+    _check_cuda_args(name, [q, k, v, gk, state], io, dk, dv, state.dtype)
+    _check(name, k.shape == q.shape and k.dtype == io, "k must match q")
+    _check(name, v.shape == (b, h, dv) and v.dtype == io, "v shape/dtype")
+    _check(name, gk.shape == q.shape and gk.dtype == torch.float32,
+           "gk must be f32 of q's shape")
+    _check(name, state.shape == (b, h, dk, dv), "state shape")
+    scale = dk ** -0.5 if scale is None else scale
+    o = torch.empty(b, h, dv, dtype=io, device=q.device)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.gla_decode_step(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(gk), _ptr(state), _ptr(o), b, h, dk, dv,
+        float(scale), _DTYPE_CODE[io], _DTYPE_CODE[state.dtype], ctypes.c_void_p(stream))
+    _raise_on(name, err)
+    gla_decode.launches += 1
+    gla_decode.shapes.add((b, h, dk, dv, io, state.dtype))
+    return o, state
+
+
+gla_decode.launches, gla_decode.shapes = 0, set()
 
 
 # -------------------------------------------------- lazy-window decode kernel
@@ -584,8 +744,6 @@ gla_fold.launches = 0
 
 
 # --------------------------------------------- window fold of an int8 state
-_FOLD_Q_DV = (128, 256, 512)  # value widths the int8 fold kernel is built for
-
 
 def gla_fold_q_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc):
     """Plain version of :func:`gla_fold_q` (returns new tensors)."""

@@ -111,9 +111,12 @@ class DecodeServer:
         srv.submit(text_ids, max_len=400)         # -> request id
         done = srv.run()                          # drain queue + slots
 
-    The server runs where the model's parameters are, and casts the
-    model's f32 parameters to its compute dtype in place (as
-    ``generate_batch`` does).
+    The server runs where the model's parameters are. It keeps copies of
+    the model's f32 parameters cast to the compute dtype (the JAX server's
+    pre-cast tree) and swaps them in for its own calls only: the caller's
+    model is left as it was (but see ``int8_prefill_full_precision``). A
+    Mamba-2 backbone serves in classic mode; ``lazy=True`` (and so
+    ``state_quant``) raises ``TypeError`` for it, as in JAX.
 
     ``weight_quant="int8"`` (with ``quant_min_size`` and ``quant_exclude`` as
     in ``generate_batch``) makes int8 copies of the weights at construction
@@ -186,11 +189,15 @@ class DecodeServer:
         # contract; tests assert on it)
         self.prefill_chunk_sizes: set = set()
 
-        model.cast_float_params_(model.dtype)
-        if self._int8:
-            model.quantize_weights_(min_size=quant_min_size, exclude=quant_exclude)
-            if not int8_prefill_full_precision:
-                model.drop_float_weights_()
+        self._params = model.cast_param_copies()
+        with model.using_params(self._params):
+            if self._int8:
+                model.quantize_weights_(min_size=quant_min_size, exclude=quant_exclude)
+                if not int8_prefill_full_precision:
+                    model.drop_float_weights_()
+        # the copies of weights the model gave up are not kept either
+        held = {id(p) for p in model.parameters()}
+        self._params = {p: c for p, c in self._params.items() if id(p) in held}
         cdt, dev = model.dtype, self.device
         d, m, B = model.d_model, max_text_len, n_slots
         self._x_enc = torch.zeros(B, m, d, dtype=cdt, device=dev)
@@ -378,16 +385,17 @@ class DecodeServer:
     def run(self, max_chunks: Optional[int] = None) -> List[Completion]:
         """Drain queue + slots; returns completions in finish order."""
         chunks = 0
-        self._refill()
-        while self.active and (max_chunks is None or chunks < max_chunks):
-            toks = self._decode_chunk()  # (chunk, B, q)
-            for slot_idx, slot in enumerate(self._slots):
-                if slot.rid is None:
-                    continue
-                room = max(slot.max_len - len(slot.tokens), 0)
-                slot.tokens.extend(toks[:room, slot_idx])
-                self._maybe_finish(slot_idx)
+        with self.model.using_params(self._params):
             self._refill()
-            chunks += 1
+            while self.active and (max_chunks is None or chunks < max_chunks):
+                toks = self._decode_chunk()  # (chunk, B, q)
+                for slot_idx, slot in enumerate(self._slots):
+                    if slot.rid is None:
+                        continue
+                    room = max(slot.max_len - len(slot.tokens), 0)
+                    slot.tokens.extend(toks[:room, slot_idx])
+                    self._maybe_finish(slot_idx)
+                self._refill()
+                chunks += 1
         out, self._done = self._done, []
         return out

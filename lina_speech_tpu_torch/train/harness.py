@@ -8,9 +8,11 @@ per quantizer ignoring pad/head tokens (train_lina.py:57-61).
 
 The step is a plain eager PyTorch step on one device. The model carries its
 parameters (f32); its modules cast them to the compute dtype at each matmul,
-so gradients arrive in f32. On a CUDA device every GLA layer trains through
-the hand-written ``gla_chunk_conv`` forward and backward kernels
-(``ops/gla_cuda.py``). The JAX step's mesh, ``auto_layout``,
+so gradients arrive in f32. On a CUDA device every GLA-family layer trains
+through hand-written forward and backward kernels (``ops/gla_cuda.py``):
+``gla_chunk_conv`` with per-projection short convs, ``gla_chunk`` without
+them (simple-GLA, the interleaved and PP backbones without convs) and in
+Mamba-2. The JAX step's mesh, ``auto_layout``,
 ``hoist_param_cast``, ``unroll_accum`` and ``donate`` are XLA machinery with
 no counterpart here.
 """

@@ -6,7 +6,10 @@ distilled into per-layer LoRA-factorized initial states
 (k: (1, r, h, d_k, 1), v: (1, r, h, 1, d_v)); only these are trained (Adam,
 lr 0.1, gradient accumulation), with the loss backpropagating through the
 GLA prefill into S0: on a CUDA device that gradient is the ``ds0`` of the
-hand-written ``gla_chunk_conv`` backward (``ops/gla_cuda.py``).
+hand-written ``gla_chunk_conv`` backward, or of ``gla_chunk``'s for layers
+without per-projection convs (``ops/gla_cuda.py``). It covers the
+``AttentiveGLA`` backbones (kinds ``gla`` and ``simple_gla``), as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -101,6 +104,9 @@ def train_initial_state(
     ``generator`` (on the model's device; seeded with ``config.seed`` if not
     given) draws the initial S0 params.
     """
+    if not hasattr(model.attentive_rnn, "init_state_tuning_params"):
+        raise TypeError("initial-state tuning needs an AttentiveGLA backbone, not "
+                        f"{type(model.attentive_rnn).__name__}")
     device = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(config.seed)

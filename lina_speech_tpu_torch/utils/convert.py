@@ -8,11 +8,17 @@ released reference checkpoint, after stripping its Lightning ``model.``
 root. :func:`named_tensors_to_jax` goes the other way, for gradients and
 updated parameters: tensors by torch name -> the JAX tree's paths and
 layouts, so that a training step compares leaf by leaf. Decode states
-(int8 ones with their row scales included), the S0 tuning params and the
-JAX package's int8-quantized weight tree cross as arrays too.
+(GLA states with their conv rings, shared or per projection, and int8 ones
+with their row scales; Mamba-2 states), the S0 tuning params and the JAX
+package's int8-quantized weight tree cross as arrays too. Names the JAX
+package's ``torch_key_for`` leaves as they are stay so here too: Mamba-2's
+``conv_kernel``, ``A_log``, ``dt_bias``, ``D`` and ``norm_weight``, the
+interleaved backbone's ``cross_att_<i>``, CrossAttentionPP's ``ca_0``,
+``ca_1`` and ``inter_net`` (its ``pos_emb`` table maps like an embedding).
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from collections.abc import Mapping
 from typing import Dict, Optional
@@ -72,6 +78,7 @@ def flax_path_for(torch_key: str) -> str:
     p = re.sub(r"\.(encoder|decoder|sa|blocks|convnext)\.(\d+)", r".\1_\2", p)
     p = re.sub(rf"\.{_CONV}\.weight$", r".\1.kernel", p)
     p = re.sub(r"\.pos_embed\.embed\.weight$", ".pos_embed.embed.embedding", p)
+    p = re.sub(r"\.pos_emb\.weight$", ".pos_emb.embedding", p)  # CrossAttentionPP
     p = re.sub(r"\.pos_embed\.dw_conv\.weight$", ".pos_embed.conv_kernel", p)
     p = re.sub(r"\.pos_embed\.dw_conv\.bias$", ".pos_embed.conv_bias", p)
     p = re.sub(r"\.(norm1|norm2|ln_q|ln_k|ln_v)\.weight$", r".\1.scale", p)
@@ -145,22 +152,26 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
 
 
 # ------------------------------------------------------------ decode states
-_STATE_FIELDS = ("s", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf", "cc", "s_scale")
+_STATE_FIELDS = ("s", "conv_q", "conv_k", "conv_v", "conv_h", "kbuf", "vbuf", "cbuf", "cc",
+                 "s_scale")
+_MAMBA_FIELDS = ("h", "conv")
 
 
 def backbone_state_from_arrays(state, device=None):
     """A JAX ``BackboneState`` given as arrays -> the port's.
 
     ``state`` is any object with ``layers`` (a sequence) and ``pos_net``,
-    each entry carrying the GLA state fields (``s``, the conv rings and,
-    in lazy mode, the window buffers) as numpy-convertible arrays or None;
-    the JAX package's state dataclasses fit as they are. Layouts are the
-    same on both sides. bfloat16 arrays stay bfloat16, everything else
-    keeps its numpy dtype: an int8 state ``s`` stays int8 and brings its f32
-    row scales ``s_scale``.
+    each entry carrying a layer state's fields as numpy-convertible arrays
+    or None: a GLA state (``s``, the conv rings and, in lazy mode, the
+    window buffers) or a Mamba-2 state (``h`` (b, heads * d_state,
+    headdim), ``conv``); the JAX package's state dataclasses fit as they
+    are. Layouts are the same on both sides. bfloat16 arrays stay bfloat16,
+    everything else keeps its numpy dtype: an int8 state ``s`` stays int8
+    and brings its f32 row scales ``s_scale``.
     """
     from lina_speech_tpu_torch.models.attentive_rnn import BackboneState
     from lina_speech_tpu_torch.models.gla_layer import GLAState
+    from lina_speech_tpu_torch.models.mamba import MambaState
 
     def leaf(a):
         if a is None:
@@ -175,6 +186,8 @@ def backbone_state_from_arrays(state, device=None):
     def one(st):
         if st is None:
             return None
+        if hasattr(st, "h") and hasattr(st, "conv"):
+            return MambaState(**{f: leaf(getattr(st, f)) for f in _MAMBA_FIELDS})
         return GLAState(**{f: leaf(getattr(st, f, None)) for f in _STATE_FIELDS})
 
     return BackboneState(layers=tuple(one(st) for st in state.layers),
@@ -191,10 +204,10 @@ def backbone_state_to_arrays(state) -> Dict[str, np.ndarray]:
     for prefix, st in named:
         if st is None:
             continue
-        for f in _STATE_FIELDS:
-            val = getattr(st, f)
+        for f in dataclasses.fields(st):
+            val = getattr(st, f.name)
             if val is not None:
-                out[f"{prefix}/{f}"] = val.detach().float().cpu().numpy()
+                out[f"{prefix}/{f.name}"] = val.detach().float().cpu().numpy()
     return out
 
 

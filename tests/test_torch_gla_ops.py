@@ -18,7 +18,7 @@ from lina_speech_tpu.ops import short_conv as jconv
 from lina_speech_tpu.ops import rotary as jrot
 from lina_speech_tpu.ops import tools as jtools
 from lina_speech_tpu.ops.gla_pallas import (
-    gla_chunk_conv_pallas, gla_chunk_pallas, gla_decode_conv_fused,
+    gla_chunk_conv_pallas, gla_chunk_pallas, gla_decode_conv_fused, gla_decode_fused,
 )
 from lina_speech_tpu_torch.ops import gla as tgla
 from lina_speech_tpu_torch.ops import gla_cuda
@@ -193,9 +193,13 @@ def test_wrappers_count_no_launch_on_cpu():
     w = torch.ones(32, 4)
     gla_cuda.gla_chunk_conv(*map(torch.from_numpy, (xq, xk, xv, gk)), w, w,
                             torch.ones(64, 4))
+    q, k, v, _, s0 = (torch.from_numpy(a) for a in _gla_inputs(9, t=3))
+    gla_cuda.gla_decode(q[:, :, 0], k[:, :, 0], v[:, :, 0], -torch.ones(2, 2, 16), s0)
+    gla_cuda.gla_chunk(q.requires_grad_(True), k, v, -torch.ones(2, 2, 3, 16))
     assert gla_cuda.launch_counts() == dict.fromkeys(
-        ("gla_chunk_conv", "gla_chunk_conv_bwd", "gla_chunk", "gla_decode_conv",
-         "gla_decode_lazy_conv", "gla_fold", "gla_fold_q"), 0)
+        ("gla_chunk_conv", "gla_chunk_conv_bwd", "gla_chunk", "gla_chunk_bwd",
+         "gla_decode_conv", "gla_decode", "gla_decode_lazy_conv", "gla_fold", "gla_fold_q"), 0)
+    assert all(not shapes for shapes in gla_cuda.launch_shapes().values())
     assert gla_cuda.gla_decode_lazy_conv.q_launches == 0
 
 
@@ -312,3 +316,99 @@ def test_recurrent_backward_algorithm_matches_autograd(t):
     for name, a, r in zip(_LEAVES, got, ref):
         err = float((a - r).abs().max())
         assert err <= 1e-4 * max(1.0, float(r.abs().max())), (name, err)
+
+
+# ------------------------------------------------- gla_decode, gla_chunk grads
+@pytest.mark.parametrize("state_dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_gla_decode_plain_matches_fused_decode_and_step(state_dtype, scale):
+    """gla_decode's plain version (ops/gla.py:gla_decode_step) against the
+    Pallas gla_decode_fused in interpret mode and the JAX plain step: eight
+    tokens threading the state, o and the state in the state's dtype."""
+    q, k, v, gk, s0 = _gla_inputs(20, t=8, dk=32, dv=64)
+    jdt = jnp.dtype(state_dtype)
+    tdt = torch.bfloat16 if jdt == jnp.bfloat16 else torch.float32
+    j_pal = j_step = jnp.asarray(s0).astype(jdt)
+    t_st = torch.from_numpy(s0).to(tdt)
+    tol = F32_TOL if jdt == jnp.float32 else BF16_TOL
+    for i in range(8):
+        tok = [a[:, :, i] for a in (q, k, v, gk)]
+        o_pal, j_pal = gla_decode_fused(*map(jnp.asarray, tok), j_pal, scale=scale,
+                                        interpret=True, donate=False)
+        o_step, j_step = jgla.gla_decode_step(*map(jnp.asarray, tok), j_step, scale=scale)
+        o_t, t_st = gla_cuda.gla_decode_plain(*map(torch.from_numpy, tok), t_st, scale=scale)
+        assert t_st.dtype == tdt
+        for ref_o, ref_s in ((o_pal, j_pal), (o_step, j_step)):
+            _close(o_t, ref_o, tol)
+            _close(t_st, ref_s, tol)
+    o_w, s_w = gla_cuda.gla_decode(*(torch.from_numpy(a[:, :, 0]) for a in (q, k, v, gk)),
+                                   t_st, scale=scale)
+    o_p, s_p = gla_cuda.gla_decode_plain(*(torch.from_numpy(a[:, :, 0]) for a in (q, k, v, gk)),
+                                         t_st, scale=scale)
+    assert torch.equal(o_w, o_p) and torch.equal(s_w, s_p)
+
+
+def _chunk_grads_torch(args, s0, do, dsf, scale, scalar_gate):
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    q, k, v, g = leaves
+    if scalar_gate:
+        g = g.expand(*g.shape[:-1], q.shape[-1]).contiguous()
+    s0_t = None if s0 is None else torch.from_numpy(s0).requires_grad_(True)
+    o, sf = gla_cuda.gla_chunk(q, k, v, g, initial_state=s0_t, scale=scale, chunk_size=16)
+    loss = (o * torch.from_numpy(do)).sum() + (sf * torch.from_numpy(dsf)).sum()
+    wanted = leaves + ([] if s0_t is None else [s0_t])
+    return [t.numpy() for t in torch.autograd.grad(loss, wanted)]
+
+
+@pytest.mark.parametrize("with_s0", [True, False])
+@pytest.mark.parametrize("scalar_gate", [False, True])
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_chunk_plain_gradients_match_pallas_backward(with_s0, scalar_gate, scale):
+    """Autograd through gla_chunk's plain version (what the hand-written
+    backward is held against on the card) against jax.grad of
+    gla_chunk_pallas in interpret mode, the Pallas backward with f32
+    residuals, at tests/test_gla_pallas.py's gradient shape (b2 h2 t60 dk16
+    dv16, chunk 16): with and without s0, with a per-head gate broadcast
+    over dk (simple-GLA, Mamba-2) and with scale 1.0 (Mamba-2). Each
+    gradient within 1e-3 of its own max|ref|."""
+    q, k, v, gk, s0 = _gla_inputs(21, b=2, h=2, t=60, dk=16, dv=16)
+    if scalar_gate:
+        gk = gk[..., :1].copy()
+    rng = np.random.default_rng(22)
+    do = rng.normal(size=v.shape).astype(np.float32)
+    dsf = rng.normal(size=s0.shape).astype(np.float32)
+    s0 = s0 if with_s0 else None
+
+    def loss(q, k, v, g, *s):
+        if scalar_gate:
+            g = jnp.broadcast_to(g, q.shape)
+        o, sf = gla_chunk_pallas(q, k, v, g, initial_state=s[0] if s else None, scale=scale,
+                                 chunk_size=16, interpret=True, residual_dtype=jnp.float32)
+        return jnp.sum(o * do) + jnp.sum(sf * dsf)
+
+    args = (q, k, v, gk)
+    jargs = [jnp.asarray(a) for a in args] + ([] if s0 is None else [jnp.asarray(s0)])
+    ref = jax.grad(loss, argnums=tuple(range(len(jargs))))(*jargs)
+    got = _chunk_grads_torch(args, s0, do, dsf, scale, scalar_gate)
+    assert len(got) == len(ref)
+    for name, a, r in zip(("dq", "dk", "dv", "dg", "ds0"), got, ref):
+        r = np.asarray(r)
+        assert a.shape == r.shape, name
+        assert float(np.abs(a - r).max()) <= 1e-3 * float(np.abs(r).max()), name
+
+
+def test_kernel_takes_is_decided_from_shapes_and_dtypes():
+    """The routing predicate: head key dims 64/128/256, value dims in
+    multiples of 32, f32/bf16 IO and states; int8 states at value widths the
+    int8 kernels are built for. Nothing is launched to decide."""
+    bf, f32 = torch.bfloat16, torch.float32
+    takes = gla_cuda.kernel_takes
+    for dk in (64, 128, 256):
+        assert takes(dk, 64, bf, bf) and takes(dk, 512, f32, f32) and takes(dk, 96, bf, f32)
+    assert not takes(32, 64, f32, f32)      # lina_gla_tiny: head key dim 32
+    assert not takes(48, 64, bf, bf)
+    assert not takes(64, 16, f32, f32)      # Mamba-2 at tiny width: headdim 16
+    assert not takes(64, 64, torch.float16, f32)
+    assert not takes(64, 64, bf, torch.float16)
+    assert takes(256, 512, bf, torch.int8) and not takes(256, 96, bf, torch.int8)
+    assert not takes(64, 64, bf, torch.int8)

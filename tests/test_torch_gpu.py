@@ -300,9 +300,9 @@ def test_chunk_conv_backward_skips_what_needs_no_gradient(cuda):
     gla_cuda.reset_launch_counts()
     o, sf = gla_cuda.gla_chunk_conv(*args, initial_state=s0)
     (g,) = torch.autograd.grad((o ** 2).sum() + (sf ** 2).sum(), [s0])
-    assert gla_cuda.training_launch_shapes() == {
-        "gla_chunk_conv": {(2, 9, torch.float32)},
-        "gla_chunk_conv_bwd": {(2, 9, torch.float32, True, False)}}
+    shapes = gla_cuda.launch_shapes()
+    assert shapes["gla_chunk_conv"] == {(2, 9, torch.float32)}
+    assert shapes["gla_chunk_conv_bwd"] == {(2, 9, torch.float32, True, False)}
     s0p = x["s0"].clone().requires_grad_(True)
     o, sf = gla_cuda.gla_chunk_conv_plain(*args, initial_state=s0p)
     (gp,) = torch.autograd.grad((o ** 2).sum() + (sf ** 2).sum(), [s0p])
@@ -315,14 +315,155 @@ def test_chunk_conv_backward_skips_what_needs_no_gradient(cuda):
     assert after["gla_chunk_conv_bwd"] == before["gla_chunk_conv_bwd"]
 
 
-def test_chunk_without_conv_raises_when_a_gradient_is_asked(cuda):
-    x = _inputs(cuda, 1, 2, 8, 64, 64, torch.bfloat16, torch.bfloat16)
-    q = x["xq"].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 2 row 2"):
-        gla_cuda.gla_chunk(q, x["xk"], x["xv"], x["gk"])
+def _chunk_grads(fn, x, with_s0, scale, seed=5):
+    """o, sf and the gradients of sum(o * do) + sum(sf * dsf) through
+    ``fn`` (gla_chunk or its plain version) w.r.t. q, k, v, gk (and s0)."""
+    names = ("q", "k", "v", "gk") + (("s0",) if with_s0 else ())
+    leaves = {n: x[n].detach().clone().requires_grad_(True) for n in names}
+    o, sf = fn(leaves["q"], leaves["k"], leaves["v"], leaves["gk"],
+               initial_state=leaves.get("s0"), scale=scale)
+    g = torch.Generator(device=o.device).manual_seed(seed)
+    do = torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+    dsf = torch.randn(sf.shape, generator=g, device=o.device).to(sf.dtype)
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf.float()).sum()
+    return o, sf, dict(zip(names, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 70, 256, 256, None), (2, 32, 33, 64, 64, 1.0),
+                                   (1, 2, 130, 128, 96, None)], ids=str)
+def test_chunk_backward_kernel_matches_plain_backward(cuda, io, st, shape):
+    """gla_chunk under autograd runs the forward kernel and the
+    hand-written backward (one launch each), and every gradient (dq, dk, dv,
+    dg, ds0) matches autograd through the plain version, each within a
+    share of its own max|plain|: simple-GLA's head (dk 256, dv 256),
+    Mamba-2's (dk 64, dv 64, scale 1.0) and a ragged one."""
+    b, h, t, dk, dv, scale = shape
+    x = _inputs(cuda, b, h, t, dk, dv, io, st or torch.float32, seed=7)
+    x = dict(q=x["xq"], k=x["xk"], v=x["xv"], gk=x["gk"], s0=x["s0"])
+    before = gla_cuda.launch_counts()
+    o, sf, got = _chunk_grads(gla_cuda.gla_chunk, x, st is not None, scale)
+    after = gla_cuda.launch_counts()
+    assert after["gla_chunk"] == before["gla_chunk"] + 1
+    assert after["gla_chunk_bwd"] == before["gla_chunk_bwd"] + 1
+    o_p, sf_p, ref = _chunk_grads(gla_cuda.gla_chunk_plain, x, st is not None, scale)
+    tol = 1e-4 if io == torch.float32 else 1e-2
+    assert _rel_err(o, o_p) <= tol and _rel_err(sf, sf_p) <= max(tol, 1e-2 * (st == torch.bfloat16))
+    for name, r in ref.items():
+        a = got[name]
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        err = float((a.float() - r.float()).abs().max())
+        share = 2e-2 if io == torch.bfloat16 or st == torch.bfloat16 else 1e-3
+        assert err <= share * float(r.float().abs().max()), (name, err)
+
+
+def test_chunk_backward_notes_shapes_and_skips_ds0(cuda):
+    """Only v requires grad: no ds0 is made, and launch_shapes notes the
+    training forward and backward; under no_grad no backward is launched."""
+    x = _inputs(cuda, 2, 2, 9, 64, 64, torch.float32, torch.float32)
+    v = x["xv"].clone().requires_grad_(True)
+    gla_cuda.reset_launch_counts()
+    o, sf = gla_cuda.gla_chunk(x["xq"], x["xk"], v, x["gk"], initial_state=x["s0"])
+    (g,) = torch.autograd.grad((o ** 2).sum() + (sf ** 2).sum(), [v])
+    shapes = gla_cuda.launch_shapes()
+    assert shapes["gla_chunk"] == {(2, 2, 9, 64, 64, torch.float32, torch.float32, 0.125)}
+    assert shapes["gla_chunk_bwd"] == {(2, 2, 9, 64, 64, torch.float32, torch.float32, 0.125,
+                                        False)}
     with torch.no_grad():
-        o, _ = gla_cuda.gla_chunk(q, x["xk"], x["xv"], x["gk"])
-    assert o.grad_fn is None
+        o, _ = gla_cuda.gla_chunk(x["xq"], x["xk"], v, x["gk"])
+    assert o.grad_fn is None and gla_cuda.launch_counts()["gla_chunk_bwd"] == 1
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 256, 256), (8, 4, 256, 256), (8, 32, 64, 64),
+                                   (3, 2, 128, 96)], ids=str)
+def test_decode_kernel_matches_plain(cuda, io, st, shape):
+    """gla_decode (no convs) against gla_decode_plain: o and the state,
+    updated in place, at simple-GLA's and Mamba-2's heads."""
+    b, h, dk, dv = shape
+    x = _inputs(cuda, b, h, 1, dk, dv, io, st)
+    q, k, v, gk = (x[n][:, :, 0].contiguous() for n in ("xq", "xk", "xv", "gk"))
+    s = x["s0"]
+    o_p, s_p = gla_cuda.gla_decode_plain(q, k, v, gk, s)
+    s_k = s.clone()
+    o_k, s_out = gla_cuda.gla_decode(q, k, v, gk, s_k)
+    assert s_out.data_ptr() == s_k.data_ptr()
+    tol = 1e-4 if io == st == torch.float32 else 1e-2
+    assert _rel_err(o_k, o_p) <= tol and _rel_err(s_out, s_p) <= tol
+
+
+def _variant_cfg(**backbone):
+    from lina_speech_tpu_torch.config import lina_gla_tiny
+
+    cfg = lina_gla_tiny()
+    return dataclasses.replace(cfg, d_model=256, backbone=dataclasses.replace(
+        cfg.backbone, d_model=256, heads=4, **backbone),
+        text_encoder=dataclasses.replace(cfg.text_encoder, dim=256))
+
+
+def test_simple_gla_kernel_path_matches_plain_path(cuda):
+    """Simple-GLA without convs at heads the kernels take (dk 64, dv 64), in
+    f32: greedy tokens of the kernel path (gla_chunk for the prefill,
+    gla_decode for every token) equal the plain path's, and the training
+    forward's parameter gradients (gla_chunk's backward) match."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+
+    cfg = _variant_cfg(kind="simple_gla", use_short_conv=False)
+    text = torch.randint(3, 256, (3, 9), generator=torch.Generator().manual_seed(0)).to(cuda)
+    batch = batch_to_device(next(synthetic_tts_batches(
+        batch_size=2, n_codebook=50, min_audio_len=16, max_audio_len=24)), cuda)
+    tokens, grads = {}, {}
+    model = build_model(cfg, device=cuda, seed=3)
+    n_layers = len(model.attentive_rnn.gla_layers())
+    for mode in ("auto", "chunk"):
+        model.set_kernel_mode(mode)
+        gla_cuda.reset_launch_counts()
+        res = generate_batch(model, text, max_seqlen=20, first_greedy_quant=0,
+                             force_max_seqlen=True)
+        model.zero_grad(set_to_none=True)
+        model(batch["text_token"], batch["audio_token"], batch["encoder_mask"],
+              batch["crossatt_mask"], logits_mask=batch["y_mask"])[1].backward()
+        counts = gla_cuda.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if mode == "auto":
+            want.update(gla_chunk=2 * n_layers, gla_decode=n_layers * 19, gla_chunk_bwd=n_layers)
+        assert counts == want
+        tokens[mode] = res.tokens.cpu()
+        grads[mode] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert torch.equal(tokens["auto"], tokens["chunk"])
+    for name, r in grads["chunk"].items():
+        err = float((grads["auto"][name] - r).abs().max())
+        assert err <= 1e-3 * float(r.abs().max()) + 1e-6, name
+
+
+def test_tiny_config_trains_and_generates_on_the_card(cuda):
+    """F1: lina_gla_tiny's heads (key dim 32) are not the kernels'; under
+    kernel_mode="auto" every GLA layer routes to the plain versions before
+    any launch (no kernel is launched), and a train step and a generate run
+    on the card."""
+    from lina_speech_tpu_torch.config import build_model, lina_gla_tiny
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.train.harness import (
+        TrainConfig, batch_to_device, create_train_state, make_train_step,
+    )
+
+    model = build_model(lina_gla_tiny(), device=cuda)
+    gla_cuda.reset_launch_counts()
+    batch = batch_to_device(next(synthetic_tts_batches(
+        batch_size=2, n_codebook=50, min_audio_len=8, max_audio_len=16)), cuda)
+    state = create_train_state(model, TrainConfig(n_warmup_steps=1, n_training_steps=4))
+    state, metrics = make_train_step(model)(state, batch)
+    res = generate_batch(model, batch["text_token"], max_seqlen=10, k=5,
+                         generator=torch.Generator(device=cuda).manual_seed(0),
+                         force_max_seqlen=True)
+    assert torch.isfinite(metrics["loss"]) and res.tokens.shape == (1, 2, 10)
+    assert gla_cuda.launch_counts() == dict.fromkeys(gla_cuda.launch_counts(), 0)
 
 
 # ------------------------------------------------------ quantized serving

@@ -5,8 +5,10 @@ import of them fail), imports every module of the port (``train/``,
 ``data/`` and ``models/accuracy.py`` among them), runs a tiny
 ``generate_batch``, a server (both also with int8 weights and int8
 lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``), one train
-step, one S0 tuning step and ``examples/train_torch.py``; it then checks
-that no jax/flax module and nothing of ``lina_speech_tpu`` was loaded.
+step, one S0 tuning step, ``examples/train_torch.py``, and a generate and a
+train step of the simple-GLA (no convs) and Mamba-2 backbones
+(``models/simple_gla.py``, ``models/mamba.py``); it then checks that no
+jax/flax module and nothing of ``lina_speech_tpu`` was loaded.
 """
 import os
 import subprocess
@@ -66,6 +68,20 @@ spec.loader.exec_module(example)
 sys.argv = ["train_torch.py", "--cpu", "--steps", "1", "--batch", "2", "--min-len", "8",
             "--max-len", "8"]
 example.main()
+# the GLA-family variants: simple-GLA without convs and Mamba-2
+import dataclasses
+for name in ("lina_speech_tpu_torch.models.simple_gla", "lina_speech_tpu_torch.models.mamba"):
+    assert name in sys.modules, name
+for kw in (dict(kind="simple_gla", use_short_conv=False), dict(kind="mamba2")):
+    cfg = lina_gla_tiny()
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, **kw))
+    variant = build_model(cfg, device="cpu")
+    res = generate_batch(variant, torch.randint(3, 256, (2, 5)), max_seqlen=7, k=1,
+                         force_max_seqlen=True)
+    assert res.tokens.shape == (1, 2, 7)
+    state = create_train_state(variant, TrainConfig(n_warmup_steps=1, n_training_steps=4))
+    state, metrics = make_train_step(variant)(state, batch)
+    assert state.step == 1 and float(metrics["grad_norm"]) > 0
 assert not any(m.split(".")[0] == "lina_speech_tpu" for m in sys.modules)
 post = {m for m in sys.modules
         if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None}
@@ -83,8 +99,9 @@ def test_port_imports_no_jax():
 
 
 def test_sources_import_no_jax():
-    """Every module of the port (``utils/quantize.py`` and ``ops/qlinear.py``
-    among them), ``chip_smoke.py`` and the port's examples, read as source:
+    """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
+    ``models/mamba.py`` and ``models/simple_gla.py`` among them),
+    ``chip_smoke.py`` and the port's examples, read as source:
     no import statement names jax, flax or the JAX package."""
     import ast
     import glob
@@ -95,6 +112,8 @@ def test_sources_import_no_jax():
     files += glob.glob(os.path.join(root, "examples", "*_torch.py"))
     names = {os.path.relpath(f, root) for f in files}
     for must in ("lina_speech_tpu_torch/utils/quantize.py", "lina_speech_tpu_torch/ops/qlinear.py",
+                 "lina_speech_tpu_torch/models/mamba.py",
+                 "lina_speech_tpu_torch/models/simple_gla.py",
                  "chip_smoke.py", "examples/serve_torch.py"):
         assert must in names, must
     banned = ("jax", "flax", "lina_speech_tpu")
