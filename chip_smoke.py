@@ -75,6 +75,28 @@ Between phases 5 and 6, on the flagship of phase 4, quantized serving:
    server with int8_prefill_full_precision=False (the float weights leave
    the model) serves 4; every shape those runs gave int8_linear and
    fused_ffn_int8 is held against the plain version, or the phase fails.
+After phase 9, the GLA layers without per-projection convs:
+10. gla_chunk's backward and gla_decode against their plain versions;
+   simple-GLA, Mamba-2, the interleaved and the PP backbones at the
+   flagship's width through their paths; every shape launched held;
+then RWKV6:
+11. RWKV6 kernel phase: rwkv6_chunk, its hand-written backward and
+   rwkv6_decode against their plain versions at h4 dk256 dv256 (bf16 IO,
+   f32 w and u): the forward at b8 t151, b1 t128 and b1 t1 with an f32 and
+   with no initial state, forward and backward at b8 t512 with and without
+   one (dr, dk, dv, dw, du, ds0), the decode token at b1, b8 and b64 with
+   f32 and bf16 states on cold states; every time beside its bound;
+12. RWKV6 phase: kind="rwkv6" at the flagship's width (291,117,378
+   parameters, random weights from seed 0 with u, the ddlerp mixes and the
+   decays drawn off their constant inits; bf16 compute, f32 states):
+   generate_batch for the 8 requests of phase 4 (classic loop), the kernel
+   path held against the plain path under teacher forcing (logits, s and
+   shift of every layer), a DecodeServer in classic mode (8 requests, 8
+   slots) and three train steps at b8, the kernel path's loss and
+   gradients held against the plain path's on a batch of 2; launch counts
+   25 rwkv6_decode per token, 25 rwkv6_chunk and 25 rwkv6_chunk_bwd per
+   micro-batch; then every shape those runs launched the three kernels on
+   is held against the plain versions.
 Each main-path run starts with the launch counts at 0 and reads them right
 after. The line before the last is a JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -189,7 +211,13 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("int8_linear", "lina_speech_tpu_torch/csrc/int8_linear.cu",
      "lina_speech_tpu/ops/qlinear.py:127"),
     ("fused_ffn_int8", "lina_speech_tpu_torch/csrc/fused_ffn_int8.cu",
-     "lina_speech_tpu/ops/qlinear.py:241"))
+     "lina_speech_tpu/ops/qlinear.py:241"),
+    ("rwkv6_chunk", "lina_speech_tpu_torch/csrc/rwkv6_chunk.cu",
+     "lina_speech_tpu/ops/rwkv6_pallas.py:565"),
+    ("rwkv6_chunk_bwd", "lina_speech_tpu_torch/csrc/rwkv6_chunk_bwd.cu",
+     "lina_speech_tpu/ops/rwkv6_pallas.py:137"),
+    ("rwkv6_decode", "lina_speech_tpu_torch/csrc/rwkv6_decode.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:1728"))
 # times at further shapes than a kernel's row of the summary, each with its
 # bound: {kernel name: [{shape, ms, plain_ms, bound_ms, bound_by}, ...]}
 OTHER_SHAPES = {}
@@ -208,28 +236,53 @@ INTERLEAVED_LAYERS, SHORT_STEPS, SHORT_BATCH = (5, 11), 16, 2
 # (ops/gla_cuda.py:launch_shapes), and the last phase holds the rest.
 CHUNK_HELD, CHUNK_BWD_HELD, DECODE_HELD = set(), set(), set()
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode": set()}
+# RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
+# blind pos_net, 4 heads of dk 256 and dv 256, bf16 IO, f32 w and u, f32
+# states), with the parameters that initialize to constants (the bonus u, the
+# ddlerp mixes, the decays) drawn from seed 0 (models/rwkv6.py:perturb_rwkv6_params_)
+RWKV6_HEAD = (4, 256, 256)
+N_RWKV6_PARAMS = 291_117_378
+VARIANT_TRAIN_STEPS["rwkv6"] = 3
+# RWKV6's teacher-forced logits and state leaves in bf16, kernel path vs plain
+# path: the plain chunked form rounds its matmul operands to bf16 (the
+# intra-chunk scores, the state at every chunk boundary: the JAX package's
+# rounding points) where the kernels keep f32, so o parts by ~0.4% in every
+# layer and the ddlerp and the per-head norm carry it through 25 layers (an
+# H100 read 6.2e-2 of the logits' max). Held loosely here, as a net for a
+# wrong state or a wrong token; the same comparison on the model built in f32
+# compute holds the path to TOL_F32, and layer 0's state to TOL_BF16 in bf16.
+TOL_RWKV6_PATH = 2.5e-1
+# what the RWKV6 kernels were held against their plain versions at, and what
+# the driven paths launched them on (ops/rwkv6_cuda.py:launch_shapes keys)
+RWKV6_HELD = {"rwkv6_chunk": set(), "rwkv6_chunk_bwd": set(), "rwkv6_decode": set()}
+RWKV6_LAUNCHED = {"rwkv6_chunk": set(), "rwkv6_chunk_bwd": set(), "rwkv6_decode": set()}
 
 
 def reset_counts():
-    from lina_speech_tpu_torch.ops import gla_cuda, qlinear
+    from lina_speech_tpu_torch.ops import gla_cuda, qlinear, rwkv6_cuda
 
     gla_cuda.reset_launch_counts()
     qlinear.reset_launch_counts()
+    rwkv6_cuda.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Every wrapper's launch count; the lazy step's launches on an int8
     state are counted a second time under a name of their own. Also notes,
-    in Q_LAUNCHED and GLA_LAUNCHED, the shapes the int8 products, gla_chunk,
-    its backward and gla_decode were launched on since the last reset."""
-    from lina_speech_tpu_torch.ops import gla_cuda, qlinear
+    in Q_LAUNCHED, GLA_LAUNCHED and RWKV6_LAUNCHED, the shapes the int8
+    products, gla_chunk, its backward, gla_decode and the three RWKV6
+    kernels were launched on since the last reset."""
+    from lina_speech_tpu_torch.ops import gla_cuda, qlinear, rwkv6_cuda
 
     for name, shapes in qlinear.launch_shapes().items():
         Q_LAUNCHED[name] |= shapes
     for name, shapes in gla_cuda.launch_shapes().items():
         if name in GLA_LAUNCHED:
             GLA_LAUNCHED[name] |= shapes
+    for name, shapes in rwkv6_cuda.launch_shapes().items():
+        RWKV6_LAUNCHED[name] |= shapes
     return {**gla_cuda.launch_counts(), **qlinear.launch_counts(),
+            **rwkv6_cuda.launch_counts(),
             "gla_decode_lazy_conv_int8": gla_cuda.gla_decode_lazy_conv.q_launches}
 
 
@@ -335,6 +388,11 @@ def ptxas_summary(log: str):
              ("gla_fold_q_kernelI13__nv_bfloat16Li16E", "gla_fold_q<bf16, dv 512>"),
              ("gla_decode_lazy_conv_kernelI13__nv_bfloat16aLi256E",
               "gla_decode_lazy_conv<bf16, int8, 256>"))
+    # the RWKV6 kernels' bf16-IO, f32-state instantiations (dk 256)
+    rwkv6 = (("rwkv6_chunk_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk"),
+             ("rwkv6_bwd_dr_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dr sweep"),
+             ("rwkv6_bwd_dkv_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dk/dv sweep"),
+             ("rwkv6_decode_kernelI13__nv_bfloat16fLi256E", "rwkv6_decode"))
     name, out = "", []
     for line in log.splitlines():
         if "entry function" in line or "Function properties for" in line:
@@ -343,7 +401,7 @@ def ptxas_summary(log: str):
         if not ("registers" in line or "spill" in line):
             continue
         info = line.split(":", 1)[-1].strip()
-        if re.search(r"I13__nv_bfloat16S\d*_Li256E", name):
+        if re.search(r"I13__nv_bfloat16S\d*_Li256E", name) and "rwkv6" not in name:
             kernel = next((label for keys, label in labels
                            if all(key in name for key in keys)), name)
             out.append(f"{kernel}<bf16, bf16, 256>: {info}")
@@ -351,6 +409,7 @@ def ptxas_summary(log: str):
             if key in name and re.search(r"Li(1|8|16|256)E", name):
                 tile = re.search(r"Li(\d+)E", name).group(1)
                 out.append(f"{label} (tile {tile}): {info}")
+        out += [f"{label}<bf16, f32, 256>: {info}" for key, label in rwkv6 if key in name]
     return out
 
 
@@ -1819,12 +1878,14 @@ def model_grads(torch, model, batch):
 
 
 def training_phase(torch, np, gla_cuda, card_line, cfg=None, fwd="gla_chunk_conv",
-                   bwd="gla_chunk_conv_bwd", n_steps=TRAIN_STEPS):
+                   bwd="gla_chunk_conv_bwd", n_steps=TRAIN_STEPS, prepare=None):
     """A backbone at the flagship's width trains: ``n_steps`` optimizer
     steps at b8, the last with two micro-batches, then the kernel path
     against the plain path on a batch of 2 (the plain version's autograd
-    saves several GB per layer at b8). ``cfg`` None is the flagship; its GLA
-    layers train through ``fwd`` and its backward ``bwd``."""
+    saves several GB per layer at b8). ``cfg`` None is the flagship; its
+    recurrent layers train through ``fwd`` and its backward ``bwd``.
+    ``prepare(model)``, if given, runs on every model built here, right
+    after build_model."""
     from lina_speech_tpu_torch.config import build_model, lina_gla_169m
     from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
     from lina_speech_tpu_torch.train.harness import (
@@ -1833,7 +1894,9 @@ def training_phase(torch, np, gla_cuda, card_line, cfg=None, fwd="gla_chunk_conv
 
     flagship = cfg is None
     cfg = lina_gla_169m(compute_dtype="bfloat16") if flagship else cfg
+    prepare = prepare or (lambda m: None)
     model = build_model(cfg, device=DEVICE, seed=0)
+    prepare(model)
     n_params = sum(p.numel() for p in model.parameters())
     require(not flagship or n_params == N_PARAMS, f"{n_params} parameters, expected {N_PARAMS}")
     require(all(p.dtype == torch.float32 for p in model.parameters()), "parameters not f32")
@@ -1894,8 +1957,12 @@ def training_phase(torch, np, gla_cuda, card_line, cfg=None, fwd="gla_chunk_conv
     # of small leaves (an H100 read 0.51 on a pos_net leaf of 1.3e-7); the
     # bf16 instantiations are held at the kernel's own level
     model.eval()
-    check_model = model if flagship else build_model(
-        dataclasses.replace(cfg, compute_dtype="float32"), device=DEVICE, seed=0)
+    if flagship:
+        check_model = model
+    else:
+        check_model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                                  device=DEVICE, seed=0)
+        prepare(check_model)
     small = batch_to_device(next(synthetic_tts_batches(
         batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
         max_audio_len=MAX_AUDIO, seed=1)), DEVICE)
@@ -2186,60 +2253,21 @@ def variant_cfg(kind, **backbone):
                                                                   **backbone))
 
 
-def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy):
-    """generate_batch at the flagship's width for a backbone whose layers
-    run gla_chunk and gla_decode: 8 requests (32 text tokens, a 150-code
-    prompt, top-k 100, 200 steps) with the classic loop and, with ``lazy``,
-    greedy in lazy windows of 16 (the plain lazy step, the gla_fold kernel);
-    launch counts; then the prefill and 16 decode steps teacher-forced
-    through the kernel path and the plain path: logits and every state leaf
-    of the two, each within a share of its own magnitude."""
-    from lina_speech_tpu_torch.generate import generate_batch
-
-    kind = cfg.backbone.kind
-    rng = np.random.default_rng(0)
-    text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab, size=(BATCH, TEXT_LEN))).to(DEVICE)
-    prompt = torch.from_numpy(rng.integers(0, cfg.n_codebook, size=(1, BATCH, T_PROMPT))).to(DEVICE)
+def teacher_forced_check(torch, model, cfg, text, prompt, tokens, card_line, tol):
+    """The prefill of ``prompt`` and 16 decode steps that follow ``tokens``
+    (a generate_batch result), teacher-forced through the kernel path and
+    the plain path: logits within ``tol[0]`` of max(1, max|plain|), layer
+    0's state (the same input on both paths) within ``tol[1]`` and every
+    state leaf within ``tol[2]`` of its own max|plain|; times of both."""
+    live = ("h", "conv") if cfg.backbone.kind == "mamba2" else ("s",)
     n_pre = T_PROMPT + 1
-    steps = MAX_SEQLEN - n_pre
-    total = dict.fromkeys(read_counts(), 0)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = generate_batch(model, text, torch.Generator(device=DEVICE).manual_seed(0),
-                         prompt=prompt, max_seqlen=MAX_SEQLEN, k=TOPK, force_max_seqlen=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    print(f"{kind} generate_batch: {BATCH} requests, {res.n_steps} steps ({steps} decoded), "
-          f"{wall:.3f} s wall [{card_line}]")
-    print(f"launches: {launches}")
-    expect_launches(launches, gla_chunk=N_GLA_LAYERS, gla_decode=N_GLA_LAYERS * steps)
-    require(res.tokens.shape == (cfg.n_quant, BATCH, MAX_SEQLEN) and int(res.tokens.min()) >= 0
-            and int(res.tokens.max()) < model.n_target_vocab, "tokens out of range")
-    add_launches(total, launches)
-    if lazy:
-        windows = -(-steps // WINDOW)
-        reset_counts()
-        t0 = time.perf_counter()
-        res_l = generate_batch(model, text, prompt=prompt, max_seqlen=MAX_SEQLEN, k=1,
-                               force_max_seqlen=True, lazy_window=WINDOW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        print(f"{kind} generate_batch(lazy_window={WINDOW}): {BATCH} requests, {windows} "
-              f"windows, {wall:.3f} s wall [{card_line}]; launches {launches}")
-        expect_launches(launches, gla_chunk=N_GLA_LAYERS, gla_fold=N_GLA_LAYERS * windows)
-        require(int(res_l.tokens.min()) >= 0 and int(res_l.tokens.max()) < model.n_target_vocab,
-                "lazy tokens out of range")
-        add_launches(total, launches)
-
-    live = ("h", "conv") if kind == "mamba2" else ("s",)
+    kind = f"{cfg.backbone.kind} ({str(model.dtype).split('.')[-1]} compute)"
+    tol_logits, tol_first, tol_state = tol
     with torch.no_grad(), model.using_params(model.cast_param_copies()):
         x_enc = model.encode_text(text)
         start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
         forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
-        follow = model.embed_tokens(res.tokens[:, :, n_pre:n_pre + TF_STEPS])
+        follow = model.embed_tokens(tokens[:, :, n_pre:n_pre + TF_STEPS])
         runs = {}
         for mode in ("auto", "chunk", "chunk", "auto"):
             set_kernel_mode(model, mode)
@@ -2263,7 +2291,7 @@ def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy):
         set_kernel_mode(model, "auto")
     ref = runs["chunk"]["logits"]
     print(f"{kind} teacher-forced logits (prefill + {TF_STEPS} steps), kernel vs plain path:")
-    check("logits", max_err(runs["auto"]["logits"], ref), bound(ref, TOL_LOGITS))
+    check("logits", max_err(runs["auto"]["logits"], ref), bound(ref, tol_logits))
     # the first layer reads the same embeddings on both paths: its state is
     # the kernels' own difference; deeper layers add the bf16 steps by which
     # the paths' hidden streams part (an H100 reads 1e-2 of a leaf's max at
@@ -2272,20 +2300,80 @@ def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy):
     field = live[0]
     first = [getattr(runs[m]["state"].layers[0], field) for m in ("auto", "chunk")]
     print(f"{kind} layer 0 {field} (the same input on both paths), kernel vs plain path:")
-    check(field, max_err(*first), TOL_BF16 * float(first[1].float().abs().max()))
+    check(field, max_err(*first), tol_first * float(first[1].float().abs().max()))
     check_states(f"{kind} states after prefill + {TF_STEPS} steps, kernel path vs plain path",
-                 runs["auto"]["state"], runs["chunk"]["state"], TOL_STATE, live=live)
+                 runs["auto"]["state"], runs["chunk"]["state"], tol_state, live=live)
     for mode, name in (("auto", "kernel"), ("chunk", "plain")):
         r = runs[mode]
         print(f"{kind} {name} path: prefill b{BATCH} t{n_pre} {r['pre']} ms, decode "
               f"{r['dec']} ms/token (b{BATCH}, host clock) [{card_line}]")
+
+
+def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy,
+                           chunk="gla_chunk", decode="gla_decode",
+                           tol_path=(TOL_LOGITS, TOL_BF16, TOL_STATE), f32_copy=None):
+    """generate_batch at the flagship's width for a backbone whose layers
+    run the prefill kernel ``chunk`` and the decode kernel ``decode``
+    (gla_chunk and gla_decode, or RWKV6's two): 8 requests (32 text tokens, a 150-code
+    prompt, top-k 100, 200 steps) with the classic loop and, with ``lazy``,
+    greedy in lazy windows of 16 (the plain lazy step, the gla_fold kernel);
+    launch counts; then the prefill and 16 decode steps teacher-forced
+    through the kernel path and the plain path: logits and every state leaf
+    of the two, each within a share of its own magnitude (``tol_path``, as
+    :func:`teacher_forced_check`), and the same on ``f32_copy`` (the model
+    built in f32 compute), if given, within TOL_F32."""
+    from lina_speech_tpu_torch.generate import generate_batch
+
+    kind = cfg.backbone.kind
+    rng = np.random.default_rng(0)
+    text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab, size=(BATCH, TEXT_LEN))).to(DEVICE)
+    prompt = torch.from_numpy(rng.integers(0, cfg.n_codebook, size=(1, BATCH, T_PROMPT))).to(DEVICE)
+    n_pre = T_PROMPT + 1
+    steps = MAX_SEQLEN - n_pre
+    total = dict.fromkeys(read_counts(), 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = generate_batch(model, text, torch.Generator(device=DEVICE).manual_seed(0),
+                         prompt=prompt, max_seqlen=MAX_SEQLEN, k=TOPK, force_max_seqlen=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"{kind} generate_batch: {BATCH} requests, {res.n_steps} steps ({steps} decoded), "
+          f"{wall:.3f} s wall [{card_line}]")
+    print(f"launches: {launches}")
+    expect_launches(launches, **{chunk: N_GLA_LAYERS, decode: N_GLA_LAYERS * steps})
+    require(res.tokens.shape == (cfg.n_quant, BATCH, MAX_SEQLEN) and int(res.tokens.min()) >= 0
+            and int(res.tokens.max()) < model.n_target_vocab, "tokens out of range")
+    add_launches(total, launches)
+    if lazy:
+        windows = -(-steps // WINDOW)
+        reset_counts()
+        t0 = time.perf_counter()
+        res_l = generate_batch(model, text, prompt=prompt, max_seqlen=MAX_SEQLEN, k=1,
+                               force_max_seqlen=True, lazy_window=WINDOW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"{kind} generate_batch(lazy_window={WINDOW}): {BATCH} requests, {windows} "
+              f"windows, {wall:.3f} s wall [{card_line}]; launches {launches}")
+        expect_launches(launches, gla_chunk=N_GLA_LAYERS, gla_fold=N_GLA_LAYERS * windows)
+        require(int(res_l.tokens.min()) >= 0 and int(res_l.tokens.max()) < model.n_target_vocab,
+                "lazy tokens out of range")
+        add_launches(total, launches)
+
+    teacher_forced_check(torch, model, cfg, text, prompt, res.tokens, card_line, tol_path)
+    if f32_copy is not None:
+        teacher_forced_check(torch, f32_copy, cfg, text, prompt, res.tokens, card_line,
+                             (TOL_F32,) * 3)
     return total
 
 
-def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line):
-    """DecodeServer on simple-GLA without convs: 8 requests through 8
-    slots in classic mode (prefill chunks all on gla_chunk, tokens on
-    gla_decode), launch counts against the formula."""
+def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, chunk="gla_chunk",
+                          decode="gla_decode"):
+    """DecodeServer on simple-GLA without convs (or RWKV6): 8 requests
+    through 8 slots in classic mode (prefill chunks all on ``chunk``, tokens
+    on ``decode``), launch counts against the formula."""
     from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
 
     reqs = serving_requests(np, cfg)[:SERVE_CLASSIC_REQUESTS]
@@ -2302,8 +2390,8 @@ def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line):
           f"{wall:.3f} s wall [{card_line}]")
     print(f"launches: {launches}")
     n_prefill = sum(len(_pow2_chunks(1 + (0 if p is None else p.shape[1]))) for _, p, _ in reqs)
-    expect_launches(launches, gla_chunk=N_GLA_LAYERS * n_prefill,
-                    gla_decode=N_GLA_LAYERS * WINDOW * n_chunks)
+    expect_launches(launches, **{chunk: N_GLA_LAYERS * n_prefill,
+                                 decode: N_GLA_LAYERS * WINDOW * n_chunks})
     for (_, _, max_len), c in zip(reqs, (done[r] for r in sorted(done))):
         require(c.tokens.shape == (c.length, cfg.n_quant) and c.length <= max_len
                 and (c.stopped or c.length == max_len), f"request {c.rid}: length {c.length}")
@@ -2451,6 +2539,275 @@ def launched_gla_shapes_phase(torch, gla_cuda):
             and GLA_LAUNCHED["gla_decode"] <= DECODE_HELD, "launched but not held")
 
 
+# ------------------------------------------------------------------- RWKV6
+RWKV6_LEAVES = ("r", "k", "v", "w", "u", "s0")
+
+
+def dtype_name(dt) -> str:
+    return "none" if dt is None else str(dt).split(".")[-1]
+
+
+def rwkv6_inputs(torch, b, h, t, dk, dv, io, st, seed):
+    """r, k, v in the IO dtype; f32 log-decays spread as a trained RWKV6
+    layer's (-exp(N(-2, 0.5))) with hard resets (-20, a packed batch's
+    segment starts) at 5% of the steps; an f32 bonus u ~ N(0, 0.5); an
+    initial state of dtype ``st`` (None: none). A decode token takes step 0."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    w = -torch.exp(r(b, h, t, dk) * 0.5 - 2.0)
+    w = torch.where(torch.rand(b, 1, t, 1, generator=g, device=DEVICE) < 0.05, -20.0, w)
+    return dict(r=r(b, h, t, dk).to(io), k=r(b, h, t, dk).to(io), v=r(b, h, t, dv).to(io),
+                w=w.contiguous(), u=r(h, dk) * 0.5,
+                s0=None if st is None else r(b, h, dk, dv).to(st))
+
+
+def rwkv6_flops(b, h, t, dk, dv, backward=False):
+    """Operations of the RWKV6 recurrence over t tokens: per token and head
+    a decay, a rank-1 update and a readout of the (dk x dv) state (5 dk dv)
+    and the bonus (u k, r . u k and its share of v: 3 dk + 2 dv); the
+    backward adds the dS update, its decay, dk and dv (7 dk dv) to the
+    recomputation, and the bonus's gradients."""
+    per = (12 if backward else 5) * dk * dv + (2 if backward else 1) * (3 * dk + 2 * dv)
+    return b * h * t * per
+
+
+def rwkv6_grads(torch, fn, x, do, dsf, need_ds0):
+    """(o, sf, gradients) of sum(o * do) + sum(sf * dsf) through ``fn``
+    (rwkv6_chunk or its plain version) w.r.t. r, k, v, w, u, and s0 where
+    there is one and ``need_ds0``."""
+    names = list(RWKV6_LEAVES[:5]) + (["s0"] if x["s0"] is not None and need_ds0 else [])
+    args = {n: x[n] if n not in names else x[n].detach().clone().requires_grad_(True)
+            for n in RWKV6_LEAVES}
+    o, sf = fn(*(args[n] for n in RWKV6_LEAVES[:5]), initial_state=args["s0"])
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf.float()).sum()
+    grads = torch.autograd.grad(loss, [args[n] for n in names])
+    return o.detach(), sf.detach(), dict(zip(names, grads))
+
+
+def hold_rwkv6_chunk(torch, rwkv6_cuda, shape, need_ds0=None):
+    """rwkv6_chunk at ``shape`` = (b, h, t, dk, dv, IO dtype, initial-state
+    dtype or None) against its plain version: with ``need_ds0`` None the
+    inference forward (o, final state); otherwise as training calls it
+    (autograd recording: the forward kernel and the hand-written backward)
+    against autograd through the plain version, o, the final state and
+    every gradient leaf (dr, dk, dv, dw, du, and ds0 where wanted), each
+    within a share of its own max|plain|, finite and non-zero. Returns
+    (inputs, do, dsf, gradients, worst gradient share); the last four None
+    for the inference forward."""
+    b, h, t, dk, dv, io, st = shape
+    x = rwkv6_inputs(torch, b, h, t, dk, dv, io, st, seed=700 + t + b)
+    name = (f"rwkv6_chunk b{b} {head_name(h, dk, dv)} t{t} IO {dtype_name(io)} "
+            f"initial state {dtype_name(st)}")
+    tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
+    tol_s = TOL_BF16 if torch.bfloat16 in (io, st) else TOL_F32
+    args = tuple(x[n] for n in RWKV6_LEAVES[:5])
+    before = rwkv6_cuda.launch_counts()
+    result = (x, None, None, None, None)
+    if need_ds0 is None:
+        with torch.no_grad():
+            o_k, s_k = rwkv6_cuda.rwkv6_chunk(*args, initial_state=x["s0"])
+            o_p, s_p = rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"])
+    else:
+        g = torch.Generator(device=DEVICE).manual_seed(t)
+        do = torch.randn(b, h, t, dv, generator=g, device=DEVICE).to(io)
+        dsf = torch.randn(b, h, dk, dv, generator=g, device=DEVICE).to(st or torch.float32)
+        o_k, s_k, got = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk, x, do, dsf, need_ds0)
+        o_p, s_p, ref = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, need_ds0)
+        name += "" if need_ds0 or st is None else ", no ds0"
+    after = rwkv6_cuda.launch_counts()
+    torch.cuda.synchronize()
+    require(after["rwkv6_chunk"] == before["rwkv6_chunk"] + 1
+            and after["rwkv6_chunk_bwd"] == before["rwkv6_chunk_bwd"] + (need_ds0 is not None),
+            f"{name}: not launched through the kernels")
+    print(f"{name}, forward:")
+    require(o_k.dtype == io and s_k.dtype == (st or torch.float32), "rwkv6_chunk output dtypes")
+    check("o", max_err(o_k, o_p), bound(o_p, tol))
+    check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
+    RWKV6_HELD["rwkv6_chunk"].add(shape)
+    if need_ds0 is not None:
+        worst = check_grads(f"{name}, backward", got, ref,
+                            TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32)
+        RWKV6_HELD["rwkv6_chunk_bwd"].add((*shape, need_ds0 and st is not None))
+        result = (x, do, dsf, got, worst)
+    return result
+
+
+def hold_rwkv6_decode(torch, rwkv6_cuda, shape, summary=None, timed=False):
+    """rwkv6_decode at ``shape`` = (b, h, dk, dv, IO dtype, state dtype)
+    against rwkv6_decode_plain: o and the state, updated in place.
+    ``timed``: kernel and plain on a rotation of cold states (100 MB),
+    beside the bound; into the summary at ``summary``'s shape, else a
+    further shape."""
+    b, h, dk, dv, io, st = shape
+    x = rwkv6_inputs(torch, b, h, 1, dk, dv, io, st, seed=800 + b)
+    tok = tuple(x[n][:, :, 0].contiguous() for n in ("r", "k", "v", "w"))
+    u, s = x["u"], x["s0"]
+    before = rwkv6_cuda.launch_counts()["rwkv6_decode"]
+    o_p, s_p = rwkv6_cuda.rwkv6_decode_plain(*tok, u, s)
+    s_in = s.clone()
+    o_k, s_k = rwkv6_cuda.rwkv6_decode(*tok, u, s_in)
+    torch.cuda.synchronize()
+    require(rwkv6_cuda.launch_counts()["rwkv6_decode"] == before + 1, "rwkv6_decode not launched")
+    require(s_k.data_ptr() == s_in.data_ptr() and s_k.dtype == st, "state not updated in place")
+    tag = f"b{b} {head_name(h, dk, dv)} IO {dtype_name(io)} state {dtype_name(st)}"
+    print(f"rwkv6_decode {tag}:")
+    err_o = max_err(o_k, o_p)
+    check("o", err_o, bound(o_p, TOL_BF16 if io == torch.bfloat16 else TOL_F32))
+    check("state", max_err(s_k, s_p), bound(s_p, TOL_BF16 if torch.bfloat16 in (io, st)
+                                                  else TOL_F32))
+    RWKV6_HELD["rwkv6_decode"].add(shape)
+    if not timed:
+        return
+    states = cold_pool(s_p)
+    ms, plain_ms = timed_pair(f"rwkv6_decode {tag}",
+                              lambda: rwkv6_cuda.rwkv6_decode(*tok, u, states()),
+                              lambda: rwkv6_cuda.rwkv6_decode_plain(*tok, u, states()), 50)
+    work = (nbytes(*tok, u, s, s, o_k), rwkv6_flops(b, h, 1, dk, dv), io)
+    if summary is not None:
+        record(summary, "rwkv6_decode", err_o, ms, plain_ms, *work)
+    else:
+        note_shape("rwkv6_decode", tag, ms, plain_ms, *work)
+
+
+def rwkv6_kernel_phase(torch, rwkv6_cuda, summary):
+    """The three RWKV6 kernels against their plain versions at the
+    flagship-width RWKV6 heads (h4 dk256 dv256, bf16 IO, f32 w and u):
+    the forward at b8 t151 (generate's prefill), b1 t128 and b1 t1 (server
+    prefill chunks), with an f32 and with no initial state; forward and
+    backward at b8 t512 (training) with and without one, all six gradient
+    leaves; the decode token at b1, b8 and b64 with f32 and bf16 states on
+    cold states. Every time beside its bound. The summary takes the forward
+    at b8 t151 with an f32 state (what generate launches), the backward at
+    b8 t512 without one (what training launches) and the decode token at b8
+    with an f32 state."""
+    bf, f32 = torch.bfloat16, torch.float32
+    h, dk, dv = RWKV6_HEAD
+    for b, t in ((BATCH, T_PROMPT + 1), (1, 128), (1, 1)):
+        for st in (f32, None):
+            shape = (b, h, t, dk, dv, bf, st)
+            x = hold_rwkv6_chunk(torch, rwkv6_cuda, shape)[0]
+            args = tuple(x[n] for n in RWKV6_LEAVES[:5])
+            with torch.no_grad():
+                ms, plain_ms = timed_pair(
+                    f"rwkv6_chunk b{b} t{t} initial state {dtype_name(st)}",
+                    lambda: rwkv6_cuda.rwkv6_chunk(*args, initial_state=x["s0"]),
+                    lambda: rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"]), 5)
+                o_k, s_k = rwkv6_cuda.rwkv6_chunk(*args, initial_state=x["s0"])
+                o_p = rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"])[0]
+            work = (nbytes(*args, x["s0"], o_k, s_k), rwkv6_flops(b, h, t, dk, dv), bf)
+            if (b, st) == (BATCH, f32):
+                record(summary, "rwkv6_chunk", max_err(o_k, o_p), ms, plain_ms, *work)
+            else:
+                note_shape("rwkv6_chunk", f"b{b} t{t} initial state {dtype_name(st)}", ms,
+                           plain_ms, *work)
+    t = TRAIN_T[0]
+    for st in (f32, None):
+        x, do, dsf, got, worst = hold_rwkv6_chunk(torch, rwkv6_cuda,
+                                                  (TRAIN_BATCH, h, t, dk, dv, bf, st), True)
+        if st is not None:
+            continue
+        args = tuple(x[n] for n in RWKV6_LEAVES[:5])
+        with torch.no_grad():
+            fwd_ms, fwd_plain_ms = timed_pair(
+                f"rwkv6_chunk training forward b{TRAIN_BATCH} t{t}",
+                lambda: rwkv6_cuda.rwkv6_chunk(*args),
+                lambda: rwkv6_cuda.rwkv6_chunk_plain(*args), 5)
+            o_k, s_k = rwkv6_cuda.rwkv6_chunk(*args)
+        note_shape("rwkv6_chunk", f"training forward b{TRAIN_BATCH} t{t} initial state none",
+                   fwd_ms, fwd_plain_ms, nbytes(*args, o_k, s_k),
+                   rwkv6_flops(TRAIN_BATCH, h, t, dk, dv), bf)
+        bwd = lambda: rwkv6_cuda.rwkv6_chunk_bwd(*args, None, do, dsf, need_ds0=False)
+        plain_both = lambda: rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, False)
+        ms, plain = [], []
+        for which in ("plain", "kernel", "kernel", "plain"):
+            if which == "kernel":
+                ms.append(device_ms(bwd, 5))
+            else:  # autograd's backward is not captured in a graph: eager
+                plain.append(eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms)
+        print(f"  rwkv6_chunk_bwd device ms: kernel {ms}; plain backward (eager forward and "
+              f"backward on the host's clock, less the plain forward) {plain}")
+        mean = lambda xs: sum(xs) / len(xs)
+        # max_abs_err: the largest error of a leaf as a share of its max|plain|
+        record(summary, "rwkv6_chunk_bwd", worst, mean(ms), mean(plain),
+               nbytes(*args, do, dsf, *got.values()),
+               rwkv6_flops(TRAIN_BATCH, h, t, dk, dv, backward=True), bf)
+        scratch = (2 * (dv // 32) * TRAIN_BATCH * h * t * dk
+                   + (dv // 32) * TRAIN_BATCH * h * t) * 4
+        print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of dr/dk/vdo parts")
+        profiled(torch, lambda: [bwd() for _ in range(3)],
+                 f"3 calls of rwkv6_chunk_bwd b{TRAIN_BATCH} t{t}", top=6)
+    for b in (1, BATCH, 64):
+        for st in (bf, f32):
+            hold_rwkv6_decode(torch, rwkv6_cuda, (b, h, dk, dv, bf, st),
+                              summary=summary if (b, st) == (BATCH, f32) else None, timed=True)
+    reset_counts()  # the kernel phases' launches are no path's
+
+
+def rwkv6_phase(torch, np, gla_cuda, card_line):
+    """RWKV6 at the flagship's width (lina_gla_169m with kind="rwkv6",
+    291,117,378 parameters, random weights from seed 0 with the bonus, the
+    ddlerp mixes and the decays drawn off their constant inits, bf16
+    compute, f32 states): generate_batch for 8 requests (classic loop;
+    rwkv6_chunk for the prefill, rwkv6_decode for each token) with the
+    kernel path held against the plain path under teacher forcing (in bf16,
+    and on a copy built in f32 compute), a
+    DecodeServer in classic mode (8 requests, 8 slots) and three train
+    steps at b8 (rwkv6_chunk and its backward), the kernel path's loss and
+    parameter gradients held against the plain path's on a batch of 2.
+    RWKV6 has no lazy window and no S0 tuning, as in JAX."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.models.rwkv6 import RWKV6Attention, perturb_rwkv6_params_
+
+    cfg = variant_cfg("rwkv6")
+    prepare = lambda m: perturb_rwkv6_params_(m, torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=DEVICE, seed=0)
+    prepare(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    layers = [m for m in model.modules() if isinstance(m, RWKV6Attention)]
+    heads = {(m.num_heads, m.head_k_dim, m.head_v_dim) for m in layers}
+    state = model.empty_state(1, DEVICE).layers[0]
+    print(f"RWKV6: {n_params:,} parameters, {len(layers)} layers, heads {heads}, state "
+          f"{state.s.dtype}, shift {state.shift.dtype}")
+    require(n_params == N_RWKV6_PARAMS, f"{n_params} parameters, expected {N_RWKV6_PARAMS}")
+    require(len(layers) == N_GLA_LAYERS and heads == {RWKV6_HEAD}, f"RWKV6 layers {heads}")
+    require(state.s.dtype == torch.float32, "RWKV6 states not f32")
+    names = dict(chunk="rwkv6_chunk", decode="rwkv6_decode")
+    f32_copy = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device=DEVICE,
+                           seed=0)
+    prepare(f32_copy)
+    total = variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy=False,
+                                   tol_path=(TOL_RWKV6_PATH, TOL_BF16, TOL_RWKV6_PATH),
+                                   f32_copy=f32_copy, **names)
+    del f32_copy
+    add_launches(total, variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, **names))
+    del model
+    torch.cuda.empty_cache()
+    model, _, train, check_model = training_phase(
+        torch, np, gla_cuda, card_line, cfg, "rwkv6_chunk", "rwkv6_chunk_bwd",
+        VARIANT_TRAIN_STEPS["rwkv6"], prepare=prepare)
+    add_launches(total, train)
+    del model, check_model
+    torch.cuda.empty_cache()
+    return total
+
+
+def launched_rwkv6_shapes_phase(torch, rwkv6_cuda):
+    """Every shape the driven RWKV6 paths launched the three RWKV6 kernels
+    on is held against the plain version now, unless the RWKV6 kernel phase
+    held it already."""
+    todo = {n: sorted(RWKV6_LAUNCHED[n] - RWKV6_HELD[n], key=str) for n in RWKV6_LAUNCHED}
+    print("the driven RWKV6 paths launched " + ", ".join(
+        f"{n} on {len(RWKV6_LAUNCHED[n])} shapes ({len(todo[n])} not held yet)" for n in todo))
+    require(all(RWKV6_LAUNCHED.values()), f"an RWKV6 kernel launched on no shape: {RWKV6_LAUNCHED}")
+    for shape in todo["rwkv6_chunk_bwd"]:
+        hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:-1], need_ds0=shape[-1])
+    for shape in sorted(RWKV6_LAUNCHED["rwkv6_chunk"] - RWKV6_HELD["rwkv6_chunk"], key=str):
+        hold_rwkv6_chunk(torch, rwkv6_cuda, shape)
+    for shape in todo["rwkv6_decode"]:
+        hold_rwkv6_decode(torch, rwkv6_cuda, shape)
+    require(all(RWKV6_LAUNCHED[n] <= RWKV6_HELD[n] for n in RWKV6_LAUNCHED),
+            "RWKV6: launched but not held")
+
 
 def main():
     import numpy as np
@@ -2459,7 +2816,7 @@ def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on a GPU only")
-    from lina_speech_tpu_torch.ops import _build, gla_cuda
+    from lina_speech_tpu_torch.ops import _build, gla_cuda, rwkv6_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2499,6 +2856,9 @@ def main():
     add_launches(launches, mamba2_phase(torch, np, gla_cuda, card_line))
     add_launches(launches, interleaved_and_pp_phase(torch, np, gla_cuda, card_line))
     launched_gla_shapes_phase(torch, gla_cuda)
+    rwkv6_kernel_phase(torch, rwkv6_cuda, summary)
+    add_launches(launches, rwkv6_phase(torch, np, gla_cuda, card_line))
+    launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
     kernels = []
     for name, source, replaces in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")

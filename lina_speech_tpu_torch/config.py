@@ -4,8 +4,9 @@ Field for field the same as ``lina_speech_tpu/config.py`` so a YAML config
 or a preset means the same model in both packages; only ``build_model``
 differs, building the PyTorch modules. The port covers the GLA family:
 ``kind="gla"`` (with ``cross_att_pp``, and with ``cross_att_layers`` the
-interleaved CrossAttGLA), ``"simple_gla"`` and ``"mamba2"``; every other
-kind raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+interleaved CrossAttGLA), ``"simple_gla"`` and ``"mamba2"``, and
+``"rwkv6"``; every other kind raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -107,7 +108,6 @@ def torch_dtype(name: str) -> torch.dtype:
 # backbone kinds the JAX package builds and this port does not yet, with the
 # ROADMAP.md Queue 1 item that ports each
 _NOT_PORTED = {
-    "rwkv6": "Queue 1 item 9b (RWKV6)",
     "mamba": "Queue 1 item 9c (Mamba, transformer, speaker encoder)",
     "transformer": "Queue 1 item 9c (Mamba, transformer, speaker encoder)",
 }
@@ -125,6 +125,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     from lina_speech_tpu_torch.models.encoder import TextEncoder
     from lina_speech_tpu_torch.models.lina import LinaModel, init_params
     from lina_speech_tpu_torch.models.mamba import AttentiveMamba2
+    from lina_speech_tpu_torch.models.rwkv6 import AttentiveRWKV6
     from lina_speech_tpu_torch.models.simple_gla import AttentiveSimpleGLA
 
     b = cfg.backbone
@@ -132,7 +133,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         raise NotImplementedError(
             f"backbone kind {b.kind!r} is not ported yet "
             f"(ROADMAP.md {_NOT_PORTED[b.kind]})")
-    if b.kind not in ("gla", "simple_gla", "mamba2"):
+    if b.kind not in ("gla", "simple_gla", "mamba2", "rwkv6"):
         raise ValueError(f"unknown backbone kind {b.kind}")
     if cfg.spk_encoder is not None:
         raise NotImplementedError(
@@ -153,7 +154,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
 
     # as the JAX package's build_model (config.py:132-191): only the
     # AttentiveGLA of kind "gla" takes state_dtype, simple-GLA takes
-    # use_short_conv but not expand_k / expand_v
+    # use_short_conv but not expand_k / expand_v, RWKV6 none of the three
     dtype = torch_dtype(cfg.compute_dtype)
     common = dict(d_model=b.d_model, n_layer=b.n_layer, heads=b.heads, dropout=b.dropout,
                   kernel_mode=b.kernel_mode, dtype=dtype)
@@ -170,6 +171,8 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     elif b.kind == "simple_gla":
         rnn = AttentiveSimpleGLA(use_short_conv=b.use_short_conv, chunk_size=b.chunk_size,
                                  **stack, **common)
+    elif b.kind == "rwkv6":
+        rnn = AttentiveRWKV6(**stack, **common)
     else:
         rnn = AttentiveMamba2(headdim=64 if (2 * b.d_model) % 64 == 0 else 16,
                               **stack, **common)

@@ -110,8 +110,8 @@ def generate_batch(
     the token loop run on copies cast to the compute dtype, made once per
     call (the JAX package pre-casts a copy of its param tree the same way;
     norms keep f32 statistics). The caller's parameters are left as they
-    were. ``lazy_window`` needs a GLA backbone (Mamba-2 states have no lazy
-    window: ``TypeError``, as in JAX).
+    were. ``lazy_window`` needs a GLA backbone (Mamba-2 and RWKV6 states
+    have no lazy window: ``TypeError``, as in JAX).
     """
     for name, val, ready in (
             ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),

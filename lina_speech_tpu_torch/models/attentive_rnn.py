@@ -6,8 +6,9 @@ an explicit :class:`BackboneState` threaded by the caller.
 ``EncoderCrossDecoder``): n_layer mixer blocks, ONE cross-attention (blind,
 PP or vanilla), n_layer mixer blocks; a concrete backbone gives it its
 mixer block (``_block``) and that block's empty state (``_layer_state``).
-:class:`AttentiveGLA` (reference gla.py:252-365) and ``AttentiveMamba2``
-(``models/mamba.py``) plug into it. :class:`CrossAttGLA` is the interleaved
+:class:`AttentiveGLA` (reference gla.py:252-365), ``AttentiveMamba2``
+(``models/mamba.py``) and ``AttentiveRWKV6`` (``models/rwkv6.py``) plug
+into it. :class:`CrossAttGLA` is the interleaved
 variant (reference gla.py:367-420, JAX ``InterleavedCrossAtt``): a single
 stack with a vanilla CrossAttention after the listed layers, per-layer
 states and no pos_net.
@@ -43,7 +44,8 @@ def map_state(fn: Callable, state: BackboneState, *others: BackboneState
     """``fn(leaf, *other_leaves)`` over every tensor of ``state`` (and the
     tensors at the same place in ``others``); fields that are None stay
     None. The result replaces each tensor with what ``fn`` returns. The
-    layer states may be of any dataclass (``GLAState``, ``MambaState``)."""
+    layer states may be of any dataclass (``GLAState``, ``MambaState``,
+    ``RWKV6State``)."""
     def one(st, *os):
         if st is None:
             return None
@@ -65,7 +67,7 @@ def add_lazy_buffers(state: BackboneState, window: int,
     ``state_quant="int8"`` also row-quantizes the LAYER base states (the
     bulk of the bytes a decode step reads); the one pos_net state stays
     full precision, as in the JAX package. A state of another mixer
-    (Mamba-2) has no lazy window: ``TypeError``, as in JAX."""
+    (Mamba-2, RWKV6) has no lazy window: ``TypeError``, as in JAX."""
     def one(st, quant):
         if not isinstance(st, GLAState):
             raise TypeError(f"lazy decode unsupported for {type(st).__name__}")

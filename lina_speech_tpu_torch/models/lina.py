@@ -260,14 +260,21 @@ def init_params(model: LinaModel, generator: torch.Generator) -> LinaModel:
     normal with std 1/sqrt(fan_in), embeddings normal(1) (ConvPos table
     1/sqrt(d)), biases zero, norm weights one, the rvq padding row zero;
     Mamba-2: ``A_log`` = log U(1, 16), ``D`` and ``norm_weight`` one, the
-    conv taps (conv_dim, d_conv) normal with std 1/sqrt(conv_dim)."""
+    conv taps (conv_dim, d_conv) normal with std 1/sqrt(conv_dim); RWKV6
+    layers: ``models/rwkv6.py:init_rwkv6_params_``."""
+    from lina_speech_tpu_torch.models.rwkv6 import RWKV6Attention, init_rwkv6_params_
+
     gla_proj = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj", "gk_proj")
+    rwkv6 = [m for m in model.modules() if isinstance(m, RWKV6Attention)]
+    rwkv6_params = {id(p) for m in rwkv6 for p in m.parameters()}
 
     def normal(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
 
     for name, p in model.named_parameters():
         parts = name.split(".")
+        if id(p) in rwkv6_params:
+            continue
         if parts[-1] in ("bias", "conv_bias", "dt_bias"):
             p.zero_()
         elif parts[-1] == "A_log":
@@ -292,5 +299,7 @@ def init_params(model: LinaModel, generator: torch.Generator) -> LinaModel:
             normal(p, p.shape[-1] ** -0.5)
         else:  # Linear (out, in) and the (q, l, d) logits head
             normal(p, p.shape[-1] ** -0.5)
+    for m in rwkv6:
+        init_rwkv6_params_(m, generator)
     model.rvq_embed.weight[:, 0] = 0.0
     return model

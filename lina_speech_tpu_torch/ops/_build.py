@@ -122,5 +122,11 @@ def load_library() -> ctypes.CDLL:
     lib.int8_linear_fwd.restype = i
     lib.fused_ffn_int8_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.fused_ffn_int8_fwd.restype = i
+    lib.rwkv6_chunk_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.rwkv6_chunk_fwd.restype = i
+    lib.rwkv6_chunk_bwd.argtypes = [p] * 20 + [i] * 7 + [p]
+    lib.rwkv6_chunk_bwd.restype = i
+    lib.rwkv6_decode_step.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.rwkv6_decode_step.restype = i
     _lib = lib
     return lib

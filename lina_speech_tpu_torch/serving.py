@@ -115,7 +115,7 @@ class DecodeServer:
     the model's f32 parameters cast to the compute dtype (the JAX server's
     pre-cast tree) and swaps them in for its own calls only: the caller's
     model is left as it was (but see ``int8_prefill_full_precision``). A
-    Mamba-2 backbone serves in classic mode; ``lazy=True`` (and so
+    Mamba-2 or RWKV6 backbone serves in classic mode; ``lazy=True`` (and so
     ``state_quant``) raises ``TypeError`` for it, as in JAX.
 
     ``weight_quant="int8"`` (with ``quant_min_size`` and ``quant_exclude`` as

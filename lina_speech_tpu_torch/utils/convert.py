@@ -9,11 +9,14 @@ root. :func:`named_tensors_to_jax` goes the other way, for gradients and
 updated parameters: tensors by torch name -> the JAX tree's paths and
 layouts, so that a training step compares leaf by leaf. Decode states
 (GLA states with their conv rings, shared or per projection, and int8 ones
-with their row scales; Mamba-2 states), the S0 tuning params and the JAX
+with their row scales; Mamba-2 and RWKV6 states), the S0 tuning params and the JAX
 package's int8-quantized weight tree cross as arrays too. Names the JAX
 package's ``torch_key_for`` leaves as they are stay so here too: Mamba-2's
-``conv_kernel``, ``A_log``, ``dt_bias``, ``D`` and ``norm_weight``, the
-interleaved backbone's ``cross_att_<i>``, CrossAttentionPP's ``ca_0``,
+``conv_kernel``, ``A_log``, ``dt_bias``, ``D`` and ``norm_weight``; RWKV6's
+raw parameters ``x_maa``, ``maa``, ``maa_w1``, ``maa_w2``, ``decay_w1``,
+``decay_w2``, ``time_decay``, ``time_faaaa``, ``ln_x_scale`` and
+``ln_x_bias``, used as ``x @ W`` in both packages and so not transposed
+(only its five projections' Dense kernels are); the interleaved backbone's ``cross_att_<i>``, CrossAttentionPP's ``ca_0``,
 ``ca_1`` and ``inter_net`` (its ``pos_emb`` table maps like an embedding).
 """
 from __future__ import annotations
@@ -155,6 +158,7 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
 _STATE_FIELDS = ("s", "conv_q", "conv_k", "conv_v", "conv_h", "kbuf", "vbuf", "cbuf", "cc",
                  "s_scale")
 _MAMBA_FIELDS = ("h", "conv")
+_RWKV6_FIELDS = ("s", "shift")
 
 
 def backbone_state_from_arrays(state, device=None):
@@ -163,8 +167,9 @@ def backbone_state_from_arrays(state, device=None):
     ``state`` is any object with ``layers`` (a sequence) and ``pos_net``,
     each entry carrying a layer state's fields as numpy-convertible arrays
     or None: a GLA state (``s``, the conv rings and, in lazy mode, the
-    window buffers) or a Mamba-2 state (``h`` (b, heads * d_state,
-    headdim), ``conv``); the JAX package's state dataclasses fit as they
+    window buffers), a Mamba-2 state (``h`` (b, heads * d_state,
+    headdim), ``conv``) or an RWKV6 state (``s`` (b, h, dk, dv), ``shift``
+    (b, d)); the JAX package's state dataclasses fit as they
     are. Layouts are the same on both sides. bfloat16 arrays stay bfloat16,
     everything else keeps its numpy dtype: an int8 state ``s`` stays int8
     and brings its f32 row scales ``s_scale``.
@@ -172,6 +177,7 @@ def backbone_state_from_arrays(state, device=None):
     from lina_speech_tpu_torch.models.attentive_rnn import BackboneState
     from lina_speech_tpu_torch.models.gla_layer import GLAState
     from lina_speech_tpu_torch.models.mamba import MambaState
+    from lina_speech_tpu_torch.models.rwkv6 import RWKV6State
 
     def leaf(a):
         if a is None:
@@ -188,6 +194,8 @@ def backbone_state_from_arrays(state, device=None):
             return None
         if hasattr(st, "h") and hasattr(st, "conv"):
             return MambaState(**{f: leaf(getattr(st, f)) for f in _MAMBA_FIELDS})
+        if hasattr(st, "shift"):
+            return RWKV6State(**{f: leaf(getattr(st, f)) for f in _RWKV6_FIELDS})
         return GLAState(**{f: leaf(getattr(st, f, None)) for f in _STATE_FIELDS})
 
     return BackboneState(layers=tuple(one(st) for st in state.layers),

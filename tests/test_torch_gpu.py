@@ -647,3 +647,183 @@ def test_quantized_generate_kernel_path_matches_plain_path(cuda):
         model.set_kernel_mode("auto")
     assert bool(torch.isfinite(logits["auto"]).all())
     assert _rel_err(logits["auto"], logits["chunk"]) <= 5e-2
+
+
+# ------------------------------------------------------------------ RWKV6
+def _rwkv6_inputs(dev, b, h, t, dk, dv, io, st, seed=0):
+    """r, k, v in ``io``; f32 log-decays spread as a trained RWKV6 layer's,
+    with hard resets (-20); an f32 bonus; an initial state in ``st`` (None:
+    none). The decode token takes time step 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r_ = lambda *s: torch.randn(*s, generator=g, device=dev)
+    w = -torch.exp(r_(b, h, t, dk) * 0.5 - 2.0)
+    w = torch.where(torch.rand(b, 1, t, 1, generator=g, device=dev) < 0.05, -20.0, w)
+    return dict(r=r_(b, h, t, dk).to(io), k=r_(b, h, t, dk).to(io), v=r_(b, h, t, dv).to(io),
+                w=w.contiguous(), u=r_(h, dk) * 0.5,
+                s0=None if st is None else r_(b, h, dk, dv).to(st))
+
+
+def _rwkv6_grads(fn, x, seed=3):
+    """(o, sf, gradients) of sum(o * do) + sum(sf * dsf) through ``fn``
+    (rwkv6_chunk or its plain version) w.r.t. r, k, v, w, u (and s0)."""
+    names = ("r", "k", "v", "w", "u") + (("s0",) if x["s0"] is not None else ())
+    leaves = {n: x[n].detach().clone().requires_grad_(True) for n in names}
+    o, sf = fn(*(leaves[n] for n in names[:5]), initial_state=leaves.get("s0"))
+    g = torch.Generator(device=o.device).manual_seed(seed)
+    do = torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+    dsf = torch.randn(sf.shape, generator=g, device=o.device).to(sf.dtype)
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf.float()).sum()
+    return o, sf, dict(zip(names, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 37, 256, 256), (1, 4, 1, 256, 256),
+                                   (3, 2, 70, 64, 96)], ids=str)
+def test_rwkv6_chunk_kernel_matches_plain(cuda, io, st, shape):
+    """rwkv6_chunk (readout before the update, the u bonus, no scale) against
+    its plain version: o and the final state, a ragged t and t = 1, with and
+    without an initial state."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    x = _rwkv6_inputs(cuda, *shape, io, st)
+    args = (x["r"], x["k"], x["v"], x["w"], x["u"])
+    before = rwkv6_cuda.rwkv6_chunk.launches
+    o, s = rwkv6_cuda.rwkv6_chunk(*args, initial_state=x["s0"])
+    o_p, s_p = rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"])
+    torch.cuda.synchronize()
+    assert rwkv6_cuda.rwkv6_chunk.launches == before + 1
+    assert o.dtype == io and s.dtype == (st or torch.float32)
+    tol = 1e-4 if io == torch.float32 else 1e-2
+    assert _rel_err(o, o_p) <= tol
+    assert _rel_err(s, s_p) <= (1e-2 if torch.bfloat16 in (io, st) else 1e-4)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 70, 256, 256), (1, 2, 130, 128, 96),
+                                   (2, 2, 1, 64, 64)], ids=str)
+def test_rwkv6_chunk_backward_kernel_matches_plain_backward(cuda, io, st, shape):
+    """rwkv6_chunk under autograd runs the forward kernel and the
+    hand-written backward (one launch each), and every gradient (dr, dk, dv,
+    dw, du, ds0) matches autograd through the plain version, each within a
+    share of its own max|plain|."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    x = _rwkv6_inputs(cuda, *shape, io, st, seed=7)
+    before = rwkv6_cuda.launch_counts()
+    o, sf, got = _rwkv6_grads(rwkv6_cuda.rwkv6_chunk, x)
+    after = rwkv6_cuda.launch_counts()
+    assert after["rwkv6_chunk"] == before["rwkv6_chunk"] + 1
+    assert after["rwkv6_chunk_bwd"] == before["rwkv6_chunk_bwd"] + 1
+    o_p, sf_p, ref = _rwkv6_grads(rwkv6_cuda.rwkv6_chunk_plain, x)
+    tol = 1e-4 if io == torch.float32 else 1e-2
+    assert _rel_err(o, o_p) <= tol
+    assert _rel_err(sf, sf_p) <= (1e-2 if torch.bfloat16 in (io, st) else 1e-4)
+    for name, r in ref.items():
+        a = got[name]
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        err = float((a.float() - r.float()).abs().max())
+        share = 2e-2 if torch.bfloat16 in (io, st) else 1e-3
+        scale = float(r.float().abs().max())
+        if name == "w" and shape[2] == 1 and st is None:
+            # one token from a zero state: dw = dsf.S_final - k.(dsf v^T) is
+            # 0 in exact arithmetic, two equal terms that cancel: held to
+            # their size
+            assert scale == 0
+            scale = float((x["k"].float() * ref["k"].float()).abs().max())
+        assert scale > 0 and err <= share * scale, (name, err)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 256, 256), (8, 4, 256, 256), (64, 4, 256, 256),
+                                   (3, 2, 128, 96)], ids=str)
+def test_rwkv6_decode_kernel_matches_plain(cuda, io, st, shape):
+    """rwkv6_decode against its plain version: o and the state, updated in
+    place, at every batch size (no tiny-batch routing)."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    b, h, dk, dv = shape
+    x = _rwkv6_inputs(cuda, b, h, 1, dk, dv, io, st, seed=b)
+    tok = tuple(x[n][:, :, 0].contiguous() for n in ("r", "k", "v", "w"))
+    o_p, s_p = rwkv6_cuda.rwkv6_decode_plain(*tok, x["u"], x["s0"])
+    s_k = x["s0"].clone()
+    o_k, s_out = rwkv6_cuda.rwkv6_decode(*tok, x["u"], s_k)
+    torch.cuda.synchronize()
+    assert s_out.data_ptr() == s_k.data_ptr() and s_out.dtype == st
+    tol = 1e-4 if io == st == torch.float32 else 1e-2
+    assert _rel_err(o_k, o_p) <= tol and _rel_err(s_out, s_p) <= tol
+
+
+def test_rwkv6_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """kernel_takes refuses a head key dim outside (64, 128, 256) and an int8
+    state, and a wrapper given such a head (or bf16 decays, or a bf16 bonus)
+    raises instead of running the plain version; the plain route launches
+    nothing."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    assert rwkv6_cuda.kernel_takes(256, 256, torch.bfloat16, torch.float32)
+    assert not rwkv6_cuda.kernel_takes(32, 32, torch.float32, torch.float32)
+    assert not rwkv6_cuda.kernel_takes(256, 256, torch.bfloat16, torch.int8)
+    x = _rwkv6_inputs(cuda, 1, 2, 8, 64, 64, torch.bfloat16, torch.float32)
+    args = [x["r"], x["k"], x["v"], x["w"], x["u"]]
+    y = _rwkv6_inputs(cuda, 1, 2, 8, 32, 64, torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError):  # a head the kernels do not take
+        rwkv6_cuda.rwkv6_chunk(y["r"], y["k"], y["v"], y["w"], y["u"])
+    with pytest.raises(ValueError):
+        rwkv6_cuda.rwkv6_decode(*(y[n][:, :, 0].contiguous() for n in ("r", "k", "v", "w")),
+                                y["u"], y["s0"])
+    with pytest.raises(ValueError):  # bf16 decays
+        rwkv6_cuda.rwkv6_chunk(*args[:3], x["w"].bfloat16(), x["u"])
+    with pytest.raises(ValueError):  # bf16 bonus
+        rwkv6_cuda.rwkv6_chunk(*args[:4], x["u"].bfloat16())
+    with pytest.raises(ValueError):  # state of another batch size
+        rwkv6_cuda.rwkv6_chunk(*args, initial_state=torch.zeros(2, 2, 64, 64, device=cuda))
+    rwkv6_cuda.reset_launch_counts()
+    rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"])
+    rwkv6_cuda.rwkv6_decode_plain(*(a[:, :, 0].contiguous() for a in args[:4]), x["u"], x["s0"])
+    assert rwkv6_cuda.launch_counts() == dict.fromkeys(rwkv6_cuda.launch_counts(), 0)
+
+
+def test_rwkv6_kernel_path_matches_plain_path(cuda):
+    """The RWKV6 backbone at heads the kernels take (d 256, 4 heads of dk 64,
+    dv 64) in f32, with the bonus, the ddlerp mixes and the decays
+    perturbed: greedy tokens of the kernel path (rwkv6_chunk for the
+    prefill, rwkv6_decode for every token) equal the plain path's, and the
+    training forward's parameter gradients (rwkv6_chunk's backward) match."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.models.rwkv6 import perturb_rwkv6_params_
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+
+    cfg = _variant_cfg(kind="rwkv6")
+    text = torch.randint(3, 256, (3, 9), generator=torch.Generator().manual_seed(0)).to(cuda)
+    batch = batch_to_device(next(synthetic_tts_batches(
+        batch_size=2, n_codebook=50, min_audio_len=16, max_audio_len=24)), cuda)
+    tokens, grads = {}, {}
+    model = build_model(cfg, device=cuda, seed=3)
+    perturb_rwkv6_params_(model, torch.Generator().manual_seed(4))
+    n_layers = 2 * cfg.backbone.n_layer + 1
+    for mode in ("auto", "chunk"):
+        model.set_kernel_mode(mode)
+        rwkv6_cuda.reset_launch_counts()
+        res = generate_batch(model, text, max_seqlen=20, first_greedy_quant=0,
+                             force_max_seqlen=True)
+        model.zero_grad(set_to_none=True)
+        model(batch["text_token"], batch["audio_token"], batch["encoder_mask"],
+              batch["crossatt_mask"], logits_mask=batch["y_mask"])[1].backward()
+        counts = rwkv6_cuda.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if mode == "auto":
+            want.update(rwkv6_chunk=2 * n_layers, rwkv6_decode=n_layers * 19,
+                        rwkv6_chunk_bwd=n_layers)
+        assert counts == want
+        tokens[mode] = res.tokens.cpu()
+        grads[mode] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert torch.equal(tokens["auto"], tokens["chunk"])
+    for name, r in grads["chunk"].items():
+        err = float((grads["auto"][name] - r).abs().max())
+        assert err <= 1e-3 * float(r.abs().max()) + 1e-6, name

@@ -6,8 +6,9 @@ import of them fail), imports every module of the port (``train/``,
 ``generate_batch``, a server (both also with int8 weights and int8
 lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``), one train
 step, one S0 tuning step, ``examples/train_torch.py``, and a generate and a
-train step of the simple-GLA (no convs) and Mamba-2 backbones
-(``models/simple_gla.py``, ``models/mamba.py``); it then checks that no
+train step of the simple-GLA (no convs), Mamba-2 and RWKV6 backbones
+(``models/simple_gla.py``, ``models/mamba.py``, ``models/rwkv6.py`` with
+``ops/rwkv6.py`` and ``ops/rwkv6_cuda.py``); it then checks that no
 jax/flax module and nothing of ``lina_speech_tpu`` was loaded.
 """
 import os
@@ -68,11 +69,13 @@ spec.loader.exec_module(example)
 sys.argv = ["train_torch.py", "--cpu", "--steps", "1", "--batch", "2", "--min-len", "8",
             "--max-len", "8"]
 example.main()
-# the GLA-family variants: simple-GLA without convs and Mamba-2
+# the other backbones: simple-GLA without convs, Mamba-2 and RWKV6
 import dataclasses
-for name in ("lina_speech_tpu_torch.models.simple_gla", "lina_speech_tpu_torch.models.mamba"):
+for name in ("lina_speech_tpu_torch.models.simple_gla", "lina_speech_tpu_torch.models.mamba",
+             "lina_speech_tpu_torch.models.rwkv6", "lina_speech_tpu_torch.ops.rwkv6_cuda"):
     assert name in sys.modules, name
-for kw in (dict(kind="simple_gla", use_short_conv=False), dict(kind="mamba2")):
+for kw in (dict(kind="simple_gla", use_short_conv=False), dict(kind="mamba2"),
+           dict(kind="rwkv6")):
     cfg = lina_gla_tiny()
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, **kw))
     variant = build_model(cfg, device="cpu")
@@ -100,7 +103,8 @@ def test_port_imports_no_jax():
 
 def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
-    ``models/mamba.py`` and ``models/simple_gla.py`` among them),
+    ``models/mamba.py``, ``models/simple_gla.py`` and the RWKV6 modules
+    among them),
     ``chip_smoke.py`` and the port's examples, read as source:
     no import statement names jax, flax or the JAX package."""
     import ast
@@ -114,6 +118,8 @@ def test_sources_import_no_jax():
     for must in ("lina_speech_tpu_torch/utils/quantize.py", "lina_speech_tpu_torch/ops/qlinear.py",
                  "lina_speech_tpu_torch/models/mamba.py",
                  "lina_speech_tpu_torch/models/simple_gla.py",
+                 "lina_speech_tpu_torch/models/rwkv6.py", "lina_speech_tpu_torch/ops/rwkv6.py",
+                 "lina_speech_tpu_torch/ops/rwkv6_cuda.py",
                  "chip_smoke.py", "examples/serve_torch.py"):
         assert must in names, must
     banned = ("jax", "flax", "lina_speech_tpu")

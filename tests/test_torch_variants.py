@@ -304,7 +304,7 @@ def test_mamba2_has_no_lazy_window_and_no_s0_tuning():
 
 
 def test_unported_kinds_still_raise():
-    for kind in ("rwkv6", "mamba", "transformer"):
+    for kind in ("mamba", "transformer"):
         cfg = torch_tiny()
         cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kind=kind))
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
