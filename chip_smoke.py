@@ -96,7 +96,31 @@ then RWKV6:
    gradients held against the plain path's on a batch of 2; launch counts
    25 rwkv6_decode per token, 25 rwkv6_chunk and 25 rwkv6_chunk_bwd per
    micro-batch; then every shape those runs launched the three kernels on
-   is held against the plain versions.
+   is held against the plain versions;
+then Mamba (v1):
+13. Mamba kernel phase: mamba_scan and its hand-written backward against
+   their plain versions (the time loop, and autograd through it) at d 2048,
+   n 16 (bf16 x, B and C; f32 dt, A, D and states): the forward at b8 t151
+   with an f32 and with no initial state and at b1 for every server chunk
+   length down to t1; forward and backward at b8 t512 with an initial
+   state, without one and with a reset mask (dx, ddt, dA, dB, dC, dD, ds0),
+   every output and leaf within a share of its own max|plain|, finite and
+   non-zero, the backward twice for equal bits; every time beside its bound
+   (bytes, f32 operations, or the exponentials at the SFU rate of the
+   card's highest SM clock);
+14. Mamba phase: kind="mamba" at the flagship's width (314,976,578
+   parameters, random weights from seed 0 with A_log, D and dt_proj's bias
+   drawn off their inits; bf16 compute, f32 states): generate_batch for the
+   8 requests of phase 4 (classic loop), the kernel path held against the
+   plain path under teacher forcing (logits, h and conv of every layer; in
+   bf16 and on an f32-compute copy), a classic DecodeServer (8 requests, 8
+   slots) and three train steps at b8, the kernel path's loss and gradients
+   held against the plain path's on a batch of 2; launch counts 25
+   mamba_scan per prefill and per server prefill chunk, 25 mamba_scan and 25
+   mamba_scan_bwd per micro-batch, none per decode token; then the
+   interleaved CrossAttMamba (cross-attention after layers 5 and 11) through
+   a 16-token generate and one train step; then every shape those runs
+   launched the two kernels on is held against the plain versions.
 Each main-path run starts with the launch counts at 0 and reads them right
 after. The line before the last is a JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -162,6 +186,10 @@ DEVICE = "cuda"
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores
 PEAK_BYTES, PEAK_BF16, PEAK_F32, PEAK_INT8 = 3.35e12, 989e12, 67e12, 1979e12
+# exponentials per second of the special-function units: 16 a clock on each
+# SM, at the card's highest SM clock (set in main from nvidia-smi)
+SFU_PER_CLOCK = 16
+SFU_RATE = None
 D_MODEL, FFN_HIDDEN, N_TEXT_LAYERS = 1024, 1365, 4
 # int8 products per decode step: q, k, v, g, o of each GLA layer and q, k, v of
 # the cross-attention (the 16-wide gate projections stay float); one fused FFN
@@ -217,7 +245,11 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("rwkv6_chunk_bwd", "lina_speech_tpu_torch/csrc/rwkv6_chunk_bwd.cu",
      "lina_speech_tpu/ops/rwkv6_pallas.py:137"),
     ("rwkv6_decode", "lina_speech_tpu_torch/csrc/rwkv6_decode.cu",
-     "lina_speech_tpu/ops/gla_pallas.py:1728"))
+     "lina_speech_tpu/ops/gla_pallas.py:1728"),
+    ("mamba_scan", "lina_speech_tpu_torch/csrc/mamba_scan.cu",
+     "lina_speech_tpu/ops/mamba_pallas.py:468"),
+    ("mamba_scan_bwd", "lina_speech_tpu_torch/csrc/mamba_scan_bwd.cu",
+     "lina_speech_tpu/ops/mamba_pallas.py:86"))
 # times at further shapes than a kernel's row of the summary, each with its
 # bound: {kernel name: [{shape, ms, plain_ms, bound_ms, bound_by}, ...]}
 OTHER_SHAPES = {}
@@ -256,23 +288,37 @@ TOL_RWKV6_PATH = 2.5e-1
 # the driven paths launched them on (ops/rwkv6_cuda.py:launch_shapes keys)
 RWKV6_HELD = {"rwkv6_chunk": set(), "rwkv6_chunk_bwd": set(), "rwkv6_decode": set()}
 RWKV6_LAUNCHED = {"rwkv6_chunk": set(), "rwkv6_chunk_bwd": set(), "rwkv6_decode": set()}
+# Mamba (v1) at the flagship's width (kind="mamba": d 1024, 12 + 12 layers and
+# the blind pos_net; each mixer d_inner 2048, d_state 16, d_conv 4, dt_rank
+# 64; bf16 x, B, C; f32 dt, A, D and states), with A_log, D and dt_proj's bias
+# drawn from seed 0 (models/mamba.py:perturb_mamba_params_); the interleaved
+# CrossAttMamba with cross-attention after layers 5 and 11 of one stack of 12
+MAMBA_D, MAMBA_N = 2048, 16
+N_MAMBA_PARAMS, N_CROSSATT_MAMBA_PARAMS = 314_976_578, 174_774_944
+VARIANT_TRAIN_STEPS["mamba"] = 3
+# what the Mamba kernels were held against their plain versions at, and what
+# the driven paths launched them on (ops/mamba_cuda.py:launch_shapes keys)
+MAMBA_HELD = {"mamba_scan": set(), "mamba_scan_bwd": set()}
+MAMBA_LAUNCHED = {"mamba_scan": set(), "mamba_scan_bwd": set()}
 
 
 def reset_counts():
-    from lina_speech_tpu_torch.ops import gla_cuda, qlinear, rwkv6_cuda
+    from lina_speech_tpu_torch.ops import gla_cuda, mamba_cuda, qlinear, rwkv6_cuda
 
     gla_cuda.reset_launch_counts()
     qlinear.reset_launch_counts()
     rwkv6_cuda.reset_launch_counts()
+    mamba_cuda.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Every wrapper's launch count; the lazy step's launches on an int8
     state are counted a second time under a name of their own. Also notes,
-    in Q_LAUNCHED, GLA_LAUNCHED and RWKV6_LAUNCHED, the shapes the int8
-    products, gla_chunk, its backward, gla_decode and the three RWKV6
-    kernels were launched on since the last reset."""
-    from lina_speech_tpu_torch.ops import gla_cuda, qlinear, rwkv6_cuda
+    in Q_LAUNCHED, GLA_LAUNCHED, RWKV6_LAUNCHED and MAMBA_LAUNCHED, the
+    shapes the int8 products, gla_chunk, its backward, gla_decode, the three
+    RWKV6 kernels and the two Mamba kernels were launched on since the last
+    reset."""
+    from lina_speech_tpu_torch.ops import gla_cuda, mamba_cuda, qlinear, rwkv6_cuda
 
     for name, shapes in qlinear.launch_shapes().items():
         Q_LAUNCHED[name] |= shapes
@@ -281,8 +327,10 @@ def read_counts() -> dict:
             GLA_LAUNCHED[name] |= shapes
     for name, shapes in rwkv6_cuda.launch_shapes().items():
         RWKV6_LAUNCHED[name] |= shapes
+    for name, shapes in mamba_cuda.launch_shapes().items():
+        MAMBA_LAUNCHED[name] |= shapes
     return {**gla_cuda.launch_counts(), **qlinear.launch_counts(),
-            **rwkv6_cuda.launch_counts(),
+            **rwkv6_cuda.launch_counts(), **mamba_cuda.launch_counts(),
             "gla_decode_lazy_conv_int8": gla_cuda.gla_decode_lazy_conv.q_launches}
 
 
@@ -393,6 +441,9 @@ def ptxas_summary(log: str):
              ("rwkv6_bwd_dr_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dr sweep"),
              ("rwkv6_bwd_dkv_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dk/dv sweep"),
              ("rwkv6_decode_kernelI13__nv_bfloat16fLi256E", "rwkv6_decode"))
+    # the Mamba kernels' bf16-IO instantiations
+    mamba = (("mamba_scan_kernelI13__nv_bfloat16", "mamba_scan"),
+             ("mamba_scan_bwd_kernelI13__nv_bfloat16", "mamba_scan_bwd"))
     name, out = "", []
     for line in log.splitlines():
         if "entry function" in line or "Function properties for" in line:
@@ -410,6 +461,7 @@ def ptxas_summary(log: str):
                 tile = re.search(r"Li(\d+)E", name).group(1)
                 out.append(f"{label} (tile {tile}): {info}")
         out += [f"{label}<bf16, f32, 256>: {info}" for key, label in rwkv6 if key in name]
+        out += [f"{label}<bf16>: {info}" for key, label in mamba if key in name]
     return out
 
 
@@ -417,17 +469,19 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def roofline(n_bytes, flops, io_dtype):
+def roofline(n_bytes, flops, io_dtype, exps=0):
     """(bound_ms, bound_by): the least time one H100 could take -- the
     bytes of every input read once and every output written once over the
     card's memory rate, or the function's operations over the card's peak
     rate for the inputs' type (bf16 and int8: tensor cores; f32: outside
-    them), whichever is larger."""
+    them), whichever is larger. ``exps``: exponentials the function takes
+    beside (the Mamba scan's, one per state value), at the special-function
+    units' rate (SFU_RATE); they count as operations."""
     import torch
 
     t_bytes = n_bytes / PEAK_BYTES
     peak = {torch.bfloat16: PEAK_BF16, torch.int8: PEAK_INT8}.get(io_dtype, PEAK_F32)
-    t_ops = flops / peak
+    t_ops = max(flops / peak, exps / SFU_RATE if exps else 0.0)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -531,20 +585,22 @@ def kernel_inputs(torch, b, t, state_dtype, seed):
         rings=[r(4, b, H, d).to(bf) for d in (DK, DK, DV)])
 
 
-def record(summary, name, err, ms, plain_ms, n_bytes, flops, io_dtype, library_ms=None):
+def record(summary, name, err, ms, plain_ms, n_bytes, flops, io_dtype, library_ms=None,
+           exps=0):
     """The kernel's row of the summary. ``library_ms`` stays None where no
     single PyTorch call computes the function (every GLA kernel)."""
-    bound_ms, bound_by = roofline(n_bytes, flops, io_dtype)
+    bound_ms, bound_by = roofline(n_bytes, flops, io_dtype, exps)
     print(f"  {name} bound {bound_ms:.6f} ms by {bound_by} "
           f"({n_bytes} bytes, {flops} operations); kernel {ms:.6f} ms")
     summary[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms)
 
 
-def note_shape(name, shape, ms, plain_ms, n_bytes, flops, io_dtype, library_ms=None):
+def note_shape(name, shape, ms, plain_ms, n_bytes, flops, io_dtype, library_ms=None,
+               exps=0):
     """A time at a further shape, with its bound; goes into the kernel's
     ``shapes`` list of the summary line."""
-    bound_ms, bound_by = roofline(n_bytes, flops, io_dtype)
+    bound_ms, bound_by = roofline(n_bytes, flops, io_dtype, exps)
     print(f"  {name} {shape}: kernel {ms:.6f} ms, plain {plain_ms if plain_ms is None else round(plain_ms, 6)} "
           f"ms, bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} bytes)"
           + (f", library {library_ms:.6f} ms" if library_ms is not None else ""))
@@ -2259,7 +2315,7 @@ def teacher_forced_check(torch, model, cfg, text, prompt, tokens, card_line, tol
     the plain path: logits within ``tol[0]`` of max(1, max|plain|), layer
     0's state (the same input on both paths) within ``tol[1]`` and every
     state leaf within ``tol[2]`` of its own max|plain|; times of both."""
-    live = ("h", "conv") if cfg.backbone.kind == "mamba2" else ("s",)
+    live = ("h", "conv") if cfg.backbone.kind in ("mamba", "mamba2") else ("s",)
     n_pre = T_PROMPT + 1
     kind = f"{cfg.backbone.kind} ({str(model.dtype).split('.')[-1]} compute)"
     tol_logits, tol_first, tol_state = tol
@@ -2314,7 +2370,8 @@ def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy,
                            tol_path=(TOL_LOGITS, TOL_BF16, TOL_STATE), f32_copy=None):
     """generate_batch at the flagship's width for a backbone whose layers
     run the prefill kernel ``chunk`` and the decode kernel ``decode``
-    (gla_chunk and gla_decode, or RWKV6's two): 8 requests (32 text tokens, a 150-code
+    (gla_chunk and gla_decode, or RWKV6's two; Mamba's mamba_scan and None:
+    its decode token is plain tensor code, no kernel): 8 requests (32 text tokens, a 150-code
     prompt, top-k 100, 200 steps) with the classic loop and, with ``lazy``,
     greedy in lazy windows of 16 (the plain lazy step, the gla_fold kernel);
     launch counts; then the prefill and 16 decode steps teacher-forced
@@ -2342,7 +2399,8 @@ def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy,
     print(f"{kind} generate_batch: {BATCH} requests, {res.n_steps} steps ({steps} decoded), "
           f"{wall:.3f} s wall [{card_line}]")
     print(f"launches: {launches}")
-    expect_launches(launches, **{chunk: N_GLA_LAYERS, decode: N_GLA_LAYERS * steps})
+    expect_launches(launches, **{chunk: N_GLA_LAYERS},
+                    **({decode: N_GLA_LAYERS * steps} if decode else {}))
     require(res.tokens.shape == (cfg.n_quant, BATCH, MAX_SEQLEN) and int(res.tokens.min()) >= 0
             and int(res.tokens.max()) < model.n_target_vocab, "tokens out of range")
     add_launches(total, launches)
@@ -2371,9 +2429,10 @@ def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy,
 
 def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, chunk="gla_chunk",
                           decode="gla_decode"):
-    """DecodeServer on simple-GLA without convs (or RWKV6): 8 requests
-    through 8 slots in classic mode (prefill chunks all on ``chunk``, tokens
-    on ``decode``), launch counts against the formula."""
+    """DecodeServer on simple-GLA without convs (or RWKV6, or Mamba): 8
+    requests through 8 slots in classic mode (prefill chunks all on
+    ``chunk``, tokens on ``decode``, or on no kernel with ``decode`` None),
+    launch counts against the formula."""
     from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
 
     reqs = serving_requests(np, cfg)[:SERVE_CLASSIC_REQUESTS]
@@ -2390,8 +2449,8 @@ def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, chunk="gla
           f"{wall:.3f} s wall [{card_line}]")
     print(f"launches: {launches}")
     n_prefill = sum(len(_pow2_chunks(1 + (0 if p is None else p.shape[1]))) for _, p, _ in reqs)
-    expect_launches(launches, **{chunk: N_GLA_LAYERS * n_prefill,
-                                 decode: N_GLA_LAYERS * WINDOW * n_chunks})
+    expect_launches(launches, **{chunk: N_GLA_LAYERS * n_prefill},
+                    **({decode: N_GLA_LAYERS * WINDOW * n_chunks} if decode else {}))
     for (_, _, max_len), c in zip(reqs, (done[r] for r in sorted(done))):
         require(c.tokens.shape == (c.length, cfg.n_quant) and c.length <= max_len
                 and (c.stopped or c.length == max_len), f"request {c.rid}: length {c.length}")
@@ -2809,6 +2868,307 @@ def launched_rwkv6_shapes_phase(torch, rwkv6_cuda):
             "RWKV6: launched but not held")
 
 
+MAMBA_LEAVES = ("x", "dt", "A", "B", "C", "D", "s0")
+
+
+def mamba_inputs(torch, b, t, io, st, reset, seed):
+    """x, B, C in the IO dtype (d 2048, n 16); f32 steps dt =
+    softplus(N(-2, 1)), rates A = -U(1, 16) (as perturb_mamba_params_ draws
+    exp(A_log)), D ~ U(0.5, 1.5); an initial state of dtype ``st`` (None:
+    none); with ``reset`` a reset mask at 5% of the steps (a packed batch's
+    segment starts)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    u = lambda *s: torch.rand(*s, generator=g, device=DEVICE)
+    d, n = MAMBA_D, MAMBA_N
+    return dict(x=r(b, t, d).to(io), dt=torch.nn.functional.softplus(r(b, t, d) - 2.0),
+                A=-(1.0 + 15.0 * u(d, n)), B=r(b, t, n).to(io), C=r(b, t, n).to(io),
+                D=0.5 + u(d), s0=None if st is None else r(b, d, n).to(st),
+                reset=(u(b, t) < 0.05) if reset else None)
+
+
+def mamba_work(b, t, backward=False):
+    """(f32 operations, exponentials) of the selective scan over t tokens:
+    per state value the decay's argument, the update and the readout (6
+    operations) and one exponential; the backward adds the reverse step (15
+    operations: the readout's and the state's cotangents, the dA, dt, dB,
+    dC and u terms) to the recomputation, and needs each decay once more
+    only if it does not keep them, so one exponential is counted."""
+    per = 21 if backward else 6
+    return b * t * MAMBA_D * MAMBA_N * per, b * t * MAMBA_D * MAMBA_N
+
+
+def mamba_grads(torch, fn, x, dy, dsf, need_ds0):
+    """(y, sf, gradients) of sum(y * dy) + sum(sf * dsf) through ``fn``
+    (mamba_scan or its plain version) w.r.t. x, dt, A, B, C, D, and s0 where
+    there is one and ``need_ds0``."""
+    names = list(MAMBA_LEAVES[:6]) + (["s0"] if x["s0"] is not None and need_ds0 else [])
+    args = {n: x[n] if n not in names else x[n].detach().clone().requires_grad_(True)
+            for n in MAMBA_LEAVES}
+    y, sf = fn(*(args[n] for n in MAMBA_LEAVES[:6]), initial_state=args["s0"],
+               reset_mask=x["reset"])
+    loss = (y.float() * dy.float()).sum() + (sf * dsf).sum()
+    grads = torch.autograd.grad(loss, [args[n] for n in names])
+    return y.detach(), sf.detach(), dict(zip(names, grads))
+
+
+def hold_own_max(name, got, ref, rel):
+    """``got`` within ``rel`` of max|ref| (no floor); both finite, non-zero."""
+    import torch
+
+    ref_max = float(ref.float().abs().max())
+    require(bool(torch.isfinite(got.float()).all()) and ref_max > 0
+            and float(got.float().abs().max()) > 0, f"{name}: not finite, or all zeros")
+    check(name, max_err(got, ref), rel * ref_max)
+
+
+def hold_mamba_scan(torch, mamba_cuda, shape, need_ds0=None):
+    """mamba_scan at ``shape`` = (b, t, d, n, IO dtype, initial-state dtype
+    or None, reset mask) against its plain version: with ``need_ds0`` None
+    the inference forward (y, final state); otherwise as training calls it
+    (autograd recording: the forward kernel and the hand-written backward)
+    against autograd through the plain loop, y, the final state and the
+    seven gradient leaves (dx, ddt, dA, dB, dC, dD, and ds0 where wanted),
+    each within a share of its own max|plain|, finite and non-zero; the
+    backward runs twice and must give the same bits. Returns (inputs, dy,
+    dsf, gradients, worst gradient share); the last four None for the
+    inference forward."""
+    b, t, d, n, io, st, reset = shape
+    x = mamba_inputs(torch, b, t, io, st, reset, seed=900 + t + b)
+    name = (f"mamba_scan b{b} t{t} d{d} n{n} IO {dtype_name(io)} initial state "
+            f"{dtype_name(st)}{', reset mask' if reset else ''}")
+    args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+    before = mamba_cuda.launch_counts()
+    result = (x, None, None, None, None)
+    if need_ds0 is None:
+        with torch.no_grad():
+            y_k, s_k = mamba_cuda.mamba_scan(*args, initial_state=x["s0"], reset_mask=x["reset"])
+            y_p, s_p = mamba_cuda.mamba_scan_plain(*args, initial_state=x["s0"],
+                                                   reset_mask=x["reset"])
+    else:
+        g = torch.Generator(device=DEVICE).manual_seed(t)
+        dy = torch.randn(b, t, d, generator=g, device=DEVICE).to(io)
+        dsf = torch.randn(b, d, n, generator=g, device=DEVICE)
+        y_k, s_k, got = mamba_grads(torch, mamba_cuda.mamba_scan, x, dy, dsf, need_ds0)
+        y_p, s_p, ref = mamba_grads(torch, mamba_cuda.mamba_scan_plain, x, dy, dsf, need_ds0)
+        name += "" if need_ds0 or st is None else ", no ds0"
+    after = mamba_cuda.launch_counts()
+    torch.cuda.synchronize()
+    require(after["mamba_scan"] == before["mamba_scan"] + 1
+            and after["mamba_scan_bwd"] == before["mamba_scan_bwd"] + (need_ds0 is not None),
+            f"{name}: not launched through the kernels")
+    print(f"{name}, forward:")
+    require(y_k.dtype == io and s_k.dtype == torch.float32, "mamba_scan output dtypes")
+    hold_own_max("y", y_k, y_p, TOL_BF16 if io == torch.bfloat16 else TOL_F32)
+    hold_own_max("final state", s_k, s_p, TOL_F32)
+    MAMBA_HELD["mamba_scan"].add(shape)
+    if need_ds0 is not None:
+        worst = check_grads(f"{name}, backward", got, ref,
+                            TOL_GRAD if io == torch.bfloat16 else TOL_F32)
+        again = mamba_grads(torch, mamba_cuda.mamba_scan, x, dy, dsf, need_ds0)[2]
+        same = [k for k in got if not torch.equal(got[k], again[k])]
+        require(not same, f"{name}: a second backward gave other bits in {same}")
+        print(f"  a second backward: the same bits in all {len(got)} leaves")
+        MAMBA_HELD["mamba_scan_bwd"].add((*shape, need_ds0 and st is not None))
+        result = (x, dy, dsf, got, worst)
+    return result
+
+
+def mamba_kernel_phase(torch, mamba_cuda, summary):
+    """The two Mamba kernels against their plain versions at the flagship
+    mixer's width (d 2048, n 16; bf16 x, B, C; f32 dt, A, D, states): the
+    forward at b8 t151 (generate's prefill) with an f32 and with no initial
+    state, and at b1 for every server chunk length down to t1; forward and
+    backward at b8 t512 (training) with an initial state, without one and
+    with a reset mask, all seven gradient leaves, twice for equal bits.
+    Every time beside its bound (bytes, f32 operations or the exponentials
+    at the SFU rate) and the plain version's. The summary takes the forward
+    at b8 t151 with an f32 state (what generate launches) and the backward
+    at b8 t512 without one (what training launches)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    d, n = MAMBA_D, MAMBA_N
+    shapes = [(BATCH, T_PROMPT + 1, f32), (BATCH, T_PROMPT + 1, None)]
+    shapes += [(1, t, f32) for t in CHUNK_T]
+    for b, t, st in shapes:
+        x = hold_mamba_scan(torch, mamba_cuda, (b, t, d, n, bf, st, False))[0]
+        args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+        with torch.no_grad():
+            ms, plain_ms = timed_pair(
+                f"mamba_scan b{b} t{t} initial state {dtype_name(st)}",
+                lambda: mamba_cuda.mamba_scan(*args, initial_state=x["s0"]),
+                lambda: mamba_cuda.mamba_scan_plain(*args, initial_state=x["s0"]), 3)
+            y_k, s_k = mamba_cuda.mamba_scan(*args, initial_state=x["s0"])
+            y_p = mamba_cuda.mamba_scan_plain(*args, initial_state=x["s0"])[0]
+        flops, exps = mamba_work(b, t)
+        work = (nbytes(*args, x["s0"], y_k, s_k), flops, f32)
+        if (b, st) == (BATCH, f32):
+            record(summary, "mamba_scan", max_err(y_k, y_p), ms, plain_ms, *work, exps=exps)
+        else:
+            note_shape("mamba_scan", f"b{b} t{t} initial state {dtype_name(st)}", ms,
+                       plain_ms, *work, exps=exps)
+    t = TRAIN_T[0]
+    for st, reset in ((f32, False), (None, True), (None, False)):
+        x, dy, dsf, got, worst = hold_mamba_scan(
+            torch, mamba_cuda, (TRAIN_BATCH, t, d, n, bf, st, reset), True)
+        if st is not None or reset:
+            continue
+        args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+        with torch.no_grad():
+            fwd_ms, fwd_plain_ms = timed_pair(
+                f"mamba_scan training forward b{TRAIN_BATCH} t{t}",
+                lambda: mamba_cuda.mamba_scan(*args), lambda: mamba_cuda.mamba_scan_plain(*args), 3)
+            y_k, s_k = mamba_cuda.mamba_scan(*args)
+        flops, exps = mamba_work(TRAIN_BATCH, t)
+        note_shape("mamba_scan", f"training forward b{TRAIN_BATCH} t{t} initial state none",
+                   fwd_ms, fwd_plain_ms, nbytes(*args, y_k, s_k), flops, f32, exps=exps)
+        bwd = lambda: mamba_cuda.mamba_scan_bwd(*args, None, None, dy, dsf, need_ds0=False)
+        plain_both = lambda: mamba_grads(torch, mamba_cuda.mamba_scan_plain, x, dy, dsf, False)
+        ms, plain = [], []
+        for which in ("plain", "kernel", "kernel", "plain"):
+            if which == "kernel":
+                ms.append(device_ms(bwd, 5))
+            else:  # autograd's backward is not captured in a graph: eager
+                plain.append(eager_ms(plain_both, 2, warmup=1) - fwd_plain_ms)
+        print(f"  mamba_scan_bwd device ms: kernel {ms}; plain backward (eager forward and "
+              f"backward on the host's clock, less the plain forward) {plain}")
+        mean = lambda xs: sum(xs) / len(xs)
+        flops, exps = mamba_work(TRAIN_BATCH, t, backward=True)
+        # max_abs_err: the largest error of a leaf as a share of its max|plain|
+        record(summary, "mamba_scan_bwd", worst, mean(ms), mean(plain),
+               nbytes(*args, dy, dsf, *got.values()), flops, f32, exps=exps)
+        scratch = (TRAIN_BATCH * -(-t // 16) * d * n + 2 * (d // 32) * TRAIN_BATCH * t * n) * 4
+        print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of checkpoints and "
+              f"dB / dC parts")
+        profiled(torch, lambda: [bwd() for _ in range(3)],
+                 f"3 calls of mamba_scan_bwd b{TRAIN_BATCH} t{t}", top=6)
+    reset_counts()  # the kernel phases' launches are no path's
+
+
+def mamba_phase(torch, np, gla_cuda, card_line):
+    """Mamba (v1) at the flagship's width (lina_gla_169m with kind="mamba",
+    314,976,578 parameters, random weights from seed 0 with A_log, D and
+    dt_proj's bias drawn off their inits, bf16 compute, f32 states):
+    generate_batch for 8 requests (classic loop; mamba_scan for the
+    prefill, the plain selective_step for each token) with the kernel path
+    held against the plain path under teacher forcing (in bf16, and on a
+    copy built in f32 compute), a DecodeServer in classic mode (8 requests,
+    8 slots) and three train steps at b8 (mamba_scan and its backward), the
+    kernel path's loss and parameter gradients held against the plain
+    path's on a batch of 2; then the interleaved CrossAttMamba (cross
+    attention after layers 5 and 11): a 16-token generate and one train
+    step. Mamba has no lazy window and no S0 tuning, as in JAX."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.models.mamba import MambaMixer, perturb_mamba_params_
+    from lina_speech_tpu_torch.train.harness import (
+        TrainConfig, batch_to_device, create_train_state, make_train_step,
+    )
+
+    cfg = variant_cfg("mamba")
+    prepare = lambda m: perturb_mamba_params_(m, torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=DEVICE, seed=0)
+    prepare(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    mixers = [m for m in model.modules() if isinstance(m, MambaMixer)]
+    widths = {(m.d_inner, m.d_state, m.d_conv, m.dt_rank) for m in mixers}
+    state = model.empty_state(1, DEVICE).layers[0]
+    print(f"Mamba: {n_params:,} parameters, {len(mixers)} mixers (d_inner, d_state, d_conv, "
+          f"dt_rank) {widths}, state h {state.h.dtype}")
+    require(n_params == N_MAMBA_PARAMS, f"{n_params} parameters, expected {N_MAMBA_PARAMS}")
+    require(len(mixers) == N_GLA_LAYERS and widths == {(MAMBA_D, MAMBA_N, 4, 64)},
+            f"Mamba mixers {widths}")
+    require(state.h.dtype == torch.float32, "Mamba states not f32")
+    names = dict(chunk="mamba_scan", decode=None)
+    f32_copy = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device=DEVICE,
+                           seed=0)
+    prepare(f32_copy)
+    total = variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy=False,
+                                   f32_copy=f32_copy, **names)
+    del f32_copy
+    add_launches(total, variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, **names))
+    del model
+    torch.cuda.empty_cache()
+    model, _, train, check_model = training_phase(
+        torch, np, gla_cuda, card_line, cfg, "mamba_scan", "mamba_scan_bwd",
+        VARIANT_TRAIN_STEPS["mamba"], prepare=prepare)
+    add_launches(total, train)
+    del model, check_model
+    torch.cuda.empty_cache()
+
+    cfg = variant_cfg("mamba", cross_att_layers=INTERLEAVED_LAYERS, blind=False)
+    model = build_model(cfg, device=DEVICE, seed=0)
+    prepare(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_layers = cfg.backbone.n_layer
+    require(n_params == N_CROSSATT_MAMBA_PARAMS,
+            f"CrossAttMamba: {n_params} parameters, expected {N_CROSSATT_MAMBA_PARAMS}")
+    text = torch.from_numpy(np.random.default_rng(4).integers(
+        3, cfg.n_txt_vocab, size=(SHORT_BATCH, TEXT_LEN))).to(DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = generate_batch(model, text, max_seqlen=1 + SHORT_STEPS, k=1, force_max_seqlen=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"CrossAttMamba: {n_params:,} parameters, generate_batch b{SHORT_BATCH} "
+          f"{SHORT_STEPS} tokens, {wall:.3f} s wall [{card_line}]; launches {launches}")
+    expect_launches(launches, mamba_scan=n_layers)
+    require(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < model.n_target_vocab,
+            "CrossAttMamba: tokens out of range")
+    add_launches(total, launches)
+    state = create_train_state(model, TrainConfig(n_warmup_steps=2, n_training_steps=100))
+    batch = batch_to_device(next(synthetic_tts_batches(
+        batch_size=TRAIN_BATCH, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook,
+        min_audio_len=MIN_AUDIO, max_audio_len=MAX_AUDIO, seed=2)), DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, metrics = make_train_step(model)(state, batch, torch.Generator(device=DEVICE))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    print(f"CrossAttMamba train step b{TRAIN_BATCH} (t {batch['y_mask'].shape[1]}): loss "
+          f"{loss:.4f}, grad_norm {norm:.4f}, {ms:.1f} ms [{card_line}]; launches {launches}")
+    require(np.isfinite(loss) and np.isfinite(norm) and norm > 0,
+            f"CrossAttMamba step: loss {loss}, grad_norm {norm}")
+    expect_launches(launches, mamba_scan=n_layers, mamba_scan_bwd=n_layers)
+    add_launches(total, launches)
+    del model, state
+    torch.cuda.empty_cache()
+    return total
+
+
+def launched_mamba_shapes_phase(torch, mamba_cuda):
+    """Every shape the driven Mamba paths launched the two Mamba kernels on
+    is held against the plain version now, unless the Mamba kernel phase
+    held it already."""
+    todo = {n: sorted(MAMBA_LAUNCHED[n] - MAMBA_HELD[n], key=str) for n in MAMBA_LAUNCHED}
+    print("the driven Mamba paths launched " + ", ".join(
+        f"{n} on {len(MAMBA_LAUNCHED[n])} shapes ({len(todo[n])} not held yet)" for n in todo))
+    require(all(MAMBA_LAUNCHED.values()), f"a Mamba kernel launched on no shape: {MAMBA_LAUNCHED}")
+    for shape in todo["mamba_scan_bwd"]:
+        hold_mamba_scan(torch, mamba_cuda, shape[:-1], need_ds0=shape[-1])
+    for shape in sorted(MAMBA_LAUNCHED["mamba_scan"] - MAMBA_HELD["mamba_scan"], key=str):
+        hold_mamba_scan(torch, mamba_cuda, shape)
+    require(all(MAMBA_LAUNCHED[n] <= MAMBA_HELD[n] for n in MAMBA_LAUNCHED),
+            "Mamba: launched but not held")
+
+
+def sfu_rate(torch) -> float:
+    """Exponentials per second of the card's special-function units at its
+    highest SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = SFU_PER_CLOCK * sms * float(mhz) * 1e6
+    print(f"SFU rate: {SFU_PER_CLOCK} a clock x {sms} SMs x {mhz} MHz = {rate:.4e} exp/s")
+    return rate
+
+
 def main():
     import numpy as np
     import torch
@@ -2816,12 +3176,14 @@ def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on a GPU only")
-    from lina_speech_tpu_torch.ops import _build, gla_cuda, rwkv6_cuda
+    from lina_speech_tpu_torch.ops import _build, gla_cuda, mamba_cuda, rwkv6_cuda
 
+    global SFU_RATE
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card_line = card()
     print(card_line)
+    SFU_RATE = sfu_rate(torch)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     path = _build.build()
@@ -2859,6 +3221,9 @@ def main():
     rwkv6_kernel_phase(torch, rwkv6_cuda, summary)
     add_launches(launches, rwkv6_phase(torch, np, gla_cuda, card_line))
     launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
+    mamba_kernel_phase(torch, mamba_cuda, summary)
+    add_launches(launches, mamba_phase(torch, np, gla_cuda, card_line))
+    launched_mamba_shapes_phase(torch, mamba_cuda)
     kernels = []
     for name, source, replaces in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")

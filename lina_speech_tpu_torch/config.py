@@ -4,9 +4,10 @@ Field for field the same as ``lina_speech_tpu/config.py`` so a YAML config
 or a preset means the same model in both packages; only ``build_model``
 differs, building the PyTorch modules. The port covers the GLA family:
 ``kind="gla"`` (with ``cross_att_pp``, and with ``cross_att_layers`` the
-interleaved CrossAttGLA), ``"simple_gla"`` and ``"mamba2"``, and
-``"rwkv6"``; every other kind raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+interleaved CrossAttGLA), ``"simple_gla"`` and ``"mamba2"``; ``"rwkv6"``;
+and ``"mamba"`` (Mamba v1, with ``cross_att_layers`` the interleaved
+CrossAttMamba). ``kind="transformer"`` and a speaker encoder raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -108,8 +109,7 @@ def torch_dtype(name: str) -> torch.dtype:
 # backbone kinds the JAX package builds and this port does not yet, with the
 # ROADMAP.md Queue 1 item that ports each
 _NOT_PORTED = {
-    "mamba": "Queue 1 item 9c (Mamba, transformer, speaker encoder)",
-    "transformer": "Queue 1 item 9c (Mamba, transformer, speaker encoder)",
+    "transformer": "Queue 1 item 9d (transformer, speaker encoder)",
 }
 
 
@@ -124,7 +124,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA, CrossAttGLA
     from lina_speech_tpu_torch.models.encoder import TextEncoder
     from lina_speech_tpu_torch.models.lina import LinaModel, init_params
-    from lina_speech_tpu_torch.models.mamba import AttentiveMamba2
+    from lina_speech_tpu_torch.models.mamba import AttentiveMamba, AttentiveMamba2, CrossAttMamba
     from lina_speech_tpu_torch.models.rwkv6 import AttentiveRWKV6
     from lina_speech_tpu_torch.models.simple_gla import AttentiveSimpleGLA
 
@@ -133,11 +133,11 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         raise NotImplementedError(
             f"backbone kind {b.kind!r} is not ported yet "
             f"(ROADMAP.md {_NOT_PORTED[b.kind]})")
-    if b.kind not in ("gla", "simple_gla", "mamba2", "rwkv6"):
+    if b.kind not in ("gla", "simple_gla", "mamba2", "rwkv6", "mamba"):
         raise ValueError(f"unknown backbone kind {b.kind}")
     if cfg.spk_encoder is not None:
         raise NotImplementedError(
-            "SimpleSpeakerEncoder is not ported yet (ROADMAP.md Queue 1 item 9c)")
+            "SimpleSpeakerEncoder is not ported yet (ROADMAP.md Queue 1 item 9d)")
     if b.cp_axis is not None:
         raise NotImplementedError(
             "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
@@ -152,9 +152,10 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
                 "the model on the CPU")
         device = "cuda"
 
-    # as the JAX package's build_model (config.py:132-191): only the
+    # as the JAX package's build_model (config.py:132-200): only the
     # AttentiveGLA of kind "gla" takes state_dtype, simple-GLA takes
-    # use_short_conv but not expand_k / expand_v, RWKV6 none of the three
+    # use_short_conv but not expand_k / expand_v, RWKV6 and Mamba none of
+    # the three; the interleaved stacks take no blind / PP options
     dtype = torch_dtype(cfg.compute_dtype)
     common = dict(d_model=b.d_model, n_layer=b.n_layer, heads=b.heads, dropout=b.dropout,
                   kernel_mode=b.kernel_mode, dtype=dtype)
@@ -173,6 +174,10 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
                                  **stack, **common)
     elif b.kind == "rwkv6":
         rnn = AttentiveRWKV6(**stack, **common)
+    elif b.kind == "mamba" and b.cross_att_layers:
+        rnn = CrossAttMamba(cross_att_layers=b.cross_att_layers, rotary=b.rotary, **common)
+    elif b.kind == "mamba":
+        rnn = AttentiveMamba(**stack, **common)
     else:
         rnn = AttentiveMamba2(headdim=64 if (2 * b.d_model) % 64 == 0 else 16,
                               **stack, **common)

@@ -6,12 +6,13 @@ an explicit :class:`BackboneState` threaded by the caller.
 ``EncoderCrossDecoder``): n_layer mixer blocks, ONE cross-attention (blind,
 PP or vanilla), n_layer mixer blocks; a concrete backbone gives it its
 mixer block (``_block``) and that block's empty state (``_layer_state``).
-:class:`AttentiveGLA` (reference gla.py:252-365), ``AttentiveMamba2``
-(``models/mamba.py``) and ``AttentiveRWKV6`` (``models/rwkv6.py``) plug
-into it. :class:`CrossAttGLA` is the interleaved
-variant (reference gla.py:367-420, JAX ``InterleavedCrossAtt``): a single
-stack with a vanilla CrossAttention after the listed layers, per-layer
-states and no pos_net.
+:class:`AttentiveGLA` (reference gla.py:252-365), ``AttentiveMamba`` and
+``AttentiveMamba2`` (``models/mamba.py``) and ``AttentiveRWKV6``
+(``models/rwkv6.py``) plug into it. :class:`InterleavedCrossAtt` is the
+interleaved scaffold (JAX ``InterleavedCrossAtt``): a single stack with a
+vanilla CrossAttention after the listed layers, per-layer states and no
+pos_net; :class:`CrossAttGLA` (reference gla.py:367-420) and
+``CrossAttMamba`` (``models/mamba.py``) plug into it.
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ def add_lazy_buffers(state: BackboneState, window: int,
     ``state_quant="int8"`` also row-quantizes the LAYER base states (the
     bulk of the bytes a decode step reads); the one pos_net state stays
     full precision, as in the JAX package. A state of another mixer
-    (Mamba-2, RWKV6) has no lazy window: ``TypeError``, as in JAX."""
+    (Mamba, Mamba-2, RWKV6) has no lazy window: ``TypeError``, as in JAX."""
     def one(st, quant):
         if not isinstance(st, GLAState):
             raise TypeError(f"lazy decode unsupported for {type(st).__name__}")
@@ -319,32 +320,43 @@ class AttentiveGLA(EncoderCrossDecoder):
         return dataclasses.replace(state, layers=tuple(layers))
 
 
-class CrossAttGLA(nn.Module):
-    """A single stack of ``n_layer`` GLA blocks with a vanilla CrossAttention
-    (``cross_att_heads`` heads) after each layer of ``cross_att_layers``
-    (JAX ``InterleavedCrossAtt`` / ``CrossAttGLA``, reference gla.py:367-477).
-    The attention maps of those layers are concatenated over the head axis.
-    The cross-attentions are named ``cross_att_<i>``, as the JAX package's
-    ``torch_key_for`` names them."""
+class InterleavedCrossAtt(nn.Module):
+    """A single stack of ``n_layer`` mixer blocks with a vanilla
+    CrossAttention (``cross_att_heads`` heads) after each layer of
+    ``cross_att_layers`` (JAX ``InterleavedCrossAtt``, reference
+    gla.py:367-477 and mamba.py:115-257). The attention maps of those layers
+    are concatenated over the head axis. The cross-attentions are named
+    ``cross_att_<i>``, as the JAX package's ``torch_key_for`` names them. A
+    subclass gives its mixer block (``_block``; ``_layer_state`` is the
+    block's own empty state unless it says otherwise), sets its own
+    attributes after ``super().__init__`` and then calls :meth:`_build`; the
+    states are per layer, with no pos_net."""
 
     blind = cross_att_pp = False
 
     def __init__(self, d_model: int, n_layer: int, cross_att_layers: Sequence[int],
                  heads: int, cross_att_heads: int = 1, dropout: float = 0.0,
-                 rotary: bool = False, use_short_conv: bool = False, expand_k: float = 1.0,
-                 expand_v: float = 2.0, chunk_size: int = 64, kernel_mode: str = "auto",
-                 dtype: torch.dtype = torch.float32,
+                 rotary: bool = False, dtype: torch.dtype = torch.float32,
                  state_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model, self.n_layer, self.heads = d_model, n_layer, heads
         self.cross_att_layers = tuple(cross_att_layers)
+        self.cross_att_heads, self.dropout, self.rotary = cross_att_heads, dropout, rotary
         self.dtype, self.state_dtype = dtype, state_dtype
-        self.blocks = nn.ModuleList(
-            _gla_block(d_model, heads, use_short_conv, expand_k, expand_v, dropout,
-                       chunk_size, dtype, False, kernel_mode) for _ in range(n_layer))
+
+    # ---- subclass hooks ----
+    def _block(self, d: int) -> MixingBlock:
+        raise NotImplementedError
+
+    def _layer_state(self, block: MixingBlock, batch_size: int, device):
+        return block.tmix.empty_state(batch_size, state_dtype=self.state_dtype, device=device)
+
+    def _build(self) -> None:
+        d = self.d_model
+        self.blocks = nn.ModuleList(self._block(d) for _ in range(self.n_layer))
         for i, _ in enumerate(self.cross_att_layers):
             setattr(self, f"cross_att_{i}", CrossAttention(
-                d_model, d_model, d_model, cross_att_heads, rotary=rotary, dtype=dtype))
+                d, d, d, self.cross_att_heads, rotary=self.rotary, dtype=self.dtype))
 
     def _cross_att(self, layer: int) -> Optional[CrossAttention]:
         if layer not in self.cross_att_layers:
@@ -404,6 +416,26 @@ class CrossAttGLA(nn.Module):
                                           for blk, st in zip(self.blocks, state.layers)))
 
     def empty_state(self, batch_size: int, device=None) -> BackboneState:
-        return BackboneState(layers=tuple(
-            blk.tmix.empty_state(batch_size, state_dtype=self.state_dtype, device=device)
-            for blk in self.blocks))
+        return BackboneState(layers=tuple(self._layer_state(blk, batch_size, device)
+                                          for blk in self.blocks))
+
+
+class CrossAttGLA(InterleavedCrossAtt):
+    """The interleaved backbone with GLA blocks (JAX ``CrossAttGLA``,
+    reference gla.py:367-477)."""
+
+    def __init__(self, d_model: int, n_layer: int, cross_att_layers: Sequence[int],
+                 heads: int, cross_att_heads: int = 1, dropout: float = 0.0,
+                 rotary: bool = False, use_short_conv: bool = False, expand_k: float = 1.0,
+                 expand_v: float = 2.0, chunk_size: int = 64, kernel_mode: str = "auto",
+                 dtype: torch.dtype = torch.float32,
+                 state_dtype: torch.dtype = torch.float32):
+        super().__init__(d_model, n_layer, cross_att_layers, heads, cross_att_heads, dropout,
+                         rotary, dtype, state_dtype)
+        self.use_short_conv, self.expand_k, self.expand_v = use_short_conv, expand_k, expand_v
+        self.chunk_size, self.kernel_mode = chunk_size, kernel_mode
+        self._build()
+
+    def _block(self, d: int) -> MixingBlock:
+        return _gla_block(d, self.heads, self.use_short_conv, self.expand_k, self.expand_v,
+                          self.dropout, self.chunk_size, self.dtype, False, self.kernel_mode)

@@ -260,8 +260,10 @@ def init_params(model: LinaModel, generator: torch.Generator) -> LinaModel:
     normal with std 1/sqrt(fan_in), embeddings normal(1) (ConvPos table
     1/sqrt(d)), biases zero, norm weights one, the rvq padding row zero;
     Mamba-2: ``A_log`` = log U(1, 16), ``D`` and ``norm_weight`` one, the
-    conv taps (conv_dim, d_conv) normal with std 1/sqrt(conv_dim); RWKV6
-    layers: ``models/rwkv6.py:init_rwkv6_params_``."""
+    conv taps (conv_dim, d_conv) normal with std 1/sqrt(conv_dim); Mamba
+    (v1): ``A_log`` (d_inner, d_state) = log(1 .. d_state) in every channel
+    (S4D-real), ``D`` one, the conv taps as Mamba-2's, ``conv_bias`` and
+    ``dt_proj``'s bias zero; RWKV6 layers: ``models/rwkv6.py:init_rwkv6_params_``."""
     from lina_speech_tpu_torch.models.rwkv6 import RWKV6Attention, init_rwkv6_params_
 
     gla_proj = ("q_proj", "k_proj", "v_proj", "g_proj", "o_proj", "gk_proj")
@@ -277,6 +279,8 @@ def init_params(model: LinaModel, generator: torch.Generator) -> LinaModel:
             continue
         if parts[-1] in ("bias", "conv_bias", "dt_bias"):
             p.zero_()
+        elif parts[-1] == "A_log" and p.ndim == 2:  # Mamba (v1)
+            p.copy_(torch.log(torch.arange(1, p.shape[1] + 1, dtype=p.dtype)).expand(p.shape))
         elif parts[-1] == "A_log":
             p.copy_(torch.log(1.0 + 15.0 * torch.rand(p.shape, generator=generator)))
         elif parts[-1] == "conv_kernel":

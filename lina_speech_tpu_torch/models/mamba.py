@@ -1,13 +1,29 @@
-"""Mamba-2 (SSD) token mixer and the AttentiveMamba2 backbone (PyTorch port).
+"""Mamba token mixers and their backbones (PyTorch port): Mamba (v1) and
+Mamba-2 (SSD).
 
-Counterpart of the Mamba-2 half of ``lina_speech_tpu/models/mamba.py``
-(``MambaState``, ``Mamba2Mixer``, ``mamba2_empty_state``,
-``AttentiveMamba2``; reference layer mamba_ssm Mamba2, model/mamba.py:40-44).
-The SSD recurrence is scalar-per-head-decay linear attention: a state of
-(d_state, headdim) per head, decayed by exp(-exp(A_log) dt_t), with C_t as
-queries, B_t as keys and x_t dt_t as values, at scale 1.0. So it runs on
-the GLA kernels of ``ops/gla_cuda.py``: the prefill and training on
-``gla_chunk`` (and its hand-written backward), the decode token on
+Counterpart of ``lina_speech_tpu/models/mamba.py`` (``MambaState``,
+``mamba_empty_state``, ``MambaMixer``, ``AttentiveMamba``,
+``CrossAttMamba``, ``Mamba2Mixer``, ``mamba2_empty_state``,
+``AttentiveMamba2``; reference model/mamba.py, layers of the external
+``mamba_ssm``).
+
+Mamba (v1): in_proj -> [x | z]; a causal depthwise conv with bias and silu
+on x; x_proj -> [dt | B | C]; dt = softplus(dt_proj(dt)) in f32; the
+selective scan (``ops/mamba_cuda.py``: the ``mamba_scan`` kernel for the
+prefill and the training forward, its hand-written backward for training;
+their plain versions on the CPU, under ``kernel_mode="chunk"`` and for
+shapes the kernels do not take); y * silu(z); out_proj. A decode token
+runs the plain ``selective_step``, as in JAX. A = -exp(A_log) and D are
+cast to f32 before the scan, as the JAX op does. The state is the SSM state
+(b, d_inner, d_state) and the conv ring. The JAX mixer's docstring speaks of
+a reset as a large dt A decay; the op it calls zeroes the decay, and so
+does the port.
+
+Mamba-2: the SSD recurrence is scalar-per-head-decay linear attention: a
+state of (d_state, headdim) per head, decayed by exp(-exp(A_log) dt_t),
+with C_t as queries, B_t as keys and x_t dt_t as values, at scale 1.0. So
+it runs on the GLA kernels of ``ops/gla_cuda.py``: the prefill and training
+on ``gla_chunk`` (and its hand-written backward), the decode token on
 ``gla_decode``. The JAX package calls the plain ``ops/gla.py`` scans here;
 they compute the same function, and on the card the port runs the kernels
 (plain versions on the CPU, under ``kernel_mode="chunk"``, and for heads
@@ -27,26 +43,154 @@ JAX chunked scan also runs its matmuls in bf16; the port's f32 scan is the
 more exact of the two (the tests compare in f32). The recurrent state keeps
 the JAX layout (b, heads * d_state, headdim) in :class:`MambaState` and is
 viewed as (b, heads, d_state, headdim) around each kernel call.
+
+Neither mixer has a lazy-window decode or initial-state tuning, as in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lina_speech_tpu_torch.models.attentive_rnn import EncoderCrossDecoder
+from lina_speech_tpu_torch.models.attentive_rnn import (
+    EncoderCrossDecoder, InterleavedCrossAtt,
+)
 from lina_speech_tpu_torch.models.base_blocks import Linear, MixingBlock, SwiGLU
-from lina_speech_tpu_torch.ops import gla_cuda
+from lina_speech_tpu_torch.ops import gla_cuda, mamba_cuda
+from lina_speech_tpu_torch.ops.mamba import selective_step
 from lina_speech_tpu_torch.ops.short_conv import causal_depthwise_conv, short_conv_step
 
 
 @dataclasses.dataclass
 class MambaState:
-    h: torch.Tensor     # (b, heads * d_state, headdim) in the state dtype
-    conv: torch.Tensor  # (d_conv, b, d_inner + 2 d_state) time-major ring
+    # Mamba: h (b, d_inner, d_state), conv (d_conv, b, d_inner); Mamba-2: h
+    # (b, heads * d_state, headdim), conv (d_conv, b, d_inner + 2 d_state).
+    # h in the state dtype; conv is a time-major ring of the conv inputs
+    h: torch.Tensor
+    conv: torch.Tensor
+
+
+def mamba_empty_state(batch_size: int, d_model: int, expand: int = 2, d_state: int = 16,
+                      d_conv: int = 4, dtype: torch.dtype = torch.float32,
+                      state_dtype: torch.dtype = torch.float32, device=None) -> MambaState:
+    d_inner = expand * d_model
+    return MambaState(
+        h=torch.zeros(batch_size, d_inner, d_state, dtype=state_dtype, device=device),
+        conv=torch.zeros(d_conv, batch_size, d_inner, dtype=dtype, device=device))
+
+
+def _conv_tail(xs: torch.Tensor, initial_state: Optional[MambaState], use_hist: bool,
+               w: int) -> torch.Tensor:
+    """The conv ring after this chunk: its last ``w`` conv inputs, time-major
+    (w, b, dim), the carried ring in front where ``use_hist``, zeros in front
+    of a chunk shorter than ``w`` without it."""
+    if use_hist:
+        full = torch.cat([initial_state.conv.transpose(0, 1).to(xs.dtype), xs], 1)
+    else:
+        full = F.pad(xs, (0, 0, max(0, w - xs.shape[1]), 0))
+    return full[:, -w:].transpose(0, 1).contiguous()
+
+
+def _conv_with_history(xs: torch.Tensor, initial_state: Optional[MambaState],
+                       conv_history: bool, taps, w: int):
+    """The causal conv (with silu) of ``xs`` (b, t, dim); with
+    ``conv_history`` the carried ring of ``initial_state`` is its history.
+    Returns (conv output, whether the history was used)."""
+    if conv_history and initial_state is None:
+        raise ValueError("conv_history=True requires initial_state")
+    if not conv_history:
+        return causal_depthwise_conv(xs, *taps), False
+    ring = initial_state.conv.transpose(0, 1).to(xs.dtype)  # (b, w, dim)
+    out = causal_depthwise_conv(torch.cat([ring[:, 1:], xs], dim=1), *taps)
+    return out[:, w - 1:], True
+
+
+class MambaMixer(nn.Module):
+    """Mamba (v1) token mixer; parameter names and layouts as the JAX
+    module's (``in_proj``, ``conv_kernel`` (d_inner, d_conv), ``conv_bias``,
+    ``x_proj``, ``dt_proj`` (with bias), ``A_log`` (d_inner, d_state), ``D``,
+    ``out_proj``). ``kernel_mode``: "auto" (the ``mamba_scan`` wrapper) or
+    "chunk" / "scan" (its plain version, a time loop, on every device)."""
+
+    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
+                 dt_rank: Optional[int] = None, kernel_mode: str = "auto",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if kernel_mode not in ("auto", "chunk", "scan"):
+            raise NotImplementedError(
+                f"kernel_mode={kernel_mode!r} is not ported; the port has 'auto' "
+                "(kernels on CUDA) and 'chunk' / 'scan' (plain PyTorch)")
+        self.d_model, self.d_state, self.d_conv, self.expand = d_model, d_state, d_conv, expand
+        self.d_inner = expand * d_model
+        self.dt_rank = dt_rank or math.ceil(d_model / 16)
+        self.kernel_mode, self.dtype = kernel_mode, dtype
+        d_in = self.d_inner
+        self.in_proj = Linear(d_model, 2 * d_in, bias=False, dtype=dtype)
+        self.conv_kernel = nn.Parameter(torch.empty(d_in, d_conv))
+        self.conv_bias = nn.Parameter(torch.zeros(d_in))
+        self.x_proj = Linear(d_in, self.dt_rank + 2 * d_state, bias=False, dtype=dtype)
+        self.dt_proj = Linear(self.dt_rank, d_in, bias=True, dtype=dtype)
+        self.A_log = nn.Parameter(torch.empty(d_in, d_state))
+        self.D = nn.Parameter(torch.ones(d_in))
+        self.out_proj = Linear(d_in, d_model, bias=False, dtype=dtype)
+
+    def empty_state(self, batch_size: int, state_dtype=torch.float32, device=None) -> MambaState:
+        return mamba_empty_state(batch_size, self.d_model, self.expand, self.d_state,
+                                 self.d_conv, self.dtype, state_dtype, device)
+
+    def _conv_taps(self):
+        return self.conv_kernel.to(self.dtype), self.conv_bias.to(self.dtype)
+
+    def _ssm_inputs(self, x_conv: torch.Tensor):
+        """(dt f32, A, B, C) from the conv output; A = -exp(A_log) in the
+        parameter's dtype, as the JAX mixer computes it."""
+        dt, B, C = self.x_proj(x_conv).split([self.dt_rank, self.d_state, self.d_state], -1)
+        dt = F.softplus(self.dt_proj(dt).float())
+        return dt, -torch.exp(self.A_log), B, C
+
+    def _scan(self, x_conv, dt, A, B, C, s0, reset_mask):
+        """The scan through the ``mamba_scan`` wrapper under "auto" where the
+        kernels take the shape, else its plain version; A and D in f32."""
+        state_dtype = torch.float32 if s0 is None else s0.dtype
+        takes = mamba_cuda.kernel_takes(self.d_inner, self.d_state, x_conv.dtype, state_dtype)
+        fn = mamba_cuda.mamba_scan if self.kernel_mode == "auto" and takes else \
+            mamba_cuda.mamba_scan_plain
+        if reset_mask is not None:  # the model passes a slice of the batch's mask
+            reset_mask = reset_mask.contiguous()
+        return fn(x_conv, dt, A.float(), B.contiguous(), C.contiguous(), self.D.float(),
+                  initial_state=s0, reset_mask=reset_mask)
+
+    def forward(self, x: torch.Tensor, initial_state: Optional[MambaState] = None,
+                output_final_state: bool = False, conv_history: bool = False,
+                reset_mask: Optional[torch.Tensor] = None):
+        """x: (b, t, d) -> (b, t, d) [, MambaState if output_final_state].
+        ``conv_history`` consumes ``initial_state.conv`` as the causal history
+        of this chunk; ``reset_mask`` ((b, t) bool) zeroes the scan's decay
+        where it is True (the conv is not reset, as in JAX)."""
+        xs, z = self.in_proj(x).chunk(2, dim=-1)
+        x_conv, use_hist = _conv_with_history(xs, initial_state, conv_history,
+                                              self._conv_taps(), self.d_conv)
+        dt, A, B, C = self._ssm_inputs(x_conv)
+        s0 = initial_state.h if initial_state is not None else None
+        y, h_final = self._scan(x_conv, dt, A, B, C, s0, reset_mask)
+        out = self.out_proj(y * F.silu(z))
+        if not output_final_state:
+            return out
+        return out, MambaState(h=h_final, conv=_conv_tail(xs, initial_state, use_hist,
+                                                          self.d_conv))
+
+    def step(self, x_t: torch.Tensor, state: MambaState):
+        """x_t: (b, d) one token -> (out (b, d), new state): the plain
+        ``selective_step``."""
+        xs, z = self.in_proj(x_t).chunk(2, dim=-1)
+        x_conv, conv = short_conv_step(xs, state.conv, *self._conv_taps())
+        dt, A, B, C = self._ssm_inputs(x_conv)
+        y, h = selective_step(x_conv, dt, A, B, C, self.D, state.h)
+        return self.out_proj(y * F.silu(z)), MambaState(h=h, conv=conv)
 
 
 def mamba2_empty_state(batch_size: int, d_model: int, expand: int = 2, d_state: int = 64,
@@ -120,17 +264,9 @@ class Mamba2Mixer(nn.Module):
         where it is True."""
         b, t, _ = x.shape
         h, p, n, w = self.n_heads, self.headdim, self.d_state, self.d_conv
-        use_hist = conv_history and initial_state is not None
-        if conv_history and initial_state is None:
-            raise ValueError("conv_history=True requires initial_state")
         z, xbc_pre, dt = self._split(self.in_proj(x))
-        conv_in = xbc_pre
-        if use_hist:
-            ring = initial_state.conv.transpose(0, 1).to(xbc_pre.dtype)  # (b, w, conv_dim)
-            conv_in = torch.cat([ring[:, 1:], xbc_pre], dim=1)
-        xbc = causal_depthwise_conv(conv_in, *self._conv_taps())
-        if use_hist:
-            xbc = xbc[:, w - 1:]
+        xbc, use_hist = _conv_with_history(xbc_pre, initial_state, conv_history,
+                                           self._conv_taps(), w)
         xs, B, C = xbc.split([self.d_inner, n, n], dim=-1)
         xh = xs.reshape(b, t, h, p).transpose(1, 2)  # (b, h, t, p)
         dtf = F.softplus(dt.float() + self.dt_bias)  # (b, t, h)
@@ -150,12 +286,8 @@ class Mamba2Mixer(nn.Module):
         out = self.out_proj(self._gated_norm(o, z))
         if not output_final_state:
             return out
-        if use_hist:
-            full = torch.cat([initial_state.conv.transpose(0, 1).to(xbc_pre.dtype), xbc_pre], 1)
-        else:
-            full = F.pad(xbc_pre, (0, 0, max(0, w - t), 0))
         return out, MambaState(h=s_final.reshape(b, h * n, p),
-                               conv=full[:, -w:].transpose(0, 1).contiguous())
+                               conv=_conv_tail(xbc_pre, initial_state, use_hist, w))
 
     def step(self, x_t: torch.Tensor, state: MambaState):
         """x_t: (b, d) one token -> (out (b, d), new state). On CUDA the
@@ -203,3 +335,74 @@ class AttentiveMamba2(EncoderCrossDecoder):
 
     def _layer_state(self, block: MixingBlock, batch_size: int, device) -> MambaState:
         return block.tmix.empty_state(batch_size, state_dtype=self.state_dtype, device=device)
+
+
+class AttentiveMamba(EncoderCrossDecoder):
+    """Encoder -> cross-attention -> decoder with Mamba (v1) mixers
+    (reference model/mamba.py:20-113), the blind cross-attention's pos_net
+    included."""
+
+    def __init__(self, d_model: int = 1024, n_layer: int = 12, heads: int = 4,
+                 dropout: float = 0.0, d_blind: Optional[int] = None, blind: bool = False,
+                 cross_att_pp: bool = False, rotary: bool = False,
+                 pos_type: str = "sinusoidal", d_state: int = 16, d_conv: int = 4,
+                 expand: int = 2, kernel_mode: str = "auto",
+                 dtype: torch.dtype = torch.float32,
+                 state_dtype: torch.dtype = torch.float32):
+        super().__init__(d_model, n_layer, heads, dropout, d_blind, blind, cross_att_pp,
+                         rotary, pos_type, dtype, state_dtype)
+        self.d_state, self.d_conv, self.expand = d_state, d_conv, expand
+        self.kernel_mode = kernel_mode
+        self._build()
+
+    def _block(self, d: int) -> MixingBlock:
+        return _mamba_block(d, self.d_state, self.d_conv, self.expand, self.kernel_mode,
+                            self.dtype, self.dropout)
+
+    def _layer_state(self, block: MixingBlock, batch_size: int, device) -> MambaState:
+        return block.tmix.empty_state(batch_size, state_dtype=self.state_dtype, device=device)
+
+
+class CrossAttMamba(InterleavedCrossAtt):
+    """A single Mamba (v1) stack with interleaved cross-attention (reference
+    model/mamba.py:115-257, CrossAttMamba / CrossAttMambaV2)."""
+
+    def __init__(self, d_model: int, n_layer: int, cross_att_layers, heads: int,
+                 cross_att_heads: int = 1, dropout: float = 0.0, rotary: bool = False,
+                 d_state: int = 16, d_conv: int = 4, expand: int = 2,
+                 kernel_mode: str = "auto", dtype: torch.dtype = torch.float32,
+                 state_dtype: torch.dtype = torch.float32):
+        super().__init__(d_model, n_layer, cross_att_layers, heads, cross_att_heads, dropout,
+                         rotary, dtype, state_dtype)
+        self.d_state, self.d_conv, self.expand = d_state, d_conv, expand
+        self.kernel_mode = kernel_mode
+        self._build()
+
+    def _block(self, d: int) -> MixingBlock:
+        return _mamba_block(d, self.d_state, self.d_conv, self.expand, self.kernel_mode,
+                            self.dtype, self.dropout)
+
+
+def _mamba_block(d: int, d_state: int, d_conv: int, expand: int, kernel_mode: str,
+                 dtype: torch.dtype, dropout: float) -> MixingBlock:
+    return MixingBlock(d, MambaMixer(d, d_state, d_conv, expand, kernel_mode=kernel_mode,
+                                     dtype=dtype),
+                       SwiGLU(d, dtype=dtype), dropout=dropout)
+
+
+@torch.no_grad()
+def perturb_mamba_params_(model: nn.Module, generator: torch.Generator) -> None:
+    """Move the parameters of every Mamba (v1) mixer of ``model`` that
+    initialize to constants (or to the same row in every channel) off them,
+    so that a check sees channels that differ: ``A_log`` = log U(1, 16),
+    ``D`` ~ U(0.5, 1.5), and ``dt_proj``'s bias the inverse softplus of a
+    step drawn log-uniform in [1e-3, 1e-1] (the reference Mamba's dt
+    init), drawn on the CPU from ``generator``."""
+    draw = lambda p, v: p.copy_(v)
+    for m in model.modules():
+        if isinstance(m, MambaMixer):
+            u = lambda s: torch.rand(s, generator=generator)
+            draw(m.A_log, torch.log(1.0 + 15.0 * u(m.A_log.shape)))
+            draw(m.D, 0.5 + u(m.D.shape))
+            dt = torch.exp(math.log(1e-3) + u(m.dt_proj.bias.shape) * math.log(100.0))
+            draw(m.dt_proj.bias, dt + torch.log(-torch.expm1(-dt)))

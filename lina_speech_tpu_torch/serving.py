@@ -115,8 +115,8 @@ class DecodeServer:
     the model's f32 parameters cast to the compute dtype (the JAX server's
     pre-cast tree) and swaps them in for its own calls only: the caller's
     model is left as it was (but see ``int8_prefill_full_precision``). A
-    Mamba-2 or RWKV6 backbone serves in classic mode; ``lazy=True`` (and so
-    ``state_quant``) raises ``TypeError`` for it, as in JAX.
+    Mamba, Mamba-2 or RWKV6 backbone serves in classic mode; ``lazy=True``
+    (and so ``state_quant``) raises ``TypeError`` for it, as in JAX.
 
     ``weight_quant="int8"`` (with ``quant_min_size`` and ``quant_exclude`` as
     in ``generate_batch``) makes int8 copies of the weights at construction

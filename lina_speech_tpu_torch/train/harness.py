@@ -13,9 +13,10 @@ through hand-written forward and backward kernels (``ops/gla_cuda.py``):
 ``gla_chunk_conv`` with per-projection short convs, ``gla_chunk`` without
 them (simple-GLA, the interleaved and PP backbones without convs) and in
 Mamba-2; an RWKV6 layer through ``rwkv6_chunk`` and its hand-written
-backward (``ops/rwkv6_cuda.py``). The JAX step's mesh, ``auto_layout``,
-``hoist_param_cast``, ``unroll_accum`` and ``donate`` are XLA machinery with
-no counterpart here.
+backward (``ops/rwkv6_cuda.py``); a Mamba (v1) mixer through
+``mamba_scan`` and its hand-written backward (``ops/mamba_cuda.py``). The
+JAX step's mesh, ``auto_layout``, ``hoist_param_cast``, ``unroll_accum`` and
+``donate`` are XLA machinery with no counterpart here.
 """
 from __future__ import annotations
 

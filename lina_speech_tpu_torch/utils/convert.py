@@ -9,15 +9,21 @@ root. :func:`named_tensors_to_jax` goes the other way, for gradients and
 updated parameters: tensors by torch name -> the JAX tree's paths and
 layouts, so that a training step compares leaf by leaf. Decode states
 (GLA states with their conv rings, shared or per projection, and int8 ones
-with their row scales; Mamba-2 and RWKV6 states), the S0 tuning params and the JAX
-package's int8-quantized weight tree cross as arrays too. Names the JAX
-package's ``torch_key_for`` leaves as they are stay so here too: Mamba-2's
-``conv_kernel``, ``A_log``, ``dt_bias``, ``D`` and ``norm_weight``; RWKV6's
+with their row scales; Mamba, Mamba-2 and RWKV6 states), the S0 tuning params and
+the JAX package's int8-quantized weight tree cross as arrays too. Names the
+JAX package's ``torch_key_for`` leaves as they are stay so here too:
+Mamba-2's ``conv_kernel``, ``A_log``, ``dt_bias``, ``D`` and
+``norm_weight``; Mamba's ``conv_kernel`` (d_inner, d_conv), ``conv_bias``,
+``A_log`` (d_inner, d_state) and ``D`` (its four Dense kernels, ``in_proj``,
+``x_proj``, ``dt_proj`` with its bias and ``out_proj``, are transposed like
+every Linear); RWKV6's
 raw parameters ``x_maa``, ``maa``, ``maa_w1``, ``maa_w2``, ``decay_w1``,
 ``decay_w2``, ``time_decay``, ``time_faaaa``, ``ln_x_scale`` and
 ``ln_x_bias``, used as ``x @ W`` in both packages and so not transposed
-(only its five projections' Dense kernels are); the interleaved backbone's ``cross_att_<i>``, CrossAttentionPP's ``ca_0``,
-``ca_1`` and ``inter_net`` (its ``pos_emb`` table maps like an embedding).
+(only its five projections' Dense kernels are); the interleaved backbones'
+``cross_att_<i>`` (CrossAttGLA and CrossAttMamba), CrossAttentionPP's
+``ca_0``, ``ca_1`` and ``inter_net`` (its ``pos_emb`` table maps like an
+embedding).
 """
 from __future__ import annotations
 
@@ -167,7 +173,8 @@ def backbone_state_from_arrays(state, device=None):
     ``state`` is any object with ``layers`` (a sequence) and ``pos_net``,
     each entry carrying a layer state's fields as numpy-convertible arrays
     or None: a GLA state (``s``, the conv rings and, in lazy mode, the
-    window buffers), a Mamba-2 state (``h`` (b, heads * d_state,
+    window buffers), a Mamba state (``h`` (b, d_inner, d_state), ``conv``
+    (d_conv, b, d_inner)), a Mamba-2 state (``h`` (b, heads * d_state,
     headdim), ``conv``) or an RWKV6 state (``s`` (b, h, dk, dv), ``shift``
     (b, d)); the JAX package's state dataclasses fit as they
     are. Layouts are the same on both sides. bfloat16 arrays stay bfloat16,

@@ -827,3 +827,159 @@ def test_rwkv6_kernel_path_matches_plain_path(cuda):
     for name, r in grads["chunk"].items():
         err = float((grads["auto"][name] - r).abs().max())
         assert err <= 1e-3 * float(r.abs().max()) + 1e-6, name
+
+
+# ------------------------------------------------------------ Mamba (v1)
+MAMBA_NAMES = ("x", "dt", "A", "B", "C", "D", "s0")
+
+
+def _mamba_inputs(dev, b, t, d, io, s0=True, reset=False, seed=0):
+    """x, B, C in ``io``; f32 steps dt = softplus(N(-1, 1)), rates A =
+    -U(1, 16), D ~ N(0, 1) and an f32 initial state (``s0``); a reset
+    mask at 5% of the steps (``reset``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r_ = lambda *s: torch.randn(*s, generator=g, device=dev)
+    u_ = lambda *s: torch.rand(*s, generator=g, device=dev)
+    return dict(
+        x=r_(b, t, d).to(io), dt=torch.nn.functional.softplus(r_(b, t, d) - 1.0),
+        A=-(1.0 + 15.0 * u_(d, 16)), B=r_(b, t, 16).to(io), C=r_(b, t, 16).to(io), D=r_(d),
+        s0=r_(b, d, 16) if s0 else None, reset=(u_(b, t) < 0.05) if reset else None)
+
+
+def _mamba_grads(fn, x, seed=3):
+    """(y, sf, gradients) of sum(y * dy) + sum(sf * dsf) through ``fn``
+    (mamba_scan or its plain version) w.r.t. x, dt, A, B, C, D (and s0)."""
+    names = MAMBA_NAMES[:6] + (("s0",) if x["s0"] is not None else ())
+    leaves = {n: x[n].detach().clone().requires_grad_(True) for n in names}
+    y, sf = fn(*(leaves[n] for n in names[:6]), initial_state=leaves.get("s0"),
+               reset_mask=x["reset"])
+    g = torch.Generator(device=y.device).manual_seed(seed)
+    dy = torch.randn(y.shape, generator=g, device=y.device).to(y.dtype)
+    dsf = torch.randn(sf.shape, generator=g, device=y.device)
+    loss = (y.float() * dy.float()).sum() + (sf * dsf).sum()
+    return y, sf, dict(zip(names, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s0,reset", [(True, False), (False, True)])
+@pytest.mark.parametrize("shape", [(8, 151, 2048), (1, 128, 2048), (1, 1, 2048), (3, 37, 96)],
+                         ids=str)
+def test_mamba_scan_kernel_matches_plain(cuda, io, s0, reset, shape):
+    """mamba_scan against its plain version (the time loop): y in the IO
+    dtype and the f32 final state, at the flagship's shapes (d 2048: the
+    generate prefill b8 t151 and server chunks at b1) and a small ragged one."""
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    b, t, d = shape
+    x = _mamba_inputs(cuda, b, t, d, io, s0, reset)
+    args = [x[n] for n in MAMBA_NAMES[:6]]
+    before = mamba_cuda.mamba_scan.launches
+    y, sf = mamba_cuda.mamba_scan(*args, initial_state=x["s0"], reset_mask=x["reset"])
+    y_p, sf_p = mamba_cuda.mamba_scan_plain(*args, initial_state=x["s0"], reset_mask=x["reset"])
+    torch.cuda.synchronize()
+    assert mamba_cuda.mamba_scan.launches == before + 1
+    assert y.dtype == io and sf.dtype == torch.float32
+    assert _rel_err(y, y_p) <= (1e-4 if io == torch.float32 else 1e-2)
+    assert _rel_err(sf, sf_p) <= 1e-4
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s0,reset", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("shape", [(2, 70, 256), (1, 16, 64), (2, 1, 32)], ids=str)
+def test_mamba_scan_backward_kernel_matches_plain_backward(cuda, io, s0, reset, shape):
+    """mamba_scan under autograd runs the forward kernel and the hand-written
+    backward (one launch each); every gradient (dx, ddt, dA, dB, dC, dD,
+    ds0) matches autograd through the plain loop within a share of its own
+    max|plain|, and a second backward gives the same bits (no atomics)."""
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    x = _mamba_inputs(cuda, *shape, io, s0, reset, seed=7)
+    before = mamba_cuda.launch_counts()
+    y, sf, got = _mamba_grads(mamba_cuda.mamba_scan, x)
+    after = mamba_cuda.launch_counts()
+    assert after == {"mamba_scan": before["mamba_scan"] + 1,
+                     "mamba_scan_bwd": before["mamba_scan_bwd"] + 1}
+    again = _mamba_grads(mamba_cuda.mamba_scan, x)[2]
+    y_p, sf_p, ref = _mamba_grads(mamba_cuda.mamba_scan_plain, x)
+    assert _rel_err(y.detach(), y_p.detach()) <= (1e-4 if io == torch.float32 else 1e-2)
+    assert _rel_err(sf.detach(), sf_p.detach()) <= 1e-4
+    share = 2e-2 if io == torch.bfloat16 else 1e-3
+    for name, r in ref.items():
+        a = got[name]
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert torch.equal(a, again[name]), name
+        err, scale = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+        if name == "A" and shape[1] == 1 and not s0:
+            # one step from a zero state: dA = dt g h_{-1} a is 0 on both sides
+            assert err == scale == 0
+            continue
+        assert scale > 0 and err <= share * scale, (name, err, scale)
+
+
+def test_mamba_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """kernel_takes refuses a state size other than 16, channels that are
+    no multiple of 32 and a bf16 state, and the wrapper given such inputs
+    (or a bf16 dt, or a float reset mask) raises instead of running the
+    plain version; the plain route launches nothing."""
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    assert mamba_cuda.kernel_takes(2048, 16, torch.bfloat16, torch.float32)
+    assert not mamba_cuda.kernel_takes(2048, 8, torch.bfloat16, torch.float32)
+    assert not mamba_cuda.kernel_takes(48, 16, torch.float32, torch.float32)
+    assert not mamba_cuda.kernel_takes(64, 16, torch.float32, torch.bfloat16)
+    x = _mamba_inputs(cuda, 2, 8, 64, torch.bfloat16)
+    args = [x[n] for n in MAMBA_NAMES[:6]]
+    with pytest.raises(ValueError):  # channels the kernels do not take
+        mamba_cuda.mamba_scan(*_mamba_inputs(cuda, 2, 8, 48, torch.bfloat16).values())
+    with pytest.raises(ValueError):  # bf16 initial state
+        mamba_cuda.mamba_scan(*args, initial_state=x["s0"].bfloat16())
+    with pytest.raises(ValueError):  # bf16 steps
+        mamba_cuda.mamba_scan(args[0], args[1].bfloat16(), *args[2:])
+    with pytest.raises(ValueError):  # a float reset mask
+        mamba_cuda.mamba_scan(*args, reset_mask=torch.zeros(2, 8, device=cuda))
+    mamba_cuda.reset_launch_counts()
+    mamba_cuda.mamba_scan_plain(*args, initial_state=x["s0"])
+    assert mamba_cuda.launch_counts() == {"mamba_scan": 0, "mamba_scan_bwd": 0}
+
+
+def test_mamba_kernel_path_matches_plain_path(cuda):
+    """The Mamba (v1) backbone at a width the kernels take (d_model 256:
+    d_inner 512, d_state 16) in f32, with A_log, D and dt_proj's bias drawn
+    off their inits: greedy tokens of the kernel path (mamba_scan for the
+    prefill; decode is the plain step on both paths) equal the plain path's,
+    and the training forward's parameter gradients (mamba_scan's backward)
+    match."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.models.mamba import perturb_mamba_params_
+    from lina_speech_tpu_torch.ops import mamba_cuda
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+
+    cfg = _variant_cfg(kind="mamba")
+    text = torch.randint(3, 256, (3, 9), generator=torch.Generator().manual_seed(0)).to(cuda)
+    batch = batch_to_device(next(synthetic_tts_batches(
+        batch_size=2, n_codebook=50, min_audio_len=16, max_audio_len=24)), cuda)
+    tokens, grads = {}, {}
+    model = build_model(cfg, device=cuda, seed=3)
+    perturb_mamba_params_(model, torch.Generator().manual_seed(4))
+    n_layers = 2 * cfg.backbone.n_layer + 1
+    for mode in ("auto", "chunk"):
+        model.set_kernel_mode(mode)
+        mamba_cuda.reset_launch_counts()
+        res = generate_batch(model, text, max_seqlen=20, first_greedy_quant=0,
+                             force_max_seqlen=True)
+        model.zero_grad(set_to_none=True)
+        model(batch["text_token"], batch["audio_token"], batch["encoder_mask"],
+              batch["crossatt_mask"], logits_mask=batch["y_mask"])[1].backward()
+        counts = mamba_cuda.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if mode == "auto":
+            want.update(mamba_scan=2 * n_layers, mamba_scan_bwd=n_layers)
+        assert counts == want
+        tokens[mode] = res.tokens.cpu()
+        grads[mode] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert torch.equal(tokens["auto"], tokens["chunk"])
+    for name, r in grads["chunk"].items():
+        err = float((grads["auto"][name] - r).abs().max())
+        assert err <= 1e-3 * float(r.abs().max()) + 1e-6, name

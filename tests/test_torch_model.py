@@ -265,9 +265,10 @@ def test_unported_options_raise():
     layer = GatedLinearAttention(hidden_size=32, num_heads=2, use_short_conv=True)
     with pytest.raises(ValueError):  # a continuation needs the rings it continues
         layer(torch.zeros(1, 3, 32), conv_history=True)
-    with pytest.raises(NotImplementedError):  # a backbone kind not ported yet
-        torch_build(dataclasses.replace(torch_tiny(), backbone=dataclasses.replace(
-            torch_tiny().backbone, kind="mamba")))
+    for option in (dict(remat=True), dict(cp_axis="cp")):  # backbone options not ported yet
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+            torch_build(dataclasses.replace(torch_tiny(), backbone=dataclasses.replace(
+                torch_tiny().backbone, **option)), device="cpu")
 
 
 def test_decode_continues_prefill(pair):

@@ -6,8 +6,10 @@ import of them fail), imports every module of the port (``train/``,
 ``generate_batch``, a server (both also with int8 weights and int8
 lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``), one train
 step, one S0 tuning step, ``examples/train_torch.py``, and a generate and a
-train step of the simple-GLA (no convs), Mamba-2 and RWKV6 backbones
-(``models/simple_gla.py``, ``models/mamba.py``, ``models/rwkv6.py`` with
+train step of the simple-GLA (no convs), Mamba-2, RWKV6 and Mamba (v1,
+blind and interleaved) backbones (``models/simple_gla.py``,
+``models/mamba.py`` with ``AttentiveMamba``, ``CrossAttMamba``,
+``ops/mamba.py`` and ``ops/mamba_cuda.py``, ``models/rwkv6.py`` with
 ``ops/rwkv6.py`` and ``ops/rwkv6_cuda.py``); it then checks that no
 jax/flax module and nothing of ``lina_speech_tpu`` was loaded.
 """
@@ -69,16 +71,21 @@ spec.loader.exec_module(example)
 sys.argv = ["train_torch.py", "--cpu", "--steps", "1", "--batch", "2", "--min-len", "8",
             "--max-len", "8"]
 example.main()
-# the other backbones: simple-GLA without convs, Mamba-2 and RWKV6
+# the other backbones: simple-GLA without convs, Mamba-2, RWKV6 and Mamba (v1)
 import dataclasses
 for name in ("lina_speech_tpu_torch.models.simple_gla", "lina_speech_tpu_torch.models.mamba",
-             "lina_speech_tpu_torch.models.rwkv6", "lina_speech_tpu_torch.ops.rwkv6_cuda"):
+             "lina_speech_tpu_torch.models.rwkv6", "lina_speech_tpu_torch.ops.rwkv6_cuda",
+             "lina_speech_tpu_torch.ops.mamba", "lina_speech_tpu_torch.ops.mamba_cuda"):
     assert name in sys.modules, name
-for kw in (dict(kind="simple_gla", use_short_conv=False), dict(kind="mamba2"),
-           dict(kind="rwkv6")):
+from lina_speech_tpu_torch.models.mamba import AttentiveMamba, CrossAttMamba
+for kw, cls in ((dict(kind="simple_gla", use_short_conv=False), None),
+                (dict(kind="mamba2"), None), (dict(kind="rwkv6"), None),
+                (dict(kind="mamba"), AttentiveMamba),
+                (dict(kind="mamba", cross_att_layers=(1,), blind=False), CrossAttMamba)):
     cfg = lina_gla_tiny()
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, **kw))
     variant = build_model(cfg, device="cpu")
+    assert cls is None or isinstance(variant.attentive_rnn, cls)
     res = generate_batch(variant, torch.randint(3, 256, (2, 5)), max_seqlen=7, k=1,
                          force_max_seqlen=True)
     assert res.tokens.shape == (1, 2, 7)
@@ -103,8 +110,8 @@ def test_port_imports_no_jax():
 
 def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
-    ``models/mamba.py``, ``models/simple_gla.py`` and the RWKV6 modules
-    among them),
+    ``models/mamba.py``, ``models/simple_gla.py``, the RWKV6 modules and
+    ``ops/mamba.py``, ``ops/mamba_cuda.py`` among them),
     ``chip_smoke.py`` and the port's examples, read as source:
     no import statement names jax, flax or the JAX package."""
     import ast
@@ -120,6 +127,7 @@ def test_sources_import_no_jax():
                  "lina_speech_tpu_torch/models/simple_gla.py",
                  "lina_speech_tpu_torch/models/rwkv6.py", "lina_speech_tpu_torch/ops/rwkv6.py",
                  "lina_speech_tpu_torch/ops/rwkv6_cuda.py",
+                 "lina_speech_tpu_torch/ops/mamba.py", "lina_speech_tpu_torch/ops/mamba_cuda.py",
                  "chip_smoke.py", "examples/serve_torch.py"):
         assert must in names, must
     banned = ("jax", "flax", "lina_speech_tpu")

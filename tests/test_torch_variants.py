@@ -27,6 +27,7 @@ from lina_speech_tpu.config import build_model as jax_build, lina_gla_tiny
 from lina_speech_tpu.generate import generate_batch as jax_generate
 from lina_speech_tpu.models.gla_layer import GatedLinearAttention as JaxGLA
 from lina_speech_tpu.models.lina import LinaModel as JaxLina
+from lina_speech_tpu_torch.config import SpeakerEncoderConfig
 from lina_speech_tpu_torch.config import build_model as torch_build
 from lina_speech_tpu_torch.config import lina_gla_tiny as torch_tiny
 from lina_speech_tpu_torch.generate import generate_batch
@@ -304,11 +305,15 @@ def test_mamba2_has_no_lazy_window_and_no_s0_tuning():
 
 
 def test_unported_kinds_still_raise():
-    for kind in ("mamba", "transformer"):
-        cfg = torch_tiny()
-        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kind=kind))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-            torch_build(cfg, device="cpu")
+    """What the port has not built yet raises, naming the ROADMAP item that
+    ports it: the softmax transformer and the speaker encoder (item 9d)."""
+    cfg = torch_tiny()
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kind="transformer"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9d"):
+        torch_build(cfg, device="cpu")
+    cfg = dataclasses.replace(torch_tiny(), spk_encoder=SpeakerEncoderConfig())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9d"):
+        torch_build(cfg, device="cpu")
 
 
 # ---------------------------------------------------- the layer's options
