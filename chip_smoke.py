@@ -201,7 +201,7 @@ INT8_LINEARS_PER_STEP = 5 * N_GLA_LAYERS + 3
 QLINEAR_KN = ((1024, 1024), (1024, 2048), (2048, 1024), (1024, 2 * FFN_HIDDEN),
               (FFN_HIDDEN, 1024))
 QLINEAR_M = (1, 8, 64, 128)
-FFN_M = (1, 8, 64)
+FFN_M = (1, 8, 64, 128)
 # shapes at which int8_linear and fused_ffn_int8 were held against their plain
 # versions (ops/qlinear.py:launch_shapes keys)
 Q_HELD = {"int8_linear": set(), "fused_ffn_int8": set()}
@@ -429,11 +429,20 @@ def ptxas_summary(log: str):
               (("gla_decode_kernel", "Lb0E"), "gla_decode"),
               (("gla_fold_kernel",), "gla_fold"), (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv"),
               (("gla_chunk_kernel", "Lb0E"), "gla_chunk"))
-    # the quantized kernels' bf16 instantiations (m-tile 1 and 8; dv 512)
-    quant = (("int8_linear_wonly_kernelI13__nv_bfloat16S", "int8_linear wonly<bf16, bf16>"),
-             ("int8_linear_w8a8_kernelI13__nv_bfloat16L", "int8_linear w8a8<bf16>"),
-             ("ffn_chunk_kernelI13__nv_bfloat16L", "fused_ffn_int8 chunk<bf16>"),
-             ("gla_fold_q_kernelI13__nv_bfloat16Li16E", "gla_fold_q<bf16, dv 512>"),
+    # the int8 products' instantiations the flagship launches (bf16 in and
+    # out), by the m-tile each serves: {first template int: m-tile rows}
+    products = ((("int8_linear_kernelI13__nv_bfloat16S", "Lb0ELb1E"),
+                 "int8_linear mma wonly<bf16, bf16>", {2: 16, 4: 32}),
+                (("int8_linear_kernelIa13__nv_bfloat16",), "int8_linear mma w8a8<bf16>",
+                 {2: 16, 4: 32}),
+                (("gemv_wonly_kernelI13__nv_bfloat16S",), "int8_linear gemv wonly<bf16, bf16>",
+                 {1: 1, 8: 8}),
+                (("gemv_w8a8_kernelI13__nv_bfloat16L",), "int8_linear gemv w8a8<bf16>",
+                 {1: 1, 8: 8}),
+                (("ffn_int8_kernelI13__nv_bfloat16S", "Lb1E"), "fused_ffn_int8<bf16, bf16>",
+                 {1: 8, 2: 16}))
+    # the int8 lazy-window kernels' bf16 instantiations (dv 512)
+    quant = (("gla_fold_q_kernelI13__nv_bfloat16Li16E", "gla_fold_q<bf16, dv 512>"),
              ("gla_decode_lazy_conv_kernelI13__nv_bfloat16aLi256E",
               "gla_decode_lazy_conv<bf16, int8, 256>"))
     # the RWKV6 kernels' bf16-IO, f32-state instantiations (dk 256)
@@ -456,12 +465,21 @@ def ptxas_summary(log: str):
             kernel = next((label for keys, label in labels
                            if all(key in name for key in keys)), name)
             out.append(f"{kernel}<bf16, bf16, 256>: {info}")
+        for keys, label, tiles in products:
+            first = re.search(r"Li(\d+)E", name)
+            if all(key in name for key in keys) and first and int(first.group(1)) in tiles:
+                out.append(f"{label} (m-tile {tiles[int(first.group(1))]}): {info}")
         for key, label in quant:
-            if key in name and re.search(r"Li(1|8|16|256)E", name):
-                tile = re.search(r"Li(\d+)E", name).group(1)
-                out.append(f"{label} (tile {tile}): {info}")
+            if key in name and re.search(r"Li(16|256)E", name):
+                out.append(f"{label}: {info}")
         out += [f"{label}<bf16, f32, 256>: {info}" for key, label in rwkv6 if key in name]
         out += [f"{label}<bf16>: {info}" for key, label in mamba if key in name]
+    for _, label, tiles in products:  # a renamed kernel must not drop out in silence
+        for tile in tiles.values():
+            found = [line for line in out if line.startswith(f"{label} (m-tile {tile}):")]
+            require(any("registers" in line for line in found)
+                    and any("spill" in line for line in found),
+                    f"ptxas: no register or spill line of {label} (m-tile {tile})")
     return out
 
 
@@ -1258,10 +1276,15 @@ def hold_int8_linear(torch, shape, summary=None, timed=False):
     g = torch.Generator(device=DEVICE).manual_seed(m)
     x = torch.randn(m, k, generator=g, device=DEVICE).to(xdt)
     out = qlinear.int8_linear(x, q, s, out_dtype=odt, mode=mode)
+    again = qlinear.int8_linear(x, q, s, out_dtype=odt, mode=mode)
     ref = qlinear.int8_linear_plain(x, q, s, out_dtype=odt, mode=mode)
     torch.cuda.synchronize()
     require(out.shape == (m, n) and out.dtype == odt, "int8_linear output shape or dtype")
     tag = (f"{mode} m{m} K{k} N{n} {str(xdt).split('.')[-1]}->{str(odt).split('.')[-1]}")
+    require(torch.equal(out, again), f"int8_linear {tag} differs from run to run")
+    # w8a8: an exact int32 sum and the same two scale multiplications
+    require(mode == "wonly" or torch.equal(out, ref), f"int8_linear {tag} differs from the "
+            "plain version's bits")
     err = hold_leaf(f"int8_linear {tag}", out, ref, TOL_Q if odt == torch.bfloat16 else 1e-4)
     Q_HELD["int8_linear"].add(shape)
     if not timed:
@@ -1293,16 +1316,15 @@ def hold_fused_ffn(torch, shape, summary=None, timed=False):
     F = torch.nn.functional
     m, d, hidden, xdt, odt = shape
     q_in, s_in, _, w_in = quantized_weight(torch, 2 * hidden, d, seed=d + 1)
-    _, s_out, q_out, w_out = quantized_weight(torch, d, hidden, seed=d + 2)
-    q_out_t = q_out.T.contiguous()
+    q_out, s_out, _, w_out = quantized_weight(torch, d, hidden, seed=d + 2)
     g = torch.Generator(device=DEVICE).manual_seed(m)
     x = torch.randn(m, d, generator=g, device=DEVICE).to(xdt)
     b_in = (torch.randn(2 * hidden, generator=g, device=DEVICE) * 0.02).to(torch.bfloat16)
     b_out = (torch.randn(d, generator=g, device=DEVICE) * 0.02).to(torch.bfloat16)
     call = lambda fn, qi, qo: fn(x, qi, s_in, b_in, qo, s_out, b_out, out_dtype=odt)
-    out = call(qlinear.fused_ffn_int8, q_in, q_out_t)
-    again = call(qlinear.fused_ffn_int8, q_in, q_out_t)
-    ref = call(qlinear.fused_ffn_int8_plain, q_in, q_out_t)
+    out = call(qlinear.fused_ffn_int8, q_in, q_out)
+    again = call(qlinear.fused_ffn_int8, q_in, q_out)
+    ref = call(qlinear.fused_ffn_int8_plain, q_in, q_out)
     torch.cuda.synchronize()
     require(out.shape == (m, d) and out.dtype == odt, "fused_ffn_int8 output shape or dtype")
     require(torch.equal(out, again), "fused_ffn_int8 differs from run to run")
@@ -1311,7 +1333,7 @@ def hold_fused_ffn(torch, shape, summary=None, timed=False):
     Q_HELD["fused_ffn_int8"].add(shape)
     if not timed:
         return
-    weights, dense = cold_rotation(q_in, q_out_t), cold_rotation(w_in, w_out)
+    weights, dense = cold_rotation(q_in, q_out), cold_rotation(w_in, w_out)
     ms, plain_ms = timed_pair(
         f"fused_ffn_int8 {tag}", lambda: call(qlinear.fused_ffn_int8, *weights()),
         lambda: call(qlinear.fused_ffn_int8_plain, *weights()), 50)
@@ -1323,7 +1345,7 @@ def hold_fused_ffn(torch, shape, summary=None, timed=False):
         return F.linear(F.silu(gate) * h, wo, b_out)
 
     library_ms = device_ms(library, 50)
-    work = (nbytes(x, q_in, s_in, b_in, q_out_t, s_out, b_out, out), 6 * m * d * hidden,
+    work = (nbytes(x, q_in, s_in, b_in, q_out, s_out, b_out, out), 6 * m * d * hidden,
             torch.bfloat16)
     if summary is not None:
         record(summary, "fused_ffn_int8", err, ms, plain_ms, *work, library_ms=library_ms)
@@ -1335,18 +1357,24 @@ def hold_fused_ffn(torch, shape, summary=None, timed=False):
 
 def quant_linear_kernel_phase(torch, summary):
     """int8_linear at m 1, 8, 64 and 128 for every (K, N) of QLINEAR_KN in
-    both modes, fused_ffn_int8 at m 1, 8 and 64, bf16 in and out as the
-    flagship runs them; timed at m 1, 8 and 64 (w8a8 at one (K, N)). The
-    summary's rows: the b1 decode shapes, m 1."""
+    both modes (m 1 and 8 take the GEMV body, 64 and 128 the tensor-core
+    body: ops/qlinear.py:int8_linear_plan), fused_ffn_int8 at m 1, 8, 64 and
+    128, bf16 in and out as the flagship runs them, all timed (w8a8 at one
+    (K, N)); the tensor-core body's 16-row tile and f32 activations held.
+    The summary's rows: the b1 decode shapes, m 1."""
     bf = torch.bfloat16
     for k, n in QLINEAR_KN:
         for mode in ("wonly", "w8a8"):
             for m in QLINEAR_M:
-                timed = m != 128 and (mode == "wonly" or (k, n) == (1024, 2048))
+                timed = mode == "wonly" or (k, n) == (1024, 2048)
                 main = (m, k, n, mode) == (1, 1024, 2048, "wonly")
                 hold_int8_linear(torch, (m, k, n, mode, bf, bf), summary if main else None, timed)
+    # the tensor-core body's 16-row m-tile (a 16-row prefill chunk)
+    for mode in ("wonly", "w8a8"):
+        hold_int8_linear(torch, (16, 1024, 2048, mode, bf, bf))
     # f32 activations reach the kernel too (an f32 compute dtype)
     hold_int8_linear(torch, (3, FFN_HIDDEN, 1024, "wonly", torch.float32, torch.float32))
+    hold_int8_linear(torch, (67, FFN_HIDDEN, 1024, "wonly", torch.float32, bf))
     hold_int8_linear(torch, (3, FFN_HIDDEN, 1024, "w8a8", torch.float32, bf))
     for m in FFN_M:
         hold_fused_ffn(torch, (m, D_MODEL, FFN_HIDDEN, bf, bf), summary if m == 1 else None, True)
@@ -1620,8 +1648,8 @@ def profile_int8_decode(torch, model, x_enc, forced, follow, steps=8):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     print_profile(prof, f"{steps} decode steps b1, int8 weights", wall_ms, groups=(
-        ("int8_linear", ("int8_linear_", "quantize_rows_kernel")),
-        ("fused_ffn_int8", ("ffn_chunk_kernel", "ffn_sum_kernel")),
+        ("int8_linear", ("int8_linear_kernel", "gemv_", "quantize_rows_kernel")),
+        ("fused_ffn_int8", ("ffn_int8_kernel",)),
         ("GLA kernels", ("gla_",))))
 
 

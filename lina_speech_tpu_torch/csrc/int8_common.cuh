@@ -1,6 +1,18 @@
 // Shared helpers of the int8 kernels (int8_linear.cu, fused_ffn_int8.cu):
-// conversions, the warp sum, the int8 -> float unpacking of a 16-byte weight
-// piece against bf16 activations staged in shared memory, and that staging.
+// conversions, asynchronous 16-byte copies into shared memory, and the two
+// tensor-core products they are built on (mma.sync, bf16 and s8).
+//
+// Both kernels compute a transposed product, out^T (channels x rows) =
+// W (channels x K) . x^T, so that the weight is the A operand (16 channels a
+// fragment) and the few rows of x are the narrow n8 side. The k order inside
+// one fragment is relabelled so that each thread reads its A and B pieces
+// with one wide shared-memory load each (the sum over k does not depend on
+// the labels, as long as A and B use the same ones):
+//   bf16 m16n8k16: fragment columns {2t, 2t+1, 2t+8, 2t+9} of thread t are
+//     the stored columns 4t .. 4t+3: one 32-bit load of four int8 weights,
+//     one 64-bit load of four bf16 activations;
+//   s8 m16n8k32: fragment columns {4t .. 4t+3, 4t+16 .. 4t+19} are the stored
+//     columns 8t .. 8t+7: one 64-bit load each for A and B.
 #pragma once
 
 #include <cstdint>
@@ -10,7 +22,7 @@
 
 namespace q8 {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // four warps a block
 constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -22,89 +34,80 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ int warp_sum(int x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
+// 16 bytes from device memory into shared memory without passing through
+// registers; pred false fills the 16 bytes with zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// the four int8 of one 32-bit word as floats, lowest byte first
-__device__ __forceinline__ void unpack4(uint32_t w, float* f) {
-  f[0] = static_cast<float>(static_cast<signed char>(w & 0xff));
-  f[1] = static_cast<float>(static_cast<signed char>((w >> 8) & 0xff));
-  f[2] = static_cast<float>(static_cast<signed char>((w >> 16) & 0xff));
-  f[3] = static_cast<float>(static_cast<signed char>(w >> 24));
+// A split cluster barrier: arrive (release) when this block is done with
+// the other blocks' shared memory, wait (acquire) just before it leaves, so
+// that no block leaves while another may still read its shared memory, and
+// nobody waits in between.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// acc[r] += sum of the 16 int8 of the weight piece w times the 16 bf16 of
-// sx[r][c .. c + 15], for every row r of the m-tile; f32 accumulation
-template <int MT, int LD>
-__device__ __forceinline__ void dot16(const uint16_t (*sx)[LD], int c, const uint4& w,
-                                      float (&acc)[MT]) {
-  float wf[16];
-  unpack4(w.x, wf);
-  unpack4(w.y, wf + 4);
-  unpack4(w.z, wf + 8);
-  unpack4(w.w, wf + 12);
-#pragma unroll
-  for (int r = 0; r < MT; ++r) {
-    const uint4* xp = reinterpret_cast<const uint4*>(&sx[r][c]);
-    const uint4 xa = xp[0], xb = xp[1];
-    const uint32_t xw[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-    float a = acc[r];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      // a bf16 is the high half of an f32
-      a += __uint_as_float(xw[e] << 16) * wf[2 * e];
-      a += __uint_as_float(xw[e] & 0xffff0000u) * wf[2 * e + 1];
-    }
-    acc[r] = a;
-  }
+// two int8 (the low and high byte of v's low half) as a bf16 pair, exact
+__device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t v) {
+  const float lo = static_cast<float>(static_cast<signed char>(v & 0xffu));
+  const float hi = static_cast<float>(static_cast<signed char>((v >> 8) & 0xffu));
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// Rows m0 .. m0 + MT - 1, columns k0 .. k0 + kt - 1 of x (M, K) into shared
-// memory as bf16 bit patterns, zero beyond M and K. kt is a multiple of 16.
-// Eight columns a thread with 16-byte loads where every row of x starts on a
-// 16-byte boundary, else one column a thread.
-template <typename X, int MT, int LD>
-__device__ __forceinline__ void stage_bf16(uint16_t (*sx)[LD], const X* __restrict__ x, int M,
-                                           int K, int m0, int k0, int kt, int tid) {
-  const bool wide = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (wide) {
-    const int per_row = kt / 8;
-    for (int idx = tid; idx < MT * per_row; idx += kThreads) {
-      const int r = idx / per_row, c = (idx % per_row) * 8;
-      const int m = m0 + r, k = k0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && k < K) {  // K % 8 == 0: the eight columns are inside or outside together
-        const X* src = x + (size_t)m * K + k;
-        if constexpr (sizeof(X) == 2) {
-          v = *reinterpret_cast<const uint4*>(src);
-        } else {
-          const float4 a = *reinterpret_cast<const float4*>(src);
-          const float4 b = *reinterpret_cast<const float4*>(src + 4);
-          __nv_bfloat162 p0 = __floats2bfloat162_rn(a.x, a.y), p1 = __floats2bfloat162_rn(a.z, a.w);
-          __nv_bfloat162 p2 = __floats2bfloat162_rn(b.x, b.y), p3 = __floats2bfloat162_rn(b.z, b.w);
-          v = make_uint4(*reinterpret_cast<uint32_t*>(&p0), *reinterpret_cast<uint32_t*>(&p1),
-                         *reinterpret_cast<uint32_t*>(&p2), *reinterpret_cast<uint32_t*>(&p3));
-        }
-      }
-      *reinterpret_cast<uint4*>(&sx[r][c]) = v;
-    }
-    return;
-  }
-  for (int idx = tid; idx < MT * kt; idx += kThreads) {
-    const int r = idx / kt, c = idx % kt;
-    const int m = m0 + r, k = k0 + c;
-    const float v = (m < M && k < K) ? to_f(x[(size_t)m * K + k]) : 0.f;
-    sx[r][c] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
+// d += a . b on the tensor cores: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col),
+// f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b: A 16 x 32 s8 (row), B 32 x 8 s8 (col), exact int32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of 16 weight rows (int8, row stride ws bytes, this k16 step
+// starting at column kk) as bf16: rows g and g + 8, stored columns 4t .. 4t+3
+__device__ __forceinline__ void a_frag_bf16(const signed char* w, int ws, int kk, int lane,
+                                            uint32_t (&a)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t lo = *reinterpret_cast<const uint32_t*>(w + g * ws + kk + 4 * t);
+  const uint32_t hi = *reinterpret_cast<const uint32_t*>(w + (g + 8) * ws + kk + 4 * t);
+  a[0] = i8x2_bf16x2(lo);
+  a[1] = i8x2_bf16x2(hi);
+  a[2] = i8x2_bf16x2(lo >> 16);
+  a[3] = i8x2_bf16x2(hi >> 16);
+}
+
+// The B fragment of 8 rows of x (bf16 bit patterns, row stride xs elements):
+// row g, stored columns kk + 4t .. kk + 4t + 3
+__device__ __forceinline__ uint2 b_frag_bf16(const uint16_t* x, int xs, int kk, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  return *reinterpret_cast<const uint2*>(x + g * xs + kk + 4 * t);
 }
 
 }  // namespace q8

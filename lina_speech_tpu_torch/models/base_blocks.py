@@ -187,13 +187,6 @@ class SwiGLU(nn.Module):
         self.hidden, self.dtype = hidden, dtype
         self.p_in = Linear(d_model, 2 * hidden, dtype=dtype)
         self.p_out = Linear(hidden, d_model, dtype=dtype)
-        self._q_out_t: Optional[torch.Tensor] = None  # (hidden, d) int8, for the fused call
-
-    def prepare_fused_(self) -> None:
-        """(Re)make p_out's int8 weight hidden-major from the packed (d, H)
-        one; call it after p_out's int8 weight was set or replaced."""
-        q = self.p_out.int8_q
-        self._q_out_t = None if q is None else q[:, :self.hidden].T.contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p_in, p_out = self.p_in, self.p_out
@@ -201,9 +194,7 @@ class SwiGLU(nn.Module):
                 and p_in.quant_mode == p_out.quant_mode == "wonly"):
             fn = (qlinear.fused_ffn_int8_plain if p_in.kernel_mode == "chunk"
                   else qlinear.fused_ffn_int8)
-            if self._q_out_t is None:
-                self.prepare_fused_()
-            return fn(x, p_in.int8_q, p_in.int8_s, p_in.bias, self._q_out_t,
+            return fn(x, p_in.int8_q, p_in.int8_s, p_in.bias, p_out.int8_q,
                       p_out.int8_s, p_out.bias, out_dtype=self.dtype)
         gate, h = p_in(x).chunk(2, dim=-1)
         return p_out(F.silu(gate) * h)

@@ -20,7 +20,7 @@ import torch.nn as nn
 
 from lina_speech_tpu_torch.models.attentive_rnn import BackboneState
 from lina_speech_tpu_torch.models.base_blocks import (
-    Embedding, SwiGLU, set_dropout_generator,
+    Embedding, set_dropout_generator,
 )
 from lina_speech_tpu_torch.models.multiembed import MultiEmbedding, head_logits
 from lina_speech_tpu_torch.utils.quantize import (
@@ -206,9 +206,6 @@ class LinaModel(nn.Module):
         for name, pair in pairs.items():
             owner = self.get_submodule(name.rsplit(".", 1)[0])
             owner.set_int8(pair[QKEY], pair[SKEY])
-        for m in self.modules():
-            if isinstance(m, SwiGLU):
-                m.prepare_fused_()
 
     def drop_float_weights_(self) -> None:
         """Keep only the int8 copy of every weight that has one: those

@@ -118,9 +118,9 @@ def load_library() -> ctypes.CDLL:
     lib.gla_fold_window.restype = i
     lib.gla_fold_q_window.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.gla_fold_q_window.restype = i
-    lib.int8_linear_fwd.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.int8_linear_fwd.argtypes = [p] * 6 + [i] * 11 + [p]
     lib.int8_linear_fwd.restype = i
-    lib.fused_ffn_int8_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.fused_ffn_int8_fwd.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.fused_ffn_int8_fwd.restype = i
     lib.rwkv6_chunk_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.rwkv6_chunk_fwd.restype = i

@@ -481,10 +481,16 @@ def _packed_weight(dev, n, k, seed):
                                      (torch.float32, torch.float32),
                                      (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("m,k,n", [(1, 1024, 2048), (3, 85, 130), (8, 1365, 1024),
-                                   (19, 341, 67), (64, 2048, 1024), (5, 4100, 40)])
+                                   (19, 341, 67), (64, 2048, 1024), (5, 4100, 40),
+                                   (16, 1024, 2048), (64, 1024, 2048), (128, 1024, 2048),
+                                   (67, 1365, 1024)])
 def test_int8_linear_kernel_matches_plain(cuda, mode, xdt, odt, m, k, n):
-    """K and N that are no multiples of 16 or 8, an m that is no multiple
-    of the m-tile, a K longer than one staged pass."""
+    """K and N that are no multiples of 16, 32 or 8 (K 1365 splits unevenly
+    across the stages of 64 columns and w8a8's k32 steps), an m that is no
+    multiple of the m-tile, a K split across the most blocks of a cluster,
+    m-tiles of 8 to 64 rows and two m-tiles. Two calls give equal bits;
+    w8a8 equals its plain version bit for bit (an exact int32 sum, then the
+    same two scale multiplications in the same order)."""
     from lina_speech_tpu_torch.ops import qlinear
 
     q, s, _ = _packed_weight(cuda, n, k, seed=k)
@@ -492,10 +498,14 @@ def test_int8_linear_kernel_matches_plain(cuda, mode, xdt, odt, m, k, n):
     x = torch.randn(2, m, k, generator=g, device=cuda).to(xdt)
     before = qlinear.int8_linear.launches
     out = qlinear.int8_linear(x, q, s, out_dtype=odt, mode=mode)
+    again = qlinear.int8_linear(x, q, s, out_dtype=odt, mode=mode)
     ref = qlinear.int8_linear_plain(x, q, s, out_dtype=odt, mode=mode)
     torch.cuda.synchronize()
-    assert qlinear.int8_linear.launches == before + 1
+    assert qlinear.int8_linear.launches == before + 2
     assert out.shape == (2, m, n) and out.dtype == odt
+    assert torch.equal(out, again)  # fixed-order sums: the same from run to run
+    if mode == "w8a8":
+        assert torch.equal(out, ref)
     err = float((out.float() - ref.float()).abs().max())
     ref_max = float(ref.float().abs().max())
     # w8a8 is an exact integer sum; wonly an f32 sum in another order
@@ -507,18 +517,23 @@ def test_int8_linear_kernel_matches_plain(cuda, mode, xdt, odt, m, k, n):
                                      (torch.float32, torch.float32)])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("m,d,hidden", [(1, 1024, 1365), (8, 1024, 1365), (3, 64, 85),
-                                        (11, 256, 341), (1, 128, 512), (64, 1024, 1365)])
+                                        (11, 256, 341), (1, 128, 512), (64, 1024, 1365),
+                                        (16, 1024, 1365), (128, 1024, 1365), (67, 1024, 1365),
+                                        (5, 2048, 2730)])
 def test_fused_ffn_kernel_matches_plain(cuda, xdt, odt, bias, m, d, hidden):
+    """Hidden widths that are no multiples of the 64-unit chunk, widths whose
+    slices leave ranks of the cluster empty (d 64), m-tiles of 8 to 64 rows,
+    two m-tiles, the widest model the kernel takes. q_out is the output
+    Linear's packed (d, Hp) weight."""
     from lina_speech_tpu_torch.ops import qlinear
 
     q_in, s_in, _ = _packed_weight(cuda, 2 * hidden, d, seed=hidden)
-    _, s_out, q_out = _packed_weight(cuda, d, hidden, seed=hidden + 1)
-    q_out_t = q_out.T.contiguous()
+    q_out, s_out, _ = _packed_weight(cuda, d, hidden, seed=hidden + 1)
     g = torch.Generator(device=cuda).manual_seed(m)
     x = torch.randn(m, d, generator=g, device=cuda).to(xdt)
     b_in = torch.randn(2 * hidden, generator=g, device=cuda) * 0.01 if bias else None
     b_out = torch.randn(d, generator=g, device=cuda) * 0.01 if bias else None
-    args = (x, q_in, s_in, b_in, q_out_t, s_out, b_out)
+    args = (x, q_in, s_in, b_in, q_out, s_out, b_out)
     before = qlinear.fused_ffn_int8.launches
     out = qlinear.fused_ffn_int8(*args, out_dtype=odt)
     again = qlinear.fused_ffn_int8(*args, out_dtype=odt)
@@ -529,6 +544,30 @@ def test_fused_ffn_kernel_matches_plain(cuda, xdt, odt, bias, m, d, hidden):
     assert torch.equal(out, again)  # fixed-order reduction: the same from run to run
     # a hidden unit whose bf16 rounding falls the other way moves the output
     # by a bf16 step of that unit: held to one bf16 step of the output's size
+    err = float((out.float() - ref.float()).abs().max())
+    ref_max = float(ref.float().abs().max())
+    assert ref_max > 0 and err <= 2.0 ** -7 * ref_max, (err, ref_max)
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_fused_ffn_kernel_takes_bf16_biases(cuda, m):
+    """Biases held in bf16 (the model's cast copies) are read as they are:
+    the same result as the plain version's, and as the kernel's on the same
+    biases in f32 bit for bit."""
+    from lina_speech_tpu_torch.ops import qlinear
+
+    d, hidden = 1024, 1365
+    q_in, s_in, _ = _packed_weight(cuda, 2 * hidden, d, seed=5)
+    q_out, s_out, _ = _packed_weight(cuda, d, hidden, seed=6)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, d, generator=g, device=cuda).to(torch.bfloat16)
+    b_in = (torch.randn(2 * hidden, generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    b_out = (torch.randn(d, generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    out = qlinear.fused_ffn_int8(x, q_in, s_in, b_in, q_out, s_out, b_out)
+    f32 = qlinear.fused_ffn_int8(x, q_in, s_in, b_in.float(), q_out, s_out, b_out.float())
+    ref = qlinear.fused_ffn_int8_plain(x, q_in, s_in, b_in, q_out, s_out, b_out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, f32)
     err = float((out.float() - ref.float()).abs().max())
     ref_max = float(ref.float().abs().max())
     assert ref_max > 0 and err <= 2.0 ** -7 * ref_max, (err, ref_max)

@@ -110,8 +110,9 @@ def test_port_imports_no_jax():
 
 def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
-    ``models/mamba.py``, ``models/simple_gla.py``, the RWKV6 modules and
-    ``ops/mamba.py``, ``ops/mamba_cuda.py`` among them),
+    ``models/mamba.py``, ``models/simple_gla.py``, the RWKV6 modules,
+    ``ops/mamba.py``, ``ops/mamba_cuda.py`` and ``utils/int8_timeline.py``
+    among them),
     ``chip_smoke.py`` and the port's examples, read as source:
     no import statement names jax, flax or the JAX package."""
     import ast
@@ -128,6 +129,7 @@ def test_sources_import_no_jax():
                  "lina_speech_tpu_torch/models/rwkv6.py", "lina_speech_tpu_torch/ops/rwkv6.py",
                  "lina_speech_tpu_torch/ops/rwkv6_cuda.py",
                  "lina_speech_tpu_torch/ops/mamba.py", "lina_speech_tpu_torch/ops/mamba_cuda.py",
+                 "lina_speech_tpu_torch/utils/int8_timeline.py",
                  "chip_smoke.py", "examples/serve_torch.py"):
         assert must in names, must
     banned = ("jax", "flax", "lina_speech_tpu")

@@ -194,6 +194,12 @@ def test_int8_linear_plain_matches_pallas_interpret():
         np.testing.assert_allclose(out.numpy(), ref, rtol=SUM_TOL, atol=SUM_TOL * np.abs(ref).max())
 
 
+def _ffn_out_weight(q_hd):
+    """The JAX package's hidden-major (H, d) int8 output weight as the port's
+    fused FFN takes it: the output Linear's packed (d, Hp) weight."""
+    return tql.pack_int8_weight(torch.from_numpy(np.array(q_hd)).T)
+
+
 @pytest.mark.parametrize("m,d,hidden", [(1, 64, 85), (4, 256, 341), (1, 128, 512)])
 def test_fused_ffn_plain_matches_pallas_interpret(m, d, hidden):
     """The three shapes of the JAX package's own test: a single full block,
@@ -208,10 +214,12 @@ def test_fused_ffn_plain_matches_pallas_interpret(m, d, hidden):
                              qo[jquant.SKEY], jnp.asarray(b_out), interpret=True)
     ti = tquant.quantize_leaf(torch.from_numpy(win.T.copy()))
     to = tquant.quantize_leaf(torch.from_numpy(wout.T.copy()))
+    q_out = _ffn_out_weight(qo[jquant.QKEY])
+    assert q_out.shape == (d, -(-hidden // 16) * 16)
+    assert torch.equal(q_out, tql.pack_int8_weight(to[tquant.QKEY]))
     out = tql.fused_ffn_int8(
         torch.from_numpy(x).to(torch.bfloat16), ti[tquant.QKEY], ti[tquant.SKEY],
-        torch.from_numpy(b_in), to[tquant.QKEY].T.contiguous(), to[tquant.SKEY],
-        torch.from_numpy(b_out))
+        torch.from_numpy(b_in), q_out, to[tquant.SKEY], torch.from_numpy(b_out))
     assert out.dtype == torch.bfloat16 and out.shape == (m, d)
     ref = np.asarray(ref, np.float32)
     np.testing.assert_allclose(_np(out), ref, rtol=BF16_STEP, atol=BF16_STEP * np.abs(ref).max())
@@ -220,10 +228,59 @@ def test_fused_ffn_plain_matches_pallas_interpret(m, d, hidden):
         jnp.asarray(x), qi[jquant.QKEY], qi[jquant.SKEY], None, qo[jquant.QKEY],
         qo[jquant.SKEY], None, out_dtype=jnp.float32, interpret=True))
     out = tql.fused_ffn_int8(torch.from_numpy(x), ti[tquant.QKEY], ti[tquant.SKEY], None,
-                             to[tquant.QKEY].T.contiguous(), to[tquant.SKEY], None,
-                             out_dtype=torch.float32)
+                             q_out, to[tquant.SKEY], None, out_dtype=torch.float32)
     np.testing.assert_allclose(out.numpy(), ref, rtol=BF16_STEP,
                                atol=BF16_STEP * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("m,k,n,plan", [
+    (1, 1024, 2048, ("gemv", 1, 1)), (8, 1024, 2048, ("gemv", 8, 1)),
+    (3, 85, 130, ("gemv", 4, 1)), (5, 4100, 40, ("gemv", 8, 1)),
+    (9, 1024, 2048, ("mma", 16, 4)), (16, 1024, 2048, ("mma", 16, 4)),
+    (64, 1024, 2048, ("mma", 32, 8)), (128, 1024, 2048, ("mma", 32, 4)),
+    (64, 1365, 1024, ("mma", 32, 8)), (64, 1024, 2730, ("mma", 32, 6)),
+    (67, 1365, 1024, ("mma", 32, 8)), (19, 341, 67, ("mma", 32, 6))])
+def test_int8_linear_plan(m, k, n, plan):
+    """The launch plan of int8_linear: the GEMV body up to 8 rows (the
+    smallest m-tile of 1, 2, 4, 8 that holds m), else the tensor-core body
+    with an m-tile of 16 or 32 rows and K split over a cluster until about
+    264 or 528 blocks run, at most 8 blocks a cluster, every block of a
+    cluster with a stage of 64 columns of K (so a cluster may stay a little
+    under its target)."""
+    assert tql.int8_linear_plan(m, k, n) == plan
+    route, mt, ks = plan
+    if route == "gemv":
+        assert m <= 8 and ks == 1 and mt >= m
+        return
+    stages = -(-k // 64)
+    per = -(-stages // ks)
+    assert (ks - 1) * per < stages <= ks * per  # no rank without a stage
+    blocks = ks * -(-m // mt) * -(-n // (2 * mt))  # 32 channels a block at mt 16, 64 at 32
+    assert blocks >= 132 or ks == min(8, stages) or per == 1  # the card is filled
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 67, 128])
+def test_fused_ffn_plan(m):
+    """fused_ffn_int8 at the flagship's width (d 1024, hidden 1365): m-tiles
+    of 8 rows up to 16, else 16; at least 132 blocks at every m, and the
+    chunk parts' traffic each way under twice the 4.2 MB of int8 weights up
+    to m 64."""
+    mt = tql.fused_ffn_plan(m)
+    assert mt == (8 if m <= 16 else 16)
+    chunks = -(-1365 // 64)
+    assert 8 * chunks * -(-m // mt) >= 132
+    if m <= 64:
+        assert chunks * m * 1024 * 4 < 2 * 4.2e6
+
+
+def test_rows_copied_as_is():
+    """The kernels copy x into shared memory as it is only for bf16 rows of
+    whole 16-byte pieces on a 16-byte boundary."""
+    x = torch.zeros(4, 1024, dtype=torch.bfloat16)
+    assert tql._copies_as_is(x)
+    assert not tql._copies_as_is(x.float())
+    assert not tql._copies_as_is(torch.zeros(4, 1365, dtype=torch.bfloat16))
+    assert not tql._copies_as_is(x.reshape(-1)[4:1028].reshape(1, 1024))
 
 
 def test_quantized_linear_and_swiglu_routes():
@@ -261,7 +318,7 @@ def test_quantized_linear_and_swiglu_routes():
             fused = ffn(xs)
             want = tql.fused_ffn_int8_plain(
                 xs, ffn.p_in.int8_q, ffn.p_in.int8_s, ffn.p_in.bias,
-                ffn.p_out.int8_q[:, :85].T.contiguous(), ffn.p_out.int8_s, ffn.p_out.bias)
+                ffn.p_out.int8_q, ffn.p_out.int8_s, ffn.p_out.bias)
             assert torch.equal(fused, want)
             ffn.p_in.quant_mode = ffn.p_out.quant_mode = "w8a8"
             two = ffn(xs)
