@@ -30,26 +30,32 @@ Phases, in order; any failure raises and exits non-zero:
    final states on the kernel path against the plain path under teacher
    forcing, every state tensor within a share of its own magnitude;
 6. backward kernel phase: gla_chunk_conv as training calls it (autograd
-   recording: the forward kernel, and the five CUDA kernels of the
-   hand-written backward behind a torch.autograd.Function) against the plain
+   recording: the forward kernel, and the hand-written backward behind a
+   torch.autograd.Function; bf16 IO takes its chunked route, four
+   tensor-core kernels and the conv's finishing pass) against the plain
    version and autograd through it at the training shape b 8, t 512, 317 and
    128, bf16 IO, with an f32, a bf16 and no initial state, random do and
-   dsf: o and the final state, and all eight gradient leaves, each within a
-   share of its own max|plain|, finite and non-zero; forward and backward
-   times beside their bounds and the plain version's;
+   dsf, and at t 512 with adversarial gates (-6 to -8 a step in every sixth
+   key channel): o and the final state, and all eight gradient leaves, each
+   within a share of its own max|plain|, finite and non-zero; forward and
+   backward times beside their bounds and the plain version's, the
+   backward's scratch, equal bits on a second call and a profile of three
+   calls by kernel;
 7. training phase: the flagship at full depth and width (f32 parameters,
    bf16 compute, dropout 0.1 in the text encoder) takes five optimizer steps
    of make_train_step on synthetic batches of 8 (audio length 128-512), the
    last with grad_accum_steps=2; loss and grad_norm finite, launch counts per
-   micro-batch 25 forward and 25 backward and nothing else, every parameter
-   moved; on a batch of 2 the kernel path against the plain path: loss and
-   every parameter's gradient (finite, each within a share of its own
-   max|plain|); ms per step, frames per second, peak memory;
+   micro-batch 25 forward and 25 backward and nothing else, every backward
+   on the chunked route, every parameter moved; on a batch of 2 the kernel
+   path against the plain path: loss and every parameter's gradient (finite,
+   each within a share of its own max|plain|); ms per step, frames per
+   second, peak memory, and a profiled step's device busy share with the
+   GLA kernels' device time;
 8. tuning phase: initial-state tuning on the flagship through
    train_initial_state (rank 1, batch 2, grad_acc 2, two optimizer updates):
    the model takes no gradient and does not move, each of the 48 S0 params
-   has a finite non-zero gradient (the kernel's ds0), held against the plain
-   path on one micro-step;
+   has a finite non-zero gradient (the kernel's ds0, chunked route), held
+   against the plain path on one micro-step;
 9. launched shapes phase: every (batch, length, initial state, wanted
    gradients) on which phases 7 and 8 launched the forward and backward
    kernels is held against the plain version as in phase 6, so no shape
@@ -453,6 +459,13 @@ def ptxas_summary(log: str):
     # the Mamba kernels' bf16-IO instantiations
     mamba = (("mamba_scan_kernelI13__nv_bfloat16", "mamba_scan"),
              ("mamba_scan_bwd_kernelI13__nv_bfloat16", "mamba_scan_bwd"))
+    # the chunked route of gla_chunk_conv_bwd (bf16 IO; both state dtypes)
+    chunked = (("chunked11prep_kernelI13__nv_bfloat16E", "gla_chunk_conv_bwd chunked prep"),
+               ("chunked12state_kernelI13__nv_bfloat16E",
+                "gla_chunk_conv_bwd chunked states<bf16 state>"),
+               ("chunked12state_kernelIfE", "gla_chunk_conv_bwd chunked states<f32 state>"),
+               ("chunked10dqk_kernel", "gla_chunk_conv_bwd chunked dq/dk"),
+               ("chunked9dv_kernel", "gla_chunk_conv_bwd chunked dv"))
     name, out = "", []
     for line in log.splitlines():
         if "entry function" in line or "Function properties for" in line:
@@ -474,6 +487,12 @@ def ptxas_summary(log: str):
                 out.append(f"{label}: {info}")
         out += [f"{label}<bf16, f32, 256>: {info}" for key, label in rwkv6 if key in name]
         out += [f"{label}<bf16>: {info}" for key, label in mamba if key in name]
+        out += [f"{label}: {info}" for key, label in chunked if key in name]
+    for _, label in chunked:
+        found = [line for line in out if line.startswith(f"{label}:")]
+        require(any("registers" in line for line in found)
+                and any("spill" in line for line in found),
+                f"ptxas: no register or spill line of {label}")
     for _, label, tiles in products:  # a renamed kernel must not drop out in silence
         for tile in tiles.values():
             found = [line for line in out if line.startswith(f"{label} (m-tile {tile}):")]
@@ -1756,8 +1775,9 @@ def print_profile(prof, what, wall_ms, top=8, groups=()):
         print(f"  the rest: {rest:.3f} ms")
 
 
-def profiled(torch, fn, what, top=8):
-    """Run ``fn`` once under torch.profiler and print its device profile."""
+def profiled(torch, fn, what, top=8, groups=()):
+    """Run ``fn`` once under torch.profiler and print its device profile
+    (``groups`` as print_profile takes them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1766,7 +1786,7 @@ def profiled(torch, fn, what, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile(prof, what, wall_ms, top)
+    print_profile(prof, what, wall_ms, top, groups)
 
 
 GRAD_LEAVES = ("xq", "xk", "xv", "gk", "wq", "wk", "wv", "s0")
@@ -1834,19 +1854,39 @@ def bwd_flops(b, t):
     return b * H * t * (12 * DK * DV + 24 * (2 * DK + DV))
 
 
-def hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps):
+def adversarial_gates(torch, gk):
+    """Gates of -6 to -8 a step in every sixth key channel: a 64-row chunk's
+    gate sum there is below -384, so e^{-bcum} would overflow f32 (the
+    flagship's logsigmoid/16 gates have no clamp)."""
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    gk = gk.clone()
+    gk[..., ::6] = -6.0 - 2.0 * torch.rand(gk[..., ::6].shape, generator=g, device=DEVICE)
+    return gk
+
+
+def hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps, adversarial=False,
+                        io=None):
     """gla_chunk_conv as a training path calls it (autograd recording, bf16
     IO) at one shape against its plain version: o, the final state and every
-    gradient leaf. ``st`` is the initial state's dtype, or None for no
-    initial state. Returns (inputs, do, dsf, gradients, largest error of a
-    gradient leaf relative to its max|plain|)."""
+    gradient leaf; the backward must take the chunked route. ``st`` is the
+    initial state's dtype, or None for no initial state; ``adversarial``
+    swaps in gates that would overflow a factorisation of the decay across a
+    whole chunk; ``io`` float32 holds f32 IO instead, whose backward must
+    take the recurrent route. Returns (inputs, do, dsf, gradients, largest
+    error of a gradient leaf relative to its max|plain|)."""
     bf = torch.bfloat16
+    io = io or bf
     need_ds0 = need_ds0 and st is not None
     x = kernel_inputs(torch, b, t, st, seed=300 + t)
+    for n in ("xq", "xk", "xv", "wq", "wk", "wv"):
+        x[n] = x[n].to(io)
+    if adversarial:
+        x["gk"] = adversarial_gates(torch, x["gk"])
     g = torch.Generator(device=DEVICE).manual_seed(t)
-    do = torch.randn(b, H, t, DV, generator=g, device=DEVICE).to(bf)
+    do = torch.randn(b, H, t, DV, generator=g, device=DEVICE).to(io)
     dsf = torch.randn(b, H, DK, DV, generator=g, device=DEVICE).to(st or torch.float32)
     before = read_counts()
+    routes = dict(gla_cuda.gla_chunk_conv_bwd.routes)
     o_k, s_k, got = conv_grads(torch, gla_cuda.gla_chunk_conv, x, do, dsf, need_ds0, need_taps)
     after = read_counts()
     o_p, s_p, ref = conv_grads(torch, gla_cuda.gla_chunk_conv_plain, x, do, dsf, need_ds0,
@@ -1855,25 +1895,38 @@ def hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps):
     require(after["gla_chunk_conv_bwd"] == before["gla_chunk_conv_bwd"] + 1
             and after["gla_chunk_conv"] == before["gla_chunk_conv"] + 1,
             "the gradient did not go through the forward and backward kernels")
-    state = "none" if st is None else str(st).split(".")[-1]
-    name = (f"gla_chunk_conv b{b} t{t} initial state {state}"
+    route = "chunked" if io == bf else "recurrent"
+    routes[route] += 1
+    require(gla_cuda.gla_chunk_conv_bwd.routes == routes,
+            f"the {dtype_name(io)} backward did not take the {route} route: "
+            f"{gla_cuda.gla_chunk_conv_bwd.routes}")
+    state = "none" if st is None else dtype_name(st)
+    name = (f"gla_chunk_conv b{b} t{t} IO {dtype_name(io)} initial state {state}"
             f"{'' if need_taps else ', no tap gradients'}"
-            f"{'' if need_ds0 or st is None else ', no ds0'}")
+            f"{'' if need_ds0 or st is None else ', no ds0'}"
+            f"{', adversarial gates' if adversarial else ''}")
     print(f"{name}, forward:")
-    require(o_k.dtype == bf and s_k.dtype == s_p.dtype, "gla_chunk_conv output dtypes")
-    check("o", max_err(o_k, o_p), bound(o_p, TOL_BF16))
+    require(o_k.dtype == io and s_k.dtype == s_p.dtype, "gla_chunk_conv output dtypes")
+    check("o", max_err(o_k, o_p), bound(o_p, TOL_BF16 if io == bf else TOL_F32))
     check("final state", max_err(s_k, s_p), bound(s_p, TOL_BF16 if st == bf else TOL_F32))
-    worst = check_grads(f"{name}, backward", got, ref, TOL_GRAD)
-    HELD.add((b, t, st, need_ds0, need_taps))
+    worst = check_grads(f"{name}, backward ({route} route)", got, ref, TOL_GRAD)
+    if not adversarial and io == bf:
+        HELD.add((b, t, st, need_ds0, need_taps))
     return x, do, dsf, got, worst
 
 
 def bwd_kernel_phase(torch, gla_cuda, summary):
     """gla_chunk_conv's forward and hand-written backward vs the plain
     version and autograd through it at the training shape (b8 h4 dk256
-    dv512, bf16 IO), t 512, 317 and 128, with an f32, a bf16 and no initial
-    state; times at t512 with the bf16 state."""
+    dv512, bf16 IO, the backward's chunked route), t 512, 317 and 128, with
+    an f32, a bf16 and no initial state, and at t512 with adversarial gates;
+    times at t512 with the bf16 state, the backward beside PR 4's recurrent
+    body, its scratch, equal bits on a second call and a profile by
+    kernel. Then f32 IO (the recurrent route) at t512 with an f32 and a
+    bf16 state, timed with the bf16 one."""
     bf = torch.bfloat16
+    hold_training_shape(torch, gla_cuda, TRAIN_BATCH, TRAIN_T[0], bf, True, True,
+                        adversarial=True)
     for st in (torch.float32, bf, None):
         for t in TRAIN_T:
             x, do, dsf, got, worst = hold_training_shape(
@@ -1901,16 +1954,49 @@ def bwd_kernel_phase(torch, gla_cuda, summary):
                     plain.append(eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms)
             print(f"  gla_chunk_conv_bwd device ms: kernel {ms}; plain backward (eager forward "
                   f"and backward on the host's clock, less the plain forward) {plain}")
+            print(f"  gla_chunk_conv_bwd b{TRAIN_BATCH} t{t}, chunked route: "
+                  f"{sum(ms) / len(ms) * 1e3:.1f} us a call (PR 4's recurrent body, PR 6 run: "
+                  f"2,673 us)")
             mean = lambda xs: sum(xs) / len(xs)
             # the backward's max_abs_err is the largest error of a leaf as a
             # share of that leaf's max|plain|: the leaves' sizes differ 1e3-fold
             record(summary, "gla_chunk_conv_bwd", worst, mean(ms), mean(plain),
                    nbytes(*args, x["s0"], do, dsf, *got.values()),
                    bwd_flops(TRAIN_BATCH, t), bf)
-            scratch = 2 * (DV // 32) * TRAIN_BATCH * H * t * DK * 4
-            print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of dq/dk parts")
+            scratch = gla_cuda.chunked_bwd_scratch_bytes(TRAIN_BATCH, H, t, DK, DV)
+            parts = 2 * (DV // 32) * TRAIN_BATCH * H * t * DK * 4
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            first = bwd()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base - nbytes(*first)
+            print(f"  scratch of one chunked backward call: {scratch} bytes ({scratch / 1e6:.1f} "
+                  f"MB; allocator peak beside the outputs {peak / 1e6:.1f} MB); the recurrent "
+                  f"route's dq/dk parts alone: {parts / 1e6:.1f} MB")
+            require(scratch < parts, "the chunked route's scratch is not below the parts'")
+            second = bwd()
+            torch.cuda.synchronize()
+            require(all((a is None and r is None) or torch.equal(a, r)
+                        for a, r in zip(first, second)),
+                    "the chunked backward gave other bits on a second call")
+            print("  gla_chunk_conv_bwd: equal bits on a second call")
             profiled(torch, lambda: [bwd() for _ in range(3)],
-                     f"3 calls of gla_chunk_conv_bwd t{t}", top=4)
+                     f"3 calls of gla_chunk_conv_bwd t{t}", top=8)
+    # f32 IO keeps the recurrent body: held at the same shape, timed with
+    # the bf16 state, and kept beside the chunked route's row of the summary
+    t = TRAIN_T[0]
+    for st in (torch.float32, bf):
+        x, do, dsf, got, worst = hold_training_shape(
+            torch, gla_cuda, TRAIN_BATCH, t, st, True, True, io=torch.float32)
+    args = tuple(x[n] for n in GRAD_LEAVES[:7])
+    ms = device_ms(lambda: gla_cuda.gla_chunk_conv_bwd(*args, x["s0"], do, dsf), 5)
+    bound_ms, by = roofline(nbytes(*args, x["s0"], do, dsf, *got.values()),
+                            bwd_flops(TRAIN_BATCH, t), torch.float32)
+    print(f"  gla_chunk_conv_bwd b{TRAIN_BATCH} t{t} IO float32, recurrent route: kernel "
+          f"{ms:.6f} ms, bound {bound_ms:.6f} ms by {by}")
+    summary["gla_chunk_conv_bwd"]["recurrent_f32_io"] = dict(
+        max_abs_err=worst, ms=ms, bound_ms=bound_ms, bound_by=by)
 
 
 def read_launches(gla_cuda):
@@ -1934,6 +2020,24 @@ def launched_shapes_phase(torch, gla_cuda):
     for b, t, st, need_ds0, need_taps in new:
         hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps)
     require(LAUNCHED <= HELD, f"launched but not held: {sorted(LAUNCHED - HELD, key=str)}")
+
+
+def expect_chunked_route(gla_cuda, bwd, launches):
+    """Every launch of the conv-fused backward since the last reset took the
+    chunked route (the flagship computes in bf16)."""
+    if bwd != "gla_chunk_conv_bwd":
+        return
+    routes = gla_cuda.gla_chunk_conv_bwd.routes
+    require(routes == {"recurrent": 0, "chunked": launches[bwd]},
+            f"gla_chunk_conv_bwd routes {routes}, launches {launches[bwd]}: a bf16 launch "
+            "did not take the chunked route")
+
+
+# device time of a profiled train step by the kernels of the GLA layers
+TRAIN_GROUPS = (("gla_chunk_conv_bwd, chunked kernels", ("gla::chunked::",)),
+                ("gla_chunk_conv_bwd, finishing pass",
+                 ("bwd_finish_kernel", "bwd_dg_carry_kernel", "bwd_taps_kernel")),
+                ("gla_chunk_conv forward", ("gla_chunk_kernel",)))
 
 
 def zero_gradient_mask(torch, name, grad):
@@ -2015,6 +2119,7 @@ def training_phase(torch, np, gla_cuda, card_line, cfg=None, fwd="gla_chunk_conv
         require(np.isfinite(loss) and np.isfinite(norm) and norm > 0,
                 f"step {i}: loss {loss}, grad_norm {norm}")
         expect_launches(launches, **{fwd: N_GLA_LAYERS * accum, bwd: N_GLA_LAYERS * accum})
+        expect_chunked_route(gla_cuda, bwd, launches)
         add_launches(total, launches)
     peak = torch.cuda.max_memory_allocated()
     print(f"  peak device memory over the {n_steps} steps: {peak / 2**30:.2f} GiB "
@@ -2027,8 +2132,10 @@ def training_phase(torch, np, gla_cuda, card_line, cfg=None, fwd="gla_chunk_conv
     del start
     batch = batch_to_device(next(batches), DEVICE)
     reset_counts()
+    print(f"profiled step: b{TRAIN_BATCH}, t {batch['y_mask'].shape[1]}, "
+          f"{int(batch['y_mask'].sum())} frames [{card_line}]")
     profiled(torch, lambda: steps[1](state, batch, gen),
-             f"one train step b8 ({cfg.backbone.kind})", top=10)
+             f"one train step b8 ({cfg.backbone.kind})", top=10, groups=TRAIN_GROUPS)
     read_launches(gla_cuda)
     del state, steps
     model.zero_grad(set_to_none=True)
@@ -2106,7 +2213,9 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line, fwd="gla_chunk_conv
         reset_counts()
         step(0, batches[0])
         if mode == "auto":
-            expect_launches(read_launches(gla_cuda), **{fwd: N_GLA_LAYERS, bwd: N_GLA_LAYERS})
+            launches = read_launches(gla_cuda)
+            expect_launches(launches, **{fwd: N_GLA_LAYERS, bwd: N_GLA_LAYERS})
+            expect_chunked_route(gla_cuda, bwd, launches)
         else:
             expect_launches(read_counts())
         grads[mode] = {f"block {i} {'kv'[j]}": leaf.grad
@@ -2128,6 +2237,7 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line, fwd="gla_chunk_conv
           f"{[round(x, 4) for x in losses]}, {ms:.1f} ms per micro-step [{card_line}]")
     expect_launches(launches, **{fwd: N_GLA_LAYERS * len(batches),
                                  bwd: N_GLA_LAYERS * len(batches)})
+    expect_chunked_route(gla_cuda, bwd, launches)
     require(all(np.isfinite(x) for x in losses), f"losses {losses}")
     fresh = tuning_leaves(model.attentive_rnn.init_state_tuning_params(
         torch.Generator(device=DEVICE).manual_seed(config.seed), rank=1, scale=config.scale))

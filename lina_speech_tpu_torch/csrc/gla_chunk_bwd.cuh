@@ -1,7 +1,9 @@
 // The two recurrent sweeps of the GLA prefill's backward, with or without
 // the q/k/v short convs fused in: one template (CONV), used by
-// gla_chunk_conv_bwd.cu (CONV = true) and gla_chunk_bwd.cu (CONV = false).
-// Each of those adds its own finishing pass.
+// gla_chunk_bwd.cu (CONV = false, every call) and by gla_chunk_conv_bwd.cu
+// (CONV = true) on its recurrent route, the one f32 IO takes; bf16 IO takes
+// the chunked kernels of gla_chunked_bwd.cuh there. Each of those sources
+// adds its own finishing pass.
 //
 // The forward (gla_chunk.cuh), per (batch, head), with u_t = scale q_t:
 //
@@ -37,7 +39,8 @@
 // writes its part to its own f32 buffer and the finishing pass adds them in
 // a fixed order, so gradients are the same from run to run (atomicAdd would
 // reorder f32 sums). The parts are 2 * (DV/32) * b*h*t*DK*4 bytes, scratch
-// that lives for one call only. A ragged t needs no padding.
+// that lives for one call only (537 MB at b8 h4 t512 dk256 dv512). A ragged
+// t needs no padding.
 //
 // What bounds them on the H100: the two serial time loops (one dependent
 // update per token), not bytes or FLOPs, as in the forward.

@@ -6,9 +6,16 @@
 // computes dxq, dxk, dxv (IO dtype), dg (f32), ds0 (state dtype) and the
 // three tap gradients summed over batch and time.
 //
-// The math, the two recurrent sweeps (kernels 1 and 2) and what bounds them
-// are in gla_chunk_bwd.cuh (CONV = true). This file adds the conv's
-// finishing pass:
+// Two routes compute dq, dk and dv of the post-conv q, k, v, the dsf .
+// S_final term and ds0, one for each IO dtype; ops/gla_cuda.py:
+// gla_chunk_conv_bwd_plan names it and passes it in:
+// - recurrent (f32 IO): the two time sweeps of gla_chunk_bwd.cuh (CONV =
+//   true; kernels 1 and 2, the math and what bounds them are described
+//   there); dq and dk come as dv/32 per-tile parts, 537 MB of f32 at b8 h4
+//   t512 dk256 dv512;
+// - chunked (bf16 IO): the four kernels of gla_chunked_bwd.cuh, 64-row
+//   chunks on the tensor cores; dq and dk come as one part each.
+// Both end in the conv's finishing pass:
 // 3. bwd_finish_kernel: one thread per (batch, head, channel, segment of 64
 //    steps) walks its segment in reverse: the running sum for dg, silu', the
 //    transposed conv (dx[s] = sum_j w_{3-j} dz[s+j]; the three dz after the
@@ -16,8 +23,8 @@
 // 4. bwd_dg_carry_kernel (gla_chunk_bwd.cuh): adds to dg the totals of the
 //    later segments;
 // 5. bwd_taps_kernel: the tap gradients summed over batch and segments.
-// The per-tile parts of dq and dk are 537 MB at b8 h4 t512 dk256 dv512.
 #include "gla_chunk_bwd.cuh"
+#include "gla_chunked_bwd.cuh"
 
 namespace gla {
 
@@ -80,8 +87,10 @@ struct ConvBwdChannel {
 // row take the q and k channels (and dg), the others the v channels; z is the
 // time segment. dg gets the running sum within the segment, dgt (segments,
 // B*H, DK) the segment's total (the last segment's includes the dsf term).
-// dwp: (B * segments, H*(2 DK + DV), 4) tap gradients of one batch row and
-// segment, q channels then k then v; or null.
+// dqp, dkp: n_parts parts of dq and dk, (n_parts, B*H, T, DK); dsgp: n_sg
+// parts of the dsf term, (n_sg, B*H, DK). dwp: (B * segments, H*(2 DK +
+// DV), 4) tap gradients of one batch row and segment, q channels then k
+// then v; or null.
 template <typename IO>
 __global__ void __launch_bounds__(kFinishThreads)
 bwd_finish_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
@@ -91,12 +100,11 @@ bwd_finish_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
                   const float* __restrict__ dsgp, const float* __restrict__ dvf,
                   IO* __restrict__ dxq, IO* __restrict__ dxk, IO* __restrict__ dxv,
                   float* __restrict__ dg, float* __restrict__ dgt, float* __restrict__ dwp,
-                  int H, int T, int DK, int DV) {
+                  int H, int T, int DK, int DV, int n_parts, int n_sg) {
   const int bh = blockIdx.y, b = bh / H, h = bh % H, BH = gridDim.y;
   const int seg = blockIdx.z, n_seg = gridDim.z;
   const int t_lo = seg * kFinishSeg, t_hi = min(T, t_lo + kFinishSeg);
   const int t_start = min(T, t_hi + kConv - 1) - 1;  // dz of three later steps
-  const int n_parts = DV / kBV;
   const int qk_blocks = DK / kFinishThreads;
   float* dw_row =
       dwp ? dwp + ((size_t)b * n_seg + seg) * H * (2 * DK + DV) * kConv : nullptr;
@@ -109,7 +117,7 @@ bwd_finish_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
     ck.init(xk + base, DK, wk + (size_t)(h * DK + ch) * kConv, t_start + 1);
     float acc = 0.f;
     if (seg == n_seg - 1)
-      for (int i = 0; i < n_parts; ++i) acc += dsgp[((size_t)i * BH + bh) * DK + ch];
+      for (int i = 0; i < n_sg; ++i) acc += dsgp[((size_t)i * BH + bh) * DK + ch];
     for (int t = t_start; t >= t_lo; --t) {
       const bool live = t < t_hi;
       float dq, dk;
@@ -159,12 +167,18 @@ __global__ void bwd_taps_kernel(const float* __restrict__ dwp, IO* __restrict__ 
   dw[i] = from_f<IO>(s);
 }
 
+constexpr int kRecurrent = 0;
+constexpr int kChunked = 1;
+
+// chunked: the chunked route's scratch (ops/gla_cuda.py:gla_chunk_conv_bwd),
+// uf, kf, bc, kt, ul, states, dstates, vb, ebt; null for the recurrent route
 template <typename IO, typename ST, int DK>
 int launch_bwd(const void* xq, const void* xk, const void* xv, const void* gk, const void* wq,
                const void* wk, const void* wv, const void* s0, const void* dout,
                const void* dsf, void* dxq, void* dxk, void* dxv, void* dg, void* ds0, void* dw,
-               void* dqp, void* dkp, void* dsgp, void* dvf, void* dgt, void* dwp, int B, int H,
-               int T, int DV, float scale, cudaStream_t stream) {
+               void* dqp, void* dkp, void* dsgp, void* dvf, void* dgt, void* dwp,
+               void* const* chunked, int B, int H, int T, int DV, float scale, int route,
+               cudaStream_t stream) {
   const IO *xq_ = static_cast<const IO*>(xq), *xk_ = static_cast<const IO*>(xk),
            *xv_ = static_cast<const IO*>(xv), *wq_ = static_cast<const IO*>(wq),
            *wk_ = static_cast<const IO*>(wk), *wv_ = static_cast<const IO*>(wv);
@@ -172,17 +186,35 @@ int launch_bwd(const void* xq, const void* xk, const void* xv, const void* gk, c
         *dsgp_ = static_cast<float*>(dsgp), *dvf_ = static_cast<float*>(dvf),
         *dgt_ = static_cast<float*>(dgt), *dwp_ = static_cast<float*>(dwp),
         *dg_ = static_cast<float*>(dg);
-  int err = launch_sweeps<IO, ST, DK, true>(
-      xq_, xk_, xv_, static_cast<const float*>(gk), wq_, wk_, wv_, static_cast<const ST*>(s0),
-      static_cast<const IO*>(dout), static_cast<const ST*>(dsf), dqp_, dsgp_, dkp_, dvf_,
-      static_cast<ST*>(ds0), B, H, T, DV, scale, stream);
+  int err = 0, n_parts = DV / kBV, n_sg = DV / kBV;
+  // Each IO dtype has one body: bf16 the chunked, f32 the recurrent.
+  if constexpr (std::is_same_v<IO, __nv_bfloat16>) {
+    if (route != kChunked) return -4;
+    using chunked::bf16;
+    float* const* sf = reinterpret_cast<float* const*>(chunked);  // the f32 scratch
+    bf16* const* sb = reinterpret_cast<bf16* const*>(chunked);    // the bf16 scratch
+    err = chunked::launch_chunked<ST>(
+        xq_, xk_, xv_, static_cast<const float*>(gk), wq_, wk_, wv_,
+        static_cast<const ST*>(s0), static_cast<const bf16*>(dout),
+        static_cast<const ST*>(dsf), static_cast<ST*>(ds0), dqp_, dkp_, dsgp_, dvf_, sf[0],
+        sf[1], sf[2], sb[3], sb[4], sb[5], sb[6], sb[7], sf[8], B, H, T, DK, DV, scale, stream);
+    n_parts = 1;
+    n_sg = (DV + chunked::kTile - 1) / chunked::kTile + 1;
+  } else {
+    if (route != kRecurrent) return -4;
+    err = launch_sweeps<IO, ST, DK, true>(
+        xq_, xk_, xv_, static_cast<const float*>(gk), wq_, wk_, wv_, static_cast<const ST*>(s0),
+        static_cast<const IO*>(dout), static_cast<const ST*>(dsf), dqp_, dsgp_, dkp_, dvf_,
+        static_cast<ST*>(ds0), B, H, T, DV, scale, stream);
+  }
   if (err) return err;
   const int n_seg = (T + kFinishSeg - 1) / kFinishSeg;
   const dim3 channels(DK / kFinishThreads + (DV + kFinishThreads - 1) / kFinishThreads, B * H,
                       n_seg);
   bwd_finish_kernel<IO><<<channels, kFinishThreads, 0, stream>>>(
       xq_, xk_, xv_, wq_, wk_, wv_, dqp_, dkp_, dsgp_, dvf_, static_cast<IO*>(dxq),
-      static_cast<IO*>(dxk), static_cast<IO*>(dxv), dg_, dgt_, dwp_, H, T, DK, DV);
+      static_cast<IO*>(dxk), static_cast<IO*>(dxv), dg_, dgt_, dwp_, H, T, DK, DV, n_parts,
+      n_sg);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   err = launch_dg_carry(dg_, dgt_, B * H, T, DK, stream);
@@ -201,24 +233,33 @@ int launch_bwd(const void* xq, const void* xk, const void* xv, const void* gk, c
 // and dxv (B, H, T, DV) in the IO dtype; dg (B, H, T, DK) f32; ds0 (B, H, DK,
 // DV) in the state dtype, or null to skip it; dw (H * (2 DK + DV), 4) in the
 // IO dtype, the q taps' gradient, then k's, then v's, or null to skip them
-// (dwp is then null too). Scratch, all f32: dqp and dkp (DV/32, B, H, T, DK),
-// dsgp (DV/32, B, H, DK), dvf (B, H, T, DV), dgt (ceil(T/64), B, H, DK), dwp
-// (B * ceil(T/64), H * (2 DK + DV), 4). All contiguous; T >= 1. Returns the first launch's cudaGetLastError() that is
-// not 0, -1 for an unsupported DK, -2 for unsupported dtype codes, -3 for
-// DV % 32 != 0.
+// (dwp is then null too). route: 0 recurrent (f32 IO), 1 chunked (bf16 IO).
+// Scratch, f32 unless said: dqp and dkp (P, B, H, T, DK) and dsgp (Q, B, H,
+// DK) with P = Q = DV/32 (recurrent) or P = 1, Q = ceil(DV/64) + 1 (chunked); dvf
+// (B, H, T, DV), dgt (ceil(T/64), B, H, DK), dwp (B * ceil(T/64), H * (2 DK +
+// DV), 4); for the chunked route only (else null), with nc = ceil(T/64) and
+// Tp = 64 nc: uf, kf, bc (B*H, Tp, DK), kt, ul (B*H, Tp, DK) bf16, states and
+// dstates (B*H, nc, DK, DV) bf16, vb (B*H, Tp, DV) bf16, ebt (B*H, nc, DK).
+// All contiguous, do 16-byte aligned for the chunked route; T >= 1. Returns
+// the first launch's cudaGetLastError() that is not 0, -1 for an
+// unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 != 0, -4
+// for a route that is not the IO dtype's.
 extern "C" int gla_chunk_conv_bwd(const void* xq, const void* xk, const void* xv,
                                   const void* gk, const void* wq, const void* wk,
                                   const void* wv, const void* s0, const void* dout,
                                   const void* dsf, void* dxq, void* dxk, void* dxv, void* dg,
                                   void* ds0, void* dw, void* dqp, void* dkp, void* dsgp,
-                                  void* dvf, void* dgt, void* dwp, int B, int H, int T, int DK_,
-                                  int DV,
-                                  float scale, int io_dtype, int state_dtype, void* stream) {
+                                  void* dvf, void* dgt, void* dwp, void* uf, void* kf, void* bc,
+                                  void* kt, void* ul, void* states, void* dstates, void* vb,
+                                  void* ebt, int B, int H, int T, int DK_, int DV, float scale,
+                                  int io_dtype, int state_dtype, int route, void* stream) {
   if (DV % gla::kBV != 0) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* const chunked[9] = {uf, kf, bc, kt, ul, states, dstates, vb, ebt};
   GLA_DISPATCH_TYPES(io_dtype, state_dtype,
                      GLA_DISPATCH_DK(DK_, return gla::launch_bwd<IO, ST, DK>(
                          xq, xk, xv, gk, wq, wk, wv, s0, dout, dsf, dxq, dxk, dxv, dg, ds0, dw,
-                         dqp, dkp, dsgp, dvf, dgt, dwp, B, H, T, DV, scale, st)))
+                         dqp, dkp, dsgp, dvf, dgt, dwp, chunked, B, H, T, DV, scale, route,
+                         st)))
   return -2;
 }

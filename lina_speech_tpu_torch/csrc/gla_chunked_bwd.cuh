@@ -1,0 +1,710 @@
+// The chunked route of the conv-fused GLA backward, for bf16 IO: the two
+// recurrent sweeps of gla_chunk_bwd.cuh (one dependent rank-1 update per
+// token) replaced by 64-row chunks whose products run on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 sums), as the TPU kernel
+// _conv_bwd_kernel (lina_speech_tpu/ops/gla_pallas.py:861, math in
+// _bwd_math :261) walks 64-row chunks with MXU products. Every product
+// operand is rounded to bf16, as the TPU kernel rounds to its IO dtype;
+// every sum is f32. The plain version of the same decomposition is
+// ops/gla_cuda.py:gla_chunk_conv_bwd_chunked_plain.
+//
+// Per (batch, head), u = scale q, chunk c of rows t, bc the in-chunk
+// inclusive sums of the gates g <= 0 and btot their total (a ragged last
+// chunk is padded with zero inputs and zero gates):
+//
+// 1. prep_kernel: the convs, silu and rounding points of the forward (as
+//    ConvBwdChannel::pre), bc, and the decayed operands k e^{btot - bc} and
+//    u e^{bc} in bf16; e^{btot} per chunk and key channel.
+// 2. state_kernel, one launch of two halves: a block holds a 64 x 64 f32
+//    tile of S in its mma accumulators and walks the chunks forward from
+//    s0, S <- e^{btot} S + (k e^{btot - bc})^T v, storing each chunk's start
+//    state (bf16) and the row sums of dsf . e^{btot} S of the last chunk's
+//    start state S (the decay's part of dsf . S_final); the other
+//    half walks back from dsf, dS <- e^{btot} dS + (u e^{bc})^T do, storing
+//    each chunk's end-state cotangent (bf16) and, at the end, ds0.
+// 3. dqk_kernel, parallel over (key tile, chunk, batch*head): the inter
+//    terms do . S^T and v . dS^T and dA = do . v^T, summed over the value
+//    tiles inside the block, then G and H (below); dq = scale (e^{bc} do S^T
+//    + G), dk = e^{btot - bc} v dS^T + H leave the block once, in f32. The
+//    last chunk's blocks add up the rest of dsf . S_final, sum_t k_t e^{btot
+//    - bc_t} (v_t dsf^T), from the very f32 values that enter dk: the
+//    finishing pass takes dg as sum_{s>=t} (q dq - k dk) + dsf . S_final,
+//    and where the exact dg is 0 (one step from a zero state) the two sides
+//    then cancel to f32 rounding instead of leaving bf16 rounding behind.
+// 4. dv_kernel, parallel over (chunk, batch*head): A (below) summed over
+//    the key tiles, then dv = (k e^{btot - bc}) dS + A^T do for every value
+//    tile.
+// The finishing pass of gla_chunk_conv_bwd.cu then takes dq, dk, dv as one
+// part each.
+//
+// The intra-chunk terms G[t] = sum_{s<=t} dA[t,s] k_s e^{b_t - b_s}, H[s] =
+// sum_{t>=s} dA[t,s] u_t e^{b_t - b_s} and A[t,s] = sum_d u_t k_s e^{b_t -
+// b_s} use 16-row sub-chunks. A flagship gate sum over a chunk can reach a
+// few hundred, so e^{-bc} would overflow f32 and no product may factor the
+// decay across a whole chunk. For sub-chunks I > J the decay is split at a
+// row r between them, (x_t e^{b_t - b_r}) (y_s e^{b_r - b_s}), both
+// exponents <= 0: r is the row before I for G and A, J's last row for H.
+// The 16 x 16 diagonal blocks are summed elementwise in f32 on the CUDA
+// cores with e^{b_t - b_s}, t >= s.
+//
+// What bounds it on the H100: not the products (26 GFLOP at b8 h4 t512
+// dk256 dv512, 26 us at the bf16 peak) but memory traffic and latency: the
+// states and cotangents (2 * b*h*nc*dk*dv bf16, written once, read once),
+// the f32 operands of the intra terms, the chunk-serial state sweeps (nc
+// dependent steps a block) and the diagonal blocks on the CUDA cores.
+// Against them: the state sweeps load the next chunk while this chunk's
+// products run and write the states through shared memory, 16 bytes a
+// thread; dq/dk keeps two stages of its value loop in the space its
+// epilogue takes later; dq/dk and dv fit two blocks an SM. The route is
+// chosen in Python (ops/gla_cuda.py:gla_chunk_conv_bwd_plan).
+#pragma once
+
+#include <cstdint>
+
+#include "gla_common.cuh"
+#include "int8_common.cuh"
+
+namespace gla {
+namespace chunked {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kC = 64;           // rows of a chunk
+constexpr int kSub = 16;         // rows of a sub-chunk
+constexpr int kTile = 64;        // key or value channels of a tile
+// bf16 row stride in shared memory: the rows of an ldmatrix on distinct banks
+constexpr int kLd = kTile + 8;
+constexpr int kLdF = kTile + 1;  // f32 row stride: rows on distinct banks
+constexpr int kStateThreads = 128;
+constexpr int kGradThreads = 256;
+// rows of the split-decay factors of the sub-chunk pairs: 16 + 32 + 48
+constexpr int kPairRows = kSub * (kC / kSub) * (kC / kSub - 1) / 2;
+constexpr int kTileBytes = kC * kLd * 2;                     // one staged bf16 tile
+constexpr int kFTileBytes = kC * kLdF * 4;                   // one staged f32 tile
+constexpr int kPairBytes = kPairRows * kLd * 2;
+static_assert(kPairRows == 96, "four sub-chunks a chunk");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  if constexpr (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+  }
+}
+
+// The A fragment (rows m0 .. m0+15, k0 .. k0+15) of a product's left
+// operand X[m][k], stored with row stride ld as X (KM false) or as its
+// transpose X^T[k][m] (KM true).
+template <bool KM>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+  const bf16* p = KM ? s + (k0 + r + 8 * (i >> 1)) * ld + m0 + 8 * (i & 1)
+                     : s + (m0 + r + 8 * (i & 1)) * ld + k0 + 8 * (i >> 1);
+  ldsm_x4<KM>(a, p);
+}
+
+// The B fragments of two n8 tiles (columns n0 .., n0+8 ..; k0 .. k0+15) of
+// a right operand Y[k][n]: b[0], b[1] the first, b[2], b[3] the second;
+// stored as Y^T[n][k] (KN false) or as Y[k][n] (KN true).
+template <bool KN>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+  const bf16* p = KN ? s + (k0 + r + 8 * (i & 1)) * ld + n0 + 8 * (i >> 1)
+                     : s + (n0 + r + 8 * (i >> 1)) * ld + k0 + 8 * (i & 1);
+  ldsm_x4<KN>(b, p);
+}
+
+// acc (16 rows from m0, 16 NP columns from n0, as 2 NP n8 tiles) += X . Y
+// over k in [0, K): X and Y as frag_a and frag_b take them.
+template <bool KM, bool KN, int NP>
+__device__ __forceinline__ void mma_rows(float (&acc)[2 * NP][4], const bf16* x, int ldx,
+                                         const bf16* y, int ldy, int m0, int n0, int K) {
+  for (int k = 0; k < K; k += 16) {
+    uint32_t a[4];
+    frag_a<KM>(a, x, ldx, m0, k);
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      uint32_t b[4];
+      frag_b<KN>(b, y, ldy, k, n0 + 16 * j);
+      q8::mma_bf16(acc[2 * j], a, b[0], b[1]);
+      q8::mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Row and column (within the 16 x 8 tile) of accumulator element e of the
+// calling lane: rows g and g + 8, columns 2 t4 and 2 t4 + 1.
+__device__ __forceinline__ int acc_row(int e) { return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1); }
+__device__ __forceinline__ int acc_col(int e) { return 2 * (threadIdx.x & 3) + (e & 1); }
+
+// 16 bytes of a bf16 row into shared memory, or zeros where !ok (src is
+// then not read)
+__device__ __forceinline__ void copy16(bf16* dst, const bf16* src, const bf16* any, bool ok) {
+  q8::cp_async16(dst, ok ? src : any, ok);
+}
+
+__device__ __forceinline__ float exp_le0(float x) { return __expf(fminf(x, 0.f)); }
+
+// ------------------------------------------------------------------ prep
+// grid (nc, B*H, DK/64 + ceil(DV/64)), 64 threads: one thread walks one
+// channel through one chunk. Key-channel threads convolve q and k and sum
+// the gates; value-channel threads convolve v. Outputs on Tp = nc * 64 rows
+// (zeros past T): uf = u, kf = k, bc (f32, (B*H, Tp, DK)); kt = k e^{btot -
+// bc}, ul = u e^{bc} (bf16, same shape); vb = v (bf16, (B*H, Tp, DV));
+// ebt = e^{btot} (f32, (B*H, nc, DK)).
+template <typename IO>
+__global__ void __launch_bounds__(kTile)
+prep_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk, const IO* __restrict__ xv,
+            const float* __restrict__ gk, const IO* __restrict__ wq, const IO* __restrict__ wk,
+            const IO* __restrict__ wv, float* __restrict__ uf, float* __restrict__ kf,
+            float* __restrict__ bc, bf16* __restrict__ kt, bf16* __restrict__ ul,
+            bf16* __restrict__ vb, float* __restrict__ ebt, int H, int T, int DK, int DV,
+            float scale) {
+  const int c = blockIdx.x, bh = blockIdx.y, h = bh % H, nc = gridDim.x, Tp = nc * kC;
+  const int t0 = c * kC, n = min(kC, T - t0);
+  const int key_blocks = DK / kTile;
+  if ((int)blockIdx.z < key_blocks) {
+    const int ch = blockIdx.z * kTile + threadIdx.x;
+    const size_t xb = (size_t)bh * T * DK + ch, ob = ((size_t)bh * Tp + t0) * DK + ch;
+    float btot = 0.f;
+    for (int r = 0; r < n; ++r) btot += gk[xb + (size_t)(t0 + r) * DK];
+    float wqf[kConv], wkf[kConv], hq[kConv], hk[kConv];  // taps; x[t-3 .. t]
+#pragma unroll
+    for (int i = 0; i < kConv; ++i) {
+      wqf[i] = to_f(wq[(size_t)(h * DK + ch) * kConv + i]);
+      wkf[i] = to_f(wk[(size_t)(h * DK + ch) * kConv + i]);
+      const int t = t0 - (kConv - 1) + i;
+      hq[i] = t >= 0 && i < kConv - 1 ? to_f(xq[xb + (size_t)t * DK]) : 0.f;
+      hk[i] = t >= 0 && i < kConv - 1 ? to_f(xk[xb + (size_t)t * DK]) : 0.f;
+    }
+    float b = 0.f;
+    for (int r = 0; r < kC; ++r) {
+      float u = 0.f, k = 0.f;
+      if (r < n) {
+        const size_t x = xb + (size_t)(t0 + r) * DK;
+        hq[kConv - 1] = to_f(xq[x]);
+        hk[kConv - 1] = to_f(xk[x]);
+        b += gk[x];
+        float zq = 0.f, zk = 0.f;
+#pragma unroll
+        for (int i = 0; i < kConv; ++i) {
+          zq = zq + wqf[i] * hq[i];
+          zk = zk + wkf[i] * hk[i];
+        }
+        u = silu(round_io<IO>(zq)) * scale;
+        k = silu(round_io<IO>(zk));
+#pragma unroll
+        for (int i = 0; i < kConv - 1; ++i) {
+          hq[i] = hq[i + 1];
+          hk[i] = hk[i + 1];
+        }
+      }
+      const size_t o = ob + (size_t)r * DK;
+      uf[o] = u;
+      kf[o] = k;
+      bc[o] = b;
+      kt[o] = __float2bfloat16_rn(k * __expf(btot - b));
+      ul[o] = __float2bfloat16_rn(u * __expf(b));
+    }
+    ebt[((size_t)bh * nc + c) * DK + ch] = __expf(btot);
+  } else {
+    const int ch = (blockIdx.z - key_blocks) * kTile + threadIdx.x;
+    if (ch >= DV) return;
+    const size_t xb = (size_t)bh * T * DV + ch, ob = ((size_t)bh * Tp + t0) * DV + ch;
+    float w[kConv], hv[kConv];
+#pragma unroll
+    for (int i = 0; i < kConv; ++i) {
+      w[i] = to_f(wv[(size_t)(h * DV + ch) * kConv + i]);
+      const int t = t0 - (kConv - 1) + i;
+      hv[i] = t >= 0 && i < kConv - 1 ? to_f(xv[xb + (size_t)t * DV]) : 0.f;
+    }
+    for (int r = 0; r < kC; ++r) {
+      float v = 0.f;
+      if (r < n) {
+        hv[kConv - 1] = to_f(xv[xb + (size_t)(t0 + r) * DV]);
+        float z = 0.f;
+#pragma unroll
+        for (int i = 0; i < kConv; ++i) z = z + w[i] * hv[i];
+        v = silu(round_io<IO>(z));
+#pragma unroll
+        for (int i = 0; i < kConv - 1; ++i) hv[i] = hv[i + 1];
+      }
+      vb[ob + (size_t)r * DV] = __float2bfloat16_rn(v);
+    }
+  }
+}
+
+// dsgp part blockIdx.x (B*H, DK) of the warp's 16 key rows from row0: the
+// row sums over the block's value tile of dsf . acc, acc the last chunk's
+// start state decayed by e^{btot} (0 without dsf).
+template <typename ST>
+__device__ __forceinline__ void last_chunk_decay(const float (&acc)[8][4], const ST* dsf,
+                                                 float* dsgp, int bh, int BH, int row0, int c0,
+                                                 int DK, int DV) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + acc_row(2 * hh);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+        const int col = c0 + 8 * j + acc_col(e);
+        if (dsf && col < DV) sum += to_f(dsf[((size_t)bh * DK + row) * DV + col]) * acc[j][e];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if ((threadIdx.x & 3) == 0) dsgp[((size_t)blockIdx.x * BH + bh) * DK + row] = sum;
+  }
+}
+
+// ---------------------------------------------------------------- states
+// grid (ceil(DV/64), DK/64, 2 B*H), 128 threads: warp w holds key rows 16 w
+// .. 16 w + 15 of the block's 64 x 64 tile, all 64 value columns. Blocks z
+// < B*H walk forward (states; dsgp parts 0 .. ceil(DV/64) - 1, (B*H, DK)
+// each: per value tile the row sums of dsf . e^{btot} S of the last chunk's
+// start state), the others back (dstates, ds0). states and
+// dstates: (B*H, nc, DK, DV) bf16. dsf, s0, ds0 may be null.
+template <typename ST>
+__global__ void __launch_bounds__(kStateThreads)
+state_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ ul,
+             const bf16* __restrict__ vb, const bf16* __restrict__ dout,
+             const float* __restrict__ ebt, const ST* __restrict__ s0,
+             const ST* __restrict__ dsf, bf16* __restrict__ states, bf16* __restrict__ dstates,
+             float* __restrict__ dsgp, ST* __restrict__ ds0, int BH, int T, int nc, int DK,
+             int DV) {
+  // two stages: the next chunk's tiles load while this chunk's products run
+  __shared__ __align__(16) bf16 sx[2][kC * kLd];  // decayed k or u: [t][key]
+  __shared__ __align__(16) bf16 sy[2][kC * kLd];  // v or do: [t][value]
+  __shared__ __align__(16) bf16 so[kTile * kLd];  // the state as it leaves: [key][value]
+  __shared__ float se[2][kTile];                  // e^{btot} of the tile's key rows
+  const bool rev = (int)blockIdx.z >= BH;
+  const int bh = rev ? blockIdx.z - BH : blockIdx.z;
+  const int c0 = blockIdx.x * kTile, d0 = blockIdx.y * kTile, Tp = nc * kC;
+  const int warp = threadIdx.x >> 5, m0 = 16 * warp;
+  const ST* init = rev ? dsf : s0;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = d0 + m0 + acc_row(e), col = c0 + 8 * j + acc_col(e);
+      acc[j][e] = init && col < DV ? to_f(init[((size_t)bh * DK + row) * DV + col]) : 0.f;
+    }
+  const bf16* xsrc = rev ? ul : kt;
+  bf16* out = rev ? dstates : states;
+  const auto chunk_of = [&](int i) { return rev ? nc - 1 - i : i; };
+  const auto stage = [&](int buf, int c) {  // one cp.async group
+    for (int p = threadIdx.x; p < kC * 8; p += kStateThreads) {
+      const int r = p >> 3, q = (p & 7) * 8, t = c * kC + r;
+      copy16(sx[buf] + r * kLd + q, xsrc + ((size_t)bh * Tp + t) * DK + d0 + q, xsrc, true);
+      const bool ok = c0 + q < DV && (!rev || t < T);
+      const bf16* ysrc = rev ? dout + ((size_t)bh * T + t) * DV + c0 + q
+                             : vb + ((size_t)bh * Tp + t) * DV + c0 + q;
+      copy16(sy[buf] + r * kLd + q, ysrc, vb, ok);
+    }
+    if (threadIdx.x < kTile)
+      se[buf][threadIdx.x] = ebt[((size_t)bh * nc + c) * DK + d0 + threadIdx.x];
+    q8::cp_async_commit();
+  };
+  stage(0, chunk_of(0));
+  for (int i = 0; i < nc; ++i) {
+    const int c = chunk_of(i), buf = i & 1;
+    if (i + 1 < nc) {
+      stage(buf ^ 1, chunk_of(i + 1));
+    } else {
+      q8::cp_async_commit();  // an empty group keeps the wait below the same
+    }
+    // the state at the chunk's start (forward) or the cotangent at its end
+    // (reverse) leaves through shared memory, 16 bytes a thread
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<__nv_bfloat162*>(so + (m0 + acc_row(2 * hh)) * kLd + 8 * j +
+                                           acc_col(0)) =
+            __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+    q8::cp_async_wait<1>();
+    __syncthreads();  // this chunk's tiles and the state in so are complete
+    bf16* o = out + (((size_t)bh * nc + c) * DK + d0) * DV + c0;
+    for (int p = threadIdx.x; p < kTile * 8; p += kStateThreads) {
+      const int r = p >> 3, q = (p & 7) * 8;
+      if (c0 + q < DV)
+        *reinterpret_cast<uint4*>(o + (size_t)r * DV + q) =
+            *reinterpret_cast<const uint4*>(so + r * kLd + q);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= se[buf][m0 + acc_row(e)];
+    if (!rev && i == nc - 1) last_chunk_decay(acc, dsf, dsgp, bh, BH, d0 + m0, c0, DK, DV);
+    // acc[key][value] += sum_t x[t][key] y[t][value]
+    mma_rows<true, true, 4>(acc, sx[buf], kLd, sy[buf], kLd, m0, 0, kC);
+    __syncthreads();  // the next stage overwrites buf, and the next state so
+  }
+  if (rev && ds0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = d0 + m0 + acc_row(e), col = c0 + 8 * j + acc_col(e);
+        if (col < DV) ds0[((size_t)bh * DK + row) * DV + col] = from_f<ST>(acc[j][e]);
+      }
+  }
+}
+
+// ------------------------------------------------------------- dq and dk
+// Shared memory of dqk_kernel after the value loop: the f32 u, k and bc of
+// the key tile; dA in f32 and bf16; the split-decay factors of G (k, 96
+// rows) and H (u, 96 rows). During the loop the same bytes hold two stages
+// of its four bf16 tiles (do, v, S, dS). 103 KB: two blocks an SM.
+constexpr int kDqkStage = 4 * kTileBytes;
+constexpr int kDqkR1 = 3 * kFTileBytes;
+constexpr int kDqkSmem = kDqkR1 + kFTileBytes + kTileBytes + 2 * kPairBytes;
+static_assert(2 * kDqkStage <= kDqkSmem, "two stages of the value loop fit");
+
+// Row offsets in the factor buffers: G's factor of sub-chunk I (rows 0 ..
+// 16 I - 1) starts at kx_row(I); H's of sub-chunk J (rows 16 (J+1) .. 63)
+// at ux_row(J).
+__device__ __forceinline__ int kx_row(int I) { return 8 * I * (I - 1); }
+__device__ __forceinline__ int ux_row(int J) { return 8 * J * (7 - J); }
+
+// G's and H's split-decay factors of one key tile in the factor buffers:
+// kx[s] = k_s e^{b_{16I-1} - b_s} for s < 16 I, ux[t] = u_t e^{b_t -
+// b_{16J+15}} for t >= 16 (J + 1). f32 inputs with row stride kLdF.
+__device__ __forceinline__ void pair_factors(bf16* kx, bf16* ux, const float* fu,
+                                             const float* fk, const float* fb) {
+  for (int p = threadIdx.x; p < kPairRows * kTile; p += kGradThreads) {
+    const int row = p / kTile, d = p % kTile;
+    const int I = row < 16 ? 1 : row < 48 ? 2 : 3, s = row - kx_row(I);
+    kx[row * kLd + d] = __float2bfloat16_rn(
+        fk[s * kLdF + d] * exp_le0(fb[(kSub * I - 1) * kLdF + d] - fb[s * kLdF + d]));
+    const int J = row < 48 ? 0 : row < 80 ? 1 : 2, t = row - ux_row(J) + kSub * (J + 1);
+    ux[row * kLd + d] = __float2bfloat16_rn(
+        fu[t * kLdF + d] * exp_le0(fb[t * kLdF + d] - fb[(kSub * J + kSub - 1) * kLdF + d]));
+  }
+}
+
+// The key tile's u, k and bc rows of chunk c into shared f32 (row stride
+// kLdF).
+__device__ __forceinline__ void load_f32_tile(float* fu, float* fk, float* fb, const float* uf,
+                                              const float* kf, const float* bcum, size_t row0,
+                                              int DK, int d0) {
+  for (int p = threadIdx.x; p < kC * kTile; p += kGradThreads) {
+    const int r = p / kTile, d = p % kTile;
+    const size_t o = (row0 + r) * DK + d0 + d;
+    fu[r * kLdF + d] = uf[o];
+    fk[r * kLdF + d] = kf[o];
+    fb[r * kLdF + d] = bcum[o];
+  }
+}
+
+// grid (DK/64, nc, B*H), 256 threads: warp w holds rows 16 (w % 4) .. of
+// the chunk and columns 32 (w / 4) .. of the key tile (dq, dk) or of the
+// chunk (dA). dq, dk: (B*H, T, DK) f32. The last chunk's blocks write dsgp
+// part ceil(DV/64), (B*H, DK): sum_t k_t e^{btot - bc_t} (v_t dsf^T) of
+// their key tile. (This kernel and dv_kernel are
+// templates so that more than one source may include this header.)
+template <int = 0>
+__global__ void __launch_bounds__(kGradThreads, 2)
+dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
+           const float* __restrict__ bcum, const bf16* __restrict__ vb,
+           const bf16* __restrict__ dout, const bf16* __restrict__ states,
+           const bf16* __restrict__ dstates, float* __restrict__ dq, float* __restrict__ dk,
+           float* __restrict__ dsgp, int BH, int T, int nc, int DK, int DV, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float kd_rows[4][kTile];  // the last chunk's sums of k . dk_inter per row band
+  float* fu = reinterpret_cast<float*>(smem);
+  float* fk = fu + kC * kLdF;
+  float* fb = fk + kC * kLdF;
+  float* daf = reinterpret_cast<float*>(smem + kDqkR1);
+  bf16* dab = reinterpret_cast<bf16*>(daf + kC * kLdF);
+  bf16* kx = dab + kC * kLd;
+  bf16* ux = kx + kPairRows * kLd;
+
+  const int d0 = blockIdx.x * kTile, c = blockIdx.y, bh = blockIdx.z, Tp = nc * kC;
+  const int warp = threadIdx.x >> 5, I = warp & 3, m0 = kSub * I, n0 = 32 * (warp >> 2);
+  float M[4][4] = {}, Kd[4][4] = {}, dA[4][4] = {};
+  const bf16* st = states + ((size_t)bh * nc + c) * DK * DV;
+  const bf16* dst = dstates + ((size_t)bh * nc + c) * DK * DV;
+  // stage b's tiles: do, v, S, dS of one value tile, 64 x 64 each
+  const auto tile = [&](int b, int i) {
+    return reinterpret_cast<bf16*>(smem + b * kDqkStage) + i * kC * kLd;
+  };
+  const auto stage = [&](int b, int c0) {  // one cp.async group
+    for (int p = threadIdx.x; p < kC * 8; p += kGradThreads) {
+      const int r = p >> 3, q = (p & 7) * 8, t = c * kC + r;
+      const bool col = c0 + q < DV;
+      copy16(tile(b, 0) + r * kLd + q, dout + ((size_t)bh * T + t) * DV + c0 + q, dout,
+             col && t < T);
+      copy16(tile(b, 1) + r * kLd + q, vb + ((size_t)bh * Tp + t) * DV + c0 + q, vb, col);
+      copy16(tile(b, 2) + r * kLd + q, st + (size_t)(d0 + r) * DV + c0 + q, st, col);
+      copy16(tile(b, 3) + r * kLd + q, dst + (size_t)(d0 + r) * DV + c0 + q, dst, col);
+    }
+    q8::cp_async_commit();
+  };
+  stage(0, 0);
+  for (int c0 = 0, b = 0; c0 < DV; c0 += kTile, b ^= 1) {
+    if (c0 + kTile < DV) {
+      stage(b ^ 1, c0 + kTile);
+    } else {
+      q8::cp_async_commit();  // an empty group keeps the wait below the same
+    }
+    q8::cp_async_wait<1>();
+    __syncthreads();  // this value tile has landed
+    const bf16 *s_do = tile(b, 0), *s_v = tile(b, 1);
+    mma_rows<false, false, 2>(M, s_do, kLd, tile(b, 2), kLd, m0, n0, kTile);  // do . S^T
+    mma_rows<false, false, 2>(Kd, s_v, kLd, tile(b, 3), kLd, m0, n0, kTile);  // v . dS^T
+    mma_rows<false, false, 2>(dA, s_do, kLd, s_v, kLd, m0, n0, kTile);        // do . v^T
+    __syncthreads();  // the next stage overwrites b
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = m0 + acc_row(e), s = n0 + 8 * j + acc_col(e);
+      daf[r * kLdF + s] = dA[j][e];
+      dab[r * kLd + s] = __float2bfloat16_rn(dA[j][e]);
+    }
+  load_f32_tile(fu, fk, fb, uf, kf, bcum, (size_t)bh * Tp + c * kC, DK, d0);
+  __syncthreads();
+  pair_factors(kx, ux, fu, fk, fb);
+  __syncthreads();
+  float G[4][4] = {}, Hs[4][4] = {};
+  // G rows of sub-chunk I from the sub-chunks before it: dA[I, s] . kx
+  if (I >= 1) mma_rows<false, true, 2>(G, dab, kLd, kx + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
+  // H rows of sub-chunk I from the sub-chunks after it: dA[t, I]^T . ux
+  if (I <= 2)
+    mma_rows<true, true, 2>(Hs, dab + kSub * (I + 1) * kLd, kLd, ux + ux_row(I) * kLd, kLd, m0,
+                            n0, kC - kSub * (I + 1));
+  float kd[4][2] = {};  // k . dk_inter summed over the lane's two rows, per column
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = m0 + acc_row(e), d = n0 + 8 * j + acc_col(e);
+      const float br = fb[r * kLdF + d];
+      const float dk_inter = exp_le0(fb[(kC - 1) * kLdF + d] - br) * Kd[j][e];
+      kd[j][e & 1] += fk[r * kLdF + d] * dk_inter;
+      float gs = I >= 1 ? G[j][e] * exp_le0(br - fb[(m0 - 1) * kLdF + d]) : 0.f;
+      float hs = I <= 2 ? Hs[j][e] * exp_le0(fb[(m0 + kSub - 1) * kLdF + d] - br) : 0.f;
+#pragma unroll 4
+      for (int s = m0; s < m0 + kSub; ++s) {  // the diagonal block: e^{-|b_r - b_s|}
+        const float e_rs = __expf(-fabsf(br - fb[s * kLdF + d]));
+        if (s <= r) gs += daf[r * kLdF + s] * fk[s * kLdF + d] * e_rs;
+        if (s >= r) hs += daf[s * kLdF + r] * fu[s * kLdF + d] * e_rs;
+      }
+      const int t = c * kC + r;
+      if (t < T) {
+        const size_t o = ((size_t)bh * T + t) * DK + d0 + d;
+        dq[o] = scale * (__expf(br) * M[j][e] + gs);
+        dk[o] = dk_inter + hs;
+      }
+    }
+  if (c != nc - 1) return;
+  // sum over the chunk's rows (padding rows have k = 0): the lanes of one
+  // column, then the four row bands in a fixed order
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = kd[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if ((threadIdx.x & 31) < 4) kd_rows[I][n0 + 8 * j + acc_col(e)] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < kTile) {
+    const int v_tiles = (DV + kTile - 1) / kTile;
+    dsgp[((size_t)v_tiles * BH + bh) * DK + d0 + threadIdx.x] =
+        kd_rows[0][threadIdx.x] + kd_rows[1][threadIdx.x] + kd_rows[2][threadIdx.x] +
+        kd_rows[3][threadIdx.x];
+  }
+}
+
+// -------------------------------------------------------------------- dv
+// Shared memory of dv_kernel: A (bf16); then phase 1 (A): the key tile's
+// f32 u, k, bc, A's left factor ua and the factors kx; in their place phase
+// 2 (dv): a value tile of dS ([key][value]) and of do, and the decayed k of
+// every key channel ([s][key], row stride DK + 8). 89 KB at DK 256: two
+// blocks an SM.
+inline int dv_smem_bytes(int DK) {
+  const int phase1 = 3 * kFTileBytes + kTileBytes + kPairBytes;
+  const int phase2 = DK * kLd * 2 + kTileBytes + kC * (DK + 8) * 2;
+  return kTileBytes + (phase1 > phase2 ? phase1 : phase2);
+}
+
+// the 544 pairs (t, s), s <= t, within one sub-chunk
+constexpr int kDiagPairs = (kC / kSub) * kSub * (kSub + 1) / 2;
+constexpr int kPairsPerThread = (kDiagPairs + kGradThreads - 1) / kGradThreads;
+
+// grid (nc, B*H), 256 threads: warp w holds rows 16 (w % 4) .. of the chunk
+// and columns 32 (w / 4) .. of A or of a value tile. dvf: (B*H, T, DV) f32.
+template <int = 0>
+__global__ void __launch_bounds__(kGradThreads, 2)
+dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
+          const float* __restrict__ bcum, const bf16* __restrict__ kt,
+          const bf16* __restrict__ dout, const bf16* __restrict__ dstates,
+          float* __restrict__ dvf, int T, int nc, int DK, int DV) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldk = DK + 8;
+  bf16* s_a = reinterpret_cast<bf16*>(smem);
+  unsigned char* r1 = reinterpret_cast<unsigned char*>(s_a + kC * kLd);
+  float* fu = reinterpret_cast<float*>(r1);
+  float* fk = fu + kC * kLdF;
+  float* fb = fk + kC * kLdF;
+  bf16* ua = reinterpret_cast<bf16*>(fb + kC * kLdF);
+  bf16* kx = ua + kC * kLd;
+  bf16* s_ds = reinterpret_cast<bf16*>(r1);
+  bf16* s_do = s_ds + DK * kLd;
+  bf16* s_kt = s_do + kC * kLd;
+
+  const int c = blockIdx.x, bh = blockIdx.y, Tp = nc * kC;
+  const int warp = threadIdx.x >> 5, I = warp & 3, m0 = kSub * I, n0 = 32 * (warp >> 2);
+  const size_t row0 = (size_t)bh * Tp + c * kC;
+  // this thread's diagonal pairs: (t, s) in sub-chunk p / 136, s <= t
+  int pt[kPairsPerThread], ps[kPairsPerThread];
+  float pa[kPairsPerThread] = {};
+#pragma unroll
+  for (int i = 0; i < kPairsPerThread; ++i) {
+    const int p = threadIdx.x + kGradThreads * i;
+    int q = p % (kSub * (kSub + 1) / 2), tl = 0;
+    while (q > tl) q -= ++tl;
+    pt[i] = p < kDiagPairs ? kSub * (p / (kSub * (kSub + 1) / 2)) + tl : -1;
+    ps[i] = pt[i] - tl + q;
+  }
+  float A[4][4] = {};
+  for (int d0 = 0; d0 < DK; d0 += kTile) {
+    __syncthreads();  // the previous key tile's products are done
+    load_f32_tile(fu, fk, fb, uf, kf, bcum, row0, DK, d0);
+    __syncthreads();
+    for (int p = threadIdx.x; p < kPairRows * kTile; p += kGradThreads) {
+      const int row = p / kTile, d = p % kTile;
+      const int J = row < 16 ? 1 : row < 48 ? 2 : 3, s = row - kx_row(J);
+      kx[row * kLd + d] = __float2bfloat16_rn(
+          fk[s * kLdF + d] * exp_le0(fb[(kSub * J - 1) * kLdF + d] - fb[s * kLdF + d]));
+      if (row < kC) {  // A's left factor: u_t e^{b_t - b_r}, r the row before t's sub-chunk
+        const int r = kSub * (row / kSub) - 1;
+        ua[row * kLd + d] = __float2bfloat16_rn(
+            r < 0 ? 0.f : fu[row * kLdF + d] * exp_le0(fb[row * kLdF + d] - fb[r * kLdF + d]));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPairsPerThread; ++i) {
+      if (pt[i] < 0) continue;
+      const float* u = fu + pt[i] * kLdF;
+      const float* k = fk + ps[i] * kLdF;
+      const float* bt = fb + pt[i] * kLdF;
+      const float* bs = fb + ps[i] * kLdF;
+      float sum = 0.f;
+      for (int d = 0; d < kTile; ++d) sum += u[d] * k[d] * exp_le0(bt[d] - bs[d]);
+      pa[i] += sum;
+    }
+    __syncthreads();
+    // A[t, s] for s in the sub-chunks before t's: ua . kx^T, column pairs
+    // below 16 I only
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (n0 + 16 * j >= m0) continue;
+      float part[2][4] = {};
+      mma_rows<false, false, 1>(part, ua, kLd, kx + kx_row(I) * kLd, kLd, m0, n0 + 16 * j,
+                                kTile);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        A[2 * j][e] += part[0][e];
+        A[2 * j + 1][e] += part[1][e];
+      }
+    }
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < kC * kLd / 2; p += kGradThreads)
+    reinterpret_cast<uint32_t*>(s_a)[p] = 0u;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = m0 + acc_row(e), s = n0 + 8 * j + acc_col(e);
+      if (s < m0) s_a[r * kLd + s] = __float2bfloat16_rn(A[j][e]);
+    }
+#pragma unroll
+  for (int i = 0; i < kPairsPerThread; ++i)
+    if (pt[i] >= 0) s_a[pt[i] * kLd + ps[i]] = __float2bfloat16_rn(pa[i]);
+  for (int p = threadIdx.x; p < kC * DK / 8; p += kGradThreads) {
+    const int r = p / (DK / 8), q = (p % (DK / 8)) * 8;
+    copy16(s_kt + r * ldk + q, kt + (row0 + r) * DK + q, kt, true);
+  }
+  for (int c0 = 0; c0 < DV; c0 += kTile) {
+    __syncthreads();  // A is written; the previous value tile's products are done
+    const bf16* dst = dstates + ((size_t)bh * nc + c) * DK * DV + c0;
+    for (int p = threadIdx.x; p < DK * 8; p += kGradThreads) {
+      const int r = p >> 3, q = (p & 7) * 8;
+      copy16(s_ds + r * kLd + q, dst + (size_t)r * DV + q, dstates, c0 + q < DV);
+    }
+    for (int p = threadIdx.x; p < kC * 8; p += kGradThreads) {
+      const int r = p >> 3, q = (p & 7) * 8, t = c * kC + r;
+      copy16(s_do + r * kLd + q, dout + ((size_t)bh * T + t) * DV + c0 + q, dout,
+             c0 + q < DV && t < T);
+    }
+    q8::cp_async_commit();
+    q8::cp_async_wait<0>();
+    __syncthreads();
+    float acc[4][4] = {};
+    mma_rows<false, true, 2>(acc, s_kt, ldk, s_ds, kLd, m0, n0, DK);  // (k e^{btot-bc}) . dS
+    mma_rows<true, true, 2>(acc, s_a, kLd, s_do, kLd, m0, n0, kC);    // A^T . do
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + acc_row(e), col = c0 + n0 + 8 * j + acc_col(e), t = c * kC + r;
+        if (t < T && col < DV) dvf[((size_t)bh * T + t) * DV + col] = acc[j][e];
+      }
+  }
+}
+
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// Launches kernels 1-4 of the chunked route; returns the first error that
+// is not 0. Scratch as ops/gla_cuda.py:gla_chunk_conv_bwd allocates it.
+template <typename ST>
+int launch_chunked(const bf16* xq, const bf16* xk, const bf16* xv, const float* gk,
+                   const bf16* wq, const bf16* wk, const bf16* wv, const ST* s0, const bf16* dout,
+                   const ST* dsf, ST* ds0, float* dq, float* dk, float* dsgp, float* dvf,
+                   float* uf, float* kf, float* bcum, bf16* kt, bf16* ul, bf16* states,
+                   bf16* dstates, bf16* vb, float* ebt, int B, int H, int T, int DK, int DV,
+                   float scale, cudaStream_t stream) {
+  const int nc = (T + kC - 1) / kC, BH = B * H, v_tiles = (DV + kTile - 1) / kTile;
+  prep_kernel<bf16><<<dim3(nc, BH, DK / kTile + v_tiles), kTile, 0, stream>>>(
+      xq, xk, xv, gk, wq, wk, wv, uf, kf, bcum, kt, ul, vb, ebt, H, T, DK, DV, scale);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  state_kernel<ST><<<dim3(v_tiles, DK / kTile, 2 * BH), kStateThreads, 0, stream>>>(
+      kt, ul, vb, dout, ebt, s0, dsf, states, dstates, dsgp, ds0, BH, T, nc, DK, DV);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  if ((err = allow_smem(dqk_kernel<>, kDqkSmem))) return err;
+  dqk_kernel<><<<dim3(DK / kTile, nc, BH), kGradThreads, kDqkSmem, stream>>>(
+      uf, kf, bcum, vb, dout, states, dstates, dq, dk, dsgp, BH, T, nc, DK, DV, scale);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  const int dv_smem = dv_smem_bytes(DK);
+  if ((err = allow_smem(dv_kernel<>, dv_smem))) return err;
+  dv_kernel<><<<dim3(nc, BH), kGradThreads, dv_smem, stream>>>(uf, kf, bcum, kt, dout, dstates,
+                                                             dvf, T, nc, DK, DV);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace chunked
+}  // namespace gla

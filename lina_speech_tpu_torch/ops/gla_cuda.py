@@ -65,6 +65,8 @@ _CONV_WIDTH = 4
 _DK_SUPPORTED = (64, 128, 256)
 _BV = 32  # value columns per block (csrc/gla_common.cuh:kBV)
 _BWD_SEG = 64  # time steps per thread of the backward's finishing kernels (kFinishSeg)
+_CHUNK = 64  # rows of a chunk of the chunked backward (csrc/gla_chunked_bwd.cuh:kC)
+_SUB = 16  # rows of a sub-chunk within it (kSub)
 _FOLD_Q_DV = (128, 256, 512)  # value widths the int8 fold kernel is built for
 
 
@@ -80,6 +82,7 @@ def _shape_noters():
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
+    gla_chunk_conv_bwd.routes = dict.fromkeys(_ROUTE_CODE, 0)
     gla_decode_lazy_conv.q_launches = 0
     for fn in _shape_noters():
         fn.shapes = set()
@@ -139,16 +142,21 @@ def _raise_on(name: str, err: int) -> None:
 
 
 # ------------------------------------------------------------ prefill kernel
-def _silu_conv_rounded(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+def _conv_pre_rounded(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv of (b, h, t, d) with taps (h, d, w), tap 0
-    oldest: f32 tap sum, rounded to x's dtype, silu in f32 -> f32."""
+    oldest: the f32 tap sum rounded to x's dtype, as f32."""
     t, w = x.shape[2], taps.shape[-1]
     xp = F.pad(x.float(), (0, 0, w - 1, 0))
     tf = taps.float()
     z = 0.0
     for i in range(w):
         z = z + xp[:, :, i:i + t, :] * tf[None, :, None, :, i]
-    zr = z.to(x.dtype).float()
+    return z.to(x.dtype).float()
+
+
+def _silu_conv_rounded(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """silu in f32 of :func:`_conv_pre_rounded` -> f32."""
+    zr = _conv_pre_rounded(x, taps)
     return zr * torch.sigmoid(zr)
 
 
@@ -246,6 +254,19 @@ def _chunk_conv_launch(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
 gla_chunk_conv.launches, gla_chunk_conv.shapes = 0, set()
 
 
+def gla_chunk_conv_bwd_plan(io: torch.dtype) -> str:
+    """The body a :func:`gla_chunk_conv_bwd` launch with IO dtype ``io``
+    runs, decided before the launch: ``"chunked"`` for bf16 IO at every
+    shape (64-row chunks, products on the tensor cores in bf16 with f32
+    sums, as the TPU kernel rounds its products' operands to the IO dtype),
+    else ``"recurrent"`` (the two time sweeps in f32, which an f32 caller
+    expects). Each IO dtype has this one body in the C entry point."""
+    return "chunked" if io == torch.bfloat16 else "recurrent"
+
+
+_ROUTE_CODE = {"recurrent": 0, "chunked": 1}
+
+
 def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
                        initial_state, do, dsf, scale=None,
                        need_ds0: bool = True, need_taps: bool = True):
@@ -258,9 +279,18 @@ def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     batch and time (None without ``need_taps``), ds0 in the state dtype
     (None without ``need_ds0`` or without an initial state).
 
-    One call launches the five kernels of ``csrc/gla_chunk_conv_bwd.cu`` and
-    counts as one launch. Its scratch (the per-tile parts of dq and dk, 2 *
-    dv/32 * b*h*t*dk f32 values) is freed when the call returns.
+    One call counts as one launch, and once more under its route in
+    ``gla_chunk_conv_bwd.routes`` (:func:`gla_chunk_conv_bwd_plan`). Both
+    routes end in the conv's finishing pass of ``csrc/gla_chunk_conv_bwd.cu``.
+    Their scratch, freed when the call returns:
+
+    - ``"recurrent"`` (f32 IO): the per-tile parts of dq and dk, 2 * dv/32 *
+      b*h*t*dk f32 values (537 MB at b8 h4 t512 dk256 dv512);
+    - ``"chunked"`` (bf16 IO, ``csrc/gla_chunked_bwd.cuh``): every chunk's
+      start state and end-state cotangent in bf16 (2 * b*h*nc*dk*dv, nc =
+      ceil(t/64)); on t rounded up to whole chunks the post-conv u = scale q,
+      k and the in-chunk gate sums in f32, and the decayed k and u and v in
+      bf16; dq and dk once in f32 (:func:`chunked_bwd_scratch_bytes`).
     """
     name = "gla_chunk_conv_bwd"
     _check(name, xq.is_cuda, "runs on CUDA tensors only; on the CPU take "
@@ -271,6 +301,7 @@ def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     _check(name, dsf.shape == (b, h, dk, dv) and dsf.dtype == st,
            f"dsf must be ({b}, {h}, {dk}, {dv}) in {st}")
     scale = dk ** -0.5 if scale is None else scale
+    route = gla_chunk_conv_bwd_plan(io)
     dev = xq.device
     f32 = dict(dtype=torch.float32, device=dev)
     dxq, dxk, dxv = torch.empty_like(xq), torch.empty_like(xk), torch.empty_like(xv)
@@ -282,21 +313,41 @@ def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     n_seg = -(-t // _BWD_SEG)
     dwp = torch.empty(b * n_seg, n_ch, _CONV_WIDTH, **f32) if need_taps else None
     dgt = torch.empty(n_seg, b, h, dk, **f32)
-    tiles = dv // _BV
-    dqp = torch.empty(tiles, b, h, t, dk, **f32)
-    dkp = torch.empty(tiles, b, h, t, dk, **f32)
-    dsgp = torch.empty(tiles, b, h, dk, **f32)
     dvf = torch.empty(b, h, t, dv, **f32)
+    chunked = [None] * 9  # the chunked route's scratch, in the C entry point's order
+    if route == "chunked":
+        nc = -(-t // _CHUNK)
+        tp = nc * _CHUNK
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        dqp = torch.empty(1, b, h, t, dk, **f32)
+        dkp = torch.empty(1, b, h, t, dk, **f32)
+        dsgp = torch.empty(-(-dv // _CHUNK) + 1, b, h, dk, **f32)
+        # u, k and the in-chunk gate sums; k and u decayed; the chunk states
+        # and their cotangents; v; e^{btot}
+        chunked = [torch.empty(b * h, tp, dk, **f32) for _ in range(3)]
+        chunked += [torch.empty(b * h, tp, dk, **bf) for _ in range(2)]
+        chunked += [torch.empty(b * h, nc, dk, dv, **bf) for _ in range(2)]
+        chunked += [torch.empty(b * h, tp, dv, **bf), torch.empty(b * h, nc, dk, **f32)]
+        if do.data_ptr() % 16:  # the chunked kernels copy rows of do 16 bytes at a time
+            do = do.clone()
+    else:
+        tiles = dv // _BV
+        dqp = torch.empty(tiles, b, h, t, dk, **f32)
+        dkp = torch.empty(tiles, b, h, t, dk, **f32)
+        dsgp = torch.empty(tiles, b, h, dk, **f32)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.gla_chunk_conv_bwd(
         _ptr(xq), _ptr(xk), _ptr(xv), _ptr(gk), _ptr(conv_q_w), _ptr(conv_k_w),
         _ptr(conv_v_w), _ptr(initial_state), _ptr(do), _ptr(dsf), _ptr(dxq),
         _ptr(dxk), _ptr(dxv), _ptr(dg), _ptr(ds0), _ptr(dw), _ptr(dqp),
-        _ptr(dkp), _ptr(dsgp), _ptr(dvf), _ptr(dgt), _ptr(dwp), b, h, t, dk, dv,
-        float(scale), _DTYPE_CODE[io], _DTYPE_CODE[st], ctypes.c_void_p(stream))
+        _ptr(dkp), _ptr(dsgp), _ptr(dvf), _ptr(dgt), _ptr(dwp),
+        *map(_ptr, chunked), b, h, t, dk, dv,
+        float(scale), _DTYPE_CODE[io], _DTYPE_CODE[st], _ROUTE_CODE[route],
+        ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk_conv_bwd.launches += 1
+    gla_chunk_conv_bwd.routes[route] += 1
     gla_chunk_conv_bwd.shapes.add((b, t, None if initial_state is None else st,
                                    ds0 is not None, need_taps))
     if dw is None:
@@ -306,6 +357,143 @@ def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
 
 
 gla_chunk_conv_bwd.launches, gla_chunk_conv_bwd.shapes = 0, set()
+gla_chunk_conv_bwd.routes = dict.fromkeys(_ROUTE_CODE, 0)
+
+
+def chunked_bwd_scratch_bytes(b: int, h: int, t: int, dk: int, dv: int) -> int:
+    """Bytes of scratch one chunked :func:`gla_chunk_conv_bwd` call takes
+    beside its outputs (the tap parts, which both routes take, left out)."""
+    nc = -(-t // _CHUNK)
+    tp, bh = nc * _CHUNK, b * h
+    return (4 * bh * tp * dk * 3 + 2 * bh * tp * dk * 2 + 2 * bh * nc * dk * dv * 2
+            + 2 * bh * tp * dv + 4 * bh * nc * dk + 4 * bh * t * (2 * dk + dv)
+            + 4 * (-(-dv // _CHUNK) + 1) * bh * dk + 4 * -(-t // _BWD_SEG) * bh * dk)
+
+
+def _conv_bwd_plain(dy, zr, x, taps):
+    """Backward of y = silu(zr), zr the rounded conv of x (b, h, t, d) with
+    taps (h, d, w): dx in f32 and the tap gradient (h, d, w) summed over
+    batch and time."""
+    t, w = x.shape[2], taps.shape[-1]
+    sig = torch.sigmoid(zr)
+    dz = dy * sig * (1 + zr * (1 - sig))
+    dzp = F.pad(dz, (0, 0, 0, w - 1))
+    tf = taps.float()
+    dx = sum(tf[None, :, None, :, w - 1 - j] * dzp[:, :, j:j + t] for j in range(w))
+    xp = F.pad(x.float(), (0, 0, w - 1, 0))
+    dw = torch.stack([(dz * xp[:, :, i:i + t]).sum((0, 2)) for i in range(w)], -1)
+    return dx, dw
+
+
+def _intra_chunk(u, k, bc, da, rnd):
+    """The intra-chunk terms of the chunked backward on (..., C, d) chunks:
+    G (C, dk) = sum_{s<=t} dA[t,s] k_s e^{b_t - b_s}, H (C, dk) = sum_{t>=s}
+    dA[t,s] u_t e^{b_t - b_s} and A (C, C) = sum_d u_t k_s e^{b_t - b_s}
+    (t >= s). Within a 16-row sub-chunk the terms are summed directly; a
+    pair of sub-chunks I > J splits the decay at a row between them, so that
+    both factors' exponents are <= 0 and the product runs in bf16 (``rnd``)
+    with f32 sums: G and A at the row before I, H at J's last row."""
+    C, L = u.shape[-2], _SUB
+    G, H = torch.zeros_like(k), torch.zeros_like(k)
+    A = torch.zeros(*u.shape[:-1], C, dtype=u.dtype, device=u.device)
+    tri = torch.ones(L, L, dtype=torch.bool, device=u.device).tril()[..., None]
+    for i in range(C // L):
+        rows = slice(L * i, L * (i + 1))
+        b_i = bc[..., rows, :]
+        # exponent clamped to 0 above the diagonal, where the mask zeroes it
+        e = torch.exp((b_i[..., :, None, :] - b_i[..., None, :, :]).clamp(max=0)) * tri
+        da_ii = da[..., rows, rows]
+        G[..., rows, :] += torch.einsum("...ts,...tsd,...sd->...td", da_ii, e, k[..., rows, :])
+        H[..., rows, :] += torch.einsum("...ts,...tsd,...td->...sd", da_ii, e, u[..., rows, :])
+        A[..., rows, rows] = torch.einsum("...td,...tsd,...sd->...ts", u[..., rows, :], e,
+                                          k[..., rows, :])
+        if i:
+            ref, early = bc[..., L * i - 1:L * i, :], slice(0, L * i)
+            up = torch.exp(b_i - ref)
+            kx = rnd(k[..., early, :] * torch.exp(ref - bc[..., early, :]))
+            G[..., rows, :] += up * (rnd(da[..., rows, early]) @ kx)
+            A[..., rows, early] = rnd(u[..., rows, :] * up) @ kx.transpose(-1, -2)
+        if i < C // L - 1:
+            ref, late = bc[..., L * i + L - 1:L * (i + 1), :], slice(L * (i + 1), C)
+            ux = rnd(u[..., late, :] * torch.exp(bc[..., late, :] - ref))
+            H[..., rows, :] += torch.exp(ref - b_i) * (
+                rnd(da[..., late, rows]).transpose(-1, -2) @ ux)
+    return G, H, A
+
+
+def gla_chunk_conv_bwd_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
+                                     initial_state, do, dsf, scale=None,
+                                     operand_dtype: Optional[torch.dtype] = None):
+    """The chunked route of :func:`gla_chunk_conv_bwd` written with tensors
+    (same arguments and outputs, every gradient wanted), in f32; with
+    ``operand_dtype`` every operand of a product is rounded to it first, as
+    the kernels round theirs to bf16. Chunks of 64 rows (a ragged last one
+    padded with zeros and zero gates), in-chunk gate sums bc and their total
+    btot:
+
+    1. chunk states: S <- e^{btot} S + (k e^{btot - bc})^T v from s0,
+       keeping each chunk's start state;
+    2. chunk cotangents: dS <- e^{btot} dS + (u e^{bc})^T do in reverse from
+       dsf, keeping each chunk's end-state cotangent; ds0 is the last dS;
+    3. per chunk: dq = scale (e^{bc} (do S^T) + G), dk = e^{btot - bc} (v
+       dS^T) + H, dv = (k e^{btot - bc}) dS + A^T do with dA = do v^T and G,
+       H, A from :func:`_intra_chunk`; dsf . S_final summed over dv, as the
+       last chunk's e^{btot} S . dsf plus sum_t k_t e^{btot - bc_t} (v_t
+       dsf^T) from the values that enter dk;
+
+    then the conv's finishing pass: dg_t = sum_{s>=t} (q_s dq_s - k_s dk_s)
+    + dsf . S_final, silu', the transposed conv and the tap sums. Used by
+    the tests, on the CPU against the Pallas backward and on the card
+    against the kernels."""
+    b, h, t, dk = xq.shape
+    dv, w = xv.shape[-1], conv_q_w.shape[-1]
+    scale = dk ** -0.5 if scale is None else scale
+    io = xq.dtype
+    rnd = (lambda x: x) if operand_dtype is None else (lambda x: x.to(operand_dtype).float())
+    taps = [m.reshape(h, d, w) for m, d in ((conv_q_w, dk), (conv_k_w, dk), (conv_v_w, dv))]
+    zq, zk, zv = (_conv_pre_rounded(x, tp) for x, tp in zip((xq, xk, xv), taps))
+    q, k = zq * torch.sigmoid(zq), zk * torch.sigmoid(zk)
+    v = (zv * torch.sigmoid(zv)).to(io).float()
+    C = _CHUNK
+    nc = -(-t // C)
+
+    def chunks(x):
+        x = F.pad(x.float(), (0, 0, 0, nc * C - t))
+        return x.reshape(b, h, nc, C, x.shape[-1])
+
+    u, kc, vc, dO = chunks(q * scale), chunks(k), chunks(v), chunks(do)
+    bc = chunks(gk).cumsum(3)
+    btot = bc[:, :, :, -1:]
+    ktil = kc * torch.exp(btot - bc)
+    s = (xq.new_zeros(b, h, dk, dv, dtype=torch.float32) if initial_state is None
+         else initial_state.float())
+    states = []
+    for c in range(nc):
+        states.append(s)
+        s = (torch.exp(btot[:, :, c, 0, :, None]) * s
+             + rnd(ktil[:, :, c]).transpose(-1, -2) @ rnd(vc[:, :, c]))
+    ul = u * torch.exp(bc)
+    ds, dstates = dsf.float(), [None] * nc
+    for c in reversed(range(nc)):
+        dstates[c] = ds
+        ds = (torch.exp(btot[:, :, c, 0, :, None]) * ds
+              + rnd(ul[:, :, c]).transpose(-1, -2) @ rnd(dO[:, :, c]))
+    s_in, ds_end = torch.stack(states, 2), torch.stack(dstates, 2)
+    da = rnd(dO) @ rnd(vc).transpose(-1, -2)
+    G, H, A = _intra_chunk(u, kc, bc, da, rnd)
+    dq = scale * (torch.exp(bc) * (rnd(dO) @ rnd(s_in).transpose(-1, -2)) + G)
+    dk_inter = torch.exp(btot - bc) * (rnd(vc) @ rnd(ds_end).transpose(-1, -2))
+    dk_ = dk_inter + H
+    dsg = ((dsf.float() * torch.exp(btot[:, :, -1, 0, :, None]) * states[-1]).sum(-1)
+           + (kc[:, :, -1] * dk_inter[:, :, -1]).sum(-2))
+    dv_ = rnd(ktil) @ rnd(ds_end) + rnd(A).transpose(-1, -2) @ rnd(dO)
+    dq, dk_, dv_ = (x.reshape(b, h, nc * C, -1)[:, :, :t] for x in (dq, dk_, dv_))
+    dg = (q * dq - k * dk_).flip(2).cumsum(2).flip(2) + dsg[:, :, None]
+    grads = [_conv_bwd_plain(dy, z, x, tp)
+             for dy, z, x, tp in zip((dq, dk_, dv_), (zq, zk, zv), (xq, xk, xv), taps)]
+    ds0 = None if initial_state is None else ds.to(initial_state.dtype)
+    return (*(dx.to(io) for dx, _ in grads), dg,
+            *(dw_.reshape(-1, w).to(io) for _, dw_ in grads), ds0)
 
 
 class _GLAChunkConv(torch.autograd.Function):

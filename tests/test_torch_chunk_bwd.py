@@ -1,0 +1,135 @@
+"""The chunked decomposition of gla_chunk_conv's backward, on the CPU.
+
+``gla_chunk_conv_bwd_chunked_plain`` (ops/gla_cuda.py) is the chunked route
+of the CUDA backward written with tensors: chunk states, chunk cotangents,
+and the intra/inter gradients with the 16-row sub-chunk factorisation,
+followed by the conv's finishing pass. Here all eight of its gradient
+leaves are held against jax.grad through the Pallas kernel's hand-written
+backward (interpret mode, f32 residuals), each within 2e-3 of max(1,
+max|ref|) as tests/test_gla_pallas.py holds the Pallas backward itself.
+Inputs are made with numpy from a seed.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lina_speech_tpu.ops.gla_pallas import gla_chunk_conv_pallas
+from lina_speech_tpu_torch.ops import gla_cuda
+
+LEAVES = ("xq", "xk", "xv", "gk", "wq", "wk", "wv", "s0")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _inputs(seed, t, b=2, h=2, dk=16, dv=32, adversarial=False):
+    rng = np.random.default_rng(seed)
+    x = dict(
+        xq=rng.normal(size=(b, h, t, dk)), xk=rng.normal(size=(b, h, t, dk)),
+        xv=rng.normal(size=(b, h, t, dv)),
+        gk=np.log(1.0 / (1.0 + np.exp(-2.0 * rng.normal(size=(b, h, t, dk))))),
+        wq=rng.normal(size=(h * dk, 4)) * 0.5, wk=rng.normal(size=(h * dk, 4)) * 0.5,
+        wv=rng.normal(size=(h * dv, 4)) * 0.5, s0=rng.normal(size=(b, h, dk, dv)))
+    if adversarial:
+        # every sixth key channel decays by 6 to 8 a step: a 64-row chunk's
+        # gate sum there falls below -384, so e^{-bcum} would overflow f32
+        x["gk"][..., ::6] = -6.0 - 2.0 * rng.random(size=x["gk"][..., ::6].shape)
+    ct = dict(do=rng.normal(size=(b, h, t, dv)), dsf=rng.normal(size=(b, h, dk, dv)))
+    return ({n: a.astype(np.float32) for n, a in x.items()},
+            {n: a.astype(np.float32) for n, a in ct.items()})
+
+
+def _pallas_grads(x, ct, with_s0):
+    """jax.grad of sum(o * do) + sum(sf * dsf) through the Pallas kernel."""
+    def loss(*a):
+        o, sf = gla_chunk_conv_pallas(*a[:7], initial_state=a[7], chunk_size=16,
+                                      interpret=True, residual_dtype=jnp.float32)
+        return jnp.sum(o * ct["do"]) + jnp.sum(sf * ct["dsf"])
+
+    s0 = x["s0"] if with_s0 else np.zeros_like(x["s0"])
+    args = [jnp.asarray(x[n]) for n in LEAVES[:7]] + [jnp.asarray(s0)]
+    return [np.asarray(g, np.float32) for g in jax.grad(loss, argnums=tuple(range(8)))(*args)]
+
+
+def _hold(x, ct, with_s0):
+    tx = {n: torch.from_numpy(a) for n, a in x.items()}
+    got = gla_cuda.gla_chunk_conv_bwd_chunked_plain(
+        *(tx[n] for n in LEAVES[:7]), tx["s0"] if with_s0 else None,
+        torch.from_numpy(ct["do"]), torch.from_numpy(ct["dsf"]))
+    assert (got[7] is None) == (not with_s0)
+    ref = _pallas_grads(x, ct, with_s0)
+    for name, a, r in zip(LEAVES, got, ref):
+        if name == "s0" and not with_s0:
+            continue
+        r = r.reshape(a.shape)
+        assert bool(torch.isfinite(a).all()), name
+        assert float(np.abs(r).max()) > 0, name
+        err = float(np.abs(a.numpy() - r).max())
+        assert err <= 2e-3 * max(1.0, float(np.abs(r).max())), (name, err)
+
+
+@pytest.mark.parametrize("with_s0", [True, False])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 64, 65, 130])
+def test_chunked_backward_matches_pallas_backward(t, with_s0):
+    """Ragged chunks (t 1, 65, 130) and ragged sub-chunks (15, 17), with and
+    without an initial state."""
+    x, ct = _inputs(40 + t, t)
+    _hold(x, ct, with_s0)
+
+
+@pytest.mark.parametrize("t", [130, 64])
+def test_chunked_backward_is_finite_under_adversarial_gates(t):
+    """Gates of -6 to -8 a step in every sixth key channel: no factor of the
+    decomposition overflows, and every leaf matches."""
+    x, ct = _inputs(70 + t, t, adversarial=True)
+    assert float(x["gk"][..., ::6].sum(2).max()) < -300 * (t // 64)
+    _hold(x, ct, True)
+
+
+def test_chunked_backward_rounds_only_product_operands():
+    """With bf16 operand rounding the decomposition moves by bf16 rounding of
+    the products' operands only: within 2e-2 of each leaf's own max of the
+    f32 version (the kernel's tolerance on the card)."""
+    x, ct = _inputs(5, 70, dk=32, dv=64)
+    tx = [torch.from_numpy(x[n]) for n in LEAVES]
+    args = (*tx, torch.from_numpy(ct["do"]), torch.from_numpy(ct["dsf"]))
+    exact = gla_cuda.gla_chunk_conv_bwd_chunked_plain(*args)
+    rounded = gla_cuda.gla_chunk_conv_bwd_chunked_plain(*args, operand_dtype=torch.bfloat16)
+    for name, a, r in zip(LEAVES, rounded, exact):
+        err = float((a - r).abs().max())
+        assert 0 < err <= 2e-2 * float(r.abs().max()), (name, err)
+
+
+def test_rounded_decomposition_cancels_the_gate_gradient_of_one_step():
+    """One step from a zero state: the exact gate gradient is 0. The dsf .
+    S_final term is summed from the very values that enter dk, so with bf16
+    operands the two sides of dg still cancel to f32 rounding (a term taken
+    from the bf16-rounded state would leave bf16 rounding behind, of the
+    size of the dx leaves themselves)."""
+    x, ct = _inputs(9, 1)
+    tx = [torch.from_numpy(x[n]) for n in LEAVES[:7]]
+    got = gla_cuda.gla_chunk_conv_bwd_chunked_plain(
+        *tx, None, torch.from_numpy(ct["do"]), torch.from_numpy(ct["dsf"]),
+        operand_dtype=torch.bfloat16)
+    assert float(got[3].abs().max()) <= 1e-5 * float(got[0].abs().max())
+
+
+def test_backward_plan_routes_by_io_dtype():
+    """bf16 IO takes the chunked body, f32 IO the recurrent sweeps."""
+    assert gla_cuda.gla_chunk_conv_bwd_plan(torch.bfloat16) == "chunked"
+    assert gla_cuda.gla_chunk_conv_bwd_plan(torch.float32) == "recurrent"
+
+
+def test_chunked_scratch_is_below_the_recurrent_parts():
+    """At the flagship's training shape (b8 h4 t512 dk256 dv512) the chunked
+    route's scratch is below the 537 MB of the recurrent route's dq/dk parts."""
+    parts = 2 * (512 // 32) * 8 * 4 * 512 * 256 * 4
+    assert parts == 536_870_912
+    assert gla_cuda.chunked_bwd_scratch_bytes(8, 4, 512, 256, 512) < parts
