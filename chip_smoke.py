@@ -13,7 +13,15 @@ Phases, in order; any failure raises and exits non-zero:
    the classic decode step, the lazy-window step (b 8 and 64, window 16,
    stale garbage in the dead slots) and the window fold, and a whole lazy
    window against 16 classic steps; max error beside its tolerance, both
-   times, and each kernel's roofline bound;
+   times, and each kernel's roofline bound. The two prefill kernels are
+   held on both routes of their forward (gla_chunk_fwd_plan: the chunked
+   tensor-core route for bf16 IO from 64 tokens on, 128 above 8 heads in
+   flight with dv below 512, the recurrent body below), the chunked route
+   also against its own plain version, at b1 t151
+   also under adversarial gates; the two routes are timed against each
+   other at b8 t151 and b1 t151 down to t1, where the chunked route must be
+   the faster wherever the plan takes it, and over a sweep of lengths up to
+   128 at b1, b2 and b8, where it must be no more than SWEEP_MARGIN slower;
 4. generate phase: the flagship Lina-GLA (359,302,978 parameters, random
    weights from seed 0, bf16 compute and state) serves 8 requests through
    generate_batch (32 text tokens and a 150-code prompt each, top-k 100,
@@ -36,17 +44,19 @@ Phases, in order; any failure raises and exits non-zero:
    version and autograd through it at the training shape b 8, t 512, 317 and
    128, bf16 IO, with an f32, a bf16 and no initial state, random do and
    dsf, and at t 512 with adversarial gates (-6 to -8 a step in every sixth
-   key channel): o and the final state, and all eight gradient leaves, each
-   within a share of its own max|plain|, finite and non-zero; forward and
-   backward times beside their bounds and the plain version's, the
-   backward's scratch, equal bits on a second call and a profile of three
-   calls by kernel;
+   key channel): o and the final state (on both forward routes, the chunked
+   one also against its plain version), and all eight gradient leaves, each
+   within a share of its own max|plain|, finite and non-zero; forward (both
+   routes) and backward times beside their bounds and the plain version's,
+   the scratch of each, equal bits on a second call of each and profiles
+   of three forward and three backward calls by kernel;
 7. training phase: the flagship at full depth and width (f32 parameters,
    bf16 compute, dropout 0.1 in the text encoder) takes five optimizer steps
    of make_train_step on synthetic batches of 8 (audio length 128-512), the
    last with grad_accum_steps=2; loss and grad_norm finite, launch counts per
-   micro-batch 25 forward and 25 backward and nothing else, every backward
-   on the chunked route, every parameter moved; on a batch of 2 the kernel
+   micro-batch 25 forward and 25 backward and nothing else, every forward
+   on its planned route (chunked), every backward on the chunked route,
+   every parameter moved; on a batch of 2 the kernel
    path against the plain path: loss and every parameter's gradient (finite,
    each within a share of its own max|plain|); ms per step, frames per
    second, peak memory, and a profiled step's device busy share with the
@@ -128,7 +138,11 @@ then Mamba (v1):
    a 16-token generate and one train step; then every shape those runs
    launched the two kernels on is held against the plain versions.
 Each main-path run starts with the launch counts at 0 and reads them right
-after. The line before the last is a JSON summary of the kernels; the last
+after; every forward launch of a main path must have taken its planned
+route. After the GLA phases, every shape a main path launched the two
+forward kernels on is timed on the route it took and on the recurrent body,
+and launches x (time - bound) is summed over those launches; the summary
+ranks every kernel by it (the others at their row's shape). The line before the last is a JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -137,6 +151,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+from collections import Counter
 import os
 import re
 import subprocess
@@ -267,12 +282,16 @@ SIMPLE_HEAD = (4, 256, 256)
 MAMBA_HEAD = (32, 64, 64)
 VARIANT_TRAIN_STEPS = {"simple_gla": 5, "mamba2": 3}
 INTERLEAVED_LAYERS, SHORT_STEPS, SHORT_BATCH = (5, 11), 16, 2
-# (b, h, t, dk, dv, IO dtype, initial-state dtype or None, scale) at which
-# gla_chunk was held against its plain version; with need_ds0 appended, the
-# same for its backward; (b, h, dk, dv, IO dtype, state dtype) for
+# (b, h, t, dk, dv, IO dtype, initial-state dtype or None, scale, route) at
+# which gla_chunk was held against its plain version; with need_ds0 in the
+# route's place, the same for its backward; (b, h, dk, dv, IO dtype, state dtype) for
 # gla_decode. GLA_LAUNCHED gathers what the driven paths launched them on
 # (ops/gla_cuda.py:launch_shapes), and the last phase holds the rest.
 CHUNK_HELD, CHUNK_BWD_HELD, DECODE_HELD = set(), set(), set()
+# launches of the two forward kernels on each shape (ops/gla_cuda.py:
+# launch_shape_counts keys), summed over the main-path runs that
+# expect_launches checks: the weights of fwd_gap_phase's sums
+FWD_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
 # blind pos_net, 4 heads of dk 256 and dv 256, bf16 IO, f32 w and u, f32
@@ -433,8 +452,9 @@ def ptxas_summary(log: str):
               (("gla_decode_lazy_conv_kernel",), "gla_decode_lazy_conv"),
               (("gla_decode_kernel", "Lb1E"), "gla_decode_conv"),
               (("gla_decode_kernel", "Lb0E"), "gla_decode"),
-              (("gla_fold_kernel",), "gla_fold"), (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv"),
-              (("gla_chunk_kernel", "Lb0E"), "gla_chunk"))
+              (("gla_fold_kernel",), "gla_fold"),
+              (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv recurrent"),
+              (("gla_chunk_kernel", "Lb0E"), "gla_chunk recurrent"))
     # the int8 products' instantiations the flagship launches (bf16 in and
     # out), by the m-tile each serves: {first template int: m-tile rows}
     products = ((("int8_linear_kernelI13__nv_bfloat16S", "Lb0ELb1E"),
@@ -465,7 +485,15 @@ def ptxas_summary(log: str):
                 "gla_chunk_conv_bwd chunked states<bf16 state>"),
                ("chunked12state_kernelIfE", "gla_chunk_conv_bwd chunked states<f32 state>"),
                ("chunked10dqk_kernel", "gla_chunk_conv_bwd chunked dq/dk"),
-               ("chunked9dv_kernel", "gla_chunk_conv_bwd chunked dv"))
+               ("chunked9dv_kernel", "gla_chunk_conv_bwd chunked dv"),
+               # the chunked route of the two forwards (bf16 IO)
+               ("chunked_fwd11prep_kernelILb1EE", "gla_chunk_conv chunked prep"),
+               ("chunked_fwd11prep_kernelILb0EE", "gla_chunk chunked prep"),
+               ("chunked_fwd12state_kernelI13__nv_bfloat16EE",
+                "forward chunked states<bf16 state>"),
+               ("chunked_fwd12state_kernelIfEE", "forward chunked states<f32 state>"),
+               ("chunked_fwd13scores_kernel", "forward chunked scores"),
+               ("chunked_fwd10out_kernel", "forward chunked output"))
     name, out = "", []
     for line in log.splitlines():
         if "entry function" in line or "Function properties for" in line:
@@ -646,6 +674,119 @@ def note_shape(name, shape, ms, plain_ms, n_bytes, flops, io_dtype, library_ms=N
         library_ms=library_ms))
 
 
+def fwd_args(x, conv):
+    """The positional arguments of gla_chunk_conv (``conv``: xq, xk, xv, gk
+    and the taps, from kernel_inputs) or of gla_chunk (q, k, v, gk, from
+    qkv_inputs) in ``x``."""
+    names = ("xq", "xk", "xv", "gk", "wq", "wk", "wv") if conv else ("q", "k", "v", "gk")
+    return tuple(x[n] for n in names)
+
+
+def fwd_fns(gla_cuda, conv):
+    """(wrapper, plain version, the chunked route's plain version) of the
+    conv-fused forward or of gla_chunk."""
+    if conv:
+        return (gla_cuda.gla_chunk_conv, gla_cuda.gla_chunk_conv_plain,
+                gla_cuda.gla_chunk_conv_chunked_plain)
+    return gla_cuda.gla_chunk, gla_cuda.gla_chunk_plain, gla_cuda.gla_chunk_chunked_plain
+
+
+def fwd_on_route(gla_cuda, conv, args, s0, scale, route):
+    """The forward (gla_chunk_conv with ``conv``, else gla_chunk) through the
+    wrapper's launcher, forced onto ``route`` (the public wrappers take the
+    plan's)."""
+    launch = gla_cuda._chunk_conv_launch if conv else gla_cuda._chunk_launch
+    return launch(*args, s0, args[0].shape[-1] ** -0.5 if scale is None else scale, route)
+
+
+def hold_fwd_routes(torch, gla_cuda, conv, args, s0, scale, ref, tol_o, tol_s):
+    """The forward (gla_chunk_conv with ``conv``, else gla_chunk) on each
+    route its IO dtype has, under no_grad, against ``ref`` = (o, final
+    state) of the plain version: o within ``tol_o`` and the state within
+    ``tol_s`` of max(1, max|plain|), both finite; the chunked route also
+    against its own plain version, the same decomposition with tensors,
+    within the same shares. Returns {route: (o, final state)}."""
+    chunked_plain = fwd_fns(gla_cuda, conv)[2]
+    routes = ("recurrent", "chunked") if args[0].dtype == torch.bfloat16 else ("recurrent",)
+    out = {}
+    with torch.no_grad():
+        for route in routes:
+            o_k, s_k = out[route] = fwd_on_route(gla_cuda, conv, args, s0, scale, route)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(o_k).all()) and bool(torch.isfinite(s_k.float()).all()),
+                    f"{route} route: output not finite")
+            check(f"o, {route} route", max_err(o_k, ref[0]), bound(ref[0], tol_o))
+            check(f"final state, {route} route", max_err(s_k, ref[1]), bound(ref[1], tol_s))
+            if route == "chunked":
+                o_c, s_c = chunked_plain(*args, initial_state=s0, scale=scale)
+                check("o, chunked route vs its plain version", max_err(o_k, o_c),
+                      bound(o_c, tol_o))
+                check("final state, chunked route vs its plain version", max_err(s_k, s_c),
+                      bound(s_c, tol_s))
+    return out
+
+
+# how much slower than the recurrent body the chunked route may read in the
+# route sweep where the plan takes it: the sweep places the plan's
+# thresholds, and a shape next to one may tie within the noise of 20 calls
+# (the closest the sweep read, b2 gla_chunk dv512 t64, was 5% faster); at
+# the main paths' shapes the chunked route must be the faster outright
+SWEEP_MARGIN = 0.10
+
+
+def time_fwd_routes(torch, gla_cuda, conv, args, s0, scale, label, work, iters=10, note=True):
+    """Device ms of the forward's two routes on the same bf16 inputs, in
+    turns (recurrent, chunked, chunked, recurrent). With ``note`` (a shape
+    a main path launches) each goes into the kernel's further shapes beside
+    the bound of ``work`` = (bytes, operations), and where
+    gla_chunk_fwd_plan sends the shape to the chunked route that route must
+    be the faster; without it (the route sweep) no more than SWEEP_MARGIN
+    slower. Returns {route: mean ms}."""
+    name = fwd_fns(gla_cuda, conv)[0].__name__
+    b, h, t = args[0].shape[:3]
+    times = {"recurrent": [], "chunked": []}
+    with torch.no_grad():
+        for route in ("recurrent", "chunked", "chunked", "recurrent"):
+            times[route].append(device_ms(
+                lambda: fwd_on_route(gla_cuda, conv, args, s0, scale, route), iters))
+    ms = {route: sum(v) / len(v) for route, v in times.items()}
+    planned = gla_cuda.gla_chunk_fwd_plan(args[0].dtype, b, h, t, args[2].shape[-1])
+    print(f"  {name} {label} routes, device ms: recurrent {times['recurrent']}, chunked "
+          f"{times['chunked']}; the plan takes {planned}")
+    for route in ("chunked", "recurrent") if note else ():
+        note_shape(name, f"{label}, {route} route", ms[route], None, *work, torch.bfloat16)
+    if planned == "chunked":
+        limit = ms["recurrent"] * (1 if note else 1 + SWEEP_MARGIN)
+        require(ms["chunked"] < limit,
+                f"{name} {label}: the plan takes the chunked route, but it is slower than "
+                f"{limit} ms: {ms}")
+    return ms
+
+
+def expect_planned_routes():
+    """Every launch of the two forward kernels since the last reset took the
+    route gla_chunk_fwd_plan gives its shape (the flagship's conv-fused
+    forward computes in bf16), and was counted under it."""
+    import torch
+    from lina_speech_tpu_torch.ops import gla_cuda
+
+    shapes = gla_cuda.launch_shapes()
+    for name, fn in (("gla_chunk_conv", gla_cuda.gla_chunk_conv),
+                     ("gla_chunk", gla_cuda.gla_chunk)):
+        require(sum(fn.routes.values()) == fn.launches,
+                f"{name}: routes {fn.routes}, launches {fn.launches}")
+        for shape in shapes[name]:
+            if name == "gla_chunk_conv":
+                (b, t), h, dv, io = shape[:2], H, DV, torch.bfloat16
+            else:
+                (b, h, t), dv, io = shape[:3], shape[4], shape[5]
+            planned = gla_cuda.gla_chunk_fwd_plan(io, b, h, t, dv)
+            require(shape[-1] == planned,
+                    f"{name} launched on {shape}: the plan takes the {planned} route")
+    print(f"  forward routes as planned: gla_chunk_conv {gla_cuda.gla_chunk_conv.routes}, "
+          f"gla_chunk {gla_cuda.gla_chunk.routes}")
+
+
 def kernel_phase(torch, gla_cuda):
     """The conv-fused prefill kernel and the classic decode step vs their
     plain versions at generate_batch's shapes (t 151, b 8 and 1), then the
@@ -667,6 +808,17 @@ def kernel_phase(torch, gla_cuda):
             err_o = max_err(o_k, o_p)
             check("o", err_o, bound(o_p, TOL_BF16))
             check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
+            hold_fwd_routes(torch, gla_cuda, True, chunk_args, x["s0"], None, (o_p, s_p),
+                            TOL_BF16, tol_s)
+            if st == bf:
+                time_fwd_routes(torch, gla_cuda, True, chunk_args, x["s0"], None, f"{tag} t{t}",
+                                (nbytes(*chunk_args, x["s0"], o_k, s_k), scan_flops(b, t, True)))
+            if b == 1 and st == bf:
+                adv_args = chunk_args[:3] + (adversarial_gates(torch, x["gk"]),) + chunk_args[4:]
+                print(f"gla_chunk_conv {tag} t{t}, adversarial gates:")
+                hold_fwd_routes(torch, gla_cuda, True, adv_args, x["s0"], None,
+                                gla_cuda.gla_chunk_conv_plain(*adv_args, initial_state=x["s0"]),
+                                TOL_BF16, tol_s)
             ms, plain_ms = timed_pair(
                 "gla_chunk_conv",
                 lambda: gla_cuda.gla_chunk_conv(*chunk_args, initial_state=x["s0"]),
@@ -727,6 +879,12 @@ def kernel_phase(torch, gla_cuda):
             print(f"gla_chunk_conv b1 state {str(st).split('.')[-1]} t{t}:")
             check("o", max_err(o_k, o_p), bound(o_p, TOL_BF16))
             check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
+            hold_fwd_routes(torch, gla_cuda, True, chunk_args, x["s0"], None, (o_p, s_p),
+                            TOL_BF16, tol_s)
+            if st == bf:
+                time_fwd_routes(torch, gla_cuda, True, chunk_args, x["s0"], None,
+                                f"b1 state bfloat16 t{t}",
+                                (nbytes(*chunk_args, x["s0"], o_k, s_k), scan_flops(1, t, True)))
             if st == bf and t in (128, 1):
                 ms, plain_ms = timed_pair(
                     f"gla_chunk_conv b1 t{t}",
@@ -735,13 +893,39 @@ def kernel_phase(torch, gla_cuda):
                     10)
                 note_shape("gla_chunk_conv", f"b1 state bfloat16 t{t}", ms, plain_ms,
                            nbytes(*chunk_args, x["s0"], o_k, s_k), scan_flops(1, t, True), bf)
+    route_sweep(torch, gla_cuda)
     return summary
+
+
+# lengths at which the forward's two routes are timed against each other,
+# to place the plan's crossover (ops/gla_cuda.py:_FWD_CHUNKED_MIN_T)
+SWEEP_T = (4, 16, 32, 48, 64, 96, 128)
+
+
+def route_sweep(torch, gla_cuda):
+    """Both forwards' two routes at b1, b2 and b8 over SWEEP_T (bf16 IO and
+    state; the flagship's heads, and simple-GLA's dv 256 for gla_chunk):
+    device ms of each, and where the plan takes the chunked route it may
+    be no more than SWEEP_MARGIN slower."""
+    bf = torch.bfloat16
+    print("forward route sweep (device ms, recurrent vs chunked):")
+    for conv, dv in ((True, DV), (False, DV), (False, SIMPLE_HEAD[2])):
+        for b in (1, 2, BATCH):
+            for t in SWEEP_T:
+                if conv:
+                    x = kernel_inputs(torch, b, t, bf, seed=600 + t)
+                else:
+                    x = qkv_inputs(torch, b, H, t, DK, dv, bf, bf, seed=600 + t)
+                time_fwd_routes(torch, gla_cuda, conv, fwd_args(x, conv), x["s0"], None,
+                                f"sweep b{b} dv{dv} t{t}", None, note=False)
 
 
 def chunk_kernel_phase(torch, gla_cuda, summary):
     """gla_chunk (post-conv q, k, v; non-zero initial state) vs its plain
-    version at every length of CHUNK_T, t = 151 down to a single token. The
-    summary takes the serving prefill's largest chunk: b1, t128, bf16 state."""
+    version at every length of CHUNK_T, t = 151 down to a single token, on
+    both routes; the two routes' times at b1 t128, 64, 32 and 1 and at b8
+    t151. The summary takes the serving prefill's largest chunk: b1, t128,
+    bf16 state."""
     bf = torch.bfloat16
     for b in (1, 8):
         for st in (torch.bfloat16, torch.float32):
@@ -757,7 +941,14 @@ def chunk_kernel_phase(torch, gla_cuda, summary):
                 err_o = max_err(o_k, o_p)
                 check("o", err_o, bound(o_p, TOL_BF16))
                 check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
-                CHUNK_HELD.add((b, H, t, DK, DV, bf, st, DK ** -0.5))
+                hold_fwd_routes(torch, gla_cuda, False, args, x["s0"], None, (o_p, s_p),
+                                TOL_BF16, tol_s)
+                CHUNK_HELD.update((b, H, t, DK, DV, bf, st, DK ** -0.5, route)
+                                  for route in ("recurrent", "chunked"))
+                if st == bf and (b, t) in ((1, 128), (1, 64), (1, 32), (1, 1), (8, 151)):
+                    time_fwd_routes(torch, gla_cuda, False, args, x["s0"], None,
+                                    f"b{b} state bfloat16 t{t}",
+                                    (nbytes(*args, x["s0"], o_k, s_k), scan_flops(b, t, False)))
                 if b == 1 and st == bf and t in (128, 1):
                     ms, plain_ms = timed_pair(
                         f"gla_chunk t{t}",
@@ -898,6 +1089,12 @@ def expect_launches(launches, **expected):
     want = {**dict.fromkeys(launches, 0), **expected}
     print(f"  expected {want}")
     require(launches == want, f"launches {launches}, expected {want}")
+    expect_planned_routes()
+    from lina_speech_tpu_torch.ops import gla_cuda
+
+    for name, counts in gla_cuda.launch_shape_counts().items():
+        if name in FWD_SHAPE_COUNTS:
+            FWD_SHAPE_COUNTS[name].update(counts)
 
 
 def add_launches(total, more):
@@ -1754,9 +1951,11 @@ def print_profile(prof, what, wall_ms, top=8, groups=()):
     from torch.autograd import DeviceType
 
     dev = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    # kernel and memcpy rows only: CPU-op rows repeat their kernels' time
+    # kernel and memcpy rows only: CPU-op rows repeat their kernels' time, and
+    # so does a schedule's step annotation
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+              if e.device_type == DeviceType.CUDA and dev(e) > 0
+              and not e.key.startswith("ProfilerStep")]
     busy_ms = sum(dev(e) for e in events) / 1e3
     if not events:
         print("profiler: no device time recorded; device busy share not measured")
@@ -1777,16 +1976,31 @@ def print_profile(prof, what, wall_ms, top=8, groups=()):
 
 def profiled(torch, fn, what, top=8, groups=()):
     """Run ``fn`` once under torch.profiler and print its device profile
-    (``groups`` as print_profile takes them)."""
-    from torch.profiler import ProfilerActivity, profile
+    (``groups`` as print_profile takes them). A warm-up step of dummy device
+    work goes first and is discarded: the first events of a session can be
+    lost."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    class Active:  # the active step's events, as print_profile reads them
+        def key_averages(self):
+            return self.events
+
+    active = Active()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: setattr(active, "events", p.key_averages())) as prof:
+        x = torch.ones(1 << 20, device=DEVICE)
+        for _ in range(50):
+            x = x * 1.0001
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile(prof, what, wall_ms, top, groups)
+        prof.step()
+    print_profile(active, what, wall_ms, top, groups)
 
 
 GRAD_LEAVES = ("xq", "xk", "xv", "gk", "wq", "wk", "wv", "s0")
@@ -1868,7 +2082,8 @@ def hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps, adversar
                         io=None):
     """gla_chunk_conv as a training path calls it (autograd recording, bf16
     IO) at one shape against its plain version: o, the final state and every
-    gradient leaf; the backward must take the chunked route. ``st`` is the
+    gradient leaf, then the forward on each route its IO dtype has
+    (hold_fwd_routes); the backward must take the chunked route. ``st`` is the
     initial state's dtype, or None for no initial state; ``adversarial``
     swaps in gates that would overflow a factorisation of the decay across a
     whole chunk; ``io`` float32 holds f32 IO instead, whose backward must
@@ -1907,8 +2122,11 @@ def hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps, adversar
             f"{', adversarial gates' if adversarial else ''}")
     print(f"{name}, forward:")
     require(o_k.dtype == io and s_k.dtype == s_p.dtype, "gla_chunk_conv output dtypes")
-    check("o", max_err(o_k, o_p), bound(o_p, TOL_BF16 if io == bf else TOL_F32))
-    check("final state", max_err(s_k, s_p), bound(s_p, TOL_BF16 if st == bf else TOL_F32))
+    tol_o, tol_s = TOL_BF16 if io == bf else TOL_F32, TOL_BF16 if st == bf else TOL_F32
+    check("o", max_err(o_k, o_p), bound(o_p, tol_o))
+    check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
+    hold_fwd_routes(torch, gla_cuda, True, fwd_args(x, True), x["s0"], None, (o_p, s_p), tol_o,
+                    tol_s)
     worst = check_grads(f"{name}, backward ({route} route)", got, ref, TOL_GRAD)
     if not adversarial and io == bf:
         HELD.add((b, t, st, need_ds0, need_taps))
@@ -1939,11 +2157,30 @@ def bwd_kernel_phase(torch, gla_cuda, summary):
                     f"gla_chunk_conv forward t{t}",
                     lambda: gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"]),
                     lambda: gla_cuda.gla_chunk_conv_plain(*args, initial_state=x["s0"]), 5)
-            o_k, s_k = gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"])
-            fwd_bound, by = roofline(nbytes(*args, x["s0"], o_k, s_k),
-                                     scan_flops(TRAIN_BATCH, t, True), bf)
+            with torch.no_grad():
+                o_k, s_k = gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"])
+            fwd_work = (nbytes(*args, x["s0"], o_k, s_k), scan_flops(TRAIN_BATCH, t, True))
+            fwd_bound, by = roofline(*fwd_work, bf)
             print(f"  gla_chunk_conv forward t{t}: kernel {fwd_ms:.6f} ms, plain "
                   f"{fwd_plain_ms:.6f} ms, bound {fwd_bound:.6f} ms by {by}")
+            note_shape("gla_chunk_conv", f"training forward b{TRAIN_BATCH} t{t}", fwd_ms,
+                       fwd_plain_ms, *fwd_work, bf)
+            time_fwd_routes(torch, gla_cuda, True, args, x["s0"], None,
+                            f"training forward b{TRAIN_BATCH} t{t}", fwd_work, iters=5)
+            scratch = gla_cuda.chunked_fwd_scratch_bytes(TRAIN_BATCH, H, t, DK, DV,
+                                                         gla_cuda.sm_count(x["xq"].device))
+            print(f"  scratch of one chunked forward call: {scratch} bytes "
+                  f"({scratch / 1e6:.1f} MB)")
+            with torch.no_grad():
+                again = gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"])
+            torch.cuda.synchronize()
+            require(torch.equal(again[0], o_k) and torch.equal(again[1], s_k),
+                    "the chunked forward gave other bits on a second call")
+            print("  gla_chunk_conv forward: equal bits on a second call")
+            with torch.no_grad():
+                profiled(torch, lambda: [gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"])
+                                         for _ in range(3)],
+                         f"3 calls of gla_chunk_conv forward t{t}", top=8)
             bwd = lambda: gla_cuda.gla_chunk_conv_bwd(*args, x["s0"], do, dsf)
             plain_both = lambda: conv_grads(torch, gla_cuda.gla_chunk_conv_plain, x, do, dsf)
             ms, plain = [], []
@@ -2004,7 +2241,8 @@ def read_launches(gla_cuda):
     were launched on since the last reset noted in LAUNCHED."""
     shapes = gla_cuda.launch_shapes()
     LAUNCHED.update(shapes["gla_chunk_conv_bwd"])
-    require({s[:3] for s in shapes["gla_chunk_conv_bwd"]} == shapes["gla_chunk_conv"],
+    require({s[:3] for s in shapes["gla_chunk_conv_bwd"]}
+            == {s[:3] for s in shapes["gla_chunk_conv"]},
             f"forward and backward launched on different shapes: {shapes}")
     return read_counts()
 
@@ -2033,11 +2271,14 @@ def expect_chunked_route(gla_cuda, bwd, launches):
             "did not take the chunked route")
 
 
-# device time of a profiled train step by the kernels of the GLA layers
+# device time of a profiled train step by the kernels of the GLA layers: the
+# forward's chunked kernels live in gla::chunked_fwd, the backward's in
+# gla::chunked (whose name is not a prefix of the other's)
 TRAIN_GROUPS = (("gla_chunk_conv_bwd, chunked kernels", ("gla::chunked::",)),
                 ("gla_chunk_conv_bwd, finishing pass",
                  ("bwd_finish_kernel", "bwd_dg_carry_kernel", "bwd_taps_kernel")),
-                ("gla_chunk_conv forward", ("gla_chunk_kernel",)))
+                ("gla_chunk_conv forward, chunked kernels", ("gla::chunked_fwd::",)),
+                ("gla_chunk_conv forward, recurrent body", ("gla_chunk_kernel",)))
 
 
 def zero_gradient_mask(torch, name, grad):
@@ -2294,7 +2535,8 @@ def hold_chunk(torch, gla_cuda, shape, need_ds0=None):
     the inference forward (o, final state); otherwise as training calls it
     (autograd recording: the forward kernel and the hand-written backward)
     against autograd through the plain version, o, the final state and
-    every gradient leaf each within a share of its own max|plain|. Returns
+    every gradient leaf each within a share of its own max|plain|. Then the
+    forward on each route its IO dtype has (hold_fwd_routes). Returns
     (inputs, do, dsf, gradients, worst gradient share)."""
     b, h, t, dk, dv, io, st, scale = shape
     x = qkv_inputs(torch, b, h, t, dk, dv, io, st, seed=400 + t + h)
@@ -2327,7 +2569,9 @@ def hold_chunk(torch, gla_cuda, shape, need_ds0=None):
     require(o_k.dtype == io and s_k.dtype == (st or torch.float32), "gla_chunk output dtypes")
     check("o", max_err(o_k, o_p), bound(o_p, tol))
     check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
-    CHUNK_HELD.add(shape)
+    routes = hold_fwd_routes(torch, gla_cuda, False, fwd_args(x, False), x["s0"], scale,
+                             (o_p, s_p), tol, tol_s)
+    CHUNK_HELD.update((*shape, route) for route in routes)
     if need_ds0 is not None:
         worst = check_grads(f"{name}, backward", got, ref,
                             TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32)
@@ -2361,6 +2605,11 @@ def chunk_bwd_kernel_phase(torch, gla_cuda, summary):
                 note_shape("gla_chunk", f"training forward b{TRAIN_BATCH} {head_name(h, dk, dv)} "
                            f"t{t}", fwd_ms, fwd_plain_ms, nbytes(*args, o_k, s_k),
                            plain_qkv_flops(TRAIN_BATCH, h, t, dk, dv), io)
+                if io == bf:
+                    time_fwd_routes(torch, gla_cuda, False, args, None, scale,
+                                    f"training forward b{TRAIN_BATCH} {head_name(h, dk, dv)} t{t}",
+                                    (nbytes(*args, o_k, s_k),
+                                     plain_qkv_flops(TRAIN_BATCH, h, t, dk, dv)), iters=5)
                 bwd = lambda: gla_cuda.gla_chunk_bwd(*args, None, do, dsf, scale)
                 plain_both = lambda: chunk_grads(torch, gla_cuda.gla_chunk_plain, x, do, dsf,
                                                  scale, True)
@@ -2728,12 +2977,53 @@ def launched_gla_shapes_phase(torch, gla_cuda):
     for shape in bwd:
         hold_chunk(torch, gla_cuda, shape[:-1], need_ds0=shape[-1])
     for shape in sorted(GLA_LAUNCHED["gla_chunk"] - CHUNK_HELD, key=str):
-        hold_chunk(torch, gla_cuda, shape)
+        hold_chunk(torch, gla_cuda, shape[:-1])
     for shape in dec:
         hold_decode(torch, gla_cuda, shape)
     require(GLA_LAUNCHED["gla_chunk"] <= CHUNK_HELD
             and GLA_LAUNCHED["gla_chunk_bwd"] <= CHUNK_BWD_HELD
             and GLA_LAUNCHED["gla_decode"] <= DECODE_HELD, "launched but not held")
+
+
+def fwd_gap_phase(torch, gla_cuda, card_line):
+    """launches x (time - bound) of the two forward kernels over the main
+    paths: every shape a main path launched them on, weighted by its launch
+    count (FWD_SHAPE_COUNTS), timed on the route it took and on the
+    recurrent body, beside the shape's bound. Prints each shape and the
+    sums; returns {kernel: sum in ms on the routes taken}."""
+    bf = torch.bfloat16
+    sums = {}
+    for name, counts in FWD_SHAPE_COUNTS.items():
+        conv = name == "gla_chunk_conv"
+        fn = fwd_fns(gla_cuda, conv)[0]
+        total = {"taken": 0.0, "recurrent": 0.0}
+        print(f"{name}: launches x (time - bound) over {sum(counts.values())} main-path launches "
+              f"on {len(counts)} shapes (device us; the planned route, the recurrent body, the "
+              f"bound):")
+        for shape, n in sorted(counts.items(), key=str):
+            if conv:
+                (b, t, st, route), h, dk, dv, io, scale = shape, H, DK, DV, bf, None
+                x = kernel_inputs(torch, b, t, st, seed=700 + t)
+                flops = scan_flops(b, t, True)
+            else:
+                b, h, t, dk, dv, io, st, scale, route = shape
+                x = qkv_inputs(torch, b, h, t, dk, dv, io, st, seed=700 + t)
+                flops = plain_qkv_flops(b, h, t, dk, dv)
+            args = fwd_args(x, conv)
+            with torch.no_grad():
+                o, sf = fn(*args, initial_state=x["s0"], scale=scale)
+                bound_ms = roofline(nbytes(*args, x["s0"], o, sf), flops, io)[0]
+                ms = {r: device_ms(lambda: fwd_on_route(gla_cuda, conv, args, x["s0"], scale, r),
+                                   5) for r in sorted({route, "recurrent"})}
+            total["taken"] += n * (ms[route] - bound_ms)
+            total["recurrent"] += n * (ms["recurrent"] - bound_ms)
+            print(f"  {shape}: {n} launches; {route} {ms[route] * 1e3:.2f}, recurrent "
+                  f"{ms['recurrent'] * 1e3:.2f}, bound {bound_ms * 1e3:.3f}")
+        print(f"  {name}: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
+              f"taken; {total['recurrent']:.3f} ms had every launch taken the recurrent body "
+              f"[{card_line}]")
+        sums[name] = total["taken"]
+    return sums
 
 
 # ------------------------------------------------------------------- RWKV6
@@ -3356,6 +3646,7 @@ def main():
     add_launches(launches, mamba2_phase(torch, np, gla_cuda, card_line))
     add_launches(launches, interleaved_and_pp_phase(torch, np, gla_cuda, card_line))
     launched_gla_shapes_phase(torch, gla_cuda)
+    gaps = fwd_gap_phase(torch, gla_cuda, card_line)
     rwkv6_kernel_phase(torch, rwkv6_cuda, summary)
     add_launches(launches, rwkv6_phase(torch, np, gla_cuda, card_line))
     launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
@@ -3368,6 +3659,14 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
+    # launches x (time - bound): the two forwards over every launched shape,
+    # the other kernels at their row's shape
+    gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
+                 if k["name"] not in gaps})
+    print("launches x (time - bound), ms, largest first (the two forwards over every launched "
+          "shape, the others at their row's shape):")
+    for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
+        print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

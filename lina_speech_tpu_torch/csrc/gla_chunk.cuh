@@ -1,6 +1,6 @@
-// GLA prefill (inference forward), with or without the q/k/v short convs
-// fused in: one kernel template, instantiated by gla_chunk_conv.cu (CONV =
-// true) and gla_chunk.cu (CONV = false).
+// GLA prefill and training forward, with or without the q/k/v short convs
+// fused in: one kernel template for each of two routes, instantiated by
+// gla_chunk_conv.cu (CONV = true) and gla_chunk.cu (CONV = false).
 //
 // Per (batch, head), with f32 log-gates g <= 0:
 //
@@ -17,26 +17,31 @@
 // where rnd() rounds to the IO dtype (the Pallas kernel's rounding points,
 // gla_pallas.py:797-798 and :833) and the conv history before t = 0 is zero.
 //
-// Design: the TPU kernels walk chunks on a sequential grid axis and turn
-// each chunk into MXU matmuls (dyadic intra-chunk products). Here a block
-// owns a (DK x 32) f32 state tile in registers (lane = value column, each
-// warp a band of DK/8 key rows) and walks the time axis in a loop, the
-// recurrent form of the same function. Every exp argument is a gate <= 0,
-// so it needs no chunk factorization for stability, and a ragged t (down to
-// t = 1) needs no padding. With CONV the block recomputes the q/k convs of
-// all DK channels from a register history (cheap next to the state update),
-// which keeps blocks of one (batch, head) independent.
+// Two routes; ops/gla_cuda.py:gla_chunk_fwd_plan names one before the
+// launch and passes it in:
+// - chunked (bf16 IO; gla_chunked_fwd.cuh): 64-row chunks whose products
+//   run on the tensor cores, as the TPU kernels walk chunks with MXU
+//   products;
+// - recurrent (f32 IO, and bf16 IO where the card measured it faster:
+//   short inputs): gla_chunk_kernel below. A block owns a (DK x 32) f32
+//   state tile in registers (lane = value column, each warp a band of DK/8
+//   key rows) and walks the time axis in a loop. Every exp argument is a
+//   gate <= 0, so it needs no chunk factorization for stability, and a
+//   ragged t (down to t = 1) needs no padding. With CONV the block
+//   recomputes the q/k convs of all DK channels from a register history,
+//   which keeps blocks of one (batch, head) independent.
 //
-// What bounds it on the H100: the serial time loop (one dependent update
-// per token, two block barriers per step), not bytes or FLOPs. Inputs are
-// staged in shared memory 16 steps at a time (8 in f32) so that
-// global-load latency is paid once per stage rather than once per step;
-// the state tile stays in registers. At the flagship prefill (b8 h4 t151
-// dk256 dv512) it moves ~40 MB and does ~3 GFLOP in f32. The chunked
-// tensor-core form (wgmma for the inter/intra products) is the follow-up
-// that removes the serial dependency.
+// What bounds the recurrent body on the H100: the serial time loop (one
+// dependent update per token, two block barriers per step, ~2.2 us a token
+// at t512), not bytes or FLOPs. Inputs are staged in shared memory 16 steps
+// at a time (8 in f32) so that global-load latency is paid once per stage
+// rather than once per step; the state tile stays in registers. Its one
+// launch is what it has over the chunked route's three at a few tokens.
 #pragma once
 
+#include <type_traits>
+
+#include "gla_chunked_fwd.cuh"
 #include "gla_common.cuh"
 
 namespace gla {
@@ -180,16 +185,46 @@ int launch_chunk(const void* xq, const void* xk, const void* xv, const void* gk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dispatch over dtypes and DK. Returns cudaGetLastError() after the launch,
-// -1 for an unsupported DK, -2 for unsupported dtype codes, -3 for
-// DV % 32 != 0.
+// Dispatch over routes, dtypes and DK. chunked: the chunked route's scratch
+// (ops/gla_cuda.py:_chunked_fwd_sizes) uf, kf, bc, kt, kl, ul, states, vb,
+// ebt, ap; null for the recurrent route, and ap null where split is 1.
+// split: the output kernel's value-tile groups (chunked_fwd::launch).
+// Returns cudaGetLastError() after the launches, -1 for an unsupported DK, -2
+// for unsupported dtype codes, -3 for DV % 32 != 0, -4 for the chunked route
+// with f32 IO, a split outside 1..ceil(DV/64) or above 1 without ap, or an
+// unknown route.
 template <bool CONV>
 int dispatch_chunk(const void* xq, const void* xk, const void* xv, const void* gk,
                    const void* wq, const void* wk, const void* wv, const void* s0,
-                   void* o, void* sf, int B, int H, int T, int DK_, int DV,
-                   float scale, int io_dtype, int state_dtype, void* stream) {
+                   void* o, void* sf, void* const* chunked, int B, int H, int T, int DK_,
+                   int DV, float scale, int io_dtype, int state_dtype, int route, int split,
+                   void* stream) {
   if (DV % kBV != 0) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == kChunked) {
+    const int v_tiles = (DV + chunked::kTile - 1) / chunked::kTile;
+    if (io_dtype != kBF16 || split < 1 || split > v_tiles || (split > 1 && !chunked[9]))
+      return -4;
+    if (DK_ != 64 && DK_ != 128 && DK_ != 256) return -1;
+    using chunked::bf16;
+    float* const* f = reinterpret_cast<float* const*>(chunked);  // the f32 scratch
+    bf16* const* b = reinterpret_cast<bf16* const*>(chunked);    // the bf16 scratch
+    const auto run = [&](auto* s0_, auto* sf_) {
+      using ST = std::remove_const_t<std::remove_pointer_t<decltype(s0_)>>;
+      return chunked_fwd::launch<ST, CONV>(
+          static_cast<const bf16*>(xq), static_cast<const bf16*>(xk),
+          static_cast<const bf16*>(xv), static_cast<const float*>(gk),
+          static_cast<const bf16*>(wq), static_cast<const bf16*>(wk),
+          static_cast<const bf16*>(wv), s0_, static_cast<bf16*>(o), sf_, f[0], f[1], f[2], b[3],
+          b[4], b[5], b[6], b[7], f[8], f[9], B, H, T, DK_, DV, scale, split, st);
+    };
+    if (state_dtype == kF32)
+      return run(static_cast<const float*>(s0), static_cast<float*>(sf));
+    if (state_dtype == kBF16)
+      return run(static_cast<const bf16*>(s0), static_cast<bf16*>(sf));
+    return -2;
+  }
+  if (route != kRecurrent) return -4;
   GLA_DISPATCH_TYPES(io_dtype, state_dtype,
                      GLA_DISPATCH_DK(DK_, return launch_chunk<IO, ST, DK, CONV>(
                          xq, xk, xv, gk, wq, wk, wv, s0, o, sf, B, H, T, DV, scale, st)))

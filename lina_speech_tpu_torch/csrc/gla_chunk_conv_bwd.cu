@@ -167,11 +167,9 @@ __global__ void bwd_taps_kernel(const float* __restrict__ dwp, IO* __restrict__ 
   dw[i] = from_f<IO>(s);
 }
 
-constexpr int kRecurrent = 0;
-constexpr int kChunked = 1;
-
 // chunked: the chunked route's scratch (ops/gla_cuda.py:gla_chunk_conv_bwd),
-// uf, kf, bc, kt, ul, states, dstates, vb, ebt; null for the recurrent route
+// uf, kf, bc, kt, kl, ul, ull, states, states_lo, dstates, dstates_lo, vb,
+// ebt; null for the recurrent route
 template <typename IO, typename ST, int DK>
 int launch_bwd(const void* xq, const void* xk, const void* xv, const void* gk, const void* wq,
                const void* wk, const void* wv, const void* s0, const void* dout,
@@ -197,7 +195,8 @@ int launch_bwd(const void* xq, const void* xk, const void* xv, const void* gk, c
         xq_, xk_, xv_, static_cast<const float*>(gk), wq_, wk_, wv_,
         static_cast<const ST*>(s0), static_cast<const bf16*>(dout),
         static_cast<const ST*>(dsf), static_cast<ST*>(ds0), dqp_, dkp_, dsgp_, dvf_, sf[0],
-        sf[1], sf[2], sb[3], sb[4], sb[5], sb[6], sb[7], sf[8], B, H, T, DK, DV, scale, stream);
+        sf[1], sf[2], sb[3], sb[4], sb[5], sb[6], sb[7], sb[8], sb[9], sb[10], sb[11], sf[12], B,
+        H, T, DK, DV, scale, stream);
     n_parts = 1;
     n_sg = (DV + chunked::kTile - 1) / chunked::kTile + 1;
   } else {
@@ -238,8 +237,9 @@ int launch_bwd(const void* xq, const void* xk, const void* xv, const void* gk, c
 // DK) with P = Q = DV/32 (recurrent) or P = 1, Q = ceil(DV/64) + 1 (chunked); dvf
 // (B, H, T, DV), dgt (ceil(T/64), B, H, DK), dwp (B * ceil(T/64), H * (2 DK +
 // DV), 4); for the chunked route only (else null), with nc = ceil(T/64) and
-// Tp = 64 nc: uf, kf, bc (B*H, Tp, DK), kt, ul (B*H, Tp, DK) bf16, states and
-// dstates (B*H, nc, DK, DV) bf16, vb (B*H, Tp, DV) bf16, ebt (B*H, nc, DK).
+// Tp = 64 nc: uf, kf, bc (B*H, Tp, DK), kt, kl, ul, ull (B*H, Tp, DK) bf16,
+// states, states_lo, dstates and dstates_lo (B*H, nc, DK, DV) bf16, vb (B*H,
+// Tp, DV) bf16, ebt (B*H, nc, DK).
 // All contiguous, do 16-byte aligned for the chunked route; T >= 1. Returns
 // the first launch's cudaGetLastError() that is not 0, -1 for an
 // unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 != 0, -4
@@ -250,12 +250,14 @@ extern "C" int gla_chunk_conv_bwd(const void* xq, const void* xk, const void* xv
                                   const void* dsf, void* dxq, void* dxk, void* dxv, void* dg,
                                   void* ds0, void* dw, void* dqp, void* dkp, void* dsgp,
                                   void* dvf, void* dgt, void* dwp, void* uf, void* kf, void* bc,
-                                  void* kt, void* ul, void* states, void* dstates, void* vb,
+                                  void* kt, void* kl, void* ul, void* ull, void* states,
+                                  void* states_lo, void* dstates, void* dstates_lo, void* vb,
                                   void* ebt, int B, int H, int T, int DK_, int DV, float scale,
                                   int io_dtype, int state_dtype, int route, void* stream) {
   if (DV % gla::kBV != 0) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* const chunked[9] = {uf, kf, bc, kt, ul, states, dstates, vb, ebt};
+  void* const chunked[13] = {uf,     kf,        bc,      kt,         kl, ul, ull,
+                             states, states_lo, dstates, dstates_lo, vb, ebt};
   GLA_DISPATCH_TYPES(io_dtype, state_dtype,
                      GLA_DISPATCH_DK(DK_, return gla::launch_bwd<IO, ST, DK>(
                          xq, xk, xv, gk, wq, wk, wv, s0, dout, dsf, dxq, dxk, dxv, dg, ds0, dw,

@@ -4,9 +4,16 @@
 // (mma.sync m16n8k16, bf16 operands, f32 sums), as the TPU kernel
 // _conv_bwd_kernel (lina_speech_tpu/ops/gla_pallas.py:861, math in
 // _bwd_math :261) walks 64-row chunks with MXU products. Every product
-// operand is rounded to bf16, as the TPU kernel rounds to its IO dtype;
-// every sum is f32. The plain version of the same decomposition is
-// ops/gla_cuda.py:gla_chunk_conv_bwd_chunked_plain.
+// operand is rounded to bf16, as the TPU kernel rounds to its IO dtype,
+// save those of the products that feed dq and dk: the decayed operands of
+// the state walks, the states and cotangents, and G's and H's split-decay
+// factors enter as two bf16 parts (the rounded value and the rest, two mma
+// a k-step). dg is sum_{s>=t} (q dq - k dk), a difference of near-equal
+// terms: with those operands rounded once, the flagship's gate gradients
+// parted from the plain path's by more than chip_smoke.py holds them to
+// (tests/test_torch_chunk_bwd.py: test_two_part_operands_keep_the_gate_
+// gradient). Every sum is f32. The plain version of the same decomposition
+// is ops/gla_cuda.py:gla_chunk_conv_bwd_chunked_plain.
 //
 // Per (batch, head), u = scale q, chunk c of rows t, bc the in-chunk
 // inclusive sums of the gates g <= 0 and btot their total (a ragged last
@@ -14,14 +21,15 @@
 //
 // 1. prep_kernel: the convs, silu and rounding points of the forward (as
 //    ConvBwdChannel::pre), bc, and the decayed operands k e^{btot - bc} and
-//    u e^{bc} in bf16; e^{btot} per chunk and key channel.
-// 2. state_kernel, one launch of two halves: a block holds a 64 x 64 f32
-//    tile of S in its mma accumulators and walks the chunks forward from
-//    s0, S <- e^{btot} S + (k e^{btot - bc})^T v, storing each chunk's start
-//    state (bf16) and the row sums of dsf . e^{btot} S of the last chunk's
-//    start state S (the decay's part of dsf . S_final); the other
-//    half walks back from dsf, dS <- e^{btot} dS + (u e^{bc})^T do, storing
-//    each chunk's end-state cotangent (bf16) and, at the end, ds0.
+//    u e^{bc} in two bf16 parts; e^{btot} per chunk and key channel.
+// 2. state_kernel, one launch of two halves (state_walk): a block holds a 64
+//    x 64 f32 tile of S in its mma accumulators and walks the chunks forward
+//    from s0, S <- e^{btot} S + (k e^{btot - bc})^T v, storing each chunk's
+//    start state (two bf16 parts) and the row sums of dsf . e^{btot} S of
+//    the last chunk's start state S (the decay's part of dsf . S_final);
+//    the other half walks back from dsf, dS <- e^{btot} dS + (u e^{bc})^T
+//    do, storing each chunk's end-state cotangent (two parts) and, at the
+//    end, ds0. The forward's chunked route runs the first half alone.
 // 3. dqk_kernel, parallel over (key tile, chunk, batch*head): the inter
 //    terms do . S^T and v . dS^T and dA = do . v^T, summed over the value
 //    tiles inside the block, then G and H (below); dq = scale (e^{bc} do S^T
@@ -49,7 +57,7 @@
 //
 // What bounds it on the H100: not the products (26 GFLOP at b8 h4 t512
 // dk256 dv512, 26 us at the bf16 peak) but memory traffic and latency: the
-// states and cotangents (2 * b*h*nc*dk*dv bf16, written once, read once),
+// states and cotangents (4 * b*h*nc*dk*dv bf16, written once, read once),
 // the f32 operands of the intra terms, the chunk-serial state sweeps (nc
 // dependent steps a block) and the diagonal blocks on the CUDA cores.
 // Against them: the state sweeps load the next chunk while this chunk's
@@ -76,6 +84,7 @@ constexpr int kTile = 64;        // key or value channels of a tile
 constexpr int kLd = kTile + 8;
 constexpr int kLdF = kTile + 1;  // f32 row stride: rows on distinct banks
 constexpr int kStateThreads = 128;
+constexpr int kPrepRows = 8;     // rows whose inputs a prep thread loads at once
 constexpr int kGradThreads = 256;
 // rows of the split-decay factors of the sub-chunk pairs: 16 + 32 + 48
 constexpr int kPairRows = kSub * (kC / kSub) * (kC / kSub - 1) / 2;
@@ -155,20 +164,25 @@ __device__ __forceinline__ void copy16(bf16* dst, const bf16* src, const bf16* a
 __device__ __forceinline__ float exp_le0(float x) { return __expf(fminf(x, 0.f)); }
 
 // ------------------------------------------------------------------ prep
-// grid (nc, B*H, DK/64 + ceil(DV/64)), 64 threads: one thread walks one
-// channel through one chunk. Key-channel threads convolve q and k and sum
-// the gates; value-channel threads convolve v. Outputs on Tp = nc * 64 rows
-// (zeros past T): uf = u, kf = k, bc (f32, (B*H, Tp, DK)); kt = k e^{btot -
-// bc}, ul = u e^{bc} (bf16, same shape); vb = v (bf16, (B*H, Tp, DV));
-// ebt = e^{btot} (f32, (B*H, nc, DK)).
-template <typename IO>
-__global__ void __launch_bounds__(kTile)
-prep_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk, const IO* __restrict__ xv,
-            const float* __restrict__ gk, const IO* __restrict__ wq, const IO* __restrict__ wk,
-            const IO* __restrict__ wv, float* __restrict__ uf, float* __restrict__ kf,
-            float* __restrict__ bc, bf16* __restrict__ kt, bf16* __restrict__ ul,
-            bf16* __restrict__ vb, float* __restrict__ ebt, int H, int T, int DK, int DV,
-            float scale) {
+// One thread walks one channel through one chunk of 64 rows (the caller's
+// grid: (nc, B*H, DK/64 + ceil(DV/64)), 64 threads). Key-channel threads
+// take q and k (with CONV their convs, silu and the rounding points of the
+// forward, as ConvBwdChannel::pre; else q and k as they are) and sum the
+// gates; value-channel threads take v (with CONV its conv). Outputs on Tp =
+// nc * 64 rows (zeros past T): uf = u = scale q, kf = k, bc (f32, (B*H, Tp,
+// DK)); kt = k e^{btot - bc}, ul = u e^{bc} (bf16, same shape); kl and ull,
+// where not null, their low parts, the f32 value less its bf16 rounding, in
+// bf16; vb = v (bf16, (B*H, Tp, DV)); ebt = e^{btot} (f32, (B*H, nc, DK)).
+template <typename IO, bool CONV>
+__device__ __forceinline__ void prep_rows(const IO* __restrict__ xq, const IO* __restrict__ xk,
+                                          const IO* __restrict__ xv, const float* __restrict__ gk,
+                                          const IO* __restrict__ wq, const IO* __restrict__ wk,
+                                          const IO* __restrict__ wv, float* __restrict__ uf,
+                                          float* __restrict__ kf, float* __restrict__ bc,
+                                          bf16* __restrict__ kt, bf16* __restrict__ kl,
+                                          bf16* __restrict__ ul, bf16* __restrict__ ull,
+                                          bf16* __restrict__ vb, float* __restrict__ ebt, int H,
+                                          int T, int DK, int DV, float scale) {
   const int c = blockIdx.x, bh = blockIdx.y, h = bh % H, nc = gridDim.x, Tp = nc * kC;
   const int t0 = c * kC, n = min(kC, T - t0);
   const int key_blocks = DK / kTile;
@@ -176,44 +190,71 @@ prep_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk, const IO* __re
     const int ch = blockIdx.z * kTile + threadIdx.x;
     const size_t xb = (size_t)bh * T * DK + ch, ob = ((size_t)bh * Tp + t0) * DK + ch;
     float btot = 0.f;
+#pragma unroll 8
     for (int r = 0; r < n; ++r) btot += gk[xb + (size_t)(t0 + r) * DK];
     float wqf[kConv], wkf[kConv], hq[kConv], hk[kConv];  // taps; x[t-3 .. t]
+    if constexpr (CONV) {
 #pragma unroll
-    for (int i = 0; i < kConv; ++i) {
-      wqf[i] = to_f(wq[(size_t)(h * DK + ch) * kConv + i]);
-      wkf[i] = to_f(wk[(size_t)(h * DK + ch) * kConv + i]);
-      const int t = t0 - (kConv - 1) + i;
-      hq[i] = t >= 0 && i < kConv - 1 ? to_f(xq[xb + (size_t)t * DK]) : 0.f;
-      hk[i] = t >= 0 && i < kConv - 1 ? to_f(xk[xb + (size_t)t * DK]) : 0.f;
+      for (int i = 0; i < kConv; ++i) {
+        wqf[i] = to_f(wq[(size_t)(h * DK + ch) * kConv + i]);
+        wkf[i] = to_f(wk[(size_t)(h * DK + ch) * kConv + i]);
+        const int t = t0 - (kConv - 1) + i;
+        hq[i] = t >= 0 && i < kConv - 1 ? to_f(xq[xb + (size_t)t * DK]) : 0.f;
+        hk[i] = t >= 0 && i < kConv - 1 ? to_f(xk[xb + (size_t)t * DK]) : 0.f;
+      }
     }
     float b = 0.f;
-    for (int r = 0; r < kC; ++r) {
-      float u = 0.f, k = 0.f;
-      if (r < n) {
-        const size_t x = xb + (size_t)(t0 + r) * DK;
-        hq[kConv - 1] = to_f(xq[x]);
-        hk[kConv - 1] = to_f(xk[x]);
-        b += gk[x];
-        float zq = 0.f, zk = 0.f;
+    for (int r0 = 0; r0 < kC; r0 += kPrepRows) {
+      // the group's loads in flight together
+      float xqs[kPrepRows], xks[kPrepRows], gs[kPrepRows];
 #pragma unroll
-        for (int i = 0; i < kConv; ++i) {
-          zq = zq + wqf[i] * hq[i];
-          zk = zk + wkf[i] * hk[i];
-        }
-        u = silu(round_io<IO>(zq)) * scale;
-        k = silu(round_io<IO>(zk));
-#pragma unroll
-        for (int i = 0; i < kConv - 1; ++i) {
-          hq[i] = hq[i + 1];
-          hk[i] = hk[i + 1];
-        }
+      for (int j = 0; j < kPrepRows; ++j) {
+        const bool live = r0 + j < n;
+        const size_t x = xb + (size_t)(t0 + r0 + j) * DK;
+        xqs[j] = live ? to_f(xq[x]) : 0.f;
+        xks[j] = live ? to_f(xk[x]) : 0.f;
+        gs[j] = live ? gk[x] : 0.f;
       }
-      const size_t o = ob + (size_t)r * DK;
-      uf[o] = u;
-      kf[o] = k;
-      bc[o] = b;
-      kt[o] = __float2bfloat16_rn(k * __expf(btot - b));
-      ul[o] = __float2bfloat16_rn(u * __expf(b));
+#pragma unroll
+      for (int j = 0; j < kPrepRows; ++j) {
+        const int r = r0 + j;
+        float u = 0.f, k = 0.f;
+        if (r < n) {
+          b += gs[j];
+          if constexpr (CONV) {
+            hq[kConv - 1] = xqs[j];
+            hk[kConv - 1] = xks[j];
+            float zq = 0.f, zk = 0.f;
+#pragma unroll
+            for (int i = 0; i < kConv; ++i) {
+              zq = zq + wqf[i] * hq[i];
+              zk = zk + wkf[i] * hk[i];
+            }
+            u = silu(round_io<IO>(zq)) * scale;
+            k = silu(round_io<IO>(zk));
+#pragma unroll
+            for (int i = 0; i < kConv - 1; ++i) {
+              hq[i] = hq[i + 1];
+              hk[i] = hk[i + 1];
+            }
+          } else {
+            u = xqs[j] * scale;
+            k = xks[j];
+          }
+        }
+        const size_t o = ob + (size_t)r * DK;
+        uf[o] = u;
+        kf[o] = k;
+        bc[o] = b;
+        const float kd = k * __expf(btot - b);
+        const bf16 hi = __float2bfloat16_rn(kd);
+        kt[o] = hi;
+        if (kl) kl[o] = __float2bfloat16_rn(kd - __bfloat162float(hi));
+        const float ud = u * __expf(b);
+        const bf16 uhi = __float2bfloat16_rn(ud);
+        ul[o] = uhi;
+        if (ull) ull[o] = __float2bfloat16_rn(ud - __bfloat162float(uhi));
+      }
     }
     ebt[((size_t)bh * nc + c) * DK + ch] = __expf(btot);
   } else {
@@ -221,26 +262,54 @@ prep_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk, const IO* __re
     if (ch >= DV) return;
     const size_t xb = (size_t)bh * T * DV + ch, ob = ((size_t)bh * Tp + t0) * DV + ch;
     float w[kConv], hv[kConv];
+    if constexpr (CONV) {
 #pragma unroll
-    for (int i = 0; i < kConv; ++i) {
-      w[i] = to_f(wv[(size_t)(h * DV + ch) * kConv + i]);
-      const int t = t0 - (kConv - 1) + i;
-      hv[i] = t >= 0 && i < kConv - 1 ? to_f(xv[xb + (size_t)t * DV]) : 0.f;
-    }
-    for (int r = 0; r < kC; ++r) {
-      float v = 0.f;
-      if (r < n) {
-        hv[kConv - 1] = to_f(xv[xb + (size_t)(t0 + r) * DV]);
-        float z = 0.f;
-#pragma unroll
-        for (int i = 0; i < kConv; ++i) z = z + w[i] * hv[i];
-        v = silu(round_io<IO>(z));
-#pragma unroll
-        for (int i = 0; i < kConv - 1; ++i) hv[i] = hv[i + 1];
+      for (int i = 0; i < kConv; ++i) {
+        w[i] = to_f(wv[(size_t)(h * DV + ch) * kConv + i]);
+        const int t = t0 - (kConv - 1) + i;
+        hv[i] = t >= 0 && i < kConv - 1 ? to_f(xv[xb + (size_t)t * DV]) : 0.f;
       }
-      vb[ob + (size_t)r * DV] = __float2bfloat16_rn(v);
+    }
+    for (int r0 = 0; r0 < kC; r0 += kPrepRows) {
+      float xvs[kPrepRows];
+#pragma unroll
+      for (int j = 0; j < kPrepRows; ++j)
+        xvs[j] = r0 + j < n ? to_f(xv[xb + (size_t)(t0 + r0 + j) * DV]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kPrepRows; ++j) {
+        const int r = r0 + j;
+        float v = 0.f;
+        if (r < n) {
+          if constexpr (CONV) {
+            hv[kConv - 1] = xvs[j];
+            float z = 0.f;
+#pragma unroll
+            for (int i = 0; i < kConv; ++i) z = z + w[i] * hv[i];
+            v = silu(round_io<IO>(z));
+#pragma unroll
+            for (int i = 0; i < kConv - 1; ++i) hv[i] = hv[i + 1];
+          } else {
+            v = xvs[j];
+          }
+        }
+        vb[ob + (size_t)r * DV] = __float2bfloat16_rn(v);
+      }
     }
   }
+}
+
+// grid (nc, B*H, DK/64 + ceil(DV/64)), 64 threads: prep_rows with the convs
+// and both low parts.
+template <typename IO>
+__global__ void __launch_bounds__(kTile)
+prep_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk, const IO* __restrict__ xv,
+            const float* __restrict__ gk, const IO* __restrict__ wq, const IO* __restrict__ wk,
+            const IO* __restrict__ wv, float* __restrict__ uf, float* __restrict__ kf,
+            float* __restrict__ bc, bf16* __restrict__ kt, bf16* __restrict__ kl,
+            bf16* __restrict__ ul, bf16* __restrict__ ull, bf16* __restrict__ vb,
+            float* __restrict__ ebt, int H, int T, int DK, int DV, float scale) {
+  prep_rows<IO, true>(xq, xk, xv, gk, wq, wk, wv, uf, kf, bc, kt, kl, ul, ull, vb, ebt, H, T, DK,
+                      DV, scale);
 }
 
 // dsgp part blockIdx.x (B*H, DK) of the warp's 16 key rows from row0: the
@@ -268,25 +337,41 @@ __device__ __forceinline__ void last_chunk_decay(const float (&acc)[8][4], const
 }
 
 // ---------------------------------------------------------------- states
-// grid (ceil(DV/64), DK/64, 2 B*H), 128 threads: warp w holds key rows 16 w
-// .. 16 w + 15 of the block's 64 x 64 tile, all 64 value columns. Blocks z
-// < B*H walk forward (states; dsgp parts 0 .. ceil(DV/64) - 1, (B*H, DK)
-// each: per value tile the row sums of dsf . e^{btot} S of the last chunk's
-// start state), the others back (dstates, ds0). states and
-// dstates: (B*H, nc, DK, DV) bf16. dsf, s0, ds0 may be null.
+// Shared memory of a state sweep: two stages of the decayed operand's two
+// parts ([t][key]) and of v or do ([t][value]), the state as it leaves in
+// two parts ([key][value]) and two stages of e^{btot}. 72.5 KB: three blocks
+// an SM.
+constexpr int kStateSmem = 8 * kTileBytes + 2 * kTile * 4;
+
+// The chunk walk of one block of a state_kernel (the caller's grid:
+// (ceil(DV/64), DK/64, B*H), with B*H more blocks z for the reverse walk
+// where there is one; 128 threads): warp w holds key rows 16 w .. 16 w + 15
+// of the block's 64 x 64 tile, all 64 value columns, in f32 mma
+// accumulators. The decayed operands enter as two bf16 parts (prep_rows'
+// kt + kl, ul + ull), two mma a k-step. Forward (z < B*H), from s0: S <-
+// e^{btot} S + (kt + kl)^T vb, each chunk's start state leaving to states
+// (bf16) and, where states_lo is not null, the rest of it to states_lo;
+// after the walk S to sf in its dtype where sf is not null, and where dsgp
+// is not null its part blockIdx.x (B*H, DK): per value tile the row sums of
+// dsf . e^{btot} S of the last chunk's start state (the decay's part of dsf
+// . S_final). Reverse, from dsf: dS <- e^{btot} dS + (ul + ull)^T do, each
+// chunk's end-state cotangent to dstates and dstates_lo, at the end ds0
+// where not null. states, dstates: (B*H, nc, DK, DV). s0 and dsf may be
+// null (zeros).
 template <typename ST>
-__global__ void __launch_bounds__(kStateThreads)
-state_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ ul,
-             const bf16* __restrict__ vb, const bf16* __restrict__ dout,
-             const float* __restrict__ ebt, const ST* __restrict__ s0,
-             const ST* __restrict__ dsf, bf16* __restrict__ states, bf16* __restrict__ dstates,
-             float* __restrict__ dsgp, ST* __restrict__ ds0, int BH, int T, int nc, int DK,
-             int DV) {
-  // two stages: the next chunk's tiles load while this chunk's products run
-  __shared__ __align__(16) bf16 sx[2][kC * kLd];  // decayed k or u: [t][key]
-  __shared__ __align__(16) bf16 sy[2][kC * kLd];  // v or do: [t][value]
-  __shared__ __align__(16) bf16 so[kTile * kLd];  // the state as it leaves: [key][value]
-  __shared__ float se[2][kTile];                  // e^{btot} of the tile's key rows
+__device__ __forceinline__ void state_walk(
+    unsigned char* smem, const bf16* __restrict__ kt, const bf16* __restrict__ kl,
+    const bf16* __restrict__ ul, const bf16* __restrict__ ull, const bf16* __restrict__ vb,
+    const bf16* __restrict__ dout, const float* __restrict__ ebt, const ST* __restrict__ s0,
+    const ST* __restrict__ dsf, bf16* __restrict__ states, bf16* __restrict__ states_lo,
+    bf16* __restrict__ dstates, bf16* __restrict__ dstates_lo, float* __restrict__ dsgp,
+    ST* __restrict__ ds0, ST* __restrict__ sf, int BH, int T, int nc, int DK, int DV) {
+  bf16* sx = reinterpret_cast<bf16*>(smem);  // [2][kC * kLd] decayed k or u, rounded: [t][key]
+  bf16* sxl = sx + 2 * kC * kLd;             // [2][kC * kLd] the rest of it
+  bf16* sy = sxl + 2 * kC * kLd;             // [2][kC * kLd] v or do: [t][value]
+  bf16* so = sy + 2 * kC * kLd;              // [kTile * kLd] the state as it leaves, rounded
+  bf16* sol = so + kTile * kLd;              // [kTile * kLd] the rest of it
+  float* se = reinterpret_cast<float*>(sol + kTile * kLd);  // [2][kTile] e^{btot} of the rows
   const bool rev = (int)blockIdx.z >= BH;
   const int bh = rev ? blockIdx.z - BH : blockIdx.z;
   const int c0 = blockIdx.x * kTile, d0 = blockIdx.y * kTile, Tp = nc * kC;
@@ -301,19 +386,23 @@ state_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ ul,
       acc[j][e] = init && col < DV ? to_f(init[((size_t)bh * DK + row) * DV + col]) : 0.f;
     }
   const bf16* xsrc = rev ? ul : kt;
+  const bf16* xlo = rev ? ull : kl;
   bf16* out = rev ? dstates : states;
+  bf16* out_lo = rev ? dstates_lo : states_lo;
   const auto chunk_of = [&](int i) { return rev ? nc - 1 - i : i; };
   const auto stage = [&](int buf, int c) {  // one cp.async group
     for (int p = threadIdx.x; p < kC * 8; p += kStateThreads) {
       const int r = p >> 3, q = (p & 7) * 8, t = c * kC + r;
-      copy16(sx[buf] + r * kLd + q, xsrc + ((size_t)bh * Tp + t) * DK + d0 + q, xsrc, true);
+      const size_t key = ((size_t)bh * Tp + t) * DK + d0 + q;
+      copy16(sx + (buf * kC + r) * kLd + q, xsrc + key, xsrc, true);
+      copy16(sxl + (buf * kC + r) * kLd + q, xlo + key, xlo, true);
       const bool ok = c0 + q < DV && (!rev || t < T);
       const bf16* ysrc = rev ? dout + ((size_t)bh * T + t) * DV + c0 + q
                              : vb + ((size_t)bh * Tp + t) * DV + c0 + q;
-      copy16(sy[buf] + r * kLd + q, ysrc, vb, ok);
+      copy16(sy + (buf * kC + r) * kLd + q, ysrc, vb, ok);
     }
     if (threadIdx.x < kTile)
-      se[buf][threadIdx.x] = ebt[((size_t)bh * nc + c) * DK + d0 + threadIdx.x];
+      se[buf * kTile + threadIdx.x] = ebt[((size_t)bh * nc + c) * DK + d0 + threadIdx.x];
     q8::cp_async_commit();
   };
   stage(0, chunk_of(0));
@@ -329,48 +418,76 @@ state_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ ul,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<__nv_bfloat162*>(so + (m0 + acc_row(2 * hh)) * kLd + 8 * j +
-                                           acc_col(0)) =
-            __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int at = (m0 + acc_row(2 * hh)) * kLd + 8 * j + acc_col(0);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(so + at) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(sol + at) =
+            __floats2bfloat162_rn(acc[j][2 * hh] - __low2float(hi),
+                                  acc[j][2 * hh + 1] - __high2float(hi));
+      }
     q8::cp_async_wait<1>();
     __syncthreads();  // this chunk's tiles and the state in so are complete
-    bf16* o = out + (((size_t)bh * nc + c) * DK + d0) * DV + c0;
+    const size_t o = (((size_t)bh * nc + c) * DK + d0) * DV + c0;
     for (int p = threadIdx.x; p < kTile * 8; p += kStateThreads) {
       const int r = p >> 3, q = (p & 7) * 8;
-      if (c0 + q < DV)
-        *reinterpret_cast<uint4*>(o + (size_t)r * DV + q) =
-            *reinterpret_cast<const uint4*>(so + r * kLd + q);
+      if (c0 + q >= DV) continue;
+      *reinterpret_cast<uint4*>(out + o + (size_t)r * DV + q) =
+          *reinterpret_cast<const uint4*>(so + r * kLd + q);
+      if (out_lo)
+        *reinterpret_cast<uint4*>(out_lo + o + (size_t)r * DV + q) =
+            *reinterpret_cast<const uint4*>(sol + r * kLd + q);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= se[buf][m0 + acc_row(e)];
-    if (!rev && i == nc - 1) last_chunk_decay(acc, dsf, dsgp, bh, BH, d0 + m0, c0, DK, DV);
-    // acc[key][value] += sum_t x[t][key] y[t][value]
-    mma_rows<true, true, 4>(acc, sx[buf], kLd, sy[buf], kLd, m0, 0, kC);
+      for (int e = 0; e < 4; ++e) acc[j][e] *= se[buf * kTile + m0 + acc_row(e)];
+    if (!rev && dsgp && i == nc - 1)
+      last_chunk_decay(acc, dsf, dsgp, bh, BH, d0 + m0, c0, DK, DV);
+    // acc[key][value] += sum_t x[t][key] y[t][value], x in two parts
+    mma_rows<true, true, 4>(acc, sx + buf * kC * kLd, kLd, sy + buf * kC * kLd, kLd, m0, 0, kC);
+    mma_rows<true, true, 4>(acc, sxl + buf * kC * kLd, kLd, sy + buf * kC * kLd, kLd, m0, 0, kC);
     __syncthreads();  // the next stage overwrites buf, and the next state so
   }
-  if (rev && ds0) {
+  ST* last = rev ? ds0 : sf;
+  if (last) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = d0 + m0 + acc_row(e), col = c0 + 8 * j + acc_col(e);
-        if (col < DV) ds0[((size_t)bh * DK + row) * DV + col] = from_f<ST>(acc[j][e]);
+        if (col < DV) last[((size_t)bh * DK + row) * DV + col] = from_f<ST>(acc[j][e]);
       }
   }
+}
+
+// grid (ceil(DV/64), DK/64, 2 B*H), 128 threads, shared memory kStateSmem:
+// state_walk forward (states in two parts, dsgp) and in reverse (dstates in
+// two parts, ds0). dsf, s0 and ds0 may be null.
+template <typename ST>
+__global__ void __launch_bounds__(kStateThreads)
+state_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ kl,
+             const bf16* __restrict__ ul, const bf16* __restrict__ ull,
+             const bf16* __restrict__ vb, const bf16* __restrict__ dout,
+             const float* __restrict__ ebt, const ST* __restrict__ s0,
+             const ST* __restrict__ dsf, bf16* __restrict__ states, bf16* __restrict__ states_lo,
+             bf16* __restrict__ dstates, bf16* __restrict__ dstates_lo, float* __restrict__ dsgp,
+             ST* __restrict__ ds0, int BH, int T, int nc, int DK, int DV) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  state_walk<ST>(smem, kt, kl, ul, ull, vb, dout, ebt, s0, dsf, states, states_lo, dstates,
+                 dstates_lo, dsgp, ds0, nullptr, BH, T, nc, DK, DV);
 }
 
 // ------------------------------------------------------------- dq and dk
 // Shared memory of dqk_kernel after the value loop: the f32 u, k and bc of
 // the key tile; dA in f32 and bf16; the split-decay factors of G (k, 96
-// rows) and H (u, 96 rows). During the loop the same bytes hold two stages
-// of its four bf16 tiles (do, v, S, dS). 103 KB: two blocks an SM.
-constexpr int kDqkStage = 4 * kTileBytes;
+// rows), then in the same bytes those of H (u, 96 rows), each in two bf16
+// parts. During the loop the same bytes hold two stages of its six bf16
+// tiles (do, v, and S and dS in two parts each). 108 KB: two blocks an SM.
+constexpr int kDqkStage = 6 * kTileBytes;
 constexpr int kDqkR1 = 3 * kFTileBytes;
-constexpr int kDqkSmem = kDqkR1 + kFTileBytes + kTileBytes + 2 * kPairBytes;
-static_assert(2 * kDqkStage <= kDqkSmem, "two stages of the value loop fit");
+constexpr int kDqkTail = kDqkR1 + kFTileBytes + kTileBytes + 2 * kPairBytes;
+constexpr int kDqkSmem = 2 * kDqkStage > kDqkTail ? 2 * kDqkStage : kDqkTail;
 
 // Row offsets in the factor buffers: G's factor of sub-chunk I (rows 0 ..
 // 16 I - 1) starts at kx_row(I); H's of sub-chunk J (rows 16 (J+1) .. 63)
@@ -378,33 +495,59 @@ static_assert(2 * kDqkStage <= kDqkSmem, "two stages of the value loop fit");
 __device__ __forceinline__ int kx_row(int I) { return 8 * I * (I - 1); }
 __device__ __forceinline__ int ux_row(int J) { return 8 * J * (7 - J); }
 
-// G's and H's split-decay factors of one key tile in the factor buffers:
-// kx[s] = k_s e^{b_{16I-1} - b_s} for s < 16 I, ux[t] = u_t e^{b_t -
-// b_{16J+15}} for t >= 16 (J + 1). f32 inputs with row stride kLdF.
-__device__ __forceinline__ void pair_factors(bf16* kx, bf16* ux, const float* fu,
+// G's (FOR_H false) or H's split-decay factors of one key tile, in two bf16
+// parts (the rounded value into hi, the rest into lo): kx[s] = k_s
+// e^{b_{16I-1} - b_s} for s < 16 I, or ux[t] = u_t e^{b_t - b_{16J+15}} for
+// t >= 16 (J + 1). f32 inputs with row stride kLdF.
+template <bool FOR_H>
+__device__ __forceinline__ void pair_factors(bf16* hi, bf16* lo, const float* fu,
                                              const float* fk, const float* fb) {
   for (int p = threadIdx.x; p < kPairRows * kTile; p += kGradThreads) {
     const int row = p / kTile, d = p % kTile;
-    const int I = row < 16 ? 1 : row < 48 ? 2 : 3, s = row - kx_row(I);
-    kx[row * kLd + d] = __float2bfloat16_rn(
-        fk[s * kLdF + d] * exp_le0(fb[(kSub * I - 1) * kLdF + d] - fb[s * kLdF + d]));
-    const int J = row < 48 ? 0 : row < 80 ? 1 : 2, t = row - ux_row(J) + kSub * (J + 1);
-    ux[row * kLd + d] = __float2bfloat16_rn(
-        fu[t * kLdF + d] * exp_le0(fb[t * kLdF + d] - fb[(kSub * J + kSub - 1) * kLdF + d]));
+    float x;
+    if constexpr (FOR_H) {
+      const int J = row < 48 ? 0 : row < 80 ? 1 : 2, t = row - ux_row(J) + kSub * (J + 1);
+      x = fu[t * kLdF + d] * exp_le0(fb[t * kLdF + d] - fb[(kSub * J + kSub - 1) * kLdF + d]);
+    } else {
+      const int I = row < 16 ? 1 : row < 48 ? 2 : 3, s = row - kx_row(I);
+      x = fk[s * kLdF + d] * exp_le0(fb[(kSub * I - 1) * kLdF + d] - fb[s * kLdF + d]);
+    }
+    const bf16 h = __float2bfloat16_rn(x);
+    hi[row * kLd + d] = h;
+    lo[row * kLd + d] = __float2bfloat16_rn(x - __bfloat162float(h));
   }
 }
 
 // The key tile's u, k and bc rows of chunk c into shared f32 (row stride
-// kLdF).
-__device__ __forceinline__ void load_f32_tile(float* fu, float* fk, float* fb, const float* uf,
-                                              const float* kf, const float* bcum, size_t row0,
+// kLdF), by a block of kGradThreads threads: 16 bytes a load, and the loads
+// of half the tile in flight before any of them is stored, so that a block
+// waits on two global-memory latencies a tile.
+__device__ __forceinline__ void load_f32_tile(float* fu, float* fk, float* fb,
+                                              const float* __restrict__ uf,
+                                              const float* __restrict__ kf,
+                                              const float* __restrict__ bcum, size_t row0,
                                               int DK, int d0) {
-  for (int p = threadIdx.x; p < kC * kTile; p += kGradThreads) {
-    const int r = p / kTile, d = p % kTile;
-    const size_t o = (row0 + r) * DK + d0 + d;
-    fu[r * kLdF + d] = uf[o];
-    fk[r * kLdF + d] = kf[o];
-    fb[r * kLdF + d] = bcum[o];
+  constexpr int kQuads = kC * kTile / 4 / kGradThreads;  // 16-byte pieces a thread, of each
+  constexpr int kHalf = kQuads / 2;
+#pragma unroll
+  for (int h = 0; h < kQuads; h += kHalf) {
+    float4 a[kHalf], b[kHalf], c[kHalf];
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const int p = threadIdx.x + kGradThreads * (h + i);
+      const size_t o = (row0 + p / (kTile / 4)) * DK + d0 + 4 * (p % (kTile / 4));
+      a[i] = *reinterpret_cast<const float4*>(uf + o);
+      b[i] = *reinterpret_cast<const float4*>(kf + o);
+      c[i] = *reinterpret_cast<const float4*>(bcum + o);
+    }
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const int p = threadIdx.x + kGradThreads * (h + i);
+      const int at = (p / (kTile / 4)) * kLdF + 4 * (p % (kTile / 4));
+      fu[at] = a[i].x, fu[at + 1] = a[i].y, fu[at + 2] = a[i].z, fu[at + 3] = a[i].w;
+      fk[at] = b[i].x, fk[at + 1] = b[i].y, fk[at + 2] = b[i].z, fk[at + 3] = b[i].w;
+      fb[at] = c[i].x, fb[at + 1] = c[i].y, fb[at + 2] = c[i].z, fb[at + 3] = c[i].w;
+    }
   }
 }
 
@@ -419,7 +562,8 @@ __global__ void __launch_bounds__(kGradThreads, 2)
 dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
            const float* __restrict__ bcum, const bf16* __restrict__ vb,
            const bf16* __restrict__ dout, const bf16* __restrict__ states,
-           const bf16* __restrict__ dstates, float* __restrict__ dq, float* __restrict__ dk,
+           const bf16* __restrict__ states_lo, const bf16* __restrict__ dstates,
+           const bf16* __restrict__ dstates_lo, float* __restrict__ dq, float* __restrict__ dk,
            float* __restrict__ dsgp, int BH, int T, int nc, int DK, int DV, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float kd_rows[4][kTile];  // the last chunk's sums of k . dk_inter per row band
@@ -428,15 +572,16 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
   float* fb = fk + kC * kLdF;
   float* daf = reinterpret_cast<float*>(smem + kDqkR1);
   bf16* dab = reinterpret_cast<bf16*>(daf + kC * kLdF);
-  bf16* kx = dab + kC * kLd;
-  bf16* ux = kx + kPairRows * kLd;
+  bf16* fhi = dab + kC * kLd;      // a pair factor, rounded
+  bf16* flo = fhi + kPairRows * kLd;  // the rest of it
 
   const int d0 = blockIdx.x * kTile, c = blockIdx.y, bh = blockIdx.z, Tp = nc * kC;
   const int warp = threadIdx.x >> 5, I = warp & 3, m0 = kSub * I, n0 = 32 * (warp >> 2);
   float M[4][4] = {}, Kd[4][4] = {}, dA[4][4] = {};
-  const bf16* st = states + ((size_t)bh * nc + c) * DK * DV;
-  const bf16* dst = dstates + ((size_t)bh * nc + c) * DK * DV;
-  // stage b's tiles: do, v, S, dS of one value tile, 64 x 64 each
+  const size_t at = ((size_t)bh * nc + c) * DK * DV;
+  const bf16* sts[4] = {states + at, states_lo + at, dstates + at, dstates_lo + at};
+  // stage b's tiles: do, v, S (two parts), dS (two parts) of one value
+  // tile, 64 x 64 each
   const auto tile = [&](int b, int i) {
     return reinterpret_cast<bf16*>(smem + b * kDqkStage) + i * kC * kLd;
   };
@@ -447,8 +592,10 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
       copy16(tile(b, 0) + r * kLd + q, dout + ((size_t)bh * T + t) * DV + c0 + q, dout,
              col && t < T);
       copy16(tile(b, 1) + r * kLd + q, vb + ((size_t)bh * Tp + t) * DV + c0 + q, vb, col);
-      copy16(tile(b, 2) + r * kLd + q, st + (size_t)(d0 + r) * DV + c0 + q, st, col);
-      copy16(tile(b, 3) + r * kLd + q, dst + (size_t)(d0 + r) * DV + c0 + q, dst, col);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        copy16(tile(b, 2 + i) + r * kLd + q, sts[i] + (size_t)(d0 + r) * DV + c0 + q, sts[i],
+               col);
     }
     q8::cp_async_commit();
   };
@@ -463,7 +610,9 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
     __syncthreads();  // this value tile has landed
     const bf16 *s_do = tile(b, 0), *s_v = tile(b, 1);
     mma_rows<false, false, 2>(M, s_do, kLd, tile(b, 2), kLd, m0, n0, kTile);  // do . S^T
-    mma_rows<false, false, 2>(Kd, s_v, kLd, tile(b, 3), kLd, m0, n0, kTile);  // v . dS^T
+    mma_rows<false, false, 2>(M, s_do, kLd, tile(b, 3), kLd, m0, n0, kTile);
+    mma_rows<false, false, 2>(Kd, s_v, kLd, tile(b, 4), kLd, m0, n0, kTile);  // v . dS^T
+    mma_rows<false, false, 2>(Kd, s_v, kLd, tile(b, 5), kLd, m0, n0, kTile);
     mma_rows<false, false, 2>(dA, s_do, kLd, s_v, kLd, m0, n0, kTile);        // do . v^T
     __syncthreads();  // the next stage overwrites b
   }
@@ -477,15 +626,24 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
     }
   load_f32_tile(fu, fk, fb, uf, kf, bcum, (size_t)bh * Tp + c * kC, DK, d0);
   __syncthreads();
-  pair_factors(kx, ux, fu, fk, fb);
+  pair_factors<false>(fhi, flo, fu, fk, fb);
   __syncthreads();
   float G[4][4] = {}, Hs[4][4] = {};
   // G rows of sub-chunk I from the sub-chunks before it: dA[I, s] . kx
-  if (I >= 1) mma_rows<false, true, 2>(G, dab, kLd, kx + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
+  if (I >= 1) {
+    mma_rows<false, true, 2>(G, dab, kLd, fhi + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
+    mma_rows<false, true, 2>(G, dab, kLd, flo + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
+  }
+  __syncthreads();  // G's factors are read; H's take their place
+  pair_factors<true>(fhi, flo, fu, fk, fb);
+  __syncthreads();
   // H rows of sub-chunk I from the sub-chunks after it: dA[t, I]^T . ux
-  if (I <= 2)
-    mma_rows<true, true, 2>(Hs, dab + kSub * (I + 1) * kLd, kLd, ux + ux_row(I) * kLd, kLd, m0,
-                            n0, kC - kSub * (I + 1));
+  if (I <= 2) {
+    const bf16* da_after = dab + kSub * (I + 1) * kLd;
+    const int rows_after = kC - kSub * (I + 1);
+    mma_rows<true, true, 2>(Hs, da_after, kLd, fhi + ux_row(I) * kLd, kLd, m0, n0, rows_after);
+    mma_rows<true, true, 2>(Hs, da_after, kLd, flo + ux_row(I) * kLd, kLd, m0, n0, rows_after);
+  }
   float kd[4][2] = {};  // k . dk_inter summed over the lane's two rows, per column
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -548,43 +706,40 @@ inline int dv_smem_bytes(int DK) {
 constexpr int kDiagPairs = (kC / kSub) * kSub * (kSub + 1) / 2;
 constexpr int kPairsPerThread = (kDiagPairs + kGradThreads - 1) / kGradThreads;
 
-// grid (nc, B*H), 256 threads: warp w holds rows 16 (w % 4) .. of the chunk
-// and columns 32 (w / 4) .. of A or of a value tile. dvf: (B*H, T, DV) f32.
-template <int = 0>
-__global__ void __launch_bounds__(kGradThreads, 2)
-dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
-          const float* __restrict__ bcum, const bf16* __restrict__ kt,
-          const bf16* __restrict__ dout, const bf16* __restrict__ dstates,
-          float* __restrict__ dvf, int T, int nc, int DK, int DV) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = DK + 8;
-  bf16* s_a = reinterpret_cast<bf16*>(smem);
-  unsigned char* r1 = reinterpret_cast<unsigned char*>(s_a + kC * kLd);
-  float* fu = reinterpret_cast<float*>(r1);
-  float* fk = fu + kC * kLdF;
-  float* fb = fk + kC * kLdF;
-  bf16* ua = reinterpret_cast<bf16*>(fb + kC * kLdF);
-  bf16* kx = ua + kC * kLd;
-  bf16* s_ds = reinterpret_cast<bf16*>(r1);
-  bf16* s_do = s_ds + DK * kLd;
-  bf16* s_kt = s_do + kC * kLd;
+// The score matrix A[t, s] = sum_d u_t k_s e^{b_t - b_s} (s <= t) of one
+// chunk, by the 256 threads of a block: warp w takes rows 16 (w % 4) .. and
+// columns 32 (w / 4) .. of A's products below the diagonal blocks; thread i
+// the diagonal pairs (t, s) = (pt, ps) (in sub-chunk p / 136, s <= t) of
+// pair index p = i, i + 256, i + 512.
+struct Scores {
+  int pt[kPairsPerThread], ps[kPairsPerThread];  // pt -1: no pair
+  float pa[kPairsPerThread] = {};                // the diagonal pairs' sums
+  float A[4][4] = {};                            // the warp's products
 
-  const int c = blockIdx.x, bh = blockIdx.y, Tp = nc * kC;
-  const int warp = threadIdx.x >> 5, I = warp & 3, m0 = kSub * I, n0 = 32 * (warp >> 2);
-  const size_t row0 = (size_t)bh * Tp + c * kC;
-  // this thread's diagonal pairs: (t, s) in sub-chunk p / 136, s <= t
-  int pt[kPairsPerThread], ps[kPairsPerThread];
-  float pa[kPairsPerThread] = {};
+  __device__ __forceinline__ Scores() {
 #pragma unroll
-  for (int i = 0; i < kPairsPerThread; ++i) {
-    const int p = threadIdx.x + kGradThreads * i;
-    int q = p % (kSub * (kSub + 1) / 2), tl = 0;
-    while (q > tl) q -= ++tl;
-    pt[i] = p < kDiagPairs ? kSub * (p / (kSub * (kSub + 1) / 2)) + tl : -1;
-    ps[i] = pt[i] - tl + q;
+    for (int i = 0; i < kPairsPerThread; ++i) {
+      const int p = threadIdx.x + kGradThreads * i;
+      int q = p % (kSub * (kSub + 1) / 2), tl = 0;
+      while (q > tl) q -= ++tl;
+      pt[i] = p < kDiagPairs ? kSub * (p / (kSub * (kSub + 1) / 2)) + tl : -1;
+      ps[i] = pt[i] - tl + q;
+    }
   }
-  float A[4][4] = {};
-  for (int d0 = 0; d0 < DK; d0 += kTile) {
+
+  // Adds the key tile d0 .. d0 + 63 of the chunk's rows row0 .. row0 + 63.
+  // r1 holds the tile's f32 u, k, bc, A's left factor ua and the factors kx
+  // meanwhile (3 kFTileBytes + kTileBytes + kPairBytes).
+  __device__ __forceinline__ void add_tile(unsigned char* r1, const float* __restrict__ uf,
+                                           const float* __restrict__ kf,
+                                           const float* __restrict__ bcum, size_t row0, int DK,
+                                           int d0) {
+    float* fu = reinterpret_cast<float*>(r1);
+    float* fk = fu + kC * kLdF;
+    float* fb = fk + kC * kLdF;
+    bf16* ua = reinterpret_cast<bf16*>(fb + kC * kLdF);
+    bf16* kx = ua + kC * kLd;
+    const int warp = threadIdx.x >> 5, I = warp & 3, m0 = kSub * I, n0 = 32 * (warp >> 2);
     __syncthreads();  // the previous key tile's products are done
     load_f32_tile(fu, fk, fb, uf, kf, bcum, row0, DK, d0);
     __syncthreads();
@@ -626,20 +781,64 @@ dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
       }
     }
   }
-  __syncthreads();
-  for (int p = threadIdx.x; p < kC * kLd / 2; p += kGradThreads)
-    reinterpret_cast<uint32_t*>(s_a)[p] = 0u;
-  __syncthreads();
+
+  // A into out (64 x 64, row stride ld, bf16 or f32), zeros for s > t. The
+  // block's threads must be past their reads of out's bytes; out is
+  // complete after the caller's next __syncthreads.
+  template <typename E>
+  __device__ __forceinline__ void store(E* out, int ld) const {
+    const int warp = threadIdx.x >> 5, m0 = kSub * (warp & 3), n0 = 32 * (warp >> 2);
+    __syncthreads();
+    for (int p = threadIdx.x; p < kC * kC; p += kGradThreads)
+      out[(p / kC) * ld + p % kC] = from_f<E>(0.f);
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = m0 + acc_row(e), s = n0 + 8 * j + acc_col(e);
-      if (s < m0) s_a[r * kLd + s] = __float2bfloat16_rn(A[j][e]);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + acc_row(e), s = n0 + 8 * j + acc_col(e);
+        if (s < m0) out[r * ld + s] = from_f<E>(A[j][e]);
+      }
 #pragma unroll
-  for (int i = 0; i < kPairsPerThread; ++i)
-    if (pt[i] >= 0) s_a[pt[i] * kLd + ps[i]] = __float2bfloat16_rn(pa[i]);
+    for (int i = 0; i < kPairsPerThread; ++i)
+      if (pt[i] >= 0) out[pt[i] * ld + ps[i]] = from_f<E>(pa[i]);
+  }
+};
+
+// A of the chunk's rows row0 .. row0 + 63 summed over the DK key channels,
+// into s_a in bf16 (row stride kLd); r1 as Scores::add_tile takes it, free
+// again when this returns. s_a is complete after the caller's next
+// __syncthreads.
+__device__ __forceinline__ void chunk_scores(bf16* s_a, unsigned char* r1,
+                                             const float* __restrict__ uf,
+                                             const float* __restrict__ kf,
+                                             const float* __restrict__ bcum, size_t row0,
+                                             int DK) {
+  Scores sc;
+  for (int d0 = 0; d0 < DK; d0 += kTile) sc.add_tile(r1, uf, kf, bcum, row0, DK, d0);
+  sc.store(s_a, kLd);
+}
+
+// grid (nc, B*H), 256 threads: warp w holds rows 16 (w % 4) .. of the chunk
+// and columns 32 (w / 4) .. of A or of a value tile. dvf: (B*H, T, DV) f32.
+template <int = 0>
+__global__ void __launch_bounds__(kGradThreads, 2)
+dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
+          const float* __restrict__ bcum, const bf16* __restrict__ kt,
+          const bf16* __restrict__ dout, const bf16* __restrict__ dstates,
+          float* __restrict__ dvf, int T, int nc, int DK, int DV) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldk = DK + 8;
+  bf16* s_a = reinterpret_cast<bf16*>(smem);
+  unsigned char* r1 = reinterpret_cast<unsigned char*>(s_a + kC * kLd);
+  bf16* s_ds = reinterpret_cast<bf16*>(r1);
+  bf16* s_do = s_ds + DK * kLd;
+  bf16* s_kt = s_do + kC * kLd;
+
+  const int c = blockIdx.x, bh = blockIdx.y, Tp = nc * kC;
+  const int warp = threadIdx.x >> 5, m0 = kSub * (warp & 3), n0 = 32 * (warp >> 2);
+  const size_t row0 = (size_t)bh * Tp + c * kC;
+  chunk_scores(s_a, r1, uf, kf, bcum, row0, DK);
   for (int p = threadIdx.x; p < kC * DK / 8; p += kGradThreads) {
     const int r = p / (DK / 8), q = (p % (DK / 8)) * 8;
     copy16(s_kt + r * ldk + q, kt + (row0 + r) * DK + q, kt, true);
@@ -684,20 +883,24 @@ template <typename ST>
 int launch_chunked(const bf16* xq, const bf16* xk, const bf16* xv, const float* gk,
                    const bf16* wq, const bf16* wk, const bf16* wv, const ST* s0, const bf16* dout,
                    const ST* dsf, ST* ds0, float* dq, float* dk, float* dsgp, float* dvf,
-                   float* uf, float* kf, float* bcum, bf16* kt, bf16* ul, bf16* states,
-                   bf16* dstates, bf16* vb, float* ebt, int B, int H, int T, int DK, int DV,
-                   float scale, cudaStream_t stream) {
+                   float* uf, float* kf, float* bcum, bf16* kt, bf16* kl, bf16* ul, bf16* ull,
+                   bf16* states, bf16* states_lo, bf16* dstates, bf16* dstates_lo, bf16* vb,
+                   float* ebt, int B, int H, int T, int DK, int DV, float scale,
+                   cudaStream_t stream) {
   const int nc = (T + kC - 1) / kC, BH = B * H, v_tiles = (DV + kTile - 1) / kTile;
   prep_kernel<bf16><<<dim3(nc, BH, DK / kTile + v_tiles), kTile, 0, stream>>>(
-      xq, xk, xv, gk, wq, wk, wv, uf, kf, bcum, kt, ul, vb, ebt, H, T, DK, DV, scale);
+      xq, xk, xv, gk, wq, wk, wv, uf, kf, bcum, kt, kl, ul, ull, vb, ebt, H, T, DK, DV, scale);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  state_kernel<ST><<<dim3(v_tiles, DK / kTile, 2 * BH), kStateThreads, 0, stream>>>(
-      kt, ul, vb, dout, ebt, s0, dsf, states, dstates, dsgp, ds0, BH, T, nc, DK, DV);
+  if ((err = allow_smem(state_kernel<ST>, kStateSmem))) return err;
+  state_kernel<ST><<<dim3(v_tiles, DK / kTile, 2 * BH), kStateThreads, kStateSmem, stream>>>(
+      kt, kl, ul, ull, vb, dout, ebt, s0, dsf, states, states_lo, dstates, dstates_lo, dsgp, ds0,
+      BH, T, nc, DK, DV);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   if ((err = allow_smem(dqk_kernel<>, kDqkSmem))) return err;
   dqk_kernel<><<<dim3(DK / kTile, nc, BH), kGradThreads, kDqkSmem, stream>>>(
-      uf, kf, bcum, vb, dout, states, dstates, dq, dk, dsgp, BH, T, nc, DK, DV, scale);
+      uf, kf, bcum, vb, dout, states, states_lo, dstates, dstates_lo, dq, dk, dsgp, BH, T, nc, DK,
+      DV, scale);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   const int dv_smem = dv_smem_bytes(DK);
   if ((err = allow_smem(dv_kernel<>, dv_smem))) return err;

@@ -11,6 +11,10 @@ namespace gla {
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
+// route codes passed from Python (ops/gla_cuda.py:_ROUTE_CODE)
+constexpr int kRecurrent = 0;
+constexpr int kChunked = 1;
+
 // One block owns a (DK x kBV) tile of one (batch, head) state: kThreads
 // threads = kGroups warps; lane = value column, warp = a band of DK/kGroups
 // key rows held in registers.

@@ -100,13 +100,13 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gla_chunk_conv_fwd.argtypes = [p] * 10 + [i] * 5 + [f, i, i, p]
+    lib.gla_chunk_conv_fwd.argtypes = [p] * 20 + [i] * 5 + [f, i, i, i, i, p]
     lib.gla_chunk_conv_fwd.restype = i
-    lib.gla_chunk_conv_bwd.argtypes = [p] * 31 + [i] * 5 + [f, i, i, i, p]
+    lib.gla_chunk_conv_bwd.argtypes = [p] * 35 + [i] * 5 + [f, i, i, i, p]
     lib.gla_chunk_conv_bwd.restype = i
     lib.gla_decode_conv_step.argtypes = [p] * 15 + [i] * 4 + [f, i, i, p]
     lib.gla_decode_conv_step.restype = i
-    lib.gla_chunk_fwd.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
+    lib.gla_chunk_fwd.argtypes = [p] * 17 + [i] * 5 + [f, i, i, i, i, p]
     lib.gla_chunk_fwd.restype = i
     lib.gla_chunk_bwd.argtypes = [p] * 16 + [i] * 5 + [f, i, i, p]
     lib.gla_chunk_bwd.restype = i

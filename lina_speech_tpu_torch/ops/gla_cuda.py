@@ -4,7 +4,10 @@ wrappers and their plain versions.
 - :func:`gla_chunk_conv` replaces ``gla_chunk_conv_pallas``
   (lina_speech_tpu/ops/gla_pallas.py:1289), the prefill and the training
   forward of every GLA layer with the q/k/v short convs fused in. Kernel:
-  ``csrc/gla_chunk_conv.cu``. It is differentiable: when autograd records,
+  ``csrc/gla_chunk_conv.cu``, two routes chosen by :func:`gla_chunk_fwd_plan`
+  (64-row chunks on the tensor cores for bf16 IO, ``csrc/gla_chunked_fwd.cuh``;
+  the recurrent body for f32 IO and short bf16 inputs). It is
+  differentiable: when autograd records,
   it runs through a ``torch.autograd.Function`` whose backward is
   :func:`gla_chunk_conv_bwd` (``csrc/gla_chunk_conv_bwd.cu``, replacing
   ``_conv_bwd_kernel``, gla_pallas.py:861). The plain backward is autograd
@@ -13,7 +16,8 @@ wrappers and their plain versions.
   same scan on post-conv q/k/v: the prefill chunks that continue a stream
   from carried conv rings, and the prefill and training of the layers
   without per-projection convs (simple-GLA, the shared conv, Mamba-2).
-  Kernel: ``csrc/gla_chunk.cu``. It is differentiable: when autograd
+  Kernel: ``csrc/gla_chunk.cu``, the same two routes. It is differentiable:
+  when autograd
   records, its backward is :func:`gla_chunk_bwd` (``csrc/gla_chunk_bwd.cu``,
   replacing ``_bwd_kernel``, gla_pallas.py:210).
 - :func:`gla_decode_conv` replaces ``gla_decode_conv_fused``
@@ -51,6 +55,8 @@ noted at the top of its ``.cu`` source.
 from __future__ import annotations
 
 import ctypes
+import functools
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -65,7 +71,7 @@ _CONV_WIDTH = 4
 _DK_SUPPORTED = (64, 128, 256)
 _BV = 32  # value columns per block (csrc/gla_common.cuh:kBV)
 _BWD_SEG = 64  # time steps per thread of the backward's finishing kernels (kFinishSeg)
-_CHUNK = 64  # rows of a chunk of the chunked backward (csrc/gla_chunked_bwd.cuh:kC)
+_CHUNK = 64  # rows of a chunk of the chunked routes (csrc/gla_chunked_bwd.cuh:kC)
 _SUB = 16  # rows of a sub-chunk within it (kSub)
 _FOLD_Q_DV = (128, 256, 512)  # value widths the int8 fold kernel is built for
 
@@ -82,10 +88,11 @@ def _shape_noters():
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
-    gla_chunk_conv_bwd.routes = dict.fromkeys(_ROUTE_CODE, 0)
+    for fn in (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk):
+        fn.routes = dict.fromkeys(_ROUTE_CODE, 0)
     gla_decode_lazy_conv.q_launches = 0
     for fn in _shape_noters():
-        fn.shapes = set()
+        fn.shapes = Counter()
 
 
 def launch_counts() -> dict:
@@ -95,12 +102,19 @@ def launch_counts() -> dict:
 def launch_shapes() -> dict:
     """What the kernels that note their shapes were launched on since the
     last reset, a set of tuples each. ``gla_chunk_conv``: every launch as (b,
-    t, dtype of the initial state or None); ``gla_chunk_conv_bwd``: the same
-    with (need_ds0, need_taps) appended. ``gla_chunk``: every launch as (b,
-    h, t, dk, dv, IO dtype, initial state dtype or None, scale);
-    ``gla_chunk_bwd``: the same with need_ds0 appended. ``gla_decode``: (b, h, dk, dv, IO dtype, state dtype). A check
-    that drives a path reads it to hold the kernels at those shapes."""
+    t, dtype of the initial state or None, route); ``gla_chunk_conv_bwd``:
+    (b, t, dtype of the initial state or None, need_ds0, need_taps).
+    ``gla_chunk``: every launch as (b, h, t, dk, dv, IO dtype, initial state
+    dtype or None, scale, route); ``gla_chunk_bwd``: the same with need_ds0
+    in the route's place. ``gla_decode``: (b, h, dk, dv, IO dtype, state
+    dtype). A check that drives a path reads it to hold the kernels at
+    those shapes."""
     return {fn.__name__: set(fn.shapes) for fn in _shape_noters()}
+
+
+def launch_shape_counts() -> dict:
+    """:func:`launch_shapes` with the number of launches on each shape."""
+    return {fn.__name__: Counter(fn.shapes) for fn in _shape_noters()}
 
 
 def kernel_takes(dk: int, dv: int, io: torch.dtype, state_dtype: torch.dtype) -> bool:
@@ -142,6 +156,102 @@ def _raise_on(name: str, err: int) -> None:
 
 
 # ------------------------------------------------------------ prefill kernel
+_ROUTE_CODE = {"recurrent": 0, "chunked": 1}
+# bf16 inputs shorter than these keep the recurrent body, whose one launch
+# beat the chunked route's three or four below them in chip_smoke.py's route
+# sweep on an H100 (PERF.md §6): from 64 tokens the chunked route won at b1
+# and b2 (4 heads) for dv 256 and 512 and at b8 for dv 512, where the
+# recurrent body's b*h*dv/32 blocks take two waves of the card; at b8 dv
+# 256, one wave, the two tied at t96 and the chunked route won from 128.
+# Shapes the sweep did not reach take the rule of the nearest it did.
+_FWD_CHUNKED_MIN_T = 64
+_FWD_CHUNKED_MIN_T_ONE_WAVE = 128  # more than 8 heads in flight, dv below 512
+
+
+def gla_chunk_fwd_plan(io: torch.dtype, b: int, h: int, t: int, dv: int) -> str:
+    """The body a :func:`gla_chunk_conv` or :func:`gla_chunk` launch of IO
+    dtype ``io`` on (b, h, t) heads of value dim ``dv`` runs, decided from
+    these alone before the launch: ``"chunked"`` for bf16 IO from
+    ``_FWD_CHUNKED_MIN_T`` tokens on (``_FWD_CHUNKED_MIN_T_ONE_WAVE`` above 8
+    heads in flight with dv below 512; 64-row chunks, products on the tensor
+    cores with bf16 operands and f32 sums, as the TPU kernel rounds its
+    products' operands to the IO dtype), else ``"recurrent"`` (the time loop
+    in f32, which an f32 caller expects and which is faster on a few
+    tokens)."""
+    one_wave = b * h > 8 and dv < 512
+    min_t = _FWD_CHUNKED_MIN_T_ONE_WAVE if one_wave else _FWD_CHUNKED_MIN_T
+    return "chunked" if io == torch.bfloat16 and t >= min_t else "recurrent"
+
+
+def fwd_out_split(b: int, h: int, t: int, dv: int, sms: int) -> int:
+    """Value-tile groups of the chunked forward's output kernel on a card
+    of ``sms`` SMs: 1 where its ceil(t/64) * b*h blocks, each forming its
+    chunk's score matrix A itself, make two a SM or more; else as many
+    groups as keep the blocks within two a SM, at most one a 64-wide value
+    tile, each group summing A from the key tiles' parts that a scores
+    kernel writes first (those parts are scratch only then)."""
+    blocks = -(-t // _CHUNK) * b * h
+    return max(1, min(2 * sms // blocks, -(-dv // _CHUNK)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_ALIGN = 256  # bytes: where each array of a shared scratch buffer starts
+
+
+def _scratch_total(sizes) -> int:
+    """Bytes of one buffer holding arrays of ``sizes`` bytes (:func:`_scratch`)."""
+    return sum(-(-n // _ALIGN) * _ALIGN for n in sizes)
+
+
+def _scratch(sizes, device):
+    """One uint8 buffer on ``device`` for arrays of ``sizes`` bytes, each
+    starting on an ``_ALIGN``-byte boundary: (buffer, a pointer for each
+    array, null where its size is 0). One allocation instead of one an
+    array, as the chunked routes take ten or more; the buffer must be held
+    until the launch is queued."""
+    buf = torch.empty(_scratch_total(sizes), dtype=torch.uint8, device=device)
+    ptrs, at = [], buf.data_ptr()
+    for n in sizes:
+        ptrs.append(ctypes.c_void_p(at if n else None))
+        at += -(-n // _ALIGN) * _ALIGN
+    return buf, ptrs
+
+
+def _chunked_fwd_sizes(b, h, t, dk, dv, split):
+    """Bytes of the chunked forward's scratch arrays, in the C entry point's
+    order: on t rounded up to whole chunks u = scale q, k and the in-chunk
+    gate sums in f32; the decayed k, its low part and the decayed u in
+    bf16; every chunk's start state in bf16; v in bf16; e^{btot} per chunk
+    in f32; with ``split`` above 1 each key tile's part of the chunk's
+    score matrix in f32 (else 0: not allocated)."""
+    nc = -(-t // _CHUNK)
+    tp, bh = nc * _CHUNK, b * h
+    return ([4 * bh * tp * dk] * 3 + [2 * bh * tp * dk] * 3
+            + [2 * bh * nc * dk * dv, 2 * bh * tp * dv, 4 * bh * nc * dk,
+               4 * bh * nc * dk * _CHUNK if split > 1 else 0])
+
+
+def chunked_fwd_scratch_bytes(b: int, h: int, t: int, dk: int, dv: int, sms: int) -> int:
+    """Bytes of scratch one chunked :func:`gla_chunk_conv` or :func:`gla_chunk`
+    call takes beside its outputs on a card of ``sms`` SMs."""
+    return _scratch_total(_chunked_fwd_sizes(b, h, t, dk, dv, fwd_out_split(b, h, t, dv, sms)))
+
+
+def _fwd_route(name, io, b, h, t, dv, route):
+    """The route a forward launch takes: ``route`` if given (the card's
+    checks force either body), else the plan's."""
+    route = gla_chunk_fwd_plan(io, b, h, t, dv) if route is None else route
+    _check(name, route in _ROUTE_CODE, f"route {route!r} not in {tuple(_ROUTE_CODE)}")
+    _check(name, route == "recurrent" or io == torch.bfloat16,
+           "the chunked route takes bf16 IO only")
+    return route
+
+
 def _conv_pre_rounded(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv of (b, h, t, d) with taps (h, d, w), tap 0
     oldest: the f32 tap sum rounded to x's dtype, as f32."""
@@ -178,6 +288,66 @@ def gla_chunk_conv_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     return o.to(xq.dtype), sf.to(state_dtype)
 
 
+def _chunked_fwd_plain(u, k, v, gk, s0, rnd):
+    """The chunked forward route with tensors: u = scale q, k, v (b, h, t, d)
+    and gk in f32, s0 f32 or None; ``rnd`` rounds a product's operand. In
+    64-row chunks (a ragged last one padded with zeros and zero gates), with
+    in-chunk gate sums bc and their total btot:
+
+    1. chunk states: S <- e^{btot} S + kd_hi^T v + kd_lo^T v from s0, kd = k
+       e^{btot - bc} in two rounded parts, kd_hi = rnd(kd) and kd_lo =
+       rnd(kd - kd_hi), keeping each chunk's start state;
+    2. o = rnd(u e^{bc}) rnd(S_start) + rnd(A) v with A from
+       :func:`_chunk_scores`.
+
+    Returns (o, final state), both f32."""
+    b, h, t, _ = u.shape
+    C = _CHUNK
+    nc = -(-t // C)
+
+    def chunks(x):
+        x = F.pad(x, (0, 0, 0, nc * C - t))
+        return x.reshape(b, h, nc, C, x.shape[-1])
+
+    uc, kc, vc = chunks(u), chunks(k), chunks(v)
+    bc = chunks(gk).cumsum(3)
+    btot = bc[:, :, :, -1:]
+    kd = kc * torch.exp(btot - bc)
+    hi = rnd(kd)
+    lo = rnd(kd - hi)
+    s = u.new_zeros(b, h, u.shape[-1], v.shape[-1]) if s0 is None else s0
+    states = []
+    for c in range(nc):
+        states.append(s)
+        s = (torch.exp(btot[:, :, c, 0, :, None]) * s + hi[:, :, c].transpose(-1, -2) @ vc[:, :, c]
+             + lo[:, :, c].transpose(-1, -2) @ vc[:, :, c])
+    o = (rnd(uc * torch.exp(bc)) @ rnd(torch.stack(states, 2))
+         + rnd(_chunk_scores(uc, kc, bc, rnd)) @ vc)
+    return o.reshape(b, h, nc * C, -1)[:, :, :t], s
+
+
+def gla_chunk_conv_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
+                                 initial_state=None, scale=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked route of :func:`gla_chunk_conv` written with tensors (same
+    arguments and outputs): the convs as :func:`gla_chunk_conv_plain` takes
+    them, then :func:`_chunked_fwd_plain` with every product operand rounded
+    to the IO dtype, as the kernels round theirs to bf16 (f32 IO: none).
+    Used by the tests, on the CPU against the Pallas kernel and on the card
+    against the kernels."""
+    b, h, t, dk = xq.shape
+    dv, w, io = xv.shape[-1], conv_q_w.shape[-1], xq.dtype
+    scale = dk ** -0.5 if scale is None else scale
+    q = _silu_conv_rounded(xq, conv_q_w.reshape(h, dk, w))
+    k = _silu_conv_rounded(xk, conv_k_w.reshape(h, dk, w))
+    v = _silu_conv_rounded(xv, conv_v_w.reshape(h, dv, w)).to(io).float()
+    state_dtype = torch.float32 if initial_state is None else initial_state.dtype
+    o, sf = _chunked_fwd_plain(q * scale, k, v, gk.float(),
+                               None if initial_state is None else initial_state.float(),
+                               lambda x: x.to(io).float())
+    return o.to(io), sf.to(state_dtype)
+
+
 def gla_chunk_conv(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
                    initial_state=None, scale=None, chunk_size: int = 64
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -188,7 +358,10 @@ def gla_chunk_conv(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     the IO dtype, tap 0 oldest, conv history zero at t = 0;
     initial_state: (b, h, dk, dv) or None (zeros, f32). Returns o (b, h, t,
     dv) in the IO dtype and the final state in the initial state's dtype.
-    ``chunk_size`` shapes the plain version only; the kernel is recurrent.
+    ``chunk_size`` shapes the plain version only. On CUDA tensors the
+    kernel runs the body :func:`gla_chunk_fwd_plan` names. One call counts
+    as one launch, and once more under its route in
+    ``gla_chunk_conv.routes``.
     """
     if not xq.is_cuda:
         return gla_chunk_conv_plain(xq, xk, xv, gk, conv_q_w, conv_k_w,
@@ -231,27 +404,34 @@ def _check_chunk_conv_args(name, xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
 
 
 def _chunk_conv_launch(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
-                       initial_state, scale):
-    """Check the arguments and launch the forward kernel (CUDA tensors)."""
+                       initial_state, scale, route=None):
+    """Check the arguments and launch the forward kernel (CUDA tensors) on
+    ``route`` (None: the plan's; the card's checks force either)."""
     name = "gla_chunk_conv"
     b, h, t, dk, dv, io, st = _check_chunk_conv_args(
         name, xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w, initial_state)
+    route = _fwd_route(name, io, b, h, t, dv, route)
     o = torch.empty(b, h, t, dv, dtype=io, device=xq.device)
     sf = torch.empty(b, h, dk, dv, dtype=st, device=xq.device)
+    split = fwd_out_split(b, h, t, dv, sm_count(xq.device)) if route == "chunked" else 1
+    buf, scratch = (_scratch(_chunked_fwd_sizes(b, h, t, dk, dv, split), xq.device)
+                    if route == "chunked" else (None, [None] * 10))
     lib = _build.load_library()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = lib.gla_chunk_conv_fwd(
         _ptr(xq), _ptr(xk), _ptr(xv), _ptr(gk), _ptr(conv_q_w), _ptr(conv_k_w),
-        _ptr(conv_v_w), _ptr(initial_state), _ptr(o), _ptr(sf),
-        b, h, t, dk, dv, float(scale), _DTYPE_CODE[io], _DTYPE_CODE[st],
-        ctypes.c_void_p(stream))
+        _ptr(conv_v_w), _ptr(initial_state), _ptr(o), _ptr(sf), *scratch,
+        b, h, t, dk, dv, float(scale), _DTYPE_CODE[io], _DTYPE_CODE[st], _ROUTE_CODE[route],
+        split, ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk_conv.launches += 1
-    gla_chunk_conv.shapes.add((b, t, None if initial_state is None else st))
+    gla_chunk_conv.routes[route] += 1
+    gla_chunk_conv.shapes[(b, t, None if initial_state is None else st, route)] += 1
     return o, sf
 
 
-gla_chunk_conv.launches, gla_chunk_conv.shapes = 0, set()
+gla_chunk_conv.launches, gla_chunk_conv.shapes = 0, Counter()
+gla_chunk_conv.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
 def gla_chunk_conv_bwd_plan(io: torch.dtype) -> str:
@@ -262,9 +442,6 @@ def gla_chunk_conv_bwd_plan(io: torch.dtype) -> str:
     else ``"recurrent"`` (the two time sweeps in f32, which an f32 caller
     expects). Each IO dtype has this one body in the C entry point."""
     return "chunked" if io == torch.bfloat16 else "recurrent"
-
-
-_ROUTE_CODE = {"recurrent": 0, "chunked": 1}
 
 
 def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
@@ -287,10 +464,11 @@ def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     - ``"recurrent"`` (f32 IO): the per-tile parts of dq and dk, 2 * dv/32 *
       b*h*t*dk f32 values (537 MB at b8 h4 t512 dk256 dv512);
     - ``"chunked"`` (bf16 IO, ``csrc/gla_chunked_bwd.cuh``): every chunk's
-      start state and end-state cotangent in bf16 (2 * b*h*nc*dk*dv, nc =
-      ceil(t/64)); on t rounded up to whole chunks the post-conv u = scale q,
-      k and the in-chunk gate sums in f32, and the decayed k and u and v in
-      bf16; dq and dk once in f32 (:func:`chunked_bwd_scratch_bytes`).
+      start state and end-state cotangent in two bf16 parts (4 * b*h*nc*dk*dv,
+      nc = ceil(t/64)); on t rounded up to whole chunks the post-conv u =
+      scale q, k and the in-chunk gate sums in f32, the decayed k and u in
+      two bf16 parts each and v in bf16; dq and dk once in f32
+      (:func:`chunked_bwd_scratch_bytes`).
     """
     name = "gla_chunk_conv_bwd"
     _check(name, xq.is_cuda, "runs on CUDA tensors only; on the CPU take "
@@ -314,20 +492,12 @@ def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     dwp = torch.empty(b * n_seg, n_ch, _CONV_WIDTH, **f32) if need_taps else None
     dgt = torch.empty(n_seg, b, h, dk, **f32)
     dvf = torch.empty(b, h, t, dv, **f32)
-    chunked = [None] * 9  # the chunked route's scratch, in the C entry point's order
+    buf, chunked = None, [None] * 13  # the chunked route's scratch, in the C entry point's order
     if route == "chunked":
-        nc = -(-t // _CHUNK)
-        tp = nc * _CHUNK
-        bf = dict(dtype=torch.bfloat16, device=dev)
         dqp = torch.empty(1, b, h, t, dk, **f32)
         dkp = torch.empty(1, b, h, t, dk, **f32)
         dsgp = torch.empty(-(-dv // _CHUNK) + 1, b, h, dk, **f32)
-        # u, k and the in-chunk gate sums; k and u decayed; the chunk states
-        # and their cotangents; v; e^{btot}
-        chunked = [torch.empty(b * h, tp, dk, **f32) for _ in range(3)]
-        chunked += [torch.empty(b * h, tp, dk, **bf) for _ in range(2)]
-        chunked += [torch.empty(b * h, nc, dk, dv, **bf) for _ in range(2)]
-        chunked += [torch.empty(b * h, tp, dv, **bf), torch.empty(b * h, nc, dk, **f32)]
+        buf, chunked = _scratch(_chunked_bwd_sizes(b, h, t, dk, dv), dev)
         if do.data_ptr() % 16:  # the chunked kernels copy rows of do 16 bytes at a time
             do = do.clone()
     else:
@@ -342,31 +512,41 @@ def gla_chunk_conv_bwd(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
         _ptr(conv_v_w), _ptr(initial_state), _ptr(do), _ptr(dsf), _ptr(dxq),
         _ptr(dxk), _ptr(dxv), _ptr(dg), _ptr(ds0), _ptr(dw), _ptr(dqp),
         _ptr(dkp), _ptr(dsgp), _ptr(dvf), _ptr(dgt), _ptr(dwp),
-        *map(_ptr, chunked), b, h, t, dk, dv,
+        *chunked, b, h, t, dk, dv,
         float(scale), _DTYPE_CODE[io], _DTYPE_CODE[st], _ROUTE_CODE[route],
         ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk_conv_bwd.launches += 1
     gla_chunk_conv_bwd.routes[route] += 1
-    gla_chunk_conv_bwd.shapes.add((b, t, None if initial_state is None else st,
-                                   ds0 is not None, need_taps))
+    gla_chunk_conv_bwd.shapes[(b, t, None if initial_state is None else st,
+                               ds0 is not None, need_taps)] += 1
     if dw is None:
         return dxq, dxk, dxv, dg, None, None, None, ds0
     dwq, dwk, dwv = dw.split([h * dk, h * dk, h * dv])
     return dxq, dxk, dxv, dg, dwq, dwk, dwv, ds0
 
 
-gla_chunk_conv_bwd.launches, gla_chunk_conv_bwd.shapes = 0, set()
+gla_chunk_conv_bwd.launches, gla_chunk_conv_bwd.shapes = 0, Counter()
 gla_chunk_conv_bwd.routes = dict.fromkeys(_ROUTE_CODE, 0)
+
+
+def _chunked_bwd_sizes(b, h, t, dk, dv):
+    """Bytes of the chunked backward's own scratch arrays, in the C entry
+    point's order: on t rounded up to whole chunks u, k and the in-chunk
+    gate sums in f32; k and u decayed, each in two bf16 parts; the chunk
+    states and their cotangents, each in two bf16 parts; v in bf16;
+    e^{btot} per chunk in f32."""
+    nc = -(-t // _CHUNK)
+    tp, bh = nc * _CHUNK, b * h
+    return ([4 * bh * tp * dk] * 3 + [2 * bh * tp * dk] * 4 + [2 * bh * nc * dk * dv] * 4
+            + [2 * bh * tp * dv, 4 * bh * nc * dk])
 
 
 def chunked_bwd_scratch_bytes(b: int, h: int, t: int, dk: int, dv: int) -> int:
     """Bytes of scratch one chunked :func:`gla_chunk_conv_bwd` call takes
     beside its outputs (the tap parts, which both routes take, left out)."""
-    nc = -(-t // _CHUNK)
-    tp, bh = nc * _CHUNK, b * h
-    return (4 * bh * tp * dk * 3 + 2 * bh * tp * dk * 2 + 2 * bh * nc * dk * dv * 2
-            + 2 * bh * tp * dv + 4 * bh * nc * dk + 4 * bh * t * (2 * dk + dv)
+    bh = b * h
+    return (_scratch_total(_chunked_bwd_sizes(b, h, t, dk, dv)) + 4 * bh * t * (2 * dk + dv)
             + 4 * (-(-dv // _CHUNK) + 1) * bh * dk + 4 * -(-t // _BWD_SEG) * bh * dk)
 
 
@@ -385,40 +565,65 @@ def _conv_bwd_plain(dy, zr, x, taps):
     return dx, dw
 
 
-def _intra_chunk(u, k, bc, da, rnd):
+def _diag_decay(bc, rows):
+    """e^{b_t - b_s} (..., L, L, d) of the sub-chunk ``rows``, t >= s, 0 above
+    the diagonal (where the exponent is clamped to 0 before the mask)."""
+    L = rows.stop - rows.start
+    tri = torch.ones(L, L, dtype=torch.bool, device=bc.device).tril()[..., None]
+    b_i = bc[..., rows, :]
+    return torch.exp((b_i[..., :, None, :] - b_i[..., None, :, :]).clamp(max=0)) * tri
+
+
+def _chunk_scores(u, k, bc, rnd):
+    """A (..., C, C) = sum_d u_t k_s e^{b_t - b_s} (t >= s, else 0) on (..., C,
+    d) chunks. Within a 16-row sub-chunk summed directly in f32; for a pair
+    of sub-chunks I > J the decay splits at the row before I, so that both
+    factors' exponents are <= 0 and the product runs on operands rounded by
+    ``rnd`` with f32 sums."""
+    C, L = u.shape[-2], _SUB
+    A = torch.zeros(*u.shape[:-1], C, dtype=u.dtype, device=u.device)
+    for i in range(C // L):
+        rows = slice(L * i, L * (i + 1))
+        A[..., rows, rows] = torch.einsum("...td,...tsd,...sd->...ts", u[..., rows, :],
+                                          _diag_decay(bc, rows), k[..., rows, :])
+        if i:
+            ref, early = bc[..., L * i - 1:L * i, :], slice(0, L * i)
+            kx = rnd(k[..., early, :] * torch.exp(ref - bc[..., early, :]))
+            A[..., rows, early] = (rnd(u[..., rows, :] * torch.exp(bc[..., rows, :] - ref))
+                                   @ kx.transpose(-1, -2))
+    return A
+
+
+def _intra_chunk(u, k, bc, da, rnd, two):
     """The intra-chunk terms of the chunked backward on (..., C, d) chunks:
     G (C, dk) = sum_{s<=t} dA[t,s] k_s e^{b_t - b_s}, H (C, dk) = sum_{t>=s}
     dA[t,s] u_t e^{b_t - b_s} and A (C, C) = sum_d u_t k_s e^{b_t - b_s}
-    (t >= s). Within a 16-row sub-chunk the terms are summed directly; a
-    pair of sub-chunks I > J splits the decay at a row between them, so that
-    both factors' exponents are <= 0 and the product runs in bf16 (``rnd``)
-    with f32 sums: G and A at the row before I, H at J's last row."""
+    (t >= s; :func:`_chunk_scores`). Within a 16-row sub-chunk the terms are
+    summed directly; a pair of sub-chunks I > J splits the decay at a row
+    between them, so that both factors' exponents are <= 0 and the product
+    runs on rounded operands with f32 sums: G at the row before I, H at J's
+    last row, dA rounded by ``rnd`` and the decayed k and u by ``two`` (the
+    kernels' two bf16 parts); A as :func:`_chunk_scores` with ``rnd``."""
     C, L = u.shape[-2], _SUB
     G, H = torch.zeros_like(k), torch.zeros_like(k)
-    A = torch.zeros(*u.shape[:-1], C, dtype=u.dtype, device=u.device)
-    tri = torch.ones(L, L, dtype=torch.bool, device=u.device).tril()[..., None]
     for i in range(C // L):
         rows = slice(L * i, L * (i + 1))
         b_i = bc[..., rows, :]
-        # exponent clamped to 0 above the diagonal, where the mask zeroes it
-        e = torch.exp((b_i[..., :, None, :] - b_i[..., None, :, :]).clamp(max=0)) * tri
+        e = _diag_decay(bc, rows)
         da_ii = da[..., rows, rows]
         G[..., rows, :] += torch.einsum("...ts,...tsd,...sd->...td", da_ii, e, k[..., rows, :])
         H[..., rows, :] += torch.einsum("...ts,...tsd,...td->...sd", da_ii, e, u[..., rows, :])
-        A[..., rows, rows] = torch.einsum("...td,...tsd,...sd->...ts", u[..., rows, :], e,
-                                          k[..., rows, :])
         if i:
             ref, early = bc[..., L * i - 1:L * i, :], slice(0, L * i)
             up = torch.exp(b_i - ref)
-            kx = rnd(k[..., early, :] * torch.exp(ref - bc[..., early, :]))
+            kx = two(k[..., early, :] * torch.exp(ref - bc[..., early, :]))
             G[..., rows, :] += up * (rnd(da[..., rows, early]) @ kx)
-            A[..., rows, early] = rnd(u[..., rows, :] * up) @ kx.transpose(-1, -2)
         if i < C // L - 1:
             ref, late = bc[..., L * i + L - 1:L * (i + 1), :], slice(L * (i + 1), C)
-            ux = rnd(u[..., late, :] * torch.exp(bc[..., late, :] - ref))
+            ux = two(u[..., late, :] * torch.exp(bc[..., late, :] - ref))
             H[..., rows, :] += torch.exp(ref - b_i) * (
                 rnd(da[..., late, rows]).transpose(-1, -2) @ ux)
-    return G, H, A
+    return G, H, _chunk_scores(u, k, bc, rnd)
 
 
 def gla_chunk_conv_bwd_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
@@ -427,19 +632,23 @@ def gla_chunk_conv_bwd_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_
     """The chunked route of :func:`gla_chunk_conv_bwd` written with tensors
     (same arguments and outputs, every gradient wanted), in f32; with
     ``operand_dtype`` every operand of a product is rounded to it first, as
-    the kernels round theirs to bf16. Chunks of 64 rows (a ragged last one
-    padded with zeros and zero gates), in-chunk gate sums bc and their total
-    btot:
+    the kernels round theirs to bf16, and those marked (2) enter as two
+    rounded parts, x_hi = rnd(x) and x_lo = rnd(x - x_hi), as the kernels
+    take them: the products that feed dq and dk, whose difference q dq - k
+    dk gives dg after a cancellation that bf16 operands would leave noisy.
+    Chunks of 64 rows (a ragged last one padded with zeros and zero gates),
+    in-chunk gate sums bc and their total btot:
 
-    1. chunk states: S <- e^{btot} S + (k e^{btot - bc})^T v from s0,
+    1. chunk states: S <- e^{btot} S + (k e^{btot - bc})^T (2) v from s0,
        keeping each chunk's start state;
-    2. chunk cotangents: dS <- e^{btot} dS + (u e^{bc})^T do in reverse from
-       dsf, keeping each chunk's end-state cotangent; ds0 is the last dS;
-    3. per chunk: dq = scale (e^{bc} (do S^T) + G), dk = e^{btot - bc} (v
-       dS^T) + H, dv = (k e^{btot - bc}) dS + A^T do with dA = do v^T and G,
-       H, A from :func:`_intra_chunk`; dsf . S_final summed over dv, as the
-       last chunk's e^{btot} S . dsf plus sum_t k_t e^{btot - bc_t} (v_t
-       dsf^T) from the values that enter dk;
+    2. chunk cotangents: dS <- e^{btot} dS + (u e^{bc})^T (2) do in reverse
+       from dsf, keeping each chunk's end-state cotangent; ds0 is the last
+       dS;
+    3. per chunk: dq = scale (e^{bc} (do S^T (2)) + G), dk = e^{btot - bc}
+       (v dS^T (2)) + H, dv = (k e^{btot - bc}) dS + A^T do with dA = do
+       v^T and G, H (factors (2)), A from :func:`_intra_chunk`; dsf .
+       S_final summed over dv, as the last chunk's e^{btot} S . dsf plus
+       sum_t k_t e^{btot - bc_t} (v_t dsf^T) from the values that enter dk;
 
     then the conv's finishing pass: dg_t = sum_{s>=t} (q_s dq_s - k_s dk_s)
     + dsf . S_final, silu', the transposed conv and the tap sums. Used by
@@ -450,6 +659,7 @@ def gla_chunk_conv_bwd_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_
     scale = dk ** -0.5 if scale is None else scale
     io = xq.dtype
     rnd = (lambda x: x) if operand_dtype is None else (lambda x: x.to(operand_dtype).float())
+    two = lambda x: rnd(x) + rnd(x - rnd(x))  # the kernels' two bf16 parts
     taps = [m.reshape(h, d, w) for m, d in ((conv_q_w, dk), (conv_k_w, dk), (conv_v_w, dv))]
     zq, zk, zv = (_conv_pre_rounded(x, tp) for x, tp in zip((xq, xk, xv), taps))
     q, k = zq * torch.sigmoid(zq), zk * torch.sigmoid(zk)
@@ -471,18 +681,18 @@ def gla_chunk_conv_bwd_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_
     for c in range(nc):
         states.append(s)
         s = (torch.exp(btot[:, :, c, 0, :, None]) * s
-             + rnd(ktil[:, :, c]).transpose(-1, -2) @ rnd(vc[:, :, c]))
+             + two(ktil[:, :, c]).transpose(-1, -2) @ rnd(vc[:, :, c]))
     ul = u * torch.exp(bc)
     ds, dstates = dsf.float(), [None] * nc
     for c in reversed(range(nc)):
         dstates[c] = ds
         ds = (torch.exp(btot[:, :, c, 0, :, None]) * ds
-              + rnd(ul[:, :, c]).transpose(-1, -2) @ rnd(dO[:, :, c]))
+              + two(ul[:, :, c]).transpose(-1, -2) @ rnd(dO[:, :, c]))
     s_in, ds_end = torch.stack(states, 2), torch.stack(dstates, 2)
     da = rnd(dO) @ rnd(vc).transpose(-1, -2)
-    G, H, A = _intra_chunk(u, kc, bc, da, rnd)
-    dq = scale * (torch.exp(bc) * (rnd(dO) @ rnd(s_in).transpose(-1, -2)) + G)
-    dk_inter = torch.exp(btot - bc) * (rnd(vc) @ rnd(ds_end).transpose(-1, -2))
+    G, H, A = _intra_chunk(u, kc, bc, da, rnd, two)
+    dq = scale * (torch.exp(bc) * (rnd(dO) @ two(s_in).transpose(-1, -2)) + G)
+    dk_inter = torch.exp(btot - bc) * (rnd(vc) @ two(ds_end).transpose(-1, -2))
     dk_ = dk_inter + H
     dsg = ((dsf.float() * torch.exp(btot[:, :, -1, 0, :, None]) * states[-1]).sum(-1)
            + (kc[:, :, -1] * dk_inter[:, :, -1]).sum(-2))
@@ -607,6 +817,20 @@ def gla_chunk_plain(q, k, v, gk, initial_state=None, scale=None,
     return o.to(q.dtype), sf.to(state_dtype)
 
 
+def gla_chunk_chunked_plain(q, k, v, gk, initial_state=None, scale=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked route of :func:`gla_chunk` written with tensors (same
+    arguments and outputs): :func:`_chunked_fwd_plain` on q, k, v as they
+    are, every product operand rounded to the IO dtype."""
+    io = q.dtype
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    state_dtype = torch.float32 if initial_state is None else initial_state.dtype
+    o, sf = _chunked_fwd_plain(q.float() * scale, k.float(), v.float(), gk.float(),
+                               None if initial_state is None else initial_state.float(),
+                               lambda x: x.to(io).float())
+    return o.to(io), sf.to(state_dtype)
+
+
 def gla_chunk(q, k, v, gk, initial_state=None, scale=None, chunk_size: int = 64
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked GLA prefill on post-conv q, k, v.
@@ -615,7 +839,8 @@ def gla_chunk(q, k, v, gk, initial_state=None, scale=None, chunk_size: int = 64
     dk) f32 log-gates; initial_state: (b, h, dk, dv) or None (zeros, f32).
     Returns o (b, h, t, dv) in the IO dtype and the final state in the
     initial state's dtype. ``chunk_size`` shapes the plain version only;
-    the kernel is recurrent and takes any t >= 1. Differentiable: when
+    the kernel takes any t >= 1. The route and the counts as
+    :func:`gla_chunk_conv`'s (``gla_chunk.routes``). Differentiable: when
     autograd records it runs through a ``torch.autograd.Function`` whose
     backward is :func:`gla_chunk_bwd`.
     """
@@ -648,26 +873,33 @@ def _check_chunk_args(name, q, k, v, gk, initial_state, *more):
     return b, h, t, dk, dv, io, st
 
 
-def _chunk_launch(q, k, v, gk, initial_state, scale):
-    """Check the arguments and launch the forward kernel (CUDA tensors)."""
+def _chunk_launch(q, k, v, gk, initial_state, scale, route=None):
+    """Check the arguments and launch the forward kernel (CUDA tensors) on
+    ``route`` (None: the plan's; the card's checks force either)."""
     name = "gla_chunk"
     b, h, t, dk, dv, io, st = _check_chunk_args(name, q, k, v, gk, initial_state)
+    route = _fwd_route(name, io, b, h, t, dv, route)
     o = torch.empty(b, h, t, dv, dtype=io, device=q.device)
     sf = torch.empty(b, h, dk, dv, dtype=st, device=q.device)
+    split = fwd_out_split(b, h, t, dv, sm_count(q.device)) if route == "chunked" else 1
+    buf, scratch = (_scratch(_chunked_fwd_sizes(b, h, t, dk, dv, split), q.device)
+                    if route == "chunked" else (None, [None] * 10))
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.gla_chunk_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(gk), _ptr(initial_state), _ptr(o),
-        _ptr(sf), b, h, t, dk, dv, float(scale), _DTYPE_CODE[io],
-        _DTYPE_CODE[st], ctypes.c_void_p(stream))
+        _ptr(sf), *scratch, b, h, t, dk, dv, float(scale), _DTYPE_CODE[io],
+        _DTYPE_CODE[st], _ROUTE_CODE[route], split, ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk.launches += 1
-    gla_chunk.shapes.add((b, h, t, dk, dv, io, None if initial_state is None else st,
-                          float(scale)))
+    gla_chunk.routes[route] += 1
+    gla_chunk.shapes[(b, h, t, dk, dv, io, None if initial_state is None else st,
+                      float(scale), route)] += 1
     return o, sf
 
 
-gla_chunk.launches, gla_chunk.shapes = 0, set()
+gla_chunk.launches, gla_chunk.shapes = 0, Counter()
+gla_chunk.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
 def gla_chunk_bwd(q, k, v, gk, initial_state, do, dsf, scale=None, need_ds0: bool = True):
@@ -710,12 +942,12 @@ def gla_chunk_bwd(q, k, v, gk, initial_state, do, dsf, scale=None, need_ds0: boo
         _DTYPE_CODE[st], ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk_bwd.launches += 1
-    gla_chunk_bwd.shapes.add((b, h, t, dk, dv, io, None if initial_state is None else st,
-                              float(scale), ds0 is not None))
+    gla_chunk_bwd.shapes[(b, h, t, dk, dv, io, None if initial_state is None else st,
+                          float(scale), ds0 is not None)] += 1
     return dq, dk_, dv_, dg, ds0
 
 
-gla_chunk_bwd.launches, gla_chunk_bwd.shapes = 0, set()
+gla_chunk_bwd.launches, gla_chunk_bwd.shapes = 0, Counter()
 
 
 class _GLAChunk(torch.autograd.Function):
@@ -775,11 +1007,11 @@ def gla_decode(q, k, v, gk, state, scale=None):
         float(scale), _DTYPE_CODE[io], _DTYPE_CODE[state.dtype], ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_decode.launches += 1
-    gla_decode.shapes.add((b, h, dk, dv, io, state.dtype))
+    gla_decode.shapes[(b, h, dk, dv, io, state.dtype)] += 1
     return o, state
 
 
-gla_decode.launches, gla_decode.shapes = 0, set()
+gla_decode.launches, gla_decode.shapes = 0, Counter()
 
 
 # -------------------------------------------------- lazy-window decode kernel

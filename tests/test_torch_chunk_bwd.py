@@ -133,3 +133,24 @@ def test_chunked_scratch_is_below_the_recurrent_parts():
     parts = 2 * (512 // 32) * 8 * 4 * 512 * 256 * 4
     assert parts == 536_870_912
     assert gla_cuda.chunked_bwd_scratch_bytes(8, 4, 512, 256, 512) < parts
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 320, 64, 128), (2, 2, 192, 64, 64)], ids=str)
+@pytest.mark.parametrize("seed", [0, 3])
+def test_two_part_operands_keep_the_gate_gradient(shape, seed):
+    """dg is sum_{s>=t} (q dq - k dk), a difference of near-equal terms. The
+    products that feed dq and dk take their operands in two bf16 parts, so
+    with bf16 operands the gate gradient summed over batch and time (what a
+    gate's bias sees) stays within 3e-3 of its max of the f32 decomposition;
+    with those operands rounded once it moved by 6e-3 to 4e-2 here."""
+    b, h, t, dk, dv = shape
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    bf = torch.bfloat16
+    args = [f(b, h, t, dk).to(bf), f(b, h, t, dk).to(bf), f(b, h, t, dv).to(bf),
+            torch.nn.functional.logsigmoid(f(b, h, t, dk)) / 16, (f(h * dk, 4) * 0.5).to(bf),
+            (f(h * dk, 4) * 0.5).to(bf), (f(h * dv, 4) * 0.5).to(bf), None, f(b, h, t, dv).to(bf),
+            torch.zeros(b, h, dk, dv)]
+    ref = gla_cuda.gla_chunk_conv_bwd_chunked_plain(*args)[3].sum((0, 2))
+    got = gla_cuda.gla_chunk_conv_bwd_chunked_plain(*args, operand_dtype=bf)[3].sum((0, 2))
+    assert float((got - ref).abs().max()) <= 3e-3 * float(ref.abs().max())

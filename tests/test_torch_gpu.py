@@ -112,6 +112,88 @@ def test_chunk_kernel_matches_plain(cuda, io, st, shape):
     assert _rel_err(o0, o0_p) <= tol and _rel_err(s0, s0_p) <= tol
 
 
+def _fwd_call(conv, x, st, route=None, scale=None):
+    """gla_chunk_conv (``conv``) or gla_chunk on ``x``, with its initial state
+    where ``st`` is a dtype and none where it is None; ``route`` None for the
+    public wrapper (the plan's route), "recurrent" or "chunked" for the
+    wrapper's launcher forced onto that body, "chunked plain" for the
+    chunked route's plain version and "plain" for the model's CPU path."""
+    s0 = x["s0"] if st is not None else None
+    args = [x["xq"], x["xk"], x["xv"], x["gk"]] + ([x["wq"], x["wk"], x["wv"]] if conv else [])
+    fn = gla_cuda.gla_chunk_conv if conv else gla_cuda.gla_chunk
+    if route == "plain":
+        fn = gla_cuda.gla_chunk_conv_plain if conv else gla_cuda.gla_chunk_plain
+    elif route == "chunked plain":
+        fn = gla_cuda.gla_chunk_conv_chunked_plain if conv else gla_cuda.gla_chunk_chunked_plain
+    elif route is not None:
+        launch = gla_cuda._chunk_conv_launch if conv else gla_cuda._chunk_launch
+        return launch(*args, s0, x["xq"].shape[-1] ** -0.5 if scale is None else scale, route)
+    return fn(*args, initial_state=s0, scale=scale)
+
+
+@pytest.mark.parametrize("conv", [True, False])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 37, 256, 512), (3, 2, 70, 64, 96), (1, 3, 5, 128, 32),
+                                   (1, 4, 128, 256, 512), (2, 3, 1, 256, 64),
+                                   (2, 4, 512, 256, 512), (2, 4, 130, 256, 512, "adversarial")],
+                         ids=str)
+def test_chunked_forward_matches_plain(cuda, conv, st, shape):
+    """The chunked route (bf16 IO) against its plain version (the same
+    decomposition with tensors) and against the model's plain path, at the
+    shapes the forward kernels are held at above, t512 and gates that would
+    overflow a whole-chunk factorisation: o within 1e-2 of max(1,
+    max|plain|), the final state within 1e-3 in f32 (the decayed key enters
+    the state update in two bf16 parts) and 1e-2 in bf16. Counted under its
+    route."""
+    b, h, t, dk, dv = shape[:5]
+    x = _inputs(cuda, b, h, t, dk, dv, torch.bfloat16, st or torch.float32, seed=t + 2)
+    if shape[5:] == ("adversarial",):
+        x = _adversarial_gates(x)
+    fn = gla_cuda.gla_chunk_conv if conv else gla_cuda.gla_chunk
+    routes = dict(fn.routes)
+    o, sf = _fwd_call(conv, x, st, route="chunked")
+    torch.cuda.synchronize()
+    routes["chunked"] += 1
+    assert fn.routes == routes
+    assert o.dtype == torch.bfloat16 and sf.dtype == (st or torch.float32)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(sf.float()).all())
+    tol_s = 1e-2 if st == torch.bfloat16 else 1e-3
+    for ref in ("chunked plain", "plain"):
+        o_p, sf_p = _fwd_call(conv, x, st, route=ref)
+        assert _rel_err(o, o_p) <= 1e-2, ref
+        assert _rel_err(sf, sf_p) <= tol_s, ref
+
+
+@pytest.mark.parametrize("conv", [True, False])
+@pytest.mark.parametrize("st", [torch.bfloat16, None])
+def test_chunked_forward_gives_equal_bits_on_a_second_call(cuda, conv, st):
+    """The chunked forward sums in a fixed order (no atomics): a second call
+    on the same inputs gives the same bits."""
+    x = _inputs(cuda, 2, 4, 130, 256, 512, torch.bfloat16, st or torch.float32, seed=8)
+    first = _fwd_call(conv, x, st, route="chunked")
+    second = _fwd_call(conv, x, st, route="chunked")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(first, second))
+
+
+@pytest.mark.parametrize("conv", [True, False])
+@pytest.mark.parametrize("io,t", [(torch.bfloat16, 151), (torch.bfloat16, 1),
+                                  (torch.float32, 151)])
+def test_forward_takes_the_planned_route(cuda, conv, io, t):
+    """Without a route the wrappers take gla_chunk_fwd_plan's, count it under
+    its name and note it with the shape; the chunked route refuses f32 IO."""
+    fn = gla_cuda.gla_chunk_conv if conv else gla_cuda.gla_chunk
+    x = _inputs(cuda, 1, 4, t, 256, 512, io, torch.float32)
+    gla_cuda.reset_launch_counts()
+    _fwd_call(conv, x, torch.float32)
+    route = gla_cuda.gla_chunk_fwd_plan(io, 1, 4, t, 512)
+    assert fn.routes == {"recurrent": 0, "chunked": 0, route: 1}
+    assert all(shape[-1] == route for shape in gla_cuda.launch_shapes()[fn.__name__])
+    if io == torch.float32:
+        with pytest.raises(ValueError):
+            _fwd_call(conv, x, torch.float32, route="chunked")
+
+
 def _lazy_inputs(dev, b, h, dk, dv, L, io, st, seed=0):
     """One token's inputs in the decode layout plus window buffers whose
     every slot holds garbage (a large positive cbuf would overflow an
@@ -386,7 +468,7 @@ def test_chunk_conv_backward_skips_what_needs_no_gradient(cuda):
     o, sf = gla_cuda.gla_chunk_conv(*args, initial_state=s0)
     (g,) = torch.autograd.grad((o ** 2).sum() + (sf ** 2).sum(), [s0])
     shapes = gla_cuda.launch_shapes()
-    assert shapes["gla_chunk_conv"] == {(2, 9, torch.float32)}
+    assert shapes["gla_chunk_conv"] == {(2, 9, torch.float32, "recurrent")}
     assert shapes["gla_chunk_conv_bwd"] == {(2, 9, torch.float32, True, False)}
     s0p = x["s0"].clone().requires_grad_(True)
     o, sf = gla_cuda.gla_chunk_conv_plain(*args, initial_state=s0p)
@@ -452,7 +534,8 @@ def test_chunk_backward_notes_shapes_and_skips_ds0(cuda):
     o, sf = gla_cuda.gla_chunk(x["xq"], x["xk"], v, x["gk"], initial_state=x["s0"])
     (g,) = torch.autograd.grad((o ** 2).sum() + (sf ** 2).sum(), [v])
     shapes = gla_cuda.launch_shapes()
-    assert shapes["gla_chunk"] == {(2, 2, 9, 64, 64, torch.float32, torch.float32, 0.125)}
+    assert shapes["gla_chunk"] == {(2, 2, 9, 64, 64, torch.float32, torch.float32, 0.125,
+                                    "recurrent")}
     assert shapes["gla_chunk_bwd"] == {(2, 2, 9, 64, 64, torch.float32, torch.float32, 0.125,
                                         False)}
     with torch.no_grad():
