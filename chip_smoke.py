@@ -92,9 +92,24 @@ Between phases 5 and 6, on the flagship of phase 4, quantized serving:
    the model) serves 4; every shape those runs gave int8_linear and
    fused_ffn_int8 is held against the plain version, or the phase fails.
 After phase 9, the GLA layers without per-projection convs:
-10. gla_chunk's backward and gla_decode against their plain versions;
-   simple-GLA, Mamba-2, the interleaved and the PP backbones at the
-   flagship's width through their paths; every shape launched held;
+10. gla_chunk's forward and backward and gla_decode against their plain
+   versions: the backward at b8 t 512, 317 and 128 with an f32, a bf16 and
+   no initial state for simple-GLA's heads (bf16 IO: autograd's launch on
+   the planned route, then both routes forced, the chunked one also
+   against its plain decomposition, gla_chunk_bwd_chunked_plain) and
+   Mamba-2's (f32 IO, the recurrent route), simple-GLA's also at the tuning
+   batch b2 and under adversarial gates; every leaf within a share of its
+   own max|plain|, finite and non-zero; a route sweep of the backward at
+   b1, b2 and b8 over t 16-512 (the chunked route, which the plan takes for
+   bf16 IO from 48 tokens, no more than SWEEP_MARGIN slower); times at b8
+   t512 on both routes beside the bound, the plain version and each
+   route's scratch, equal bits on a second call and a profile of three
+   calls by kernel; then simple-GLA, Mamba-2, the interleaved and the PP backbones at
+   the flagship's width through their paths, every bf16 gla_chunk_bwd
+   launch of simple-GLA's training and tuning on the chunked route, and
+   simple-GLA's bf16 parameter gradients with every backward chunked held
+   against every backward forced onto the recurrent body within
+   TOL_PARAM_GRAD; every shape launched held;
 then RWKV6:
 11. RWKV6 kernel phase: rwkv6_chunk, its hand-written backward and
    rwkv6_decode against their plain versions at h4 dk256 dv256 (bf16 IO,
@@ -140,14 +155,17 @@ then Mamba (v1):
 Each main-path run starts with the launch counts at 0 and reads them right
 after; every forward launch of a main path must have taken its planned
 route. After the GLA phases, every shape a main path launched the two
-forward kernels on is timed on the route it took and on the recurrent body,
-and launches x (time - bound) is summed over those launches; the summary
-ranks every kernel by it (the others at their row's shape). The line before the last is a JSON summary of the kernels; the last
+forward kernels and gla_chunk's backward on is timed on the route it took
+and on the recurrent body (where the backward's plan takes the chunked
+route, that route must be the faster), and launches x (time - bound) is
+summed over those launches; the summary ranks every kernel by it (the
+others at their row's shape). The line before the last is a JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -288,10 +306,11 @@ INTERLEAVED_LAYERS, SHORT_STEPS, SHORT_BATCH = (5, 11), 16, 2
 # gla_decode. GLA_LAUNCHED gathers what the driven paths launched them on
 # (ops/gla_cuda.py:launch_shapes), and the last phase holds the rest.
 CHUNK_HELD, CHUNK_BWD_HELD, DECODE_HELD = set(), set(), set()
-# launches of the two forward kernels on each shape (ops/gla_cuda.py:
-# launch_shape_counts keys), summed over the main-path runs that
-# expect_launches checks: the weights of fwd_gap_phase's sums
-FWD_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter()}
+# launches of the two forward kernels and of gla_chunk's backward on each
+# shape (ops/gla_cuda.py:launch_shape_counts keys), summed over the main-path
+# runs that expect_launches checks: the weights of gap_phase's sums
+GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
+                    "gla_chunk_bwd": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
 # blind pos_net, 4 heads of dk 256 and dv 256, bf16 IO, f32 w and u, f32
@@ -479,13 +498,14 @@ def ptxas_summary(log: str):
     # the Mamba kernels' bf16-IO instantiations
     mamba = (("mamba_scan_kernelI13__nv_bfloat16", "mamba_scan"),
              ("mamba_scan_bwd_kernelI13__nv_bfloat16", "mamba_scan_bwd"))
-    # the chunked route of gla_chunk_conv_bwd (bf16 IO; both state dtypes)
-    chunked = (("chunked11prep_kernelI13__nv_bfloat16E", "gla_chunk_conv_bwd chunked prep"),
-               ("chunked12state_kernelI13__nv_bfloat16E",
-                "gla_chunk_conv_bwd chunked states<bf16 state>"),
-               ("chunked12state_kernelIfE", "gla_chunk_conv_bwd chunked states<f32 state>"),
-               ("chunked10dqk_kernel", "gla_chunk_conv_bwd chunked dq/dk"),
-               ("chunked9dv_kernel", "gla_chunk_conv_bwd chunked dv"),
+    # the chunked route of the two GLA backwards (bf16 IO; both state dtypes)
+    chunked = (("chunked11prep_kernelI13__nv_bfloat16Lb1EE", "gla_chunk_conv_bwd chunked prep"),
+               ("chunked11prep_kernelI13__nv_bfloat16Lb0EE", "gla_chunk_bwd chunked prep"),
+               ("chunked12state_kernelI13__nv_bfloat16E", "backward chunked states<bf16 state>"),
+               ("chunked12state_kernelIfE", "backward chunked states<f32 state>"),
+               ("chunked10dqk_kernel", "backward chunked dq/dk"),
+               ("chunked9dv_kernelIfE", "gla_chunk_conv_bwd chunked dv"),
+               ("chunked9dv_kernelI13__nv_bfloat16E", "gla_chunk_bwd chunked dv"),
                # the chunked route of the two forwards (bf16 IO)
                ("chunked_fwd11prep_kernelILb1EE", "gla_chunk_conv chunked prep"),
                ("chunked_fwd11prep_kernelILb0EE", "gla_chunk chunked prep"),
@@ -1093,8 +1113,8 @@ def expect_launches(launches, **expected):
     from lina_speech_tpu_torch.ops import gla_cuda
 
     for name, counts in gla_cuda.launch_shape_counts().items():
-        if name in FWD_SHAPE_COUNTS:
-            FWD_SHAPE_COUNTS[name].update(counts)
+        if name in GAP_SHAPE_COUNTS:
+            GAP_SHAPE_COUNTS[name].update(counts)
 
 
 def add_launches(total, more):
@@ -2261,24 +2281,43 @@ def launched_shapes_phase(torch, gla_cuda):
 
 
 def expect_chunked_route(gla_cuda, bwd, launches):
-    """Every launch of the conv-fused backward since the last reset took the
-    chunked route (the flagship computes in bf16)."""
-    if bwd != "gla_chunk_conv_bwd":
-        return
-    routes = gla_cuda.gla_chunk_conv_bwd.routes
-    require(routes == {"recurrent": 0, "chunked": launches[bwd]},
-            f"gla_chunk_conv_bwd routes {routes}, launches {launches[bwd]}: a bf16 launch "
-            "did not take the chunked route")
+    """Every launch of the GLA backward ``bwd`` since the last reset took the
+    chunked route where its IO dtype is bf16 and was counted under the route
+    its plan gives: the conv-fused backward (the flagship computes in bf16)
+    all chunked; gla_chunk_bwd chunked for bf16 IO (simple-GLA), recurrent
+    for f32 IO (Mamba-2)."""
+    import torch
+
+    if bwd == "gla_chunk_conv_bwd":
+        routes = gla_cuda.gla_chunk_conv_bwd.routes
+        require(routes == {"recurrent": 0, "chunked": launches[bwd]},
+                f"gla_chunk_conv_bwd routes {routes}, launches {launches[bwd]}: a bf16 launch "
+                "did not take the chunked route")
+    elif bwd == "gla_chunk_bwd":
+        want = dict.fromkeys(gla_cuda.gla_chunk_bwd.routes, 0)
+        for shape, n in gla_cuda.launch_shape_counts()[bwd].items():
+            (b, h, t), dv, io = shape[:3], shape[4], shape[5]
+            route = gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)
+            require(route == "chunked" or io != torch.bfloat16,
+                    f"gla_chunk_bwd: the plan sends the bf16 launch on {shape} to the {route} "
+                    "route")
+            want[route] += n
+        require(gla_cuda.gla_chunk_bwd.routes == want and sum(want.values()) == launches[bwd],
+                f"gla_chunk_bwd routes {gla_cuda.gla_chunk_bwd.routes}, planned {want}, "
+                f"launches {launches[bwd]}")
+        print(f"  gla_chunk_bwd routes as planned: {want}")
 
 
 # device time of a profiled train step by the kernels of the GLA layers: the
 # forward's chunked kernels live in gla::chunked_fwd, the backward's in
 # gla::chunked (whose name is not a prefix of the other's)
-TRAIN_GROUPS = (("gla_chunk_conv_bwd, chunked kernels", ("gla::chunked::",)),
-                ("gla_chunk_conv_bwd, finishing pass",
-                 ("bwd_finish_kernel", "bwd_dg_carry_kernel", "bwd_taps_kernel")),
-                ("gla_chunk_conv forward, chunked kernels", ("gla::chunked_fwd::",)),
-                ("gla_chunk_conv forward, recurrent body", ("gla_chunk_kernel",)))
+TRAIN_GROUPS = (("GLA backward, chunked kernels", ("gla::chunked::",)),
+                ("GLA backward, recurrent sweeps", ("bwd_dq_kernel", "bwd_dkv_kernel")),
+                ("GLA backward, finishing pass",
+                 ("bwd_finish_kernel", "bwd_finish_qk_kernel", "bwd_dg_carry_kernel",
+                  "bwd_taps_kernel")),
+                ("GLA forward, chunked kernels", ("gla::chunked_fwd::",)),
+                ("GLA forward, recurrent body", ("gla_chunk_kernel",)))
 
 
 def zero_gradient_mask(torch, name, grad):
@@ -2529,23 +2568,61 @@ def chunk_grads(torch, fn, x, do, dsf, scale, need_ds0):
     return o.detach(), sf.detach(), dict(zip(names, grads))
 
 
-def hold_chunk(torch, gla_cuda, shape, need_ds0=None):
+BWD_OUTS = ("q", "k", "v", "gk", "s0")  # the leaves of gla_chunk_bwd's five outputs
+
+
+def bwd_on_route(gla_cuda, x, do, dsf, scale, need_ds0, route):
+    """gla_chunk_bwd on ``x`` (qkv_inputs) through the wrapper's launcher,
+    forced onto ``route`` (the public wrapper takes the plan's); returns
+    {leaf: gradient} of the leaves that came back."""
+    out = gla_cuda._chunk_bwd_launch(x["q"], x["k"], x["v"], x["gk"], x["s0"], do, dsf, scale,
+                                     need_ds0, route)
+    return {n: g for n, g in zip(BWD_OUTS, out) if g is not None}
+
+
+def hold_bwd_routes(torch, gla_cuda, name, x, do, dsf, scale, need_ds0, ref, tol, planned,
+                    got):
+    """gla_chunk_bwd with bf16 IO on the route other than ``planned`` (whose
+    gradients ``got`` autograd's launch gave) against ``ref``, the gradients
+    of autograd through the plain version, each leaf within ``tol`` of its
+    own max|plain|, finite and non-zero; then the chunked route's against
+    gla_chunk_bwd_chunked_plain, the same decomposition with tensors and the
+    kernels' bf16 rounding points, within TOL_BF16."""
+    other = "recurrent" if planned == "chunked" else "chunked"
+    forced = bwd_on_route(gla_cuda, x, do, dsf, scale, need_ds0, other)
+    torch.cuda.synchronize()
+    check_grads(f"{name}, backward forced onto the {other} route", forced, ref, tol)
+    chunked = got if planned == "chunked" else forced
+    plain = gla_cuda.gla_chunk_bwd_chunked_plain(
+        x["q"], x["k"], x["v"], x["gk"], x["s0"], do, dsf, scale, operand_dtype=torch.bfloat16)
+    plain = {n: g for n, g in zip(BWD_OUTS, plain) if n in chunked}
+    check_grads(f"{name}, chunked route vs its plain decomposition", chunked, plain, TOL_BF16)
+
+
+def hold_chunk(torch, gla_cuda, shape, need_ds0=None, adversarial=False):
     """gla_chunk at ``shape`` = (b, h, t, dk, dv, IO dtype, initial-state
     dtype or None, scale) against its plain version: with ``need_ds0`` None
     the inference forward (o, final state); otherwise as training calls it
-    (autograd recording: the forward kernel and the hand-written backward)
-    against autograd through the plain version, o, the final state and
-    every gradient leaf each within a share of its own max|plain|. Then the
-    forward on each route its IO dtype has (hold_fwd_routes). Returns
-    (inputs, do, dsf, gradients, worst gradient share)."""
+    (autograd recording: the forward kernel and the hand-written backward
+    on its planned route) against autograd through the plain version, o,
+    the final state and every gradient leaf each within a share of its own
+    max|plain|, and with bf16 IO the backward on both routes
+    (hold_bwd_routes). Then the forward on each route its IO dtype has
+    (hold_fwd_routes). ``adversarial`` swaps in gates that would overflow a
+    factorisation of the decay across a whole chunk (the shape is then not
+    noted as held). Returns (inputs, do, dsf, gradients, worst gradient
+    share)."""
     b, h, t, dk, dv, io, st, scale = shape
     x = qkv_inputs(torch, b, h, t, dk, dv, io, st, seed=400 + t + h)
+    if adversarial:
+        x["gk"] = adversarial_gates(torch, x["gk"])
     state = "none" if st is None else str(st).split(".")[-1]
     name = (f"gla_chunk b{b} {head_name(h, dk, dv)} t{t} IO {str(io).split('.')[-1]} "
-            f"initial state {state} scale {scale:g}")
+            f"initial state {state} scale {scale:g}{', adversarial gates' if adversarial else ''}")
     tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
     tol_s = TOL_BF16 if torch.bfloat16 in (io, st) else TOL_F32
     before = gla_cuda.launch_counts()
+    routes = dict(gla_cuda.gla_chunk_bwd.routes)
     if need_ds0 is None:
         with torch.no_grad():
             o_k, s_k = gla_cuda.gla_chunk(x["q"], x["k"], x["v"], x["gk"], x["s0"], scale=scale)
@@ -2560,78 +2637,196 @@ def hold_chunk(torch, gla_cuda, shape, need_ds0=None):
         o_p, s_p, ref = chunk_grads(torch, gla_cuda.gla_chunk_plain, x, do, dsf, scale,
                                     need_ds0)
         name += "" if need_ds0 or st is None else ", no ds0"
+        routes[gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)] += 1
     after = gla_cuda.launch_counts()
     torch.cuda.synchronize()
     require(after["gla_chunk"] == before["gla_chunk"] + 1
             and after["gla_chunk_bwd"] == before["gla_chunk_bwd"] + (need_ds0 is not None),
             f"{name}: not launched through the kernels")
+    require(gla_cuda.gla_chunk_bwd.routes == routes,
+            f"{name}: the backward did not take its planned route: {gla_cuda.gla_chunk_bwd.routes}")
     print(f"{name}, forward:")
     require(o_k.dtype == io and s_k.dtype == (st or torch.float32), "gla_chunk output dtypes")
     check("o", max_err(o_k, o_p), bound(o_p, tol))
     check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
-    routes = hold_fwd_routes(torch, gla_cuda, False, fwd_args(x, False), x["s0"], scale,
-                             (o_p, s_p), tol, tol_s)
-    CHUNK_HELD.update((*shape, route) for route in routes)
+    fwd_routes = hold_fwd_routes(torch, gla_cuda, False, fwd_args(x, False), x["s0"], scale,
+                                 (o_p, s_p), tol, tol_s)
+    if not adversarial:
+        CHUNK_HELD.update((*shape, route) for route in fwd_routes)
     if need_ds0 is not None:
-        worst = check_grads(f"{name}, backward", got, ref,
-                            TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32)
-        CHUNK_BWD_HELD.add((*shape, need_ds0 and st is not None))
+        tol_g = TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32
+        planned = gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)
+        worst = check_grads(f"{name}, backward ({planned} route)", got, ref, tol_g)
+        if io == torch.bfloat16:
+            hold_bwd_routes(torch, gla_cuda, name, x, do, dsf, scale, need_ds0, ref, tol_g,
+                            planned, got)
+        if not adversarial:
+            CHUNK_BWD_HELD.add((*shape, need_ds0 and st is not None))
         result = (x, do, dsf, got, worst)
     return result
+
+
+# lengths at which gla_chunk_bwd's two routes are timed against each other,
+# to check the plan (ops/gla_cuda.py:gla_chunk_bwd_plan)
+BWD_SWEEP_T = (16, 32, 48, 64, 128, 256, 512)
+TUNE_BATCH = 2  # initial-state tuning's batch (tuning_phase)
+
+
+def bwd_work(x, do, dsf, got):
+    """(bytes, operations) of one gla_chunk_bwd call: its inputs and
+    outputs, and the recurrence's backward operations."""
+    b, h, t, dk = x["q"].shape
+    return (nbytes(x["q"], x["k"], x["v"], x["gk"], x["s0"], do, dsf, *got.values()),
+            plain_qkv_flops(b, h, t, dk, x["v"].shape[-1], backward=True))
+
+
+def time_bwd_routes(torch, gla_cuda, x, do, dsf, scale, label, margin=0.0, iters=5,
+                    need_ds0=True):
+    """Device ms of gla_chunk_bwd on each route its IO dtype has, on the same
+    inputs, in turns (recurrent, chunked, chunked, recurrent); where
+    gla_chunk_bwd_plan takes the chunked route it must be faster than the
+    recurrent body, or no more than ``margin`` slower (the route sweep).
+    Returns {route: mean ms}."""
+    b, h, t = x["q"].shape[:3]
+    io, dv = x["q"].dtype, x["v"].shape[-1]
+    routes = ("recurrent", "chunked") if io == torch.bfloat16 else ("recurrent",)
+    times = {r: [] for r in routes}
+    for route in (*routes, *reversed(routes)):
+        times[route].append(device_ms(
+            lambda: bwd_on_route(gla_cuda, x, do, dsf, scale, need_ds0, route), iters))
+    ms = {route: sum(v) / len(v) for route, v in times.items()}
+    planned = gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)
+    print(f"  gla_chunk_bwd {label} routes, device ms: "
+          + ", ".join(f"{r} {times[r]}" for r in routes) + f"; the plan takes {planned}")
+    if planned == "chunked":
+        limit = ms["recurrent"] * (1 + margin)
+        require(ms["chunked"] < limit,
+                f"gla_chunk_bwd {label}: the plan takes the chunked route, but it is slower than "
+                f"{limit} ms: {ms}")
+    return ms
+
+
+def bwd_inputs(torch, b, h, t, dk, dv, io, st, seed):
+    """qkv_inputs with do and dsf: (inputs, do, dsf)."""
+    x = qkv_inputs(torch, b, h, t, dk, dv, io, st, seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    do = torch.randn(b, h, t, dv, generator=g, device=DEVICE).to(io)
+    dsf = torch.randn(b, h, dk, dv, generator=g, device=DEVICE).to(st or torch.float32)
+    return x, do, dsf
+
+
+def bwd_route_sweep(torch, gla_cuda):
+    """gla_chunk_bwd's two routes at b1, b2 and b8 over BWD_SWEEP_T
+    (simple-GLA's heads, bf16 IO, no initial state, as its training runs):
+    device ms of each; where the plan takes the chunked route it may be no
+    more than SWEEP_MARGIN slower."""
+    h, dk, dv = SIMPLE_HEAD
+    print("backward route sweep (device ms, recurrent vs chunked):")
+    for b in (1, TUNE_BATCH, TRAIN_BATCH):
+        for t in BWD_SWEEP_T:
+            x, do, dsf = bwd_inputs(torch, b, h, t, dk, dv, torch.bfloat16, None, seed=800 + t)
+            time_bwd_routes(torch, gla_cuda, x, do, dsf, dk ** -0.5,
+                            f"sweep b{b} {head_name(h, dk, dv)} t{t}", margin=SWEEP_MARGIN)
+
+
+def time_chunk_bwd(torch, gla_cuda, summary, shape, x, do, dsf, got, worst):
+    """Times of gla_chunk's forward and backward at ``shape`` (no initial
+    state, what training runs): the backward on each route its IO dtype has
+    beside its bound and the plain version's eager time, its scratch on
+    each route, equal bits on a second call and a profile of three calls
+    by kernel. simple-GLA's bf16 shape is the summary's row."""
+    b, h, t, dk, dv, io, _, scale = shape
+    bf = torch.bfloat16
+    head = head_name(h, dk, dv)
+    args = (x["q"], x["k"], x["v"], x["gk"])
+    with torch.no_grad():
+        fwd_ms, fwd_plain_ms = timed_pair(
+            f"gla_chunk forward {head} t{t}", lambda: gla_cuda.gla_chunk(*args, scale=scale),
+            lambda: gla_cuda.gla_chunk_plain(*args, scale=scale), 5)
+        o_k, s_k = gla_cuda.gla_chunk(*args, scale=scale)
+    fwd_work = (nbytes(*args, o_k, s_k), plain_qkv_flops(b, h, t, dk, dv))
+    note_shape("gla_chunk", f"training forward b{b} {head} t{t}", fwd_ms, fwd_plain_ms, *fwd_work,
+               io)
+    if io == bf:
+        time_fwd_routes(torch, gla_cuda, False, args, None, scale,
+                        f"training forward b{b} {head} t{t}", fwd_work, iters=5)
+    routes = ("recurrent", "chunked") if io == bf else ("recurrent",)
+    plain_both = lambda: chunk_grads(torch, gla_cuda.gla_chunk_plain, x, do, dsf, scale, True)
+    ms, plain = {r: [] for r in routes}, []
+    for which in ("plain", *routes, *reversed(routes), "plain"):
+        if which == "plain":  # autograd's backward is not captured in a graph: eager
+            plain.append(eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms)
+        else:
+            ms[which].append(device_ms(
+                lambda: bwd_on_route(gla_cuda, x, do, dsf, scale, True, which), 5))
+    print(f"  gla_chunk_bwd {head} device ms: "
+          + ", ".join(f"{r} {ms[r]}" for r in routes)
+          + f"; plain backward (eager forward and backward on the host's clock, less the plain "
+          f"forward) {plain}")
+    mean = lambda xs: sum(xs) / len(xs)
+    planned = gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)
+    work = (*bwd_work(x, do, dsf, got), io)
+    label = f"b{b} {head} t{t} IO {dtype_name(io)} scale {scale:g}"
+    if io == bf:
+        require(mean(ms["chunked"]) < mean(ms["recurrent"]),
+                f"gla_chunk_bwd {label}: the chunked route is not faster: {ms}")
+        record(summary, "gla_chunk_bwd", worst, mean(ms[planned]), mean(plain), *work)
+        note_shape("gla_chunk_bwd", f"{label}, recurrent route", mean(ms["recurrent"]),
+                   None, *work)
+        print(f"  gla_chunk_bwd {label}: chunked route {mean(ms['chunked']) * 1e3:.1f} us a "
+              f"call, recurrent body {mean(ms['recurrent']) * 1e3:.1f} us")
+    else:
+        note_shape("gla_chunk_bwd", label, mean(ms[planned]), mean(plain), *work)
+    for route in routes:
+        scratch = gla_cuda.chunk_bwd_scratch_bytes(b, h, t, dk, dv, route)
+        print(f"  scratch of one {route} backward call: {scratch} bytes ({scratch / 1e6:.1f} MB)")
+    bwd = lambda: bwd_on_route(gla_cuda, x, do, dsf, scale, True, planned)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    first = bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base - nbytes(*first.values())
+    second = bwd()
+    torch.cuda.synchronize()
+    require(first.keys() == second.keys()
+            and all(torch.equal(first[n], second[n]) for n in first),
+            f"gla_chunk_bwd {label}: other bits on a second call")
+    print(f"  gla_chunk_bwd {label}, {planned} route: equal bits on a second call; allocator "
+          f"peak beside the outputs {peak / 1e6:.1f} MB")
+    profiled(torch, lambda: [bwd() for _ in range(3)], f"3 calls of gla_chunk_bwd {label}",
+             top=8)
 
 
 def chunk_bwd_kernel_phase(torch, gla_cuda, summary):
     """gla_chunk's forward and hand-written backward against the plain
     version and autograd through it at the training shapes: b8, t 512, 317
     and 128, with an f32, a bf16 and no initial state; simple-GLA's heads
-    (bf16 IO) and Mamba-2's (f32 IO, scale 1.0). Times at t512 without an
-    initial state (what training runs); the summary takes simple-GLA's."""
+    (bf16 IO: the backward on both routes, and the chunked one against its
+    plain decomposition) and Mamba-2's (f32 IO, scale 1.0); simple-GLA's
+    also at the tuning batch (b2) and under adversarial gates. Then the
+    backward's route sweep, and times at t512 without an initial state
+    (what training runs); the summary takes simple-GLA's."""
     bf, f32 = torch.bfloat16, torch.float32
-    for (h, dk, dv), io, scale in ((SIMPLE_HEAD, bf, SIMPLE_HEAD[1] ** -0.5),
-                                   (MAMBA_HEAD, f32, 1.0)):
+    simple = (*SIMPLE_HEAD, bf, SIMPLE_HEAD[1] ** -0.5)
+    mamba = (*MAMBA_HEAD, f32, 1.0)
+    timed = []
+    for h, dk, dv, io, scale in (simple, mamba):
         for st in (f32, bf, None):
             for t in TRAIN_T:
                 shape = (TRAIN_BATCH, h, t, dk, dv, io, st, scale)
-                x, do, dsf, got, worst = hold_chunk(torch, gla_cuda, shape, need_ds0=True)
-                if st is not None or t != TRAIN_T[0]:
-                    continue
-                args = (x["q"], x["k"], x["v"], x["gk"])
-                with torch.no_grad():
-                    fwd_ms, fwd_plain_ms = timed_pair(
-                        f"gla_chunk forward {head_name(h, dk, dv)} t{t}",
-                        lambda: gla_cuda.gla_chunk(*args, scale=scale),
-                        lambda: gla_cuda.gla_chunk_plain(*args, scale=scale), 5)
-                    o_k, s_k = gla_cuda.gla_chunk(*args, scale=scale)
-                note_shape("gla_chunk", f"training forward b{TRAIN_BATCH} {head_name(h, dk, dv)} "
-                           f"t{t}", fwd_ms, fwd_plain_ms, nbytes(*args, o_k, s_k),
-                           plain_qkv_flops(TRAIN_BATCH, h, t, dk, dv), io)
-                if io == bf:
-                    time_fwd_routes(torch, gla_cuda, False, args, None, scale,
-                                    f"training forward b{TRAIN_BATCH} {head_name(h, dk, dv)} t{t}",
-                                    (nbytes(*args, o_k, s_k),
-                                     plain_qkv_flops(TRAIN_BATCH, h, t, dk, dv)), iters=5)
-                bwd = lambda: gla_cuda.gla_chunk_bwd(*args, None, do, dsf, scale)
-                plain_both = lambda: chunk_grads(torch, gla_cuda.gla_chunk_plain, x, do, dsf,
-                                                 scale, True)
-                ms, plain = [], []
-                for which in ("plain", "kernel", "kernel", "plain"):
-                    if which == "kernel":
-                        ms.append(device_ms(bwd, 5))
-                    else:  # autograd's backward is not captured in a graph: eager
-                        plain.append(eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms)
-                print(f"  gla_chunk_bwd {head_name(h, dk, dv)} device ms: kernel {ms}; plain "
-                      f"backward (eager forward and backward on the host's clock, less the "
-                      f"plain forward) {plain}")
-                mean = lambda xs: sum(xs) / len(xs)
-                work = (nbytes(*args, do, dsf, *got.values()),
-                        plain_qkv_flops(TRAIN_BATCH, h, t, dk, dv, backward=True), io)
-                if h == SIMPLE_HEAD[0]:
-                    record(summary, "gla_chunk_bwd", worst, mean(ms), mean(plain), *work)
-                else:
-                    note_shape("gla_chunk_bwd", f"b{TRAIN_BATCH} {head_name(h, dk, dv)} t{t} "
-                               "IO float32 scale 1", mean(ms), mean(plain), *work)
-                scratch = 2 * (dv // 32) * TRAIN_BATCH * h * t * dk * 4
-                print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of dq/dk parts")
+                result = hold_chunk(torch, gla_cuda, shape, need_ds0=True)
+                if st is None and t == TRAIN_T[0]:
+                    timed.append((shape, result))
+    h, dk, dv, io, scale = simple
+    for st in (f32, bf, None):
+        hold_chunk(torch, gla_cuda, (TUNE_BATCH, h, TRAIN_T[0], dk, dv, io, st, scale),
+                   need_ds0=True)
+    hold_chunk(torch, gla_cuda, (TRAIN_BATCH, h, TRAIN_T[0], dk, dv, io, None, scale),
+               need_ds0=True, adversarial=True)
+    bwd_route_sweep(torch, gla_cuda)
+    for shape, result in timed:
+        time_chunk_bwd(torch, gla_cuda, summary, shape, *result)
     reset_counts()  # the kernel phases' launches are no path's
 
 
@@ -2847,6 +3042,68 @@ def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, chunk="gla
     return launches
 
 
+@contextlib.contextmanager
+def forced_bwd_route(gla_cuda, route):
+    """Within the block every gla_chunk_bwd launch, the public wrapper's
+    under autograd included, takes ``route``: gla_cuda.gla_chunk_bwd_plan,
+    which the wrapper's launcher asks, answers it."""
+    plan = gla_cuda.gla_chunk_bwd_plan
+    gla_cuda.gla_chunk_bwd_plan = lambda *shape: route
+    try:
+        yield
+    finally:
+        gla_cuda.gla_chunk_bwd_plan = plan
+
+
+def bwd_route_grad_check(torch, gla_cuda, cfg):
+    """simple-GLA's parameter gradients in bf16 compute on a batch of 2,
+    with every gla_chunk_bwd launch on its planned route (chunked) against
+    every one forced onto the recurrent body: the forwards launch the same
+    kernels on both sides, so the loss is the same bits and the gradients
+    part by the backward's routes alone; each leaf within TOL_PARAM_GRAD of
+    its own max|recurrent|, the leaves zero in exact arithmetic left out
+    (zero_gradient_mask). The model is built afresh from seed 0, as the
+    training phase's f32 check copy is: after the five train steps four
+    leaves of the pos_net carry gradients of 1e-8 to 1e-6, which two
+    f32-accurate backwards (the recurrent kernel and autograd through the
+    plain version) already put 34-42% apart in bf16 compute
+    (scripts/torch_bwd_grad_floor.py; PERF.md §6). Returns the
+    launches of the planned run."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+
+    model = build_model(cfg, device=DEVICE, seed=0)
+    model.eval()
+    small = batch_to_device(next(synthetic_tts_batches(
+        batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
+        max_audio_len=MAX_AUDIO, seed=1)), DEVICE)
+    reset_counts()
+    loss_c, grads_c = model_grads(torch, model, small)
+    launches = read_counts()
+    expect_launches(launches, gla_chunk=N_GLA_LAYERS, gla_chunk_bwd=N_GLA_LAYERS)
+    expect_chunked_route(gla_cuda, "gla_chunk_bwd", launches)
+    require(gla_cuda.gla_chunk_bwd.routes["chunked"] == N_GLA_LAYERS,
+            f"bf16 backward routes {gla_cuda.gla_chunk_bwd.routes}")
+    reset_counts()
+    with forced_bwd_route(gla_cuda, "recurrent"):
+        loss_r, grads_r = model_grads(torch, model, small)
+    require(gla_cuda.gla_chunk_bwd.routes == {"recurrent": N_GLA_LAYERS, "chunked": 0},
+            f"forced backward routes {gla_cuda.gla_chunk_bwd.routes}")
+    reset_counts()
+    torch.cuda.synchronize()
+    print(f"{cfg.backbone.kind} ({model.dtype} compute, seed 0) parameter gradients, batch of 2 "
+          f"(t {small['y_mask'].shape[1]}): every backward on the chunked route vs every one on "
+          f"the recurrent body; loss {loss_c!r} vs {loss_r!r}")
+    require(loss_c == loss_r, "the forwards of the two runs differ")
+    check_grads("parameter gradients, chunked backward vs recurrent backward", grads_c, grads_r,
+                TOL_PARAM_GRAD, worst=6, named=("gk_proj",),
+                skip=lambda leaf: zero_gradient_mask(torch, leaf, grads_r[leaf]))
+    del model, grads_c, grads_r
+    torch.cuda.empty_cache()
+    return launches
+
+
 def simple_gla_phase(torch, np, gla_cuda, card_line):
     """Simple-GLA without convs at the flagship's width (lina_gla_169m with
     kind="simple_gla", use_short_conv=False: 4 heads, dk 256, dv 256, random
@@ -2869,6 +3126,7 @@ def simple_gla_phase(torch, np, gla_cuda, card_line):
         torch, np, gla_cuda, card_line, cfg, "gla_chunk", "gla_chunk_bwd",
         VARIANT_TRAIN_STEPS["simple_gla"])
     add_launches(total, train)
+    add_launches(total, bwd_route_grad_check(torch, gla_cuda, cfg))
     add_launches(total, tuning_phase(torch, np, gla_cuda, model, cfg, card_line, "gla_chunk",
                                      "gla_chunk_bwd", check_model))
     del model, check_model
@@ -2985,16 +3243,18 @@ def launched_gla_shapes_phase(torch, gla_cuda):
             and GLA_LAUNCHED["gla_decode"] <= DECODE_HELD, "launched but not held")
 
 
-def fwd_gap_phase(torch, gla_cuda, card_line):
-    """launches x (time - bound) of the two forward kernels over the main
-    paths: every shape a main path launched them on, weighted by its launch
-    count (FWD_SHAPE_COUNTS), timed on the route it took and on the
-    recurrent body, beside the shape's bound. Prints each shape and the
-    sums; returns {kernel: sum in ms on the routes taken}."""
+def gap_phase(torch, gla_cuda, card_line):
+    """launches x (time - bound) of the two forward kernels and of
+    gla_chunk's backward over the main paths: every shape a main path
+    launched them on, weighted by its launch count (GAP_SHAPE_COUNTS),
+    timed on the route it took and on the recurrent body, beside the
+    shape's bound; where the backward's plan takes the chunked route it
+    must be the faster. Prints each shape and the sums; returns {kernel: sum
+    in ms on the routes taken}."""
     bf = torch.bfloat16
     sums = {}
-    for name, counts in FWD_SHAPE_COUNTS.items():
-        conv = name == "gla_chunk_conv"
+    for name, counts in GAP_SHAPE_COUNTS.items():
+        conv, bwd = name == "gla_chunk_conv", name == "gla_chunk_bwd"
         fn = fwd_fns(gla_cuda, conv)[0]
         total = {"taken": 0.0, "recurrent": 0.0}
         print(f"{name}: launches x (time - bound) over {sum(counts.values())} main-path launches "
@@ -3005,16 +3265,27 @@ def fwd_gap_phase(torch, gla_cuda, card_line):
                 (b, t, st, route), h, dk, dv, io, scale = shape, H, DK, DV, bf, None
                 x = kernel_inputs(torch, b, t, st, seed=700 + t)
                 flops = scan_flops(b, t, True)
+            elif bwd:
+                b, h, t, dk, dv, io, st, scale, need_ds0 = shape
+                route = gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)
+                x, do, dsf = bwd_inputs(torch, b, h, t, dk, dv, io, st, seed=700 + t)
             else:
                 b, h, t, dk, dv, io, st, scale, route = shape
                 x = qkv_inputs(torch, b, h, t, dk, dv, io, st, seed=700 + t)
                 flops = plain_qkv_flops(b, h, t, dk, dv)
-            args = fwd_args(x, conv)
-            with torch.no_grad():
-                o, sf = fn(*args, initial_state=x["s0"], scale=scale)
-                bound_ms = roofline(nbytes(*args, x["s0"], o, sf), flops, io)[0]
-                ms = {r: device_ms(lambda: fwd_on_route(gla_cuda, conv, args, x["s0"], scale, r),
-                                   5) for r in sorted({route, "recurrent"})}
+            if bwd:
+                got = bwd_on_route(gla_cuda, x, do, dsf, scale, need_ds0, route)
+                bound_ms = roofline(*bwd_work(x, do, dsf, got), io)[0]
+                ms = time_bwd_routes(torch, gla_cuda, x, do, dsf, scale,
+                                     f"b{b} {head_name(h, dk, dv)} t{t}", need_ds0=need_ds0)
+            else:
+                args = fwd_args(x, conv)
+                with torch.no_grad():
+                    o, sf = fn(*args, initial_state=x["s0"], scale=scale)
+                    bound_ms = roofline(nbytes(*args, x["s0"], o, sf), flops, io)[0]
+                    ms = {r: device_ms(
+                        lambda: fwd_on_route(gla_cuda, conv, args, x["s0"], scale, r), 5)
+                        for r in sorted({route, "recurrent"})}
             total["taken"] += n * (ms[route] - bound_ms)
             total["recurrent"] += n * (ms["recurrent"] - bound_ms)
             print(f"  {shape}: {n} launches; {route} {ms[route] * 1e3:.2f}, recurrent "
@@ -3646,7 +3917,7 @@ def main():
     add_launches(launches, mamba2_phase(torch, np, gla_cuda, card_line))
     add_launches(launches, interleaved_and_pp_phase(torch, np, gla_cuda, card_line))
     launched_gla_shapes_phase(torch, gla_cuda)
-    gaps = fwd_gap_phase(torch, gla_cuda, card_line)
+    gaps = gap_phase(torch, gla_cuda, card_line)
     rwkv6_kernel_phase(torch, rwkv6_cuda, summary)
     add_launches(launches, rwkv6_phase(torch, np, gla_cuda, card_line))
     launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
@@ -3659,12 +3930,12 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
-    # launches x (time - bound): the two forwards over every launched shape,
-    # the other kernels at their row's shape
+    # launches x (time - bound): the two forwards and gla_chunk's backward
+    # over every launched shape, the other kernels at their row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
-    print("launches x (time - bound), ms, largest first (the two forwards over every launched "
-          "shape, the others at their row's shape):")
+    print("launches x (time - bound), ms, largest first (the two forwards and gla_chunk_bwd "
+          "over every launched shape, the others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")

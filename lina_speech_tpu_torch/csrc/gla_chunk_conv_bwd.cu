@@ -191,7 +191,7 @@ int launch_bwd(const void* xq, const void* xk, const void* xv, const void* gk, c
     using chunked::bf16;
     float* const* sf = reinterpret_cast<float* const*>(chunked);  // the f32 scratch
     bf16* const* sb = reinterpret_cast<bf16* const*>(chunked);    // the bf16 scratch
-    err = chunked::launch_chunked<ST>(
+    err = chunked::launch_chunked<ST, true>(
         xq_, xk_, xv_, static_cast<const float*>(gk), wq_, wk_, wv_,
         static_cast<const ST*>(s0), static_cast<const bf16*>(dout),
         static_cast<const ST*>(dsf), static_cast<ST*>(ds0), dqp_, dkp_, dsgp_, dvf_, sf[0],

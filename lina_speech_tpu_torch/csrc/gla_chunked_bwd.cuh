@@ -1,27 +1,30 @@
-// The chunked route of the conv-fused GLA backward, for bf16 IO: the two
-// recurrent sweeps of gla_chunk_bwd.cuh (one dependent rank-1 update per
-// token) replaced by 64-row chunks whose products run on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 sums), as the TPU kernel
-// _conv_bwd_kernel (lina_speech_tpu/ops/gla_pallas.py:861, math in
-// _bwd_math :261) walks 64-row chunks with MXU products. Every product
+// The chunked route of the GLA backward, for bf16 IO, with (CONV) or
+// without the q/k/v short convs: the two recurrent sweeps of
+// gla_chunk_bwd.cuh (one dependent rank-1 update per token) replaced by
+// 64-row chunks whose products run on the tensor cores (mma.sync m16n8k16,
+// bf16 operands, f32 sums), as the TPU kernels _conv_bwd_kernel
+// (lina_speech_tpu/ops/gla_pallas.py:861) and _bwd_kernel (:210), math in
+// _bwd_math :261, walk 64-row chunks with MXU products. Every product
 // operand is rounded to bf16, as the TPU kernel rounds to its IO dtype,
 // save those of the products that feed dq and dk: the decayed operands of
-// the state walks, the states and cotangents, and G's and H's split-decay
-// factors enter as two bf16 parts (the rounded value and the rest, two mma
-// a k-step). dg is sum_{s>=t} (q dq - k dk), a difference of near-equal
+// the state walks, the states and cotangents, and G's and H's dA and
+// split-decay factors enter as two bf16 parts (the rounded value and the
+// rest, two or three mma a k-step). dg is sum_{s>=t} (q dq - k dk), a difference of near-equal
 // terms: with those operands rounded once, the flagship's gate gradients
 // parted from the plain path's by more than chip_smoke.py holds them to
 // (tests/test_torch_chunk_bwd.py: test_two_part_operands_keep_the_gate_
 // gradient). Every sum is f32. The plain version of the same decomposition
-// is ops/gla_cuda.py:gla_chunk_conv_bwd_chunked_plain.
+// is ops/gla_cuda.py:gla_chunk_conv_bwd_chunked_plain (CONV) and
+// gla_chunk_bwd_chunked_plain.
 //
 // Per (batch, head), u = scale q, chunk c of rows t, bc the in-chunk
 // inclusive sums of the gates g <= 0 and btot their total (a ragged last
 // chunk is padded with zero inputs and zero gates):
 //
-// 1. prep_kernel: the convs, silu and rounding points of the forward (as
-//    ConvBwdChannel::pre), bc, and the decayed operands k e^{btot - bc} and
-//    u e^{bc} in two bf16 parts; e^{btot} per chunk and key channel.
+// 1. prep_kernel: with CONV the convs, silu and rounding points of the
+//    forward (as ConvBwdChannel::pre), else q, k, v as they are; bc, and the
+//    decayed operands k e^{btot - bc} and u e^{bc} in two bf16 parts;
+//    e^{btot} per chunk and key channel.
 // 2. state_kernel, one launch of two halves (state_walk): a block holds a 64
 //    x 64 f32 tile of S in its mma accumulators and walks the chunks forward
 //    from s0, S <- e^{btot} S + (k e^{btot - bc})^T v, storing each chunk's
@@ -41,9 +44,9 @@
 //    then cancel to f32 rounding instead of leaving bf16 rounding behind.
 // 4. dv_kernel, parallel over (chunk, batch*head): A (below) summed over
 //    the key tiles, then dv = (k e^{btot - bc}) dS + A^T do for every value
-//    tile.
-// The finishing pass of gla_chunk_conv_bwd.cu then takes dq, dk, dv as one
-// part each.
+//    tile, in f32 for the conv's finishing pass, else in bf16 (the output).
+// The finishing pass of gla_chunk_conv_bwd.cu (CONV) or gla_chunk_bwd.cu
+// then takes dq and dk as one part each.
 //
 // The intra-chunk terms G[t] = sum_{s<=t} dA[t,s] k_s e^{b_t - b_s}, H[s] =
 // sum_{t>=s} dA[t,s] u_t e^{b_t - b_s} and A[t,s] = sum_d u_t k_s e^{b_t -
@@ -298,9 +301,9 @@ __device__ __forceinline__ void prep_rows(const IO* __restrict__ xq, const IO* _
   }
 }
 
-// grid (nc, B*H, DK/64 + ceil(DV/64)), 64 threads: prep_rows with the convs
-// and both low parts.
-template <typename IO>
+// grid (nc, B*H, DK/64 + ceil(DV/64)), 64 threads: prep_rows with (CONV)
+// or without the convs, and both low parts.
+template <typename IO, bool CONV>
 __global__ void __launch_bounds__(kTile)
 prep_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk, const IO* __restrict__ xv,
             const float* __restrict__ gk, const IO* __restrict__ wq, const IO* __restrict__ wk,
@@ -308,7 +311,7 @@ prep_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk, const IO* __re
             float* __restrict__ bc, bf16* __restrict__ kt, bf16* __restrict__ kl,
             bf16* __restrict__ ul, bf16* __restrict__ ull, bf16* __restrict__ vb,
             float* __restrict__ ebt, int H, int T, int DK, int DV, float scale) {
-  prep_rows<IO, true>(xq, xk, xv, gk, wq, wk, wv, uf, kf, bc, kt, kl, ul, ull, vb, ebt, H, T, DK,
+  prep_rows<IO, CONV>(xq, xk, xv, gk, wq, wk, wv, uf, kf, bc, kt, kl, ul, ull, vb, ebt, H, T, DK,
                       DV, scale);
 }
 
@@ -480,13 +483,14 @@ state_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ kl,
 
 // ------------------------------------------------------------- dq and dk
 // Shared memory of dqk_kernel after the value loop: the f32 u, k and bc of
-// the key tile; dA in f32 and bf16; the split-decay factors of G (k, 96
-// rows), then in the same bytes those of H (u, 96 rows), each in two bf16
-// parts. During the loop the same bytes hold two stages of its six bf16
-// tiles (do, v, and S and dS in two parts each). 108 KB: two blocks an SM.
+// the key tile; dA in f32 and in two bf16 parts; the split-decay factors of
+// G (k, 96 rows), then in the same bytes those of H (u, 96 rows), each in
+// two bf16 parts. During the loop the same bytes hold two stages of its six
+// bf16 tiles (do, v, and S and dS in two parts each). 110 KB: two blocks an
+// SM.
 constexpr int kDqkStage = 6 * kTileBytes;
 constexpr int kDqkR1 = 3 * kFTileBytes;
-constexpr int kDqkTail = kDqkR1 + kFTileBytes + kTileBytes + 2 * kPairBytes;
+constexpr int kDqkTail = kDqkR1 + kFTileBytes + 2 * kTileBytes + 2 * kPairBytes;
 constexpr int kDqkSmem = 2 * kDqkStage > kDqkTail ? 2 * kDqkStage : kDqkTail;
 
 // Row offsets in the factor buffers: G's factor of sub-chunk I (rows 0 ..
@@ -571,8 +575,9 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
   float* fk = fu + kC * kLdF;
   float* fb = fk + kC * kLdF;
   float* daf = reinterpret_cast<float*>(smem + kDqkR1);
-  bf16* dab = reinterpret_cast<bf16*>(daf + kC * kLdF);
-  bf16* fhi = dab + kC * kLd;      // a pair factor, rounded
+  bf16* dab = reinterpret_cast<bf16*>(daf + kC * kLdF);  // dA rounded
+  bf16* dal = dab + kC * kLd;      // the rest of it
+  bf16* fhi = dal + kC * kLd;      // a pair factor, rounded
   bf16* flo = fhi + kPairRows * kLd;  // the rest of it
 
   const int d0 = blockIdx.x * kTile, c = blockIdx.y, bh = blockIdx.z, Tp = nc * kC;
@@ -622,17 +627,21 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
     for (int e = 0; e < 4; ++e) {
       const int r = m0 + acc_row(e), s = n0 + 8 * j + acc_col(e);
       daf[r * kLdF + s] = dA[j][e];
-      dab[r * kLd + s] = __float2bfloat16_rn(dA[j][e]);
+      const bf16 hi = __float2bfloat16_rn(dA[j][e]);
+      dab[r * kLd + s] = hi;
+      dal[r * kLd + s] = __float2bfloat16_rn(dA[j][e] - __bfloat162float(hi));
     }
   load_f32_tile(fu, fk, fb, uf, kf, bcum, (size_t)bh * Tp + c * kC, DK, d0);
   __syncthreads();
   pair_factors<false>(fhi, flo, fu, fk, fb);
   __syncthreads();
   float G[4][4] = {}, Hs[4][4] = {};
-  // G rows of sub-chunk I from the sub-chunks before it: dA[I, s] . kx
+  // G rows of sub-chunk I from the sub-chunks before it: dA[I, s] . kx, both
+  // in two parts (the product of the two rests left out)
   if (I >= 1) {
     mma_rows<false, true, 2>(G, dab, kLd, fhi + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
     mma_rows<false, true, 2>(G, dab, kLd, flo + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
+    mma_rows<false, true, 2>(G, dal, kLd, fhi + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
   }
   __syncthreads();  // G's factors are read; H's take their place
   pair_factors<true>(fhi, flo, fu, fk, fb);
@@ -640,9 +649,11 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
   // H rows of sub-chunk I from the sub-chunks after it: dA[t, I]^T . ux
   if (I <= 2) {
     const bf16* da_after = dab + kSub * (I + 1) * kLd;
+    const bf16* dl_after = dal + kSub * (I + 1) * kLd;
     const int rows_after = kC - kSub * (I + 1);
     mma_rows<true, true, 2>(Hs, da_after, kLd, fhi + ux_row(I) * kLd, kLd, m0, n0, rows_after);
     mma_rows<true, true, 2>(Hs, da_after, kLd, flo + ux_row(I) * kLd, kLd, m0, n0, rows_after);
+    mma_rows<true, true, 2>(Hs, dl_after, kLd, fhi + ux_row(I) * kLd, kLd, m0, n0, rows_after);
   }
   float kd[4][2] = {};  // k . dk_inter summed over the lane's two rows, per column
 #pragma unroll
@@ -820,13 +831,14 @@ __device__ __forceinline__ void chunk_scores(bf16* s_a, unsigned char* r1,
 }
 
 // grid (nc, B*H), 256 threads: warp w holds rows 16 (w % 4) .. of the chunk
-// and columns 32 (w / 4) .. of A or of a value tile. dvf: (B*H, T, DV) f32.
-template <int = 0>
+// and columns 32 (w / 4) .. of A or of a value tile. dvo: (B*H, T, DV) in
+// f32 or bf16.
+template <typename O>
 __global__ void __launch_bounds__(kGradThreads, 2)
 dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
           const float* __restrict__ bcum, const bf16* __restrict__ kt,
           const bf16* __restrict__ dout, const bf16* __restrict__ dstates,
-          float* __restrict__ dvf, int T, int nc, int DK, int DV) {
+          O* __restrict__ dvo, int T, int nc, int DK, int DV) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldk = DK + 8;
   bf16* s_a = reinterpret_cast<bf16*>(smem);
@@ -866,7 +878,7 @@ dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = m0 + acc_row(e), col = c0 + n0 + 8 * j + acc_col(e), t = c * kC + r;
-        if (t < T && col < DV) dvf[((size_t)bh * T + t) * DV + col] = acc[j][e];
+        if (t < T && col < DV) dvo[((size_t)bh * T + t) * DV + col] = from_f<O>(acc[j][e]);
       }
   }
 }
@@ -877,18 +889,21 @@ int allow_smem(K kernel, int bytes) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// Launches kernels 1-4 of the chunked route; returns the first error that
-// is not 0. Scratch as ops/gla_cuda.py:gla_chunk_conv_bwd allocates it.
-template <typename ST>
+// Launches kernels 1-4 of the chunked route, with (CONV) or without the
+// convs (wq, wk, wv then null); returns the first error that is not 0.
+// Scratch as ops/gla_cuda.py:gla_chunk_conv_bwd and gla_chunk_bwd allocate
+// it; dvo is f32 with the convs (the finishing pass's input), else the
+// output dv in bf16.
+template <typename ST, bool CONV, typename DVO>
 int launch_chunked(const bf16* xq, const bf16* xk, const bf16* xv, const float* gk,
                    const bf16* wq, const bf16* wk, const bf16* wv, const ST* s0, const bf16* dout,
-                   const ST* dsf, ST* ds0, float* dq, float* dk, float* dsgp, float* dvf,
+                   const ST* dsf, ST* ds0, float* dq, float* dk, float* dsgp, DVO* dvo,
                    float* uf, float* kf, float* bcum, bf16* kt, bf16* kl, bf16* ul, bf16* ull,
                    bf16* states, bf16* states_lo, bf16* dstates, bf16* dstates_lo, bf16* vb,
                    float* ebt, int B, int H, int T, int DK, int DV, float scale,
                    cudaStream_t stream) {
   const int nc = (T + kC - 1) / kC, BH = B * H, v_tiles = (DV + kTile - 1) / kTile;
-  prep_kernel<bf16><<<dim3(nc, BH, DK / kTile + v_tiles), kTile, 0, stream>>>(
+  prep_kernel<bf16, CONV><<<dim3(nc, BH, DK / kTile + v_tiles), kTile, 0, stream>>>(
       xq, xk, xv, gk, wq, wk, wv, uf, kf, bcum, kt, kl, ul, ull, vb, ebt, H, T, DK, DV, scale);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
@@ -903,9 +918,9 @@ int launch_chunked(const bf16* xq, const bf16* xk, const bf16* xv, const float* 
       DV, scale);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   const int dv_smem = dv_smem_bytes(DK);
-  if ((err = allow_smem(dv_kernel<>, dv_smem))) return err;
-  dv_kernel<><<<dim3(nc, BH), kGradThreads, dv_smem, stream>>>(uf, kf, bcum, kt, dout, dstates,
-                                                             dvf, T, nc, DK, DV);
+  if ((err = allow_smem(dv_kernel<DVO>, dv_smem))) return err;
+  dv_kernel<DVO><<<dim3(nc, BH), kGradThreads, dv_smem, stream>>>(uf, kf, bcum, kt, dout,
+                                                                 dstates, dvo, T, nc, DK, DV);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -108,7 +108,7 @@ def load_library() -> ctypes.CDLL:
     lib.gla_decode_conv_step.restype = i
     lib.gla_chunk_fwd.argtypes = [p] * 17 + [i] * 5 + [f, i, i, i, i, p]
     lib.gla_chunk_fwd.restype = i
-    lib.gla_chunk_bwd.argtypes = [p] * 16 + [i] * 5 + [f, i, i, p]
+    lib.gla_chunk_bwd.argtypes = [p] * 29 + [i] * 5 + [f, i, i, i, p]
     lib.gla_chunk_bwd.restype = i
     lib.gla_decode_step.argtypes = [p] * 6 + [i] * 4 + [f, i, i, p]
     lib.gla_decode_step.restype = i

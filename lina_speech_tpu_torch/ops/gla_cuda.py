@@ -19,7 +19,9 @@ wrappers and their plain versions.
   Kernel: ``csrc/gla_chunk.cu``, the same two routes. It is differentiable:
   when autograd
   records, its backward is :func:`gla_chunk_bwd` (``csrc/gla_chunk_bwd.cu``,
-  replacing ``_bwd_kernel``, gla_pallas.py:210).
+  replacing ``_bwd_kernel``, gla_pallas.py:210), two routes chosen by
+  :func:`gla_chunk_bwd_plan` (the chunked kernels of
+  ``csrc/gla_chunked_bwd.cuh`` for bf16 IO, the recurrent sweeps for f32).
 - :func:`gla_decode_conv` replaces ``gla_decode_conv_fused``
   (gla_pallas.py:1641), one decode token with the conv ring updates fused
   in. Kernel: ``csrc/gla_decode_conv.cu``.
@@ -88,7 +90,7 @@ def _shape_noters():
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
-    for fn in (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk):
+    for fn in (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd):
         fn.routes = dict.fromkeys(_ROUTE_CODE, 0)
     gla_decode_lazy_conv.q_launches = 0
     for fn in _shape_noters():
@@ -602,8 +604,8 @@ def _intra_chunk(u, k, bc, da, rnd, two):
     summed directly; a pair of sub-chunks I > J splits the decay at a row
     between them, so that both factors' exponents are <= 0 and the product
     runs on rounded operands with f32 sums: G at the row before I, H at J's
-    last row, dA rounded by ``rnd`` and the decayed k and u by ``two`` (the
-    kernels' two bf16 parts); A as :func:`_chunk_scores` with ``rnd``."""
+    last row, dA and the decayed k and u taken by ``two`` (the kernels' two
+    bf16 parts); A as :func:`_chunk_scores` with ``rnd``."""
     C, L = u.shape[-2], _SUB
     G, H = torch.zeros_like(k), torch.zeros_like(k)
     for i in range(C // L):
@@ -617,13 +619,88 @@ def _intra_chunk(u, k, bc, da, rnd, two):
             ref, early = bc[..., L * i - 1:L * i, :], slice(0, L * i)
             up = torch.exp(b_i - ref)
             kx = two(k[..., early, :] * torch.exp(ref - bc[..., early, :]))
-            G[..., rows, :] += up * (rnd(da[..., rows, early]) @ kx)
+            G[..., rows, :] += up * (two(da[..., rows, early]) @ kx)
         if i < C // L - 1:
             ref, late = bc[..., L * i + L - 1:L * (i + 1), :], slice(L * (i + 1), C)
             ux = two(u[..., late, :] * torch.exp(bc[..., late, :] - ref))
             H[..., rows, :] += torch.exp(ref - b_i) * (
-                rnd(da[..., late, rows]).transpose(-1, -2) @ ux)
+                two(da[..., late, rows]).transpose(-1, -2) @ ux)
     return G, H, _chunk_scores(u, k, bc, rnd)
+
+
+def _operand_rounding(operand_dtype):
+    """(rnd, two) of the chunked backward's plain versions: ``rnd`` rounds a
+    product's operand to ``operand_dtype`` (None: leaves it), ``two`` gives
+    it as the kernels' two rounded parts, x_hi = rnd(x) and x_lo = rnd(x -
+    x_hi), summed."""
+    rnd = (lambda x: x) if operand_dtype is None else (lambda x: x.to(operand_dtype).float())
+    return rnd, lambda x: rnd(x) + rnd(x - rnd(x))
+
+
+def _chunked_bwd_plain(u, k, v, gk, s0, do, dsf, scale, rnd, two):
+    """The chunk walk of the chunked backward route with tensors, on u =
+    scale q, k, v (b, h, t, d; post-conv where the layer has convs), gk, do
+    and dsf in f32, s0 f32 or None. ``rnd`` rounds a product's operand and
+    ``two`` gives it in two rounded parts (:func:`_operand_rounding`): those
+    marked (2), the products that feed dq and dk, whose difference q dq - k
+    dk gives dg after a cancellation that bf16 operands would leave noisy.
+    Chunks of 64 rows (a ragged last one padded with zeros and zero gates),
+    in-chunk gate sums bc and their total btot:
+
+    1. chunk states: S <- e^{btot} S + (k e^{btot - bc})^T (2) v from s0,
+       keeping each chunk's start state;
+    2. chunk cotangents: dS <- e^{btot} dS + (u e^{bc})^T (2) do in reverse
+       from dsf, keeping each chunk's end-state cotangent; the last dS is
+       s0's cotangent;
+    3. per chunk: dq = scale (e^{bc} (do S^T (2)) + G), dk = e^{btot - bc}
+       (v dS^T (2)) + H, dv = (k e^{btot - bc}) dS + A^T do with dA = do
+       v^T, G and H (dA and factors (2)) and A from :func:`_intra_chunk`;
+       dsf . S_final summed over dv, as the last chunk's e^{btot} S . dsf plus
+       sum_t k_t e^{btot - bc_t} (v_t dsf^T) from the values that enter dk.
+
+    Returns (dq, dk, dv, the dsf . S_final term (b, h, dk), s0's
+    cotangent), all f32."""
+    b, h, t, dk = u.shape
+    dv = v.shape[-1]
+    C = _CHUNK
+    nc = -(-t // C)
+
+    def chunks(x):
+        x = F.pad(x, (0, 0, 0, nc * C - t))
+        return x.reshape(b, h, nc, C, x.shape[-1])
+
+    uc, kc, vc, dO = chunks(u), chunks(k), chunks(v), chunks(do)
+    bc = chunks(gk).cumsum(3)
+    btot = bc[:, :, :, -1:]
+    ktil = kc * torch.exp(btot - bc)
+    s = u.new_zeros(b, h, dk, dv) if s0 is None else s0
+    states = []
+    for c in range(nc):
+        states.append(s)
+        s = (torch.exp(btot[:, :, c, 0, :, None]) * s
+             + two(ktil[:, :, c]).transpose(-1, -2) @ rnd(vc[:, :, c]))
+    ul = uc * torch.exp(bc)
+    ds, dstates = dsf, [None] * nc
+    for c in reversed(range(nc)):
+        dstates[c] = ds
+        ds = (torch.exp(btot[:, :, c, 0, :, None]) * ds
+              + two(ul[:, :, c]).transpose(-1, -2) @ rnd(dO[:, :, c]))
+    s_in, ds_end = torch.stack(states, 2), torch.stack(dstates, 2)
+    da = rnd(dO) @ rnd(vc).transpose(-1, -2)
+    G, H, A = _intra_chunk(uc, kc, bc, da, rnd, two)
+    dq = scale * (torch.exp(bc) * (rnd(dO) @ two(s_in).transpose(-1, -2)) + G)
+    dk_inter = torch.exp(btot - bc) * (rnd(vc) @ two(ds_end).transpose(-1, -2))
+    dk_ = dk_inter + H
+    dsg = ((dsf * torch.exp(btot[:, :, -1, 0, :, None]) * states[-1]).sum(-1)
+           + (kc[:, :, -1] * dk_inter[:, :, -1]).sum(-2))
+    dv_ = rnd(ktil) @ rnd(ds_end) + rnd(A).transpose(-1, -2) @ rnd(dO)
+    dq, dk_, dv_ = (x.reshape(b, h, nc * C, -1)[:, :, :t] for x in (dq, dk_, dv_))
+    return dq, dk_, dv_, dsg, ds
+
+
+def _gate_grad(q, k, dq, dk, dsg):
+    """dg_t = sum_{s>=t} (q_s dq_s - k_s dk_s) + dsf . S_final (``dsg``)."""
+    return (q * dq - k * dk).flip(2).cumsum(2).flip(2) + dsg[:, :, None]
 
 
 def gla_chunk_conv_bwd_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
@@ -632,73 +709,25 @@ def gla_chunk_conv_bwd_chunked_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_
     """The chunked route of :func:`gla_chunk_conv_bwd` written with tensors
     (same arguments and outputs, every gradient wanted), in f32; with
     ``operand_dtype`` every operand of a product is rounded to it first, as
-    the kernels round theirs to bf16, and those marked (2) enter as two
-    rounded parts, x_hi = rnd(x) and x_lo = rnd(x - x_hi), as the kernels
-    take them: the products that feed dq and dk, whose difference q dq - k
-    dk gives dg after a cancellation that bf16 operands would leave noisy.
-    Chunks of 64 rows (a ragged last one padded with zeros and zero gates),
-    in-chunk gate sums bc and their total btot:
-
-    1. chunk states: S <- e^{btot} S + (k e^{btot - bc})^T (2) v from s0,
-       keeping each chunk's start state;
-    2. chunk cotangents: dS <- e^{btot} dS + (u e^{bc})^T (2) do in reverse
-       from dsf, keeping each chunk's end-state cotangent; ds0 is the last
-       dS;
-    3. per chunk: dq = scale (e^{bc} (do S^T (2)) + G), dk = e^{btot - bc}
-       (v dS^T (2)) + H, dv = (k e^{btot - bc}) dS + A^T do with dA = do
-       v^T and G, H (factors (2)), A from :func:`_intra_chunk`; dsf .
-       S_final summed over dv, as the last chunk's e^{btot} S . dsf plus
-       sum_t k_t e^{btot - bc_t} (v_t dsf^T) from the values that enter dk;
-
-    then the conv's finishing pass: dg_t = sum_{s>=t} (q_s dq_s - k_s dk_s)
-    + dsf . S_final, silu', the transposed conv and the tap sums. Used by
-    the tests, on the CPU against the Pallas backward and on the card
-    against the kernels."""
+    the kernels round theirs to bf16, those of the products that feed dq
+    and dk in two rounded parts (:func:`_chunked_bwd_plain`). The convs as
+    the forward takes them, the chunk walk on their outputs, then the conv's
+    finishing pass: dg (:func:`_gate_grad`), silu', the transposed conv and
+    the tap sums. Used by the tests, on the CPU against the Pallas backward
+    and on the card against the kernels."""
     b, h, t, dk = xq.shape
     dv, w = xv.shape[-1], conv_q_w.shape[-1]
     scale = dk ** -0.5 if scale is None else scale
     io = xq.dtype
-    rnd = (lambda x: x) if operand_dtype is None else (lambda x: x.to(operand_dtype).float())
-    two = lambda x: rnd(x) + rnd(x - rnd(x))  # the kernels' two bf16 parts
+    rnd, two = _operand_rounding(operand_dtype)
     taps = [m.reshape(h, d, w) for m, d in ((conv_q_w, dk), (conv_k_w, dk), (conv_v_w, dv))]
     zq, zk, zv = (_conv_pre_rounded(x, tp) for x, tp in zip((xq, xk, xv), taps))
     q, k = zq * torch.sigmoid(zq), zk * torch.sigmoid(zk)
     v = (zv * torch.sigmoid(zv)).to(io).float()
-    C = _CHUNK
-    nc = -(-t // C)
-
-    def chunks(x):
-        x = F.pad(x.float(), (0, 0, 0, nc * C - t))
-        return x.reshape(b, h, nc, C, x.shape[-1])
-
-    u, kc, vc, dO = chunks(q * scale), chunks(k), chunks(v), chunks(do)
-    bc = chunks(gk).cumsum(3)
-    btot = bc[:, :, :, -1:]
-    ktil = kc * torch.exp(btot - bc)
-    s = (xq.new_zeros(b, h, dk, dv, dtype=torch.float32) if initial_state is None
-         else initial_state.float())
-    states = []
-    for c in range(nc):
-        states.append(s)
-        s = (torch.exp(btot[:, :, c, 0, :, None]) * s
-             + two(ktil[:, :, c]).transpose(-1, -2) @ rnd(vc[:, :, c]))
-    ul = u * torch.exp(bc)
-    ds, dstates = dsf.float(), [None] * nc
-    for c in reversed(range(nc)):
-        dstates[c] = ds
-        ds = (torch.exp(btot[:, :, c, 0, :, None]) * ds
-              + two(ul[:, :, c]).transpose(-1, -2) @ rnd(dO[:, :, c]))
-    s_in, ds_end = torch.stack(states, 2), torch.stack(dstates, 2)
-    da = rnd(dO) @ rnd(vc).transpose(-1, -2)
-    G, H, A = _intra_chunk(u, kc, bc, da, rnd, two)
-    dq = scale * (torch.exp(bc) * (rnd(dO) @ two(s_in).transpose(-1, -2)) + G)
-    dk_inter = torch.exp(btot - bc) * (rnd(vc) @ two(ds_end).transpose(-1, -2))
-    dk_ = dk_inter + H
-    dsg = ((dsf.float() * torch.exp(btot[:, :, -1, 0, :, None]) * states[-1]).sum(-1)
-           + (kc[:, :, -1] * dk_inter[:, :, -1]).sum(-2))
-    dv_ = rnd(ktil) @ rnd(ds_end) + rnd(A).transpose(-1, -2) @ rnd(dO)
-    dq, dk_, dv_ = (x.reshape(b, h, nc * C, -1)[:, :, :t] for x in (dq, dk_, dv_))
-    dg = (q * dq - k * dk_).flip(2).cumsum(2).flip(2) + dsg[:, :, None]
+    dq, dk_, dv_, dsg, ds = _chunked_bwd_plain(
+        q * scale, k, v, gk.float(), None if initial_state is None else initial_state.float(),
+        do.float(), dsf.float(), scale, rnd, two)
+    dg = _gate_grad(q, k, dq, dk_, dsg)
     grads = [_conv_bwd_plain(dy, z, x, tp)
              for dy, z, x, tp in zip((dq, dk_, dv_), (zq, zk, zv), (xq, xk, xv), taps)]
     ds0 = None if initial_state is None else ds.to(initial_state.dtype)
@@ -902,6 +931,48 @@ gla_chunk.launches, gla_chunk.shapes = 0, Counter()
 gla_chunk.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
+# bf16 inputs shorter than this keep the recurrent sweeps: in chip_smoke.py's
+# backward route sweep on an H100 (PERF.md §6; h4 dk256 dv256) the
+# recurrent body won at t16 and t32 at b1, b2 and b8 (87-127 us against the
+# chunked route's 106-139 at t32: its six launches cost about 95 us at any
+# short length) and lost from t48 on at every batch (at t48 125-195 against
+# 113-156). Lengths the sweep did not reach take the rule of the nearest it
+# did.
+_BWD_CHUNKED_MIN_T = 48
+
+
+def gla_chunk_bwd_plan(io: torch.dtype, b: int, h: int, t: int, dv: int) -> str:
+    """The body a :func:`gla_chunk_bwd` launch of IO dtype ``io`` on (b, h,
+    t) heads of value dim ``dv`` runs, decided from these alone before the
+    launch: ``"chunked"`` for bf16 IO from ``_BWD_CHUNKED_MIN_T`` tokens on
+    (64-row chunks, products on the tensor cores in bf16 with f32 sums, as
+    the TPU kernel rounds its products' operands to the IO dtype), else
+    ``"recurrent"`` (the two time sweeps in f32, which an f32 caller
+    expects and which are faster on a few tokens)."""
+    return "chunked" if io == torch.bfloat16 and t >= _BWD_CHUNKED_MIN_T else "recurrent"
+
+
+def _chunk_bwd_sizes(b, h, t, dk, dv, route):
+    """Bytes of :func:`gla_chunk_bwd`'s scratch arrays on ``route``, in the C
+    entry point's order: the parts of dq and dk (dv/32 each on the
+    recurrent route, one on the chunked), the parts of the dsf . S_final
+    term (dv/32, or ceil(dv/64) + 1), each segment's dg total; then the
+    chunked route's own arrays (:func:`_chunked_bwd_sizes`; 0, not
+    allocated, on the recurrent route)."""
+    bh = b * h
+    chunked = route == "chunked"
+    parts, n_sg = (1, -(-dv // _CHUNK) + 1) if chunked else (dv // _BV, dv // _BV)
+    own = _chunked_bwd_sizes(b, h, t, dk, dv) if chunked else [0] * 13
+    return ([4 * parts * bh * t * dk] * 2 + [4 * n_sg * bh * dk, 4 * -(-t // _BWD_SEG) * bh * dk]
+            + own)
+
+
+def chunk_bwd_scratch_bytes(b: int, h: int, t: int, dk: int, dv: int, route: str) -> int:
+    """Bytes of scratch one :func:`gla_chunk_bwd` call on ``route`` takes
+    beside its outputs, in one allocation."""
+    return _scratch_total(_chunk_bwd_sizes(b, h, t, dk, dv, route))
+
+
 def gla_chunk_bwd(q, k, v, gk, initial_state, do, dsf, scale=None, need_ds0: bool = True):
     """Backward of :func:`gla_chunk` on CUDA tensors.
 
@@ -911,10 +982,33 @@ def gla_chunk_bwd(q, k, v, gk, initial_state, do, dsf, scale=None, need_ds0: boo
     f32, ds0 in the state dtype (None without ``need_ds0`` or without an
     initial state).
 
-    One call launches the four kernels of ``csrc/gla_chunk_bwd.cu`` and
-    counts as one launch. Its scratch (the per-tile parts of dq and dk, 2 *
-    dv/32 * b*h*t*dk f32 values) is freed when the call returns.
+    One call counts as one launch, and once more under its route in
+    ``gla_chunk_bwd.routes`` (:func:`gla_chunk_bwd_plan`). Both routes end in
+    the finishing pass of ``csrc/gla_chunk_bwd.cu`` (the parts of dq and dk
+    added, rounded to the IO dtype, dg summed in reverse, its segments'
+    carry). Their scratch, one allocation freed when the call returns
+    (:func:`chunk_bwd_scratch_bytes`):
+
+    - ``"recurrent"`` (f32 IO, and bf16 IO below 48 tokens): the two time
+      sweeps of ``csrc/gla_chunk_bwd.cuh``; the per-tile parts of dq and
+      dk, 2 * dv/32 * b*h*t*dk f32 values (268 MB at b8 h4 t512 dk256
+      dv256);
+    - ``"chunked"`` (bf16 IO from 48 tokens): the four kernels of
+      ``csrc/gla_chunked_bwd.cuh`` without convs, 64-row chunks on the
+      tensor cores, dv written in bf16 by the last; every chunk's start
+      state and end-state cotangent in two bf16 parts (4 * b*h*nc*dk*dv, nc
+      = ceil(t/64)); on t rounded up to whole chunks u = scale q, k and the
+      in-chunk gate sums in f32, the decayed k and u in two bf16 parts each
+      and v in bf16; dq and dk once in f32.
     """
+    return _chunk_bwd_launch(q, k, v, gk, initial_state, do, dsf, scale, need_ds0)
+
+
+def _chunk_bwd_launch(q, k, v, gk, initial_state, do, dsf, scale=None, need_ds0=True,
+                      route=None):
+    """Check the arguments and launch :func:`gla_chunk_bwd`'s kernels (CUDA
+    tensors) on ``route`` (None: the plan's; the card's checks force
+    either body of bf16 IO)."""
     name = "gla_chunk_bwd"
     _check(name, q.is_cuda, "runs on CUDA tensors only; on the CPU take "
            "autograd through gla_chunk_plain")
@@ -922,32 +1016,56 @@ def gla_chunk_bwd(q, k, v, gk, initial_state, do, dsf, scale=None, need_ds0: boo
     _check(name, do.shape == v.shape and do.dtype == io, "do must match v")
     _check(name, dsf.shape == (b, h, dk, dv) and dsf.dtype == st,
            f"dsf must be ({b}, {h}, {dk}, {dv}) in {st}")
+    route = gla_chunk_bwd_plan(io, b, h, t, dv) if route is None else route
+    _check(name, route in _ROUTE_CODE, f"route {route!r} not in {tuple(_ROUTE_CODE)}")
+    _check(name, route == "recurrent" or io == torch.bfloat16,
+           "the chunked route takes bf16 IO only")
     scale = dk ** -0.5 if scale is None else scale
-    f32 = dict(dtype=torch.float32, device=q.device)
     dq, dk_, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dg = torch.empty_like(gk)
     ds0 = (torch.empty_like(initial_state)
            if need_ds0 and initial_state is not None else None)
-    tiles = dv // _BV
-    dqp = torch.empty(tiles, b, h, t, dk, **f32)
-    dkp = torch.empty(tiles, b, h, t, dk, **f32)
-    dsgp = torch.empty(tiles, b, h, dk, **f32)
-    dgt = torch.empty(-(-t // _BWD_SEG), b, h, dk, **f32)
+    buf, scratch = _scratch(_chunk_bwd_sizes(b, h, t, dk, dv, route), q.device)
+    if route == "chunked" and do.data_ptr() % 16:  # rows of do are copied 16 bytes at a time
+        do = do.clone()
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.gla_chunk_bwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(gk), _ptr(initial_state), _ptr(do), _ptr(dsf),
-        _ptr(dq), _ptr(dk_), _ptr(dv_), _ptr(dg), _ptr(ds0), _ptr(dqp), _ptr(dkp),
-        _ptr(dsgp), _ptr(dgt), b, h, t, dk, dv, float(scale), _DTYPE_CODE[io],
-        _DTYPE_CODE[st], ctypes.c_void_p(stream))
+        _ptr(dq), _ptr(dk_), _ptr(dv_), _ptr(dg), _ptr(ds0), *scratch, b, h, t, dk, dv,
+        float(scale), _DTYPE_CODE[io], _DTYPE_CODE[st], _ROUTE_CODE[route],
+        ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_chunk_bwd.launches += 1
+    gla_chunk_bwd.routes[route] += 1
     gla_chunk_bwd.shapes[(b, h, t, dk, dv, io, None if initial_state is None else st,
                           float(scale), ds0 is not None)] += 1
     return dq, dk_, dv_, dg, ds0
 
 
 gla_chunk_bwd.launches, gla_chunk_bwd.shapes = 0, Counter()
+gla_chunk_bwd.routes = dict.fromkeys(_ROUTE_CODE, 0)
+
+
+def gla_chunk_bwd_chunked_plain(q, k, v, gk, initial_state, do, dsf, scale=None,
+                                operand_dtype: Optional[torch.dtype] = None):
+    """The chunked route of :func:`gla_chunk_bwd` written with tensors (same
+    arguments and outputs, ds0 wherever there is an initial state), in f32,
+    with ``operand_dtype`` rounding as in
+    :func:`gla_chunk_conv_bwd_chunked_plain`: the chunk walk
+    (:func:`_chunked_bwd_plain`) on q, k, v as they are, then dg
+    (:func:`_gate_grad`). Used by the tests, on the CPU against the Pallas
+    backward and on the card against the kernels."""
+    io = q.dtype
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    rnd, two = _operand_rounding(operand_dtype)
+    qf, kf = q.float(), k.float()
+    dq, dk, dv, dsg, ds = _chunked_bwd_plain(
+        qf * scale, kf, v.float(), gk.float(),
+        None if initial_state is None else initial_state.float(), do.float(), dsf.float(), scale,
+        rnd, two)
+    ds0 = None if initial_state is None else ds.to(initial_state.dtype)
+    return dq.to(io), dk.to(io), dv.to(io), _gate_grad(qf, kf, dq, dk, dsg), ds0
 
 
 class _GLAChunk(torch.autograd.Function):

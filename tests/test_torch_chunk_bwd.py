@@ -1,13 +1,16 @@
-"""The chunked decomposition of gla_chunk_conv's backward, on the CPU.
+"""The chunked decomposition of the two GLA backwards, on the CPU.
 
-``gla_chunk_conv_bwd_chunked_plain`` (ops/gla_cuda.py) is the chunked route
-of the CUDA backward written with tensors: chunk states, chunk cotangents,
-and the intra/inter gradients with the 16-row sub-chunk factorisation,
-followed by the conv's finishing pass. Here all eight of its gradient
-leaves are held against jax.grad through the Pallas kernel's hand-written
-backward (interpret mode, f32 residuals), each within 2e-3 of max(1,
-max|ref|) as tests/test_gla_pallas.py holds the Pallas backward itself.
-Inputs are made with numpy from a seed.
+``gla_chunk_conv_bwd_chunked_plain`` and ``gla_chunk_bwd_chunked_plain``
+(ops/gla_cuda.py) are the chunked routes of the CUDA backwards of
+``gla_chunk_conv`` and ``gla_chunk`` written with tensors: chunk states,
+chunk cotangents, and the intra/inter gradients with the 16-row sub-chunk
+factorisation (one chunk walk, ``_chunked_bwd_plain``, shared by the two),
+followed by the conv's finishing pass or, without convs, the gate gradient
+alone. Here every gradient leaf of each is held against jax.grad through
+the Pallas kernel's hand-written backward (``gla_chunk_conv_pallas`` and
+``gla_chunk_pallas``, interpret mode, f32 residuals), each within 2e-3 of
+max(1, max|ref|) as tests/test_gla_pallas.py holds the Pallas backward
+itself. Inputs are made with numpy from a seed.
 """
 import jax
 import jax.numpy as jnp
@@ -15,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from lina_speech_tpu.ops.gla_pallas import gla_chunk_conv_pallas
+from lina_speech_tpu.ops.gla_pallas import gla_chunk_conv_pallas, gla_chunk_pallas
 from lina_speech_tpu_torch.ops import gla_cuda
 
 LEAVES = ("xq", "xk", "xv", "gk", "wq", "wk", "wv", "s0")
+# gla_chunk_bwd's leaves: q, k, v as _inputs makes xq, xk, xv
+QKV_LEAVES = ("xq", "xk", "xv", "gk", "s0")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,14 +63,37 @@ def _pallas_grads(x, ct, with_s0):
     return [np.asarray(g, np.float32) for g in jax.grad(loss, argnums=tuple(range(8)))(*args)]
 
 
-def _hold(x, ct, with_s0):
+def _pallas_qkv_grads(x, ct, with_s0, scale):
+    """jax.grad of sum(o * do) + sum(sf * dsf) through gla_chunk_pallas."""
+    def loss(*a):
+        o, sf = gla_chunk_pallas(*a[:4], initial_state=a[4], scale=scale, chunk_size=16,
+                                 interpret=True, residual_dtype=jnp.float32)
+        return jnp.sum(o * ct["do"]) + jnp.sum(sf * ct["dsf"])
+
+    s0 = x["s0"] if with_s0 else np.zeros_like(x["s0"])
+    args = [jnp.asarray(x[n]) for n in QKV_LEAVES[:4]] + [jnp.asarray(s0)]
+    return [np.asarray(g, np.float32) for g in jax.grad(loss, argnums=tuple(range(5)))(*args)]
+
+
+def _hold(x, ct, with_s0, kind="conv", scale=None):
+    """``kind`` "conv": gla_chunk_conv_bwd_chunked_plain against the conv
+    kernel's Pallas backward; "qkv": gla_chunk_bwd_chunked_plain (q, k, v
+    taken as _inputs makes xq, xk, xv) against gla_chunk_pallas's, at
+    ``scale`` (None: dk^-0.5)."""
     tx = {n: torch.from_numpy(a) for n, a in x.items()}
-    got = gla_cuda.gla_chunk_conv_bwd_chunked_plain(
-        *(tx[n] for n in LEAVES[:7]), tx["s0"] if with_s0 else None,
-        torch.from_numpy(ct["do"]), torch.from_numpy(ct["dsf"]))
-    assert (got[7] is None) == (not with_s0)
-    ref = _pallas_grads(x, ct, with_s0)
-    for name, a, r in zip(LEAVES, got, ref):
+    do, dsf = torch.from_numpy(ct["do"]), torch.from_numpy(ct["dsf"])
+    s0 = tx["s0"] if with_s0 else None
+    if kind == "conv":
+        leaves = LEAVES
+        got = gla_cuda.gla_chunk_conv_bwd_chunked_plain(*(tx[n] for n in LEAVES[:7]), s0, do, dsf)
+        ref = _pallas_grads(x, ct, with_s0)
+    else:
+        leaves = QKV_LEAVES
+        got = gla_cuda.gla_chunk_bwd_chunked_plain(*(tx[n] for n in QKV_LEAVES[:4]), s0, do, dsf,
+                                                   scale=scale)
+        ref = _pallas_qkv_grads(x, ct, with_s0, scale)
+    assert (got[-1] is None) == (not with_s0)
+    for name, a, r in zip(leaves, got, ref):
         if name == "s0" and not with_s0:
             continue
         r = r.reshape(a.shape)
@@ -75,22 +103,38 @@ def _hold(x, ct, with_s0):
         assert err <= 2e-3 * max(1.0, float(np.abs(r).max())), (name, err)
 
 
-@pytest.mark.parametrize("with_s0", [True, False])
-@pytest.mark.parametrize("t", [1, 15, 16, 17, 64, 65, 130])
-def test_chunked_backward_matches_pallas_backward(t, with_s0):
+def _cases(ts, s0s=None):
+    """(kind, t, with_s0, scale) cases, (kind, t, scale) where ``s0s`` is
+    None: the conv-fused backward's keep their ids (t, then with_s0);
+    gla_chunk_bwd's run at dk^-0.5 (simple-GLA) and 1.0 (Mamba-2)."""
+    tag = lambda *parts: "-".join(str(p) for p in parts if p is not None)
+    cases = []
+    for kind, scales in (("conv", (None,)), ("qkv", (None, 1.0))):
+        for t in ts:
+            for s0 in (None,) if s0s is None else s0s:
+                for scale in scales:
+                    args = (kind, t) + (() if s0s is None else (s0,)) + (scale,)
+                    label = tag("qkv" if kind == "qkv" else None, t, s0,
+                                f"scale{scale}" if kind == "qkv" else None)
+                    cases.append(pytest.param(*args, id=label))
+    return cases
+
+
+@pytest.mark.parametrize("kind,t,with_s0,scale", _cases([1, 15, 16, 17, 64, 65, 130], (True, False)))
+def test_chunked_backward_matches_pallas_backward(kind, t, with_s0, scale):
     """Ragged chunks (t 1, 65, 130) and ragged sub-chunks (15, 17), with and
-    without an initial state."""
+    without an initial state; gla_chunk_bwd's at both scales."""
     x, ct = _inputs(40 + t, t)
-    _hold(x, ct, with_s0)
+    _hold(x, ct, with_s0, kind, scale)
 
 
-@pytest.mark.parametrize("t", [130, 64])
-def test_chunked_backward_is_finite_under_adversarial_gates(t):
+@pytest.mark.parametrize("kind,t,scale", _cases([130, 64]))
+def test_chunked_backward_is_finite_under_adversarial_gates(kind, t, scale):
     """Gates of -6 to -8 a step in every sixth key channel: no factor of the
     decomposition overflows, and every leaf matches."""
     x, ct = _inputs(70 + t, t, adversarial=True)
     assert float(x["gk"][..., ::6].sum(2).max()) < -300 * (t // 64)
-    _hold(x, ct, True)
+    _hold(x, ct, True, kind, scale)
 
 
 def test_chunked_backward_rounds_only_product_operands():
@@ -154,3 +198,53 @@ def test_two_part_operands_keep_the_gate_gradient(shape, seed):
     ref = gla_cuda.gla_chunk_conv_bwd_chunked_plain(*args)[3].sum((0, 2))
     got = gla_cuda.gla_chunk_conv_bwd_chunked_plain(*args, operand_dtype=bf)[3].sum((0, 2))
     assert float((got - ref).abs().max()) <= 3e-3 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_rounded_qkv_decomposition_cancels_the_gate_gradient_of_one_step(scale):
+    """gla_chunk_bwd's chunked route, one step from a zero state: the exact
+    gate gradient is 0, and with bf16 operands the two sides of dg still
+    cancel to f32 rounding, at either scale (the scale folds into u = scale
+    q and dq carries it back)."""
+    x, ct = _inputs(11, 1)
+    tx = [torch.from_numpy(x[n]) for n in QKV_LEAVES[:4]]
+    args = (*tx, None, torch.from_numpy(ct["do"]), torch.from_numpy(ct["dsf"]))
+    exact = gla_cuda.gla_chunk_bwd_chunked_plain(*args, scale=scale)
+    got = gla_cuda.gla_chunk_bwd_chunked_plain(*args, scale=scale, operand_dtype=torch.bfloat16)
+    assert float(exact[3].abs().max()) <= 1e-5 * float(exact[0].abs().max())
+    assert float(got[3].abs().max()) <= 1e-5 * float(got[0].abs().max())
+    for name, a, r in zip(QKV_LEAVES[:3], got, exact):
+        err = float((a - r).abs().max())
+        assert 0 < err <= 2e-2 * float(r.abs().max()), (name, err)
+
+
+# (IO dtype, b, h, t, dv) of the launches the driven paths give gla_chunk_bwd:
+# simple-GLA's training and S0 tuning in bf16 (b8, b2; audio 128-512, so
+# t up to 576 with the text), its f32-compute gradient check at b2, Mamba-2's
+# training and check in f32 (h32, dv64), and the route sweep's b1 to b8 from
+# 16 tokens, on either side of the threshold
+_BWD_PLAN_SHAPES = [(io, b, h, t, dv)
+                    for io, heads in ((torch.bfloat16, ((4, 256),)),
+                                      (torch.float32, ((4, 256), (32, 64))))
+                    for h, dv in heads for b in (1, 2, 8)
+                    for t in (1, 16, 47, 48, 128, 317, 512, 576)]
+
+
+@pytest.mark.parametrize("io,b,h,t,dv", _BWD_PLAN_SHAPES, ids=str)
+def test_chunk_backward_plan_routes_by_io_dtype_and_length(io, b, h, t, dv):
+    """gla_chunk_bwd_plan: bf16 IO from 48 tokens takes the chunked body
+    (every training and tuning launch: t >= 128), shorter bf16 inputs and
+    f32 IO the recurrent sweeps, which the card's route sweep found faster
+    at 32 tokens and below."""
+    want = "chunked" if io == torch.bfloat16 and t >= 48 else "recurrent"
+    assert gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv) == want
+
+
+def test_chunk_bwd_chunked_scratch_is_below_the_recurrent_parts():
+    """At simple-GLA's training shape (b8 h4 t512 dk256 dv256) the chunked
+    route's whole scratch, its one part of dq and dk included, is below the
+    268 MB of the recurrent route's per-tile dq/dk parts alone."""
+    parts = 2 * (256 // 32) * 8 * 4 * 512 * 256 * 4
+    assert parts == 268_435_456
+    chunked = gla_cuda.chunk_bwd_scratch_bytes(8, 4, 512, 256, 256, "chunked")
+    assert chunked < parts < gla_cuda.chunk_bwd_scratch_bytes(8, 4, 512, 256, 256, "recurrent")

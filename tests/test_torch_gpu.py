@@ -502,18 +502,23 @@ def _chunk_grads(fn, x, with_s0, scale, seed=5):
                                    (1, 2, 130, 128, 96, None)], ids=str)
 def test_chunk_backward_kernel_matches_plain_backward(cuda, io, st, shape):
     """gla_chunk under autograd runs the forward kernel and the
-    hand-written backward (one launch each), and every gradient (dq, dk, dv,
-    dg, ds0) matches autograd through the plain version, each within a
-    share of its own max|plain|: simple-GLA's head (dk 256, dv 256),
-    Mamba-2's (dk 64, dv 64, scale 1.0) and a ragged one."""
+    hand-written backward (one launch each, on the route gla_chunk_bwd_plan
+    gives: bf16 IO from 48 tokens chunked, else recurrent), and every
+    gradient (dq, dk, dv, dg, ds0) matches autograd through the plain
+    version, each within a share of its own max|plain|: simple-GLA's head
+    (dk 256, dv 256), Mamba-2's (dk 64, dv 64, scale 1.0) and a ragged
+    one."""
     b, h, t, dk, dv, scale = shape
     x = _inputs(cuda, b, h, t, dk, dv, io, st or torch.float32, seed=7)
     x = dict(q=x["xq"], k=x["xk"], v=x["xv"], gk=x["gk"], s0=x["s0"])
     before = gla_cuda.launch_counts()
+    routes = dict(gla_cuda.gla_chunk_bwd.routes)
     o, sf, got = _chunk_grads(gla_cuda.gla_chunk, x, st is not None, scale)
     after = gla_cuda.launch_counts()
     assert after["gla_chunk"] == before["gla_chunk"] + 1
     assert after["gla_chunk_bwd"] == before["gla_chunk_bwd"] + 1
+    routes[gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)] += 1
+    assert gla_cuda.gla_chunk_bwd.routes == routes
     o_p, sf_p, ref = _chunk_grads(gla_cuda.gla_chunk_plain, x, st is not None, scale)
     tol = 1e-4 if io == torch.float32 else 1e-2
     assert _rel_err(o, o_p) <= tol and _rel_err(sf, sf_p) <= max(tol, 1e-2 * (st == torch.bfloat16))
@@ -523,6 +528,105 @@ def test_chunk_backward_kernel_matches_plain_backward(cuda, io, st, shape):
         err = float((a.float() - r.float()).abs().max())
         share = 2e-2 if io == torch.bfloat16 or st == torch.bfloat16 else 1e-3
         assert err <= share * float(r.float().abs().max()), (name, err)
+
+
+_QKV_BWD_OUTS = ("dq", "dk", "dv", "dg", "ds0")
+
+
+def _qkv_bwd_args(dev, shape, st, seed):
+    """gla_chunk_bwd's arguments at ``shape`` = (b, h, t, dk, dv[, scale or
+    "adversarial"]) in bf16 IO, random do and dsf; ``st`` None: no initial
+    state (dsf then f32)."""
+    b, h, t, dk, dv = shape[:5]
+    x = _inputs(dev, b, h, t, dk, dv, torch.bfloat16, st or torch.float32, seed=seed)
+    if shape[5:] == ("adversarial",):
+        x = _adversarial_gates(x)
+    scale = shape[5] if shape[5:] and shape[5] != "adversarial" else None
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(b, h, t, dv, generator=g, device=dev).to(torch.bfloat16)
+    dsf = torch.randn(b, h, dk, dv, generator=g, device=dev).to(st or torch.float32)
+    return (x["xq"], x["xk"], x["xv"], x["gk"], x["s0"] if st else None, do, dsf), scale
+
+
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 130, 256, 256), (3, 2, 65, 64, 96), (1, 3, 17, 128, 32),
+                                   (1, 2, 130, 128, 96), (2, 8, 70, 64, 64, 1.0),
+                                   (2, 4, 130, 256, 256, "adversarial")], ids=str)
+def test_chunked_chunk_backward_matches_its_plain_decomposition(cuda, st, shape):
+    """gla_chunk_bwd's chunked route, forced at every length (the four
+    chunked kernels without convs and the finishing pass) against
+    gla_chunk_bwd_chunked_plain, the same
+    decomposition with tensors in f32 with the kernels' bf16 rounding
+    points, on the same bf16 inputs: each output within 1e-2 of its own
+    max|plain| (the outputs are rounded to bf16; f32 sums in another order
+    and the card's exp move a rounded operand by an ulp now and then). Every
+    supported dk, a dv that is no multiple of 64, scale 1.0 and gates that
+    would overflow a whole-chunk factorisation."""
+    args, scale = _qkv_bwd_args(cuda, shape, st, seed=shape[2] + 2)
+    routes = dict(gla_cuda.gla_chunk_bwd.routes)
+    got = gla_cuda._chunk_bwd_launch(*args, scale, route="chunked")
+    ref = gla_cuda.gla_chunk_bwd_chunked_plain(*args, scale, operand_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    routes["chunked"] += 1
+    assert gla_cuda.gla_chunk_bwd.routes == routes
+    for name, a, r in zip(_QKV_BWD_OUTS, got, ref):
+        if r is None:
+            assert a is None and name == "ds0" and st is None
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        ref_max = float(r.float().abs().max())
+        assert ref_max > 0, name
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 1e-2 * ref_max, (name, err, ref_max)
+
+
+@pytest.mark.parametrize("st", [torch.bfloat16, None])
+def test_chunked_chunk_backward_gives_equal_bits_on_a_second_call(cuda, st):
+    """gla_chunk_bwd's chunked route sums in a fixed order (no atomics): a
+    second call on the same inputs gives the same bits in every output."""
+    args, _ = _qkv_bwd_args(cuda, (2, 4, 130, 256, 256), st, seed=8)
+    first = gla_cuda.gla_chunk_bwd(*args)
+    second = gla_cuda.gla_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, r in zip(_QKV_BWD_OUTS, first, second):
+        assert (a is None) == (r is None) == (name == "ds0" and st is None), name
+        assert a is None or torch.equal(a, r), name
+
+
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_chunked_chunk_backward_cancels_the_gate_gradient_of_one_step(cuda, scale):
+    """One step from a zero state: the exact gate gradient is 0, and the
+    chunked route's dg, a difference of terms of dq's and dk's size, cancels
+    to f32 rounding (the dsf . S_final term is summed from the very f32
+    values that enter dk), not to bf16 rounding."""
+    args, _ = _qkv_bwd_args(cuda, (2, 4, 1, 256, 256), None, seed=13)
+    dq, _, _, dg, _ = gla_cuda._chunk_bwd_launch(*args, scale, route="chunked")
+    torch.cuda.synchronize()
+    assert float(dg.abs().max()) <= 1e-5 * float(dq.float().abs().max())
+
+
+def test_chunk_backward_forced_recurrent_route_launches_for_bf16(cuda):
+    """The recurrent body of bf16 IO stays reachable when a route is forced
+    (the card's route sweep), and matches the chunked route within a share
+    of each output's own max; the public wrapper takes and counts the
+    plan's route; a route that the IO dtype does not have raises."""
+    args, _ = _qkv_bwd_args(cuda, (2, 4, 70, 256, 256), torch.float32, seed=12)
+    gla_cuda.reset_launch_counts()
+    rec = gla_cuda._chunk_bwd_launch(*args, route="recurrent")
+    assert gla_cuda.gla_chunk_bwd.routes == {"recurrent": 1, "chunked": 0}
+    got = gla_cuda.gla_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    planned = gla_cuda.gla_chunk_bwd_plan(torch.bfloat16, 2, 4, 70, 256)
+    assert planned == "chunked"
+    assert gla_cuda.gla_chunk_bwd.routes == {"recurrent": 1, "chunked": 1}
+    assert gla_cuda.launch_counts()["gla_chunk_bwd"] == 2
+    for name, a, r in zip(_QKV_BWD_OUTS, got, rec):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 2e-2 * float(r.float().abs().max()), (name, err)
+    f32 = tuple(a.float() if a is not None and a.dtype == torch.bfloat16 else a for a in args)
+    with pytest.raises(ValueError, match="bf16 IO only"):
+        gla_cuda._chunk_bwd_launch(*f32, route="chunked")
 
 
 def test_chunk_backward_notes_shapes_and_skips_ds0(cuda):
