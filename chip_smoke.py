@@ -10,9 +10,13 @@ Phases, in order; any failure raises and exits non-zero:
    at the flagship shapes (h 4, dk 256, dv 512, bf16 IO, bf16 and f32
    state): the two prefill kernels at b 8 and 1 and t from 151 down to 1,
    every chunk length the server gives them at b 1 included,
-   the classic decode step, the lazy-window step (b 8 and 64, window 16,
-   stale garbage in the dead slots) and the window fold, and a whole lazy
-   window against 16 classic steps; max error beside its tolerance, both
+   the classic decode step, the lazy-window step (b 1, 8 and 64, window 16,
+   stale garbage in the dead slots; on its planned route along the window
+   and on the other at p 0, 7 and 15, both timed there, equal bits on a
+   second call) and the window fold, and a whole lazy window against 16
+   classic steps; the lazy step's two routes timed in turns at b 1 to 16,
+   p 0, 7 and 15, bf16 and f32 states, beside the route its plan picks
+   (lazy_route_sweep); max error beside its tolerance, both
    times, and each kernel's roofline bound. The two prefill kernels are
    held on both routes of their forward (gla_chunk_fwd_plan: the chunked
    tensor-core route for bf16 IO from 64 tokens on, 128 above 8 heads in
@@ -73,7 +77,8 @@ Phases, in order; any failure raises and exits non-zero:
 Between phases 5 and 6, on the flagship of phase 4, quantized serving:
 5a. quantized kernel phase: int8_linear (both modes) at m 1, 8, 64 and 128
    for every (K, N) of the flagship's quantized layers, fused_ffn_int8 at m
-   1, 8 and 64, the lazy step over an int8 state (b 8 and 64, p 0, 7, 15) and
+   1, 8 and 64, the lazy step over an int8 state (b 1, 8 and 64, p 0, 7, 15,
+   on the tile route, its only body; the cluster route must refuse it) and
    the requantizing fold gla_fold_q, each against its plain version (int8
    states by integers, at most one step apart, and by their scales); times
    on a rotation of cold weights and states beside the bounds and beside
@@ -153,13 +158,17 @@ then Mamba (v1):
    a 16-token generate and one train step; then every shape those runs
    launched the two kernels on is held against the plain versions.
 Each main-path run starts with the launch counts at 0 and reads them right
-after; every forward launch of a main path must have taken its planned
-route. After the GLA phases, every shape a main path launched the two
-forward kernels and gla_chunk's backward on is timed on the route it took
-and on the recurrent body (where the backward's plan takes the chunked
-route, that route must be the faster), and launches x (time - bound) is
-summed over those launches; the summary ranks every kernel by it (the
-others at their row's shape). The line before the last is a JSON summary of the kernels; the last
+after; every forward launch and every lazy step of a main path must have
+taken its planned route. After the GLA phases, every shape a main path
+launched the two forward kernels and gla_chunk's backward on is timed on the
+route it took and on the recurrent body (where the backward's plan takes the
+chunked route, that route must be the faster), every shape it launched the
+lazy step on is held and timed (a float state on both routes in turns,
+the planned one at most SWEEP_MARGIN slower by the median of six turns,
+timed again before a miss fails; an int8 state on the tile route), and
+launches x (time - bound) is summed over those
+launches; the summary ranks every kernel by it (the others at their row's
+shape). The line before the last is a JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -172,6 +181,7 @@ import json
 from collections import Counter
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -306,11 +316,12 @@ INTERLEAVED_LAYERS, SHORT_STEPS, SHORT_BATCH = (5, 11), 16, 2
 # gla_decode. GLA_LAUNCHED gathers what the driven paths launched them on
 # (ops/gla_cuda.py:launch_shapes), and the last phase holds the rest.
 CHUNK_HELD, CHUNK_BWD_HELD, DECODE_HELD = set(), set(), set()
-# launches of the two forward kernels and of gla_chunk's backward on each
-# shape (ops/gla_cuda.py:launch_shape_counts keys), summed over the main-path
-# runs that expect_launches checks: the weights of gap_phase's sums
+# launches of the two forward kernels, of gla_chunk's backward and of the
+# lazy step on each shape (ops/gla_cuda.py:launch_shape_counts keys), summed
+# over the main-path runs that expect_launches checks: the weights of
+# gap_phase's sums
 GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
-                    "gla_chunk_bwd": Counter()}
+                    "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
 # blind pos_net, 4 heads of dk 256 and dv 256, bf16 IO, f32 w and u, f32
@@ -468,7 +479,8 @@ def ptxas_summary(log: str):
               (("bwd_dkv_kernel", "Lb1E"), "gla_chunk_conv_bwd dk/dv sweep"),
               (("bwd_dq_kernel", "Lb0E"), "gla_chunk_bwd dq sweep"),
               (("bwd_dkv_kernel", "Lb0E"), "gla_chunk_bwd dk/dv sweep"),
-              (("gla_decode_lazy_conv_kernel",), "gla_decode_lazy_conv"),
+              (("lazy_cluster_kernel",), "gla_decode_lazy_conv cluster"),
+              (("lazy_tile_kernel",), "gla_decode_lazy_conv tile"),
               (("gla_decode_kernel", "Lb1E"), "gla_decode_conv"),
               (("gla_decode_kernel", "Lb0E"), "gla_decode"),
               (("gla_fold_kernel",), "gla_fold"),
@@ -486,10 +498,13 @@ def ptxas_summary(log: str):
                  {1: 1, 8: 8}),
                 (("ffn_int8_kernelI13__nv_bfloat16S", "Lb1E"), "fused_ffn_int8<bf16, bf16>",
                  {1: 8, 2: 16}))
-    # the int8 lazy-window kernels' bf16 instantiations (dv 512)
+    # the int8 lazy-window kernels' bf16 instantiations (dv 512), and the lazy
+    # step's cluster route on an f32 state
     quant = (("gla_fold_q_kernelI13__nv_bfloat16Li16E", "gla_fold_q<bf16, dv 512>"),
-             ("gla_decode_lazy_conv_kernelI13__nv_bfloat16aLi256E",
-              "gla_decode_lazy_conv<bf16, int8, 256>"))
+             ("lazy_tile_kernelI13__nv_bfloat16aLi256E",
+              "gla_decode_lazy_conv tile<bf16, int8, 256>"),
+             ("lazy_cluster_kernelI13__nv_bfloat16fLi256E",
+              "gla_decode_lazy_conv cluster<bf16, f32, 256>"))
     # the RWKV6 kernels' bf16-IO, f32-state instantiations (dk 256)
     rwkv6 = (("rwkv6_chunk_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk"),
              ("rwkv6_bwd_dr_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dr sweep"),
@@ -541,6 +556,11 @@ def ptxas_summary(log: str):
         require(any("registers" in line for line in found)
                 and any("spill" in line for line in found),
                 f"ptxas: no register or spill line of {label}")
+    for label in [label for _, label in quant] + [f"gla_decode_lazy_conv {r}<bf16, bf16, 256>"
+                                                  for r in LAZY_ROUTES]:
+        found = [line for line in out if line.startswith(f"{label}:")]
+        require(any("registers" in line for line in found),
+                f"ptxas: no register line of {label}")
     for _, label, tiles in products:  # a renamed kernel must not drop out in silence
         for tile in tiles.values():
             found = [line for line in out if line.startswith(f"{label} (m-tile {tile}):")]
@@ -786,7 +806,8 @@ def time_fwd_routes(torch, gla_cuda, conv, args, s0, scale, label, work, iters=1
 def expect_planned_routes():
     """Every launch of the two forward kernels since the last reset took the
     route gla_chunk_fwd_plan gives its shape (the flagship's conv-fused
-    forward computes in bf16), and was counted under it."""
+    forward computes in bf16), every lazy step the route
+    gla_decode_lazy_plan gives its, and each was counted under it."""
     import torch
     from lina_speech_tpu_torch.ops import gla_cuda
 
@@ -803,8 +824,15 @@ def expect_planned_routes():
             planned = gla_cuda.gla_chunk_fwd_plan(io, b, h, t, dv)
             require(shape[-1] == planned,
                     f"{name} launched on {shape}: the plan takes the {planned} route")
+    lazy = gla_cuda.gla_decode_lazy_conv
+    require(sum(lazy.routes.values()) == lazy.launches,
+            f"gla_decode_lazy_conv: routes {lazy.routes}, launches {lazy.launches}")
+    for b, h, dk, dv, io, st, L, p, route in shapes["gla_decode_lazy_conv"]:
+        planned = gla_cuda.gla_decode_lazy_plan(b, h, st)
+        require(route == planned, f"gla_decode_lazy_conv launched on b{b} h{h} {st} p{p}: the "
+                f"plan takes the {planned} route")
     print(f"  forward routes as planned: gla_chunk_conv {gla_cuda.gla_chunk_conv.routes}, "
-          f"gla_chunk {gla_cuda.gla_chunk.routes}")
+          f"gla_chunk {gla_cuda.gla_chunk.routes}; the lazy step {lazy.routes}")
 
 
 def kernel_phase(torch, gla_cuda):
@@ -1004,20 +1032,77 @@ def lazy_step_work(tok, taps, rings, state, s_scale, bufs, out, p):
     """(bytes, operations) of one lazy step at window position p: the live
     slots j < p are read, slot p is written, the state (and the row scales
     of an int8 one) read once."""
-    b = tok[0].shape[0]
+    b, h, dk = tok[0].shape
+    dv = tok[2].shape[-1]
     moved = nbytes(*tok, *taps, *rings, state, s_scale, bufs[3], out[0], *out[1:4],
                    out[7]) + nbytes(*(t[:p + 1] for t in bufs[:3]))
-    flops = b * H * (2 * DK * DV + (p + 1) * (3 * DK + 2 * DV) + 8 * (2 * DK + DV))
+    flops = b * h * (2 * dk * dv + (p + 1) * (3 * dk + 2 * dv) + 8 * (2 * dk + dv))
     return moved, flops
 
 
+def hold_lazy_step(torch, out, ref, p, tol_o, own_max=False):
+    """One lazy step of the kernel against its plain version: o finite and
+    within ``tol_o`` of max(1, max|plain|) (``own_max``: of max|plain|, as
+    hold_leaf); the rings, kbuf/vbuf/cbuf[:p+1] and cc equal to the plain
+    version bit for bit. Returns o's error."""
+    require(bool(torch.isfinite(out[0].float()).all()), "o is not finite")
+    if own_max:
+        err_o = hold_leaf("o", out[0], ref[0], tol_o)
+    else:
+        err_o = max_err(out[0], ref[0])
+        check("o", err_o, bound(ref[0], tol_o))
+    for name, a, r_ in zip(("ring q", "ring k", "ring v"), out[1:4], ref[1:4]):
+        check(name, max_err(a, r_), 0.0)
+    for name, a, r_ in zip(("kbuf", "vbuf", "cbuf"), out[4:7], ref[4:7]):
+        check(f"{name}[:p+1]", max_err(a[:p + 1], r_[:p + 1]), 0.0)
+    check("cc", max_err(out[7], ref[7]), 0.0)
+    return err_o
+
+
+def equal_bits_again(torch, call, first):
+    """``call`` a second time on the same inputs gives the bits of ``first``
+    (copied before the call: the window buffers are written in place)."""
+    kept = [t.clone() for t in first]
+    again = call()
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(again, kept)),
+            "a second call gave other bits")
+    print("  a second call: equal bits")
+
+
+def hold_other_lazy_route(torch, gla_cuda, tag, args, state, bufs, p, ref, states, work):
+    """The lazy step over a float state at window position p on the route
+    its plan does not take (``args``: tok, taps and rings), on copies of the
+    window buffers: held against the plain version's step ``ref`` as
+    hold_lazy_step does, equal bits on a second call, and timed on the cold
+    states ``states`` hands out; a further shape of the row. Returns its
+    ms."""
+    b, h = args[0].shape[:2]
+    planned = gla_cuda.gla_decode_lazy_plan(b, h, state.dtype)
+    route = next(r for r in LAZY_ROUTES if r != planned)
+    r_bufs = [t.clone() for t in bufs]
+    call = lambda: lazy_on_route(gla_cuda, route, *args, state, *r_bufs, p)
+    out = call()
+    torch.cuda.synchronize()
+    print(f"gla_decode_lazy_conv {tag} p{p}, {route} route (not planned here):")
+    err = hold_lazy_step(torch, out, ref, p, TOL_BF16)
+    equal_bits_again(torch, call, out)
+    step = lambda: lazy_on_route(gla_cuda, route, *args, states(), *r_bufs, p)
+    ms = (device_ms(step, 50) + device_ms(step, 50)) / 2
+    note_shape("gla_decode_lazy_conv", f"{tag} p{p} {route} route", ms, None, *work,
+               torch.bfloat16)
+    return err
+
+
 def lazy_kernel_phase(torch, gla_cuda, summary):
-    """A whole lazy window at b8 and b64: every step of gla_decode_lazy_conv
-    against its plain version (slot p written in place, dead slots ignored),
-    gla_fold against its plain version, and the window against 16 classic
-    gla_decode_conv_plain steps (the lazy recurrence is the classic one)."""
+    """A whole lazy window at b1, b8 and b64: every step of
+    gla_decode_lazy_conv against its plain version (slot p written in place,
+    dead slots ignored, equal bits on a second call at p 0, 7 and 15, timed
+    there on cold states), gla_fold against its plain version, and the
+    window against 16 classic gla_decode_conv_plain steps (the lazy
+    recurrence is the classic one)."""
     bf = torch.bfloat16
-    for b in (8, 64):
+    for b in (1, 8, 64):
         for st in (torch.bfloat16, torch.float32):
             tag = f"b{b} state {str(st).split('.')[-1]}"
             tol_s = TOL_BF16 if st == bf else TOL_F32
@@ -1028,7 +1113,8 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
             timed, states = {}, cold_pool(s0)
             for p, tok in enumerate(toks):
                 ptrs = [t.data_ptr() for t in k_bufs[:3]]
-                if p in (0, 7, 15) and st == bf:  # time the step before taking it
+                before = [t.clone() for t in k_bufs]  # the buffers before the step
+                if p in (0, 7, 15):  # time the step before taking it
                     scratch = [t.clone() for t in k_bufs]
                     timed[p] = timed_pair(
                         f"gla_decode_lazy_conv {tag} p{p}",
@@ -1036,7 +1122,8 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
                                                               *scratch, p),
                         lambda: gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *k_rings,
                                                                     states(), *scratch, p), 50)
-                out = gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, s0, *k_bufs, p)
+                call = lambda: gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, s0, *k_bufs, p)
+                out = call()
                 ref = gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *p_rings, s0, *p_bufs, p)
                 cls = gla_cuda.gla_decode_conv_plain(*tok, *taps, *c_rings, c_state)
                 torch.cuda.synchronize()
@@ -1044,23 +1131,18 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
                         "window buffers not written in place")
                 if p in (0, 7, 15):
                     print(f"gla_decode_lazy_conv {tag} p{p}:")
-                    err_o = max_err(out[0], ref[0])
-                    check("o", err_o, bound(ref[0], TOL_BF16))
+                    err_o = hold_lazy_step(torch, out, ref, p, TOL_BF16)
                     check("o vs classic step", max_err(out[0], cls[0]), bound(cls[0], TOL_LOGITS))
-                    for name, a, r_ in zip(("ring q", "ring k", "ring v"), out[1:4], ref[1:4]):
-                        check(name, max_err(a, r_), 0.0)
-                    for name, a, r_ in zip(("kbuf", "vbuf", "cbuf"), out[4:7], ref[4:7]):
-                        check(f"{name}[:p+1]", max_err(a[:p + 1], r_[:p + 1]),
-                              bound(r_[:p + 1], TOL_BF16 if a.dtype == bf else 1e-6))
-                    check("cc", max_err(out[7], ref[7]), bound(ref[7], 1e-6))
-                    if p in timed:
-                        moved, flops = lazy_step_work(tok, taps, k_rings, s0, None, k_bufs, out, p)
-                        if b == BATCH and p == WINDOW - 1:
-                            record(summary, "gla_decode_lazy_conv", err_o, *timed[p], moved,
+                    equal_bits_again(torch, call, out)
+                    moved, flops = lazy_step_work(tok, taps, k_rings, s0, None, k_bufs, out, p)
+                    hold_other_lazy_route(torch, gla_cuda, tag, (*tok, *taps, *k_rings), s0,
+                                          before, p, ref, states, (moved, flops))
+                    if b == BATCH and p == WINDOW - 1 and st == bf:
+                        record(summary, "gla_decode_lazy_conv", err_o, *timed[p], moved,
+                               flops, bf)
+                    else:
+                        note_shape("gla_decode_lazy_conv", f"{tag} p{p}", *timed[p], moved,
                                    flops, bf)
-                        else:
-                            note_shape("gla_decode_lazy_conv", f"{tag} p{p}", *timed[p], moved,
-                                       flops, bf)
                 k_rings, k_bufs = out[1:4], list(out[4:8])
                 p_rings, p_bufs = ref[1:4], list(ref[4:8])
                 c_state, c_rings = cls[1], cls[2:]
@@ -1076,7 +1158,7 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
             # the classic state was rounded to the state dtype at each step
             check("state vs 16 classic steps", max_err(new_s, c_state),
                   bound(c_state, TOL_LOGITS if st == bf else TOL_BF16))
-            if st == bf:
+            if st == bf and b != 1:
                 classic_ms = device_ms(lambda: gla_cuda.gla_decode_conv(
                     *toks[-1], *taps, *rings, states()), 50)
                 print(f"  classic gla_decode_conv step at {tag}, for comparison: device ms "
@@ -1095,6 +1177,164 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
                     record(summary, "gla_fold", err_s, ms, plain_ms, *fold_work, bf)
                 else:
                     note_shape("gla_fold", tag, ms, plain_ms, *fold_work, bf)
+
+
+def lazy_case(torch, shape, seed):
+    """One lazy step's inputs at ``shape`` = (b, h, dk, dv, IO dtype, state
+    dtype, window L, p) as a main path gives them: slots j < p hold this
+    window's tokens (cumsums above the running one), slots from p on stale
+    garbage (cbuf 200); an int8 state comes with its row scales. Returns
+    (tok, taps, rings, state, s_scale or None, bufs)."""
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows
+
+    b, h, dk, dv, io, st, L, p = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    cums = (torch.nn.functional.logsigmoid(r(p + 1, b, h, dk)) / 16).cumsum(0)
+    gate = cums[p] - cums[p - 1] if p else cums[0]
+    tok = (r(b, h, dk).to(io), r(b, h, dk).to(io), r(b, h, dv).to(io), gate.contiguous())
+    taps = [(r(4, h, d) * 0.5).to(io) for d in (dk, dk, dv)]
+    rings = [r(4, b, h, d).to(io) for d in (dk, dk, dv)]
+    cbuf = torch.full((L, b, h, dk), 200.0, device=DEVICE)
+    cbuf[:p] = cums[:p]
+    cc = cums[p - 1].clone() if p else torch.zeros(b, h, dk, device=DEVICE)
+    bufs = [(r(L, b, h, dk) * 9).to(io), (r(L, b, h, dv) * 9).to(io), cbuf, cc]
+    if st == torch.int8:
+        state, s_scale = quantize_state_rows(r(b, h, dk, dv) * 0.05)
+    else:
+        state, s_scale = r(b, h, dk, dv).to(st), None
+    return tok, taps, rings, state, s_scale, bufs
+
+
+LAZY_ROUTES = ("cluster", "tile")
+LAZY_TURNS = 3  # rounds of (a, b, b, a) that time_lazy_routes takes
+LAZY_SWEEP_B = (1, 2, 4, 6, 8, 16)  # batches of lazy_route_sweep (h4: 4 to 64 heads in flight)
+
+
+def lazy_on_route(gla_cuda, route, *args, s_scale=None):
+    """One lazy step on ``route`` (the wrapper's launcher, forced)."""
+    return gla_cuda._lazy_launch(*args, s_scale=s_scale, route=route)
+
+
+def time_lazy_routes(steps, turns=LAZY_TURNS):
+    """Device ms of each route's step in ``steps`` ({route: callable}):
+    ``turns`` rounds of the routes in turns (a, b, b, a), 50 calls in a
+    CUDA graph each time; returns ({route: median ms}, {route: every ms})."""
+    order = list(steps)
+    times = {r: [] for r in order}
+    for _ in range(turns):
+        for r in (*order, *reversed(order)):
+            times[r].append(device_ms(steps[r], 50))
+    return {r: statistics.median(v) for r, v in times.items()}, times
+
+
+def planned_lazy_times(steps, route, label):
+    """time_lazy_routes for a shape a main path launched on ``route``: the
+    planned route may be at most SWEEP_MARGIN slower than the other. A shape
+    that misses is timed again as many turns, and fails only if the median
+    of both rounds misses too (one slow graph replay must not fail the
+    run). Returns ({route: median ms}, {route: every ms})."""
+    ms, times = time_lazy_routes(steps)
+    other = next(r for r in steps if r != route)
+    if ms[route] > ms[other] * (1 + SWEEP_MARGIN):
+        print(f"  {label}: the planned {route} route read {ms[route]} ms against the {other} "
+              f"route's {ms[other]} ms; timed again")
+        _, more = time_lazy_routes(steps)
+        times = {r: times[r] + more[r] for r in times}
+        ms = {r: statistics.median(v) for r, v in times.items()}
+    require(ms[route] <= ms[other] * (1 + SWEEP_MARGIN),
+            f"{label}: the planned {route} route {ms[route]} ms, the {other} route {ms[other]} "
+            f"ms (turns, ms: {times})")
+    return ms, times
+
+
+def lazy_route_sweep(torch, gla_cuda, card_line):
+    """Both routes of the lazy step timed in turns on cold float states at
+    the flagship's head, b LAZY_SWEEP_B and p 0, 7 and 15, beside the route
+    gla_decode_lazy_plan picks: where the plan's head-count threshold comes
+    from. Prints only; the launched shapes are held to the plan in
+    lazy_gap_phase."""
+    print(f"gla_decode_lazy_conv route sweep (h{H} dk{DK} dv{DV}, bf16 IO, window {WINDOW}; "
+          f"device us, median of {2 * LAZY_TURNS} in turns) [{card_line}]:")
+    for st in (torch.bfloat16, torch.float32):
+        for b in LAZY_SWEEP_B:
+            for p in (0, 7, 15):
+                tok, taps, rings, state, _, bufs = lazy_case(
+                    torch, (b, H, DK, DV, torch.bfloat16, st, WINDOW, p), seed=950 + b + p)
+                rotation = cold_pool(state)
+                steps = {r: (lambda r=r: lazy_on_route(gla_cuda, r, *tok, *taps, *rings,
+                                                       rotation(), *bufs, p))
+                         for r in LAZY_ROUTES}
+                ms, _ = time_lazy_routes(steps)
+                plan = gla_cuda.gla_decode_lazy_plan(b, H, st)
+                print(f"  state {dtype_name(st)} b{b} ({b * H} heads) p{p}: tile "
+                      f"{ms['tile'] * 1e3:.3f}, cluster {ms['cluster'] * 1e3:.3f}; planned {plan}, "
+                      f"{'faster' if ms[plan] <= min(ms.values()) else 'slower'}")
+
+
+def lazy_gap_phase(torch, gla_cuda, card_line):
+    """Every shape a main path launched gla_decode_lazy_conv on
+    (GAP_SHAPE_COUNTS) held against the plain version (o, the rings, the
+    live window slots and cc, the buffers written in place, equal bits on a
+    second call) and timed beside its bound on cold states: a float state
+    on both routes in turns, where the planned route must be no more than
+    SWEEP_MARGIN slower than the other (planned_lazy_times); an int8 state
+    on the tile route, its only body. launches x (time - bound) summed over
+    them, float and int8 states apart, on the routes taken and had every
+    launch taken the tile route (the PR 3 / PR 5 body). Returns {row name:
+    sum in ms on the routes taken}."""
+    counts = GAP_SHAPE_COUNTS["gla_decode_lazy_conv"]
+    sums = {name: {"taken": 0.0, "tile": 0.0}
+            for name in ("gla_decode_lazy_conv", "gla_decode_lazy_conv_int8")}
+    print(f"gla_decode_lazy_conv: launches x (time - bound) over {sum(counts.values())} "
+          f"main-path launches on {len(counts)} shapes (device us):")
+    for i, (shape, n) in enumerate(sorted(counts.items(), key=str)):
+        b, h, dk, dv, io, st, L, p, route = shape
+        require(route == gla_cuda.gla_decode_lazy_plan(b, h, st), f"{shape}: not the planned route")
+        tok, taps, rings, state, s_scale, bufs = lazy_case(torch, shape[:8], seed=900 + i)
+        tag = (f"b{b} {head_name(h, dk, dv)} IO {dtype_name(io)} state {dtype_name(st)} "
+               f"L{L} p{p}")
+        ref = gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *rings, state, *bufs, p,
+                                                  s_scale=s_scale)
+        routes = ("tile",) if st == torch.int8 else LAZY_ROUTES
+        steps = {}
+        for r in routes:
+            k_bufs = [t.clone() for t in bufs]
+            ptrs = [t.data_ptr() for t in k_bufs[:3]]
+            call = lambda: lazy_on_route(gla_cuda, r, *tok, *taps, *rings, state, *k_bufs, p,
+                                         s_scale=s_scale)
+            out = call()
+            torch.cuda.synchronize()
+            print(f"gla_decode_lazy_conv {tag}, {r} route:")
+            require([t.data_ptr() for t in out[4:7]] == ptrs, "window buffers not written in place")
+            hold_lazy_step(torch, out, ref, p, TOL_BF16 if io == torch.bfloat16 else TOL_F32,
+                           own_max=st == torch.int8)
+            equal_bits_again(torch, call, out)
+            rotation = cold_rotation(state) if s_scale is None else cold_rotation(state, s_scale)
+
+            def step(r=r, k_bufs=k_bufs, rotation=rotation):
+                s, *sc = rotation()
+                return lazy_on_route(gla_cuda, r, *tok, *taps, *rings, s, *k_bufs, p,
+                                     s_scale=sc[0] if sc else None)
+
+            steps[r] = step
+        if len(steps) > 1:
+            ms, times = planned_lazy_times(steps, route, f"{shape}")
+        else:
+            ms, times = time_lazy_routes(steps)
+        bound_ms = roofline(*lazy_step_work(tok, taps, rings, state, s_scale, bufs, out, p),
+                            io)[0]
+        name = "gla_decode_lazy_conv_int8" if st == torch.int8 else "gla_decode_lazy_conv"
+        sums[name]["taken"] += n * (ms[route] - bound_ms)
+        sums[name]["tile"] += n * (ms["tile"] - bound_ms)
+        print(f"  {n} launches; " + ", ".join(
+            f"{r}{' (planned)' if r == route else ''} {ms[r] * 1e3:.3f}" for r in ms)
+            + f", bound {bound_ms * 1e3:.3f} (medians; turns, ms: {times})")
+    for name, total in sums.items():
+        print(f"  {name}: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
+              f"taken; {total['tile']:.3f} ms had every launch taken the tile route (the PR 3 / "
+              f"PR 5 body) [{card_line}]")
+    return {name: total["taken"] for name, total in sums.items()}
 
 
 def set_kernel_mode(model, mode):
@@ -1618,16 +1858,19 @@ def quant_linear_kernel_phase(torch, summary):
 
 
 def quant_lazy_kernel_phase(torch, gla_cuda, summary):
-    """A whole lazy window over an int8 base state at b8 and b64: every step
-    of gla_decode_lazy_conv with ``s_scale`` against its plain version, timed
-    at p 0, 7 and 15 on a rotation of cold states, then gla_fold_q against
-    its plain version: the new int8 state by integers (at most one step
-    apart, and how many differ), the new scales, and the dequantized product;
-    updated in place."""
+    """A whole lazy window over an int8 base state at b1, b8 and b64: every
+    step of gla_decode_lazy_conv with ``s_scale`` against its plain version
+    (equal bits on a second call at p 0, 7 and 15, timed there on a
+    rotation of cold states; the tile route, the only one that takes an
+    int8 state, and the cluster route refused), then gla_fold_q against
+    its plain version:
+    the new int8 state by integers (at most one step apart, and how many
+    differ), the new scales, and the dequantized product; updated in
+    place."""
     from lina_speech_tpu_torch.ops.gla import dequantize_state_rows, quantize_state_rows
 
     bf = torch.bfloat16
-    for b in (8, 64):
+    for b in (1, 8, 64):
         tag = f"b{b} state int8"
         toks, taps, rings, s_float, bufs = lazy_inputs(torch, b, torch.float32, seed=b + 1)
         state_q, s_scale = quantize_state_rows(s_float * 0.05)
@@ -1648,22 +1891,25 @@ def quant_lazy_kernel_phase(torch, gla_cuda, summary):
                     f"gla_decode_lazy_conv {tag} p{p}",
                     lambda: step(gla_cuda.gla_decode_lazy_conv, k_rings, scratch, p),
                     lambda: step(gla_cuda.gla_decode_lazy_conv_plain, k_rings, scratch, p), 50)
-            out = gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, state_q, *k_bufs, p,
-                                                s_scale=s_scale)
+            call = lambda: gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, state_q, *k_bufs,
+                                                         p, s_scale=s_scale)
+            out = call()
             ref = gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *p_rings, state_q, *p_bufs, p,
                                                       s_scale=s_scale)
             torch.cuda.synchronize()
             require([t.data_ptr() for t in out[4:7]] == ptrs, "window buffers not written in place")
             if p in (0, 7, 15):
                 print(f"gla_decode_lazy_conv {tag} p{p}:")
-                err_o = hold_leaf("o", out[0], ref[0], TOL_BF16)
-                for name, a, r_ in zip(("ring q", "ring k", "ring v"), out[1:4], ref[1:4]):
-                    check(name, max_err(a, r_), 0.0)
-                for name, a, r_ in zip(("kbuf", "vbuf", "cbuf"), out[4:7], ref[4:7]):
-                    hold_leaf(f"{name}[:p+1]", a[:p + 1], r_[:p + 1],
-                              TOL_BF16 if a.dtype == bf else 1e-6)
-                hold_leaf("cc", out[7], ref[7], 1e-6)
+                err_o = hold_lazy_step(torch, out, ref, p, TOL_BF16, own_max=True)
+                equal_bits_again(torch, call, out)
                 work = lazy_step_work(tok, taps, k_rings, state_q, s_scale, k_bufs, out, p)
+                try:
+                    lazy_on_route(gla_cuda, "cluster", *tok, *taps, *k_rings, state_q,
+                                  *[t.clone() for t in k_bufs], p, s_scale=s_scale)
+                except ValueError as e:
+                    print(f"  the cluster route refuses an int8 state: {e}")
+                else:
+                    require(False, "the cluster route took an int8 state")
                 if b == BATCH and p == WINDOW - 1:
                     record(summary, "gla_decode_lazy_conv_int8", err_o, *timed[p], *work, bf)
                 else:
@@ -3253,7 +3499,8 @@ def gap_phase(torch, gla_cuda, card_line):
     in ms on the routes taken}."""
     bf = torch.bfloat16
     sums = {}
-    for name, counts in GAP_SHAPE_COUNTS.items():
+    for name in ("gla_chunk_conv", "gla_chunk", "gla_chunk_bwd"):
+        counts = GAP_SHAPE_COUNTS[name]
         conv, bwd = name == "gla_chunk_conv", name == "gla_chunk_bwd"
         fn = fwd_fns(gla_cuda, conv)[0]
         total = {"taken": 0.0, "recurrent": 0.0}
@@ -3294,6 +3541,7 @@ def gap_phase(torch, gla_cuda, card_line):
               f"taken; {total['recurrent']:.3f} ms had every launch taken the recurrent body "
               f"[{card_line}]")
         sums[name] = total["taken"]
+    sums.update(lazy_gap_phase(torch, gla_cuda, card_line))
     return sums
 
 
@@ -3896,6 +4144,7 @@ def main():
     summary = kernel_phase(torch, gla_cuda)
     chunk_kernel_phase(torch, gla_cuda, summary)
     lazy_kernel_phase(torch, gla_cuda, summary)
+    lazy_route_sweep(torch, gla_cuda, card_line)
     model, cfg, launches = generate_phase(torch, np, gla_cuda, card_line)
     add_launches(launches, serving_phase(torch, np, gla_cuda, model, cfg, card_line))
     quant_linear_kernel_phase(torch, summary)
@@ -3930,12 +4179,13 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
-    # launches x (time - bound): the two forwards and gla_chunk's backward
-    # over every launched shape, the other kernels at their row's shape
+    # launches x (time - bound): the two forwards, gla_chunk's backward and
+    # the lazy step over every launched shape, the other kernels at their
+    # row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
-    print("launches x (time - bound), ms, largest first (the two forwards and gla_chunk_bwd "
-          "over every launched shape, the others at their row's shape):")
+    print("launches x (time - bound), ms, largest first (the two forwards, gla_chunk_bwd and "
+          "the lazy step over every launched shape, the others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")

@@ -112,7 +112,7 @@ def load_library() -> ctypes.CDLL:
     lib.gla_chunk_bwd.restype = i
     lib.gla_decode_step.argtypes = [p] * 6 + [i] * 4 + [f, i, i, p]
     lib.gla_decode_step.restype = i
-    lib.gla_decode_lazy_conv_step.argtypes = [p] * 21 + [i] * 6 + [f, i, i, p]
+    lib.gla_decode_lazy_conv_step.argtypes = [p] * 21 + [i] * 6 + [f, i, i, i, p]
     lib.gla_decode_lazy_conv_step.restype = i
     lib.gla_fold_window.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.gla_fold_window.restype = i

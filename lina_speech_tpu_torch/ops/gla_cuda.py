@@ -31,7 +31,8 @@ wrappers and their plain versions.
 - :func:`gla_decode_lazy_conv` replaces ``gla_decode_lazy_conv_fused``
   (gla_pallas.py:2197), one lazy-window decode token: ring updates, append
   to the window buffers, readout from a read-only state, which may be int8
-  with a row scale (``s_scale``). Kernel: ``csrc/gla_decode_lazy_conv.cu``.
+  with a row scale (``s_scale``). Kernel: ``csrc/gla_decode_lazy_conv.cu``,
+  two routes chosen by :func:`gla_decode_lazy_plan`.
 - :func:`gla_fold` replaces ``gla_fold_fused`` (gla_pallas.py:2232), the
   fold of a full window into the state. Kernel: ``csrc/gla_fold.cu``.
 - :func:`gla_fold_q` replaces ``gla_fold_fused_q`` (gla_pallas.py:2097), the
@@ -42,12 +43,12 @@ Each wrapper takes the JAX function's arguments in the JAX layout. For a
 CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
 tensor it launches the kernel or raises -- there is no fallback. Each
 counts its launches in a plain int attribute (``gla_chunk_conv.launches``);
-the training kernels and ``gla_decode`` also note the shapes they were
-launched on (:func:`launch_shapes`). Which heads the kernels take is one
-predicate, :func:`kernel_takes`: a layer asks it before it calls a wrapper
-and takes the plain version for a head the kernels do not take, as the JAX
-layer takes XLA where its Pallas kernels do not fit; a wrapper called on
-such a head raises.
+the training kernels, ``gla_decode`` and ``gla_decode_lazy_conv`` also note
+the shapes they were launched on (:func:`launch_shapes`). Which heads the
+kernels take is one predicate, :func:`kernel_takes`: a layer asks it before
+it calls a wrapper and takes the plain version for a head the kernels do
+not take, as the JAX layer takes XLA where its Pallas kernels do not fit; a
+wrapper called on such a head raises.
 The plain versions follow the Pallas kernels' conv rounding points: the f32
 tap sum is rounded to the IO dtype before an f32 silu.
 
@@ -84,7 +85,8 @@ def _wrappers():
 
 
 def _shape_noters():
-    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd, gla_decode)
+    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd, gla_decode,
+            gla_decode_lazy_conv)
 
 
 def reset_launch_counts() -> None:
@@ -92,6 +94,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd):
         fn.routes = dict.fromkeys(_ROUTE_CODE, 0)
+    gla_decode_lazy_conv.routes = dict.fromkeys(_LAZY_ROUTE_CODE, 0)
     gla_decode_lazy_conv.q_launches = 0
     for fn in _shape_noters():
         fn.shapes = Counter()
@@ -109,8 +112,9 @@ def launch_shapes() -> dict:
     ``gla_chunk``: every launch as (b, h, t, dk, dv, IO dtype, initial state
     dtype or None, scale, route); ``gla_chunk_bwd``: the same with need_ds0
     in the route's place. ``gla_decode``: (b, h, dk, dv, IO dtype, state
-    dtype). A check that drives a path reads it to hold the kernels at
-    those shapes."""
+    dtype); ``gla_decode_lazy_conv``: (b, h, dk, dv, IO dtype, state dtype,
+    window length, p, route). A check that drives a path reads it to hold the
+    kernels at those shapes."""
     return {fn.__name__: set(fn.shapes) for fn in _shape_noters()}
 
 
@@ -1150,6 +1154,70 @@ def gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     return o.to(xq.dtype), cq2, ck2, cv2, kbuf, vbuf, cbuf, cc
 
 
+_LAZY_ROWS = 32  # key rows a block of the lazy step's cluster route owns (kRB)
+_LAZY_SLAB = 65536  # most state bytes a block stages (kSlabBytes)
+
+
+def _lazy_slab_width(dk: int, dv: int, state: torch.Tensor) -> int:
+    """Columns of a lazy-step block's slab (the kernel's slab_width): dv cut
+    into the fewest equal tiles whose columns are a multiple of R = dk / 32
+    times the kernel's loads (4 values) and whose slab is at most
+    _LAZY_SLAB bytes."""
+    quantum = dk // _LAZY_ROWS * 4
+    for t in range(1, dv // quantum + 1):
+        w = dv // t
+        if dv % t == 0 and w % quantum == 0 and _LAZY_ROWS * w * state.element_size() <= _LAZY_SLAB:
+            return w
+    return quantum
+
+
+def gla_decode_lazy_conv_split_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
+                                     kbuf, vbuf, cbuf, cc, p: int, scale=None):
+    """:func:`gla_decode_lazy_conv_plain` computed as the CUDA kernel's
+    cluster route splits it (tests only), on a float state as that route
+    takes it. A cluster of R ranks per head, each owning 32 key rows: rank r
+    forms its part of every window score and of the base readout at every
+    column of a tile (:func:`_lazy_slab_width` columns), over its rows; the
+    block that owns a column slice (tile width / R) adds the R parts in rank
+    order, then the slice's window terms. Same signature (without
+    ``s_scale``) and returns."""
+    _check("gla_decode_lazy_conv", state.dtype in _DTYPE_CODE,
+           "the cluster route takes an f32 or bf16 state")
+    b, h, dk = xq.shape
+    dv = xv.shape[-1]
+    scale = dk ** -0.5 if scale is None else scale
+    q, cq2 = _ring_conv(xq, wq, cq)
+    k, ck2 = _ring_conv(xk, wk, ck)
+    v, cv2 = _ring_conv(xv, wv, cv)
+    cc2 = cc + gk.float()
+    kbuf, vbuf, cbuf = kbuf.clone(), vbuf.clone(), cbuf.clone()
+    kbuf[p], vbuf[p], cbuf[p] = k.to(kbuf.dtype), v.to(vbuf.dtype), cc2
+    q = q * scale
+    qe = q * cc2.exp()
+    ranks = [slice(r * _LAZY_ROWS, (r + 1) * _LAZY_ROWS) for r in range(dk // _LAZY_ROWS)]
+    # rank r's part of every score a_j (j <= p; slot p's exp argument is 0)
+    keys = kbuf[:p + 1].float() * (cc2[None] - cbuf[:p + 1]).clamp(max=0.0).exp()
+    a = _sum_in_order([(q[None, ..., rw] * keys[..., rw]).sum(-1) for rw in ranks])
+    vals = vbuf[:p + 1].float()
+    sf = state.float()
+    w = _lazy_slab_width(dk, dv, state)
+    o = torch.empty(b, h, dv, dtype=torch.float32, device=xq.device)
+    for c0 in range(0, dv, w):
+        cols = slice(c0, c0 + w)
+        base = _sum_in_order([torch.einsum("bhk,bhkv->bhv", qe[..., rw], sf[..., rw, cols])
+                              for rw in ranks])
+        o[..., cols] = base + (a[..., None] * vals[..., cols]).sum(0)
+    return o.to(xq.dtype), cq2, ck2, cv2, kbuf, vbuf, cbuf, cc2
+
+
+def _sum_in_order(parts):
+    """parts[0] + parts[1] + ..., left to right."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
 def _check_state_scale(name, state, s_scale) -> None:
     """An int8 state comes with its f32 row scales (b, h, dk), a float
     state without."""
@@ -1159,6 +1227,30 @@ def _check_state_scale(name, state, s_scale) -> None:
                f"s_scale must be {tuple(state.shape[:-1])} in f32")
     else:
         _check(name, s_scale is None, "s_scale goes with an int8 state only")
+
+
+# The lazy step's two bodies (csrc/gla_decode_lazy_conv.cu). "cluster": a
+# thread block cluster per head that reads the state in bulk and forms every
+# per-head term once, for f32 and bf16 states; "tile": the PR 3 / PR 5 body,
+# a block per 32-column tile (128 over an int8 state) that forms the head's
+# q, k and scores itself, the only body for an int8 state. chip_smoke.py's
+# route sweep on an H100 (PERF.md §6, PR 14; h4 dk256 dv512, window 16, p 0,
+# 7 and 15, b 1 to 16) set the threshold: the tile route won at 4, 8 and 16
+# heads in flight, by 10-40%; the cluster route from 24 heads, but for ties
+# (within 1%) at 24 heads on an f32 state and at 32 on a bf16 state at p 0,
+# and an f32 state at 32 heads and p 0 (9% slower: the plan does not split
+# by p). Head counts between 16 and 24 were not measured.
+_LAZY_ROUTE_CODE = {"tile": 0, "cluster": 1}
+_LAZY_CLUSTER_MIN_HEADS = 24  # b * h from which a float state takes the cluster route
+
+
+def gla_decode_lazy_plan(b: int, h: int, state_dtype: torch.dtype) -> str:
+    """The body a :func:`gla_decode_lazy_conv` launch on (b, h) heads over a
+    state of ``state_dtype`` runs, decided from these alone before the
+    launch: ``"cluster"`` for an f32 or bf16 state from
+    ``_LAZY_CLUSTER_MIN_HEADS`` heads in flight, else ``"tile"``."""
+    float_state = state_dtype in _DTYPE_CODE
+    return "cluster" if float_state and b * h >= _LAZY_CLUSTER_MIN_HEADS else "tile"
 
 
 def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
@@ -1177,12 +1269,22 @@ def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
 
     On CUDA the kernel writes slot ``p`` of kbuf, vbuf and cbuf IN PLACE and
     returns the same tensors (as the JAX kernel aliases them); the rings
-    and cc come back as new tensors.
+    and cc come back as new tensors. It runs the body
+    :func:`gla_decode_lazy_plan` picks; ``gla_decode_lazy_conv.routes``
+    counts each.
     """
     if not xq.is_cuda:
         return gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck,
                                           cv, state, kbuf, vbuf, cbuf, cc, p,
                                           scale, s_scale)
+    return _lazy_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf,
+                        cc, p, scale, s_scale)
+
+
+def _lazy_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf, cc,
+                 p, scale=None, s_scale=None, route=None):
+    """:func:`gla_decode_lazy_conv` on CUDA tensors, on ``route`` if given
+    (the card's checks force either body), else on the plan's."""
     name = "gla_decode_lazy_conv"
     b, h, dk = xq.shape
     dv = xv.shape[-1]
@@ -1208,6 +1310,12 @@ def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     L = _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, io)
     _check(name, isinstance(p, int) and 0 <= p < L,
            f"p must be an int in [0, {L}), got {p!r}")
+    route = gla_decode_lazy_plan(b, h, state.dtype) if route is None else route
+    _check(name, route in _LAZY_ROUTE_CODE,
+           f"route {route!r} not in {tuple(_LAZY_ROUTE_CODE)}")
+    _check(name, route == "tile" or not quant, "the cluster route takes no int8 state")
+    _check(name, route == "tile" or state.data_ptr() % 16 == 0,
+           "the cluster route takes a state on a 16-byte boundary (it is copied in bulk)")
     scale = dk ** -0.5 if scale is None else scale
     o = torch.empty(b, h, dv, dtype=io, device=xq.device)
     cq2, ck2, cv2 = torch.empty_like(cq), torch.empty_like(ck), torch.empty_like(cv)
@@ -1219,16 +1327,20 @@ def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
         _ptr(cq), _ptr(ck), _ptr(cv), _ptr(state), _ptr(s_scale), _ptr(kbuf),
         _ptr(vbuf), _ptr(cbuf), _ptr(cc), _ptr(o), _ptr(cq2), _ptr(ck2),
         _ptr(cv2), _ptr(cc2), b, h, dk, dv, L, p, float(scale), _DTYPE_CODE[io],
-        state_code, ctypes.c_void_p(stream))
+        state_code, _LAZY_ROUTE_CODE[route], ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_decode_lazy_conv.launches += 1
+    gla_decode_lazy_conv.routes[route] += 1
     if quant:
         gla_decode_lazy_conv.q_launches += 1
+    gla_decode_lazy_conv.shapes[(b, h, dk, dv, io, state.dtype, L, p, route)] += 1
     return o, cq2, ck2, cv2, kbuf, vbuf, cbuf, cc2
 
 
 # q_launches: how many of the launches read an int8 state
 gla_decode_lazy_conv.launches = gla_decode_lazy_conv.q_launches = 0
+gla_decode_lazy_conv.routes = dict.fromkeys(_LAZY_ROUTE_CODE, 0)
+gla_decode_lazy_conv.shapes = Counter()
 
 
 def _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, buf_dtype) -> int:

@@ -20,6 +20,11 @@ from seed 0, bf16 compute):
 - ``prefill_ms``: host ms, synchronized, of the prefill and insertion of
   one request through ``DecodeServer`` (b1, power-of-two chunks) for each
   prompt length, ``--repeats`` times;
+- ``lazy_chunk_ms``: host ms of ``--chunks`` lazy decode chunks (16 tokens)
+  of that server with all 8 slots busy, each a ``run(max_chunks=1)`` call
+  that ran no prefill and completed no request (it ends in a host read of
+  the chunk's tokens; ``--lazy-route`` puts every lazy step of the run on
+  one body);
 - ``host_us``: host microseconds of one call of ``gla_chunk_conv``'s forward
   (under no_grad, on the route the package plans) and of its backward,
   from the call to its return with the card idle before it (median of 30),
@@ -86,6 +91,10 @@ def main():
     p.add_argument("--warm", type=int, default=3)
     p.add_argument("--steps", type=int, default=6)
     p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--chunks", type=int, default=6)
+    p.add_argument("--lazy-route", choices=("tile", "cluster"),
+                   help="put every lazy step on this body instead of the plan's (a checkout "
+                        "with gla_decode_lazy_plan), to part the route from the rest")
     args = p.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -106,6 +115,8 @@ def main():
         sys.exit("needs a CUDA device")
     if not os.path.abspath(lina_speech_tpu_torch.__file__).startswith(tree + os.sep):
         sys.exit(f"imported {lina_speech_tpu_torch.__file__}, not the package under {tree}")
+    if args.lazy_route:
+        gla_cuda.gla_decode_lazy_plan = lambda b, h, state_dtype: args.lazy_route
     cfg = lina_gla_169m(compute_dtype="bfloat16")
     model = build_model(cfg, device="cuda", seed=0)
 
@@ -153,8 +164,26 @@ def main():
                 sys.exit("the request did not end at its prefill")
         prefill[str(p_len)] = ms[1:]
 
+    # lazy decode chunks at 8 busy slots: every call after the first that
+    # started and ended with all slots busy and completed no request (a
+    # call that refills a slot runs a prefill too)
+    for _ in range(4 * SLOTS):
+        text = rng.integers(3, cfg.n_txt_vocab, size=TEXT_LEN)
+        prompt = rng.integers(0, cfg.n_codebook, size=(cfg.n_quant, PROMPTS[2]))
+        srv.submit(text, prompt=prompt, max_len=PROMPTS[2] + 8 * WINDOW)
+    lazy_chunk_ms, calls = [], 0
+    while (calls == 0 or srv.active) and len(lazy_chunk_ms) < args.chunks:
+        busy = srv.active
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = srv.run(max_chunks=1)
+        ms = (time.perf_counter() - t0) * 1e3
+        if calls and not out and busy == SLOTS:
+            lazy_chunk_ms.append(ms)
+        calls += 1
+
     print(json.dumps(dict(label=args.label, train_ms=train_ms, train_t=train_t,
-                          prefill_ms=prefill, host_us=host)))
+                          prefill_ms=prefill, lazy_chunk_ms=lazy_chunk_ms, host_us=host)))
 
 
 if __name__ == "__main__":

@@ -213,11 +213,12 @@ def _lazy_inputs(dev, b, h, dk, dv, L, io, st, seed=0):
 @pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("st", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 4, 256, 512, 16), (3, 3, 64, 96, 4), (1, 5, 128, 32, 16),
-                                   (2, 2, 64, 64, 40)])
+                                   (2, 2, 64, 64, 40), (64, 4, 256, 512, 16)])
 def test_lazy_window_kernels_match_plain_and_classic(cuda, io, st, shape):
     """A full window: every lazy step against its plain version (buffers in
-    place, stale slots ignored), then the fold against its plain version
-    and against the classic per-token recurrence."""
+    place, stale slots ignored, equal bits on a second call), then the fold
+    against its plain version and against the classic per-token
+    recurrence."""
     b, h, dk, dv, L = shape
     tok, taps, rings, s0, bufs = _lazy_inputs(cuda, b, h, dk, dv, L, io, st)
     k_rings, p_rings, c_rings = list(rings), list(rings), list(rings)
@@ -231,10 +232,13 @@ def test_lazy_window_kernels_match_plain_and_classic(cuda, io, st, shape):
                      .to(t.dtype) for t in tok[:3]) + (tok[3] * (1 + p % 3),)
         ptrs = [t.data_ptr() for t in k_bufs[:3]]
         out = gla_cuda.gla_decode_lazy_conv(*step, *taps, *k_rings, s0, *k_bufs, p)
+        kept = [t.clone() for t in out]
+        again = gla_cuda.gla_decode_lazy_conv(*step, *taps, *k_rings, s0, *k_bufs, p)
         ref = gla_cuda.gla_decode_lazy_conv_plain(*step, *taps, *p_rings, s0, *p_bufs, p)
         cls = gla_cuda.gla_decode_conv_plain(*step, *taps, *c_rings, c_state)
         torch.cuda.synchronize()
         assert [t.data_ptr() for t in out[4:7]] == ptrs  # slot p written in place
+        assert all(torch.equal(a, k) for a, k in zip(again, kept)), p  # equal bits
         assert _rel_err(out[0], ref[0]) <= tol, p
         assert _rel_err(out[0], cls[0]) <= (1e-3 if io == st == torch.float32 else 3e-2), p
         for a, r_ in zip(out[1:4], ref[1:4]):
@@ -245,7 +249,7 @@ def test_lazy_window_kernels_match_plain_and_classic(cuda, io, st, shape):
         k_rings, k_bufs = list(out[1:4]), list(out[4:8])
         p_rings, p_bufs = list(ref[1:4]), list(ref[4:8])
         c_state, c_rings = cls[1], list(cls[2:])
-    assert gla_cuda.gla_decode_lazy_conv.launches == before + L
+    assert gla_cuda.gla_decode_lazy_conv.launches == before + 2 * L
     ref_s = gla_cuda.gla_fold_plain(s0, *p_bufs)
     state = s0.clone()
     new_s = gla_cuda.gla_fold(state, *k_bufs)
@@ -255,6 +259,57 @@ def test_lazy_window_kernels_match_plain_and_classic(cuda, io, st, shape):
     assert _rel_err(new_s, ref_s) <= tol_s
     # the classic state was rounded to the state dtype at each of the L steps
     assert _rel_err(new_s, c_state) <= (1e-3 if io == st == torch.float32 else 5e-2)
+
+
+@pytest.mark.parametrize("route,st", [("tile", "float32"), ("tile", "bfloat16"), ("tile", "int8"),
+                                      ("cluster", "float32"), ("cluster", "bfloat16")])
+@pytest.mark.parametrize("shape", [(1, 4, 256, 512, 16), (8, 4, 256, 512, 16),
+                                   (64, 4, 256, 512, 16), (3, 3, 64, 128, 4),
+                                   (2, 2, 128, 256, 21)])
+def test_lazy_step_routes_match_plain(cuda, route, st, shape):
+    """Both bodies of the lazy step, forced, over a whole window against
+    the plain version (an int8 state on the tile route, its only body): o
+    within 1e-2 of max(1, max|plain|) (bf16 IO), the rings, the live window
+    slots and cc equal, slot p written in place, equal bits on a second
+    call."""
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows
+
+    b, h, dk, dv, L = shape
+    io = torch.bfloat16
+    tok, taps, rings, s0, bufs = _lazy_inputs(cuda, b, h, dk, dv, L, io, torch.float32, seed=L)
+    s_scale = None
+    if st == "int8":
+        s0, s_scale = quantize_state_rows(s0 * 0.05)
+    else:
+        s0 = s0.to(getattr(torch, st))
+    k_rings = p_rings = list(rings)
+    k_bufs, p_bufs = [t.clone() for t in bufs], [t.clone() for t in bufs]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    before = dict(gla_cuda.gla_decode_lazy_conv.routes)
+    for p in range(L):
+        step = tuple((torch.randn(t.shape, generator=g, device=cuda) * 0.5).to(t.dtype)
+                     for t in tok[:3]) + (tok[3] * (1 + p % 3),)
+        ptrs = [t.data_ptr() for t in k_bufs[:3]]
+        call = lambda: gla_cuda._lazy_launch(*step, *taps, *k_rings, s0, *k_bufs, p,
+                                             s_scale=s_scale, route=route)
+        out = call()
+        kept = [t.clone() for t in out]
+        again = call()
+        ref = gla_cuda.gla_decode_lazy_conv_plain(*step, *taps, *p_rings, s0, *p_bufs, p,
+                                                  s_scale=s_scale)
+        torch.cuda.synchronize()
+        assert [t.data_ptr() for t in out[4:7]] == ptrs, p
+        assert all(torch.equal(a, k) for a, k in zip(again, kept)), p
+        assert bool(torch.isfinite(out[0].float()).all())
+        assert _rel_err(out[0], ref[0]) <= 1e-2, p
+        for a, r_ in zip(out[1:4], ref[1:4]):
+            assert torch.equal(a, r_)
+        for a, r_ in zip(out[4:7], ref[4:7]):
+            assert torch.equal(a[:p + 1], r_[:p + 1]), p
+        assert torch.equal(out[7], ref[7])
+        k_rings, k_bufs = list(out[1:4]), list(out[4:8])
+        p_rings, p_bufs = list(ref[1:4]), list(ref[4:8])
+    assert gla_cuda.gla_decode_lazy_conv.routes[route] == before[route] + 2 * L
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -282,6 +337,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         gla_cuda.gla_decode_lazy_conv(*tok, *taps, *rings, s0, bufs[0].float(), *bufs[1:], 0)
     with pytest.raises(ValueError):  # vbuf of another window length than kbuf
         gla_cuda.gla_decode_lazy_conv(*tok, *taps, *rings, s0, bufs[0], bufs[1][:2], *bufs[2:], 0)
+    off = torch.empty(s0.numel() + 1, dtype=s0.dtype, device=cuda)[1:].view(s0.shape)
+    with pytest.raises(ValueError, match="16-byte"):  # a state the bulk copy cannot take
+        gla_cuda._lazy_launch(*tok, *taps, *rings, off, *bufs, 0, route="cluster")
+    with pytest.raises(ValueError, match="route"):
+        gla_cuda._lazy_launch(*tok, *taps, *rings, s0, *bufs, 0, route="rows")
+    # the cluster route has no int8 body (an int8 state it would take
+    # otherwise: dv a multiple of 128, a 16-byte boundary)
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows
+
+    q_tok, q_taps, q_rings, q_s0, q_bufs = _lazy_inputs(cuda, 1, 2, 64, 128, 4, torch.bfloat16,
+                                                        torch.float32)
+    q_state, s_scale = quantize_state_rows(q_s0)
+    with pytest.raises(ValueError, match="no int8 state"):
+        gla_cuda._lazy_launch(*q_tok, *q_taps, *q_rings, q_state, *q_bufs, 0, s_scale=s_scale,
+                              route="cluster")
     with pytest.raises(ValueError):  # cbuf not f32
         gla_cuda.gla_fold(s0, bufs[0], bufs[1], bufs[2].bfloat16(), bufs[3])
     with pytest.raises(ValueError):  # kbuf and vbuf of different dtypes
@@ -847,10 +917,11 @@ def test_fused_ffn_kernel_takes_bf16_biases(cuda, m):
 
 @pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 4, 256, 512, 16), (3, 3, 64, 128, 4), (1, 5, 128, 256, 16),
-                                   (2, 2, 256, 512, 21)])
+                                   (2, 2, 256, 512, 21), (64, 4, 256, 512, 16)])
 def test_int8_state_lazy_window_kernels_match_plain(cuda, io, shape):
     """A whole window over an int8 base state: every lazy step with
-    ``s_scale`` and the requantizing fold against their plain versions."""
+    ``s_scale`` (equal bits on a second call) and the requantizing fold
+    against their plain versions."""
     from lina_speech_tpu_torch.ops.gla import quantize_state_rows
 
     b, h, dk, dv, L = shape
@@ -869,10 +940,18 @@ def test_int8_state_lazy_window_kernels_match_plain(cuda, io, shape):
         before = gla_cuda.gla_decode_lazy_conv.q_launches
         out = gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, state_q, *k_bufs, p,
                                             s_scale=s_scale)
+        kept = [t.clone() for t in out]
+        again = gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, state_q, *k_bufs, p,
+                                              s_scale=s_scale)
         ref = gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *p_rings, state_q, *p_bufs, p,
                                                   s_scale=s_scale)
         torch.cuda.synchronize()
-        assert gla_cuda.gla_decode_lazy_conv.q_launches == before + 1
+        assert gla_cuda.gla_decode_lazy_conv.q_launches == before + 2
+        assert all(torch.equal(a, k) for a, k in zip(again, kept)), p  # equal bits
+        for a, r_ in zip(out[1:4], ref[1:4]):
+            assert torch.equal(a, r_)
+        for a, r_ in zip(out[4:7], ref[4:7]):  # live slots only
+            assert _rel_err(a[:p + 1], r_[:p + 1]) <= (1e-5 if io == torch.float32 else 1e-2)
         assert out[0].dtype == io and _rel_err(out[0], ref[0]) <= tol
         assert _rel_err(out[7], ref[7]) <= 1e-6
         k_rings, k_bufs = out[1:4], list(out[4:8])
