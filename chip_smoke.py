@@ -16,7 +16,12 @@ Phases, in order; any failure raises and exits non-zero:
    second call) and the window fold, and a whole lazy window against 16
    classic steps; the lazy step's two routes timed in turns at b 1 to 16,
    p 0, 7 and 15, bf16 and f32 states, beside the route its plan picks
-   (lazy_route_sweep); max error beside its tolerance, both
+   (lazy_route_sweep); the classic step's two routes (gla_decode_plan: a
+   thread block cluster a head from a threshold of heads in flight, the
+   tile body below it) timed in turns at b 1 to 64, bf16 and f32 states,
+   for the flagship's conv step, simple-GLA's and Mamba-2's steps beside
+   the route its plan picks, which may be no more than SWEEP_MARGIN slower
+   (decode_route_sweep); max error beside its tolerance, both
    times, and each kernel's roofline bound. The two prefill kernels are
    held on both routes of their forward (gla_chunk_fwd_plan: the chunked
    tensor-core route for bf16 IO from 64 tokens on, 128 above 8 heads in
@@ -97,8 +102,10 @@ Between phases 5 and 6, on the flagship of phase 4, quantized serving:
    the model) serves 4; every shape those runs gave int8_linear and
    fused_ffn_int8 is held against the plain version, or the phase fails.
 After phase 9, the GLA layers without per-projection convs:
-10. gla_chunk's forward and backward and gla_decode against their plain
-   versions: the backward at b8 t 512, 317 and 128 with an f32, a bf16 and
+10. gla_chunk's forward and backward and the two classic steps against
+   their plain versions (the steps on both routes, also against the split
+   plain version of the cluster route; gla_decode_conv at b64, gla_decode
+   at b1, b8, b64 and Mamba-2's b8): the backward at b8 t 512, 317 and 128 with an f32, a bf16 and
    no initial state for simple-GLA's heads (bf16 IO: autograd's launch on
    the planned route, then both routes forced, the chunked one also
    against its plain decomposition, gla_chunk_bwd_chunked_plain) and
@@ -165,7 +172,9 @@ route it took and on the recurrent body (where the backward's plan takes the
 chunked route, that route must be the faster), every shape it launched the
 lazy step on is held and timed (a float state on both routes in turns,
 the planned one at most SWEEP_MARGIN slower by the median of six turns,
-timed again before a miss fails; an int8 state on the tile route), and
+timed again before a miss fails; an int8 state on the tile route), every
+shape it launched the two classic steps on is held on both routes and
+timed in turns (the planned route must be the faster), and
 launches x (time - bound) is summed over those
 launches; the summary ranks every kernel by it (the others at their row's
 shape). The line before the last is a JSON summary of the kernels; the last
@@ -312,17 +321,22 @@ VARIANT_TRAIN_STEPS = {"simple_gla": 5, "mamba2": 3}
 INTERLEAVED_LAYERS, SHORT_STEPS, SHORT_BATCH = (5, 11), 16, 2
 # (b, h, t, dk, dv, IO dtype, initial-state dtype or None, scale, route) at
 # which gla_chunk was held against its plain version; with need_ds0 in the
-# route's place, the same for its backward; (b, h, dk, dv, IO dtype, state dtype) for
-# gla_decode. GLA_LAUNCHED gathers what the driven paths launched them on
+# route's place, the same for its backward. GLA_LAUNCHED gathers what the
+# driven paths launched them and the two classic steps on
 # (ops/gla_cuda.py:launch_shapes), and the last phase holds the rest.
-CHUNK_HELD, CHUNK_BWD_HELD, DECODE_HELD = set(), set(), set()
+CHUNK_HELD, CHUNK_BWD_HELD = set(), set()
+# (b, h, dk, dv, IO dtype, state dtype, route) at which the two classic steps
+# were held on that route against their plain versions (hold_decode_routes)
+DECODE_HELD = {"gla_decode_conv": set(), "gla_decode": set()}
 # launches of the two forward kernels, of gla_chunk's backward and of the
-# lazy step on each shape (ops/gla_cuda.py:launch_shape_counts keys), summed
-# over the main-path runs that expect_launches checks: the weights of
-# gap_phase's sums
+# three decode steps on each shape (ops/gla_cuda.py:launch_shape_counts
+# keys), summed over the main-path runs that expect_launches checks: the
+# weights of gap_phase's sums
 GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
-                    "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter()}
-GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode": set()}
+                    "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter(),
+                    "gla_decode_conv": Counter(), "gla_decode": Counter()}
+GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode_conv": set(),
+                "gla_decode": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
 # blind pos_net, 4 heads of dk 256 and dv 256, bf16 IO, f32 w and u, f32
 # states), with the parameters that initialize to constants (the bonus u, the
@@ -481,8 +495,10 @@ def ptxas_summary(log: str):
               (("bwd_dkv_kernel", "Lb0E"), "gla_chunk_bwd dk/dv sweep"),
               (("lazy_cluster_kernel",), "gla_decode_lazy_conv cluster"),
               (("lazy_tile_kernel",), "gla_decode_lazy_conv tile"),
-              (("gla_decode_kernel", "Lb1E"), "gla_decode_conv"),
-              (("gla_decode_kernel", "Lb0E"), "gla_decode"),
+              (("gla_decode_kernel", "Lb1E"), "gla_decode_conv tile"),
+              (("gla_decode_kernel", "Lb0E"), "gla_decode tile"),
+              (("gla_decode_cluster_kernel", "Lb1E"), "gla_decode_conv cluster"),
+              (("gla_decode_cluster_kernel", "Lb0E"), "gla_decode cluster"),
               (("gla_fold_kernel",), "gla_fold"),
               (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv recurrent"),
               (("gla_chunk_kernel", "Lb0E"), "gla_chunk recurrent"))
@@ -556,8 +572,10 @@ def ptxas_summary(log: str):
         require(any("registers" in line for line in found)
                 and any("spill" in line for line in found),
                 f"ptxas: no register or spill line of {label}")
-    for label in [label for _, label in quant] + [f"gla_decode_lazy_conv {r}<bf16, bf16, 256>"
-                                                  for r in LAZY_ROUTES]:
+    for label in [label for _, label in quant] + [
+            f"{kernel} {r}<bf16, bf16, 256>"
+            for kernel in ("gla_decode_lazy_conv", "gla_decode_conv", "gla_decode")
+            for r in LAZY_ROUTES]:
         found = [line for line in out if line.startswith(f"{label}:")]
         require(any("registers" in line for line in found),
                 f"ptxas: no register line of {label}")
@@ -807,7 +825,8 @@ def expect_planned_routes():
     """Every launch of the two forward kernels since the last reset took the
     route gla_chunk_fwd_plan gives its shape (the flagship's conv-fused
     forward computes in bf16), every lazy step the route
-    gla_decode_lazy_plan gives its, and each was counted under it."""
+    gla_decode_lazy_plan gives its, every classic step the route
+    gla_decode_plan gives its, and each was counted under it."""
     import torch
     from lina_speech_tpu_torch.ops import gla_cuda
 
@@ -831,8 +850,16 @@ def expect_planned_routes():
         planned = gla_cuda.gla_decode_lazy_plan(b, h, st)
         require(route == planned, f"gla_decode_lazy_conv launched on b{b} h{h} {st} p{p}: the "
                 f"plan takes the {planned} route")
+    for fn in (gla_cuda.gla_decode_conv, gla_cuda.gla_decode):
+        require(sum(fn.routes.values()) == fn.launches,
+                f"{fn.__name__}: routes {fn.routes}, launches {fn.launches}")
+        for b, h, dk, dv, io, st, route in shapes[fn.__name__]:
+            planned = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+            require(route == planned, f"{fn.__name__} launched on b{b} {head_name(h, dk, dv)} "
+                    f"{st}: the plan takes the {planned} route")
     print(f"  forward routes as planned: gla_chunk_conv {gla_cuda.gla_chunk_conv.routes}, "
-          f"gla_chunk {gla_cuda.gla_chunk.routes}; the lazy step {lazy.routes}")
+          f"gla_chunk {gla_cuda.gla_chunk.routes}; the lazy step {lazy.routes}; the classic "
+          f"steps {gla_cuda.gla_decode_conv.routes}, {gla_cuda.gla_decode.routes}")
 
 
 def kernel_phase(torch, gla_cuda):
@@ -1163,11 +1190,6 @@ def lazy_kernel_phase(torch, gla_cuda, summary):
                     *toks[-1], *taps, *rings, states()), 50)
                 print(f"  classic gla_decode_conv step at {tag}, for comparison: device ms "
                       f"{classic_ms:.6f}")
-                if b != BATCH:  # b8 is the summary's row (kernel_phase)
-                    cls_out = gla_cuda.gla_decode_conv_plain(*toks[-1], *taps, *rings, s0)
-                    note_shape("gla_decode_conv", tag, classic_ms, None,
-                               nbytes(*toks[-1], *taps, *rings, s0, *cls_out),
-                               scan_flops(b, 1, True), bf)
                 ms, plain_ms = timed_pair(
                     f"gla_fold {tag}", lambda: gla_cuda.gla_fold(states(), *k_bufs),
                     lambda: gla_cuda.gla_fold_plain(states(), *k_bufs), 50)
@@ -1207,7 +1229,7 @@ def lazy_case(torch, shape, seed):
 
 
 LAZY_ROUTES = ("cluster", "tile")
-LAZY_TURNS = 3  # rounds of (a, b, b, a) that time_lazy_routes takes
+ROUTE_TURNS = 3  # rounds of (a, b, b, a) that time_routes takes
 LAZY_SWEEP_B = (1, 2, 4, 6, 8, 16)  # batches of lazy_route_sweep (h4: 4 to 64 heads in flight)
 
 
@@ -1216,7 +1238,7 @@ def lazy_on_route(gla_cuda, route, *args, s_scale=None):
     return gla_cuda._lazy_launch(*args, s_scale=s_scale, route=route)
 
 
-def time_lazy_routes(steps, turns=LAZY_TURNS):
+def time_routes(steps, turns=ROUTE_TURNS):
     """Device ms of each route's step in ``steps`` ({route: callable}):
     ``turns`` rounds of the routes in turns (a, b, b, a), 50 calls in a
     CUDA graph each time; returns ({route: median ms}, {route: every ms})."""
@@ -1228,23 +1250,25 @@ def time_lazy_routes(steps, turns=LAZY_TURNS):
     return {r: statistics.median(v) for r, v in times.items()}, times
 
 
-def planned_lazy_times(steps, route, label):
-    """time_lazy_routes for a shape a main path launched on ``route``: the
-    planned route may be at most SWEEP_MARGIN slower than the other. A shape
-    that misses is timed again as many turns, and fails only if the median
-    of both rounds misses too (one slow graph replay must not fail the
-    run). Returns ({route: median ms}, {route: every ms})."""
-    ms, times = time_lazy_routes(steps)
+def planned_route_times(steps, route, label, strict=False):
+    """time_routes for a shape the plan sends to ``route``: the planned
+    route may be at most SWEEP_MARGIN slower than the other (``strict``:
+    must be the faster, as at the shapes a main path launched the classic
+    step on). A shape that misses is timed again as many turns, and fails
+    only if the median of both rounds misses too (one slow graph replay
+    must not fail the run). Returns ({route: median ms}, {route: every
+    ms})."""
+    ms, times = time_routes(steps)
     other = next(r for r in steps if r != route)
-    if ms[route] > ms[other] * (1 + SWEEP_MARGIN):
+    ok = lambda m: m[route] < m[other] if strict else m[route] <= m[other] * (1 + SWEEP_MARGIN)
+    if not ok(ms):
         print(f"  {label}: the planned {route} route read {ms[route]} ms against the {other} "
               f"route's {ms[other]} ms; timed again")
-        _, more = time_lazy_routes(steps)
+        _, more = time_routes(steps)
         times = {r: times[r] + more[r] for r in times}
         ms = {r: statistics.median(v) for r, v in times.items()}
-    require(ms[route] <= ms[other] * (1 + SWEEP_MARGIN),
-            f"{label}: the planned {route} route {ms[route]} ms, the {other} route {ms[other]} "
-            f"ms (turns, ms: {times})")
+    require(ok(ms), f"{label}: the planned {route} route {ms[route]} ms, the {other} route "
+            f"{ms[other]} ms{' (it must be the faster)' if strict else ''} (turns, ms: {times})")
     return ms, times
 
 
@@ -1255,7 +1279,7 @@ def lazy_route_sweep(torch, gla_cuda, card_line):
     from. Prints only; the launched shapes are held to the plan in
     lazy_gap_phase."""
     print(f"gla_decode_lazy_conv route sweep (h{H} dk{DK} dv{DV}, bf16 IO, window {WINDOW}; "
-          f"device us, median of {2 * LAZY_TURNS} in turns) [{card_line}]:")
+          f"device us, median of {2 * ROUTE_TURNS} in turns) [{card_line}]:")
     for st in (torch.bfloat16, torch.float32):
         for b in LAZY_SWEEP_B:
             for p in (0, 7, 15):
@@ -1265,7 +1289,7 @@ def lazy_route_sweep(torch, gla_cuda, card_line):
                 steps = {r: (lambda r=r: lazy_on_route(gla_cuda, r, *tok, *taps, *rings,
                                                        rotation(), *bufs, p))
                          for r in LAZY_ROUTES}
-                ms, _ = time_lazy_routes(steps)
+                ms, _ = time_routes(steps)
                 plan = gla_cuda.gla_decode_lazy_plan(b, H, st)
                 print(f"  state {dtype_name(st)} b{b} ({b * H} heads) p{p}: tile "
                       f"{ms['tile'] * 1e3:.3f}, cluster {ms['cluster'] * 1e3:.3f}; planned {plan}, "
@@ -1278,7 +1302,7 @@ def lazy_gap_phase(torch, gla_cuda, card_line):
     live window slots and cc, the buffers written in place, equal bits on a
     second call) and timed beside its bound on cold states: a float state
     on both routes in turns, where the planned route must be no more than
-    SWEEP_MARGIN slower than the other (planned_lazy_times); an int8 state
+    SWEEP_MARGIN slower than the other (planned_route_times); an int8 state
     on the tile route, its only body. launches x (time - bound) summed over
     them, float and int8 states apart, on the routes taken and had every
     launch taken the tile route (the PR 3 / PR 5 body). Returns {row name:
@@ -1319,9 +1343,9 @@ def lazy_gap_phase(torch, gla_cuda, card_line):
 
             steps[r] = step
         if len(steps) > 1:
-            ms, times = planned_lazy_times(steps, route, f"{shape}")
+            ms, times = planned_route_times(steps, route, f"{shape}")
         else:
-            ms, times = time_lazy_routes(steps)
+            ms, times = time_routes(steps)
         bound_ms = roofline(*lazy_step_work(tok, taps, rings, state, s_scale, bufs, out, p),
                             io)[0]
         name = "gla_decode_lazy_conv_int8" if st == torch.int8 else "gla_decode_lazy_conv"
@@ -1335,6 +1359,160 @@ def lazy_gap_phase(torch, gla_cuda, card_line):
               f"taken; {total['tile']:.3f} ms had every launch taken the tile route (the PR 3 / "
               f"PR 5 body) [{card_line}]")
     return {name: total["taken"] for name, total in sums.items()}
+
+
+# --------------------------------------------------------- classic decode
+DECODE_ROUTES = ("cluster", "tile")
+DECODE_SWEEP_B = (1, 2, 4, 6, 8, 16, 64)  # batches of decode_route_sweep
+# (kernel, (h, dk, dv), IO dtype) of decode_route_sweep: the flagship's conv
+# step, simple-GLA's and Mamba-2's steps without convs
+DECODE_SWEEP_HEADS = (("gla_decode_conv", (H, DK, DV), "bfloat16"),
+                      ("gla_decode", SIMPLE_HEAD, "bfloat16"),
+                      ("gla_decode", MAMBA_HEAD, "float32"))
+
+
+def decode_case(torch, name, shape, seed):
+    """A classic step's inputs at ``shape`` = (b, h, dk, dv, IO dtype, state
+    dtype) in the decode layouts: (the arguments but the state, the state).
+    ``gla_decode_conv``: the pre-conv tokens, the gates, taps and rings;
+    ``gla_decode``: q, k, v and the gates."""
+    b, h, dk, dv, io, st = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    tok = (r(b, h, dk).to(io), r(b, h, dk).to(io), r(b, h, dv).to(io),
+           torch.nn.functional.logsigmoid(r(b, h, dk)) / 16)
+    state = r(b, h, dk, dv).to(st)
+    if name == "gla_decode":
+        return tok, state
+    taps = [(r(4, h, d) * 0.5).to(io) for d in (dk, dk, dv)]
+    rings = [r(4, b, h, d).to(io) for d in (dk, dk, dv)]
+    return (*tok, *taps, *rings), state
+
+
+def decode_fns(gla_cuda, name):
+    """(public wrapper, plain version, split plain version, launcher that
+    takes a route) of the classic step ``name``."""
+    if name == "gla_decode_conv":
+        return (gla_cuda.gla_decode_conv, gla_cuda.gla_decode_conv_plain,
+                gla_cuda.gla_decode_conv_split_plain, gla_cuda._decode_conv_launch)
+    return (gla_cuda.gla_decode, gla_cuda.gla_decode_plain, gla_cuda.gla_decode_split_plain,
+            gla_cuda._decode_launch)
+
+
+def decode_work(name, args, state, out):
+    """(bytes, operations) of one classic step: the state read and written,
+    every other input and output once; a decay, a rank-1 update and a
+    readout of the state, and the three 4-tap convs where there are."""
+    b, h, dk = args[0].shape
+    dv = args[2].shape[-1]
+    convs = 8 * (2 * dk + dv) if name == "gla_decode_conv" else 0
+    return nbytes(*args, state, *out), b * h * (5 * dk * dv + convs)
+
+
+def decode_tag(name, shape):
+    b, h, dk, dv, io, st = shape
+    return f"{name} b{b} {head_name(h, dk, dv)} IO {dtype_name(io)} state {dtype_name(st)}"
+
+
+def hold_decode_routes(torch, gla_cuda, name, shape, seed):
+    """The classic step ``name`` at ``shape`` = (b, h, dk, dv, IO dtype,
+    state dtype) on both routes, forced, against its plain version and its
+    split plain version (the cluster route's decomposition): o finite and
+    within TOL_BF16 (bf16 IO; TOL_F32 in f32) of its own max|plain|, the
+    state updated in place within TOL_BF16 (a bf16 IO or state; TOL_F32) of
+    its own max|plain| (so not all zeros), the rings equal to the plain
+    version's bit for bit, equal bits on a second call, and the two routes'
+    states equal bit for bit (both round fma(e^g, S, k v) once). Notes the
+    shape on both routes in DECODE_HELD. Returns ({route: a step on a
+    rotation of cold states}, the step's (bytes, operations))."""
+    b, h, dk, dv, io, st = shape
+    _, plain, split, launch = decode_fns(gla_cuda, name)
+    args, s0 = decode_case(torch, name, shape, seed)
+    ref, ref_split = plain(*args, s0), split(*args, s0)
+    tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
+    tol_s = TOL_BF16 if torch.bfloat16 in (io, st) else TOL_F32
+    planned = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+    states = {}
+    for route in DECODE_ROUTES:
+        s = s0.clone()
+        out = launch(*args, s, route=route)
+        again = launch(*args, s0.clone(), route=route)
+        torch.cuda.synchronize()
+        print(f"{decode_tag(name, shape)}, {route} route{' (planned)' if route == planned else ''}:")
+        require(out[1].data_ptr() == s.data_ptr(), "state not updated in place")
+        require(bool(torch.isfinite(out[0].float()).all()), "o is not finite")
+        hold_leaf("o", out[0], ref[0], tol)
+        hold_leaf("o vs split plain", out[0], ref_split[0], tol)
+        hold_leaf("state", out[1], ref[1], tol_s)
+        for ring, a, r_ in zip(("ring q", "ring k", "ring v"), out[2:], ref[2:]):
+            check(ring, max_err(a, r_), 0.0)
+        require(all(torch.equal(a, k) for a, k in zip(again, out)), "a second call gave other bits")
+        states[route] = s
+        DECODE_HELD[name].add((*shape, route))
+    require(torch.equal(states["tile"], states["cluster"]), "the two routes' states differ")
+    print("  a second call: equal bits; the two routes' states: equal bits")
+    rotation = cold_pool(s0)
+    steps = {r: (lambda r=r: launch(*args, rotation(), route=r)) for r in DECODE_ROUTES}
+    return steps, decode_work(name, args, s0, ref)
+
+
+def decode_route_sweep(torch, gla_cuda, card_line):
+    """Both routes of the two classic steps timed in turns on cold states
+    (medians of 2 ROUTE_TURNS) at the heads of DECODE_SWEEP_HEADS, b
+    DECODE_SWEEP_B and f32 and bf16 states, beside the bound and the route
+    gla_decode_plan picks, which may be no more than SWEEP_MARGIN slower
+    (planned_route_times): where the plan's threshold comes from."""
+    print(f"classic decode route sweep (device us, median of {2 * ROUTE_TURNS} in turns; "
+          f"tile / cluster / bound) [{card_line}]:")
+    for name, head, io_name in DECODE_SWEEP_HEADS:
+        launch = decode_fns(gla_cuda, name)[3]
+        for st in (torch.bfloat16, torch.float32):
+            for b in DECODE_SWEEP_B:
+                shape = (b, *head, getattr(torch, io_name), st)
+                args, s0 = decode_case(torch, name, shape, seed=1000 + b)
+                bound_ms = roofline(*decode_work(name, args, s0, launch(*args, s0.clone())),
+                                    shape[4])[0]
+                rotation = cold_pool(s0)
+                steps = {r: (lambda r=r: launch(*args, rotation(), route=r))
+                         for r in DECODE_ROUTES}
+                plan = gla_cuda.gla_decode_plan(*shape[:4], st)
+                ms, _ = planned_route_times(steps, plan, decode_tag(name, shape))
+                print(f"  {decode_tag(name, shape)} ({b * head[0]} heads): "
+                      f"{ms['tile'] * 1e3:.3f} / {ms['cluster'] * 1e3:.3f} / {bound_ms * 1e3:.3f}; "
+                      f"planned {plan}, {'faster' if ms[plan] <= min(ms.values()) else 'slower'}")
+
+
+def decode_gap_phase(torch, gla_cuda, card_line):
+    """Every shape a main path launched the two classic steps on
+    (GAP_SHAPE_COUNTS) held on both routes (hold_decode_routes) and timed
+    in turns on cold states beside its bound: the planned route must be
+    the faster (planned_route_times, strict). launches x (time - bound)
+    summed over them, on the routes taken and had every launch taken the
+    tile route (the PR 3 / PR 6 body). Returns {kernel: sum in ms on the
+    routes taken}."""
+    sums = {}
+    for name in ("gla_decode_conv", "gla_decode"):
+        counts = GAP_SHAPE_COUNTS[name]
+        total = {"taken": 0.0, "tile": 0.0}
+        print(f"{name}: launches x (time - bound) over {sum(counts.values())} main-path launches "
+              f"on {len(counts)} shapes (device us):")
+        for i, (shape, n) in enumerate(sorted(counts.items(), key=str)):
+            *dims, route = shape
+            require(route == gla_cuda.gla_decode_plan(*dims[:4], dims[5]),
+                    f"{name} {shape}: not the planned route")
+            steps, work = hold_decode_routes(torch, gla_cuda, name, tuple(dims), seed=800 + i)
+            ms, times = planned_route_times(steps, route, f"{name} {shape}", strict=True)
+            bound_ms = roofline(*work, dims[4])[0]
+            total["taken"] += n * (ms[route] - bound_ms)
+            total["tile"] += n * (ms["tile"] - bound_ms)
+            print(f"  {n} launches; " + ", ".join(
+                f"{r}{' (planned)' if r == route else ''} {ms[r] * 1e3:.3f}" for r in ms)
+                + f", bound {bound_ms * 1e3:.3f} (medians; turns, ms: {times})")
+        print(f"  {name}: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
+              f"taken; {total['tile']:.3f} ms had every launch taken the tile route (the PR 3 / "
+              f"PR 6 body) [{card_line}]")
+        sums[name] = total["taken"]
+    return sums
 
 
 def set_kernel_mode(model, mode):
@@ -3076,54 +3254,56 @@ def chunk_bwd_kernel_phase(torch, gla_cuda, summary):
     reset_counts()  # the kernel phases' launches are no path's
 
 
-def hold_decode(torch, gla_cuda, shape, summary=None, timed=False):
-    """gla_decode at ``shape`` = (b, h, dk, dv, IO dtype, state dtype)
-    against gla_decode_plain: o and the state, updated in place. ``timed``:
-    kernel and plain on a rotation of cold states (100 MB), beside the bound;
-    into the summary at ``summary``'s shape, else a further shape."""
+def hold_decode(torch, gla_cuda, name, shape, summary=None):
+    """The classic step ``name`` at ``shape`` = (b, h, dk, dv, IO dtype,
+    state dtype) on both routes (hold_decode_routes); the public wrapper on
+    the route gla_decode_plan gives, counted under it, against the plain
+    version; both timed on a rotation of cold states (100 MB) beside the
+    bound, the wrapper also beside the plain version: into the summary at
+    ``summary``'s shape, else a further shape."""
     b, h, dk, dv, io, st = shape
-    x = qkv_inputs(torch, b, h, 1, dk, dv, io, st, seed=500 + b + h)
-    tok = tuple(x[n][:, :, 0].contiguous() for n in ("q", "k", "v", "gk"))
-    s = x["s0"]
-    before = gla_cuda.launch_counts()["gla_decode"]
-    o_p, s_p = gla_cuda.gla_decode_plain(*tok, s)
-    s_in = s.clone()
-    o_k, s_k = gla_cuda.gla_decode(*tok, s_in)
+    steps, work = hold_decode_routes(torch, gla_cuda, name, shape, seed=500 + b + h)
+    wrapper, plain, _, _ = decode_fns(gla_cuda, name)
+    args, s0 = decode_case(torch, name, shape, seed=500 + b + h)
+    route = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+    before = dict(wrapper.routes)
+    out, ref = wrapper(*args, s0.clone()), plain(*args, s0)
     torch.cuda.synchronize()
-    require(gla_cuda.launch_counts()["gla_decode"] == before + 1, "gla_decode not launched")
-    require(s_k.data_ptr() == s_in.data_ptr(), "state not updated in place")
-    tag = f"b{b} {head_name(h, dk, dv)} IO {str(io).split('.')[-1]} state {str(st).split('.')[-1]}"
-    print(f"gla_decode {tag}:")
-    tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
-    err_o = max_err(o_k, o_p)
-    check("o", err_o, bound(o_p, tol))
-    check("state", max_err(s_k, s_p), bound(s_p, TOL_BF16 if torch.bfloat16 in (io, st)
-                                                  else TOL_F32))
-    DECODE_HELD.add(shape)
-    if not timed:
-        return
-    states = cold_pool(s_p)
-    ms, plain_ms = timed_pair(f"gla_decode {tag}", lambda: gla_cuda.gla_decode(*tok, states()),
-                              lambda: gla_cuda.gla_decode_plain(*tok, states()), 50)
-    work = (nbytes(*tok, s, s, o_k), plain_qkv_flops(b, h, 1, dk, dv), io)
+    require(wrapper.routes == {**before, route: before[route] + 1},
+            f"{name}: not launched on the planned {route} route")
+    tag = decode_tag(name, shape)
+    print(f"{tag}, the public wrapper ({route} route):")
+    err_o = hold_leaf("o", out[0], ref[0], TOL_BF16 if io == torch.bfloat16 else TOL_F32)
+    ms = time_routes(steps)[0]
+    states = cold_pool(s0)
+    wrapper_ms, plain_ms = timed_pair(tag, lambda: wrapper(*args, states()),
+                                      lambda: plain(*args, states()), 50)
+    other = next(r for r in DECODE_ROUTES if r != route)
+    print(f"  {route} (planned) {ms[route] * 1e3:.3f} us, {other} {ms[other] * 1e3:.3f} us "
+          f"(medians of {2 * ROUTE_TURNS} in turns)")
     if summary is not None:
-        record(summary, "gla_decode", err_o, ms, plain_ms, *work)
+        record(summary, name, err_o, wrapper_ms, plain_ms, *work, io)
     else:
-        note_shape("gla_decode", tag, ms, plain_ms, *work)
+        note_shape(name, tag.split(" ", 1)[1], wrapper_ms, plain_ms, *work, io)
+    note_shape(name, f"{tag.split(' ', 1)[1]} {other} route", ms[other], None, *work, io)
 
 
 def decode_kernel_phase(torch, gla_cuda, summary):
-    """gla_decode (one token without convs) against its plain version at
-    b1, b8 and b64 for simple-GLA's heads (bf16 IO) and at b8 for Mamba-2's
-    (f32 IO), with bf16 and f32 states, timed on cold states. The summary
-    takes b8 simple-GLA with its f32 state (what the driven path runs)."""
+    """The two classic steps on both routes against their plain versions
+    (hold_decode), timed on cold states: gla_decode_conv at the flagship's
+    head at b64 (its b8 and b1 rows come from kernel_phase), gla_decode
+    at b1, b8 and b64 for simple-GLA's heads (bf16 IO) and at b8 for
+    Mamba-2's (f32 IO), with bf16 and f32 states. The summary takes
+    gla_decode at b8 simple-GLA with its f32 state (what the driven path
+    runs)."""
     bf, f32 = torch.bfloat16, torch.float32
+    hold_decode(torch, gla_cuda, "gla_decode_conv", (64, H, DK, DV, bf, bf))
     for b, (h, dk, dv), io in [(b, SIMPLE_HEAD, bf) for b in (1, BATCH, 64)] + [
             (BATCH, MAMBA_HEAD, f32)]:
         for st in (bf, f32):
             main = (b, h, io, st) == (BATCH, SIMPLE_HEAD[0], bf, f32)
-            hold_decode(torch, gla_cuda, (b, h, dk, dv, io, st),
-                        summary=summary if main else None, timed=True)
+            hold_decode(torch, gla_cuda, "gla_decode", (b, h, dk, dv, io, st),
+                        summary=summary if main else None)
     reset_counts()  # the kernel phases' launches are no path's
 
 
@@ -3467,31 +3647,36 @@ def interleaved_and_pp_phase(torch, np, gla_cuda, card_line):
 
 def launched_gla_shapes_phase(torch, gla_cuda):
     """Every shape the driven paths launched gla_chunk (forward), its
-    backward and gla_decode on is held against the plain version now,
-    unless a kernel phase held it already."""
+    backward and the two classic steps on is held against the plain version
+    now (the classic steps on both routes), unless a kernel phase held it
+    already."""
     fwd = sorted(GLA_LAUNCHED["gla_chunk"] - CHUNK_HELD, key=str)
     bwd = sorted(GLA_LAUNCHED["gla_chunk_bwd"] - CHUNK_BWD_HELD, key=str)
     # (the holds below launch the kernels too, but read no counts: GLA_LAUNCHED
     # keeps only what the driven paths launched)
-    dec = sorted(GLA_LAUNCHED["gla_decode"] - DECODE_HELD, key=str)
+    dec = {name: sorted(GLA_LAUNCHED[name] - DECODE_HELD[name], key=str) for name in DECODE_HELD}
     print(f"the driven paths launched gla_chunk on {len(GLA_LAUNCHED['gla_chunk'])} shapes "
           f"({len(fwd)} not held yet), its backward on {len(GLA_LAUNCHED['gla_chunk_bwd'])} "
-          f"({len(bwd)}), gla_decode on {len(GLA_LAUNCHED['gla_decode'])} ({len(dec)})")
+          f"({len(bwd)}), " + ", ".join(f"{name} on {len(GLA_LAUNCHED[name])} ({len(dec[name])})"
+                                        for name in dec))
     require(all(GLA_LAUNCHED.values()), f"a kernel launched on no shape: {GLA_LAUNCHED}")
     for shape in bwd:
         hold_chunk(torch, gla_cuda, shape[:-1], need_ds0=shape[-1])
     for shape in sorted(GLA_LAUNCHED["gla_chunk"] - CHUNK_HELD, key=str):
         hold_chunk(torch, gla_cuda, shape[:-1])
-    for shape in dec:
-        hold_decode(torch, gla_cuda, shape)
+    for name, shapes in dec.items():
+        for shape in shapes:
+            hold_decode_routes(torch, gla_cuda, name, shape[:-1], seed=850)
     require(GLA_LAUNCHED["gla_chunk"] <= CHUNK_HELD
             and GLA_LAUNCHED["gla_chunk_bwd"] <= CHUNK_BWD_HELD
-            and GLA_LAUNCHED["gla_decode"] <= DECODE_HELD, "launched but not held")
+            and all(GLA_LAUNCHED[name] <= DECODE_HELD[name] for name in DECODE_HELD),
+            "launched but not held")
 
 
 def gap_phase(torch, gla_cuda, card_line):
     """launches x (time - bound) of the two forward kernels and of
-    gla_chunk's backward over the main paths: every shape a main path
+    gla_chunk's backward over the main paths (and of the three decode steps,
+    lazy_gap_phase and decode_gap_phase): every shape a main path
     launched them on, weighted by its launch count (GAP_SHAPE_COUNTS),
     timed on the route it took and on the recurrent body, beside the
     shape's bound; where the backward's plan takes the chunked route it
@@ -3542,6 +3727,7 @@ def gap_phase(torch, gla_cuda, card_line):
               f"[{card_line}]")
         sums[name] = total["taken"]
     sums.update(lazy_gap_phase(torch, gla_cuda, card_line))
+    sums.update(decode_gap_phase(torch, gla_cuda, card_line))
     return sums
 
 
@@ -4145,6 +4331,7 @@ def main():
     chunk_kernel_phase(torch, gla_cuda, summary)
     lazy_kernel_phase(torch, gla_cuda, summary)
     lazy_route_sweep(torch, gla_cuda, card_line)
+    decode_route_sweep(torch, gla_cuda, card_line)
     model, cfg, launches = generate_phase(torch, np, gla_cuda, card_line)
     add_launches(launches, serving_phase(torch, np, gla_cuda, model, cfg, card_line))
     quant_linear_kernel_phase(torch, summary)
@@ -4180,12 +4367,12 @@ def main():
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
     # launches x (time - bound): the two forwards, gla_chunk's backward and
-    # the lazy step over every launched shape, the other kernels at their
-    # row's shape
+    # the three decode steps over every launched shape, the other kernels at
+    # their row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
     print("launches x (time - bound), ms, largest first (the two forwards, gla_chunk_bwd and "
-          "the lazy step over every launched shape, the others at their row's shape):")
+          "the three decode steps over every launched shape, the others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")

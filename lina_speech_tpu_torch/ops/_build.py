@@ -104,13 +104,13 @@ def load_library() -> ctypes.CDLL:
     lib.gla_chunk_conv_fwd.restype = i
     lib.gla_chunk_conv_bwd.argtypes = [p] * 35 + [i] * 5 + [f, i, i, i, p]
     lib.gla_chunk_conv_bwd.restype = i
-    lib.gla_decode_conv_step.argtypes = [p] * 15 + [i] * 4 + [f, i, i, p]
+    lib.gla_decode_conv_step.argtypes = [p] * 15 + [i] * 4 + [f, i, i, i, p]
     lib.gla_decode_conv_step.restype = i
     lib.gla_chunk_fwd.argtypes = [p] * 17 + [i] * 5 + [f, i, i, i, i, p]
     lib.gla_chunk_fwd.restype = i
     lib.gla_chunk_bwd.argtypes = [p] * 29 + [i] * 5 + [f, i, i, i, p]
     lib.gla_chunk_bwd.restype = i
-    lib.gla_decode_step.argtypes = [p] * 6 + [i] * 4 + [f, i, i, p]
+    lib.gla_decode_step.argtypes = [p] * 6 + [i] * 4 + [f, i, i, i, p]
     lib.gla_decode_step.restype = i
     lib.gla_decode_lazy_conv_step.argtypes = [p] * 21 + [i] * 6 + [f, i, i, i, p]
     lib.gla_decode_lazy_conv_step.restype = i

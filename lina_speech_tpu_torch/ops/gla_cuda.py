@@ -24,10 +24,11 @@ wrappers and their plain versions.
   ``csrc/gla_chunked_bwd.cuh`` for bf16 IO, the recurrent sweeps for f32).
 - :func:`gla_decode_conv` replaces ``gla_decode_conv_fused``
   (gla_pallas.py:1641), one decode token with the conv ring updates fused
-  in. Kernel: ``csrc/gla_decode_conv.cu``.
+  in. Kernel: ``csrc/gla_decode_conv.cu``, two routes chosen by
+  :func:`gla_decode_plan` (``csrc/gla_decode.cuh``).
 - :func:`gla_decode` replaces ``gla_decode_fused`` (gla_pallas.py:1709),
   one decode token on q/k/v as they are, the state updated in place.
-  Kernel: ``csrc/gla_decode.cu``.
+  Kernel: ``csrc/gla_decode.cu``, the same template and routes.
 - :func:`gla_decode_lazy_conv` replaces ``gla_decode_lazy_conv_fused``
   (gla_pallas.py:2197), one lazy-window decode token: ring updates, append
   to the window buffers, readout from a read-only state, which may be int8
@@ -43,8 +44,8 @@ Each wrapper takes the JAX function's arguments in the JAX layout. For a
 CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
 tensor it launches the kernel or raises -- there is no fallback. Each
 counts its launches in a plain int attribute (``gla_chunk_conv.launches``);
-the training kernels, ``gla_decode`` and ``gla_decode_lazy_conv`` also note
-the shapes they were launched on (:func:`launch_shapes`). Which heads the
+the training kernels and the three decode steps also note the shapes they
+were launched on (:func:`launch_shapes`). Which heads the
 kernels take is one predicate, :func:`kernel_takes`: a layer asks it before
 it calls a wrapper and takes the plain version for a head the kernels do
 not take, as the JAX layer takes XLA where its Pallas kernels do not fit; a
@@ -85,8 +86,8 @@ def _wrappers():
 
 
 def _shape_noters():
-    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd, gla_decode,
-            gla_decode_lazy_conv)
+    return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd, gla_decode_conv,
+            gla_decode, gla_decode_lazy_conv)
 
 
 def reset_launch_counts() -> None:
@@ -94,6 +95,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd):
         fn.routes = dict.fromkeys(_ROUTE_CODE, 0)
+    for fn in (gla_decode_conv, gla_decode):
+        fn.routes = dict.fromkeys(_DECODE_ROUTE_CODE, 0)
     gla_decode_lazy_conv.routes = dict.fromkeys(_LAZY_ROUTE_CODE, 0)
     gla_decode_lazy_conv.q_launches = 0
     for fn in _shape_noters():
@@ -111,9 +114,9 @@ def launch_shapes() -> dict:
     (b, t, dtype of the initial state or None, need_ds0, need_taps).
     ``gla_chunk``: every launch as (b, h, t, dk, dv, IO dtype, initial state
     dtype or None, scale, route); ``gla_chunk_bwd``: the same with need_ds0
-    in the route's place. ``gla_decode``: (b, h, dk, dv, IO dtype, state
-    dtype); ``gla_decode_lazy_conv``: (b, h, dk, dv, IO dtype, state dtype,
-    window length, p, route). A check that drives a path reads it to hold the
+    in the route's place. ``gla_decode_conv`` and ``gla_decode``: (b, h,
+    dk, dv, IO dtype, state dtype, route); ``gla_decode_lazy_conv``: (b, h,
+    dk, dv, IO dtype, state dtype, window length, p, route). A check that drives a path reads it to hold the
     kernels at those shapes."""
     return {fn.__name__: set(fn.shapes) for fn in _shape_noters()}
 
@@ -786,6 +789,74 @@ def gla_decode_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     return o.to(xq.dtype), s.to(state.dtype), cq2, ck2, cv2
 
 
+# The classic step's two bodies (csrc/gla_decode.cuh), chosen by
+# gla_decode_plan: "cluster", a thread block cluster a head whose blocks each
+# stage 32 key rows of the state in shared memory by one bulk copy and form
+# their rows' q and k once; "tile", the PR 3 / PR 6 body, a block per
+# 32-column tile that forms the head's q and k itself.
+_DECODE_ROUTE_CODE = {"tile": 0, "cluster": 1, "wide": 2, "wide8": 3, "wide4": 4}
+_SLAB_ROWS = 32  # key rows a block of a cluster route owns (csrc/gla_cluster.cuh:kRB)
+_SLAB_BYTES = 65536  # most state bytes such a block stages (kSlabBytes)
+
+
+def _slab_width(dk: int, dv: int, itemsize: int) -> int:
+    """Columns of a cluster-route block's slab (``slab_width`` in
+    csrc/gla_cluster.cuh): dv cut into the fewest equal tiles whose columns
+    are a multiple of R = dk / 32 times the kernels' loads (4 values) and
+    whose slab is at most _SLAB_BYTES; 0 where there is none."""
+    quantum = dk // _SLAB_ROWS * 4
+    for t in range(1, dv // quantum + 1):
+        w = dv // t
+        if dv % t == 0 and w % quantum == 0 and _SLAB_ROWS * w * itemsize <= _SLAB_BYTES:
+            return w
+    return 0
+
+
+def _row_parts(s, q, dk: int, cols: slice):
+    """The readout of the f32 state ``s`` (b, h, dk, dv) by the f32 query q
+    (b, h, dk) at columns ``cols`` as a cluster route forms it: each block's
+    part over its 32 key rows, the parts added in rank order."""
+    return _sum_in_order([torch.einsum("bhk,bhkv->bhv", q[..., r:r + _SLAB_ROWS],
+                                       s[..., r:r + _SLAB_ROWS, cols])
+                          for r in range(0, dk, _SLAB_ROWS)])
+
+
+def _decode_split(q, k, v, gk, state, io):
+    """S' = e^g S + k^T v and o = q S' (f32 q, k, v; q scaled) as the
+    cluster route splits the readout: per column tile (:func:`_slab_width`),
+    the 32-row groups' parts added in rank order. Returns (o in the IO
+    dtype, S' in the state's dtype)."""
+    b, h, dk = q.shape
+    dv = v.shape[-1]
+    s = gk.float().exp()[..., None] * state.float() + k[..., None] * v[..., None, :]
+    w = _slab_width(dk, dv, state.element_size())
+    o = torch.empty(b, h, dv, dtype=torch.float32, device=q.device)
+    for c0 in range(0, dv, w):
+        cols = slice(c0, c0 + w)
+        o[..., cols] = _row_parts(s, q, dk, cols)
+    return o.to(io), s.to(state.dtype)
+
+
+def gla_decode_conv_split_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
+                                scale=None):
+    """:func:`gla_decode_conv_plain` computed as the CUDA kernel's cluster
+    route splits it (tests only): a cluster of R = dk / 32 ranks a head,
+    each owning 32 key rows; rank r forms its rows' q and k, updates its
+    rows of the state and its part of the readout at every column of a tile
+    (:func:`_slab_width` columns); the block that owns a column slice adds
+    the R parts in rank order. Same signature and returns; leaves ``state``
+    untouched."""
+    _check("gla_decode_conv", state.dtype in _DTYPE_CODE, "the cluster route takes an f32 "
+           "or bf16 state")
+    scale = xq.shape[-1] ** -0.5 if scale is None else scale
+    io = xq.dtype
+    (q, cq2), (k, ck2), (v, cv2) = (_ring_conv(x, w, c) for x, w, c in
+                                    ((xq, wq, cq), (xk, wk, ck), (xv, wv, cv)))
+    o, s = _decode_split(q.to(io).float() * scale, k.to(io).float(), v.to(io).float(), gk,
+                         state, io)
+    return o, s, cq2, ck2, cv2
+
+
 def gla_decode_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
                     scale=None):
     """One GLA decode token with the q/k/v conv ring updates fused in.
@@ -798,11 +869,37 @@ def gla_decode_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
 
     On CUDA the kernel updates ``state`` IN PLACE and returns the same
     tensor (as the JAX kernel aliases its state buffer); the rings come
-    back as new tensors.
+    back as new tensors. It runs the body :func:`gla_decode_plan` picks;
+    ``gla_decode_conv.routes`` counts each.
     """
     if not xq.is_cuda:
         return gla_decode_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv,
                                      state, scale)
+    return _decode_conv_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, scale)
+
+
+def _decode_route(name, b, h, dk, dv, state, route):
+    """The route a classic step takes: ``route`` if given (the card's checks
+    force either body), else the plan's; checked against what the cluster
+    route takes."""
+    route = gla_decode_plan(b, h, dk, dv, state.dtype) if route is None else route
+    _check(name, route in _DECODE_ROUTE_CODE,
+           f"route {route!r} not in {tuple(_DECODE_ROUTE_CODE)}")
+    _check(name, route == "tile" or state.data_ptr() % 16 == 0,
+           f"the {route} route takes a state on a 16-byte boundary")
+    return route
+
+
+def _count_decode(fn, route, shape) -> None:
+    fn.launches += 1
+    fn.routes[route] += 1
+    fn.shapes[(*shape, route)] += 1
+
+
+def _decode_conv_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, scale=None,
+                        route=None):
+    """:func:`gla_decode_conv` on CUDA tensors, on ``route`` if given, else
+    on the plan's."""
     name = "gla_decode_conv"
     b, h, dk = xq.shape
     dv = xv.shape[-1]
@@ -819,6 +916,7 @@ def gla_decode_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
         _check(name, ring.shape == (_CONV_WIDTH, b, h, d) and ring.dtype == io,
                f"rings must be ({_CONV_WIDTH}, {b}, {h}, {d}) in {io}")
     _check(name, state.shape == (b, h, dk, dv), "state shape")
+    route = _decode_route(name, b, h, dk, dv, state, route)
     scale = dk ** -0.5 if scale is None else scale
     o = torch.empty(b, h, dv, dtype=io, device=xq.device)
     cq2, ck2, cv2 = torch.empty_like(cq), torch.empty_like(ck), torch.empty_like(cv)
@@ -828,13 +926,14 @@ def gla_decode_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
         _ptr(xq), _ptr(xk), _ptr(xv), _ptr(gk), _ptr(wq), _ptr(wk), _ptr(wv),
         _ptr(cq), _ptr(ck), _ptr(cv), _ptr(state), _ptr(o), _ptr(cq2),
         _ptr(ck2), _ptr(cv2), b, h, dk, dv, float(scale), _DTYPE_CODE[io],
-        _DTYPE_CODE[state.dtype], ctypes.c_void_p(stream))
+        _DTYPE_CODE[state.dtype], _DECODE_ROUTE_CODE[route], ctypes.c_void_p(stream))
     _raise_on(name, err)
-    gla_decode_conv.launches += 1
+    _count_decode(gla_decode_conv, route, (b, h, dk, dv, io, state.dtype))
     return o, state, cq2, ck2, cv2
 
 
-gla_decode_conv.launches = 0
+gla_decode_conv.launches, gla_decode_conv.shapes = 0, Counter()
+gla_decode_conv.routes = dict.fromkeys(_DECODE_ROUTE_CODE, 0)
 
 
 # ------------------------------------------- prefill kernel, convs outside
@@ -1099,6 +1198,17 @@ def gla_decode_plain(q, k, v, gk, state, scale=None):
     return gla_ops.gla_decode_step(q, k, v, gk, state, scale=scale)
 
 
+def gla_decode_split_plain(q, k, v, gk, state, scale=None):
+    """:func:`gla_decode_plain` computed as the CUDA kernel's cluster route
+    splits it (tests only; :func:`gla_decode_conv_split_plain` without the
+    convs: q, k and v taken as they are). Same signature and returns; leaves
+    ``state`` untouched."""
+    _check("gla_decode", state.dtype in _DTYPE_CODE, "the cluster route takes an f32 or "
+           "bf16 state")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _decode_split(q.float() * scale, k.float(), v.float(), gk, state, q.dtype)
+
+
 def gla_decode(q, k, v, gk, state, scale=None):
     """One GLA decode token on q, k, v as they are: S <- diag(e^g) S + k^T v,
     o = (scale q) S.
@@ -1106,10 +1216,18 @@ def gla_decode(q, k, v, gk, state, scale=None):
     q, k: (b, h, dk) and v: (b, h, dv) in the IO dtype; gk: (b, h, dk) f32
     log-gates; state (b, h, dk, dv) in f32 or bf16. Returns (o (b, h, dv) in
     the IO dtype, state). On CUDA the kernel updates ``state`` IN PLACE and
-    returns the same tensor (as the JAX kernel aliases its state buffer).
+    returns the same tensor (as the JAX kernel aliases its state buffer). It
+    runs the body :func:`gla_decode_plan` picks; ``gla_decode.routes``
+    counts each.
     """
     if not q.is_cuda:
         return gla_decode_plain(q, k, v, gk, state, scale)
+    return _decode_launch(q, k, v, gk, state, scale)
+
+
+def _decode_launch(q, k, v, gk, state, scale=None, route=None):
+    """:func:`gla_decode` on CUDA tensors, on ``route`` if given, else on
+    the plan's."""
     name = "gla_decode"
     b, h, dk = q.shape
     dv = v.shape[-1]
@@ -1120,20 +1238,22 @@ def gla_decode(q, k, v, gk, state, scale=None):
     _check(name, gk.shape == q.shape and gk.dtype == torch.float32,
            "gk must be f32 of q's shape")
     _check(name, state.shape == (b, h, dk, dv), "state shape")
+    route = _decode_route(name, b, h, dk, dv, state, route)
     scale = dk ** -0.5 if scale is None else scale
     o = torch.empty(b, h, dv, dtype=io, device=q.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.gla_decode_step(
         _ptr(q), _ptr(k), _ptr(v), _ptr(gk), _ptr(state), _ptr(o), b, h, dk, dv,
-        float(scale), _DTYPE_CODE[io], _DTYPE_CODE[state.dtype], ctypes.c_void_p(stream))
+        float(scale), _DTYPE_CODE[io], _DTYPE_CODE[state.dtype], _DECODE_ROUTE_CODE[route],
+        ctypes.c_void_p(stream))
     _raise_on(name, err)
-    gla_decode.launches += 1
-    gla_decode.shapes[(b, h, dk, dv, io, state.dtype)] += 1
+    _count_decode(gla_decode, route, (b, h, dk, dv, io, state.dtype))
     return o, state
 
 
 gla_decode.launches, gla_decode.shapes = 0, Counter()
+gla_decode.routes = dict.fromkeys(_DECODE_ROUTE_CODE, 0)
 
 
 # -------------------------------------------------- lazy-window decode kernel
@@ -1154,30 +1274,13 @@ def gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     return o.to(xq.dtype), cq2, ck2, cv2, kbuf, vbuf, cbuf, cc
 
 
-_LAZY_ROWS = 32  # key rows a block of the lazy step's cluster route owns (kRB)
-_LAZY_SLAB = 65536  # most state bytes a block stages (kSlabBytes)
-
-
-def _lazy_slab_width(dk: int, dv: int, state: torch.Tensor) -> int:
-    """Columns of a lazy-step block's slab (the kernel's slab_width): dv cut
-    into the fewest equal tiles whose columns are a multiple of R = dk / 32
-    times the kernel's loads (4 values) and whose slab is at most
-    _LAZY_SLAB bytes."""
-    quantum = dk // _LAZY_ROWS * 4
-    for t in range(1, dv // quantum + 1):
-        w = dv // t
-        if dv % t == 0 and w % quantum == 0 and _LAZY_ROWS * w * state.element_size() <= _LAZY_SLAB:
-            return w
-    return quantum
-
-
 def gla_decode_lazy_conv_split_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
                                      kbuf, vbuf, cbuf, cc, p: int, scale=None):
     """:func:`gla_decode_lazy_conv_plain` computed as the CUDA kernel's
     cluster route splits it (tests only), on a float state as that route
     takes it. A cluster of R ranks per head, each owning 32 key rows: rank r
     forms its part of every window score and of the base readout at every
-    column of a tile (:func:`_lazy_slab_width` columns), over its rows; the
+    column of a tile (:func:`_slab_width` columns), over its rows; the
     block that owns a column slice (tile width / R) adds the R parts in rank
     order, then the slice's window terms. Same signature (without
     ``s_scale``) and returns."""
@@ -1194,19 +1297,17 @@ def gla_decode_lazy_conv_split_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, sta
     kbuf[p], vbuf[p], cbuf[p] = k.to(kbuf.dtype), v.to(vbuf.dtype), cc2
     q = q * scale
     qe = q * cc2.exp()
-    ranks = [slice(r * _LAZY_ROWS, (r + 1) * _LAZY_ROWS) for r in range(dk // _LAZY_ROWS)]
+    ranks = [slice(r, r + _SLAB_ROWS) for r in range(0, dk, _SLAB_ROWS)]
     # rank r's part of every score a_j (j <= p; slot p's exp argument is 0)
     keys = kbuf[:p + 1].float() * (cc2[None] - cbuf[:p + 1]).clamp(max=0.0).exp()
     a = _sum_in_order([(q[None, ..., rw] * keys[..., rw]).sum(-1) for rw in ranks])
     vals = vbuf[:p + 1].float()
     sf = state.float()
-    w = _lazy_slab_width(dk, dv, state)
+    w = _slab_width(dk, dv, state.element_size())
     o = torch.empty(b, h, dv, dtype=torch.float32, device=xq.device)
     for c0 in range(0, dv, w):
         cols = slice(c0, c0 + w)
-        base = _sum_in_order([torch.einsum("bhk,bhkv->bhv", qe[..., rw], sf[..., rw, cols])
-                              for rw in ranks])
-        o[..., cols] = base + (a[..., None] * vals[..., cols]).sum(0)
+        o[..., cols] = _row_parts(sf, qe, dk, cols) + (a[..., None] * vals[..., cols]).sum(0)
     return o.to(xq.dtype), cq2, ck2, cv2, kbuf, vbuf, cbuf, cc2
 
 
@@ -1251,6 +1352,27 @@ def gla_decode_lazy_plan(b: int, h: int, state_dtype: torch.dtype) -> str:
     ``_LAZY_CLUSTER_MIN_HEADS`` heads in flight, else ``"tile"``."""
     float_state = state_dtype in _DTYPE_CODE
     return "cluster" if float_state and b * h >= _LAZY_CLUSTER_MIN_HEADS else "tile"
+
+
+# chip_smoke.py's decode_route_sweep on an H100 (PERF.md §6, PR 16) sets the
+# classic step's threshold.
+_DECODE_CLUSTER_MIN_HEADS = 24  # b * h from which the classic step takes the cluster route
+_CLUSTER_MAX = 8  # blocks of a portable thread block cluster: dk up to 8 x 32
+
+
+def gla_decode_plan(b: int, h: int, dk: int, dv: int, state_dtype: torch.dtype) -> str:
+    """The body a :func:`gla_decode_conv` or :func:`gla_decode` launch on
+    (b, h) heads of key dim ``dk`` and value dim ``dv`` over a state of
+    ``state_dtype`` runs, decided from these alone before the launch:
+    ``"cluster"`` from ``_DECODE_CLUSTER_MIN_HEADS`` heads in flight where
+    that body takes the head (an f32 or bf16 state, a cluster of dk / 32
+    blocks of at most ``_CLUSTER_MAX``, a slab of the state within
+    ``_SLAB_BYTES``), else ``"tile"``."""
+    if state_dtype not in _DTYPE_CODE or dk % _SLAB_ROWS or dk // _SLAB_ROWS > _CLUSTER_MAX:
+        return "tile"
+    itemsize = torch.empty((), dtype=state_dtype).element_size()
+    takes = _slab_width(dk, dv, itemsize) > 0
+    return "cluster" if takes and b * h >= _DECODE_CLUSTER_MIN_HEADS else "tile"
 
 
 def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
@@ -1315,7 +1437,7 @@ def _lazy_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf
            f"route {route!r} not in {tuple(_LAZY_ROUTE_CODE)}")
     _check(name, route == "tile" or not quant, "the cluster route takes no int8 state")
     _check(name, route == "tile" or state.data_ptr() % 16 == 0,
-           "the cluster route takes a state on a 16-byte boundary (it is copied in bulk)")
+           f"the {route} route takes a state on a 16-byte boundary")
     scale = dk ** -0.5 if scale is None else scale
     o = torch.empty(b, h, dv, dtype=io, device=xq.device)
     cq2, ck2, cv2 = torch.empty_like(cq), torch.empty_like(ck), torch.empty_like(cv)

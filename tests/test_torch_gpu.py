@@ -736,6 +736,99 @@ def test_decode_kernel_matches_plain(cuda, io, st, shape):
     assert _rel_err(o_k, o_p) <= tol and _rel_err(s_out, s_p) <= tol
 
 
+# (kernel, (h, dk, dv), IO dtype): the flagship's conv step, simple-GLA's and
+# Mamba-2's steps without convs, and a small odd head of each kernel
+DECODE_HEADS = [("conv", (4, 256, 512), torch.bfloat16), ("noconv", (4, 256, 256), torch.bfloat16),
+                ("noconv", (32, 64, 64), torch.float32), ("conv", (3, 64, 96), torch.float32),
+                ("noconv", (3, 128, 96), torch.bfloat16)]
+
+
+def _decode_step_args(dev, conv, b, h, dk, dv, io, st, seed):
+    """A classic step's arguments but the state (the decode layouts), and
+    the state."""
+    x = _inputs(dev, b, h, 1, dk, dv, io, st, seed=seed)
+    tok = tuple(x[n][:, :, 0].contiguous() for n in ("xq", "xk", "xv", "gk"))
+    if not conv:
+        return tok, x["s0"]
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    rings = [torch.randn(4, b, h, d, generator=g, device=dev).to(io) for d in (dk, dk, dv)]
+    taps = [w.reshape(h, -1, 4).permute(2, 0, 1).contiguous() for w in (x["wq"], x["wk"], x["wv"])]
+    return (*tok, *taps, *rings), x["s0"]
+
+
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 8, 64])
+@pytest.mark.parametrize("kernel,head,io", DECODE_HEADS, ids=str)
+def test_decode_routes_match_split_plain(cuda, kernel, head, io, b, st):
+    """Both bodies of the classic step, forced, against the split plain
+    version (the cluster route's decomposition): o within 1e-2 of max(1,
+    max|plain|) in bf16 IO, 1e-4 in f32; the state, updated in place,
+    within one state-dtype rounding of the plain one (the kernels round
+    e^g S + k v once, the plain version twice); the rings equal; equal bits
+    on a second call; the two routes' states equal bit for bit (the same
+    f32 expression, fma(e^g, S, k v), in both bodies)."""
+    conv = kernel == "conv"
+    h, dk, dv = head
+    args, s0 = _decode_step_args(cuda, conv, b, h, dk, dv, io, st, seed=b + dk)
+    split = gla_cuda.gla_decode_conv_split_plain if conv else gla_cuda.gla_decode_split_plain
+    launch = gla_cuda._decode_conv_launch if conv else gla_cuda._decode_launch
+    ref = split(*args, s0)
+    tol = 1e-4 if io == torch.float32 else 1e-2
+    tol_s = 1e-5 if st == torch.float32 else 1e-2
+    states = {}
+    for route in ("tile", "cluster"):
+        s = s0.clone()
+        out = launch(*args, s, route=route)
+        s_again = s0.clone()
+        again = launch(*args, s_again, route=route)
+        torch.cuda.synchronize()
+        assert out[1] is s, route  # updated in place
+        assert bool(torch.isfinite(out[0].float()).all()), route
+        assert _rel_err(out[0], ref[0]) <= tol, route
+        assert _rel_err(out[1], ref[1]) <= tol_s, route
+        for a, r_ in zip(out[2:], ref[2:]):  # rings
+            assert torch.equal(a, r_), route
+        assert all(torch.equal(a, k) for a, k in zip(again, out)), route
+        states[route] = s
+    assert torch.equal(states["tile"], states["cluster"])
+
+
+def test_decode_wrappers_take_the_plan(cuda):
+    """The public wrappers launch the route gla_decode_plan gives each shape
+    (one below the threshold, one above), count it, note the shape with its
+    route, and their routes sum to their launches."""
+    gla_cuda.reset_launch_counts()
+    want = []
+    for b in (1, 8):
+        for conv, fn in ((True, gla_cuda.gla_decode_conv), (False, gla_cuda.gla_decode)):
+            args, s0 = _decode_step_args(cuda, conv, b, 4, 256, 512, torch.bfloat16,
+                                         torch.bfloat16, seed=b)
+            fn(*args, s0)
+            route = gla_cuda.gla_decode_plan(b, 4, 256, 512, torch.bfloat16)
+            want.append((fn, (b, 4, 256, 512, torch.bfloat16, torch.bfloat16, route)))
+    torch.cuda.synchronize()
+    assert {route for _, (*_, route) in want} == {"tile", "cluster"}
+    for fn in (gla_cuda.gla_decode_conv, gla_cuda.gla_decode):
+        assert fn.launches == 2 and sum(fn.routes.values()) == fn.launches
+        shapes = {shape for f, shape in want if f is fn}
+        assert gla_cuda.launch_shapes()[fn.__name__] == shapes
+        assert fn.routes == {r: sum(1 for *_, rr in shapes if rr == r) for r in fn.routes}
+
+
+def test_decode_cluster_route_refuses_what_it_cannot_take(cuda):
+    """A state off a 16-byte boundary (the slab is copied in bulk) and an
+    unknown route raise before any launch."""
+    args, s0 = _decode_step_args(cuda, False, 1, 2, 64, 64, torch.bfloat16, torch.bfloat16, 0)
+    off = torch.empty(s0.numel() + 1, dtype=s0.dtype, device=cuda)[1:].view(s0.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        gla_cuda._decode_launch(*args, off, route="cluster")
+    with pytest.raises(ValueError, match="route"):
+        gla_cuda._decode_launch(*args, s0, route="rows")
+    conv_args, _ = _decode_step_args(cuda, True, 1, 2, 64, 64, torch.bfloat16, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        gla_cuda._decode_conv_launch(*conv_args, off, route="cluster")
+
+
 def _variant_cfg(**backbone):
     from lina_speech_tpu_torch.config import lina_gla_tiny
 
