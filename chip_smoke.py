@@ -16,12 +16,13 @@ Phases, in order; any failure raises and exits non-zero:
    second call) and the window fold, and a whole lazy window against 16
    classic steps; the lazy step's two routes timed in turns at b 1 to 16,
    p 0, 7 and 15, bf16 and f32 states, beside the route its plan picks
-   (lazy_route_sweep); the classic step's two routes (gla_decode_plan: a
-   thread block cluster a head from a threshold of heads in flight, the
-   tile body below it) timed in turns at b 1 to 64, bf16 and f32 states,
-   for the flagship's conv step, simple-GLA's and Mamba-2's steps beside
-   the route its plan picks, which may be no more than SWEEP_MARGIN slower
-   (decode_route_sweep); max error beside its tolerance, both
+   (lazy_route_sweep); the classic step's planned route (gla_decode_plan:
+   the tile body on states up to 512 KiB, above them a wide column-tile
+   body of 4, 8 or 16 threads across a row) and the one it is timed against
+   (the tile body, or the wide route) in turns at b 1 to 64, bf16 and f32
+   states, for the flagship's conv step, simple-GLA's and Mamba-2's steps,
+   the planned one no more than SWEEP_MARGIN slower (decode_route_sweep);
+   max error beside its tolerance, both
    times, and each kernel's roofline bound. The two prefill kernels are
    held on both routes of their forward (gla_chunk_fwd_plan: the chunked
    tensor-core route for bf16 IO from 64 tokens on, 128 above 8 heads in
@@ -103,12 +104,13 @@ Between phases 5 and 6, on the flagship of phase 4, quantized serving:
    fused_ffn_int8 is held against the plain version, or the phase fails.
 After phase 9, the GLA layers without per-projection convs:
 10. gla_chunk's forward and backward and the two classic steps against
-   their plain versions (the steps on both routes, also against the split
-   plain version of the cluster route; gla_decode_conv at b64, gla_decode
-   at b1, b8, b64 and Mamba-2's b8): the backward at b8 t 512, 317 and 128 with an f32, a bf16 and
-   no initial state for simple-GLA's heads (bf16 IO: autograd's launch on
-   the planned route, then both routes forced, the chunked one also
-   against its plain decomposition, gla_chunk_bwd_chunked_plain) and
+   their plain versions (the steps on every route, the wide ones also
+   against their split plain versions; gla_decode_conv at b64, gla_decode
+   at b1, b8, b64 and Mamba-2's b8): the backward at b8 t 512, 317 and
+   128 with an f32, a bf16 and no initial state for simple-GLA's heads
+   (bf16 IO: autograd's launch on the planned route, then both routes
+   forced, the chunked one also against its plain decomposition,
+   gla_chunk_bwd_chunked_plain) and
    Mamba-2's (f32 IO, the recurrent route), simple-GLA's also at the tuning
    batch b2 and under adversarial gates; every leaf within a share of its
    own max|plain|, finite and non-zero; a route sweep of the backward at
@@ -173,7 +175,7 @@ chunked route, that route must be the faster), every shape it launched the
 lazy step on is held and timed (a float state on both routes in turns,
 the planned one at most SWEEP_MARGIN slower by the median of six turns,
 timed again before a miss fails; an int8 state on the tile route), every
-shape it launched the two classic steps on is held on both routes and
+shape it launched the two classic steps on is held on every route and
 timed in turns (the planned route must be the faster), and
 launches x (time - bound) is summed over those
 launches; the summary ranks every kernel by it (the others at their row's
@@ -497,8 +499,8 @@ def ptxas_summary(log: str):
               (("lazy_tile_kernel",), "gla_decode_lazy_conv tile"),
               (("gla_decode_kernel", "Lb1E"), "gla_decode_conv tile"),
               (("gla_decode_kernel", "Lb0E"), "gla_decode tile"),
-              (("gla_decode_cluster_kernel", "Lb1E"), "gla_decode_conv cluster"),
-              (("gla_decode_cluster_kernel", "Lb0E"), "gla_decode cluster"),
+              (("gla_decode_wide_kernel", "Lb1E"), "gla_decode_conv wide"),
+              (("gla_decode_wide_kernel", "Lb0E"), "gla_decode wide"),
               (("gla_fold_kernel",), "gla_fold"),
               (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv recurrent"),
               (("gla_chunk_kernel", "Lb0E"), "gla_chunk recurrent"))
@@ -573,9 +575,9 @@ def ptxas_summary(log: str):
                 and any("spill" in line for line in found),
                 f"ptxas: no register or spill line of {label}")
     for label in [label for _, label in quant] + [
-            f"{kernel} {r}<bf16, bf16, 256>"
-            for kernel in ("gla_decode_lazy_conv", "gla_decode_conv", "gla_decode")
-            for r in LAZY_ROUTES]:
+            f"gla_decode_lazy_conv {r}<bf16, bf16, 256>" for r in LAZY_ROUTES] + [
+            f"{kernel} {r}<bf16, bf16, 256>" for kernel in ("gla_decode_conv", "gla_decode")
+            for r in ("tile", "wide")]:
         found = [line for line in out if line.startswith(f"{label}:")]
         require(any("registers" in line for line in found),
                 f"ptxas: no register line of {label}")
@@ -1362,7 +1364,6 @@ def lazy_gap_phase(torch, gla_cuda, card_line):
 
 
 # --------------------------------------------------------- classic decode
-DECODE_ROUTES = ("cluster", "tile")
 DECODE_SWEEP_B = (1, 2, 4, 6, 8, 16, 64)  # batches of decode_route_sweep
 # (kernel, (h, dk, dv), IO dtype) of decode_route_sweep: the flagship's conv
 # step, simple-GLA's and Mamba-2's steps without convs
@@ -1409,6 +1410,16 @@ def decode_work(name, args, state, out):
     return nbytes(*args, state, *out), b * h * (5 * dk * dv + convs)
 
 
+def decode_pair(gla_cuda, shape):
+    """(the route gla_decode_plan picks at ``shape`` = (b, h, dk, dv, IO
+    dtype, state dtype), the route it is timed against): the tile body
+    against the wide route decode_wide_route would take, a wide route
+    against the tile body."""
+    b, h, dk, dv, _, st = shape
+    planned = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+    return planned, gla_cuda.decode_wide_route(b, h, dv, st) if planned == "tile" else "tile"
+
+
 def decode_tag(name, shape):
     b, h, dk, dv, io, st = shape
     return f"{name} b{b} {head_name(h, dk, dv)} IO {dtype_name(io)} state {dtype_name(st)}"
@@ -1416,54 +1427,57 @@ def decode_tag(name, shape):
 
 def hold_decode_routes(torch, gla_cuda, name, shape, seed):
     """The classic step ``name`` at ``shape`` = (b, h, dk, dv, IO dtype,
-    state dtype) on both routes, forced, against its plain version and its
-    split plain version (the cluster route's decomposition): o finite and
-    within TOL_BF16 (bf16 IO; TOL_F32 in f32) of its own max|plain|, the
-    state updated in place within TOL_BF16 (a bf16 IO or state; TOL_F32) of
-    its own max|plain| (so not all zeros), the rings equal to the plain
-    version's bit for bit, equal bits on a second call, and the two routes'
-    states equal bit for bit (both round fma(e^g, S, k v) once). Notes the
-    shape on both routes in DECODE_HELD. Returns ({route: a step on a
-    rotation of cold states}, the step's (bytes, operations))."""
-    b, h, dk, dv, io, st = shape
+    state dtype) on every route, forced, against its plain version, each
+    wide route also against its split plain version (its decomposition): o
+    finite and within TOL_BF16 (bf16 IO; TOL_F32 in f32) of its own
+    max|plain|, the state updated in place within TOL_BF16 (a bf16 IO or
+    state; TOL_F32) of its own max|plain| (so not all zeros), the rings
+    equal to the plain version's bit for bit, equal bits on a second call,
+    and every route's state equal bit for bit (each rounds fma(e^g, S, k v)
+    once). Notes the shape on every route in DECODE_HELD. Returns ({route:
+    a step on a rotation of cold states} for the planned route and the one
+    it is timed against (decode_pair), the step's (bytes, operations))."""
     _, plain, split, launch = decode_fns(gla_cuda, name)
     args, s0 = decode_case(torch, name, shape, seed)
-    ref, ref_split = plain(*args, s0), split(*args, s0)
-    tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
-    tol_s = TOL_BF16 if torch.bfloat16 in (io, st) else TOL_F32
-    planned = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+    ref = plain(*args, s0)
+    tol = TOL_BF16 if shape[4] == torch.bfloat16 else TOL_F32
+    tol_s = TOL_BF16 if torch.bfloat16 in shape[4:] else TOL_F32
+    pair = decode_pair(gla_cuda, shape)
     states = {}
-    for route in DECODE_ROUTES:
+    for route in gla_cuda._DECODE_ROUTE_CODE:
         s = s0.clone()
         out = launch(*args, s, route=route)
         again = launch(*args, s0.clone(), route=route)
         torch.cuda.synchronize()
-        print(f"{decode_tag(name, shape)}, {route} route{' (planned)' if route == planned else ''}:")
+        print(f"{decode_tag(name, shape)}, {route} route{' (planned)' if route == pair[0] else ''}:")
         require(out[1].data_ptr() == s.data_ptr(), "state not updated in place")
         require(bool(torch.isfinite(out[0].float()).all()), "o is not finite")
         hold_leaf("o", out[0], ref[0], tol)
-        hold_leaf("o vs split plain", out[0], ref_split[0], tol)
+        if route != "tile":
+            hold_leaf("o vs split plain", out[0], split(*args, s0, route=route)[0], tol)
         hold_leaf("state", out[1], ref[1], tol_s)
         for ring, a, r_ in zip(("ring q", "ring k", "ring v"), out[2:], ref[2:]):
             check(ring, max_err(a, r_), 0.0)
         require(all(torch.equal(a, k) for a, k in zip(again, out)), "a second call gave other bits")
         states[route] = s
         DECODE_HELD[name].add((*shape, route))
-    require(torch.equal(states["tile"], states["cluster"]), "the two routes' states differ")
-    print("  a second call: equal bits; the two routes' states: equal bits")
+    require(all(torch.equal(s, states["tile"]) for s in states.values()),
+            "the routes' states differ")
+    print("  a second call: equal bits; every route's state: equal bits")
     rotation = cold_pool(s0)
-    steps = {r: (lambda r=r: launch(*args, rotation(), route=r)) for r in DECODE_ROUTES}
+    steps = {r: (lambda r=r: launch(*args, rotation(), route=r)) for r in pair}
     return steps, decode_work(name, args, s0, ref)
 
 
 def decode_route_sweep(torch, gla_cuda, card_line):
-    """Both routes of the two classic steps timed in turns on cold states
-    (medians of 2 ROUTE_TURNS) at the heads of DECODE_SWEEP_HEADS, b
-    DECODE_SWEEP_B and f32 and bf16 states, beside the bound and the route
-    gla_decode_plan picks, which may be no more than SWEEP_MARGIN slower
-    (planned_route_times): where the plan's threshold comes from."""
+    """The two classic steps' planned route and the one it is timed against
+    (decode_pair: the tile body and the wide route the plan would take)
+    timed in turns on cold states (medians of 2 ROUTE_TURNS) at the heads
+    of DECODE_SWEEP_HEADS, b DECODE_SWEEP_B and f32 and bf16 states, beside
+    the bound; the planned route may be no more than SWEEP_MARGIN slower
+    (planned_route_times)."""
     print(f"classic decode route sweep (device us, median of {2 * ROUTE_TURNS} in turns; "
-          f"tile / cluster / bound) [{card_line}]:")
+          f"tile / wide / bound) [{card_line}]:")
     for name, head, io_name in DECODE_SWEEP_HEADS:
         launch = decode_fns(gla_cuda, name)[3]
         for st in (torch.bfloat16, torch.float32):
@@ -1473,22 +1487,25 @@ def decode_route_sweep(torch, gla_cuda, card_line):
                 bound_ms = roofline(*decode_work(name, args, s0, launch(*args, s0.clone())),
                                     shape[4])[0]
                 rotation = cold_pool(s0)
+                plan, other = decode_pair(gla_cuda, shape)
                 steps = {r: (lambda r=r: launch(*args, rotation(), route=r))
-                         for r in DECODE_ROUTES}
-                plan = gla_cuda.gla_decode_plan(*shape[:4], st)
+                         for r in (plan, other)}
                 ms, _ = planned_route_times(steps, plan, decode_tag(name, shape))
+                wide = plan if plan != "tile" else other
                 print(f"  {decode_tag(name, shape)} ({b * head[0]} heads): "
-                      f"{ms['tile'] * 1e3:.3f} / {ms['cluster'] * 1e3:.3f} / {bound_ms * 1e3:.3f}; "
-                      f"planned {plan}, {'faster' if ms[plan] <= min(ms.values()) else 'slower'}")
+                      f"{ms['tile'] * 1e3:.3f} / {ms[wide] * 1e3:.3f} ({wide}) / "
+                      f"{bound_ms * 1e3:.3f}; planned {plan}, "
+                      f"{'faster' if ms[plan] <= min(ms.values()) else 'slower'}")
 
 
 def decode_gap_phase(torch, gla_cuda, card_line):
     """Every shape a main path launched the two classic steps on
-    (GAP_SHAPE_COUNTS) held on both routes (hold_decode_routes) and timed
-    in turns on cold states beside its bound: the planned route must be
-    the faster (planned_route_times, strict). launches x (time - bound)
-    summed over them, on the routes taken and had every launch taken the
-    tile route (the PR 3 / PR 6 body). Returns {kernel: sum in ms on the
+    (GAP_SHAPE_COUNTS) held on every route (hold_decode_routes), the
+    planned one and the one it is timed against (decode_pair) timed in
+    turns on cold states beside its bound: the planned route must be the
+    faster (planned_route_times, strict). launches x (time - bound) summed
+    over them, on the routes taken and had every launch taken the tile
+    route (the kernel's first body). Returns {kernel: sum in ms on the
     routes taken}."""
     sums = {}
     for name in ("gla_decode_conv", "gla_decode"):
@@ -1505,12 +1522,12 @@ def decode_gap_phase(torch, gla_cuda, card_line):
             bound_ms = roofline(*work, dims[4])[0]
             total["taken"] += n * (ms[route] - bound_ms)
             total["tile"] += n * (ms["tile"] - bound_ms)
-            print(f"  {n} launches; " + ", ".join(
+            print(f"  {decode_tag(name, tuple(dims))}: {n} launches; " + ", ".join(
                 f"{r}{' (planned)' if r == route else ''} {ms[r] * 1e3:.3f}" for r in ms)
                 + f", bound {bound_ms * 1e3:.3f} (medians; turns, ms: {times})")
         print(f"  {name}: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
-              f"taken; {total['tile']:.3f} ms had every launch taken the tile route (the PR 3 / "
-              f"PR 6 body) [{card_line}]")
+              f"taken; {total['tile']:.3f} ms had every launch taken the tile route (the "
+              f"kernel's first body) [{card_line}]")
         sums[name] = total["taken"]
     return sums
 
@@ -3256,10 +3273,11 @@ def chunk_bwd_kernel_phase(torch, gla_cuda, summary):
 
 def hold_decode(torch, gla_cuda, name, shape, summary=None):
     """The classic step ``name`` at ``shape`` = (b, h, dk, dv, IO dtype,
-    state dtype) on both routes (hold_decode_routes); the public wrapper on
+    state dtype) on every route (hold_decode_routes); the public wrapper on
     the route gla_decode_plan gives, counted under it, against the plain
-    version; both timed on a rotation of cold states (100 MB) beside the
-    bound, the wrapper also beside the plain version: into the summary at
+    version; the planned route and the one it is timed against (decode_pair)
+    timed on a rotation of cold states (100 MB) beside the bound, the
+    wrapper also beside the plain version: into the summary at
     ``summary``'s shape, else a further shape."""
     b, h, dk, dv, io, st = shape
     steps, work = hold_decode_routes(torch, gla_cuda, name, shape, seed=500 + b + h)
@@ -3278,7 +3296,7 @@ def hold_decode(torch, gla_cuda, name, shape, summary=None):
     states = cold_pool(s0)
     wrapper_ms, plain_ms = timed_pair(tag, lambda: wrapper(*args, states()),
                                       lambda: plain(*args, states()), 50)
-    other = next(r for r in DECODE_ROUTES if r != route)
+    other = decode_pair(gla_cuda, shape)[1]
     print(f"  {route} (planned) {ms[route] * 1e3:.3f} us, {other} {ms[other] * 1e3:.3f} us "
           f"(medians of {2 * ROUTE_TURNS} in turns)")
     if summary is not None:

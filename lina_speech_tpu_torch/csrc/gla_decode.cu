@@ -13,8 +13,9 @@
 
 // C entry point (bound with ctypes in ops/gla_cuda.py). Layouts: q, k, gk
 // (B, H, DK); v (B, H, DV); state (B, H, DK, DV), updated in place; o (B,
-// H, DV). All contiguous. route: 0 the tile body, 1 the cluster body (a
-// state on a 16-byte boundary). Return codes as gla::dispatch_decode.
+// H, DV). All contiguous. route: 0 the tile body; 4, 8 or 16 the wide body
+// with that many threads across a row (a state on a 16-byte boundary).
+// Return codes as gla::dispatch_decode.
 extern "C" int gla_decode_step(const void* q, const void* k, const void* v, const void* gk,
                                void* state, void* o, int B, int H, int DK, int DV,
                                float scale, int io_dtype, int state_dtype, int route,

@@ -13,71 +13,58 @@
 // (gla_pallas.py:1389-1393). o is read from the f32 S before S is rounded to
 // the state dtype; o is rounded to the IO dtype. Both bodies form each state
 // element as fma(e^g, S, k v) in f32 (no contraction left to the compiler),
-// so the two give the state in equal bits; o's sums run in other orders.
+// so they give the state in equal bits; o's sums run in other orders.
 //
 // What bounds it on the H100: bytes. The state is read once and written
 // once per token (b8 flagship: 8.4 MB each way per layer in bf16, 5.0 us at
-// 3.35 TB/s), against ~2.5 operations per state byte. The state is updated
-// in place (the Pallas kernel's input_output_aliases={4: 1}). Two bodies
-// compute it, chosen by ops/gla_cuda.py:gla_decode_plan from shapes and
+// 3.35 TB/s), against ~2.5 operations per state byte; at small batch, the
+// chain of dependent memory round trips. The state is updated in place (the
+// Pallas kernel's input_output_aliases={4: 1}): each element is read and
+// written by the same thread. Both bodies give a block a column tile of one
+// (batch, head) state, all dk rows; with CONV every block of a head needs
+// the full q/k conv outputs, so each forms them from the OLD rings (from
+// L2 after the first), and the new rings go to separate output buffers (an
+// in-place ring shift by one block would race with the other blocks'
+// reads); column tile 0 writes the q/k rings, each block its columns of the
+// v ring. ops/gla_cuda.py:gla_decode_plan picks the body from shapes and
 // dtypes before the launch:
 //
-// Cluster route (from a number of heads in flight, the plan's threshold).
-// A thread block cluster of R = DK / kRB blocks (8 at dk 256, 2 at dk 64)
-// owns one (batch, head); block r owns kRB = 32 contiguous key rows and, for
-// the finish, w / R value columns (its slice of a tile of w columns):
-// - as its first act, thread 0 asks the TMA engine for the block's slab of
-//   the state, kRB x w and contiguous where w == DV, as one bulk copy into
-//   shared memory on an mbarrier (cp.async.bulk); the state's loads wait for
-//   nothing;
-// - while the slab lands, warp 0 forms q, k and e^g of the block's rows
-//   only (each row's conv is summed once a head, not once a column tile) and
-//   writes their rows of the q and k rings; every thread forms v at the
-//   tile's columns (every row needs it for k^T v) and writes the v ring at
-//   the block's slice;
-// - thread t updates Vec::N neighbouring columns of every ngr-th row of the
-//   slab in shared memory, S' = e^g S + k v in f32, writes S' back there in
-//   the state dtype and sums its part of the readout, sum_i q_i S'_i, at
-//   those columns; the parts travel by st.async into the shared memory of
-//   the block that owns the columns, completing on its mbarrier. A split
-//   cluster barrier only guarantees that every block's mbarrier is
-//   initialised before a peer pushes to it;
-// - the updated slab goes back to the state in place as one bulk store
-//   (cp.async.bulk.global.shared::cta after fence.proxy.async);
-// - the owner adds the R x ngr parts of its slice in rank order, then row
-//   group, and writes o: the sum is fixed, no atomics, equal bits call to
-//   call.
-// Every state byte is read once and written once; every ring and x byte is
-// read once from device memory (the v ring and the v taps of a head are read
-// by its R blocks, the later ones from L2). What bounds it at small batch is
-// the chain slab in -> update -> parts pushed -> o, one wave of blocks; at
-// large batch the bytes.
+// Wide route (states above 512 KiB): a block of kThreads threads owns a
+// column tile TPR x 16 bytes wide (TPR = 4, 8 or 16 threads across a row:
+// 32, 64 or 128 bf16 columns, 16, 32 or 64 f32), the route code. Thread
+// (row phase p, column group g) owns the 16-byte word of columns g of the
+// rows i = p, p + kThreads / TPR, ..., and asks for all of them before it
+// reads anything else, so the state's loads and the conv prologue's are in
+// flight together: the step costs one round trip, then the update in
+// registers and one 16-byte store a word. The readout parts of the row
+// phases meet in shared memory and are added in phase order. A narrow tile
+// (small TPR) gives more blocks at small batch, where a wave of blocks
+// leaves SMs idle; a wide one repeats the head's prologue fewer times once
+// the grid fills the card. The plan picks TPR from the grid's size.
 //
-// Tile route (the PR 3 / PR 6 design; the plan keeps it below the
-// threshold, where its shorter chain wins): a block owns a (DK x 32) column
-// tile of one (batch, head) state; lane = value column, so a warp reads and
-// writes 32 consecutive state elements per key row, and each element is
-// read and written by the same thread in registers. With CONV every block
-// of a (batch, head) needs the full q/k conv outputs, so each recomputes
-// them from the OLD rings; the new rings go to separate output buffers (an
-// in-place ring shift by one block would race with the other blocks'
-// reads). Block column 0 writes the q/k rings; each block writes its own
-// columns of the v ring. __launch_bounds__(256, 2) caps registers at 128 so
-// two blocks share an SM and more state loads are in flight. What bounds
-// it: the prologue before the state's loads (a second round trip), dk/8
-// two-byte loads and stores a thread, and the prologue repeated in every
-// column tile (dv / 32 times a head).
+// Tile route (the kernel's first design; states up to 512 KiB, where its
+// shorter prologue ties or wins): a block owns a (DK x 32) column tile;
+// lane = value column, so a warp reads and writes 32 consecutive state
+// elements per key row, two bytes a lane, and the state is loaded after the
+// prologue (two round trips). __launch_bounds__(256, 2) caps registers at
+// 128 so two blocks share an SM and more state loads are in flight.
+//
+// Tried and dropped on the card (PERF.md §6): a thread block cluster a
+// head, each block staging 32 key rows of the state in shared memory by
+// bulk copies (cp.async.bulk), pushing its readout parts to the owner of
+// each column slice with st.async and writing its rows back by one bulk
+// store; it formed each row's q and k once a head, but its chain (slab in,
+// update, bulk store, parts pushed) lost to the wide route at every shape
+// swept but one; streaming the slab in bands through a ring did not help.
 #pragma once
 
-#include <cooperative_groups.h>
+#include <cstdint>
 
-#include "gla_cluster.cuh"
+#include "gla_common.cuh"
 
 namespace gla {
 
-constexpr int kDecodeTile = 0;  // route codes (ops/gla_cuda.py:_DECODE_ROUTE_CODE)
-constexpr int kDecodeCluster = 1;
-constexpr int kDecodeWide = 2;
+constexpr int kDecodeTile = 0;  // route code of the tile body (ops/gla_cuda.py:_DECODE_ROUTE_CODE)
 
 // S' = e^g S + k v, the one rounding order of both bodies
 __device__ __forceinline__ float decay_update(float e, float s, float k, float v) {
@@ -382,240 +369,30 @@ int launch_decode_wide(const void* xq, const void* xk, const void* xv, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-#define WIDE_LAUNCHER(T)                                                                    \
-  template <typename IO, typename ST, int DK, bool CONV>                                    \
-  int launch_decode_wide##T(const void* xq, const void* xk, const void* xv, const void* gk, \
-                            const void* wq, const void* wk, const void* wv, const void* cq, \
-                            const void* ck, const void* cv, void* state, void* o,           \
-                            void* cq_out, void* ck_out, void* cv_out, int B, int H, int DV, \
-                            float scale, cudaStream_t stream) {                             \
-    return launch_decode_wide<T, IO, ST, DK, CONV>(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv,  \
-                                                   state, o, cq_out, ck_out, cv_out, B, H,  \
-                                                   DV, scale, stream);                      \
-  }
-WIDE_LAUNCHER(16)
-WIDE_LAUNCHER(8)
-WIDE_LAUNCHER(4)
-
-// --------------------------------------------------------- cluster route
-// Dynamic shared memory of a block whose tile is w columns wide: the slab
-// (kRB x w in the state dtype), then f32 arrays: the readout parts the R
-// blocks push to this one (R x ngr x w / R) and v at the tile's columns.
-template <typename ST>
-__host__ __device__ __forceinline__ int decode_smem_bytes(int w) {
-  return kRB * w * static_cast<int>(sizeof(ST)) + (row_groups<ST>(w) * w + w) * 4;
-}
-
+// One launch on route ``route``: 0 the tile body, 4, 8 or 16 the wide body
+// with that many threads across a row; -7 for another code.
 template <typename IO, typename ST, int DK, bool CONV>
-__global__ void __launch_bounds__(kThreads)
-gla_decode_cluster_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
-                          const IO* __restrict__ xv, const float* __restrict__ gk,
-                          const IO* __restrict__ wq, const IO* __restrict__ wk,
-                          const IO* __restrict__ wv, const IO* __restrict__ cq,
-                          const IO* __restrict__ ck, const IO* __restrict__ cv,
-                          ST* state, IO* __restrict__ o, IO* __restrict__ cq_out,
-                          IO* __restrict__ ck_out, IO* __restrict__ cv_out,
-                          int BH, int H, int DV, int w, float scale) {
-  constexpr int RB = kRB;     // the block's rows
-  constexpr int R = DK / RB;  // blocks of a cluster
-  constexpr int VN = Vec<ST>::N;
-  extern __shared__ __align__(128) unsigned char dsm[];
-  __shared__ float sq[RB], sk[RB], seg[RB];
-  __shared__ __align__(8) uint64_t slab_bar, push_bar;
-
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int bh = blockIdx.x / R;
-  const int h = bh % H;
-  const int tid = threadIdx.x;
-  const int r0 = rank * RB;           // the block's first row
-  const int c0 = blockIdx.y * w;      // the tile's first column
-  const int sw = w / R;               // the block's slice of the tile
-  const int ngr = row_groups<ST>(w);  // the readout's row groups
-
-  ST* slab = reinterpret_cast<ST*>(dsm);                             // [RB][w]
-  float* recv = reinterpret_cast<float*>(dsm + RB * w * sizeof(ST));  // [R][ngr][sw]
-  float* sv = recv + ngr * w;                                         // [w]
-
-  // the state's slab first: nothing it waits for
-  ST* src = state + ((size_t)bh * DK + r0) * DV + c0;
-  const unsigned row_bytes = w * sizeof(ST);
-  if (tid == 0) {
-    mbar_init(&slab_bar);
-    mbar_init(&push_bar);
-    mbar_expect(&slab_bar, RB * row_bytes);
-    mbar_expect(&push_bar, ngr * w * 4);  // what the R blocks push here
-    if (w == DV) {
-      bulk_copy(slab, src, RB * row_bytes, &slab_bar);
-    } else {
-      for (int i = 0; i < RB; ++i) bulk_copy(slab + i * w, src + (size_t)i * DV, row_bytes, &slab_bar);
-    }
+int launch_decode(const void* xq, const void* xk, const void* xv, const void* gk,
+                  const void* wq, const void* wk, const void* wv, const void* cq,
+                  const void* ck, const void* cv, void* state, void* o, void* cq_out,
+                  void* ck_out, void* cv_out, int B, int H, int DV, float scale, int route,
+                  cudaStream_t stream) {
+#define DECODE_ARGS \
+  xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, o, cq_out, ck_out, cv_out, B, H, DV, scale, stream
+  switch (route) {
+    case kDecodeTile: return launch_decode_tile<IO, ST, DK, CONV>(DECODE_ARGS);
+    case 4: return launch_decode_wide<4, IO, ST, DK, CONV>(DECODE_ARGS);
+    case 8: return launch_decode_wide<8, IO, ST, DK, CONV>(DECODE_ARGS);
+    case 16: return launch_decode_wide<16, IO, ST, DK, CONV>(DECODE_ARGS);
+    default: return -7;
   }
-
-  // rings are (4, BH, D): element (j, bh, c) at j * BH * D + bh * D + c
-  const size_t kstride = (size_t)BH * DK;
-  const size_t vstride = (size_t)BH * DV;
-  // the block's rows: q, k and e^g (warp 0, row r0 + lane)
-  if (tid < RB) {
-    const size_t off = (size_t)bh * DK + r0 + tid;
-    const int row = r0 + tid;
-    const float x_q = to_f(xq[off]);
-    const float x_k = to_f(xk[off]);
-    const float g = gk[off];
-    if constexpr (CONV) {
-      float hq[kConv - 1], hk[kConv - 1], tq[kConv], tk[kConv];
-#pragma unroll
-      for (int j = 0; j < kConv - 1; ++j) {
-        hq[j] = to_f(cq[(j + 1) * kstride + off]);
-        hk[j] = to_f(ck[(j + 1) * kstride + off]);
-      }
-#pragma unroll
-      for (int i = 0; i < kConv; ++i) {
-        tq[i] = to_f(wq[(size_t)(i * H + h) * DK + row]);
-        tk[i] = to_f(wk[(size_t)(i * H + h) * DK + row]);
-      }
-      sq[tid] = round_io<IO>(silu(round_io<IO>(tap_sum(tq, hq, x_q)))) * scale;
-      sk[tid] = round_io<IO>(silu(round_io<IO>(tap_sum(tk, hk, x_k))));
-      if (blockIdx.y == 0) {  // one column tile writes the rows' rings
-#pragma unroll
-        for (int j = 0; j < kConv - 1; ++j) {
-          cq_out[j * kstride + off] = from_f<IO>(hq[j]);
-          ck_out[j * kstride + off] = from_f<IO>(hk[j]);
-        }
-        cq_out[(kConv - 1) * kstride + off] = from_f<IO>(x_q);
-        ck_out[(kConv - 1) * kstride + off] = from_f<IO>(x_k);
-      }
-    } else {
-      sq[tid] = x_q * scale;
-      sk[tid] = x_k;
-    }
-    seg[tid] = expf(g);
-  }
-  // v at the tile's columns, by the last threads first (warp 0 takes the
-  // rows); the v ring at the block's slice
-  for (int c = kThreads - 1 - tid; c < w; c += kThreads) {
-    const size_t off = (size_t)bh * DV + c0 + c;
-    const float x_v = to_f(xv[off]);
-    if constexpr (CONV) {
-      float hv[kConv - 1], tv[kConv];
-#pragma unroll
-      for (int j = 0; j < kConv - 1; ++j) hv[j] = to_f(cv[(j + 1) * vstride + off]);
-#pragma unroll
-      for (int i = 0; i < kConv; ++i) tv[i] = to_f(wv[(size_t)(i * H + h) * DV + c0 + c]);
-      sv[c] = round_io<IO>(silu(round_io<IO>(tap_sum(tv, hv, x_v))));
-      if (c / sw == rank) {
-#pragma unroll
-        for (int j = 0; j < kConv - 1; ++j) cv_out[j * vstride + off] = from_f<IO>(hv[j]);
-        cv_out[(kConv - 1) * vstride + off] = from_f<IO>(x_v);
-      }
-    } else {
-      sv[c] = x_v;
-    }
-  }
-  __syncthreads();  // the rows, v and this block's mbarriers are ready
-  cluster_arrive();
-
-  // the update and this block's part of the readout: thread t takes VN
-  // neighbouring columns and the rows i = gr, gr + ngr, ...
-  const int ncg = w / VN;  // at most kThreads: a slab is at most kSlabBytes
-  const int gr = tid / ncg;
-  const int c = (tid % ncg) * VN;
-  float acc[VN];
-#pragma unroll
-  for (int e = 0; e < VN; ++e) acc[e] = 0.f;
-  mbar_wait(&slab_bar);
-  if (gr < ngr) {
-    float v[VN];
-#pragma unroll
-    for (int e = 0; e < VN; ++e) v[e] = sv[c + e];
-#pragma unroll 8
-    for (int i = gr; i < RB; i += ngr) {
-      const float eg = seg[i], kk = sk[i], q = sq[i];
-      float f[VN];
-      Vec<ST>::load(slab + i * w + c, f);
-#pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        f[e] = decay_update(eg, f[e], kk, v[e]);
-        acc[e] += q * f[e];
-      }
-      Vec<ST>::store(slab + i * w + c, f);
-    }
-  }
-  // the updated slab back in place, by the TMA engine
-  bulk_store_fence();
-  __syncthreads();
-  if (tid == 0) {
-    if (w == DV) {
-      bulk_store(src, slab, RB * row_bytes);
-    } else {
-      for (int i = 0; i < RB; ++i) bulk_store(src + (size_t)i * DV, slab + i * w, row_bytes);
-    }
-    bulk_commit();
-  }
-  // the parts to the block that owns their columns
-  cluster_wait();  // every peer's mbarriers are ready
-  if (gr < ngr) {
-    const int owner = c / sw;
-    push4(peer_addr(recv + (rank * ngr + gr) * sw + c - owner * sw, owner), acc,
-          peer_addr(&push_bar, owner));
-  }
-
-  // the slice: R x ngr parts added in rank order, then row group
-  mbar_wait(&push_bar);
-  for (int j = tid; j < sw; j += kThreads) {
-    float out = 0.f;
-    for (int k = 0; k < R * ngr; ++k) out += recv[k * sw + j];
-    o[(size_t)bh * DV + c0 + rank * sw + j] = from_f<IO>(out);
-  }
-  if (tid == 0) bulk_wait_read();  // the slab stays until the engine has read it
+#undef DECODE_ARGS
 }
 
-template <typename IO, typename ST, int DK, bool CONV>
-int launch_decode_cluster(const void* xq, const void* xk, const void* xv, const void* gk,
-                   const void* wq, const void* wk, const void* wv, const void* cq,
-                   const void* ck, const void* cv, void* state, void* o, void* cq_out,
-                   void* ck_out, void* cv_out, int B, int H, int DV, float scale,
-                   cudaStream_t stream) {
-  constexpr int R = DK / kRB;
-  const int w = slab_width<ST, DK>(DV);
-  if (w == 0) return -3;  // DV has no tile of R x the loads' width
-  const int smem = decode_smem_bytes<ST>(w);
-  auto kernel = gla_decode_cluster_kernel<IO, ST, DK, CONV>;
-  static int sized = 48 * 1024;  // the most the attribute allows so far
-  if (smem > sized) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sized = smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(R * B * H, DV / w);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = R;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const IO*>(xq), static_cast<const IO*>(xk),
-      static_cast<const IO*>(xv), static_cast<const float*>(gk),
-      static_cast<const IO*>(wq), static_cast<const IO*>(wk),
-      static_cast<const IO*>(wv), static_cast<const IO*>(cq),
-      static_cast<const IO*>(ck), static_cast<const IO*>(cv),
-      static_cast<ST*>(state), static_cast<IO*>(o), static_cast<IO*>(cq_out),
-      static_cast<IO*>(ck_out), static_cast<IO*>(cv_out), B * H, H, DV, w, scale);
-  return e != cudaSuccess ? static_cast<int>(e) : static_cast<int>(cudaGetLastError());
-}
-
-// Dispatch over routes, dtypes and DK. Returns cudaGetLastError() after the
-// launch (or the launch's own error: a cluster the card cannot place), -1
-// for an unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 !=
-// 0, -6 for a state off a 16-byte boundary on the cluster route (it is
-// copied in bulk), -7 for an unknown route code (0 tile, 1 cluster).
+// Dispatch over dtypes and DK. Returns cudaGetLastError() after the launch,
+// -1 for an unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32
+// != 0, -6 for a state off a 16-byte boundary on a wide route (it is read
+// and written in 16-byte words), -7 for an unknown route code.
 template <bool CONV>
 int dispatch_decode(const void* xq, const void* xk, const void* xv, const void* gk,
                     const void* wq, const void* wk, const void* wv, const void* cq,
@@ -623,27 +400,12 @@ int dispatch_decode(const void* xq, const void* xk, const void* xv, const void* 
                     void* ck_out, void* cv_out, int B, int H, int DK_, int DV, float scale,
                     int io_dtype, int state_dtype, int route, void* stream) {
   if (DV % kBV != 0 || DV < kBV) return -3;
-  if (route < 0 || route > 4) return -7;
-  if (route >= kDecodeWide && reinterpret_cast<uintptr_t>(state) % 16 != 0) return -6;
-  if (route == kDecodeCluster && reinterpret_cast<uintptr_t>(state) % 16 != 0) return -6;
+  if (route != kDecodeTile && reinterpret_cast<uintptr_t>(state) % 16 != 0) return -6;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DECODE_LAUNCH(BODY)                                                              \
-  GLA_DISPATCH_TYPES(io_dtype, state_dtype,                                              \
-                     GLA_DISPATCH_DK(DK_, return BODY<IO, ST, DK, CONV>(                 \
-                         xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, o, cq_out,       \
-                         ck_out, cv_out, B, H, DV, scale, st)))
-  if (route == kDecodeTile) {
-    DECODE_LAUNCH(launch_decode_tile)
-  } else if (route == kDecodeWide) {
-    DECODE_LAUNCH(launch_decode_wide16)
-  } else if (route == 3) {
-    DECODE_LAUNCH(launch_decode_wide8)
-  } else if (route == 4) {
-    DECODE_LAUNCH(launch_decode_wide4)
-  } else {
-    DECODE_LAUNCH(launch_decode_cluster)
-  }
-#undef DECODE_LAUNCH
+  GLA_DISPATCH_TYPES(io_dtype, state_dtype,
+                     GLA_DISPATCH_DK(DK_, return launch_decode<IO, ST, DK, CONV>(
+                         xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, o, cq_out, ck_out,
+                         cv_out, B, H, DV, scale, route, st)))
   return -2;
 }
 

@@ -11,8 +11,8 @@
 // oldest; rings cq, ck (4, B, H, DK), cv (4, B, H, DV), index 3 newest;
 // state (B, H, DK, DV), updated in place; outputs o (B, H, DV) and the new
 // rings. All contiguous; rings and taps in the IO dtype. route: 0 the tile
-// body, 1 the cluster body (a state on a 16-byte boundary). Return codes as
-// gla::dispatch_decode.
+// body; 4, 8 or 16 the wide body with that many threads across a row (a
+// state on a 16-byte boundary). Return codes as gla::dispatch_decode.
 extern "C" int gla_decode_conv_step(const void* xq, const void* xk, const void* xv,
                                     const void* gk, const void* wq, const void* wk,
                                     const void* wv, const void* cq, const void* ck,

@@ -99,7 +99,7 @@
 
 #include <cstdint>
 
-#include "gla_cluster.cuh"
+#include "gla_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -110,7 +110,9 @@ using namespace gla;
 constexpr int kI8 = 2;               // state dtype code of a row-quantized int8 state
 constexpr int kTileRoute = 0;        // route codes (ops/gla_cuda.py:_LAZY_ROUTE_CODE)
 constexpr int kClusterRoute = 1;
+constexpr int kRB = 32;              // key rows a block of the cluster route owns
 constexpr int kWarps = kThreads / 32;
+constexpr int kSlabBytes = 65536;    // most state bytes a block stages
 constexpr int kPreK = 2;             // window slots of k and c a warp loads ahead
 constexpr int kPreV = 4;             // window slots of v a thread loads ahead
 
@@ -132,10 +134,100 @@ __device__ __forceinline__ void lazy_stamp(int i) {
 #define LAZY_STAMP(i)
 #endif
 
+// How a thread reads neighbouring state columns from the slab: N of them in
+// one 8- or 16-byte shared-memory load, unpacked to f32. A bf16 is the top
+// half of its f32.
+template <typename ST> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* s, float (&f)[N]) {
+    const float4 w = *reinterpret_cast<const float4*>(s);
+    f[0] = w.x;
+    f[1] = w.y;
+    f[2] = w.z;
+    f[3] = w.w;
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* s, float (&f)[N]) {
+    const uint2 w = *reinterpret_cast<const uint2*>(s);
+    f[0] = __uint_as_float(w.x << 16);
+    f[1] = __uint_as_float(w.x & 0xffff0000u);
+    f[2] = __uint_as_float(w.y << 16);
+    f[3] = __uint_as_float(w.y & 0xffff0000u);
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the mbarrier the tile's bulk copies complete on (one phase a launch)
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(0u)
+        : "memory");
+  }
+}
+// bytes (a multiple of 16, both addresses on 16-byte boundaries) from device
+// memory into this block's shared memory by the TMA engine
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// this block's shared-memory address ``local`` in block ``rank`` of the cluster
+__device__ __forceinline__ unsigned peer_addr(const void* local, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(local)), "r"(rank));
+  return r;
+}
+// f32 values into a peer's shared memory at ``dst``, completing on its
+// mbarrier ``bar`` (both shared::cluster addresses from peer_addr)
+__device__ __forceinline__ void push(unsigned dst, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(dst),
+               "f"(v), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void push4(unsigned dst, const float* v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::
+          "r"(dst),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+
+// the split cluster barrier of int8_common.cuh: arrive when done with the
+// other blocks' shared memory, wait just before leaving
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ tile route
@@ -368,6 +460,11 @@ int launch_tile(const void* xq, const void* xk, const void* xv, const void* gk,
 // position p: the slab (rows x w), then f32 arrays: the readout parts and
 // the score parts the peers push (ngr row groups of R ranks), the scores, v
 // at the slice's columns, and the window's groups before they are added.
+template <typename ST>
+__host__ __device__ __forceinline__ int row_groups(int w) {
+  const int ncg = w / Vec<ST>::N;
+  return ncg >= kThreads ? 1 : kThreads / ncg;
+}
 template <typename ST, int DK>
 __host__ __device__ __forceinline__ int smem_bytes(int w, int p) {
   constexpr int R = DK / kRB;
@@ -635,6 +732,19 @@ lazy_cluster_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
   LAZY_STAMP(6);
 }
 
+// Columns of a block's tile: dv cut into the fewest equal tiles whose
+// columns are a multiple of R x the loads' width and whose slab is at most
+// kSlabBytes.
+template <typename ST, int DK>
+int slab_width(int DV) {
+  const int quantum = (DK / kRB) * Vec<ST>::N;
+  for (int t = 1; t <= DV / quantum; ++t) {
+    const int w = DV / t;
+    if (DV % t == 0 && w % quantum == 0 && kRB * w * (int)sizeof(ST) <= kSlabBytes) return w;
+  }
+  return quantum;
+}
+
 template <typename IO, typename ST, int DK>
 int launch_cluster(const void* xq, const void* xk, const void* xv, const void* gk,
            const void* wq, const void* wk, const void* wv, const void* cq,
@@ -643,7 +753,7 @@ int launch_cluster(const void* xq, const void* xk, const void* xv, const void* g
            void* cc_out, int B, int H, int DV, int p, float scale, cudaStream_t stream) {
   constexpr int R = DK / kRB;
   const int w = slab_width<ST, DK>(DV);
-  if (w == 0) return -3;  // DV has no tile of R x the loads' width
+  if (DV % w != 0) return -3;  // DV has no tile of R x the loads' width
   const int smem = smem_bytes<ST, DK>(w, p);
   auto kernel = lazy_cluster_kernel<IO, ST, DK>;
   static int sized = 48 * 1024;  // the most the attribute allows so far

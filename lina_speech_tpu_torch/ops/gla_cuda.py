@@ -45,8 +45,8 @@ CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
 tensor it launches the kernel or raises -- there is no fallback. Each
 counts its launches in a plain int attribute (``gla_chunk_conv.launches``);
 the training kernels and the three decode steps also note the shapes they
-were launched on (:func:`launch_shapes`). Which heads the
-kernels take is one predicate, :func:`kernel_takes`: a layer asks it before
+were launched on (:func:`launch_shapes`). Which heads the kernels take is
+one predicate, :func:`kernel_takes`: a layer asks it before
 it calls a wrapper and takes the plain version for a head the kernels do
 not take, as the JAX layer takes XLA where its Pallas kernels do not fit; a
 wrapper called on such a head raises.
@@ -116,8 +116,8 @@ def launch_shapes() -> dict:
     dtype or None, scale, route); ``gla_chunk_bwd``: the same with need_ds0
     in the route's place. ``gla_decode_conv`` and ``gla_decode``: (b, h,
     dk, dv, IO dtype, state dtype, route); ``gla_decode_lazy_conv``: (b, h,
-    dk, dv, IO dtype, state dtype, window length, p, route). A check that drives a path reads it to hold the
-    kernels at those shapes."""
+    dk, dv, IO dtype, state dtype, window length, p, route). A check that
+    drives a path reads it to hold the kernels at those shapes."""
     return {fn.__name__: set(fn.shapes) for fn in _shape_noters()}
 
 
@@ -790,70 +790,44 @@ def gla_decode_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
 
 
 # The classic step's two bodies (csrc/gla_decode.cuh), chosen by
-# gla_decode_plan: "cluster", a thread block cluster a head whose blocks each
-# stage 32 key rows of the state in shared memory by one bulk copy and form
-# their rows' q and k once; "tile", the PR 3 / PR 6 body, a block per
-# 32-column tile that forms the head's q and k itself.
-_DECODE_ROUTE_CODE = {"tile": 0, "cluster": 1, "wide": 2, "wide8": 3, "wide4": 4}
-_SLAB_ROWS = 32  # key rows a block of a cluster route owns (csrc/gla_cluster.cuh:kRB)
-_SLAB_BYTES = 65536  # most state bytes such a block stages (kSlabBytes)
+# gla_decode_plan: "tile", the first body, a block per 32-column tile
+# that forms the head's q and k itself and loads the state after them;
+# "wide<T>", a block per column tile T threads across (16-byte words: T x 8
+# bf16 or T x 4 f32 columns) that loads its state words first. The code of a
+# wide route is its T.
+_DECODE_ROUTE_CODE = {"tile": 0, "wide4": 4, "wide8": 8, "wide16": 16}
+_WIDE_THREADS = 256  # threads of a wide-route block (csrc/gla_common.cuh:kThreads)
 
 
-def _slab_width(dk: int, dv: int, itemsize: int) -> int:
-    """Columns of a cluster-route block's slab (``slab_width`` in
-    csrc/gla_cluster.cuh): dv cut into the fewest equal tiles whose columns
-    are a multiple of R = dk / 32 times the kernels' loads (4 values) and
-    whose slab is at most _SLAB_BYTES; 0 where there is none."""
-    quantum = dk // _SLAB_ROWS * 4
-    for t in range(1, dv // quantum + 1):
-        w = dv // t
-        if dv % t == 0 and w % quantum == 0 and _SLAB_ROWS * w * itemsize <= _SLAB_BYTES:
-            return w
-    return 0
-
-
-def _row_parts(s, q, dk: int, cols: slice):
-    """The readout of the f32 state ``s`` (b, h, dk, dv) by the f32 query q
-    (b, h, dk) at columns ``cols`` as a cluster route forms it: each block's
-    part over its 32 key rows, the parts added in rank order."""
-    return _sum_in_order([torch.einsum("bhk,bhkv->bhv", q[..., r:r + _SLAB_ROWS],
-                                       s[..., r:r + _SLAB_ROWS, cols])
-                          for r in range(0, dk, _SLAB_ROWS)])
-
-
-def _decode_split(q, k, v, gk, state, io):
-    """S' = e^g S + k^T v and o = q S' (f32 q, k, v; q scaled) as the
-    cluster route splits the readout: per column tile (:func:`_slab_width`),
-    the 32-row groups' parts added in rank order. Returns (o in the IO
+def _decode_split(q, k, v, gk, state, io, route):
+    """S' = e^g S + k^T v and o = q S' (f32 q, k, v; q scaled) as the wide
+    route ``route`` splits the readout: thread row phase p of a block (its
+    256 / T threads down a column tile) sums the key rows i = p, p + 256 /
+    T, ...; the block adds the phases' parts in order. Returns (o in the IO
     dtype, S' in the state's dtype)."""
-    b, h, dk = q.shape
-    dv = v.shape[-1]
+    phases = _WIDE_THREADS // _DECODE_ROUTE_CODE[route]
     s = gk.float().exp()[..., None] * state.float() + k[..., None] * v[..., None, :]
-    w = _slab_width(dk, dv, state.element_size())
-    o = torch.empty(b, h, dv, dtype=torch.float32, device=q.device)
-    for c0 in range(0, dv, w):
-        cols = slice(c0, c0 + w)
-        o[..., cols] = _row_parts(s, q, dk, cols)
+    o = _sum_in_order([torch.einsum("bhk,bhkv->bhv", q[..., p::phases], s[..., p::phases, :])
+                       for p in range(phases)])
     return o.to(io), s.to(state.dtype)
 
 
 def gla_decode_conv_split_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
-                                scale=None):
-    """:func:`gla_decode_conv_plain` computed as the CUDA kernel's cluster
-    route splits it (tests only): a cluster of R = dk / 32 ranks a head,
-    each owning 32 key rows; rank r forms its rows' q and k, updates its
-    rows of the state and its part of the readout at every column of a tile
-    (:func:`_slab_width` columns); the block that owns a column slice adds
-    the R parts in rank order. Same signature and returns; leaves ``state``
-    untouched."""
-    _check("gla_decode_conv", state.dtype in _DTYPE_CODE, "the cluster route takes an f32 "
-           "or bf16 state")
+                                scale=None, route: str = "wide16"):
+    """:func:`gla_decode_conv_plain` computed as the CUDA kernel's wide route
+    ``route`` splits it (tests only): a block of 256 threads per column
+    tile, T of them across a row; a thread updates its columns of the key
+    rows of its row phase and sums their part of the readout; the block
+    adds the 256 / T phases' parts in order. Same signature and returns,
+    plus the route; leaves ``state`` untouched."""
+    _check("gla_decode_conv", state.dtype in _DTYPE_CODE, "the wide routes take an f32 or "
+           "bf16 state")
     scale = xq.shape[-1] ** -0.5 if scale is None else scale
     io = xq.dtype
     (q, cq2), (k, ck2), (v, cv2) = (_ring_conv(x, w, c) for x, w, c in
                                     ((xq, wq, cq), (xk, wk, ck), (xv, wv, cv)))
     o, s = _decode_split(q.to(io).float() * scale, k.to(io).float(), v.to(io).float(), gk,
-                         state, io)
+                         state, io, route)
     return o, s, cq2, ck2, cv2
 
 
@@ -880,13 +854,13 @@ def gla_decode_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
 
 def _decode_route(name, b, h, dk, dv, state, route):
     """The route a classic step takes: ``route`` if given (the card's checks
-    force either body), else the plan's; checked against what the cluster
-    route takes."""
+    force any body), else the plan's; checked against what the wide routes
+    take."""
     route = gla_decode_plan(b, h, dk, dv, state.dtype) if route is None else route
     _check(name, route in _DECODE_ROUTE_CODE,
            f"route {route!r} not in {tuple(_DECODE_ROUTE_CODE)}")
     _check(name, route == "tile" or state.data_ptr() % 16 == 0,
-           f"the {route} route takes a state on a 16-byte boundary")
+           f"the {route} route takes a state on a 16-byte boundary (16-byte words)")
     return route
 
 
@@ -1198,15 +1172,15 @@ def gla_decode_plain(q, k, v, gk, state, scale=None):
     return gla_ops.gla_decode_step(q, k, v, gk, state, scale=scale)
 
 
-def gla_decode_split_plain(q, k, v, gk, state, scale=None):
-    """:func:`gla_decode_plain` computed as the CUDA kernel's cluster route
-    splits it (tests only; :func:`gla_decode_conv_split_plain` without the
-    convs: q, k and v taken as they are). Same signature and returns; leaves
-    ``state`` untouched."""
-    _check("gla_decode", state.dtype in _DTYPE_CODE, "the cluster route takes an f32 or "
-           "bf16 state")
+def gla_decode_split_plain(q, k, v, gk, state, scale=None, route: str = "wide16"):
+    """:func:`gla_decode_plain` computed as the CUDA kernel's wide route
+    ``route`` splits it (tests only; :func:`gla_decode_conv_split_plain`
+    without the convs: q, k and v taken as they are). Same signature and
+    returns, plus the route; leaves ``state`` untouched."""
+    _check("gla_decode", state.dtype in _DTYPE_CODE, "the wide routes take an f32 or bf16 "
+           "state")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return _decode_split(q.float() * scale, k.float(), v.float(), gk, state, q.dtype)
+    return _decode_split(q.float() * scale, k.float(), v.float(), gk, state, q.dtype, route)
 
 
 def gla_decode(q, k, v, gk, state, scale=None):
@@ -1274,13 +1248,30 @@ def gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     return o.to(xq.dtype), cq2, ck2, cv2, kbuf, vbuf, cbuf, cc
 
 
+_LAZY_ROWS = 32  # key rows a block of the lazy step's cluster route owns (kRB)
+_LAZY_SLAB = 65536  # most state bytes a block stages (kSlabBytes)
+
+
+def _lazy_slab_width(dk: int, dv: int, state: torch.Tensor) -> int:
+    """Columns of a lazy-step block's slab (the kernel's slab_width): dv cut
+    into the fewest equal tiles whose columns are a multiple of R = dk / 32
+    times the kernel's loads (4 values) and whose slab is at most
+    _LAZY_SLAB bytes."""
+    quantum = dk // _LAZY_ROWS * 4
+    for t in range(1, dv // quantum + 1):
+        w = dv // t
+        if dv % t == 0 and w % quantum == 0 and _LAZY_ROWS * w * state.element_size() <= _LAZY_SLAB:
+            return w
+    return quantum
+
+
 def gla_decode_lazy_conv_split_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
                                      kbuf, vbuf, cbuf, cc, p: int, scale=None):
     """:func:`gla_decode_lazy_conv_plain` computed as the CUDA kernel's
     cluster route splits it (tests only), on a float state as that route
     takes it. A cluster of R ranks per head, each owning 32 key rows: rank r
     forms its part of every window score and of the base readout at every
-    column of a tile (:func:`_slab_width` columns), over its rows; the
+    column of a tile (:func:`_lazy_slab_width` columns), over its rows; the
     block that owns a column slice (tile width / R) adds the R parts in rank
     order, then the slice's window terms. Same signature (without
     ``s_scale``) and returns."""
@@ -1297,17 +1288,19 @@ def gla_decode_lazy_conv_split_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, sta
     kbuf[p], vbuf[p], cbuf[p] = k.to(kbuf.dtype), v.to(vbuf.dtype), cc2
     q = q * scale
     qe = q * cc2.exp()
-    ranks = [slice(r, r + _SLAB_ROWS) for r in range(0, dk, _SLAB_ROWS)]
+    ranks = [slice(r * _LAZY_ROWS, (r + 1) * _LAZY_ROWS) for r in range(dk // _LAZY_ROWS)]
     # rank r's part of every score a_j (j <= p; slot p's exp argument is 0)
     keys = kbuf[:p + 1].float() * (cc2[None] - cbuf[:p + 1]).clamp(max=0.0).exp()
     a = _sum_in_order([(q[None, ..., rw] * keys[..., rw]).sum(-1) for rw in ranks])
     vals = vbuf[:p + 1].float()
     sf = state.float()
-    w = _slab_width(dk, dv, state.element_size())
+    w = _lazy_slab_width(dk, dv, state)
     o = torch.empty(b, h, dv, dtype=torch.float32, device=xq.device)
     for c0 in range(0, dv, w):
         cols = slice(c0, c0 + w)
-        o[..., cols] = _row_parts(sf, qe, dk, cols) + (a[..., None] * vals[..., cols]).sum(0)
+        base = _sum_in_order([torch.einsum("bhk,bhkv->bhv", qe[..., rw], sf[..., rw, cols])
+                              for rw in ranks])
+        o[..., cols] = base + (a[..., None] * vals[..., cols]).sum(0)
     return o.to(xq.dtype), cq2, ck2, cv2, kbuf, vbuf, cbuf, cc2
 
 
@@ -1354,25 +1347,42 @@ def gla_decode_lazy_plan(b: int, h: int, state_dtype: torch.dtype) -> str:
     return "cluster" if float_state and b * h >= _LAZY_CLUSTER_MIN_HEADS else "tile"
 
 
-# chip_smoke.py's decode_route_sweep on an H100 (PERF.md §6, PR 16) sets the
-# classic step's threshold.
-_DECODE_CLUSTER_MIN_HEADS = 24  # b * h from which the classic step takes the cluster route
-_CLUSTER_MAX = 8  # blocks of a portable thread block cluster: dk up to 8 x 32
+# The classic step's plan, from scripts/torch_decode_ab.py --routes on an H100
+# (PERF.md §6; h4 dk256 dv512 and dv256 bf16 IO, h32 dk64 dv64 f32
+# IO, b 1 to 128, bf16 and f32 states): the tile body won or tied only on
+# states of at most 512 KiB (Mamba-2's at b1, simple-GLA's bf16 one at b1);
+# above, a wide route won, the fastest being the one with the fewest threads
+# across a row (the most blocks) whose grid stayed within about three
+# blocks an SM, and the widest tile that fits the head once no grid did.
+# chip_smoke.py's decode_route_sweep holds the plan to the tile body.
+_DECODE_TILE_MAX_BYTES = 1 << 19  # states up to 512 KiB take the tile body
+_DECODE_WIDE_MAX_BLOCKS = 400  # blocks of a wide grid the plan aims within
 
 
+def decode_wide_route(b: int, h: int, dv: int, state_dtype: torch.dtype) -> str:
+    """The wide route a classic step on (b, h) heads of value dim ``dv``
+    over a state of ``state_dtype`` takes: the fewest threads across a row,
+    T of 4, 8 and 16 (a block's tile T x 16 bytes of a row, no wider than
+    dv), whose grid of b h ceil(dv / tile) blocks is at most
+    ``_DECODE_WIDE_MAX_BLOCKS``; else the widest that fits."""
+    per_word = 16 // state_dtype.itemsize
+    fits = [t for t in (4, 8, 16) if t * per_word <= dv] or [4]
+    for t in fits:
+        if b * h * -(-dv // (t * per_word)) <= _DECODE_WIDE_MAX_BLOCKS:
+            return f"wide{t}"
+    return f"wide{fits[-1]}"
+
+
+@functools.lru_cache(maxsize=None)
 def gla_decode_plan(b: int, h: int, dk: int, dv: int, state_dtype: torch.dtype) -> str:
     """The body a :func:`gla_decode_conv` or :func:`gla_decode` launch on
     (b, h) heads of key dim ``dk`` and value dim ``dv`` over a state of
     ``state_dtype`` runs, decided from these alone before the launch:
-    ``"cluster"`` from ``_DECODE_CLUSTER_MIN_HEADS`` heads in flight where
-    that body takes the head (an f32 or bf16 state, a cluster of dk / 32
-    blocks of at most ``_CLUSTER_MAX``, a slab of the state within
-    ``_SLAB_BYTES``), else ``"tile"``."""
-    if state_dtype not in _DTYPE_CODE or dk % _SLAB_ROWS or dk // _SLAB_ROWS > _CLUSTER_MAX:
+    ``"tile"`` for a state of at most ``_DECODE_TILE_MAX_BYTES``, else
+    :func:`decode_wide_route`."""
+    if b * h * dk * dv * state_dtype.itemsize <= _DECODE_TILE_MAX_BYTES:
         return "tile"
-    itemsize = torch.empty((), dtype=state_dtype).element_size()
-    takes = _slab_width(dk, dv, itemsize) > 0
-    return "cluster" if takes and b * h >= _DECODE_CLUSTER_MIN_HEADS else "tile"
+    return decode_wide_route(b, h, dv, state_dtype)
 
 
 def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
@@ -1437,7 +1447,7 @@ def _lazy_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf
            f"route {route!r} not in {tuple(_LAZY_ROUTE_CODE)}")
     _check(name, route == "tile" or not quant, "the cluster route takes no int8 state")
     _check(name, route == "tile" or state.data_ptr() % 16 == 0,
-           f"the {route} route takes a state on a 16-byte boundary")
+           "the cluster route takes a state on a 16-byte boundary (it is copied in bulk)")
     scale = dk ** -0.5 if scale is None else scale
     o = torch.empty(b, h, dv, dtype=io, device=xq.device)
     cq2, ck2, cv2 = torch.empty_like(cq), torch.empty_like(ck), torch.empty_like(cv)

@@ -760,23 +760,25 @@ def _decode_step_args(dev, conv, b, h, dk, dv, io, st, seed):
 @pytest.mark.parametrize("b", [1, 2, 8, 64])
 @pytest.mark.parametrize("kernel,head,io", DECODE_HEADS, ids=str)
 def test_decode_routes_match_split_plain(cuda, kernel, head, io, b, st):
-    """Both bodies of the classic step, forced, against the split plain
-    version (the cluster route's decomposition): o within 1e-2 of max(1,
-    max|plain|) in bf16 IO, 1e-4 in f32; the state, updated in place,
-    within one state-dtype rounding of the plain one (the kernels round
-    e^g S + k v once, the plain version twice); the rings equal; equal bits
-    on a second call; the two routes' states equal bit for bit (the same
-    f32 expression, fma(e^g, S, k v), in both bodies)."""
+    """Every body of the classic step, forced, against the plain version and
+    each wide route also against its split plain version (its
+    decomposition): o within 1e-2 of max(1, max|plain|) in bf16 IO, 1e-4 in
+    f32; the state, updated in place, within one state-dtype rounding of
+    the plain one (the kernels round e^g S + k v once, the plain version
+    twice); the rings equal; equal bits on a second call; every route's
+    state equal bit for bit (the same f32 expression, fma(e^g, S, k v), in
+    every body)."""
     conv = kernel == "conv"
     h, dk, dv = head
     args, s0 = _decode_step_args(cuda, conv, b, h, dk, dv, io, st, seed=b + dk)
+    plain = gla_cuda.gla_decode_conv_plain if conv else gla_cuda.gla_decode_plain
     split = gla_cuda.gla_decode_conv_split_plain if conv else gla_cuda.gla_decode_split_plain
     launch = gla_cuda._decode_conv_launch if conv else gla_cuda._decode_launch
-    ref = split(*args, s0)
+    ref = plain(*args, s0)
     tol = 1e-4 if io == torch.float32 else 1e-2
     tol_s = 1e-5 if st == torch.float32 else 1e-2
     states = {}
-    for route in ("tile", "cluster"):
+    for route in gla_cuda._DECODE_ROUTE_CODE:
         s = s0.clone()
         out = launch(*args, s, route=route)
         s_again = s0.clone()
@@ -786,47 +788,53 @@ def test_decode_routes_match_split_plain(cuda, kernel, head, io, b, st):
         assert bool(torch.isfinite(out[0].float()).all()), route
         assert _rel_err(out[0], ref[0]) <= tol, route
         assert _rel_err(out[1], ref[1]) <= tol_s, route
+        if route != "tile":
+            assert _rel_err(out[0], split(*args, s0, route=route)[0]) <= tol, route
         for a, r_ in zip(out[2:], ref[2:]):  # rings
             assert torch.equal(a, r_), route
         assert all(torch.equal(a, k) for a, k in zip(again, out)), route
         states[route] = s
-    assert torch.equal(states["tile"], states["cluster"])
+    assert all(torch.equal(s, states["tile"]) for s in states.values())
 
 
 def test_decode_wrappers_take_the_plan(cuda):
     """The public wrappers launch the route gla_decode_plan gives each shape
-    (one below the threshold, one above), count it, note the shape with its
-    route, and their routes sum to their launches."""
+    (the tile body on a small state, a wide route on the flagship's at b1
+    and b8), count it, note the shape with its route, and their routes sum
+    to their launches."""
     gla_cuda.reset_launch_counts()
     want = []
-    for b in (1, 8):
+    for b, h, dk, dv in ((1, 2, 64, 64), (1, 4, 256, 512), (8, 4, 256, 512)):
         for conv, fn in ((True, gla_cuda.gla_decode_conv), (False, gla_cuda.gla_decode)):
-            args, s0 = _decode_step_args(cuda, conv, b, 4, 256, 512, torch.bfloat16,
+            args, s0 = _decode_step_args(cuda, conv, b, h, dk, dv, torch.bfloat16,
                                          torch.bfloat16, seed=b)
             fn(*args, s0)
-            route = gla_cuda.gla_decode_plan(b, 4, 256, 512, torch.bfloat16)
-            want.append((fn, (b, 4, 256, 512, torch.bfloat16, torch.bfloat16, route)))
+            route = gla_cuda.gla_decode_plan(b, h, dk, dv, torch.bfloat16)
+            want.append((fn, (b, h, dk, dv, torch.bfloat16, torch.bfloat16, route)))
     torch.cuda.synchronize()
-    assert {route for _, (*_, route) in want} == {"tile", "cluster"}
+    assert {route for _, (*_, route) in want} == {"tile", "wide4", "wide8"}
     for fn in (gla_cuda.gla_decode_conv, gla_cuda.gla_decode):
-        assert fn.launches == 2 and sum(fn.routes.values()) == fn.launches
+        assert fn.launches == 3 and sum(fn.routes.values()) == fn.launches
         shapes = {shape for f, shape in want if f is fn}
         assert gla_cuda.launch_shapes()[fn.__name__] == shapes
         assert fn.routes == {r: sum(1 for *_, rr in shapes if rr == r) for r in fn.routes}
 
 
-def test_decode_cluster_route_refuses_what_it_cannot_take(cuda):
-    """A state off a 16-byte boundary (the slab is copied in bulk) and an
-    unknown route raise before any launch."""
+def test_decode_wide_routes_refuse_what_they_cannot_take(cuda):
+    """A state off a 16-byte boundary (the wide routes read and write it in
+    16-byte words) and an unknown route raise before any launch."""
     args, s0 = _decode_step_args(cuda, False, 1, 2, 64, 64, torch.bfloat16, torch.bfloat16, 0)
     off = torch.empty(s0.numel() + 1, dtype=s0.dtype, device=cuda)[1:].view(s0.shape)
     with pytest.raises(ValueError, match="16-byte"):
-        gla_cuda._decode_launch(*args, off, route="cluster")
+        gla_cuda._decode_launch(*args, off, route="wide16")
     with pytest.raises(ValueError, match="route"):
         gla_cuda._decode_launch(*args, s0, route="rows")
     conv_args, _ = _decode_step_args(cuda, True, 1, 2, 64, 64, torch.bfloat16, torch.bfloat16, 0)
     with pytest.raises(ValueError, match="16-byte"):
-        gla_cuda._decode_conv_launch(*conv_args, off, route="cluster")
+        gla_cuda._decode_conv_launch(*conv_args, off, route="wide4")
+    out = gla_cuda._decode_launch(*args, off, route="tile")  # the tile body takes it
+    torch.cuda.synchronize()
+    assert out[1] is off
 
 
 def _variant_cfg(**backbone):
