@@ -128,9 +128,16 @@ then RWKV6:
 11. RWKV6 kernel phase: rwkv6_chunk, its hand-written backward and
    rwkv6_decode against their plain versions at h4 dk256 dv256 (bf16 IO,
    f32 w and u): the forward at b8 t151, b1 t128 and b1 t1 with an f32 and
-   with no initial state, forward and backward at b8 t512 with and without
-   one (dr, dk, dv, dw, du, ds0), the decode token at b1, b8 and b64 with
-   f32 and bf16 states on cold states; every time beside its bound;
+   with no initial state and at b8 t512 with none, on both routes of
+   rwkv6_chunk_fwd_plan (the chunked tensor-core route of
+   rwkv6_chunked_fwd.cuh, also against its own plain version, and the
+   recurrent body; each tensor within a share of its own max|plain|),
+   forward and backward at b8 t512 with and
+   without one (dr, dk, dv, dw, du, ds0), the decode token at b1, b8 and
+   b64 with f32 and bf16 states on cold states; the forward's two routes in
+   turns at b8 t512, b8 t151 and b1 t128 and over a sweep of b 1-8 and t
+   16-192, where the planned route may be at most SWEEP_MARGIN slower;
+   every time beside its bound;
 12. RWKV6 phase: kind="rwkv6" at the flagship's width (291,117,378
    parameters, random weights from seed 0 with u, the ddlerp mixes and the
    decays drawn off their constant inits; bf16 compute, f32 states):
@@ -140,8 +147,11 @@ then RWKV6:
    slots) and three train steps at b8, the kernel path's loss and
    gradients held against the plain path's on a batch of 2; launch counts
    25 rwkv6_decode per token, 25 rwkv6_chunk and 25 rwkv6_chunk_bwd per
-   micro-batch; then every shape those runs launched the three kernels on
-   is held against the plain versions;
+   micro-batch, every rwkv6_chunk launch on its planned route; then every
+   shape those runs launched the three kernels on is held against the plain
+   versions (rwkv6_chunk on the route it took), and timed on both routes
+   for rwkv6_chunk's launches x (time - bound), the planned route at most
+   SWEEP_MARGIN slower;
 then Mamba (v1):
 13. Mamba kernel phase: mamba_scan and its hand-written backward against
    their plain versions (the time loop, and autograd through it) at d 2048,
@@ -330,13 +340,15 @@ CHUNK_HELD, CHUNK_BWD_HELD = set(), set()
 # (b, h, dk, dv, IO dtype, state dtype, route) at which the two classic steps
 # were held on that route against their plain versions (hold_decode_routes)
 DECODE_HELD = {"gla_decode_conv": set(), "gla_decode": set()}
-# launches of the two forward kernels, of gla_chunk's backward and of the
-# three decode steps on each shape (ops/gla_cuda.py:launch_shape_counts
-# keys), summed over the main-path runs that expect_launches checks: the
-# weights of gap_phase's sums
+# launches of the two forward kernels, of gla_chunk's backward, of the
+# three decode steps and of rwkv6_chunk on each shape
+# (ops/gla_cuda.py:launch_shape_counts and ops/rwkv6_cuda.py's keys), summed
+# over the main-path runs that expect_launches checks: the weights of
+# gap_phase's and rwkv6_gap_phase's sums
 GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
                     "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter(),
-                    "gla_decode_conv": Counter(), "gla_decode": Counter()}
+                    "gla_decode_conv": Counter(), "gla_decode": Counter(),
+                    "rwkv6_chunk": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode_conv": set(),
                 "gla_decode": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
@@ -523,8 +535,9 @@ def ptxas_summary(log: str):
               "gla_decode_lazy_conv tile<bf16, int8, 256>"),
              ("lazy_cluster_kernelI13__nv_bfloat16fLi256E",
               "gla_decode_lazy_conv cluster<bf16, f32, 256>"))
-    # the RWKV6 kernels' bf16-IO, f32-state instantiations (dk 256)
-    rwkv6 = (("rwkv6_chunk_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk"),
+    # the RWKV6 kernels' bf16-IO, f32-state instantiations (dk 256; the
+    # forward's recurrent body)
+    rwkv6 = (("rwkv6_chunk_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk recurrent"),
              ("rwkv6_bwd_dr_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dr sweep"),
              ("rwkv6_bwd_dkv_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dk/dv sweep"),
              ("rwkv6_decode_kernelI13__nv_bfloat16fLi256E", "rwkv6_decode"))
@@ -540,13 +553,20 @@ def ptxas_summary(log: str):
                ("chunked9dv_kernelIfE", "gla_chunk_conv_bwd chunked dv"),
                ("chunked9dv_kernelI13__nv_bfloat16E", "gla_chunk_bwd chunked dv"),
                # the chunked route of the two forwards (bf16 IO)
-               ("chunked_fwd11prep_kernelILb1EE", "gla_chunk_conv chunked prep"),
-               ("chunked_fwd11prep_kernelILb0EE", "gla_chunk chunked prep"),
-               ("chunked_fwd12state_kernelI13__nv_bfloat16EE",
+               ("3gla11chunked_fwd11prep_kernelILb1EE", "gla_chunk_conv chunked prep"),
+               ("3gla11chunked_fwd11prep_kernelILb0EE", "gla_chunk chunked prep"),
+               ("3gla11chunked_fwd12state_kernelI13__nv_bfloat16EE",
                 "forward chunked states<bf16 state>"),
-               ("chunked_fwd12state_kernelIfEE", "forward chunked states<f32 state>"),
-               ("chunked_fwd13scores_kernel", "forward chunked scores"),
-               ("chunked_fwd10out_kernel", "forward chunked output"))
+               ("3gla11chunked_fwd12state_kernelIfEE", "forward chunked states<f32 state>"),
+               ("3gla11chunked_fwd13scores_kernel", "forward chunked scores"),
+               ("3gla11chunked_fwd10out_kernel", "forward chunked output"),
+               # rwkv6_chunk's chunked route (bf16 IO)
+               ("rwkv611chunked_fwd11prep_kernel", "rwkv6_chunk chunked prep"),
+               ("rwkv611chunked_fwd12state_kernelI13__nv_bfloat16EE",
+                "rwkv6_chunk chunked states<bf16 state>"),
+               ("rwkv611chunked_fwd12state_kernelIfEE", "rwkv6_chunk chunked states<f32 state>"),
+               ("rwkv611chunked_fwd13scores_kernel", "rwkv6_chunk chunked scores"),
+               ("rwkv611chunked_fwd10out_kernel", "rwkv6_chunk chunked output"))
     name, out = "", []
     for line in log.splitlines():
         if "entry function" in line or "Function properties for" in line:
@@ -859,9 +879,19 @@ def expect_planned_routes():
             planned = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
             require(route == planned, f"{fn.__name__} launched on b{b} {head_name(h, dk, dv)} "
                     f"{st}: the plan takes the {planned} route")
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    fn = rwkv6_cuda.rwkv6_chunk
+    require(sum(fn.routes.values()) == fn.launches,
+            f"rwkv6_chunk: routes {fn.routes}, launches {fn.launches}")
+    for b, h, t, dk, dv, io, st, route in rwkv6_cuda.launch_shapes()["rwkv6_chunk"]:
+        planned = rwkv6_cuda.rwkv6_chunk_fwd_plan(io, b, h, t, dv)
+        require(route == planned, f"rwkv6_chunk launched on b{b} {head_name(h, dk, dv)} t{t} "
+                f"{io}: the plan takes the {planned} route")
     print(f"  forward routes as planned: gla_chunk_conv {gla_cuda.gla_chunk_conv.routes}, "
-          f"gla_chunk {gla_cuda.gla_chunk.routes}; the lazy step {lazy.routes}; the classic "
-          f"steps {gla_cuda.gla_decode_conv.routes}, {gla_cuda.gla_decode.routes}")
+          f"gla_chunk {gla_cuda.gla_chunk.routes}, rwkv6_chunk {fn.routes}; the lazy step "
+          f"{lazy.routes}; the classic steps {gla_cuda.gla_decode_conv.routes}, "
+          f"{gla_cuda.gla_decode.routes}")
 
 
 def kernel_phase(torch, gla_cuda):
@@ -1545,9 +1575,10 @@ def expect_launches(launches, **expected):
     print(f"  expected {want}")
     require(launches == want, f"launches {launches}, expected {want}")
     expect_planned_routes()
-    from lina_speech_tpu_torch.ops import gla_cuda
+    from lina_speech_tpu_torch.ops import gla_cuda, rwkv6_cuda
 
-    for name, counts in gla_cuda.launch_shape_counts().items():
+    for name, counts in {**gla_cuda.launch_shape_counts(),
+                         **rwkv6_cuda.launch_shape_counts()}.items():
         if name in GAP_SHAPE_COUNTS:
             GAP_SHAPE_COUNTS[name].update(counts)
 
@@ -2749,16 +2780,22 @@ def expect_chunked_route(gla_cuda, bwd, launches):
         print(f"  gla_chunk_bwd routes as planned: {want}")
 
 
-# device time of a profiled train step by the kernels of the GLA layers: the
-# forward's chunked kernels live in gla::chunked_fwd, the backward's in
-# gla::chunked (whose name is not a prefix of the other's)
+# device time of a profiled train step by the kernels of the GLA and RWKV6
+# layers, each kernel in one group (a key names its namespace: RWKV6's
+# kernels carry GLA's names inside theirs): the GLA forward's chunked
+# kernels live in gla::chunked_fwd, the backward's in gla::chunked (whose
+# name is not a prefix of the other's), RWKV6's chunked forward in
+# rwkv6::chunked_fwd
 TRAIN_GROUPS = (("GLA backward, chunked kernels", ("gla::chunked::",)),
-                ("GLA backward, recurrent sweeps", ("bwd_dq_kernel", "bwd_dkv_kernel")),
-                ("GLA backward, finishing pass",
-                 ("bwd_finish_kernel", "bwd_finish_qk_kernel", "bwd_dg_carry_kernel",
-                  "bwd_taps_kernel")),
+                ("GLA backward, recurrent sweeps", ("gla::bwd_dq_kernel", "gla::bwd_dkv_kernel")),
+                ("GLA backward, finishing pass (RWKV6's too: its dw carry)",
+                 ("gla::bwd_finish_kernel", "gla::bwd_finish_qk_kernel",
+                  "gla::bwd_dg_carry_kernel", "gla::bwd_taps_kernel")),
                 ("GLA forward, chunked kernels", ("gla::chunked_fwd::",)),
-                ("GLA forward, recurrent body", ("gla_chunk_kernel",)))
+                ("GLA forward, recurrent body", ("gla::gla_chunk_kernel",)),
+                ("RWKV6 forward, chunked kernels", ("rwkv6::chunked_fwd::",)),
+                ("RWKV6 forward, recurrent body", ("rwkv6::rwkv6_chunk_kernel",)),
+                ("RWKV6 backward, recurrent sweeps", ("rwkv6::rwkv6_bwd_",)))
 
 
 def zero_gradient_mask(torch, name, grad):
@@ -3794,16 +3831,29 @@ def rwkv6_grads(torch, fn, x, do, dsf, need_ds0):
     return o.detach(), sf.detach(), dict(zip(names, grads))
 
 
-def hold_rwkv6_chunk(torch, rwkv6_cuda, shape, need_ds0=None):
+def rwkv6_on_route(rwkv6_cuda, x, route):
+    """rwkv6_chunk on the inputs ``x`` through the wrapper's launcher, forced
+    onto ``route`` (the public wrapper takes the plan's)."""
+    return rwkv6_cuda._chunk_launch(*(x[n] for n in RWKV6_LEAVES[:5]), x["s0"], route=route)
+
+
+def rwkv6_routes(torch, io):
+    """The routes rwkv6_chunk has for IO dtype ``io``."""
+    return ("recurrent", "chunked") if io == torch.bfloat16 else ("recurrent",)
+
+
+def hold_rwkv6_chunk(torch, rwkv6_cuda, shape, need_ds0=None, route=None):
     """rwkv6_chunk at ``shape`` = (b, h, t, dk, dv, IO dtype, initial-state
     dtype or None) against its plain version: with ``need_ds0`` None the
-    inference forward (o, final state); otherwise as training calls it
-    (autograd recording: the forward kernel and the hand-written backward)
-    against autograd through the plain version, o, the final state and
-    every gradient leaf (dr, dk, dv, dw, du, and ds0 where wanted), each
-    within a share of its own max|plain|, finite and non-zero. Returns
-    (inputs, do, dsf, gradients, worst gradient share); the last four None
-    for the inference forward."""
+    inference forward (o, final state) forced onto ``route`` (None: every
+    route its IO dtype has), the chunked route also against its own plain
+    version (the same decomposition with tensors); otherwise as training
+    calls it (autograd recording: the forward kernel on its planned route
+    and the hand-written backward) against autograd through the plain
+    version, o, the final state and every gradient leaf (dr, dk, dv, dw, du,
+    and ds0 where wanted). Each tensor within a share of its own max|plain|,
+    finite and non-zero (a NaN fails). Returns (inputs, do, dsf, gradients,
+    worst gradient share); the last four None for the inference forward."""
     b, h, t, dk, dv, io, st = shape
     x = rwkv6_inputs(torch, b, h, t, dk, dv, io, st, seed=700 + t + b)
     name = (f"rwkv6_chunk b{b} {head_name(h, dk, dv)} t{t} IO {dtype_name(io)} "
@@ -3811,35 +3861,51 @@ def hold_rwkv6_chunk(torch, rwkv6_cuda, shape, need_ds0=None):
     tol = TOL_BF16 if io == torch.bfloat16 else TOL_F32
     tol_s = TOL_BF16 if torch.bfloat16 in (io, st) else TOL_F32
     args = tuple(x[n] for n in RWKV6_LEAVES[:5])
-    before = rwkv6_cuda.launch_counts()
-    result = (x, None, None, None, None)
     if need_ds0 is None:
         with torch.no_grad():
-            o_k, s_k = rwkv6_cuda.rwkv6_chunk(*args, initial_state=x["s0"])
             o_p, s_p = rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"])
-    else:
-        g = torch.Generator(device=DEVICE).manual_seed(t)
-        do = torch.randn(b, h, t, dv, generator=g, device=DEVICE).to(io)
-        dsf = torch.randn(b, h, dk, dv, generator=g, device=DEVICE).to(st or torch.float32)
-        o_k, s_k, got = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk, x, do, dsf, need_ds0)
-        o_p, s_p, ref = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, need_ds0)
-        name += "" if need_ds0 or st is None else ", no ds0"
+            fn = rwkv6_cuda.rwkv6_chunk
+            for r in (route,) if route else rwkv6_routes(torch, io):
+                before, routes = fn.launches, dict(fn.routes)
+                o_k, s_k = rwkv6_on_route(rwkv6_cuda, x, r)
+                torch.cuda.synchronize()
+                routes[r] += 1
+                require(fn.launches == before + 1 and fn.routes == routes,
+                        f"{name}: not launched on the {r} route")
+                print(f"{name}, {r} route:")
+                require(o_k.dtype == io and s_k.dtype == (st or torch.float32),
+                        "rwkv6_chunk output dtypes")
+                hold_own_max("o", o_k, o_p, tol)
+                hold_own_max("final state", s_k, s_p, tol_s)
+                if r == "chunked":
+                    o_c, s_c = rwkv6_cuda.rwkv6_chunk_chunked_plain(*args, initial_state=x["s0"])
+                    hold_own_max("o, vs the chunked route's plain version", o_k, o_c, tol)
+                    hold_own_max("final state, vs the chunked route's plain version", s_k, s_c,
+                                 TOL_BF16 if st == torch.bfloat16 else TOL_F32)
+                RWKV6_HELD["rwkv6_chunk"].add((*shape, r))
+        return x, None, None, None, None
+    before = rwkv6_cuda.launch_counts()
+    g = torch.Generator(device=DEVICE).manual_seed(t)
+    do = torch.randn(b, h, t, dv, generator=g, device=DEVICE).to(io)
+    dsf = torch.randn(b, h, dk, dv, generator=g, device=DEVICE).to(st or torch.float32)
+    o_k, s_k, got = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk, x, do, dsf, need_ds0)
+    o_p, s_p, ref = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, need_ds0)
+    name += "" if need_ds0 or st is None else ", no ds0"
     after = rwkv6_cuda.launch_counts()
     torch.cuda.synchronize()
     require(after["rwkv6_chunk"] == before["rwkv6_chunk"] + 1
-            and after["rwkv6_chunk_bwd"] == before["rwkv6_chunk_bwd"] + (need_ds0 is not None),
+            and after["rwkv6_chunk_bwd"] == before["rwkv6_chunk_bwd"] + 1,
             f"{name}: not launched through the kernels")
-    print(f"{name}, forward:")
+    route = rwkv6_cuda.rwkv6_chunk_fwd_plan(io, b, h, t, dv)
+    print(f"{name}, forward ({route} route, the plan's):")
     require(o_k.dtype == io and s_k.dtype == (st or torch.float32), "rwkv6_chunk output dtypes")
-    check("o", max_err(o_k, o_p), bound(o_p, tol))
-    check("final state", max_err(s_k, s_p), bound(s_p, tol_s))
-    RWKV6_HELD["rwkv6_chunk"].add(shape)
-    if need_ds0 is not None:
-        worst = check_grads(f"{name}, backward", got, ref,
-                            TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32)
-        RWKV6_HELD["rwkv6_chunk_bwd"].add((*shape, need_ds0 and st is not None))
-        result = (x, do, dsf, got, worst)
-    return result
+    hold_own_max("o", o_k, o_p, tol)
+    hold_own_max("final state", s_k, s_p, tol_s)
+    RWKV6_HELD["rwkv6_chunk"].add((*shape, route))
+    worst = check_grads(f"{name}, backward", got, ref,
+                        TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32)
+    RWKV6_HELD["rwkv6_chunk_bwd"].add((*shape, need_ds0 and st is not None))
+    return x, do, dsf, got, worst
 
 
 def hold_rwkv6_decode(torch, rwkv6_cuda, shape, summary=None, timed=False):
@@ -3879,17 +3945,43 @@ def hold_rwkv6_decode(torch, rwkv6_cuda, shape, summary=None, timed=False):
         note_shape("rwkv6_decode", tag, ms, plain_ms, *work)
 
 
-def rwkv6_kernel_phase(torch, rwkv6_cuda, summary):
+def rwkv6_route_steps(rwkv6_cuda, x):
+    """{route: one no-grad call of rwkv6_chunk on ``x`` forced onto it} for
+    time_routes, every route the IO dtype has."""
+    import torch
+
+    def step(route):
+        with torch.no_grad():
+            return rwkv6_on_route(rwkv6_cuda, x, route)
+
+    return {r: (lambda r=r: step(r)) for r in rwkv6_routes(torch, x["r"].dtype)}
+
+
+def rwkv6_work(x):
+    """(bytes, operations) of one rwkv6_chunk call on ``x``: every input
+    read and every output (o in the IO dtype, the final state in the initial
+    state's, f32 without one) written once."""
+    b, h, t, dk = x["r"].shape
+    dv = x["v"].shape[-1]
+    out = b * h * (t * dv * x["r"].element_size()
+                   + dk * dv * (4 if x["s0"] is None else x["s0"].element_size()))
+    return (nbytes(*(x[n] for n in RWKV6_LEAVES[:5]), x["s0"]) + out,
+            rwkv6_flops(b, h, t, dk, dv))
+
+
+def rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line):
     """The three RWKV6 kernels against their plain versions at the
     flagship-width RWKV6 heads (h4 dk256 dv256, bf16 IO, f32 w and u):
     the forward at b8 t151 (generate's prefill), b1 t128 and b1 t1 (server
-    prefill chunks), with an f32 and with no initial state; forward and
-    backward at b8 t512 (training) with and without one, all six gradient
-    leaves; the decode token at b1, b8 and b64 with f32 and bf16 states on
-    cold states. Every time beside its bound. The summary takes the forward
-    at b8 t151 with an f32 state (what generate launches), the backward at
-    b8 t512 without one (what training launches) and the decode token at b8
-    with an f32 state."""
+    prefill chunks), with an f32 and with no initial state, on both routes;
+    forward and backward at b8 t512 (training) with and without one, all six
+    gradient leaves; the decode token at b1, b8 and b64 with f32 and bf16
+    states on cold states. The forward's two routes timed in turns at b8
+    t512 (no initial state, the training forward), b8 t151 and b1 t128 (f32
+    initial state); every time beside its bound. The summary takes the
+    forward at b8 t151 with an f32 state (what generate launches), the
+    backward at b8 t512 without one (what training launches) and the decode
+    token at b8 with an f32 state. Then the forward's route sweep."""
     bf, f32 = torch.bfloat16, torch.float32
     h, dk, dv = RWKV6_HEAD
     for b, t in ((BATCH, T_PROMPT + 1), (1, 128), (1, 1)):
@@ -3905,17 +3997,19 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary):
                 o_k, s_k = rwkv6_cuda.rwkv6_chunk(*args, initial_state=x["s0"])
                 o_p = rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"])[0]
             work = (nbytes(*args, x["s0"], o_k, s_k), rwkv6_flops(b, h, t, dk, dv), bf)
+            route = rwkv6_cuda.rwkv6_chunk_fwd_plan(bf, b, h, t, dv)
             if (b, st) == (BATCH, f32):
                 record(summary, "rwkv6_chunk", max_err(o_k, o_p), ms, plain_ms, *work)
             else:
-                note_shape("rwkv6_chunk", f"b{b} t{t} initial state {dtype_name(st)}", ms,
-                           plain_ms, *work)
+                note_shape("rwkv6_chunk", f"b{b} t{t} initial state {dtype_name(st)}, {route} "
+                           "route (the plan's)", ms, plain_ms, *work)
     t = TRAIN_T[0]
     for st in (f32, None):
         x, do, dsf, got, worst = hold_rwkv6_chunk(torch, rwkv6_cuda,
                                                   (TRAIN_BATCH, h, t, dk, dv, bf, st), True)
         if st is not None:
             continue
+        hold_rwkv6_chunk(torch, rwkv6_cuda, (TRAIN_BATCH, h, t, dk, dv, bf, st))
         args = tuple(x[n] for n in RWKV6_LEAVES[:5])
         with torch.no_grad():
             fwd_ms, fwd_plain_ms = timed_pair(
@@ -3923,9 +4017,12 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary):
                 lambda: rwkv6_cuda.rwkv6_chunk(*args),
                 lambda: rwkv6_cuda.rwkv6_chunk_plain(*args), 5)
             o_k, s_k = rwkv6_cuda.rwkv6_chunk(*args)
-        note_shape("rwkv6_chunk", f"training forward b{TRAIN_BATCH} t{t} initial state none",
-                   fwd_ms, fwd_plain_ms, nbytes(*args, o_k, s_k),
+        note_shape("rwkv6_chunk", f"training forward b{TRAIN_BATCH} t{t} initial state none, "
+                   f"{rwkv6_cuda.rwkv6_chunk_fwd_plan(bf, TRAIN_BATCH, h, t, dv)} route (the "
+                   "plan's)", fwd_ms, fwd_plain_ms, nbytes(*args, o_k, s_k),
                    rwkv6_flops(TRAIN_BATCH, h, t, dk, dv), bf)
+        profiled(torch, lambda: [rwkv6_on_route(rwkv6_cuda, x, "chunked") for _ in range(3)],
+                 f"3 calls of rwkv6_chunk b{TRAIN_BATCH} t{t}, chunked route", top=6)
         bwd = lambda: rwkv6_cuda.rwkv6_chunk_bwd(*args, None, do, dsf, need_ds0=False)
         plain_both = lambda: rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, False)
         ms, plain = [], []
@@ -3946,11 +4043,84 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary):
         print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of dr/dk/vdo parts")
         profiled(torch, lambda: [bwd() for _ in range(3)],
                  f"3 calls of rwkv6_chunk_bwd b{TRAIN_BATCH} t{t}", top=6)
+    print(f"rwkv6_chunk, both routes in turns (device us, median of {2 * ROUTE_TURNS}) "
+          f"[{card_line}]:")
+    for b, t, st in ((TRAIN_BATCH, TRAIN_T[0], None), (BATCH, T_PROMPT + 1, f32), (1, 128, f32)):
+        x = rwkv6_inputs(torch, b, h, t, dk, dv, bf, st, seed=760 + t)
+        work = rwkv6_work(x)
+        ms, times = time_routes(rwkv6_route_steps(rwkv6_cuda, x))
+        print(f"  b{b} t{t} initial state {dtype_name(st)}: " + ", ".join(
+            f"{r} {ms[r] * 1e3:.2f} ({[round(v * 1e3, 2) for v in times[r]]})" for r in ms)
+            + f"; the plan takes {rwkv6_cuda.rwkv6_chunk_fwd_plan(bf, b, h, t, dv)}")
+        for r in ms:
+            note_shape("rwkv6_chunk", f"b{b} t{t} initial state {dtype_name(st)}, {r} route "
+                       "(in turns)", ms[r], None, *work, bf)
     for b in (1, BATCH, 64):
         for st in (bf, f32):
             hold_rwkv6_decode(torch, rwkv6_cuda, (b, h, dk, dv, bf, st),
                               summary=summary if (b, st) == (BATCH, f32) else None, timed=True)
+    rwkv6_route_sweep(torch, rwkv6_cuda, card_line)
     reset_counts()  # the kernel phases' launches are no path's
+
+
+# lengths and batches of rwkv6_chunk's route sweep (h4 dk256 dv256): they
+# bracket rwkv6_chunk_fwd_plan's thresholds
+RWKV6_SWEEP_T = (16, 32, 48, 64, 96, 128, 192)
+RWKV6_SWEEP_B = (1, 2, 4, 8)
+
+
+def rwkv6_route_sweep(torch, rwkv6_cuda, card_line):
+    """rwkv6_chunk's two routes timed in turns at the flagship RWKV6 heads
+    (bf16 IO, f32 initial state) over RWKV6_SWEEP_B x RWKV6_SWEEP_T, where
+    the plan's thresholds come from: at every point the route
+    rwkv6_chunk_fwd_plan picks may be at most SWEEP_MARGIN slower than the
+    other by the median of six turns, timed again before a miss fails."""
+    h, dk, dv = RWKV6_HEAD
+    bf = torch.bfloat16
+    print(f"rwkv6_chunk route sweep ({head_name(h, dk, dv)}, bf16 IO, f32 initial state; "
+          f"device us, median of {2 * ROUTE_TURNS} in turns) [{card_line}]:")
+    for b in RWKV6_SWEEP_B:
+        for t in RWKV6_SWEEP_T:
+            x = rwkv6_inputs(torch, b, h, t, dk, dv, bf, torch.float32, seed=900 + t)
+            plan = rwkv6_cuda.rwkv6_chunk_fwd_plan(bf, b, h, t, dv)
+            ms, _ = planned_route_times(rwkv6_route_steps(rwkv6_cuda, x), plan,
+                                        f"rwkv6_chunk sweep b{b} t{t}")
+            print(f"  b{b} ({b * h} heads) t{t}: recurrent {ms['recurrent'] * 1e3:.2f}, chunked "
+                  f"{ms['chunked'] * 1e3:.2f}; planned {plan}")
+
+
+def rwkv6_gap_phase(torch, rwkv6_cuda, card_line):
+    """launches x (time - bound) of rwkv6_chunk over the RWKV6 main paths:
+    every shape they launched it on, weighted by its launch count
+    (GAP_SHAPE_COUNTS), held against the plain version on the route it took
+    (launched_rwkv6_shapes_phase), timed here on every route its IO dtype
+    has in turns (median of six, retimed on a miss; the route taken at most
+    SWEEP_MARGIN slower than the other), beside the shape's bound. Prints
+    each shape, the sum on the routes taken and the sum had every launch
+    taken the recurrent body; returns {"rwkv6_chunk": the first sum}."""
+    counts = GAP_SHAPE_COUNTS["rwkv6_chunk"]
+    require(counts, "rwkv6_chunk: the main paths launched it on no shape")
+    total = {"taken": 0.0, "recurrent": 0.0}
+    print(f"rwkv6_chunk: launches x (time - bound) over {sum(counts.values())} main-path launches "
+          f"on {len(counts)} shapes (device us; the route taken, the recurrent body, the bound):")
+    for shape, n in sorted(counts.items(), key=str):
+        b, h, t, dk, dv, io, st, route = shape
+        x = rwkv6_inputs(torch, b, h, t, dk, dv, io, st, seed=770 + t)
+        bound_ms = roofline(*rwkv6_work(x), io)[0]
+        steps = rwkv6_route_steps(rwkv6_cuda, x)
+        label = f"rwkv6_chunk b{b} {head_name(h, dk, dv)} t{t} {dtype_name(st)}"
+        if len(steps) > 1:
+            ms = planned_route_times(steps, route, label)[0]
+        else:
+            ms = time_routes(steps)[0]
+        total["taken"] += n * (ms[route] - bound_ms)
+        total["recurrent"] += n * (ms["recurrent"] - bound_ms)
+        print(f"  {shape}: {n} launches; {route} {ms[route] * 1e3:.2f}, recurrent "
+              f"{ms['recurrent'] * 1e3:.2f}, bound {bound_ms * 1e3:.3f}")
+    print(f"  rwkv6_chunk: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
+          f"taken; {total['recurrent']:.3f} ms had every launch taken the recurrent body "
+          f"[{card_line}]")
+    return {"rwkv6_chunk": total["taken"]}
 
 
 def rwkv6_phase(torch, np, gla_cuda, card_line):
@@ -4003,8 +4173,8 @@ def rwkv6_phase(torch, np, gla_cuda, card_line):
 
 def launched_rwkv6_shapes_phase(torch, rwkv6_cuda):
     """Every shape the driven RWKV6 paths launched the three RWKV6 kernels
-    on is held against the plain version now, unless the RWKV6 kernel phase
-    held it already."""
+    on is held against the plain version now (rwkv6_chunk on the route it
+    took), unless the RWKV6 kernel phase held it already."""
     todo = {n: sorted(RWKV6_LAUNCHED[n] - RWKV6_HELD[n], key=str) for n in RWKV6_LAUNCHED}
     print("the driven RWKV6 paths launched " + ", ".join(
         f"{n} on {len(RWKV6_LAUNCHED[n])} shapes ({len(todo[n])} not held yet)" for n in todo))
@@ -4012,7 +4182,7 @@ def launched_rwkv6_shapes_phase(torch, rwkv6_cuda):
     for shape in todo["rwkv6_chunk_bwd"]:
         hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:-1], need_ds0=shape[-1])
     for shape in sorted(RWKV6_LAUNCHED["rwkv6_chunk"] - RWKV6_HELD["rwkv6_chunk"], key=str):
-        hold_rwkv6_chunk(torch, rwkv6_cuda, shape)
+        hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:-1], route=shape[-1])
     for shape in todo["rwkv6_decode"]:
         hold_rwkv6_decode(torch, rwkv6_cuda, shape)
     require(all(RWKV6_LAUNCHED[n] <= RWKV6_HELD[n] for n in RWKV6_LAUNCHED),
@@ -4372,9 +4542,10 @@ def main():
     add_launches(launches, interleaved_and_pp_phase(torch, np, gla_cuda, card_line))
     launched_gla_shapes_phase(torch, gla_cuda)
     gaps = gap_phase(torch, gla_cuda, card_line)
-    rwkv6_kernel_phase(torch, rwkv6_cuda, summary)
+    rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line)
     add_launches(launches, rwkv6_phase(torch, np, gla_cuda, card_line))
     launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
+    gaps.update(rwkv6_gap_phase(torch, rwkv6_cuda, card_line))
     mamba_kernel_phase(torch, mamba_cuda, summary)
     add_launches(launches, mamba_phase(torch, np, gla_cuda, card_line))
     launched_mamba_shapes_phase(torch, mamba_cuda)
@@ -4384,13 +4555,14 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
-    # launches x (time - bound): the two forwards, gla_chunk's backward and
-    # the three decode steps over every launched shape, the other kernels at
-    # their row's shape
+    # launches x (time - bound): the two GLA forwards, gla_chunk's backward,
+    # the three decode steps and rwkv6_chunk over every launched shape, the
+    # other kernels at their row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
-    print("launches x (time - bound), ms, largest first (the two forwards, gla_chunk_bwd and "
-          "the three decode steps over every launched shape, the others at their row's shape):")
+    print("launches x (time - bound), ms, largest first (the two GLA forwards, gla_chunk_bwd, "
+          "the three decode steps and rwkv6_chunk over every launched shape, the others at "
+          "their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")

@@ -176,7 +176,9 @@ __device__ __forceinline__ float exp_le0(float x) { return __expf(fminf(x, 0.f))
 // DK)); kt = k e^{btot - bc}, ul = u e^{bc} (bf16, same shape); kl and ull,
 // where not null, their low parts, the f32 value less its bf16 rounding, in
 // bf16; vb = v (bf16, (B*H, Tp, DV)); ebt = e^{btot} (f32, (B*H, nc, DK)).
-template <typename IO, bool CONV>
+// RWKV (RWKV6's forward: xq = r, scale 1): ul = u e^{bx}, the readout
+// decayed at the exclusive sum bx_t = bc_{t-1} (0 on a chunk's first row).
+template <typename IO, bool CONV, bool RWKV = false>
 __device__ __forceinline__ void prep_rows(const IO* __restrict__ xq, const IO* __restrict__ xk,
                                           const IO* __restrict__ xv, const float* __restrict__ gk,
                                           const IO* __restrict__ wq, const IO* __restrict__ wk,
@@ -221,6 +223,7 @@ __device__ __forceinline__ void prep_rows(const IO* __restrict__ xq, const IO* _
 #pragma unroll
       for (int j = 0; j < kPrepRows; ++j) {
         const int r = r0 + j;
+        const float bx = b;  // the exclusive sum
         float u = 0.f, k = 0.f;
         if (r < n) {
           b += gs[j];
@@ -253,7 +256,7 @@ __device__ __forceinline__ void prep_rows(const IO* __restrict__ xq, const IO* _
         const bf16 hi = __float2bfloat16_rn(kd);
         kt[o] = hi;
         if (kl) kl[o] = __float2bfloat16_rn(kd - __bfloat162float(hi));
-        const float ud = u * __expf(b);
+        const float ud = u * __expf(RWKV ? bx : b);
         const bf16 uhi = __float2bfloat16_rn(ud);
         ul[o] = uhi;
         if (ull) ull[o] = __float2bfloat16_rn(ud - __bfloat162float(uhi));
@@ -713,6 +716,9 @@ inline int dv_smem_bytes(int DK) {
   return kTileBytes + (phase1 > phase2 ? phase1 : phase2);
 }
 
+// the bonus of a key tile, after Scores' factors kx (RWKV)
+constexpr int kBonusBytes = kTile * 4;
+
 // the 544 pairs (t, s), s <= t, within one sub-chunk
 constexpr int kDiagPairs = (kC / kSub) * kSub * (kSub + 1) / 2;
 constexpr int kPairsPerThread = (kDiagPairs + kGradThreads - 1) / kGradThreads;
@@ -721,7 +727,11 @@ constexpr int kPairsPerThread = (kDiagPairs + kGradThreads - 1) / kGradThreads;
 // chunk, by the 256 threads of a block: warp w takes rows 16 (w % 4) .. and
 // columns 32 (w / 4) .. of A's products below the diagonal blocks; thread i
 // the diagonal pairs (t, s) = (pt, ps) (in sub-chunk p / 136, s <= t) of
-// pair index p = i, i + 256, i + 512.
+// pair index p = i, i + 256, i + 512. RWKV: RWKV6's scores, the readout
+// side decayed at the exclusive sum bx_t = b_{t-1}: A[t, s] = sum_d u_t k_s
+// e^{b_{t-1} - b_s} for s < t (still <= 0 in every exponent, the split's
+// too) and A[t, t] = sum_d u_t bonus_d k_t.
+template <bool RWKV = false>
 struct Scores {
   int pt[kPairsPerThread], ps[kPairsPerThread];  // pt -1: no pair
   float pa[kPairsPerThread] = {};                // the diagonal pairs' sums
@@ -740,19 +750,25 @@ struct Scores {
 
   // Adds the key tile d0 .. d0 + 63 of the chunk's rows row0 .. row0 + 63.
   // r1 holds the tile's f32 u, k, bc, A's left factor ua and the factors kx
-  // meanwhile (3 kFTileBytes + kTileBytes + kPairBytes).
+  // meanwhile (3 kFTileBytes + kTileBytes + kPairBytes; RWKV: kBonusBytes
+  // more, the tile's bonus). bonus: RWKV's bonus of the head (DK f32), else
+  // unused.
   __device__ __forceinline__ void add_tile(unsigned char* r1, const float* __restrict__ uf,
                                            const float* __restrict__ kf,
                                            const float* __restrict__ bcum, size_t row0, int DK,
-                                           int d0) {
+                                           int d0, const float* __restrict__ bonus = nullptr) {
     float* fu = reinterpret_cast<float*>(r1);
     float* fk = fu + kC * kLdF;
     float* fb = fk + kC * kLdF;
     bf16* ua = reinterpret_cast<bf16*>(fb + kC * kLdF);
     bf16* kx = ua + kC * kLd;
+    float* fub = reinterpret_cast<float*>(kx + kPairRows * kLd);  // RWKV: the tile's bonus
     const int warp = threadIdx.x >> 5, I = warp & 3, m0 = kSub * I, n0 = 32 * (warp >> 2);
     __syncthreads();  // the previous key tile's products are done
     load_f32_tile(fu, fk, fb, uf, kf, bcum, row0, DK, d0);
+    if constexpr (RWKV) {
+      if (threadIdx.x < kTile) fub[threadIdx.x] = bonus[d0 + threadIdx.x];
+    }
     __syncthreads();
     for (int p = threadIdx.x; p < kPairRows * kTile; p += kGradThreads) {
       const int row = p / kTile, d = p % kTile;
@@ -760,20 +776,29 @@ struct Scores {
       kx[row * kLd + d] = __float2bfloat16_rn(
           fk[s * kLdF + d] * exp_le0(fb[(kSub * J - 1) * kLdF + d] - fb[s * kLdF + d]));
       if (row < kC) {  // A's left factor: u_t e^{b_t - b_r}, r the row before t's sub-chunk
-        const int r = kSub * (row / kSub) - 1;
+        const int r = kSub * (row / kSub) - 1;  // (RWKV: b_{t-1} for b_t)
         ua[row * kLd + d] = __float2bfloat16_rn(
-            r < 0 ? 0.f : fu[row * kLdF + d] * exp_le0(fb[row * kLdF + d] - fb[r * kLdF + d]));
+            r < 0 ? 0.f
+                  : fu[row * kLdF + d] *
+                        exp_le0(fb[(RWKV ? row - 1 : row) * kLdF + d] - fb[r * kLdF + d]));
       }
     }
 #pragma unroll
     for (int i = 0; i < kPairsPerThread; ++i) {
       if (pt[i] < 0) continue;
+      // RWKV: the diagonal takes the bonus in the decay's place (its decay
+      // row is then its own: every lane of a warp runs the same loop)
+      const bool bonus_pair = RWKV && pt[i] == ps[i];
       const float* u = fu + pt[i] * kLdF;
       const float* k = fk + ps[i] * kLdF;
-      const float* bt = fb + pt[i] * kLdF;
+      const float* bt = fb + (RWKV && !bonus_pair ? pt[i] - 1 : pt[i]) * kLdF;
       const float* bs = fb + ps[i] * kLdF;
       float sum = 0.f;
-      for (int d = 0; d < kTile; ++d) sum += u[d] * k[d] * exp_le0(bt[d] - bs[d]);
+      for (int d = 0; d < kTile; ++d) {
+        float e = exp_le0(bt[d] - bs[d]);
+        if constexpr (RWKV) e = bonus_pair ? fub[d] : e;
+        sum += u[d] * k[d] * e;
+      }
       pa[i] += sum;
     }
     __syncthreads();
@@ -819,14 +844,15 @@ struct Scores {
 // A of the chunk's rows row0 .. row0 + 63 summed over the DK key channels,
 // into s_a in bf16 (row stride kLd); r1 as Scores::add_tile takes it, free
 // again when this returns. s_a is complete after the caller's next
-// __syncthreads.
+// __syncthreads. RWKV: RWKV6's scores with the head's bonus.
+template <bool RWKV = false>
 __device__ __forceinline__ void chunk_scores(bf16* s_a, unsigned char* r1,
                                              const float* __restrict__ uf,
                                              const float* __restrict__ kf,
                                              const float* __restrict__ bcum, size_t row0,
-                                             int DK) {
-  Scores sc;
-  for (int d0 = 0; d0 < DK; d0 += kTile) sc.add_tile(r1, uf, kf, bcum, row0, DK, d0);
+                                             int DK, const float* __restrict__ bonus = nullptr) {
+  Scores<RWKV> sc;
+  for (int d0 = 0; d0 < DK; d0 += kTile) sc.add_tile(r1, uf, kf, bcum, row0, DK, d0, bonus);
   sc.store(s_a, kLd);
 }
 

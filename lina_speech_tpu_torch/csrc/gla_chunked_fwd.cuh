@@ -51,6 +51,11 @@
 // which then split over more blocks; out_kernel fits two blocks an SM. The
 // route is chosen in Python (ops/gla_cuda.py:gla_chunk_fwd_plan); short
 // inputs keep the recurrent body, whose one launch costs less than these.
+//
+// RWKV6's forward (rwkv6_chunked_fwd.cuh) walks the chunks with the same
+// prep, state walk, scores and output bodies, with RWKV set: r in u's place
+// (no scale), the readout decayed at the exclusive gate sum, and the bonus
+// on A's diagonal.
 #pragma once
 
 #include "gla_chunked_bwd.cuh"
@@ -98,23 +103,36 @@ state_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ kl,
 // grid (nc, B*H, DK/64), 256 threads: one key tile's part of the chunk's
 // score matrix A (chunked::Scores), written in f32 with zeros above the
 // diagonal to ap (B*H, nc, DK/64, 64, 64). Shared memory as Scores::add_tile
-// takes it, the part leaving through its first 16 KB.
+// takes it, the part leaving through its first 16 KB (RWKV6's scores_kernel,
+// rwkv6_chunked_fwd.cuh, kBonusBytes more).
 constexpr int kScoresSmem = 3 * chunked::kFTileBytes + chunked::kTileBytes + chunked::kPairBytes;
 
-template <int = 0>
-__global__ void __launch_bounds__(kGradThreads, 2)
-scores_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
-              const float* __restrict__ bcum, float* __restrict__ ap, int nc, int DK) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The body of scores_kernel; RWKV: RWKV6's scores, the bonus of head bh % H
+// from bonus (H, DK).
+template <bool RWKV>
+__device__ __forceinline__ void scores_body(unsigned char* smem, const float* __restrict__ uf,
+                                            const float* __restrict__ kf,
+                                            const float* __restrict__ bcum,
+                                            const float* __restrict__ bonus,
+                                            float* __restrict__ ap, int nc, int H, int DK) {
   const int c = blockIdx.x, bh = blockIdx.y, Tp = nc * kC;
-  chunked::Scores sc;
-  sc.add_tile(smem, uf, kf, bcum, (size_t)bh * Tp + c * kC, DK, kTile * blockIdx.z);
+  chunked::Scores<RWKV> sc;
+  sc.add_tile(smem, uf, kf, bcum, (size_t)bh * Tp + c * kC, DK, kTile * blockIdx.z,
+              RWKV ? bonus + (size_t)(bh % H) * DK : nullptr);
   float* part = reinterpret_cast<float*>(smem);
   sc.store(part, chunked::kLdF);
   __syncthreads();
   float* out = ap + (((size_t)bh * nc + c) * gridDim.z + blockIdx.z) * kC * kC;
   for (int p = threadIdx.x; p < kC * kC; p += kGradThreads)
     out[p] = part[(p / kC) * chunked::kLdF + p % kC];
+}
+
+template <int = 0>
+__global__ void __launch_bounds__(kGradThreads, 2)
+scores_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
+              const float* __restrict__ bcum, float* __restrict__ ap, int nc, int DK) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  scores_body<false>(smem, uf, kf, bcum, nullptr, ap, nc, 1, DK);
 }
 
 // grid (nc, B*H, split), 256 threads: warp w holds rows 16 (w % 4) .. of the
@@ -125,15 +143,18 @@ scores_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
 // tiles go later). o: (B*H, T, DV) bf16. Shared memory: A, a value tile of v
 // and of the chunk's start state ([key][value]), and u e^{bc} of every key
 // channel ([t][key], row stride DK + 8), the layout of the backward's
-// dv_kernel (chunked::dv_smem_bytes: 89 KB at DK 256, two blocks an SM).
-template <bool FUSED>
-__global__ void __launch_bounds__(kGradThreads, 2)
-out_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
-           const float* __restrict__ bcum, const float* __restrict__ ap,
-           const bf16* __restrict__ ul, const bf16* __restrict__ vb,
-           const bf16* __restrict__ states, bf16* __restrict__ o, int T, int nc, int DK,
-           int DV) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// dv_kernel (chunked::dv_smem_bytes: 89 KB at DK 256, two blocks an SM;
+// RWKV6's out_kernel, rwkv6_chunked_fwd.cuh, kBonusBytes more). The body of
+// out_kernel, RWKV as scores_body takes it.
+template <bool FUSED, bool RWKV>
+__device__ __forceinline__ void out_body(unsigned char* smem, const float* __restrict__ uf,
+                                         const float* __restrict__ kf,
+                                         const float* __restrict__ bcum,
+                                         const float* __restrict__ bonus,
+                                         const float* __restrict__ ap,
+                                         const bf16* __restrict__ ul, const bf16* __restrict__ vb,
+                                         const bf16* __restrict__ states, bf16* __restrict__ o,
+                                         int T, int nc, int H, int DK, int DV) {
   const int ldk = DK + 8;
   bf16* s_a = reinterpret_cast<bf16*>(smem);
   bf16* s_v = s_a + kC * kLd;
@@ -144,7 +165,8 @@ out_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
   const int warp = threadIdx.x >> 5, m0 = chunked::kSub * (warp & 3), n0 = 32 * (warp >> 2);
   const size_t row0 = (size_t)bh * Tp + c * kC;
   if constexpr (FUSED)
-    chunked::chunk_scores(s_a, reinterpret_cast<unsigned char*>(s_v), uf, kf, bcum, row0, DK);
+    chunked::chunk_scores<RWKV>(s_a, reinterpret_cast<unsigned char*>(s_v), uf, kf, bcum, row0,
+                                DK, RWKV ? bonus + (size_t)(bh % H) * DK : nullptr);
   for (int p = threadIdx.x; p < kC * DK / 8; p += kGradThreads) {
     const int r = p / (DK / 8), q = (p % (DK / 8)) * 8;
     chunked::copy16(s_ul + r * ldk + q, ul + (row0 + r) * DK + q, ul, true);
@@ -185,6 +207,17 @@ out_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
               __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
       }
   }
+}
+
+template <bool FUSED>
+__global__ void __launch_bounds__(kGradThreads, 2)
+out_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
+           const float* __restrict__ bcum, const float* __restrict__ ap,
+           const bf16* __restrict__ ul, const bf16* __restrict__ vb,
+           const bf16* __restrict__ states, bf16* __restrict__ o, int T, int nc, int DK,
+           int DV) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  out_body<FUSED, false>(smem, uf, kf, bcum, nullptr, ap, ul, vb, states, o, T, nc, 1, DK, DV);
 }
 
 // Launches kernels 1-4 (3 where out_kernel forms A itself); returns the

@@ -31,7 +31,14 @@
 // staged in shared memory 16 steps at a time (8 in f32), so the global-load
 // latency is paid once per stage. At b8 h4 t512 dk256 dv256 in bf16 it
 // moves ~67 MB and does ~6 GFLOP in f32.
-#include "gla_common.cuh"
+//
+// Two routes (ops/rwkv6_cuda.py:rwkv6_chunk_fwd_plan): this recurrent body
+// for f32 IO and short bf16 inputs, and for longer bf16 inputs the chunked
+// route of rwkv6_chunked_fwd.cuh (64-row chunks on the tensor cores, the GLA
+// forward's chunk walk with RWKV6's readout decay and bonus).
+#include <type_traits>
+
+#include "rwkv6_chunked_fwd.cuh"
 
 namespace rwkv6 {
 
@@ -144,14 +151,44 @@ int launch(const void* r, const void* k, const void* v, const void* w, const voi
 // C entry point (bound with ctypes in ops/rwkv6_cuda.py). Layouts: r, k, w
 // (B, H, T, DK); v (B, H, T, DV); u (H, DK) f32; w f32; s0 (B, H, DK, DV)
 // or null for a zero state; o (B, H, T, DV); sf (B, H, DK, DV). All
-// contiguous; T >= 1. Returns cudaGetLastError() after the launch, -1 for
-// an unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 != 0.
+// contiguous; T >= 1. route: gla::kRecurrent or gla::kChunked (bf16 IO
+// only); split: the chunked output kernel's value-tile groups; uf .. ap: the
+// chunked route's scratch as ops/gla_cuda.py:_chunked_fwd_sizes lays it out
+// (null for the recurrent route, ap null where split is 1). Returns
+// cudaGetLastError() after the launches, -1 for an unsupported DK, -2 for
+// unsupported dtype codes, -3 for DV % 32 != 0, -4 for the chunked route
+// with f32 IO, a split outside 1..ceil(DV/64) or above 1 without ap, or an
+// unknown route.
 extern "C" int rwkv6_chunk_fwd(const void* r, const void* k, const void* v, const void* w,
-                               const void* u, const void* s0, void* o, void* sf, int B,
-                               int H, int T, int DK_, int DV, int io_dtype,
-                               int state_dtype, void* stream) {
+                               const void* u, const void* s0, void* o, void* sf, void* uf,
+                               void* kf, void* bc, void* kt, void* kl, void* ul, void* states,
+                               void* vb, void* ebt, void* ap, int B, int H, int T, int DK_,
+                               int DV, int io_dtype, int state_dtype, int route, int split,
+                               void* stream) {
   if (DV % gla::kBV != 0) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == gla::kChunked) {
+    const int v_tiles = (DV + gla::chunked::kTile - 1) / gla::chunked::kTile;
+    if (io_dtype != gla::kBF16 || split < 1 || split > v_tiles || (split > 1 && !ap)) return -4;
+    if (DK_ != 64 && DK_ != 128 && DK_ != 256) return -1;
+    using gla::chunked::bf16;
+    const auto run = [&](auto* s0_, auto* sf_) {
+      using ST = std::remove_const_t<std::remove_pointer_t<decltype(s0_)>>;
+      return rwkv6::chunked_fwd::launch<ST>(
+          static_cast<const bf16*>(r), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const float*>(w), static_cast<const float*>(u), s0_,
+          static_cast<bf16*>(o), sf_, static_cast<float*>(uf), static_cast<float*>(kf),
+          static_cast<float*>(bc), static_cast<bf16*>(kt), static_cast<bf16*>(kl),
+          static_cast<bf16*>(ul), static_cast<bf16*>(states), static_cast<bf16*>(vb),
+          static_cast<float*>(ebt), static_cast<float*>(ap), B, H, T, DK_, DV, split, st);
+    };
+    if (state_dtype == gla::kF32)
+      return run(static_cast<const float*>(s0), static_cast<float*>(sf));
+    if (state_dtype == gla::kBF16)
+      return run(static_cast<const bf16*>(s0), static_cast<bf16*>(sf));
+    return -2;
+  }
+  if (route != gla::kRecurrent) return -4;
   GLA_DISPATCH_TYPES(io_dtype, state_dtype,
                      GLA_DISPATCH_DK(DK_, return rwkv6::launch<IO, ST, DK>(
                          r, k, v, w, u, s0, o, sf, B, H, T, DV, st)))

@@ -122,7 +122,7 @@ def load_library() -> ctypes.CDLL:
     lib.int8_linear_fwd.restype = i
     lib.fused_ffn_int8_fwd.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.fused_ffn_int8_fwd.restype = i
-    lib.rwkv6_chunk_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.rwkv6_chunk_fwd.argtypes = [p] * 18 + [i] * 9 + [p]
     lib.rwkv6_chunk_fwd.restype = i
     lib.rwkv6_chunk_bwd.argtypes = [p] * 20 + [i] * 7 + [p]
     lib.rwkv6_chunk_bwd.restype = i

@@ -251,10 +251,11 @@ def chunked_fwd_scratch_bytes(b: int, h: int, t: int, dk: int, dv: int, sms: int
     return _scratch_total(_chunked_fwd_sizes(b, h, t, dk, dv, fwd_out_split(b, h, t, dv, sms)))
 
 
-def _fwd_route(name, io, b, h, t, dv, route):
+def _fwd_route(name, io, b, h, t, dv, route, plan=None):
     """The route a forward launch takes: ``route`` if given (the card's
-    checks force either body), else the plan's."""
-    route = gla_chunk_fwd_plan(io, b, h, t, dv) if route is None else route
+    checks force either body), else the plan's (``plan``, by default
+    :func:`gla_chunk_fwd_plan`)."""
+    route = (plan or gla_chunk_fwd_plan)(io, b, h, t, dv) if route is None else route
     _check(name, route in _ROUTE_CODE, f"route {route!r} not in {tuple(_ROUTE_CODE)}")
     _check(name, route == "recurrent" or io == torch.bfloat16,
            "the chunked route takes bf16 IO only")
@@ -297,7 +298,7 @@ def gla_chunk_conv_plain(xq, xk, xv, gk, conv_q_w, conv_k_w, conv_v_w,
     return o.to(xq.dtype), sf.to(state_dtype)
 
 
-def _chunked_fwd_plain(u, k, v, gk, s0, rnd):
+def _chunked_fwd_plain(u, k, v, gk, s0, rnd, bonus=None):
     """The chunked forward route with tensors: u = scale q, k, v (b, h, t, d)
     and gk in f32, s0 f32 or None; ``rnd`` rounds a product's operand. In
     64-row chunks (a ragged last one padded with zeros and zero gates), with
@@ -309,7 +310,10 @@ def _chunked_fwd_plain(u, k, v, gk, s0, rnd):
     2. o = rnd(u e^{bc}) rnd(S_start) + rnd(A) v with A from
        :func:`_chunk_scores`.
 
-    Returns (o, final state), both f32."""
+    With ``bonus`` (h, dk) it is RWKV6's forward (u = r): the readout decays
+    at the exclusive sums bx (bx_t = bc_{t-1}, 0 on a chunk's first row),
+    o = rnd(u e^{bx}) rnd(S_start) + rnd(A) v, and A takes the bonus on its
+    diagonal (:func:`_chunk_scores`). Returns (o, final state), both f32."""
     b, h, t, _ = u.shape
     C = _CHUNK
     nc = -(-t // C)
@@ -330,8 +334,10 @@ def _chunked_fwd_plain(u, k, v, gk, s0, rnd):
         states.append(s)
         s = (torch.exp(btot[:, :, c, 0, :, None]) * s + hi[:, :, c].transpose(-1, -2) @ vc[:, :, c]
              + lo[:, :, c].transpose(-1, -2) @ vc[:, :, c])
-    o = (rnd(uc * torch.exp(bc)) @ rnd(torch.stack(states, 2))
-         + rnd(_chunk_scores(uc, kc, bc, rnd)) @ vc)
+    bq = bc if bonus is None else _exclusive(bc)
+    bonus = None if bonus is None else bonus[:, None, None, :]
+    o = (rnd(uc * torch.exp(bq)) @ rnd(torch.stack(states, 2))
+         + rnd(_chunk_scores(uc, kc, bc, rnd, bonus)) @ vc)
     return o.reshape(b, h, nc * C, -1)[:, :, :t], s
 
 
@@ -583,22 +589,42 @@ def _diag_decay(bc, rows):
     return torch.exp((b_i[..., :, None, :] - b_i[..., None, :, :]).clamp(max=0)) * tri
 
 
-def _chunk_scores(u, k, bc, rnd):
+def _exclusive(bc):
+    """The exclusive in-chunk sums of (..., C, d) inclusive ones: bc_{t-1},
+    0 on the first row."""
+    return F.pad(bc, (0, 0, 1, 0))[..., :-1, :]
+
+
+def _chunk_scores(u, k, bc, rnd, bonus=None):
     """A (..., C, C) = sum_d u_t k_s e^{b_t - b_s} (t >= s, else 0) on (..., C,
     d) chunks. Within a 16-row sub-chunk summed directly in f32; for a pair
     of sub-chunks I > J the decay splits at the row before I, so that both
     factors' exponents are <= 0 and the product runs on operands rounded by
-    ``rnd`` with f32 sums."""
+    ``rnd`` with f32 sums.
+
+    With ``bonus`` (broadcast against the chunks' (..., 1, d)), RWKV6's
+    scores: the readout side decays at the exclusive sums bx_t = b_{t-1},
+    A[t, s] = sum_d u_t k_s e^{bx_t - b_s} for s < t (every exponent still
+    <= 0, the split's too), and the diagonal is the bonus, A[t, t] = sum_d
+    u_t bonus_d k_t."""
     C, L = u.shape[-2], _SUB
+    bq = bc if bonus is None else _exclusive(bc)
     A = torch.zeros(*u.shape[:-1], C, dtype=u.dtype, device=u.device)
     for i in range(C // L):
         rows = slice(L * i, L * (i + 1))
+        if bonus is None:
+            decay = _diag_decay(bc, rows)
+        else:
+            eye = torch.eye(L, dtype=torch.bool, device=bc.device)[..., None]
+            strict = torch.ones(L, L, dtype=torch.bool, device=bc.device).tril(-1)[..., None]
+            decay = torch.exp((bq[..., rows, None, :] - bc[..., None, rows, :]).clamp(max=0))
+            decay = torch.where(eye, bonus[..., None, :], decay * strict)
         A[..., rows, rows] = torch.einsum("...td,...tsd,...sd->...ts", u[..., rows, :],
-                                          _diag_decay(bc, rows), k[..., rows, :])
+                                          decay, k[..., rows, :])
         if i:
             ref, early = bc[..., L * i - 1:L * i, :], slice(0, L * i)
             kx = rnd(k[..., early, :] * torch.exp(ref - bc[..., early, :]))
-            A[..., rows, early] = (rnd(u[..., rows, :] * torch.exp(bc[..., rows, :] - ref))
+            A[..., rows, early] = (rnd(u[..., rows, :] * torch.exp(bq[..., rows, :] - ref))
                                    @ kx.transpose(-1, -2))
     return A
 

@@ -3,7 +3,12 @@ wrappers and their plain versions.
 
 - :func:`rwkv6_chunk` replaces ``rwkv6_chunk_pallas``
   (lina_speech_tpu/ops/rwkv6_pallas.py:565), the prefill and the training
-  forward of every RWKV6 layer. Kernel: ``csrc/rwkv6_chunk.cu``. It is
+  forward of every RWKV6 layer. Kernel: ``csrc/rwkv6_chunk.cu``, two routes
+  chosen by :func:`rwkv6_chunk_fwd_plan`: for bf16 IO from a length on,
+  64-row chunks on the tensor cores (``csrc/rwkv6_chunked_fwd.cuh``, the GLA
+  forward's chunk walk with the readout decayed at the exclusive gate sum
+  and the bonus on the diagonal; its plain version is
+  :func:`rwkv6_chunk_chunked_plain`), else the recurrent body. It is
   differentiable: when autograd records, it runs through a
   ``torch.autograd.Function`` whose backward is :func:`rwkv6_chunk_bwd`
   (``csrc/rwkv6_chunk_bwd.cu``, replacing ``_bwd_kernel``,
@@ -22,20 +27,22 @@ an optional initial state (b, h, dk, dv). r, k and v are in the IO dtype
 (f32 or bf16), w and u in f32, the state in f32 or bf16. For a CPU tensor a
 wrapper runs its plain version (``*_plain``, over ``ops/rwkv6.py``); for a
 CUDA tensor it launches the kernel or raises -- there is no fallback. Each
-counts its launches (``rwkv6_chunk.launches``) and notes the shapes it was
-launched on (:func:`launch_shapes`). Which heads the kernels take is
-:func:`kernel_takes`, decided from shapes and dtypes before any launch; a
-layer asks it and takes the plain version for a head it refuses, and a
-wrapper called on such a head raises.
+counts its launches (``rwkv6_chunk.launches``; ``rwkv6_chunk.routes`` by
+route) and notes the shapes it was launched on (:func:`launch_shapes`).
+Which heads the kernels take is :func:`kernel_takes`, decided from shapes
+and dtypes before any launch; a layer asks it and takes the plain version
+for a head it refuses, and a wrapper called on such a head raises.
 
-The kernels compute in f32 throughout. The plain chunked form rounds the
-operands of its matmuls to bf16 for bf16 IO (the JAX package's rounding
-points), so the two agree to a share of the output's magnitude, not bit for
-bit.
+The recurrent kernels compute in f32 throughout; the chunked route rounds
+its products' operands to bf16, as the TPU kernel rounds them to its IO
+dtype. The plain chunked form rounds the operands of its matmuls to bf16 for
+bf16 IO (the JAX package's rounding points), so kernel and plain version
+agree to a share of the output's magnitude, not bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -57,6 +64,8 @@ def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
         fn.shapes = set()
+    rwkv6_chunk.shapes = Counter()
+    rwkv6_chunk.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
 def launch_counts() -> dict:
@@ -66,9 +75,16 @@ def launch_counts() -> dict:
 def launch_shapes() -> dict:
     """What each kernel was launched on since the last reset, a set of
     tuples each: ``rwkv6_chunk`` (b, h, t, dk, dv, IO dtype, initial state
-    dtype or None); ``rwkv6_chunk_bwd`` the same with need_ds0 appended;
-    ``rwkv6_decode`` (b, h, dk, dv, IO dtype, state dtype)."""
+    dtype or None, route); ``rwkv6_chunk_bwd`` (b, h, t, dk, dv, IO dtype,
+    initial state dtype or None, need_ds0); ``rwkv6_decode`` (b, h, dk, dv,
+    IO dtype, state dtype)."""
     return {fn.__name__: set(fn.shapes) for fn in _wrappers()}
+
+
+def launch_shape_counts() -> dict:
+    """``rwkv6_chunk``'s :func:`launch_shapes` with the number of launches
+    on each shape."""
+    return {"rwkv6_chunk": Counter(rwkv6_chunk.shapes)}
 
 
 def kernel_takes(dk: int, dv: int, io: torch.dtype, state_dtype: torch.dtype) -> bool:
@@ -105,10 +121,62 @@ def _check_args(name, r, k, v, w, u, state, *more, step: bool = False):
 
 
 # ------------------------------------------------------------ prefill kernel
+_ROUTE_CODE = gla_cuda._ROUTE_CODE
+# bf16 inputs shorter than these keep the recurrent body, whose one launch
+# beat the chunked route's three or four below them in chip_smoke.py's route
+# sweep on an H100 (PERF.md §6; h4 dk256 dv256, f32 initial state, medians
+# of six turns; us, the recurrent body against the chunked route): at b1
+# and b2 (4 and 8 heads) the two tied at t64 (45.3 against 45.5 at b1, 45.0
+# against 47.3 at b2) and the chunked route won from t96 (66.2 against 47.9
+# at b1); above 8 heads in flight they tied at t96 (b4 66.7 against 65.1,
+# b8 94.5 against 100.7) and the chunked route won from t128 (b8 126.1
+# against 101.3). Shapes the sweep did not reach take the rule of the
+# nearest it did.
+_FWD_CHUNKED_MIN_T = 96
+_FWD_CHUNKED_MIN_T_MANY_HEADS = 128  # more than 8 heads in flight
+
+
+def rwkv6_chunk_fwd_plan(io: torch.dtype, b: int, h: int, t: int, dv: int) -> str:
+    """The body a :func:`rwkv6_chunk` launch of IO dtype ``io`` on (b, h, t)
+    heads of value dim ``dv`` runs, decided from these alone before the
+    launch: ``"chunked"`` for bf16 IO from ``_FWD_CHUNKED_MIN_T`` tokens on
+    (``_FWD_CHUNKED_MIN_T_MANY_HEADS`` above 8 heads in flight; 64-row
+    chunks, products on the tensor cores with bf16 operands and f32 sums, as
+    the TPU kernel rounds its products' operands to the IO dtype), else
+    ``"recurrent"`` (the time loop in f32, which an f32 caller expects and
+    which is faster on a few tokens). ``dv`` does not move the measured
+    thresholds (RWKV6's heads are dv 256 on every driven path)."""
+    min_t = _FWD_CHUNKED_MIN_T_MANY_HEADS if b * h > 8 else _FWD_CHUNKED_MIN_T
+    return "chunked" if io == torch.bfloat16 and t >= min_t else "recurrent"
+
+
 def rwkv6_chunk_plain(r, k, v, w, u, initial_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`rwkv6_chunk` (same signature):
     ``ops/rwkv6.py:rwkv6_chunk``."""
     return rwkv6_ops.rwkv6_chunk(r, k, v, w, u, initial_state)
+
+
+def rwkv6_chunk_chunked_plain(r, k, v, w, u, initial_state=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked route of :func:`rwkv6_chunk` written with tensors (same
+    arguments and outputs): ``gla_cuda._chunked_fwd_plain`` on r in u's
+    place (no scale) with the bonus u, every product operand rounded to the
+    IO dtype. In 64-row chunks and 16-row sub-chunks, with in-chunk
+    inclusive gate sums b and exclusive ones bx (bx_t = b_{t-1}, the
+    readout's decay): the query factor r e^{bx} against the chunk's start
+    state (bf16); the pairs s < t of a sub-chunk at e^{bx_t - b_s} and the
+    diagonal as the bonus sum_d r_t u k_t, in f32; the pairs across
+    sub-chunks as (r_t e^{bx_t - b_rho}) (k_s e^{b_rho - b_s}), rho the row
+    before t's sub-chunk, both factors rounded; the states' decayed key k
+    e^{btot - b} in two rounded parts. Used by the tests, on the CPU against
+    the Pallas kernel and on the card against the kernels."""
+    io = r.dtype
+    state_dtype = torch.float32 if initial_state is None else initial_state.dtype
+    o, sf = gla_cuda._chunked_fwd_plain(
+        r.float(), k.float(), v.float(), w.float(),
+        None if initial_state is None else initial_state.float(),
+        lambda x: x.to(io).float(), bonus=u.float())
+    return o.to(io), sf.to(state_dtype)
 
 
 def rwkv6_chunk(r, k, v, w, u, initial_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,9 +184,11 @@ def rwkv6_chunk(r, k, v, w, u, initial_state=None) -> Tuple[torch.Tensor, torch.
     k_t^T v_t), S_t = diag(e^{w_t}) S_{t-1} + k_t^T v_t.
 
     Returns o (b, h, t, dv) in the IO dtype and the final state in the
-    initial state's dtype (f32 with none). The kernel is recurrent and takes
-    any t >= 1. Differentiable: when autograd records it runs through a
-    ``torch.autograd.Function`` whose backward is :func:`rwkv6_chunk_bwd`.
+    initial state's dtype (f32 with none). Takes any t >= 1, on the route
+    :func:`rwkv6_chunk_fwd_plan` gives the shape (counted in
+    ``rwkv6_chunk.routes``). Differentiable: when autograd records it runs
+    through a ``torch.autograd.Function`` whose backward is
+    :func:`rwkv6_chunk_bwd`.
     """
     if not r.is_cuda:
         return rwkv6_chunk_plain(r, k, v, w, u, initial_state)
@@ -128,24 +198,33 @@ def rwkv6_chunk(r, k, v, w, u, initial_state=None) -> Tuple[torch.Tensor, torch.
     return _chunk_launch(r, k, v, w, u, initial_state)
 
 
-def _chunk_launch(r, k, v, w, u, initial_state):
-    """Check the arguments and launch the forward kernel (CUDA tensors)."""
+def _chunk_launch(r, k, v, w, u, initial_state, route=None):
+    """Check the arguments and launch the forward kernel (CUDA tensors) on
+    ``route`` (None: the plan's; the card's checks force either)."""
     name = "rwkv6_chunk"
     b, h, t, dk, dv, io, st = _check_args(name, r, k, v, w, u, initial_state)
+    route = gla_cuda._fwd_route(name, io, b, h, t, dv, route, plan=rwkv6_chunk_fwd_plan)
     o = torch.empty(b, h, t, dv, dtype=io, device=r.device)
     sf = torch.empty(b, h, dk, dv, dtype=st, device=r.device)
+    chunked = route == "chunked"
+    split = gla_cuda.fwd_out_split(b, h, t, dv, gla_cuda.sm_count(r.device)) if chunked else 1
+    buf, scratch = (gla_cuda._scratch(gla_cuda._chunked_fwd_sizes(b, h, t, dk, dv, split),
+                                      r.device) if chunked else (None, [None] * 10))
     lib = _build.load_library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = lib.rwkv6_chunk_fwd(
         _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(initial_state), _ptr(o), _ptr(sf),
-        b, h, t, dk, dv, _DTYPE_CODE[io], _DTYPE_CODE[st], ctypes.c_void_p(stream))
+        *scratch, b, h, t, dk, dv, _DTYPE_CODE[io], _DTYPE_CODE[st], _ROUTE_CODE[route], split,
+        ctypes.c_void_p(stream))
     _raise_on(name, err)
     rwkv6_chunk.launches += 1
-    rwkv6_chunk.shapes.add((b, h, t, dk, dv, io, None if initial_state is None else st))
+    rwkv6_chunk.routes[route] += 1
+    rwkv6_chunk.shapes[(b, h, t, dk, dv, io, None if initial_state is None else st, route)] += 1
     return o, sf
 
 
-rwkv6_chunk.launches, rwkv6_chunk.shapes = 0, set()
+rwkv6_chunk.launches, rwkv6_chunk.shapes = 0, Counter()
+rwkv6_chunk.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
 def rwkv6_chunk_bwd(r, k, v, w, u, initial_state, do, dsf, need_ds0: bool = True):
@@ -199,8 +278,9 @@ rwkv6_chunk_bwd.launches, rwkv6_chunk_bwd.shapes = 0, set()
 
 class _RWKV6Chunk(torch.autograd.Function):
     """:func:`rwkv6_chunk` on CUDA tensors under autograd: the forward
-    kernel, and :func:`rwkv6_chunk_bwd` as its backward. Nothing is saved
-    but the inputs: the backward recomputes the states from ``s0``."""
+    kernel on its planned route, and :func:`rwkv6_chunk_bwd` (the recurrent
+    sweeps) as its backward. Nothing is saved but the inputs: the backward
+    recomputes the states from ``s0``."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):

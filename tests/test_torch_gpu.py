@@ -1277,6 +1277,98 @@ def test_rwkv6_wrappers_reject_what_the_kernels_do_not_take(cuda):
     assert rwkv6_cuda.launch_counts() == dict.fromkeys(rwkv6_cuda.launch_counts(), 0)
 
 
+def _rwkv6_fwd_call(x, route=None):
+    """rwkv6_chunk on ``x``: ``route`` None for the public wrapper (the
+    plan's route), "recurrent" or "chunked" for the wrapper's launcher forced
+    onto that body, "chunked plain" for the chunked route's plain version and
+    "plain" for the model's CPU path."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    args = (x["r"], x["k"], x["v"], x["w"], x["u"])
+    if route in ("recurrent", "chunked"):
+        return rwkv6_cuda._chunk_launch(*args, x["s0"], route=route)
+    fn = {None: rwkv6_cuda.rwkv6_chunk, "plain": rwkv6_cuda.rwkv6_chunk_plain,
+          "chunked plain": rwkv6_cuda.rwkv6_chunk_chunked_plain}[route]
+    return fn(*args, initial_state=x["s0"])
+
+
+def _own_max_err(a, ref):
+    """max|a - ref| as a share of max|ref| (no floor); inf for a NaN."""
+    err = float((a.float() - ref.float()).abs().max())
+    return err / float(ref.float().abs().max()) if err == err else float("inf")
+
+
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 37, 256, 256), (3, 2, 70, 64, 96), (1, 3, 5, 128, 32),
+                                   (1, 4, 128, 256, 256), (2, 3, 1, 256, 64),
+                                   (8, 4, 151, 256, 256), (8, 4, 512, 256, 256)], ids=str)
+def test_rwkv6_chunked_route_matches_plain(cuda, st, shape):
+    """rwkv6_chunk's chunked route (bf16 IO) against its plain version (the
+    same decomposition with tensors) and against the model's plain path, at
+    small and ragged shapes, generate's prefill (b8 t151) and the training
+    forward (b8 t512), with the RWKV6 gates' -20 resets: o within 1e-2 of
+    its own max|plain|, the final state within 1e-3 in f32 (the decayed key
+    enters the state update in two bf16 parts) and 1e-2 in bf16 (the
+    model's plain path rounds the decayed key once: 1e-2). Counted as one
+    launch under its route."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    x = _rwkv6_inputs(cuda, *shape, torch.bfloat16, st, seed=11)
+    routes, launches = dict(rwkv6_cuda.rwkv6_chunk.routes), rwkv6_cuda.rwkv6_chunk.launches
+    with torch.no_grad():
+        o, sf = _rwkv6_fwd_call(x, "chunked")
+    torch.cuda.synchronize()
+    routes["chunked"] += 1
+    assert rwkv6_cuda.rwkv6_chunk.routes == routes
+    assert rwkv6_cuda.rwkv6_chunk.launches == launches + 1
+    assert o.dtype == torch.bfloat16 and sf.dtype == (st or torch.float32)
+    for ref, tol_s in (("chunked plain", 1e-2 if st == torch.bfloat16 else 1e-3), ("plain", 1e-2)):
+        o_p, sf_p = _rwkv6_fwd_call(x, ref)
+        assert _own_max_err(o, o_p) <= 1e-2, ref
+        assert _own_max_err(sf, sf_p) <= tol_s, ref
+
+
+@pytest.mark.parametrize("st", [torch.float32, None])
+def test_rwkv6_chunked_route_gives_equal_bits_on_a_second_call(cuda, st):
+    """The chunked route sums in a fixed order (no atomics): a second call on
+    the same inputs gives the same bits, with A formed in the output kernel
+    (b8 t512, split 1) and summed from the key tiles' parts (b1 t130)."""
+    for shape in ((8, 4, 512, 256, 256), (1, 4, 130, 256, 256)):
+        x = _rwkv6_inputs(cuda, *shape, torch.bfloat16, st, seed=12)
+        first = _rwkv6_fwd_call(x, "chunked")
+        second = _rwkv6_fwd_call(x, "chunked")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, r) for a, r in zip(first, second)), shape
+
+
+@pytest.mark.parametrize("io,b,t", [(torch.bfloat16, 8, 151), (torch.bfloat16, 1, 128),
+                                    (torch.bfloat16, 1, 16), (torch.float32, 8, 151)])
+def test_rwkv6_chunk_takes_the_planned_route(cuda, io, b, t):
+    """Without a route rwkv6_chunk takes rwkv6_chunk_fwd_plan's (also under
+    autograd, the training forward), counts it under its name and notes it
+    with the shape; reset_launch_counts clears the routes; a chunked route
+    forced onto f32 IO raises and launches nothing."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    x = _rwkv6_inputs(cuda, b, 4, t, 256, 256, io, None, seed=13)
+    rwkv6_cuda.reset_launch_counts()
+    assert rwkv6_cuda.rwkv6_chunk.routes == {"recurrent": 0, "chunked": 0}
+    with torch.no_grad():
+        _rwkv6_fwd_call(x)
+    _rwkv6_grads(rwkv6_cuda.rwkv6_chunk, x)
+    route = rwkv6_cuda.rwkv6_chunk_fwd_plan(io, b, 4, t, 256)
+    assert rwkv6_cuda.rwkv6_chunk.routes == {"recurrent": 0, "chunked": 0, route: 2}
+    assert rwkv6_cuda.launch_counts() == {"rwkv6_chunk": 2, "rwkv6_chunk_bwd": 1,
+                                          "rwkv6_decode": 0}
+    key = (b, 4, t, 256, 256, io, None, route)
+    assert rwkv6_cuda.launch_shape_counts() == {"rwkv6_chunk": {key: 2}}
+    assert rwkv6_cuda.launch_shapes()["rwkv6_chunk"] == {key}
+    if io == torch.float32:
+        with pytest.raises(ValueError, match="bf16 IO only"):
+            _rwkv6_fwd_call(x, "chunked")
+        assert rwkv6_cuda.rwkv6_chunk.launches == 2
+
+
 def test_rwkv6_kernel_path_matches_plain_path(cuda):
     """The RWKV6 backbone at heads the kernels take (d 256, 4 heads of dk 64,
     dv 64) in f32, with the bonus, the ddlerp mixes and the decays
