@@ -133,11 +133,16 @@ then RWKV6:
    rwkv6_chunked_fwd.cuh, also against its own plain version, and the
    recurrent body; each tensor within a share of its own max|plain|),
    forward and backward at b8 t512 with and
-   without one (dr, dk, dv, dw, du, ds0), the decode token at b1, b8 and
+   without one (dr, dk, dv, dw, du, ds0; the backward on both routes of
+   rwkv6_chunk_bwd_plan, the chunked tensor-core route of
+   rwkv6_chunked_bwd.cuh also against its own plain version, each route
+   twice for equal bits), the decode token at b1, b8 and
    b64 with f32 and bf16 states on cold states; the forward's two routes in
    turns at b8 t512, b8 t151 and b1 t128 and over a sweep of b 1-8 and t
-   16-192, where the planned route may be at most SWEEP_MARGIN slower;
-   every time beside its bound;
+   16-192, the backward's at b8 t512 (beside its bound, the plain
+   version's time and each route's scratch, and a profile of three calls)
+   and over a sweep of b 1-8 and t 16-512, where the planned route may be
+   at most SWEEP_MARGIN slower; every time beside its bound;
 12. RWKV6 phase: kind="rwkv6" at the flagship's width (291,117,378
    parameters, random weights from seed 0 with u, the ddlerp mixes and the
    decays drawn off their constant inits; bf16 compute, f32 states):
@@ -145,13 +150,18 @@ then RWKV6:
    path held against the plain path under teacher forcing (logits, s and
    shift of every layer), a DecodeServer in classic mode (8 requests, 8
    slots) and three train steps at b8, the kernel path's loss and
-   gradients held against the plain path's on a batch of 2; launch counts
-   25 rwkv6_decode per token, 25 rwkv6_chunk and 25 rwkv6_chunk_bwd per
-   micro-batch, every rwkv6_chunk launch on its planned route; then every
-   shape those runs launched the three kernels on is held against the plain
-   versions (rwkv6_chunk on the route it took), and timed on both routes
-   for rwkv6_chunk's launches x (time - bound), the planned route at most
-   SWEEP_MARGIN slower;
+   gradients held against the plain path's on a batch of 2, and the bf16
+   model's parameter gradients with one layer's backward at a time on the
+   chunked route against every one on the recurrent body within
+   TOL_PARAM_GRAD (rwkv6_layer_route_grad_check);
+   launch counts 25 rwkv6_decode per token, 25 rwkv6_chunk and 25
+   rwkv6_chunk_bwd per micro-batch, every rwkv6_chunk and rwkv6_chunk_bwd
+   launch on its planned route (every bf16 backward at or above the
+   threshold chunked); then every shape those runs launched the three
+   kernels on is held against the plain versions (rwkv6_chunk on the route
+   it took, the backward on both routes), and timed on both routes for
+   rwkv6_chunk's and rwkv6_chunk_bwd's launches x (time - bound), the
+   planned route at most SWEEP_MARGIN slower;
 then Mamba (v1):
 13. Mamba kernel phase: mamba_scan and its hand-written backward against
    their plain versions (the time loop, and autograd through it) at d 2048,
@@ -341,14 +351,14 @@ CHUNK_HELD, CHUNK_BWD_HELD = set(), set()
 # were held on that route against their plain versions (hold_decode_routes)
 DECODE_HELD = {"gla_decode_conv": set(), "gla_decode": set()}
 # launches of the two forward kernels, of gla_chunk's backward, of the
-# three decode steps and of rwkv6_chunk on each shape
+# three decode steps and of rwkv6_chunk and its backward on each shape
 # (ops/gla_cuda.py:launch_shape_counts and ops/rwkv6_cuda.py's keys), summed
 # over the main-path runs that expect_launches checks: the weights of
 # gap_phase's and rwkv6_gap_phase's sums
 GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
                     "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter(),
                     "gla_decode_conv": Counter(), "gla_decode": Counter(),
-                    "rwkv6_chunk": Counter()}
+                    "rwkv6_chunk": Counter(), "rwkv6_chunk_bwd": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode_conv": set(),
                 "gla_decode": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
@@ -566,7 +576,15 @@ def ptxas_summary(log: str):
                 "rwkv6_chunk chunked states<bf16 state>"),
                ("rwkv611chunked_fwd12state_kernelIfEE", "rwkv6_chunk chunked states<f32 state>"),
                ("rwkv611chunked_fwd13scores_kernel", "rwkv6_chunk chunked scores"),
-               ("rwkv611chunked_fwd10out_kernel", "rwkv6_chunk chunked output"))
+               ("rwkv611chunked_fwd10out_kernel", "rwkv6_chunk chunked output"),
+               # rwkv6_chunk_bwd's chunked route (bf16 IO)
+               ("rwkv611chunked_bwd11prep_kernel", "rwkv6_chunk_bwd chunked prep"),
+               ("rwkv611chunked_bwd12state_kernelI13__nv_bfloat16EE",
+                "rwkv6_chunk_bwd chunked states<bf16 state>"),
+               ("rwkv611chunked_bwd12state_kernelIfEE",
+                "rwkv6_chunk_bwd chunked states<f32 state>"),
+               ("rwkv611chunked_bwd10dqk_kernel", "rwkv6_chunk_bwd chunked dr/dk"),
+               ("rwkv611chunked_bwd9dv_kernel", "rwkv6_chunk_bwd chunked dv"))
     name, out = "", []
     for line in log.splitlines():
         if "entry function" in line or "Function properties for" in line:
@@ -2753,11 +2771,13 @@ def launched_shapes_phase(torch, gla_cuda):
 
 
 def expect_chunked_route(gla_cuda, bwd, launches):
-    """Every launch of the GLA backward ``bwd`` since the last reset took the
+    """Every launch of the backward ``bwd`` since the last reset took the
     chunked route where its IO dtype is bf16 and was counted under the route
     its plan gives: the conv-fused backward (the flagship computes in bf16)
     all chunked; gla_chunk_bwd chunked for bf16 IO (simple-GLA), recurrent
-    for f32 IO (Mamba-2)."""
+    for f32 IO (Mamba-2); rwkv6_chunk_bwd chunked for bf16 IO at or above
+    its plan's threshold, recurrent below it and for f32 IO (the f32-compute
+    check copy)."""
     import torch
 
     if bwd == "gla_chunk_conv_bwd":
@@ -2778,6 +2798,24 @@ def expect_chunked_route(gla_cuda, bwd, launches):
                 f"gla_chunk_bwd routes {gla_cuda.gla_chunk_bwd.routes}, planned {want}, "
                 f"launches {launches[bwd]}")
         print(f"  gla_chunk_bwd routes as planned: {want}")
+    elif bwd == "rwkv6_chunk_bwd":
+        from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+        want = dict.fromkeys(rwkv6_cuda.rwkv6_chunk_bwd.routes, 0)
+        for shape, n in rwkv6_cuda.launch_shape_counts()[bwd].items():
+            (b, h, t), dv, io, route = shape[:3], shape[4], shape[5], shape[-1]
+            planned = rwkv6_cuda.rwkv6_chunk_bwd_plan(io, b, h, t, dv)
+            require(route == planned, f"rwkv6_chunk_bwd: the launch on {shape} did not take its "
+                    f"planned {planned} route")
+            require(route == "chunked" or io != torch.bfloat16
+                    or t < rwkv6_cuda._BWD_CHUNKED_MIN_T,
+                    f"rwkv6_chunk_bwd: a bf16 launch at or above the threshold on {shape} took "
+                    f"the {route} route")
+            want[route] += n
+        require(rwkv6_cuda.rwkv6_chunk_bwd.routes == want and sum(want.values()) == launches[bwd],
+                f"rwkv6_chunk_bwd routes {rwkv6_cuda.rwkv6_chunk_bwd.routes}, planned {want}, "
+                f"launches {launches[bwd]}")
+        print(f"  rwkv6_chunk_bwd routes as planned: {want}")
 
 
 # device time of a profiled train step by the kernels of the GLA and RWKV6
@@ -2785,7 +2823,7 @@ def expect_chunked_route(gla_cuda, bwd, launches):
 # kernels carry GLA's names inside theirs): the GLA forward's chunked
 # kernels live in gla::chunked_fwd, the backward's in gla::chunked (whose
 # name is not a prefix of the other's), RWKV6's chunked forward in
-# rwkv6::chunked_fwd
+# rwkv6::chunked_fwd, its chunked backward in rwkv6::chunked_bwd
 TRAIN_GROUPS = (("GLA backward, chunked kernels", ("gla::chunked::",)),
                 ("GLA backward, recurrent sweeps", ("gla::bwd_dq_kernel", "gla::bwd_dkv_kernel")),
                 ("GLA backward, finishing pass (RWKV6's too: its dw carry)",
@@ -2795,7 +2833,11 @@ TRAIN_GROUPS = (("GLA backward, chunked kernels", ("gla::chunked::",)),
                 ("GLA forward, recurrent body", ("gla::gla_chunk_kernel",)),
                 ("RWKV6 forward, chunked kernels", ("rwkv6::chunked_fwd::",)),
                 ("RWKV6 forward, recurrent body", ("rwkv6::rwkv6_chunk_kernel",)),
-                ("RWKV6 backward, recurrent sweeps", ("rwkv6::rwkv6_bwd_",)))
+                ("RWKV6 backward, chunked kernels", ("rwkv6::chunked_bwd::",)),
+                ("RWKV6 backward, recurrent sweeps", ("rwkv6::rwkv6_bwd_dr_kernel",
+                                                      "rwkv6::rwkv6_bwd_dkv_kernel")),
+                ("RWKV6 backward, finishing pass and du", ("rwkv6::rwkv6_bwd_finish_kernel",
+                                                           "rwkv6::rwkv6_bwd_du_kernel")))
 
 
 def zero_gradient_mask(torch, name, grad):
@@ -2912,9 +2954,7 @@ def training_phase(torch, np, gla_cuda, card_line, cfg=None, fwd="gla_chunk_conv
         check_model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
                                   device=DEVICE, seed=0)
         prepare(check_model)
-    small = batch_to_device(next(synthetic_tts_batches(
-        batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
-        max_audio_len=MAX_AUDIO, seed=1)), DEVICE)
+    small = batch_to_device(check_batch(cfg), DEVICE)
     reset_counts()
     loss_k, grads_k = model_grads(torch, check_model, small)
     expect_launches(read_launches(gla_cuda), **{fwd: N_GLA_LAYERS, bwd: N_GLA_LAYERS})
@@ -3524,16 +3564,18 @@ def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, chunk="gla
 
 
 @contextlib.contextmanager
-def forced_bwd_route(gla_cuda, route):
-    """Within the block every gla_chunk_bwd launch, the public wrapper's
-    under autograd included, takes ``route``: gla_cuda.gla_chunk_bwd_plan,
-    which the wrapper's launcher asks, answers it."""
-    plan = gla_cuda.gla_chunk_bwd_plan
-    gla_cuda.gla_chunk_bwd_plan = lambda *shape: route
+def forced_bwd_route(ops, plan, route):
+    """Within the block every launch of the backward whose plan is ``plan``
+    (a function of the module ``ops``: gla_cuda.gla_chunk_bwd_plan,
+    rwkv6_cuda.rwkv6_chunk_bwd_plan), the public wrapper's under autograd
+    included, takes ``route``: the plan, which the wrapper's launcher asks,
+    answers it."""
+    planned = getattr(ops, plan)
+    setattr(ops, plan, lambda *shape: route)
     try:
         yield
     finally:
-        gla_cuda.gla_chunk_bwd_plan = plan
+        setattr(ops, plan, planned)
 
 
 def bwd_route_grad_check(torch, gla_cuda, cfg):
@@ -3551,14 +3593,11 @@ def bwd_route_grad_check(torch, gla_cuda, cfg):
     (scripts/torch_bwd_grad_floor.py; PERF.md §6). Returns the
     launches of the planned run."""
     from lina_speech_tpu_torch.config import build_model
-    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
     from lina_speech_tpu_torch.train.harness import batch_to_device
 
     model = build_model(cfg, device=DEVICE, seed=0)
     model.eval()
-    small = batch_to_device(next(synthetic_tts_batches(
-        batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
-        max_audio_len=MAX_AUDIO, seed=1)), DEVICE)
+    small = batch_to_device(check_batch(cfg), DEVICE)
     reset_counts()
     loss_c, grads_c = model_grads(torch, model, small)
     launches = read_counts()
@@ -3567,7 +3606,7 @@ def bwd_route_grad_check(torch, gla_cuda, cfg):
     require(gla_cuda.gla_chunk_bwd.routes["chunked"] == N_GLA_LAYERS,
             f"bf16 backward routes {gla_cuda.gla_chunk_bwd.routes}")
     reset_counts()
-    with forced_bwd_route(gla_cuda, "recurrent"):
+    with forced_bwd_route(gla_cuda, "gla_chunk_bwd_plan", "recurrent"):
         loss_r, grads_r = model_grads(torch, model, small)
     require(gla_cuda.gla_chunk_bwd.routes == {"recurrent": N_GLA_LAYERS, "chunked": 0},
             f"forced backward routes {gla_cuda.gla_chunk_bwd.routes}")
@@ -3581,6 +3620,112 @@ def bwd_route_grad_check(torch, gla_cuda, cfg):
                 TOL_PARAM_GRAD, worst=6, named=("gk_proj",),
                 skip=lambda leaf: zero_gradient_mask(torch, leaf, grads_r[leaf]))
     del model, grads_c, grads_r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_batch(cfg):
+    """The batch of 2 (synthetic, seed 1) on which the route checks take
+    parameter gradients, on the host."""
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+
+    return next(synthetic_tts_batches(
+        batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook, min_audio_len=MIN_AUDIO,
+        max_audio_len=MAX_AUDIO, seed=1))
+
+
+def rwkv6_layer_route_grad_check(torch, cfg, prepare):
+    """RWKV6's parameter gradients in bf16 compute on a batch of 2 with the
+    backward of one layer at a time on the chunked route and every other
+    layer's on the recurrent body, against every backward on the recurrent
+    body: one forward (the kernels on their planned routes), then for each
+    of the 25 RWKV6 layers autograd of the loss w.r.t. that layer's
+    parameters, which runs the backward of the layers above it (recurrent)
+    and of the layer itself (chunked: the launch whose bonus u is the
+    layer's time_faaaa). The gradient that reaches the layer is then the
+    same bits on both sides, so its parameters' gradients part by its own
+    backward's route alone; each leaf within TOL_PARAM_GRAD of its own
+    max|recurrent| (zero_gradient_mask's leaves left out), finite and
+    non-zero, one chunked launch counted per layer. With every layer's
+    backward chunked at once the lower layers' gradients part from the
+    recurrent run's by far more, as they do between any two f32-accurate
+    backwards in bf16 compute (autograd through the plain version in f32
+    against the recurrent kernel: up to 48% of a leaf's max,
+    scripts/torch_bwd_grad_floor.py --kind rwkv6; PERF.md §6), so that
+    comparison cannot resolve TOL_PARAM_GRAD; it is printed here, its worst
+    leaves and its count over TOL_PARAM_GRAD, beside the launches of its
+    run. Returns the launches of the every-layer chunked run."""
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.models.rwkv6 import RWKV6Attention
+    from lina_speech_tpu_torch.ops import gla_cuda, rwkv6_cuda
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+
+    model = build_model(cfg, device=DEVICE, seed=0)
+    prepare(model)
+    model.eval()
+    small = batch_to_device(check_batch(cfg), DEVICE)
+    reset_counts()
+    _, grads_c = model_grads(torch, model, small)
+    launches = read_counts()
+    expect_launches(launches, rwkv6_chunk=N_GLA_LAYERS, rwkv6_chunk_bwd=N_GLA_LAYERS)
+    expect_chunked_route(gla_cuda, "rwkv6_chunk_bwd", launches)
+    require(rwkv6_cuda.rwkv6_chunk_bwd.routes["chunked"] == N_GLA_LAYERS,
+            f"bf16 backward routes {rwkv6_cuda.rwkv6_chunk_bwd.routes}")
+    layers = [(n, m) for n, m in model.named_modules() if isinstance(m, RWKV6Attention)]
+    params = dict(model.named_parameters())
+    launch = rwkv6_cuda._chunk_bwd_launch
+    chunked_u = []  # the data pointer of the one layer's bonus whose backward is chunked
+
+    def routed(r, k, v, w, u, *rest, route=None):
+        return launch(r, k, v, w, u, *rest,
+                      route="chunked" if u.data_ptr() in chunked_u else "recurrent")
+
+    reset_counts()
+    loss = model(small["text_token"], small["audio_token"], small["encoder_mask"],
+                 small["crossatt_mask"], logits_mask=small["y_mask"])[1]
+    rwkv6_cuda._chunk_bwd_launch = routed
+    try:
+        got = torch.autograd.grad(loss, list(params.values()), retain_graph=True,
+                                  allow_unused=True)
+        grads_r = {n: g for n, g in zip(params, got) if g is not None}
+        require(rwkv6_cuda.rwkv6_chunk_bwd.routes == {"recurrent": N_GLA_LAYERS, "chunked": 0},
+                f"forced backward routes {rwkv6_cuda.rwkv6_chunk_bwd.routes}")
+        print(f"rwkv6 (bf16 compute, seed 0) parameter gradients, batch of 2 (t "
+              f"{small['y_mask'].shape[1]}), one layer's backward on the chunked route at a time, "
+              f"every other layer's on the recurrent body, against every backward on the "
+              f"recurrent body (each leaf within {TOL_PARAM_GRAD:.1e} of its own max|ref|):")
+        worst = []
+        for name, layer in layers:
+            own = [n for n in params if n.startswith(name + ".") and n in grads_r]
+            chunked_u[:] = [layer.time_faaaa.data_ptr()]
+            before = dict(rwkv6_cuda.rwkv6_chunk_bwd.routes)
+            got = torch.autograd.grad(loss, [params[n] for n in own], retain_graph=True)
+            require(rwkv6_cuda.rwkv6_chunk_bwd.routes["chunked"] == before["chunked"] + 1,
+                    f"{name}: its backward did not take the chunked route once")
+            mask = lambda leaf: zero_gradient_mask(torch, leaf, grads_r[leaf])
+            worst.append((check_grads(f"{name}, its backward chunked", dict(zip(own, got)),
+                                      {n: grads_r[n] for n in own}, TOL_PARAM_GRAD, skip=mask,
+                                      worst=2), name))
+        print(f"  {len(worst)} layers ok; the worst: " + ", ".join(
+            f"{name} {share:.3e}" for share, name in sorted(worst, reverse=True)[:4]))
+    finally:
+        rwkv6_cuda._chunk_bwd_launch = launch
+        chunked_u.clear()
+    del loss
+    rows = []
+    for leaf, ref in grads_r.items():
+        mask = zero_gradient_mask(torch, leaf, ref)
+        if bool(mask.all()):
+            continue
+        a, r = grads_c[leaf].float()[~mask], ref.float()[~mask]
+        rows.append((float((a - r).abs().max()) / float(r.abs().max()), leaf))
+    rows.sort(reverse=True)
+    over = sum(share > TOL_PARAM_GRAD for share, _ in rows)
+    print(f"  every layer's backward chunked at once vs every one recurrent (not held: below the "
+          f"bf16 floor): {over} of {len(rows)} leaves over {TOL_PARAM_GRAD:g}; worst "
+          + ", ".join(f"{leaf} {share:.3e}" for share, leaf in rows[:4]))
+    del model, grads_c, grads_r
+    reset_counts()
     torch.cuda.empty_cache()
     return launches
 
@@ -3848,12 +3993,14 @@ def hold_rwkv6_chunk(torch, rwkv6_cuda, shape, need_ds0=None, route=None):
     inference forward (o, final state) forced onto ``route`` (None: every
     route its IO dtype has), the chunked route also against its own plain
     version (the same decomposition with tensors); otherwise as training
-    calls it (autograd recording: the forward kernel on its planned route
-    and the hand-written backward) against autograd through the plain
+    calls it (autograd recording: the forward kernel and the hand-written
+    backward, each on its planned route) against autograd through the plain
     version, o, the final state and every gradient leaf (dr, dk, dv, dw, du,
-    and ds0 where wanted). Each tensor within a share of its own max|plain|,
-    finite and non-zero (a NaN fails). Returns (inputs, do, dsf, gradients,
-    worst gradient share); the last four None for the inference forward."""
+    and ds0 where wanted), and with bf16 IO the backward on both routes
+    (hold_rwkv6_bwd_routes). Each tensor within a share of its own
+    max|plain|, finite and non-zero (a NaN fails). Returns (inputs, do, dsf,
+    gradients, worst gradient share); the last four None for the inference
+    forward."""
     b, h, t, dk, dv, io, st = shape
     x = rwkv6_inputs(torch, b, h, t, dk, dv, io, st, seed=700 + t + b)
     name = (f"rwkv6_chunk b{b} {head_name(h, dk, dv)} t{t} IO {dtype_name(io)} "
@@ -3885,9 +4032,8 @@ def hold_rwkv6_chunk(torch, rwkv6_cuda, shape, need_ds0=None, route=None):
                 RWKV6_HELD["rwkv6_chunk"].add((*shape, r))
         return x, None, None, None, None
     before = rwkv6_cuda.launch_counts()
-    g = torch.Generator(device=DEVICE).manual_seed(t)
-    do = torch.randn(b, h, t, dv, generator=g, device=DEVICE).to(io)
-    dsf = torch.randn(b, h, dk, dv, generator=g, device=DEVICE).to(st or torch.float32)
+    bwd_routes = dict(rwkv6_cuda.rwkv6_chunk_bwd.routes)
+    do, dsf = rwkv6_cotangents(torch, x, seed=t)
     o_k, s_k, got = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk, x, do, dsf, need_ds0)
     o_p, s_p, ref = rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, need_ds0)
     name += "" if need_ds0 or st is None else ", no ds0"
@@ -3896,16 +4042,65 @@ def hold_rwkv6_chunk(torch, rwkv6_cuda, shape, need_ds0=None, route=None):
     require(after["rwkv6_chunk"] == before["rwkv6_chunk"] + 1
             and after["rwkv6_chunk_bwd"] == before["rwkv6_chunk_bwd"] + 1,
             f"{name}: not launched through the kernels")
+    planned = rwkv6_cuda.rwkv6_chunk_bwd_plan(io, b, h, t, dv)
+    bwd_routes[planned] += 1
+    require(rwkv6_cuda.rwkv6_chunk_bwd.routes == bwd_routes,
+            f"{name}: the backward did not take its planned route: "
+            f"{rwkv6_cuda.rwkv6_chunk_bwd.routes}")
     route = rwkv6_cuda.rwkv6_chunk_fwd_plan(io, b, h, t, dv)
     print(f"{name}, forward ({route} route, the plan's):")
     require(o_k.dtype == io and s_k.dtype == (st or torch.float32), "rwkv6_chunk output dtypes")
     hold_own_max("o", o_k, o_p, tol)
     hold_own_max("final state", s_k, s_p, tol_s)
     RWKV6_HELD["rwkv6_chunk"].add((*shape, route))
-    worst = check_grads(f"{name}, backward", got, ref,
-                        TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32)
-    RWKV6_HELD["rwkv6_chunk_bwd"].add((*shape, need_ds0 and st is not None))
+    tol_g = TOL_GRAD if torch.bfloat16 in (io, st) else TOL_F32
+    worst = check_grads(f"{name}, backward ({planned} route, the plan's)", got, ref, tol_g)
+    held = need_ds0 and st is not None
+    RWKV6_HELD["rwkv6_chunk_bwd"].add((*shape, held, planned))
+    if io == torch.bfloat16:
+        hold_rwkv6_bwd_routes(torch, rwkv6_cuda, name, x, do, dsf, need_ds0, ref, tol_g, planned,
+                              got)
+        RWKV6_HELD["rwkv6_chunk_bwd"].update((*shape, held, r) for r in rwkv6_routes(torch, io))
     return x, do, dsf, got, worst
+
+
+def rwkv6_cotangents(torch, x, seed):
+    """do (the IO dtype) and dsf (the initial state's dtype, f32 without
+    one) for the RWKV6 inputs ``x``, from ``seed``."""
+    b, h, t, dk = x["r"].shape
+    dv = x["v"].shape[-1]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    do = torch.randn(b, h, t, dv, generator=g, device=DEVICE).to(x["r"].dtype)
+    dsf = torch.randn(b, h, dk, dv, generator=g, device=DEVICE).to(
+        torch.float32 if x["s0"] is None else x["s0"].dtype)
+    return do, dsf
+
+
+def rwkv6_bwd_on_route(rwkv6_cuda, x, do, dsf, need_ds0, route):
+    """rwkv6_chunk_bwd on ``x`` through the wrapper's launcher, forced onto
+    ``route`` (the public wrapper takes the plan's); returns {leaf:
+    gradient} of the leaves that came back."""
+    out = rwkv6_cuda._chunk_bwd_launch(*(x[n] for n in RWKV6_LEAVES), do, dsf, need_ds0, route)
+    return {n: g for n, g in zip(RWKV6_LEAVES, out) if g is not None}
+
+
+def hold_rwkv6_bwd_routes(torch, rwkv6_cuda, name, x, do, dsf, need_ds0, ref, tol, planned,
+                          got):
+    """rwkv6_chunk_bwd with bf16 IO on the route other than ``planned``
+    (whose gradients ``got`` autograd's launch gave) against ``ref``, the
+    gradients of autograd through the plain version, each leaf within
+    ``tol`` of its own max|plain|, finite and non-zero; then the chunked
+    route's against rwkv6_chunk_bwd_chunked_plain, the same decomposition
+    with tensors and the kernels' bf16 rounding points, within TOL_BF16."""
+    other = "recurrent" if planned == "chunked" else "chunked"
+    forced = rwkv6_bwd_on_route(rwkv6_cuda, x, do, dsf, need_ds0, other)
+    torch.cuda.synchronize()
+    check_grads(f"{name}, backward forced onto the {other} route", forced, ref, tol)
+    chunked = got if planned == "chunked" else forced
+    plain = rwkv6_cuda.rwkv6_chunk_bwd_chunked_plain(
+        *(x[n] for n in RWKV6_LEAVES), do, dsf, operand_dtype=torch.bfloat16)
+    plain = {n: g for n, g in zip(RWKV6_LEAVES, plain) if n in chunked}
+    check_grads(f"{name}, chunked backward vs its plain decomposition", chunked, plain, TOL_BF16)
 
 
 def hold_rwkv6_decode(torch, rwkv6_cuda, shape, summary=None, timed=False):
@@ -3969,19 +4164,76 @@ def rwkv6_work(x):
             rwkv6_flops(b, h, t, dk, dv))
 
 
+def rwkv6_bwd_work(x, do, dsf, got):
+    """(bytes, operations) of one rwkv6_chunk_bwd call: its inputs and
+    outputs, and the recurrence's backward operations."""
+    b, h, t, dk = x["r"].shape
+    return (nbytes(*(x[n] for n in RWKV6_LEAVES), do, dsf, *got.values()),
+            rwkv6_flops(b, h, t, dk, x["v"].shape[-1], backward=True))
+
+
+def rwkv6_bwd_route_steps(rwkv6_cuda, x, do, dsf, need_ds0=True):
+    """{route: one call of rwkv6_chunk_bwd on ``x`` forced onto it} for
+    time_routes, every route the IO dtype has."""
+    import torch
+
+    return {r: (lambda r=r: rwkv6_bwd_on_route(rwkv6_cuda, x, do, dsf, need_ds0, r))
+            for r in rwkv6_routes(torch, x["r"].dtype)}
+
+
+def time_rwkv6_bwd(torch, rwkv6_cuda, summary, x, do, dsf, got, worst, fwd_plain_ms, card_line):
+    """rwkv6_chunk_bwd at the training shape (b8 t512, no initial state):
+    both routes timed in turns (median of six, the planned one at most
+    SWEEP_MARGIN slower, retimed on a miss) beside the bound, the plain
+    version's eager time and each route's scratch; the planned route is the
+    summary's row, the other a further shape; a profile of three calls by
+    kernel."""
+    b, h, t, dk = x["r"].shape
+    dv, io = x["v"].shape[-1], x["r"].dtype
+    planned = rwkv6_cuda.rwkv6_chunk_bwd_plan(io, b, h, t, dv)
+    label = f"rwkv6_chunk_bwd b{b} {head_name(h, dk, dv)} t{t} IO {dtype_name(io)}"
+    ms, times = planned_route_times(rwkv6_bwd_route_steps(rwkv6_cuda, x, do, dsf), planned, label)
+    plain_both = lambda: rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, False)
+    plain = [eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms for _ in range(2)]
+    work = (*rwkv6_bwd_work(x, do, dsf, got), io)
+    bound_ms = roofline(*work)[0]
+    print(f"  {label} device ms, in turns [{card_line}]: "
+          + ", ".join(f"{r} {times[r]}" for r in times)
+          + f"; plain backward (eager forward and backward on the host's clock, less the plain "
+          f"forward) {plain}")
+    # max_abs_err: the largest error of a leaf as a share of its max|plain|
+    record(summary, "rwkv6_chunk_bwd", worst, ms[planned], sum(plain) / len(plain), *work)
+    for r in ms:
+        if r != planned:
+            note_shape("rwkv6_chunk_bwd", f"b{b} t{t} initial state none, {r} route (in turns)",
+                       ms[r], None, *work)
+    print(f"  {label}: " + ", ".join(f"{r} {ms[r] * 1e3:.1f} us" for r in ms)
+          + f" (median of {2 * ROUTE_TURNS} in turns), bound {bound_ms * 1e3:.1f} us; the plan "
+          f"takes {planned}")
+    for r in ms:
+        scratch = rwkv6_cuda.chunk_bwd_scratch_bytes(b, h, t, dk, dv, r)
+        print(f"  scratch of one {r} backward call: {scratch} bytes ({scratch / 1e6:.1f} MB)")
+    bwd = lambda: rwkv6_bwd_on_route(rwkv6_cuda, x, do, dsf, False, planned)
+    profiled(torch, lambda: [bwd() for _ in range(3)],
+             f"3 calls of rwkv6_chunk_bwd b{b} t{t}, {planned} route", top=8)
+
+
 def rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line):
     """The three RWKV6 kernels against their plain versions at the
     flagship-width RWKV6 heads (h4 dk256 dv256, bf16 IO, f32 w and u):
     the forward at b8 t151 (generate's prefill), b1 t128 and b1 t1 (server
     prefill chunks), with an f32 and with no initial state, on both routes;
     forward and backward at b8 t512 (training) with and without one, all six
-    gradient leaves; the decode token at b1, b8 and b64 with f32 and bf16
-    states on cold states. The forward's two routes timed in turns at b8
-    t512 (no initial state, the training forward), b8 t151 and b1 t128 (f32
-    initial state); every time beside its bound. The summary takes the
+    gradient leaves, the backward on both routes (each twice: equal bits);
+    the decode token at b1, b8 and b64 with f32 and bf16 states on cold
+    states. The forward's two routes timed in turns at b8 t512 (no initial
+    state, the training forward), b8 t151 and b1 t128 (f32 initial state),
+    the backward's at b8 t512 (time_rwkv6_bwd); every time beside its
+    bound. The summary takes the
     forward at b8 t151 with an f32 state (what generate launches), the
     backward at b8 t512 without one (what training launches) and the decode
-    token at b8 with an f32 state. Then the forward's route sweep."""
+    token at b8 with an f32 state. Then the forward's and the backward's
+    route sweeps."""
     bf, f32 = torch.bfloat16, torch.float32
     h, dk, dv = RWKV6_HEAD
     for b, t in ((BATCH, T_PROMPT + 1), (1, 128), (1, 1)):
@@ -4007,6 +4259,16 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line):
     for st in (f32, None):
         x, do, dsf, got, worst = hold_rwkv6_chunk(torch, rwkv6_cuda,
                                                   (TRAIN_BATCH, h, t, dk, dv, bf, st), True)
+        for route in rwkv6_routes(torch, bf):
+            first = rwkv6_bwd_on_route(rwkv6_cuda, x, do, dsf, True, route)
+            second = rwkv6_bwd_on_route(rwkv6_cuda, x, do, dsf, True, route)
+            torch.cuda.synchronize()
+            require(first.keys() == second.keys()
+                    and all(torch.equal(first[n], second[n]) for n in first),
+                    f"rwkv6_chunk_bwd b{TRAIN_BATCH} t{t} {dtype_name(st)}, {route} route: other "
+                    "bits on a second call")
+            print(f"  rwkv6_chunk_bwd b{TRAIN_BATCH} t{t} initial state {dtype_name(st)}, {route} "
+                  "route: equal bits on a second call")
         if st is not None:
             continue
         hold_rwkv6_chunk(torch, rwkv6_cuda, (TRAIN_BATCH, h, t, dk, dv, bf, st))
@@ -4023,26 +4285,8 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line):
                    rwkv6_flops(TRAIN_BATCH, h, t, dk, dv), bf)
         profiled(torch, lambda: [rwkv6_on_route(rwkv6_cuda, x, "chunked") for _ in range(3)],
                  f"3 calls of rwkv6_chunk b{TRAIN_BATCH} t{t}, chunked route", top=6)
-        bwd = lambda: rwkv6_cuda.rwkv6_chunk_bwd(*args, None, do, dsf, need_ds0=False)
-        plain_both = lambda: rwkv6_grads(torch, rwkv6_cuda.rwkv6_chunk_plain, x, do, dsf, False)
-        ms, plain = [], []
-        for which in ("plain", "kernel", "kernel", "plain"):
-            if which == "kernel":
-                ms.append(device_ms(bwd, 5))
-            else:  # autograd's backward is not captured in a graph: eager
-                plain.append(eager_ms(plain_both, 3, warmup=1) - fwd_plain_ms)
-        print(f"  rwkv6_chunk_bwd device ms: kernel {ms}; plain backward (eager forward and "
-              f"backward on the host's clock, less the plain forward) {plain}")
-        mean = lambda xs: sum(xs) / len(xs)
-        # max_abs_err: the largest error of a leaf as a share of its max|plain|
-        record(summary, "rwkv6_chunk_bwd", worst, mean(ms), mean(plain),
-               nbytes(*args, do, dsf, *got.values()),
-               rwkv6_flops(TRAIN_BATCH, h, t, dk, dv, backward=True), bf)
-        scratch = (2 * (dv // 32) * TRAIN_BATCH * h * t * dk
-                   + (dv // 32) * TRAIN_BATCH * h * t) * 4
-        print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of dr/dk/vdo parts")
-        profiled(torch, lambda: [bwd() for _ in range(3)],
-                 f"3 calls of rwkv6_chunk_bwd b{TRAIN_BATCH} t{t}", top=6)
+        time_rwkv6_bwd(torch, rwkv6_cuda, summary, x, do, dsf, got, worst, fwd_plain_ms,
+                       card_line)
     print(f"rwkv6_chunk, both routes in turns (device us, median of {2 * ROUTE_TURNS}) "
           f"[{card_line}]:")
     for b, t, st in ((TRAIN_BATCH, TRAIN_T[0], None), (BATCH, T_PROMPT + 1, f32), (1, 128, f32)):
@@ -4060,6 +4304,7 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line):
             hold_rwkv6_decode(torch, rwkv6_cuda, (b, h, dk, dv, bf, st),
                               summary=summary if (b, st) == (BATCH, f32) else None, timed=True)
     rwkv6_route_sweep(torch, rwkv6_cuda, card_line)
+    rwkv6_bwd_route_sweep(torch, rwkv6_cuda, card_line)
     reset_counts()  # the kernel phases' launches are no path's
 
 
@@ -4089,38 +4334,86 @@ def rwkv6_route_sweep(torch, rwkv6_cuda, card_line):
                   f"{ms['chunked'] * 1e3:.2f}; planned {plan}")
 
 
+# lengths and batches of rwkv6_chunk_bwd's route sweep (h4 dk256 dv256): they
+# bracket rwkv6_chunk_bwd_plan's threshold and reach the training lengths
+RWKV6_BWD_SWEEP_T = (16, 32, 48, 64, 96, 128, 256, 512)
+
+
+def rwkv6_bwd_route_sweep(torch, rwkv6_cuda, card_line):
+    """rwkv6_chunk_bwd's two routes timed in turns at the flagship RWKV6
+    heads (bf16 IO, no initial state, as training runs) over RWKV6_SWEEP_B x
+    RWKV6_BWD_SWEEP_T, where the plan's threshold comes from: every point
+    is timed and printed first (median of six turns); then at every point
+    the route rwkv6_chunk_bwd_plan picks may be at most SWEEP_MARGIN slower
+    than the other, a point that misses timed again (planned_route_times)
+    before the sweep fails on it."""
+    h, dk, dv = RWKV6_HEAD
+    bf = torch.bfloat16
+    print(f"rwkv6_chunk_bwd route sweep ({head_name(h, dk, dv)}, bf16 IO, no initial state; "
+          f"device us, median of {2 * ROUTE_TURNS} in turns) [{card_line}]:")
+    misses = []
+    for b in RWKV6_SWEEP_B:
+        for t in RWKV6_BWD_SWEEP_T:
+            x = rwkv6_inputs(torch, b, h, t, dk, dv, bf, None, seed=950 + t)
+            do, dsf = rwkv6_cotangents(torch, x, seed=951 + t)
+            steps = rwkv6_bwd_route_steps(rwkv6_cuda, x, do, dsf, False)
+            plan = rwkv6_cuda.rwkv6_chunk_bwd_plan(bf, b, h, t, dv)
+            ms, _ = time_routes(steps)
+            print(f"  b{b} ({b * h} heads) t{t}: recurrent {ms['recurrent'] * 1e3:.2f}, chunked "
+                  f"{ms['chunked'] * 1e3:.2f}; planned {plan}")
+            other = "recurrent" if plan == "chunked" else "chunked"
+            if ms[plan] > ms[other] * (1 + SWEEP_MARGIN):
+                misses.append((b, t, plan, steps))
+    for b, t, plan, steps in misses:  # fails here unless a second round clears it
+        planned_route_times(steps, plan, f"rwkv6_chunk_bwd sweep b{b} t{t}")
+
+
 def rwkv6_gap_phase(torch, rwkv6_cuda, card_line):
-    """launches x (time - bound) of rwkv6_chunk over the RWKV6 main paths:
-    every shape they launched it on, weighted by its launch count
-    (GAP_SHAPE_COUNTS), held against the plain version on the route it took
-    (launched_rwkv6_shapes_phase), timed here on every route its IO dtype
-    has in turns (median of six, retimed on a miss; the route taken at most
-    SWEEP_MARGIN slower than the other), beside the shape's bound. Prints
-    each shape, the sum on the routes taken and the sum had every launch
-    taken the recurrent body; returns {"rwkv6_chunk": the first sum}."""
-    counts = GAP_SHAPE_COUNTS["rwkv6_chunk"]
-    require(counts, "rwkv6_chunk: the main paths launched it on no shape")
-    total = {"taken": 0.0, "recurrent": 0.0}
-    print(f"rwkv6_chunk: launches x (time - bound) over {sum(counts.values())} main-path launches "
-          f"on {len(counts)} shapes (device us; the route taken, the recurrent body, the bound):")
-    for shape, n in sorted(counts.items(), key=str):
-        b, h, t, dk, dv, io, st, route = shape
-        x = rwkv6_inputs(torch, b, h, t, dk, dv, io, st, seed=770 + t)
-        bound_ms = roofline(*rwkv6_work(x), io)[0]
-        steps = rwkv6_route_steps(rwkv6_cuda, x)
-        label = f"rwkv6_chunk b{b} {head_name(h, dk, dv)} t{t} {dtype_name(st)}"
-        if len(steps) > 1:
-            ms = planned_route_times(steps, route, label)[0]
-        else:
-            ms = time_routes(steps)[0]
-        total["taken"] += n * (ms[route] - bound_ms)
-        total["recurrent"] += n * (ms["recurrent"] - bound_ms)
-        print(f"  {shape}: {n} launches; {route} {ms[route] * 1e3:.2f}, recurrent "
-              f"{ms['recurrent'] * 1e3:.2f}, bound {bound_ms * 1e3:.3f}")
-    print(f"  rwkv6_chunk: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
-          f"taken; {total['recurrent']:.3f} ms had every launch taken the recurrent body "
-          f"[{card_line}]")
-    return {"rwkv6_chunk": total["taken"]}
+    """launches x (time - bound) of rwkv6_chunk and of rwkv6_chunk_bwd over
+    the RWKV6 main paths: every shape they launched each on, weighted by its
+    launch count (GAP_SHAPE_COUNTS), held against the plain version on the
+    route it took (launched_rwkv6_shapes_phase), timed here on every route
+    its IO dtype has in turns (median of six, retimed on a miss; the route
+    taken at most SWEEP_MARGIN slower than the other), beside the shape's
+    bound. Prints each shape, the sum on the routes taken and the sum had
+    every launch taken the recurrent body; returns {kernel: the first
+    sum}."""
+    sums = {}
+    for name in ("rwkv6_chunk", "rwkv6_chunk_bwd"):
+        counts = GAP_SHAPE_COUNTS[name]
+        require(counts, f"{name}: the main paths launched it on no shape")
+        total = {"taken": 0.0, "recurrent": 0.0}
+        print(f"{name}: launches x (time - bound) over {sum(counts.values())} main-path "
+              f"launches on {len(counts)} shapes (device us; the route taken, the recurrent body, "
+              f"the bound):")
+        for shape, n in sorted(counts.items(), key=str):
+            b, h, t, dk, dv, io, st = shape[:7]
+            route = shape[-1]
+            x = rwkv6_inputs(torch, b, h, t, dk, dv, io, st, seed=770 + t)
+            if name == "rwkv6_chunk":
+                work = rwkv6_work(x)
+                steps = rwkv6_route_steps(rwkv6_cuda, x)
+            else:
+                need_ds0 = shape[7]
+                do, dsf = rwkv6_cotangents(torch, x, seed=771 + t)
+                got = rwkv6_bwd_on_route(rwkv6_cuda, x, do, dsf, need_ds0, route)
+                work = rwkv6_bwd_work(x, do, dsf, got)
+                steps = rwkv6_bwd_route_steps(rwkv6_cuda, x, do, dsf, need_ds0)
+            bound_ms = roofline(*work, io)[0]
+            label = f"{name} b{b} {head_name(h, dk, dv)} t{t} {dtype_name(st)}"
+            if len(steps) > 1:
+                ms = planned_route_times(steps, route, label)[0]
+            else:
+                ms = time_routes(steps)[0]
+            total["taken"] += n * (ms[route] - bound_ms)
+            total["recurrent"] += n * (ms["recurrent"] - bound_ms)
+            print(f"  {shape}: {n} launches; {route} {ms[route] * 1e3:.2f}, recurrent "
+                  f"{ms['recurrent'] * 1e3:.2f}, bound {bound_ms * 1e3:.3f}")
+        print(f"  {name}: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
+              f"taken; {total['recurrent']:.3f} ms had every launch taken the recurrent body "
+              f"[{card_line}]")
+        sums[name] = total["taken"]
+    return sums
 
 
 def rwkv6_phase(torch, np, gla_cuda, card_line):
@@ -4132,9 +4425,14 @@ def rwkv6_phase(torch, np, gla_cuda, card_line):
     kernel path held against the plain path under teacher forcing (in bf16,
     and on a copy built in f32 compute), a
     DecodeServer in classic mode (8 requests, 8 slots) and three train
-    steps at b8 (rwkv6_chunk and its backward), the kernel path's loss and
-    parameter gradients held against the plain path's on a batch of 2.
-    RWKV6 has no lazy window and no S0 tuning, as in JAX."""
+    steps at b8 (rwkv6_chunk and its backward, every bf16 backward at or
+    above its plan's threshold on the chunked route), the kernel path's loss
+    and parameter gradients held against the plain path's on a batch of 2
+    (on a copy built in f32 compute: its f32 IO takes the recurrent
+    backward), and the bf16 model's parameter gradients with one layer's
+    backward at a time on the chunked route against every one on the
+    recurrent body (rwkv6_layer_route_grad_check). RWKV6 has no lazy window
+    and no S0 tuning, as in JAX."""
     from lina_speech_tpu_torch.config import build_model
     from lina_speech_tpu_torch.models.rwkv6 import RWKV6Attention, perturb_rwkv6_params_
 
@@ -4168,19 +4466,21 @@ def rwkv6_phase(torch, np, gla_cuda, card_line):
     add_launches(total, train)
     del model, check_model
     torch.cuda.empty_cache()
+    add_launches(total, rwkv6_layer_route_grad_check(torch, cfg, prepare))
     return total
 
 
 def launched_rwkv6_shapes_phase(torch, rwkv6_cuda):
     """Every shape the driven RWKV6 paths launched the three RWKV6 kernels
     on is held against the plain version now (rwkv6_chunk on the route it
-    took), unless the RWKV6 kernel phase held it already."""
+    took, rwkv6_chunk_bwd on the route it took and, with bf16 IO, the
+    other), unless the RWKV6 kernel phase held it already."""
     todo = {n: sorted(RWKV6_LAUNCHED[n] - RWKV6_HELD[n], key=str) for n in RWKV6_LAUNCHED}
     print("the driven RWKV6 paths launched " + ", ".join(
         f"{n} on {len(RWKV6_LAUNCHED[n])} shapes ({len(todo[n])} not held yet)" for n in todo))
     require(all(RWKV6_LAUNCHED.values()), f"an RWKV6 kernel launched on no shape: {RWKV6_LAUNCHED}")
-    for shape in todo["rwkv6_chunk_bwd"]:
-        hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:-1], need_ds0=shape[-1])
+    for shape in todo["rwkv6_chunk_bwd"]:  # (..., need_ds0, route): held on every route
+        hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:7], need_ds0=shape[7])
     for shape in sorted(RWKV6_LAUNCHED["rwkv6_chunk"] - RWKV6_HELD["rwkv6_chunk"], key=str):
         hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:-1], route=shape[-1])
     for shape in todo["rwkv6_decode"]:
@@ -4556,13 +4856,13 @@ def main():
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
     # launches x (time - bound): the two GLA forwards, gla_chunk's backward,
-    # the three decode steps and rwkv6_chunk over every launched shape, the
-    # other kernels at their row's shape
+    # the three decode steps, rwkv6_chunk and its backward over every
+    # launched shape, the other kernels at their row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
     print("launches x (time - bound), ms, largest first (the two GLA forwards, gla_chunk_bwd, "
-          "the three decode steps and rwkv6_chunk over every launched shape, the others at "
-          "their row's shape):")
+          "the three decode steps, rwkv6_chunk and its backward over every launched shape, the "
+          "others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")

@@ -68,6 +68,11 @@
 // thread; dq/dk keeps two stages of its value loop in the space its
 // epilogue takes later; dq/dk and dv fit two blocks an SM. The route is
 // chosen in Python (ops/gla_cuda.py:gla_chunk_conv_bwd_plan).
+//
+// RWKV6's backward (rwkv6_chunked_bwd.cuh) walks the chunks with the same
+// prep, state walk, dq/dk and dv bodies, with RWKV set: r in u's place (no
+// scale), the readout decayed at the exclusive gate sum, strict pairs in
+// G and H, and the bonus on A's diagonal.
 #pragma once
 
 #include <cstdint>
@@ -505,8 +510,10 @@ __device__ __forceinline__ int ux_row(int J) { return 8 * J * (7 - J); }
 // G's (FOR_H false) or H's split-decay factors of one key tile, in two bf16
 // parts (the rounded value into hi, the rest into lo): kx[s] = k_s
 // e^{b_{16I-1} - b_s} for s < 16 I, or ux[t] = u_t e^{b_t - b_{16J+15}} for
-// t >= 16 (J + 1). f32 inputs with row stride kLdF.
-template <bool FOR_H>
+// t >= 16 (J + 1) (RWKV: r_t e^{b_{t-1} - b_{16J+15}}, the readout's
+// exclusive sum, still <= 0 as t - 1 >= 16J + 15). f32 inputs with row
+// stride kLdF.
+template <bool FOR_H, bool RWKV = false>
 __device__ __forceinline__ void pair_factors(bf16* hi, bf16* lo, const float* fu,
                                              const float* fk, const float* fb) {
   for (int p = threadIdx.x; p < kPairRows * kTile; p += kGradThreads) {
@@ -514,7 +521,8 @@ __device__ __forceinline__ void pair_factors(bf16* hi, bf16* lo, const float* fu
     float x;
     if constexpr (FOR_H) {
       const int J = row < 48 ? 0 : row < 80 ? 1 : 2, t = row - ux_row(J) + kSub * (J + 1);
-      x = fu[t * kLdF + d] * exp_le0(fb[t * kLdF + d] - fb[(kSub * J + kSub - 1) * kLdF + d]);
+      x = fu[t * kLdF + d] *
+          exp_le0(fb[(RWKV ? t - 1 : t) * kLdF + d] - fb[(kSub * J + kSub - 1) * kLdF + d]);
     } else {
       const int I = row < 16 ? 1 : row < 48 ? 2 : 3, s = row - kx_row(I);
       x = fk[s * kLdF + d] * exp_le0(fb[(kSub * I - 1) * kLdF + d] - fb[s * kLdF + d]);
@@ -558,21 +566,26 @@ __device__ __forceinline__ void load_f32_tile(float* fu, float* fk, float* fb,
   }
 }
 
-// grid (DK/64, nc, B*H), 256 threads: warp w holds rows 16 (w % 4) .. of
-// the chunk and columns 32 (w / 4) .. of the key tile (dq, dk) or of the
+// The body of dqk_kernel (the caller's grid: (DK/64, nc, B*H), 256
+// threads, shared memory kDqkSmem at smem): warp w holds rows 16 (w % 4) ..
+// of the chunk and columns 32 (w / 4) .. of the key tile (dq, dk) or of the
 // chunk (dA). dq, dk: (B*H, T, DK) f32. The last chunk's blocks write dsgp
 // part ceil(DV/64), (B*H, DK): sum_t k_t e^{btot - bc_t} (v_t dsf^T) of
-// their key tile. (This kernel and dv_kernel are
-// templates so that more than one source may include this header.)
-template <int = 0>
-__global__ void __launch_bounds__(kGradThreads, 2)
-dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
-           const float* __restrict__ bcum, const bf16* __restrict__ vb,
-           const bf16* __restrict__ dout, const bf16* __restrict__ states,
-           const bf16* __restrict__ states_lo, const bf16* __restrict__ dstates,
-           const bf16* __restrict__ dstates_lo, float* __restrict__ dq, float* __restrict__ dk,
-           float* __restrict__ dsgp, int BH, int T, int nc, int DK, int DV, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// their key tile. RWKV (RWKV6's backward, u = r, no scale): the readout
+// side decays at the exclusive sum bx_t = b_{t-1}, and the pairs are strict,
+// dq = e^{bx} (do S^T) + G with G[t] = sum_{s<t} dA[t,s] k_s e^{bx_t - b_s},
+// dk = e^{btot - bc} (v dS^T) + H with H[s] = sum_{t>s} dA[t,s] r_t e^{bx_t
+// - b_s}: the state and pair parts only, the bonus's parts left to the
+// finishing pass; the key tile 0 blocks write dA's diagonal do_t . v_t to
+// vdo (B*H, T) for it.
+template <bool RWKV>
+__device__ __forceinline__ void dqk_body(
+    unsigned char* smem, const float* __restrict__ uf, const float* __restrict__ kf,
+    const float* __restrict__ bcum, const bf16* __restrict__ vb, const bf16* __restrict__ dout,
+    const bf16* __restrict__ states, const bf16* __restrict__ states_lo,
+    const bf16* __restrict__ dstates, const bf16* __restrict__ dstates_lo,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dsgp,
+    float* __restrict__ vdo, int BH, int T, int nc, int DK, int DV, float scale) {
   __shared__ float kd_rows[4][kTile];  // the last chunk's sums of k . dk_inter per row band
   float* fu = reinterpret_cast<float*>(smem);
   float* fk = fu + kC * kLdF;
@@ -636,6 +649,10 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
     }
   load_f32_tile(fu, fk, fb, uf, kf, bcum, (size_t)bh * Tp + c * kC, DK, d0);
   __syncthreads();
+  if constexpr (RWKV) {
+    if (blockIdx.x == 0 && threadIdx.x < kC && c * kC + threadIdx.x < T)
+      vdo[(size_t)bh * T + c * kC + threadIdx.x] = daf[threadIdx.x * (kLdF + 1)];
+  }
   pair_factors<false>(fhi, flo, fu, fk, fb);
   __syncthreads();
   float G[4][4] = {}, Hs[4][4] = {};
@@ -647,7 +664,7 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
     mma_rows<false, true, 2>(G, dal, kLd, fhi + kx_row(I) * kLd, kLd, m0, n0, kSub * I);
   }
   __syncthreads();  // G's factors are read; H's take their place
-  pair_factors<true>(fhi, flo, fu, fk, fb);
+  pair_factors<true, RWKV>(fhi, flo, fu, fk, fb);
   __syncthreads();
   // H rows of sub-chunk I from the sub-chunks after it: dA[t, I]^T . ux
   if (I <= 2) {
@@ -665,20 +682,37 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
     for (int e = 0; e < 4; ++e) {
       const int r = m0 + acc_row(e), d = n0 + 8 * j + acc_col(e);
       const float br = fb[r * kLdF + d];
+      // the readout's decay: b_r, or RWKV's exclusive sum b_{r-1} (0 on row 0)
+      const float bq = RWKV ? (r > 0 ? fb[(r - 1) * kLdF + d] : 0.f) : br;
       const float dk_inter = exp_le0(fb[(kC - 1) * kLdF + d] - br) * Kd[j][e];
       kd[j][e & 1] += fk[r * kLdF + d] * dk_inter;
-      float gs = I >= 1 ? G[j][e] * exp_le0(br - fb[(m0 - 1) * kLdF + d]) : 0.f;
+      float gs = I >= 1 ? G[j][e] * exp_le0(bq - fb[(m0 - 1) * kLdF + d]) : 0.f;
       float hs = I <= 2 ? Hs[j][e] * exp_le0(fb[(m0 + kSub - 1) * kLdF + d] - br) : 0.f;
+      if constexpr (RWKV) {
 #pragma unroll 4
-      for (int s = m0; s < m0 + kSub; ++s) {  // the diagonal block: e^{-|b_r - b_s|}
-        const float e_rs = __expf(-fabsf(br - fb[s * kLdF + d]));
-        if (s <= r) gs += daf[r * kLdF + s] * fk[s * kLdF + d] * e_rs;
-        if (s >= r) hs += daf[s * kLdF + r] * fu[s * kLdF + d] * e_rs;
+        for (int s = m0; s < m0 + kSub; ++s) {  // the diagonal block's strict pairs
+          if (s == r) continue;
+          // the pair (later row a, earlier row z) at e^{b_{a-1} - b_z}
+          const int a = max(r, s), z = min(r, s);
+          const float e_rs = exp_le0(fb[(a - 1) * kLdF + d] - fb[z * kLdF + d]);
+          if (s < r) {
+            gs += daf[r * kLdF + s] * fk[s * kLdF + d] * e_rs;
+          } else {
+            hs += daf[s * kLdF + r] * fu[s * kLdF + d] * e_rs;
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int s = m0; s < m0 + kSub; ++s) {  // the diagonal block: e^{-|b_r - b_s|}
+          const float e_rs = __expf(-fabsf(br - fb[s * kLdF + d]));
+          if (s <= r) gs += daf[r * kLdF + s] * fk[s * kLdF + d] * e_rs;
+          if (s >= r) hs += daf[s * kLdF + r] * fu[s * kLdF + d] * e_rs;
+        }
       }
       const int t = c * kC + r;
       if (t < T) {
         const size_t o = ((size_t)bh * T + t) * DK + d0 + d;
-        dq[o] = scale * (__expf(br) * M[j][e] + gs);
+        dq[o] = RWKV ? __expf(bq) * M[j][e] + gs : scale * (__expf(br) * M[j][e] + gs);
         dk[o] = dk_inter + hs;
       }
     }
@@ -704,20 +738,39 @@ dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
   }
 }
 
+// grid (DK/64, nc, B*H), 256 threads, shared memory kDqkSmem: dqk_body for
+// GLA. (This kernel and dv_kernel are templates so that more than one
+// source may include this header.)
+template <int = 0>
+__global__ void __launch_bounds__(kGradThreads, 2)
+dqk_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
+           const float* __restrict__ bcum, const bf16* __restrict__ vb,
+           const bf16* __restrict__ dout, const bf16* __restrict__ states,
+           const bf16* __restrict__ states_lo, const bf16* __restrict__ dstates,
+           const bf16* __restrict__ dstates_lo, float* __restrict__ dq, float* __restrict__ dk,
+           float* __restrict__ dsgp, int BH, int T, int nc, int DK, int DV, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dqk_body<false>(smem, uf, kf, bcum, vb, dout, states, states_lo, dstates, dstates_lo, dq, dk,
+                  dsgp, nullptr, BH, T, nc, DK, DV, scale);
+}
+
 // -------------------------------------------------------------------- dv
+// the bonus of a key tile, after Scores' factors kx (RWKV)
+constexpr int kBonusBytes = kTile * 4;
+
 // Shared memory of dv_kernel: A (bf16); then phase 1 (A): the key tile's
 // f32 u, k, bc, A's left factor ua and the factors kx; in their place phase
 // 2 (dv): a value tile of dS ([key][value]) and of do, and the decayed k of
 // every key channel ([s][key], row stride DK + 8). 89 KB at DK 256: two
-// blocks an SM.
-inline int dv_smem_bytes(int DK) {
-  const int phase1 = 3 * kFTileBytes + kTileBytes + kPairBytes;
-  const int phase2 = DK * kLd * 2 + kTileBytes + kC * (DK + 8) * 2;
-  return kTileBytes + (phase1 > phase2 ? phase1 : phase2);
+// blocks an SM. ``two`` (RWKV6's dv_body): A, dS and the decayed k each in
+// two bf16 parts, and the bonus in phase 1: 165 KB at DK 256, one block an
+// SM.
+inline int dv_smem_bytes(int DK, bool two = false) {
+  const int parts = two ? 2 : 1;
+  const int phase1 = 3 * kFTileBytes + kTileBytes + kPairBytes + (two ? kBonusBytes : 0);
+  const int phase2 = parts * DK * kLd * 2 + kTileBytes + parts * kC * (DK + 8) * 2;
+  return parts * kTileBytes + (phase1 > phase2 ? phase1 : phase2);
 }
-
-// the bonus of a key tile, after Scores' factors kx (RWKV)
-constexpr int kBonusBytes = kTile * 4;
 
 // the 544 pairs (t, s), s <= t, within one sub-chunk
 constexpr int kDiagPairs = (kC / kSub) * kSub * (kSub + 1) / 2;
@@ -839,6 +892,30 @@ struct Scores {
     for (int i = 0; i < kPairsPerThread; ++i)
       if (pt[i] >= 0) out[pt[i] * ld + ps[i]] = from_f<E>(pa[i]);
   }
+
+  // A into hi and lo (64 x 64 bf16 each, row stride ld) as two parts, the
+  // rounded value and the rest, zeros for s > t; as store takes it.
+  __device__ __forceinline__ void store_parts(bf16* hi, bf16* lo, int ld) const {
+    const int warp = threadIdx.x >> 5, m0 = kSub * (warp & 3), n0 = 32 * (warp >> 2);
+    const auto put = [&](int at, float x) {
+      const bf16 h = __float2bfloat16_rn(x);
+      hi[at] = h;
+      lo[at] = __float2bfloat16_rn(x - __bfloat162float(h));
+    };
+    __syncthreads();
+    for (int p = threadIdx.x; p < kC * kC; p += kGradThreads) put((p / kC) * ld + p % kC, 0.f);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + acc_row(e), s = n0 + 8 * j + acc_col(e);
+        if (s < m0) put(r * ld + s, A[j][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < kPairsPerThread; ++i)
+      if (pt[i] >= 0) put(pt[i] * ld + ps[i], pa[i]);
+  }
 };
 
 // A of the chunk's rows row0 .. row0 + 63 summed over the DK key channels,
@@ -856,37 +933,62 @@ __device__ __forceinline__ void chunk_scores(bf16* s_a, unsigned char* r1,
   sc.store(s_a, kLd);
 }
 
-// grid (nc, B*H), 256 threads: warp w holds rows 16 (w % 4) .. of the chunk
-// and columns 32 (w / 4) .. of A or of a value tile. dvo: (B*H, T, DV) in
-// f32 or bf16.
-template <typename O>
-__global__ void __launch_bounds__(kGradThreads, 2)
-dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
-          const float* __restrict__ bcum, const bf16* __restrict__ kt,
-          const bf16* __restrict__ dout, const bf16* __restrict__ dstates,
-          O* __restrict__ dvo, int T, int nc, int DK, int DV) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = DK + 8;
+// The body of dv_kernel (the caller's grid: (nc, B*H), 256 threads, shared
+// memory dv_smem_bytes(DK, RWKV) at smem): warp w holds rows 16 (w % 4) ..
+// of the chunk and columns 32 (w / 4) .. of A or of a value tile. dvo:
+// (B*H, T, DV) in f32 or bf16. RWKV: A is RWKV6's scores (Scores<true>)
+// with the bonus of head bh % H from bonus (H, DK), and the two products
+// take their operands in two bf16 parts, A, dS (dstates + dstates_lo) and
+// the decayed k (kt + kl), three mma a k-step for (k e^{btot - bc}) dS and
+// two for A^T do: RWKV6's dv enters the layers below through dense
+// products, so it is kept within half a bf16 step of f32, as the recurrent
+// sweeps keep it (kl and dstates_lo unused otherwise).
+template <typename O, bool RWKV>
+__device__ __forceinline__ void dv_body(unsigned char* smem, const float* __restrict__ uf,
+                                        const float* __restrict__ kf,
+                                        const float* __restrict__ bcum,
+                                        const bf16* __restrict__ kt,
+                                        const bf16* __restrict__ kl,
+                                        const bf16* __restrict__ dout,
+                                        const bf16* __restrict__ dstates,
+                                        const bf16* __restrict__ dstates_lo,
+                                        const float* __restrict__ bonus, O* __restrict__ dvo,
+                                        int T, int nc, int H, int DK, int DV) {
+  const int ldk = DK + 8, parts = RWKV ? 2 : 1;
   bf16* s_a = reinterpret_cast<bf16*>(smem);
-  unsigned char* r1 = reinterpret_cast<unsigned char*>(s_a + kC * kLd);
+  bf16* s_al = s_a + kC * kLd;  // RWKV: A's rest
+  unsigned char* r1 = reinterpret_cast<unsigned char*>(s_a + parts * kC * kLd);
   bf16* s_ds = reinterpret_cast<bf16*>(r1);
-  bf16* s_do = s_ds + DK * kLd;
+  bf16* s_dsl = s_ds + DK * kLd;  // RWKV: dS's rest
+  bf16* s_do = s_ds + parts * DK * kLd;
   bf16* s_kt = s_do + kC * kLd;
+  bf16* s_kl = s_kt + kC * ldk;  // RWKV: the decayed k's rest
 
   const int c = blockIdx.x, bh = blockIdx.y, Tp = nc * kC;
   const int warp = threadIdx.x >> 5, m0 = kSub * (warp & 3), n0 = 32 * (warp >> 2);
   const size_t row0 = (size_t)bh * Tp + c * kC;
-  chunk_scores(s_a, r1, uf, kf, bcum, row0, DK);
+  if constexpr (RWKV) {
+    Scores<true> sc;
+    for (int d0 = 0; d0 < DK; d0 += kTile)
+      sc.add_tile(r1, uf, kf, bcum, row0, DK, d0, bonus + (size_t)(bh % H) * DK);
+    sc.store_parts(s_a, s_al, kLd);
+  } else {
+    chunk_scores(s_a, r1, uf, kf, bcum, row0, DK);
+  }
   for (int p = threadIdx.x; p < kC * DK / 8; p += kGradThreads) {
     const int r = p / (DK / 8), q = (p % (DK / 8)) * 8;
     copy16(s_kt + r * ldk + q, kt + (row0 + r) * DK + q, kt, true);
+    if constexpr (RWKV) copy16(s_kl + r * ldk + q, kl + (row0 + r) * DK + q, kl, true);
   }
   for (int c0 = 0; c0 < DV; c0 += kTile) {
     __syncthreads();  // A is written; the previous value tile's products are done
-    const bf16* dst = dstates + ((size_t)bh * nc + c) * DK * DV + c0;
+    const size_t at = ((size_t)bh * nc + c) * DK * DV + c0;
     for (int p = threadIdx.x; p < DK * 8; p += kGradThreads) {
       const int r = p >> 3, q = (p & 7) * 8;
-      copy16(s_ds + r * kLd + q, dst + (size_t)r * DV + q, dstates, c0 + q < DV);
+      copy16(s_ds + r * kLd + q, dstates + at + (size_t)r * DV + q, dstates, c0 + q < DV);
+      if constexpr (RWKV)
+        copy16(s_dsl + r * kLd + q, dstates_lo + at + (size_t)r * DV + q, dstates_lo,
+               c0 + q < DV);
     }
     for (int p = threadIdx.x; p < kC * 8; p += kGradThreads) {
       const int r = p >> 3, q = (p & 7) * 8, t = c * kC + r;
@@ -898,7 +1000,12 @@ dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
     __syncthreads();
     float acc[4][4] = {};
     mma_rows<false, true, 2>(acc, s_kt, ldk, s_ds, kLd, m0, n0, DK);  // (k e^{btot-bc}) . dS
-    mma_rows<true, true, 2>(acc, s_a, kLd, s_do, kLd, m0, n0, kC);    // A^T . do
+    if constexpr (RWKV) {
+      mma_rows<false, true, 2>(acc, s_kl, ldk, s_ds, kLd, m0, n0, DK);
+      mma_rows<false, true, 2>(acc, s_kt, ldk, s_dsl, kLd, m0, n0, DK);
+    }
+    mma_rows<true, true, 2>(acc, s_a, kLd, s_do, kLd, m0, n0, kC);  // A^T . do
+    if constexpr (RWKV) mma_rows<true, true, 2>(acc, s_al, kLd, s_do, kLd, m0, n0, kC);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -907,6 +1014,19 @@ dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
         if (t < T && col < DV) dvo[((size_t)bh * T + t) * DV + col] = from_f<O>(acc[j][e]);
       }
   }
+}
+
+// grid (nc, B*H), 256 threads, shared memory dv_smem_bytes(DK): dv_body for
+// GLA.
+template <typename O>
+__global__ void __launch_bounds__(kGradThreads, 2)
+dv_kernel(const float* __restrict__ uf, const float* __restrict__ kf,
+          const float* __restrict__ bcum, const bf16* __restrict__ kt,
+          const bf16* __restrict__ dout, const bf16* __restrict__ dstates,
+          O* __restrict__ dvo, int T, int nc, int DK, int DV) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dv_body<O, false>(smem, uf, kf, bcum, kt, nullptr, dout, dstates, nullptr, nullptr, dvo, T, nc,
+                    1, DK, DV);
 }
 
 template <typename K>

@@ -28,15 +28,27 @@
 // last term summed over the value columns (the module docstring of
 // rwkv6_pallas.py derives the same split).
 //
-// The TPU kernel walks chunks in reverse with MXU products and reads the
-// chunk states its training forward saved. This is the recurrent form of
-// the same function and needs no saved state (the training forward is the
-// inference kernel), as the GLA backward (gla_chunk_bwd.cuh), whose staging
-// (SweepStage, fill_stage), warp sums and dw carry it reuses:
-// 1. rwkv6_bwd_dr_kernel: a forward sweep that recomputes S_t from s0 and
-//    emits the column tiles' parts of drS_t, of vdo_t and of dsf . S_final;
-// 2. rwkv6_bwd_dkv_kernel: a reverse sweep that carries D and emits the
-//    parts of dkS_t, dv_t (bonus included) and ds0;
+// Two routes compute drS, dkS, vdo, dv, the dsf . S_final term and ds0;
+// ops/rwkv6_cuda.py:rwkv6_chunk_bwd_plan names one and passes it in:
+// - recurrent (f32 IO, and short bf16 inputs): the recurrent form of the
+//   function, which needs no saved state (the training forward is the
+//   inference kernel), as the GLA backward (gla_chunk_bwd.cuh), whose
+//   staging (SweepStage, fill_stage) and warp sums it reuses:
+//   1. rwkv6_bwd_dr_kernel: a forward sweep that recomputes S_t from s0 and
+//      emits the column tiles' parts of drS_t, of vdo_t and of dsf . S_final;
+//   2. rwkv6_bwd_dkv_kernel: a reverse sweep that carries D and emits the
+//      parts of dkS_t, dv_t (bonus included) and ds0.
+//   In the sweeps a block owns a (DK x 32) tile of one (batch, head) state
+//   with one thread per key row holding the row's 32 columns in registers.
+//   What bounds them on the H100: the two serial time loops (one dependent
+//   update per token), not bytes or FLOPs. Scratch, f32: drp and dkp (DV/32,
+//   b, h, t, DK), vdop (DV/32, b, h, t), dsgp (DV/32, b, h, DK): 268 MB at
+//   b8 h4 t512 dk256 dv256;
+// - chunked (bf16 IO from a length on): the four tensor-core kernels of
+//   rwkv6_chunked_bwd.cuh (GLA's chunked backward with RWKV6's exclusive
+//   readout decay and bonus), 64-row chunks; one part of drS, dkS and vdo,
+//   ceil(DV/64) + 1 parts of the dsf term, dv written in bf16.
+// Both end in the finishing pass:
 // 3. rwkv6_bwd_finish_kernel: one thread per (batch, head, key channel,
 //    segment of 64 steps) adds the parts in a fixed order, writes dr and dk,
 //    walks its segment in reverse for the running sum of dw, and writes its
@@ -45,15 +57,11 @@
 //    later segments;
 // 5. rwkv6_bwd_du_kernel: du (h, dk), the segments' shares summed over
 //    batch and segment in a fixed order, so du is the same from run to run.
-// In the sweeps a block owns a (DK x 32) tile of one (batch, head) state
-// with one thread per key row holding the row's 32 columns in registers.
-// Scratch, f32: drp and dkp (DV/32, b, h, t, DK), vdop (DV/32, b, h, t),
-// dsgp (DV/32, b, h, DK), dwt and dup (ceil(t/64), b, h, DK): 268 MB at b8
-// h4 t512 dk256 dv256, for one call only.
-//
-// What bounds it on the H100: the two serial time loops (one dependent
-// update per token), not bytes or FLOPs, as in the forward.
+// Scratch of both, f32: dwt and dup (ceil(t/64), b, h, DK).
+#include <type_traits>
+
 #include "gla_chunk_bwd.cuh"
+#include "rwkv6_chunked_bwd.cuh"
 
 namespace rwkv6 {
 
@@ -191,9 +199,12 @@ rwkv6_bwd_dkv_kernel(const IO* __restrict__ r, const IO* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- kernel 3
-// grid (DK/64, B*H, ceil(T/64)). dw gets the running sum within the
-// segment, dwt (segments, B*H, DK) the segment's total (the last segment's
-// includes the dsf term), dup (segments, B*H, DK) the segment's share of du.
+// grid (DK/64, B*H, ceil(T/64)). drp, dkp: n_parts parts of drS and dkS,
+// (n_parts, B*H, T, DK); vdop: n_parts parts of vdo, (n_parts, B*H, T);
+// dsgp: n_sg parts of the dsf term, (n_sg, B*H, DK). dw gets the running
+// sum within the segment, dwt (segments, B*H, DK) the segment's total (the
+// last segment's includes the dsf term), dup (segments, B*H, DK) the
+// segment's share of du.
 template <typename IO>
 __global__ void __launch_bounds__(kFinishThreads)
 rwkv6_bwd_finish_kernel(const IO* __restrict__ r, const IO* __restrict__ k,
@@ -201,18 +212,17 @@ rwkv6_bwd_finish_kernel(const IO* __restrict__ r, const IO* __restrict__ k,
                         const float* __restrict__ dkp, const float* __restrict__ vdop,
                         const float* __restrict__ dsgp, IO* __restrict__ dr,
                         IO* __restrict__ dk, float* __restrict__ dw, float* __restrict__ dwt,
-                        float* __restrict__ dup, int H, int T, int DK, int DV) {
+                        float* __restrict__ dup, int H, int T, int DK, int n_parts, int n_sg) {
   const int bh = blockIdx.y, BH = gridDim.y;
   const int seg = blockIdx.z, n_seg = gridDim.z;
   const int t_lo = seg * kFinishSeg, t_hi = min(T, t_lo + kFinishSeg);
-  const int n_parts = DV / kBV;
   const int ch = blockIdx.x * kFinishThreads + threadIdx.x;
   const size_t base = (size_t)bh * T * DK + ch;
   const size_t part = (size_t)BH * T * DK;
   const float u_ch = u[(bh % H) * DK + ch];
   float acc = 0.f, du = 0.f;
   if (seg == n_seg - 1)
-    for (int i = 0; i < n_parts; ++i) acc += dsgp[((size_t)i * BH + bh) * DK + ch];
+    for (int i = 0; i < n_sg; ++i) acc += dsgp[((size_t)i * BH + bh) * DK + ch];
   for (int t = t_hi - 1; t >= t_lo; --t) {
     const size_t at = base + (size_t)t * DK;
     float drs, dks;
@@ -245,11 +255,15 @@ __global__ void rwkv6_bwd_du_kernel(const float* __restrict__ dup, float* __rest
   du[idx] = sum;
 }
 
+// chunked: the chunked route's scratch (ops/rwkv6_cuda.py:rwkv6_chunk_bwd),
+// uf, kf, bc, kt, kl, ul, ull, states, states_lo, dstates, dstates_lo, vb,
+// ebt; null for the recurrent route
 template <typename IO, typename ST, int DK>
 int launch_bwd(const void* r, const void* k, const void* v, const void* w, const void* u,
                const void* s0, const void* dout, const void* dsf, void* dr, void* dk, void* dv,
                void* dw, void* du, void* ds0, void* drp, void* dkp, void* vdop, void* dsgp,
-               void* dwt, void* dup, int B, int H, int T, int DV, cudaStream_t stream) {
+               void* dwt, void* dup, void* const* chunked, int B, int H, int T, int DV,
+               int route, cudaStream_t stream) {
   const IO *r_ = static_cast<const IO*>(r), *k_ = static_cast<const IO*>(k),
            *v_ = static_cast<const IO*>(v), *do_ = static_cast<const IO*>(dout);
   const float *w_ = static_cast<const float*>(w), *u_ = static_cast<const float*>(u);
@@ -258,21 +272,40 @@ int launch_bwd(const void* r, const void* k, const void* v, const void* w, const
         *vdop_ = static_cast<float*>(vdop), *dsgp_ = static_cast<float*>(dsgp),
         *dw_ = static_cast<float*>(dw), *dwt_ = static_cast<float*>(dwt),
         *dup_ = static_cast<float*>(dup);
-  const dim3 tiles(B * H, DV / kBV);
-  rwkv6_bwd_dr_kernel<IO, ST, DK><<<tiles, DK, 0, stream>>>(
-      r_, k_, v_, w_, static_cast<const ST*>(s0), do_, dsf_, drp_, vdop_, dsgp_, T, DV);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  rwkv6_bwd_dkv_kernel<IO, ST, DK><<<tiles, DK, 0, stream>>>(
-      r_, k_, v_, w_, u_, do_, dsf_, dkp_, static_cast<IO*>(dv), static_cast<ST*>(ds0), H, T,
-      DV);
-  err = static_cast<int>(cudaGetLastError());
+  int err = 0, n_parts = DV / kBV, n_sg = DV / kBV;
+  if (route == gla::kChunked) {
+    if constexpr (std::is_same_v<IO, __nv_bfloat16>) {
+      using gla::chunked::bf16;
+      float* const* sf = reinterpret_cast<float* const*>(chunked);  // the f32 scratch
+      bf16* const* sb = reinterpret_cast<bf16* const*>(chunked);    // the bf16 scratch
+      err = chunked_bwd::launch<ST>(
+          r_, k_, v_, w_, u_, static_cast<const ST*>(s0), do_, dsf_, static_cast<ST*>(ds0), drp_,
+          dkp_, vdop_, dsgp_, static_cast<bf16*>(dv), sf[0], sf[1], sf[2], sb[3], sb[4], sb[5],
+          sb[6], sb[7], sb[8], sb[9], sb[10], sb[11], sf[12], B, H, T, DK, DV, stream);
+      n_parts = 1;
+      n_sg = (DV + gla::chunked::kTile - 1) / gla::chunked::kTile + 1;
+    } else {
+      return -4;  // the chunked route takes bf16 IO only
+    }
+  } else if (route == gla::kRecurrent) {
+    const dim3 tiles(B * H, DV / kBV);
+    rwkv6_bwd_dr_kernel<IO, ST, DK><<<tiles, DK, 0, stream>>>(
+        r_, k_, v_, w_, static_cast<const ST*>(s0), do_, dsf_, drp_, vdop_, dsgp_, T, DV);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    rwkv6_bwd_dkv_kernel<IO, ST, DK><<<tiles, DK, 0, stream>>>(
+        r_, k_, v_, w_, u_, do_, dsf_, dkp_, static_cast<IO*>(dv), static_cast<ST*>(ds0), H, T,
+        DV);
+    err = static_cast<int>(cudaGetLastError());
+  } else {
+    return -4;
+  }
   if (err) return err;
   const int n_seg = (T + kFinishSeg - 1) / kFinishSeg;
   const dim3 channels(DK / kFinishThreads, B * H, n_seg);
   rwkv6_bwd_finish_kernel<IO><<<channels, kFinishThreads, 0, stream>>>(
       r_, k_, u_, drp_, dkp_, vdop_, dsgp_, static_cast<IO*>(dr), static_cast<IO*>(dk), dw_,
-      dwt_, dup_, H, T, DK, DV);
+      dwt_, dup_, H, T, DK, n_parts, n_sg);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   err = gla::launch_dg_carry(dw_, dwt_, B * H, T, DK, stream);
@@ -288,22 +321,34 @@ int launch_bwd(const void* r, const void* k, const void* v, const void* w, const
 // rwkv6_chunk_fwd, plus dout (B, H, T, DV) in the IO dtype and dsf (B, H,
 // DK, DV) in the state dtype or null (zeros). Outputs: dr, dk (B, H, T, DK)
 // and dv (B, H, T, DV) in the IO dtype; dw (B, H, T, DK) f32; du (H, DK)
-// f32; ds0 (B, H, DK, DV) in the state dtype, or null to skip it. Scratch,
-// all f32: drp, dkp (DV/32, B, H, T, DK); vdop (DV/32, B, H, T); dsgp (DV/32,
-// B, H, DK); dwt, dup (ceil(T/64), B, H, DK). All contiguous; T >= 1.
-// Returns the first launch's cudaGetLastError() that is not 0, -1 for an
-// unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32 != 0.
+// f32; ds0 (B, H, DK, DV) in the state dtype, or null to skip it. route: 0
+// recurrent, 1 chunked (bf16 IO only). Scratch, f32 unless said: drp, dkp
+// (P, B, H, T, DK), vdop (P, B, H, T) and dsgp (Q, B, H, DK) with P = Q =
+// DV/32 (recurrent) or P = 1, Q = ceil(DV/64) + 1 (chunked); dwt, dup
+// (ceil(T/64), B, H, DK); for the chunked route only (else null), with nc =
+// ceil(T/64) and Tp = 64 nc: uf, kf, bc (B*H, Tp, DK), kt, kl, ul, ull
+// (B*H, Tp, DK) bf16, states, states_lo, dstates and dstates_lo (B*H, nc,
+// DK, DV) bf16, vb (B*H, Tp, DV) bf16, ebt (B*H, nc, DK). All contiguous,
+// dout 16-byte aligned for the chunked route; T >= 1. Returns the first
+// launch's cudaGetLastError() that is not 0, -1 for an unsupported DK, -2
+// for unsupported dtype codes, -3 for DV % 32 != 0, -4 for a route the IO
+// dtype does not have.
 extern "C" int rwkv6_chunk_bwd(const void* r, const void* k, const void* v, const void* w,
                                const void* u, const void* s0, const void* dout,
                                const void* dsf, void* dr, void* dk, void* dv, void* dw,
                                void* du, void* ds0, void* drp, void* dkp, void* vdop,
-                               void* dsgp, void* dwt, void* dup, int B, int H, int T,
-                               int DK_, int DV, int io_dtype, int state_dtype, void* stream) {
+                               void* dsgp, void* dwt, void* dup, void* uf, void* kf, void* bc,
+                               void* kt, void* kl, void* ul, void* ull, void* states,
+                               void* states_lo, void* dstates, void* dstates_lo, void* vb,
+                               void* ebt, int B, int H, int T, int DK_, int DV, int io_dtype,
+                               int state_dtype, int route, void* stream) {
   if (DV % gla::kBV != 0) return -3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* const chunked[13] = {uf,     kf,        bc,      kt,         kl, ul, ull,
+                             states, states_lo, dstates, dstates_lo, vb, ebt};
   GLA_DISPATCH_TYPES(io_dtype, state_dtype,
                      GLA_DISPATCH_DK(DK_, return rwkv6::launch_bwd<IO, ST, DK>(
                          r, k, v, w, u, s0, dout, dsf, dr, dk, dv, dw, du, ds0, drp, dkp,
-                         vdop, dsgp, dwt, dup, B, H, T, DV, st)))
+                         vdop, dsgp, dwt, dup, chunked, B, H, T, DV, route, st)))
   return -2;
 }

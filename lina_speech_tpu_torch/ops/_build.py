@@ -124,7 +124,7 @@ def load_library() -> ctypes.CDLL:
     lib.fused_ffn_int8_fwd.restype = i
     lib.rwkv6_chunk_fwd.argtypes = [p] * 18 + [i] * 9 + [p]
     lib.rwkv6_chunk_fwd.restype = i
-    lib.rwkv6_chunk_bwd.argtypes = [p] * 20 + [i] * 7 + [p]
+    lib.rwkv6_chunk_bwd.argtypes = [p] * 33 + [i] * 8 + [p]
     lib.rwkv6_chunk_bwd.restype = i
     lib.rwkv6_decode_step.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.rwkv6_decode_step.restype = i

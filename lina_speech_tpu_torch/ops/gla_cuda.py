@@ -595,6 +595,14 @@ def _exclusive(bc):
     return F.pad(bc, (0, 0, 1, 0))[..., :-1, :]
 
 
+def _strict_decay(bc, bq, rows):
+    """e^{bq_t - b_s} (..., L, L, d) of the sub-chunk ``rows`` for s < t, 0
+    on and above the diagonal: RWKV6's pairs, bq the exclusive sums."""
+    L = rows.stop - rows.start
+    strict = torch.ones(L, L, dtype=torch.bool, device=bc.device).tril(-1)[..., None]
+    return torch.exp((bq[..., rows, None, :] - bc[..., None, rows, :]).clamp(max=0)) * strict
+
+
 def _chunk_scores(u, k, bc, rnd, bonus=None):
     """A (..., C, C) = sum_d u_t k_s e^{b_t - b_s} (t >= s, else 0) on (..., C,
     d) chunks. Within a 16-row sub-chunk summed directly in f32; for a pair
@@ -616,9 +624,7 @@ def _chunk_scores(u, k, bc, rnd, bonus=None):
             decay = _diag_decay(bc, rows)
         else:
             eye = torch.eye(L, dtype=torch.bool, device=bc.device)[..., None]
-            strict = torch.ones(L, L, dtype=torch.bool, device=bc.device).tril(-1)[..., None]
-            decay = torch.exp((bq[..., rows, None, :] - bc[..., None, rows, :]).clamp(max=0))
-            decay = torch.where(eye, bonus[..., None, :], decay * strict)
+            decay = torch.where(eye, bonus[..., None, :], _strict_decay(bc, bq, rows))
         A[..., rows, rows] = torch.einsum("...td,...tsd,...sd->...ts", u[..., rows, :],
                                           decay, k[..., rows, :])
         if i:
@@ -629,7 +635,7 @@ def _chunk_scores(u, k, bc, rnd, bonus=None):
     return A
 
 
-def _intra_chunk(u, k, bc, da, rnd, two):
+def _intra_chunk(u, k, bc, da, rnd, two, bonus=None):
     """The intra-chunk terms of the chunked backward on (..., C, d) chunks:
     G (C, dk) = sum_{s<=t} dA[t,s] k_s e^{b_t - b_s}, H (C, dk) = sum_{t>=s}
     dA[t,s] u_t e^{b_t - b_s} and A (C, C) = sum_d u_t k_s e^{b_t - b_s}
@@ -638,27 +644,33 @@ def _intra_chunk(u, k, bc, da, rnd, two):
     between them, so that both factors' exponents are <= 0 and the product
     runs on rounded operands with f32 sums: G at the row before I, H at J's
     last row, dA and the decayed k and u taken by ``two`` (the kernels' two
-    bf16 parts); A as :func:`_chunk_scores` with ``rnd``."""
+    bf16 parts); A as :func:`_chunk_scores` with ``rnd``.
+
+    With ``bonus`` (as :func:`_chunk_scores` takes it), RWKV6's terms: the
+    pairs are strict and the readout side decays at the exclusive sums bx,
+    G[t] = sum_{s<t} dA[t,s] k_s e^{bx_t - b_s}, H[s] = sum_{t>s} dA[t,s] u_t
+    e^{bx_t - b_s}, and A carries the bonus on its diagonal."""
     C, L = u.shape[-2], _SUB
+    bq = bc if bonus is None else _exclusive(bc)
     G, H = torch.zeros_like(k), torch.zeros_like(k)
     for i in range(C // L):
         rows = slice(L * i, L * (i + 1))
         b_i = bc[..., rows, :]
-        e = _diag_decay(bc, rows)
+        e = _diag_decay(bc, rows) if bonus is None else _strict_decay(bc, bq, rows)
         da_ii = da[..., rows, rows]
         G[..., rows, :] += torch.einsum("...ts,...tsd,...sd->...td", da_ii, e, k[..., rows, :])
         H[..., rows, :] += torch.einsum("...ts,...tsd,...td->...sd", da_ii, e, u[..., rows, :])
         if i:
             ref, early = bc[..., L * i - 1:L * i, :], slice(0, L * i)
-            up = torch.exp(b_i - ref)
+            up = torch.exp(bq[..., rows, :] - ref)
             kx = two(k[..., early, :] * torch.exp(ref - bc[..., early, :]))
             G[..., rows, :] += up * (two(da[..., rows, early]) @ kx)
         if i < C // L - 1:
             ref, late = bc[..., L * i + L - 1:L * (i + 1), :], slice(L * (i + 1), C)
-            ux = two(u[..., late, :] * torch.exp(bc[..., late, :] - ref))
+            ux = two(u[..., late, :] * torch.exp(bq[..., late, :] - ref))
             H[..., rows, :] += torch.exp(ref - b_i) * (
                 two(da[..., late, rows]).transpose(-1, -2) @ ux)
-    return G, H, _chunk_scores(u, k, bc, rnd)
+    return G, H, _chunk_scores(u, k, bc, rnd, bonus)
 
 
 def _operand_rounding(operand_dtype):
@@ -670,7 +682,7 @@ def _operand_rounding(operand_dtype):
     return rnd, lambda x: rnd(x) + rnd(x - rnd(x))
 
 
-def _chunked_bwd_plain(u, k, v, gk, s0, do, dsf, scale, rnd, two):
+def _chunked_bwd_plain(u, k, v, gk, s0, do, dsf, scale, rnd, two, bonus=None):
     """The chunk walk of the chunked backward route with tensors, on u =
     scale q, k, v (b, h, t, d; post-conv where the layer has convs), gk, do
     and dsf in f32, s0 f32 or None. ``rnd`` rounds a product's operand and
@@ -691,6 +703,13 @@ def _chunked_bwd_plain(u, k, v, gk, s0, do, dsf, scale, rnd, two):
        dsf . S_final summed over dv, as the last chunk's e^{btot} S . dsf plus
        sum_t k_t e^{btot - bc_t} (v_t dsf^T) from the values that enter dk.
 
+    With ``bonus`` (h, dk) it is RWKV6's chunk walk (u = r, scale 1): the
+    readout decays at the exclusive sums bx, so the cotangents walk on (u
+    e^{bx})^T do, dq = e^{bx} (do S^T) + G, the pairs of G and H are strict
+    and A takes the bonus on its diagonal (:func:`_intra_chunk`); dq and dk
+    are then the state and pair parts alone, without the bonus's; dv's
+    operands, the decayed k, dS and A, are taken by ``two`` too.
+
     Returns (dq, dk, dv, the dsf . S_final term (b, h, dk), s0's
     cotangent), all f32."""
     b, h, t, dk = u.shape
@@ -704,6 +723,7 @@ def _chunked_bwd_plain(u, k, v, gk, s0, do, dsf, scale, rnd, two):
 
     uc, kc, vc, dO = chunks(u), chunks(k), chunks(v), chunks(do)
     bc = chunks(gk).cumsum(3)
+    bq = bc if bonus is None else _exclusive(bc)
     btot = bc[:, :, :, -1:]
     ktil = kc * torch.exp(btot - bc)
     s = u.new_zeros(b, h, dk, dv) if s0 is None else s0
@@ -712,7 +732,7 @@ def _chunked_bwd_plain(u, k, v, gk, s0, do, dsf, scale, rnd, two):
         states.append(s)
         s = (torch.exp(btot[:, :, c, 0, :, None]) * s
              + two(ktil[:, :, c]).transpose(-1, -2) @ rnd(vc[:, :, c]))
-    ul = uc * torch.exp(bc)
+    ul = uc * torch.exp(bq)
     ds, dstates = dsf, [None] * nc
     for c in reversed(range(nc)):
         dstates[c] = ds
@@ -720,13 +740,15 @@ def _chunked_bwd_plain(u, k, v, gk, s0, do, dsf, scale, rnd, two):
               + two(ul[:, :, c]).transpose(-1, -2) @ rnd(dO[:, :, c]))
     s_in, ds_end = torch.stack(states, 2), torch.stack(dstates, 2)
     da = rnd(dO) @ rnd(vc).transpose(-1, -2)
-    G, H, A = _intra_chunk(uc, kc, bc, da, rnd, two)
-    dq = scale * (torch.exp(bc) * (rnd(dO) @ two(s_in).transpose(-1, -2)) + G)
+    G, H, A = _intra_chunk(uc, kc, bc, da, rnd, two,
+                           None if bonus is None else bonus[:, None, None, :])
+    dq = scale * (torch.exp(bq) * (rnd(dO) @ two(s_in).transpose(-1, -2)) + G)
     dk_inter = torch.exp(btot - bc) * (rnd(vc) @ two(ds_end).transpose(-1, -2))
     dk_ = dk_inter + H
     dsg = ((dsf * torch.exp(btot[:, :, -1, 0, :, None]) * states[-1]).sum(-1)
            + (kc[:, :, -1] * dk_inter[:, :, -1]).sum(-2))
-    dv_ = rnd(ktil) @ rnd(ds_end) + rnd(A).transpose(-1, -2) @ rnd(dO)
+    dv_ = (rnd(ktil) @ rnd(ds_end) + rnd(A).transpose(-1, -2) @ rnd(dO) if bonus is None
+           else two(ktil) @ two(ds_end) + two(A).transpose(-1, -2) @ rnd(dO))
     dq, dk_, dv_ = (x.reshape(b, h, nc * C, -1)[:, :, :t] for x in (dq, dk_, dv_))
     return dq, dk_, dv_, dsg, ds
 

@@ -12,8 +12,12 @@ wrappers and their plain versions.
   differentiable: when autograd records, it runs through a
   ``torch.autograd.Function`` whose backward is :func:`rwkv6_chunk_bwd`
   (``csrc/rwkv6_chunk_bwd.cu``, replacing ``_bwd_kernel``,
-  rwkv6_pallas.py:137). The plain backward is autograd through
-  :func:`rwkv6_chunk_plain`.
+  rwkv6_pallas.py:137), two routes chosen by :func:`rwkv6_chunk_bwd_plan`:
+  for bf16 IO from a length on, 64-row chunks on the tensor cores
+  (``csrc/rwkv6_chunked_bwd.cuh``, the GLA backward's chunk walk with the
+  exclusive readout decay, strict pairs and the bonus; its plain version is
+  :func:`rwkv6_chunk_bwd_chunked_plain`), else the recurrent sweeps. The
+  plain backward is autograd through :func:`rwkv6_chunk_plain`.
 - :func:`rwkv6_decode` replaces ``rwkv6_decode_fused``
   (lina_speech_tpu/ops/gla_pallas.py:1728), one decode token, the state
   updated in place. Kernel: ``csrc/rwkv6_decode.cu``. The JAX layer sends
@@ -27,25 +31,29 @@ an optional initial state (b, h, dk, dv). r, k and v are in the IO dtype
 (f32 or bf16), w and u in f32, the state in f32 or bf16. For a CPU tensor a
 wrapper runs its plain version (``*_plain``, over ``ops/rwkv6.py``); for a
 CUDA tensor it launches the kernel or raises -- there is no fallback. Each
-counts its launches (``rwkv6_chunk.launches``; ``rwkv6_chunk.routes`` by
-route) and notes the shapes it was launched on (:func:`launch_shapes`).
+counts its launches (``rwkv6_chunk.launches``; ``rwkv6_chunk.routes`` and
+``rwkv6_chunk_bwd.routes`` by route) and notes the shapes it was launched
+on (:func:`launch_shapes`).
 Which heads the kernels take is :func:`kernel_takes`, decided from shapes
 and dtypes before any launch; a layer asks it and takes the plain version
 for a head it refuses, and a wrapper called on such a head raises.
 
-The recurrent kernels compute in f32 throughout; the chunked route rounds
-its products' operands to bf16, as the TPU kernel rounds them to its IO
-dtype. The plain chunked form rounds the operands of its matmuls to bf16 for
-bf16 IO (the JAX package's rounding points), so kernel and plain version
-agree to a share of the output's magnitude, not bit for bit.
+The recurrent kernels compute in f32 throughout; the chunked routes round
+their products' operands to bf16, as the TPU kernels round them to their IO
+dtype (the backward's products that feed dr and dk, whose difference gives
+dw, and dv in two bf16 parts). The plain chunked form rounds the operands
+of its matmuls to bf16 for bf16 IO (the JAX package's rounding points), so
+kernel and plain version agree to a share of the output's magnitude, not
+bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from lina_speech_tpu_torch.ops import _build
 from lina_speech_tpu_torch.ops import gla_cuda
@@ -64,8 +72,9 @@ def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
         fn.shapes = set()
-    rwkv6_chunk.shapes = Counter()
-    rwkv6_chunk.routes = dict.fromkeys(_ROUTE_CODE, 0)
+    for fn in (rwkv6_chunk, rwkv6_chunk_bwd):
+        fn.shapes = Counter()
+        fn.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
 def launch_counts() -> dict:
@@ -76,15 +85,15 @@ def launch_shapes() -> dict:
     """What each kernel was launched on since the last reset, a set of
     tuples each: ``rwkv6_chunk`` (b, h, t, dk, dv, IO dtype, initial state
     dtype or None, route); ``rwkv6_chunk_bwd`` (b, h, t, dk, dv, IO dtype,
-    initial state dtype or None, need_ds0); ``rwkv6_decode`` (b, h, dk, dv,
-    IO dtype, state dtype)."""
+    initial state dtype or None, need_ds0, route); ``rwkv6_decode`` (b, h,
+    dk, dv, IO dtype, state dtype)."""
     return {fn.__name__: set(fn.shapes) for fn in _wrappers()}
 
 
 def launch_shape_counts() -> dict:
-    """``rwkv6_chunk``'s :func:`launch_shapes` with the number of launches
-    on each shape."""
-    return {"rwkv6_chunk": Counter(rwkv6_chunk.shapes)}
+    """``rwkv6_chunk``'s and ``rwkv6_chunk_bwd``'s :func:`launch_shapes`
+    with the number of launches on each shape."""
+    return {fn.__name__: Counter(fn.shapes) for fn in (rwkv6_chunk, rwkv6_chunk_bwd)}
 
 
 def kernel_takes(dk: int, dv: int, io: torch.dtype, state_dtype: torch.dtype) -> bool:
@@ -227,6 +236,90 @@ rwkv6_chunk.launches, rwkv6_chunk.shapes = 0, Counter()
 rwkv6_chunk.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
+# bf16 inputs shorter than these keep the recurrent sweeps, whose two
+# launches beat the chunked route's seven below them in chip_smoke.py's
+# backward route sweep on an H100 (PERF.md §6; h4 dk256 dv256, no initial
+# state, medians of six turns; us, the recurrent sweeps against the chunked
+# route): up to 16 heads in flight the recurrent sweeps won at t64 (b1 149.2
+# against 156.3, b4 158.4 against 175.4) and the chunked route from t96 (b1
+# 189.7 against 164.8, b4 236.6 against 205.7); at 32 heads the recurrent
+# sweeps won at t48 (178.6 against 192.6) and the chunked route from t64
+# (243.4 against 209.9). Shapes the sweep did not reach take the rule of
+# the nearest it did.
+_BWD_CHUNKED_MIN_T = 96
+_BWD_CHUNKED_MIN_T_MANY_HEADS = 64  # more than 16 heads in flight
+
+
+def rwkv6_chunk_bwd_plan(io: torch.dtype, b: int, h: int, t: int, dv: int) -> str:
+    """The body a :func:`rwkv6_chunk_bwd` launch of IO dtype ``io`` on (b,
+    h, t) heads of value dim ``dv`` runs, decided from these alone before
+    the launch: ``"chunked"`` for bf16 IO from ``_BWD_CHUNKED_MIN_T`` tokens
+    on (``_BWD_CHUNKED_MIN_T_MANY_HEADS`` above 16 heads in flight; 64-row
+    chunks, products on the tensor cores with bf16 operands, two parts for
+    those that feed dr, dk and dv, and f32 sums), else ``"recurrent"`` (the
+    two time sweeps in f32, which an f32 caller expects and which are
+    faster on a few tokens). ``dv`` does not move the measured thresholds
+    (RWKV6's heads are dv 256 on every driven path)."""
+    min_t = _BWD_CHUNKED_MIN_T_MANY_HEADS if b * h > 16 else _BWD_CHUNKED_MIN_T
+    return "chunked" if io == torch.bfloat16 and t >= min_t else "recurrent"
+
+
+def _chunk_bwd_sizes(b, h, t, dk, dv, route):
+    """Bytes of :func:`rwkv6_chunk_bwd`'s scratch arrays on ``route``, in the
+    C entry point's order: the parts of drS and dkS (the state and pair
+    parts of dr and dk) and of vdo = do . v (dv/32 each on the recurrent
+    route, one on the chunked), the parts of the dsf . S_final term (dv/32,
+    or ceil(dv/64) + 1), each segment's dw total and du share; then the
+    chunked route's own arrays (``gla_cuda._chunked_bwd_sizes``, r in q's
+    place; 0, not allocated, on the recurrent route)."""
+    bh = b * h
+    chunked = route == "chunked"
+    parts, n_sg = (1, -(-dv // gla_cuda._CHUNK) + 1) if chunked else (dv // _BV, dv // _BV)
+    own = gla_cuda._chunked_bwd_sizes(b, h, t, dk, dv) if chunked else [0] * 13
+    return ([4 * parts * bh * t * dk] * 2 + [4 * parts * bh * t, 4 * n_sg * bh * dk]
+            + [4 * -(-t // _FINISH_SEG) * bh * dk] * 2 + own)
+
+
+def chunk_bwd_scratch_bytes(b: int, h: int, t: int, dk: int, dv: int, route: str) -> int:
+    """Bytes of scratch one :func:`rwkv6_chunk_bwd` call on ``route`` takes
+    beside its outputs, in one allocation."""
+    return gla_cuda._scratch_total(_chunk_bwd_sizes(b, h, t, dk, dv, route))
+
+
+def rwkv6_chunk_bwd_chunked_plain(r, k, v, w, u, initial_state, do, dsf,
+                                  operand_dtype: Optional[torch.dtype] = None):
+    """The chunked route of :func:`rwkv6_chunk_bwd` written with tensors
+    (same arguments and outputs, ds0 wherever there is an initial state), in
+    f32; with ``operand_dtype`` every operand of a product is rounded to it
+    first, as the kernels round theirs to bf16, those of the products that
+    feed dr, dk and dv in two rounded parts. The GLA backward's chunk walk
+    (``gla_cuda._chunked_bwd_plain`` with the bonus u: r in u's place, no
+    scale, the readout decayed at the exclusive gate sum, strict pairs)
+    gives drS and dkS, the state and pair parts of dr and dk, and dv (the
+    bonus on the diagonal of its scores); then the finishing pass: with
+    vdo_t = do_t . v_t, dr = drS + u k vdo, dk = dkS + u r vdo, du = sum over
+    batch and time of r k vdo, and dw_j = sum_{t>=j} (-k_t dkS_t) + sum_{t>j}
+    r_t drS_t + dsf . S_final (a decay reaches the inclusive sums of the
+    keys and the final state at its own step, the exclusive ones of the
+    readout only after it). Used by the tests, on the CPU against the
+    Pallas backward and on the card against the kernels."""
+    io = r.dtype
+    rnd, two = gla_cuda._operand_rounding(operand_dtype)
+    rf, kf, vf, uf, dof = r.float(), k.float(), v.float(), u.float(), do.float()
+    drs, dks, dv, dsg, ds = gla_cuda._chunked_bwd_plain(
+        rf, kf, vf, w.float(), None if initial_state is None else initial_state.float(), dof,
+        dsf.float(), 1.0, rnd, two, bonus=uf)
+    vdo = (rnd(dof) * rnd(vf)).sum(-1, keepdim=True)
+    ub = uf[:, None, :]
+    dr = drs + ub * kf * vdo
+    dk = dks + ub * rf * vdo
+    du = (rf * kf * vdo).sum((0, 2))
+    rev = lambda x: x.flip(2).cumsum(2).flip(2)  # sums over s >= t
+    dw = rev(-kf * dks) + F.pad(rev(rf * drs)[:, :, 1:], (0, 0, 0, 1)) + dsg[:, :, None]
+    ds0 = None if initial_state is None else ds.to(initial_state.dtype)
+    return dr.to(io), dk.to(io), dv.to(io), dw, du, ds0
+
+
 def rwkv6_chunk_bwd(r, k, v, w, u, initial_state, do, dsf, need_ds0: bool = True):
     """Backward of :func:`rwkv6_chunk` on CUDA tensors.
 
@@ -237,10 +330,29 @@ def rwkv6_chunk_bwd(r, k, v, w, u, initial_state, do, dsf, need_ds0: bool = True
     in the state dtype (None without ``need_ds0`` or without an initial
     state).
 
-    One call launches the five kernels of ``csrc/rwkv6_chunk_bwd.cu`` and
-    counts as one launch. Its scratch (the per-tile parts of dr and dk, 2 *
-    dv/32 * b*h*t*dk f32 values) is freed when the call returns.
+    One call counts as one launch, and once more under its route in
+    ``rwkv6_chunk_bwd.routes`` (:func:`rwkv6_chunk_bwd_plan`). Both routes
+    end in the finishing pass of ``csrc/rwkv6_chunk_bwd.cu`` (the parts of
+    dr and dk added with the bonus's, rounded to the IO dtype, dw summed in
+    reverse in its inclusive and exclusive parts, its segments' carry, du).
+    Their scratch, one allocation freed when the call returns
+    (:func:`chunk_bwd_scratch_bytes`):
+
+    - ``"recurrent"`` (f32 IO, and short bf16 inputs): the two time sweeps;
+      the per-tile parts of drS, dkS and vdo (2 * dv/32 * b*h*t*dk f32
+      values and more: 268 MB at b8 h4 t512 dk256 dv256);
+    - ``"chunked"`` (bf16 IO from 96 tokens, 64 above 16 heads): the four
+      kernels of ``csrc/rwkv6_chunked_bwd.cuh``, 64-row chunks on the tensor
+      cores, dv written in bf16 by the last; every chunk's start state and
+      end-state cotangent in two bf16 parts; drS, dkS and vdo once in f32.
     """
+    return _chunk_bwd_launch(r, k, v, w, u, initial_state, do, dsf, need_ds0)
+
+
+def _chunk_bwd_launch(r, k, v, w, u, initial_state, do, dsf, need_ds0=True, route=None):
+    """Check the arguments and launch :func:`rwkv6_chunk_bwd`'s kernels (CUDA
+    tensors) on ``route`` (None: the plan's; the card's checks force either
+    body of bf16 IO)."""
     name = "rwkv6_chunk_bwd"
     _check(name, r.is_cuda, "runs on CUDA tensors only; on the CPU take autograd "
            "through rwkv6_chunk_plain")
@@ -248,38 +360,35 @@ def rwkv6_chunk_bwd(r, k, v, w, u, initial_state, do, dsf, need_ds0: bool = True
     _check(name, do.shape == v.shape and do.dtype == io, "do must match v")
     _check(name, dsf.shape == (b, h, dk, dv) and dsf.dtype == st,
            f"dsf must be ({b}, {h}, {dk}, {dv}) in {st}")
-    f32 = dict(dtype=torch.float32, device=r.device)
+    route = gla_cuda._fwd_route(name, io, b, h, t, dv, route, plan=rwkv6_chunk_bwd_plan)
     dr, dk_, dv_ = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw, du = torch.empty_like(w), torch.empty_like(u)
     ds0 = torch.empty_like(initial_state) if need_ds0 and initial_state is not None else None
-    tiles, n_seg = dv // _BV, -(-t // _FINISH_SEG)
-    drp = torch.empty(tiles, b, h, t, dk, **f32)
-    dkp = torch.empty(tiles, b, h, t, dk, **f32)
-    vdop = torch.empty(tiles, b, h, t, **f32)
-    dsgp = torch.empty(tiles, b, h, dk, **f32)
-    dwt = torch.empty(n_seg, b, h, dk, **f32)
-    dup = torch.empty(n_seg, b, h, dk, **f32)
+    buf, scratch = gla_cuda._scratch(_chunk_bwd_sizes(b, h, t, dk, dv, route), r.device)
+    if route == "chunked" and do.data_ptr() % 16:  # rows of do are copied 16 bytes at a time
+        do = do.clone()
     lib = _build.load_library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = lib.rwkv6_chunk_bwd(
         _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(initial_state), _ptr(do), _ptr(dsf),
-        _ptr(dr), _ptr(dk_), _ptr(dv_), _ptr(dw), _ptr(du), _ptr(ds0), _ptr(drp), _ptr(dkp),
-        _ptr(vdop), _ptr(dsgp), _ptr(dwt), _ptr(dup), b, h, t, dk, dv, _DTYPE_CODE[io],
-        _DTYPE_CODE[st], ctypes.c_void_p(stream))
+        _ptr(dr), _ptr(dk_), _ptr(dv_), _ptr(dw), _ptr(du), _ptr(ds0), *scratch, b, h, t, dk, dv,
+        _DTYPE_CODE[io], _DTYPE_CODE[st], _ROUTE_CODE[route], ctypes.c_void_p(stream))
     _raise_on(name, err)
     rwkv6_chunk_bwd.launches += 1
-    rwkv6_chunk_bwd.shapes.add((b, h, t, dk, dv, io, None if initial_state is None else st,
-                                ds0 is not None))
+    rwkv6_chunk_bwd.routes[route] += 1
+    rwkv6_chunk_bwd.shapes[(b, h, t, dk, dv, io, None if initial_state is None else st,
+                            ds0 is not None, route)] += 1
     return dr, dk_, dv_, dw, du, ds0
 
 
-rwkv6_chunk_bwd.launches, rwkv6_chunk_bwd.shapes = 0, set()
+rwkv6_chunk_bwd.launches, rwkv6_chunk_bwd.shapes = 0, Counter()
+rwkv6_chunk_bwd.routes = dict.fromkeys(_ROUTE_CODE, 0)
 
 
 class _RWKV6Chunk(torch.autograd.Function):
     """:func:`rwkv6_chunk` on CUDA tensors under autograd: the forward
-    kernel on its planned route, and :func:`rwkv6_chunk_bwd` (the recurrent
-    sweeps) as its backward. Nothing is saved but the inputs: the backward
+    kernel on its planned route, and :func:`rwkv6_chunk_bwd` on its planned
+    route as its backward. Nothing is saved but the inputs: the backward
     recomputes the states from ``s0``."""
 
     @staticmethod

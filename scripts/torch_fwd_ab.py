@@ -26,6 +26,17 @@ the same head at b8 t151 and b1 t128 and at simple-GLA's (h4 dk256 dv256)
 at b8 t512; ``rwkv6_chunk`` at RWKV6's (h4 dk256 dv256; f32 decays and
 bonus) at b8 t512 (no initial state), b8 t151 and b1 t128 (f32). Each
 checkout takes its own plan's route; ``routes`` names it.
+
+With ``--backward`` the cases are the three training backwards at the
+shapes the driven paths launch them on, through their public wrappers
+(each checkout's plan), the digest over every gradient that comes back:
+``gla_chunk_conv_bwd`` at the flagship's head at b8 and b4 t511 (training,
+one and two micro-batches, no initial state) and b2 t512 (S0 tuning, bf16
+initial state); ``gla_chunk_bwd`` at simple-GLA's head at the same three
+shapes (f32 initial state for tuning) and at Mamba-2's (h32 dk64 dv64, f32
+IO, scale 1) at b8 t511; ``rwkv6_chunk_bwd`` at RWKV6's head at b8 and b4
+t511 and the gradient check's b2 (its digests part between checkouts whose
+plans take other routes).
 """
 import argparse
 import hashlib
@@ -87,10 +98,57 @@ def cases(torch, smoke, gla_cuda, rwkv6_cuda):
     return out
 
 
+def backward_cases(torch, smoke, gla_cuda, rwkv6_cuda):
+    """cases() of the three training backwards (--backward); the route a
+    checkout of one route has no plan for is "recurrent"."""
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = ((8, 511, None), (4, 511, None), (2, 512, "tuning"))
+    out = []
+    for b, t, st in shapes:
+        st = bf if st else None
+        x = smoke.kernel_inputs(torch, b, t, st, seed=530 + t + b)
+        g = torch.Generator(device=smoke.DEVICE).manual_seed(531 + t + b)
+        do = torch.randn(b, smoke.H, t, smoke.DV, generator=g, device=smoke.DEVICE).to(bf)
+        dsf = torch.randn(b, smoke.H, smoke.DK, smoke.DV, generator=g,
+                          device=smoke.DEVICE).to(st or f32)
+        args = (*smoke.fwd_args(x, True), x["s0"], do, dsf)
+        out.append((f"gla_chunk_conv_bwd b{b} t{t} {smoke.dtype_name(st)}",
+                    lambda args=args: [g for g in gla_cuda.gla_chunk_conv_bwd(*args)
+                                       if g is not None],
+                    args, smoke.bwd_flops(b, t), gla_cuda.gla_chunk_conv_bwd_plan(bf)))
+    heads = [(smoke.SIMPLE_HEAD, bf, None, shape) for shape in shapes]
+    heads.append((smoke.MAMBA_HEAD, f32, 1.0, (8, 511, None)))
+    for (h, dk, dv), io, scale, (b, t, st) in heads:
+        st = f32 if st else None
+        x, do, dsf = smoke.bwd_inputs(torch, b, h, t, dk, dv, io, st, seed=540 + t + b)
+        args = (x["q"], x["k"], x["v"], x["gk"], x["s0"], do, dsf, scale)
+        out.append((f"gla_chunk_bwd b{b} {smoke.head_name(h, dk, dv)} t{t} IO "
+                    f"{smoke.dtype_name(io)} {smoke.dtype_name(st)}",
+                    lambda args=args: [g for g in gla_cuda.gla_chunk_bwd(*args) if g is not None],
+                    args[:-1], smoke.plain_qkv_flops(b, h, t, dk, dv, backward=True),
+                    gla_cuda.gla_chunk_bwd_plan(io, b, h, t, dv)))
+    h, dk, dv = smoke.RWKV6_HEAD
+    plan = getattr(rwkv6_cuda, "rwkv6_chunk_bwd_plan", None)  # a checkout of one route has none
+    for b, t, st in ((8, 511, None), (4, 511, None), (2, 512, f32)):
+        x = smoke.rwkv6_inputs(torch, b, h, t, dk, dv, bf, st, seed=550 + t + b)
+        g = torch.Generator(device=smoke.DEVICE).manual_seed(551 + t + b)
+        do = torch.randn(b, h, t, dv, generator=g, device=smoke.DEVICE).to(bf)
+        dsf = torch.randn(b, h, dk, dv, generator=g, device=smoke.DEVICE).to(st or f32)
+        args = (*(x[n] for n in smoke.RWKV6_LEAVES), do, dsf)
+        out.append((f"rwkv6_chunk_bwd b{b} t{t} {smoke.dtype_name(st)}",
+                    lambda args=args: [g for g in rwkv6_cuda.rwkv6_chunk_bwd(*args)
+                                       if g is not None],
+                    args, smoke.rwkv6_flops(b, h, t, dk, dv, backward=True),
+                    plan(bf, b, h, t, dv) if plan else "recurrent"))
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", required=True, help="checkout whose package is timed")
     parser.add_argument("--label", required=True)
+    parser.add_argument("--backward", action="store_true",
+                        help="the three training backwards instead of the forwards")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -105,14 +163,15 @@ def main() -> None:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     res = {"label": args.label, "tree": args.tree, "card": card, "sha256": {}, "us": {},
            "bound_us": {}, "routes": {}}
+    which = backward_cases if args.backward else cases
     with torch.no_grad():
-        for name, call, inputs, flops, route in cases(torch, smoke, gla_cuda, rwkv6_cuda):
+        for name, call, inputs, flops, route in which(torch, smoke, gla_cuda, rwkv6_cuda):
             out = call()
             torch.cuda.synchronize()
             res["sha256"][name] = digest(torch, *out)
             res["us"][name] = (smoke.device_ms(call, 10) + smoke.device_ms(call, 10)) / 2 * 1e3
-            res["bound_us"][name] = smoke.roofline(smoke.nbytes(*inputs, *out), flops,
-                                                   torch.bfloat16)[0] * 1e3
+            io = next(a.dtype for a in inputs if isinstance(a, torch.Tensor))
+            res["bound_us"][name] = smoke.roofline(smoke.nbytes(*inputs, *out), flops, io)[0] * 1e3
             res["routes"][name] = route
     print(json.dumps(res))
 

@@ -1361,12 +1361,126 @@ def test_rwkv6_chunk_takes_the_planned_route(cuda, io, b, t):
     assert rwkv6_cuda.launch_counts() == {"rwkv6_chunk": 2, "rwkv6_chunk_bwd": 1,
                                           "rwkv6_decode": 0}
     key = (b, 4, t, 256, 256, io, None, route)
-    assert rwkv6_cuda.launch_shape_counts() == {"rwkv6_chunk": {key: 2}}
+    bwd_key = (b, 4, t, 256, 256, io, None, False,
+               rwkv6_cuda.rwkv6_chunk_bwd_plan(io, b, 4, t, 256))
+    assert rwkv6_cuda.launch_shape_counts() == {"rwkv6_chunk": {key: 2},
+                                                "rwkv6_chunk_bwd": {bwd_key: 1}}
     assert rwkv6_cuda.launch_shapes()["rwkv6_chunk"] == {key}
     if io == torch.float32:
         with pytest.raises(ValueError, match="bf16 IO only"):
             _rwkv6_fwd_call(x, "chunked")
         assert rwkv6_cuda.rwkv6_chunk.launches == 2
+
+
+def _rwkv6_plain_grads(x, do, dsf):
+    """Autograd of sum(o * do) + sum(sf * dsf) through rwkv6_chunk_plain
+    w.r.t. r, k, v, w, u (and s0)."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    names = ("r", "k", "v", "w", "u") + (("s0",) if x["s0"] is not None else ())
+    leaves = {n: x[n].detach().clone().requires_grad_(True) for n in names}
+    o, sf = rwkv6_cuda.rwkv6_chunk_plain(*(leaves[n] for n in names[:5]),
+                                         initial_state=leaves.get("s0"))
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf.float()).sum()
+    return dict(zip(names, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def _rwkv6_bwd_case(dev, shape, st, seed):
+    """(inputs, do, dsf) of a bf16-IO backward at ``shape``."""
+    b, h, t, dk, dv = shape
+    x = _rwkv6_inputs(dev, *shape, torch.bfloat16, st, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(b, h, t, dv, generator=g, device=dev).to(torch.bfloat16)
+    dsf = torch.randn(b, h, dk, dv, generator=g, device=dev).to(st or torch.float32)
+    return x, do, dsf
+
+
+def _rwkv6_bwd_on_route(x, do, dsf, route):
+    """rwkv6_chunk_bwd's launcher forced onto ``route``: {leaf: gradient}."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    out = rwkv6_cuda._chunk_bwd_launch(*(x[n] for n in ("r", "k", "v", "w", "u", "s0")), do,
+                                       dsf, True, route)
+    return {n: g for n, g in zip(("r", "k", "v", "w", "u", "s0"), out) if g is not None}
+
+
+@pytest.mark.parametrize("route", ["chunked", "recurrent"])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("shape", [(2, 4, 70, 256, 256), (1, 2, 130, 128, 96), (3, 2, 5, 64, 64),
+                                   (2, 3, 1, 256, 64), (8, 4, 512, 256, 256)], ids=str)
+def test_rwkv6_backward_routes_match_plain(cuda, route, st, shape):
+    """rwkv6_chunk_bwd (bf16 IO) forced onto each route against autograd
+    through the plain version, at ragged and whole chunks, t = 1 and the
+    training shape (b8 t512), with the RWKV6 gates' -20 resets: every leaf
+    (dr, dk, dv, dw, du, ds0) within 2e-2 of its own max|plain| (dw one step
+    from a zero state, 0 in exact arithmetic, to the size of its two
+    cancelling terms); the chunked route also against
+    rwkv6_chunk_bwd_chunked_plain with bf16 operands within 1e-2. Counted
+    as one launch under its route."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    x, do, dsf = _rwkv6_bwd_case(cuda, shape, st, seed=21)
+    routes, launches = dict(rwkv6_cuda.rwkv6_chunk_bwd.routes), rwkv6_cuda.rwkv6_chunk_bwd.launches
+    got = _rwkv6_bwd_on_route(x, do, dsf, route)
+    torch.cuda.synchronize()
+    routes[route] += 1
+    assert rwkv6_cuda.rwkv6_chunk_bwd.routes == routes
+    assert rwkv6_cuda.rwkv6_chunk_bwd.launches == launches + 1
+    refs = [(_rwkv6_plain_grads(x, do, dsf), 2e-2)]
+    if route == "chunked":
+        args = (*(x[n] for n in ("r", "k", "v", "w", "u", "s0")), do, dsf)
+        plain = rwkv6_cuda.rwkv6_chunk_bwd_chunked_plain(*args, operand_dtype=torch.bfloat16)
+        refs.append(({n: g for n, g in zip(("r", "k", "v", "w", "u", "s0"), plain)
+                      if g is not None}, 1e-2))
+    for ref, share in refs:
+        assert got.keys() == ref.keys()
+        for name, r in ref.items():
+            a = got[name]
+            assert a.dtype == r.dtype and a.shape == r.shape, name
+            err = float((a.float() - r.float()).abs().max())
+            scale = float(r.float().abs().max())
+            if name == "w" and shape[2] == 1 and st is None:
+                assert scale <= 1e-6 * float(got["k"].float().abs().max())
+                scale = float((x["k"].float() * got["k"].float()).abs().max())
+            assert scale > 0 and err <= share * scale, (name, err, share * scale)
+
+
+@pytest.mark.parametrize("st", [torch.float32, None])
+def test_rwkv6_backward_routes_give_equal_bits_on_a_second_call(cuda, st):
+    """Both routes of rwkv6_chunk_bwd sum in a fixed order (no atomics): a
+    second call on the same inputs gives the same bits, at the training
+    shape and at a ragged one."""
+    for shape in ((8, 4, 512, 256, 256), (1, 4, 130, 256, 256)):
+        x, do, dsf = _rwkv6_bwd_case(cuda, shape, st, seed=22)
+        for route in ("chunked", "recurrent"):
+            first = _rwkv6_bwd_on_route(x, do, dsf, route)
+            second = _rwkv6_bwd_on_route(x, do, dsf, route)
+            torch.cuda.synchronize()
+            assert all(torch.equal(first[n], second[n]) for n in first), (shape, route)
+
+
+@pytest.mark.parametrize("io,b,t", [(torch.bfloat16, 8, 512), (torch.bfloat16, 2, 130),
+                                    (torch.bfloat16, 1, 16), (torch.float32, 8, 151)])
+def test_rwkv6_chunk_bwd_takes_the_planned_route(cuda, io, b, t):
+    """Under autograd the backward takes rwkv6_chunk_bwd_plan's route, counts
+    it under its name and notes it with the shape; a chunked route forced
+    onto f32 IO raises and launches nothing."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    x = _rwkv6_inputs(cuda, b, 4, t, 256, 256, io, torch.float32, seed=23)
+    rwkv6_cuda.reset_launch_counts()
+    _rwkv6_grads(rwkv6_cuda.rwkv6_chunk, x)
+    route = rwkv6_cuda.rwkv6_chunk_bwd_plan(io, b, 4, t, 256)
+    min_t = 64 if b * 4 > 16 else 96
+    assert route == ("chunked" if io == torch.bfloat16 and t >= min_t else "recurrent")
+    assert rwkv6_cuda.rwkv6_chunk_bwd.routes == {"recurrent": 0, "chunked": 0, route: 1}
+    key = (b, 4, t, 256, 256, io, torch.float32, True, route)
+    assert rwkv6_cuda.launch_shape_counts()["rwkv6_chunk_bwd"] == {key: 1}
+    if io == torch.float32:
+        do = torch.zeros(b, 4, t, 256, dtype=io, device=cuda)
+        with pytest.raises(ValueError, match="bf16 IO only"):
+            _rwkv6_bwd_on_route(x, do, torch.zeros_like(x["s0"]), "chunked")
+        assert rwkv6_cuda.rwkv6_chunk_bwd.launches == 1
 
 
 def test_rwkv6_kernel_path_matches_plain_path(cuda):
