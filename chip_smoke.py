@@ -170,9 +170,15 @@ then Mamba (v1):
    length down to t1; forward and backward at b8 t512 with an initial
    state, without one and with a reset mask (dx, ddt, dA, dB, dC, dD, ds0),
    every output and leaf within a share of its own max|plain|, finite and
-   non-zero, the backward twice for equal bits; every time beside its bound
-   (bytes, f32 operations, or the exponentials at the SFU rate of the
-   card's highest SM clock);
+   non-zero, the backward on both routes of mamba_scan_bwd_plan (one chunk,
+   and time cut into chunks that run in parallel, the latter also against
+   mamba_scan_bwd_chunked_plain), each twice for equal bits; every time
+   beside its bound (bytes, f32 operations, or the exponentials at the SFU
+   rate of the card's highest SM clock), the backward's two routes timed in
+   turns with their scratch and a profile of three calls; a chunk-length
+   sweep of the backward at b 1-8, t 16-512 and the ragged lengths the
+   paths launch, where the planned length may be at most SWEEP_MARGIN
+   slower than the fastest (mamba_bwd_route_sweep);
 14. Mamba phase: kind="mamba" at the flagship's width (314,976,578
    parameters, random weights from seed 0 with A_log, D and dt_proj's bias
    drawn off their inits; bf16 compute, f32 states): generate_batch for the
@@ -184,8 +190,12 @@ then Mamba (v1):
    mamba_scan per prefill and per server prefill chunk, 25 mamba_scan and 25
    mamba_scan_bwd per micro-batch, none per decode token; then the
    interleaved CrossAttMamba (cross-attention after layers 5 and 11) through
-   a 16-token generate and one train step; then every shape those runs
-   launched the two kernels on is held against the plain versions.
+   a 16-token generate and one train step (every backward at its planned
+   chunk length); then every shape those runs launched the two kernels on is
+   held against the plain versions (the backward on both routes) and timed
+   for launches x (time - bound), a chunked launch also a segment either
+   side of its chunk length, the backward also had every launch taken one
+   chunk (mamba_gap_phase).
 Each main-path run starts with the launch counts at 0 and reads them right
 after; every forward launch and every lazy step of a main path must have
 taken its planned route. After the GLA phases, every shape a main path
@@ -351,14 +361,16 @@ CHUNK_HELD, CHUNK_BWD_HELD = set(), set()
 # were held on that route against their plain versions (hold_decode_routes)
 DECODE_HELD = {"gla_decode_conv": set(), "gla_decode": set()}
 # launches of the two forward kernels, of gla_chunk's backward, of the
-# three decode steps and of rwkv6_chunk and its backward on each shape
-# (ops/gla_cuda.py:launch_shape_counts and ops/rwkv6_cuda.py's keys), summed
-# over the main-path runs that expect_launches checks: the weights of
-# gap_phase's and rwkv6_gap_phase's sums
+# three decode steps, of rwkv6_chunk and its backward and of the two Mamba
+# kernels on each shape (the launch_shape_counts keys of ops/gla_cuda.py,
+# ops/rwkv6_cuda.py and ops/mamba_cuda.py), summed over the main-path runs
+# that expect_launches checks: the weights of gap_phase's, rwkv6_gap_phase's
+# and mamba_gap_phase's sums
 GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
                     "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter(),
                     "gla_decode_conv": Counter(), "gla_decode": Counter(),
-                    "rwkv6_chunk": Counter(), "rwkv6_chunk_bwd": Counter()}
+                    "rwkv6_chunk": Counter(), "rwkv6_chunk_bwd": Counter(),
+                    "mamba_scan": Counter(), "mamba_scan_bwd": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode_conv": set(),
                 "gla_decode": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
@@ -553,7 +565,9 @@ def ptxas_summary(log: str):
              ("rwkv6_decode_kernelI13__nv_bfloat16fLi256E", "rwkv6_decode"))
     # the Mamba kernels' bf16-IO instantiations
     mamba = (("mamba_scan_kernelI13__nv_bfloat16", "mamba_scan"),
-             ("mamba_scan_bwd_kernelI13__nv_bfloat16", "mamba_scan_bwd"))
+             ("3bwd16chunk_fwd_kernelI13__nv_bfloat16Lb1E", "mamba_scan_bwd chunk summaries"),
+             ("3bwd16chunk_fwd_kernelI13__nv_bfloat16Lb0E", "mamba_scan_bwd checkpoint pass"),
+             ("3bwd16chunk_bwd_kernelI13__nv_bfloat16E", "mamba_scan_bwd chunk body"))
     # the chunked route of the two GLA backwards (bf16 IO; both state dtypes)
     chunked = (("chunked11prep_kernelI13__nv_bfloat16Lb1EE", "gla_chunk_conv_bwd chunked prep"),
                ("chunked11prep_kernelI13__nv_bfloat16Lb0EE", "gla_chunk_bwd chunked prep"),
@@ -1302,14 +1316,14 @@ def time_routes(steps, turns=ROUTE_TURNS):
 
 def planned_route_times(steps, route, label, strict=False):
     """time_routes for a shape the plan sends to ``route``: the planned
-    route may be at most SWEEP_MARGIN slower than the other (``strict``:
+    route may be at most SWEEP_MARGIN slower than the fastest other (``strict``:
     must be the faster, as at the shapes a main path launched the classic
     step on). A shape that misses is timed again as many turns, and fails
     only if the median of both rounds misses too (one slow graph replay
     must not fail the run). Returns ({route: median ms}, {route: every
     ms})."""
     ms, times = time_routes(steps)
-    other = next(r for r in steps if r != route)
+    other = min((r for r in steps if r != route), key=ms.get)
     ok = lambda m: m[route] < m[other] if strict else m[route] <= m[other] * (1 + SWEEP_MARGIN)
     if not ok(ms):
         print(f"  {label}: the planned {route} route read {ms[route]} ms against the {other} "
@@ -1317,6 +1331,7 @@ def planned_route_times(steps, route, label, strict=False):
         _, more = time_routes(steps)
         times = {r: times[r] + more[r] for r in times}
         ms = {r: statistics.median(v) for r, v in times.items()}
+        other = min((r for r in steps if r != route), key=ms.get)
     require(ok(ms), f"{label}: the planned {route} route {ms[route]} ms, the {other} route "
             f"{ms[other]} ms{' (it must be the faster)' if strict else ''} (turns, ms: {times})")
     return ms, times
@@ -1593,10 +1608,10 @@ def expect_launches(launches, **expected):
     print(f"  expected {want}")
     require(launches == want, f"launches {launches}, expected {want}")
     expect_planned_routes()
-    from lina_speech_tpu_torch.ops import gla_cuda, rwkv6_cuda
+    from lina_speech_tpu_torch.ops import gla_cuda, mamba_cuda, rwkv6_cuda
 
-    for name, counts in {**gla_cuda.launch_shape_counts(),
-                         **rwkv6_cuda.launch_shape_counts()}.items():
+    for name, counts in {**gla_cuda.launch_shape_counts(), **rwkv6_cuda.launch_shape_counts(),
+                         **mamba_cuda.launch_shape_counts()}.items():
         if name in GAP_SHAPE_COUNTS:
             GAP_SHAPE_COUNTS[name].update(counts)
 
@@ -2777,7 +2792,7 @@ def expect_chunked_route(gla_cuda, bwd, launches):
     all chunked; gla_chunk_bwd chunked for bf16 IO (simple-GLA), recurrent
     for f32 IO (Mamba-2); rwkv6_chunk_bwd chunked for bf16 IO at or above
     its plan's threshold, recurrent below it and for f32 IO (the f32-compute
-    check copy)."""
+    check copy); mamba_scan_bwd at the chunk length its plan gives."""
     import torch
 
     if bwd == "gla_chunk_conv_bwd":
@@ -2816,6 +2831,20 @@ def expect_chunked_route(gla_cuda, bwd, launches):
                 f"rwkv6_chunk_bwd routes {rwkv6_cuda.rwkv6_chunk_bwd.routes}, planned {want}, "
                 f"launches {launches[bwd]}")
         print(f"  rwkv6_chunk_bwd routes as planned: {want}")
+    elif bwd == "mamba_scan_bwd":
+        from lina_speech_tpu_torch.ops import mamba_cuda
+
+        want = dict.fromkeys(mamba_cuda.mamba_scan_bwd.routes, 0)
+        for shape, n in mamba_cuda.launch_shape_counts()[bwd].items():
+            (b, t, d), chunk = shape[:3], shape[-1]
+            planned = mamba_cuda.mamba_scan_bwd_plan(b, t, d)
+            require(chunk == planned, f"mamba_scan_bwd: the launch on {shape} did not take its "
+                    f"planned chunk length {planned}")
+            want[mamba_cuda.bwd_route(t, chunk)] += n
+        require(mamba_cuda.mamba_scan_bwd.routes == want and sum(want.values()) == launches[bwd],
+                f"mamba_scan_bwd routes {mamba_cuda.mamba_scan_bwd.routes}, planned {want}, "
+                f"launches {launches[bwd]}")
+        print(f"  mamba_scan_bwd routes as planned: {want}")
 
 
 # device time of a profiled train step by the kernels of the GLA and RWKV6
@@ -4543,17 +4572,55 @@ def hold_own_max(name, got, ref, rel):
     check(name, max_err(got, ref), rel * ref_max)
 
 
+def mamba_cotangents(torch, x, seed):
+    """dy (b, t, d) in x's dtype and dsf (b, d, n) f32, N(0, 1) from ``seed``."""
+    b, t, d = x["x"].shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    dy = torch.randn(b, t, d, generator=g, device=DEVICE).to(x["x"].dtype)
+    return dy, torch.randn(b, d, MAMBA_N, generator=g, device=DEVICE)
+
+
+def mamba_bwd_call(mamba_cuda, x, dy, dsf, need_ds0, chunk):
+    """One mamba_scan_bwd call on ``x`` with the chunk length ``chunk``
+    forced; its leaves as a dict (ds0 where it comes back)."""
+    args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+    out = mamba_cuda._bwd_launch(*args, x["s0"], x["reset"], dy, dsf, need_ds0, chunk=chunk)
+    return {k: v for k, v in zip(MAMBA_LEAVES, out) if v is not None}
+
+
+def mamba_bwd_chunks(mamba_cuda, b, t, d):
+    """{route: chunk length} of mamba_scan_bwd at (b, t, d), every route the
+    length has: "one_chunk" (the whole length) and, above one segment,
+    "chunked" (the plan's length where it cuts t, else two chunks)."""
+    planned = mamba_cuda.mamba_scan_bwd_plan(b, t, d)
+    routes = {"one_chunk": -(-t // 16) * 16}
+    if t > 16:
+        routes["chunked"] = planned if planned < t else -(-t // 32) * 16
+    return routes
+
+
+def mamba_bwd_work(x, dy, dsf, got):
+    """(bytes, f32 operations, exponentials) of one mamba_scan_bwd call."""
+    b, t, _ = x["x"].shape
+    args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+    return (nbytes(*args, x["s0"], x["reset"], dy, dsf, *got.values()),
+            *mamba_work(b, t, backward=True))
+
+
 def hold_mamba_scan(torch, mamba_cuda, shape, need_ds0=None):
     """mamba_scan at ``shape`` = (b, t, d, n, IO dtype, initial-state dtype
     or None, reset mask) against its plain version: with ``need_ds0`` None
     the inference forward (y, final state); otherwise as training calls it
-    (autograd recording: the forward kernel and the hand-written backward)
-    against autograd through the plain loop, y, the final state and the
-    seven gradient leaves (dx, ddt, dA, dB, dC, dD, and ds0 where wanted),
-    each within a share of its own max|plain|, finite and non-zero; the
-    backward runs twice and must give the same bits. Returns (inputs, dy,
-    dsf, gradients, worst gradient share); the last four None for the
-    inference forward."""
+    (autograd recording: the forward kernel and the hand-written backward
+    on its planned chunk length) against autograd through the plain loop,
+    y, the final state and the seven gradient leaves (dx, ddt, dA, dB, dC,
+    dD, and ds0 where wanted), each within a share of its own max|plain|,
+    finite and non-zero; then the backward called on every route
+    (mamba_bwd_chunks) against the same reference, the chunked route also
+    against mamba_scan_bwd_chunked_plain at its chunk length, each route
+    twice for the same bits. Returns (inputs, dy, dsf, gradients, worst
+    gradient share over the routes); the last four None for the inference
+    forward."""
     b, t, d, n, io, st, reset = shape
     x = mamba_inputs(torch, b, t, io, st, reset, seed=900 + t + b)
     name = (f"mamba_scan b{b} t{t} d{d} n{n} IO {dtype_name(io)} initial state "
@@ -4567,9 +4634,7 @@ def hold_mamba_scan(torch, mamba_cuda, shape, need_ds0=None):
             y_p, s_p = mamba_cuda.mamba_scan_plain(*args, initial_state=x["s0"],
                                                    reset_mask=x["reset"])
     else:
-        g = torch.Generator(device=DEVICE).manual_seed(t)
-        dy = torch.randn(b, t, d, generator=g, device=DEVICE).to(io)
-        dsf = torch.randn(b, d, n, generator=g, device=DEVICE)
+        dy, dsf = mamba_cotangents(torch, x, seed=t)
         y_k, s_k, got = mamba_grads(torch, mamba_cuda.mamba_scan, x, dy, dsf, need_ds0)
         y_p, s_p, ref = mamba_grads(torch, mamba_cuda.mamba_scan_plain, x, dy, dsf, need_ds0)
         name += "" if need_ds0 or st is None else ", no ds0"
@@ -4584,15 +4649,36 @@ def hold_mamba_scan(torch, mamba_cuda, shape, need_ds0=None):
     hold_own_max("final state", s_k, s_p, TOL_F32)
     MAMBA_HELD["mamba_scan"].add(shape)
     if need_ds0 is not None:
-        worst = check_grads(f"{name}, backward", got, ref,
-                            TOL_GRAD if io == torch.bfloat16 else TOL_F32)
-        again = mamba_grads(torch, mamba_cuda.mamba_scan, x, dy, dsf, need_ds0)[2]
-        same = [k for k in got if not torch.equal(got[k], again[k])]
-        require(not same, f"{name}: a second backward gave other bits in {same}")
-        print(f"  a second backward: the same bits in all {len(got)} leaves")
-        MAMBA_HELD["mamba_scan_bwd"].add((*shape, need_ds0 and st is not None))
+        tol = TOL_GRAD if io == torch.bfloat16 else TOL_F32
+        planned = mamba_cuda.mamba_scan_bwd_plan(b, t, d)
+        worst = check_grads(f"{name}, backward (planned chunk length {planned})", got, ref, tol)
+        ds0 = bool(need_ds0 and st is not None)
+        MAMBA_HELD["mamba_scan_bwd"].add((*shape, ds0, planned))
+        for route, chunk in mamba_bwd_chunks(mamba_cuda, b, t, d).items():
+            call = lambda: mamba_bwd_call(mamba_cuda, x, dy, dsf, need_ds0, chunk)
+            first = call()
+            label = f"{name}, backward on the {route} route (chunk length {chunk})"
+            worst = max(worst, check_grads(label, first, ref, tol))
+            if route == "chunked":
+                plain = mamba_cuda.mamba_scan_bwd_chunked_plain(
+                    *args, x["s0"], x["reset"], dy, dsf, need_ds0, chunk=chunk)
+                check_grads(f"{label} against mamba_scan_bwd_chunked_plain", first,
+                            {k: v for k, v in zip(MAMBA_LEAVES, plain) if v is not None}, tol)
+            again = call()
+            same = [k for k in first if not torch.equal(first[k], again[k])]
+            require(not same, f"{label}: a second call gave other bits in {same}")
+            print(f"  a second call on the {route} route: the same bits in all {len(first)} "
+                  "leaves")
+            MAMBA_HELD["mamba_scan_bwd"].add((*shape, ds0, chunk))
         result = (x, dy, dsf, got, worst)
     return result
+
+
+def mamba_bwd_steps(mamba_cuda, x, dy, dsf, need_ds0=False):
+    """{route: one mamba_scan_bwd call on ``x`` on it} for time_routes."""
+    b, t, d = x["x"].shape
+    return {r: (lambda c=c: mamba_bwd_call(mamba_cuda, x, dy, dsf, need_ds0, c))
+            for r, c in mamba_bwd_chunks(mamba_cuda, b, t, d).items()}
 
 
 def mamba_kernel_phase(torch, mamba_cuda, summary):
@@ -4601,11 +4687,15 @@ def mamba_kernel_phase(torch, mamba_cuda, summary):
     forward at b8 t151 (generate's prefill) with an f32 and with no initial
     state, and at b1 for every server chunk length down to t1; forward and
     backward at b8 t512 (training) with an initial state, without one and
-    with a reset mask, all seven gradient leaves, twice for equal bits.
-    Every time beside its bound (bytes, f32 operations or the exponentials
-    at the SFU rate) and the plain version's. The summary takes the forward
-    at b8 t151 with an f32 state (what generate launches) and the backward
-    at b8 t512 without one (what training launches)."""
+    with a reset mask, all seven gradient leaves, the backward on both
+    routes (one chunk and chunked), each twice for equal bits. Every time
+    beside its bound (bytes, f32 operations or the exponentials at the SFU
+    rate) and the plain version's; the backward's two routes timed in turns
+    (median of six, the planned one at most SWEEP_MARGIN slower than the
+    other, retimed on a miss), each route's scratch, and a profile of three
+    calls on the planned route. The summary takes the forward at b8 t151
+    with an f32 state (what generate launches) and the backward's planned
+    route at b8 t512 without one (what training launches)."""
     bf, f32 = torch.bfloat16, torch.float32
     d, n = MAMBA_D, MAMBA_N
     shapes = [(BATCH, T_PROMPT + 1, f32), (BATCH, T_PROMPT + 1, None)]
@@ -4642,27 +4732,156 @@ def mamba_kernel_phase(torch, mamba_cuda, summary):
         flops, exps = mamba_work(TRAIN_BATCH, t)
         note_shape("mamba_scan", f"training forward b{TRAIN_BATCH} t{t} initial state none",
                    fwd_ms, fwd_plain_ms, nbytes(*args, y_k, s_k), flops, f32, exps=exps)
-        bwd = lambda: mamba_cuda.mamba_scan_bwd(*args, None, None, dy, dsf, need_ds0=False)
+        chunks = mamba_bwd_chunks(mamba_cuda, TRAIN_BATCH, t, d)
+        planned = mamba_cuda.bwd_route(t, mamba_cuda.mamba_scan_bwd_plan(TRAIN_BATCH, t, d))
+        label = f"mamba_scan_bwd b{TRAIN_BATCH} t{t}"
+        ms, times = planned_route_times(mamba_bwd_steps(mamba_cuda, x, dy, dsf), planned, label)
         plain_both = lambda: mamba_grads(torch, mamba_cuda.mamba_scan_plain, x, dy, dsf, False)
-        ms, plain = [], []
-        for which in ("plain", "kernel", "kernel", "plain"):
-            if which == "kernel":
-                ms.append(device_ms(bwd, 5))
-            else:  # autograd's backward is not captured in a graph: eager
-                plain.append(eager_ms(plain_both, 2, warmup=1) - fwd_plain_ms)
-        print(f"  mamba_scan_bwd device ms: kernel {ms}; plain backward (eager forward and "
-              f"backward on the host's clock, less the plain forward) {plain}")
-        mean = lambda xs: sum(xs) / len(xs)
-        flops, exps = mamba_work(TRAIN_BATCH, t, backward=True)
+        plain = [eager_ms(plain_both, 2, warmup=1) - fwd_plain_ms for _ in range(2)]
+        print(f"  {label} device ms, in turns: " + ", ".join(
+            f"{r} (chunk length {chunks[r]}) {times[r]}" for r in times)
+            + f"; plain backward (eager forward and backward on the host's clock, less the "
+            f"plain forward) {plain}")
+        b_work, flops, exps = mamba_bwd_work(x, dy, dsf, got)
         # max_abs_err: the largest error of a leaf as a share of its max|plain|
-        record(summary, "mamba_scan_bwd", worst, mean(ms), mean(plain),
-               nbytes(*args, dy, dsf, *got.values()), flops, f32, exps=exps)
-        scratch = (TRAIN_BATCH * -(-t // 16) * d * n + 2 * (d // 32) * TRAIN_BATCH * t * n) * 4
-        print(f"  scratch of one backward call: {scratch / 1e6:.1f} MB of checkpoints and "
-              f"dB / dC parts")
-        profiled(torch, lambda: [bwd() for _ in range(3)],
-                 f"3 calls of mamba_scan_bwd b{TRAIN_BATCH} t{t}", top=6)
+        record(summary, "mamba_scan_bwd", worst, ms[planned], sum(plain) / len(plain),
+               b_work, flops, f32, exps=exps)
+        for r in ms:
+            if r != planned:
+                note_shape("mamba_scan_bwd", f"b{TRAIN_BATCH} t{t} initial state none, {r} "
+                           f"route (chunk length {chunks[r]}, in turns)", ms[r], None, b_work,
+                           flops, f32, exps=exps)
+        print(f"  {label}: " + ", ".join(f"{r} {ms[r] * 1e3:.1f} us" for r in ms)
+              + f" (median of {2 * ROUTE_TURNS} in turns); the plan takes {planned}")
+        for r, c in chunks.items():
+            scratch = mamba_cuda.bwd_scratch_bytes(TRAIN_BATCH, t, d, c)
+            print(f"  scratch of one {r} backward call (chunk length {c}): {scratch} bytes "
+                  f"({scratch / 1e6:.1f} MB)")
+        profiled(torch, lambda: [mamba_bwd_steps(mamba_cuda, x, dy, dsf)[planned]()
+                                 for _ in range(3)],
+                 f"3 calls of mamba_scan_bwd b{TRAIN_BATCH} t{t}, {planned} route", top=8)
     reset_counts()  # the kernel phases' launches are no path's
+
+
+# chunk lengths and shapes of mamba_scan_bwd's route sweep (d 2048 n16, bf16
+# IO, no initial state, as training runs): they bracket mamba_scan_bwd_plan's
+# threshold and reach the training lengths; then the ragged lengths the
+# driven paths launch (training's t511, the gradient check's b2 t319) and
+# t511 at b1 and b2, where the plan's chunk length is not a power of two
+MAMBA_BWD_CHUNKS = (16, 32, 64, 128, 256)
+MAMBA_BWD_SWEEP_B = (1, 2, 4, 8)
+MAMBA_BWD_SWEEP_T = (16, 32, 48, 64, 96, 128, 256, 512)
+MAMBA_BWD_SWEEP_RAGGED = ((1, 511), (2, 319), (2, 511), (4, 511), (8, 511))
+
+
+def mamba_bwd_route_sweep(torch, mamba_cuda, card_line):
+    """mamba_scan_bwd timed in turns at every chunk length of
+    MAMBA_BWD_CHUNKS below t and at one chunk, over MAMBA_BWD_SWEEP_B x
+    MAMBA_BWD_SWEEP_T and MAMBA_BWD_SWEEP_RAGGED (there also a segment
+    either side of the planned length), beside the length
+    mamba_scan_bwd_plan picks:
+    where the plan comes from. Every point is timed and printed first
+    (median of six turns); then at every point the planned length may be at
+    most SWEEP_MARGIN slower than the fastest, a point that misses timed
+    again (planned_route_times) before the sweep fails on it."""
+    bf = torch.bfloat16
+    print(f"mamba_scan_bwd chunk-length sweep (d{MAMBA_D} n{MAMBA_N}, bf16 IO, no initial "
+          f"state; device us, median of {2 * ROUTE_TURNS} in turns; L{{t}} is one chunk) "
+          f"[{card_line}]:")
+    misses = []
+    points = [(b, t) for b in MAMBA_BWD_SWEEP_B for t in MAMBA_BWD_SWEEP_T]
+    for b, t in points + list(MAMBA_BWD_SWEEP_RAGGED):
+        x = mamba_inputs(torch, b, t, bf, None, False, seed=960 + t + b)
+        dy, dsf = mamba_cotangents(torch, x, seed=961 + t)
+        plan = mamba_cuda.mamba_scan_bwd_plan(b, t, MAMBA_D)
+        lengths = {c for c in MAMBA_BWD_CHUNKS if c < t} | {-(-t // 16) * 16, plan}
+        if (b, t) in MAMBA_BWD_SWEEP_RAGGED:
+            lengths |= set(mamba_bwd_neighbours(t, plan))
+        steps = {f"L{c}": (lambda c=c: mamba_bwd_call(mamba_cuda, x, dy, dsf, False, c))
+                 for c in sorted(lengths)}
+        ms, _ = time_routes(steps)
+        best = min(ms, key=ms.get)
+        print(f"  b{b} t{t}: " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in ms.items())
+              + f"; planned L{plan}, fastest {best}")
+        if ms[f"L{plan}"] > ms[best] * (1 + SWEEP_MARGIN):
+            misses.append((b, t, plan, steps))
+    for b, t, plan, steps in misses:  # fails here unless a second round clears it
+        planned_route_times(steps, f"L{plan}", f"mamba_scan_bwd sweep b{b} t{t}")
+    reset_counts()  # the sweep's launches are no path's
+
+
+def mamba_bwd_neighbours(t, chunk):
+    """The chunk lengths a segment either side of ``chunk`` that still cut
+    t into more than one chunk."""
+    return [c for c in (chunk - 16, chunk + 16) if 16 <= c < t]
+
+
+def mamba_gap_phase(torch, mamba_cuda, card_line):
+    """launches x (time - bound) of mamba_scan and of mamba_scan_bwd over the
+    Mamba main paths: every shape they launched each on, weighted by its
+    launch count (GAP_SHAPE_COUNTS), held against the plain version
+    (launched_mamba_shapes_phase), timed here beside the shape's bound: the
+    forward alone, the backward on its routes in turns and, where it took
+    the chunked route, at a segment either side of its chunk length too
+    (median of six, retimed on a miss; the length taken at most
+    SWEEP_MARGIN slower than the fastest). Prints each shape, the sums and,
+    for the backward, the sum had
+    every launch taken the one-chunk body; returns {kernel: sum on the
+    routes taken}."""
+    f32 = torch.float32
+    sums = {}
+    counts = GAP_SHAPE_COUNTS["mamba_scan"]
+    require(counts, "mamba_scan: the main paths launched it on no shape")
+    total = 0.0
+    print(f"mamba_scan: launches x (time - bound) over {sum(counts.values())} main-path "
+          f"launches on {len(counts)} shapes (device us; the kernel, the bound):")
+    for shape, n in sorted(counts.items(), key=str):
+        b, t, d, _, io, st, reset = shape
+        x = mamba_inputs(torch, b, t, io, st, reset, seed=780 + t + b)
+        args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+        call = lambda: mamba_cuda.mamba_scan(*args, initial_state=x["s0"], reset_mask=x["reset"])
+        with torch.no_grad():
+            y, sf = call()
+            ms = time_routes({"kernel": call})[0]["kernel"]
+        flops, exps = mamba_work(b, t)
+        bound_ms = roofline(nbytes(*args, x["s0"], x["reset"], y, sf), flops, f32, exps)[0]
+        total += n * (ms - bound_ms)
+        print(f"  {shape}: {n} launches; {ms * 1e3:.2f}, bound {bound_ms * 1e3:.3f}")
+    print(f"  mamba_scan: sum of launches x (time - bound) {total:.3f} ms [{card_line}]")
+    sums["mamba_scan"] = total
+    counts = GAP_SHAPE_COUNTS["mamba_scan_bwd"]
+    require(counts, "mamba_scan_bwd: the main paths launched it on no shape")
+    total = {"taken": 0.0, "one_chunk": 0.0}
+    print(f"mamba_scan_bwd: launches x (time - bound) over {sum(counts.values())} main-path "
+          f"launches on {len(counts)} shapes (device us; the route taken, the one-chunk body, "
+          f"the bound):")
+    for shape, n in sorted(counts.items(), key=str):
+        b, t, d, _, io, st, reset, need_ds0, chunk = shape
+        route = mamba_cuda.bwd_route(t, chunk)
+        x = mamba_inputs(torch, b, t, io, st, reset, seed=780 + t + b)
+        dy, dsf = mamba_cotangents(torch, x, seed=781 + t)
+        work, flops, exps = mamba_bwd_work(x, dy, dsf,
+                                           mamba_bwd_call(mamba_cuda, x, dy, dsf, need_ds0, chunk))
+        bound_ms = roofline(work, flops, f32, exps)[0]
+        steps = mamba_bwd_steps(mamba_cuda, x, dy, dsf, need_ds0)
+        require(mamba_bwd_chunks(mamba_cuda, b, t, d)[route] == chunk,
+                f"mamba_scan_bwd: {shape} took chunk length {chunk}, not its plan's")
+        if route == "chunked":
+            steps.update({f"L{c}": (lambda c=c: mamba_bwd_call(mamba_cuda, x, dy, dsf,
+                                                              need_ds0, c))
+                          for c in mamba_bwd_neighbours(t, chunk)})
+        label = f"mamba_scan_bwd b{b} t{t} IO {dtype_name(io)} {dtype_name(st)}"
+        ms = planned_route_times(steps, route, label)[0] if len(steps) > 1 else time_routes(steps)[0]
+        total["taken"] += n * (ms[route] - bound_ms)
+        total["one_chunk"] += n * (ms["one_chunk"] - bound_ms)
+        others = "".join(f", {k} {v * 1e3:.2f}" for k, v in ms.items() if k.startswith("L"))
+        print(f"  {shape}: {n} launches; {route} {ms[route] * 1e3:.2f}, one chunk "
+              f"{ms['one_chunk'] * 1e3:.2f}{others}, bound {bound_ms * 1e3:.3f}")
+    print(f"  mamba_scan_bwd: sum of launches x (time - bound) {total['taken']:.3f} ms on the "
+          f"routes taken; {total['one_chunk']:.3f} ms had every launch taken the one-chunk body "
+          f"[{card_line}]")
+    sums["mamba_scan_bwd"] = total["taken"]
+    return sums
 
 
 def mamba_phase(torch, np, gla_cuda, card_line):
@@ -4764,14 +4983,14 @@ def mamba_phase(torch, np, gla_cuda, card_line):
 
 def launched_mamba_shapes_phase(torch, mamba_cuda):
     """Every shape the driven Mamba paths launched the two Mamba kernels on
-    is held against the plain version now, unless the Mamba kernel phase
-    held it already."""
+    is held against the plain version now, the backward on every route,
+    unless the Mamba kernel phase held it already."""
     todo = {n: sorted(MAMBA_LAUNCHED[n] - MAMBA_HELD[n], key=str) for n in MAMBA_LAUNCHED}
     print("the driven Mamba paths launched " + ", ".join(
         f"{n} on {len(MAMBA_LAUNCHED[n])} shapes ({len(todo[n])} not held yet)" for n in todo))
     require(all(MAMBA_LAUNCHED.values()), f"a Mamba kernel launched on no shape: {MAMBA_LAUNCHED}")
-    for shape in todo["mamba_scan_bwd"]:
-        hold_mamba_scan(torch, mamba_cuda, shape[:-1], need_ds0=shape[-1])
+    for shape in todo["mamba_scan_bwd"]:  # (..., need_ds0, chunk length): held on every route
+        hold_mamba_scan(torch, mamba_cuda, shape[:7], need_ds0=shape[7])
     for shape in sorted(MAMBA_LAUNCHED["mamba_scan"] - MAMBA_HELD["mamba_scan"], key=str):
         hold_mamba_scan(torch, mamba_cuda, shape)
     require(all(MAMBA_LAUNCHED[n] <= MAMBA_HELD[n] for n in MAMBA_LAUNCHED),
@@ -4847,8 +5066,10 @@ def main():
     launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
     gaps.update(rwkv6_gap_phase(torch, rwkv6_cuda, card_line))
     mamba_kernel_phase(torch, mamba_cuda, summary)
+    mamba_bwd_route_sweep(torch, mamba_cuda, card_line)
     add_launches(launches, mamba_phase(torch, np, gla_cuda, card_line))
     launched_mamba_shapes_phase(torch, mamba_cuda)
+    gaps.update(mamba_gap_phase(torch, mamba_cuda, card_line))
     kernels = []
     for name, source, replaces in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")
@@ -4856,13 +5077,13 @@ def main():
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
     # launches x (time - bound): the two GLA forwards, gla_chunk's backward,
-    # the three decode steps, rwkv6_chunk and its backward over every
-    # launched shape, the other kernels at their row's shape
+    # the three decode steps, rwkv6_chunk and its backward and the two Mamba
+    # kernels over every launched shape, the other kernels at their row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
     print("launches x (time - bound), ms, largest first (the two GLA forwards, gla_chunk_bwd, "
-          "the three decode steps, rwkv6_chunk and its backward over every launched shape, the "
-          "others at their row's shape):")
+          "the three decode steps, rwkv6_chunk and its backward and the two Mamba kernels over "
+          "every launched shape, the others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")

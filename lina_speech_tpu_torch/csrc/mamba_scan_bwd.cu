@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel _bwd_kernel (lina_speech_tpu/ops/mamba_pallas.py
 // :86, reached through mamba_scan_pallas :468, _vjp_bwd :451 and _bwd_impl
-// :212 -> pallas_call :241). From dy (b, t, d) and the final-state
+// :229 -> pallas_call :241). From dy (b, t, d) and the final-state
 // cotangent dsf (b, d, n) it computes dx (IO dtype), ddt (f32), dB and dC
 // (in B's and C's dtype, the IO dtype), dA (d, n) and dD (d) summed over
 // the batch, and ds0 (b, d, n) f32. The reset flags get no gradient.
@@ -18,186 +18,568 @@
 //   ddt_t = sum_n e A + u x_t      dx_t = u dt_t + D dy_t
 //   dB_t = sum_d g dt_t x_t        g = a_t * g          (ds0 = g at the end)
 //
-// The TPU kernel reads the block-start states its training forward saved.
-// Here the forward saves nothing (inference and training run the same
-// kernel), so one block, on the layout of the forward (4 lanes a channel,
-// 32 channels a block, mamba_common.cuh):
-// 1. re-runs the forward from s0 and writes the state at the start of every
-//    segment of 16 steps to scratch (ck: (b, ceil(t/16), d, n) f32, 33.5 MB
-//    at b8 t512 d2048), each thread its own 4 values;
-// 2. walks the segments in reverse: stages the segment's inputs and dy,
-//    recomputes its 16 states from the checkpoint into registers (64 per
-//    thread), and walks them back with g in registers.
-// dB and dC sum over every channel d, and the blocks split d: a warp sums
-// its 8 channels with shuffles, the block its 4 warps in shared memory, and
-// each block writes its part (parts: (d/32, b, t, n) f32 each, 16.8 MB at
-// b8 t512); dA and dD accumulate per (b, d, n) and (b, d) in registers and
-// are written per batch row. sum_parts then adds the parts of dB and dC
-// over the blocks, and those of dA and dD over the batch, in a fixed order:
-// no atomics, so two runs give the same bits.
+// The TPU kernel walks time on a sequential grid axis and reads the block
+// -start states its training forward saved. Here blocks run in no order and
+// the forward saves nothing (inference and training run one kernel), so the
+// recurrence is cut into chunks of L steps (a multiple of the 16-step
+// segment; ops/mamba_cuda.py:mamba_scan_bwd_plan picks L) and the chunks
+// run in parallel. The recurrence is diagonal, so it splits exactly:
 //
-// What bounds it on the H100: the exponentials, three per (b, t, d, n)
-// (the forward re-run, the segment's recomputation and the reverse step);
-// at b8 t512 it moves ~121 MB of inputs and outputs (36 us at 3.35 TB/s)
-// and takes 402 M exponentials (~109 us at the SFU's rate), and its two
-// serial walks are latency bound besides.
+// 1. chunk_fwd_kernel (grid: 64-channel group x chunk x batch): each chunk
+//    from a zero state (chunk 0 from s0) runs its forward once, one
+//    exponential a state value, and writes the state at every segment start
+//    (ck, local to the chunk) with the chunk's dt sum up to it (cdt), its end
+//    state h_loc, its decay product P = prod a_t (0 if a step resets) and,
+//    from the same decays, the reverse scan of g from zero at its end in
+//    closed form, g_loc = sum_t (prod_{s<=t} a_s) C_t dy_t;
+// 2. carry_kernel (one thread a (b, d, n), serial over chunks only): the
+//    state at every chunk's start, H_c = P_{c-1} H_{c-1} + h_loc_{c-1}, and
+//    the cotangent at its end, G_c = P_{c+1} G_{c+1} + g_loc_{c+1} from dsf;
+// 3. chunk_bwd_kernel (same grid): the segment walk of one chunk, seeded
+//    by H_c and G_c: a segment's start state is its local checkpoint plus
+//    exp(A cdt) H_c (0 after a reset in the chunk), its 16
+//    states are recomputed into shared memory, then walked back with g. dx
+//    and ddt go out from the channel's first lane; dB and dC are summed over
+//    the warp's 8 channels by a reduce-scatter (7 shuffles for 8 values,
+//    each lane keeping one of the 32 (dB or dC, n) sums), over the block's
+//    warps in shared memory, and each block writes its group's part; dA and
+//    dD accumulate per (b, chunk, d, n) in registers;
+// 4. sum_parts adds the dB and dC parts over the channel groups, and those
+//    of dA and dD over batch and chunk, in a fixed order: no atomics, so two
+//    runs give the same bits.
+// With one chunk (L >= t) steps 1-2 shrink to the checkpoint pass from s0
+// (none for t <= 16) and the body walks the whole length.
+// Chunks pay where one chunk leaves the card idle (b * d / 64 blocks under
+// two an SM): at b8 d2048 one chunk fills it and the plan takes it.
+//
+// What bounds it on the H100: three exponentials a state value (step 1,
+// the recomputation, the reverse step; keeping the decays between the last
+// two would take another 64 KB of shared memory a block and halve the
+// blocks an SM) and, in the body, about 145 instructions a lane and step (4
+// state values; the reduce-scatter and the n-sums take about 40). At b8
+// t512 d2048 n16 (bf16 x, B, C, dy; f32 dt) on one chunk that is 403 M
+// exponentials (~96 us at the SFU's 16 per clock per SM, 1.98 GHz) and
+// ~5.8 G instructions (~174 us at 128 lanes a clock per SM), against ~121
+// MB of inputs and outputs (36 us at 3.35 TB/s). Its scratch there is 51.4
+// MB (ops/mamba_cuda.py:bwd_scratch_bytes): checkpoints 33.5 MB, the dB and
+// dC parts of the 32 channel groups 16.8 MB, dA and dD parts 1.1 MB; the chunked route adds
+// cdt and the chunk summaries (2.1 + 3 x 8.4 MB at L64). The body keeps 2
+// blocks of 256 threads an SM (128 registers, 101 KB of shared memory).
 #include "mamba_common.cuh"
 
 namespace mamba {
+namespace bwd {
 
-// h_{t0 + j - 1} of a segment: hs[j - 1], or the checkpoint hck for j = 0
-__device__ __forceinline__ float prev(const float (&hs)[kTile][kPer], const float (&hck)[kPer],
-                                      int j, int k) {
-  return j > 0 ? hs[j > 0 ? j - 1 : 0][k] : hck[k];
+constexpr int kCh = 64;                   // channels per block
+constexpr int kBThreads = kCh * kLanes;   // 256
+constexpr int kBWarps = kBThreads / 32;   // 8
+constexpr int kSeg = kTile;               // steps per segment and per staged tile
+static_assert(kSeg * kN == kBThreads, "one B and one C value a thread per segment");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One segment of the block's inputs: x, dt and dy of its kCh channels as
+// they lie in device memory (copied by cp.async), B and C in f32, keep
+// flags (0 at a reset step).
+template <typename IO>
+struct __align__(16) SegTile {
+  IO x[kSeg][kCh];
+  float dt[kSeg][kCh];
+  IO dy[kSeg][kCh];
+  float B[kSeg][kN];
+  float C[kSeg][kN];
+  float keep[kSeg];
+};
+
+// Start the copies of x, dt and (unless null) dy of steps [row, row + n)
+// into a tile: rows of the block's kLive channels, 16 bytes a copy.
+template <int kLive, typename Tile, typename IO>
+__device__ __forceinline__ void issue_rows(Tile& tl, const IO* __restrict__ x,
+                                           const float* __restrict__ dt,
+                                           const IO* __restrict__ dy, size_t row, int Dm,
+                                           int ch0, int n) {
+  constexpr int kV = 16 / sizeof(IO), xp = kLive / kV, dp = kLive / 4;
+  for (int i = threadIdx.x; i < n * xp; i += blockDim.x) {
+    const int j = i / xp, p = (i % xp) * kV;
+    const size_t off = (row + j) * Dm + ch0 + p;
+    cp_async16(&tl.x[j][p], x + off);
+    if (dy) cp_async16(&tl.dy[j][p], dy + off);
+  }
+  for (int i = threadIdx.x; i < n * dp; i += blockDim.x) {
+    const int j = i / dp, p = (i % dp) * 4;
+    cp_async16(&tl.dt[j][p], dt + (row + j) * Dm + ch0 + p);
+  }
+}
+
+// issue_rows for the block's ``live`` channels (64, or 32 in the last group
+// when d % 64 == 32), then one commit group.
+template <typename Tile, typename IO>
+__device__ __forceinline__ void issue_seg(Tile& tl, const IO* __restrict__ x,
+                                          const float* __restrict__ dt,
+                                          const IO* __restrict__ dy, size_t row, int Dm,
+                                          int ch0, int live, int n) {
+  if (live == kCh)
+    issue_rows<kCh>(tl, x, dt, dy, row, Dm, ch0, n);
+  else
+    issue_rows<kCh / 2>(tl, x, dt, dy, row, Dm, ch0, n);
+  cp_async_commit();
+}
+
+// A thread's share of a segment's B, C (one value each) and reset flag,
+// loaded into registers as they are and stored into the tile later, so the
+// loads' latency overlaps the current segment's work.
+template <typename IO>
+struct Small {
+  IO B, C;
+  uint8_t reset;
+};
+
+template <typename IO>
+__device__ __forceinline__ Small<IO> load_small(const IO* __restrict__ B, const IO* __restrict__ C,
+                                                const uint8_t* __restrict__ reset, size_t row,
+                                                int n) {
+  const int tid = threadIdx.x, j = tid / kN;
+  Small<IO> s{};
+  if (j < n) {
+    s.B = B[(row + j) * kN + tid % kN];
+    s.C = C[(row + j) * kN + tid % kN];
+  }
+  if (reset && tid < n) s.reset = reset[row + tid];
+  return s;
 }
 
 template <typename IO>
-__global__ void __launch_bounds__(kThreads)
-mamba_scan_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ A, const IO* __restrict__ B,
-                      const IO* __restrict__ C, const float* __restrict__ D,
-                      const float* __restrict__ s0, const uint8_t* __restrict__ reset,
-                      const IO* __restrict__ dy, const float* __restrict__ dsf,
-                      IO* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dBp,
-                      float* __restrict__ dCp, float* __restrict__ dAb,
-                      float* __restrict__ dDb, float* __restrict__ ds0,
-                      float* __restrict__ ck, int T, int Dm) {
-  const int b = blockIdx.y, blk = blockIdx.x, ch0 = blk * kChannels;
-  const int batch = gridDim.y;
-  const int tid = threadIdx.x, c = tid / kLanes, k0 = (tid % kLanes) * kPer;
-  const int lane = tid % 32, warp = tid / 32;
-  const int ch = ch0 + c;
-  const int n_seg = (T + kTile - 1) / kTile;
-  __shared__ Tile<true> tile;
-  __shared__ float sdx[kTile][kChannels], sddt[kTile][kChannels];
-  __shared__ float red[kTile][kWarps][2][kN];  // per-warp sums of dB (0), dC (1)
+__device__ __forceinline__ void store_small(SegTile<IO>& tl, const Small<IO>& s) {
+  const int tid = threadIdx.x;
+  tl.B[tid / kN][tid % kN] = to_f(s.B);
+  tl.C[tid / kN][tid % kN] = to_f(s.C);
+  if (tid < kSeg) tl.keep[tid] = s.reset ? 0.f : 1.f;
+}
 
-  float a2[kPer], af[kPer], h[kPer];
+// Sum over the warp's 8 channels (lane bits 2-4) of this lane's 8 values v:
+// three levels, each sending half of what is left to the partner lane.
+// Returns the one sum this lane keeps: that of v[kept_index(lane)].
+__device__ __forceinline__ float channel_reduce_scatter(const float (&v)[8], int lane) {
+  const bool b2 = lane & 4, b3 = lane & 8, b4 = lane & 16;
+  float w[4], u[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float keep = b2 ? v[i + 4] : v[i], send = b2 ? v[i] : v[i + 4];
+    w[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float keep = b3 ? w[i + 2] : w[i], send = b3 ? w[i] : w[i + 2];
+    u[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const float keep = b4 ? u[1] : u[0], send = b4 ? u[0] : u[1];
+  return keep + __shfl_xor_sync(0xffffffffu, send, 16);
+}
+
+__device__ __forceinline__ int kept_index(int lane) {
+  return ((lane >> 4) & 1) | ((lane >> 2) & 2) | (lane & 4);
+}
+
+// exp(dt A) for this lane's kPer state columns from a2 = A log2(e), 0 at a
+// reset step: mamba_common.cuh's decays with the SFU's ex2 flushing results
+// below 2^-126 to 0 (one instruction instead of five; such a decay changes
+// no state by more than 1e-38 times its value), a reset as an exponent of
+// -inf (ex2 gives +0) instead of a select a column.
+__device__ __forceinline__ void decays_ftz(float (&da)[kPer], const float (&a2)[kPer], float dt,
+                                           float keep) {
+  const float bias = keep != 0.f ? 0.f : -__int_as_float(0x7f800000);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(da[k]) : "f"(fmaf(dt, a2[k], bias)));
+}
+
+// ---- 1. chunk summaries (kChunked) or, with one chunk, the checkpoint pass
+// Layouts: ck (batch, ceil(T/16), Dm, kN) and cdt (batch, ceil(T/16), Dm),
+// segments indexed over the whole length; hloc, gloc, P (batch, chunks, Dm,
+// kN). Without kChunked only ck is written and the last segment is not run.
+// Its few operations a step leave it waiting on memory, so the inputs come
+// through a ring of kRing tiles, kRing - 1 segments ahead, all of them by
+// cp.async: x, dt, dy, B and C as they lie in device memory, and the 4-byte
+// words that hold the segment's reset flags.
+constexpr int kRing = 4;
+
+template <typename IO>
+struct __align__(16) FwdTile {
+  IO x[kSeg][kCh];
+  float dt[kSeg][kCh];
+  IO dy[kSeg][kCh];
+  IO B[kSeg][kN];
+  IO C[kSeg][kN];
+  uint32_t rw[kSeg / 4 + 1];  // reset bytes [row & ~3, row + kSeg)
+};
+
+template <typename IO>
+__device__ __forceinline__ void issue_fwd(FwdTile<IO>& tl, const IO* __restrict__ x,
+                                          const float* __restrict__ dt,
+                                          const IO* __restrict__ B, const IO* __restrict__ C,
+                                          const uint8_t* __restrict__ reset,
+                                          const IO* __restrict__ dy, size_t row, int Dm,
+                                          int ch0, int live, int n) {
+  if (live == kCh)
+    issue_rows<kCh>(tl, x, dt, dy, row, Dm, ch0, n);
+  else
+    issue_rows<kCh / 2>(tl, x, dt, dy, row, Dm, ch0, n);
+  constexpr int kV = 16 / sizeof(IO), bp = kN / kV;  // 16-byte pieces of a row of B
+  for (int i = threadIdx.x; i < n * bp; i += blockDim.x) {
+    const int j = i / bp, p = (i % bp) * kV;
+    cp_async16(&tl.B[j][p], B + (row + j) * kN + p);
+    if (dy) cp_async16(&tl.C[j][p], C + (row + j) * kN + p);
+  }
+  if (reset) {
+    const uintptr_t w0 = reinterpret_cast<uintptr_t>(reset + row) & ~uintptr_t(3);
+    const int words = static_cast<int>((reinterpret_cast<uintptr_t>(reset + row + n - 1) - w0) / 4) + 1;
+    if (threadIdx.x < words)
+      cp_async4(&tl.rw[threadIdx.x], reinterpret_cast<const void*>(w0 + 4 * threadIdx.x));
+  }
+}
+
+template <typename IO, bool kChunked>
+__global__ void __launch_bounds__(kBThreads)
+chunk_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const IO* __restrict__ B,
+                 const IO* __restrict__ C, const float* __restrict__ s0,
+                 const uint8_t* __restrict__ reset, const IO* __restrict__ dy,
+                 float* __restrict__ ck, float* __restrict__ cdt, float* __restrict__ hloc,
+                 float* __restrict__ gloc, float* __restrict__ P, int T, int Dm, int L) {
+  const int b = blockIdx.z, c = blockIdx.y, n_chunk = gridDim.y, ch0 = blockIdx.x * kCh;
+  const int tid = threadIdx.x, cl = tid / kLanes, k0 = (tid % kLanes) * kPer;
+  const int live = min(kCh, Dm - ch0);
+  const bool on = cl < live;  // uniform across a warp (live is 32 or 64)
+  const int ch = ch0 + (on ? cl : 0);
+  const int c0 = c * L, len = min(L, T - c0), n_seg = (len + kSeg - 1) / kSeg;
+  const int n_run = kChunked ? n_seg : n_seg - 1;  // segments whose steps are run
+  const int seg_all = (T + kSeg - 1) / kSeg, seg0 = c0 / kSeg;
+  const size_t brow = (size_t)b * T;
+  extern __shared__ float4 smem_raw[];
+  FwdTile<IO>* tiles = reinterpret_cast<FwdTile<IO>*>(smem_raw);
+
+  float a2[kPer], h[kPer], q[kPer], gl[kPer], cum = 0.f;
   const size_t srow = ((size_t)b * Dm + ch) * kN + k0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    a2[k] = A[(size_t)ch * kN + k0 + k] * kLog2e;
+    h[k] = (c == 0 && s0) ? s0[srow + k] : 0.f;
+    q[k] = 1.f;
+    gl[k] = 0.f;
+  }
+  const IO* dy_in = kChunked ? dy : nullptr;
+  auto issue = [&](int s) {  // segment s into its ring slot, one commit group (empty past the end)
+    if (s < n_run) {
+      const int t0 = c0 + s * kSeg;
+      issue_fwd(tiles[s % kRing], x, dt, B, C, reset, dy_in, brow + t0, Dm, ch0, live,
+                min(kSeg, c0 + len - t0));
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < kRing - 1; ++s) issue(s);
+  for (int s = 0; s < n_seg; ++s) {
+    const size_t seg = (size_t)b * seg_all + seg0 + s;
+    if (on) {
+      *reinterpret_cast<float4*>(ck + (seg * Dm + ch) * kN + k0) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      if (kChunked && k0 == 0) cdt[seg * Dm + ch] = cum;
+    }
+    if (s == n_run) break;
+    const int t0 = c0 + s * kSeg, n = min(kSeg, c0 + len - t0);
+    issue(s + kRing - 1);  // into the slot segment s - 1 used
+    cp_async_wait<kRing - 1>();
+    __syncthreads();
+    const FwdTile<IO>& tl = tiles[s % kRing];
+    const uint8_t* rs = reinterpret_cast<const uint8_t*>(tl.rw) +
+                        (reinterpret_cast<uintptr_t>(reset + brow + t0) & 3);
+    auto step = [&](int j) {
+      const float dtv = tl.dt[j][cl], dtx = dtv * to_f(tl.x[j][cl]);
+      float da[kPer];
+      decays_ftz(da, a2, dtv, reset && rs[j] ? 0.f : 1.f);
+      if (kChunked) {
+        const float dyv = to_f(tl.dy[j][cl]);
+        cum += dtv;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          h[k] = da[k] * h[k] + dtx * to_f(tl.B[j][k0 + k]);
+          q[k] *= da[k];
+          gl[k] += q[k] * (to_f(tl.C[j][k0 + k]) * dyv);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) h[k] = da[k] * h[k] + dtx * to_f(tl.B[j][k0 + k]);
+      }
+    };
+    if (on) {
+      if (n == kSeg) {  // every segment but a ragged last one: constant offsets
+#pragma unroll
+        for (int j = 0; j < kSeg; ++j) step(j);
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < n; ++j) step(j);
+      }
+    }
+    __syncthreads();  // this slot is consumed before segment s + kRing is copied into it
+  }
+  if (kChunked && on) {
+    const size_t off = (((size_t)b * n_chunk + c) * Dm + ch) * kN + k0;
+    *reinterpret_cast<float4*>(hloc + off) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(gloc + off) = make_float4(gl[0], gl[1], gl[2], gl[3]);
+    *reinterpret_cast<float4*>(P + off) = make_float4(q[0], q[1], q[2], q[3]);
+  }
+}
+
+// ---- 2. the carry across chunks, in place: hloc[c] becomes H_c, the state
+// at chunk c's start (c >= 1; chunk 0's summary started from s0, so H_1 =
+// hloc[0]), and gloc[c] becomes G_c, the state cotangent at chunk c's end
+// (dsf, or zeros, for the last chunk). One thread a (b, d, n) value; the
+// loads of kU chunks go out before their arithmetic.
+__global__ void carry_kernel(float* __restrict__ hloc, float* __restrict__ gloc,
+                             const float* __restrict__ P, const float* __restrict__ dsf,
+                             int n_chunk, int per_b, size_t count) {
+  constexpr int kU = 8;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const size_t b = i / per_b, base = b * n_chunk * per_b + i % per_b;
+  float *hl = hloc + base, *gl = gloc + base;
+  const float* p = P + base;
+  float h = hl[0];
+  for (int c0 = 1; c0 < n_chunk; c0 += kU) {
+    float hv[kU], pv[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 + u < n_chunk) {
+        hv[u] = hl[(size_t)(c0 + u) * per_b];
+        pv[u] = p[(size_t)(c0 + u) * per_b];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 + u < n_chunk) {
+        hl[(size_t)(c0 + u) * per_b] = h;
+        h = pv[u] * h + hv[u];
+      }
+    }
+  }
+  float g = dsf ? dsf[i] : 0.f;
+  for (int c0 = n_chunk - 1; c0 >= 0; c0 -= kU) {
+    float gv[kU], pv[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 - u >= 0) {
+        gv[u] = gl[(size_t)(c0 - u) * per_b];
+        pv[u] = p[(size_t)(c0 - u) * per_b];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 - u >= 0) {
+        gl[(size_t)(c0 - u) * per_b] = g;
+        g = pv[u] * g + gv[u];
+      }
+    }
+  }
+}
+
+// ---- 3. the chunk body: the reverse walk of one chunk's segments from G_c,
+// each segment's states recomputed from its checkpoint into shared memory
+// (a float4 a thread and step: 64 KB a block, which keeps the registers
+// under 128 a thread for two blocks an SM). ck null: zero checkpoints (one segment,
+// no s0); Hs null: one chunk (no correction); Gs (batch, chunks, Dm, kN) or
+// null for zeros. Parts: dBp, dCp (groups, batch, T, kN); dAp (batch,
+// chunks, Dm, kN); dDp (batch, chunks, Dm).
+template <typename IO>
+struct BodySmem {
+  SegTile<IO> tiles[2];
+  float red[kSeg][kBWarps][32];  // per-warp sums of dB and dC, one a lane
+  float4 hs[kSeg][kBThreads];    // the segment's states, hs[j] = h_{t0 + j}
+  int warp_reset[kBWarps];  // each warp's first reset step in the chunk
+};
+
+template <typename IO>
+__global__ void __launch_bounds__(kBThreads, 2)
+chunk_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const IO* __restrict__ B,
+                 const IO* __restrict__ C, const float* __restrict__ D,
+                 const uint8_t* __restrict__ reset, const IO* __restrict__ dy,
+                 const float* __restrict__ ck, const float* __restrict__ cdt,
+                 const float* __restrict__ Hs, const float* __restrict__ Gs,
+                 IO* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dBp,
+                 float* __restrict__ dCp, float* __restrict__ dAp, float* __restrict__ dDp,
+                 float* __restrict__ ds0, int T, int Dm, int L) {
+  const int b = blockIdx.z, batch = gridDim.z, c = blockIdx.y, n_chunk = gridDim.y;
+  const int ch0 = blockIdx.x * kCh;
+  const int tid = threadIdx.x, cl = tid / kLanes, k0 = (tid % kLanes) * kPer;
+  const int lane = tid % 32, warp = tid / 32;
+  const int live = min(kCh, Dm - ch0);
+  const bool on = cl < live;
+  const int ch = ch0 + (on ? cl : 0);
+  const int c0 = c * L, len = min(L, T - c0), n_seg = (len + kSeg - 1) / kSeg;
+  const int seg_all = (T + kSeg - 1) / kSeg, seg0 = c0 / kSeg;
+  const size_t brow = (size_t)b * T;
+  extern __shared__ float4 smem_raw[];
+  BodySmem<IO>& sm = *reinterpret_cast<BodySmem<IO>*>(smem_raw);
+  SegTile<IO>* tiles = sm.tiles;
+
+  float a2[kPer], af[kPer], g[kPer], hc[kPer];
+  const size_t srow = ((size_t)b * Dm + ch) * kN + k0;
+  const size_t crow = (((size_t)b * n_chunk + c) * Dm + ch) * kN + k0;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     af[k] = A[(size_t)ch * kN + k0 + k];
     a2[k] = af[k] * kLog2e;
-    h[k] = s0 ? s0[srow + k] : 0.f;
+    g[k] = Gs ? Gs[crow + k] : 0.f;
+    hc[k] = Hs && c > 0 ? Hs[crow + k] : 0.f;
   }
   const float d_skip = D[ch];
-  // this thread's checkpoint of segment s: ck[((b * n_seg + s) * Dm + ch) * kN + k0]
-  float* ck_row = ck + ((size_t)b * n_seg * Dm + ch) * kN + k0;
-  const size_t ck_seg = (size_t)Dm * kN;
-
-  // ---- 1. forward re-run: the state at the start of every segment
-  for (int s = 0; s < n_seg; ++s) {
-    *reinterpret_cast<float4*>(ck_row + s * ck_seg) = make_float4(h[0], h[1], h[2], h[3]);
-    if (s == n_seg - 1) break;  // the last segment's states are recomputed in 2.
-    const int t0 = s * kTile;   // a full tile: only the last one can be ragged
-    __syncthreads();
-    stage(tile, x, dt, B, C, reset, static_cast<const IO*>(nullptr), b, T, Dm, ch0, t0,
-          kTile);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float dtv = tile.dt[j][c], dtx = dtv * tile.x[j][c];
-      float da[kPer];
-      decays(da, a2, dtv, tile.keep[j]);
+  // the chunk's first reset step (its end if none), a min over the block
+  // (each thread's first hit, then the warps', then the block's): a
+  // checkpoint at or before it carries exp(A cdt) H_c, one after it nothing
+  // of H_c
+  int first_reset = c0 + len;
+  if (Hs && c > 0 && reset) {
+    for (int i = tid; i < len; i += kBThreads)
+      if (reset[brow + c0 + i]) {
+        first_reset = c0 + i;
+        break;
+      }
+  }
+  first_reset = __reduce_min_sync(0xffffffffu, first_reset);
+  if (lane == 0) sm.warp_reset[warp] = first_reset;
+  __syncthreads();
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) h[k] = da[k] * h[k] + dtx * tile.B[j][k0 + k];
-    }
+  for (int w = 0; w < kBWarps; ++w) first_reset = min(first_reset, sm.warp_reset[w]);
+  {
+    const int s = n_seg - 1, t0 = c0 + s * kSeg;
+    issue_seg(tiles[s & 1], x, dt, dy, brow + t0, Dm, ch0, live, c0 + len - t0);
+    store_small(tiles[s & 1], load_small(B, C, reset, brow + t0, c0 + len - t0));
   }
 
-  // ---- 2. reverse walk
-  float g[kPer], dA_acc[kPer] = {0.f, 0.f, 0.f, 0.f};
+  float dA_acc[kPer] = {0.f, 0.f, 0.f, 0.f};
   float dD_acc = 0.f;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) g[k] = dsf ? dsf[srow + k] : 0.f;
   for (int s = n_seg - 1; s >= 0; --s) {
-    const int t0 = s * kTile, n = min(kTile, T - t0);
-    __syncthreads();  // the previous segment's tile, sdx, sddt and red are consumed
-    stage(tile, x, dt, B, C, reset, dy, b, T, Dm, ch0, t0, n);
-    const float4 c4 = *reinterpret_cast<const float4*>(ck_row + s * ck_seg);
-    const float hck[kPer] = {c4.x, c4.y, c4.z, c4.w};
-    __syncthreads();
-
-    // hs[j] = h_{t0 + j}; every index is a constant once the loops are
-    // unrolled, so hs stays in registers
-    float hs[kTile][kPer];
+    const int t0 = c0 + s * kSeg, n = min(kSeg, c0 + len - t0);
+    const size_t seg = (size_t)b * seg_all + seg0 + s;
+    float hck[kPer], cd = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (j < n) {
-        const float dtv = tile.dt[j][c], dtx = dtv * tile.x[j][c];
-        float da[kPer];
-        decays(da, a2, dtv, tile.keep[j]);
-#pragma unroll
-        for (int k = 0; k < kPer; ++k)
-          hs[j][k] = da[k] * prev(hs, hck, j, k) + dtx * tile.B[j][k0 + k];
-      }
+    for (int k = 0; k < kPer; ++k) hck[k] = ck ? ck[(seg * Dm + ch) * kN + k0 + k] : 0.f;
+    if (Hs) cd = cdt[seg * Dm + ch];
+    Small<IO> nxt;
+    if (s > 0) {
+      issue_seg(tiles[(s - 1) & 1], x, dt, dy, brow + t0 - kSeg, Dm, ch0, live, kSeg);
+      nxt = load_small(B, C, reset, brow + t0 - kSeg, kSeg);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const SegTile<IO>& tl = tiles[s & 1];
+    if (on) {
+      if (Hs && c > 0 && first_reset >= t0) {
 #pragma unroll
-    for (int jj = 0; jj < kTile; ++jj) {
-      const int j = kTile - 1 - jj;
-      if (j < n) {  // uniform across the block: the shuffles below see every lane
-        const float dyv = tile.dy[j][c], xv = tile.x[j][c], dtv = tile.dt[j][c];
+        for (int k = 0; k < kPer; ++k) hck[k] += exp2f(a2[k] * cd) * hc[k];
+      }
+      const float h0[kPer] = {hck[0], hck[1], hck[2], hck[3]};  // h_{t0 - 1}
+      float4* hs = &sm.hs[0][tid];  // hs[j * kBThreads] = h_{t0 + j}
+      auto recompute = [&](int j) {
+        const float dtv = tl.dt[j][cl], dtx = dtv * to_f(tl.x[j][cl]);
+        float da[kPer];
+        decays_ftz(da, a2, dtv, tl.keep[j]);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) hck[k] = da[k] * hck[k] + dtx * tl.B[j][k0 + k];
+        hs[j * kBThreads] = make_float4(hck[0], hck[1], hck[2], hck[3]);
+      };
+      // the reverse step at t0 + j, with h_{t0 + j} in hcur (then h_{t0 + j - 1})
+      float hcur[kPer];
+      float* ddt_seg = ddt + (brow + t0) * Dm + ch;
+      IO* dx_seg = dx + (brow + t0) * Dm + ch;
+      auto reverse = [&](int j) {
+        float hp[kPer];
+        if (j > 0) {
+          const float4 p4 = hs[(j - 1) * kBThreads];
+          hp[0] = p4.x, hp[1] = p4.y, hp[2] = p4.z, hp[3] = p4.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) hp[k] = h0[k];
+        }
+        const float dyv = to_f(tl.dy[j][cl]), xv = to_f(tl.x[j][cl]), dtv = tl.dt[j][cl];
         const float dtx = dtv * xv;
-        float da[kPer], cB[kPer], cC[kPer];
-        decays(da, a2, dtv, tile.keep[j]);
+        float da[kPer], v[8];  // v: this lane's dB terms (0-3) and dC terms (4-7)
+        decays_ftz(da, a2, dtv, tl.keep[j]);
         dD_acc += dyv * xv;
         float e_sum = 0.f, u = 0.f;
 #pragma unroll
         for (int k = 0; k < kPer; ++k) {
-          cC[k] = hs[j][k] * dyv;
-          g[k] += tile.C[j][k0 + k] * dyv;
-          const float e = g[k] * prev(hs, hck, j, k) * da[k];
+          v[4 + k] = hcur[k] * dyv;
+          g[k] += tl.C[j][k0 + k] * dyv;
+          const float e = g[k] * hp[k] * da[k];
           dA_acc[k] += e * dtv;
           e_sum += e * af[k];
-          u += g[k] * tile.B[j][k0 + k];
-          cB[k] = g[k] * dtx;
+          u += g[k] * tl.B[j][k0 + k];
+          v[k] = g[k] * dtx;
           g[k] *= da[k];
+          hcur[k] = hp[k];
         }
         e_sum = lane_group_sum(e_sum);
         u = lane_group_sum(u);
         if (k0 == 0) {
-          sddt[j][c] = e_sum + u * xv;
-          sdx[j][c] = u * dtv + d_skip * dyv;
+          ddt_seg[(size_t)j * Dm] = e_sum + u * xv;
+          dx_seg[(size_t)j * Dm] = from_f<IO>(u * dtv + d_skip * dyv);
         }
-        // sum over the warp's 8 channels (lanes 4c + k0/4)
+        sm.red[j][warp][lane] = channel_reduce_scatter(v, lane);
+      };
+      // n is uniform across the block: the shuffles see every lane
+      if (n == kSeg) {  // every segment but a ragged last one: constant offsets
 #pragma unroll
-        for (int k = 0; k < kPer; ++k) {
+        for (int j = 0; j < kSeg; ++j) recompute(j);
 #pragma unroll
-          for (int off = kLanes; off < 32; off *= 2) {
-            cB[k] += __shfl_xor_sync(0xffffffffu, cB[k], off);
-            cC[k] += __shfl_xor_sync(0xffffffffu, cC[k], off);
-          }
-        }
-        if (lane < kLanes) {
+        for (int k = 0; k < kPer; ++k) hcur[k] = hck[k];
 #pragma unroll
-          for (int k = 0; k < kPer; ++k) {
-            red[j][warp][0][k0 + k] = cB[k];
-            red[j][warp][1][k0 + k] = cC[k];
-          }
-        }
+        for (int j = kSeg - 1; j >= 0; --j) reverse(j);
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < n; ++j) recompute(j);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) hcur[k] = hck[k];
+#pragma unroll 1
+        for (int j = n - 1; j >= 0; --j) reverse(j);
       }
     }
+    if (s > 0) store_small(tiles[(s - 1) & 1], nxt);
     __syncthreads();
-    for (int idx = tid; idx < n * kChannels; idx += kThreads) {
-      const int j = idx / kChannels, cc = idx % kChannels;
-      const size_t off = ((size_t)b * T + t0 + j) * Dm + ch0 + cc;
-      dx[off] = from_f<IO>(sdx[j][cc]);
-      ddt[off] = sddt[j][cc];
-    }
-    for (int idx = tid; idx < n * 2 * kN; idx += kThreads) {
-      const int j = idx / (2 * kN), which = (idx / kN) % 2, k = idx % kN;
+    // the block's part of dB and dC for the segment, its live warps in order
+    for (int idx = tid; idx < n * 32; idx += kBThreads) {
+      const int j = idx / 32, l = idx % 32, vi = kept_index(l);
       float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += red[j][w][which][k];
-      float* part = which ? dCp : dBp;
-      part[(((size_t)blk * batch + b) * T + t0 + j) * kN + k] = sum;
+      for (int w = 0; w < live / 8; ++w) sum += sm.red[j][w][l];
+      float* part = vi >= kPer ? dCp : dBp;
+      part[(((size_t)blockIdx.x * batch + b) * T + t0 + j) * kN + (l % kLanes) * kPer +
+           vi % kPer] = sum;
     }
   }
+  if (on) {
+    *reinterpret_cast<float4*>(dAp + crow) =
+        make_float4(dA_acc[0], dA_acc[1], dA_acc[2], dA_acc[3]);
+    if (k0 == 0) dDp[((size_t)b * n_chunk + c) * Dm + ch] = dD_acc;
+    if (ds0 && c == 0) {
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (ds0) ds0[srow + k] = g[k];
-    dAb[srow + k] = dA_acc[k];
+      for (int k = 0; k < kPer; ++k) ds0[srow + k] = g[k];
+    }
   }
-  if (k0 == 0) dDb[(size_t)b * Dm + ch] = dD_acc;
 }
 
 // out[i] = sum over p of parts[p * count + i], p in order.
@@ -221,54 +603,109 @@ int launch_sum(const float* parts, void* out, int n_parts, size_t count, cudaStr
 }
 
 template <typename IO>
-int launch_bwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
-               const void* D, const void* s0, const void* reset, const void* dy,
-               const void* dsf, void* dx, void* ddt, void* dB, void* dC, void* dA, void* dD,
-               void* ds0, void* ck, void* dBp, void* dCp, void* dAb, void* dDb, int batch, int T,
-               int Dm, cudaStream_t stream) {
-  const int n_blk = Dm / kChannels;
-  const dim3 grid(n_blk, batch);
-  float *dBp_ = static_cast<float*>(dBp), *dCp_ = static_cast<float*>(dCp),
-        *dAb_ = static_cast<float*>(dAb), *dDb_ = static_cast<float*>(dDb);
-  mamba_scan_bwd_kernel<IO><<<grid, kThreads, 0, stream>>>(
-      static_cast<const IO*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const IO*>(B), static_cast<const IO*>(C), static_cast<const float*>(D),
-      static_cast<const float*>(s0), static_cast<const uint8_t*>(reset),
-      static_cast<const IO*>(dy), static_cast<const float*>(dsf), static_cast<IO*>(dx),
-      static_cast<float*>(ddt), dBp_, dCp_, dAb_, dDb_, static_cast<float*>(ds0),
-      static_cast<float*>(ck), T, Dm);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
+int launch_bwd(const void* x_, const void* dt_, const void* A_, const void* B_, const void* C_,
+               const void* D_, const void* s0_, const void* reset_, const void* dy_,
+               const void* dsf_, void* dx, void* ddt, void* dB, void* dC, void* dA, void* dD,
+               void* ds0, void* ck_, void* cdt_, void* hloc_, void* gloc_, void* P_, void* dBp_,
+               void* dCp_, void* dAp_, void* dDp_, int batch, int T, int Dm, int L,
+               cudaStream_t st) {
+  const IO *x = static_cast<const IO*>(x_), *B = static_cast<const IO*>(B_),
+           *C = static_cast<const IO*>(C_), *dy = static_cast<const IO*>(dy_);
+  const float *dt = static_cast<const float*>(dt_), *A = static_cast<const float*>(A_),
+              *D = static_cast<const float*>(D_), *s0 = static_cast<const float*>(s0_),
+              *dsf = static_cast<const float*>(dsf_);
+  const uint8_t* reset = static_cast<const uint8_t*>(reset_);
+  float *ck = static_cast<float*>(ck_), *cdt = static_cast<float*>(cdt_),
+        *hloc = static_cast<float*>(hloc_), *gloc = static_cast<float*>(gloc_),
+        *P = static_cast<float*>(P_), *dBp = static_cast<float*>(dBp_),
+        *dCp = static_cast<float*>(dCp_), *dAp = static_cast<float*>(dAp_),
+        *dDp = static_cast<float*>(dDp_);
+  const int n_chunk = (T + L - 1) / L, n_seg = (T + kSeg - 1) / kSeg;
+  const int n_grp = (Dm + kCh - 1) / kCh;
+  const dim3 grid(n_grp, n_chunk, batch);
+  const float *Hs = nullptr, *Gs = dsf, *ckr = ck;
+  int err = 0;
+  const int fwd_smem = static_cast<int>(kRing * sizeof(FwdTile<IO>));
+  static bool fwd_smem_set = false;  // once a process and IO type, before the first launch
+  if (!fwd_smem_set) {
+    if ((err = static_cast<int>(cudaFuncSetAttribute(chunk_fwd_kernel<IO, true>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     fwd_smem))))
+      return err;
+    if ((err = static_cast<int>(cudaFuncSetAttribute(chunk_fwd_kernel<IO, false>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     fwd_smem))))
+      return err;
+    fwd_smem_set = true;
+  }
+  if (n_chunk > 1) {
+    chunk_fwd_kernel<IO, true><<<grid, kBThreads, fwd_smem, st>>>(
+        x, dt, A, B, C, s0, reset, dy, ck, cdt, hloc, gloc, P, T, Dm, L);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    const size_t count = (size_t)batch * Dm * kN;
+    carry_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(
+        hloc, gloc, P, dsf, n_chunk, Dm * kN, count);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    Hs = hloc;
+    Gs = gloc;
+  } else if (n_seg > 1) {
+    chunk_fwd_kernel<IO, false><<<grid, kBThreads, fwd_smem, st>>>(
+        x, dt, A, B, C, s0, reset, nullptr, ck, nullptr, nullptr, nullptr, nullptr, T, Dm, L);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  } else {
+    ckr = s0;  // one segment: its checkpoint is s0
+  }
+  const int smem = static_cast<int>(sizeof(BodySmem<IO>));
+  static bool smem_set = false;  // once a process and IO type, before the first launch
+  if (!smem_set) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        chunk_bwd_kernel<IO>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (err) return err;
+    smem_set = true;
+  }
+  chunk_bwd_kernel<IO><<<grid, kBThreads, smem, st>>>(x, dt, A, B, C, D, reset, dy, ckr, cdt, Hs,
+                                                   Gs, static_cast<IO*>(dx),
+                                                   static_cast<float*>(ddt), dBp, dCp, dAp,
+                                                   dDp, static_cast<float*>(ds0), T, Dm, L);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
   const size_t btn = (size_t)batch * T * kN;
-  if ((err = launch_sum<IO>(dBp_, dB, n_blk, btn, stream))) return err;
-  if ((err = launch_sum<IO>(dCp_, dC, n_blk, btn, stream))) return err;
-  if ((err = launch_sum<float>(dAb_, dA, batch, (size_t)Dm * kN, stream))) return err;
-  return launch_sum<float>(dDb_, dD, batch, (size_t)Dm, stream);
+  if ((err = launch_sum<IO>(dBp, dB, n_grp, btn, st))) return err;
+  if ((err = launch_sum<IO>(dCp, dC, n_grp, btn, st))) return err;
+  if ((err = launch_sum<float>(dAp, dA, batch * n_chunk, (size_t)Dm * kN, st))) return err;
+  return launch_sum<float>(dDp, dD, batch * n_chunk, (size_t)Dm, st);
 }
 
+}  // namespace bwd
 }  // namespace mamba
 
 // C entry point (bound with ctypes in ops/mamba_cuda.py). Inputs as
 // mamba_scan_fwd, plus dy (batch, T, Dm) in the IO dtype and dsf (batch,
-// Dm, N) f32 or null (zeros). Outputs: dx (batch, T, Dm) in the IO dtype;
-// ddt (batch, T, Dm) f32; dB, dC (batch, T, N) in the IO dtype; dA (Dm, N)
-// and dD (Dm) f32, summed over the batch; ds0 (batch, Dm, N) f32, or null
-// to skip it. Scratch, all f32: ck (batch, ceil(T/16), Dm, N); dBp, dCp
-// (Dm/32, batch, T, N); dAb (batch, Dm, N); dDb (batch, Dm). All
-// contiguous; T >= 1. Returns the first launch's cudaGetLastError() that is
-// not 0, -1 for N != 16, -2 for an unsupported dtype code, -3 for Dm % 32
-// != 0.
+// Dm, N) f32 or null (zeros); x, dt and dy 16-byte aligned. Outputs: dx
+// (batch, T, Dm) in the IO dtype; ddt (batch, T, Dm) f32; dB, dC (batch,
+// T, N) in the IO dtype; dA (Dm, N) and dD (Dm) f32, summed over the batch;
+// ds0 (batch, Dm, N) f32, or null to skip it. L: the chunk length, a
+// multiple of 16 (L >= T: one chunk). Scratch, all f32, 16-byte aligned:
+// ck (batch, ceil(T/16), Dm, N), unused (may be null) for T <= 16 in one
+// chunk; with more than one chunk cdt (batch, ceil(T/16), Dm) and hloc,
+// gloc, P (batch, ceil(T/L), Dm, N), else null; dBp, dCp (ceil(Dm/64),
+// batch, T, N); dAp (batch, ceil(T/L), Dm, N); dDp (batch, ceil(T/L), Dm).
+// All contiguous; T >= 1. Returns the first launch's cudaGetLastError()
+// that is not 0, -1 for N != 16, -2 for an unsupported dtype code, -3 for
+// Dm % 32 != 0, -4 for an L that is not a positive multiple of 16.
 extern "C" int mamba_scan_bwd(const void* x, const void* dt, const void* A, const void* B,
                               const void* C, const void* D, const void* s0,
                               const void* reset, const void* dy, const void* dsf, void* dx,
                               void* ddt, void* dB, void* dC, void* dA, void* dD, void* ds0,
-                              void* ck, void* dBp, void* dCp, void* dAb, void* dDb, int batch,
-                              int T, int Dm, int N, int io_dtype, void* stream) {
+                              void* ck, void* cdt, void* hloc, void* gloc, void* P, void* dBp,
+                              void* dCp, void* dAp, void* dDp, int batch, int T, int Dm, int N,
+                              int L, int io_dtype, void* stream) {
   if (N != mamba::kN) return -1;
   if (Dm % mamba::kChannels != 0) return -3;
+  if (L <= 0 || L % mamba::bwd::kSeg != 0) return -4;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MAMBA_DISPATCH_IO(io_dtype, return mamba::launch_bwd<IO>(
+  MAMBA_DISPATCH_IO(io_dtype, return mamba::bwd::launch_bwd<IO>(
                                   x, dt, A, B, C, D, s0, reset, dy, dsf, dx, ddt, dB, dC, dA,
-                                  dD, ds0, ck, dBp, dCp, dAb, dDb, batch, T, Dm, st))
+                                  dD, ds0, ck, cdt, hloc, gloc, P, dBp, dCp, dAp, dDp, batch,
+                                  T, Dm, L, st))
   return -2;
 }

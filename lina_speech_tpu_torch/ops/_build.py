@@ -130,7 +130,7 @@ def load_library() -> ctypes.CDLL:
     lib.rwkv6_decode_step.restype = i
     lib.mamba_scan_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.mamba_scan_fwd.restype = i
-    lib.mamba_scan_bwd.argtypes = [p] * 22 + [i] * 5 + [p]
+    lib.mamba_scan_bwd.argtypes = [p] * 26 + [i] * 6 + [p]
     lib.mamba_scan_bwd.restype = i
     _lib = lib
     return lib

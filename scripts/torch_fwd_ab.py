@@ -24,8 +24,10 @@ flagship's conv forward (h4 dk256 dv512, bf16 IO) at b8 t512 (no initial
 state), b8 t151 and b1 t128 (bf16 and f32 initial states); ``gla_chunk`` at
 the same head at b8 t151 and b1 t128 and at simple-GLA's (h4 dk256 dv256)
 at b8 t512; ``rwkv6_chunk`` at RWKV6's (h4 dk256 dv256; f32 decays and
-bonus) at b8 t512 (no initial state), b8 t151 and b1 t128 (f32). Each
-checkout takes its own plan's route; ``routes`` names it.
+bonus) at b8 t512 (no initial state), b8 t151 and b1 t128 (f32);
+``mamba_scan`` at the Mamba mixer's width (d 2048 n16, bf16 x, B, C) at b8
+t151 and b1 t128 (f32 initial state) and b8 t512 (none, a reset mask).
+Each checkout takes its own plan's route; ``routes`` names it.
 
 With ``--backward`` the cases are the three training backwards at the
 shapes the driven paths launch them on, through their public wrappers
@@ -36,7 +38,12 @@ initial state); ``gla_chunk_bwd`` at simple-GLA's head at the same three
 shapes (f32 initial state for tuning) and at Mamba-2's (h32 dk64 dv64, f32
 IO, scale 1) at b8 t511; ``rwkv6_chunk_bwd`` at RWKV6's head at b8 and b4
 t511 and the gradient check's b2 (its digests part between checkouts whose
-plans take other routes).
+plans take other routes); ``mamba_scan_bwd`` at b8 t512 (no initial state,
+with and without a reset mask; and forced into two chunks of 256 steps),
+b2 t319 (f32 initial state) and at the shapes the driven paths launch it on
+(bf16 IO at b8 and b4 t511, f32 IO at the gradient check's b2 t319; no
+initial state), the one-chunk body where a checkout has no chunk plan.
+``--only PREFIX`` keeps the cases whose name starts with it.
 """
 import argparse
 import hashlib
@@ -95,6 +102,15 @@ def cases(torch, smoke, gla_cuda, rwkv6_cuda):
                     lambda args=args, s0=x["s0"]: rwkv6_cuda.rwkv6_chunk(*args, initial_state=s0),
                     (*args, x["s0"]), smoke.rwkv6_flops(b, h, t, dk, dv),
                     plan(bf, b, h, t, dv) if plan else "recurrent"))
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    for b, t, st in ((8, 151, f32), (1, 128, f32), (8, 512, None)):
+        x = smoke.mamba_inputs(torch, b, t, bf, st, t == 512, seed=560 + t + b)
+        args = tuple(x[n] for n in smoke.MAMBA_LEAVES[:6])
+        out.append((f"mamba_scan b{b} t{t} {smoke.dtype_name(st)}{' reset' if t == 512 else ''}",
+                    lambda args=args, x=x: mamba_cuda.mamba_scan(
+                        *args, initial_state=x["s0"], reset_mask=x["reset"]),
+                    (*args, x["s0"]), smoke.mamba_work(b, t), "recurrent"))
     return out
 
 
@@ -140,6 +156,28 @@ def backward_cases(torch, smoke, gla_cuda, rwkv6_cuda):
                                        if g is not None],
                     args, smoke.rwkv6_flops(b, h, t, dk, dv, backward=True),
                     plan(bf, b, h, t, dv) if plan else "recurrent"))
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    plan = getattr(mamba_cuda, "mamba_scan_bwd_plan", None)  # a checkout of one body has none
+    for b, t, st, reset, io in ((8, 512, None, False, bf), (8, 512, None, True, bf),
+                                (2, 319, f32, False, bf), (8, 511, None, False, bf),
+                                (4, 511, None, False, bf), (2, 319, None, False, f32)):
+        x = smoke.mamba_inputs(torch, b, t, io, st, reset, seed=570 + t + b)
+        g = torch.Generator(device=smoke.DEVICE).manual_seed(571 + t + b)
+        dy = torch.randn(b, t, smoke.MAMBA_D, generator=g, device=smoke.DEVICE).to(io)
+        dsf = torch.randn(b, smoke.MAMBA_D, smoke.MAMBA_N, generator=g, device=smoke.DEVICE)
+        args = (*(x[n] for n in smoke.MAMBA_LEAVES), x["reset"], dy, dsf)
+        route = mamba_cuda.bwd_route(t, plan(b, t, smoke.MAMBA_D)) if plan else "one_chunk"
+        out.append((f"mamba_scan_bwd b{b} t{t} {smoke.dtype_name(st)}"
+                    f"{' reset' if reset else ''}{' IO float32' if io == f32 else ''}",
+                    lambda args=args: [g for g in mamba_cuda.mamba_scan_bwd(*args)
+                                       if g is not None],
+                    args[:7] + args[8:], smoke.mamba_work(b, t, backward=True), route))
+        if (b, t, reset) == (8, 512, False):  # the chunked route in two chunks, where there is one
+            call = ((lambda args=args: [g for g in mamba_cuda._bwd_launch(*args, chunk=256)
+                                        if g is not None]) if plan else out[-1][1])
+            out.append((f"mamba_scan_bwd b{b} t{t} none, two chunks", call, args[:7] + args[8:],
+                        smoke.mamba_work(b, t, backward=True), "chunked" if plan else "one_chunk"))
     return out
 
 
@@ -149,6 +187,8 @@ def main() -> None:
     parser.add_argument("--label", required=True)
     parser.add_argument("--backward", action="store_true",
                         help="the three training backwards instead of the forwards")
+    parser.add_argument("--only", default="", help="time only the cases whose name starts "
+                        "with this")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -158,6 +198,7 @@ def main() -> None:
     from lina_speech_tpu_torch.ops import gla_cuda, rwkv6_cuda
 
     smoke = smoke_module()
+    smoke.SFU_RATE = smoke.sfu_rate(torch)  # the Mamba scan's bound counts its exponentials
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -166,12 +207,19 @@ def main() -> None:
     which = backward_cases if args.backward else cases
     with torch.no_grad():
         for name, call, inputs, flops, route in which(torch, smoke, gla_cuda, rwkv6_cuda):
+            if not name.startswith(args.only):
+                continue
             out = call()
             torch.cuda.synchronize()
             res["sha256"][name] = digest(torch, *out)
             res["us"][name] = (smoke.device_ms(call, 10) + smoke.device_ms(call, 10)) / 2 * 1e3
             io = next(a.dtype for a in inputs if isinstance(a, torch.Tensor))
-            res["bound_us"][name] = smoke.roofline(smoke.nbytes(*inputs, *out), flops, io)[0] * 1e3
+            if isinstance(flops, tuple):  # the Mamba scan: f32 operations and exponentials
+                flops, exps, io = *flops, torch.float32
+            else:
+                exps = 0
+            res["bound_us"][name] = smoke.roofline(smoke.nbytes(*inputs, *out), flops, io,
+                                                   exps)[0] * 1e3
             res["routes"][name] = route
     print(json.dumps(res))
 

@@ -1613,6 +1613,46 @@ def test_mamba_scan_backward_kernel_matches_plain_backward(cuda, io, s0, reset, 
         assert scale > 0 and err <= share * scale, (name, err, scale)
 
 
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,chunk", [((2, 150, 96), 32), ((3, 70, 64), 16),
+                                         ((1, 300, 2048), 64)], ids=str)
+def test_mamba_scan_bwd_chunked_route_matches_plain(cuda, io, shape, chunk):
+    """The backward's chunked route (several chunks, a ragged last one;
+    resets at 5% of the steps and on a chunk's first step; an initial
+    state; d 96 leaves the last 64-channel group half empty) against
+    autograd through the plain loop and against
+    mamba_scan_bwd_chunked_plain at the same chunk length, every leaf within
+    a share of its own max|plain|; each call one launch counted under
+    "chunked", the same bits on a second call; the one-chunk route on the
+    same inputs agrees too."""
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    b, t, d = shape
+    x = _mamba_inputs(cuda, b, t, d, io, s0=True, reset=True, seed=11)
+    x["reset"][:, chunk] = True
+    _, _, ref = _mamba_grads(mamba_cuda.mamba_scan_plain, x)
+    g = torch.Generator(device=cuda).manual_seed(3)  # the cotangents _mamba_grads drew
+    dy = torch.randn(b, t, d, generator=g, device=cuda).to(io)
+    dsf = torch.randn(b, d, 16, generator=g, device=cuda)
+    args = [x[n] for n in MAMBA_NAMES[:6]] + [x["s0"], x["reset"], dy, dsf]
+    mamba_cuda.reset_launch_counts()
+    got = mamba_cuda._bwd_launch(*args, chunk=chunk)
+    again = mamba_cuda._bwd_launch(*args, chunk=chunk)
+    assert mamba_cuda.launch_counts()["mamba_scan_bwd"] == 2
+    assert mamba_cuda.mamba_scan_bwd.routes == {"one_chunk": 0, "chunked": 2}
+    one = mamba_cuda._bwd_launch(*args, chunk=-(-t // 16) * 16)
+    assert mamba_cuda.mamba_scan_bwd.routes == {"one_chunk": 1, "chunked": 2}
+    plain = mamba_cuda.mamba_scan_bwd_chunked_plain(*args, chunk=chunk)
+    share = 2e-2 if io == torch.bfloat16 else 1e-3
+    for i, name in enumerate(MAMBA_NAMES):
+        r = ref[name]
+        for other in (got[i], one[i], plain[i]):
+            assert other.dtype == r.dtype and other.shape == r.shape, name
+            err, scale = float((other.float() - r.float()).abs().max()), float(r.float().abs().max())
+            assert scale > 0 and err <= share * scale, (name, err, scale)
+        assert torch.equal(got[i], again[i]), name
+
+
 def test_mamba_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """kernel_takes refuses a state size other than 16, channels that are
     no multiple of 32 and a bf16 state, and the wrapper given such inputs
