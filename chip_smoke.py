@@ -137,7 +137,10 @@ then RWKV6:
    rwkv6_chunk_bwd_plan, the chunked tensor-core route of
    rwkv6_chunked_bwd.cuh also against its own plain version, each route
    twice for equal bits), the decode token at b1, b8 and
-   b64 with f32 and bf16 states on cold states; the forward's two routes in
+   b64 with f32 and bf16 states on cold states on every body of
+   rwkv6_decode_plan (the classic step's tile body and its wide column-tile
+   bodies, equal state bits on every body and on a second call), the
+   planned body and the one it is timed against in turns; the forward's two routes in
    turns at b8 t512, b8 t151 and b1 t128 and over a sweep of b 1-8 and t
    16-192, the backward's at b8 t512 (beside its bound, the plain
    version's time and each route's scratch, and a profile of three calls)
@@ -159,15 +162,20 @@ then RWKV6:
    launch on its planned route (every bf16 backward at or above the
    threshold chunked); then every shape those runs launched the three
    kernels on is held against the plain versions (rwkv6_chunk on the route
-   it took, the backward on both routes), and timed on both routes for
-   rwkv6_chunk's and rwkv6_chunk_bwd's launches x (time - bound), the
-   planned route at most SWEEP_MARGIN slower;
+   it took, the backward on both routes, rwkv6_decode on every body), and
+   timed on both routes for rwkv6_chunk's and rwkv6_chunk_bwd's launches x
+   (time - bound), the planned route at most SWEEP_MARGIN slower, and
+   rwkv6_decode's on the planned body and the tile body in turns, the
+   planned one the faster (decode_gap_phase);
 then Mamba (v1):
 13. Mamba kernel phase: mamba_scan and its hand-written backward against
    their plain versions (the time loop, and autograd through it) at d 2048,
    n 16 (bf16 x, B and C; f32 dt, A, D and states): the forward at b8 t151
    with an f32 and with no initial state and at b1 for every server chunk
-   length down to t1; forward and backward at b8 t512 with an initial
+   length down to t1, on both routes of mamba_scan_plan (one walk, and
+   time cut into chunks that run in parallel, each also against
+   mamba_scan_chunked_plain; equal bits on a second call); forward and
+   backward at b8 t512 with an initial
    state, without one and with a reset mask (dx, ddt, dA, dB, dC, dD, ds0),
    every output and leaf within a share of its own max|plain|, finite and
    non-zero, the backward on both routes of mamba_scan_bwd_plan (one chunk,
@@ -176,9 +184,10 @@ then Mamba (v1):
    beside its bound (bytes, f32 operations, or the exponentials at the SFU
    rate of the card's highest SM clock), the backward's two routes timed in
    turns with their scratch and a profile of three calls; a chunk-length
-   sweep of the backward at b 1-8, t 16-512 and the ragged lengths the
-   paths launch, where the planned length may be at most SWEEP_MARGIN
-   slower than the fastest (mamba_bwd_route_sweep);
+   sweep of the forward and of the backward at b 1-8, t 16-512 and the
+   ragged lengths the paths launch, where the planned length may be at most
+   SWEEP_MARGIN slower than the fastest (mamba_fwd_route_sweep,
+   mamba_bwd_route_sweep);
 14. Mamba phase: kind="mamba" at the flagship's width (314,976,578
    parameters, random weights from seed 0 with A_log, D and dt_proj's bias
    drawn off their inits; bf16 compute, f32 states): generate_batch for the
@@ -192,10 +201,10 @@ then Mamba (v1):
    interleaved CrossAttMamba (cross-attention after layers 5 and 11) through
    a 16-token generate and one train step (every backward at its planned
    chunk length); then every shape those runs launched the two kernels on is
-   held against the plain versions (the backward on both routes) and timed
-   for launches x (time - bound), a chunked launch also a segment either
-   side of its chunk length, the backward also had every launch taken one
-   chunk (mamba_gap_phase).
+   held against the plain versions (each kernel on both routes) and timed
+   on both routes for launches x (time - bound), a chunked launch also a
+   segment either side of its chunk length, each also had every launch
+   taken one chunk (mamba_gap_phase).
 Each main-path run starts with the launch counts at 0 and reads them right
 after; every forward launch and every lazy step of a main path must have
 taken its planned route. After the GLA phases, every shape a main path
@@ -361,7 +370,7 @@ CHUNK_HELD, CHUNK_BWD_HELD = set(), set()
 # were held on that route against their plain versions (hold_decode_routes)
 DECODE_HELD = {"gla_decode_conv": set(), "gla_decode": set()}
 # launches of the two forward kernels, of gla_chunk's backward, of the
-# three decode steps, of rwkv6_chunk and its backward and of the two Mamba
+# four decode steps, of rwkv6_chunk and its backward and of the two Mamba
 # kernels on each shape (the launch_shape_counts keys of ops/gla_cuda.py,
 # ops/rwkv6_cuda.py and ops/mamba_cuda.py), summed over the main-path runs
 # that expect_launches checks: the weights of gap_phase's, rwkv6_gap_phase's
@@ -370,6 +379,7 @@ GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
                     "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter(),
                     "gla_decode_conv": Counter(), "gla_decode": Counter(),
                     "rwkv6_chunk": Counter(), "rwkv6_chunk_bwd": Counter(),
+                    "rwkv6_decode": Counter(),
                     "mamba_scan": Counter(), "mamba_scan_bwd": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode_conv": set(),
                 "gla_decode": set()}
@@ -531,10 +541,12 @@ def ptxas_summary(log: str):
               (("bwd_dkv_kernel", "Lb0E"), "gla_chunk_bwd dk/dv sweep"),
               (("lazy_cluster_kernel",), "gla_decode_lazy_conv cluster"),
               (("lazy_tile_kernel",), "gla_decode_lazy_conv tile"),
-              (("gla_decode_kernel", "Lb1E"), "gla_decode_conv tile"),
-              (("gla_decode_kernel", "Lb0E"), "gla_decode tile"),
-              (("gla_decode_wide_kernel", "Lb1E"), "gla_decode_conv wide"),
-              (("gla_decode_wide_kernel", "Lb0E"), "gla_decode wide"),
+              (("gla_decode_kernel", "Li256ELi1E"), "gla_decode_conv tile"),
+              (("gla_decode_kernel", "Li256ELi0E"), "gla_decode tile"),
+              (("gla_decode_kernel", "Li256ELi2E"), "rwkv6_decode tile"),
+              (("gla_decode_wide_kernel", "Li256ELi1E"), "gla_decode_conv wide"),
+              (("gla_decode_wide_kernel", "Li256ELi0E"), "gla_decode wide"),
+              (("gla_decode_wide_kernel", "Li256ELi2E"), "rwkv6_decode wide"),
               (("gla_fold_kernel",), "gla_fold"),
               (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv recurrent"),
               (("gla_chunk_kernel", "Lb0E"), "gla_chunk recurrent"))
@@ -562,11 +574,13 @@ def ptxas_summary(log: str):
     rwkv6 = (("rwkv6_chunk_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk recurrent"),
              ("rwkv6_bwd_dr_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dr sweep"),
              ("rwkv6_bwd_dkv_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk_bwd dk/dv sweep"),
-             ("rwkv6_decode_kernelI13__nv_bfloat16fLi256E", "rwkv6_decode"))
+             ("gla_decode_kernelI13__nv_bfloat16fLi256ELi2E", "rwkv6_decode tile"),
+             ("gla_decode_wide_kernelI13__nv_bfloat16fLi256ELi2E", "rwkv6_decode wide"))
     # the Mamba kernels' bf16-IO instantiations
-    mamba = (("mamba_scan_kernelI13__nv_bfloat16", "mamba_scan"),
-             ("3bwd16chunk_fwd_kernelI13__nv_bfloat16Lb1E", "mamba_scan_bwd chunk summaries"),
-             ("3bwd16chunk_fwd_kernelI13__nv_bfloat16Lb0E", "mamba_scan_bwd checkpoint pass"),
+    mamba = (("11walk_kernelI13__nv_bfloat16Li3E", "mamba_scan walk with y"),
+             ("11walk_kernelI13__nv_bfloat16Li2E", "mamba_scan chunk summaries"),
+             ("11walk_kernelI13__nv_bfloat16Li1E", "mamba_scan_bwd chunk summaries"),
+             ("11walk_kernelI13__nv_bfloat16Li0E", "mamba_scan_bwd checkpoint pass"),
              ("3bwd16chunk_bwd_kernelI13__nv_bfloat16E", "mamba_scan_bwd chunk body"))
     # the chunked route of the two GLA backwards (bf16 IO; both state dtypes)
     chunked = (("chunked11prep_kernelI13__nv_bfloat16Lb1EE", "gla_chunk_conv_bwd chunked prep"),
@@ -628,8 +642,10 @@ def ptxas_summary(log: str):
                 f"ptxas: no register or spill line of {label}")
     for label in [label for _, label in quant] + [
             f"gla_decode_lazy_conv {r}<bf16, bf16, 256>" for r in LAZY_ROUTES] + [
-            f"{kernel} {r}<bf16, bf16, 256>" for kernel in ("gla_decode_conv", "gla_decode")
-            for r in ("tile", "wide")]:
+            f"{kernel} {r}<bf16, bf16, 256>"
+            for kernel in ("gla_decode_conv", "gla_decode", "rwkv6_decode")
+            for r in ("tile", "wide")] + [
+            f"rwkv6_decode {r}<bf16, f32, 256>" for r in ("tile", "wide")]:
         found = [line for line in out if line.startswith(f"{label}:")]
         require(any("registers" in line for line in found),
                 f"ptxas: no register line of {label}")
@@ -920,10 +936,28 @@ def expect_planned_routes():
         planned = rwkv6_cuda.rwkv6_chunk_fwd_plan(io, b, h, t, dv)
         require(route == planned, f"rwkv6_chunk launched on b{b} {head_name(h, dk, dv)} t{t} "
                 f"{io}: the plan takes the {planned} route")
+    dec = rwkv6_cuda.rwkv6_decode
+    require(sum(dec.routes.values()) == dec.launches,
+            f"rwkv6_decode: routes {dec.routes}, launches {dec.launches}")
+    for b, h, dk, dv, io, st, route in rwkv6_cuda.launch_shapes()["rwkv6_decode"]:
+        planned = rwkv6_cuda.rwkv6_decode_plan(b, h, dk, dv, st)
+        require(route == planned, f"rwkv6_decode launched on b{b} {head_name(h, dk, dv)} {st}: "
+                f"the plan takes the {planned} route")
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    scan = mamba_cuda.mamba_scan
+    require(sum(scan.routes.values()) == scan.launches,
+            f"mamba_scan: routes {scan.routes}, launches {scan.launches}")
+    for shape in mamba_cuda.launch_shapes()["mamba_scan"]:
+        (b, t, d), chunk = shape[:3], shape[-1]
+        planned = mamba_cuda.mamba_scan_plan(b, t, d)
+        require(chunk == planned, f"mamba_scan launched on {shape}: the plan takes chunk length "
+                f"{planned}")
     print(f"  forward routes as planned: gla_chunk_conv {gla_cuda.gla_chunk_conv.routes}, "
-          f"gla_chunk {gla_cuda.gla_chunk.routes}, rwkv6_chunk {fn.routes}; the lazy step "
+          f"gla_chunk {gla_cuda.gla_chunk.routes}, rwkv6_chunk {fn.routes}, mamba_scan "
+          f"{scan.routes}; the lazy step "
           f"{lazy.routes}; the classic steps {gla_cuda.gla_decode_conv.routes}, "
-          f"{gla_cuda.gla_decode.routes}")
+          f"{gla_cuda.gla_decode.routes}, rwkv6_decode {dec.routes}")
 
 
 def kernel_phase(torch, gla_cuda):
@@ -1439,8 +1473,12 @@ def decode_case(torch, name, shape, seed):
     """A classic step's inputs at ``shape`` = (b, h, dk, dv, IO dtype, state
     dtype) in the decode layouts: (the arguments but the state, the state).
     ``gla_decode_conv``: the pre-conv tokens, the gates, taps and rings;
-    ``gla_decode``: q, k, v and the gates."""
+    ``gla_decode``: q, k, v and the gates; ``rwkv6_decode``: r, k, v, the
+    f32 log-decays and the bonus u (rwkv6_inputs' step 0)."""
     b, h, dk, dv, io, st = shape
+    if name == "rwkv6_decode":
+        x = rwkv6_inputs(torch, b, h, 1, dk, dv, io, st, seed)
+        return (*(x[n][:, :, 0].contiguous() for n in ("r", "k", "v", "w")), x["u"]), x["s0"]
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
     tok = (r(b, h, dk).to(io), r(b, h, dk).to(io), r(b, h, dv).to(io),
@@ -1454,8 +1492,13 @@ def decode_case(torch, name, shape, seed):
 
 
 def decode_fns(gla_cuda, name):
-    """(public wrapper, plain version, split plain version, launcher that
-    takes a route) of the classic step ``name``."""
+    """(public wrapper, plain version, split plain version or None, launcher
+    that takes a route) of the classic step ``name``."""
+    if name == "rwkv6_decode":
+        from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+        return (rwkv6_cuda.rwkv6_decode, rwkv6_cuda.rwkv6_decode_plain, None,
+                rwkv6_cuda._decode_launch)
     if name == "gla_decode_conv":
         return (gla_cuda.gla_decode_conv, gla_cuda.gla_decode_conv_plain,
                 gla_cuda.gla_decode_conv_split_plain, gla_cuda._decode_conv_launch)
@@ -1466,20 +1509,35 @@ def decode_fns(gla_cuda, name):
 def decode_work(name, args, state, out):
     """(bytes, operations) of one classic step: the state read and written,
     every other input and output once; a decay, a rank-1 update and a
-    readout of the state, and the three 4-tap convs where there are."""
+    readout of the state, and the three 4-tap convs where there are
+    (rwkv6_flops for RWKV6's step)."""
     b, h, dk = args[0].shape
     dv = args[2].shape[-1]
+    if name == "rwkv6_decode":
+        return nbytes(*args, state, *out), rwkv6_flops(b, h, 1, dk, dv)
     convs = 8 * (2 * dk + dv) if name == "gla_decode_conv" else 0
     return nbytes(*args, state, *out), b * h * (5 * dk * dv + convs)
 
 
-def decode_pair(gla_cuda, shape):
-    """(the route gla_decode_plan picks at ``shape`` = (b, h, dk, dv, IO
-    dtype, state dtype), the route it is timed against): the tile body
-    against the wide route decode_wide_route would take, a wide route
-    against the tile body."""
+def decode_plan(gla_cuda, name, shape):
+    """The route the classic step ``name``'s plan picks at ``shape`` = (b, h,
+    dk, dv, IO dtype, state dtype): gla_decode_plan, or rwkv6_decode_plan
+    (the same rule) for RWKV6's step."""
     b, h, dk, dv, _, st = shape
-    planned = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+    if name == "rwkv6_decode":
+        from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+        return rwkv6_cuda.rwkv6_decode_plan(b, h, dk, dv, st)
+    return gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+
+
+def decode_pair(gla_cuda, name, shape):
+    """(the route the plan picks at ``shape`` = (b, h, dk, dv, IO dtype,
+    state dtype), the route it is timed against): the tile body against the
+    wide route decode_wide_route would take, a wide route against the tile
+    body."""
+    b, h, dk, dv, _, st = shape
+    planned = decode_plan(gla_cuda, name, shape)
     return planned, gla_cuda.decode_wide_route(b, h, dv, st) if planned == "tile" else "tile"
 
 
@@ -1491,13 +1549,14 @@ def decode_tag(name, shape):
 def hold_decode_routes(torch, gla_cuda, name, shape, seed):
     """The classic step ``name`` at ``shape`` = (b, h, dk, dv, IO dtype,
     state dtype) on every route, forced, against its plain version, each
-    wide route also against its split plain version (its decomposition): o
-    finite and within TOL_BF16 (bf16 IO; TOL_F32 in f32) of its own
-    max|plain|, the state updated in place within TOL_BF16 (a bf16 IO or
-    state; TOL_F32) of its own max|plain| (so not all zeros), the rings
-    equal to the plain version's bit for bit, equal bits on a second call,
-    and every route's state equal bit for bit (each rounds fma(e^g, S, k v)
-    once). Notes the shape on every route in DECODE_HELD. Returns ({route:
+    GLA wide route also against its split plain version (its
+    decomposition): o finite and within TOL_BF16 (bf16 IO; TOL_F32 in f32)
+    of its own max|plain|, the state updated in place within TOL_BF16 (a
+    bf16 IO or state; TOL_F32) of its own max|plain| (so not all zeros), the
+    rings equal to the plain version's bit for bit, equal bits on a second
+    call, and every route's state equal bit for bit (each rounds fma(e^g, S,
+    k v) once). Notes the shape on every route in DECODE_HELD (RWKV6_HELD
+    for rwkv6_decode). Returns ({route:
     a step on a rotation of cold states} for the planned route and the one
     it is timed against (decode_pair), the step's (bytes, operations))."""
     _, plain, split, launch = decode_fns(gla_cuda, name)
@@ -1505,7 +1564,8 @@ def hold_decode_routes(torch, gla_cuda, name, shape, seed):
     ref = plain(*args, s0)
     tol = TOL_BF16 if shape[4] == torch.bfloat16 else TOL_F32
     tol_s = TOL_BF16 if torch.bfloat16 in shape[4:] else TOL_F32
-    pair = decode_pair(gla_cuda, shape)
+    pair = decode_pair(gla_cuda, name, shape)
+    held = RWKV6_HELD if name == "rwkv6_decode" else DECODE_HELD
     states = {}
     for route in gla_cuda._DECODE_ROUTE_CODE:
         s = s0.clone()
@@ -1516,14 +1576,14 @@ def hold_decode_routes(torch, gla_cuda, name, shape, seed):
         require(out[1].data_ptr() == s.data_ptr(), "state not updated in place")
         require(bool(torch.isfinite(out[0].float()).all()), "o is not finite")
         hold_leaf("o", out[0], ref[0], tol)
-        if route != "tile":
+        if route != "tile" and split is not None:
             hold_leaf("o vs split plain", out[0], split(*args, s0, route=route)[0], tol)
         hold_leaf("state", out[1], ref[1], tol_s)
         for ring, a, r_ in zip(("ring q", "ring k", "ring v"), out[2:], ref[2:]):
             check(ring, max_err(a, r_), 0.0)
         require(all(torch.equal(a, k) for a, k in zip(again, out)), "a second call gave other bits")
         states[route] = s
-        DECODE_HELD[name].add((*shape, route))
+        held[name].add((*shape, route))
     require(all(torch.equal(s, states["tile"]) for s in states.values()),
             "the routes' states differ")
     print("  a second call: equal bits; every route's state: equal bits")
@@ -1550,7 +1610,7 @@ def decode_route_sweep(torch, gla_cuda, card_line):
                 bound_ms = roofline(*decode_work(name, args, s0, launch(*args, s0.clone())),
                                     shape[4])[0]
                 rotation = cold_pool(s0)
-                plan, other = decode_pair(gla_cuda, shape)
+                plan, other = decode_pair(gla_cuda, name, shape)
                 steps = {r: (lambda r=r: launch(*args, rotation(), route=r))
                          for r in (plan, other)}
                 ms, _ = planned_route_times(steps, plan, decode_tag(name, shape))
@@ -1561,8 +1621,8 @@ def decode_route_sweep(torch, gla_cuda, card_line):
                       f"{'faster' if ms[plan] <= min(ms.values()) else 'slower'}")
 
 
-def decode_gap_phase(torch, gla_cuda, card_line):
-    """Every shape a main path launched the two classic steps on
+def decode_gap_phase(torch, gla_cuda, card_line, names=("gla_decode_conv", "gla_decode")):
+    """Every shape a main path launched the classic steps ``names`` on
     (GAP_SHAPE_COUNTS) held on every route (hold_decode_routes), the
     planned one and the one it is timed against (decode_pair) timed in
     turns on cold states beside its bound: the planned route must be the
@@ -1571,20 +1631,25 @@ def decode_gap_phase(torch, gla_cuda, card_line):
     route (the kernel's first body). Returns {kernel: sum in ms on the
     routes taken}."""
     sums = {}
-    for name in ("gla_decode_conv", "gla_decode"):
+    for name in names:
         counts = GAP_SHAPE_COUNTS[name]
+        require(counts, f"{name}: the main paths launched it on no shape")
         total = {"taken": 0.0, "tile": 0.0}
         print(f"{name}: launches x (time - bound) over {sum(counts.values())} main-path launches "
               f"on {len(counts)} shapes (device us):")
         for i, (shape, n) in enumerate(sorted(counts.items(), key=str)):
             *dims, route = shape
-            require(route == gla_cuda.gla_decode_plan(*dims[:4], dims[5]),
+            require(route == decode_plan(gla_cuda, name, tuple(dims)),
                     f"{name} {shape}: not the planned route")
             steps, work = hold_decode_routes(torch, gla_cuda, name, tuple(dims), seed=800 + i)
             ms, times = planned_route_times(steps, route, f"{name} {shape}", strict=True)
             bound_ms = roofline(*work, dims[4])[0]
             total["taken"] += n * (ms[route] - bound_ms)
             total["tile"] += n * (ms["tile"] - bound_ms)
+            for r in ms:
+                note_shape(name, f"{decode_tag(name, tuple(dims)).split(' ', 1)[1]}, {r} route"
+                           f"{' (planned)' if r == route else ''}, {n} main-path launches, in "
+                           "turns", ms[r], None, *work, dims[4])
             print(f"  {decode_tag(name, tuple(dims))}: {n} launches; " + ", ".join(
                 f"{r}{' (planned)' if r == route else ''} {ms[r] * 1e3:.3f}" for r in ms)
                 + f", bound {bound_ms * 1e3:.3f} (medians; turns, ms: {times})")
@@ -3380,7 +3445,7 @@ def chunk_bwd_kernel_phase(torch, gla_cuda, summary):
 def hold_decode(torch, gla_cuda, name, shape, summary=None):
     """The classic step ``name`` at ``shape`` = (b, h, dk, dv, IO dtype,
     state dtype) on every route (hold_decode_routes); the public wrapper on
-    the route gla_decode_plan gives, counted under it, against the plain
+    the route its plan gives (decode_plan), counted under it, against the plain
     version; the planned route and the one it is timed against (decode_pair)
     timed on a rotation of cold states (100 MB) beside the bound, the
     wrapper also beside the plain version: into the summary at
@@ -3389,7 +3454,7 @@ def hold_decode(torch, gla_cuda, name, shape, summary=None):
     steps, work = hold_decode_routes(torch, gla_cuda, name, shape, seed=500 + b + h)
     wrapper, plain, _, _ = decode_fns(gla_cuda, name)
     args, s0 = decode_case(torch, name, shape, seed=500 + b + h)
-    route = gla_cuda.gla_decode_plan(b, h, dk, dv, st)
+    route = decode_plan(gla_cuda, name, shape)
     before = dict(wrapper.routes)
     out, ref = wrapper(*args, s0.clone()), plain(*args, s0)
     torch.cuda.synchronize()
@@ -3402,7 +3467,7 @@ def hold_decode(torch, gla_cuda, name, shape, summary=None):
     states = cold_pool(s0)
     wrapper_ms, plain_ms = timed_pair(tag, lambda: wrapper(*args, states()),
                                       lambda: plain(*args, states()), 50)
-    other = decode_pair(gla_cuda, shape)[1]
+    other = decode_pair(gla_cuda, name, shape)[1]
     print(f"  {route} (planned) {ms[route] * 1e3:.3f} us, {other} {ms[other] * 1e3:.3f} us "
           f"(medians of {2 * ROUTE_TURNS} in turns)")
     if summary is not None:
@@ -4132,43 +4197,6 @@ def hold_rwkv6_bwd_routes(torch, rwkv6_cuda, name, x, do, dsf, need_ds0, ref, to
     check_grads(f"{name}, chunked backward vs its plain decomposition", chunked, plain, TOL_BF16)
 
 
-def hold_rwkv6_decode(torch, rwkv6_cuda, shape, summary=None, timed=False):
-    """rwkv6_decode at ``shape`` = (b, h, dk, dv, IO dtype, state dtype)
-    against rwkv6_decode_plain: o and the state, updated in place.
-    ``timed``: kernel and plain on a rotation of cold states (100 MB),
-    beside the bound; into the summary at ``summary``'s shape, else a
-    further shape."""
-    b, h, dk, dv, io, st = shape
-    x = rwkv6_inputs(torch, b, h, 1, dk, dv, io, st, seed=800 + b)
-    tok = tuple(x[n][:, :, 0].contiguous() for n in ("r", "k", "v", "w"))
-    u, s = x["u"], x["s0"]
-    before = rwkv6_cuda.launch_counts()["rwkv6_decode"]
-    o_p, s_p = rwkv6_cuda.rwkv6_decode_plain(*tok, u, s)
-    s_in = s.clone()
-    o_k, s_k = rwkv6_cuda.rwkv6_decode(*tok, u, s_in)
-    torch.cuda.synchronize()
-    require(rwkv6_cuda.launch_counts()["rwkv6_decode"] == before + 1, "rwkv6_decode not launched")
-    require(s_k.data_ptr() == s_in.data_ptr() and s_k.dtype == st, "state not updated in place")
-    tag = f"b{b} {head_name(h, dk, dv)} IO {dtype_name(io)} state {dtype_name(st)}"
-    print(f"rwkv6_decode {tag}:")
-    err_o = max_err(o_k, o_p)
-    check("o", err_o, bound(o_p, TOL_BF16 if io == torch.bfloat16 else TOL_F32))
-    check("state", max_err(s_k, s_p), bound(s_p, TOL_BF16 if torch.bfloat16 in (io, st)
-                                                  else TOL_F32))
-    RWKV6_HELD["rwkv6_decode"].add(shape)
-    if not timed:
-        return
-    states = cold_pool(s_p)
-    ms, plain_ms = timed_pair(f"rwkv6_decode {tag}",
-                              lambda: rwkv6_cuda.rwkv6_decode(*tok, u, states()),
-                              lambda: rwkv6_cuda.rwkv6_decode_plain(*tok, u, states()), 50)
-    work = (nbytes(*tok, u, s, s, o_k), rwkv6_flops(b, h, 1, dk, dv), io)
-    if summary is not None:
-        record(summary, "rwkv6_decode", err_o, ms, plain_ms, *work)
-    else:
-        note_shape("rwkv6_decode", tag, ms, plain_ms, *work)
-
-
 def rwkv6_route_steps(rwkv6_cuda, x):
     """{route: one no-grad call of rwkv6_chunk on ``x`` forced onto it} for
     time_routes, every route the IO dtype has."""
@@ -4328,10 +4356,12 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line):
         for r in ms:
             note_shape("rwkv6_chunk", f"b{b} t{t} initial state {dtype_name(st)}, {r} route "
                        "(in turns)", ms[r], None, *work, bf)
+    from lina_speech_tpu_torch.ops import gla_cuda
+
     for b in (1, BATCH, 64):
         for st in (bf, f32):
-            hold_rwkv6_decode(torch, rwkv6_cuda, (b, h, dk, dv, bf, st),
-                              summary=summary if (b, st) == (BATCH, f32) else None, timed=True)
+            hold_decode(torch, gla_cuda, "rwkv6_decode", (b, h, dk, dv, bf, st),
+                        summary=summary if (b, st) == (BATCH, f32) else None)
     rwkv6_route_sweep(torch, rwkv6_cuda, card_line)
     rwkv6_bwd_route_sweep(torch, rwkv6_cuda, card_line)
     reset_counts()  # the kernel phases' launches are no path's
@@ -4405,9 +4435,14 @@ def rwkv6_gap_phase(torch, rwkv6_cuda, card_line):
     its IO dtype has in turns (median of six, retimed on a miss; the route
     taken at most SWEEP_MARGIN slower than the other), beside the shape's
     bound. Prints each shape, the sum on the routes taken and the sum had
-    every launch taken the recurrent body; returns {kernel: the first
-    sum}."""
-    sums = {}
+    every launch taken the recurrent body; then rwkv6_decode over every
+    shape it was launched on, held on both bodies and timed in turns
+    (decode_gap_phase: the planned body must be the faster; the sum had
+    every launch taken the tile body beside). Returns {kernel: the sum on
+    the routes taken}."""
+    from lina_speech_tpu_torch.ops import gla_cuda
+
+    sums = decode_gap_phase(torch, gla_cuda, card_line, names=("rwkv6_decode",))
     for name in ("rwkv6_chunk", "rwkv6_chunk_bwd"):
         counts = GAP_SHAPE_COUNTS[name]
         require(counts, f"{name}: the main paths launched it on no shape")
@@ -4512,8 +4547,10 @@ def launched_rwkv6_shapes_phase(torch, rwkv6_cuda):
         hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:7], need_ds0=shape[7])
     for shape in sorted(RWKV6_LAUNCHED["rwkv6_chunk"] - RWKV6_HELD["rwkv6_chunk"], key=str):
         hold_rwkv6_chunk(torch, rwkv6_cuda, shape[:-1], route=shape[-1])
-    for shape in todo["rwkv6_decode"]:
-        hold_rwkv6_decode(torch, rwkv6_cuda, shape)
+    from lina_speech_tpu_torch.ops import gla_cuda
+
+    for shape in todo["rwkv6_decode"]:  # (..., route): held on every route
+        hold_decode_routes(torch, gla_cuda, "rwkv6_decode", shape[:6], seed=600 + shape[0])
     require(all(RWKV6_LAUNCHED[n] <= RWKV6_HELD[n] for n in RWKV6_LAUNCHED),
             "RWKV6: launched but not held")
 
@@ -4589,10 +4626,19 @@ def mamba_bwd_call(mamba_cuda, x, dy, dsf, need_ds0, chunk):
 
 
 def mamba_bwd_chunks(mamba_cuda, b, t, d):
-    """{route: chunk length} of mamba_scan_bwd at (b, t, d), every route the
-    length has: "one_chunk" (the whole length) and, above one segment,
-    "chunked" (the plan's length where it cuts t, else two chunks)."""
-    planned = mamba_cuda.mamba_scan_bwd_plan(b, t, d)
+    """{route: chunk length} of mamba_scan_bwd at (b, t, d) (mamba_chunks)."""
+    return mamba_chunks(t, mamba_cuda.mamba_scan_bwd_plan(b, t, d))
+
+
+def mamba_fwd_chunks(mamba_cuda, b, t, d):
+    """{route: chunk length} of mamba_scan at (b, t, d) (mamba_chunks)."""
+    return mamba_chunks(t, mamba_cuda.mamba_scan_plan(b, t, d))
+
+
+def mamba_chunks(t, planned):
+    """{route: chunk length} at length t, every route the length has:
+    "one_chunk" (the whole length) and, above one segment, "chunked" (the
+    ``planned`` length where it cuts t, else two chunks)."""
     routes = {"one_chunk": -(-t // 16) * 16}
     if t > 16:
         routes["chunked"] = planned if planned < t else -(-t // 32) * 16
@@ -4615,7 +4661,10 @@ def hold_mamba_scan(torch, mamba_cuda, shape, need_ds0=None):
     on its planned chunk length) against autograd through the plain loop,
     y, the final state and the seven gradient leaves (dx, ddt, dA, dB, dC,
     dD, and ds0 where wanted), each within a share of its own max|plain|,
-    finite and non-zero; then the backward called on every route
+    finite and non-zero; then the forward called on every route
+    (mamba_fwd_chunks) against the plain loop and against
+    mamba_scan_chunked_plain at its chunk length, each route twice for the
+    same bits; then the backward called on every route
     (mamba_bwd_chunks) against the same reference, the chunked route also
     against mamba_scan_bwd_chunked_plain at its chunk length, each route
     twice for the same bits. Returns (inputs, dy, dsf, gradients, worst
@@ -4643,11 +4692,25 @@ def hold_mamba_scan(torch, mamba_cuda, shape, need_ds0=None):
     require(after["mamba_scan"] == before["mamba_scan"] + 1
             and after["mamba_scan_bwd"] == before["mamba_scan_bwd"] + (need_ds0 is not None),
             f"{name}: not launched through the kernels")
-    print(f"{name}, forward:")
+    tol_y = TOL_BF16 if io == torch.bfloat16 else TOL_F32
+    print(f"{name}, forward (planned chunk length {mamba_cuda.mamba_scan_plan(b, t, d)}):")
     require(y_k.dtype == io and s_k.dtype == torch.float32, "mamba_scan output dtypes")
-    hold_own_max("y", y_k, y_p, TOL_BF16 if io == torch.bfloat16 else TOL_F32)
+    hold_own_max("y", y_k, y_p, tol_y)
     hold_own_max("final state", s_k, s_p, TOL_F32)
-    MAMBA_HELD["mamba_scan"].add(shape)
+    for route, chunk in mamba_fwd_chunks(mamba_cuda, b, t, d).items():
+        call = lambda: mamba_cuda._scan_launch(*args, x["s0"], x["reset"], chunk=chunk)
+        with torch.no_grad():
+            first, again = call(), call()
+            plain = mamba_cuda.mamba_scan_chunked_plain(*args, x["s0"], x["reset"], chunk=chunk)
+        torch.cuda.synchronize()
+        print(f"  forward on the {route} route (chunk length {chunk}):")
+        for want, what in ((y_p, s_p), "mamba_scan_plain"), (plain, "mamba_scan_chunked_plain"):
+            hold_own_max(f"y vs {what}", first[0], want[0], tol_y)
+            hold_own_max(f"final state vs {what}", first[1], want[1], TOL_F32)
+        require(all(torch.equal(a, k) for a, k in zip(first, again)),
+                f"{name}, forward on the {route} route: a second call gave other bits")
+        print(f"  a second call on the {route} route: the same bits")
+        MAMBA_HELD["mamba_scan"].add((*shape, chunk))
     if need_ds0 is not None:
         tol = TOL_GRAD if io == torch.bfloat16 else TOL_F32
         planned = mamba_cuda.mamba_scan_bwd_plan(b, t, d)
@@ -4672,6 +4735,14 @@ def hold_mamba_scan(torch, mamba_cuda, shape, need_ds0=None):
             MAMBA_HELD["mamba_scan_bwd"].add((*shape, ds0, chunk))
         result = (x, dy, dsf, got, worst)
     return result
+
+
+def mamba_fwd_steps(mamba_cuda, x):
+    """{route: one no-grad mamba_scan call on ``x`` on it} for time_routes."""
+    b, t, d = x["x"].shape
+    args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+    return {r: (lambda c=c: mamba_cuda._scan_launch(*args, x["s0"], x["reset"], chunk=c))
+            for r, c in mamba_fwd_chunks(mamba_cuda, b, t, d).items()}
 
 
 def mamba_bwd_steps(mamba_cuda, x, dy, dsf, need_ds0=False):
@@ -4797,8 +4868,8 @@ def mamba_bwd_route_sweep(torch, mamba_cuda, card_line):
         lengths = {c for c in MAMBA_BWD_CHUNKS if c < t} | {-(-t // 16) * 16, plan}
         if (b, t) in MAMBA_BWD_SWEEP_RAGGED:
             lengths |= set(mamba_bwd_neighbours(t, plan))
-        steps = {f"L{c}": (lambda c=c: mamba_bwd_call(mamba_cuda, x, dy, dsf, False, c))
-                 for c in sorted(lengths)}
+        steps = {f"L{c}": (lambda c=c, x=x, dy=dy, dsf=dsf: mamba_bwd_call(
+            mamba_cuda, x, dy, dsf, False, c)) for c in sorted(lengths)}
         ms, _ = time_routes(steps)
         best = min(ms, key=ms.get)
         print(f"  b{b} t{t}: " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in ms.items())
@@ -4807,6 +4878,49 @@ def mamba_bwd_route_sweep(torch, mamba_cuda, card_line):
             misses.append((b, t, plan, steps))
     for b, t, plan, steps in misses:  # fails here unless a second round clears it
         planned_route_times(steps, f"L{plan}", f"mamba_scan_bwd sweep b{b} t{t}")
+    reset_counts()  # the sweep's launches are no path's
+
+
+# shapes of mamba_scan's chunk-length sweep (d 2048 n16, bf16 IO, no initial
+# state): MAMBA_BWD_SWEEP_B x MAMBA_BWD_SWEEP_T bracket mamba_scan_plan's
+# thresholds; then the ragged lengths the driven paths launch (generate's
+# prefill t151, training's t511, the gradient check's b2 t319) and b1 t151
+MAMBA_FWD_SWEEP_RAGGED = ((1, 151), (8, 151), (2, 319), (4, 511), (8, 511))
+
+
+def mamba_fwd_route_sweep(torch, mamba_cuda, card_line):
+    """mamba_scan timed in turns at every chunk length of MAMBA_BWD_CHUNKS
+    below t and at one chunk, over MAMBA_BWD_SWEEP_B x MAMBA_BWD_SWEEP_T and
+    MAMBA_FWD_SWEEP_RAGGED (there also a segment either side of the planned
+    length), beside the length mamba_scan_plan picks: where the plan comes
+    from. Every point is timed and printed first (median of six turns); then
+    at every point the planned length may be at most SWEEP_MARGIN slower
+    than the fastest, a point that misses timed again (planned_route_times)
+    before the sweep fails on it. The launch counts are reset afterwards:
+    the forced lengths are no path's."""
+    bf = torch.bfloat16
+    print(f"mamba_scan chunk-length sweep (d{MAMBA_D} n{MAMBA_N}, bf16 IO, no initial state; "
+          f"device us, median of {2 * ROUTE_TURNS} in turns; L{{t}} is one chunk) [{card_line}]:")
+    misses = []
+    points = [(b, t) for b in MAMBA_BWD_SWEEP_B for t in MAMBA_BWD_SWEEP_T]
+    with torch.no_grad():
+        for b, t in points + list(MAMBA_FWD_SWEEP_RAGGED):
+            x = mamba_inputs(torch, b, t, bf, None, False, seed=990 + t + b)
+            args = tuple(x[k] for k in MAMBA_LEAVES[:6])
+            plan = mamba_cuda.mamba_scan_plan(b, t, MAMBA_D)
+            lengths = {c for c in MAMBA_BWD_CHUNKS if c < t} | {-(-t // 16) * 16, plan}
+            if (b, t) in MAMBA_FWD_SWEEP_RAGGED:
+                lengths |= set(mamba_bwd_neighbours(t, plan))
+            steps = {f"L{c}": (lambda c=c, args=args: mamba_cuda._scan_launch(*args, chunk=c))
+                     for c in sorted(lengths)}
+            ms, _ = time_routes(steps)
+            best = min(ms, key=ms.get)
+            print(f"  b{b} t{t}: " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in ms.items())
+                  + f"; planned L{plan}, fastest {best}")
+            if ms[f"L{plan}"] > ms[best] * (1 + SWEEP_MARGIN):
+                misses.append((b, t, plan, steps))
+        for b, t, plan, steps in misses:  # fails here unless a second round clears it
+            planned_route_times(steps, f"L{plan}", f"mamba_scan sweep b{b} t{t}")
     reset_counts()  # the sweep's launches are no path's
 
 
@@ -4819,36 +4933,54 @@ def mamba_bwd_neighbours(t, chunk):
 def mamba_gap_phase(torch, mamba_cuda, card_line):
     """launches x (time - bound) of mamba_scan and of mamba_scan_bwd over the
     Mamba main paths: every shape they launched each on, weighted by its
-    launch count (GAP_SHAPE_COUNTS), held against the plain version
-    (launched_mamba_shapes_phase), timed here beside the shape's bound: the
-    forward alone, the backward on its routes in turns and, where it took
-    the chunked route, at a segment either side of its chunk length too
-    (median of six, retimed on a miss; the length taken at most
-    SWEEP_MARGIN slower than the fastest). Prints each shape, the sums and,
-    for the backward, the sum had
-    every launch taken the one-chunk body; returns {kernel: sum on the
-    routes taken}."""
+    launch count (GAP_SHAPE_COUNTS), held against the plain version on every
+    route (launched_mamba_shapes_phase), timed here beside the shape's
+    bound on its routes in turns and, where it took the chunked route, at a
+    segment either side of its chunk length too (median of six, retimed on
+    a miss; the length taken at most SWEEP_MARGIN slower than the fastest).
+    Prints each shape, the sums and the sums had every launch taken one
+    chunk; returns {kernel: sum on the routes taken}."""
     f32 = torch.float32
     sums = {}
     counts = GAP_SHAPE_COUNTS["mamba_scan"]
     require(counts, "mamba_scan: the main paths launched it on no shape")
-    total = 0.0
+    total = {"taken": 0.0, "one_chunk": 0.0}
     print(f"mamba_scan: launches x (time - bound) over {sum(counts.values())} main-path "
-          f"launches on {len(counts)} shapes (device us; the kernel, the bound):")
+          f"launches on {len(counts)} shapes (device us; the route taken, the one-chunk walk, "
+          f"the bound):")
     for shape, n in sorted(counts.items(), key=str):
-        b, t, d, _, io, st, reset = shape
+        b, t, d, _, io, st, reset, chunk = shape
+        route = mamba_cuda.bwd_route(t, chunk)
+        require(mamba_fwd_chunks(mamba_cuda, b, t, d)[route] == chunk,
+                f"mamba_scan: {shape} took chunk length {chunk}, not its plan's")
         x = mamba_inputs(torch, b, t, io, st, reset, seed=780 + t + b)
         args = tuple(x[k] for k in MAMBA_LEAVES[:6])
-        call = lambda: mamba_cuda.mamba_scan(*args, initial_state=x["s0"], reset_mask=x["reset"])
+        steps = mamba_fwd_steps(mamba_cuda, x)
+        if route == "chunked":
+            steps.update({f"L{c}": (lambda c=c: mamba_cuda._scan_launch(
+                *args, x["s0"], x["reset"], chunk=c)) for c in mamba_bwd_neighbours(t, chunk)})
         with torch.no_grad():
-            y, sf = call()
-            ms = time_routes({"kernel": call})[0]["kernel"]
+            y, sf = steps[route]()
+            label = f"mamba_scan b{b} t{t} IO {dtype_name(io)} {dtype_name(st)}"
+            ms = (planned_route_times(steps, route, label)[0] if len(steps) > 1
+                  else time_routes(steps)[0])
         flops, exps = mamba_work(b, t)
         bound_ms = roofline(nbytes(*args, x["s0"], x["reset"], y, sf), flops, f32, exps)[0]
-        total += n * (ms - bound_ms)
-        print(f"  {shape}: {n} launches; {ms * 1e3:.2f}, bound {bound_ms * 1e3:.3f}")
-    print(f"  mamba_scan: sum of launches x (time - bound) {total:.3f} ms [{card_line}]")
-    sums["mamba_scan"] = total
+        total["taken"] += n * (ms[route] - bound_ms)
+        total["one_chunk"] += n * (ms["one_chunk"] - bound_ms)
+        others = "".join(f", {k} {v * 1e3:.2f}" for k, v in ms.items() if k.startswith("L"))
+        print(f"  {shape}: {n} launches; {route} {ms[route] * 1e3:.2f}, one chunk "
+              f"{ms['one_chunk'] * 1e3:.2f}{others}, bound {bound_ms * 1e3:.3f}")
+        for r, c in mamba_fwd_chunks(mamba_cuda, b, t, d).items():
+            note_shape("mamba_scan", f"b{b} t{t} IO {dtype_name(io)} initial state "
+                       f"{dtype_name(st)}{', reset mask' if reset else ''}, {r} route (chunk "
+                       f"length {c}){' (planned)' if r == route else ''}, {n} main-path "
+                       "launches, in turns", ms[r], None,
+                       nbytes(*args, x["s0"], x["reset"], y, sf), flops, f32, exps=exps)
+    print(f"  mamba_scan: sum of launches x (time - bound) {total['taken']:.3f} ms on the routes "
+          f"taken; {total['one_chunk']:.3f} ms had every launch taken the one-chunk walk "
+          f"[{card_line}]")
+    sums["mamba_scan"] = total["taken"]
     counts = GAP_SHAPE_COUNTS["mamba_scan_bwd"]
     require(counts, "mamba_scan_bwd: the main paths launched it on no shape")
     total = {"taken": 0.0, "one_chunk": 0.0}
@@ -4992,7 +5124,7 @@ def launched_mamba_shapes_phase(torch, mamba_cuda):
     for shape in todo["mamba_scan_bwd"]:  # (..., need_ds0, chunk length): held on every route
         hold_mamba_scan(torch, mamba_cuda, shape[:7], need_ds0=shape[7])
     for shape in sorted(MAMBA_LAUNCHED["mamba_scan"] - MAMBA_HELD["mamba_scan"], key=str):
-        hold_mamba_scan(torch, mamba_cuda, shape)
+        hold_mamba_scan(torch, mamba_cuda, shape[:7])  # (..., chunk length): on every route
     require(all(MAMBA_LAUNCHED[n] <= MAMBA_HELD[n] for n in MAMBA_LAUNCHED),
             "Mamba: launched but not held")
 
@@ -5066,6 +5198,7 @@ def main():
     launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
     gaps.update(rwkv6_gap_phase(torch, rwkv6_cuda, card_line))
     mamba_kernel_phase(torch, mamba_cuda, summary)
+    mamba_fwd_route_sweep(torch, mamba_cuda, card_line)
     mamba_bwd_route_sweep(torch, mamba_cuda, card_line)
     add_launches(launches, mamba_phase(torch, np, gla_cuda, card_line))
     launched_mamba_shapes_phase(torch, mamba_cuda)
@@ -5077,12 +5210,12 @@ def main():
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
     # launches x (time - bound): the two GLA forwards, gla_chunk's backward,
-    # the three decode steps, rwkv6_chunk and its backward and the two Mamba
+    # the four decode steps, rwkv6_chunk and its backward and the two Mamba
     # kernels over every launched shape, the other kernels at their row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
     print("launches x (time - bound), ms, largest first (the two GLA forwards, gla_chunk_bwd, "
-          "the three decode steps, rwkv6_chunk and its backward and the two Mamba kernels over "
+          "the four decode steps, rwkv6_chunk and its backward and the two Mamba kernels over "
           "every launched shape, the others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")

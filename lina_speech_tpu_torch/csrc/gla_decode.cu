@@ -5,7 +5,7 @@
 // gla_pallas.py:1709; _gla_decode_impl :1526, pallas_call :1539, body
 // _decode_kernel :1347). The kernel's two bodies, their design and what
 // bounds each (bytes: one state read and one state write per token) are in
-// gla_decode.cuh (CONV = false). The TPU routing that sends tiny batches
+// gla_decode.cuh (mode kStepGla). The TPU routing that sends tiny batches
 // and f32 states to XLA (models/gla_layer.py:667-684) follows from the TPU's
 // 8-row block and its VMEM budget; this kernel takes every batch size and
 // both state dtypes.
@@ -20,7 +20,7 @@ extern "C" int gla_decode_step(const void* q, const void* k, const void* v, cons
                                void* state, void* o, int B, int H, int DK, int DV,
                                float scale, int io_dtype, int state_dtype, int route,
                                void* stream) {
-  return gla::dispatch_decode<false>(q, k, v, gk, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, state, o, nullptr, nullptr, nullptr, B, H, DK, DV,
-                                     scale, io_dtype, state_dtype, route, stream);
+  return gla::dispatch_decode<gla::kStepGla>(
+      q, k, v, gk, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, state, o,
+      nullptr, nullptr, nullptr, B, H, DK, DV, scale, io_dtype, state_dtype, route, stream);
 }

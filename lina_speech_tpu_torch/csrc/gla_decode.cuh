@@ -1,19 +1,26 @@
-// One GLA decode token, with or without the q/k/v short-conv ring updates
-// fused in: one kernel template of two bodies (routes), instantiated by
-// gla_decode_conv.cu (CONV = true) and gla_decode.cu (CONV = false). Per
-// (batch, head):
+// One classic decode token of a gated linear recurrence: one kernel
+// template of two bodies (routes) and three modes, instantiated by
+// gla_decode_conv.cu (kStepGlaConv), gla_decode.cu (kStepGla) and
+// rwkv6_decode.cu (kStepRwkv6). Per (batch, head):
 //
-//   CONV:  ring <- [ring[1:], x]                     (q, k, v rings, width 4)
-//          y    = rnd(silu(rnd(sum_i w_i ring_i)))   (tap sum f32, rnd = IO dtype)
-//   S = diag(exp g) S + k^T v,   o = (scale q) S
+//   kStepGlaConv:  ring <- [ring[1:], x]                    (q, k, v rings, width 4)
+//                  y    = rnd(silu(rnd(sum_i w_i ring_i)))  (tap sum f32, rnd = IO dtype)
+//                  S = diag(exp g) S + k^T v,   o = (scale q) S
+//   kStepGla:      the same on q, k, v as they are
+//   kStepRwkv6:    o = r (S + diag(u) k^T v),   S <- diag(exp w) S + k^T v
 //
-// CONV = false takes q, k and v as they are, cast to f32 from the IO dtype
+// kStepGla takes q, k and v as they are, cast to f32 from the IO dtype
 // with no further rounding (the Pallas _decode_kernel, gla_pallas.py:1347);
-// CONV = true rounds as the Pallas _decode_conv_kernel does
-// (gla_pallas.py:1389-1393). o is read from the f32 S before S is rounded to
-// the state dtype; o is rounded to the IO dtype. Both bodies form each state
-// element as fma(e^g, S, k v) in f32 (no contraction left to the compiler),
-// so they give the state in equal bits; o's sums run in other orders.
+// kStepGlaConv rounds as the Pallas _decode_conv_kernel does
+// (gla_pallas.py:1389-1393). The GLA modes read o from the updated f32 S
+// before S is rounded to the state dtype. kStepRwkv6 (the Pallas
+// _rwkv6_decode_kernel, gla_pallas.py:1468) reads o from the OLD S and adds
+// the bonus (sum_i r_i u_i k_i) v_j, a scalar a head formed once in the
+// prologue; it has no scale and no rings, and its per-row decay e^w comes
+// from f32 w as GLA's e^g from f32 g. o is rounded to the IO dtype. Every
+// body and mode forms each state element as fma(e^g, S, k v) in f32 (no
+// contraction left to the compiler), so the routes give the state in equal
+// bits; o's sums run in other orders.
 //
 // What bounds it on the H100: bytes. The state is read once and written
 // once per token (b8 flagship: 8.4 MB each way per layer in bf16, 5.0 us at
@@ -21,13 +28,14 @@
 // chain of dependent memory round trips. The state is updated in place (the
 // Pallas kernel's input_output_aliases={4: 1}): each element is read and
 // written by the same thread. Both bodies give a block a column tile of one
-// (batch, head) state, all dk rows; with CONV every block of a head needs
-// the full q/k conv outputs, so each forms them from the OLD rings (from
-// L2 after the first), and the new rings go to separate output buffers (an
-// in-place ring shift by one block would race with the other blocks'
-// reads); column tile 0 writes the q/k rings, each block its columns of the
-// v ring. ops/gla_cuda.py:gla_decode_plan picks the body from shapes and
-// dtypes before the launch:
+// (batch, head) state, all dk rows; with the convs every block of a head
+// needs the full q/k conv outputs, so each forms them from the OLD rings
+// (from L2 after the first), and the new rings go to separate output
+// buffers (an in-place ring shift by one block would race with the other
+// blocks' reads); column tile 0 writes the q/k rings, each block its
+// columns of the v ring. ops/gla_cuda.py:gla_decode_plan (and
+// ops/rwkv6_cuda.py:rwkv6_decode_plan, the same rule) picks the body from
+// shapes and dtypes before the launch:
 //
 // Wide route (states above 512 KiB): a block of kThreads threads owns a
 // column tile TPR x 16 bytes wide (TPR = 4, 8 or 16 threads across a row:
@@ -66,22 +74,45 @@ namespace gla {
 
 constexpr int kDecodeTile = 0;  // route code of the tile body (ops/gla_cuda.py:_DECODE_ROUTE_CODE)
 
+// the template's modes
+constexpr int kStepGla = 0;      // GLA on q, k, v as they are
+constexpr int kStepGlaConv = 1;  // GLA with the q/k/v short convs fused in
+constexpr int kStepRwkv6 = 2;    // RWKV6: readout of the old state, the u bonus
+
+// The sum over a warp of v, the same bits on every lane (fixed order).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
 // S' = e^g S + k v, the one rounding order of both bodies
 __device__ __forceinline__ float decay_update(float e, float s, float k, float v) {
   return __fmaf_rn(e, s, __fmul_rn(k, v));
 }
 
+// RWKV: sum_i r_i u_i k_i, the bonus of a head, from its warp parts in order
+template <int DK>
+__device__ __forceinline__ float head_bonus(const float (&sbon)[DK / 32]) {
+  float b = 0.f;
+#pragma unroll
+  for (int w = 0; w < DK / 32; ++w) b += sbon[w];
+  return b;
+}
+
 // ------------------------------------------------------------ tile route
-template <typename IO, typename ST, int DK, bool CONV>
+template <typename IO, typename ST, int DK, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 gla_decode_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
                   const IO* __restrict__ xv, const float* __restrict__ gk,
-                  const IO* __restrict__ wq, const IO* __restrict__ wk,
-                  const IO* __restrict__ wv, const IO* __restrict__ cq,
+                  const float* __restrict__ bonus, const IO* __restrict__ wq,
+                  const IO* __restrict__ wk, const IO* __restrict__ wv,
+                  const IO* __restrict__ cq,
                   const IO* __restrict__ ck, const IO* __restrict__ cv,
                   ST* state, IO* __restrict__ o, IO* __restrict__ cq_out,
                   IO* __restrict__ ck_out, IO* __restrict__ cv_out,
                   int BH, int H, int DV, float scale) {
+  constexpr bool CONV = MODE == kStepGlaConv, RWKV = MODE == kStepRwkv6;
   constexpr int RPT = DK / kGroups;
   const int bh = blockIdx.x;
   const int h = bh % H;
@@ -93,6 +124,7 @@ gla_decode_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
 
   __shared__ float sq[DK], sk[DK], seg[DK], sv[kBV];
   __shared__ float part[kGroups][kBV];
+  __shared__ float sbon[DK / 32];  // RWKV: the bonus's warp parts
 
   // rings are (4, BH, D): element (j, bh, c) at j * BH * D + bh * D + c
   if (tid < DK) {
@@ -100,6 +132,7 @@ gla_decode_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
     const size_t off = (size_t)bh * DK + tid;
     const float x_q = to_f(xq[off]);
     const float x_k = to_f(xk[off]);
+    const float u_i = RWKV ? bonus[(size_t)h * DK + tid] : 0.f;
     if constexpr (CONV) {
       float hq[kConv - 1], hk[kConv - 1], tq[kConv], tk[kConv];
 #pragma unroll
@@ -124,10 +157,14 @@ gla_decode_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
         ck_out[(kConv - 1) * kstride + off] = xk[off];
       }
     } else {
-      sq[tid] = x_q * scale;
+      sq[tid] = RWKV ? x_q : x_q * scale;
       sk[tid] = x_k;
     }
     seg[tid] = expf(gk[off]);
+    if constexpr (RWKV) {  // the shuffles after every load of the prologue is asked for
+      const float part_sum = warp_sum(x_q * u_i * x_k);
+      if (tid % 32 == 0) sbon[tid / 32] = part_sum;
+    }
   }
   if (tid < kBV) {
     const int vcol = blockIdx.y * kBV + tid;
@@ -159,8 +196,9 @@ gla_decode_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int i = row0 + r;
+    if (RWKV) acc += sq[i] * s[r];  // the old state
     s[r] = decay_update(seg[i], s[r], sk[i], vj);
-    acc += sq[i] * s[r];
+    if (!RWKV) acc += sq[i] * s[r];
     srow[(size_t)r * DV] = from_f<ST>(s[r]);
   }
   part[grp][lane] = acc;
@@ -169,22 +207,23 @@ gla_decode_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
     float out = 0.f;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) out += part[g][lane];
+    if constexpr (RWKV) out += head_bonus<DK>(sbon) * vj;
     o[(size_t)bh * DV + col] = from_f<IO>(out);
   }
 }
 
-template <typename IO, typename ST, int DK, bool CONV>
+template <typename IO, typename ST, int DK, int MODE>
 int launch_decode_tile(const void* xq, const void* xk, const void* xv, const void* gk,
-                const void* wq, const void* wk, const void* wv, const void* cq,
-                const void* ck, const void* cv, void* state, void* o, void* cq_out,
-                void* ck_out, void* cv_out, int B, int H, int DV, float scale,
+                const void* u, const void* wq, const void* wk, const void* wv,
+                const void* cq, const void* ck, const void* cv, void* state, void* o,
+                void* cq_out, void* ck_out, void* cv_out, int B, int H, int DV, float scale,
                 cudaStream_t stream) {
   const dim3 grid(B * H, DV / kBV);
-  gla_decode_kernel<IO, ST, DK, CONV><<<grid, kThreads, 0, stream>>>(
+  gla_decode_kernel<IO, ST, DK, MODE><<<grid, kThreads, 0, stream>>>(
       static_cast<const IO*>(xq), static_cast<const IO*>(xk),
       static_cast<const IO*>(xv), static_cast<const float*>(gk),
-      static_cast<const IO*>(wq), static_cast<const IO*>(wk),
-      static_cast<const IO*>(wv), static_cast<const IO*>(cq),
+      static_cast<const float*>(u), static_cast<const IO*>(wq),
+      static_cast<const IO*>(wk), static_cast<const IO*>(wv), static_cast<const IO*>(cq),
       static_cast<const IO*>(ck), static_cast<const IO*>(cv),
       static_cast<ST*>(state), static_cast<IO*>(o), static_cast<IO*>(cq_out),
       static_cast<IO*>(ck_out), static_cast<IO*>(cv_out), B * H, H, DV, scale);
@@ -229,16 +268,18 @@ template <> struct Word<__nv_bfloat16> {
   }
 };
 
-template <typename IO, typename ST, int DK, bool CONV, int TPR>
+template <typename IO, typename ST, int DK, int MODE, int TPR>
 __global__ void __launch_bounds__(kThreads, 2)
 gla_decode_wide_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
                        const IO* __restrict__ xv, const float* __restrict__ gk,
-                       const IO* __restrict__ wq, const IO* __restrict__ wk,
-                       const IO* __restrict__ wv, const IO* __restrict__ cq,
+                       const float* __restrict__ bonus, const IO* __restrict__ wq,
+                       const IO* __restrict__ wk, const IO* __restrict__ wv,
+                       const IO* __restrict__ cq,
                        const IO* __restrict__ ck, const IO* __restrict__ cv,
                        ST* state, IO* __restrict__ o, IO* __restrict__ cq_out,
                        IO* __restrict__ ck_out, IO* __restrict__ cv_out,
                        int BH, int H, int DV, float scale) {
+  constexpr bool CONV = MODE == kStepGlaConv, RWKV = MODE == kStepRwkv6;
   constexpr int VC = Word<ST>::N;
   constexpr int WC = TPR * VC;      // the block's columns
   constexpr int RP = kThreads / TPR;  // rows the block covers in one pass
@@ -254,6 +295,7 @@ gla_decode_wide_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
 
   __shared__ float sq[DK], sk[DK], seg[DK], sv[WC];
   __shared__ float part[RP][WC];
+  __shared__ float sbon[DK / 32];  // RWKV: the bonus's warp parts
 
   // the state's words first: nothing they wait for (rows rp, rp + RP, ...)
   ST* base = state + (size_t)bh * DK * DV + col;
@@ -268,6 +310,7 @@ gla_decode_wide_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
     const size_t off = (size_t)bh * DK + tid;
     const float x_q = to_f(xq[off]);
     const float x_k = to_f(xk[off]);
+    const float u_i = RWKV ? bonus[(size_t)h * DK + tid] : 0.f;
     if constexpr (CONV) {
       float hq[kConv - 1], hk[kConv - 1], tq[kConv], tk[kConv];
 #pragma unroll
@@ -292,10 +335,14 @@ gla_decode_wide_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
         ck_out[(kConv - 1) * kstride + off] = from_f<IO>(x_k);
       }
     } else {
-      sq[tid] = x_q * scale;
+      sq[tid] = RWKV ? x_q : x_q * scale;
       sk[tid] = x_k;
     }
     seg[tid] = expf(gk[off]);
+    if constexpr (RWKV) {  // the shuffles after every load of the prologue is asked for
+      const float part_sum = warp_sum(x_q * u_i * x_k);
+      if (tid % 32 == 0) sbon[tid / 32] = part_sum;
+    }
   }
   for (int c = kThreads - 1 - tid; c < WC; c += kThreads) {
     if (c0 + c >= DV) continue;
@@ -333,8 +380,9 @@ gla_decode_wide_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
       Word<ST>::unpack(raw[r], f);
 #pragma unroll
       for (int e = 0; e < VC; ++e) {
+        if (RWKV) acc[e] += q * f[e];  // the old state
         f[e] = decay_update(eg, f[e], kk, v[e]);
-        acc[e] += q * f[e];
+        if (!RWKV) acc[e] += q * f[e];
       }
       *reinterpret_cast<uint4*>(base + (size_t)i * DV) = Word<ST>::pack(f);
     }
@@ -346,23 +394,24 @@ gla_decode_wide_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
     float out = 0.f;
 #pragma unroll
     for (int g = 0; g < RP; ++g) out += part[g][c];
+    if constexpr (RWKV) out += head_bonus<DK>(sbon) * sv[c];
     o[(size_t)bh * DV + c0 + c] = from_f<IO>(out);
   }
 }
 
-template <int TPR, typename IO, typename ST, int DK, bool CONV>
+template <int TPR, typename IO, typename ST, int DK, int MODE>
 int launch_decode_wide(const void* xq, const void* xk, const void* xv, const void* gk,
-                       const void* wq, const void* wk, const void* wv, const void* cq,
-                       const void* ck, const void* cv, void* state, void* o, void* cq_out,
-                       void* ck_out, void* cv_out, int B, int H, int DV, float scale,
+                       const void* u, const void* wq, const void* wk, const void* wv,
+                       const void* cq, const void* ck, const void* cv, void* state, void* o,
+                       void* cq_out, void* ck_out, void* cv_out, int B, int H, int DV, float scale,
                        cudaStream_t stream) {
   constexpr int WC = TPR * Word<ST>::N;
   const dim3 grid(B * H, (DV + WC - 1) / WC);
-  gla_decode_wide_kernel<IO, ST, DK, CONV, TPR><<<grid, kThreads, 0, stream>>>(
+  gla_decode_wide_kernel<IO, ST, DK, MODE, TPR><<<grid, kThreads, 0, stream>>>(
       static_cast<const IO*>(xq), static_cast<const IO*>(xk),
       static_cast<const IO*>(xv), static_cast<const float*>(gk),
-      static_cast<const IO*>(wq), static_cast<const IO*>(wk),
-      static_cast<const IO*>(wv), static_cast<const IO*>(cq),
+      static_cast<const float*>(u), static_cast<const IO*>(wq),
+      static_cast<const IO*>(wk), static_cast<const IO*>(wv), static_cast<const IO*>(cq),
       static_cast<const IO*>(ck), static_cast<const IO*>(cv),
       static_cast<ST*>(state), static_cast<IO*>(o), static_cast<IO*>(cq_out),
       static_cast<IO*>(ck_out), static_cast<IO*>(cv_out), B * H, H, DV, scale);
@@ -371,40 +420,42 @@ int launch_decode_wide(const void* xq, const void* xk, const void* xv, const voi
 
 // One launch on route ``route``: 0 the tile body, 4, 8 or 16 the wide body
 // with that many threads across a row; -7 for another code.
-template <typename IO, typename ST, int DK, bool CONV>
+template <typename IO, typename ST, int DK, int MODE>
 int launch_decode(const void* xq, const void* xk, const void* xv, const void* gk,
-                  const void* wq, const void* wk, const void* wv, const void* cq,
-                  const void* ck, const void* cv, void* state, void* o, void* cq_out,
-                  void* ck_out, void* cv_out, int B, int H, int DV, float scale, int route,
-                  cudaStream_t stream) {
-#define DECODE_ARGS \
-  xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, o, cq_out, ck_out, cv_out, B, H, DV, scale, stream
+                  const void* u, const void* wq, const void* wk, const void* wv,
+                  const void* cq, const void* ck, const void* cv, void* state, void* o,
+                  void* cq_out, void* ck_out, void* cv_out, int B, int H, int DV, float scale,
+                  int route, cudaStream_t stream) {
+#define DECODE_ARGS                                                                 \
+  xq, xk, xv, gk, u, wq, wk, wv, cq, ck, cv, state, o, cq_out, ck_out, cv_out, B, H, DV, \
+      scale, stream
   switch (route) {
-    case kDecodeTile: return launch_decode_tile<IO, ST, DK, CONV>(DECODE_ARGS);
-    case 4: return launch_decode_wide<4, IO, ST, DK, CONV>(DECODE_ARGS);
-    case 8: return launch_decode_wide<8, IO, ST, DK, CONV>(DECODE_ARGS);
-    case 16: return launch_decode_wide<16, IO, ST, DK, CONV>(DECODE_ARGS);
+    case kDecodeTile: return launch_decode_tile<IO, ST, DK, MODE>(DECODE_ARGS);
+    case 4: return launch_decode_wide<4, IO, ST, DK, MODE>(DECODE_ARGS);
+    case 8: return launch_decode_wide<8, IO, ST, DK, MODE>(DECODE_ARGS);
+    case 16: return launch_decode_wide<16, IO, ST, DK, MODE>(DECODE_ARGS);
     default: return -7;
   }
 #undef DECODE_ARGS
 }
 
-// Dispatch over dtypes and DK. Returns cudaGetLastError() after the launch,
+// Dispatch over dtypes and DK for the mode MODE (u: kStepRwkv6's bonus, (H,
+// DK) f32; null in the GLA modes). Returns cudaGetLastError() after the launch,
 // -1 for an unsupported DK, -2 for unsupported dtype codes, -3 for DV % 32
 // != 0, -6 for a state off a 16-byte boundary on a wide route (it is read
 // and written in 16-byte words), -7 for an unknown route code.
-template <bool CONV>
+template <int MODE>
 int dispatch_decode(const void* xq, const void* xk, const void* xv, const void* gk,
-                    const void* wq, const void* wk, const void* wv, const void* cq,
-                    const void* ck, const void* cv, void* state, void* o, void* cq_out,
-                    void* ck_out, void* cv_out, int B, int H, int DK_, int DV, float scale,
-                    int io_dtype, int state_dtype, int route, void* stream) {
+                    const void* u, const void* wq, const void* wk, const void* wv,
+                    const void* cq, const void* ck, const void* cv, void* state, void* o,
+                    void* cq_out, void* ck_out, void* cv_out, int B, int H, int DK_, int DV,
+                    float scale, int io_dtype, int state_dtype, int route, void* stream) {
   if (DV % kBV != 0 || DV < kBV) return -3;
   if (route != kDecodeTile && reinterpret_cast<uintptr_t>(state) % 16 != 0) return -6;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   GLA_DISPATCH_TYPES(io_dtype, state_dtype,
-                     GLA_DISPATCH_DK(DK_, return launch_decode<IO, ST, DK, CONV>(
-                         xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, o, cq_out, ck_out,
+                     GLA_DISPATCH_DK(DK_, return launch_decode<IO, ST, DK, MODE>(
+                         xq, xk, xv, gk, u, wq, wk, wv, cq, ck, cv, state, o, cq_out, ck_out,
                          cv_out, B, H, DV, scale, route, st)))
   return -2;
 }

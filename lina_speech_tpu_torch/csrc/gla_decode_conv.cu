@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel gla_decode_conv_fused (lina_speech_tpu/ops/
 // gla_pallas.py:1641, body _decode_conv_kernel :1366). The kernel's two
-// bodies, their design and what bounds each are in gla_decode.cuh (CONV =
-// true).
+// bodies, their design and what bounds each are in gla_decode.cuh (mode
+// kStepGlaConv).
 #include "gla_decode.cuh"
 
 // C entry point (bound with ctypes in ops/gla_cuda.py). Layouts: xq, xk, gk
@@ -21,7 +21,7 @@ extern "C" int gla_decode_conv_step(const void* xq, const void* xk, const void* 
                                     int B, int H, int DK, int DV, float scale,
                                     int io_dtype, int state_dtype, int route,
                                     void* stream) {
-  return gla::dispatch_decode<true>(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, o,
-                                    cq_out, ck_out, cv_out, B, H, DK, DV, scale, io_dtype,
-                                    state_dtype, route, stream);
+  return gla::dispatch_decode<gla::kStepGlaConv>(
+      xq, xk, xv, gk, nullptr, wq, wk, wv, cq, ck, cv, state, o, cq_out, ck_out, cv_out, B, H, DK,
+      DV, scale, io_dtype, state_dtype, route, stream);
 }

@@ -25,16 +25,18 @@
 // segment; ops/mamba_cuda.py:mamba_scan_bwd_plan picks L) and the chunks
 // run in parallel. The recurrence is diagonal, so it splits exactly:
 //
-// 1. chunk_fwd_kernel (grid: 64-channel group x chunk x batch): each chunk
-//    from a zero state (chunk 0 from s0) runs its forward once, one
-//    exponential a state value, and writes the state at every segment start
-//    (ck, local to the chunk) with the chunk's dt sum up to it (cdt), its end
-//    state h_loc, its decay product P = prod a_t (0 if a step resets) and,
-//    from the same decays, the reverse scan of g from zero at its end in
-//    closed form, g_loc = sum_t (prod_{s<=t} a_s) C_t dy_t;
-// 2. carry_kernel (one thread a (b, d, n), serial over chunks only): the
-//    state at every chunk's start, H_c = P_{c-1} H_{c-1} + h_loc_{c-1}, and
-//    the cotangent at its end, G_c = P_{c+1} G_{c+1} + g_loc_{c+1} from dsf;
+// 1. walk_kernel in mode kWalkBwdSummaries (mamba_common.cuh; grid:
+//    64-channel group x chunk x batch): each chunk from a zero state (chunk
+//    0 from s0) runs its forward once, one exponential a state value, and
+//    writes the state at every segment start (ck, local to the chunk) with
+//    the chunk's dt sum up to it (cdt), its end state h_loc, its decay
+//    product P = prod a_t (0 if a step resets) and, from the same decays,
+//    the reverse scan of g from zero at its end in closed form, g_loc =
+//    sum_t (prod_{s<=t} a_s) C_t dy_t;
+// 2. carry_kernel (mamba_common.cuh; one thread a (b, d, n), serial over
+//    chunks only): the state at every chunk's start, H_c = P_{c-1} H_{c-1}
+//    + h_loc_{c-1}, and the cotangent at its end, G_c = P_{c+1} G_{c+1} +
+//    g_loc_{c+1} from dsf;
 // 3. chunk_bwd_kernel (same grid): the segment walk of one chunk, seeded
 //    by H_c and G_c: a segment's start state is its local checkpoint plus
 //    exp(A cdt) H_c (0 after a reset in the chunk), its 16
@@ -48,7 +50,8 @@
 //    of dA and dD over batch and chunk, in a fixed order: no atomics, so two
 //    runs give the same bits.
 // With one chunk (L >= t) steps 1-2 shrink to the checkpoint pass from s0
-// (none for t <= 16) and the body walks the whole length.
+// (walk_kernel in mode kWalkCheckpoints; none for t <= 16) and the body
+// walks the whole length.
 // Chunks pay where one chunk leaves the card idle (b * d / 64 blocks under
 // two an SM): at b8 d2048 one chunk fills it and the plan takes it.
 //
@@ -70,28 +73,6 @@
 namespace mamba {
 namespace bwd {
 
-constexpr int kCh = 64;                   // channels per block
-constexpr int kBThreads = kCh * kLanes;   // 256
-constexpr int kBWarps = kBThreads / 32;   // 8
-constexpr int kSeg = kTile;               // steps per segment and per staged tile
-static_assert(kSeg * kN == kBThreads, "one B and one C value a thread per segment");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // One segment of the block's inputs: x, dt and dy of its kCh channels as
 // they lie in device memory (copied by cp.async), B and C in f32, keep
 // flags (0 at a reset step).
@@ -104,26 +85,6 @@ struct __align__(16) SegTile {
   float C[kSeg][kN];
   float keep[kSeg];
 };
-
-// Start the copies of x, dt and (unless null) dy of steps [row, row + n)
-// into a tile: rows of the block's kLive channels, 16 bytes a copy.
-template <int kLive, typename Tile, typename IO>
-__device__ __forceinline__ void issue_rows(Tile& tl, const IO* __restrict__ x,
-                                           const float* __restrict__ dt,
-                                           const IO* __restrict__ dy, size_t row, int Dm,
-                                           int ch0, int n) {
-  constexpr int kV = 16 / sizeof(IO), xp = kLive / kV, dp = kLive / 4;
-  for (int i = threadIdx.x; i < n * xp; i += blockDim.x) {
-    const int j = i / xp, p = (i % xp) * kV;
-    const size_t off = (row + j) * Dm + ch0 + p;
-    cp_async16(&tl.x[j][p], x + off);
-    if (dy) cp_async16(&tl.dy[j][p], dy + off);
-  }
-  for (int i = threadIdx.x; i < n * dp; i += blockDim.x) {
-    const int j = i / dp, p = (i % dp) * 4;
-    cp_async16(&tl.dt[j][p], dt + (row + j) * Dm + ch0 + p);
-  }
-}
 
 // issue_rows for the block's ``live`` channels (64, or 32 in the last group
 // when d % 64 == 32), then one commit group.
@@ -192,207 +153,6 @@ __device__ __forceinline__ float channel_reduce_scatter(const float (&v)[8], int
 
 __device__ __forceinline__ int kept_index(int lane) {
   return ((lane >> 4) & 1) | ((lane >> 2) & 2) | (lane & 4);
-}
-
-// exp(dt A) for this lane's kPer state columns from a2 = A log2(e), 0 at a
-// reset step: mamba_common.cuh's decays with the SFU's ex2 flushing results
-// below 2^-126 to 0 (one instruction instead of five; such a decay changes
-// no state by more than 1e-38 times its value), a reset as an exponent of
-// -inf (ex2 gives +0) instead of a select a column.
-__device__ __forceinline__ void decays_ftz(float (&da)[kPer], const float (&a2)[kPer], float dt,
-                                           float keep) {
-  const float bias = keep != 0.f ? 0.f : -__int_as_float(0x7f800000);
-#pragma unroll
-  for (int k = 0; k < kPer; ++k)
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(da[k]) : "f"(fmaf(dt, a2[k], bias)));
-}
-
-// ---- 1. chunk summaries (kChunked) or, with one chunk, the checkpoint pass
-// Layouts: ck (batch, ceil(T/16), Dm, kN) and cdt (batch, ceil(T/16), Dm),
-// segments indexed over the whole length; hloc, gloc, P (batch, chunks, Dm,
-// kN). Without kChunked only ck is written and the last segment is not run.
-// Its few operations a step leave it waiting on memory, so the inputs come
-// through a ring of kRing tiles, kRing - 1 segments ahead, all of them by
-// cp.async: x, dt, dy, B and C as they lie in device memory, and the 4-byte
-// words that hold the segment's reset flags.
-constexpr int kRing = 4;
-
-template <typename IO>
-struct __align__(16) FwdTile {
-  IO x[kSeg][kCh];
-  float dt[kSeg][kCh];
-  IO dy[kSeg][kCh];
-  IO B[kSeg][kN];
-  IO C[kSeg][kN];
-  uint32_t rw[kSeg / 4 + 1];  // reset bytes [row & ~3, row + kSeg)
-};
-
-template <typename IO>
-__device__ __forceinline__ void issue_fwd(FwdTile<IO>& tl, const IO* __restrict__ x,
-                                          const float* __restrict__ dt,
-                                          const IO* __restrict__ B, const IO* __restrict__ C,
-                                          const uint8_t* __restrict__ reset,
-                                          const IO* __restrict__ dy, size_t row, int Dm,
-                                          int ch0, int live, int n) {
-  if (live == kCh)
-    issue_rows<kCh>(tl, x, dt, dy, row, Dm, ch0, n);
-  else
-    issue_rows<kCh / 2>(tl, x, dt, dy, row, Dm, ch0, n);
-  constexpr int kV = 16 / sizeof(IO), bp = kN / kV;  // 16-byte pieces of a row of B
-  for (int i = threadIdx.x; i < n * bp; i += blockDim.x) {
-    const int j = i / bp, p = (i % bp) * kV;
-    cp_async16(&tl.B[j][p], B + (row + j) * kN + p);
-    if (dy) cp_async16(&tl.C[j][p], C + (row + j) * kN + p);
-  }
-  if (reset) {
-    const uintptr_t w0 = reinterpret_cast<uintptr_t>(reset + row) & ~uintptr_t(3);
-    const int words = static_cast<int>((reinterpret_cast<uintptr_t>(reset + row + n - 1) - w0) / 4) + 1;
-    if (threadIdx.x < words)
-      cp_async4(&tl.rw[threadIdx.x], reinterpret_cast<const void*>(w0 + 4 * threadIdx.x));
-  }
-}
-
-template <typename IO, bool kChunked>
-__global__ void __launch_bounds__(kBThreads)
-chunk_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ A, const IO* __restrict__ B,
-                 const IO* __restrict__ C, const float* __restrict__ s0,
-                 const uint8_t* __restrict__ reset, const IO* __restrict__ dy,
-                 float* __restrict__ ck, float* __restrict__ cdt, float* __restrict__ hloc,
-                 float* __restrict__ gloc, float* __restrict__ P, int T, int Dm, int L) {
-  const int b = blockIdx.z, c = blockIdx.y, n_chunk = gridDim.y, ch0 = blockIdx.x * kCh;
-  const int tid = threadIdx.x, cl = tid / kLanes, k0 = (tid % kLanes) * kPer;
-  const int live = min(kCh, Dm - ch0);
-  const bool on = cl < live;  // uniform across a warp (live is 32 or 64)
-  const int ch = ch0 + (on ? cl : 0);
-  const int c0 = c * L, len = min(L, T - c0), n_seg = (len + kSeg - 1) / kSeg;
-  const int n_run = kChunked ? n_seg : n_seg - 1;  // segments whose steps are run
-  const int seg_all = (T + kSeg - 1) / kSeg, seg0 = c0 / kSeg;
-  const size_t brow = (size_t)b * T;
-  extern __shared__ float4 smem_raw[];
-  FwdTile<IO>* tiles = reinterpret_cast<FwdTile<IO>*>(smem_raw);
-
-  float a2[kPer], h[kPer], q[kPer], gl[kPer], cum = 0.f;
-  const size_t srow = ((size_t)b * Dm + ch) * kN + k0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    a2[k] = A[(size_t)ch * kN + k0 + k] * kLog2e;
-    h[k] = (c == 0 && s0) ? s0[srow + k] : 0.f;
-    q[k] = 1.f;
-    gl[k] = 0.f;
-  }
-  const IO* dy_in = kChunked ? dy : nullptr;
-  auto issue = [&](int s) {  // segment s into its ring slot, one commit group (empty past the end)
-    if (s < n_run) {
-      const int t0 = c0 + s * kSeg;
-      issue_fwd(tiles[s % kRing], x, dt, B, C, reset, dy_in, brow + t0, Dm, ch0, live,
-                min(kSeg, c0 + len - t0));
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < kRing - 1; ++s) issue(s);
-  for (int s = 0; s < n_seg; ++s) {
-    const size_t seg = (size_t)b * seg_all + seg0 + s;
-    if (on) {
-      *reinterpret_cast<float4*>(ck + (seg * Dm + ch) * kN + k0) =
-          make_float4(h[0], h[1], h[2], h[3]);
-      if (kChunked && k0 == 0) cdt[seg * Dm + ch] = cum;
-    }
-    if (s == n_run) break;
-    const int t0 = c0 + s * kSeg, n = min(kSeg, c0 + len - t0);
-    issue(s + kRing - 1);  // into the slot segment s - 1 used
-    cp_async_wait<kRing - 1>();
-    __syncthreads();
-    const FwdTile<IO>& tl = tiles[s % kRing];
-    const uint8_t* rs = reinterpret_cast<const uint8_t*>(tl.rw) +
-                        (reinterpret_cast<uintptr_t>(reset + brow + t0) & 3);
-    auto step = [&](int j) {
-      const float dtv = tl.dt[j][cl], dtx = dtv * to_f(tl.x[j][cl]);
-      float da[kPer];
-      decays_ftz(da, a2, dtv, reset && rs[j] ? 0.f : 1.f);
-      if (kChunked) {
-        const float dyv = to_f(tl.dy[j][cl]);
-        cum += dtv;
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          h[k] = da[k] * h[k] + dtx * to_f(tl.B[j][k0 + k]);
-          q[k] *= da[k];
-          gl[k] += q[k] * (to_f(tl.C[j][k0 + k]) * dyv);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) h[k] = da[k] * h[k] + dtx * to_f(tl.B[j][k0 + k]);
-      }
-    };
-    if (on) {
-      if (n == kSeg) {  // every segment but a ragged last one: constant offsets
-#pragma unroll
-        for (int j = 0; j < kSeg; ++j) step(j);
-      } else {
-#pragma unroll 1
-        for (int j = 0; j < n; ++j) step(j);
-      }
-    }
-    __syncthreads();  // this slot is consumed before segment s + kRing is copied into it
-  }
-  if (kChunked && on) {
-    const size_t off = (((size_t)b * n_chunk + c) * Dm + ch) * kN + k0;
-    *reinterpret_cast<float4*>(hloc + off) = make_float4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<float4*>(gloc + off) = make_float4(gl[0], gl[1], gl[2], gl[3]);
-    *reinterpret_cast<float4*>(P + off) = make_float4(q[0], q[1], q[2], q[3]);
-  }
-}
-
-// ---- 2. the carry across chunks, in place: hloc[c] becomes H_c, the state
-// at chunk c's start (c >= 1; chunk 0's summary started from s0, so H_1 =
-// hloc[0]), and gloc[c] becomes G_c, the state cotangent at chunk c's end
-// (dsf, or zeros, for the last chunk). One thread a (b, d, n) value; the
-// loads of kU chunks go out before their arithmetic.
-__global__ void carry_kernel(float* __restrict__ hloc, float* __restrict__ gloc,
-                             const float* __restrict__ P, const float* __restrict__ dsf,
-                             int n_chunk, int per_b, size_t count) {
-  constexpr int kU = 8;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const size_t b = i / per_b, base = b * n_chunk * per_b + i % per_b;
-  float *hl = hloc + base, *gl = gloc + base;
-  const float* p = P + base;
-  float h = hl[0];
-  for (int c0 = 1; c0 < n_chunk; c0 += kU) {
-    float hv[kU], pv[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (c0 + u < n_chunk) {
-        hv[u] = hl[(size_t)(c0 + u) * per_b];
-        pv[u] = p[(size_t)(c0 + u) * per_b];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (c0 + u < n_chunk) {
-        hl[(size_t)(c0 + u) * per_b] = h;
-        h = pv[u] * h + hv[u];
-      }
-    }
-  }
-  float g = dsf ? dsf[i] : 0.f;
-  for (int c0 = n_chunk - 1; c0 >= 0; c0 -= kU) {
-    float gv[kU], pv[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (c0 - u >= 0) {
-        gv[u] = gl[(size_t)(c0 - u) * per_b];
-        pv[u] = p[(size_t)(c0 - u) * per_b];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (c0 - u >= 0) {
-        gl[(size_t)(c0 - u) * per_b] = g;
-        g = pv[u] * g + gv[u];
-      }
-    }
-  }
 }
 
 // ---- 3. the chunk body: the reverse walk of one chunk's segments from G_c,
@@ -625,33 +385,19 @@ int launch_bwd(const void* x_, const void* dt_, const void* A_, const void* B_, 
   const dim3 grid(n_grp, n_chunk, batch);
   const float *Hs = nullptr, *Gs = dsf, *ckr = ck;
   int err = 0;
-  const int fwd_smem = static_cast<int>(kRing * sizeof(FwdTile<IO>));
-  static bool fwd_smem_set = false;  // once a process and IO type, before the first launch
-  if (!fwd_smem_set) {
-    if ((err = static_cast<int>(cudaFuncSetAttribute(chunk_fwd_kernel<IO, true>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                     fwd_smem))))
-      return err;
-    if ((err = static_cast<int>(cudaFuncSetAttribute(chunk_fwd_kernel<IO, false>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                     fwd_smem))))
-      return err;
-    fwd_smem_set = true;
-  }
   if (n_chunk > 1) {
-    chunk_fwd_kernel<IO, true><<<grid, kBThreads, fwd_smem, st>>>(
-        x, dt, A, B, C, s0, reset, dy, ck, cdt, hloc, gloc, P, T, Dm, L);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
-    const size_t count = (size_t)batch * Dm * kN;
-    carry_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(
-        hloc, gloc, P, dsf, n_chunk, Dm * kN, count);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    if ((err = launch_walk<IO, kWalkBwdSummaries>(grid, st, x, dt, A, B, C, nullptr, s0, reset, dy,
+                                                  ck, cdt, hloc, gloc, P, nullptr, nullptr, T,
+                                                  Dm, L)))
+      return err;
+    if ((err = launch_carry<true>(hloc, gloc, P, dsf, batch, n_chunk, Dm, st))) return err;
     Hs = hloc;
     Gs = gloc;
   } else if (n_seg > 1) {
-    chunk_fwd_kernel<IO, false><<<grid, kBThreads, fwd_smem, st>>>(
-        x, dt, A, B, C, s0, reset, nullptr, ck, nullptr, nullptr, nullptr, nullptr, T, Dm, L);
-    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    if ((err = launch_walk<IO, kWalkCheckpoints>(grid, st, x, dt, A, B, C, nullptr, s0, reset,
+                                                 nullptr, ck, nullptr, nullptr, nullptr, nullptr,
+                                                 nullptr, nullptr, T, Dm, L)))
+      return err;
   } else {
     ckr = s0;  // one segment: its checkpoint is s0
   }
@@ -701,7 +447,7 @@ extern "C" int mamba_scan_bwd(const void* x, const void* dt, const void* A, cons
                               int L, int io_dtype, void* stream) {
   if (N != mamba::kN) return -1;
   if (Dm % mamba::kChannels != 0) return -3;
-  if (L <= 0 || L % mamba::bwd::kSeg != 0) return -4;
+  if (L <= 0 || L % mamba::kSeg != 0) return -4;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   MAMBA_DISPATCH_IO(io_dtype, return mamba::bwd::launch_bwd<IO>(
                                   x, dt, A, B, C, D, s0, reset, dy, dsf, dx, ddt, dB, dC, dA,

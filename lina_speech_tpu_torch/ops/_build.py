@@ -126,9 +126,9 @@ def load_library() -> ctypes.CDLL:
     lib.rwkv6_chunk_fwd.restype = i
     lib.rwkv6_chunk_bwd.argtypes = [p] * 33 + [i] * 8 + [p]
     lib.rwkv6_chunk_bwd.restype = i
-    lib.rwkv6_decode_step.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.rwkv6_decode_step.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.rwkv6_decode_step.restype = i
-    lib.mamba_scan_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.mamba_scan_fwd.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.mamba_scan_fwd.restype = i
     lib.mamba_scan_bwd.argtypes = [p] * 26 + [i] * 6 + [p]
     lib.mamba_scan_bwd.restype = i

@@ -3,7 +3,12 @@ wrappers and their plain versions.
 
 - :func:`mamba_scan` replaces ``mamba_scan_pallas``
   (lina_speech_tpu/ops/mamba_pallas.py:468), the prefill and the training
-  forward of every Mamba-1 mixer. Kernel: ``csrc/mamba_scan.cu``. It is
+  forward of every Mamba-1 mixer. Kernel: ``csrc/mamba_scan.cu``, the
+  backward's time walk (``csrc/mamba_common.cuh``) writing y, over the
+  whole length or, where :func:`mamba_scan_plan` cuts time into chunks
+  (small batches), in chunks of L steps that run in parallel (chunk
+  summaries, the carry, each chunk's walk from its start state); its plain
+  version is :func:`mamba_scan_chunked_plain`. It is
   differentiable: when autograd records, it runs through a
   ``torch.autograd.Function`` whose backward is :func:`mamba_scan_bwd`
   (``csrc/mamba_scan_bwd.cu``, replacing ``_bwd_kernel``,
@@ -22,8 +27,9 @@ dt (b, t, d), A (d, n), B and C (b, t, n), D (d), an optional initial state
 dtype (f32 or bf16); dt, A, D and the state in f32. For a CPU tensor a
 wrapper runs its plain version; for a CUDA tensor it launches the kernel or
 raises -- there is no fallback. Each counts its launches
-(``mamba_scan.launches``; ``mamba_scan_bwd.routes`` by route) and notes
-the shapes it was launched on (:func:`launch_shapes`). Which shapes the
+(``mamba_scan.launches``; ``mamba_scan.routes`` and
+``mamba_scan_bwd.routes`` by route) and notes the shapes it was launched on
+(:func:`launch_shapes`). Which shapes the
 kernels take is :func:`kernel_takes`, decided from shapes and dtypes before
 any launch; a layer asks it and takes the plain version for a shape it
 refuses, and a wrapper called on such a shape raises.
@@ -49,10 +55,10 @@ from lina_speech_tpu_torch.ops.gla_cuda import (
 )
 
 _N = 16  # state size the kernels are built for (csrc/mamba_common.cuh:kN)
-_CHANNELS = 32  # channels per block of the forward (kChannels)
-_BWD_CHANNELS = 64  # channels per block of the backward (mamba_scan_bwd.cu:kCh)
-_SEG = 16  # steps per checkpoint of the backward (kTile)
-_BWD_ROUTES = ("one_chunk", "chunked")
+_CHANNELS = 32  # the granularity of d (csrc/mamba_common.cuh:kChannels)
+_BLOCK_CHANNELS = 64  # channels per block of both walks (kCh)
+_SEG = 16  # steps per segment of the walks and per checkpoint of the backward (kSeg)
+_ROUTES = ("one_chunk", "chunked")
 
 
 def _wrappers():
@@ -63,7 +69,7 @@ def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
         fn.shapes = Counter()
-    mamba_scan_bwd.routes = dict.fromkeys(_BWD_ROUTES, 0)
+        fn.routes = dict.fromkeys(_ROUTES, 0)
 
 
 def launch_counts() -> dict:
@@ -73,8 +79,9 @@ def launch_counts() -> dict:
 def launch_shapes() -> dict:
     """What each kernel was launched on since the last reset, a set of
     tuples each: ``mamba_scan`` (b, t, d, n, IO dtype, initial state dtype
-    or None, whether a reset mask was given); ``mamba_scan_bwd`` the same
-    with need_ds0 and the chunk length L appended."""
+    or None, whether a reset mask was given, the chunk length L, which names
+    the route: :func:`bwd_route`); ``mamba_scan_bwd`` the same with need_ds0
+    before L."""
     return {fn.__name__: set(fn.shapes) for fn in _wrappers()}
 
 
@@ -124,11 +131,131 @@ def _shape(b, t, d, n, io, s0, reset):
 
 
 # ------------------------------------------------------------ prefill kernel
+# Where and how the forward cuts t into chunks, from chip_smoke.py's
+# chunk-length sweep on an H100 (PERF.md §6; d 2048, bf16 IO, no initial
+# state, medians of six turns; us). One chunk of 64-channel blocks walks
+# about 0.13 us a step whatever the batch up to b4 (t512: 69.2 at b1, 69.5
+# at b4), so chunks pay only where one chunk's blocks leave most SMs idle:
+# at b4 (128 blocks) one chunk was the fastest at every length (t512 69.5
+# against 71.9 at L64), at b8 too; at b1 and b2 (32 and 64 blocks) the
+# fastest cut gave about 500 to 1,000 blocks in all, in chunks of a
+# power-of-two number of segments (b1 t512 L32 23.6 against 69.2 in one
+# chunk; b2 t512 L64 40.2, L32 40.7, L48 45.6; b2 t319 L32 28.4, L48 32.1;
+# b1 t128 L16 10.9 against 18.8). One chunk won up to 48 steps at b1 (t48
+# 8.4 against 9.2 at L16; L16 won at t64, 9.5 against 10.5) and up to 64
+# at b2 (t64 10.5 against 11.0 at L16; L16 won at t96, 13.3 against 14.7):
+# the summaries, the carry and two more launches cost more with more
+# blocks.
+_FWD_CHUNKED_MAX_BLOCKS = 64  # blocks of one chunk up to which chunks are cut
+_FWD_BLOCKS = 6 * 132  # walk blocks of all chunks the plan aims at: six an SM
+_FWD_ONE_CHUNK_MAX_T = 32  # plus half the blocks of a chunk: 48 steps at b1, 64 at b2
+
+
+def _whole_segments(t: int) -> int:
+    return -(-t // _SEG) * _SEG
+
+
+@functools.lru_cache(maxsize=None)
+def mamba_scan_plan(b: int, t: int, d: int) -> int:
+    """The chunk length L a :func:`mamba_scan` launch on (b, t, d) takes,
+    decided from these alone before the launch: a multiple of the 16-step
+    segment; L >= t is one chunk (route ``"one_chunk"``: one walk from s0
+    over the whole length), below t the ``"chunked"`` route (the chunk
+    summaries, the carry, every chunk's walk from its start state in
+    parallel). One chunk where its b * ceil(d / 64) blocks are more than
+    ``_FWD_CHUNKED_MAX_BLOCKS`` or t is at most ``_FWD_ONE_CHUNK_MAX_T``
+    plus half those blocks; else the shortest chunk of a power-of-two
+    number of segments that cuts t into no more chunks than
+    ``_FWD_BLOCKS`` blocks fill."""
+    blocks = b * -(-d // _BLOCK_CHANNELS)
+    if blocks > _FWD_CHUNKED_MAX_BLOCKS or t <= _FWD_ONE_CHUNK_MAX_T + blocks // 2:
+        return _whole_segments(t)
+    n_chunk, chunk = round(_FWD_BLOCKS / blocks), _SEG
+    while chunk * n_chunk < t:
+        chunk *= 2
+    return chunk
+
+
+def _fwd_sizes(b, t, d, chunk):
+    """Bytes of :func:`mamba_scan`'s scratch arrays, in the C entry point's
+    order, f32: the chunk summaries h_loc (the chunks' start states after
+    the carry) and P (chunked route only; 0: not allocated)."""
+    nc = -(-t // chunk)
+    return [4 * b * nc * d * _N] * 2 if nc > 1 else [0, 0]
+
+
 def mamba_scan_plain(x, dt, A, B, C, D, initial_state=None, reset_mask=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`mamba_scan` (same signature):
     ``ops/mamba.py:selective_scan``."""
     return mamba_ops.selective_scan(x, dt, A, B, C, D, initial_state, reset_mask)
+
+
+def _chunked_walk(x, dt, A, B, reset_mask, L):
+    """The pieces of a walk over time cut into chunks of L steps, the last
+    padded with steps that change nothing (dt 0: a decay of 1 and no
+    input): ``chunks`` cuts a (b, t, .) tensor into (b, chunks, L, .) in
+    f32; ``keep`` (b, chunks, L) is 0 at a reset step; ``decay(j)`` and
+    ``inp(j)`` are exp(dt A) keep and dt x B of step j of every chunk, (b,
+    chunks, d, n)."""
+    b, t, _ = x.shape
+    nc = -(-t // L)
+    pad = nc * L - t
+    chunks = lambda v: F.pad(v.float(), (0, 0, 0, pad)).reshape(b, nc, L, v.shape[-1])
+    xs, dts, Bs = chunks(x), chunks(dt), chunks(B)
+    keep = (torch.ones(b, t, device=x.device) if reset_mask is None
+            else (~reset_mask.bool()).float())
+    keep = F.pad(keep, (0, pad), value=1.0).reshape(b, nc, L)
+    Af = A.float()
+    decay = lambda j: torch.exp(dts[:, :, j, :, None] * Af) * keep[:, :, j, None, None]
+    inp = lambda j: (dts[:, :, j] * xs[:, :, j])[..., None] * Bs[:, :, j, None, :]
+    return chunks, keep, decay, inp
+
+
+def mamba_scan_chunked_plain(x, dt, A, B, C, D, initial_state=None, reset_mask=None,
+                             chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mamba_scan`'s chunked route written with tensors, in f32, for
+    any chunk length ``chunk`` (None: the plan's). Same arguments and
+    outputs. Time is cut into chunks, the last padded with steps that
+    change nothing, and every chunk walked at once:
+
+    1. summaries: each chunk's walk from zero (chunk 0 from s0), its end
+       state h_loc and its decay product P (0 where a step resets);
+    2. carry: H_c = P_{c-1} H_{c-1} + h_loc_{c-1} from H_1 = h_loc_0;
+    3. each chunk's walk again from H_c (chunk 0 from s0), y_t = C_t . h_t +
+       D x_t at every step; the last chunk's end state is the final state.
+
+    With one chunk it is the walk from s0 over the whole length. Used by
+    the tests, on the CPU against the Pallas kernel and
+    :func:`mamba_scan_plain`, and on the card against the kernels."""
+    b, t, d = x.shape
+    n = A.shape[-1]
+    L = mamba_scan_plan(b, t, d) if chunk is None else chunk
+    nc = -(-t // L)
+    chunks, _, decay, inp = _chunked_walk(x, dt, A, B, reset_mask, L)
+    xs, Cs = chunks(x), chunks(C)
+    s0 = (torch.zeros(b, d, n, device=x.device) if initial_state is None
+          else initial_state.float())
+    # 1. summaries
+    h = torch.zeros(b, nc, d, n, device=x.device)
+    h[:, 0] = s0
+    q = torch.ones_like(h)
+    for j in range(L):
+        a = decay(j)
+        h = a * h + inp(j)
+        q = q * a
+    # 2. carry
+    H = [s0] + [h[:, 0]] * (nc > 1)
+    for c in range(2, nc):
+        H.append(q[:, c - 1] * H[c - 1] + h[:, c - 1])
+    # 3. every chunk's walk from its start state
+    h = torch.stack(H, 1)
+    ys = []
+    for j in range(L):
+        h = decay(j) * h + inp(j)
+        ys.append(torch.einsum("bcdn,bcn->bcd", h, Cs[:, :, j]))
+    y = torch.stack(ys, 2) + xs * D.float()
+    return y.reshape(b, nc * L, d)[:, :t].to(x.dtype), h[:, -1]
 
 
 def mamba_scan(x, dt, A, B, C, D, initial_state=None, reset_mask=None
@@ -138,9 +265,14 @@ def mamba_scan(x, dt, A, B, C, D, initial_state=None, reset_mask=None
     . h_t + D x_t.
 
     Returns y (b, t, d) in x's dtype and the final state (b, d, n) in f32.
-    The kernel is recurrent and takes any t >= 1. Differentiable: when
-    autograd records it runs through a ``torch.autograd.Function`` whose
-    backward is :func:`mamba_scan_bwd`.
+    Takes any t >= 1, with the chunk length :func:`mamba_scan_plan` gives
+    (one call counts as one launch, and once more under its route in
+    ``mamba_scan.routes``: ``"one_chunk"``, one walk, or ``"chunked"``, the
+    summaries, the carry and the chunks' walks, three kernels; its scratch
+    the chunk summaries, 2 b ceil(t/L) d n f32 values, one allocation freed
+    when the call returns). Differentiable: when autograd records it runs
+    through a ``torch.autograd.Function`` whose backward is
+    :func:`mamba_scan_bwd`.
     """
     if not x.is_cuda:
         return mamba_scan_plain(x, dt, A, B, C, D, initial_state, reset_mask)
@@ -150,24 +282,37 @@ def mamba_scan(x, dt, A, B, C, D, initial_state=None, reset_mask=None
     return _scan_launch(x, dt, A, B, C, D, initial_state, reset_mask)
 
 
-def _scan_launch(x, dt, A, B, C, D, s0, reset):
-    """Check the arguments and launch the forward kernel (CUDA tensors)."""
+def _check_chunk(name, chunk):
+    _check(name, chunk > 0 and chunk % _SEG == 0,
+           f"the chunk length must be a positive multiple of {_SEG}; got {chunk}")
+
+
+def _scan_launch(x, dt, A, B, C, D, s0=None, reset=None, chunk=None):
+    """Check the arguments and launch the forward kernels (CUDA tensors)
+    with chunk length ``chunk`` (None: the plan's; the card's checks force
+    either route)."""
     name = "mamba_scan"
     b, t, d, n, io = _check_args(name, x, dt, A, B, C, D, s0, reset)
+    chunk = mamba_scan_plan(b, t, d) if chunk is None else chunk
+    _check_chunk(name, chunk)
+    x, dt, B, C = (_aligned(v) for v in (x, dt, B, C))
     y = torch.empty_like(x)
     sf = torch.empty(b, d, n, dtype=torch.float32, device=x.device)
+    buf, scratch = _scratch(_fwd_sizes(b, t, d, chunk), x.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mamba_scan_fwd(
         _ptr(x), _ptr(dt), _ptr(A), _ptr(B), _ptr(C), _ptr(D), _ptr(s0), _ptr(reset), _ptr(y),
-        _ptr(sf), b, t, d, n, _DTYPE_CODE[io], ctypes.c_void_p(stream))
+        _ptr(sf), *scratch, b, t, d, n, chunk, _DTYPE_CODE[io], ctypes.c_void_p(stream))
     _raise_on(name, err)
     mamba_scan.launches += 1
-    mamba_scan.shapes[_shape(b, t, d, n, io, s0, reset)] += 1
+    mamba_scan.routes[bwd_route(t, chunk)] += 1
+    mamba_scan.shapes[(*_shape(b, t, d, n, io, s0, reset), chunk)] += 1
     return y, sf
 
 
 mamba_scan.launches, mamba_scan.shapes = 0, Counter()
+mamba_scan.routes = dict.fromkeys(_ROUTES, 0)
 
 
 # ----------------------------------------------------------- the backward
@@ -187,10 +332,6 @@ _BWD_BLOCKS = 2 * 132
 _BWD_ONE_CHUNK_MAX_T = 48  # where two chunks or fewer are planned
 
 
-def _whole_segments(t: int) -> int:
-    return -(-t // _SEG) * _SEG
-
-
 @functools.lru_cache(maxsize=None)
 def mamba_scan_bwd_plan(b: int, t: int, d: int) -> int:
     """The chunk length L a :func:`mamba_scan_bwd` launch on (b, t, d)
@@ -206,7 +347,7 @@ def mamba_scan_bwd_plan(b: int, t: int, d: int) -> int:
     that: a ragged t takes the count of the next whole length (t511 at b4
     takes two chunks of 256, not three of 240), or fewer where rounding a
     short chunk up to 16 steps leaves the last chunks empty."""
-    n_chunk = round(_BWD_BLOCKS / (b * -(-d // _BWD_CHANNELS)))
+    n_chunk = round(_BWD_BLOCKS / (b * -(-d // _BLOCK_CHANNELS)))
     if n_chunk <= 1 or (n_chunk <= 2 and t <= _BWD_ONE_CHUNK_MAX_T):
         return _whole_segments(t)
     return _whole_segments(-(-t // n_chunk))
@@ -225,7 +366,7 @@ def _bwd_sizes(b, t, d, chunk):
     dC (one a 64-channel group), of dA and of dD (one a batch row and
     chunk)."""
     nc, ns = -(-t // chunk), -(-t // _SEG)
-    groups = -(-d // _BWD_CHANNELS)
+    groups = -(-d // _BLOCK_CHANNELS)
     chunked = nc > 1
     ck = 4 * b * ns * d * _N if chunked or ns > 1 else 0
     own = [4 * b * ns * d] + [4 * b * nc * d * _N] * 3 if chunked else [0] * 4
@@ -265,15 +406,9 @@ def mamba_scan_bwd_chunked_plain(x, dt, A, B, C, D, initial_state, reset_mask, d
     n = A.shape[-1]
     L = mamba_scan_bwd_plan(b, t, d) if chunk is None else chunk
     nc = -(-t // L)
-    pad = nc * L - t
-    chunks = lambda v: F.pad(v.float(), (0, 0, 0, pad)).reshape(b, nc, L, v.shape[-1])
+    chunks, keep, decay, inp = _chunked_walk(x, dt, A, B, reset_mask, L)
     xs, dts, Bs, Cs, dys = (chunks(v) for v in (x, dt, B, C, dy))
-    keep = (torch.ones(b, t, device=x.device) if reset_mask is None
-            else (~reset_mask.bool()).float())
-    keep = F.pad(keep, (0, pad), value=1.0).reshape(b, nc, L)
     Af, Df = A.float(), D.float()
-    decay = lambda j: torch.exp(dts[:, :, j, :, None] * Af) * keep[:, :, j, None, None]
-    inp = lambda j: (dts[:, :, j] * xs[:, :, j])[..., None] * Bs[:, :, j, None, :]
 
     # 1. summaries
     h = torch.zeros(b, nc, d, n, device=x.device)
@@ -375,8 +510,7 @@ def _bwd_launch(x, dt, A, B, C, D, initial_state, reset_mask, dy, dsf, need_ds0=
     _check(name, dsf.shape == (b, d, n) and dsf.dtype == torch.float32,
            f"dsf must be ({b}, {d}, {n}) f32")
     chunk = mamba_scan_bwd_plan(b, t, d) if chunk is None else chunk
-    _check(name, chunk > 0 and chunk % _SEG == 0,
-           f"the chunk length must be a positive multiple of {_SEG}; got {chunk}")
+    _check_chunk(name, chunk)
     x, dt, dy, B, C = (_aligned(v) for v in (x, dt, dy, B, C))
     dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
     ddt, dA, dD = torch.empty_like(dt), torch.empty_like(A), torch.empty_like(D)
@@ -398,7 +532,7 @@ def _bwd_launch(x, dt, A, B, C, D, initial_state, reset_mask, dy, dsf, need_ds0=
 
 
 mamba_scan_bwd.launches, mamba_scan_bwd.shapes = 0, Counter()
-mamba_scan_bwd.routes = dict.fromkeys(_BWD_ROUTES, 0)
+mamba_scan_bwd.routes = dict.fromkeys(_ROUTES, 0)
 
 
 class _MambaScan(torch.autograd.Function):

@@ -20,8 +20,11 @@ wrappers and their plain versions.
   plain backward is autograd through :func:`rwkv6_chunk_plain`.
 - :func:`rwkv6_decode` replaces ``rwkv6_decode_fused``
   (lina_speech_tpu/ops/gla_pallas.py:1728), one decode token, the state
-  updated in place. Kernel: ``csrc/rwkv6_decode.cu``. The JAX layer sends
-  batches with fewer than 8 (batch * head) rows to XLA
+  updated in place. Kernel: ``csrc/rwkv6_decode.cu``, the classic GLA
+  step's template (``csrc/gla_decode.cuh``) in its RWKV6 mode, on the body
+  :func:`rwkv6_decode_plan` picks (the wide column-tile body above 512 KiB
+  of state, the tile body below: ``gla_cuda.gla_decode_plan``'s rule). The
+  JAX layer sends batches with fewer than 8 (batch * head) rows to XLA
   (models/rwkv6.py:225-236): the Pallas kernel's 8-row block is TPU tuning,
   and this kernel takes every batch size.
 
@@ -31,9 +34,9 @@ an optional initial state (b, h, dk, dv). r, k and v are in the IO dtype
 (f32 or bf16), w and u in f32, the state in f32 or bf16. For a CPU tensor a
 wrapper runs its plain version (``*_plain``, over ``ops/rwkv6.py``); for a
 CUDA tensor it launches the kernel or raises -- there is no fallback. Each
-counts its launches (``rwkv6_chunk.launches``; ``rwkv6_chunk.routes`` and
-``rwkv6_chunk_bwd.routes`` by route) and notes the shapes it was launched
-on (:func:`launch_shapes`).
+counts its launches (``rwkv6_chunk.launches``; ``rwkv6_chunk.routes``,
+``rwkv6_chunk_bwd.routes`` and ``rwkv6_decode.routes`` by route) and notes
+the shapes it was launched on (:func:`launch_shapes`).
 Which heads the kernels take is :func:`kernel_takes`, decided from shapes
 and dtypes before any launch; a layer asks it and takes the plain version
 for a head it refuses, and a wrapper called on such a head raises.
@@ -71,10 +74,10 @@ def _wrappers():
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
-        fn.shapes = set()
-    for fn in (rwkv6_chunk, rwkv6_chunk_bwd):
         fn.shapes = Counter()
+    for fn in (rwkv6_chunk, rwkv6_chunk_bwd):
         fn.routes = dict.fromkeys(_ROUTE_CODE, 0)
+    rwkv6_decode.routes = dict.fromkeys(_DECODE_ROUTE_CODE, 0)
 
 
 def launch_counts() -> dict:
@@ -86,14 +89,13 @@ def launch_shapes() -> dict:
     tuples each: ``rwkv6_chunk`` (b, h, t, dk, dv, IO dtype, initial state
     dtype or None, route); ``rwkv6_chunk_bwd`` (b, h, t, dk, dv, IO dtype,
     initial state dtype or None, need_ds0, route); ``rwkv6_decode`` (b, h,
-    dk, dv, IO dtype, state dtype)."""
+    dk, dv, IO dtype, state dtype, route)."""
     return {fn.__name__: set(fn.shapes) for fn in _wrappers()}
 
 
 def launch_shape_counts() -> dict:
-    """``rwkv6_chunk``'s and ``rwkv6_chunk_bwd``'s :func:`launch_shapes`
-    with the number of launches on each shape."""
-    return {fn.__name__: Counter(fn.shapes) for fn in (rwkv6_chunk, rwkv6_chunk_bwd)}
+    """:func:`launch_shapes` with the number of launches on each shape."""
+    return {fn.__name__: Counter(fn.shapes) for fn in _wrappers()}
 
 
 def kernel_takes(dk: int, dv: int, io: torch.dtype, state_dtype: torch.dtype) -> bool:
@@ -405,6 +407,19 @@ class _RWKV6Chunk(torch.autograd.Function):
 
 
 # ------------------------------------------------------------- decode kernel
+_DECODE_ROUTE_CODE = gla_cuda._DECODE_ROUTE_CODE
+
+
+def rwkv6_decode_plan(b: int, h: int, dk: int, dv: int, state_dtype: torch.dtype) -> str:
+    """The body an :func:`rwkv6_decode` launch on (b, h) heads of key dim
+    ``dk`` and value dim ``dv`` over a state of ``state_dtype`` runs, decided
+    from these alone before the launch: the classic GLA step's rule
+    (``gla_cuda.gla_decode_plan``; the two share the kernel's bodies and
+    their memory traffic), ``"tile"`` for a state of at most 512 KiB, else
+    the wide route ``gla_cuda.decode_wide_route`` gives."""
+    return gla_cuda.gla_decode_plan(b, h, dk, dv, state_dtype)
+
+
 def rwkv6_decode_plain(r, k, v, w, u, state) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`rwkv6_decode` (same signature; returns new
     tensors and leaves ``state`` untouched): ``ops/rwkv6.py:rwkv6_decode_step``."""
@@ -419,22 +434,32 @@ def rwkv6_decode(r, k, v, w, u, state) -> Tuple[torch.Tensor, torch.Tensor]:
     u: (h, dk) in f32; state (b, h, dk, dv) in f32 or bf16. Returns (o (b,
     h, dv) in the IO dtype, state). On CUDA the kernel updates ``state`` IN
     PLACE and returns the same tensor (as the JAX kernel aliases its state
-    buffer).
+    buffer). It runs the body :func:`rwkv6_decode_plan` picks;
+    ``rwkv6_decode.routes`` counts each.
     """
     if not r.is_cuda:
         return rwkv6_decode_plain(r, k, v, w, u, state)
+    return _decode_launch(r, k, v, w, u, state)
+
+
+def _decode_launch(r, k, v, w, u, state, route=None):
+    """:func:`rwkv6_decode` on CUDA tensors, on ``route`` if given (the
+    card's checks force either body), else on the plan's."""
     name = "rwkv6_decode"
     b, h, _, dk, dv, io, st = _check_args(name, r, k, v, w, u, state, step=True)
+    route = gla_cuda._decode_route(name, b, h, dk, dv, state, route)  # rwkv6_decode_plan's
     o = torch.empty(b, h, dv, dtype=io, device=r.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = lib.rwkv6_decode_step(
         _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(state), _ptr(o), b, h, dk, dv,
-        _DTYPE_CODE[io], _DTYPE_CODE[st], ctypes.c_void_p(stream))
+        _DTYPE_CODE[io], _DTYPE_CODE[st], _DECODE_ROUTE_CODE[route], ctypes.c_void_p(stream))
     _raise_on(name, err)
     rwkv6_decode.launches += 1
-    rwkv6_decode.shapes.add((b, h, dk, dv, io, st))
+    rwkv6_decode.routes[route] += 1
+    rwkv6_decode.shapes[(b, h, dk, dv, io, st, route)] += 1
     return o, state
 
 
-rwkv6_decode.launches, rwkv6_decode.shapes = 0, set()
+rwkv6_decode.launches, rwkv6_decode.shapes = 0, Counter()
+rwkv6_decode.routes = dict.fromkeys(_DECODE_ROUTE_CODE, 0)

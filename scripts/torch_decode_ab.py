@@ -1,6 +1,6 @@
-"""Device time of the classic decode step, ``gla_decode_conv`` and
-``gla_decode``, of one checkout on the GPU, to set two checkouts' kernels
-side by side.
+"""Device time of the classic decode step, ``gla_decode_conv``,
+``gla_decode`` and ``rwkv6_decode``, of one checkout on the GPU, to set two
+checkouts' kernels side by side.
 
 Each run imports ``lina_speech_tpu_torch`` from the checkout ``--tree``
 (builds its kernels there) and prints one JSON line. Compare two checkouts
@@ -19,15 +19,18 @@ L2 cache, as 25 layers' states are), mean of two replays of 50 calls, each
 beside its bound (the bytes the step must move over 3.35 TB/s): the
 flagship's conv step (h4 dk256 dv512, bf16 IO) at b1, b2, b8 and b64 on bf16
 and f32 states, simple-GLA's step (h4 dk256 dv256, bf16 IO) at b8 and b64
-and Mamba-2's (h32 dk64 dv64, f32 IO) at b8, on f32 states; and
+and Mamba-2's (h32 dk64 dv64, f32 IO) at b8, on f32 states, RWKV6's step
+(h4 dk256 dv256, bf16 IO, f32 w and u) at b1, b8 and b64 on bf16 and f32
+states; and
 ``host_us``: the host µs from a call of the flagship's wrapper to its
 return at b8, the card idle before each (median of 200).
 
 With ``--routes`` it times instead every body the checkout has
 (``ops/gla_cuda.py:_DECODE_ROUTE_CODE``), each forced, in turns (medians
 of six replays of 50 calls, ``chip_smoke.py:time_routes``), at the
-flagship's head (b 1 to 128), simple-GLA's (b 1 to 64) and Mamba-2's (b1,
-b2, b8, b64) on bf16 and f32 states: where the plan's rules come from.
+flagship's head (b 1 to 128), simple-GLA's and RWKV6's (b 1 to 64) and
+Mamba-2's (b1, b2, b8, b64) on bf16 and f32 states: where the plan's rules
+come from.
 ``chip_smoke.py`` times the planned route against the tile body.
 """
 import argparse
@@ -58,6 +61,8 @@ def shapes(torch, smoke):
            for st in (bf, f32) for b in (1, 2, 8, 64)]
     out += [("gla_decode", (b, *smoke.SIMPLE_HEAD, bf, f32)) for b in (8, 64)]
     out += [("gla_decode", (8, *smoke.MAMBA_HEAD, f32, f32))]
+    out += [("rwkv6_decode", (b, *smoke.RWKV6_HEAD, bf, st))
+            for st in (bf, f32) for b in (1, 8, 64)]
     return out
 
 
@@ -69,23 +74,37 @@ def route_shapes(torch, smoke):
     out += [("gla_decode", (b, *smoke.SIMPLE_HEAD, bf, st))
             for st in (bf, f32) for b in (1, 2, 4, 8, 16, 64)]
     out += [("gla_decode", (b, *smoke.MAMBA_HEAD, f32, st)) for st in (bf, f32) for b in (1, 2, 8, 64)]
+    out += [("rwkv6_decode", (b, *smoke.RWKV6_HEAD, bf, st))
+            for st in (bf, f32) for b in (1, 2, 4, 8, 16, 64)]
     return out
 
 
-def time_routes(torch, smoke, gla_cuda, name, shape, seed):
+def kernel_module(name):
+    """The checkout's module of the classic step ``name``."""
+    if name == "rwkv6_decode":
+        from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+        return rwkv6_cuda
+    from lina_speech_tpu_torch.ops import gla_cuda
+
+    return gla_cuda
+
+
+def time_routes(torch, smoke, name, shape, seed):
     """{route: device µs} of every body of the checkout at ``shape``, each
     forced, in turns on cold states."""
-    launch = gla_cuda._decode_conv_launch if name == "gla_decode_conv" else gla_cuda._decode_launch
+    mod = kernel_module(name)
+    launch = mod._decode_conv_launch if name == "gla_decode_conv" else mod._decode_launch
     args, state = smoke.decode_case(torch, name, shape, seed)
     rotation = smoke.cold_pool(state)
-    steps = {r: (lambda r=r: launch(*args, rotation(), route=r)) for r in gla_cuda._DECODE_ROUTE_CODE}
+    steps = {r: (lambda r=r: launch(*args, rotation(), route=r)) for r in mod._DECODE_ROUTE_CODE}
     return {r: ms * 1e3 for r, ms in smoke.time_routes(steps)[0].items()}
 
 
-def time_shape(torch, smoke, gla_cuda, name, shape, seed):
+def time_shape(torch, smoke, name, shape, seed):
     """(device µs, bound µs) of one step of ``name`` at ``shape`` through
     its public wrapper on cold states."""
-    wrapper = getattr(gla_cuda, name)
+    wrapper = getattr(kernel_module(name), name)
     args, state = smoke.decode_case(torch, name, shape, seed)
     rotation = smoke.cold_pool(state)
     step = lambda: wrapper(*args, rotation())
@@ -130,16 +149,16 @@ def main() -> None:
     if args.routes:
         for i, (name, shape) in enumerate(route_shapes(torch, smoke)):
             key = f"{name} {smoke.decode_tag(name, shape).split(' ', 1)[1]}"
-            res["us"][key] = time_routes(torch, smoke, gla_cuda, name, shape, seed=100 + i)
+            res["us"][key] = time_routes(torch, smoke, name, shape, seed=100 + i)
             args_, state = smoke.decode_case(torch, name, shape, seed=0)
+            plain = getattr(kernel_module(name), f"{name}_plain")
             res["bound_us"][key] = smoke.decode_work(
-                name, args_, state, getattr(gla_cuda, f"{name}_plain")(*args_, state))[0] \
-                / smoke.PEAK_BYTES * 1e6
+                name, args_, state, plain(*args_, state))[0] / smoke.PEAK_BYTES * 1e6
         print(json.dumps(res))
         return
     for i, (name, shape) in enumerate(shapes(torch, smoke)):
         key = f"{name} {smoke.decode_tag(name, shape).split(' ', 1)[1]}"
-        res["us"][key], res["bound_us"][key] = time_shape(torch, smoke, gla_cuda, name, shape,
+        res["us"][key], res["bound_us"][key] = time_shape(torch, smoke, name, shape,
                                                           seed=100 + i)
     res["host_us"] = host_us(torch, smoke, gla_cuda,
                              (8, smoke.H, smoke.DK, smoke.DV, torch.bfloat16, torch.bfloat16))

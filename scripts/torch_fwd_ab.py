@@ -26,7 +26,9 @@ the same head at b8 t151 and b1 t128 and at simple-GLA's (h4 dk256 dv256)
 at b8 t512; ``rwkv6_chunk`` at RWKV6's (h4 dk256 dv256; f32 decays and
 bonus) at b8 t512 (no initial state), b8 t151 and b1 t128 (f32);
 ``mamba_scan`` at the Mamba mixer's width (d 2048 n16, bf16 x, B, C) at b8
-t151 and b1 t128 (f32 initial state) and b8 t512 (none, a reset mask).
+t151 and b1 t128, t64, t32 and t16 (f32 initial state), b8 t512 (none, a
+reset mask), training's b8 and b4 t511 and the gradient check's f32-IO b2
+t319 (none).
 Each checkout takes its own plan's route; ``routes`` names it.
 
 With ``--backward`` the cases are the three training backwards at the
@@ -104,13 +106,18 @@ def cases(torch, smoke, gla_cuda, rwkv6_cuda):
                     plan(bf, b, h, t, dv) if plan else "recurrent"))
     from lina_speech_tpu_torch.ops import mamba_cuda
 
-    for b, t, st in ((8, 151, f32), (1, 128, f32), (8, 512, None)):
-        x = smoke.mamba_inputs(torch, b, t, bf, st, t == 512, seed=560 + t + b)
+    plan = getattr(mamba_cuda, "mamba_scan_plan", None)  # a checkout of one route has none
+    for b, t, st, io in ((8, 151, f32, bf), (1, 128, f32, bf), (8, 512, None, bf),
+                         (1, 64, f32, bf), (1, 32, f32, bf), (1, 16, f32, bf),
+                         (8, 511, None, bf), (4, 511, None, bf), (2, 319, None, f32)):
+        x = smoke.mamba_inputs(torch, b, t, io, st, t == 512, seed=560 + t + b)
         args = tuple(x[n] for n in smoke.MAMBA_LEAVES[:6])
-        out.append((f"mamba_scan b{b} t{t} {smoke.dtype_name(st)}{' reset' if t == 512 else ''}",
+        out.append((f"mamba_scan b{b} t{t} IO {smoke.dtype_name(io)} {smoke.dtype_name(st)}"
+                    f"{' reset' if t == 512 else ''}",
                     lambda args=args, x=x: mamba_cuda.mamba_scan(
                         *args, initial_state=x["s0"], reset_mask=x["reset"]),
-                    (*args, x["s0"]), smoke.mamba_work(b, t), "recurrent"))
+                    (*args, x["s0"]), smoke.mamba_work(b, t),
+                    mamba_cuda.bwd_route(t, plan(b, t, smoke.MAMBA_D)) if plan else "one_chunk"))
     return out
 
 

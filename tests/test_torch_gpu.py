@@ -1247,6 +1247,66 @@ def test_rwkv6_decode_kernel_matches_plain(cuda, io, st, shape):
     assert _rel_err(o_k, o_p) <= tol and _rel_err(s_out, s_p) <= tol
 
 
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 256, 256), (8, 4, 256, 256), (64, 4, 256, 256),
+                                   (3, 2, 128, 96)], ids=str)
+def test_rwkv6_decode_routes_match_plain(cuda, io, st, shape):
+    """Every body of rwkv6_decode (the classic step's template in its RWKV6
+    mode), forced, against the plain version: o within 1e-2 of max(1,
+    max|plain|) in bf16 IO, 1e-4 in f32; the state, updated in place, within
+    one state-dtype rounding of the plain one (the kernel rounds fma(e^w, S,
+    k v) once, the plain version twice); equal bits on a second call; every
+    route's state equal bit for bit; each call one launch, counted under
+    its route."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    b, h, dk, dv = shape
+    x = _rwkv6_inputs(cuda, b, h, 1, dk, dv, io, st, seed=b + dk)
+    tok = tuple(x[n][:, :, 0].contiguous() for n in ("r", "k", "v", "w"))
+    o_p, s_p = rwkv6_cuda.rwkv6_decode_plain(*tok, x["u"], x["s0"])
+    tol = 1e-4 if io == torch.float32 else 1e-2
+    tol_s = 1e-5 if st == torch.float32 else 1e-2
+    rwkv6_cuda.reset_launch_counts()
+    states = {}
+    for route in rwkv6_cuda._DECODE_ROUTE_CODE:
+        s = x["s0"].clone()
+        o, s_out = rwkv6_cuda._decode_launch(*tok, x["u"], s, route=route)
+        again = rwkv6_cuda._decode_launch(*tok, x["u"], x["s0"].clone(), route=route)
+        torch.cuda.synchronize()
+        assert s_out is s and s.dtype == st, route
+        assert bool(torch.isfinite(o.float()).all()), route
+        assert _rel_err(o, o_p) <= tol and _rel_err(s, s_p) <= tol_s, route
+        assert torch.equal(again[0], o) and torch.equal(again[1], s), route
+        states[route] = s
+    assert all(torch.equal(s, states["tile"]) for s in states.values())
+    n = len(rwkv6_cuda._DECODE_ROUTE_CODE)
+    assert rwkv6_cuda.launch_counts()["rwkv6_decode"] == 2 * n
+    assert rwkv6_cuda.rwkv6_decode.routes == dict.fromkeys(rwkv6_cuda._DECODE_ROUTE_CODE, 2)
+
+
+def test_rwkv6_decode_takes_the_plan(cuda):
+    """The public wrapper launches the route rwkv6_decode_plan gives each
+    shape (the tile body on a 512 KiB state, wide routes above), one launch
+    a call, counted under its route and noted with the shape and route."""
+    from lina_speech_tpu_torch.ops import rwkv6_cuda
+
+    rwkv6_cuda.reset_launch_counts()
+    want = {}
+    for b, st in ((1, torch.bfloat16), (1, torch.float32), (8, torch.float32),
+                  (64, torch.bfloat16)):
+        x = _rwkv6_inputs(cuda, b, 4, 1, 256, 256, torch.bfloat16, st, seed=b)
+        tok = tuple(x[n][:, :, 0].contiguous() for n in ("r", "k", "v", "w"))
+        rwkv6_cuda.rwkv6_decode(*tok, x["u"], x["s0"])
+        route = rwkv6_cuda.rwkv6_decode_plan(b, 4, 256, 256, st)
+        want[(b, 4, 256, 256, torch.bfloat16, st, route)] = 1
+    torch.cuda.synchronize()
+    assert [k[-1] for k in want] == ["tile", "wide4", "wide8", "wide16"]
+    assert rwkv6_cuda.launch_counts()["rwkv6_decode"] == 4
+    assert rwkv6_cuda.launch_shape_counts()["rwkv6_decode"] == want
+    assert rwkv6_cuda.rwkv6_decode.routes == {"tile": 1, "wide4": 1, "wide8": 1, "wide16": 1}
+
+
 def test_rwkv6_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """kernel_takes refuses a head key dim outside (64, 128, 256) and an int8
     state, and a wrapper given such a head (or bf16 decays, or a bf16 bonus)
@@ -1364,7 +1424,8 @@ def test_rwkv6_chunk_takes_the_planned_route(cuda, io, b, t):
     bwd_key = (b, 4, t, 256, 256, io, None, False,
                rwkv6_cuda.rwkv6_chunk_bwd_plan(io, b, 4, t, 256))
     assert rwkv6_cuda.launch_shape_counts() == {"rwkv6_chunk": {key: 2},
-                                                "rwkv6_chunk_bwd": {bwd_key: 1}}
+                                                "rwkv6_chunk_bwd": {bwd_key: 1},
+                                                "rwkv6_decode": {}}
     assert rwkv6_cuda.launch_shapes()["rwkv6_chunk"] == {key}
     if io == torch.float32:
         with pytest.raises(ValueError, match="bf16 IO only"):
@@ -1578,6 +1639,64 @@ def test_mamba_scan_kernel_matches_plain(cuda, io, s0, reset, shape):
     assert y.dtype == io and sf.dtype == torch.float32
     assert _rel_err(y, y_p) <= (1e-4 if io == torch.float32 else 1e-2)
     assert _rel_err(sf, sf_p) <= 1e-4
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,chunk", [((2, 150, 96), 32), ((3, 70, 64), 16),
+                                         ((1, 130, 2048), 16), ((1, 300, 2048), 64)], ids=str)
+def test_mamba_scan_routes_match_plain(cuda, io, shape, chunk):
+    """The forward on both routes, forced: chunks of ``chunk`` (a ragged
+    last one; resets at 5% of the steps and on a chunk's first step; an
+    initial state; d 96 leaves the last 64-channel group half empty) and one
+    chunk, against mamba_scan_plain and mamba_scan_chunked_plain at the same
+    length: y within 1e-2 of max(1, max|plain|) in bf16 IO, 1e-4 in f32,
+    the f32 final state within 1e-4; the same bits on a second call; each
+    call one launch, counted under its route and noted with its length."""
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    b, t, d = shape
+    x = _mamba_inputs(cuda, b, t, d, io, s0=True, reset=True, seed=17)
+    x["reset"][:, chunk] = True
+    args = [x[n] for n in MAMBA_NAMES[:6]] + [x["s0"], x["reset"]]
+    ref = mamba_cuda.mamba_scan_plain(*args)
+    tol = 1e-4 if io == torch.float32 else 1e-2
+    whole = -(-t // 16) * 16
+    mamba_cuda.reset_launch_counts()
+    for length in (chunk, whole):
+        got = mamba_cuda._scan_launch(*args, chunk=length)
+        again = mamba_cuda._scan_launch(*args, chunk=length)
+        plain = mamba_cuda.mamba_scan_chunked_plain(*args, chunk=length)
+        torch.cuda.synchronize()
+        assert got[0].dtype == io and got[1].dtype == torch.float32
+        for r in (ref, plain):
+            assert _rel_err(got[0], r[0]) <= tol and _rel_err(got[1], r[1]) <= 1e-4, length
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), length
+    key = (b, t, d, 16, io, torch.float32, True)
+    assert mamba_cuda.launch_counts() == {"mamba_scan": 4, "mamba_scan_bwd": 0}
+    assert mamba_cuda.mamba_scan.routes == {"one_chunk": 2, "chunked": 2}
+    assert mamba_cuda.launch_shape_counts()["mamba_scan"] == {(*key, chunk): 2, (*key, whole): 2}
+
+
+@pytest.mark.parametrize("b,t", [(1, 128), (2, 319), (8, 151), (1, 16)])
+def test_mamba_scan_takes_the_planned_chunk_length(cuda, b, t):
+    """The public wrapper, with and without autograd recording, launches
+    the forward at the chunk length mamba_scan_plan gives (chunks at small
+    batches, one chunk at b8 and on a few steps), one launch a call counted
+    under its route."""
+    from lina_speech_tpu_torch.ops import mamba_cuda
+
+    x = _mamba_inputs(cuda, b, t, 2048, torch.bfloat16, s0=True, seed=19)
+    chunk = mamba_cuda.mamba_scan_plan(b, t, 2048)
+    mamba_cuda.reset_launch_counts()
+    with torch.no_grad():
+        mamba_cuda.mamba_scan(*(x[n] for n in MAMBA_NAMES[:6]), initial_state=x["s0"])
+    _mamba_grads(mamba_cuda.mamba_scan, x)
+    route = mamba_cuda.bwd_route(t, chunk)
+    assert (route == "one_chunk") == ((b, t) in ((8, 151), (1, 16)))
+    assert mamba_cuda.launch_counts() == {"mamba_scan": 2, "mamba_scan_bwd": 1}
+    assert mamba_cuda.mamba_scan.routes == {"one_chunk": 0, "chunked": 0, route: 2}
+    assert mamba_cuda.launch_shape_counts()["mamba_scan"] == {
+        (b, t, 2048, 16, torch.bfloat16, torch.float32, False, chunk): 2}
 
 
 @pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])

@@ -146,6 +146,45 @@ def test_decode_step_matches_jax_and_the_pallas_kernel(state_dtype):
             _close(got[1], np.asarray(ref[1], np.float32), tol)
 
 
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_decode_plan_is_the_classic_steps_plan(state_dtype):
+    """rwkv6_decode_plan gives gla_decode_plan's route at every shape and
+    state dtype (the two steps share the kernel's bodies): the tile body on
+    a state of at most 512 KiB, else the wide route decode_wide_route
+    gives; RWKV6's flagship head at b8 on its f32 state takes wide8."""
+    from lina_speech_tpu_torch.ops import gla_cuda
+
+    for b in (1, 2, 3, 4, 6, 8, 16, 64, 128):
+        for h, dk, dv in ((4, 256, 256), (4, 256, 512), (2, 64, 64), (3, 128, 96)):
+            route = rwkv6_cuda.rwkv6_decode_plan(b, h, dk, dv, state_dtype)
+            assert route == gla_cuda.gla_decode_plan(b, h, dk, dv, state_dtype)
+            small = b * h * dk * dv * state_dtype.itemsize <= 1 << 19
+            assert (route == "tile") == small, (b, h, dk, dv)
+            if not small:
+                assert route == gla_cuda.decode_wide_route(b, h, dv, state_dtype)
+    assert rwkv6_cuda.rwkv6_decode_plan(8, 4, 256, 256, torch.float32) == "wide8"
+
+
+def test_decode_launcher_refuses_what_its_routes_do_not_take():
+    """The decode step's launcher raises on a route the kernel has not and
+    on a wide route over a state off a 16-byte boundary (read and written
+    in 16-byte words), before anything is built or launched; nothing is
+    counted."""
+    x = _op_inputs(12, b=1, h=2, t=1, dk=64, dv=64)
+    tok = [torch.from_numpy(x[n][:, :, 0]).contiguous() for n in ("r", "k", "v", "w")]
+    u, s0 = torch.from_numpy(x["u"]), torch.from_numpy(x["s0"])
+    off = torch.empty(s0.numel() + 1)[1:].view(s0.shape)
+    off.copy_(s0)
+    rwkv6_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="route"):
+        rwkv6_cuda._decode_launch(*tok, u, s0, route="rows")
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_cuda._decode_launch(*tok, u, off, route="wide4")
+    assert rwkv6_cuda.launch_counts()["rwkv6_decode"] == 0
+    assert rwkv6_cuda.rwkv6_decode.routes == dict.fromkeys(rwkv6_cuda.rwkv6_decode.routes, 0)
+    assert not rwkv6_cuda.launch_shape_counts()["rwkv6_decode"]
+
+
 def test_chunk_gradients_match_jax_handwritten_vjp():
     """Autograd through the port's chunked form (the backward the CPU
     trains with, and what the CUDA backward is held against) against the

@@ -173,5 +173,6 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_no_route():
     op, sp = rwkv6_cuda.rwkv6_chunk_plain(*args, initial_state=x["s0"])
     assert torch.equal(o, op) and torch.equal(sf, sp)
     assert rwkv6_cuda.rwkv6_chunk.routes == {"recurrent": 0, "chunked": 0}
-    assert rwkv6_cuda.launch_shape_counts() == {"rwkv6_chunk": {}, "rwkv6_chunk_bwd": {}}
+    assert rwkv6_cuda.launch_shape_counts() == {"rwkv6_chunk": {}, "rwkv6_chunk_bwd": {},
+                                                "rwkv6_decode": {}}
     assert rwkv6_cuda.launch_shapes()["rwkv6_chunk"] == set()
