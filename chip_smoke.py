@@ -22,6 +22,9 @@ Phases, in order; any failure raises and exits non-zero:
    (the tile body, or the wide route) in turns at b 1 to 64, bf16 and f32
    states, for the flagship's conv step, simple-GLA's and Mamba-2's steps,
    the planned one no more than SWEEP_MARGIN slower (decode_route_sweep);
+   the two folds' band heights timed in turns at b 1, 8 and 64 on the
+   flagship's head (bf16, f32 and int8 states) and at b8 on simple-GLA's and
+   Mamba-2's, beside the band gla_fold_plan picks (fold_route_sweep);
    max error beside its tolerance, both
    times, and each kernel's roofline bound. The two prefill kernels are
    held on both routes of their forward (gla_chunk_fwd_plan: the chunked
@@ -215,7 +218,10 @@ lazy step on is held and timed (a float state on both routes in turns,
 the planned one at most SWEEP_MARGIN slower by the median of six turns,
 timed again before a miss fails; an int8 state on the tile route), every
 shape it launched the two classic steps on is held on every route and
-timed in turns (the planned route must be the faster), and
+timed in turns (the planned route must be the faster), every shape it
+folded a window on is held on every band height of the two folds (against
+the plain version and the plain mirror of the kernels' bf16-part update)
+and timed in turns (the planned band at most SWEEP_MARGIN slower), and
 launches x (time - bound) is summed over those
 launches; the summary ranks every kernel by it (the others at their row's
 shape). The line before the last is a JSON summary of the kernels; the last
@@ -370,13 +376,14 @@ CHUNK_HELD, CHUNK_BWD_HELD = set(), set()
 # were held on that route against their plain versions (hold_decode_routes)
 DECODE_HELD = {"gla_decode_conv": set(), "gla_decode": set()}
 # launches of the two forward kernels, of gla_chunk's backward, of the
-# four decode steps, of rwkv6_chunk and its backward and of the two Mamba
-# kernels on each shape (the launch_shape_counts keys of ops/gla_cuda.py,
+# four decode steps, of the two folds, of rwkv6_chunk and its backward and
+# of the two Mamba kernels on each shape (the launch_shape_counts keys of ops/gla_cuda.py,
 # ops/rwkv6_cuda.py and ops/mamba_cuda.py), summed over the main-path runs
-# that expect_launches checks: the weights of gap_phase's, rwkv6_gap_phase's
-# and mamba_gap_phase's sums
+# that expect_launches checks: the weights of gap_phase's (and its lazy,
+# decode and fold phases'), rwkv6_gap_phase's and mamba_gap_phase's sums
 GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
                     "gla_chunk_bwd": Counter(), "gla_decode_lazy_conv": Counter(),
+                    "gla_fold": Counter(), "gla_fold_q": Counter(),
                     "gla_decode_conv": Counter(), "gla_decode": Counter(),
                     "rwkv6_chunk": Counter(), "rwkv6_chunk_bwd": Counter(),
                     "rwkv6_decode": Counter(),
@@ -547,7 +554,6 @@ def ptxas_summary(log: str):
               (("gla_decode_wide_kernel", "Li256ELi1E"), "gla_decode_conv wide"),
               (("gla_decode_wide_kernel", "Li256ELi0E"), "gla_decode wide"),
               (("gla_decode_wide_kernel", "Li256ELi2E"), "rwkv6_decode wide"),
-              (("gla_fold_kernel",), "gla_fold"),
               (("gla_chunk_kernel", "Lb1E"), "gla_chunk_conv recurrent"),
               (("gla_chunk_kernel", "Lb0E"), "gla_chunk recurrent"))
     # the int8 products' instantiations the flagship launches (bf16 in and
@@ -564,11 +570,17 @@ def ptxas_summary(log: str):
                  {1: 8, 2: 16}))
     # the int8 lazy-window kernels' bf16 instantiations (dv 512), and the lazy
     # step's cluster route on an f32 state
-    quant = (("gla_fold_q_kernelI13__nv_bfloat16Li16E", "gla_fold_q<bf16, dv 512>"),
-             ("lazy_tile_kernelI13__nv_bfloat16aLi256E",
+    quant = (("lazy_tile_kernelI13__nv_bfloat16aLi256E",
               "gla_decode_lazy_conv tile<bf16, int8, 256>"),
              ("lazy_cluster_kernelI13__nv_bfloat16fLi256E",
               "gla_decode_lazy_conv cluster<bf16, f32, 256>"))
+    # the two folds' instantiations the flagship's b8 windows launch (bf16
+    # IO; a bf16 state in 64-row bands, an int8 one of dv 512 in 32-row
+    # bands: two sub-bands each)
+    folds = (("gla_fold_band_kernelI13__nv_bfloat16S1_Li2ELi2EE",
+              "gla_fold band<bf16, bf16, 2 sub-bands>"),
+             ("gla_fold_q_band_kernelI13__nv_bfloat16Li8ELi2EE",
+              "gla_fold_q band<bf16, dv 512, 2 sub-bands>"))
     # the RWKV6 kernels' bf16-IO, f32-state instantiations (dk 256; the
     # forward's recurrent body)
     rwkv6 = (("rwkv6_chunk_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk recurrent"),
@@ -634,13 +646,14 @@ def ptxas_summary(log: str):
                 out.append(f"{label}: {info}")
         out += [f"{label}<bf16, f32, 256>: {info}" for key, label in rwkv6 if key in name]
         out += [f"{label}<bf16>: {info}" for key, label in mamba if key in name]
+        out += [f"{label}: {info}" for key, label in folds if key in name]
         out += [f"{label}: {info}" for key, label in chunked if key in name]
     for _, label in chunked:
         found = [line for line in out if line.startswith(f"{label}:")]
         require(any("registers" in line for line in found)
                 and any("spill" in line for line in found),
                 f"ptxas: no register or spill line of {label}")
-    for label in [label for _, label in quant] + [
+    for label in [label for _, label in quant + folds] + [
             f"gla_decode_lazy_conv {r}<bf16, bf16, 256>" for r in LAZY_ROUTES] + [
             f"{kernel} {r}<bf16, bf16, 256>"
             for kernel in ("gla_decode_conv", "gla_decode", "rwkv6_decode")
@@ -4022,6 +4035,7 @@ def gap_phase(torch, gla_cuda, card_line):
         sums[name] = total["taken"]
     sums.update(lazy_gap_phase(torch, gla_cuda, card_line))
     sums.update(decode_gap_phase(torch, gla_cuda, card_line))
+    sums.update(fold_gap_phase(torch, gla_cuda, card_line))
     return sums
 
 
@@ -5129,6 +5143,174 @@ def launched_mamba_shapes_phase(torch, mamba_cuda):
             "Mamba: launched but not held")
 
 
+# ------------------------------------------------------------------ folds
+def fold_case(torch, shape, seed):
+    """A full window's fold inputs at ``shape`` = (b, h, dk, dv, IO dtype,
+    state dtype, L) as a main path leaves them: cumsums of log-gates in
+    cbuf, cc the last, k and v of a few units; an int8 state with its row
+    scales. Returns (state, s_scale or None, bufs)."""
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows
+
+    b, h, dk, dv, io, st, L = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    cums = (torch.nn.functional.logsigmoid(r(L, b, h, dk)) / 16).cumsum(0)
+    bufs = [(r(L, b, h, dk) * 9).to(io), (r(L, b, h, dv) * 3).to(io), cums.contiguous(),
+            cums[-1].clone()]
+    if st == torch.int8:
+        return (*quantize_state_rows(r(b, h, dk, dv) * 0.05), bufs)
+    return r(b, h, dk, dv).to(st), None, bufs
+
+
+def fold_work(state, s_scale, bufs):
+    """(bytes, operations) of one fold: the state (and an int8 state's
+    scales) read and written once, the window read once; per state element
+    2 L for the update, the decay, and four more to dequantize and
+    requantize an int8 one."""
+    b, h, dk, dv = state.shape
+    L = bufs[0].shape[0]
+    per = 2 * L + (4 if s_scale is not None else 1)
+    return (nbytes(state, state, s_scale, s_scale, *bufs), b * h * dk * (dv * per + 2 * L))
+
+
+def fold_on_route(gla_cuda, route, state, s_scale, bufs):
+    """One fold in the bands of ``route`` (the wrappers' launchers, forced)."""
+    if s_scale is None:
+        return gla_cuda._fold_launch(state, *bufs, route=route)
+    return gla_cuda._fold_q_launch(state, s_scale, *bufs, route=route)
+
+
+def hold_fold_routes(torch, gla_cuda, shape, seed):
+    """One fold at ``shape`` (fold_case's) on every band height the head
+    takes, held against the plain version and the plain mirror of its
+    bf16-part decomposition: a float state within a share of max(1,
+    max|plain|) (TOL_F32 for f32 IO and state, else TOL_BF16), an int8 one
+    at most one integer step off on at most 1e-3 of the elements, its
+    scales to 1e-5 of each; updated in place, equal bits on a second call.
+    Returns ({route: a step on cold states}, (bytes, operations))."""
+    b, h, dk, dv, io, st, L = shape
+    state, s_scale, bufs = fold_case(torch, shape, seed)
+    quant = s_scale is not None
+    if quant:
+        refs = [gla_cuda.gla_fold_q_plain(state, s_scale, *bufs),
+                gla_cuda.gla_fold_q_parts_plain(state, s_scale, *bufs)]
+    else:
+        refs = [gla_cuda.gla_fold_plain(state, *bufs), gla_cuda.gla_fold_parts_plain(state, *bufs)]
+    tol = TOL_F32 if io == st == torch.float32 else TOL_BF16
+    rotation = cold_rotation(state) if not quant else cold_rotation(state, s_scale)
+    steps = {}
+    for r in gla_cuda.fold_band_heights(dk, dv, st):
+        route = f"band{r}"
+        args = (state.clone(), s_scale.clone() if quant else None)
+        out = fold_on_route(gla_cuda, route, *args, bufs)
+        again = fold_on_route(gla_cuda, route, state.clone(),
+                              s_scale.clone() if quant else None, bufs)
+        torch.cuda.synchronize()
+        if quant:
+            require(out[0] is args[0] and out[1] is args[1], f"{shape} {route}: not in place")
+            require(torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]),
+                    f"{shape} {route}: a second call gave other bits")
+            for name, (rq, rsc) in zip(("plain", "parts mirror"), refs):
+                d = (out[0].int() - rq.int()).abs()
+                top, off = int(d.max()), int((d > 0).sum())
+                require(top <= 1 and off <= 1e-3 * d.numel(),
+                        f"{shape} {route}: int8 state {top} steps from the {name}, {off} differ")
+                rel = float(((out[1] - rsc).abs() / rsc).max())
+                require(rel <= 1e-5, f"{shape} {route}: scales {rel} from the {name}")
+        else:
+            require(out is args[0], f"{shape} {route}: not in place")
+            require(torch.equal(out, again), f"{shape} {route}: a second call gave other bits")
+            require(bool(torch.isfinite(out.float()).all()), f"{shape} {route}: not finite")
+            check(f"{route} vs plain", max_err(out, refs[0]), bound(refs[0], tol))
+            check(f"{route} vs parts mirror", max_err(out, refs[1]), bound(refs[1], tol))
+
+        def step(route=route):
+            s, *sc = rotation()
+            return fold_on_route(gla_cuda, route, s, sc[0] if sc else None, bufs)
+
+        steps[route] = step
+    return steps, fold_work(state, s_scale, bufs)
+
+
+# (h, dk, dv, IO dtype name, state dtype name, batches) of fold_route_sweep:
+# the flagship's head on its three state types, simple-GLA's and Mamba-2's
+FOLD_SWEEP = [((H, DK, DV, "bfloat16", st), (1, 8, 64)) for st in ("bfloat16", "float32", "int8")]
+FOLD_SWEEP += [((*SIMPLE_HEAD, "bfloat16", "float32"), (8,)),
+               ((*MAMBA_HEAD, "float32", "float32"), (8,))]
+
+
+def fold_route_sweep(torch, gla_cuda, card_line):
+    """Every band height of the two folds timed in turns on cold states at
+    the heads and batches of FOLD_SWEEP, a window of WINDOW slots, beside
+    the band the plan picks: where gla_fold_plan's rule comes from. Prints
+    only; the launched shapes are held to the plan in fold_gap_phase."""
+    print(f"fold route sweep (window {WINDOW}; device us, median of {2 * ROUTE_TURNS} in turns) "
+          f"[{card_line}]:")
+    for i, ((h, dk, dv, io, st), batches) in enumerate(FOLD_SWEEP):
+        io, st = getattr(torch, io), getattr(torch, st)
+        for b in batches:
+            state, s_scale, bufs = fold_case(torch, (b, h, dk, dv, io, st, WINDOW), seed=1200 + i)
+            rotation = cold_rotation(state) if s_scale is None else cold_rotation(state, s_scale)
+
+            def step(route):
+                s, *sc = rotation()
+                return fold_on_route(gla_cuda, route, s, sc[0] if sc else None, bufs)
+
+            steps = {f"band{r}": (lambda r=r: step(f"band{r}"))
+                     for r in gla_cuda.fold_band_heights(dk, dv, st)}
+            ms, _ = time_routes(steps)
+            plan = (gla_cuda.gla_fold_q_plan(b, h, dk, dv) if st == torch.int8
+                    else gla_cuda.gla_fold_plan(b, h, dk, dv, st))
+            best = min(ms, key=ms.get)
+            bound_ms = roofline(*fold_work(state, s_scale, bufs), io)[0]
+            print(f"  b{b} {head_name(h, dk, dv)} IO {dtype_name(io)} state {dtype_name(st)}: "
+                  + ", ".join(f"{r} {v * 1e3:.3f}" for r, v in ms.items())
+                  + f"; bound {bound_ms * 1e3:.3f}; planned {plan}, fastest {best}"
+                  + ("" if plan == best else f" ({ms[plan] / ms[best] - 1:+.1%})"))
+
+
+def fold_gap_phase(torch, gla_cuda, card_line):
+    """Every shape a main path launched the two folds on (GAP_SHAPE_COUNTS)
+    held on every band height (hold_fold_routes) and the heights timed in
+    turns on cold states beside the bound: the planned one at most
+    SWEEP_MARGIN slower than the fastest other (planned_route_times).
+    launches x (time - bound) summed over them on the planned bands. The
+    first design of each fold (the DK x 32 column tile, the 32-row int8
+    body) lost at every launched shape and is gone: scripts/torch_lazy_ab.py
+    times it against this one from a checkout of its commit. Returns
+    {kernel: sum in ms}."""
+    sums = {}
+    for name in ("gla_fold", "gla_fold_q"):
+        counts = GAP_SHAPE_COUNTS[name]
+        require(counts, f"{name}: the main paths launched it on no shape")
+        total = 0.0
+        print(f"{name}: launches x (time - bound) over {sum(counts.values())} main-path launches "
+              f"on {len(counts)} shapes (device us; every band height in turns):")
+        for i, (shape, n) in enumerate(sorted(counts.items(), key=str)):
+            b, h, dk, dv, io, st, L = shape
+            plan = (gla_cuda.gla_fold_q_plan(b, h, dk, dv) if st == torch.int8
+                    else gla_cuda.gla_fold_plan(b, h, dk, dv, st))
+            steps, work = hold_fold_routes(torch, gla_cuda, shape, seed=1100 + i)
+            if len(steps) > 1:
+                ms, times = planned_route_times(steps, plan, f"{name} {shape}")
+            else:
+                ms, times = time_routes(steps)
+            bound_ms = roofline(*work, io)[0]
+            total += n * (ms[plan] - bound_ms)
+            tag = (f"b{b} {head_name(h, dk, dv)} IO {dtype_name(io)} state {dtype_name(st)} "
+                   f"L{L}")
+            for r in ms:
+                note_shape(name, f"{tag}, {r}{' (planned)' if r == plan else ''}, {n} main-path "
+                           "launches, in turns", ms[r], None, *work, io)
+            print(f"  {tag}: {n} launches; " + ", ".join(
+                f"{r}{' (planned)' if r == plan else ''} {ms[r] * 1e3:.3f}" for r in ms)
+                + f", bound {bound_ms * 1e3:.3f} (medians; turns, ms: {times})")
+        print(f"  {name}: sum of launches x (time - bound) {total:.3f} ms on the planned bands "
+              f"[{card_line}]")
+        sums[name] = total
+    return sums
+
+
 def sfu_rate(torch) -> float:
     """Exponentials per second of the card's special-function units at its
     highest SM clock (nvidia-smi clocks.max.sm)."""
@@ -5170,6 +5352,7 @@ def main():
     chunk_kernel_phase(torch, gla_cuda, summary)
     lazy_kernel_phase(torch, gla_cuda, summary)
     lazy_route_sweep(torch, gla_cuda, card_line)
+    fold_route_sweep(torch, gla_cuda, card_line)
     decode_route_sweep(torch, gla_cuda, card_line)
     model, cfg, launches = generate_phase(torch, np, gla_cuda, card_line)
     add_launches(launches, serving_phase(torch, np, gla_cuda, model, cfg, card_line))
@@ -5210,13 +5393,14 @@ def main():
                             launches=launches[name], **summary[name],
                             shapes=OTHER_SHAPES.get(name, [])))
     # launches x (time - bound): the two GLA forwards, gla_chunk's backward,
-    # the four decode steps, rwkv6_chunk and its backward and the two Mamba
-    # kernels over every launched shape, the other kernels at their row's shape
+    # the four decode steps, the two folds, rwkv6_chunk and its backward and
+    # the two Mamba kernels over every launched shape, the other kernels at
+    # their row's shape
     gaps.update({k["name"]: k["launches"] * (k["ms"] - k["bound_ms"]) for k in kernels
                  if k["name"] not in gaps})
     print("launches x (time - bound), ms, largest first (the two GLA forwards, gla_chunk_bwd, "
-          "the four decode steps, rwkv6_chunk and its backward and the two Mamba kernels over "
-          "every launched shape, the others at their row's shape):")
+          "the four decode steps, the two folds, rwkv6_chunk and its backward and the two Mamba "
+          "kernels over every launched shape, the others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")

@@ -78,6 +78,7 @@
 #include <cstdint>
 
 #include "gla_common.cuh"
+#include "gla_mma.cuh"
 #include "int8_common.cuh"
 
 namespace gla {
@@ -101,44 +102,10 @@ constexpr int kFTileBytes = kC * kLdF * 4;                   // one staged f32 t
 constexpr int kPairBytes = kPairRows * kLd * 2;
 static_assert(kPairRows == 96, "four sub-chunks a chunk");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  if constexpr (TRANS) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-  }
-}
-
-// The A fragment (rows m0 .. m0+15, k0 .. k0+15) of a product's left
-// operand X[m][k], stored with row stride ld as X (KM false) or as its
-// transpose X^T[k][m] (KM true).
-template <bool KM>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-  const bf16* p = KM ? s + (k0 + r + 8 * (i >> 1)) * ld + m0 + 8 * (i & 1)
-                     : s + (m0 + r + 8 * (i & 1)) * ld + k0 + 8 * (i >> 1);
-  ldsm_x4<KM>(a, p);
-}
-
-// The B fragments of two n8 tiles (columns n0 .., n0+8 ..; k0 .. k0+15) of
-// a right operand Y[k][n]: b[0], b[1] the first, b[2], b[3] the second;
-// stored as Y^T[n][k] (KN false) or as Y[k][n] (KN true).
-template <bool KN>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-  const bf16* p = KN ? s + (k0 + r + 8 * (i & 1)) * ld + n0 + 8 * (i >> 1)
-                     : s + (n0 + r + 8 * (i >> 1)) * ld + k0 + 8 * (i & 1);
-  ldsm_x4<KN>(b, p);
-}
+using mma::frag_a;
+using mma::frag_b;
+using mma::ldsm_x4;
+using mma::smem_addr;
 
 // acc (16 rows from m0, 16 NP columns from n0, as 2 NP n8 tiles) += X . Y
 // over k in [0, K): X and Y as frag_a and frag_b take them.

@@ -40,6 +40,43 @@ template <typename T> __device__ __forceinline__ float round_io(float x) {
   return to_f(from_f<T>(x));
 }
 
+// How a thread holds a 16-byte word of a state or buffer row: N neighbouring
+// columns, unpacked to f32 and packed back (bf16 rounded to nearest even).
+template <typename ST> struct Word;
+template <> struct Word<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(uint4 w, float (&f)[N]) {
+    f[0] = __uint_as_float(w.x);
+    f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z);
+    f[3] = __uint_as_float(w.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+template <> struct Word<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(uint4 w, float (&f)[N]) {
+    const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = __uint_as_float(u[j] << 16);
+      f[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
+    unsigned u[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+      u[j] = *reinterpret_cast<const unsigned*>(&p);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+
 __device__ __forceinline__ float silu(float z) { return z * (1.f / (1.f + expf(-z))); }
 
 // Causal tap sum of one channel, oldest tap first, accumulated in f32:

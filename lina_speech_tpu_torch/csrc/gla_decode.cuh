@@ -231,43 +231,6 @@ int launch_decode_tile(const void* xq, const void* xk, const void* xv, const voi
 }
 
 // ------------------------------------------------------------ wide route
-// How a thread holds a 16-byte word of a state row: N neighbouring columns,
-// unpacked to f32 and packed back (bf16 rounded to nearest even).
-template <typename ST> struct Word;
-template <> struct Word<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(uint4 w, float (&f)[N]) {
-    f[0] = __uint_as_float(w.x);
-    f[1] = __uint_as_float(w.y);
-    f[2] = __uint_as_float(w.z);
-    f[3] = __uint_as_float(w.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                      __float_as_uint(f[3]));
-  }
-};
-template <> struct Word<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(uint4 w, float (&f)[N]) {
-    const unsigned u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[2 * j] = __uint_as_float(u[j] << 16);
-      f[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&f)[N]) {
-    unsigned u[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-      u[j] = *reinterpret_cast<const unsigned*>(&p);
-    }
-    return make_uint4(u[0], u[1], u[2], u[3]);
-  }
-};
-
 template <typename IO, typename ST, int DK, int MODE, int TPR>
 __global__ void __launch_bounds__(kThreads, 2)
 gla_decode_wide_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,

@@ -35,10 +35,12 @@ wrappers and their plain versions.
   with a row scale (``s_scale``). Kernel: ``csrc/gla_decode_lazy_conv.cu``,
   two routes chosen by :func:`gla_decode_lazy_plan`.
 - :func:`gla_fold` replaces ``gla_fold_fused`` (gla_pallas.py:2232), the
-  fold of a full window into the state. Kernel: ``csrc/gla_fold.cu``.
+  fold of a full window into the state. Kernel: ``csrc/gla_fold.cu`` (+
+  ``gla_fold.cuh``), bands of key rows chosen by :func:`gla_fold_plan`.
 - :func:`gla_fold_q` replaces ``gla_fold_fused_q`` (gla_pallas.py:2097), the
   same fold on an int8 state with a fresh requantization of every row.
-  Kernel: ``csrc/gla_fold_q.cu``.
+  Kernel: ``csrc/gla_fold_q.cu`` (+ ``gla_fold.cuh``), bands chosen by
+  :func:`gla_fold_q_plan`.
 
 Each wrapper takes the JAX function's arguments in the JAX layout. For a
 CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
@@ -87,7 +89,7 @@ def _wrappers():
 
 def _shape_noters():
     return (gla_chunk_conv, gla_chunk_conv_bwd, gla_chunk, gla_chunk_bwd, gla_decode_conv,
-            gla_decode, gla_decode_lazy_conv)
+            gla_decode, gla_decode_lazy_conv, gla_fold, gla_fold_q)
 
 
 def reset_launch_counts() -> None:
@@ -116,8 +118,10 @@ def launch_shapes() -> dict:
     dtype or None, scale, route); ``gla_chunk_bwd``: the same with need_ds0
     in the route's place. ``gla_decode_conv`` and ``gla_decode``: (b, h,
     dk, dv, IO dtype, state dtype, route); ``gla_decode_lazy_conv``: (b, h,
-    dk, dv, IO dtype, state dtype, window length, p, route). A check that
-    drives a path reads it to hold the kernels at those shapes."""
+    dk, dv, IO dtype, state dtype, window length, p, route); ``gla_fold``
+    and ``gla_fold_q``: (b, h, dk, dv, IO dtype, state dtype, window
+    length). A check that drives a path reads it to hold the kernels at
+    those shapes."""
     return {fn.__name__: set(fn.shapes) for fn in _shape_noters()}
 
 
@@ -1538,9 +1542,134 @@ def _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, buf_dtype) -> int:
 
 
 # ------------------------------------------------------- window fold kernel
+# The two folds (csrc/gla_fold.cu, csrc/gla_fold_q.cu; the update on the tensor
+# cores in csrc/gla_fold.cuh): a block a band of key rows of one head in 1, 2
+# or 4 sub-bands of whole 16-row warp tiles. A warp takes 64 value columns of
+# an int8 row (a row stays in one block: dv / 64 warps across) or of a float
+# one (32 where the head has an odd number of 32-column groups; a float head
+# wider than a block's warps splits its columns across blocks). The launch's
+# route is the band height, "band{R}".
+_FOLD_MAX_WARPS = {"gla_fold": 16, "gla_fold_q": 8}  # warps of a block (kMaxWarps)
+# The plans' rule, from chip_smoke.py's fold_route_sweep on an H100 (PERF.md
+# §6): the fastest band at b1, b8 and b64 on the flagship's head (bf16
+# and int8 states) and at b8 on simple-GLA's (f32) and Mamba-2's was the
+# smallest whose grid stayed within about one wave of 16 warps an SM (2,048
+# warps on 132 SMs), blocks of one warp lost, and at b64, where no band
+# stays within it, the tallest won. On the flagship's head with an f32 state,
+# which no path folds, the smallest band beat the plan's at b8.
+_FOLD_GRID_WARPS = 2048
+
+
+def _fold_kernel(state_dtype: torch.dtype) -> str:
+    return "gla_fold_q" if state_dtype == torch.int8 else "gla_fold"
+
+
+def _fold_warps(dk: int, dv: int, state_dtype: torch.dtype, r: int):
+    """(warps across a block, warps down a sub-band, sub-bands, column
+    blocks of a head) of a band of ``r`` rows (``band_shape`` in the
+    sources): as many warps down as the block has room for and divide the
+    band's 16-row tiles."""
+    cap = _FOLD_MAX_WARPS[_fold_kernel(state_dtype)]
+    if state_dtype == torch.int8:
+        across, col_blocks = dv // 64, 1
+    else:
+        groups = dv // 32
+        warps_head = groups // (2 if groups % 2 == 0 else 1)
+        across = min(warps_head, cap)
+        col_blocks = -(-warps_head // across)
+    down = min(cap // across, r // 16)
+    while r // 16 % down:
+        down -= 1
+    return across, down, r // (16 * down), col_blocks
+
+
+def fold_band_heights(dk: int, dv: int, state_dtype: torch.dtype) -> Tuple[int, ...]:
+    """The band heights the fold of a head of key dim ``dk`` and value dim
+    ``dv`` over a state of ``state_dtype`` (int8: :func:`gla_fold_q`, else
+    :func:`gla_fold`) can take: whole 16-row warp tiles dividing dk, in 1, 2
+    or 4 sub-bands."""
+    return tuple(r for r in range(16, dk + 1, 16)
+                 if dk % r == 0 and _fold_warps(dk, dv, state_dtype, r)[2] in (1, 2, 4))
+
+
+def _fold_plan(b: int, h: int, dk: int, dv: int, state_dtype: torch.dtype) -> str:
+    def grid(r):
+        across, down, _, col_blocks = _fold_warps(dk, dv, state_dtype, r)
+        return across * down, b * h * (dk // r) * col_blocks * across * down
+
+    heights = [r for r in fold_band_heights(dk, dv, state_dtype) if grid(r)[0] >= 2]
+    fits = [r for r in heights if grid(r)[1] <= _FOLD_GRID_WARPS]
+    return f"band{min(fits) if fits else max(heights)}"
+
+
+@functools.lru_cache(maxsize=None)
+def gla_fold_plan(b: int, h: int, dk: int, dv: int, state_dtype: torch.dtype) -> str:
+    """The band a :func:`gla_fold` launch on (b, h) heads of key dim ``dk``
+    and value dim ``dv`` over a float state of ``state_dtype`` takes,
+    decided from these alone before the launch: ``"band{R}"``, R the
+    smallest height of :func:`fold_band_heights` whose blocks have two
+    warps or more and whose grid at most ``_FOLD_GRID_WARPS`` warps, else
+    the tallest."""
+    return _fold_plan(b, h, dk, dv, state_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def gla_fold_q_plan(b: int, h: int, dk: int, dv: int) -> str:
+    """The band a :func:`gla_fold_q` launch on (b, h) int8 heads takes, by
+    the rule of :func:`gla_fold_plan`."""
+    return _fold_plan(b, h, dk, dv, torch.int8)
+
+
+def _fold_rows(name: str, route: str, dk: int, dv: int, state_dtype) -> int:
+    """The band height of ``route``; raises for another name or a height
+    the fold cannot cut this head into."""
+    heights = fold_band_heights(dk, dv, state_dtype)
+    _check(name, isinstance(route, str) and route.startswith("band") and route[4:].isdigit()
+           and int(route[4:]) in heights,
+           f"route {route!r} not in {tuple(f'band{r}' for r in heights)}")
+    return int(route[4:])
+
+
+def _check_fold_words(name: str, state, vbuf) -> None:
+    """The folds read the state and v in 16-byte words."""
+    _check(name, state.data_ptr() % 16 == 0 and vbuf.data_ptr() % 16 == 0,
+           "the state and vbuf must lie on 16-byte boundaries (the fold reads them in "
+           "16-byte words)")
+
+
 def gla_fold_plain(state, kbuf, vbuf, cbuf, cc) -> torch.Tensor:
     """Plain version of :func:`gla_fold` (returns a new tensor)."""
     return gla_ops.gla_decode_lazy_fold(state, kbuf, vbuf, cbuf, cc)
+
+
+def _bf16_parts(x: torch.Tensor, n: int):
+    """x (f32) as n bf16 parts, each the rounding of what the parts before
+    it left (``split_bf16`` in csrc/gla_fold.cuh), held as f32."""
+    parts, rest = [], x
+    for _ in range(n):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+def _fold_update_parts(kbuf, vbuf, cbuf, cc) -> torch.Tensor:
+    """The folds' rank-L update as their tensor-core kernels take it: the
+    decayed keys in three bf16 parts, v in three (f32 buffers) or one (bf16,
+    exact), the products of parts a and b with a + b < 3 summed in f32."""
+    kd = kbuf.float() * (cc[None] - cbuf.float()).clamp(max=0.0).exp()
+    kp = _bf16_parts(kd, 3)
+    vp = _bf16_parts(vbuf.float(), 3 if vbuf.dtype == torch.float32 else 1)
+    return sum(torch.einsum("lbhk,lbhv->bhkv", kp[a], vp[b])
+               for a in range(3) for b in range(len(vp)) if a + b < 3)
+
+
+def gla_fold_parts_plain(state, kbuf, vbuf, cbuf, cc) -> torch.Tensor:
+    """:func:`gla_fold_plain` with the kernel's decomposition of the update
+    into bf16 parts (:func:`_fold_update_parts`): the mirror the card holds
+    the kernel against, and the CPU holds against the Pallas kernel."""
+    s = cc.exp()[..., None] * state.float() + _fold_update_parts(kbuf, vbuf, cbuf, cc)
+    return s.to(state.dtype)
 
 
 def gla_fold(state, kbuf, vbuf, cbuf, cc) -> torch.Tensor:
@@ -1549,28 +1678,39 @@ def gla_fold(state, kbuf, vbuf, cbuf, cc) -> torch.Tensor:
     state (b, h, dk, dv); kbuf (L, b, h, dk), vbuf (L, b, h, dv) in one
     float dtype; cbuf (L, b, h, dk) and cc (b, h, dk) in f32. Returns the
     new state; the buffers are left as they are (stale by contract) and the
-    caller resets ``cc``. On CUDA the kernel updates ``state`` IN PLACE and
-    returns the same tensor.
+    caller resets ``cc``. On CUDA the kernel updates ``state`` IN PLACE, in
+    the bands :func:`gla_fold_plan` picks, and returns the same tensor.
     """
     if not state.is_cuda:
         return gla_fold_plain(state, kbuf, vbuf, cbuf, cc)
+    return _fold_launch(state, kbuf, vbuf, cbuf, cc)
+
+
+def _fold_launch(state, kbuf, vbuf, cbuf, cc, route=None) -> torch.Tensor:
+    """:func:`gla_fold` on CUDA tensors, in the bands of ``route`` if given
+    (the card's checks time every height), else of the plan's."""
     name = "gla_fold"
     b, h, dk, dv = state.shape
     _check_cuda_args(name, [state, kbuf, vbuf, cbuf, cc], kbuf.dtype, dk, dv,
                      state.dtype)
     L = _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, kbuf.dtype)
+    route = gla_fold_plan(b, h, dk, dv, state.dtype) if route is None else route
+    rows = _fold_rows(name, route, dk, dv, state.dtype)
+    _check_fold_words(name, state, vbuf)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.gla_fold_window(
         _ptr(state), _ptr(kbuf), _ptr(vbuf), _ptr(cbuf), _ptr(cc), b, h, dk,
-        dv, L, _DTYPE_CODE[kbuf.dtype], _DTYPE_CODE[state.dtype],
+        dv, L, _DTYPE_CODE[kbuf.dtype], _DTYPE_CODE[state.dtype], rows,
         ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_fold.launches += 1
+    gla_fold.shapes[(b, h, dk, dv, kbuf.dtype, state.dtype, L)] += 1
     return state
 
 
 gla_fold.launches = 0
+gla_fold.shapes = Counter()
 
 
 # --------------------------------------------- window fold of an int8 state
@@ -1578,6 +1718,14 @@ gla_fold.launches = 0
 def gla_fold_q_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc):
     """Plain version of :func:`gla_fold_q` (returns new tensors)."""
     return gla_ops.gla_decode_lazy_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc)
+
+
+def gla_fold_q_parts_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc):
+    """:func:`gla_fold_q_plain` with the kernel's decomposition of the
+    update (:func:`_fold_update_parts`); the requantization as the plain
+    version's (the kernel's quotient is the true division's, bit for bit)."""
+    s = (cc.exp() * s_scale)[..., None] * state_q.float()
+    return gla_ops.quantize_state_rows(s + _fold_update_parts(kbuf, vbuf, cbuf, cc))
 
 
 def gla_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc):
@@ -1589,10 +1737,17 @@ def gla_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc):
     state_q (b, h, dk, dv) int8; s_scale (b, h, dk) f32; the window buffers
     as :func:`gla_fold`. Returns (state_q, s_scale); the buffers are left as
     they are and the caller resets ``cc``. On CUDA the kernel updates
-    ``state_q`` and ``s_scale`` IN PLACE and returns the same tensors.
+    ``state_q`` and ``s_scale`` IN PLACE, in the bands
+    :func:`gla_fold_q_plan` picks, and returns the same tensors.
     """
     if not state_q.is_cuda:
         return gla_fold_q_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc)
+    return _fold_q_launch(state_q, s_scale, kbuf, vbuf, cbuf, cc)
+
+
+def _fold_q_launch(state_q, s_scale, kbuf, vbuf, cbuf, cc, route=None):
+    """:func:`gla_fold_q` on CUDA tensors, in the bands of ``route`` if
+    given (the card's checks time every height), else of the plan's."""
     name = "gla_fold_q"
     b, h, dk, dv = state_q.shape
     _check(name, state_q.dtype == torch.int8, "the state must be int8")
@@ -1601,14 +1756,19 @@ def gla_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc):
                      torch.float32)
     _check(name, dv in _FOLD_Q_DV, f"head value dim {dv} not in {_FOLD_Q_DV}")
     L = _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, kbuf.dtype)
+    route = gla_fold_q_plan(b, h, dk, dv) if route is None else route
+    rows = _fold_rows(name, route, dk, dv, torch.int8)
+    _check_fold_words(name, state_q, vbuf)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(state_q.device).cuda_stream
     err = lib.gla_fold_q_window(
         _ptr(state_q), _ptr(s_scale), _ptr(kbuf), _ptr(vbuf), _ptr(cbuf), _ptr(cc),
-        b, h, dk, dv, L, _DTYPE_CODE[kbuf.dtype], ctypes.c_void_p(stream))
+        b, h, dk, dv, L, _DTYPE_CODE[kbuf.dtype], rows, ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_fold_q.launches += 1
+    gla_fold_q.shapes[(b, h, dk, dv, kbuf.dtype, torch.int8, L)] += 1
     return state_q, s_scale
 
 
 gla_fold_q.launches = 0
+gla_fold_q.shapes = Counter()

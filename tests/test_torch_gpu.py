@@ -1093,6 +1093,133 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(cuda):
         gla_cuda.gla_fold_q(state_q, None, *bufs)
 
 
+def _fold_case(dev, b, h, dk, dv, L, io, st, seed=0):
+    """A full window as a main path leaves it (cumsums of log-gates in cbuf,
+    cc the last) and a state; an int8 state with its row scales."""
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    cums = (torch.nn.functional.logsigmoid(r(L, b, h, dk)) / 16).cumsum(0)
+    bufs = [(r(L, b, h, dk) * 9).to(io), (r(L, b, h, dv) * 3).to(io), cums.contiguous(),
+            cums[-1].clone()]
+    if st == torch.int8:
+        return (*quantize_state_rows(r(b, h, dk, dv) * 0.05), bufs)
+    return r(b, h, dk, dv).to(st), None, bufs
+
+
+# (b, h, dk, dv, L): dk 64/128/256, dv 32, 96 and 512, windows of 1, 16 and
+# 40 slots (40: staged in one go or in passes), b 1, 8 and 64
+FOLD_SHAPES = [(1, 4, 256, 512, 16), (8, 4, 256, 512, 16), (64, 4, 256, 512, 16),
+               (3, 3, 64, 96, 1), (2, 5, 128, 96, 40), (2, 2, 256, 96, 16),
+               (1, 5, 128, 32, 16), (8, 2, 256, 32, 40), (2, 2, 256, 512, 40)]
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("st", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_fold_kernel_matches_plain_on_every_band(cuda, io, st, shape):
+    """gla_fold on every band height the head takes: against its plain
+    version (1e-4 of max(1, max|plain|) for f32 IO and state, else 1e-2) and
+    against the plain mirror of its bf16-part decomposition (a state
+    rounding step), in place, equal bits on a second call."""
+    b, h, dk, dv, L = shape
+    s0, _, bufs = _fold_case(cuda, b, h, dk, dv, L, io, st, seed=L)
+    ref = gla_cuda.gla_fold_plain(s0, *bufs)
+    mirror = gla_cuda.gla_fold_parts_plain(s0, *bufs)
+    tol = 1e-4 if io == st == torch.float32 else 1e-2
+    heights = gla_cuda.fold_band_heights(dk, dv, st)
+    assert int(gla_cuda.gla_fold_plan(b, h, dk, dv, st)[4:]) in heights
+    for r in heights:
+        state = s0.clone()
+        out = gla_cuda._fold_launch(state, *bufs, route=f"band{r}")
+        again = gla_cuda._fold_launch(s0.clone(), *bufs, route=f"band{r}")
+        torch.cuda.synchronize()
+        assert out is state and out.dtype == st, r
+        assert torch.equal(out, again), r
+        assert bool(torch.isfinite(out.float()).all()), r
+        assert _rel_err(out, ref) <= tol, (r, _rel_err(out, ref))
+        assert _rel_err(out, mirror) <= (1e-5 if st == torch.float32 else 1e-2), r
+    before = gla_cuda.gla_fold.launches
+    planned = gla_cuda.gla_fold(s0.clone(), *bufs)
+    assert gla_cuda.gla_fold.launches == before + 1 and _rel_err(planned, ref) <= tol
+
+
+# (b, h, dk, dv, L): dk 64/128/256, dv 128, 256 and 512, L 1, 16 and 40, b 1, 8, 64
+FOLD_Q_SHAPES = [(1, 4, 256, 512, 16), (8, 4, 256, 512, 16), (64, 4, 256, 512, 16),
+                 (3, 3, 64, 128, 1), (2, 5, 128, 256, 40), (8, 2, 256, 512, 40),
+                 (2, 3, 128, 128, 16)]
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FOLD_Q_SHAPES)
+def test_fold_q_kernel_matches_plain_on_every_band(cuda, io, shape):
+    """gla_fold_q on every band height: the int8 state at most one integer
+    step from the plain version and from the plain mirror of its
+    decomposition with at most 1e-3 of the elements differing, the scales
+    to 1e-5 of each, in place, equal bits on a second call."""
+    b, h, dk, dv, L = shape
+    q0, sc0, bufs = _fold_case(cuda, b, h, dk, dv, L, io, torch.int8, seed=L + 1)
+    refs = [gla_cuda.gla_fold_q_plain(q0, sc0, *bufs),
+            gla_cuda.gla_fold_q_parts_plain(q0, sc0, *bufs)]
+    for r in gla_cuda.fold_band_heights(dk, dv, torch.int8):
+        q, sc = q0.clone(), sc0.clone()
+        out = gla_cuda._fold_q_launch(q, sc, *bufs, route=f"band{r}")
+        again = gla_cuda._fold_q_launch(q0.clone(), sc0.clone(), *bufs, route=f"band{r}")
+        torch.cuda.synchronize()
+        assert out[0] is q and out[1] is sc and q.dtype == torch.int8, r
+        assert torch.equal(q, again[0]) and torch.equal(sc, again[1]), r
+        assert not torch.equal(q, q0), r
+        for rq, rsc in refs:
+            steps = (q.int() - rq.int()).abs()
+            assert int(steps.max()) <= 1 and float((steps > 0).float().mean()) <= 1e-3, r
+            assert float(((sc - rsc).abs() / rsc).max()) <= 1e-5, r
+
+
+def test_fold_q_requantizes_by_the_true_division(cuda):
+    """With no keys in the window and cc 0 the fold only requantizes the
+    int8 state: S = s S_q in f32, sc = max / 127, round(S / sc), both
+    divisions true ones, the second from sc's reciprocal in the kernel. Its
+    integers and scales equal the plain version's on the CPU (where PyTorch
+    divides by 127 truly; on the card it multiplies by 1 / 127) bit for bit,
+    on every band."""
+    b, h, dk, dv, L = 8, 4, 256, 512, 16
+    q0, sc0, bufs = _fold_case(cuda, b, h, dk, dv, L, torch.bfloat16, torch.int8, seed=9)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bufs[0] = torch.zeros_like(bufs[0])
+    bufs[3] = torch.zeros_like(bufs[3])
+    sc0 = sc0 * torch.exp(torch.randn(b, h, dk, generator=g, device=cuda) * 4)  # rows of all sizes
+    rq, rsc = gla_cuda.gla_fold_q_plain(q0.cpu(), sc0.cpu(), *(t.cpu() for t in bufs))
+    for r in gla_cuda.fold_band_heights(dk, dv, torch.int8):
+        q, sc = gla_cuda._fold_q_launch(q0.clone(), sc0.clone(), *bufs, route=f"band{r}")
+        torch.cuda.synchronize()
+        assert torch.equal(q.cpu(), rq), (r, int((q.cpu() != rq).sum()))
+        assert torch.equal(sc.cpu(), rsc), (r, int((sc.cpu() != rsc).sum()))
+
+
+def test_folds_refuse_what_they_do_not_take(cuda):
+    """A band off the head's heights, a state or vbuf off a 16-byte
+    boundary, an int8 fold of dv 96: each raises before any launch."""
+    s0, _, bufs = _fold_case(cuda, 2, 2, 64, 64, 16, torch.bfloat16, torch.bfloat16)
+    with pytest.raises(ValueError, match="route"):
+        gla_cuda._fold_launch(s0, *bufs, route="tile")
+    with pytest.raises(ValueError, match="route"):
+        gla_cuda._fold_launch(s0, *bufs, route="band128")  # dk 64 has no 128-row band
+    off = torch.empty(s0.numel() + 1, dtype=s0.dtype, device=cuda)[1:].view(s0.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        gla_cuda.gla_fold(off, *bufs)
+    voff = torch.empty(bufs[1].numel() + 1, dtype=bufs[1].dtype, device=cuda)[1:].view(
+        bufs[1].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        gla_cuda.gla_fold(s0, bufs[0], voff, *bufs[2:])
+    q0, sc0, qbufs = _fold_case(cuda, 2, 2, 64, 128, 16, torch.bfloat16, torch.int8)
+    with pytest.raises(ValueError, match="route"):
+        gla_cuda._fold_q_launch(q0, sc0, *qbufs, route="rows")
+    qoff = torch.empty(q0.numel() + 1, dtype=q0.dtype, device=cuda)[1:].view(q0.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        gla_cuda.gla_fold_q(qoff, sc0, *qbufs)
+
+
 def test_quantized_generate_kernel_path_matches_plain_path(cuda):
     """generate_batch with int8 weights and int8 lazy-window states on a
     small bf16 model: the kernel path's launches, and its teacher-forced
