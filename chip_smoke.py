@@ -83,6 +83,25 @@ Phases, in order; any failure raises and exits non-zero:
    gradients) on which phases 7 and 8 launched the forward and backward
    kernels is held against the plain version as in phase 6, so no shape
    that trained went unchecked at the kernel's own level.
+After phase 5, on the flagship of phase 4, the TTS pipeline (pipeline_phase):
+5p. TTSPipeline with WavTokenizerConfig() (the 320_24k codec at full width,
+   73,784,690 parameters, random weights from seed 11, f32, TF32 off):
+   (a) tokenize_audio turns 2 s of seeded noise at 24 kHz, b8, into 150
+   prompt frames; the latents are held against the same module on the CPU
+   (TOL_CODEC of their own max|ref|) and the codes must be equal but where
+   the CPU's two scores are closer than the latents' difference can move
+   them; (b) synthesize at b8 with those prompts (max_seqlen 200) and at b1
+   without one (max_seqlen 100), top-k 100: launch counts 25 gla_chunk_conv and 25
+   gla_decode_conv a decoded step, every waveform finite, non-zero and
+   frames x 320 long, the wall ms and seconds of speech a second of each
+   run and the share of it that vocoding takes; (c) every row's waveform
+   and one row's backbone output against the CPU's on the same codes, and
+   a control decode of that row with TF32 on that must miss TOL_CODEC;
+   (d) stream_synthesize through a one-slot server (a 150-frame prompt:
+   later prefill chunks on gla_chunk), its chunks equal to vocode_streaming
+   on the final codes it returns; (e) device ms of the vocoder at b1 x 750
+   and b8 x 200 frames beside its f32 bound, and of the encoder at b1 x
+   3 s. Each step prints its seconds, and the phase its total.
 Between phases 5 and 6, on the flagship of phase 4, quantized serving:
 5a. quantized kernel phase: int8_linear (both modes) at m 1, 8, 64 and 128
    for every (K, N) of the flagship's quantized layers, fused_ffn_int8 at m
@@ -234,6 +253,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 from collections import Counter
 import os
 import re
@@ -2053,6 +2073,258 @@ def serving_paths_check(torch, np, gla_cuda, model, requests):
 
 
 # ------------------------------------------------------- quantized serving
+# the pipeline phase: the flagship and the 320_24k codec, from text to waveform
+PIPE_TEXT = "the quick brown fox jumps over the lazy dog"
+PIPE_PROMPT_SECONDS, PIPE_CODEC_SEED = 2, 11
+PIPE_B1_SEQLEN = 100  # synthesize at b1 without a prompt: 99 decoded steps
+# The codec on the card against the same module on the CPU, both f32 with
+# TF32 off, each tensor to a share of its own max|ref| with no floor: the
+# summation orders of cuDNN's and cuBLAS's f32 kernels differ from the CPU's
+# by f32 rounding, and the waveform takes it through 4 + 12 blocks, the
+# exponential of the magnitudes and the phases' cos and sin. An H100 read at
+# most 3.9e-6 on the waveforms and 3.1e-6 on the latents; a decode with TF32
+# on must miss it (the control in pipeline_phase).
+TOL_CODEC = 1e-4
+VOCODE_SHAPES = ((1, 750), (8, 200))  # (b, frames) timed: 10 s of speech; b8 x 200
+ENCODE_SECONDS = 3
+
+
+def vocoder_flops(cfg, b, frames) -> int:
+    """Multiply-adds x 2 of ``codes_to_audio`` on (b, frames): the embed
+    conv, the pos_net's convs, attention and projections, the ConvNeXt
+    blocks, the head's Linear, and the inverse real FFT of each frame at
+    the usual 2.5 n log2 n operations."""
+    d, f = cfg.backbone_dim, cfg.backbone_intermediate_dim
+    per_frame = (cfg.latent_dim * d * 7 + 4 * 2 * d * d * 3 + 4 * d * d + 2 * d * frames
+                 + cfg.backbone_layers * (d * 7 + 2 * d * f) + d * (cfg.n_fft + 2))
+    irfft = 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
+    return int(b * frames * (2 * per_frame + irfft))
+
+
+def hold_codes(card_codes, cpu_codes, card_latents, cpu_latents, codebook):
+    """Codes of the card equal the CPU's, except where the CPU's score of
+    its own pick and of the card's are closer than the latents' difference
+    can move them: |2 (x' - x).(e_cpu - e_card)| <= 2 |x' - x| |e_cpu - e_card|,
+    plus the f32 rounding of the scores themselves."""
+    diff = (card_codes.cpu() != cpu_codes).nonzero().tolist()
+    worst = 0.0
+    e = codebook.detach().double()
+    for q, b, t in diff:
+        x, x_card = cpu_latents[b, t].double(), card_latents[b, t].cpu().double()
+        e_cpu, e_card = e[cpu_codes[q, b, t]], e[card_codes[q, b, t]]
+        score = lambda v: 2.0 * x @ v - v @ v
+        gap = float(score(e_cpu) - score(e_card))
+        room = 2.0 * float((x_card - x).norm() * (e_cpu - e_card).norm()) \
+            + 1e-5 * max(1.0, abs(float(score(e_cpu))))
+        worst = max(worst, gap / room)
+        require(gap <= room, f"code ({q}, {b}, {t}): the CPU's pick leads the card's by {gap}, "
+                             f"more than the latents' difference allows ({room})")
+    print(f"  codes: {card_codes.numel() - len(diff)} of {card_codes.numel()} equal; "
+          f"{len(diff)} near-ties, worst gap / allowed {worst:.3f}")
+
+
+def drain(gen):
+    """The items a generator yields, and the value it returns."""
+    items = []
+    while True:
+        try:
+            items.append(next(gen))
+        except StopIteration as stop:
+            return items, stop.value
+
+
+def pipeline_phase(torch, np, model, cfg, card_line):
+    """TTSPipeline at full width: the flagship (the generate phase's model)
+    and WavTokenizerConfig() (random weights, f32). (a) a prompt encoded on
+    the card and on the CPU; (b) synthesize at b8 with those prompts and at
+    b1 without one, launch counts checked, wall ms and seconds of speech a
+    second; (c) the card's vocoder against the CPU's on (b)'s codes, and a
+    TF32 control that must miss TOL_CODEC; (d) stream_synthesize through a
+    one-slot server against vocode_streaming on the final codes it returns;
+    (e) device ms of the vocoder and the encoder. Each step prints its
+    seconds. Returns the launch counts of (b) and (d)."""
+    import copy
+
+    from lina_speech_tpu_torch.codec.vq import vq_encode
+    from lina_speech_tpu_torch.codec.wavtokenizer import (
+        WavTokenizerConfig, build_wavtokenizer, vocode_streaming)
+    from lina_speech_tpu_torch.data.tokenizer import TextTokenizer
+    from lina_speech_tpu_torch.generate import cut_outputs
+    from lina_speech_tpu_torch.pipeline import TTSPipeline, undelay_stream
+    from lina_speech_tpu_torch.serving import _pow2_chunks
+
+    started = time.perf_counter()
+    last = [started]
+
+    def step_took(step):
+        now = time.perf_counter()
+        print(f"  ({step}) took {now - last[0]:.1f} s")
+        last[0] = now
+
+    wcfg = WavTokenizerConfig()
+    wavtok = build_wavtokenizer(wcfg, seed=PIPE_CODEC_SEED)
+    cpu_codec = copy.deepcopy(wavtok).cpu()
+    n_params = sum(p.numel() for p in wavtok.parameters())
+    print(f"pipeline phase: lina_gla_169m and WavTokenizerConfig() ({n_params:,} parameters, "
+          f"hop {wcfg.hop_length}, {wcfg.bins} bins, f32) on {wavtok.device}")
+    pipe = TTSPipeline(model, wavtok, TextTokenizer())
+    hop, rate = wcfg.hop_length, wcfg.sample_rate
+    total = dict.fromkeys(read_counts(), 0)
+
+    # (a) a prompt: 2 s of seeded noise at 24 kHz, b8 -> 150 frames
+    rng = np.random.default_rng(PIPE_CODEC_SEED)
+    audio = (0.1 * rng.normal(size=(BATCH, PIPE_PROMPT_SECONDS * rate))).astype(np.float32)
+    prompt = pipe.tokenize_audio(audio)
+    frames = PIPE_PROMPT_SECONDS * rate // hop
+    require(tuple(prompt.shape) == (1, BATCH, frames), f"prompt codes {tuple(prompt.shape)}")
+    with torch.no_grad():
+        card_latents = wavtok.encoder(torch.from_numpy(audio).to(DEVICE))
+        cpu_latents = cpu_codec.encoder(torch.from_numpy(audio))
+        cpu_codes = vq_encode(cpu_latents, cpu_codec.quantizer, wcfg.n_q)
+    print(f"(a) tokenize_audio: b{BATCH} x {PIPE_PROMPT_SECONDS} s -> codes {tuple(prompt.shape)}; "
+          f"card vs CPU (f32):")
+    check("latents", max_err(card_latents.cpu(), cpu_latents),
+          TOL_CODEC * float(cpu_latents.abs().max()))
+    hold_codes(prompt, cpu_codes, card_latents, cpu_latents,
+               cpu_codec.quantizer.embed[0])
+    step_took("a")
+
+    # (b) synthesize: b8 with the prompts, b1 without one. The wall is the
+    # first run's: every row's length is new to the codec, as a server's are.
+    runs = {}
+    for b, codes, seqlen in ((BATCH, prompt, MAX_SEQLEN), (1, None, PIPE_B1_SEQLEN)):
+        gen = torch.Generator(device=DEVICE).manual_seed(b)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        waves, res = pipe.synthesize(PIPE_TEXT, gen, batch_size=b, prompt_codes=codes,
+                                     max_seqlen=seqlen)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        n_pre = 1 + (0 if codes is None else frames)
+        what = "no prompt" if codes is None else f"{frames}-frame prompts"
+        speech = sum(w.size for w in waves) / rate
+        print(f"(b) synthesize b{b} ({what}, max_seqlen {seqlen}): {res.n_steps} steps, "
+              f"{wall * 1e3:.1f} ms wall, {speech:.3f} s of speech, {speech / wall:.3f} s of "
+              f"speech a second [{card_line}]")
+        print(f"  launches: {launches}")
+        expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS,
+                        gla_decode_conv=N_GLA_LAYERS * (res.n_steps - n_pre))
+        add_launches(total, launches)
+        cut = [c for c, _ in cut_outputs(res, cfg.n_quant)]
+        for i, (wav, c) in enumerate(zip(waves, cut)):
+            n = c.shape[-1]
+            require(n > 0 and wav.shape == (n * hop,), f"row {i}: {wav.shape} for {n} frames")
+            require(bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 0,
+                    f"row {i}: waveform not finite or all zero")
+        print(f"  frames per row {[c.shape[-1] for c in cut]}; every waveform finite, non-zero, "
+              f"frames x {hop} long")
+        # the same rows vocoded again alone, at lengths the codec has now seen
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for c in cut:
+                wavtok.codes_to_audio(torch.from_numpy(c).to(DEVICE))[0].cpu()
+        vocode = time.perf_counter() - t0
+        decoded = res.n_steps - n_pre
+        print(f"  vocoding its {b} rows again one by one: {vocode * 1e3:.1f} ms; the rest "
+              f"(text, generate_batch, the cut, the codec's first calls at these lengths) "
+              f"{(wall - vocode) * 1e3:.1f} ms, {(wall - vocode) * 1e3 / max(decoded, 1):.2f} ms "
+              f"a decoded step ({decoded})")
+        runs[b] = (waves, cut)
+    step_took("b")
+
+    # (c) the card's vocoder against the CPU's on (b)'s codes; row 0 of b8
+    # also by its backbone output, and decoded once more with TF32 on as a
+    # control the tolerance must catch
+    print("(c) codes_to_audio on (b)'s codes, card vs CPU (f32, each tensor to its own max|ref|):")
+    worst, n_rows = 0.0, 0
+    for b, (waves, cut) in runs.items():
+        for i, c in enumerate(cut):
+            with torch.no_grad():
+                feats_ref = cpu_codec.backbone(cpu_codec.codes_to_features(torch.from_numpy(c)))
+                ref = cpu_codec.head(feats_ref)[0].numpy()
+            err = float(np.abs(waves[i] - ref).max())
+            scale = float(np.abs(ref).max())
+            worst, n_rows = max(worst, err / scale), n_rows + 1
+            require(err <= TOL_CODEC * scale,
+                    f"b{b} row {i}: waveform {err} > {TOL_CODEC} x {scale}")
+            if (b, i) == (BATCH, 0):
+                codes0, ref0, scale0, feats_ref0 = torch.from_numpy(c).to(DEVICE), ref, scale, \
+                    feats_ref
+    with torch.no_grad():
+        feats = wavtok.backbone(wavtok.codes_to_features(codes0))
+    check("b8 row 0 backbone output", max_err(feats.cpu(), feats_ref0),
+          TOL_CODEC * float(feats_ref0.abs().max()))
+    print(f"  waveforms of {n_rows} rows: worst max_abs_err / max|ref| {worst:.3e} "
+          f"(tolerance {TOL_CODEC:.0e})")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    with torch.no_grad():
+        tf32 = wavtok.codes_to_audio(codes0)[0].cpu().numpy()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    miss = float(np.abs(tf32 - ref0).max()) / scale0
+    print(f"  control: b8 row 0 decoded on the card with TF32 on: {miss:.3e} of max|ref| "
+          f"(must exceed the tolerance {TOL_CODEC:.0e})")
+    require(miss > TOL_CODEC, f"TOL_CODEC {TOL_CODEC} passes a TF32 decode ({miss})")
+    step_took("c")
+
+    # (d) streaming through a one-slot server, against vocode_streaming on
+    # the final codes of that run
+    prompt0 = prompt[:, 0].cpu().numpy()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    chunks, done = drain(pipe.stream_synthesize(PIPE_TEXT, max_seqlen=MAX_SEQLEN,
+                                                prompt_codes=prompt0))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_forced = 1 + prompt0.shape[1]
+    n_chunks = max(0, -(-(done.length - n_forced) // 16))
+    print(f"(d) stream_synthesize (one slot, window 60, context 64, chunk 16): {len(chunks)} "
+          f"chunks, {wall * 1e3:.1f} ms wall [{card_line}]; launches {launches}")
+    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS,
+                    gla_chunk=N_GLA_LAYERS * (len(_pow2_chunks(n_forced)) - 1),
+                    gla_decode_conv=N_GLA_LAYERS * 16 * n_chunks)
+    add_launches(total, launches)
+    final = undelay_stream(done.tokens, cfg.n_quant, stopped=done.stopped)
+    want = torch.cat(list(vocode_streaming(wavtok, torch.from_numpy(final)[:, None].to(DEVICE))),
+                     dim=-1).cpu().numpy()
+    stream = np.concatenate(chunks, axis=-1)
+    require(stream.shape == want.shape == (1, final.shape[1] * hop),
+            f"stream {stream.shape}, vocode_streaming {want.shape}")
+    require(np.array_equal(stream, want),
+            f"stream differs from vocode_streaming by {np.abs(stream - want).max()}")
+    print(f"  {final.shape[1]} frames: the chunks equal vocode_streaming on the final codes")
+    step_took("d")
+
+    # (e) device times
+    print(f"(e) times [{card_line}]:")
+    with torch.no_grad():
+        for b, n in VOCODE_SHAPES:
+            codes = torch.from_numpy(rng.integers(0, wcfg.bins, size=(1, b, n))).to(DEVICE)
+            ms = device_ms(lambda: wavtok.codes_to_audio(codes), 10)
+            eager = eager_ms(lambda: wavtok.codes_to_audio(codes), 10)
+            flops = vocoder_flops(wcfg, b, n)
+            print(f"  vocoder codes_to_audio b{b} x {n} frames ({b * n * hop / rate:.2f} s of "
+                  f"speech): device {ms:.3f} ms (CUDA graph), eager {eager:.3f} ms; "
+                  f"{flops / 1e9:.1f} GFLOP, bound {flops / PEAK_F32 * 1e3:.3f} ms by f32 operations, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s [{card_line}]")
+        codes = torch.from_numpy(rng.integers(0, wcfg.bins, size=(1, 1, 750))).to(DEVICE)
+        profiled(torch, lambda: [wavtok.codes_to_audio(codes) for _ in range(3)],
+                 "codes_to_audio b1 x 750 frames, 3 calls", top=10)
+        x = torch.from_numpy(rng.normal(size=(1, ENCODE_SECONDS * rate)).astype(np.float32) * 0.1)
+        x = x.to(DEVICE)
+        ms = device_ms(lambda: wavtok.encode(x), 10)
+        eager = eager_ms(lambda: wavtok.encode(x), 10)
+        print(f"  encoder encode b1 x {ENCODE_SECONDS} s: device {ms:.3f} ms (CUDA graph), "
+              f"eager {eager:.3f} ms [{card_line}]")
+    step_took("e")
+    print(f"pipeline phase took {time.perf_counter() - started:.1f} s")
+    del wavtok, cpu_codec
+    torch.cuda.empty_cache()
+    return total
+
+
 def quantized_weight(torch, n, k, seed):
     """A random (n, k) bf16 weight quantized as the model's are: (packed int8
     (n, kp), scales (n,), int8 (n, k), the weight dequantized to bf16)."""
@@ -5356,6 +5628,7 @@ def main():
     decode_route_sweep(torch, gla_cuda, card_line)
     model, cfg, launches = generate_phase(torch, np, gla_cuda, card_line)
     add_launches(launches, serving_phase(torch, np, gla_cuda, model, cfg, card_line))
+    add_launches(launches, pipeline_phase(torch, np, model, cfg, card_line))
     quant_linear_kernel_phase(torch, summary)
     quant_lazy_kernel_phase(torch, gla_cuda, summary)
     add_launches(launches, quant_generate_phase(torch, np, model, cfg, card_line))

@@ -8,5 +8,7 @@ continuous-batching DecodeServer of serving.py, the train step of
 train/harness.py and the initial-state tuning of train/initial_state.py,
 on batches from data/) with hand-written CUDA kernels for the GLA kernels of
 those paths, the backward of the conv-fused prefill among them
-(ops/gla_cuda.py, csrc/).
+(ops/gla_cuda.py, csrc/); and the last leg from codes to sound: the
+WavTokenizer codec (codec/: the Vocos backbone and ISTFT head, the SEANet
+encoder and VQ) and the text-to-waveform TTSPipeline of pipeline.py.
 """

@@ -24,6 +24,12 @@ raw parameters ``x_maa``, ``maa``, ``maa_w1``, ``maa_w2``, ``decay_w1``,
 ``cross_att_<i>`` (CrossAttGLA and CrossAttMamba), CrossAttentionPP's
 ``ca_0``, ``ca_1`` and ``inter_net`` (its ``pos_emb`` table maps like an
 embedding).
+
+The WavTokenizer codec has a bridge of its own (the key map of
+``lina_speech_tpu/utils/convert_wavtokenizer.py`` run both ways):
+:func:`wavtokenizer_state_dict_from_jax` and its inverse, and
+:func:`load_wavtokenizer_state_dict` for a reference checkpoint, with its
+weight-normed convs folded.
 """
 from __future__ import annotations
 
@@ -271,3 +277,221 @@ def tuning_params_to_arrays(params):
     structure) -> the same list with numpy arrays."""
     leaf = lambda t: t.detach().float().cpu().numpy()
     return [tuple(leaf(t) for t in p) if isinstance(p, tuple) else leaf(p) for p in params]
+
+
+# ------------------------------------------------------------ WavTokenizer
+# The JAX WavTokenizer's params <-> the port's state_dict, which carries the
+# reference checkpoint's names: the key map of
+# lina_speech_tpu/utils/convert_wavtokenizer.py:42-158 run both ways. Kinds:
+# "conv" lax HIO (k, in, out) <-> Conv1d (out, in, k); "convtr" HIO <->
+# ConvTranspose1d (in, out, k) with the taps reversed (lax.conv_transpose
+# does not flip its kernel, torch's transposed conv does); "dense" flax
+# (in, out) <-> (out, in), also the LSTM's (in, 4H) <-> (4H, in); "plain"
+# as is (norm scales become ``weight``).
+_ENCODER = "feature_extractor.encodec.encoder.model."
+_CODEBOOK = "feature_extractor.encodec.quantizer.vq.layers.{}._codebook.embed"
+
+
+def _seanet_pairs(n_ratios: int, n_residual_layers: int = 1, lstm: int = 2,
+                  decoder: bool = False):
+    """(JAX path under the SEANet module, key under its ``model``
+    Sequential, kind) for every parameter of a SEANet encoder / decoder."""
+    pairs = []
+
+    def conv(jax_name, key, kind="conv"):
+        sub = "convtr.convtr" if kind == "convtr" else "conv.conv"
+        pairs.extend([(f"{jax_name}/kernel", f"{key}.{sub}.weight", kind),
+                      (f"{jax_name}/bias", f"{key}.{sub}.bias", "plain")])
+
+    def res_blocks(i, idx):
+        for j in range(n_residual_layers):
+            for name, sub in (("conv1", "block.1"), ("conv2", "block.3"),
+                              ("shortcut", "shortcut")):
+                conv(f"res_{i}_{j}/{name}", f"{idx + j}.{sub}")
+
+    def lstm_layers(idx):
+        for n in range(lstm):
+            for w in ("ih", "hh"):
+                pairs.extend([(f"lstm/w_{w}_{n}", f"{idx}.lstm.weight_{w}_l{n}", "dense"),
+                              (f"lstm/b_{w}_{n}", f"{idx}.lstm.bias_{w}_l{n}", "plain")])
+
+    conv("conv_in", 0)
+    idx = 1
+    if decoder:  # [conv_in, LSTM, (ELU, up, res blocks) per ratio, ELU, conv_out]
+        if lstm:
+            lstm_layers(idx)
+            idx += 1
+        for i in range(n_ratios):
+            conv(f"up_{i}", idx + 1, "convtr")
+            res_blocks(i, idx + 2)
+            idx += 2 + n_residual_layers
+    else:  # [conv_in, (res blocks, ELU, down) per ratio, LSTM, ELU, conv_out]
+        for i in range(n_ratios):
+            res_blocks(i, idx)
+            conv(f"down_{i}", idx + n_residual_layers + 1)
+            idx += n_residual_layers + 2
+        if lstm:
+            lstm_layers(idx)
+            idx += 1
+    conv("conv_out", idx + 1)
+    return pairs
+
+
+def _vocos_pairs(num_layers: int):
+    """(JAX path under the VocosBackbone, key under it, kind)."""
+    pairs = []
+
+    def conv(jax_name, key):
+        pairs.extend([(f"{jax_name}/kernel", f"{key}.weight", "conv"),
+                      (f"{jax_name}/bias", f"{key}.bias", "plain")])
+
+    def norm(jax_name, key):
+        pairs.extend([(f"{jax_name}/scale", f"{key}.weight", "plain"),
+                      (f"{jax_name}/bias", f"{key}.bias", "plain")])
+
+    conv("embed", "embed")
+    for i in (0, 1, 3, 4):
+        for sub in ("norm1", "conv1", "norm2", "conv2"):
+            (norm if sub.startswith("norm") else conv)(f"pos_net_{i}/{sub}", f"pos_net.{i}.{sub}")
+    norm("pos_net_2/norm", "pos_net.2.norm")
+    for sub in ("q", "k", "v", "proj_out"):
+        conv(f"pos_net_2/{sub}", f"pos_net.2.{sub}")
+    norm("pos_net_5", "pos_net.5")
+    norm("norm", "norm")
+    for i in range(num_layers):
+        conv(f"convnext_{i}/dwconv", f"convnext.{i}.dwconv")
+        norm(f"convnext_{i}/norm", f"convnext.{i}.norm")
+        for sub in ("pwconv1", "pwconv2"):
+            pairs.extend([(f"convnext_{i}/{sub}/kernel", f"convnext.{i}.{sub}.weight", "dense"),
+                          (f"convnext_{i}/{sub}/bias", f"convnext.{i}.{sub}.bias", "plain")])
+        pairs.append((f"convnext_{i}/gamma", f"convnext.{i}.gamma", "plain"))
+    norm("final_layer_norm", "final_layer_norm")
+    return pairs
+
+
+def _wavtokenizer_pairs(n_ratios: int, n_q: int, num_layers: int):
+    """Every parameter of a WavTokenizer with ``n_ratios`` downsampling
+    stages, ``n_q`` codebooks and ``num_layers`` ConvNeXt blocks: (JAX path,
+    state_dict key, kind); the codebook's layers as ``codebook/{i}``."""
+    return ([(f"encoder/{p}", _ENCODER + k, kind) for p, k, kind in _seanet_pairs(n_ratios)]
+            + [(f"codebook/{i}", _CODEBOOK.format(i), "plain") for i in range(n_q)]
+            + [(f"backbone/{p}", f"backbone.{k}", kind) for p, k, kind in _vocos_pairs(num_layers)]
+            + [("head/out/kernel", "head.out.weight", "dense"),
+               ("head/out/bias", "head.out.bias", "plain")])
+
+
+def _jax_to_torch_layout(v: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return v.transpose(2, 1, 0)
+    if kind == "convtr":
+        return v.transpose(1, 2, 0)[..., ::-1]
+    return v.T if kind == "dense" else v
+
+
+def _torch_to_jax_layout(v: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return v.transpose(2, 1, 0)
+    if kind == "convtr":
+        return v[..., ::-1].transpose(2, 0, 1)
+    return v.T if kind == "dense" else v
+
+
+def _pairs_from_jax(flat: Dict[str, np.ndarray], pairs) -> Dict[str, torch.Tensor]:
+    """Flat JAX params (slash paths) -> state_dict by ``pairs``; every
+    param must be named by exactly one pair."""
+    want = {p for p, _, _ in pairs}
+    if set(flat) != want:
+        raise KeyError(f"JAX params without a pair: {sorted(set(flat) - want)[:8]}; "
+                       f"pairs without a param: {sorted(want - set(flat))[:8]}")
+    return {key: torch.tensor(np.ascontiguousarray(
+        _jax_to_torch_layout(np.asarray(flat[path], np.float32), kind)))
+        for path, key, kind in pairs}
+
+
+def _pairs_to_jax(state_dict, pairs) -> Dict[str, np.ndarray]:
+    """state_dict -> flat JAX params (slash paths) by ``pairs``; every key
+    must be named by exactly one pair."""
+    want = {k for _, k, _ in pairs}
+    if set(state_dict) != want:
+        raise KeyError(f"keys without a pair: {sorted(set(state_dict) - want)[:8]}; "
+                       f"pairs without a key: {sorted(want - set(state_dict))[:8]}")
+    return {path: np.ascontiguousarray(_torch_to_jax_layout(
+        torch.as_tensor(state_dict[key]).detach().float().cpu().numpy(), kind))
+        for path, key, kind in pairs}
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _count(keys, pattern: str) -> int:
+    """Distinct values of ``pattern``'s group over ``keys``."""
+    return len({m.group(1) for k in keys if (m := re.match(pattern, k))})
+
+
+def wavtokenizer_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's WavTokenizer params (nested, with or without the
+    ``params`` root; values numpy or anything ``np.asarray`` takes) -> the
+    port's state_dict (CPU f32 tensors, reference key names). The depth
+    (downsampling stages, ConvNeXt blocks, codebooks) is read off the
+    params."""
+    flat = {re.sub(r"^params/", "", k): np.asarray(v) for k, v in _flatten(params).items()}
+    codebook = flat.pop("codebook")
+    flat.update({f"codebook/{i}": c for i, c in enumerate(codebook)})
+    pairs = _wavtokenizer_pairs(_count(flat, r"encoder/down_(\d+)/"), len(codebook),
+                                _count(flat, r"backbone/convnext_(\d+)/"))
+    return _pairs_from_jax(flat, pairs)
+
+
+def wavtokenizer_state_dict_to_jax(state_dict) -> dict:
+    """Inverse of :func:`wavtokenizer_state_dict_from_jax`: the port's
+    state_dict -> ``{"params": ...}`` numpy tree of the JAX WavTokenizer."""
+    n_q = _count(state_dict, r"feature_extractor\.encodec\.quantizer\.vq\.layers\.(\d+)\.")
+    # the encoder's plain convs: conv_in, one down conv a stage, conv_out
+    n_ratios = _count(state_dict, re.escape(_ENCODER) + r"(\d+)\.conv\.conv\.weight$") - 2
+    pairs = _wavtokenizer_pairs(n_ratios, n_q, _count(state_dict, r"backbone\.convnext\.(\d+)\."))
+    flat = _pairs_to_jax(state_dict, pairs)
+    flat["codebook"] = np.stack([flat.pop(f"codebook/{i}") for i in range(n_q)])
+    return {"params": _nest(flat)}
+
+
+def fold_weight_norm(weight_g: np.ndarray, weight_v: np.ndarray) -> np.ndarray:
+    """Fold torch weight_norm (g, v) into a plain weight: w = g v / ||v||,
+    the norm over every dim but the first (torch's default)."""
+    v, g = np.asarray(weight_v), np.asarray(weight_g)
+    norm = np.sqrt((v ** 2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+    return g * v / norm
+
+
+# the VQ's EMA statistics: codec training state (ROADMAP.md Queue 1 item 10)
+_VQ_TRAINING = re.compile(r"\._codebook\.(inited|cluster_size|embed_avg)$")
+
+
+def load_wavtokenizer_state_dict(wavtok: torch.nn.Module, state_dict):
+    """Load a reference WavTokenizer checkpoint's state_dict (tensors or
+    arrays, no Lightning ``state_dict`` wrapper) into the port's codec.
+
+    Weight-normed convs (``weight_g`` / ``weight_v``) are folded into
+    ``weight`` (:func:`fold_weight_norm`). Keys of modules the port does not
+    have (the EnCodec decoder, the discriminators and losses, the ISTFT's
+    window buffer) and the VQ's EMA statistics are not read; everything else
+    loads with ``load_state_dict(strict=True)``, so a missing or unknown
+    leaf of a ported module raises.
+    """
+    sd = {k: np.asarray(v.detach().float().cpu() if isinstance(v, torch.Tensor) else v)
+          for k, v in state_dict.items()}
+    for key in [k for k in sd if k.endswith(".weight_g")]:
+        base = key[:-len("_g")]
+        sd[base] = fold_weight_norm(sd.pop(key), sd.pop(base + "_v"))
+    modules = dict(wavtok.named_modules())
+    keep = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()
+            if k.rpartition(".")[0] in modules and not _VQ_TRAINING.search(k)}
+    wavtok.load_state_dict(keep, strict=True)
+    return wavtok

@@ -1966,3 +1966,30 @@ def test_mamba_kernel_path_matches_plain_path(cuda):
     for name, r in grads["chunk"].items():
         err = float((grads["auto"][name] - r).abs().max())
         assert err <= 1e-3 * float(r.abs().max()) + 1e-6, name
+
+
+TOL_CODEC = 1e-4  # f32 with TF32 off; each tensor to its own max|ref|, as chip_smoke.py
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ratios=(4, 2), n_filters=2, latent_dim=16, bins=32, backbone_dim=32,
+         backbone_intermediate_dim=64, backbone_layers=1, n_fft=16, hop_length=8),
+    dict(backbone_layers=2)], ids=["tiny", "flagship_widths"])
+def test_codec_on_cuda_matches_cpu(cuda, kw):
+    """``build_wavtokenizer`` with no device builds on the card; its
+    encode and codes_to_audio there match the same module on the CPU."""
+    from lina_speech_tpu_torch.codec.wavtokenizer import WavTokenizerConfig, build_wavtokenizer
+
+    cfg = WavTokenizerConfig(**kw)
+    card = build_wavtokenizer(cfg, seed=5)
+    assert card.device.type == "cuda" and all(p.is_cuda for p in card.parameters())
+    cpu = build_wavtokenizer(cfg, device="cpu", seed=5)
+    g = torch.Generator().manual_seed(0)
+    codes = torch.randint(0, cfg.bins, (1, 2, 40), generator=g)
+    audio = torch.randn(2, 6 * cfg.hop, generator=g) * 0.1
+    with torch.no_grad():
+        wav, ref = card.codes_to_audio(codes.to(cuda)).cpu(), cpu.codes_to_audio(codes)
+        lat, lat_ref = card.encoder(audio.to(cuda)).cpu(), cpu.encoder(audio)
+    for out, r in ((wav, ref), (lat, lat_ref)):
+        assert out.shape == r.shape and bool(torch.isfinite(out).all())
+        assert float((out - r).abs().max()) <= TOL_CODEC * float(r.abs().max())

@@ -10,8 +10,10 @@ train step of the simple-GLA (no convs), Mamba-2, RWKV6 and Mamba (v1,
 blind and interleaved) backbones (``models/simple_gla.py``,
 ``models/mamba.py`` with ``AttentiveMamba``, ``CrossAttMamba``,
 ``ops/mamba.py`` and ``ops/mamba_cuda.py``, ``models/rwkv6.py`` with
-``ops/rwkv6.py`` and ``ops/rwkv6_cuda.py``); it then checks that no
-jax/flax module and nothing of ``lina_speech_tpu`` was loaded.
+``ops/rwkv6.py`` and ``ops/rwkv6_cuda.py``), and the TTS pipeline on a tiny
+codec (``codec/``, ``pipeline.py``: ``tokenize_audio``, ``synthesize``
+with a prompt, ``stream_synthesize``); it then checks that no jax/flax
+module and nothing of ``lina_speech_tpu`` was loaded.
 """
 import os
 import subprocess
@@ -92,6 +94,21 @@ for kw, cls in ((dict(kind="simple_gla", use_short_conv=False), None),
     state = create_train_state(variant, TrainConfig(n_warmup_steps=1, n_training_steps=4))
     state, metrics = make_train_step(variant)(state, batch)
     assert state.step == 1 and float(metrics["grad_norm"]) > 0
+# the TTS pipeline: the codec's encoder for a prompt, synthesis, streaming
+from lina_speech_tpu_torch.codec.wavtokenizer import WavTokenizerConfig, build_wavtokenizer
+from lina_speech_tpu_torch.data.tokenizer import TextTokenizer
+from lina_speech_tpu_torch.pipeline import TTSPipeline
+wavtok = build_wavtokenizer(WavTokenizerConfig(
+    ratios=(4, 2), n_filters=2, latent_dim=16, bins=32, backbone_dim=32,
+    backbone_intermediate_dim=64, backbone_layers=1, n_fft=16, hop_length=8), device="cpu")
+pipe = TTSPipeline(build_model(lina_gla_tiny(n_codebook=32), device="cpu"), wavtok,
+                   TextTokenizer())
+codes = pipe.tokenize_audio(torch.randn(1, 40))
+assert codes.shape == (1, 1, 5)
+waves, res = pipe.synthesize("hi", prompt_codes=codes, max_seqlen=12, k=1)
+assert waves[0].ndim == 1 and res.tokens.shape == (1, 1, 12)
+assert sum(c.shape[-1] for c in pipe.stream_synthesize(
+    "hi", max_seqlen=12, k=1, window=4, context=2, chunk=4)) % 8 == 0
 assert not any(m.split(".")[0] == "lina_speech_tpu" for m in sys.modules)
 post = {m for m in sys.modules
         if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None}
@@ -111,8 +128,8 @@ def test_port_imports_no_jax():
 def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
     ``models/mamba.py``, ``models/simple_gla.py``, the RWKV6 modules,
-    ``ops/mamba.py``, ``ops/mamba_cuda.py`` and ``utils/int8_timeline.py``
-    among them),
+    ``ops/mamba.py``, ``ops/mamba_cuda.py``, ``utils/int8_timeline.py``,
+    the codec and ``pipeline.py`` among them),
     ``chip_smoke.py`` and the port's examples, read as source:
     no import statement names jax, flax or the JAX package."""
     import ast
@@ -130,7 +147,11 @@ def test_sources_import_no_jax():
                  "lina_speech_tpu_torch/ops/rwkv6_cuda.py",
                  "lina_speech_tpu_torch/ops/mamba.py", "lina_speech_tpu_torch/ops/mamba_cuda.py",
                  "lina_speech_tpu_torch/utils/int8_timeline.py",
-                 "chip_smoke.py", "examples/serve_torch.py"):
+                 *(f"lina_speech_tpu_torch/codec/{m}.py" for m in (
+                     "__init__", "spectral", "mdct", "heads", "vocos", "vq", "seanet",
+                     "wavtokenizer")),
+                 "lina_speech_tpu_torch/pipeline.py", "examples/synthesize_torch.py",
+                 "examples/stream_torch.py", "chip_smoke.py", "examples/serve_torch.py"):
         assert must in names, must
     banned = ("jax", "flax", "lina_speech_tpu")
     for path in files:
