@@ -43,7 +43,7 @@ Phases, in order; any failure raises and exits non-zero:
    16 decode steps are teacher-forced through the kernel path and the plain
    path, and their logits and times compared;
 5. serving phase: DecodeServer with 8 slots and chunks of 16 serves 12
-   requests (prompts of 150, 97, 33 and 0 codes, max_len 240-400, so slots
+   requests (prompts of 150, 97, 33 and 0 codes, max_len 168-232, so slots
    are recycled) in lazy mode, then 8 requests in classic mode, one
    run(max_chunks=1) call at a time; completions, prefill chunk sizes (each
    one a shape the kernel phase checked) and launch counts are checked, the
@@ -227,6 +227,39 @@ then Mamba (v1):
    on both routes for launches x (time - bound), a chunked launch also a
    segment either side of its chunk length, each also had every launch
    taken one chunk (mamba_gap_phase).
+After the interleaved and PP backbones (phase 10), the last two model kinds:
+15. CFG and speaker-encoder phase (cfg_spk_phase): the flagship with
+   mask_text_p=0.1 and SpeakerEncoderConfig() (dim_inner 256, 4 heads, 6
+   layers, window 256), bf16 compute and state: generate_batch(cfg_coef=3.0)
+   at b4 with 150-code prompts, greedy, 64 steps (the kernels at b8; 25
+   gla_chunk_conv and 25 gla_decode_conv a step); on a copy built in f32
+   compute: cfg_coef=1.0 against the unguided run token for token (32
+   steps), the doubled batch teacher-forced through the kernel path and the
+   plain path (teacher_forced_check), and the guided logits of two requests
+   (prefill and 16 steps, the speaker vector on the prompt) against the
+   same model on the CPU within TOL_F32 of max|ref|; a 4-slot DecodeServer(cfg_coef=3.0) over 4
+   requests (8 device rows) whose greedy tokens equal each request's
+   guided generate_batch with the speaker encoder set aside (the server
+   does not run it), launch counts, and every f32 shape it gave
+   gla_chunk_conv held against the plain version; TTSPipeline.synthesize(
+   cfg_coef=3.0) at b4 with the full-width codec, its wall and seconds of
+   speech a second;
+16. transformer phase (transformer_phase): kind="transformer" at d 1024,
+   12 blocks of 4 heads, cross-attention after block 6, the flagship's text
+   encoder, bf16 compute: its parameter count; generate_batch at b8 with
+   150-code prompts for 64 steps, wall and ms a token; a decode step's
+   eager ms and device profile, and the device ms of the fixed
+   2,048-position KV read beside its bound; teacher-forced logits (prefill and 16 steps) and KV caches of
+   a copy built in f32 compute against the CPU within TOL_F32;
+   weight_quant="int8" at b1 for 32 steps with its launch counts
+   (int8_linear: qkv and the cross-attention's q, k and v; fused_ffn_int8:
+   the 12 FFNs), every new int8 shape held; one f32 training forward and
+   backward at b2 t128 against the CPU (loss, every parameter gradient
+   within TOL_F32 of its own max, the softmax key-side biases masked) and
+   one optimizer step; two bf16 train steps at b8 t512, timed;
+   DecodeServer refusing the backbone (ValueError).
+Each phase called from main prints its seconds, and main prints them all
+before the summary.
 Each main-path run starts with the launch counts at 0 and reads them right
 after; every forward launch and every lazy step of a main path must have
 taken its planned route. After the GLA phases, every shape a main path
@@ -271,6 +304,10 @@ BATCH, MAX_SEQLEN, TOPK, TF_STEPS = 8, 200, 100, 16
 WINDOW = 16  # lazy window == serving chunk
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_CLASSIC_REQUESTS, MAX_TEXT_LEN = 8, 12, 8, 64
 SERVE_PROMPTS = (150, 97, 33, 0)
+# the requests' max_len: SERVE_MAX_LEN + 16 (i % 5), at least 17 tokens past
+# the longest prompt's 151 forced ones, short enough that every serving
+# phase keeps the script well inside its time limit
+SERVE_MAX_LEN = 168
 # chunk lengths at which the two prefill kernels are held against their plain
 # versions at b1; the serving phase fails if the server ran any other length
 CONV_CHUNK_T = (128, 64, 32, 1)
@@ -1888,7 +1925,7 @@ def serving_requests(np, cfg):
         p_len = SERVE_PROMPTS[i % len(SERVE_PROMPTS)]
         prompt = rng.integers(0, cfg.n_codebook, size=(cfg.n_quant, p_len)) if p_len else None
         requests.append((rng.integers(3, cfg.n_txt_vocab, size=TEXT_LEN), prompt,
-                         240 + 40 * (i % 5)))
+                         SERVE_MAX_LEN + 16 * (i % 5)))
     return requests
 
 
@@ -5595,6 +5632,473 @@ def sfu_rate(torch) -> float:
     return rate
 
 
+CFG_COEF, CFG_BATCH, CFG_STEPS, CFG_SLOTS = 3.0, 4, 64, 4
+# the f32 copy's checks: generate_batch for 32 steps, the guided logits
+# against the CPU on the first two requests
+CFG_F32_STEPS, CFG_CPU_ROWS = 32, 2
+TRANSFORMER_STEPS, TRANSFORMER_Q_STEPS, N_TRANSFORMER_BLOCKS = 64, 32, 12
+TRANSFORMER_TRAIN_T, TRANSFORMER_TIMED_T = 128, 512
+# the softmax transformer's decode: one int8 product for the qkv of each
+# block and three for the cross-attention's q, k and v; one fused FFN a block
+TRANSFORMER_INT8_LINEARS = N_TRANSFORMER_BLOCKS + 3
+
+
+def spk_encoder_params(d, dim_inner, n_layers) -> int:
+    """Parameters of SimpleSpeakerEncoder: in_proj and out_proj, and per
+    layer the qkv Linear, two LayerNorms and the SwiGLU (hidden 4/3 of
+    dim_inner), every Linear with its bias."""
+    hidden = dim_inner * 4 // 3
+    layer = (3 * dim_inner * dim_inner + 3 * dim_inner + 4 * dim_inner
+             + 2 * hidden * dim_inner + 2 * hidden + hidden * dim_inner + dim_inner)
+    return n_layers * layer + 2 * d * dim_inner + dim_inner + d
+
+
+def guided_teacher_forced(torch, model, text, prompt, tokens, n_steps):
+    """Classifier-free guided logits under teacher forcing, as
+    generate_batch computes them: the text and its all-mask rows encoded
+    together, the speaker vector on the prompt's first embedding, the
+    doubled prefill and ``n_steps`` steps that follow ``tokens``; each
+    prediction l_u + CFG_COEF (l_c - l_u). Returns (b, 1 + n_steps, q, l) in
+    f32 on the host."""
+    b, n_pre = text.shape[0], prompt.shape[-1] + 1
+    tile = lambda z: torch.cat([z, z], dim=0)
+    guide = lambda lg: (lg[b:] + CFG_COEF * (lg[:b] - lg[b:])).float().cpu()
+    dev = text.device
+    with torch.no_grad(), model.using_params(model.cast_param_copies()):
+        x_enc = model.encode_text(tile(text).masked_fill(
+            torch.arange(2 * b, device=dev)[:, None] >= b, model.n_txt_vocab - 1))
+        start = model.embed_tokens(torch.ones(1, b, 1, dtype=torch.long, device=dev))
+        p_in = model.embed_tokens(prompt + model.n_special_token_in)
+        p_in = torch.cat([model.spk_encoder(p_in)[:, None].to(p_in.dtype), p_in[:, 1:]], 1)
+        logits_pre, _, st = model.prefill(tile(torch.cat([start, p_in], 1)), x_enc,
+                                          model.empty_state(2 * b, dev))
+        out = [guide(logits_pre[:, -1])]
+        follow = tile(model.embed_tokens(tokens[:, :, n_pre:n_pre + n_steps]))
+        for i in range(n_steps):
+            lg, _, st = model.decode_step(follow[:, i], x_enc, st, time_step=n_pre + i)
+            out.append(guide(lg))
+    return torch.stack(out, 1)
+
+
+def hold_f32_conv_chunks(torch, gla_cuda, shapes):
+    """gla_chunk_conv with f32 IO (a model built in f32 compute) against its
+    plain version at each (b, t, initial-state dtype) of ``shapes``: o and
+    the final state within TOL_F32 of max(1, max|plain|)."""
+    for b, t, st in sorted(shapes, key=str):
+        x = kernel_inputs(torch, b, t, st, seed=900 + b + t)
+        args = [x[n].float() for n in ("xq", "xk", "xv")] + [x["gk"]] + [
+            x[n].float() for n in ("wq", "wk", "wv")]
+        o_k, s_k = gla_cuda.gla_chunk_conv(*args, initial_state=x["s0"])
+        o_p, s_p = gla_cuda.gla_chunk_conv_plain(*args, initial_state=x["s0"])
+        torch.cuda.synchronize()
+        print(f"gla_chunk_conv b{b} t{t} f32 IO, initial state {st}, kernel vs plain:")
+        check("o", max_err(o_k, o_p), bound(o_p, TOL_F32))
+        check("final state", max_err(s_k, s_p), bound(s_p, TOL_F32))
+
+
+def cfg_spk_phase(torch, np, gla_cuda, card_line):
+    """Classifier-free guidance and the speaker encoder on the flagship
+    (phase 15 of the module docstring). Returns the launch counts of its
+    main-path runs."""
+    import copy
+
+    from lina_speech_tpu_torch.codec.wavtokenizer import WavTokenizerConfig, build_wavtokenizer
+    from lina_speech_tpu_torch.config import SpeakerEncoderConfig, build_model, lina_gla_169m
+    from lina_speech_tpu_torch.data.tokenizer import TextTokenizer
+    from lina_speech_tpu_torch.generate import cut_outputs, generate_batch
+    from lina_speech_tpu_torch.pipeline import TTSPipeline
+    from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
+
+    started = time.perf_counter()
+    last = [started]
+
+    def step_took(step):
+        now = time.perf_counter()
+        print(f"  ({step}) took {now - last[0]:.1f} s")
+        last[0] = now
+
+    cfg = lina_gla_169m(compute_dtype="bfloat16", mask_text_p=0.1,
+                        spk_encoder=SpeakerEncoderConfig())
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone,
+                                                                state_dtype="bfloat16"))
+    model = build_model(cfg, device=DEVICE, seed=0)
+    se = cfg.spk_encoder
+    n_spk = sum(p.numel() for p in model.spk_encoder.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"CFG phase: lina_gla_169m with mask_text_p=0.1 and SpeakerEncoderConfig() "
+          f"(dim_inner {se.dim_inner}, {se.heads} heads, {se.n_layers} layers, window "
+          f"{se.window_length}): {n_params:,} parameters, {n_spk:,} of them the speaker encoder")
+    require(n_spk == spk_encoder_params(D_MODEL, se.dim_inner, se.n_layers)
+            and n_params == N_PARAMS + D_MODEL + n_spk,
+            f"{n_params} parameters ({n_spk} speaker encoder)")
+    rng = np.random.default_rng(15)
+    text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab - 1,
+                                         size=(CFG_BATCH, TEXT_LEN))).to(DEVICE)
+    prompt = torch.from_numpy(rng.integers(0, cfg.n_codebook,
+                                           size=(1, CFG_BATCH, T_PROMPT))).to(DEVICE)
+    n_pre = T_PROMPT + 1
+    max_seqlen = n_pre + CFG_STEPS
+    reset_counts()  # the earlier phases' kernel holds are no path's
+    total = dict.fromkeys(read_counts(), 0)
+
+    # (a) the main path: guided, greedy, b4 -> the kernels at b8
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = generate_batch(model, text, prompt=prompt, max_seqlen=max_seqlen, k=1,
+                         force_max_seqlen=True, cfg_coef=CFG_COEF)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    decode_rows = {shape[0] for shape in gla_cuda.launch_shapes()["gla_decode_conv"]}
+    print(f"(a) generate_batch(cfg_coef={CFG_COEF}): {CFG_BATCH} requests ({2 * CFG_BATCH} rows), "
+          f"{res.n_steps} steps ({CFG_STEPS} decoded), {wall:.3f} s wall, "
+          f"{wall * 1e3 / CFG_STEPS:.2f} ms a decoded step with the prefill [{card_line}]")
+    print(f"  launches: {launches}; gla_decode_conv rows {sorted(decode_rows)}")
+    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS,
+                    gla_decode_conv=N_GLA_LAYERS * CFG_STEPS)
+    require(decode_rows == {2 * CFG_BATCH}, f"the guided steps ran at {decode_rows} rows")
+    require(res.tokens.shape == (cfg.n_quant, CFG_BATCH, max_seqlen)
+            and int(res.tokens.min()) >= 0 and int(res.tokens.max()) < model.n_target_vocab,
+            "guided tokens out of range")
+    add_launches(total, launches)
+    # the decode token alone, guided at b4 (8 rows) and unguided at b8, host clock
+    with torch.no_grad(), model.using_params(model.cast_param_copies()):
+        x_enc = model.encode_text(torch.cat([text, text]))
+        follow = model.embed_tokens(res.tokens[:, :, n_pre:n_pre + TF_STEPS])
+        follow = torch.cat([follow, follow])
+        st0 = model.prefill(follow[:, :8], x_enc, model.empty_state(2 * CFG_BATCH, DEVICE))[2]
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            st = st0
+            for i in range(TF_STEPS):
+                st = model.decode_step(follow[:, i], x_enc, st)[2]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / TF_STEPS)
+    print(f"  decode_step at {2 * CFG_BATCH} rows (a guided b{CFG_BATCH} token; an unguided b8 "
+          f"token is the same work): {ms} ms a token, host clock [{card_line}]")
+    reset_counts()
+    step_took("a")
+
+    # (b) on a copy built in f32 compute: cfg_coef=1 is the unguided run
+    f32cfg = dataclasses.replace(cfg, compute_dtype="float32", backbone=dataclasses.replace(
+        cfg.backbone, state_dtype="float32"))
+    f32 = build_model(f32cfg, device=DEVICE, seed=0)
+    greedy = dict(prompt=prompt, max_seqlen=n_pre + CFG_F32_STEPS, k=1, force_max_seqlen=True)
+    runs = {}
+    for coef in (None, 1.0, CFG_COEF):
+        reset_counts()
+        runs[coef] = generate_batch(f32, text, cfg_coef=coef, **greedy)
+        launches = read_counts()
+        require(launches == {**dict.fromkeys(launches, 0), "gla_chunk_conv": N_GLA_LAYERS,
+                             "gla_decode_conv": N_GLA_LAYERS * CFG_F32_STEPS},
+                f"f32 copy, cfg_coef={coef}: launches {launches}")
+        add_launches(total, launches)
+    same = torch.equal(runs[None].tokens, runs[1.0].tokens)
+    moved = float((runs[CFG_COEF].tokens != runs[None].tokens).float().mean())
+    print(f"(b) f32 copy, greedy b{CFG_BATCH}, {CFG_F32_STEPS} steps: cfg_coef=1.0 tokens equal "
+          f"to the unguided run's: "
+          f"{same}; cfg_coef={CFG_COEF} changes {moved:.3f} of the tokens")
+    require(same, "cfg_coef=1.0 differs from the unguided run")
+    tile = lambda z: torch.cat([z, z], dim=1)
+    text2 = torch.cat([text, torch.full_like(text, f32.n_txt_vocab - 1)])
+    teacher_forced_check(torch, f32, f32cfg, text2, tile(prompt), tile(runs[CFG_COEF].tokens),
+                         card_line, (TOL_F32,) * 3)
+    cpu = copy.deepcopy(f32).cpu()
+    t0 = time.perf_counter()
+    rows = slice(0, CFG_CPU_ROWS)
+    got = guided_teacher_forced(torch, f32, text[rows], prompt[:, rows],
+                                runs[CFG_COEF].tokens[:, rows], TF_STEPS)
+    ref = guided_teacher_forced(torch, cpu, text[rows].cpu(), prompt[:, rows].cpu(),
+                                runs[CFG_COEF].tokens[:, rows].cpu(), TF_STEPS)
+    print(f"  guided teacher-forced logits of {CFG_CPU_ROWS} requests (prefill + {TF_STEPS} "
+          f"steps, the speaker vector on the prompt), card vs CPU, f32 "
+          f"({time.perf_counter() - t0:.1f} s):")
+    check("guided logits", max_err(got, ref), TOL_F32 * float(ref.abs().max()))
+    del cpu
+    reset_counts()
+    step_took("b")
+
+    # (c) the guided server on the f32 copy: 4 slots, 8 device rows
+    reqs = [(rng.integers(3, cfg.n_txt_vocab - 1, size=TEXT_LEN), None if p == 0 else
+             rng.integers(0, cfg.n_codebook, size=(cfg.n_quant, p)), 1 + p + 2 * WINDOW)
+            for p in SERVE_PROMPTS]
+    srv = DecodeServer(f32, n_slots=CFG_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW, k=1,
+                       cfg_coef=CFG_COEF)
+    require(srv._x_enc.shape[0] == 2 * CFG_SLOTS, "the guided server's device rows")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done, n_chunks, _ = serve(torch, srv, reqs)
+    wall = time.perf_counter() - t0
+    conv_shapes = {(b, t, st) for b, t, st, _ in gla_cuda.launch_shapes()["gla_chunk_conv"]}
+    launches = read_counts()
+    chunks = [_pow2_chunks(1 + (0 if p is None else p.shape[1])) for _, p, _ in reqs]
+    print(f"(c) DecodeServer(cfg_coef={CFG_COEF}), f32 copy: {len(reqs)} requests through "
+          f"{CFG_SLOTS} slots ({2 * CFG_SLOTS} rows), {n_chunks} decode chunks, {wall:.3f} s wall "
+          f"[{card_line}]; launches {launches}")
+    require(launches == {**dict.fromkeys(launches, 0), "gla_chunk_conv": N_GLA_LAYERS * len(reqs),
+                         "gla_chunk": N_GLA_LAYERS * sum(len(c) - 1 for c in chunks),
+                         "gla_decode_conv": N_GLA_LAYERS * WINDOW * n_chunks},
+            f"guided server launches {launches}")
+    add_launches(total, launches)
+    held, f32.spk_encoder = f32.spk_encoder, None
+    try:
+        for rid, (txt, p, max_len) in enumerate(reqs):
+            c = done[rid]
+            want = generate_batch(
+                f32, torch.from_numpy(txt)[None].to(DEVICE),
+                prompt=None if p is None else torch.from_numpy(p)[:, None].to(DEVICE),
+                max_seqlen=max_len, k=1, force_max_seqlen=True, cfg_coef=CFG_COEF)
+            want = want.tokens[:, 0].T.cpu().numpy()[:c.length]
+            require(np.array_equal(c.tokens, want), f"request {rid}: the server's guided "
+                    f"tokens differ from generate_batch's at {np.argwhere(c.tokens != want)[:4]}")
+    finally:
+        f32.spk_encoder = held
+    print(f"  the {len(reqs)} completions equal their own guided generate_batch token for token "
+          f"(lengths {[done[r].length for r in sorted(done)]})")
+    hold_f32_conv_chunks(torch, gla_cuda, conv_shapes)
+    reset_counts()
+    del f32, srv
+    torch.cuda.empty_cache()
+    step_took("c")
+
+    # (d) the TTS pipeline, guided, at b4 with the full-width codec
+    wcfg = WavTokenizerConfig()
+    pipe = TTSPipeline(model, build_wavtokenizer(wcfg, seed=PIPE_CODEC_SEED), TextTokenizer())
+    gen = torch.Generator(device=DEVICE).manual_seed(CFG_BATCH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    waves, res = pipe.synthesize(PIPE_TEXT, gen, batch_size=CFG_BATCH, prompt_codes=prompt,
+                                 max_seqlen=max_seqlen, cfg_coef=CFG_COEF)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    speech = sum(w.size for w in waves) / wcfg.sample_rate
+    print(f"(d) TTSPipeline.synthesize(cfg_coef={CFG_COEF}) b{CFG_BATCH} ({T_PROMPT}-frame "
+          f"prompts, top-k {TOPK}): {res.n_steps} steps, {wall * 1e3:.1f} ms wall, {speech:.3f} s "
+          f"of speech, {speech / wall:.3f} s of speech a second [{card_line}]")
+    print(f"  launches: {launches}")
+    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS,
+                    gla_decode_conv=N_GLA_LAYERS * (res.n_steps - n_pre))
+    add_launches(total, launches)
+    for i, (wav, (c, _)) in enumerate(zip(waves, cut_outputs(res, cfg.n_quant))):
+        n = c.shape[-1]
+        require(n > 0 and wav.shape == (n * wcfg.hop_length,) and bool(np.isfinite(wav).all())
+                and float(np.abs(wav).max()) > 0, f"row {i}: waveform {wav.shape} for {n} frames")
+    print(f"  every waveform finite, non-zero, frames x {wcfg.hop_length} long")
+    step_took("d")
+    del pipe, model
+    torch.cuda.empty_cache()
+    print(f"CFG phase took {time.perf_counter() - started:.1f} s")
+    return total
+
+
+def transformer_phase(torch, np, card_line):
+    """The softmax transformer at the flagship's width (phase 16 of the
+    module docstring). Returns the launch counts of its main-path runs."""
+    import copy
+
+    from lina_speech_tpu_torch.config import build_model
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.models.base_blocks import sdpa
+    from lina_speech_tpu_torch.serving import DecodeServer
+    from lina_speech_tpu_torch.train.harness import (
+        TrainConfig, batch_to_device, create_train_state, make_train_step)
+
+    started = time.perf_counter()
+    last = [started]
+
+    def step_took(step):
+        now = time.perf_counter()
+        print(f"  ({step}) took {now - last[0]:.1f} s")
+        last[0] = now
+
+    cfg = variant_cfg("transformer")
+    model = build_model(cfg, device=DEVICE, seed=0)
+    rnn = model.attentive_rnn
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"transformer: {n_params:,} parameters, {len(rnn.blocks)} blocks of {rnn.heads} heads, "
+          f"cross-attention after block {rnn.cross_att_layers}, KV buffers of {rnn.max_seqlen} "
+          f"positions, bf16 compute")
+    require(len(rnn.blocks) == N_TRANSFORMER_BLOCKS and rnn.cross_att_layers == (6,)
+            and rnn.d_model == D_MODEL, "transformer structure")
+    rng = np.random.default_rng(16)
+    text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab, size=(BATCH, TEXT_LEN))).to(DEVICE)
+    prompt = torch.from_numpy(rng.integers(0, cfg.n_codebook, size=(1, BATCH, T_PROMPT))).to(DEVICE)
+    n_pre = T_PROMPT + 1
+    reset_counts()
+    total = dict.fromkeys(read_counts(), 0)
+
+    # (a) generate at b8: plain PyTorch throughout on float weights
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = generate_batch(model, text, gen, prompt=prompt, max_seqlen=n_pre + TRANSFORMER_STEPS,
+                         k=TOPK, force_max_seqlen=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"(a) transformer generate_batch: {BATCH} requests, {res.n_steps} steps "
+          f"({TRANSFORMER_STEPS} decoded), {wall:.3f} s wall, {wall * 1e3 / TRANSFORMER_STEPS:.2f} "
+          f"ms a decoded step with the prefill [{card_line}]")
+    expect_launches(read_counts())
+    require(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < model.n_target_vocab,
+            "transformer tokens out of range")
+    with torch.no_grad(), model.using_params(model.cast_param_copies()):
+        x_enc = model.encode_text(text)
+        y = model.embed_tokens(res.tokens[:, :, :n_pre + TF_STEPS])
+        st = model.prefill(y[:, :n_pre], x_enc, model.empty_state(BATCH, DEVICE))[2]
+        step = lambda: model.decode_step(y[:, n_pre], x_enc, st)
+        dec_eager = eager_ms(step, 10)
+        # the cross-attention's analytic rotary frequencies are made on the
+        # host every call, so a decode step cannot be captured in a CUDA
+        # graph: its device time comes from the profiler
+        profiled(torch, lambda: [step() for _ in range(4)],
+                 f"transformer decode_step b{BATCH}, 4 calls", top=8)
+        q = torch.randn(BATCH, rnn.heads, 1, D_MODEL // rnn.heads, device=DEVICE,
+                        dtype=model.dtype)
+        kv = st.layers[0]
+        mask = (torch.arange(rnn.max_seqlen, device=DEVICE) <= n_pre)[None, None, None]
+        att_ms = device_ms(lambda: sdpa(q, kv.k, kv.v, mask=mask), 20)
+    kv_bytes = N_TRANSFORMER_BLOCKS * nbytes(kv.k, kv.v)
+    print(f"  decode step b{BATCH}: eager {dec_eager:.3f} ms (CUDA events, host dispatch "
+          f"included) [{card_line}]")
+    print(f"  the fixed {rnn.max_seqlen}-position KV read: sdpa over one layer's buffers "
+          f"{att_ms:.4f} ms device, x {N_TRANSFORMER_BLOCKS} layers = "
+          f"{att_ms * N_TRANSFORMER_BLOCKS:.3f} ms a token; {kv_bytes} bytes of k and v a token, "
+          f"bound {kv_bytes / PEAK_BYTES * 1e3:.4f} ms by bytes [{card_line}]")
+    step_took("a")
+
+    # (b) teacher-forced logits and KV caches of an f32 copy, card vs CPU
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device=DEVICE, seed=0)
+    cpu = copy.deepcopy(f32).cpu()
+
+    def forced_run(m, dev):
+        with torch.no_grad():
+            x_enc = m.encode_text(text.to(dev))
+            y = m.embed_tokens(res.tokens[:, :, :n_pre + TF_STEPS].to(dev))
+            lg, _, st = m.prefill(y[:, :n_pre], x_enc, m.empty_state(BATCH, dev))
+            out = [lg[:, -1]]
+            for i in range(TF_STEPS):
+                lg, _, st = m.decode_step(y[:, n_pre + i], x_enc, st, time_step=n_pre + i)
+                out.append(lg)
+        return torch.stack(out, 1).float().cpu(), st
+
+    t0 = time.perf_counter()
+    (got, st_k), (ref, st_c) = forced_run(f32, DEVICE), forced_run(cpu, "cpu")
+    print(f"(b) transformer teacher-forced (prefill b{BATCH} t{n_pre} + {TF_STEPS} steps), f32, "
+          f"card vs CPU ({time.perf_counter() - t0:.1f} s):")
+    check("logits", max_err(got, ref), TOL_F32 * float(ref.abs().max()))
+    worst = 0.0
+    for i, (a, r) in enumerate(zip(st_k.layers, st_c.layers)):
+        require(a.t == r.t == n_pre + TF_STEPS, f"layer {i}: KV clock {a.t}")
+        for name in ("k", "v"):
+            err = max_err(getattr(a, name).cpu(), getattr(r, name))
+            scale = float(getattr(r, name).abs().max())
+            require(err <= TOL_F32 * scale, f"layer {i} {name}: {err} > {TOL_F32} x {scale}")
+            worst = max(worst, err / scale)
+    print(f"  KV caches of the {len(st_c.layers)} layers: worst max_abs_err / max|ref| "
+          f"{worst:.3e} (tolerance {TOL_F32:.0e}); clocks {n_pre + TF_STEPS}")
+    step_took("b")
+
+    # (c) int8 weights at b1: the decode loop's products through the kernels
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res_q = generate_batch(model, text[:1], gen, prompt=prompt[:, :1],
+                           max_seqlen=n_pre + TRANSFORMER_Q_STEPS, k=TOPK,
+                           force_max_seqlen=True, weight_quant="int8")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"(c) transformer generate_batch(weight_quant=\"int8\") b1: {TRANSFORMER_Q_STEPS} "
+          f"decoded, {wall:.3f} s wall [{card_line}]; launches {launches}")
+    expect_launches(launches, int8_linear=TRANSFORMER_INT8_LINEARS * TRANSFORMER_Q_STEPS,
+                    fused_ffn_int8=N_TRANSFORMER_BLOCKS * TRANSFORMER_Q_STEPS)
+    require(int(res_q.tokens.min()) >= 0 and int(res_q.tokens.max()) < model.n_target_vocab,
+            "int8 transformer tokens out of range")
+    add_launches(total, launches)
+    hold_launched_q_shapes(torch)
+    step_took("c")
+
+    # (d) training: f32 forward and backward at b2 t128 against the CPU,
+    # one optimizer step, then two timed bf16 steps at b8 t512
+    small = next(synthetic_tts_batches(
+        batch_size=2, n_quant=cfg.n_quant, n_codebook=cfg.n_codebook,
+        min_audio_len=TRANSFORMER_TRAIN_T, max_audio_len=TRANSFORMER_TRAIN_T, seed=1))
+    loss_k, grads_k = model_grads(torch, f32, batch_to_device(small, DEVICE))
+    loss_c, grads_c = model_grads(torch, cpu, batch_to_device(small, "cpu"))
+    print(f"(d) transformer training forward and backward, f32, b2 t{TRANSFORMER_TRAIN_T}, card "
+          f"vs CPU: loss {loss_k:.6f} vs {loss_c:.6f}")
+    check("loss", abs(loss_k - loss_c), TOL_F32 * abs(loss_c))
+    check_grads("parameter gradients, card vs CPU", {n: g.cpu() for n, g in grads_k.items()},
+                grads_c, TOL_F32, worst=6, named=("cross_att", "qkv"),
+                skip=lambda leaf: zero_gradient_mask(torch, leaf, grads_c[leaf]))
+    del grads_k, grads_c, cpu
+    # no warmup: the first step of a warmup runs at learning rate 0
+    state = create_train_state(f32, TrainConfig(n_warmup_steps=0, n_training_steps=10))
+    start = {n: p.detach().clone() for n, p in f32.named_parameters()}
+    train_gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state, metrics = make_train_step(f32)(state, batch_to_device(small, DEVICE), train_gen)
+    moved = sum(not torch.equal(p, start[n]) for n, p in f32.named_parameters())
+    print(f"  one optimizer step (f32): loss {float(metrics['loss']):.6f}, grad_norm "
+          f"{float(metrics['grad_norm']):.4f}; {moved} of {len(start)} parameter tensors moved")
+    require(state.step == 1 and math.isfinite(float(metrics["grad_norm"])) and moved == len(start),
+            "the f32 optimizer step")
+    del f32, state, start
+    torch.cuda.empty_cache()
+    state = create_train_state(model, TrainConfig(n_warmup_steps=2, n_training_steps=100))
+    train_step = make_train_step(model)
+    batches = synthetic_tts_batches(batch_size=TRAIN_BATCH, n_quant=cfg.n_quant,
+                                    n_codebook=cfg.n_codebook, min_audio_len=TRANSFORMER_TIMED_T,
+                                    max_audio_len=TRANSFORMER_TIMED_T, seed=0)
+    for i in range(2):
+        batch = batch_to_device(next(batches), DEVICE)
+        frames = int(batch["y_mask"].sum())
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, train_gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        expect_launches(read_counts())
+        print(f"  bf16 train step {i} b{TRAIN_BATCH} t{batch['y_mask'].shape[1]}: loss "
+              f"{float(metrics['loss']):.4f}, {ms:.1f} ms, {frames} frames -> "
+              f"{frames / ms * 1e3:.0f} frames/s [{card_line}]")
+        require(math.isfinite(float(metrics["loss"])), f"bf16 step {i}: loss not finite")
+    del state, train_step
+    model.eval()
+    step_took("d")
+
+    # (e) the server refuses the backbone: one KV clock for the whole batch
+    try:
+        DecodeServer(model, n_slots=2, max_text_len=MAX_TEXT_LEN, chunk=WINDOW)
+        raise AssertionError("DecodeServer took the transformer")
+    except ValueError as err:
+        require("per-slot state" in str(err), f"DecodeServer raised {err}")
+        print(f"(e) DecodeServer(transformer) raises ValueError: {err}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"transformer phase took {time.perf_counter() - started:.1f} s")
+    return total
+
+
+PHASE_SECONDS = []
+
+
+def phase(fn, *args):
+    """``fn(*args)``, its seconds noted in PHASE_SECONDS and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS.append((fn.__name__, time.perf_counter() - t0))
+    print(f"[phase {fn.__name__} took {PHASE_SECONDS[-1][1]:.1f} s]")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -5620,45 +6124,47 @@ def main():
     for line in ptxas_summary(_build.build_log):
         print(f"  ptxas {line}")
 
-    summary = kernel_phase(torch, gla_cuda)
-    chunk_kernel_phase(torch, gla_cuda, summary)
-    lazy_kernel_phase(torch, gla_cuda, summary)
-    lazy_route_sweep(torch, gla_cuda, card_line)
-    fold_route_sweep(torch, gla_cuda, card_line)
-    decode_route_sweep(torch, gla_cuda, card_line)
-    model, cfg, launches = generate_phase(torch, np, gla_cuda, card_line)
-    add_launches(launches, serving_phase(torch, np, gla_cuda, model, cfg, card_line))
-    add_launches(launches, pipeline_phase(torch, np, model, cfg, card_line))
-    quant_linear_kernel_phase(torch, summary)
-    quant_lazy_kernel_phase(torch, gla_cuda, summary)
-    add_launches(launches, quant_generate_phase(torch, np, model, cfg, card_line))
-    add_launches(launches, quant_serving_phase(torch, np, model, cfg, card_line))
+    summary = phase(kernel_phase, torch, gla_cuda)
+    phase(chunk_kernel_phase, torch, gla_cuda, summary)
+    phase(lazy_kernel_phase, torch, gla_cuda, summary)
+    phase(lazy_route_sweep, torch, gla_cuda, card_line)
+    phase(fold_route_sweep, torch, gla_cuda, card_line)
+    phase(decode_route_sweep, torch, gla_cuda, card_line)
+    model, cfg, launches = phase(generate_phase, torch, np, gla_cuda, card_line)
+    add_launches(launches, phase(serving_phase, torch, np, gla_cuda, model, cfg, card_line))
+    add_launches(launches, phase(pipeline_phase, torch, np, model, cfg, card_line))
+    phase(quant_linear_kernel_phase, torch, summary)
+    phase(quant_lazy_kernel_phase, torch, gla_cuda, summary)
+    add_launches(launches, phase(quant_generate_phase, torch, np, model, cfg, card_line))
+    add_launches(launches, phase(quant_serving_phase, torch, np, model, cfg, card_line))
     del model
     torch.cuda.empty_cache()
-    bwd_kernel_phase(torch, gla_cuda, summary)
-    model, cfg, train_launches, _ = training_phase(torch, np, gla_cuda, card_line)
+    phase(bwd_kernel_phase, torch, gla_cuda, summary)
+    model, cfg, train_launches, _ = phase(training_phase, torch, np, gla_cuda, card_line)
     add_launches(launches, train_launches)
-    add_launches(launches, tuning_phase(torch, np, gla_cuda, model, cfg, card_line))
-    launched_shapes_phase(torch, gla_cuda)
+    add_launches(launches, phase(tuning_phase, torch, np, gla_cuda, model, cfg, card_line))
+    phase(launched_shapes_phase, torch, gla_cuda)
     del model
     torch.cuda.empty_cache()
-    chunk_bwd_kernel_phase(torch, gla_cuda, summary)
-    decode_kernel_phase(torch, gla_cuda, summary)
-    add_launches(launches, simple_gla_phase(torch, np, gla_cuda, card_line))
-    add_launches(launches, mamba2_phase(torch, np, gla_cuda, card_line))
-    add_launches(launches, interleaved_and_pp_phase(torch, np, gla_cuda, card_line))
-    launched_gla_shapes_phase(torch, gla_cuda)
-    gaps = gap_phase(torch, gla_cuda, card_line)
-    rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line)
-    add_launches(launches, rwkv6_phase(torch, np, gla_cuda, card_line))
-    launched_rwkv6_shapes_phase(torch, rwkv6_cuda)
-    gaps.update(rwkv6_gap_phase(torch, rwkv6_cuda, card_line))
-    mamba_kernel_phase(torch, mamba_cuda, summary)
-    mamba_fwd_route_sweep(torch, mamba_cuda, card_line)
-    mamba_bwd_route_sweep(torch, mamba_cuda, card_line)
-    add_launches(launches, mamba_phase(torch, np, gla_cuda, card_line))
-    launched_mamba_shapes_phase(torch, mamba_cuda)
-    gaps.update(mamba_gap_phase(torch, mamba_cuda, card_line))
+    phase(chunk_bwd_kernel_phase, torch, gla_cuda, summary)
+    phase(decode_kernel_phase, torch, gla_cuda, summary)
+    add_launches(launches, phase(simple_gla_phase, torch, np, gla_cuda, card_line))
+    add_launches(launches, phase(mamba2_phase, torch, np, gla_cuda, card_line))
+    add_launches(launches, phase(interleaved_and_pp_phase, torch, np, gla_cuda, card_line))
+    add_launches(launches, phase(cfg_spk_phase, torch, np, gla_cuda, card_line))
+    add_launches(launches, phase(transformer_phase, torch, np, card_line))
+    phase(launched_gla_shapes_phase, torch, gla_cuda)
+    gaps = phase(gap_phase, torch, gla_cuda, card_line)
+    phase(rwkv6_kernel_phase, torch, rwkv6_cuda, summary, card_line)
+    add_launches(launches, phase(rwkv6_phase, torch, np, gla_cuda, card_line))
+    phase(launched_rwkv6_shapes_phase, torch, rwkv6_cuda)
+    gaps.update(phase(rwkv6_gap_phase, torch, rwkv6_cuda, card_line))
+    phase(mamba_kernel_phase, torch, mamba_cuda, summary)
+    phase(mamba_fwd_route_sweep, torch, mamba_cuda, card_line)
+    phase(mamba_bwd_route_sweep, torch, mamba_cuda, card_line)
+    add_launches(launches, phase(mamba_phase, torch, np, gla_cuda, card_line))
+    phase(launched_mamba_shapes_phase, torch, mamba_cuda)
+    gaps.update(phase(mamba_gap_phase, torch, mamba_cuda, card_line))
     kernels = []
     for name, source, replaces in KERNELS:
         require(launches[name] > 0, f"{name} was not launched on the main path")
@@ -5676,6 +6182,9 @@ def main():
           "kernels over every launched shape, the others at their row's shape):")
     for name, gap in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {gap:.3f}")
+    print("seconds of each phase main called:")
+    for name, sec in PHASE_SECONDS:
+        print(f"  {name}: {sec:.1f}")
     print(f"chip_smoke wall time {time.perf_counter() - started:.1f} s [{card_line}]")
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -2,12 +2,14 @@
 
 Field for field the same as ``lina_speech_tpu/config.py`` so a YAML config
 or a preset means the same model in both packages; only ``build_model``
-differs, building the PyTorch modules. The port covers the GLA family:
-``kind="gla"`` (with ``cross_att_pp``, and with ``cross_att_layers`` the
-interleaved CrossAttGLA), ``"simple_gla"`` and ``"mamba2"``; ``"rwkv6"``;
-and ``"mamba"`` (Mamba v1, with ``cross_att_layers`` the interleaved
-CrossAttMamba). ``kind="transformer"`` and a speaker encoder raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+differs, building the PyTorch modules. The port covers every backbone kind
+of the JAX package: the GLA family, ``kind="gla"`` (with ``cross_att_pp``,
+and with ``cross_att_layers`` the interleaved CrossAttGLA),
+``"simple_gla"`` and ``"mamba2"``; ``"rwkv6"``; ``"mamba"`` (Mamba v1,
+with ``cross_att_layers`` the interleaved CrossAttMamba); the softmax
+``"transformer"``. It builds the speaker encoder too. ``cp_axis`` and
+``remat`` raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -106,13 +108,6 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-# backbone kinds the JAX package builds and this port does not yet, with the
-# ROADMAP.md Queue 1 item that ports each
-_NOT_PORTED = {
-    "transformer": "Queue 1 item 9d (transformer, speaker encoder)",
-}
-
-
 def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     """Construct the LinaModel with f32 parameters initialized from a
     ``torch.Generator`` seeded with ``seed`` (models/lina.py:init_params).
@@ -122,22 +117,16 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     (``device="cpu"``). It comes back in eval mode (no dropout).
     """
     from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA, CrossAttGLA
-    from lina_speech_tpu_torch.models.encoder import TextEncoder
+    from lina_speech_tpu_torch.models.encoder import SimpleSpeakerEncoder, TextEncoder
     from lina_speech_tpu_torch.models.lina import LinaModel, init_params
     from lina_speech_tpu_torch.models.mamba import AttentiveMamba, AttentiveMamba2, CrossAttMamba
     from lina_speech_tpu_torch.models.rwkv6 import AttentiveRWKV6
     from lina_speech_tpu_torch.models.simple_gla import AttentiveSimpleGLA
+    from lina_speech_tpu_torch.models.transformer import TransformerCrossAtt
 
     b = cfg.backbone
-    if b.kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backbone kind {b.kind!r} is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[b.kind]})")
-    if b.kind not in ("gla", "simple_gla", "mamba2", "rwkv6", "mamba"):
+    if b.kind not in ("gla", "simple_gla", "mamba2", "rwkv6", "mamba", "transformer"):
         raise ValueError(f"unknown backbone kind {b.kind}")
-    if cfg.spk_encoder is not None:
-        raise NotImplementedError(
-            "SimpleSpeakerEncoder is not ported yet (ROADMAP.md Queue 1 item 9d)")
     if b.cp_axis is not None:
         raise NotImplementedError(
             "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
@@ -152,10 +141,12 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
                 "the model on the CPU")
         device = "cuda"
 
-    # as the JAX package's build_model (config.py:132-200): only the
+    # as the JAX package's build_model (config.py:132-226): only the
     # AttentiveGLA of kind "gla" takes state_dtype, simple-GLA takes
     # use_short_conv but not expand_k / expand_v, RWKV6 and Mamba none of
-    # the three; the interleaved stacks take no blind / PP options
+    # the three; the interleaved stacks take no blind / PP options; the
+    # transformer takes its width, heads, cross_att_layers (default the
+    # middle layer) and dropout_att, and nothing of kernel_mode
     dtype = torch_dtype(cfg.compute_dtype)
     common = dict(d_model=b.d_model, n_layer=b.n_layer, heads=b.heads, dropout=b.dropout,
                   kernel_mode=b.kernel_mode, dtype=dtype)
@@ -178,12 +169,23 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         rnn = CrossAttMamba(cross_att_layers=b.cross_att_layers, rotary=b.rotary, **common)
     elif b.kind == "mamba":
         rnn = AttentiveMamba(**stack, **common)
+    elif b.kind == "transformer":
+        rnn = TransformerCrossAtt(
+            d_model=b.d_model, n_layer=b.n_layer, heads=b.heads,
+            cross_att_layers=tuple(b.cross_att_layers) or (b.n_layer // 2,),
+            dropout_att=b.dropout_att, dtype=dtype)
     else:
         rnn = AttentiveMamba2(headdim=64 if (2 * b.d_model) % 64 == 0 else 16,
                               **stack, **common)
     te = cfg.text_encoder
     txt_encoder = TextEncoder(dim=te.dim, heads=te.heads, n_layers=te.n_layers,
                               dropout=te.dropout, rotary=te.rotary, dtype=dtype)
+    spk_encoder = None
+    if cfg.spk_encoder is not None:
+        se = cfg.spk_encoder
+        spk_encoder = SimpleSpeakerEncoder(
+            dim=cfg.d_model, dim_inner=se.dim_inner, heads=se.heads,
+            n_layers=se.n_layers, window_length=se.window_length, dtype=dtype)
     model = LinaModel(
         attentive_rnn=rnn,
         d_model=cfg.d_model,
@@ -194,6 +196,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         n_txt_vocab_base=cfg.n_txt_vocab,
         tie_embed=cfg.tie_embed,
         txt_encoder=txt_encoder,
+        spk_encoder=spk_encoder,
         mask_text_p=cfg.mask_text_p,
         dtype=dtype,
     )

@@ -7,8 +7,9 @@ chunk-parallel through the GLA prefill kernel, and a Python token loop runs
 token (or ``max_seqlen`` with ``force_max_seqlen``) -- token by token, or in
 lazy windows (``lazy_window``). Sampling takes an
 explicit ``torch.Generator``: top-k + temperature for quantizers below
-``first_greedy_quant``, greedy for the rest. :func:`cut_outputs` applies
-the reference's per-row stop trimming.
+``first_greedy_quant``, greedy for the rest. ``cfg_coef`` turns on
+classifier-free guidance. :func:`cut_outputs` applies the reference's
+per-row stop trimming.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from lina_speech_tpu_torch.models.attentive_rnn import add_lazy_buffers
+from lina_speech_tpu_torch.models.attentive_rnn import add_lazy_buffers, map_state
 from lina_speech_tpu_torch.models.base_blocks import use_int8_weights
 from lina_speech_tpu_torch.models.gla_layer import check_state_quant
 from lina_speech_tpu_torch.models.lina import LinaModel
@@ -31,6 +32,48 @@ class GenerateResult(NamedTuple):
     lengths: torch.Tensor     # (b,) 1 + index of first stop (== steps generated)
     att: Optional[torch.Tensor]  # (b, max_seqlen, heads, m) or None
     n_steps: int              # decode-loop steps actually executed (incl. prefill)
+
+
+def _batch_axis(b_shape, o_shape, n_slots, one: int = 1) -> int:
+    """Axis where the batched leaf has ``n_slots`` and the request leaf
+    has ``one`` (everything else equal; ``one=2`` under CFG, where a
+    request carries a conditional and an unconditional row)."""
+    b_shape, o_shape = tuple(b_shape), tuple(o_shape)
+    for i, (bs, os) in enumerate(zip(b_shape, o_shape)):
+        if bs == n_slots and os == one and \
+                b_shape[:i] + b_shape[i + 1:] == o_shape[:i] + o_shape[i + 1:]:
+            return i
+    raise ValueError(f"no batch axis between {b_shape} and {o_shape}")
+
+
+def _tile_state(model: LinaModel, state, b: int):
+    """Every tensor of ``state`` twice along its batch axis (CFG doubles the
+    batch), the axis found per leaf from the shapes of a one-row and a
+    ``b``-row empty state, as the JAX package's ``_tile_state``. A clock
+    the batch shares (the transformer's ``t``) stays as it is."""
+    one, many = (model.empty_state(n, device="meta") for n in (1, b))
+
+    def tile(leaf, l1, lb):
+        if not torch.is_tensor(leaf):
+            return leaf
+        return torch.cat([leaf, leaf], dim=_batch_axis(lb.shape, l1.shape, b))
+
+    return map_state(tile, state, one, many)
+
+
+def _guide(logits: torch.Tensor, cfg_coef: Optional[float]) -> torch.Tensor:
+    """Classifier-free guidance over the two halves of the batch, the
+    conditional rows first: (2b, ...) -> (b, ...) ``l_u + cfg_coef (l_c -
+    l_u)`` in the logits' dtype; the identity without CFG."""
+    if cfg_coef is None:
+        return logits
+    lc, lu = logits.chunk(2, dim=0)
+    return (lu + cfg_coef * (lc - lu)).to(logits.dtype)
+
+
+def _tile(z: torch.Tensor, cfg_coef: Optional[float]) -> torch.Tensor:
+    """The rows of ``z`` twice under CFG (conditional, then unconditional)."""
+    return z if cfg_coef is None else torch.cat([z, z], dim=0)
 
 
 def _sample_tokens(generator, logits, k, temp, first_greedy_quant,
@@ -96,10 +139,20 @@ def generate_batch(
     per row, requantized at every fold (kernels ``gla_decode_lazy_conv``
     with ``s_scale`` and ``gla_fold_q``). Both are opt-in quality knobs.
 
+    ``cfg_coef`` turns on classifier-free guidance (a model trained with
+    ``mask_text_p > 0``, else ``ValueError``): the batch is doubled with
+    rows of the all-mask text (token ``n_txt_vocab - 1``) and every
+    prediction, the prefill's and each step's, is sampled from
+    ``l_uncond + cfg_coef * (l_cond - l_uncond)``. ``cfg_coef=1`` is the
+    unguided run exactly; more sharpens text adherence at twice the decode
+    work. A given ``init_state`` is tiled along each leaf's batch axis
+    before the lazy buffers attach; ``return_att`` keeps the conditional
+    rows' maps. With a ``spk_encoder`` the prompt's first embedding is
+    replaced by the speaker vector pooled from the prompt embeddings.
+
     Still raising ``NotImplementedError``: ``state_quant="int4"`` (ROADMAP.md
-    Queue 1 item 8), ``cfg_coef`` (Queue 1 item 4) and ``approx_topk`` (a TPU
-    op). Not ported from the JAX package on purpose: its ``sf_emit_dtype``
-    switch (``LINA_SF32_BUDGET_GB``), which makes the TPU prefill kernels
+    Queue 1 item 8) and ``approx_topk`` (a TPU op). Not ported from the JAX
+    package on purpose: its ``sf_emit_dtype`` switch (``LINA_SF32_BUDGET_GB``), which makes the TPU prefill kernels
     emit f32 states and cast outside for a scheduling reason -- the value
     that is quantized is the state-dtype final state either way, and that is
     what the port quantizes; and the ``QLINEAR_MODE`` / ``QLINEAR_FUSED_FFN``
@@ -113,12 +166,9 @@ def generate_batch(
     were. ``lazy_window`` needs a GLA backbone (Mamba, Mamba-2 and RWKV6
     states have no lazy window: ``TypeError``, as in JAX).
     """
-    for name, val, ready in (
-            ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),
-            ("approx_topk", approx_topk, "a TPU op; the port samples exact top-k")):
-        if val:
-            raise NotImplementedError(f"generate_batch({name}=...) is not "
-                                      f"ported ({ready})")
+    if approx_topk:
+        raise NotImplementedError("generate_batch(approx_topk=...) is not ported "
+                                  "(a TPU op; the port samples exact top-k)")
     check_state_quant(state_quant)
     if state_quant is not None and lazy_window <= 0:
         raise ValueError("state_quant requires lazy_window > 0 (the read-only "
@@ -133,6 +183,15 @@ def generate_batch(
                                        first_greedy_quant,
                                        reference_compat_sampling)
 
+    cfg = cfg_coef is not None
+    if cfg:
+        if model.mask_text_p <= 0.0:
+            raise ValueError("cfg_coef requires a model trained with "
+                             "mask_text_p > 0 (no mask token otherwise)")
+        x = torch.cat([x, torch.full_like(x, model.n_txt_vocab - 1)], dim=0)
+    guide = lambda logits: _guide(logits, cfg_coef)
+    tile = lambda z: _tile(z, cfg_coef)
+
     x_enc = model.encode_text(x)
     with model.using_params(model.cast_param_copies()):
         if weight_quant == "int8":
@@ -140,16 +199,24 @@ def generate_batch(
         embed = model.embed_tokens
         y_embd0 = embed(torch.ones(nq, b, 1, dtype=torch.long, device=dev))
         if init_state is None:
-            init_state = model.empty_state(b, device=dev)
+            init_state = model.empty_state(2 * b if cfg else b, device=dev)
+        elif cfg:
+            init_state = _tile_state(model, init_state, b)
 
         # ---- chunk-parallel prompt prefill ----
         if prompt is not None:
             prompt_in = embed(prompt.long() + model.n_special_token_in)
+            if model.spk_encoder is not None:
+                spk = model.spk_encoder(prompt_in).to(prompt_in.dtype)
+                prompt_in = torch.cat([spk[:, None], prompt_in[:, 1:]], dim=1)
             forced = torch.cat([y_embd0, prompt_in], dim=1)  # (b, p+1, d)
         else:
             forced = y_embd0
-        logits_pre, att_pre, state = model.prefill(forced, x_enc, init_state,
+        logits_pre, att_pre, state = model.prefill(tile(forced), x_enc, init_state,
                                                    return_att=return_att)
+        logits_pre = guide(logits_pre)
+        if return_att and cfg:
+            att_pre = att_pre[:b]
         n_pre = forced.shape[1]
         pre_tokens = sample(logits_pre)  # (b, n_pre, q)
 
@@ -172,7 +239,7 @@ def generate_batch(
                                   dtype=att_pre.dtype, device=dev)
             att_buf[:keep] = att_pre.permute(2, 0, 1, 3)[:keep]
         stopped = pre_stop.any(dim=1)
-        y_embd = embed(pre_tokens[:, -1].T[:, :, None])[:, 0]  # (b, d)
+        y_embd = tile(embed(pre_tokens[:, -1].T[:, :, None])[:, 0])  # (b or 2b, d)
 
         if L:
             state = add_lazy_buffers(state, L, dtype=y_embd0.dtype, state_quant=state_quant)
@@ -184,13 +251,13 @@ def generate_batch(
                 for j in range(L or 1):
                     logits, att, state = model.decode_step(
                         y_embd, x_enc, state, time_step=t, lazy_p=j if L else None)
-                    toks = sample(logits)  # (b, q)
+                    toks = sample(guide(logits))  # (b, q)
                     tokens[t] = toks
                     is_stop = (toks == stop_id).all(dim=-1)
                     stops[t] = is_stop
                     if return_att:
-                        att_buf[t] = att
-                    y_embd = embed(toks.T[:, :, None])[:, 0]
+                        att_buf[t] = att[:b]
+                    y_embd = tile(embed(toks.T[:, :, None])[:, 0])
                     stopped = stopped | is_stop
                     t += 1
                 if L:

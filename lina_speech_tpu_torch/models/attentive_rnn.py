@@ -40,13 +40,14 @@ class BackboneState:
     pos_net: Optional[object] = None
 
 
-def map_state(fn: Callable, state: BackboneState, *others: BackboneState
-              ) -> BackboneState:
-    """``fn(leaf, *other_leaves)`` over every tensor of ``state`` (and the
-    tensors at the same place in ``others``); fields that are None stay
-    None. The result replaces each tensor with what ``fn`` returns. The
+def map_state(fn: Callable, state, *others):
+    """``fn(leaf, *other_leaves)`` over every leaf of ``state`` (and the
+    leaves at the same place in ``others``); fields that are None stay
+    None. The result replaces each leaf with what ``fn`` returns. The
     layer states may be of any dataclass (``GLAState``, ``MambaState``,
-    ``RWKV6State``)."""
+    ``RWKV6State``, the transformer's ``KVState``, whose clock ``t`` is a
+    leaf too), and ``state`` a ``BackboneState`` or any dataclass of
+    ``layers`` (``TransformerState``)."""
     def one(st, *os):
         if st is None:
             return None
@@ -55,10 +56,11 @@ def map_state(fn: Callable, state: BackboneState, *others: BackboneState
             else fn(getattr(st, f.name), *(getattr(o, f.name) for o in os))
             for f in dataclasses.fields(st)})
 
-    return BackboneState(
-        layers=tuple(one(st, *(o.layers[i] for o in others))
-                     for i, st in enumerate(state.layers)),
-        pos_net=one(state.pos_net, *(o.pos_net for o in others)))
+    kw = dict(layers=tuple(one(st, *(o.layers[i] for o in others))
+                           for i, st in enumerate(state.layers)))
+    if hasattr(state, "pos_net"):
+        kw["pos_net"] = one(state.pos_net, *(o.pos_net for o in others))
+    return type(state)(**kw)
 
 
 def add_lazy_buffers(state: BackboneState, window: int,

@@ -123,18 +123,25 @@ class LayerNorm(nn.Module):
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 
 
-def sdpa(q, k, v, mask=None, return_weights: bool = False
+def sdpa(q, k, v, mask=None, is_causal: bool = False, return_weights: bool = False
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Softmax attention over (b, h, n, d); boolean mask True = keep.
 
     Written as plain tensor ops mirroring the JAX ``sdpa``: f32 logits and
     softmax, masked logits set to ``-finfo(f32).max`` (not ``-inf``, so a
-    fully masked row stays finite).
+    fully masked row stays finite). ``is_causal`` keeps ``tril(ones(n, m),
+    m - n)``: query i sees the keys up to m - n + i (the last n keys are
+    the queries' own).
     """
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bhnd,bhmd->bhnm", q, k).float() * scale
+    fill = -torch.finfo(torch.float32).max
+    if is_causal:
+        n, m = logits.shape[-2:]
+        causal = torch.ones(n, m, dtype=torch.bool, device=logits.device).tril(m - n)
+        logits = logits.masked_fill(~causal, fill)
     if mask is not None:
-        logits = logits.masked_fill(~mask, -torch.finfo(torch.float32).max)
+        logits = logits.masked_fill(~mask, fill)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhnm,bhmd->bhnd", w.to(v.dtype), v)
     return out, (w if return_weights else None)

@@ -3,7 +3,10 @@
 Counterpart of ``lina_speech_tpu/models/lina.py`` (reference
 model/modeling_lina.py): the training ``forward`` with its masked
 cross-entropy, and for generation ``embed_tokens``, ``encode_text``, the
-chunk-parallel ``prefill`` and the one-token ``decode_step``.
+chunk-parallel ``prefill`` and the one-token ``decode_step``. An optional
+``spk_encoder`` (``models/encoder.py:SimpleSpeakerEncoder``) replaces the
+first audio embedding with a speaker vector pooled from the audio
+embeddings, in the training forward and (``generate.py``) on a prompt.
 
 Dropout and the classifier-free text masking act in training mode only
 (``model.train()``) and draw from the generator handed to
@@ -62,6 +65,7 @@ class LinaModel(nn.Module):
                  n_codebook: int, n_special_token_in: int,
                  n_special_token_out: int, n_txt_vocab_base: int,
                  tie_embed: bool = False, txt_encoder: Optional[nn.Module] = None,
+                 spk_encoder: Optional[nn.Module] = None,
                  mask_text_p: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model, self.n_quant, self.n_codebook = d_model, n_quant, n_codebook
@@ -75,6 +79,7 @@ class LinaModel(nn.Module):
         if not tie_embed:
             self.logits_head = LogitsHead(n_quant, self.n_target_vocab, d_model)
         self.txt_encoder = txt_encoder
+        self.spk_encoder = spk_encoder
         self.attentive_rnn = attentive_rnn
         self.generator: Optional[torch.Generator] = None
 
@@ -124,6 +129,9 @@ class LinaModel(nn.Module):
 
         y_embd = self.embed_tokens(y.permute(2, 0, 1))  # (b, n, d)
         x_enc = self.encode_text(x, encoder_mask)
+        if self.spk_encoder is not None:
+            spk = self.spk_encoder(y_embd)
+            y_embd = torch.cat([spk[:, None].to(y_embd.dtype), y_embd[:, 1:]], dim=1)
         ca_mask = crossatt_mask[:, :-1] if crossatt_mask is not None else None
         # the backbone consumes y[:, :-1]; align per-position masks with it
         if reset_mask is not None and reset_mask.shape[1] == y.shape[1]:
@@ -150,12 +158,17 @@ class LinaModel(nn.Module):
         """Chunk-parallel prefill of (b, t, d) forced embeddings. Returns
         (logits (b, t, q, l), att, final_state). ``conv_history`` and
         ``time_offset`` make a chunk that continues a stream exact (see
-        AttentiveGLA.forward)."""
+        AttentiveGLA.forward); they reach the backbone only when set, as in
+        the JAX package."""
+        kw = {}
+        if conv_history:
+            kw["conv_history"] = True
+        if not (isinstance(time_offset, int) and time_offset == 0):
+            kw["time_offset"] = time_offset
         y_hat, att, final_state = self.attentive_rnn(
             y_embd, x_enc, mask=crossatt_mask, init_state=state,
             return_att=return_att, output_final_state=True,
-            conv_history=conv_history, time_offset=time_offset,
-            crossatt_pos_valid=crossatt_pos_valid)
+            crossatt_pos_valid=crossatt_pos_valid, **kw)
         return self._head(y_hat), att, final_state
 
     def decode_step(self, y_embd, x_enc, state: BackboneState, time_step=None,
@@ -177,7 +190,7 @@ class LinaModel(nn.Module):
     def fold_lazy_state(self, state: BackboneState) -> BackboneState:
         return self.attentive_rnn.fold_lazy_state(state)
 
-    def empty_state(self, batch_size: int, device=None) -> BackboneState:
+    def empty_state(self, batch_size: int, device=None):
         return self.attentive_rnn.empty_state(batch_size, device=device)
 
     # ---------- int8 weights ----------

@@ -70,8 +70,9 @@ class TTSPipeline:
         audio (tokenized here) or as (n_q, B or 1, p) codes; a prompt of one
         row is repeated over the batch. A row cut to no frames gives an
         empty waveform; every other row is vocoded alone (B = 1), as the
-        rows have their own lengths. ``cfg_coef`` is passed to
-        ``generate_batch``, which raises until CFG is ported.
+        rows have their own lengths. ``cfg_coef`` turns on classifier-free
+        guidance (``generate_batch``; a model trained with ``mask_text_p >
+        0``).
         """
         dev = self.device
         ids = torch.tensor(self.tokenizer.encode(text), dtype=torch.long, device=dev)
@@ -121,6 +122,8 @@ class TTSPipeline:
         (n_q, p) voice-clone codes. The generator's return value (its
         ``StopIteration`` value) is the server's ``Completion`` of the
         request, whose tokens ``undelay_stream`` turns into the final codes.
+        ``cfg_coef`` guides the server's decoding (``DecodeServer``, which
+        does not run a speaker encoder on the prompt).
         """
         from lina_speech_tpu_torch.serving import DecodeServer
 

@@ -39,9 +39,19 @@ False`` keeps only the int8 copies resident and then prefills through them
 too. ``state_quant="int8"`` (lazy mode only) keeps the slots' base states
 int8 with one scale per row.
 
+``cfg_coef`` serves with classifier-free guidance (``generate_batch``'s
+math): the device batch doubles to ``2 * n_slots`` rows, a request's
+conditional row in its slot and its all-mask row ``n_slots`` further, both
+prefilled together (g = 2), and every step samples from ``l_uncond +
+cfg_coef * (l_cond - l_uncond)``. As in the JAX server, the speaker encoder
+is not run on a request's prompt (``generate_batch`` runs it), and a
+backbone whose state keeps a clock the batch shares (the transformer's KV
+cache) is refused with ``ValueError``: slots at different progress cannot
+share its decode batch.
+
 The JAX server's jitted programs are plain host loops here, under
 ``torch.no_grad()``, with one host read of the sampled tokens per chunk.
-``state_quant="int4"``, ``cfg_coef`` and ``mesh`` are not ported and raise.
+``state_quant="int4"`` and ``mesh`` are not ported and raise.
 """
 from __future__ import annotations
 
@@ -52,7 +62,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from lina_speech_tpu_torch.generate import _sample_tokens
+from lina_speech_tpu_torch.generate import _batch_axis, _guide, _sample_tokens, _tile
 from lina_speech_tpu_torch.models.attentive_rnn import (
     BackboneState, add_lazy_buffers, map_state,
 )
@@ -78,17 +88,6 @@ class Completion:
     tokens: np.ndarray    # (length, q) raw codec tokens (delay pattern)
     length: int
     stopped: bool         # True: emitted the stop token; False: hit max_len
-
-
-def _batch_axis(b_shape, o_shape, n_slots, one: int = 1) -> int:
-    """Axis where the batched leaf has ``n_slots`` and the request leaf
-    has ``one`` (everything else equal)."""
-    b_shape, o_shape = tuple(b_shape), tuple(o_shape)
-    for i, (bs, os) in enumerate(zip(b_shape, o_shape)):
-        if bs == n_slots and os == one and \
-                b_shape[:i] + b_shape[i + 1:] == o_shape[:i] + o_shape[i + 1:]:
-            return i
-    raise ValueError(f"no batch axis between {b_shape} and {o_shape}")
 
 
 def _pow2_chunks(n: int) -> List[int]:
@@ -129,9 +128,14 @@ class DecodeServer:
     slot container then holds an int8 ``s`` and an f32 ``s_scale`` per
     layer, as a prefill followed by ``add_lazy_buffers`` produced them.
 
+    ``cfg_coef`` (a model trained with ``mask_text_p > 0``, else
+    ``ValueError``) guides every request: ``2 * n_slots`` device rows, the
+    speaker encoder not run (see the module docstring). The transformer
+    backbone raises ``ValueError`` (its KV clock is shared by the batch).
+
     Raising ``NotImplementedError``: ``state_quant="int4"`` (ROADMAP.md
-    Queue 1 item 8), ``cfg_coef`` (Queue 1 item 4), ``mesh`` (Queue 1 item
-    11), ``approx_topk`` (a TPU op). Not ported on purpose: the JAX server's
+    Queue 1 item 8), ``mesh`` (Queue 1 item 11), ``approx_topk`` (a TPU
+    op). Not ported on purpose: the JAX server's
     ``sf_emit_dtype`` policy (f32 emission of the prefill kernels' final
     state, a TPU scheduling matter: the value quantized is the same) and
     the ``QLINEAR_*`` environment variables (w8a8 is the ``quant_mode``
@@ -159,7 +163,6 @@ class DecodeServer:
         state_quant: Optional[str] = None,
     ):
         for name, val, ready in (
-                ("cfg_coef", cfg_coef, "ROADMAP.md Queue 1 item 4"),
                 ("mesh", mesh, "ROADMAP.md Queue 1 item 11"),
                 ("approx_topk", approx_topk, "a TPU op; the port samples exact top-k")):
             if val:
@@ -171,6 +174,18 @@ class DecodeServer:
                              "lazy base-state layout)")
         if weight_quant not in (None, "int8"):
             raise ValueError(f"unknown weight_quant {weight_quant!r}")
+        if cfg_coef is not None and model.mask_text_p <= 0.0:
+            raise ValueError("cfg_coef requires a model trained with "
+                             "mask_text_p > 0 (no mask token otherwise)")
+        for st in model.empty_state(1, device="meta").layers:
+            if any(getattr(st, f.name) is not None and not torch.is_tensor(getattr(st, f.name))
+                   for f in dataclasses.fields(st)):
+                # the transformer's KV clock: one per layer, shared by the
+                # batch, so slots at different progress cannot share it
+                raise ValueError(
+                    "DecodeServer requires per-slot state; this backbone keeps a "
+                    "batch-shared scalar in its state (transformer KV-cache clock) "
+                    "and cannot mix slot progress")
         self.model = model
         self.n_slots = n_slots
         self.max_text_len = max_text_len
@@ -178,6 +193,7 @@ class DecodeServer:
         self._lazy = lazy
         self._state_quant = state_quant
         self._int8 = weight_quant == "int8"
+        self._cfg = cfg_coef
         self.sample_args = (k, temp, first_greedy_quant)
         self.device = next(model.parameters()).device
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -199,14 +215,16 @@ class DecodeServer:
         held = {id(p) for p in model.parameters()}
         self._params = {p: c for p, c in self._params.items() if id(p) in held}
         cdt, dev = model.dtype, self.device
-        d, m, B = model.d_model, max_text_len, n_slots
+        # under CFG rows [0, n_slots) are conditional, [n_slots, 2 n_slots)
+        # the same slots against the all-mask text
+        d, m, B = model.d_model, max_text_len, n_slots * (2 if cfg_coef is not None else 1)
         self._x_enc = torch.zeros(B, m, d, dtype=cdt, device=dev)
         self._ca_mask = torch.zeros(B, 1, m, dtype=torch.bool, device=dev)
         self._y_embd = torch.zeros(B, d, dtype=cdt, device=dev)
         self._t = torch.zeros(B, dtype=torch.long, device=dev)
 
         # batch axis of every state leaf, from the shapes of a one-row and
-        # an n_slots-row empty state
+        # a B-row empty state
         shape_of = lambda n: map_state(lambda z: z.shape,
                                        self._with_buffers(model.empty_state(n, device="meta")))
         self._batch_shapes = shape_of(B)
@@ -238,24 +256,26 @@ class DecodeServer:
 
     def _prefill_chunk(self, x_enc, ca_mask, codes_chunk, time_offset: int,
                        conv_history: bool, state: BackboneState):
-        """One power-of-two prefill chunk for one request. ``codes_chunk``:
-        (q, 1, c); ``state`` threads between chunks (``conv_history``
-        consumes its conv rings mid-stream). Returns (tokens (c, q),
-        new_state)."""
-        emb = self.model.embed_tokens(codes_chunk)  # (1, c, d)
-        c = emb.shape[1]
-        pf_mask = ca_mask.expand(1, c, ca_mask.shape[-1])
-        pv = ca_mask[:, 0] if self._pos_needs_valid else None  # (1, m)
+        """One power-of-two prefill chunk for one request: g = 1 row, or 2
+        under CFG (the conditional and the all-mask row on the same codes).
+        ``codes_chunk``: (q, g, c); ``state`` threads between chunks
+        (``conv_history`` consumes its conv rings mid-stream). Returns
+        (tokens (c, q), new_state of g rows)."""
+        emb = self.model.embed_tokens(codes_chunk)  # (g, c, d)
+        g, c = emb.shape[:2]
+        pf_mask = ca_mask.expand(g, c, ca_mask.shape[-1])
+        pv = ca_mask[:, 0] if self._pos_needs_valid else None  # (g, m)
         logits, _, state = self.model.prefill(
             emb, x_enc, state, crossatt_mask=pf_mask, conv_history=conv_history,
-            time_offset=time_offset, crossatt_pos_valid=pv)  # (1, c, q, l)
-        return self._sample(logits)[0], state
+            time_offset=time_offset, crossatt_pos_valid=pv)  # (g, c, q, l)
+        return self._sample(_guide(logits, self._cfg))[0], state
 
     def _insert(self, one_state: BackboneState, x_enc1, ca1, y1, t1: int,
                 slot_idx: int) -> None:
-        """Write a request's rows into slot ``slot_idx`` of every batched
-        tensor, in place, cast to the container's dtypes. In lazy mode the
-        fresh rows get zeroed window buffers; insertion happens at chunk
+        """Write a request's g rows into every batched tensor, in place, cast
+        to the container's dtypes: row 0 at ``slot_idx``, under CFG row 1
+        (the all-mask row) at ``n_slots + slot_idx``. In lazy mode the fresh
+        rows get zeroed window buffers; insertion happens at chunk
         boundaries (after the fold), the condition of generate_batch's
         post-prefill ``add_lazy_buffers``."""
         one_state = self._with_buffers(one_state)
@@ -264,16 +284,19 @@ class DecodeServer:
                 lambda shape, leaf: torch.zeros(shape, dtype=leaf.dtype,
                                                 device=leaf.device),
                 self._batch_shapes, one_state)
-        map_state(lambda bl, ol, ax: bl.select(ax, slot_idx).copy_(ol.select(ax, 0)),
-                  self._state, one_state, self._axes)
-        self._x_enc[slot_idx] = x_enc1[0]
-        self._ca_mask[slot_idx] = ca1[0]
-        self._y_embd[slot_idx] = y1[0]
-        self._t[slot_idx] = t1
+        targets = [slot_idx] if self._cfg is None else [slot_idx, self.n_slots + slot_idx]
+        for j, row in enumerate(targets):
+            map_state(lambda bl, ol, ax: bl.select(ax, row).copy_(ol.select(ax, j)),
+                      self._state, one_state, self._axes)
+            self._x_enc[row] = x_enc1[j]
+            self._ca_mask[row] = ca1[j]
+            self._y_embd[row] = y1[j]
+            self._t[row] = t1
 
     def _decode_chunk(self) -> np.ndarray:
         """``chunk`` decode steps of every slot (lazy: one window and its
-        fold). Returns the sampled tokens (chunk, n_slots, q) on the host."""
+        fold). Returns the sampled tokens (chunk, n_slots, q) on the host
+        (under CFG sampled from the guided logits of the 2 n_slots rows)."""
         model = self.model
         pv = self._ca_mask[:, 0] if self._pos_needs_valid else None  # (B, m)
         state, y_embd, t = self._state, self._y_embd, self._t
@@ -284,8 +307,8 @@ class DecodeServer:
                     y_embd, self._x_enc, state, time_step=t,
                     lazy_p=j if self._lazy else None,
                     crossatt_mask=self._ca_mask, crossatt_pos_valid=pv)
-                toks = self._sample(logits)  # (B, q)
-                y_embd = model.embed_tokens(toks.T[:, :, None])[:, 0]
+                toks = self._sample(_guide(logits, self._cfg))  # (n_slots, q)
+                y_embd = _tile(model.embed_tokens(toks.T[:, :, None])[:, 0], self._cfg)
                 t = t + 1
                 rows.append(toks)
         if self._lazy:
@@ -323,12 +346,16 @@ class DecodeServer:
         mlen = len(text)
         if mlen > m:
             raise ValueError(f"text length {mlen} > max_text_len {m}")
-        x = torch.zeros(1, m, dtype=torch.long, device=dev)
+        g = 1 if self._cfg is None else 2
+        x = torch.zeros(g, m, dtype=torch.long, device=dev)
         x[0, :mlen] = torch.as_tensor(text, dtype=torch.long, device=dev)
+        if g == 2:
+            # the unconditional row: the mask token at every valid position
+            x[1, :mlen] = model.n_txt_vocab - 1
         valid = torch.arange(m, device=dev) < mlen
         # the encoder ORs the identity in, so padded rows attend to themselves
-        enc_mask = (valid[:, None] & valid[None, :])[None]  # (1, m, m)
-        ca1 = valid[None, None, :]  # (1, 1, m)
+        enc_mask = (valid[:, None] & valid[None, :])[None].expand(g, m, m)
+        ca1 = valid[None, None, :].expand(g, 1, m)
         nq = model.n_quant
         codes = np.ones((nq, 1, 1), np.int64)
         if prompt is not None:
@@ -337,11 +364,11 @@ class DecodeServer:
                 [codes, p[:, None, :].astype(np.int64) + model.n_special_token_in],
                 axis=2)
         n_forced = codes.shape[2]
-        codes = torch.from_numpy(codes).to(dev)
+        codes = torch.from_numpy(codes).to(dev).expand(nq, g, n_forced)
 
         x_enc1 = model.encode_text(x, enc_mask)
         # binary-decomposed prefill: descending pow2 chunks, state threaded
-        st1 = model.empty_state(1, device=dev)
+        st1 = model.empty_state(g, device=dev)
         pre_toks = []
         off = 0
         for c in _pow2_chunks(n_forced):
@@ -352,7 +379,7 @@ class DecodeServer:
             pre_toks.append(toks)
             off += c
         pre_toks = torch.cat(pre_toks)  # (n_forced, q)
-        y1 = model.embed_tokens(pre_toks[-1][:, None, None])[:, 0]  # (1, d)
+        y1 = _tile(model.embed_tokens(pre_toks[-1][:, None, None])[:, 0], self._cfg)  # (g, d)
         self._insert(st1, x_enc1, ca1, y1, n_forced, slot_idx)
         self._slots[slot_idx] = _Slot(rid=rid, t=n_forced, max_len=max_len,
                                       tokens=list(pre_toks.cpu().numpy()))

@@ -10,7 +10,9 @@ updated parameters: tensors by torch name -> the JAX tree's paths and
 layouts, so that a training step compares leaf by leaf. Decode states
 (GLA states with their conv rings, shared or per projection, and int8 ones
 with their row scales; Mamba, Mamba-2 and RWKV6 states), the S0 tuning params and
-the JAX package's int8-quantized weight tree cross as arrays too. Names the
+the JAX package's int8-quantized weight tree cross as arrays too, and so
+do the transformer's KV caches (``TransformerState`` with its scalar
+clocks). Names the
 JAX package's ``torch_key_for`` leaves as they are stay so here too:
 Mamba-2's ``conv_kernel``, ``A_log``, ``dt_bias``, ``D`` and
 ``norm_weight``; Mamba's ``conv_kernel`` (d_inner, d_conv), ``conv_bias``,
@@ -183,7 +185,10 @@ def backbone_state_from_arrays(state, device=None):
     (d_conv, b, d_inner)), a Mamba-2 state (``h`` (b, heads * d_state,
     headdim), ``conv``) or an RWKV6 state (``s`` (b, h, dk, dv), ``shift``
     (b, d)); the JAX package's state dataclasses fit as they
-    are. Layouts are the same on both sides. bfloat16 arrays stay bfloat16,
+    are. A state whose layers are KV caches (``k``, ``v`` (b, h, max_seqlen,
+    d_head) and the scalar clock ``t``), with no ``pos_net``, becomes the
+    transformer's ``TransformerState`` with ``t`` a host int. Layouts are
+    the same on both sides. bfloat16 arrays stay bfloat16,
     everything else keeps its numpy dtype: an int8 state ``s`` stays int8
     and brings its f32 row scales ``s_scale``.
     """
@@ -191,6 +196,7 @@ def backbone_state_from_arrays(state, device=None):
     from lina_speech_tpu_torch.models.gla_layer import GLAState
     from lina_speech_tpu_torch.models.mamba import MambaState
     from lina_speech_tpu_torch.models.rwkv6 import RWKV6State
+    from lina_speech_tpu_torch.models.transformer import KVState, TransformerState
 
     def leaf(a):
         if a is None:
@@ -205,12 +211,16 @@ def backbone_state_from_arrays(state, device=None):
     def one(st):
         if st is None:
             return None
+        if hasattr(st, "t"):
+            return KVState(k=leaf(st.k), v=leaf(st.v), t=int(np.asarray(st.t)))
         if hasattr(st, "h") and hasattr(st, "conv"):
             return MambaState(**{f: leaf(getattr(st, f)) for f in _MAMBA_FIELDS})
         if hasattr(st, "shift"):
             return RWKV6State(**{f: leaf(getattr(st, f)) for f in _RWKV6_FIELDS})
         return GLAState(**{f: leaf(getattr(st, f, None)) for f in _STATE_FIELDS})
 
+    if not hasattr(state, "pos_net"):
+        return TransformerState(layers=tuple(one(st) for st in state.layers))
     return BackboneState(layers=tuple(one(st) for st in state.layers),
                          pos_net=one(state.pos_net))
 
@@ -218,16 +228,20 @@ def backbone_state_from_arrays(state, device=None):
 def backbone_state_to_arrays(state) -> Dict[str, np.ndarray]:
     """The port's ``BackboneState`` -> {"layers/3/conv_q": f32 array, ...}
     (``pos_net/...`` for the cross-attention's block), for comparison with
-    the JAX package's state leaf by leaf."""
+    the JAX package's state leaf by leaf; a ``TransformerState`` gives
+    ``layers/i/k``, ``layers/i/v`` and the clock ``layers/i/t`` as a 0-d
+    array."""
     out = {}
     named = [(f"layers/{i}", st) for i, st in enumerate(state.layers)]
-    named.append(("pos_net", state.pos_net))
+    named.append(("pos_net", getattr(state, "pos_net", None)))
     for prefix, st in named:
         if st is None:
             continue
         for f in dataclasses.fields(st):
             val = getattr(st, f.name)
-            if val is not None:
+            if isinstance(val, int):
+                out[f"{prefix}/{f.name}"] = np.asarray(val, np.float32)
+            elif val is not None:
                 out[f"{prefix}/{f.name}"] = val.detach().float().cpu().numpy()
     return out
 

@@ -1993,3 +1993,68 @@ def test_codec_on_cuda_matches_cpu(cuda, kw):
     for out, r in ((wav, ref), (lat, lat_ref)):
         assert out.shape == r.shape and bool(torch.isfinite(out).all())
         assert float((out - r).abs().max()) <= TOL_CODEC * float(r.abs().max())
+
+
+def test_cfg_generate_kernel_path_matches_plain_path(cuda):
+    """Classifier-free guidance on the card: greedy guided generation in
+    f32 on a small model whose heads the kernels take, at batch 3 (the
+    kernels run at 6 rows), gives the plain path's tokens; every prefill and
+    decode kernel launch runs at the doubled batch."""
+    from lina_speech_tpu_torch.config import build_model, lina_gla_tiny
+    from lina_speech_tpu_torch.generate import generate_batch
+
+    cfg = lina_gla_tiny(mask_text_p=0.1)
+    cfg = dataclasses.replace(cfg, d_model=256, backbone=dataclasses.replace(
+        cfg.backbone, d_model=256, heads=4, pos_type="convolutional"),
+        text_encoder=dataclasses.replace(cfg.text_encoder, dim=256))
+    text = torch.randint(3, 256, (3, 9), generator=torch.Generator().manual_seed(0)).to(cuda)
+    prompt = torch.randint(0, 50, (1, 3, 12), generator=torch.Generator().manual_seed(1)).to(cuda)
+    model = build_model(cfg, device=cuda, seed=3)
+    n_layers = len(model.attentive_rnn.gla_layers())
+    tokens = {}
+    for mode in ("auto", "chunk"):
+        model.set_kernel_mode(mode)
+        gla_cuda.reset_launch_counts()
+        res = generate_batch(model, text, prompt=prompt, max_seqlen=30, first_greedy_quant=0,
+                             force_max_seqlen=True, cfg_coef=2.5)
+        counts = gla_cuda.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if mode == "auto":
+            want.update(gla_chunk_conv=n_layers, gla_decode_conv=n_layers * (30 - 13))
+            assert {b for (b, *_) in gla_cuda.launch_shapes()["gla_decode_conv"]} == {6}
+        assert counts == want
+        tokens[mode] = res.tokens.cpu()
+    assert torch.equal(tokens["auto"], tokens["chunk"])
+
+
+def test_transformer_prefill_matches_decode_on_the_card(cuda):
+    """The softmax transformer (d 256, 4 heads, the cross-attention after
+    block 1 of 2) in f32 on the card: token-by-token decode against its own
+    prefill, and the prefill against the same model on the CPU, logits
+    within 1e-3 of their max; the KV clocks equal the lengths."""
+    from lina_speech_tpu_torch.config import build_model, lina_gla_tiny
+
+    cfg = lina_gla_tiny()
+    cfg = dataclasses.replace(cfg, d_model=256, backbone=dataclasses.replace(
+        cfg.backbone, d_model=256, heads=4, kind="transformer"),
+        text_encoder=dataclasses.replace(cfg.text_encoder, dim=256))
+    g = torch.Generator().manual_seed(0)
+    text = torch.randint(3, 256, (2, 9), generator=g)
+    codes = torch.randint(3, 53, (1, 2, 20), generator=g)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(cfg, device=dev, seed=3)
+        with torch.no_grad():
+            x_enc = model.encode_text(text.to(dev))
+            y = model.embed_tokens(codes.to(dev))
+            full, _, st_full = model.prefill(y, x_enc, model.empty_state(2, device=dev))
+            st, steps = model.empty_state(2, device=dev), []
+            for t in range(y.shape[1]):
+                lg, _, st = model.decode_step(y[:, t], x_enc, st, time_step=t)
+                steps.append(lg)
+        assert st.layers[0].t == st_full.layers[-1].t == 20
+        out[dev.type] = full.cpu(), torch.stack(steps, 1).cpu()
+    full, steps = out["cuda"]
+    scale = float(full.abs().max())
+    assert float((steps - full).abs().max()) <= 1e-3 * scale
+    assert float((full - out["cpu"][0]).abs().max()) <= 1e-3 * float(out["cpu"][0].abs().max())

@@ -224,3 +224,109 @@ def test_strict_flags_renamed_torch_key(released_arch):
     )
     with pytest.raises(KeyError):
         convert_torch_lina(sd, params, strict=True)
+
+
+def _transformer_spk_state_dict(rng, *, d, n_layer, heads, cross_att_layers, n_codebook,
+                                n_txt_vocab, te_layers, spk_inner, spk_heads, spk_layers):
+    """Reference-named state_dict of a Lina model with the softmax
+    transformer backbone and a SimpleSpeakerEncoder, every key and torch
+    shape written out by hand:
+    - TransformerCrossAtt (reference model/transformer.py): ``blocks``
+      ModuleList of MixingBlock(CausalSelfAttention: ``qkv`` Linear with
+      bias and a rotary embedding of (d // heads) // 2 channels, SwiGLU)
+      and one vanilla CrossAttention ``cross_att_<i>`` per cross-attention
+      layer (q/k/v Linears with bias, ln_q/ln_k/ln_v);
+    - SimpleSpeakerEncoder (encoder.py:45-84): ``sa`` ModuleList of
+      MixingBlock(SelfAttention, SwiGLU) at ``dim_inner``, ``in_proj``
+      d -> dim_inner and ``out_proj`` dim_inner -> d, Linears with bias."""
+    sd = {}
+
+    def add(key, *shape):
+        sd["model." + key] = rng.normal(size=shape).astype(np.float32) * 0.02
+
+    def attention_block(prefix, dim, n_heads):
+        add(f"{prefix}.tmix.qkv.weight", 3 * dim, dim)
+        add(f"{prefix}.tmix.qkv.bias", 3 * dim)
+        add(f"{prefix}.tmix.rotary.freqs", ((dim // n_heads) // 2) // 2)
+        for norm in ("norm1", "norm2"):
+            add(f"{prefix}.{norm}.weight", dim)
+            add(f"{prefix}.{norm}.bias", dim)
+        h = dim * 4 // 3
+        add(f"{prefix}.cmix.p_in.weight", 2 * h, dim)
+        add(f"{prefix}.cmix.p_in.bias", 2 * h)
+        add(f"{prefix}.cmix.p_out.weight", dim, h)
+        add(f"{prefix}.cmix.p_out.bias", dim)
+
+    add("txt_embed.weight", n_txt_vocab, d)
+    add("rvq_embed.weight", 1, n_codebook + 3, d)
+    add("logits_head.weight", 1, n_codebook + 3, d)
+    for i in range(te_layers):
+        attention_block(f"txt_encoder.sa.{i}", d, heads)
+    for i in range(n_layer):
+        attention_block(f"attentive_rnn.blocks.{i}", d, heads)
+    for j in range(len(cross_att_layers)):
+        for name in ("q", "k", "v"):
+            add(f"attentive_rnn.cross_att_{j}.{name}.weight", d, d)
+            add(f"attentive_rnn.cross_att_{j}.{name}.bias", d)
+        for name in ("ln_q", "ln_k", "ln_v"):
+            add(f"attentive_rnn.cross_att_{j}.{name}.weight", d)
+            add(f"attentive_rnn.cross_att_{j}.{name}.bias", d)
+    for i in range(spk_layers):
+        attention_block(f"spk_encoder.sa.{i}", spk_inner, spk_heads)
+    add("spk_encoder.in_proj.weight", spk_inner, d)
+    add("spk_encoder.in_proj.bias", spk_inner)
+    add("spk_encoder.out_proj.weight", d, spk_inner)
+    add("spk_encoder.out_proj.bias", d)
+    return sd
+
+
+def test_transformer_and_speaker_encoder_names_load_both_ways():
+    """The transformer's (``blocks.<i>.tmix.qkv``, ``cross_att_<i>``) and
+    the speaker encoder's (``spk_encoder.sa.<i>``, ``in_proj``,
+    ``out_proj``) reference names: the port's model loads the hand-written
+    state_dict with ``strict=True``; the JAX converter consumes the same
+    file strictly; the port's ``jax_params_to_state_dict`` of the JAX params
+    gives back the file's keys; and the two models on those weights give
+    the same logits."""
+    import torch
+
+    from lina_speech_tpu.config import SpeakerEncoderConfig
+    from lina_speech_tpu_torch.config import SpeakerEncoderConfig as TorchSpkConfig
+    from lina_speech_tpu_torch.config import build_model as torch_build
+    from lina_speech_tpu_torch.config import lina_gla_tiny as torch_tiny
+    from lina_speech_tpu_torch.utils.convert import jax_params_to_state_dict
+
+    spk = dict(dim_inner=32, heads=2, n_layers=2, window_length=8)
+
+    def cfg_of(tiny, spk_cls):
+        cfg = tiny()
+        return dataclasses.replace(
+            cfg, spk_encoder=spk_cls(**spk),
+            backbone=dataclasses.replace(cfg.backbone, kind="transformer", n_layer=3,
+                                         cross_att_layers=(0, 2)))
+
+    cfg = cfg_of(lina_gla_tiny, SpeakerEncoderConfig)
+    sd = _transformer_spk_state_dict(
+        np.random.default_rng(9), d=cfg.d_model, n_layer=3, heads=cfg.backbone.heads,
+        cross_att_layers=(0, 2), n_codebook=cfg.n_codebook, n_txt_vocab=cfg.n_txt_vocab,
+        te_layers=cfg.text_encoder.n_layers, spk_inner=32, spk_heads=2, spk_layers=2)
+    tm = torch_build(cfg_of(torch_tiny, TorchSpkConfig), device="cpu")
+    tm.load_state_dict({k.removeprefix("model."): torch.from_numpy(v) for k, v in sd.items()},
+                       strict=True)
+    model = build_model(cfg)
+    b, m, n = 2, 7, 9
+    x = np.random.default_rng(1).integers(3, cfg.n_txt_vocab, size=(b, m))
+    y = np.random.default_rng(2).integers(3, cfg.n_codebook + 3, size=(b, n, 1))
+    batch = (jnp.asarray(x), jnp.asarray(y), jnp.ones((b, m, m), bool),
+             jnp.ones((b, n, m), bool), jnp.ones((b, n), bool))
+    params = jax.jit(model.init)(jax.random.PRNGKey(0), *batch)
+    out = convert_torch_lina(sd, params, strict=True)
+    back = jax_params_to_state_dict(out)
+    assert set(back) == {k.removeprefix("model.") for k in sd
+                         if not k.endswith("rotary.freqs")}
+    np.testing.assert_array_equal(back["attentive_rnn.blocks.1.tmix.qkv.weight"].numpy(),
+                                  sd["model.attentive_rnn.blocks.1.tmix.qkv.weight"])
+    jlogits = np.asarray(model.apply(out, *batch)[0])
+    with torch.no_grad():
+        logits = tm(*(torch.from_numpy(np.array(a)) for a in batch))[0].numpy()
+    assert np.abs(logits - jlogits).max() <= 1e-4 * np.abs(jlogits).max()

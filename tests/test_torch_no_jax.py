@@ -7,7 +7,10 @@ import of them fail), imports every module of the port (``train/``,
 lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``), one train
 step, one S0 tuning step, ``examples/train_torch.py``, and a generate and a
 train step of the simple-GLA (no convs), Mamba-2, RWKV6 and Mamba (v1,
-blind and interleaved) backbones (``models/simple_gla.py``,
+blind and interleaved) backbones and of the softmax transformer with a
+speaker encoder (``models/transformer.py``, ``SimpleSpeakerEncoder`` in
+``models/encoder.py``; its generate with a prompt and classifier-free
+guidance, and a guided server on the GLA model) (``models/simple_gla.py``,
 ``models/mamba.py`` with ``AttentiveMamba``, ``CrossAttMamba``,
 ``ops/mamba.py`` and ``ops/mamba_cuda.py``, ``models/rwkv6.py`` with
 ``ops/rwkv6.py`` and ``ops/rwkv6_cuda.py``), and the TTS pipeline on a tiny
@@ -94,6 +97,25 @@ for kw, cls in ((dict(kind="simple_gla", use_short_conv=False), None),
     state = create_train_state(variant, TrainConfig(n_warmup_steps=1, n_training_steps=4))
     state, metrics = make_train_step(variant)(state, batch)
     assert state.step == 1 and float(metrics["grad_norm"]) > 0
+# the softmax transformer with a speaker encoder, and classifier-free guidance
+from lina_speech_tpu_torch.config import SpeakerEncoderConfig
+from lina_speech_tpu_torch.models.transformer import TransformerCrossAtt
+cfg = lina_gla_tiny(mask_text_p=0.1, spk_encoder=SpeakerEncoderConfig(
+    dim_inner=32, heads=2, n_layers=1, window_length=4))
+cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kind="transformer"))
+variant = build_model(cfg, device="cpu")
+assert isinstance(variant.attentive_rnn, TransformerCrossAtt)
+res = generate_batch(variant, torch.randint(3, 256, (2, 5)), prompt=torch.randint(0, 50, (1, 2, 6)),
+                     max_seqlen=10, k=1, force_max_seqlen=True, cfg_coef=2.0)
+assert res.tokens.shape == (1, 2, 10)
+state = create_train_state(variant, TrainConfig(n_warmup_steps=1, n_training_steps=4))
+state, metrics = make_train_step(variant)(state, batch, torch.Generator().manual_seed(0))
+assert state.step == 1 and float(metrics["grad_norm"]) > 0
+srv = DecodeServer(build_model(lina_gla_tiny(mask_text_p=0.1), device="cpu"), n_slots=2,
+                   max_text_len=8, chunk=4, cfg_coef=2.0)
+for n in (3, 5, 4):
+    srv.submit(list(range(3, 3 + n)), prompt=[[7, 8, 9]], max_len=10)
+assert len(srv.run()) == 3 and srv._x_enc.shape[0] == 4
 # the TTS pipeline: the codec's encoder for a prompt, synthesis, streaming
 from lina_speech_tpu_torch.codec.wavtokenizer import WavTokenizerConfig, build_wavtokenizer
 from lina_speech_tpu_torch.data.tokenizer import TextTokenizer
@@ -127,7 +149,7 @@ def test_port_imports_no_jax():
 
 def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
-    ``models/mamba.py``, ``models/simple_gla.py``, the RWKV6 modules,
+    ``models/mamba.py``, ``models/simple_gla.py``, ``models/transformer.py``, the RWKV6 modules,
     ``ops/mamba.py``, ``ops/mamba_cuda.py``, ``utils/int8_timeline.py``,
     the codec and ``pipeline.py`` among them),
     ``chip_smoke.py`` and the port's examples, read as source:
@@ -143,6 +165,8 @@ def test_sources_import_no_jax():
     for must in ("lina_speech_tpu_torch/utils/quantize.py", "lina_speech_tpu_torch/ops/qlinear.py",
                  "lina_speech_tpu_torch/models/mamba.py",
                  "lina_speech_tpu_torch/models/simple_gla.py",
+                 "lina_speech_tpu_torch/models/transformer.py",
+                 "lina_speech_tpu_torch/models/encoder.py",
                  "lina_speech_tpu_torch/models/rwkv6.py", "lina_speech_tpu_torch/ops/rwkv6.py",
                  "lina_speech_tpu_torch/ops/rwkv6_cuda.py",
                  "lina_speech_tpu_torch/ops/mamba.py", "lina_speech_tpu_torch/ops/mamba_cuda.py",

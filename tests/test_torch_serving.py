@@ -228,9 +228,11 @@ def test_batch_axis():
                          ids=lambda kw: next(iter(kw)))
 def test_unported_server_options_raise(kw):
     """int8 weights and states are ported (tests/test_torch_quant.py); an
-    int4 state, CFG and a mesh are not, and there is no int4 weight."""
+    int4 state and a mesh are not, and there is no int4 weight. CFG is
+    ported (tests/test_torch_cfg.py) and raises ValueError here, as the JAX
+    server does, because this model has no mask token (mask_text_p 0)."""
     tm = torch_build(torch_tiny(), device="cpu")
-    error = ValueError if "weight_quant" in kw else NotImplementedError
+    error = ValueError if {"weight_quant", "cfg_coef"} & set(kw) else NotImplementedError
     with pytest.raises(error):
         DecodeServer(tm, n_slots=2, **kw)
 

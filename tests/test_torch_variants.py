@@ -306,14 +306,18 @@ def test_mamba2_has_no_lazy_window_and_no_s0_tuning():
 
 def test_unported_kinds_still_raise():
     """What the port has not built yet raises, naming the ROADMAP item that
-    ports it: the softmax transformer and the speaker encoder (item 9d)."""
-    cfg = torch_tiny()
+    ports it: context parallelism (item 11) and rematerialization (item 6).
+    Every backbone kind of the JAX package and the speaker encoder build."""
+    for option, item in ((dict(cp_axis="cp"), "item 11"), (dict(remat=True), "item 6")):
+        cfg = torch_tiny()
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, **option))
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+            torch_build(cfg, device="cpu")
+    cfg = torch_tiny(spk_encoder=SpeakerEncoderConfig(dim_inner=32, heads=2, n_layers=1))
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kind="transformer"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9d"):
-        torch_build(cfg, device="cpu")
-    cfg = dataclasses.replace(torch_tiny(), spk_encoder=SpeakerEncoderConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9d"):
-        torch_build(cfg, device="cpu")
+    model = torch_build(cfg, device="cpu")
+    assert model.spk_encoder is not None and type(model.attentive_rnn).__name__ == \
+        "TransformerCrossAtt"
 
 
 # ---------------------------------------------------- the layer's options
