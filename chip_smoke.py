@@ -79,8 +79,31 @@ Phases, in order; any failure raises and exits non-zero:
    the model takes no gradient and does not move, each of the 48 S0 params
    has a finite non-zero gradient (the kernel's ds0, chunked route), held
    against the plain path on one micro-step;
+8a. CLI phase: ``python -m lina_speech_tpu_torch.train.cli fit`` run
+   in-process on configs/lina_gla_169m.yaml as it stands (the flagship,
+   synthetic b8, audio 128-512) for 3 steps with --log-every 1 and a
+   checkpoint directory: 359,302,978 parameters, finite losses and grad
+   norms, 25 + 25 launches a step; the final checkpoint restored onto the
+   card equal to the live state bit for bit (parameters, both Adam moments,
+   the step); --resume --steps 4 starts at step 3 and writes step_4; the
+   directory (about 4.3 GB a checkpoint) is removed at the end;
+8b. data phase: 16 WAV files made from a seed (2-6 s, PCM16 and float32,
+   two at 16 kHz named <name>@16000.wav) through
+   scripts/prepare_dataset_torch.py on the card into two npz shards with
+   the full-width codec (random weights from a seed); every row's codes
+   equal the card codec's encode and are held against the same codec on
+   the CPU as the pipeline phase holds codes; fit trains the flagship two
+   steps on data.kind npz over those shards (a YAML written by the phase,
+   the flagship's model section unchanged);
+8c. remat phase: the flagship built twice from seed 0, backbone.remat off
+   and on, one training forward and backward each on one b8 t512 batch with
+   one generator state: 25 forward and 25 backward launches without remat,
+   49 (25 + 24 recomputed; the pos_net is not rematerialized) and 25 with
+   it; parameter gradients equal bit for bit (a second run without remat
+   gives the spread to fall back on if a kernel proves non-deterministic);
+   the peak device memory and warm ms of both, and a profile of each;
 9. launched shapes phase: every (batch, length, initial state, wanted
-   gradients) on which phases 7 and 8 launched the forward and backward
+   gradients) on which phases 7 to 8c launched the forward and backward
    kernels is held against the plain version as in phase 6, so no shape
    that trained went unchecked at the kernel's own level.
 After phase 5, on the flagship of phase 4, the TTS pipeline (pipeline_phase):
@@ -3160,12 +3183,14 @@ def read_launches(gla_cuda):
 
 
 def launched_shapes_phase(torch, gla_cuda):
-    """Every (batch, length, initial state, wanted gradients) the training
-    and tuning phases gave the forward and backward kernels is held against
-    the plain version now, unless the backward kernel phase held it."""
+    """Every (batch, length, initial state, wanted gradients) the training,
+    tuning, CLI, data and remat phases gave the forward and backward kernels
+    is held against the plain version now, unless the backward kernel phase
+    held it."""
     require(LAUNCHED, "the training and tuning phases noted no launch")
     new = sorted(LAUNCHED - HELD, key=str)
-    print(f"the training and tuning phases launched gla_chunk_conv and its backward on "
+    print(f"the training, tuning, CLI, data and remat phases launched gla_chunk_conv and its "
+          f"backward on "
           f"{len(LAUNCHED)} shapes, {len(new)} of them not held yet:")
     for b, t, st, need_ds0, need_taps in new:
         hold_training_shape(torch, gla_cuda, b, t, st, need_ds0, need_taps)
@@ -3464,6 +3489,372 @@ def tuning_phase(torch, np, gla_cuda, model, cfg, card_line, fwd="gla_chunk_conv
     print(f"  {len(moved)} S0 params moved; the model's {len(before)} tensors took no "
           "gradient and did not move")
     return launches
+
+
+# ------------------------------------------- the training entry point and real data
+CLI_CONFIG = os.path.join(ROOT, "configs", "lina_gla_169m.yaml")
+CLI_STEPS = 3  # fit's steps before the checkpoint is restored and resumed
+DATA_WAVS, DATA_SEED, DATA_SHARD = 16, 24, 8  # WAV files, their seed, utterances a shard
+REMAT_AUDIO = 510  # codes a row: collated with head and tail to t 512
+
+
+def scratch_dir(name):
+    """An empty directory ``build/chip_smoke/<name>`` (git-ignored) for a
+    phase's files; the phase removes it when it ends."""
+    import shutil
+
+    path = os.path.join(ROOT, "build", "chip_smoke", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def fit_main(cli, argv):
+    """``cli.main(argv)`` with its output echoed; returns (the final
+    TrainState, what it printed)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = cli.main(argv)
+    print(buf.getvalue(), end="")
+    return state, buf.getvalue()
+
+
+def log_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def hold_fit_log(np, records, steps):
+    """The JSONL records of ``fit`` at ``--log-every 1``: one a step, with a
+    finite loss and a finite, non-zero grad_norm."""
+    require([r["step"] for r in records] == list(steps), f"logged steps {records}")
+    for r in records:
+        require(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0,
+                f"step {r['step']}: loss {r['loss']}, grad_norm {r['grad_norm']}")
+
+
+def cli_phase(torch, np, gla_cuda, card_line):
+    """``python -m lina_speech_tpu_torch.train.cli fit`` in-process on
+    configs/lina_gla_169m.yaml as it stands (the flagship, synthetic b8,
+    audio 128-512) for CLI_STEPS steps with a checkpoint directory: the
+    parameter count, finite losses and grad norms, 25 + 25 row-1 launches a
+    step; the final checkpoint restored onto the card equal to the live
+    state bit for bit (parameters, both Adam moments, the step); then
+    ``--resume --steps CLI_STEPS+1``, which must start at step CLI_STEPS and
+    write step_<CLI_STEPS+1>. The directory (about 4.3 GB a checkpoint) is
+    removed at the end. Returns the launch counts."""
+    import shutil
+
+    from lina_speech_tpu_torch.train import cli
+    from lina_speech_tpu_torch.utils.checkpoint import (
+        STATE_FILE, checkpoint_steps, restore_checkpoint,
+    )
+
+    started = time.perf_counter()
+    ckdir = scratch_dir("cli")
+    log = os.path.join(ckdir, "log.jsonl")
+    argv = ["fit", "--config", CLI_CONFIG, "--log-every", "1", "--ckpt-dir", ckdir,
+            "--log-file", log]
+    total = dict.fromkeys(read_counts(), 0)
+    try:
+        free = shutil.disk_usage(ckdir).free
+        print(f"cli phase: fit --config {os.path.relpath(CLI_CONFIG, ROOT)} --steps {CLI_STEPS} "
+              f"on the card ({free / 2**30:.1f} GiB free for the checkpoints)")
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _ = fit_main(cli, argv + ["--steps", str(CLI_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(gla_cuda)
+        expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS * CLI_STEPS,
+                        gla_chunk_conv_bwd=N_GLA_LAYERS * CLI_STEPS)
+        expect_chunked_route(gla_cuda, "gla_chunk_conv_bwd", launches)
+        add_launches(total, launches)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        require(n_params == N_PARAMS, f"{n_params} parameters, expected {N_PARAMS}")
+        records = log_records(log)
+        hold_fit_log(np, records, range(CLI_STEPS))
+        for r in records:
+            print(f"  step {r['step']}: loss {r['loss']:.4f}, grad_norm {r['grad_norm']:.4f}, "
+                  f"{r['step_time_s'] * 1e3:.1f} ms [{card_line}]")
+        size = os.path.getsize(os.path.join(ckdir, f"step_{CLI_STEPS}", STATE_FILE))
+        print(f"  fit: {n_params:,} parameters, {CLI_STEPS} steps and the checkpoint in "
+              f"{wall:.1f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB; checkpoint {size / 1e9:.2f} GB [{card_line}]")
+        require(checkpoint_steps(ckdir) == [CLI_STEPS], f"checkpoints {checkpoint_steps(ckdir)}")
+
+        t0 = time.perf_counter()
+        full = restore_checkpoint(os.path.join(ckdir, f"step_{CLI_STEPS}"), map_location=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(full["step"] == state.step == CLI_STEPS, f"step {full['step']} / {state.step}")
+        differ = [n for n, p in state.model.named_parameters()
+                  if not torch.equal(full["model"][n], p)]
+        live, saved = state.optimizer.state_dict()["state"], full["optimizer"]["state"]
+        require(sorted(live) == sorted(saved) == list(range(len(list(state.model.parameters())))),
+                f"optimizer state of {len(live)} / {len(saved)} tensors")
+        moments = [(i, k) for i in live for k in ("step", "exp_avg", "exp_avg_sq")
+                   if not torch.equal(live[i][k].to(saved[i][k].device), saved[i][k])]
+        require(not differ and not moments,
+                f"restored state differs: parameters {differ[:4]}, moments {moments[:4]}")
+        print(f"  restored step_{CLI_STEPS} onto the card in {restore_s:.1f} s: {n_params:,} "
+              f"parameters, both Adam moments of {len(live)} tensors and the step equal to the "
+              "live state bit for bit")
+        del full, live, saved, state
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        state, out = fit_main(cli, argv + ["--steps", str(CLI_STEPS + 1), "--resume"])
+        torch.cuda.synchronize()
+        launches = read_launches(gla_cuda)
+        expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS, gla_chunk_conv_bwd=N_GLA_LAYERS)
+        expect_chunked_route(gla_cuda, "gla_chunk_conv_bwd", launches)
+        add_launches(total, launches)
+        require(f"resuming from step {CLI_STEPS}" in out, "the resumed run did not say its step")
+        hold_fit_log(np, log_records(log)[CLI_STEPS:], [CLI_STEPS])
+        require(state.step == CLI_STEPS + 1
+                and checkpoint_steps(ckdir) == [CLI_STEPS, CLI_STEPS + 1],
+                f"resumed to step {state.step}, checkpoints {checkpoint_steps(ckdir)}")
+        print(f"  --resume: started at step {CLI_STEPS}, wrote step_{CLI_STEPS + 1}")
+        del state
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"cli phase took {time.perf_counter() - started:.1f} s [{card_line}]")
+    return total
+
+
+def write_wav(path, x, sample_rate, float32):
+    """A mono RIFF/WAVE file: IEEE float32, or PCM16."""
+    import struct
+
+    import numpy as np
+
+    if float32:
+        data, code, bits = x.astype("<f4").tobytes(), 3, 32
+    else:
+        data, code, bits = (np.clip(x, -1, 1) * 32767).astype("<i2").tobytes(), 1, 16
+    fmt = b"fmt " + struct.pack("<IHHIIHH", 16, code, 1, sample_rate,
+                                sample_rate * bits // 8, bits // 8, bits)
+    body = fmt + b"data" + struct.pack("<I", len(data)) + data
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WAVE" + body)
+
+
+def data_phase(torch, np, gla_cuda, card_line):
+    """The real-data side: DATA_WAVS WAV files made from DATA_SEED, 2-6 s of
+    noise under a voiced-like carrier, PCM16 and float32, two of them at 16
+    kHz named ``<name>@16000.wav``; scripts/prepare_dataset_torch.py
+    tokenizes them on the card into two shards with the full-width codec
+    (WavTokenizerConfig(), random weights from DATA_SEED); every row's codes
+    equal the card codec's encode of the same audio and are held against
+    the same codec on the CPU (latents within TOL_CODEC of their own max,
+    codes equal but for near-ties, as pipeline_phase holds them); then fit
+    trains the flagship (the YAML's model section unchanged) two steps on
+    ``data.kind: npz`` over the shards. Returns fit's launch counts."""
+    import copy
+    import importlib.util
+    import shutil
+
+    import yaml
+
+    from lina_speech_tpu_torch.codec.vq import vq_encode
+    from lina_speech_tpu_torch.codec.wavtokenizer import WavTokenizerConfig, build_wavtokenizer
+    from lina_speech_tpu_torch.data.dataset import TokenizedTTSDataset
+    from lina_speech_tpu_torch.train import cli
+
+    started = time.perf_counter()
+    work = scratch_dir("data")
+    total = dict.fromkeys(read_counts(), 0)
+    try:
+        rng = np.random.default_rng(DATA_SEED)
+        lines, seconds = [], 0.0
+        for i in range(DATA_WAVS):
+            rate = 16000 if i in (3, 10) else 24000
+            n = int(rate * (2.0 + 4.0 * rng.random()))
+            t = np.arange(n) / rate
+            x = (0.3 * np.sin(2 * np.pi * (110 + 20 * i) * t) * (1 + np.sin(2 * np.pi * 3 * t))
+                 + 0.05 * rng.normal(size=n)) * 0.6
+            name = f"utt{i:02d}@16000.wav" if rate == 16000 else f"utt{i:02d}.wav"
+            write_wav(os.path.join(work, name), x.astype(np.float32), rate, float32=i % 2 == 1)
+            lines.append(f"{os.path.join(work, name)}\t{PIPE_TEXT.split()[i % 9]} utterance {i}\n")
+            seconds += n / rate
+        manifest = os.path.join(work, "files.tsv")
+        with open(manifest, "w") as f:
+            f.writelines(lines)
+        spec = importlib.util.spec_from_file_location(
+            "prepare_dataset_torch", os.path.join(ROOT, "scripts", "prepare_dataset_torch.py"))
+        prep = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(prep)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = prep.main(["--manifest", manifest, "--out", os.path.join(work, "shards"),
+                            "--shard-size", str(DATA_SHARD), "--seed", str(DATA_SEED)])
+        prep_s = time.perf_counter() - t0
+        require(len(shards) == DATA_WAVS // DATA_SHARD, f"shards {shards}")
+        ds = TokenizedTTSDataset(npz_paths=shards)
+        require(len(ds) == DATA_WAVS, f"{len(ds)} utterances in the shards")
+        print(f"data phase: prepare_dataset_torch.py tokenized {DATA_WAVS} WAVs ({seconds:.1f} s "
+              f"of audio, PCM16 and float32, two at 16 kHz) into {len(shards)} shards on the "
+              f"card in {prep_s:.1f} s (the codec's build included) [{card_line}]")
+
+        wcfg = WavTokenizerConfig()
+        wavtok = build_wavtokenizer(wcfg, seed=DATA_SEED)
+        cpu_codec = copy.deepcopy(wavtok).cpu()
+        worst = 0.0
+        for line, item in zip(lines, ds.items):
+            path, text = line.rstrip("\n").split("\t")
+            require(item["text"] == text, f"{path}: text {item['text']!r}")
+            audio = torch.from_numpy(prep.load_utterance(path, wcfg.sample_rate,
+                                                         wcfg.hop_length))[None]
+            with torch.no_grad():
+                card_latents = wavtok.encoder(audio.to(DEVICE))
+                card_codes = vq_encode(card_latents, wavtok.quantizer, wcfg.n_q)
+                cpu_latents = cpu_codec.encoder(audio)
+                cpu_codes = vq_encode(cpu_latents, cpu_codec.quantizer, wcfg.n_q)
+            shard_codes = torch.from_numpy(item["audio_token"])[:, None]
+            require(tuple(shard_codes.shape) == (wcfg.n_q, 1, audio.shape[1] // wcfg.hop_length)
+                    and torch.equal(shard_codes, card_codes.cpu()),
+                    f"{path}: the shard's codes are not the card codec's encode")
+            err = max_err(card_latents.cpu(), cpu_latents)
+            ref = float(cpu_latents.abs().max())
+            worst = max(worst, err / ref)
+            check(f"{os.path.basename(path)} latents", err, TOL_CODEC * ref)
+            hold_codes(shard_codes, cpu_codes, card_latents, cpu_latents,
+                       cpu_codec.quantizer.embed[0])
+        print(f"  {DATA_WAVS} rows: the shards' codes equal the card codec's, held against the "
+              f"CPU's (latents within {worst:.2e} of their own max)")
+        del wavtok, cpu_codec
+
+        with open(CLI_CONFIG) as f:
+            raw = yaml.safe_load(f)
+        raw["data"] = {"kind": "npz", "npz_paths": shards, "quant_layer": [0],
+                       "batch_size": TRAIN_BATCH}
+        config = os.path.join(work, "npz.yaml")
+        with open(config, "w") as f:
+            yaml.safe_dump(raw, f)
+        log = os.path.join(work, "log.jsonl")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, _ = fit_main(cli, ["fit", "--config", config, "--steps", "2", "--log-every", "1",
+                                  "--log-file", log])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(gla_cuda)
+        expect_launches(launches, gla_chunk_conv=2 * N_GLA_LAYERS,
+                        gla_chunk_conv_bwd=2 * N_GLA_LAYERS)
+        expect_chunked_route(gla_cuda, "gla_chunk_conv_bwd", launches)
+        add_launches(total, launches)
+        records = log_records(log)
+        hold_fit_log(np, records, range(2))
+        require(sum(p.numel() for p in state.model.parameters()) == N_PARAMS, "parameters")
+        print(f"  fit on the npz shards: the flagship, 2 steps in {wall:.1f} s (build included), "
+              f"losses {[round(r['loss'], 4) for r in records]}, grad norms "
+              f"{[round(r['grad_norm'], 4) for r in records]} [{card_line}]")
+        del state
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"data phase took {time.perf_counter() - started:.1f} s [{card_line}]")
+    return total
+
+
+def train_grads(torch, model, batch, seed):
+    """:func:`model_grads` in training mode, as make_train_step runs the
+    forward: dropout and text masking from a generator seeded with
+    ``seed``."""
+    model.train()
+    model.set_generator(torch.Generator(device=DEVICE).manual_seed(seed))
+    try:
+        return model_grads(torch, model, batch)
+    finally:
+        model.eval()
+
+
+def remat_phase(torch, np, gla_cuda, card_line):
+    """``backbone.remat``: the flagship built twice from seed 0, remat off
+    and on, one training forward and backward each on the same b8 batch (t
+    512) with the same generator: 25 gla_chunk_conv launches and 25
+    backwards without remat, 49 (the 24 encoder and decoder blocks
+    recomputed; the pos_net is not rematerialized, as in JAX) and 25 with
+    it; parameter gradients with equal bits (a second run without remat
+    gives the spread to fall back on, should a kernel prove
+    non-deterministic); the peak device memory and the warm ms (each
+    model's second run) of both, and a profile of a third run of each.
+    Returns the launch counts."""
+    from lina_speech_tpu_torch.config import build_model, lina_gla_169m
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+
+    started = time.perf_counter()
+    total = dict.fromkeys(read_counts(), 0)
+    flagship = lina_gla_169m(compute_dtype="bfloat16")
+    batch = batch_to_device(next(synthetic_tts_batches(
+        batch_size=TRAIN_BATCH, n_codebook=flagship.n_codebook, min_audio_len=REMAT_AUDIO,
+        max_audio_len=REMAT_AUDIO, seed=7)), DEVICE)
+    t = batch["y_mask"].shape[1]
+    require(t == 512, f"batch t {t}")
+    grads, peaks, times = {}, {}, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(flagship, backbone=dataclasses.replace(
+            flagship.backbone, remat=remat))
+        model = build_model(cfg, device=DEVICE, seed=0)
+        require(model.attentive_rnn.remat == remat, "remat not set")
+        runs = ("plain", "plain again") if not remat else ("remat", "remat again")
+        for run in runs:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, g = train_grads(torch, model, batch, seed=5)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = read_launches(gla_cuda)
+            recomputed = 2 * cfg.backbone.n_layer if remat else 0
+            expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS + recomputed,
+                            gla_chunk_conv_bwd=N_GLA_LAYERS)
+            expect_chunked_route(gla_cuda, "gla_chunk_conv_bwd", launches)
+            add_launches(total, launches)
+            grads[run], peaks[run], times[run] = g, peak, ms
+            print(f"  {run}: loss {loss:.6f}, forward and backward {ms:.1f} ms, peak device "
+                  f"memory above the model {peak / 2**30:.2f} GiB ({peak} bytes) [{card_line}]")
+        profiled(torch, lambda: train_grads(torch, model, batch, seed=5),
+                 f"forward and backward b{TRAIN_BATCH} t{t}, remat {remat}", top=6,
+                 groups=TRAIN_GROUPS[:5])
+        del model
+        torch.cuda.empty_cache()
+    ref, again, got = grads["plain"], grads["plain again"], grads["remat"]
+    spread = {n: float((again[n] - ref[n]).abs().max()) for n in ref}
+    moved = {n: max(float((got[n] - ref[n]).abs().max()),
+                    float((grads["remat again"][n] - ref[n]).abs().max())) for n in ref}
+    noisy = sorted(n for n, s in spread.items() if s > 0)
+    if not noisy:
+        require(not any(moved.values()),
+                f"remat changes gradients bit for bit: {[n for n, v in moved.items() if v][:6]}")
+        print(f"  gradients: all {len(ref)} parameter tensors equal bit for bit with and without "
+              "remat (two runs each)")
+    else:
+        print(f"  two runs without remat differ on {len(noisy)} tensors (a non-deterministic "
+              f"kernel): {noisy[:8]}")
+        over = [n for n in ref if moved[n] > spread[n]]
+        require(not over, f"remat moves gradients beyond the spread of two runs: {over[:6]}")
+        print(f"  gradients with remat within that spread on all {len(ref)} tensors")
+    require(all(bool(torch.isfinite(v).all()) for v in got.values()), "non-finite gradients")
+    print(f"  b{TRAIN_BATCH} t{t}, warm (each second run): forward and backward "
+          f"{times['plain again']:.1f} ms without remat, {times['remat again']:.1f} ms with; "
+          f"peak device memory above the model {peaks['plain again'] / 2**30:.2f} GiB without, "
+          f"{peaks['remat again'] / 2**30:.2f} GiB with [{card_line}]")
+    del grads, ref, again, got
+    torch.cuda.empty_cache()
+    print(f"remat phase took {time.perf_counter() - started:.1f} s [{card_line}]")
+    return total
 
 
 # ------------------------------------------- GLA layers without per-projection convs
@@ -6143,9 +6534,12 @@ def main():
     model, cfg, train_launches, _ = phase(training_phase, torch, np, gla_cuda, card_line)
     add_launches(launches, train_launches)
     add_launches(launches, phase(tuning_phase, torch, np, gla_cuda, model, cfg, card_line))
-    phase(launched_shapes_phase, torch, gla_cuda)
-    del model
+    del model, _
     torch.cuda.empty_cache()
+    add_launches(launches, phase(cli_phase, torch, np, gla_cuda, card_line))
+    add_launches(launches, phase(data_phase, torch, np, gla_cuda, card_line))
+    add_launches(launches, phase(remat_phase, torch, np, gla_cuda, card_line))
+    phase(launched_shapes_phase, torch, gla_cuda)
     phase(chunk_bwd_kernel_phase, torch, gla_cuda, summary)
     phase(decode_kernel_phase, torch, gla_cuda, summary)
     add_launches(launches, phase(simple_gla_phase, torch, np, gla_cuda, card_line))

@@ -7,9 +7,11 @@ of the JAX package: the GLA family, ``kind="gla"`` (with ``cross_att_pp``,
 and with ``cross_att_layers`` the interleaved CrossAttGLA),
 ``"simple_gla"`` and ``"mamba2"``; ``"rwkv6"``; ``"mamba"`` (Mamba v1,
 with ``cross_att_layers`` the interleaved CrossAttMamba); the softmax
-``"transformer"``. It builds the speaker encoder too. ``cp_axis`` and
-``remat`` raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+``"transformer"``. It builds the speaker encoder too. ``remat`` is taken
+by the kinds the JAX package gives it to (``"gla"`` without
+``cross_att_layers``, and ``"simple_gla"``) and ignored by the others, as
+there; ``cp_axis`` raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -130,9 +132,6 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     if b.cp_axis is not None:
         raise NotImplementedError(
             "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
-    if b.remat:
-        raise NotImplementedError(
-            "rematerialization is not ported yet (ROADMAP.md Queue 1 item 6)")
 
     if device is None:
         if not torch.cuda.is_available():
@@ -142,11 +141,12 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         device = "cuda"
 
     # as the JAX package's build_model (config.py:132-226): only the
-    # AttentiveGLA of kind "gla" takes state_dtype, simple-GLA takes
-    # use_short_conv but not expand_k / expand_v, RWKV6 and Mamba none of
-    # the three; the interleaved stacks take no blind / PP options; the
-    # transformer takes its width, heads, cross_att_layers (default the
-    # middle layer) and dropout_att, and nothing of kernel_mode
+    # AttentiveGLA of kind "gla" takes state_dtype, it and simple-GLA take
+    # remat, simple-GLA takes use_short_conv but not expand_k / expand_v,
+    # RWKV6 and Mamba none of the three; the interleaved stacks take no
+    # blind / PP options; the transformer takes its width, heads,
+    # cross_att_layers (default the middle layer) and dropout_att, and
+    # nothing of kernel_mode
     dtype = torch_dtype(cfg.compute_dtype)
     common = dict(d_model=b.d_model, n_layer=b.n_layer, heads=b.heads, dropout=b.dropout,
                   kernel_mode=b.kernel_mode, dtype=dtype)
@@ -158,11 +158,11 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
                           expand_v=b.expand_v, chunk_size=b.chunk_size, **common)
     elif b.kind == "gla":
         rnn = AttentiveGLA(use_short_conv=b.use_short_conv, expand_k=b.expand_k,
-                           expand_v=b.expand_v, chunk_size=b.chunk_size,
+                           expand_v=b.expand_v, chunk_size=b.chunk_size, remat=b.remat,
                            state_dtype=torch_dtype(b.state_dtype), **stack, **common)
     elif b.kind == "simple_gla":
         rnn = AttentiveSimpleGLA(use_short_conv=b.use_short_conv, chunk_size=b.chunk_size,
-                                 **stack, **common)
+                                 remat=b.remat, **stack, **common)
     elif b.kind == "rwkv6":
         rnn = AttentiveRWKV6(**stack, **common)
     elif b.kind == "mamba" and b.cross_att_layers:
@@ -229,9 +229,10 @@ def _dataclass_from_dict(cls, d: Dict[str, Any]):
 
 
 def load_config(path: str) -> Dict[str, Any]:
-    """Load a YAML config's model section (``data.quant_layer`` overrides
-    ``model.quant_layer``, as in the JAX package). The ``train`` section is
-    returned as a plain dict until the training slice is ported."""
+    """Load a YAML config: ``{"model": ModelConfig, "train": TrainConfig,
+    "data": dict}``, with ``data.quant_layer`` overriding
+    ``model.quant_layer`` (reference train_lina.py:125-127), as in the JAX
+    package."""
     import yaml
 
     with open(path) as f:
@@ -240,5 +241,7 @@ def load_config(path: str) -> Dict[str, Any]:
     data_d = raw.get("data", {})
     if "quant_layer" in data_d:
         model_d["quant_layer"] = data_d["quant_layer"]
+    from lina_speech_tpu_torch.train.harness import TrainConfig
+
     return {"model": _dataclass_from_dict(ModelConfig, model_d),
-            "train": raw.get("train", {}), "data": data_d}
+            "train": _dataclass_from_dict(TrainConfig, raw.get("train", {})), "data": data_d}

@@ -13,6 +13,12 @@ interleaved scaffold (JAX ``InterleavedCrossAtt``): a single stack with a
 vanilla CrossAttention after the listed layers, per-layer states and no
 pos_net; :class:`CrossAttGLA` (reference gla.py:367-420) and
 ``CrossAttMamba`` (``models/mamba.py``) plug into it.
+
+Rematerialization (``remat``, JAX ``nn.remat`` per block): in training
+mode, without an initial state, each encoder and decoder block of an
+:class:`AttentiveGLA` runs under :func:`checkpoint_block`, which drops its
+activations after the forward and recomputes them in the backward (the
+cross-attention and its pos_net are not rematerialized, as in JAX).
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
-from lina_speech_tpu_torch.models.base_blocks import MixingBlock, SwiGLU
+from lina_speech_tpu_torch.models.base_blocks import Dropout, MixingBlock, SwiGLU
 from lina_speech_tpu_torch.models.crossatt import (
     BlindCrossAttention, CrossAttention, CrossAttentionPP,
 )
@@ -81,6 +88,38 @@ def add_lazy_buffers(state: BackboneState, window: int,
         pos_net=one(state.pos_net, None) if state.pos_net is not None else None)
 
 
+def checkpoint_block(block: nn.Module, x: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``block(x, **kwargs)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    the block's activations are dropped after the forward and recomputed in
+    the backward, with the same gradients.
+
+    The recompute must draw the dropout masks the forward drew. The block's
+    :class:`Dropout` modules draw from an explicit ``torch.Generator``, and
+    checkpoint's ``preserve_rng_state`` restores only the global CPU and
+    CUDA generators, so the state of each of those generators is taken
+    before the forward, set back for the recompute and returned to where
+    the backward found it afterwards."""
+    gens = list({id(m.generator): m.generator for m in block.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    before = [g.get_state() for g in gens]
+    calls = []
+
+    def run(x):
+        if not calls:  # the forward
+            calls.append(True)
+            return block(x, **kwargs)
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, before):
+            g.set_state(s)
+        try:
+            return block(x, **kwargs)
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
 def _gla_block(d: int, heads: int, use_short_conv: bool, expand_k: float, expand_v: float,
                dropout: float, chunk_size: int, dtype: torch.dtype, scalar_gate: bool,
                kernel_mode: str) -> MixingBlock:
@@ -97,6 +136,8 @@ class EncoderCrossDecoder(nn.Module):
     subclass sets its own attributes after ``super().__init__`` and then
     calls :meth:`_build`, which asks its ``_block`` for every mixer block
     (the blind cross-attention's pos_net and the PP inter_net included)."""
+
+    remat = False  # a backbone that takes it sets it in its constructor
 
     def __init__(self, d_model: int = 1024, n_layer: int = 12, heads: int = 4,
                  dropout: float = 0.0, d_blind: Optional[int] = None, blind: bool = False,
@@ -173,6 +214,8 @@ class EncoderCrossDecoder(nn.Module):
             if use_state:
                 return blk(x, initial_state=st, output_final_state=True,
                            conv_history=conv_history, reset_mask=reset_mask)
+            if self.remat and self.training:
+                return checkpoint_block(blk, x, reset_mask=reset_mask), None
             return blk(x, reset_mask=reset_mask), None
 
         finals = []
@@ -263,7 +306,7 @@ class AttentiveGLA(EncoderCrossDecoder):
                  cross_att_pp: bool = False, rotary: bool = False,
                  use_short_conv: bool = False, expand_k: float = 1.0,
                  expand_v: float = 2.0, pos_type: str = "sinusoidal",
-                 chunk_size: int = 64, scalar_gate: bool = False,
+                 chunk_size: int = 64, scalar_gate: bool = False, remat: bool = False,
                  dtype: torch.dtype = torch.float32,
                  state_dtype: torch.dtype = torch.float32,
                  kernel_mode: str = "auto"):
@@ -271,6 +314,7 @@ class AttentiveGLA(EncoderCrossDecoder):
                          rotary, pos_type, dtype, state_dtype)
         self.use_short_conv, self.expand_k, self.expand_v = use_short_conv, expand_k, expand_v
         self.chunk_size, self.scalar_gate, self.kernel_mode = chunk_size, scalar_gate, kernel_mode
+        self.remat = remat
         self._build()
 
     def _block(self, d: int) -> MixingBlock:

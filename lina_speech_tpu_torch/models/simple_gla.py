@@ -21,11 +21,11 @@ def AttentiveSimpleGLA(d_model: int, n_layer: int, heads: int, dropout: float = 
                        cross_att_pp: bool = False, rotary: bool = False,
                        use_short_conv: bool = False, expand_k: float = 1.0,
                        expand_v: float = 1.0, pos_type: str = "sinusoidal",
-                       chunk_size: int = 64, kernel_mode: str = "auto",
+                       chunk_size: int = 64, remat: bool = False, kernel_mode: str = "auto",
                        dtype: torch.dtype = torch.float32) -> AttentiveGLA:
     return AttentiveGLA(
         d_model=d_model, n_layer=n_layer, heads=heads, dropout=dropout, d_blind=d_blind,
         blind=blind, cross_att_pp=cross_att_pp, rotary=rotary,
         use_short_conv=use_short_conv, expand_k=expand_k, expand_v=expand_v,
-        pos_type=pos_type, chunk_size=chunk_size, scalar_gate=True,
+        pos_type=pos_type, chunk_size=chunk_size, scalar_gate=True, remat=remat,
         kernel_mode=kernel_mode, dtype=dtype)

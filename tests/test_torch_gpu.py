@@ -2058,3 +2058,87 @@ def test_transformer_prefill_matches_decode_on_the_card(cuda):
     scale = float(full.abs().max())
     assert float((steps - full).abs().max()) <= 1e-3 * scale
     assert float((full - out["cpu"][0]).abs().max()) <= 1e-3 * float(out["cpu"][0].abs().max())
+
+
+# ------------------------------------------------ the training entry point
+def test_fit_on_the_card_saves_restores_and_resumes(cuda, tmp_path):
+    """``train.cli fit`` at a width the kernels take (d 256, 4 heads, short
+    convs): two steps through gla_chunk_conv and its backward (5 + 5 a step),
+    the final checkpoint restored onto the card equal to the live state bit
+    for bit, and ``--resume --steps 3`` continuing from step 2."""
+    import yaml
+
+    from lina_speech_tpu_torch.train import cli
+    from lina_speech_tpu_torch.utils.checkpoint import checkpoint_steps, restore_checkpoint
+
+    config = tmp_path / "small.yaml"
+    config.write_text(yaml.safe_dump({
+        "model": {"d_model": 256, "n_codebook": 50,
+                  "backbone": {"d_model": 256, "n_layer": 2, "heads": 4, "chunk_size": 16,
+                               "use_short_conv": True, "pos_type": "sinusoidal"},
+                  "text_encoder": {"dim": 256, "heads": 2, "n_layers": 2, "dropout": 0.1}},
+        "train": {"n_warmup_steps": 1},
+        "data": {"kind": "synthetic", "batch_size": 2, "min_audio_len": 16,
+                 "max_audio_len": 40}}))
+    ck = str(tmp_path / "ck")
+    args = ["fit", "--config", str(config), "--ckpt-dir", ck, "--log-every", "1"]
+    gla_cuda.reset_launch_counts()
+    state = cli.main(args + ["--steps", "2"])
+    torch.cuda.synchronize()
+    n_layers = len(state.model.attentive_rnn.gla_layers())
+    counts = gla_cuda.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "gla_chunk_conv": 2 * n_layers,
+                      "gla_chunk_conv_bwd": 2 * n_layers}
+    assert next(state.model.parameters()).is_cuda and checkpoint_steps(ck) == [2]
+    full = restore_checkpoint(f"{ck}/step_2", map_location=cuda)
+    assert full["step"] == state.step == 2
+    for n, p in state.model.named_parameters():
+        assert full["model"][n].is_cuda and torch.equal(full["model"][n], p), n
+    live = state.optimizer.state_dict()["state"]
+    for i, st in live.items():
+        for k, v in st.items():
+            assert torch.equal(full["optimizer"]["state"][i][k].cpu(), v.cpu()), (i, k)
+    resumed = cli.main(args + ["--steps", "3", "--resume"])
+    assert resumed.step == 3 and checkpoint_steps(ck) == [2, 3]
+    # the resumed optimizer keeps its step counts on the host, as a fresh one
+    steps = [st["step"] for st in resumed.optimizer.state_dict()["state"].values()]
+    assert steps and all(s.device.type == "cpu" and float(s) == 3 for s in steps)
+
+
+def _small_grads(cfg, batch, dev, seed=5):
+    from lina_speech_tpu_torch.config import build_model
+
+    model = build_model(cfg, device=dev, seed=3)
+    model.train()
+    model.set_generator(torch.Generator(device=dev).manual_seed(seed))
+    gla_cuda.reset_launch_counts()
+    loss = model(batch["text_token"], batch["audio_token"], batch["encoder_mask"],
+                 batch["crossatt_mask"], logits_mask=batch["y_mask"])[1]
+    loss.backward()
+    torch.cuda.synchronize()
+    return (float(loss.detach()), {n: p.grad for n, p in model.named_parameters()},
+            gla_cuda.launch_counts(), len(model.attentive_rnn.gla_layers()))
+
+
+def test_remat_on_the_card_gives_the_gradients_without_it(cuda):
+    """``backbone.remat`` at d 256, 4 heads, short convs, dropout 0.1 in the
+    blocks: the forward kernel launches once more for each encoder and
+    decoder block (not the pos_net), the backward once a layer, and the
+    gradients equal those without remat bit for bit."""
+    from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
+    from lina_speech_tpu_torch.train.harness import batch_to_device
+
+    batch = batch_to_device(next(synthetic_tts_batches(
+        batch_size=2, n_codebook=50, min_audio_len=40, max_audio_len=70)), cuda)
+    runs = {}
+    for remat in (False, True):
+        cfg = _variant_cfg(use_short_conv=True, dropout=0.1, remat=remat)
+        runs[remat] = _small_grads(cfg, batch, cuda)
+    (loss, ref, counts, n_layers), (rloss, got, rcounts, _) = runs[False], runs[True]
+    n_blocks = 2 * cfg.backbone.n_layer
+    assert counts == {**dict.fromkeys(counts, 0), "gla_chunk_conv": n_layers,
+                      "gla_chunk_conv_bwd": n_layers}
+    assert rcounts == {**counts, "gla_chunk_conv": n_layers + n_blocks}
+    assert rloss == loss
+    for name in ref:
+        assert torch.equal(got[name], ref[name]), name

@@ -1,7 +1,8 @@
 """The PyTorch port imports neither jax nor flax.
 
-A fresh interpreter blocks both (``sys.modules[name] = None`` makes any
-import of them fail), imports every module of the port (``train/``,
+A fresh interpreter blocks both (a finder at the head of ``sys.meta_path``
+makes any import of them fail; scipy, which the resampler imports, probes
+``sys.modules`` for jax and so needs the names absent, not set to None), imports every module of the port (``train/``,
 ``data/`` and ``models/accuracy.py`` among them), runs a tiny
 ``generate_batch``, a server (both also with int8 weights and int8
 lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``), one train
@@ -15,19 +16,31 @@ guidance, and a guided server on the GLA model) (``models/simple_gla.py``,
 ``ops/mamba.py`` and ``ops/mamba_cuda.py``, ``models/rwkv6.py`` with
 ``ops/rwkv6.py`` and ``ops/rwkv6_cuda.py``), and the TTS pipeline on a tiny
 codec (``codec/``, ``pipeline.py``: ``tokenize_audio``, ``synthesize``
-with a prompt, ``stream_synthesize``); it then checks that no jax/flax
-module and nothing of ``lina_speech_tpu`` was loaded.
+with a prompt, ``stream_synthesize``), and the training entry point: a tiny
+``train.cli fit`` with ``remat`` on npz shards made by
+``scripts/prepare_dataset_torch.py`` from WAV files (``data/dataset.py``,
+``data/audio_loader.py``, ``data/resample.py``), saving, resuming and
+restoring a checkpoint (``utils/checkpoint.py``), the native audio loader
+and a profiler trace (``utils/profiling.py``); it then checks that no
+jax/flax module and nothing of ``lina_speech_tpu`` was loaded.
 """
 import os
 import subprocess
 import sys
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.abc, pkgutil, sys
 pre = {m for m in sys.modules if m.split(".")[0] in ("jax", "flax")}
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "flax"):
+            raise ImportError(f"{name} is blocked")
+
+
 if not pre:
-    sys.modules["jax"] = None
-    sys.modules["flax"] = None
+    sys.meta_path.insert(0, Block())
 import torch
 torch.set_num_threads(1)
 import lina_speech_tpu_torch
@@ -131,6 +144,45 @@ waves, res = pipe.synthesize("hi", prompt_codes=codes, max_seqlen=12, k=1)
 assert waves[0].ndim == 1 and res.tokens.shape == (1, 1, 12)
 assert sum(c.shape[-1] for c in pipe.stream_synthesize(
     "hi", max_seqlen=12, k=1, window=4, context=2, chunk=4)) % 8 == 0
+# the training entry point on real-data shards: WAVs -> prepare_dataset_torch -> fit
+import os, tempfile, wave
+import numpy as np
+from lina_speech_tpu_torch.data.audio_loader import make_audio_loader
+from lina_speech_tpu_torch.train import cli
+from lina_speech_tpu_torch.utils.checkpoint import checkpoint_steps, restore_checkpoint
+from lina_speech_tpu_torch.utils.profiling import trace
+tmp = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+lines = []
+for i, name in enumerate(("a.wav", "b@16000.wav", "c.wav")):
+    with wave.open(os.path.join(tmp, name), "wb") as w:
+        w.setnchannels(1); w.setsampwidth(2); w.setframerate(24000)
+        w.writeframes((0.2 * rng.normal(size=100 + 30 * i) * 32767).astype("<i2").tobytes())
+    lines.append(f"{os.path.join(tmp, name)}\tword {i}\n")
+open(os.path.join(tmp, "m.tsv"), "w").write("".join(lines))
+with make_audio_loader([os.path.join(tmp, "a.wav")], 64, 2, n_threads=1) as loader:
+    assert next(loader).shape == (2, 64)
+spec = importlib.util.spec_from_file_location("prep", "scripts/prepare_dataset_torch.py")
+prep = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(prep)
+shards, n = prep.prepare(wavtok, os.path.join(tmp, "m.tsv"), os.path.join(tmp, "out"),
+                         shard_size=2)
+assert n == 3 and len(shards) == 2
+open(os.path.join(tmp, "c.yaml"), "w").write(
+    "model: {d_model: 64, n_codebook: 32, backbone: {d_model: 64, n_layer: 2, heads: 2, "
+    "chunk_size: 16, pos_type: sinusoidal, remat: true, dropout: 0.1}, "
+    "text_encoder: {dim: 64, heads: 2, n_layers: 2}}\n"
+    "train: {n_warmup_steps: 1}\n"
+    f"data: {{kind: npz, npz_paths: {shards}, batch_size: 2}}\n")
+ck = os.path.join(tmp, "ck")
+args = ["fit", "--config", os.path.join(tmp, "c.yaml"), "--device", "cpu", "--ckpt-dir", ck]
+with trace(os.path.join(tmp, "trace")):
+    state = cli.main(args + ["--steps", "1"])
+assert os.path.exists(os.path.join(tmp, "trace", "trace.json"))
+state = cli.main(args + ["--steps", "2", "--resume"])
+assert state.step == 2 and checkpoint_steps(ck) == [1, 2]
+assert restore_checkpoint(os.path.join(ck, "step_2"))["step"] == 2
+assert state.model.attentive_rnn.remat
 assert not any(m.split(".")[0] == "lina_speech_tpu" for m in sys.modules)
 post = {m for m in sys.modules
         if m.split(".")[0] in ("jax", "flax") and sys.modules[m] is not None}
@@ -151,8 +203,10 @@ def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
     ``models/mamba.py``, ``models/simple_gla.py``, ``models/transformer.py``, the RWKV6 modules,
     ``ops/mamba.py``, ``ops/mamba_cuda.py``, ``utils/int8_timeline.py``,
-    the codec and ``pipeline.py`` among them),
-    ``chip_smoke.py`` and the port's examples, read as source:
+    the codec, ``pipeline.py``, ``train/cli.py``, ``utils/checkpoint.py``,
+    ``utils/profiling.py`` and the real-data modules among them),
+    ``chip_smoke.py``, the port's examples and
+    ``scripts/prepare_dataset_torch.py``, read as source:
     no import statement names jax, flax or the JAX package."""
     import ast
     import glob
@@ -161,6 +215,7 @@ def test_sources_import_no_jax():
     files = glob.glob(os.path.join(root, "lina_speech_tpu_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(root, "chip_smoke.py")]
     files += glob.glob(os.path.join(root, "examples", "*_torch.py"))
+    files += [os.path.join(root, "scripts", "prepare_dataset_torch.py")]
     names = {os.path.relpath(f, root) for f in files}
     for must in ("lina_speech_tpu_torch/utils/quantize.py", "lina_speech_tpu_torch/ops/qlinear.py",
                  "lina_speech_tpu_torch/models/mamba.py",
@@ -175,7 +230,12 @@ def test_sources_import_no_jax():
                      "__init__", "spectral", "mdct", "heads", "vocos", "vq", "seanet",
                      "wavtokenizer")),
                  "lina_speech_tpu_torch/pipeline.py", "examples/synthesize_torch.py",
-                 "examples/stream_torch.py", "chip_smoke.py", "examples/serve_torch.py"):
+                 "examples/stream_torch.py", "chip_smoke.py", "examples/serve_torch.py",
+                 "lina_speech_tpu_torch/train/cli.py", "lina_speech_tpu_torch/utils/checkpoint.py",
+                 "lina_speech_tpu_torch/utils/profiling.py",
+                 *(f"lina_speech_tpu_torch/data/{m}.py" for m in (
+                     "dataset", "audio_loader", "resample")),
+                 "scripts/prepare_dataset_torch.py"):
         assert must in names, must
     banned = ("jax", "flax", "lina_speech_tpu")
     for path in files:

@@ -306,13 +306,25 @@ def test_mamba2_has_no_lazy_window_and_no_s0_tuning():
 
 def test_unported_kinds_still_raise():
     """What the port has not built yet raises, naming the ROADMAP item that
-    ports it: context parallelism (item 11) and rematerialization (item 6).
-    Every backbone kind of the JAX package and the speaker encoder build."""
-    for option, item in ((dict(cp_axis="cp"), "item 11"), (dict(remat=True), "item 6")):
-        cfg = torch_tiny()
-        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, **option))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-            torch_build(cfg, device="cpu")
+    ports it: context parallelism (item 11). Rematerialization builds and
+    trains one step (its gradients: tests/test_torch_remat.py). Every
+    backbone kind of the JAX package and the speaker encoder build."""
+    from lina_speech_tpu_torch.train.harness import (
+        TrainConfig, batch_to_device, create_train_state, make_train_step,
+    )
+
+    cfg = torch_tiny()
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, cp_axis="cp"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        torch_build(cfg, device="cpu")
+    cfg = torch_tiny()
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, remat=True))
+    model = torch_build(cfg, device="cpu")
+    assert model.attentive_rnn.remat
+    state = create_train_state(model, TrainConfig(n_warmup_steps=1, n_training_steps=4))
+    state, metrics = make_train_step(model)(state, batch_to_device(_train_batch("padded"), "cpu"))
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    assert float(metrics["grad_norm"]) > 0
     cfg = torch_tiny(spk_encoder=SpeakerEncoderConfig(dim_inner=32, heads=2, n_layers=1))
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, kind="transformer"))
     model = torch_build(cfg, device="cpu")
