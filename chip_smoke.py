@@ -44,7 +44,8 @@ Phases, in order; any failure raises and exits non-zero:
    path, and their logits and times compared;
 5. serving phase: DecodeServer with 8 slots and chunks of 16 serves 12
    requests (prompts of 150, 97, 33 and 0 codes, max_len 168-232, so slots
-   are recycled) in lazy mode, then 8 requests in classic mode, one
+   are recycled) in lazy mode, then 8 requests in classic mode (four decode
+   chunks past each prompt), one
    run(max_chunks=1) call at a time; completions, prefill chunk sizes (each
    one a shape the kernel phase checked) and launch counts are checked, the
    5-chunk prefill against the one-shot prefill, and the server's logits and
@@ -135,18 +136,42 @@ Between phases 5 and 6, on the flagship of phase 4, quantized serving:
    on a rotation of cold weights and states beside the bounds and beside
    the bf16 library call the int8 stream has to beat;
 5b. quantized generate phase: generate_batch(weight_quant="int8") with the
-   classic loop at b 1 and b 8 and generate_batch(weight_quant="int8",
+   classic loop at b 8 and generate_batch(weight_quant="int8",
    lazy_window=16, state_quant="int8") at b 8, launch counts against a
    formula written from the model's structure; one lazy window
    teacher-forced through the kernel path and the plain path (finite logits
    at every step, every state leaf, the int8 states by integers); ms per
-   token quantized beside unquantized, resident weight bytes, and a profile
+   token at b 8 quantized beside unquantized, resident weight bytes, and a profile
    of 8 decode steps at b 1 with int8 weights;
 5c. quantized serving phase: DecodeServer(lazy=True, state_quant="int8",
-   weight_quant="int8") serves 12 requests through 8 recycled slots, then a
+   weight_quant="int8") serves 12 requests (two decode chunks past each
+   prompt) through 8 recycled slots, then a
    server with int8_prefill_full_precision=False (the float weights leave
    the model) serves 4; every shape those runs gave int8_linear and
    fused_ffn_int8 is held against the plain version, or the phase fails.
+Between phases 5b and 5c, int4 lazy-window states (two values a byte):
+5d. int4 kernel phase: the int4 bodies of gla_decode_lazy_conv (its tile
+   route; the cluster route must refuse an int4 state) and gla_fold_q over
+   whole windows at b 1, 8 and 64 against their plain versions (o within
+   TOL_BF16 of its own max, rings, live slots and cc equal, equal bits on a
+   second call; the fold's nibbles at most one step apart in at most 1e-3
+   of them, against the plain version and the plain mirror of the kernel's
+   bf16-part update, scales to 1e-5), timed on a rotation of cold states
+   beside the bound;
+5e. int4 generate phase: generate_batch(lazy_window=16, state_quant="int4")
+   at b 8 with 150-code prompts, one window teacher-forced through the
+   kernel path and the plain path (logits, every state leaf, the int4
+   states by their nibbles), a lazy DecodeServer(state_quant="int4") with
+   8 slots over 8 requests with 150-code prompts (its slot container's s
+   dv / 2 bytes a row), launch counts against their formulas, and every
+   int4 shape launched held.
+After phase 8c:
+8d. codec GAN phase: python -m lina_speech_tpu_torch.train.codec_cli fit
+   in-process at the full 320_24k width (73,784,690 generator parameters,
+   MPD and MRD), batch 2 x 24,000 samples of seeded noise, 3 steps, a
+   validation pass and a checkpoint: finite losses, the parameters moved,
+   the checkpoint equal to the trained generator, ms a step and peak
+   memory.
 After phase 9, the GLA layers without per-projection convs:
 10. gla_chunk's forward and backward and the two classic steps against
    their plain versions (the steps on every route, the wide ones also
@@ -196,7 +221,8 @@ then RWKV6:
    decays drawn off their constant inits; bf16 compute, f32 states):
    generate_batch for the 8 requests of phase 4 (classic loop), the kernel
    path held against the plain path under teacher forcing (logits, s and
-   shift of every layer), a DecodeServer in classic mode (8 requests, 8
+   shift of every layer), a DecodeServer in classic mode (8 requests, four
+   decode chunks past each prompt, 8
    slots) and three train steps at b8, the kernel path's loss and
    gradients held against the plain path's on a batch of 2, and the bf16
    model's parameter gradients with one layer's backward at a time on the
@@ -238,7 +264,8 @@ then Mamba (v1):
    drawn off their inits; bf16 compute, f32 states): generate_batch for the
    8 requests of phase 4 (classic loop), the kernel path held against the
    plain path under teacher forcing (logits, h and conv of every layer; in
-   bf16 and on an f32-compute copy), a classic DecodeServer (8 requests, 8
+   bf16 and on an f32-compute copy), a classic DecodeServer (8 requests,
+   four decode chunks past each prompt, 8
    slots) and three train steps at b8, the kernel path's loss and gradients
    held against the plain path's on a batch of 2; launch counts 25
    mamba_scan per prefill and per server prefill chunk, 25 mamba_scan and 25
@@ -421,6 +448,14 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "lina_speech_tpu/ops/gla_pallas.py:2197 (int8 state, body :1802)"),
     ("gla_fold_q", "lina_speech_tpu_torch/csrc/gla_fold_q.cu",
      "lina_speech_tpu/ops/gla_pallas.py:2097"),
+    # the int4 bodies of the two kernels above: no TPU kernel of their own
+    # (the JAX package's int4 step and fold are XLA, ops/gla.py:301 and :326)
+    ("gla_decode_lazy_conv_int4", "lina_speech_tpu_torch/csrc/gla_decode_lazy_conv.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:2197 (int4 state; JAX computes it in XLA, "
+     "lina_speech_tpu/ops/gla.py:301)"),
+    ("gla_fold_q_int4", "lina_speech_tpu_torch/csrc/gla_fold_q4.cu",
+     "lina_speech_tpu/ops/gla_pallas.py:2097 (int4 state; JAX computes it in XLA, "
+     "lina_speech_tpu/ops/gla.py:326)"),
     ("int8_linear", "lina_speech_tpu_torch/csrc/int8_linear.cu",
      "lina_speech_tpu/ops/qlinear.py:127"),
     ("fused_ffn_int8", "lina_speech_tpu_torch/csrc/fused_ffn_int8.cu",
@@ -470,6 +505,12 @@ GAP_SHAPE_COUNTS = {"gla_chunk_conv": Counter(), "gla_chunk": Counter(),
                     "mamba_scan": Counter(), "mamba_scan_bwd": Counter()}
 GLA_LAUNCHED = {"gla_chunk": set(), "gla_chunk_bwd": set(), "gla_decode_conv": set(),
                 "gla_decode": set()}
+# launches of the two int4 bodies on each shape (the launch_shape_counts keys
+# with gla_cuda.INT4 as the state dtype), summed over the main-path runs
+# that expect_launches checks, apart from GAP_SHAPE_COUNTS; and the shapes
+# at which int4_kernel_phase held them against their plain versions
+INT4_LAUNCHED = {"gla_decode_lazy_conv": Counter(), "gla_fold_q": Counter()}
+INT4_HELD = {"gla_decode_lazy_conv": set(), "gla_fold_q": set()}
 # RWKV6 at the flagship's width (kind="rwkv6": d 1024, 12 + 12 layers and the
 # blind pos_net, 4 heads of dk 256 and dv 256, bf16 IO, f32 w and u, f32
 # states), with the parameters that initialize to constants (the bonus u, the
@@ -515,7 +556,8 @@ def reset_counts():
 
 def read_counts() -> dict:
     """Every wrapper's launch count; the lazy step's launches on an int8
-    state are counted a second time under a name of their own. Also notes,
+    state and on an int4 one, and the fold's on an int4 state, are counted a
+    second time under a name of their own. Also notes,
     in Q_LAUNCHED, GLA_LAUNCHED, RWKV6_LAUNCHED and MAMBA_LAUNCHED, the
     shapes the int8 products, gla_chunk, its backward, gla_decode, the three
     RWKV6 kernels and the two Mamba kernels were launched on since the last
@@ -533,7 +575,10 @@ def read_counts() -> dict:
         MAMBA_LAUNCHED[name] |= shapes
     return {**gla_cuda.launch_counts(), **qlinear.launch_counts(),
             **rwkv6_cuda.launch_counts(), **mamba_cuda.launch_counts(),
-            "gla_decode_lazy_conv_int8": gla_cuda.gla_decode_lazy_conv.q_launches}
+            "gla_decode_lazy_conv_int8": (gla_cuda.gla_decode_lazy_conv.q_launches
+                                          - gla_cuda.gla_decode_lazy_conv.q4_launches),
+            "gla_decode_lazy_conv_int4": gla_cuda.gla_decode_lazy_conv.q4_launches,
+            "gla_fold_q_int4": gla_cuda.gla_fold_q.q4_launches}
 
 
 def card() -> str:
@@ -659,8 +704,12 @@ def ptxas_summary(log: str):
     # bands: two sub-bands each)
     folds = (("gla_fold_band_kernelI13__nv_bfloat16S1_Li2ELi2EE",
               "gla_fold band<bf16, bf16, 2 sub-bands>"),
-             ("gla_fold_q_band_kernelI13__nv_bfloat16Li8ELi2EE",
-              "gla_fold_q band<bf16, dv 512, 2 sub-bands>"))
+             ("gla_fold_q_band_kernelI13__nv_bfloat16Li8ELi2ELb0EE",
+              "gla_fold_q band<bf16, dv 512, 2 sub-bands>"),
+             ("gla_fold_q_band_kernelI13__nv_bfloat16Li8ELi2ELb1EE",
+              "gla_fold_q band<bf16, dv 512, 2 sub-bands, int4>"))
+    # the lazy step's int4 body (bf16 IO, dk 256): printed where found
+    int4 = re.compile(r"lazy_tile_kernelI13__nv_bfloat16.*NibblesELi256E")
     # the RWKV6 kernels' bf16-IO, f32-state instantiations (dk 256; the
     # forward's recurrent body)
     rwkv6 = (("rwkv6_chunk_kernelI13__nv_bfloat16fLi256E", "rwkv6_chunk recurrent"),
@@ -728,6 +777,8 @@ def ptxas_summary(log: str):
         out += [f"{label}<bf16>: {info}" for key, label in mamba if key in name]
         out += [f"{label}: {info}" for key, label in folds if key in name]
         out += [f"{label}: {info}" for key, label in chunked if key in name]
+        if int4.search(name):
+            out.append(f"gla_decode_lazy_conv tile<bf16, int4, 256>: {info}")
     for _, label in chunked:
         found = [line for line in out if line.startswith(f"{label}:")]
         require(any("registers" in line for line in found)
@@ -814,12 +865,38 @@ def check_states(name, got, ref, rel, live):
     leaf with the largest error beside its max|ref|; fails after printing."""
     import torch
 
+    from lina_speech_tpu_torch.ops.gla import dequantize_state_int4, unpack_state_int4
+
     worst, failed, ints = {}, [], None
     got_sc, ref_sc = ({place: t for field, place, t in state_leaves(st) if field == "s_scale"}
                       for st in (got, ref))
+    v_width = {place: t.shape[-1] for field, place, t in state_leaves(ref) if field == "vbuf"}
     for (field, place, a), (_, _, r) in zip(state_leaves(got), state_leaves(ref)):
         require(a.shape == r.shape and a.dtype == r.dtype, f"{name}: {place} {field} differs "
                 f"in shape or dtype: {tuple(a.shape)} {a.dtype} vs {tuple(r.shape)} {r.dtype}")
+        if a.dtype == torch.int8 and 2 * a.shape[-1] == v_width.get(place):
+            # an int4 state, two values a byte: by its nibbles, one step of
+            # which is 1/7 of its row's largest value; dequantized within
+            # that step beside ``rel``
+            steps = (torch.cat(unpack_state_int4(a), -1).int()
+                     - torch.cat(unpack_state_int4(r), -1).int()).abs()
+            top, off = int(steps.max()), float((steps > 0).float().mean())
+            far = float((steps > 1).float().mean())
+            if not bool(r.any()):
+                failed.append(f"{place} {field}: reference is all zeros")
+            if far > 1e-2 or off > 0.5:
+                failed.append(f"{place} {field}: int4 steps apart: max {top}, share off "
+                              f"{off}, share more than one step off {far}")
+            if ints is None or (top, off) > ints[:2]:
+                ints = (top, off, far, place)
+            a, r = dequantize_state_int4(a, got_sc[place]), dequantize_state_int4(r, ref_sc[place])
+            err, ref_max = max_err(a, r), float(r.abs().max())
+            if not err <= (rel + 1 / 7) * ref_max:
+                failed.append(f"{place} s dequantized (int4): max_abs_err {err} > "
+                              f"{(rel + 1 / 7) * ref_max}")
+            if "s int4" not in worst or err / max(ref_max, 1e-30) > worst["s int4"][0]:
+                worst["s int4"] = (err / max(ref_max, 1e-30), err, ref_max, place)
+            continue
         if a.dtype == torch.int8:
             # an int8 state of one model run against another's: by integers,
             # and dequantized with its row scales like a float state. The two
@@ -852,7 +929,7 @@ def check_states(name, got, ref, rel, live):
         print(f"  {field} ({place}): max_abs_err {err:.3e}, max|ref| {ref_max:.3e}, "
               f"relative {share:.3e}")
     if ints is not None:
-        print(f"  int8 s ({ints[3]}), the leaf furthest apart: at most {ints[0]} integer steps, "
+        print(f"  quantized s ({ints[3]}), the leaf furthest apart: at most {ints[0]} steps, "
               f"{ints[1]:.4f} of its elements differ, {ints[2]:.6f} by more than one step")
     require(not failed, f"{name}: " + "; ".join(failed[:8]))
     print(f"  {len(state_leaves(ref))} leaves ok")
@@ -1770,8 +1847,11 @@ def expect_launches(launches, **expected):
 
     for name, counts in {**gla_cuda.launch_shape_counts(), **rwkv6_cuda.launch_shape_counts(),
                          **mamba_cuda.launch_shape_counts()}.items():
-        if name in GAP_SHAPE_COUNTS:
-            GAP_SHAPE_COUNTS[name].update(counts)
+        for shape, n in counts.items():
+            if name in INT4_LAUNCHED and shape[5] == gla_cuda.INT4:
+                INT4_LAUNCHED[name][shape] += n
+            elif name in GAP_SHAPE_COUNTS:
+                GAP_SHAPE_COUNTS[name][shape] += n
 
 
 def add_launches(total, more):
@@ -1988,15 +2068,18 @@ def report_chunk_times(mode, n_requests, chunk_ms, card_line):
 
 def serving_phase(torch, np, gla_cuda, model, cfg, card_line):
     """DecodeServer at the flagship's full width and depth: 12 requests
-    through 8 recycled slots in lazy mode, 8 in classic mode (every slot
-    busy, so that both modes are timed at 8 slots)."""
+    through 8 recycled slots in lazy mode, 8 in classic mode, each four
+    decode chunks past its prompt (every slot busy, so that both modes are
+    timed at 8 slots)."""
     from lina_speech_tpu_torch.generate import generate_batch
     from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
 
     requests = serving_requests(np, cfg)
     total = dict.fromkeys(read_counts(), 0)
     tokens_by_mode = {}
-    for lazy, reqs in ((True, requests), (False, requests[:SERVE_CLASSIC_REQUESTS])):
+    classic = [(text, prompt, (1 if prompt is None else 1 + prompt.shape[1]) + 4 * WINDOW)
+               for text, prompt, _ in requests[:SERVE_CLASSIC_REQUESTS]]
+    for lazy, reqs in ((True, requests), (False, classic)):
         mode = "lazy" if lazy else "classic"
         srv = DecodeServer(model, n_slots=SERVE_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW,
                            lazy=lazy, k=1)
@@ -2033,9 +2116,10 @@ def serving_phase(torch, np, gla_cuda, model, cfg, card_line):
     ref_toks = ref.tokens[:, 0].T.cpu().numpy()
     for mode, done in tokens_by_mode.items():
         c = done[0]
-        same = float((c.tokens == ref_toks[:c.length]).mean())
+        n = min(c.length, len(ref_toks))
+        same = float((c.tokens[:n] == ref_toks[:n]).mean())
         print(f"greedy token agreement, {mode} server vs generate_batch(lazy_window={WINDOW}) "
-              f"at b1, request 0: {same:.4f} of {c.length} steps")
+              f"at b1, request 0: {same:.4f} of {n} steps")
 
     prefill_times(torch, model, requests, card_line)
     chunked_prefill_check(torch, model, cfg, requests[0])
@@ -2647,8 +2731,8 @@ def quant_generate_phase(torch, np, model, cfg, card_line):
     reset_counts()  # the kernel phase's launches are no path's
     total = dict.fromkeys(read_counts(), 0)
 
-    # classic loop on int8 weights at b1 and b8: prefill at full precision
-    for b in (1, BATCH):
+    # classic loop on int8 weights at b8: prefill at full precision
+    for b in (BATCH,):
         gen = torch.Generator(device=DEVICE).manual_seed(b)
         torch.cuda.synchronize()
         reset_counts()
@@ -2764,12 +2848,12 @@ def quant_generate_phase(torch, np, model, cfg, card_line):
                 torch.cuda.synchronize()
                 return (time.perf_counter() - t_0) * 1e3 / WINDOW
 
-            cases = [(1, False, False), (1, True, False), (BATCH, False, False),
-                     (BATCH, True, False), (BATCH, False, True), (BATCH, True, True)]
+            cases = [(BATCH, False, False), (BATCH, True, False), (BATCH, False, True),
+                     (BATCH, True, True)]
             times = {case: [] for case in cases}
             for case in cases:
                 steps_ms(*case)  # warm
-            for case in cases + cases[::-1]:
+            for case in cases:
                 times[case].append(steps_ms(*case))
             for (b, int8, lazy_mode), ms in times.items():
                 what = ("int8 weights" + (" and int8 states" if lazy_mode else "")) if int8 else "bf16"
@@ -2806,7 +2890,8 @@ def profile_int8_decode(torch, model, x_enc, forced, follow, steps=8):
 
 def quant_serving_phase(torch, np, model, cfg, card_line):
     """DecodeServer on int8 weights and int8 lazy-window states: 12 requests
-    through 8 recycled slots with prefill at full precision, then 4 requests
+    (each two decode chunks past its prompt) through 8 recycled slots with
+    prefill at full precision, then 4 requests
     through a server that keeps only the int8 weights (prefill and text
     encoding through the int8 route). The second server takes the float
     weights out of ``model``: nothing else may use it afterwards."""
@@ -2816,8 +2901,8 @@ def quant_serving_phase(torch, np, model, cfg, card_line):
     total = dict.fromkeys(read_counts(), 0)
     quant = dict(lazy=True, k=1, state_quant="int8", weight_quant="int8")
     short = [(text, prompt, (1 if prompt is None else 1 + prompt.shape[1]) + 2 * WINDOW)
-             for text, prompt, _ in requests[:len(SERVE_PROMPTS)]]
-    for full_precision, reqs in ((True, requests), (False, short)):
+             for text, prompt, _ in requests]
+    for full_precision, reqs in ((True, short), (False, short[:len(SERVE_PROMPTS)])):
         mode = "lazy, int8 weights and states" + (
             "" if full_precision else ", prefill through the int8 weights")
         srv = DecodeServer(model, n_slots=SERVE_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW,
@@ -2859,6 +2944,349 @@ def quant_serving_phase(torch, np, model, cfg, card_line):
         hold_launched_q_shapes(torch)
     require(model.logits_head.weight is None, "the float weights are still resident")
     return total
+
+
+# ------------------------------------------------------------- int4 states
+INT4_BATCHES = (1, 8, 64)  # int4_kernel_phase's windows
+INT4_SERVE_MAX_LEN = T_PROMPT + 1 + 2 * WINDOW  # two decode chunks a request
+
+
+def int4_window_check(torch, gla_cuda, b, summary=None):
+    """A whole lazy window over an int4 state (two values a byte) at batch
+    ``b``: every step of gla_decode_lazy_conv on it against its plain
+    version (o within TOL_BF16 of its own max|plain|, the rings, live slots
+    and cc equal; slot p written in place; at p 0, 7 and 15 equal bits on a
+    second call and the time on a rotation of cold states; the cluster
+    route refused), then gla_fold_q on it against its plain version and its
+    plain mirror of the kernel's bf16-part update: nibbles at most one step
+    apart in at most 1e-3 of them, scales to 1e-5, updated in place, and
+    timed. With ``summary`` the b8 times are the rows of the summary line,
+    the others further shapes."""
+    from lina_speech_tpu_torch.ops.gla import (
+        dequantize_state_int4, quantize_state_rows_int4, unpack_state_int4,
+    )
+
+    bf = torch.bfloat16
+    tag = f"b{b} state int4"
+    toks, taps, rings, s_float, bufs = lazy_inputs(torch, b, torch.float32, seed=b + 31)
+    state_q, s_scale = quantize_state_rows_int4(s_float * 0.05)
+    require(state_q.shape == (b, H, DK, DV // 2) and bool(state_q.any())
+            and float(s_scale.min()) > 0, "an empty int4 state")
+    k_rings = p_rings = rings
+    k_bufs, p_bufs = [t.clone() for t in bufs], [t.clone() for t in bufs]
+    states = cold_rotation(state_q, s_scale)
+
+    def step(fn, bufs_, p, tok):
+        q, sc = states()
+        return fn(*tok, *taps, *k_rings, q, *bufs_, p, s_scale=sc)
+
+    for p, tok in enumerate(toks):
+        ptrs = [t.data_ptr() for t in k_bufs[:3]]
+        timed = None
+        if summary is not None and p in (0, 7, 15):  # time the step before taking it
+            scratch = [t.clone() for t in k_bufs]
+            timed = timed_pair(f"gla_decode_lazy_conv {tag} p{p}",
+                               lambda: step(gla_cuda.gla_decode_lazy_conv, scratch, p, tok),
+                               lambda: step(gla_cuda.gla_decode_lazy_conv_plain, scratch, p, tok),
+                               50)
+        call = lambda: gla_cuda.gla_decode_lazy_conv(*tok, *taps, *k_rings, state_q, *k_bufs, p,
+                                                     s_scale=s_scale)
+        out = call()
+        ref = gla_cuda.gla_decode_lazy_conv_plain(*tok, *taps, *p_rings, state_q, *p_bufs, p,
+                                                  s_scale=s_scale)
+        torch.cuda.synchronize()
+        require([t.data_ptr() for t in out[4:7]] == ptrs, "window buffers not written in place")
+        print(f"gla_decode_lazy_conv {tag} p{p}:")
+        err_o = hold_lazy_step(torch, out, ref, p, TOL_BF16, own_max=True)
+        if p in (0, 7, 15):
+            equal_bits_again(torch, call, out)
+        if p == 0:
+            try:
+                lazy_on_route(gla_cuda, "cluster", *tok, *taps, *k_rings, state_q,
+                              *[t.clone() for t in k_bufs], p, s_scale=s_scale)
+            except ValueError as e:
+                print(f"  the cluster route refuses an int4 state: {e}")
+            else:
+                require(False, "the cluster route took an int4 state")
+        if timed is not None:
+            work = lazy_step_work(tok, taps, k_rings, state_q, s_scale, k_bufs, out, p)
+            if b == BATCH and p == WINDOW - 1:
+                record(summary, "gla_decode_lazy_conv_int4", err_o, *timed, *work, bf)
+            else:
+                note_shape("gla_decode_lazy_conv_int4", f"{tag} p{p}", *timed, *work, bf)
+        INT4_HELD["gla_decode_lazy_conv"].add((b, H, DK, DV, bf, gla_cuda.INT4, WINDOW, p, "tile"))
+        k_rings, k_bufs = out[1:4], list(out[4:8])
+        p_rings, p_bufs = ref[1:4], list(ref[4:8])
+
+    nibbles = lambda q: torch.cat(unpack_state_int4(q), -1).int()
+    ref_q, ref_sc = gla_cuda.gla_fold_q_plain(state_q, s_scale, *p_bufs)
+    parts_q, parts_sc = gla_cuda.gla_fold_q_parts_plain(state_q, s_scale, *p_bufs)
+    q_in, sc_in = state_q.clone(), s_scale.clone()
+    new_q, new_sc = gla_cuda.gla_fold_q(q_in, sc_in, *k_bufs)
+    torch.cuda.synchronize()
+    require(new_q.data_ptr() == q_in.data_ptr() and new_sc.data_ptr() == sc_in.data_ptr()
+            and new_q.shape == state_q.shape, "int4 state not folded in place")
+    print(f"gla_fold_q {tag}:")
+    for label, rq, rsc in (("plain version", ref_q, ref_sc), ("plain mirror", parts_q, parts_sc)):
+        steps = (nibbles(new_q) - nibbles(rq)).abs()
+        top, off = int(steps.max()), int((steps > 0).sum())
+        print(f"  int4 state vs the {label}: at most {top} steps, {off} of {steps.numel()} "
+              "values differ")
+        require(top <= 1 and off <= 1e-3 * steps.numel(), f"int4 state differs from the {label}")
+        hold_leaf(f"s_scale vs the {label}", new_sc, rsc, 1e-5)
+    require(not torch.equal(new_q, state_q), "the fold changed nothing")
+    # one int4 step is 1/7 of a row's largest value: the dequantized state
+    # within that of its max where a value landed one step apart
+    err_s = hold_leaf("dequantized state", dequantize_state_int4(new_q, new_sc),
+                      dequantize_state_int4(ref_q, ref_sc), 1 / 7 + TOL_BF16)
+    INT4_HELD["gla_fold_q"].add((b, H, DK, DV, bf, gla_cuda.INT4, WINDOW))
+    if summary is None:
+        return
+    ms, plain_ms = timed_pair(f"gla_fold_q {tag}", lambda: gla_cuda.gla_fold_q(*states(), *k_bufs),
+                              lambda: gla_cuda.gla_fold_q_plain(*states(), *k_bufs), 50)
+    work = (nbytes(state_q, state_q, s_scale, s_scale, *k_bufs),
+            b * H * DK * (DV * (2 * WINDOW + 4) + 2 * WINDOW))
+    if b == BATCH:
+        record(summary, "gla_fold_q_int4", err_s, ms, plain_ms, *work, bf)
+    else:
+        note_shape("gla_fold_q_int4", tag, ms, plain_ms, *work, bf)
+
+
+def int4_kernel_phase(torch, gla_cuda, summary):
+    """The two int4 bodies (gla_decode_lazy_conv's tile route and gla_fold_q
+    on an int4 state) held and timed over whole windows at b 1, 8 and 64
+    (int4_window_check)."""
+    for b in INT4_BATCHES:
+        int4_window_check(torch, gla_cuda, b, summary)
+
+
+def hold_launched_int4(torch, gla_cuda):
+    """Every shape the driven paths launched the two int4 bodies on
+    (INT4_LAUNCHED) held against the plain versions: a batch not held yet
+    gets its whole window checked now."""
+    launched = {name: set(c) for name, c in INT4_LAUNCHED.items()}
+    todo = {shape[0] for name in launched for shape in launched[name] - INT4_HELD[name]}
+    print(f"int4 bodies: the paths launched gla_decode_lazy_conv on "
+          f"{len(launched['gla_decode_lazy_conv'])} int4 shapes and gla_fold_q on "
+          f"{len(launched['gla_fold_q'])}; batches not held yet: {sorted(todo)}")
+    for b in sorted(todo):
+        int4_window_check(torch, gla_cuda, b)
+    for name in launched:
+        require(launched[name] and launched[name] <= INT4_HELD[name],
+                f"{name}: launched on int4 shapes not held: {launched[name] - INT4_HELD[name]}")
+
+
+def int4_generate_phase(torch, np, model, cfg, card_line):
+    """The flagship of the generate phase with int4 lazy-window states:
+    generate_batch(lazy_window=16, state_quant="int4") at b8 with 150-code
+    prompts, greedy, launch counts against their formula; one window
+    teacher-forced through the kernel path and the plain path (logits and
+    every state leaf, the int4 states by their nibbles); a lazy
+    DecodeServer(state_quant="int4") with 8 slots over 8 requests with
+    150-code prompts, launch counts, the slot container's int4 s (dv / 2
+    bytes a row) and float pos_net; every int4 shape launched held."""
+    from lina_speech_tpu_torch.generate import generate_batch
+    from lina_speech_tpu_torch.models.attentive_rnn import add_lazy_buffers, map_state
+    from lina_speech_tpu_torch.ops import gla_cuda
+    from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
+
+    rng = np.random.default_rng(4)
+    text = torch.from_numpy(rng.integers(3, cfg.n_txt_vocab, size=(BATCH, TEXT_LEN))).to(DEVICE)
+    prompt = torch.from_numpy(rng.integers(0, cfg.n_codebook, size=(1, BATCH, T_PROMPT))).to(DEVICE)
+    n_pre = T_PROMPT + 1
+    windows = -(-(MAX_SEQLEN - n_pre) // WINDOW)
+    lazy_steps = windows * WINDOW
+    reset_counts()
+    total = dict.fromkeys(read_counts(), 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = generate_batch(model, text, prompt=prompt, max_seqlen=MAX_SEQLEN, k=1,
+                         force_max_seqlen=True, lazy_window=WINDOW, state_quant="int4")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"generate_batch(lazy_window={WINDOW}, state_quant=\"int4\"): {BATCH} requests, "
+          f"{res.n_steps} steps ({windows} windows decoded), {wall:.3f} s wall [{card_line}]")
+    print(f"launches: {launches}")
+    # the 24 layer states are int4; the pos_net's stays in the state dtype
+    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS,
+                    gla_decode_lazy_conv=N_GLA_LAYERS * lazy_steps,
+                    gla_decode_lazy_conv_int4=(N_GLA_LAYERS - 1) * lazy_steps,
+                    gla_fold_q=(N_GLA_LAYERS - 1) * windows,
+                    gla_fold_q_int4=(N_GLA_LAYERS - 1) * windows, gla_fold=windows)
+    require(res.tokens.shape == (cfg.n_quant, BATCH, MAX_SEQLEN) and int(res.tokens.min()) >= 0
+            and int(res.tokens.max()) < model.n_target_vocab, "int4 tokens out of range")
+    add_launches(total, launches)
+
+    # one lazy window teacher-forced through the kernel path and the plain
+    # path from the same int4 states
+    with torch.no_grad(), model.using_params(model.cast_param_copies()):
+        x_enc = model.encode_text(text)
+        start = model.embed_tokens(torch.ones(1, BATCH, 1, dtype=torch.long, device=DEVICE))
+        forced = torch.cat([start, model.embed_tokens(prompt + cfg.n_special_token_in)], 1)
+        follow = model.embed_tokens(res.tokens[:, :, n_pre:n_pre + WINDOW])
+        st0 = model.prefill(forced, x_enc, model.empty_state(BATCH, DEVICE))[2]
+        base = add_lazy_buffers(st0, WINDOW, dtype=model.dtype, state_quant="int4")
+        require(base.layers[0].s.shape == (BATCH, H, DK, DV // 2)
+                and base.layers[0].s.dtype == torch.int8 and base.pos_net.s_scale is None,
+                "int4 lazy buffers")
+        runs = {}
+        for mode in ("auto", "chunk"):
+            set_kernel_mode(model, mode)
+            st = map_state(lambda t: t.clone(), base)
+            reset_counts()
+            logits = []
+            for p in range(WINDOW):
+                lg, _, st = model.decode_step(follow[:, p], x_enc, st, time_step=n_pre + p,
+                                              lazy_p=p)
+                require(bool(torch.isfinite(lg).all()), f"{mode}: non-finite logits, step {p}")
+                logits.append(lg)
+            st = model.fold_lazy_state(st)
+            counts = read_counts()
+            if mode == "chunk":
+                expect_launches(counts)
+            else:
+                require(counts["gla_fold_q_int4"] == N_GLA_LAYERS - 1
+                        and counts["gla_decode_lazy_conv_int4"] == (N_GLA_LAYERS - 1) * WINDOW,
+                        f"the kernel path's int4 launches: {counts}")
+            runs[mode] = (torch.stack(logits, 1), st)
+        set_kernel_mode(model, "auto")
+    torch.cuda.synchronize()
+    print(f"one lazy window of {WINDOW} steps on int4 states, teacher-forced, kernel path vs "
+          "plain path:")
+    check("logits", max_err(runs["auto"][0], runs["chunk"][0]),
+          bound(runs["chunk"][0], TOL_LOGITS))
+    check_states("states after the fold, kernel path vs plain path", runs["auto"][1],
+                 runs["chunk"][1], TOL_STATE,
+                 live=("s", "s_scale", "conv_q", "conv_k", "conv_v", "kbuf", "vbuf", "cbuf"))
+
+    # a lazy int4 server, 8 slots, 8 requests with 150-code prompts
+    reqs = [(rng.integers(3, cfg.n_txt_vocab, size=TEXT_LEN),
+             rng.integers(0, cfg.n_codebook, size=(cfg.n_quant, T_PROMPT)), INT4_SERVE_MAX_LEN)
+            for _ in range(SERVE_SLOTS)]
+    srv = DecodeServer(model, n_slots=SERVE_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW,
+                       lazy=True, k=1, state_quant="int4")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done, n_chunks, chunk_ms = serve(torch, srv, reqs)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"DecodeServer lazy, int4 states: {len(reqs)} requests through {SERVE_SLOTS} slots, "
+          f"{n_chunks} decode chunks of {WINDOW}, {wall:.3f} s wall [{card_line}]")
+    print(f"launches: {launches}")
+    chunks = [_pow2_chunks(1 + T_PROMPT) for _ in reqs]
+    later = sum(len(c) - 1 for c in chunks)
+    expect_launches(launches, gla_chunk_conv=N_GLA_LAYERS * len(reqs),
+                    gla_chunk=N_GLA_LAYERS * later,
+                    gla_decode_lazy_conv=N_GLA_LAYERS * WINDOW * n_chunks,
+                    gla_decode_lazy_conv_int4=(N_GLA_LAYERS - 1) * WINDOW * n_chunks,
+                    gla_fold_q=(N_GLA_LAYERS - 1) * n_chunks,
+                    gla_fold_q_int4=(N_GLA_LAYERS - 1) * n_chunks, gla_fold=n_chunks)
+    add_launches(total, launches)
+    check_served(model, cfg, srv, reqs, done, chunks)
+    report_chunk_times("lazy, int4 states", len(reqs), chunk_ms, card_line)
+    for place, st in [("layer 0", srv._state.layers[0]), ("pos_net", srv._state.pos_net)]:
+        int4 = place != "pos_net"
+        want = (SERVE_SLOTS, H, DK, DV // 2 if int4 else DV)
+        require(tuple(st.s.shape) == want and st.s.dtype == (torch.int8 if int4 else model.dtype)
+                and (st.s_scale is not None) == int4 and bool(st.s.any()),
+                f"slot container, {place}: s {tuple(st.s.shape)} {st.s.dtype}")
+    print(f"  slot container: layer s {tuple(srv._state.layers[0].s.shape)} int8 (int4 packed), "
+          f"pos_net s {tuple(srv._state.pos_net.s.shape)} {srv._state.pos_net.s.dtype}")
+    hold_launched_int4(torch, gla_cuda)
+    return total
+
+
+# ---------------------------------------------------------- codec training
+CODEC_GAN_STEPS, CODEC_GAN_BATCH, CODEC_GAN_CROP = 3, 2, 24000
+
+
+def codec_gan_phase(torch, card_line):
+    """codec GAN training at the full 320_24k width: ``train.codec_cli fit``
+    in-process (WavTokenizerConfig(): 4096 bins, latent 512, backbone 768 /
+    2304 x 12, n_fft 1280; MultiPeriodDiscriminator and
+    MultiResolutionDiscriminator at their defaults; batch 2 of 24,000-sample
+    crops of seeded noise), 3 alternating discriminator and generator
+    steps, one validation pass (--val-every 2) and one checkpoint: finite
+    losses and metrics, every tensor moved but the SEANet encoder's (no
+    gradient reaches it) and the score heads' one-element biases (a zero
+    hinge gradient while the scores lie inside the margins), the checkpoint
+    equal to the trained generator bit for bit, no port kernel launched (the
+    codec is plain PyTorch); ms a step and the peak device memory."""
+    import shutil
+
+    from lina_speech_tpu_torch.codec.discriminators import (
+        MultiPeriodDiscriminator, MultiResolutionDiscriminator,
+    )
+    from lina_speech_tpu_torch.codec.gan import CodecGanConfig, create_codec_gan
+    from lina_speech_tpu_torch.codec.wavtokenizer import WavTokenizer
+    from lina_speech_tpu_torch.train import codec_cli
+    from lina_speech_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    work = os.path.join(ROOT, "build", "codec_gan")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log = os.path.join(work, "metrics.jsonl")
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = codec_cli.main([
+        "fit", "--steps", str(CODEC_GAN_STEPS), "--batch-size", str(CODEC_GAN_BATCH),
+        "--crop-len", str(CODEC_GAN_CROP), "--val-every", "2", "--log-every", "1",
+        "--ckpt-dir", os.path.join(work, "ckpt"), "--log-file", log, "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_launches(read_counts())
+    recs = [json.loads(line) for line in open(log)]
+    steps = [r for r in recs if "disc_loss" in r]
+    vals = [r for r in recs if "val_si_snr_db" in r]
+    require(len(steps) == CODEC_GAN_STEPS and len(vals) == 1, f"JSONL records {recs}")
+    require(all(math.isfinite(v) for r in recs for v in r.values()), f"non-finite metrics {recs}")
+    step_ms = [r["step_time_s"] * 1e3 for r in steps]
+    n_params = {name: sum(p.numel() for p in m.parameters())
+                for name, m in (("generator", state.gen), ("MPD", state.disc_mpd),
+                                ("MRD", state.disc_mrd))}
+    print(f"codec GAN fit: {n_params} parameters, {CODEC_GAN_STEPS} steps at batch "
+          f"{CODEC_GAN_BATCH} x {CODEC_GAN_CROP} samples, {wall:.1f} s wall (builds included)")
+    for r in steps:
+        print(f"  step {r['step']}: disc {r['disc_loss']:.4f}, gen {r['gen_loss']:.4f} (mel "
+              f"{r['mel_loss']:.4f}, adv {r['gen_adv']:.4f}, fm {r['fm_loss']:.4f}), "
+              f"{r['step_time_s'] * 1e3:.1f} ms")
+    print(f"  validation at step {vals[0]['step']}: SI-SNR {vals[0]['val_si_snr_db']:.3f} dB, "
+          f"LSD {vals[0]['val_lsd_db']:.3f} dB, mel L1 {vals[0]['val_mel_l1']:.4f}")
+    print(f"  ms a step (disc + gen, host clock to a device sync): {step_ms}; peak device "
+          f"memory {peak:.2f} GiB [{card_line}]")
+
+    # the parameters before training: the same modules drawn from the same seed
+    wt0, mpd0, mrd0 = (WavTokenizer(codec_cli.codec_config(False)), MultiPeriodDiscriminator(),
+                       MultiResolutionDiscriminator())
+    create_codec_gan(torch.Generator().manual_seed(0), wt0, mpd0, mrd0, CodecGanConfig())
+    for name, now, then in (("generator", state.gen, wt0), ("MPD", state.disc_mpd, mpd0),
+                            ("MRD", state.disc_mrd, mrd0)):
+        before = dict(then.named_parameters())
+        moved = {k: bool((p.detach().cpu() != before[k]).any())
+                 for k, p in now.named_parameters()}
+        still = [k for k, m in moved.items() if not m]
+        # the SEANet encoder takes no gradient (only weight decay, below an
+        # f32 step here); a score head's one bias has a zero hinge gradient
+        # while every score lies inside the margins (-1, 1)
+        encoder = [k for k in still if ".encoder." in k]
+        print(f"  {name}: {sum(moved.values())} of {len(moved)} tensors moved; not: "
+              f"{len(encoder)} of the SEANet encoder and {[k for k in still if k not in encoder]}")
+        must = [k for k in still if ".encoder." not in k and not k.endswith("conv_post.bias")]
+        require(not must, f"{name}: tensors that did not move: {must[:8]}")
+    saved = restore_checkpoint(os.path.join(work, "ckpt", f"step_{CODEC_GAN_STEPS}"),
+                               map_location="cpu")
+    require(saved["step"] == CODEC_GAN_STEPS and all(
+        torch.equal(saved["model"][k], v.cpu()) for k, v in state.gen.state_dict().items()),
+        "the checkpoint differs from the trained generator")
+    print("  checkpoint restored equal to the trained generator bit for bit")
+    shutil.rmtree(work, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
 
 
 def profile_decode(torch, model, x_enc, forced, follow, steps=8):
@@ -4340,12 +4768,13 @@ def variant_generate_phase(torch, np, gla_cuda, model, cfg, card_line, lazy,
 def variant_serving_phase(torch, np, gla_cuda, model, cfg, card_line, chunk="gla_chunk",
                           decode="gla_decode"):
     """DecodeServer on simple-GLA without convs (or RWKV6, or Mamba): 8
-    requests through 8 slots in classic mode (prefill chunks all on
-    ``chunk``, tokens on ``decode``, or on no kernel with ``decode`` None),
-    launch counts against the formula."""
+    requests, each four decode chunks past its prompt, through 8 slots in
+    classic mode (prefill chunks all on ``chunk``, tokens on ``decode``, or
+    on no kernel with ``decode`` None), launch counts against the formula."""
     from lina_speech_tpu_torch.serving import DecodeServer, _pow2_chunks
 
-    reqs = serving_requests(np, cfg)[:SERVE_CLASSIC_REQUESTS]
+    reqs = [(text, prompt, (1 if prompt is None else 1 + prompt.shape[1]) + 4 * WINDOW)
+            for text, prompt, _ in serving_requests(np, cfg)[:SERVE_CLASSIC_REQUESTS]]
     srv = DecodeServer(model, n_slots=SERVE_SLOTS, max_text_len=MAX_TEXT_LEN, chunk=WINDOW, k=1)
     torch.cuda.synchronize()
     reset_counts()
@@ -6527,6 +6956,8 @@ def main():
     phase(quant_linear_kernel_phase, torch, summary)
     phase(quant_lazy_kernel_phase, torch, gla_cuda, summary)
     add_launches(launches, phase(quant_generate_phase, torch, np, model, cfg, card_line))
+    phase(int4_kernel_phase, torch, gla_cuda, summary)
+    add_launches(launches, phase(int4_generate_phase, torch, np, model, cfg, card_line))
     add_launches(launches, phase(quant_serving_phase, torch, np, model, cfg, card_line))
     del model
     torch.cuda.empty_cache()
@@ -6539,6 +6970,7 @@ def main():
     add_launches(launches, phase(cli_phase, torch, np, gla_cuda, card_line))
     add_launches(launches, phase(data_phase, torch, np, gla_cuda, card_line))
     add_launches(launches, phase(remat_phase, torch, np, gla_cuda, card_line))
+    phase(codec_gan_phase, torch, card_line)
     phase(launched_shapes_phase, torch, gla_cuda)
     phase(chunk_bwd_kernel_phase, torch, gla_cuda, summary)
     phase(decode_kernel_phase, torch, gla_cuda, summary)

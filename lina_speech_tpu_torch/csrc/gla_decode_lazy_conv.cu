@@ -18,6 +18,16 @@
 // scale rides the query: o = (q e^{cc} s_scale) S_q + the same window terms
 // (:1802-1810); the int8 element is converted in registers.
 //
+// With an int4 state, two values a byte along the value dim's halves (byte j
+// of a row holds column j in its low nibble and column dv/2 + j in its high
+// one, ops/gla.py:quantize_state_rows_int4), the same readout runs over the
+// two nibble planes of one packed operand: o[j] = w . lo[:, j] and
+// o[dv/2 + j] = w . hi[:, j], w = q e^{cc} s_scale, plus the window terms.
+// It replaces no TPU kernel: the JAX package computes it in XLA
+// (lina_speech_tpu/ops/gla.py:301, gla_decode_lazy_step_q4), which fuses it;
+// here it is one more body of the tile route, so an int4 token costs one
+// launch a layer, as an int8 one does.
+//
 // rnd() rounds to the IO dtype (the Pallas kernel's conv rounding points,
 // :1775-1778 and :1791-1792). Slots j > p hold stale tokens of the previous
 // window: they are never read. The clamp keeps every exp argument <= 0. The
@@ -27,7 +37,8 @@
 //
 // What bounds it on the H100: bytes, and at small batch latency. The state
 // is read once per token (b8 flagship: 8.4 MB per layer in bf16, 4.2 MB in
-// int8, 2.5 and 1.3 us at 3.35 TB/s) and never written; the live window adds
+// int8, 2.1 MB in int4; 2.5, 1.3 and 0.63 us at 3.35 TB/s) and never
+// written; the live window adds
 // (p + 1) (2 dk + dv) elements per (batch, head). The work is 2 dk dv
 // operations per 2 or 1 state bytes, far below the card's ratio. Two bodies
 // (routes) compute it, chosen by ops/gla_cuda.py:gla_decode_lazy_plan from
@@ -68,7 +79,7 @@
 // half the time, so the chain of exchanges after it dominates: slower than
 // the tile route at every shape).
 //
-// Tile route (an int8 state, or fewer than 24 heads), the PR 3 / PR 5
+// Tile route (an int8 or int4 state, or fewer than 24 heads), the PR 3 / PR 5
 // design: as gla_decode_conv.cu, a block owns a (DK x 32) column tile of one
 // (batch, head) state, lane = value column. Every block of a (batch, head)
 // needs the full q and k and the new cc, so each recomputes them from the
@@ -88,7 +99,12 @@
 // warp reads 128 bytes of a row, the block a (DK x 128) tile). Where the
 // state's bytes are few (b1) or half (int8), its one chain of latencies
 // beats or ties the cluster route's (rows, score pushes, slab, readout,
-// readout pushes, window), which only pays once the bytes dominate.
+// readout pushes, window), which only pays once the bytes dominate. An int4
+// state is half a byte an element: a lane loads two packed bytes of a row as
+// one 16-bit word and owns the four value columns they hold, j and j + 1 of
+// the first half and dv/2 + j and dv/2 + j + 1 of the second, so each packed
+// byte is read once and gives its two output columns (a warp reads 64 bytes
+// of a row, a block 64 packed columns, which are 128 value columns).
 //
 // Both routes sum in a fixed order and use no atomics: a second call gives
 // equal bits. The cluster route takes dv in tiles of at most kSlabBytes of
@@ -108,6 +124,7 @@ namespace {
 using namespace gla;
 
 constexpr int kI8 = 2;               // state dtype code of a row-quantized int8 state
+constexpr int kI4 = 3;               // ... of an int4 one, two values a byte
 constexpr int kTileRoute = 0;        // route codes (ops/gla_cuda.py:_LAZY_ROUTE_CODE)
 constexpr int kClusterRoute = 1;
 constexpr int kRB = 32;              // key rows a block of the cluster route owns
@@ -231,15 +248,38 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // ------------------------------------------------------------ tile route
-// How a lane holds its share of a state row: CPL neighbouring columns loaded
-// as one Raw word and unpacked to f32 when they are used.
+// The packed byte of an int4 state (its element type in the tile route).
+struct Nibbles {
+  unsigned char bits;
+};
+
+// How a lane holds its share of a state row: CPL value columns loaded as one
+// Raw word and unpacked to f32 when they are used; a stored element holds
+// kPack values.
 template <typename ST> struct Tile {
   static constexpr int kCPL = 1;
+  static constexpr int kPack = 1;
   using Raw = ST;
   static __device__ __forceinline__ void unpack(Raw w, float (&f)[1]) { f[0] = to_f(w); }
 };
+template <> struct Tile<Nibbles> {
+  static constexpr int kCPL = 4;
+  static constexpr int kPack = 2;
+  using Raw = unsigned short;
+  // bytes 0 and 1 of w: f[0], f[1] their low nibbles (columns j, j + 1 of the
+  // row's first half), f[2], f[3] their high ones (dv/2 + j, dv/2 + j + 1),
+  // each sign-extended by an arithmetic shift of a 32-bit int
+  static __device__ __forceinline__ void unpack(Raw w, float (&f)[4]) {
+    const unsigned x = w;
+    f[0] = static_cast<float>(static_cast<int>(x << 28) >> 28);
+    f[1] = static_cast<float>(static_cast<int>(x << 20) >> 28);
+    f[2] = static_cast<float>(static_cast<int>(x << 24) >> 28);
+    f[3] = static_cast<float>(static_cast<int>(x << 16) >> 28);
+  }
+};
 template <> struct Tile<signed char> {
   static constexpr int kCPL = 4;
+  static constexpr int kPack = 1;
   using Raw = unsigned int;
   static __device__ __forceinline__ void unpack(Raw w, float (&f)[4]) {
     f[0] = static_cast<float>(static_cast<signed char>(w & 0xff));
@@ -265,17 +305,30 @@ lazy_tile_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
                             float* __restrict__ cc_out, int BH, int H, int DV,
                             int p, float scale) {
   constexpr int RPT = DK / kGroups;
-  constexpr int CPL = Tile<ST>::kCPL;  // value columns per lane
-  constexpr int W = kBV * CPL;         // value columns per block
+  constexpr int CPL = Tile<ST>::kCPL;    // value columns per lane
+  constexpr int PACK = Tile<ST>::kPack;  // values a stored element
+  constexpr int W = kBV * CPL;           // value columns per block
   using Raw = typename Tile<ST>::Raw;
   const int bh = blockIdx.x;
   const int h = bh % H;
   const int tid = threadIdx.x;
   const int lane = tid % kBV;
   const int grp = tid / kBV;  // == warp index (kBV == 32)
-  const int col0 = blockIdx.y * W;      // the block's first column
-  const int col = col0 + lane * CPL;    // this lane's first column
   const int row0 = grp * RPT;
+  const int SR = DV / PACK;   // stored elements of a state row
+  // the value column of the block's local column l (lane l / CPL's
+  // (l % CPL)-th): W consecutive columns, or with an int4 state the block's
+  // W / 2 packed bytes' columns in the row's first half (low nibbles) and
+  // second half (high nibbles)
+  const int by = blockIdx.y;
+  auto vcol = [&](int l) -> int {
+    if constexpr (PACK == 1) {
+      return by * W + l;
+    } else {
+      constexpr int BPL = CPL / 2;  // packed bytes of a lane
+      return by * (W / 2) + (l / CPL) * BPL + l % BPL + (l % CPL) / BPL * (DV / 2);
+    }
+  };
 
   constexpr int EPL = DK / kBV;  // key elements per lane in a slot's dot product
   __shared__ float sq[DK], sk[DK], scc[DK], sv[W];
@@ -283,10 +336,10 @@ lazy_tile_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
   __shared__ float part[kGroups][W];
 
   // the long-latency loads first: this thread's rows of the state tile
-  const ST* srow = state + (size_t)bh * DK * DV + (size_t)row0 * DV + col;
+  const ST* srow = state + ((size_t)bh * DK + row0) * SR + by * (W / PACK) + lane * (CPL / PACK);
   Raw s[RPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) s[r] = *reinterpret_cast<const Raw*>(srow + (size_t)r * DV);
+  for (int r = 0; r < RPT; ++r) s[r] = *reinterpret_cast<const Raw*>(srow + (size_t)r * SR);
 
   // rings are (4, BH, D): element (j, bh, c) at j * BH * D + bh * D + c;
   // window buffers (L, BH, D) likewise
@@ -303,7 +356,8 @@ lazy_tile_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
       cj[e] = cbuf[base + e * kBV];
     }
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) vj[c] = to_f(vbuf[j * vstride + (size_t)bh * DV + col + c]);
+    for (int c = 0; c < CPL; ++c)
+      vj[c] = to_f(vbuf[j * vstride + (size_t)bh * DV + vcol(lane * CPL + c)]);
   };
   // acc += a_j v_j with a_j = sum_i q_i k_j,i e^{min(cc_i - c_j,i, 0)}. Slot p
   // is this token: k and v from shared memory, exp argument 0.
@@ -371,14 +425,14 @@ lazy_tile_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
     }
   }
   if (tid < W) {
-    const int vcol = col0 + tid;
-    const size_t off = (size_t)bh * DV + vcol;
+    const int c_v = vcol(tid);
+    const size_t off = (size_t)bh * DV + c_v;
     const float x_v = to_f(xv[off]);
     float hv[kConv - 1], tv[kConv];
 #pragma unroll
     for (int j = 0; j < kConv - 1; ++j) hv[j] = to_f(cv[(j + 1) * vstride + off]);
 #pragma unroll
-    for (int i = 0; i < kConv; ++i) tv[i] = to_f(wv[(size_t)(i * H + h) * DV + vcol]);
+    for (int i = 0; i < kConv; ++i) tv[i] = to_f(wv[(size_t)(i * H + h) * DV + c_v]);
     const IO v_io = from_f<IO>(silu(round_io<IO>(tap_sum(tv, hv, x_v))));
     sv[tid] = to_f(v_io);
 #pragma unroll
@@ -427,7 +481,7 @@ lazy_tile_kernel(const IO* __restrict__ xq, const IO* __restrict__ xk,
     float out = 0.f;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) out += part[g][tid];
-    o[(size_t)bh * DV + col0 + tid] = from_f<IO>(out);
+    o[(size_t)bh * DV + vcol(tid)] = from_f<IO>(out);
   }
 }
 
@@ -804,7 +858,9 @@ int launch_cluster(const void* xq, const void* xk, const void* xv, const void* g
 // -4 for p outside the window, -5 for an int8 state without scales or
 // scales with a float state, -6 for a state off a 16-byte boundary (the
 // cluster route), -7 for an unknown route code (0 tile, 1 cluster), -8 for
-// an int8 state on the cluster route (the tile route is its only body).
+// an int8 or int4 state on the cluster route (the tile route is its only
+// body). state_dtype: 0 f32, 1 bf16, 2 int8, 3 int4 (the state then (B, H,
+// DK, DV / 2) bytes, two values each).
 extern "C" int gla_decode_lazy_conv_step(
     const void* xq, const void* xk, const void* xv, const void* gk, const void* wq,
     const void* wk, const void* wv, const void* cq, const void* ck, const void* cv,
@@ -813,13 +869,14 @@ extern "C" int gla_decode_lazy_conv_step(
     void* cq_out, void* ck_out, void* cv_out, void* cc_out, int B, int H, int DK,
     int DV, int L, int p, float scale, int io_dtype, int state_dtype, int route,
     void* stream) {
+  const bool quant = state_dtype == kI8 || state_dtype == kI4;
   if (DV % gla::kBV != 0 || DV < gla::kBV) return -3;
-  if (state_dtype == kI8 && DV % (4 * gla::kBV) != 0) return -3;
+  if (quant && DV % (4 * gla::kBV) != 0) return -3;
   if (p < 0 || p >= L) return -4;
-  if ((state_dtype == kI8) != (s_scale != nullptr)) return -5;
+  if (quant != (s_scale != nullptr)) return -5;
   if (route != kTileRoute && route != kClusterRoute) return -7;
   if (route == kClusterRoute && reinterpret_cast<uintptr_t>(state) % 16 != 0) return -6;
-  if (route == kClusterRoute && state_dtype == kI8) return -8;
+  if (route == kClusterRoute && quant) return -8;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define TILE_LAUNCH(IO_T, ST_T)                                                          \
   GLA_DISPATCH_DK(DK, return launch_tile<IO_T, ST_T, DK>(                                \
@@ -833,6 +890,11 @@ extern "C" int gla_decode_lazy_conv_step(
   if (state_dtype == kI8) {
     if (io_dtype == gla::kF32) { TILE_LAUNCH(float, signed char) }
     if (io_dtype == gla::kBF16) { TILE_LAUNCH(__nv_bfloat16, signed char) }
+    return -2;
+  }
+  if (state_dtype == kI4) {
+    if (io_dtype == gla::kF32) { TILE_LAUNCH(float, Nibbles) }
+    if (io_dtype == gla::kBF16) { TILE_LAUNCH(__nv_bfloat16, Nibbles) }
     return -2;
   }
   GLA_DISPATCH_TYPES(io_dtype, state_dtype, LAZY_LAUNCH(IO, ST))

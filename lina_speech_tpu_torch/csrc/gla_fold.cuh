@@ -21,6 +21,12 @@
 // consecutive columns from 2 NT t: whole 16-byte words of the state (8 bf16,
 // 2 x 4 f32, or 16 int8) in rows g and g + 8. V is staged in shared memory
 // in MMA column order, so a B fragment is one ldmatrix.trans.
+//
+// An int4 state (two values a byte: column j of a row in byte j's low
+// nibble, column DV/2 + j in its high one) wants a lane's 16 columns to be
+// the two nibbles of 8 whole bytes: with HALVES the staging lays v's columns
+// out so that the block's column 16 w + o stands for value column 8 w + o
+// (o < 8) or DV/2 + 8 w + o - 8 (o >= 8), halves_pos() below.
 #pragma once
 
 #include <cstdint>
@@ -40,6 +46,14 @@ constexpr int kPad = 8;  // bf16 of row padding: the 8 rows of an ldmatrix on di
 template <int NT> __device__ __forceinline__ int mma_pos(int a) {
   const int q = a / (2 * NT), rem = a % (2 * NT);
   return 8 * (rem / 2) + 2 * q + rem % 2;
+}
+
+// the block column that stands for value column c of a DV-wide row under
+// HALVES: the low nibbles' half in the first 8 of each 16, the high
+// nibbles' in the last 8 (an even c and c + 1 stay neighbours)
+__device__ __forceinline__ int halves_pos(int c, int DV) {
+  const int half = c >= DV / 2, j = c - half * (DV / 2);
+  return 16 * (j / 8) + 8 * half + j % 8;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
@@ -94,8 +108,10 @@ constexpr int kStageLoads = 4;  // global loads of a staging thread in flight to
 // zeros), in groups of 8 NT columns. Every thread of the block takes part,
 // in rounds of kStageLoads loads a thread: load(r) brings round r into
 // registers, store(r) writes it to shared memory, so a caller can ask for
-// the state between the two; it waits (barrier) before any read.
-template <typename IO, int NT> struct Stage {
+// the state between the two; it waits (barrier) before any read. HALVES
+// (an int4 state's fold; c0 0 and BC the whole row) lays v's columns out by
+// halves_pos().
+template <typename IO, int NT, bool HALVES = false> struct Stage {
   static constexpr int IV = Word<IO>::N;  // values of a v word
   Staged s;
   const IO* __restrict__ kbuf;
@@ -156,7 +172,7 @@ template <typename IO, int NT> struct Stage {
         Word<IO>::unpack(vx[u], f);
 #pragma unroll
         for (int e = 0; e < IV; e += 2) {
-          const int col = a + e, g = col / (8 * NT);
+          const int col = HALVES ? halves_pos(a + e, DV) : a + e, g = col / (8 * NT);
           const int p = j * s.vld + g * 8 * NT + mma_pos<NT>(col % (8 * NT));
           if constexpr (IV == 4) {  // f32 v: three parts
             bf16 p0[3], p1[3];

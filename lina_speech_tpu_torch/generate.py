@@ -137,7 +137,12 @@ def generate_batch(
     that stay full precision. ``state_quant="int8"`` (needs ``lazy_window``)
     keeps the read-only base states of the lazy windows int8 with one scale
     per row, requantized at every fold (kernels ``gla_decode_lazy_conv``
-    with ``s_scale`` and ``gla_fold_q``). Both are opt-in quality knobs.
+    with ``s_scale`` and ``gla_fold_q``); ``"int4"`` keeps them int4, two
+    values a byte along the value dim's halves (``s`` (b, h, dk, dv // 2),
+    the int4 bodies of the same two kernels). Both quantize the prefill's
+    final state as it came out of the prefill kernels (the f32 sums rounded
+    once to the state dtype), as the JAX package does. All are opt-in
+    quality knobs.
 
     ``cfg_coef`` turns on classifier-free guidance (a model trained with
     ``mask_text_p > 0``, else ``ValueError``): the batch is doubled with
@@ -150,8 +155,7 @@ def generate_batch(
     rows' maps. With a ``spk_encoder`` the prompt's first embedding is
     replaced by the speaker vector pooled from the prompt embeddings.
 
-    Still raising ``NotImplementedError``: ``state_quant="int4"`` (ROADMAP.md
-    Queue 1 item 8) and ``approx_topk`` (a TPU op). Not ported from the JAX
+    Still raising ``NotImplementedError``: ``approx_topk`` (a TPU op). Not ported from the JAX
     package on purpose: its ``sf_emit_dtype`` switch (``LINA_SF32_BUDGET_GB``), which makes the TPU prefill kernels
     emit f32 states and cast outside for a scheduling reason -- the value
     that is quantized is the state-dtype final state either way, and that is

@@ -74,9 +74,9 @@ def add_lazy_buffers(state: BackboneState, window: int,
                      dtype: torch.dtype = torch.bfloat16,
                      state_quant: Optional[str] = None) -> BackboneState:
     """Attach zeroed lazy-window buffers to every GLA layer state;
-    ``state_quant="int8"`` also row-quantizes the LAYER base states (the
-    bulk of the bytes a decode step reads); the one pos_net state stays
-    full precision, as in the JAX package. A state of another mixer
+    ``state_quant="int8"`` or ``"int4"`` also row-quantizes the LAYER base
+    states (the bulk of the bytes a decode step reads); the one pos_net
+    state stays full precision, as in the JAX package. A state of another mixer
     (Mamba, Mamba-2, RWKV6) has no lazy window: ``TypeError``, as in JAX."""
     def one(st, quant):
         if not isinstance(st, GLAState):

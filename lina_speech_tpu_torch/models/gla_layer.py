@@ -31,12 +31,16 @@ version, as the JAX layer takes XLA where its Pallas kernels do not fit):
   ``gla_fold`` (``fold_lazy_state``); with an int8 base state
   (``state_quant="int8"``: ``GLAState.s`` int8 and its row scales in
   ``GLAState.s_scale``) the step passes ``s_scale`` and the fold is
-  ``gla_fold_q``. Without per-projection convs the lazy step is the plain
-  ``ops/gla.py:gla_decode_lazy_step`` on every device, as in the JAX
-  package (no TPU kernel exists for it); its fold keeps the kernels.
+  ``gla_fold_q``; an int4 one (``state_quant="int4"``: ``s`` int8 of last
+  dim dv / 2, two nibbles a byte, told from int8 as in JAX by
+  ``s.shape[-1] != vbuf.shape[-1]``) takes the int4 bodies of the same two
+  kernels. Without per-projection convs the lazy step is the plain
+  ``ops/gla.py:gla_decode_lazy_step`` (``_q``, ``_q4``) on every device, as
+  in the JAX package (no TPU kernel exists for it); its fold keeps the
+  kernels.
 
-Context parallelism, int4 states and the folded projection layout have no
-switch in the port yet. The JAX layer merges q|k|v|g into one projection per
+Context parallelism and the folded projection layout have no switch in the
+port yet. The JAX layer merges q|k|v|g into one projection per
 decode step; the port launches one per projection (column-independent, the
 same numbers).
 """
@@ -52,7 +56,8 @@ import torch.nn.functional as F
 from lina_speech_tpu_torch.models.base_blocks import Linear
 from lina_speech_tpu_torch.ops import gla_cuda
 from lina_speech_tpu_torch.ops.gla import (
-    gla_decode_lazy_step, gla_decode_lazy_step_q, gla_scan_ref, quantize_state_rows,
+    gla_decode_lazy_step, gla_decode_lazy_step_q, gla_decode_lazy_step_q4, gla_scan_ref,
+    quantize_state_rows, quantize_state_rows_int4,
 )
 from lina_speech_tpu_torch.ops.short_conv import causal_depthwise_conv, short_conv_step
 
@@ -73,17 +78,16 @@ class GLAState:
     vbuf: Optional[torch.Tensor] = None  # (L, b, h, dv)
     cbuf: Optional[torch.Tensor] = None  # (L, b, h, dk) f32 gate cumsums
     cc: Optional[torch.Tensor] = None    # (b, h, dk) f32 cumsum since fold
-    # int8 state quantization (state_quant="int8"): the f32 scale of each
-    # (b, h, dk) row; ``s`` is then int8 (ops/gla.py:quantize_state_rows)
+    # int8 / int4 state quantization (state_quant="int8" / "int4"): the f32
+    # scale of each (b, h, dk) row; ``s`` is then int8
+    # (ops/gla.py:quantize_state_rows), or int4 packed two a byte into an
+    # int8 (b, h, dk, dv // 2) (ops/gla.py:quantize_state_rows_int4)
     s_scale: Optional[torch.Tensor] = None
 
 
 def check_state_quant(state_quant: Optional[str]) -> None:
-    """``None`` and ``"int8"`` are ported; ``"int4"`` is not yet."""
-    if state_quant == "int4":
-        raise NotImplementedError('state_quant="int4" is not ported '
-                                  "(ROADMAP.md Queue 1 item 8)")
-    if state_quant not in (None, "int8"):
+    """``None``, ``"int8"`` and ``"int4"``; anything else raises."""
+    if state_quant not in (None, "int8", "int4"):
         raise ValueError(f"unknown state_quant {state_quant!r}")
 
 
@@ -94,7 +98,10 @@ def gla_add_lazy_buffers(state: GLAState, window: int,
 
     ``state_quant="int8"`` also row-quantizes the base state: decode at
     many slots reads every state once per token, and int8 halves those
-    bytes (an opt-in quality knob; the scale rides the readout's query)."""
+    bytes (an opt-in quality knob; the scale rides the readout's query).
+    ``"int4"`` quarters them: two values a byte along the value dim's
+    halves, ``s`` then (b, h, dk, dv // 2) int8 (the fold and the step
+    tell it from int8 by that width)."""
     check_state_quant(state_quant)
     b, h, dk, dv = state.s.shape
     dev = state.s.device
@@ -104,8 +111,9 @@ def gla_add_lazy_buffers(state: GLAState, window: int,
         vbuf=torch.zeros(window, b, h, dv, dtype=dtype, device=dev),
         cbuf=torch.zeros(window, b, h, dk, dtype=torch.float32, device=dev),
         cc=torch.zeros(b, h, dk, dtype=torch.float32, device=dev))
-    if state_quant == "int8":
-        s_q, sc = quantize_state_rows(state.s)
+    if state_quant is not None:
+        quantize = quantize_state_rows if state_quant == "int8" else quantize_state_rows_int4
+        s_q, sc = quantize(state.s)
         state = dataclasses.replace(state, s=s_q, s_scale=sc)
     return state
 
@@ -117,9 +125,9 @@ def gla_fold_lazy_state(state: GLAState, plain: bool = False) -> GLAState:
     zeroing writes): the lazy step masks slots ``> p`` and rewrites every
     slot before the next fold reads it. ``plain`` takes the plain version
     on every device; otherwise a CUDA state is folded in place by the
-    ``gla_fold`` kernel, or an int8 one (``s_scale`` present), with its
-    scales, by ``gla_fold_q`` -- or by the plain version where the kernels
-    do not take its heads (``gla_cuda.kernel_takes``).
+    ``gla_fold`` kernel, or an int8 or int4 one (``s_scale`` present), with
+    its scales, by ``gla_fold_q`` -- or by the plain version where the
+    kernels do not take its heads (``gla_cuda.kernel_takes``).
     """
     dk, dv = state.kbuf.shape[-1], state.vbuf.shape[-1]
     plain = plain or not gla_cuda.kernel_takes(dk, dv, state.kbuf.dtype, state.s.dtype)
@@ -430,8 +438,9 @@ class GatedLinearAttention(nn.Module):
         else:
             qkvg = (hsplit(qp, dk), hsplit(kp, dk), hsplit(vp, dv), gk)
             if lazy and state.s_scale is not None:
-                o, *window = gla_decode_lazy_step_q(*qkvg, state.s, state.s_scale,
-                                                    *window, lazy_p)
+                int4 = gla_cuda.is_int4(state.s, state.vbuf)
+                step = gla_decode_lazy_step_q4 if int4 else gla_decode_lazy_step_q
+                o, *window = step(*qkvg, state.s, state.s_scale, *window, lazy_p)
                 s = state.s
             elif lazy:
                 o, *window = gla_decode_lazy_step(*qkvg, state.s, *window, lazy_p)

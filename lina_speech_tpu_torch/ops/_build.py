@@ -116,7 +116,7 @@ def load_library() -> ctypes.CDLL:
     lib.gla_decode_lazy_conv_step.restype = i
     lib.gla_fold_window.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.gla_fold_window.restype = i
-    lib.gla_fold_q_window.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.gla_fold_q_window.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.gla_fold_q_window.restype = i
     lib.int8_linear_fwd.argtypes = [p] * 6 + [i] * 11 + [p]
     lib.int8_linear_fwd.restype = i

@@ -14,7 +14,10 @@ Counterpart of ``lina_speech_tpu/ops/gla.py``. Per head, with log-gates
   rides small buffers and is folded into the state once per window;
 - :func:`quantize_state_rows`, :func:`gla_decode_lazy_step_q` and
   :func:`gla_decode_lazy_fold_q` -- the lazy window over an int8 base state
-  with one f32 scale per (batch, head, key row).
+  with one f32 scale per (batch, head, key row);
+- :func:`quantize_state_rows_int4`, :func:`gla_decode_lazy_step_q4` and
+  :func:`gla_decode_lazy_fold_q4` -- the same over an int4 base state, two
+  nibbles a byte along the value dim's halves.
 
 These are the plain versions; the CUDA kernels of the main path live in
 ``ops/gla_cuda.py``.
@@ -156,6 +159,74 @@ def gla_decode_lazy_fold_q(s_base_q, s_scale, kbuf, vbuf, cbuf, cc
     s = (cc.exp() * s_scale)[..., None] * s_base_q.float()
     s = s + torch.einsum("lbhk,lbhv->bhkv", kbuf.float() * dec, vbuf.float())
     return quantize_state_rows(s)
+
+
+def quantize_state_rows_int4(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int4 quantization of a state (b, h, dk, dv), one scale per
+    (b, h, dk) row, packed two values a byte along the value dim's halves:
+    byte ``j`` of the (b, h, dk, dv // 2) int8 result holds ``S[..., j]``
+    in its low nibble and ``S[..., dv // 2 + j]`` in its high one, so
+    unpacking needs no interleave. ``sc = max(max_v |S|, 1e-30) / 7``,
+    values ``clip(round(S / sc), +-7)`` (round half to even). A quarter of
+    the float state's bytes at 16 times int8's quantization error. Returns
+    (packed int8, sc f32 (b, h, dk))."""
+    sf = s.float()
+    sc = sf.abs().amax(dim=-1).clamp(min=1e-30) / 7.0
+    q = torch.round(sf / sc[..., None]).clamp(-7, 7).to(torch.int8)
+    half = q.shape[-1] // 2
+    lo, hi = q[..., :half], q[..., half:]
+    # hi * 16 in [-112, 112] fits int8, so the shift has no overflow to rely on
+    return (hi * 16) | (lo & 0x0F), sc
+
+
+def unpack_state_int4(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) sign-extended int8 planes of a nibble-packed state. The
+    nibbles are read off a widened copy (arithmetic shifts on int16), so the
+    result does not hang on how int8 shifts overflow."""
+    w = packed.to(torch.int16)
+    lo = ((w & 0x0F) ^ 0x08) - 0x08
+    return lo.to(torch.int8), (w >> 4).to(torch.int8)
+
+
+def dequantize_state_int4(packed: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    lo, hi = unpack_state_int4(packed)
+    return torch.cat([lo, hi], dim=-1).float() * sc[..., None]
+
+
+def gla_decode_lazy_step_q4(q, k, v, gk, s_packed, s_scale, kbuf, vbuf, cbuf, cc,
+                            p: int, scale=None):
+    """:func:`gla_decode_lazy_step` over an int4 nibble-packed base state:
+    two readouts over the low and high nibble planes of one packed operand,
+    ``o = concat(w lo, w hi) + window terms`` with the row scale riding the
+    query, ``w = q e^{cc} s_scale``."""
+    scale = _default_scale(q, scale)
+    L = kbuf.shape[0]
+    qf, gf = q.float(), gk.float()
+    cc = cc + gf
+    kbuf, vbuf, cbuf = kbuf.clone(), vbuf.clone(), cbuf.clone()
+    kbuf[p], vbuf[p], cbuf[p] = k.to(kbuf.dtype), v.to(vbuf.dtype), cc.to(cbuf.dtype)
+
+    w_row = qf * scale * cc.exp() * s_scale
+    lo, hi = unpack_state_int4(s_packed)
+    o = torch.cat([torch.einsum("bhk,bhkv->bhv", w_row, lo.float()),
+                   torch.einsum("bhk,bhkv->bhv", w_row, hi.float())], dim=-1)
+    live = (torch.arange(L, device=q.device) <= p).float()[:, None, None, None]
+    w = (cc[None] - cbuf.float()).clamp(max=0.0).exp() * live
+    a = torch.einsum("bhk,lbhk->lbh", qf * scale, kbuf.float() * w)
+    o = o + torch.einsum("lbh,lbhv->bhv", a, vbuf.float())
+    return o.to(q.dtype), kbuf, vbuf, cbuf, cc
+
+
+def gla_decode_lazy_fold_q4(s_packed, s_scale, kbuf, vbuf, cbuf, cc
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gla_decode_lazy_fold` over an int4 nibble-packed base state:
+    unpack, fold the window, requantize every row to int4 afresh. Returns
+    new (packed, s_scale); the buffers stay stale and the caller resets
+    ``cc``."""
+    dec = (cc[None] - cbuf.float()).clamp(max=0.0).exp()
+    s = cc.exp()[..., None] * dequantize_state_int4(s_packed, s_scale)
+    s = s + torch.einsum("lbhk,lbhv->bhkv", kbuf.float() * dec, vbuf.float())
+    return quantize_state_rows_int4(s)
 
 
 def gla_chunk(q, k, v, gk, initial_state=None, scale=None,

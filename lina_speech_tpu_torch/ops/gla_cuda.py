@@ -32,15 +32,26 @@ wrappers and their plain versions.
 - :func:`gla_decode_lazy_conv` replaces ``gla_decode_lazy_conv_fused``
   (gla_pallas.py:2197), one lazy-window decode token: ring updates, append
   to the window buffers, readout from a read-only state, which may be int8
-  with a row scale (``s_scale``). Kernel: ``csrc/gla_decode_lazy_conv.cu``,
-  two routes chosen by :func:`gla_decode_lazy_plan`.
+  with a row scale (``s_scale``), or int4 packed two values a byte with its
+  row scale (the JAX package's XLA step ``gla_decode_lazy_step_q4``,
+  ops/gla.py:301, which has no TPU kernel). Kernel:
+  ``csrc/gla_decode_lazy_conv.cu``, two routes chosen by
+  :func:`gla_decode_lazy_plan`.
 - :func:`gla_fold` replaces ``gla_fold_fused`` (gla_pallas.py:2232), the
   fold of a full window into the state. Kernel: ``csrc/gla_fold.cu`` (+
   ``gla_fold.cuh``), bands of key rows chosen by :func:`gla_fold_plan`.
 - :func:`gla_fold_q` replaces ``gla_fold_fused_q`` (gla_pallas.py:2097), the
-  same fold on an int8 state with a fresh requantization of every row.
-  Kernel: ``csrc/gla_fold_q.cu`` (+ ``gla_fold.cuh``), bands chosen by
+  same fold on an int8 state with a fresh requantization of every row, and
+  on an int4 one (JAX's XLA ``gla_decode_lazy_fold_q4``, ops/gla.py:326).
+  Kernel: ``csrc/gla_fold_q.cuh`` (``gla_fold_q.cu`` the int8 body,
+  ``gla_fold_q4.cu`` the int4 one; + ``gla_fold.cuh``), bands chosen by
   :func:`gla_fold_q_plan`.
+
+An int4 state is an int8 tensor of last dim dv / 2 (byte j: column j in
+the low nibble, dv / 2 + j in the high one, ``ops/gla.py:
+quantize_state_rows_int4``); the wrappers tell it from an int8 state by that
+width, as the JAX layer does, and note its launches under the state label
+:data:`INT4` and in ``.q4_launches``.
 
 Each wrapper takes the JAX function's arguments in the JAX layout. For a
 CPU tensor it runs the plain PyTorch version (``*_plain``); for a CUDA
@@ -73,6 +84,8 @@ from lina_speech_tpu_torch.ops import gla as gla_ops
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_CODE = 2  # a row-quantized state (the lazy step only)
+_INT4_CODE = 3  # ... int4, two values a byte (the lazy step and the int8 fold's C entry)
+INT4 = "int4"  # the state dtype slot of an int4 launch's shape (launch_shapes)
 _CONV_WIDTH = 4
 _DK_SUPPORTED = (64, 128, 256)
 _BV = 32  # value columns per block (csrc/gla_common.cuh:kBV)
@@ -100,7 +113,8 @@ def reset_launch_counts() -> None:
     for fn in (gla_decode_conv, gla_decode):
         fn.routes = dict.fromkeys(_DECODE_ROUTE_CODE, 0)
     gla_decode_lazy_conv.routes = dict.fromkeys(_LAZY_ROUTE_CODE, 0)
-    gla_decode_lazy_conv.q_launches = 0
+    gla_decode_lazy_conv.q_launches = gla_decode_lazy_conv.q4_launches = 0
+    gla_fold_q.q4_launches = 0
     for fn in _shape_noters():
         fn.shapes = Counter()
 
@@ -120,8 +134,8 @@ def launch_shapes() -> dict:
     dk, dv, IO dtype, state dtype, route); ``gla_decode_lazy_conv``: (b, h,
     dk, dv, IO dtype, state dtype, window length, p, route); ``gla_fold``
     and ``gla_fold_q``: (b, h, dk, dv, IO dtype, state dtype, window
-    length). A check that drives a path reads it to hold the kernels at
-    those shapes."""
+    length). An int4 state's dtype slot holds :data:`INT4`. A check that
+    drives a path reads it to hold the kernels at those shapes."""
     return {fn.__name__: set(fn.shapes) for fn in _shape_noters()}
 
 
@@ -133,10 +147,10 @@ def launch_shape_counts() -> dict:
 def kernel_takes(dk: int, dv: int, io: torch.dtype, state_dtype: torch.dtype) -> bool:
     """Whether the GLA kernels take a head of key dim ``dk`` and value dim
     ``dv`` with IO dtype ``io`` and state dtype ``state_dtype`` (int8: a
-    row-quantized lazy-window state, which the int8 readout and
-    ``gla_fold_q`` take at value widths of 128, 256 and 512). Decided from
-    shapes and dtypes alone, before any launch; the wrappers raise on what
-    it refuses."""
+    row-quantized lazy-window state, int8 or int4 packed two a byte, which
+    the quantized readouts and ``gla_fold_q`` take at value widths of 128,
+    256 and 512 either way). Decided from shapes and dtypes alone, before
+    any launch; the wrappers raise on what it refuses."""
     if io not in _DTYPE_CODE or dk not in _DK_SUPPORTED or dv % _BV:
         return False
     return dv in _FOLD_Q_DV if state_dtype == torch.int8 else state_dtype in _DTYPE_CODE
@@ -1293,7 +1307,12 @@ def gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
     v, cv2 = _ring_conv(xv, wv, cv)
     _check_state_scale("gla_decode_lazy_conv", state, s_scale)
     base = (state,) if s_scale is None else (state, s_scale)
-    step = gla_ops.gla_decode_lazy_step if s_scale is None else gla_ops.gla_decode_lazy_step_q
+    if s_scale is None:
+        step = gla_ops.gla_decode_lazy_step
+    elif is_int4(state, xv):
+        step = gla_ops.gla_decode_lazy_step_q4
+    else:
+        step = gla_ops.gla_decode_lazy_step_q
     o, kbuf, vbuf, cbuf, cc = step(
         q, k.to(kbuf.dtype), v.to(vbuf.dtype), gk, *base, kbuf, vbuf, cbuf, cc,
         p, scale=scale)
@@ -1364,9 +1383,15 @@ def _sum_in_order(parts):
     return total
 
 
+def is_int4(state, v) -> bool:
+    """Whether an int8 ``state`` is int4 nibble-packed: its last dim is
+    half of the value dim of ``v`` (a token's v or the window's vbuf)."""
+    return state.dtype == torch.int8 and state.shape[-1] != v.shape[-1]
+
+
 def _check_state_scale(name, state, s_scale) -> None:
-    """An int8 state comes with its f32 row scales (b, h, dk), a float
-    state without."""
+    """An int8 or int4 state comes with its f32 row scales (b, h, dk), a
+    float state without."""
     if state.dtype == torch.int8:
         _check(name, s_scale is not None, "an int8 state needs s_scale")
         _check(name, s_scale.shape == state.shape[:-1] and s_scale.dtype == torch.float32,
@@ -1390,11 +1415,12 @@ _LAZY_ROUTE_CODE = {"tile": 0, "cluster": 1}
 _LAZY_CLUSTER_MIN_HEADS = 24  # b * h from which a float state takes the cluster route
 
 
-def gla_decode_lazy_plan(b: int, h: int, state_dtype: torch.dtype) -> str:
+def gla_decode_lazy_plan(b: int, h: int, state_dtype) -> str:
     """The body a :func:`gla_decode_lazy_conv` launch on (b, h) heads over a
-    state of ``state_dtype`` runs, decided from these alone before the
-    launch: ``"cluster"`` for an f32 or bf16 state from
-    ``_LAZY_CLUSTER_MIN_HEADS`` heads in flight, else ``"tile"``."""
+    state of ``state_dtype`` (a torch dtype, or :data:`INT4`) runs, decided
+    from these alone before the launch: ``"cluster"`` for an f32 or bf16
+    state from ``_LAZY_CLUSTER_MIN_HEADS`` heads in flight, else ``"tile"``
+    (an int8 or int4 state's only body)."""
     float_state = state_dtype in _DTYPE_CODE
     return "cluster" if float_state and b * h >= _LAZY_CLUSTER_MIN_HEADS else "tile"
 
@@ -1449,13 +1475,17 @@ def gla_decode_lazy_conv(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state,
 
     ``state`` is f32 or bf16 with ``s_scale=None``, or int8 with its row
     scales ``s_scale`` (b, h, dk) in f32 (``ops/gla.py:quantize_state_rows``):
-    the readout is then ``(q e^{cc} s_scale) S_q``.
+    the readout is then ``(q e^{cc} s_scale) S_q``; or int4, an int8 (b, h,
+    dk, dv // 2) with its row scales (``ops/gla.py:
+    quantize_state_rows_int4``): the readout is then ``concat(w lo, w hi)``
+    over the packed bytes' low and high nibbles, ``w = q e^{cc} s_scale``.
 
     On CUDA the kernel writes slot ``p`` of kbuf, vbuf and cbuf IN PLACE and
     returns the same tensors (as the JAX kernel aliases them); the rings
     and cc come back as new tensors. It runs the body
     :func:`gla_decode_lazy_plan` picks; ``gla_decode_lazy_conv.routes``
-    counts each.
+    counts each; ``.q_launches`` counts the launches on an int8 or int4
+    state and ``.q4_launches`` those on an int4 one.
     """
     if not xq.is_cuda:
         return gla_decode_lazy_conv_plain(xq, xk, xv, gk, wq, wk, wv, cq, ck,
@@ -1475,12 +1505,14 @@ def _lazy_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf
     io = xq.dtype
     _check_state_scale(name, state, s_scale)
     quant = s_scale is not None
+    int4 = quant and is_int4(state, xv)
     tensors = [xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf, cc]
     _check_cuda_args(name, tensors + ([s_scale] if quant else []), io, dk, dv,
                      torch.float32 if quant else state.dtype)
     _check(name, not quant or dv % (4 * _BV) == 0,
-           f"with an int8 state the head value dim {dv} must be a multiple of {4 * _BV}")
-    state_code = _INT8_CODE if quant else _DTYPE_CODE[state.dtype]
+           f"with an int8 or int4 state the head value dim {dv} must be a multiple of "
+           f"{4 * _BV}")
+    state_code = _INT4_CODE if int4 else _INT8_CODE if quant else _DTYPE_CODE[state.dtype]
     _check(name, xk.shape == xq.shape and xk.dtype == io, "xk must match xq")
     _check(name, xv.shape == (b, h, dv) and xv.dtype == io, "xv shape/dtype")
     _check(name, gk.shape == xq.shape and gk.dtype == torch.float32,
@@ -1490,14 +1522,16 @@ def _lazy_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf
                f"taps must be ({_CONV_WIDTH}, {h}, {d}) in {io}")
         _check(name, ring.shape == (_CONV_WIDTH, b, h, d) and ring.dtype == io,
                f"rings must be ({_CONV_WIDTH}, {b}, {h}, {d}) in {io}")
-    _check(name, state.shape == (b, h, dk, dv), "state shape")
+    _check(name, state.shape == (b, h, dk, dv // 2 if int4 else dv), "state shape")
     L = _check_window(name, kbuf, vbuf, cbuf, cc, b, h, dk, dv, io)
     _check(name, isinstance(p, int) and 0 <= p < L,
            f"p must be an int in [0, {L}), got {p!r}")
-    route = gla_decode_lazy_plan(b, h, state.dtype) if route is None else route
+    label = INT4 if int4 else state.dtype
+    route = gla_decode_lazy_plan(b, h, label) if route is None else route
     _check(name, route in _LAZY_ROUTE_CODE,
            f"route {route!r} not in {tuple(_LAZY_ROUTE_CODE)}")
-    _check(name, route == "tile" or not quant, "the cluster route takes no int8 state")
+    _check(name, route == "tile" or not quant,
+           "the cluster route takes no int8 state, nor an int4 one")
     _check(name, route == "tile" or state.data_ptr() % 16 == 0,
            "the cluster route takes a state on a 16-byte boundary (it is copied in bulk)")
     scale = dk ** -0.5 if scale is None else scale
@@ -1517,12 +1551,16 @@ def _lazy_launch(xq, xk, xv, gk, wq, wk, wv, cq, ck, cv, state, kbuf, vbuf, cbuf
     gla_decode_lazy_conv.routes[route] += 1
     if quant:
         gla_decode_lazy_conv.q_launches += 1
-    gla_decode_lazy_conv.shapes[(b, h, dk, dv, io, state.dtype, L, p, route)] += 1
+    if int4:
+        gla_decode_lazy_conv.q4_launches += 1
+    gla_decode_lazy_conv.shapes[(b, h, dk, dv, io, label, L, p, route)] += 1
     return o, cq2, ck2, cv2, kbuf, vbuf, cbuf, cc2
 
 
-# q_launches: how many of the launches read an int8 state
+# q_launches: how many of the launches read an int8 or int4 state;
+# q4_launches: an int4 one
 gla_decode_lazy_conv.launches = gla_decode_lazy_conv.q_launches = 0
+gla_decode_lazy_conv.q4_launches = 0
 gla_decode_lazy_conv.routes = dict.fromkeys(_LAZY_ROUTE_CODE, 0)
 gla_decode_lazy_conv.shapes = Counter()
 
@@ -1615,8 +1653,11 @@ def gla_fold_plan(b: int, h: int, dk: int, dv: int, state_dtype: torch.dtype) ->
 
 @functools.lru_cache(maxsize=None)
 def gla_fold_q_plan(b: int, h: int, dk: int, dv: int) -> str:
-    """The band a :func:`gla_fold_q` launch on (b, h) int8 heads takes, by
-    the rule of :func:`gla_fold_plan`."""
+    """The band a :func:`gla_fold_q` launch on (b, h) int8 or int4 heads of
+    value dim ``dv`` takes, by the rule of :func:`gla_fold_plan`. The int4
+    body's blocks are the int8 body's (whole rows, dv / 64 warps across,
+    each thread's 16 columns of a row from 8 packed bytes), so the two take
+    the same bands."""
     return _fold_plan(b, h, dk, dv, torch.int8)
 
 
@@ -1716,14 +1757,21 @@ gla_fold.shapes = Counter()
 # --------------------------------------------- window fold of an int8 state
 
 def gla_fold_q_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc):
-    """Plain version of :func:`gla_fold_q` (returns new tensors)."""
-    return gla_ops.gla_decode_lazy_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc)
+    """Plain version of :func:`gla_fold_q` (returns new tensors), on an
+    int8 or an int4 state."""
+    fold = (gla_ops.gla_decode_lazy_fold_q4 if is_int4(state_q, vbuf)
+            else gla_ops.gla_decode_lazy_fold_q)
+    return fold(state_q, s_scale, kbuf, vbuf, cbuf, cc)
 
 
 def gla_fold_q_parts_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc):
     """:func:`gla_fold_q_plain` with the kernel's decomposition of the
     update (:func:`_fold_update_parts`); the requantization as the plain
-    version's (the kernel's quotient is the true division's, bit for bit)."""
+    version's (the kernel's quotient is the true division's, bit for bit),
+    on an int8 or an int4 state."""
+    if is_int4(state_q, vbuf):
+        s = cc.exp()[..., None] * gla_ops.dequantize_state_int4(state_q, s_scale)
+        return gla_ops.quantize_state_rows_int4(s + _fold_update_parts(kbuf, vbuf, cbuf, cc))
     s = (cc.exp() * s_scale)[..., None] * state_q.float()
     return gla_ops.quantize_state_rows(s + _fold_update_parts(kbuf, vbuf, cbuf, cc))
 
@@ -1739,6 +1787,11 @@ def gla_fold_q(state_q, s_scale, kbuf, vbuf, cbuf, cc):
     they are and the caller resets ``cc``. On CUDA the kernel updates
     ``state_q`` and ``s_scale`` IN PLACE, in the bands
     :func:`gla_fold_q_plan` picks, and returns the same tensors.
+
+    An int4 state (b, h, dk, dv // 2), two values a byte
+    (``ops/gla.py:quantize_state_rows_int4``), is unpacked, folded and
+    requantized to int4 (``/ 7``, ``+-7``) and packed again, by the
+    kernel's int4 body; ``.q4_launches`` counts those launches.
     """
     if not state_q.is_cuda:
         return gla_fold_q_plain(state_q, s_scale, kbuf, vbuf, cbuf, cc)
@@ -1749,8 +1802,12 @@ def _fold_q_launch(state_q, s_scale, kbuf, vbuf, cbuf, cc, route=None):
     """:func:`gla_fold_q` on CUDA tensors, in the bands of ``route`` if
     given (the card's checks time every height), else of the plan's."""
     name = "gla_fold_q"
-    b, h, dk, dv = state_q.shape
-    _check(name, state_q.dtype == torch.int8, "the state must be int8")
+    _check(name, state_q.dtype == torch.int8 and state_q.dim() == 4,
+           "the state must be int8 (b, h, dk, dv), or int4 (b, h, dk, dv // 2)")
+    b, h, dk, dv = *state_q.shape[:3], vbuf.shape[-1]
+    int4 = is_int4(state_q, vbuf)
+    _check(name, state_q.shape[-1] == (dv // 2 if int4 else dv),
+           f"the state's last dim must be dv {dv} (int8) or dv / 2 (int4)")
     _check_state_scale(name, state_q, s_scale)
     _check_cuda_args(name, [state_q, s_scale, kbuf, vbuf, cbuf, cc], kbuf.dtype, dk, dv,
                      torch.float32)
@@ -1763,12 +1820,16 @@ def _fold_q_launch(state_q, s_scale, kbuf, vbuf, cbuf, cc, route=None):
     stream = torch.cuda.current_stream(state_q.device).cuda_stream
     err = lib.gla_fold_q_window(
         _ptr(state_q), _ptr(s_scale), _ptr(kbuf), _ptr(vbuf), _ptr(cbuf), _ptr(cc),
-        b, h, dk, dv, L, _DTYPE_CODE[kbuf.dtype], rows, ctypes.c_void_p(stream))
+        b, h, dk, dv, L, _DTYPE_CODE[kbuf.dtype], _INT4_CODE if int4 else _INT8_CODE, rows,
+        ctypes.c_void_p(stream))
     _raise_on(name, err)
     gla_fold_q.launches += 1
-    gla_fold_q.shapes[(b, h, dk, dv, kbuf.dtype, torch.int8, L)] += 1
+    if int4:
+        gla_fold_q.q4_launches += 1
+    gla_fold_q.shapes[(b, h, dk, dv, kbuf.dtype, INT4 if int4 else torch.int8, L)] += 1
     return state_q, s_scale
 
 
-gla_fold_q.launches = 0
+# q4_launches: how many of the launches folded an int4 state
+gla_fold_q.launches = gla_fold_q.q4_launches = 0
 gla_fold_q.shapes = Counter()

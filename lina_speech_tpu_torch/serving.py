@@ -37,7 +37,8 @@ and text encoding at full precision, so int8 serving equals
 ``generate_batch(weight_quant="int8")``); ``int8_prefill_full_precision=
 False`` keeps only the int8 copies resident and then prefills through them
 too. ``state_quant="int8"`` (lazy mode only) keeps the slots' base states
-int8 with one scale per row.
+int8 with one scale per row, ``"int4"`` int4 two values a byte (the slot
+container's ``s`` then (slots, h, dk, dv // 2)).
 
 ``cfg_coef`` serves with classifier-free guidance (``generate_batch``'s
 math): the device batch doubles to ``2 * n_slots`` rows, a request's
@@ -51,7 +52,7 @@ share its decode batch.
 
 The JAX server's jitted programs are plain host loops here, under
 ``torch.no_grad()``, with one host read of the sampled tokens per chunk.
-``state_quant="int4"`` and ``mesh`` are not ported and raise.
+``mesh`` is not ported and raises.
 """
 from __future__ import annotations
 
@@ -124,18 +125,19 @@ class DecodeServer:
     encoding use the float weights; ``False`` drops the float weights of the
     quantized layers FROM THE MODEL, so only the int8 copies stay resident
     and every later forward of that model goes through them, at m = chunk
-    length in a prefill. ``state_quant="int8"`` needs ``lazy=True``: the
-    slot container then holds an int8 ``s`` and an f32 ``s_scale`` per
-    layer, as a prefill followed by ``add_lazy_buffers`` produced them.
+    length in a prefill. ``state_quant="int8"`` or ``"int4"`` needs
+    ``lazy=True``: the slot container then holds an int8 ``s`` (with int4,
+    of last dim dv / 2, two values a byte) and an f32 ``s_scale`` per layer,
+    sized from what ``add_lazy_buffers`` makes of an empty state and filled
+    as a prefill followed by ``add_lazy_buffers`` produced them.
 
     ``cfg_coef`` (a model trained with ``mask_text_p > 0``, else
     ``ValueError``) guides every request: ``2 * n_slots`` device rows, the
     speaker encoder not run (see the module docstring). The transformer
     backbone raises ``ValueError`` (its KV clock is shared by the batch).
 
-    Raising ``NotImplementedError``: ``state_quant="int4"`` (ROADMAP.md
-    Queue 1 item 8), ``mesh`` (Queue 1 item 11), ``approx_topk`` (a TPU
-    op). Not ported on purpose: the JAX server's
+    Raising ``NotImplementedError``: ``mesh`` (ROADMAP.md Queue 1 item 11),
+    ``approx_topk`` (a TPU op). Not ported on purpose: the JAX server's
     ``sf_emit_dtype`` policy (f32 emission of the prefill kernels' final
     state, a TPU scheduling matter: the value quantized is the same) and
     the ``QLINEAR_*`` environment variables (w8a8 is the ``quant_mode``

@@ -476,6 +476,40 @@ def wavtokenizer_state_dict_to_jax(state_dict) -> dict:
     return {"params": _nest(flat)}
 
 
+_WN_LEAVES = ("v", "g", "bias")  # a WNConv's parameters (codec/discriminators.py)
+
+
+def discriminator_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's discriminator params (``MultiPeriodDiscriminator``,
+    ``MultiResolutionDiscriminator``, ``MultiScaleSTFTDiscriminator`` or
+    ``DACDiscriminator``; nested, with or without the ``params`` root) -> the
+    port's state_dict of the same class (CPU f32 tensors). The modules carry
+    the JAX names, so ``period_2/conv_0/v`` is ``period_2.conv_0.v``; a
+    weight-normed kernel ``v`` goes from HWIO to OIHW, ``g`` and ``bias`` as
+    they are."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = re.sub(r"^params/", "", path)
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf not in _WN_LEAVES:
+            raise KeyError(f"{path}: not a weight-normed conv's parameter")
+        v = np.asarray(value, np.float32)
+        out[path.replace("/", ".")] = torch.tensor(np.ascontiguousarray(
+            v.transpose(3, 2, 0, 1) if leaf == "v" else v))
+    return out
+
+
+def discriminator_state_dict_to_jax(state_dict) -> dict:
+    """Inverse of :func:`discriminator_state_dict_from_jax`: the port's
+    discriminator state_dict -> ``{"params": ...}`` numpy tree."""
+    flat = {}
+    for key, value in state_dict.items():
+        v = torch.as_tensor(value).detach().float().cpu().numpy()
+        flat[key.replace(".", "/")] = np.ascontiguousarray(
+            v.transpose(2, 3, 1, 0) if key.endswith(".v") else v)
+    return {"params": _nest(flat)}
+
+
 def fold_weight_norm(weight_g: np.ndarray, weight_v: np.ndarray) -> np.ndarray:
     """Fold torch weight_norm (g, v) into a plain weight: w = g v / ||v||,
     the norm over every dim but the first (torch's default)."""

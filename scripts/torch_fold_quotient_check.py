@@ -1,6 +1,6 @@
 """Check on the GPU that the int8 fold's quotient is the IEEE quotient.
 
-``csrc/gla_fold_q.cu`` takes round(S / sc) from sc's correctly rounded
+``csrc/gla_fold_q.cuh`` takes round(S / sc) from sc's correctly rounded
 reciprocal y and two correction steps (``quotient()``) instead of a division
 per element. This script builds a small CUDA source that includes that file
 (so it checks the function the kernel runs), draws (a, b) pairs as the fold
@@ -26,7 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SOURCE = r'''
-#include "gla_fold_q.cu"
+#include "gla_fold_q.cuh"
 
 __device__ unsigned long long g_bad[2];
 

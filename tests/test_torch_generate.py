@@ -76,12 +76,16 @@ def test_sampled_generate_and_unported_options():
                          force_max_seqlen=True)
     assert res.tokens.shape == (1, 3, 9) and res.n_steps == 9
     assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < tm.n_target_vocab
-    # int8 weights and states are ported (tests/test_torch_quant.py), and so
-    # is CFG (tests/test_torch_cfg.py): without a mask token (mask_text_p 0)
-    # it raises ValueError, as the JAX package does
-    for kw in ({"state_quant": "int4", "lazy_window": 4}, {"approx_topk": True}):
-        with pytest.raises(NotImplementedError):
-            generate_batch(tm, x, max_seqlen=4, **kw)
+    # int8 weights and int8 and int4 states are ported (tests/test_torch_quant.py,
+    # tests/test_torch_int4.py), and so is CFG (tests/test_torch_cfg.py):
+    # without a mask token (mask_text_p 0) it raises ValueError, as the JAX
+    # package does
+    res4 = generate_batch(tm, x, max_seqlen=9, k=1, force_max_seqlen=True, lazy_window=4,
+                          state_quant="int4")
+    assert res4.tokens.shape == (1, 3, 9) and res4.n_steps == 9
+    assert int(res4.tokens.min()) >= 0 and int(res4.tokens.max()) < tm.n_target_vocab
+    with pytest.raises(NotImplementedError):
+        generate_batch(tm, x, max_seqlen=4, approx_topk=True)
     with pytest.raises(ValueError, match="mask_text_p"):
         generate_batch(tm, x, max_seqlen=4, cfg_coef=1.5)
     with pytest.raises(ValueError):

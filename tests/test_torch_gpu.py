@@ -312,6 +312,90 @@ def test_lazy_step_routes_match_plain(cuda, route, st, shape):
     assert gla_cuda.gla_decode_lazy_conv.routes[route] == before[route] + 2 * L
 
 
+def _int_steps(a, b):
+    """(largest difference, count of elements that differ) of two integer tensors."""
+    d = (a.int() - b.int()).abs()
+    return int(d.max()), int((d > 0).sum())
+
+
+def _nibbles(packed):
+    """An int4 state's values (b, h, dk, dv) from its packed bytes."""
+    from lina_speech_tpu_torch.ops.gla import unpack_state_int4
+
+    return torch.cat(unpack_state_int4(packed), dim=-1)
+
+
+@pytest.mark.parametrize("io", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 4, 256, 512, 16), (8, 4, 256, 512, 16),
+                                   (64, 4, 256, 512, 16), (3, 3, 64, 128, 4),
+                                   (2, 2, 128, 256, 21)])
+def test_int4_lazy_window_kernels_match_plain(cuda, io, shape):
+    """The int4 bodies over a whole window: every lazy step (the tile route;
+    the cluster route refuses an int4 state) against its plain version (o
+    within 1e-2 of max(1, max|plain|) for bf16 IO, 1e-4 for f32; rings,
+    live slots and cc equal; slot p written in place; equal bits on a second
+    call), then the fold against its plain version and its parts mirror:
+    nibbles at most one step apart in at most 1e-3 of them, scales to 1e-5,
+    the state and scales updated in place; every band height held."""
+    from lina_speech_tpu_torch.ops.gla import quantize_state_rows_int4
+
+    b, h, dk, dv, L = shape
+    tok, taps, rings, s0, bufs = _lazy_inputs(cuda, b, h, dk, dv, L, io, torch.float32, seed=L)
+    q, sc = quantize_state_rows_int4(s0 * 0.05)
+    assert q.shape == (b, h, dk, dv // 2)
+    k_rings = p_rings = list(rings)
+    k_bufs, p_bufs = [t.clone() for t in bufs], [t.clone() for t in bufs]
+    tol = 1e-2 if io == torch.bfloat16 else 1e-4
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lazy = gla_cuda.gla_decode_lazy_conv
+    before = (lazy.q4_launches, lazy.routes["tile"])
+    for p in range(L):
+        step = tuple((torch.randn(t.shape, generator=g, device=cuda) * 0.5).to(t.dtype)
+                     for t in tok[:3]) + (tok[3] * (1 + p % 3),)
+        ptrs = [t.data_ptr() for t in k_bufs[:3]]
+        call = lambda: gla_cuda.gla_decode_lazy_conv(*step, *taps, *k_rings, q, *k_bufs, p,
+                                                     s_scale=sc)
+        out = call()
+        kept = [t.clone() for t in out]
+        again = call()
+        ref = gla_cuda.gla_decode_lazy_conv_plain(*step, *taps, *p_rings, q, *p_bufs, p,
+                                                  s_scale=sc)
+        torch.cuda.synchronize()
+        assert [t.data_ptr() for t in out[4:7]] == ptrs, p
+        assert all(torch.equal(a, k) for a, k in zip(again, kept)), p
+        assert bool(torch.isfinite(out[0].float()).all())
+        assert _rel_err(out[0], ref[0]) <= tol, (p, _rel_err(out[0], ref[0]))
+        for a, r_ in zip(out[1:4], ref[1:4]):
+            assert torch.equal(a, r_)
+        for a, r_ in zip(out[4:7], ref[4:7]):
+            assert _rel_err(a[:p + 1], r_[:p + 1]) <= (1e-6 if io == torch.float32 else 1e-2), p
+        assert _rel_err(out[7], ref[7]) <= 1e-6
+        k_rings, k_bufs = list(out[1:4]), list(out[4:8])
+        p_rings, p_bufs = list(ref[1:4]), list(ref[4:8])
+    assert (lazy.q4_launches, lazy.routes["tile"]) == (before[0] + 2 * L, before[1] + 2 * L)
+    with pytest.raises(ValueError, match="cluster route"):
+        gla_cuda._lazy_launch(*step, *taps, *k_rings, q, *k_bufs, 0, s_scale=sc, route="cluster")
+
+    ref_q, ref_sc = gla_cuda.gla_fold_q_plain(q, sc, *p_bufs)
+    parts_q, parts_sc = gla_cuda.gla_fold_q_parts_plain(q, sc, *p_bufs)
+    n = q.numel() * 2
+    for band in gla_cuda.fold_band_heights(dk, dv, torch.int8):  # the int4 body's too
+        q_in, sc_in = q.clone(), sc.clone()
+        before_q4 = gla_cuda.gla_fold_q.q4_launches
+        new_q, new_sc = gla_cuda._fold_q_launch(q_in, sc_in, *k_bufs, route=f"band{band}")
+        torch.cuda.synchronize()
+        assert new_q is q_in and new_sc is sc_in and new_q.shape == q.shape
+        assert gla_cuda.gla_fold_q.q4_launches == before_q4 + 1
+        for rq, rsc in ((parts_q, parts_sc), (ref_q, ref_sc)):
+            top, off = _int_steps(_nibbles(new_q), _nibbles(rq))
+            assert top <= 1 and off <= 1e-3 * n, (band, top, off)
+            assert _rel_err(new_sc, rsc) <= 1e-5
+        assert not torch.equal(new_q, q)
+    planned = gla_cuda.gla_fold_q(q.clone(), sc.clone(), *k_bufs)
+    top, off = _int_steps(_nibbles(planned[0]), _nibbles(ref_q))
+    assert top <= 1 and off <= 1e-3 * n
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = _inputs(cuda, 1, 2, 8, 64, 64, torch.bfloat16, torch.bfloat16)
     args = [x["xq"], x["xk"], x["xv"], x["gk"], x["wq"], x["wk"], x["wv"]]

@@ -5,7 +5,10 @@ makes any import of them fail; scipy, which the resampler imports, probes
 ``sys.modules`` for jax and so needs the names absent, not set to None), imports every module of the port (``train/``,
 ``data/`` and ``models/accuracy.py`` among them), runs a tiny
 ``generate_batch``, a server (both also with int8 weights and int8
-lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``), one train
+lazy-window states: ``utils/quantize.py``, ``ops/qlinear.py``, and with
+int4 states), one step of codec GAN training through
+``train/codec_cli.py`` (``codec/losses.py``, ``discriminators.py``,
+``gan.py``, ``metrics.py``), one train
 step, one S0 tuning step, ``examples/train_torch.py``, and a generate and a
 train step of the simple-GLA (no convs), Mamba-2, RWKV6 and Mamba (v1,
 blind and interleaved) backbones and of the softmax transformer with a
@@ -69,6 +72,20 @@ srv = DecodeServer(model, n_slots=2, max_text_len=8, chunk=4, lazy=True, **quant
 for n in (3, 5, 4):
     srv.submit(list(range(3, 3 + n)), prompt=[[7, 8, 9]], max_len=10)
 assert len(srv.run()) == 3 and srv._state.layers[0].s.dtype == torch.int8
+# int4 lazy-window states, generate and server
+res = generate_batch(model, torch.randint(3, 256, (2, 5)), max_seqlen=9, k=1,
+                     force_max_seqlen=True, lazy_window=4, state_quant="int4")
+assert res.tokens.shape == (1, 2, 9)
+srv = DecodeServer(model, n_slots=2, max_text_len=8, chunk=4, lazy=True, state_quant="int4")
+srv.submit([3, 4, 5], prompt=[[7, 8, 9]], max_len=10)
+assert len(srv.run()) == 1
+st = srv._state.layers[0]
+assert st.s.dtype == torch.int8 and 2 * st.s.shape[-1] == st.vbuf.shape[-1]
+# codec GAN training: one step of the tiny codec through the CLI
+from lina_speech_tpu_torch.train import codec_cli
+gan = codec_cli.main(["fit", "--device", "cpu", "--tiny", "--steps", "1", "--crop-len", "2048",
+                      "--log-every", "1"])
+assert gan.step == 1 and gan.disc_step == 1
 # the training path: data, one train step, one S0 tuning step, the example
 from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
 from lina_speech_tpu_torch.train.harness import (
@@ -203,7 +220,8 @@ def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
     ``models/mamba.py``, ``models/simple_gla.py``, ``models/transformer.py``, the RWKV6 modules,
     ``ops/mamba.py``, ``ops/mamba_cuda.py``, ``utils/int8_timeline.py``,
-    the codec, ``pipeline.py``, ``train/cli.py``, ``utils/checkpoint.py``,
+    the codec and its GAN training, ``pipeline.py``, ``train/cli.py``,
+    ``train/codec_cli.py``, ``utils/checkpoint.py``,
     ``utils/profiling.py`` and the real-data modules among them),
     ``chip_smoke.py``, the port's examples and
     ``scripts/prepare_dataset_torch.py``, read as source:
@@ -228,7 +246,8 @@ def test_sources_import_no_jax():
                  "lina_speech_tpu_torch/utils/int8_timeline.py",
                  *(f"lina_speech_tpu_torch/codec/{m}.py" for m in (
                      "__init__", "spectral", "mdct", "heads", "vocos", "vq", "seanet",
-                     "wavtokenizer")),
+                     "wavtokenizer", "losses", "discriminators", "gan", "metrics")),
+                 "lina_speech_tpu_torch/train/codec_cli.py",
                  "lina_speech_tpu_torch/pipeline.py", "examples/synthesize_torch.py",
                  "examples/stream_torch.py", "chip_smoke.py", "examples/serve_torch.py",
                  "lina_speech_tpu_torch/train/cli.py", "lina_speech_tpu_torch/utils/checkpoint.py",

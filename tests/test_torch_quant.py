@@ -568,7 +568,16 @@ def test_quant_option_errors():
             generate_batch(tm, x, max_seqlen=4, **bad)
     with pytest.raises(ValueError, match="unknown weight_quant"):
         DecodeServer(tm, n_slots=2, weight_quant="fp8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        generate_batch(tm, x, max_seqlen=4, lazy_window=4, state_quant="int4")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DecodeServer(tm, n_slots=2, lazy=True, state_quant="int4")
+    # int4 states run (tests/test_torch_int4.py holds them against JAX); they
+    # need a lazy window too
+    res = generate_batch(tm, x, max_seqlen=6, k=1, lazy_window=4, state_quant="int4",
+                         force_max_seqlen=True)
+    assert res.tokens.shape == (tm.n_quant, 1, 6)
+    with pytest.raises(ValueError, match="state_quant requires lazy_window"):
+        generate_batch(tm, x, max_seqlen=4, state_quant="int4")
+    srv = DecodeServer(tm, n_slots=2, lazy=True, chunk=4, state_quant="int4")
+    srv.submit(x[0].numpy(), max_len=6)
+    (c,) = srv.run()
+    assert 1 <= c.length <= 6
+    st = srv._state.layers[0]  # the slot container's s is the packed state: dv / 2 bytes
+    assert st.s.dtype == torch.int8 and 2 * st.s.shape[-1] == st.vbuf.shape[-1]

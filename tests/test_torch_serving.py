@@ -227,11 +227,18 @@ def test_batch_axis():
                                 {"cfg_coef": 1.5}, {"mesh": object()}],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_server_options_raise(kw):
-    """int8 weights and states are ported (tests/test_torch_quant.py); an
-    int4 state and a mesh are not, and there is no int4 weight. CFG is
+    """int8 weights and int8 and int4 states are ported
+    (tests/test_torch_quant.py, tests/test_torch_int4.py): an int4 lazy
+    server runs. A mesh is not ported, and there is no int4 weight. CFG is
     ported (tests/test_torch_cfg.py) and raises ValueError here, as the JAX
     server does, because this model has no mask token (mask_text_p 0)."""
     tm = torch_build(torch_tiny(), device="cpu")
+    if kw.get("state_quant") == "int4":
+        srv = DecodeServer(tm, n_slots=2, chunk=4, **kw)
+        srv.submit(np.asarray([5, 9, 3, 17, 8]), max_len=6)
+        (c,) = srv.run()
+        assert 1 <= c.length <= 6 and srv._state.layers[0].s.dtype == torch.int8
+        return
     error = ValueError if {"weight_quant", "cfg_coef"} & set(kw) else NotImplementedError
     with pytest.raises(error):
         DecodeServer(tm, n_slots=2, **kw)
