@@ -171,7 +171,19 @@ After phase 8c:
    MPD and MRD), batch 2 x 24,000 samples of seeded noise, 3 steps, a
    validation pass and a checkpoint: finite losses, the parameters moved,
    the checkpoint equal to the trained generator, ms a step and peak
-   memory.
+   memory;
+8e. compression phase (compression_phase): the EnCodec compression stack
+   at the repo's codec widths (EncodecModel dimension 512, 4,096 bins,
+   language VQ; EncodecLM dim 128, 4 layers; 10 s of seeded audio in 1 s
+   segments, overlap 0.01, normalize) and at EnCodec 24 kHz / 6 kbps
+   (dimension 128, 8 x 1,024 residual VQ; LM dim 200, 5 layers,
+   past_context 262; 3 s): compress_audio twice with equal bytes, the
+   decompressed codes equal to encode_segmented's bit for bit,
+   decompress_audio within TOL_CODEC of decode_segmented on those frames,
+   the native and Python coders equal on the card's cdfs of two segments,
+   the card's LM probabilities over 64 steps within TOL_LM_PROBS of the
+   CPU's and the share of steps whose quantized cdfs differ; bits and
+   compress / decompress seconds a second of audio; no port kernel.
 After phase 9, the GLA layers without per-projection convs:
 10. gla_chunk's forward and backward and the two classic steps against
    their plain versions (the steps on every route, the wide ones also
@@ -3289,6 +3301,140 @@ def codec_gan_phase(torch, card_line):
     torch.cuda.empty_cache()
 
 
+
+SAMPLE_RATE = 24000
+COMPRESSION_OVERLAP = 0.01
+COMPRESSION_SEGMENT = 24000  # one second a segment
+# (label, EncodecModel widths, EncodecLM widths, seconds of audio, normalize)
+COMPRESSION_WIDTHS = (
+    ("the repo's codec widths", dict(dimension=512, n_filters=32, ratios=(8, 5, 4, 2), n_q=1,
+                                     bins=4096, residual=False), dict(n_q=1, card=4096), 10, True),
+    # facebookresearch/encodec, encodec/model.py: encodec_model_24khz at 6 kbps and
+    # EncodecModel.get_lm_model (the conv padding stays the JAX package's, non-causal)
+    ("EnCodec 24 kHz at 6 kbps", dict(dimension=128, n_filters=32, ratios=(8, 5, 4, 2), n_q=8,
+                                      bins=1024, residual=True),
+     dict(n_q=8, card=1024, dim=200, heads=8, n_layers=5, past_context=262), 3, False),
+)
+LM_CPU_STEPS = 64  # steps of the first segment whose card pdfs are held against the CPU's
+CODER_SEGMENTS = 2  # segments whose card cdfs both coders code
+TOL_LM_PROBS = 1e-4  # f32 probabilities, card vs CPU, a share of max|ref|
+
+
+def speechlike(np, seconds, seed):
+    """(1, T) f32 at 24 kHz: four sines under a slow envelope, plus noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SAMPLE_RATE)) / SAMPLE_RATE
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(1.0, 4.0) * t)
+    tones = sum(rng.uniform(0.05, 0.2) * np.sin(2 * np.pi * rng.uniform(80, 3000) * t
+                                                + rng.uniform(0, 2 * np.pi)) for _ in range(4))
+    return (env * tones + 0.01 * rng.normal(size=t.shape)).astype(np.float32)[None]
+
+
+def compression_phase(torch, np, card_line):
+    """The EnCodec compression stack (phase 8e) at two widths: the repo's
+    codec widths (dimension 512, 4,096 bins, language VQ; LM dim 128, 4
+    layers, past_context 256) on 10 s and EnCodec 24 kHz at 6 kbps
+    (dimension 128, 8 x 1,024 residual VQ; LM dim 200, 5 layers, 8 heads,
+    past_context 262) on 3 s, random weights from seeds, f32, TF32 off.
+    At each width: compress_audio, then the container's codes equal to
+    encode_segmented's bit for bit, decompress_audio's waveform within
+    TOL_CODEC of decode_segmented on those frames and non-zero, a second
+    compress_audio with equal bytes, the native and Python coders equal on
+    the card's cdfs of the first CODER_SEGMENTS segments, the card's LM
+    probabilities over the first LM_CPU_STEPS steps within TOL_LM_PROBS of
+    the same weights on the CPU and the share of those steps whose
+    quantized cdfs differ; no port kernel is launched. Prints container bits
+    and compress / decompress seconds a second of audio."""
+    import copy
+
+    from lina_speech_tpu_torch.codec import ac, encodec, lm
+
+    for i, (label, widths, lm_widths, seconds, normalize) in enumerate(COMPRESSION_WIDTHS):
+        t_width = time.perf_counter()
+        model = encodec.build_encodec_model(seed=20 + i, **widths)
+        lm_model = lm.build_encodec_lm(seed=30 + i, **lm_widths)
+        audio = torch.from_numpy(speechlike(np, seconds, 40 + i)).to(DEVICE)
+        n_params = (sum(p.numel() for p in model.parameters()),
+                    sum(p.numel() for p in lm_model.parameters()))
+        reset_counts()
+        timed = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob = encodec.compress_audio(model, lm_model, audio, COMPRESSION_SEGMENT,
+                                          COMPRESSION_OVERLAP, normalize)
+            timed.append((time.perf_counter() - t0, blob))
+        require(timed[0][1] == timed[1][1], f"{label}: a second compress_audio gave other bytes")
+        compress_s = timed[1][0]  # the first call also builds the native coder
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = encodec.decompress_audio(model, lm_model, blob)
+        torch.cuda.synchronize()
+        decompress_s = time.perf_counter() - t0
+        header, back = encodec.decompress_codes(model, lm_model, blob)
+        expect_launches(read_counts())
+        frames = encodec.encode_segmented(model, audio, COMPRESSION_SEGMENT, header["overlap"],
+                                          normalize)
+        steps = sum(c.shape[-1] for c, _ in frames)
+        print(f"compression at {label}: EncodecModel {widths} ({n_params[0]:,} parameters), "
+              f"EncodecLM {lm_widths} ({n_params[1]:,}); {seconds} s of audio in {len(frames)} "
+              f"segments of {COMPRESSION_SEGMENT} samples, overlap {COMPRESSION_OVERLAP}, "
+              f"normalize {normalize}: {steps} LM steps each way")
+        require(len(back) == len(frames) and all(
+            torch.equal(c.cpu(), rc.cpu()) and (s is None) == (rs is None)
+            and (s is None or torch.equal(s.cpu(), rs.cpu()))
+            for (c, s), (rc, rs) in zip(back, frames)),
+            f"{label}: the container's codes or scales differ from encode_segmented's")
+        print(f"  decompressed codes equal encode_segmented's bit for bit ({steps} frames x "
+              f"{widths['n_q']} codebooks)")
+        want = encodec.decode_segmented(model, frames, COMPRESSION_SEGMENT, header["overlap"],
+                                        normalize)[..., :audio.shape[-1]]
+        require(wav.shape == want.shape == audio.shape and bool(torch.isfinite(wav).all())
+                and float(wav.abs().max()) > 0, f"{label}: waveform {tuple(wav.shape)}")
+        check("decompress_audio vs decode_segmented", max_err(wav, want),
+              TOL_CODEC * float(want.abs().max()))
+
+        # the coders on the card's cdfs, and the card's pdfs against the CPU's
+        _, coded = encodec.read_container(blob)
+        for j, ((codes, _), (_, data, _)) in enumerate(zip(frames[:CODER_SEGMENTS], coded)):
+            c = codes[:, 0].cpu().numpy()
+            pdfs = lm.lm_pdfs(lm_model, c)
+            cdfs = [lm.step_cdfs(p) for p in pdfs]
+            out = {}
+            for native in (True, False):
+                coder = ac.make_coder(native)
+                for t, cdf in enumerate(cdfs):
+                    coder.push_many(c[:, t], cdf)
+                out[native] = coder.flush()
+            require(out[True] == out[False] == data,
+                    f"{label} segment {j}: native {len(out[True])} B, Python {len(out[False])} B, "
+                    f"container {len(data)} B")
+            if j == 0:
+                first = (c, pdfs)
+        print(f"  native and Python coders: equal bytes on the card's cdfs of the first "
+              f"{min(CODER_SEGMENTS, len(frames))} segments, equal to the container's; a second "
+              f"compress_audio gave equal bytes")
+        c, pdfs = first
+        n = min(LM_CPU_STEPS, c.shape[1])
+        cpu_pdfs = lm.lm_pdfs(copy.deepcopy(lm_model).cpu(), c[:, :n])
+        check(f"LM probabilities, {n} steps, card vs CPU (f32)",
+              float(np.abs(pdfs[:n] - cpu_pdfs).max()), TOL_LM_PROBS * float(cpu_pdfs.max()))
+        differ = [any(not np.array_equal(a, b) for a, b in zip(lm.step_cdfs(pdfs[t]),
+                                                                 lm.step_cdfs(cpu_pdfs[t])))
+                  for t in range(n)]
+        print(f"  steps whose quantized cdfs differ between the card's pdfs and the CPU's: "
+              f"{sum(differ)} of {n} ({sum(differ) / n:.3f}) [{card_line}]")
+        print(f"  container {len(blob)} bytes: {len(blob) * 8 / seconds:.1f} bits a second of "
+              f"audio; compress_audio {compress_s:.3f} s warm ({compress_s / seconds:.4f} s a "
+              f"second of audio, {compress_s * 1e3 / steps:.3f} ms an LM step with the encoder; "
+              f"the first call {timed[0][0]:.3f} s), "
+              f"decompress_audio {decompress_s:.3f} s ({decompress_s / seconds:.4f} s a second "
+              f"of audio) [{card_line}]")
+        print(f"  {label} took {time.perf_counter() - t_width:.1f} s")
+        del model, lm_model
+        torch.cuda.empty_cache()
+
+
 def profile_decode(torch, model, x_enc, forced, follow, steps=8):
     """Device busy share and top kernels of the kernel path's decode steps
     under torch.profiler (the profiler's own overhead included)."""
@@ -5511,9 +5657,10 @@ def rwkv6_kernel_phase(torch, rwkv6_cuda, summary, card_line):
 
 
 # lengths and batches of rwkv6_chunk's route sweep (h4 dk256 dv256): they
-# bracket rwkv6_chunk_fwd_plan's thresholds
-RWKV6_SWEEP_T = (16, 32, 48, 64, 96, 128, 192)
-RWKV6_SWEEP_B = (1, 2, 4, 8)
+# bracket rwkv6_chunk_fwd_plan's thresholds (96 tokens, 128 above 8 heads);
+# b2 and b8 (8 and 32 heads) sit either side of both plans' head counts
+RWKV6_SWEEP_T = (16, 64, 96, 128, 192)
+RWKV6_SWEEP_B = (1, 2, 8)
 
 
 def rwkv6_route_sweep(torch, rwkv6_cuda, card_line):
@@ -5537,8 +5684,9 @@ def rwkv6_route_sweep(torch, rwkv6_cuda, card_line):
 
 
 # lengths and batches of rwkv6_chunk_bwd's route sweep (h4 dk256 dv256): they
-# bracket rwkv6_chunk_bwd_plan's threshold and reach the training lengths
-RWKV6_BWD_SWEEP_T = (16, 32, 48, 64, 96, 128, 256, 512)
+# bracket rwkv6_chunk_bwd_plan's threshold (96 tokens, 64 above 16 heads) and
+# reach the training lengths
+RWKV6_BWD_SWEEP_T = (16, 64, 96, 128, 256, 512)
 
 
 def rwkv6_bwd_route_sweep(torch, rwkv6_cuda, card_line):
@@ -5978,23 +6126,25 @@ def mamba_kernel_phase(torch, mamba_cuda, summary):
 
 
 # chunk lengths and shapes of mamba_scan_bwd's route sweep (d 2048 n16, bf16
-# IO, no initial state, as training runs): they bracket mamba_scan_bwd_plan's
-# threshold and reach the training lengths; then the ragged lengths the
-# driven paths launch (training's t511, the gradient check's b2 t319) and
-# t511 at b1 and b2, where the plan's chunk length is not a power of two
+# IO, no initial state, as training runs): they reach the training lengths,
+# and MAMBA_BWD_SWEEP_THRESHOLD brackets mamba_scan_bwd_plan's threshold
+# (one chunk up to 48 steps where two chunks are planned, which at d2048 is
+# b4); then the ragged lengths the driven paths launch (training's t511, the
+# gradient check's b2 t319) and t511 at b1 and b2, where the plan's chunk
+# length is not a power of two
 MAMBA_BWD_CHUNKS = (16, 32, 64, 128, 256)
-MAMBA_BWD_SWEEP_B = (1, 2, 4, 8)
-MAMBA_BWD_SWEEP_T = (16, 32, 48, 64, 96, 128, 256, 512)
+MAMBA_BWD_SWEEP_B = (1, 2, 8)
+MAMBA_BWD_SWEEP_T = (16, 64, 128, 512)
+MAMBA_BWD_SWEEP_THRESHOLD = ((4, 48), (4, 64))
 MAMBA_BWD_SWEEP_RAGGED = ((1, 511), (2, 319), (2, 511), (4, 511), (8, 511))
 
 
 def mamba_bwd_route_sweep(torch, mamba_cuda, card_line):
     """mamba_scan_bwd timed in turns at every chunk length of
     MAMBA_BWD_CHUNKS below t and at one chunk, over MAMBA_BWD_SWEEP_B x
-    MAMBA_BWD_SWEEP_T and MAMBA_BWD_SWEEP_RAGGED (there also a segment
-    either side of the planned length), beside the length
-    mamba_scan_bwd_plan picks:
-    where the plan comes from. Every point is timed and printed first
+    MAMBA_BWD_SWEEP_T, MAMBA_BWD_SWEEP_THRESHOLD and MAMBA_BWD_SWEEP_RAGGED
+    (there also a segment either side of the planned length), beside the
+    length mamba_scan_bwd_plan picks: where the plan comes from. Every point is timed and printed first
     (median of six turns); then at every point the planned length may be at
     most SWEEP_MARGIN slower than the fastest, a point that misses timed
     again (planned_route_times) before the sweep fails on it."""
@@ -6004,7 +6154,7 @@ def mamba_bwd_route_sweep(torch, mamba_cuda, card_line):
           f"[{card_line}]:")
     misses = []
     points = [(b, t) for b in MAMBA_BWD_SWEEP_B for t in MAMBA_BWD_SWEEP_T]
-    for b, t in points + list(MAMBA_BWD_SWEEP_RAGGED):
+    for b, t in points + list(MAMBA_BWD_SWEEP_THRESHOLD) + list(MAMBA_BWD_SWEEP_RAGGED):
         x = mamba_inputs(torch, b, t, bf, None, False, seed=960 + t + b)
         dy, dsf = mamba_cotangents(torch, x, seed=961 + t)
         plan = mamba_cuda.mamba_scan_bwd_plan(b, t, MAMBA_D)
@@ -6971,6 +7121,7 @@ def main():
     add_launches(launches, phase(data_phase, torch, np, gla_cuda, card_line))
     add_launches(launches, phase(remat_phase, torch, np, gla_cuda, card_line))
     phase(codec_gan_phase, torch, card_line)
+    phase(compression_phase, torch, np, card_line)
     phase(launched_shapes_phase, torch, gla_cuda)
     phase(chunk_bwd_kernel_phase, torch, gla_cuda, summary)
     phase(decode_kernel_phase, torch, gla_cuda, summary)

@@ -10,5 +10,8 @@ on batches from data/) with hand-written CUDA kernels for the GLA kernels of
 those paths, the backward of the conv-fused prefill among them
 (ops/gla_cuda.py, csrc/); and the last leg from codes to sound: the
 WavTokenizer codec (codec/: the Vocos backbone and ISTFT head, the SEANet
-encoder and VQ) and the text-to-waveform TTSPipeline of pipeline.py.
+encoder and VQ) and the text-to-waveform TTSPipeline of pipeline.py; since
+then every backbone kind, quantized serving, the training CLI, codec GAN
+training and the EnCodec compression stack (codec/encodec.py, lm.py, ac.py).
+Multi-GPU is not ported yet (ROADMAP.md Queue 1 item 11).
 """

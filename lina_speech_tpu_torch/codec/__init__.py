@@ -1,6 +1,9 @@
-"""The WavTokenizer codec (PyTorch port of ``lina_speech_tpu/codec``): the
-SEANet encoder and VQ for prompt tokenization, the Vocos backbone and ISTFT
-head for synthesis. The codec training stack is ROADMAP.md Queue 1 item 10."""
+"""The codecs (PyTorch port of ``lina_speech_tpu/codec``): the WavTokenizer
+codec (the SEANet encoder and VQ for prompt tokenization, the Vocos backbone
+and ISTFT head for synthesis), its GAN training (``losses``,
+``discriminators``, ``gan``, ``metrics``), and the EnCodec compression stack
+(``encodec``: segmented EnCodec and the ``LSTC`` container; ``lm``: the
+streaming-transformer LM over codes; ``ac``: the arithmetic coder)."""
 from lina_speech_tpu_torch.codec.heads import ISTFTHead
 from lina_speech_tpu_torch.codec.seanet import SEANetEncoder
 from lina_speech_tpu_torch.codec.spectral import istft_same

@@ -35,3 +35,16 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor, rot_dim: int,
     x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
     x_rot = x_rot * angles.cos() + _rotate_half_interleaved(x_rot) * angles.sin()
     return torch.cat([x_rot.to(x.dtype), x_pass], dim=-1)
+
+
+class RotaryEmbedding:
+    """Holder of ``rot_dim`` and ``theta`` in the reference's module-style
+    use: rotates ``x`` (..., n, d) at positions ``arange(n) + offset``."""
+
+    def __init__(self, rot_dim: int, theta: float = 10000.0):
+        self.rot_dim = rot_dim
+        self.theta = theta
+
+    def __call__(self, x: torch.Tensor, offset=0) -> torch.Tensor:
+        positions = torch.arange(x.shape[-2], device=x.device) + offset
+        return apply_rotary(x, positions, self.rot_dim, self.theta)

@@ -72,12 +72,14 @@ def torch_key_for(flax_path: str) -> Optional[str]:
     return p
 
 
-def _to_torch(value: np.ndarray, flax_path: str) -> np.ndarray:
-    v = np.asarray(value)
+def _to_torch(value, flax_path: str):
+    """One leaf in the JAX layout -> the port's (numpy arrays, or tensors
+    as they are)."""
+    v = value if torch.is_tensor(value) else np.asarray(value)
     if re.search(rf"{_CONV}/kernel$", flax_path):
         return v[:, None, :]  # (d, w) -> Conv1d (d, 1, w)
     if flax_path.endswith("pos_embed/conv_kernel"):
-        return v.transpose(2, 1, 0)  # lax HIO (k, 1, d) -> Conv1d (d, 1, k)
+        return v.swapaxes(0, 2)  # lax HIO (k, 1, d) -> Conv1d (d, 1, k)
     if flax_path.endswith("/kernel") and v.ndim == 2:
         return v.T  # flax (in, out) -> Linear (out, in)
     return v
@@ -104,13 +106,13 @@ def flax_path_for(torch_key: str) -> str:
     return p.replace(".", "/")
 
 
-def _to_flax(value: np.ndarray, flax_path: str) -> np.ndarray:
+def _to_flax(value, flax_path: str):
     """Inverse of :func:`_to_torch`."""
-    v = np.asarray(value)
+    v = value if torch.is_tensor(value) else np.asarray(value)
     if re.search(rf"{_CONV}/kernel$", flax_path):
         return v[:, 0, :]  # Conv1d (d, 1, w) -> (d, w)
     if flax_path.endswith("pos_embed/conv_kernel"):
-        return v.transpose(2, 1, 0)  # Conv1d (d, 1, k) -> lax HIO (k, 1, d)
+        return v.swapaxes(0, 2)  # Conv1d (d, 1, k) -> lax HIO (k, 1, d)
     if flax_path.endswith("/kernel") and v.ndim == 2:
         return v.T  # Linear (out, in) -> flax (in, out)
     return v
@@ -543,3 +545,79 @@ def load_wavtokenizer_state_dict(wavtok: torch.nn.Module, state_dict):
             if k.rpartition(".")[0] in modules and not _VQ_TRAINING.search(k)}
     wavtok.load_state_dict(keep, strict=True)
     return wavtok
+
+
+# ------------------------------------------------- EnCodec and its LM
+# The JAX EncodecModel's params <-> the port's state_dict: the SEANet
+# encoder and decoder by their key maps (``encoder.model.*``,
+# ``decoder.model.*``), the stacked codebook (n_q, bins, dim) as the
+# quantizer's layers. The JAX EncodecLM's: ``emb_{k}`` -> ``emb.{k}``,
+# ``head_{k}`` -> ``linears.{k}``, ``transformer/layers_{i}/...`` ->
+# ``transformer.layers.{i}....``, Dense kernels transposed.
+def _encodec_pairs(n_ratios: int, n_q: int):
+    return ([(f"encoder/{p}", f"encoder.model.{k}", kind) for p, k, kind in _seanet_pairs(n_ratios)]
+            + [(f"decoder/{p}", f"decoder.model.{k}", kind)
+               for p, k, kind in _seanet_pairs(n_ratios, decoder=True)]
+            + [(f"codebook/{i}", f"quantizer.layers.{i}._codebook.embed", "plain")
+               for i in range(n_q)])
+
+
+def encodec_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``EncodecModel`` params (nested, with or without
+    the ``params`` root) -> the port's state_dict (CPU f32 tensors). The
+    depth is read off the params; a param without a key, or a key without
+    a param, raises ``KeyError``."""
+    flat = {re.sub(r"^params/", "", k): np.asarray(v) for k, v in _flatten(params).items()}
+    codebook = flat.pop("codebook")
+    flat.update({f"codebook/{i}": c for i, c in enumerate(codebook)})
+    return _pairs_from_jax(flat, _encodec_pairs(_count(flat, r"encoder/down_(\d+)/"),
+                                                len(codebook)))
+
+
+def encodec_state_dict_to_jax(state_dict) -> dict:
+    """Inverse of :func:`encodec_state_dict_from_jax`: ``{"params": ...}``."""
+    n_q = _count(state_dict, r"quantizer\.layers\.(\d+)\.")
+    n_ratios = _count(state_dict, r"encoder\.model\.(\d+)\.conv\.conv\.weight$") - 2
+    flat = _pairs_to_jax(state_dict, _encodec_pairs(n_ratios, n_q))
+    flat["codebook"] = np.stack([flat.pop(f"codebook/{i}") for i in range(n_q)])
+    return {"params": _nest(flat)}
+
+
+def _encodec_lm_pairs(n_q: int, n_layers: int):
+    pairs = []
+
+    def dense(jax_name, key):
+        pairs.extend([(f"{jax_name}/kernel", f"{key}.weight", "dense"),
+                      (f"{jax_name}/bias", f"{key}.bias", "plain")])
+
+    def norm(jax_name, key):
+        pairs.extend([(f"{jax_name}/scale", f"{key}.weight", "plain"),
+                      (f"{jax_name}/bias", f"{key}.bias", "plain")])
+
+    for k in range(n_q):
+        pairs.append((f"emb_{k}/embedding", f"emb.{k}.weight", "plain"))
+        dense(f"head_{k}", f"linears.{k}")
+    for i in range(n_layers):
+        for sub in ("norm1", "norm2"):
+            norm(f"transformer/layers_{i}/{sub}", f"transformer.layers.{i}.{sub}")
+        for sub in ("qkv", "out", "fc1", "fc2"):
+            dense(f"transformer/layers_{i}/{sub}", f"transformer.layers.{i}.{sub}")
+    norm("transformer/norm_in", "transformer.norm_in")
+    norm("transformer/norm_out", "transformer.norm_out")
+    return pairs
+
+
+def encodec_lm_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``EncodecLM`` params (nested, with or without the
+    ``params`` root) -> the port's state_dict (CPU f32 tensors); unknown or
+    missing leaves raise ``KeyError``."""
+    flat = {re.sub(r"^params/", "", k): np.asarray(v) for k, v in _flatten(params).items()}
+    return _pairs_from_jax(flat, _encodec_lm_pairs(_count(flat, r"emb_(\d+)/"),
+                                                   _count(flat, r"transformer/layers_(\d+)/")))
+
+
+def encodec_lm_state_dict_to_jax(state_dict) -> dict:
+    """Inverse of :func:`encodec_lm_state_dict_from_jax`: ``{"params": ...}``."""
+    pairs = _encodec_lm_pairs(_count(state_dict, r"emb\.(\d+)\."),
+                              _count(state_dict, r"transformer\.layers\.(\d+)\."))
+    return {"params": _nest(_pairs_to_jax(state_dict, pairs))}

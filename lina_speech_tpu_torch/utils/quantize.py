@@ -16,6 +16,9 @@ more axes (the per-quantizer logits head ``(q, l, d)``) reduce over the
 last axis. Dequantization is uniformly ``q * s``. The JAX package holds the
 same numbers transposed (``(in, out)`` and ``(1, out)``);
 ``utils/convert.py:quantized_tree_from_jax`` carries one into the other.
+:func:`quantize_params` quantizes every large float parameter of a
+backbone, each leaf's scale over the axis the JAX package reduces in its
+own layout.
 """
 from __future__ import annotations
 
@@ -24,19 +27,48 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from lina_speech_tpu_torch.utils.convert import flax_path_for
+from lina_speech_tpu_torch.utils.convert import _to_flax, _to_torch, flax_path_for
 
 QKEY = "int8_q"
 SKEY = "int8_s"
 
 
-def quantize_leaf(w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """``{int8_q, int8_s}`` of one float leaf in the port's layout."""
+def quantize_leaf(w: torch.Tensor, axis: int = -1) -> Dict[str, torch.Tensor]:
+    """``{int8_q, int8_s}`` of one float leaf, the scale over ``axis``."""
     wf = w.float()
-    s = wf.abs().amax(dim=-1, keepdim=True) / 127.0
+    s = wf.abs().amax(dim=axis, keepdim=True) / 127.0
     s = s.clamp(min=1e-12)
     q = torch.round(wf / s).clamp(-127, 127).to(torch.int8)
     return {QKEY: q, SKEY: s}
+
+
+def quantize_params(params: Mapping, min_size: int = 1 << 16) -> dict:
+    """Every float leaf of a backbone's ``params`` (``{parameter name:
+    tensor}`` of a model that ``utils/convert.py:load_jax_params`` loads)
+    that has two or more axes and at least ``min_size`` elements in the JAX
+    layout -> its ``{int8_q, int8_s}`` pair; the others as they are.
+
+    Each leaf is carried to the JAX layout by the bridge's own rules
+    (``flax_path_for``, ``_to_flax``) and quantized there by the JAX
+    package's rule: the scale ``max|w| / 127`` (floored at 1e-12) over
+    axis 0 of a 2-D leaf and over the last axis of a higher one. The pair
+    comes back in the port's layout (``_to_torch``), the scale in its
+    broadcast shape, so dequantization is ``q * s``. In the port's layouts
+    that reduces axis 1 of a Linear's (out, in) weight; axis 0 of a short
+    conv's (d, 1, w) (JAX's (d, w)), of the positional conv's (d, 1, k)
+    (JAX's (k, 1, d)), of Mamba's ``conv_kernel`` (d, w) and of an
+    embedding table (n, d); and the last axis of the logits head (q, l, d).
+    """
+    out = {}
+    for name, v in params.items():
+        path = flax_path_for(name)
+        leaf = _to_flax(v.detach(), path)
+        if leaf.ndim >= 2 and leaf.is_floating_point() and leaf.numel() >= min_size:
+            pair = quantize_leaf(leaf, 0 if leaf.ndim == 2 else -1)
+            out[name] = {k: _to_torch(t, path) for k, t in pair.items()}
+        else:
+            out[name] = v
+    return out
 
 
 def is_quantized_leaf(node) -> bool:

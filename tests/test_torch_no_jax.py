@@ -19,7 +19,11 @@ guidance, and a guided server on the GLA model) (``models/simple_gla.py``,
 ``ops/mamba.py`` and ``ops/mamba_cuda.py``, ``models/rwkv6.py`` with
 ``ops/rwkv6.py`` and ``ops/rwkv6_cuda.py``), and the TTS pipeline on a tiny
 codec (``codec/``, ``pipeline.py``: ``tokenize_audio``, ``synthesize``
-with a prompt, ``stream_synthesize``), and the training entry point: a tiny
+with a prompt, ``stream_synthesize``), the compression stack (a tiny
+``compress_audio`` -> ``decompress_audio`` round trip on the native coder:
+``codec/encodec.py``, ``codec/lm.py``, ``codec/streaming_transformer.py``,
+``codec/ac.py`` with ``native/ac.cpp``), ``quantize_params`` and
+``RotaryEmbedding``, and the training entry point: a tiny
 ``train.cli fit`` with ``remat`` on npz shards made by
 ``scripts/prepare_dataset_torch.py`` from WAV files (``data/dataset.py``,
 ``data/audio_loader.py``, ``data/resample.py``), saving, resuming and
@@ -161,6 +165,24 @@ waves, res = pipe.synthesize("hi", prompt_codes=codes, max_seqlen=12, k=1)
 assert waves[0].ndim == 1 and res.tokens.shape == (1, 1, 12)
 assert sum(c.shape[-1] for c in pipe.stream_synthesize(
     "hi", max_seqlen=12, k=1, window=4, context=2, chunk=4)) % 8 == 0
+# the compression stack: segmented EnCodec, the LM and the native arithmetic coder
+from lina_speech_tpu_torch.codec import ac
+from lina_speech_tpu_torch.codec.encodec import (
+    build_encodec_model, compress_audio, decode_segmented, decompress_audio, encode_segmented)
+from lina_speech_tpu_torch.codec.lm import build_encodec_lm
+codec = build_encodec_model(device="cpu", dimension=16, n_filters=2, ratios=(4, 2), n_q=2,
+                            bins=17, residual=True)
+clm = build_encodec_lm(2, 17, device="cpu", dim=32, heads=4, n_layers=1, past_context=8)
+audio = torch.randn(1, 300)
+blob = compress_audio(codec, clm, audio, 160, 0.01, normalize=True)
+assert isinstance(ac.make_coder(), ac.NativeArithmeticCoder)
+want = decode_segmented(codec, encode_segmented(codec, audio, 160, 0.01, True), 160, 0.01,
+                        True)[..., :300]
+assert torch.equal(decompress_audio(codec, clm, blob), want)
+from lina_speech_tpu_torch.ops import RotaryEmbedding
+from lina_speech_tpu_torch.utils.quantize import quantize_params
+assert RotaryEmbedding(8)(torch.randn(1, 2, 5, 16), 7).shape == (1, 2, 5, 16)
+assert "int8_q" in quantize_params(dict(model.named_parameters()), 1 << 10)["logits_head.weight"]
 # the training entry point on real-data shards: WAVs -> prepare_dataset_torch -> fit
 import os, tempfile, wave
 import numpy as np
@@ -218,6 +240,7 @@ def test_port_imports_no_jax():
 
 def test_sources_import_no_jax():
     """Every module of the port (``utils/quantize.py``, ``ops/qlinear.py``,
+    the compression stack, ``utils/viz.py``, ``ops/rotary.py``,
     ``models/mamba.py``, ``models/simple_gla.py``, ``models/transformer.py``, the RWKV6 modules,
     ``ops/mamba.py``, ``ops/mamba_cuda.py``, ``utils/int8_timeline.py``,
     the codec and its GAN training, ``pipeline.py``, ``train/cli.py``,
@@ -247,6 +270,9 @@ def test_sources_import_no_jax():
                  *(f"lina_speech_tpu_torch/codec/{m}.py" for m in (
                      "__init__", "spectral", "mdct", "heads", "vocos", "vq", "seanet",
                      "wavtokenizer", "losses", "discriminators", "gan", "metrics")),
+                 *(f"lina_speech_tpu_torch/codec/{m}.py" for m in (
+                     "ac", "encodec", "lm", "streaming_transformer")),
+                 "lina_speech_tpu_torch/utils/viz.py", "lina_speech_tpu_torch/ops/rotary.py",
                  "lina_speech_tpu_torch/train/codec_cli.py",
                  "lina_speech_tpu_torch/pipeline.py", "examples/synthesize_torch.py",
                  "examples/stream_torch.py", "chip_smoke.py", "examples/serve_torch.py",
