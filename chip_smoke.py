@@ -15,7 +15,7 @@ Phases, in order; any failure raises and exits non-zero:
    and on the other at p 0, 7 and 15, both timed there, equal bits on a
    second call) and the window fold, and a whole lazy window against 16
    classic steps; the lazy step's two routes timed in turns at b 1 to 16,
-   p 0, 7 and 15, bf16 and f32 states, beside the route its plan picks
+   p 0 and 15, bf16 and f32 states, beside the route its plan picks
    (lazy_route_sweep); the classic step's planned route (gla_decode_plan:
    the tile body on states up to 512 KiB, above them a wide column-tile
    body of 4, 8 or 16 threads across a row) and the one it is timed against
@@ -80,14 +80,31 @@ Phases, in order; any failure raises and exits non-zero:
    the model takes no gradient and does not move, each of the 48 S0 params
    has a finite non-zero gradient (the kernel's ds0, chunked route), held
    against the plain path on one micro-step;
-8a. CLI phase: ``python -m lina_speech_tpu_torch.train.cli fit`` run
-   in-process on configs/lina_gla_169m.yaml as it stands (the flagship,
-   synthetic b8, audio 128-512) for 3 steps with --log-every 1 and a
-   checkpoint directory: 359,302,978 parameters, finite losses and grad
-   norms, 25 + 25 launches a step; the final checkpoint restored onto the
-   card equal to the live state bit for bit (parameters, both Adam moments,
-   the step); --resume --steps 4 starts at step 3 and writes step_4; the
-   directory (about 4.3 GB a checkpoint) is removed at the end;
+8a. parallel phase (parallel_phase): (a) context parallelism at full
+   width in one process: a b2 t512 sequence cut into 4 time shards of 128
+   run through the same per-shard body, combine and correction as the
+   distributed ops (ops/gla_cp.py, ops/mamba_cp.py: *_cp_shards), each
+   shard on the CUDA kernels from a zero state with the final state's
+   cotangent nonzero (gla_chunk and its backward for the flagship GLA layer,
+   h4 dk256 dv512 bf16, and for Mamba-2, h32 dk64 dv64 f32 IO; rwkv6_chunk
+   and its backward, h4 dk256 dv256 bf16; mamba_scan and its backward, d2048
+   n16 bf16), the launch counts checked; the output and final state within
+   TOL_STATE of the single-device kernel path on the whole sequence, every
+   input gradient within TOL_GRAD (u, A and D: TOL_PARAM_GRAD); each
+   shard's kernels and the exchange's arithmetic timed; (b) NCCL at world
+   size 1: distributed_init on a localhost store, the gradient-carrying
+   all_gather and the gradient all_reduce on CUDA tensors, then the CLI
+   phase inside that world: ``python -m lina_speech_tpu_torch.train.cli
+   fit --dp 1 --cp 1`` run in-process on configs/lina_gla_169m.yaml as it
+   stands (the flagship, synthetic b8, audio 128-512) for 3 steps with
+   --log-every 1 and a checkpoint directory, through the distributed code
+   path (the gradients all_reduced over NCCL, the checkpoint written by
+   rank 0 behind a barrier): 359,302,978 parameters, finite losses and
+   grad norms, 25 + 25 launches a step; the final checkpoint restored onto
+   the card equal to the live state bit for bit (parameters, both Adam
+   moments, the step); --resume --steps 4 starts at step 3 and writes
+   step_4; the directory (about 4.3 GB a checkpoint) is removed at the
+   end; the world is destroyed;
 8b. data phase: 16 WAV files made from a seed (2-6 s, PCM16 and float32,
    two at 16 kHz named <name>@16000.wav) through
    scripts/prepare_dataset_torch.py on the card into two npz shards with
@@ -1254,7 +1271,7 @@ def kernel_phase(torch, gla_cuda):
 
 # lengths at which the forward's two routes are timed against each other,
 # to place the plan's crossover (ops/gla_cuda.py:_FWD_CHUNKED_MIN_T)
-SWEEP_T = (4, 16, 32, 48, 64, 96, 128)
+SWEEP_T = (16, 32, 48, 64, 96, 128)
 
 
 def route_sweep(torch, gla_cuda):
@@ -1555,7 +1572,7 @@ def planned_route_times(steps, route, label, strict=False):
 
 def lazy_route_sweep(torch, gla_cuda, card_line):
     """Both routes of the lazy step timed in turns on cold float states at
-    the flagship's head, b LAZY_SWEEP_B and p 0, 7 and 15, beside the route
+    the flagship's head, b LAZY_SWEEP_B and p 0 and 15, beside the route
     gla_decode_lazy_plan picks: where the plan's head-count threshold comes
     from. Prints only; the launched shapes are held to the plan in
     lazy_gap_phase."""
@@ -1563,7 +1580,7 @@ def lazy_route_sweep(torch, gla_cuda, card_line):
           f"device us, median of {2 * ROUTE_TURNS} in turns) [{card_line}]:")
     for st in (torch.bfloat16, torch.float32):
         for b in LAZY_SWEEP_B:
-            for p in (0, 7, 15):
+            for p in (0, 15):
                 tok, taps, rings, state, _, bufs = lazy_case(
                     torch, (b, H, DK, DV, torch.bfloat16, st, WINDOW, p), seed=950 + b + p)
                 rotation = cold_pool(state)
@@ -4130,7 +4147,7 @@ def cli_phase(torch, np, gla_cuda, card_line):
     ckdir = scratch_dir("cli")
     log = os.path.join(ckdir, "log.jsonl")
     argv = ["fit", "--config", CLI_CONFIG, "--log-every", "1", "--ckpt-dir", ckdir,
-            "--log-file", log]
+            "--log-file", log, "--dp", "1", "--cp", "1"]
     total = dict.fromkeys(read_counts(), 0)
     try:
         free = shutil.disk_usage(ckdir).free
@@ -4199,6 +4216,221 @@ def cli_phase(torch, np, gla_cuda, card_line):
         shutil.rmtree(ckdir, ignore_errors=True)
         torch.cuda.empty_cache()
     print(f"cli phase took {time.perf_counter() - started:.1f} s [{card_line}]")
+    return total
+
+
+# ------------------------------------------------------ context parallelism
+CP_SHARDS, CP_B, CP_T = 4, 2, 512  # time shards of a b2 t512 training sequence
+CP_KINDS = ("gla", "rwkv6", "mamba", "mamba2")
+
+
+def cp_case(torch, kind):
+    """Leaves (by name), the cotangents (do, dsf), the whole-sequence kernel
+    call and the in-process CP call for one of CP_KINDS at CP_B x CP_T:
+    the flagship GLA layer (h4 dk256 dv512, bf16), RWKV6 (h4 dk256 dv256,
+    bf16), Mamba (d2048 n16, bf16 x B C) and Mamba-2 (h32 dk64 dv64, f32
+    IO); a reset in row 1 at step 3 t / 5 (a gate of -20, Mamba's mask)."""
+    from lina_speech_tpu_torch.ops import gla_cuda, mamba_cuda, rwkv6_cuda
+    from lina_speech_tpu_torch.ops.gla_cp import gla_chunk_cp_shards, rwkv6_chunk_cp_shards
+    from lina_speech_tpu_torch.ops.mamba_cp import selective_scan_cp_shards
+
+    g = torch.Generator(device=DEVICE).manual_seed(970 + CP_KINDS.index(kind))
+    rn = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    b, t, n = CP_B, CP_T, CP_SHARDS
+    reset = torch.zeros(b, t, dtype=torch.bool, device=DEVICE)
+    reset[1, CP_T * 3 // 5] = True
+    if kind == "mamba":
+        d, ns, io = 2048, 16, torch.bfloat16
+        x = dict(x=rn(b, t, d).to(io), dt=torch.nn.functional.softplus(rn(b, t, d) - 4.0),
+                 A=-torch.exp(torch.log(torch.arange(1.0, ns + 1, device=DEVICE)) + 0.1 * rn(d, ns)),
+                 B=rn(b, t, ns).to(io), C=rn(b, t, ns).to(io), D=1.0 + 0.1 * rn(d))
+        do, dsf = rn(b, t, d).to(io), rn(b, d, ns)
+        args = lambda L: (L["x"], L["dt"], L["A"], L["B"], L["C"], L["D"])
+        whole = lambda L: mamba_cuda.mamba_scan(*args(L), None, reset)
+        shards = lambda L: selective_scan_cp_shards(*args(L), None, reset, n=n,
+                                                    local=mamba_cuda.mamba_scan)
+        return x, do, dsf, whole, shards
+    h, dk, dv, io = {"gla": (H, DK, DV, torch.bfloat16), "rwkv6": (4, 256, 256, torch.bfloat16),
+                     "mamba2": (MAMBA_HEAD[0], MAMBA_HEAD[1], MAMBA_HEAD[2],
+                                torch.float32)}[kind]
+    if kind == "rwkv6":
+        gate = -torch.exp(0.5 * rn(b, h, t, dk) - 2.5)
+    elif kind == "gla":
+        gate = torch.nn.functional.logsigmoid(rn(b, h, t, dk)) / 16
+    else:  # Mamba-2: one decay a head and step, over the head's key channels
+        gate = (-torch.nn.functional.softplus(rn(b, h, t, 1) - 3.0)).expand(b, h, t, dk)
+    gate = gate.masked_fill(reset[:, None, :, None], -20.0).contiguous()
+    x = dict(q=rn(b, h, t, dk).to(io), k=(rn(b, h, t, dk) * dk ** -0.5).to(io),
+             v=rn(b, h, t, dv).to(io), gk=gate)
+    do, dsf = rn(b, h, t, dv).to(io), rn(b, h, dk, dv)
+    qkvg = lambda L: (L["q"], L["k"], L["v"], L["gk"])
+    if kind == "rwkv6":
+        x["u"] = 0.5 * rn(h, dk)
+        whole = lambda L: rwkv6_cuda.rwkv6_chunk(*qkvg(L), L["u"])
+        shards = lambda L: rwkv6_chunk_cp_shards(*qkvg(L), L["u"], n=n,
+                                                 local=rwkv6_cuda.rwkv6_chunk)
+    else:
+        scale = None if kind == "gla" else 1.0
+        whole = lambda L: gla_cuda.gla_chunk(*qkvg(L), scale=scale)
+        shards = lambda L: gla_chunk_cp_shards(*qkvg(L), scale=scale, n=n,
+                                               local=gla_cuda.gla_chunk)
+    return x, do, dsf, whole, shards
+
+
+def cp_run(torch, fn, leaves, do, dsf):
+    """(out, final state, gradients by leaf) of sum(out do) + sum(sf dsf)
+    through ``fn``."""
+    live = {k: v.detach().clone().requires_grad_(True) for k, v in leaves.items()}
+    o, sf = fn(live)
+    loss = (o.float() * do.float()).sum() + (sf.float() * dsf).sum()
+    grads = torch.autograd.grad(loss, list(live.values()))
+    return o.detach(), sf.detach(), dict(zip(live, grads))
+
+
+def cp_timings(torch, kind, leaves, do, dsf, card_line):
+    """Device ms of one shard's forward and backward kernel (t CP_T /
+    CP_SHARDS, zero initial state, the final state's cotangent nonzero, no
+    ds0), of the whole sequence's forward kernel, and of the exchange's
+    arithmetic over all shards (stacking the pairs, the combine, the
+    entering states, the correction; the all_gather is not in it)."""
+    from lina_speech_tpu_torch.ops import gla_cuda, mamba_cuda, rwkv6_cuda
+    from lina_speech_tpu_torch.ops.gla_cp import (
+        _shards_exchange, gla_cp_correct, gla_cp_shard, rwkv6_cp_shard,
+    )
+    from lina_speech_tpu_torch.ops.mamba_cp import mamba_cp_correct, mamba_cp_shard
+    from lina_speech_tpu_torch.parallel.sharding import time_shard
+
+    n, per = CP_SHARDS, CP_T // CP_SHARDS
+    t_dim = 1 if kind == "mamba" else 2
+    cut = {k: [time_shard(v, n, j, t_dim) if v.dim() >= 3 else v for j in range(n)]
+           for k, v in leaves.items()}
+    one = {k: v[0] for k, v in cut.items()}
+    do1 = time_shard(do, n, 0, t_dim)
+    reset = torch.zeros(CP_B, per, dtype=torch.bool, device=DEVICE)
+    with torch.no_grad():
+        if kind == "mamba":
+            a = lambda L: (L["x"], L["dt"], L["A"], L["B"], L["C"], L["D"])
+            fwd = lambda: mamba_cuda.mamba_scan(*a(one), None, reset)
+            bwd = lambda: mamba_cuda.mamba_scan_bwd(*a(one), None, reset, do1, dsf,
+                                                    need_ds0=False)
+            full = lambda: mamba_cuda.mamba_scan(*a(leaves), None, None)
+            runs = [mamba_cp_shard(*a({k: v[j] for k, v in cut.items()}), reset,
+                                   mamba_cuda.mamba_scan) for j in range(n)]
+
+            def exchange():
+                s_in, _ = _shards_exchange(runs, None)
+                return [mamba_cp_correct(cut["dt"][j], leaves["A"], cut["C"][j], runs[j][0],
+                                         s_in[j], reset) for j in range(n)]
+        elif kind == "rwkv6":
+            a = lambda L: (L["q"], L["k"], L["v"], L["gk"], L["u"])
+            fwd = lambda: rwkv6_cuda.rwkv6_chunk(*a(one))
+            bwd = lambda: rwkv6_cuda.rwkv6_chunk_bwd(*a(one), None, do1, dsf, need_ds0=False)
+            full = lambda: rwkv6_cuda.rwkv6_chunk(*a(leaves))
+            runs = [rwkv6_cp_shard(*a({k: v[j] for k, v in cut.items()}),
+                                   local=rwkv6_cuda.rwkv6_chunk) for j in range(n)]
+
+            def exchange():
+                s_in, _ = _shards_exchange(runs, None)
+                return [gla_cp_correct(cut["q"][j], cut["gk"][j], runs[j][0], s_in[j],
+                                       exclusive=True) for j in range(n)]
+        else:
+            scale = DK ** -0.5 if kind == "gla" else 1.0
+            a = lambda L: (L["q"], L["k"], L["v"], L["gk"])
+            fwd = lambda: gla_cuda.gla_chunk(*a(one), scale=scale)
+            bwd = lambda: gla_cuda.gla_chunk_bwd(*a(one), None, do1, dsf, scale, need_ds0=False)
+            full = lambda: gla_cuda.gla_chunk(*a(leaves), scale=scale)
+            runs = [gla_cp_shard(*a({k: v[j] for k, v in cut.items()}), scale,
+                                 gla_cuda.gla_chunk) for j in range(n)]
+
+            def exchange():
+                s_in, _ = _shards_exchange(runs, None)
+                return [gla_cp_correct(cut["q"][j], cut["gk"][j], runs[j][0], s_in[j], scale)
+                        for j in range(n)]
+        ms = {"shard forward": device_ms(fwd, 20), "shard backward": device_ms(bwd, 10),
+              f"whole t{CP_T} forward": device_ms(full, 10),
+              f"exchange over {n} shards": device_ms(exchange, 20)}
+    print(f"  device ms, b{CP_B} shard t{per} [{card_line}]: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return ms
+
+
+def parallel_phase(torch, np, gla_cuda, card_line):
+    """(a) Context parallelism at full width in one process, through the
+    distributed ops' own functions (*_cp_shards), on the kernels: outputs,
+    final states and gradients against the single-device kernel path, the
+    launch counts, each shard's kernels and the exchange timed. (b) NCCL at
+    world size 1: the collectives on CUDA tensors, then cli_phase inside that
+    world (fit --dp 1 --cp 1 through the distributed code path). Returns the
+    launch counts of both driven paths."""
+    import socket
+
+    import torch.distributed as dist
+
+    from lina_speech_tpu_torch.parallel import distributed_init
+    from lina_speech_tpu_torch.parallel.collectives import all_gather_grad, all_reduce_grads_
+
+    started = time.perf_counter()
+    total = dict.fromkeys(read_counts(), 0)
+    cases = {kind: cp_case(torch, kind) for kind in CP_KINDS}
+    refs = {kind: cp_run(torch, c[3], c[0], c[1], c[2]) for kind, c in cases.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    got = {kind: cp_run(torch, c[4], c[0], c[1], c[2]) for kind, c in cases.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n = CP_SHARDS
+    expect_launches(launches, gla_chunk=2 * n, gla_chunk_bwd=2 * n, rwkv6_chunk=n,
+                    rwkv6_chunk_bwd=n, mamba_scan=n, mamba_scan_bwd=n)
+    add_launches(total, launches)
+    print(f"(a) context parallelism in one process: b{CP_B} t{CP_T} in {n} time shards of "
+          f"{CP_T // n}, launches {launches}")
+    params = {"u", "A", "D"}
+    for kind in CP_KINDS:
+        (o_r, s_r, g_r), (o_c, s_c, g_c) = refs[kind], got[kind]
+        print(f" {kind}: CP shards against the whole sequence, both on the kernels")
+        check("o", max_err(o_c, o_r), TOL_STATE * float(o_r.float().abs().max()))
+        check("final state", max_err(s_c, s_r), TOL_STATE * float(s_r.abs().max()))
+        check_grads(f" {kind} input gradients", {k: v for k, v in g_c.items() if k not in params},
+                    {k: v for k, v in g_r.items() if k not in params}, TOL_GRAD)
+        if params & set(g_r):
+            check_grads(f" {kind} parameter gradients",
+                        {k: v for k, v in g_c.items() if k in params},
+                        {k: v for k, v in g_r.items() if k in params}, TOL_PARAM_GRAD)
+        cp_timings(torch, kind, *cases[kind][:3], card_line)
+    del cases, refs, got
+    torch.cuda.empty_cache()
+    a_s = time.perf_counter() - started
+
+    # (b) NCCL at world size 1, on a localhost store
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    require(not distributed_init(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                                 device=DEVICE), "a world of one process")
+    try:
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        world = dist.group.WORLD
+        x = torch.randn(CP_B, 3, DK, device=DEVICE, requires_grad=True)
+        w = torch.randn(1, CP_B, 3, DK, device=DEVICE)
+        gathered = all_gather_grad(x, world)  # all_gather_into_tensor; backward reduce_scatter
+        (gathered * w).sum().backward()
+        grads = [torch.randn(5, device=DEVICE), torch.randn(3, 4, device=DEVICE)]
+        before = [v.clone() for v in grads]
+        all_reduce_grads_(grads, world)
+        torch.cuda.synchronize()
+        require(torch.equal(gathered[0], x) and torch.equal(x.grad, w[0])
+                and all(torch.equal(a, b) for a, b in zip(grads, before)),
+                "NCCL at world size 1 changed the CUDA tensors it was handed")
+        print(f"(b) NCCL world of 1 ({dist.get_backend()}): all_gather and its reduce-scatter "
+              f"backward, the flat gradient all_reduce, each equal to its input; "
+              f"{time.perf_counter() - t0:.1f} s")
+        b_s = time.perf_counter() - t0
+        add_launches(total, cli_phase(torch, np, gla_cuda, card_line))
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel phase took {time.perf_counter() - started:.1f} s ((a) {a_s:.1f} s, (b)'s "
+          f"collectives {b_s:.1f} s, the rest the CLI phase) [{card_line}]")
     return total
 
 
@@ -4567,7 +4799,7 @@ def hold_chunk(torch, gla_cuda, shape, need_ds0=None, adversarial=False):
 
 # lengths at which gla_chunk_bwd's two routes are timed against each other,
 # to check the plan (ops/gla_cuda.py:gla_chunk_bwd_plan)
-BWD_SWEEP_T = (16, 32, 48, 64, 128, 256, 512)
+BWD_SWEEP_T = (16, 32, 48, 64, 128, 512)
 TUNE_BATCH = 2  # initial-state tuning's batch (tuning_phase)
 
 
@@ -7117,7 +7349,7 @@ def main():
     add_launches(launches, phase(tuning_phase, torch, np, gla_cuda, model, cfg, card_line))
     del model, _
     torch.cuda.empty_cache()
-    add_launches(launches, phase(cli_phase, torch, np, gla_cuda, card_line))
+    add_launches(launches, phase(parallel_phase, torch, np, gla_cuda, card_line))
     add_launches(launches, phase(data_phase, torch, np, gla_cuda, card_line))
     add_launches(launches, phase(remat_phase, torch, np, gla_cuda, card_line))
     phase(codec_gan_phase, torch, card_line)

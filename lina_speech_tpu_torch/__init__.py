@@ -12,6 +12,8 @@ those paths, the backward of the conv-fused prefill among them
 WavTokenizer codec (codec/: the Vocos backbone and ISTFT head, the SEANet
 encoder and VQ) and the text-to-waveform TTSPipeline of pipeline.py; since
 then every backbone kind, quantized serving, the training CLI, codec GAN
-training and the EnCodec compression stack (codec/encodec.py, lm.py, ac.py).
-Multi-GPU is not ported yet (ROADMAP.md Queue 1 item 11).
+training and the EnCodec compression stack (codec/encodec.py, lm.py, ac.py),
+and data and context parallel training on torch.distributed (parallel/,
+ops/gla_cp.py, ops/mamba_cp.py). Tensor parallelism is not ported yet
+(ROADMAP.md Queue 1 item 11b).
 """

@@ -19,6 +19,13 @@ first. The JAX package's behaviour is kept as it is:
 - ``commit_coeff`` is declared and not used (the EMA codebook update is not
   part of these steps);
 - the discriminator step takes the generated audio without its gradient.
+
+Data parallel (``group``, a dp process group; JAX shards the crops over a
+mesh and XLA inserts the gradient sum): each rank runs the steps on its
+rows of the batch, and every gradient is averaged over the group before the
+update. The losses are means over equal shares of the batch, so the
+average is the gradient of the whole batch's loss; the metrics are
+averaged too.
 """
 from __future__ import annotations
 
@@ -37,6 +44,9 @@ from lina_speech_tpu_torch.codec.losses import (
     disc_hinge_loss, feature_matching_loss, gen_hinge_loss, mel_loss,
 )
 from lina_speech_tpu_torch.codec.wavtokenizer import WavTokenizer, init_wavtokenizer_params
+from lina_speech_tpu_torch.parallel.collectives import (
+    all_reduce_grads_, all_reduce_sum, group_size,
+)
 from lina_speech_tpu_torch.train.harness import cosine_schedule_with_warmup
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
@@ -129,24 +139,41 @@ def _frozen(*modules: nn.Module):
             p.requires_grad_(r)
 
 
-def _update(opt: torch.optim.Optimizer, loss: torch.Tensor, lr: float) -> None:
+def _update(opt: torch.optim.Optimizer, loss: torch.Tensor, lr: float, group=None) -> None:
     """One optax-style AdamW update: every parameter of ``opt`` takes part,
-    a zero gradient where the loss does not reach it (optax decays it)."""
+    a zero gradient where the loss does not reach it (optax decays it);
+    with a dp ``group`` the gradients are averaged over its ranks first."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    for group in opt.param_groups:
-        group["lr"] = lr
-        for p in group["params"]:
+    grads = []
+    for pg in opt.param_groups:
+        pg["lr"] = lr
+        for p in pg["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    if group is not None:
+        all_reduce_grads_(grads, group)
+        torch._foreach_div_(grads, group_size(group))
     opt.step()
     opt.zero_grad(set_to_none=True)
 
 
+def _mean_metrics(metrics: dict, group) -> dict:
+    """The metrics averaged over the dp group, one all_reduce."""
+    if group is None:
+        return metrics
+    total = all_reduce_sum(torch.stack([v.float() for v in metrics.values()]), group)
+    return dict(zip(metrics, (total / group_size(group)).unbind(0)))
+
+
 def make_codec_gan_steps(gen_schedule: Callable[[int], float],
-                         disc_schedule: Callable[[int], float], config: CodecGanConfig):
+                         disc_schedule: Callable[[int], float], config: CodecGanConfig,
+                         group=None):
     """Returns (disc_step, gen_step), each ``state, audio (B, T) -> state,
-    metrics`` (metrics 0-dim tensors, read without a device sync)."""
+    metrics`` (metrics 0-dim tensors, read without a device sync). With a
+    dp ``group``, ``audio`` is this rank's rows of the batch (module
+    docstring)."""
 
     def disc_step(state: CodecGanState, audio: torch.Tensor):
         mpd, mrd = state.disc_mpd, state.disc_mrd
@@ -154,9 +181,9 @@ def make_codec_gan_steps(gen_schedule: Callable[[int], float],
             y_hat = state.gen(audio)
         loss = (disc_hinge_loss(mpd(audio)[0], mpd(y_hat)[0])
                 + disc_hinge_loss(mrd(audio)[0], mrd(y_hat)[0]))
-        _update(state.disc_opt, loss, disc_schedule(state.disc_step))
+        _update(state.disc_opt, loss, disc_schedule(state.disc_step), group)
         state.disc_step += 1
-        return state, {"disc_loss": loss.detach()}
+        return state, _mean_metrics({"disc_loss": loss.detach()}, group)
 
     def gen_step(state: CodecGanState, audio: torch.Tensor):
         mpd, mrd = state.disc_mpd, state.disc_mrd
@@ -175,10 +202,11 @@ def make_codec_gan_steps(gen_schedule: Callable[[int], float],
             pretrain = state.step < config.pretrain_mel_steps
             adv = 0.0 * l_gen if pretrain else l_gen + config.fm_coeff * l_fm
             total = adv + mel_coeff_at(config, state.step) * l_mel
-            _update(state.gen_opt, total, gen_schedule(state.step))
+            _update(state.gen_opt, total, gen_schedule(state.step), group)
         state.step += 1
-        return state, {"mel_loss": l_mel.detach(), "gen_adv": l_gen.detach(),
-                       "fm_loss": l_fm.detach(), "gen_loss": total.detach()}
+        return state, _mean_metrics({"mel_loss": l_mel.detach(), "gen_adv": l_gen.detach(),
+                                     "fm_loss": l_fm.detach(), "gen_loss": total.detach()},
+                                    group)
 
     return disc_step, gen_step
 

@@ -15,9 +15,12 @@ encoder/quantization/vq.py, core_vq.py):
   commitment loss, EMA with Laplace smoothing). Random draws take an explicit
   ``torch.Generator``; ``jax.random.choice``'s stream cannot be matched, so
   both draws also take their indices from the caller (``idx``). The JAX
-  functions' ``axis_name`` (a psum over the data-parallel axis) has no
-  counterpart before multi-GPU training (ROADMAP.md Queue 1 item 11): a
-  value other than None raises ``NotImplementedError``.
+  functions' ``axis_name`` (a psum over the data-parallel mesh axis) is
+  ``group`` here, a data-parallel process group: the EMA update sums the
+  one-hot counts and the embedding sums over it, and ``expire_dead_codes``
+  draws from the cross-rank mean of the batch samples (JAX vq.py:122-124),
+  so with one generator seeded alike on every rank every rank replaces the
+  same codes with the same rows (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lina_speech_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
 
 class _Codebook(nn.Module):
@@ -119,12 +124,6 @@ class VQState:
         return self.embed.shape[0]
 
 
-def _no_axis(name: str, axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(f"{name}(axis_name=...): the data-parallel reduction is "
-                                  "not ported (ROADMAP.md Queue 1 item 11)")
-
-
 def kmeans_init(generator: Optional[torch.Generator], x: torch.Tensor, bins: int,
                 iters: int = 10, idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """k-means codebook init from the first batch (core_vq.py:140-151).
@@ -149,15 +148,17 @@ def kmeans_init(generator: Optional[torch.Generator], x: torch.Tensor, bins: int
 
 def expire_dead_codes(generator: Optional[torch.Generator], quantizer: VQState,
                       batch_samples: torch.Tensor, threshold: float = 2.0,
-                      axis_name: Optional[str] = None,
+                      group=None,
                       idx: Optional[Sequence[torch.Tensor]] = None) -> VQState:
     """Replace the codes whose EMA cluster size fell below ``threshold`` with
     rows of the batch (core_vq.py:153-169): layer i's code j becomes row
     ``idx[i][j]`` of the flattened batch, the rows drawn with replacement
-    from ``generator`` when ``idx`` is not given."""
-    _no_axis("expire_dead_codes", axis_name)
+    from ``generator`` when ``idx`` is not given. With a data-parallel
+    ``group`` the batch is the mean of every rank's (same shapes)."""
     n_q, bins, dim = quantizer.embed.shape
     flat = batch_samples.reshape(-1, dim)
+    if group is not None:
+        flat = all_reduce_sum(flat, group) / group_size(group)
     new_embed = []
     for i in range(n_q):
         rows = (torch.randint(flat.shape[0], (bins,), generator=generator)
@@ -177,23 +178,27 @@ class VQTrainResult(NamedTuple):
 
 def ema_codebook_update(x: torch.Tensor, codes: torch.Tensor, quantizer: VQState,
                         decay: float = 0.99, epsilon: float = 1e-5,
-                        axis_name: Optional[str] = None) -> VQState:
+                        group=None) -> VQState:
     """One training step's EMA update (core_vq.py:217-229): cluster sizes and
     embedding sums decay towards this batch's one-hot counts and sums, and
     the codebooks are the Laplace-smoothed averages. Returns a new state
     (no gradient flows through it). Every layer of ``quantizer`` is updated;
     with fewer layers of ``codes`` (a drawn n_q below the codebooks') the
     layers past them take the last layer's codes, as the JAX package's
-    clamped indexing ``codes[i]`` gives them."""
-    _no_axis("ema_codebook_update", axis_name)
+    clamped indexing ``codes[i]`` gives them. With a data-parallel ``group``
+    the counts and the embedding sums are summed over its ranks first, so
+    every rank applies the same update (encoder/distrib.py:55-68)."""
     n_q, bins, dim = quantizer.embed.shape
     with torch.no_grad():
         flat = x.reshape(-1, dim).float()
         new_cs, new_avg = [], []
         for i in range(n_q):
             onehot = F.one_hot(codes[min(i, codes.shape[0] - 1)].reshape(-1), bins).float()
-            new_cs.append(quantizer.cluster_size[i] * decay + onehot.sum(0) * (1 - decay))
-            new_avg.append(quantizer.embed_avg[i] * decay + (onehot.T @ flat) * (1 - decay))
+            counts, sums = onehot.sum(0), onehot.T @ flat
+            if group is not None:
+                counts, sums = all_reduce_sum(counts, group), all_reduce_sum(sums, group)
+            new_cs.append(quantizer.cluster_size[i] * decay + counts * (1 - decay))
+            new_avg.append(quantizer.embed_avg[i] * decay + sums * (1 - decay))
         cluster_size, embed_avg = torch.stack(new_cs), torch.stack(new_avg)
         n = cluster_size.sum(-1, keepdim=True)
         smoothed = (cluster_size + epsilon) / (n + bins * epsilon) * n
@@ -202,14 +207,14 @@ def ema_codebook_update(x: torch.Tensor, codes: torch.Tensor, quantizer: VQState
 
 
 def vq_train_step(x: torch.Tensor, quantizer: VQState, n_q: int, decay: float = 0.99,
-                  axis_name: Optional[str] = None) -> VQTrainResult:
+                  group=None) -> VQTrainResult:
     """Quantize with the straight-through estimator, the commitment loss and
     the EMA update (core_vq.py:294-315; the reference draws n_q from {4, 6,
-    8} during training, vq.py:103-108: pass the drawn value in)."""
-    _no_axis("vq_train_step", axis_name)
+    8} during training, vq.py:103-108: pass the drawn value in). ``group``:
+    the data-parallel process group of the EMA update."""
     codes = vq_encode(x, quantizer, n_q)
     quant = vq_decode(codes, quantizer) / max(n_q, 1)
     commit = ((quant.detach() - x) ** 2).mean()
     quant_st = x + (quant - x).detach()
     return VQTrainResult(quant_st, codes, commit,
-                         ema_codebook_update(x, codes, quantizer, decay))
+                         ema_codebook_update(x, codes, quantizer, decay, group=group))

@@ -10,8 +10,11 @@ with ``cross_att_layers`` the interleaved CrossAttMamba); the softmax
 ``"transformer"``. It builds the speaker encoder too. ``remat`` is taken
 by the kinds the JAX package gives it to (``"gla"`` without
 ``cross_att_layers``, and ``"simple_gla"``) and ignored by the others, as
-there; ``cp_axis`` raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+there. ``cp_axis`` names the mesh axis (``parallel/mesh.py``) the audio
+time is sharded over: ``build_model(..., mesh=)`` resolves it to that
+axis's process group and hands it to the backbone's mixers, as the JAX
+layers take ``cp_axis`` (every kind but the transformer, which has no
+context-parallel path).
 """
 from __future__ import annotations
 
@@ -110,13 +113,19 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def build_model(cfg: ModelConfig, device=None, seed: int = 0):
+def build_model(cfg: ModelConfig, device=None, seed: int = 0, mesh=None):
     """Construct the LinaModel with f32 parameters initialized from a
     ``torch.Generator`` seeded with ``seed`` (models/lina.py:init_params).
 
     The model is built on the GPU: ``device=None`` means ``"cuda"`` and
     raises without one. The CPU is used only when the caller asks for it
     (``device="cpu"``). It comes back in eval mode (no dropout).
+
+    ``mesh`` (``parallel/mesh.py:Mesh``): the model trains on this rank's
+    part of each batch (``LinaModel.set_parallel``: its dp x cp group and,
+    where ``cfg.backbone.cp_axis`` is set, that axis's group). A
+    ``cp_axis`` without a mesh, or naming an axis the mesh does not have,
+    raises ``ValueError``, as does one on the transformer.
     """
     from lina_speech_tpu_torch.models.attentive_rnn import AttentiveGLA, CrossAttGLA
     from lina_speech_tpu_torch.models.encoder import SimpleSpeakerEncoder, TextEncoder
@@ -130,8 +139,12 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     if b.kind not in ("gla", "simple_gla", "mamba2", "rwkv6", "mamba", "transformer"):
         raise ValueError(f"unknown backbone kind {b.kind}")
     if b.cp_axis is not None:
-        raise NotImplementedError(
-            "context parallelism is not ported yet (ROADMAP.md Queue 1 item 11)")
+        if mesh is None or b.cp_axis not in mesh.axis_names:
+            raise ValueError(
+                f"cp_axis={b.cp_axis!r} is not an axis of the mesh "
+                f"({None if mesh is None else mesh.axis_names}); build with mesh= carrying it")
+        if b.kind == "transformer":
+            raise ValueError("the transformer backbone has no context-parallel path (cp_axis)")
 
     if device is None:
         if not torch.cuda.is_available():
@@ -201,6 +214,9 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         dtype=dtype,
     )
     init_params(model, torch.Generator().manual_seed(seed))
+    if mesh is not None:
+        model.set_parallel(mesh.group("dp", "cp"),
+                           None if b.cp_axis is None else mesh.group(b.cp_axis))
     # inference mode, as the JAX package's ``deterministic=True`` default:
     # the train step switches dropout on (``model.train()``)
     return model.to(device).eval()

@@ -5,15 +5,17 @@ top_k=10, ignore_index=[0, 1] (train_lina.py:57-61).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 
-def topk_accuracy(logits: torch.Tensor, target: torch.Tensor, top_k: int = 10,
-                  ignore_index: Sequence[int] = (0, 1),
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """logits: (..., l); target: (...) int. Returns the scalar accuracy.
+def topk_hits(logits: torch.Tensor, target: torch.Tensor, top_k: int = 10,
+              ignore_index: Sequence[int] = (0, 1),
+              mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hits, count): the targets in the top k and the targets that count,
+    the numerator and denominator of :func:`topk_accuracy` (a data-parallel
+    caller sums both over its ranks).
 
     "Target in top-k" is rank by comparison: the count of logits ranked
     ahead of the target's is < k. Ties go to the lower index, as in the JAX
@@ -30,4 +32,13 @@ def topk_accuracy(logits: torch.Tensor, target: torch.Tensor, top_k: int = 10,
         valid &= target != ig
     if mask is not None:
         valid &= mask
-    return (hit & valid).sum() / valid.sum().clamp(min=1)
+    return (hit & valid).sum(), valid.sum()
+
+
+def topk_accuracy(logits: torch.Tensor, target: torch.Tensor, top_k: int = 10,
+                  ignore_index: Sequence[int] = (0, 1),
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits: (..., l); target: (...) int. Returns the scalar accuracy
+    (:func:`topk_hits`)."""
+    hits, count = topk_hits(logits, target, top_k, ignore_index, mask)
+    return hits / count.clamp(min=1)

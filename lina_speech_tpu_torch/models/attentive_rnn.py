@@ -19,6 +19,13 @@ mode, without an initial state, each encoder and decoder block of an
 :class:`AttentiveGLA` runs under :func:`checkpoint_block`, which drops its
 activations after the forward and recomputes them in the backward (the
 cross-attention and its pos_net are not rematerialized, as in JAX).
+
+Context parallelism: with ``cp_group`` set (``build_model`` sets it on the
+backbone and on every mixer) ``x`` is this rank's time shard; the mixers
+run their context-parallel paths, and the query positions of a rotary or
+PP cross-attention are offset by the shard's start (the shards are of
+equal length). The cross-attentions need nothing else: the text is whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from lina_speech_tpu_torch.models.crossatt import (
 from lina_speech_tpu_torch.models.gla_layer import (
     GatedLinearAttention, GLAState, gla_add_lazy_buffers,
 )
+from lina_speech_tpu_torch.parallel.collectives import group_rank
 
 
 @dataclasses.dataclass
@@ -138,6 +146,7 @@ class EncoderCrossDecoder(nn.Module):
     (the blind cross-attention's pos_net and the PP inter_net included)."""
 
     remat = False  # a backbone that takes it sets it in its constructor
+    cp_group = None  # the cp process group of a time-sharded forward
 
     def __init__(self, d_model: int = 1024, n_layer: int = 12, heads: int = 4,
                  dropout: float = 0.0, d_blind: Optional[int] = None, blind: bool = False,
@@ -209,6 +218,8 @@ class EncoderCrossDecoder(nn.Module):
         use_state = init_state is not None or output_final_state
         if init_state is None and use_state:
             init_state = self.empty_state(x.shape[0], device=x.device)
+        if self.cp_group is not None:
+            time_offset = time_offset + group_rank(self.cp_group) * x.shape[1]
 
         def run(blk, x, st):
             if use_state:
@@ -379,6 +390,7 @@ class InterleavedCrossAtt(nn.Module):
     states are per layer, with no pos_net."""
 
     blind = cross_att_pp = False
+    cp_group = None  # the cp process group of a time-sharded forward
 
     def __init__(self, d_model: int, n_layer: int, cross_att_layers: Sequence[int],
                  heads: int, cross_att_heads: int = 1, dropout: float = 0.0,
@@ -424,6 +436,8 @@ class InterleavedCrossAtt(nn.Module):
         use_state = init_state is not None or output_final_state
         if init_state is None and use_state:
             init_state = self.empty_state(x.shape[0], device=x.device)
+        if self.cp_group is not None:
+            time_offset = time_offset + group_rank(self.cp_group) * x.shape[1]
         atts, finals = [], []
         for i, blk in enumerate(self.blocks):
             if use_state:

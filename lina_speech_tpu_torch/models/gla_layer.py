@@ -39,10 +39,18 @@ version, as the JAX layer takes XLA where its Pallas kernels do not fit):
   in the JAX package (no TPU kernel exists for it); its fold keeps the
   kernels.
 
-Context parallelism and the folded projection layout have no switch in the
-port yet. The JAX layer merges q|k|v|g into one projection per
-decode step; the port launches one per projection (column-independent, the
-same numbers).
+Context parallelism (``cp_group``, set by ``build_model`` from the mesh's
+cp group): the full-sequence forward of a time shard runs
+``ops/gla_cp.py:gla_chunk_cp`` over ``gla_chunk`` -- never the fused
+``gla_chunk_conv``: the short convs run outside, as in JAX
+(gla_layer.py:509), their history the last ``conv_size - 1`` frames of
+the previous rank's shard (``parallel/collectives.py:halo_exchange``). A
+final state is the whole sequence's, its conv rings the last rank's. The
+decode steps are time-local and take no group.
+
+The folded projection layout has no switch in the port. The JAX layer
+merges q|k|v|g into one projection per decode step; the port launches one
+per projection (column-independent, the same numbers).
 """
 from __future__ import annotations
 
@@ -59,7 +67,9 @@ from lina_speech_tpu_torch.ops.gla import (
     gla_decode_lazy_step, gla_decode_lazy_step_q, gla_decode_lazy_step_q4, gla_scan_ref,
     quantize_state_rows, quantize_state_rows_int4,
 )
+from lina_speech_tpu_torch.ops.gla_cp import gla_chunk_cp
 from lina_speech_tpu_torch.ops.short_conv import causal_depthwise_conv, short_conv_step
+from lina_speech_tpu_torch.parallel.collectives import from_last, halo_exchange
 
 
 @dataclasses.dataclass
@@ -199,6 +209,8 @@ class GatedLinearAttention(nn.Module):
     head per step instead of per key channel, repeated over the head's key
     channels before the kernels (they take it like any gate)."""
 
+    cp_group = None  # the cp process group of a time-sharded forward
+
     def __init__(self, hidden_size: int = 1024, expand_k: float = 1.0,
                  expand_v: float = 2.0, num_heads: int = 4,
                  use_short_conv: bool = False, conv_size: int = 4,
@@ -320,25 +332,35 @@ class GatedLinearAttention(nn.Module):
         use_hist = conv_history and self.use_short_conv
         if use_hist and initial_state is None:
             raise ValueError("conv_history=True requires initial_state")
+        cp = self.cp_group
+        if cp is not None and (conv_history or self.kernel_mode == "scan"):
+            raise ValueError("a time-sharded forward (cp_group) takes no conv_history and no "
+                             "kernel_mode='scan' (no context-parallel recurrence)")
         s0 = initial_state.s if initial_state is not None else None
         state_dtype = torch.float32 if s0 is None else s0.dtype
         w = self.conv_size
 
-        def conv(mod, z, ring):
-            # the conv outside the kernels; on a continued stream the ring
-            # (w, b, dim) holds the last w conv inputs, newest last, and
-            # this chunk's first token needs the last w - 1 of them
-            if not use_hist:
+        def history(z, ring):
+            # the w - 1 conv inputs before this chunk, (b, w - 1, dim): the
+            # previous rank's tail under cp, the carried ring (w, b, dim) of a
+            # continued stream, or None (zeros: the start of a stream)
+            if cp is not None:
+                return halo_exchange(z, w - 1, cp)
+            return ring[1:].transpose(0, 1) if use_hist else None
+
+        def conv(mod, z, hist):
+            if hist is None:
                 return causal_depthwise_conv(z, mod.taps(self.dtype))
-            full = torch.cat([ring[1:].transpose(0, 1).to(z.dtype), z], dim=1)
+            full = torch.cat([hist.to(z.dtype), z], dim=1)
             return causal_depthwise_conv(full, mod.taps(self.dtype))[:, w - 1:]
 
         h = x
         if self.use_short_conv and self.share_conv_kernel:
-            h = conv(self.h_conv1d, x, initial_state.conv_h if use_hist else None)
+            h = conv(self.h_conv1d, x, history(x, initial_state.conv_h if use_hist else None))
         q, k, v = self.q_proj(h), self.k_proj(h), self.v_proj(h)
         gh = self._heads(self._gates(h, reset_mask, reset_val), self.head_qk_dim)
-        if self._conv_per_projection and not use_hist and self.kernel_mode != "scan":
+        fuse = self._conv_per_projection and not use_hist and cp is None
+        if fuse and self.kernel_mode != "scan":
             o, s_final = self._kernel("gla_chunk_conv", state_dtype)(
                 self._heads(q, self.head_qk_dim), self._heads(k, self.head_qk_dim),
                 self._heads(v, self.head_v_dim), gh,
@@ -350,12 +372,20 @@ class GatedLinearAttention(nn.Module):
             if self._conv_per_projection:
                 rings = ((initial_state.conv_q, initial_state.conv_k, initial_state.conv_v)
                          if use_hist else (None,) * 3)
-                qc, kc, vc = (conv(mod, z, ring) for mod, z, ring in zip(
-                    (self.q_conv1d, self.k_conv1d, self.v_conv1d), (q, k, v), rings))
+                if cp is None:
+                    hists = [history(None, ring) for ring in rings]
+                else:  # one exchange for the three projections
+                    hists = history(torch.cat([q, k, v], -1), None).split(
+                        [self.key_dim, self.key_dim, self.value_dim], -1)
+                qc, kc, vc = (conv(mod, z, hist) for mod, z, hist in zip(
+                    (self.q_conv1d, self.k_conv1d, self.v_conv1d), (q, k, v), hists))
             args = (self._heads(qc, self.head_qk_dim), self._heads(kc, self.head_qk_dim),
                     self._heads(vc, self.head_v_dim), gh)
             if self.kernel_mode == "scan":
                 o, s_final = gla_scan_ref(*args, initial_state=s0)
+            elif cp is not None:
+                o, s_final = gla_chunk_cp(*args, initial_state=s0, group=cp,
+                                          local=self._kernel("gla_chunk", state_dtype))
             else:
                 o, s_final = self._kernel("gla_chunk", state_dtype)(
                     *args, initial_state=s0, chunk_size=self.chunk_size)
@@ -368,12 +398,14 @@ class GatedLinearAttention(nn.Module):
             def tail(z, ring):
                 # new ring = the last w conv inputs: a chunk shorter than w
                 # keeps the tail of the incoming history when it continues
-                # a stream, and is zero-padded on the left otherwise
+                # a stream, and is zero-padded on the left otherwise; under
+                # cp the last rank's
                 if use_hist:
                     z = torch.cat([ring.transpose(0, 1).to(z.dtype), z], dim=1)
                 else:
                     z = F.pad(z, (0, 0, max(0, w - z.shape[1]), 0))
-                return z[:, -w:, :].transpose(0, 1).contiguous()
+                ring = z[:, -w:, :].transpose(0, 1).contiguous()
+                return ring if cp is None else from_last(ring, cp)
 
             if self.share_conv_kernel:
                 state = GLAState(s=s_final, conv_h=tail(

@@ -11,6 +11,20 @@ embeddings, in the training forward and (``generate.py``) on a prompt.
 Dropout and the classifier-free text masking act in training mode only
 (``model.train()``) and draw from the generator handed to
 :meth:`LinaModel.set_generator`.
+
+Data and context parallelism (:meth:`LinaModel.set_parallel`, which
+``build_model(mesh=...)`` calls): the training forward then sees this
+rank's rows and, under cp, its time shard as ``parallel/sharding.py:
+shard_batch`` cuts it (the shifted input / target pair: t + 1 frames, the
+last overlapping the next rank's first). What XLA gets right on a global
+array is done by hand: the speaker encoder reads the first frames of the
+whole sequence (gathered over cp) and its vector replaces position 0 on
+cp rank 0 only; the loss is this rank's share of the global masked mean,
+its numerator over the count of valid targets summed over the dp x cp
+group (the JAX loss ``(ce valid).sum() / valid.sum()`` over the global
+batch; DDP's mean of per-rank means differs from it whenever ranks hold
+different counts), so the gradients summed over the group are the
+single-process gradients of the whole batch.
 """
 from __future__ import annotations
 
@@ -26,6 +40,9 @@ from lina_speech_tpu_torch.models.base_blocks import (
     Embedding, set_dropout_generator,
 )
 from lina_speech_tpu_torch.models.multiembed import MultiEmbedding, head_logits
+from lina_speech_tpu_torch.parallel.collectives import (
+    all_gather_grad, all_reduce_sum, group_rank, select,
+)
 from lina_speech_tpu_torch.utils.quantize import (
     QKEY, SKEY, is_quantized_leaf, quantize_dense_params,
 )
@@ -61,6 +78,9 @@ class LogitsHead(nn.Module):
 
 
 class LinaModel(nn.Module):
+    cp_group = None    # the cp process group of a time-sharded batch
+    data_group = None  # the dp x cp process group a batch is spread over
+
     def __init__(self, attentive_rnn: nn.Module, d_model: int, n_quant: int,
                  n_codebook: int, n_special_token_in: int,
                  n_special_token_out: int, n_txt_vocab_base: int,
@@ -82,6 +102,16 @@ class LinaModel(nn.Module):
         self.spk_encoder = spk_encoder
         self.attentive_rnn = attentive_rnn
         self.generator: Optional[torch.Generator] = None
+
+    def set_parallel(self, data_group, cp_group) -> None:
+        """Train on a part of each batch: ``data_group`` the process group
+        (dp x cp) the batch is spread over, ``cp_group`` the ranks holding the
+        other time shards of this rank's rows (None: no context parallelism).
+        The cp group reaches the backbone and every mixer."""
+        self.data_group = data_group
+        for m in self.modules():
+            if hasattr(type(m), "cp_group"):
+                m.cp_group = cp_group
 
     def set_generator(self, generator: Optional[torch.Generator]) -> None:
         """The generator (on the model's device) that dropout and the text
@@ -117,7 +147,8 @@ class LinaModel(nn.Module):
 
         The loss is the cross-entropy of y[:, 1:] in f32, ignoring target 1
         (modeling_lina.py:106) and positions outside ``logits_mask`` (b, n),
-        averaged over the positions that count (at least 1).
+        averaged over the positions that count (at least 1); with a
+        ``data_group``, over those of the whole batch (module docstring).
         """
         if self.mask_text_p > 0.0 and self.training:
             if self.generator is None:
@@ -130,8 +161,12 @@ class LinaModel(nn.Module):
         y_embd = self.embed_tokens(y.permute(2, 0, 1))  # (b, n, d)
         x_enc = self.encode_text(x, encoder_mask)
         if self.spk_encoder is not None:
-            spk = self.spk_encoder(y_embd)
-            y_embd = torch.cat([spk[:, None].to(y_embd.dtype), y_embd[:, 1:]], dim=1)
+            spk = self.spk_encoder(self._whole_time(y_embd))[:, None].to(y_embd.dtype)
+            # position 0 of the sequence is cp rank 0's first frame; selecting
+            # keeps the speaker encoder (and the gather feeding it) in every
+            # rank's graph
+            first = select(group_rank(self.cp_group) == 0, spk, y_embd[:, :1])
+            y_embd = torch.cat([first, y_embd[:, 1:]], dim=1)
         ca_mask = crossatt_mask[:, :-1] if crossatt_mask is not None else None
         # the backbone consumes y[:, :-1]; align per-position masks with it
         if reset_mask is not None and reset_mask.shape[1] == y.shape[1]:
@@ -148,8 +183,20 @@ class LinaModel(nn.Module):
         valid = target != 1
         if logits_mask is not None:
             valid = valid & logits_mask[:, 1:, None]
-        loss = (ce * valid).sum() / valid.sum().clamp(min=1)
+        count = valid.sum()
+        if self.data_group is not None:
+            count = all_reduce_sum(count, self.data_group)
+        loss = (ce * valid).sum() / count.clamp(min=1)
         return logits, loss, att
+
+    def _whole_time(self, y_embd: torch.Tensor) -> torch.Tensor:
+        """The embeddings of the whole sequence from this rank's time shard
+        (t + 1 frames, the last the next rank's first): every rank's shard
+        gathered over cp, differentiably; the shard itself without cp."""
+        if self.cp_group is None:
+            return y_embd
+        shards = all_gather_grad(y_embd, self.cp_group)
+        return torch.cat([*shards[:, :, :-1].unbind(0), shards[-1][:, -1:]], dim=1)
 
     def prefill(self, y_embd, x_enc, state: Optional[BackboneState] = None,
                 return_att: bool = False, crossatt_mask=None,

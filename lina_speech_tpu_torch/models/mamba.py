@@ -45,10 +45,18 @@ the JAX layout (b, heads * d_state, headdim) in :class:`MambaState` and is
 viewed as (b, heads, d_state, headdim) around each kernel call.
 
 Neither mixer has a lazy-window decode or initial-state tuning, as in JAX.
+
+Context parallelism (``cp_group``, set by ``build_model`` from the mesh's
+cp group): a time shard's causal conv takes the previous rank's last
+``d_conv - 1`` conv inputs (``parallel/collectives.py:halo_exchange``);
+Mamba's scan runs ``ops/mamba_cp.py:selective_scan_cp`` over ``mamba_scan``,
+Mamba-2's ``ops/gla_cp.py:gla_chunk_cp`` over ``gla_chunk``. A final state
+is the whole sequence's, its conv ring the last rank's.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -61,8 +69,11 @@ from lina_speech_tpu_torch.models.attentive_rnn import (
 )
 from lina_speech_tpu_torch.models.base_blocks import Linear, MixingBlock, SwiGLU
 from lina_speech_tpu_torch.ops import gla_cuda, mamba_cuda
+from lina_speech_tpu_torch.ops.gla_cp import gla_chunk_cp
 from lina_speech_tpu_torch.ops.mamba import selective_step
+from lina_speech_tpu_torch.ops.mamba_cp import selective_scan_cp
 from lina_speech_tpu_torch.ops.short_conv import causal_depthwise_conv, short_conv_step
+from lina_speech_tpu_torch.parallel.collectives import from_last, halo_exchange
 
 
 @dataclasses.dataclass
@@ -96,17 +107,23 @@ def _conv_tail(xs: torch.Tensor, initial_state: Optional[MambaState], use_hist: 
 
 
 def _conv_with_history(xs: torch.Tensor, initial_state: Optional[MambaState],
-                       conv_history: bool, taps, w: int):
+                       conv_history: bool, taps, w: int, cp=None):
     """The causal conv (with silu) of ``xs`` (b, t, dim); with
-    ``conv_history`` the carried ring of ``initial_state`` is its history.
-    Returns (conv output, whether the history was used)."""
+    ``conv_history`` the carried ring of ``initial_state`` is its history,
+    under ``cp`` (a process group) the previous rank's last w - 1 inputs.
+    Returns (conv output, whether the carried ring was used)."""
     if conv_history and initial_state is None:
         raise ValueError("conv_history=True requires initial_state")
-    if not conv_history:
+    if cp is not None:
+        if conv_history:
+            raise ValueError("a time-sharded forward (cp_group) takes no conv_history")
+        hist = halo_exchange(xs, w - 1, cp)
+    elif conv_history:
+        hist = initial_state.conv.transpose(0, 1)[:, 1:]  # (b, w - 1, dim)
+    else:
         return causal_depthwise_conv(xs, *taps), False
-    ring = initial_state.conv.transpose(0, 1).to(xs.dtype)  # (b, w, dim)
-    out = causal_depthwise_conv(torch.cat([ring[:, 1:], xs], dim=1), *taps)
-    return out[:, w - 1:], True
+    out = causal_depthwise_conv(torch.cat([hist.to(xs.dtype), xs], dim=1), *taps)
+    return out[:, w - 1:], conv_history
 
 
 class MambaMixer(nn.Module):
@@ -115,6 +132,8 @@ class MambaMixer(nn.Module):
     ``x_proj``, ``dt_proj`` (with bias), ``A_log`` (d_inner, d_state), ``D``,
     ``out_proj``). ``kernel_mode``: "auto" (the ``mamba_scan`` wrapper) or
     "chunk" / "scan" (its plain version, a time loop, on every device)."""
+
+    cp_group = None  # the cp process group of a time-sharded forward
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
                  dt_rank: Optional[int] = None, kernel_mode: str = "auto",
@@ -159,6 +178,8 @@ class MambaMixer(nn.Module):
         takes = mamba_cuda.kernel_takes(self.d_inner, self.d_state, x_conv.dtype, state_dtype)
         fn = mamba_cuda.mamba_scan if self.kernel_mode == "auto" and takes else \
             mamba_cuda.mamba_scan_plain
+        if self.cp_group is not None:
+            fn = functools.partial(selective_scan_cp, group=self.cp_group, local=fn)
         if reset_mask is not None:  # the model passes a slice of the batch's mask
             reset_mask = reset_mask.contiguous()
         return fn(x_conv, dt, A.float(), B.contiguous(), C.contiguous(), self.D.float(),
@@ -172,16 +193,17 @@ class MambaMixer(nn.Module):
         of this chunk; ``reset_mask`` ((b, t) bool) zeroes the scan's decay
         where it is True (the conv is not reset, as in JAX)."""
         xs, z = self.in_proj(x).chunk(2, dim=-1)
+        cp = self.cp_group
         x_conv, use_hist = _conv_with_history(xs, initial_state, conv_history,
-                                              self._conv_taps(), self.d_conv)
+                                              self._conv_taps(), self.d_conv, cp)
         dt, A, B, C = self._ssm_inputs(x_conv)
         s0 = initial_state.h if initial_state is not None else None
         y, h_final = self._scan(x_conv, dt, A, B, C, s0, reset_mask)
         out = self.out_proj(y * F.silu(z))
         if not output_final_state:
             return out
-        return out, MambaState(h=h_final, conv=_conv_tail(xs, initial_state, use_hist,
-                                                          self.d_conv))
+        ring = _conv_tail(xs, initial_state, use_hist, self.d_conv)
+        return out, MambaState(h=h_final, conv=ring if cp is None else from_last(ring, cp))
 
     def step(self, x_t: torch.Tensor, state: MambaState):
         """x_t: (b, d) one token -> (out (b, d), new state): the plain
@@ -207,6 +229,8 @@ class Mamba2Mixer(nn.Module):
     """Mamba-2 token mixer; parameter names as the JAX module's (``in_proj``,
     ``conv_kernel`` (conv_dim, d_conv), ``conv_bias``, ``A_log``,
     ``dt_bias``, ``D``, ``norm_weight``, ``out_proj``)."""
+
+    cp_group = None  # the cp process group of a time-sharded forward
 
     def __init__(self, d_model: int, d_state: int = 64, d_conv: int = 4, expand: int = 2,
                  headdim: int = 64, kernel_mode: str = "auto",
@@ -265,8 +289,9 @@ class Mamba2Mixer(nn.Module):
         b, t, _ = x.shape
         h, p, n, w = self.n_heads, self.headdim, self.d_state, self.d_conv
         z, xbc_pre, dt = self._split(self.in_proj(x))
+        cp = self.cp_group
         xbc, use_hist = _conv_with_history(xbc_pre, initial_state, conv_history,
-                                           self._conv_taps(), w)
+                                           self._conv_taps(), w, cp)
         xs, B, C = xbc.split([self.d_inner, n, n], dim=-1)
         xh = xs.reshape(b, t, h, p).transpose(1, 2)  # (b, h, t, p)
         dtf = F.softplus(dt.float() + self.dt_bias)  # (b, t, h)
@@ -279,15 +304,18 @@ class Mamba2Mixer(nn.Module):
         if initial_state is not None:
             s0 = initial_state.h.reshape(b, h, n, p)
         state_dtype = torch.float32 if s0 is None else s0.dtype
-        o, s_final = self._kernel("gla_chunk", state_dtype)(
-            heads(C), heads(B), v, gk.contiguous(), initial_state=s0, scale=1.0)
+        scan = self._kernel("gla_chunk", state_dtype)
+        if cp is not None:
+            scan = functools.partial(gla_chunk_cp, group=cp, local=scan)
+        o, s_final = scan(heads(C), heads(B), v, gk.contiguous(), initial_state=s0, scale=1.0)
         o = o.to(self.dtype) + self.D[None, :, None, None] * xh  # D skip
         o = o.transpose(1, 2).reshape(b, t, self.d_inner)
         out = self.out_proj(self._gated_norm(o, z))
         if not output_final_state:
             return out
+        ring = _conv_tail(xbc_pre, initial_state, use_hist, w)
         return out, MambaState(h=s_final.reshape(b, h * n, p),
-                               conv=_conv_tail(xbc_pre, initial_state, use_hist, w))
+                               conv=ring if cp is None else from_last(ring, cp))
 
     def step(self, x_t: torch.Tensor, state: MambaState):
         """x_t: (b, d) one token -> (out (b, d), new state). On CUDA the

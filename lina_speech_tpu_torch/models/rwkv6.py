@@ -32,10 +32,16 @@ difference is exact; the final shift is the block input's last token.
 The decode state is the recurrent (b, h, dk, dv) state plus the one-token
 shift buffer (b, d); neither has a lazy window, so lazy decode and int8
 states raise ``TypeError``, and there is no initial-state tuning, as in JAX.
+
+Context parallelism (``cp_group``, set by ``build_model`` from the mesh's
+cp group): a time shard's token shift takes the previous rank's last frame
+(``parallel/collectives.py:halo_exchange``, the carried shift on rank 0)
+and the scan runs ``ops/gla_cp.py:rwkv6_chunk_cp`` over ``rwkv6_chunk``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -45,7 +51,9 @@ import torch.nn.functional as F
 from lina_speech_tpu_torch.models.attentive_rnn import EncoderCrossDecoder
 from lina_speech_tpu_torch.models.base_blocks import Linear, MixingBlock, SwiGLU
 from lina_speech_tpu_torch.ops import rwkv6_cuda
+from lina_speech_tpu_torch.ops.gla_cp import rwkv6_chunk_cp
 from lina_speech_tpu_torch.ops.rwkv6 import rwkv6_scan_ref
+from lina_speech_tpu_torch.parallel.collectives import from_last, halo_exchange
 
 
 @dataclasses.dataclass
@@ -73,6 +81,8 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class RWKV6Attention(nn.Module):
     """RWKV6 token mixer (expand_k = expand_v = 1 in the backbone)."""
+
+    cp_group = None  # the cp process group of a time-sharded forward
 
     def __init__(self, hidden_size: int, num_heads: int = 4, expand_k: float = 1.0,
                  expand_v: float = 1.0, proj_low_rank_dim: int = 32,
@@ -166,10 +176,15 @@ class RWKV6Attention(nn.Module):
         the GLA layers share. ``reset_mask`` ((b, t) bool) sets the
         log-decay to ``reset_val`` where it is True."""
         b, t, d = x.shape
+        cp = self.cp_group
+        if cp is not None and self.kernel_mode == "scan":
+            raise ValueError("a time-sharded forward (cp_group) has no kernel_mode='scan'")
         if initial_state is not None:
             prev = initial_state.shift[:, None]
         else:
             prev = torch.zeros(b, 1, d, dtype=x.dtype, device=x.device)
+        if cp is not None:  # the previous rank's last frame; rank 0 keeps prev
+            prev = halo_exchange(x.to(prev.dtype), 1, cp, first=prev)
         cdt = torch.promote_types(prev.dtype, x.dtype)
         sx = torch.cat([prev.to(cdt), x[:, :-1].to(cdt)], dim=1) - x
         r, k, v, g, lw = self._wrkvg(x, sx)
@@ -183,12 +198,15 @@ class RWKV6Attention(nn.Module):
         else:
             fn = rwkv6_cuda.rwkv6_chunk if self._kernels(state_dtype) else \
                 rwkv6_cuda.rwkv6_chunk_plain
+        if cp is not None:
+            fn = functools.partial(rwkv6_chunk_cp, group=cp, local=fn)
         o, s_final = fn(self._heads(r, dk), self._heads(k, dk), self._heads(v, dv),
                         self._heads(lw, dk), self.time_faaaa.float(), initial_state=s0)
         o = o.transpose(1, 2).reshape(b, t, self.value_dim)
         out = self.o_proj(self._group_norm(o) * g)
         if output_final_state:
-            return out, RWKV6State(s=s_final, shift=x[:, -1].contiguous())
+            shift = x[:, -1].contiguous()
+            return out, RWKV6State(s=s_final, shift=shift if cp is None else from_last(shift, cp))
         return out
 
     # ---- one decode token ----

@@ -136,7 +136,7 @@ class DecodeServer:
     speaker encoder not run (see the module docstring). The transformer
     backbone raises ``ValueError`` (its KV clock is shared by the batch).
 
-    Raising ``NotImplementedError``: ``mesh`` (ROADMAP.md Queue 1 item 11),
+    Raising ``NotImplementedError``: ``mesh`` (ROADMAP.md Queue 1 item 11b),
     ``approx_topk`` (a TPU op). Not ported on purpose: the JAX server's
     ``sf_emit_dtype`` policy (f32 emission of the prefill kernels' final
     state, a TPU scheduling matter: the value quantized is the same) and
@@ -165,7 +165,7 @@ class DecodeServer:
         state_quant: Optional[str] = None,
     ):
         for name, val, ready in (
-                ("mesh", mesh, "ROADMAP.md Queue 1 item 11"),
+                ("mesh", mesh, "ROADMAP.md Queue 1 item 11b"),
                 ("approx_topk", approx_topk, "a TPU op; the port samples exact top-k")):
             if val:
                 raise NotImplementedError(f"DecodeServer({name}=...) is not "

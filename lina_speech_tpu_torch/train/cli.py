@@ -3,8 +3,8 @@
 
 Counterpart of ``lina_speech_tpu/train/cli.py`` (which replaces the
 reference's LightningCLI entry, train_lina.py:122-132): an argparse and
-YAML front end over :func:`train.harness.make_train_step` on one device,
-the card unless ``--device cpu`` is given. It reads synthetic batches or
+YAML front end over :func:`train.harness.make_train_step` on one device a
+process, the card unless ``--device cpu`` is given. It reads synthetic batches or
 npz shards (:func:`build_data`), warm-starts from a checkpoint's weights
 (``--load-weights``), saves the full train state every ``--ckpt-every``
 steps and at the end (``utils/checkpoint.py``), resumes from the latest
@@ -17,8 +17,24 @@ checkpoint is named after the optimizer steps its state has taken, and a
 resumed run starts there. Dropout and the text masking of step ``n`` draw
 from a generator seeded from (``seed + 1``, ``n``), the port's
 ``fold_in(rng, state.step)``, so a resumed step draws what the unbroken
-run drew. Multi-GPU (``--dp``/``--tp``/``--cp`` above 1, ``--coordinator``)
-raises ``NotImplementedError``; JAX's ``--platform`` has no counterpart.
+run drew.
+
+Data and context parallel training (``--dp``, ``--cp``): one process a
+rank, started by torchrun (``torchrun --nproc-per-node N -m
+lina_speech_tpu_torch.train.cli fit --dp D --cp C``, D x C = N) or by hand
+with ``--coordinator host:port`` and each process's ``RANK`` (and
+``WORLD_SIZE``, else D x C) in its environment; NCCL on the cards (rank r
+on ``cuda:LOCAL_RANK``), gloo with ``--device cpu``. Every rank builds
+the same global batch from the seed (JAX rounds the batch size up to a
+multiple of dp, and so does this) and trains on its part
+(``parallel/sharding.py:shard_batch``); rank 0's parameters are broadcast
+once; only rank 0 logs and writes checkpoints, whose keys are the model's
+own (no wrapper), so a checkpoint of one layout resumes in any other. A
+step's generator is seeded from (``seed + 1``, ``n``) and this rank's dp
+index, so the cp ranks of a row draw alike. ``--cp`` above 1 on the
+transformer raises ``ValueError``, as the JAX CLI refuses it; ``--tp``
+above 1 raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 11b).
+JAX's ``--platform`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -33,12 +49,14 @@ import numpy as np
 import torch
 
 
-def build_data(data_cfg: Dict[str, Any], model_cfg) -> Iterator[Dict[str, np.ndarray]]:
+def build_data(data_cfg: Dict[str, Any], model_cfg, dp: int = 1
+               ) -> Iterator[Dict[str, np.ndarray]]:
     """The endless iterator of collated numpy batches a config's ``data``
     section asks for: ``kind: synthetic`` (the default) or ``kind: npz``
-    (``npz_paths``, ``max_tokens``, ``tokenizer_file``)."""
+    (``npz_paths``, ``max_tokens``, ``tokenizer_file``). The batch size is
+    rounded up to a multiple of ``dp``, as in JAX."""
     kind = data_cfg.get("kind", "synthetic")
-    batch_size = int(data_cfg.get("batch_size", 8))
+    batch_size = -(-int(data_cfg.get("batch_size", 8)) // dp) * dp
     if kind == "synthetic":
         from lina_speech_tpu_torch.data.synthetic import synthetic_tts_batches
 
@@ -69,22 +87,31 @@ def build_data(data_cfg: Dict[str, Any], model_cfg) -> Iterator[Dict[str, np.nda
     raise ValueError(f"unknown data kind {kind!r}")
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, dp_index: int = 0) -> torch.Generator:
     """The generator of optimizer step ``step``: seeded from (``seed + 1``,
-    ``step``), on ``device``."""
+    ``step``) and, above dp index 0, the index, on ``device``."""
     return torch.Generator(device=device).manual_seed(
-        (((seed + 1) << 32) + step) & 0xFFFF_FFFF_FFFF_FFFF)
+        (((seed + 1) << 32) + step + (dp_index << 56)) & 0xFFFF_FFFF_FFFF_FFFF)
 
 
-def _refuse_multi_gpu(args) -> None:
-    for name in ("dp", "tp", "cp"):
-        if getattr(args, name) > 1:
-            raise NotImplementedError(
-                f"--{name} {getattr(args, name)}: multi-GPU training is not ported yet "
-                "(ROADMAP.md Queue 1 item 11)")
-    if args.coordinator:
-        raise NotImplementedError(
-            "--coordinator: multi-host training is not ported yet (ROADMAP.md Queue 1 item 11)")
+def start_world(args):
+    """The mesh of ``--dp`` x ``--tp`` x ``--cp`` over the world this
+    process joins (``parallel/multihost.py:distributed_init``: torchrun's
+    environment or ``--coordinator``), host-major as JAX lays a multi-host
+    mesh out, and this process's device."""
+    from lina_speech_tpu_torch.parallel import MeshConfig, distributed_init, make_multihost_mesh
+    from lina_speech_tpu_torch.parallel.multihost import local_device
+
+    if args.tp > 1:
+        raise NotImplementedError(f"--tp {args.tp}: tensor parallelism is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 11b)")
+    if args.device is None and not torch.cuda.is_available():
+        raise RuntimeError("fit: no CUDA device; pass --device cpu to train on the CPU")
+    device = local_device(args.device or "cuda")
+    world = args.dp * args.tp * args.cp
+    distributed_init(args.coordinator, device=device, num_processes=(
+        world if args.coordinator and "WORLD_SIZE" not in os.environ else None))
+    return make_multihost_mesh(MeshConfig(dp=args.dp, tp=args.tp, cp=args.cp)), device
 
 
 def fit(args):
@@ -93,12 +120,12 @@ def fit(args):
     from lina_speech_tpu_torch.train.harness import (
         TrainConfig, batch_to_device, create_train_state, make_eval_step, make_train_step,
     )
+    from lina_speech_tpu_torch.parallel import replicate_params, shard_batch
     from lina_speech_tpu_torch.utils.checkpoint import (
         latest_checkpoint, restore_checkpoint, save_checkpoint,
     )
-    from lina_speech_tpu_torch.utils.profiling import MetricsLogger, StepTimer
+    from lina_speech_tpu_torch.utils.profiling import MetricsLogger, NullLogger, StepTimer
 
-    _refuse_multi_gpu(args)
     if args.config:
         cfg = load_config(args.config)
         model_cfg, train_cfg, data_cfg = cfg["model"], cfg["train"], cfg["data"]
@@ -106,10 +133,20 @@ def fit(args):
         model_cfg, train_cfg, data_cfg = ModelConfig(), TrainConfig(), {}
     if args.steps:
         train_cfg = dataclasses.replace(train_cfg, n_training_steps=args.steps)
+    if args.cp > 1:
+        if model_cfg.backbone.kind == "transformer":
+            raise ValueError("--cp is not supported for the transformer baseline (no "
+                             "sequence-sharded path)")
+        model_cfg = dataclasses.replace(
+            model_cfg, backbone=dataclasses.replace(model_cfg.backbone, cp_axis="cp"))
 
-    model = build_model(model_cfg, device=args.device, seed=args.seed)
-    device = next(model.parameters()).device
-    data = build_data(data_cfg, model_cfg)
+    mesh, device = start_world(args)
+    lead = mesh.rank == 0
+    model = build_model(model_cfg, device=device, seed=args.seed, mesh=mesh)
+    replicate_params(model, mesh.group("dp", "cp"))
+    data = build_data(data_cfg, model_cfg, dp=mesh.size("dp"))
+    micro = train_cfg.grad_accum_steps
+    feed = lambda b: batch_to_device(shard_batch(b, mesh, micro_batches=micro), device)
     batch0 = next(data)
     # checkpoints load to host memory and load_state_dict copies them onto
     # the model's device; the optimizer keeps each ``step`` count on the
@@ -123,31 +160,37 @@ def fit(args):
         model.load_state_dict(full["model"])
         state.optimizer.load_state_dict(full["optimizer"])
         state.step = int(full["step"])
-        print(f"resuming from step {state.step}")
-    if args.ckpt_dir:
+        if lead:
+            print(f"resuming from step {state.step}")
+    if args.ckpt_dir and lead:
         os.makedirs(args.ckpt_dir, exist_ok=True)
         if args.config:
             shutil.copy(args.config, os.path.join(args.ckpt_dir, "config.yaml"))
 
     def save():
-        t0 = time.perf_counter()
-        path = save_checkpoint(args.ckpt_dir, {"model": model.state_dict(),
-                                               "optimizer": state.optimizer.state_dict(),
-                                               "step": state.step}, step=state.step)
-        print(f"saved {path} in {time.perf_counter() - t0:.1f} s")
+        if lead:
+            t0 = time.perf_counter()
+            path = save_checkpoint(args.ckpt_dir, {"model": model.state_dict(),
+                                                   "optimizer": state.optimizer.state_dict(),
+                                                   "step": state.step}, step=state.step)
+            print(f"saved {path} in {time.perf_counter() - t0:.1f} s")
+        if torch.distributed.is_initialized():  # the others go on once it is on disk
+            torch.distributed.barrier()
 
     train_step = make_train_step(model, grad_accum_steps=train_cfg.grad_accum_steps)
     eval_step = make_eval_step(model)
-    logger = MetricsLogger(args.log_file, print_every=args.log_every)
+    logger = MetricsLogger(args.log_file, print_every=args.log_every) if lead else NullLogger()
     timer = StepTimer(warmup=1)  # records are per-log-interval averages
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"{n_params:,} parameters on {device}; steps {state.step} to "
-          f"{train_cfg.n_training_steps}")
+    if lead:
+        print(f"{n_params:,} parameters on {device}; mesh {mesh.shape}; steps {state.step} "
+              f"to {train_cfg.n_training_steps}")
 
     t_mark, n_done, metrics = time.perf_counter(), 0, {}
     for step_idx in range(state.step, train_cfg.n_training_steps):
-        batch = batch_to_device(next(data) if step_idx else batch0, device)
-        state, metrics = train_step(state, batch, step_generator(args.seed, state.step, device))
+        batch = feed(next(data) if step_idx else batch0)
+        state, metrics = train_step(state, batch, step_generator(
+            args.seed, state.step, device, mesh.index("dp")))
         n_done += 1
         if step_idx % args.log_every == 0:
             # reading the metrics waits for the device: on log steps only
@@ -160,7 +203,7 @@ def fit(args):
         if args.ckpt_dir and step_idx > 0 and step_idx % args.ckpt_every == 0:
             save()
         if args.eval_every and step_idx > 0 and step_idx % args.eval_every == 0:
-            em = eval_step(state, batch_to_device(next(data), device))
+            em = eval_step(state, feed(next(data)))
             logger.log(step_idx, {f"val_{k}": float(v) for k, v in em.items()})
     if n_done:  # wait for the device and account the tail interval
         for v in metrics.values():
@@ -170,7 +213,8 @@ def fit(args):
     if args.ckpt_dir:
         save()
     logger.close()
-    print(f"done: {state.step} steps, mean step {timer.mean * 1e3:.1f} ms")
+    if lead:
+        print(f"done: {state.step} steps, mean step {timer.mean * 1e3:.1f} ms")
     return state
 
 
@@ -183,10 +227,13 @@ def main(argv=None):
     f.add_argument("--device", type=str, default=None,
                    help="default: the CUDA device (raises without one); 'cpu' to train "
                         "on the CPU")
-    f.add_argument("--dp", type=int, default=1, help="above 1: not ported (multi-GPU)")
-    f.add_argument("--tp", type=int, default=1, help="above 1: not ported (multi-GPU)")
-    f.add_argument("--cp", type=int, default=1, help="above 1: not ported (multi-GPU)")
-    f.add_argument("--coordinator", type=str, default=None, help="not ported (multi-host)")
+    f.add_argument("--dp", type=int, default=1, help="data parallel ranks (batch rows)")
+    f.add_argument("--tp", type=int, default=1, help="above 1: not ported (tensor parallel)")
+    f.add_argument("--cp", type=int, default=1,
+                   help="context parallel ranks (audio time); not for the transformer")
+    f.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0's rendezvous, without torchrun (RANK from "
+                        "the environment)")
     f.add_argument("--seed", type=int, default=0)
     f.add_argument("--load-weights", type=str, default=None,
                    help="a checkpoint directory whose state has a 'model' state_dict")

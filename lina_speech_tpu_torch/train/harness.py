@@ -6,7 +6,15 @@ betas (0.9, 0.999)) with an HF-style cosine schedule with warmup stepped
 per optimizer step (train_lina.py:105-120), masked CE loss, top-10 accuracy
 per quantizer ignoring pad/head tokens (train_lina.py:57-61).
 
-The step is a plain eager PyTorch step on one device. The model carries its
+The step is a plain eager PyTorch step on one device; with data and context
+parallelism (a model built with ``mesh=``) each rank runs it on its part of
+the batch and the gradients are summed over the dp x cp group after the
+local backward, in one all_reduce (``parallel/collectives.py``): the
+model's loss is each rank's share of the global masked mean
+(``models/lina.py``), so the sum is the single-process gradient of the
+whole batch, and every parameter (``s0``, ``u``, ``A`` and ``D`` too) is
+replicated over both axes. Clipping then sees the same global norm on
+every rank; the loss and accuracies reported are the global ones. The model carries its
 parameters (f32); its modules cast them to the compute dtype at each matmul,
 so gradients arrive in f32. On a CUDA device every GLA-family layer trains
 through hand-written forward and backward kernels (``ops/gla_cuda.py``):
@@ -15,7 +23,7 @@ them (simple-GLA, the interleaved and PP backbones without convs) and in
 Mamba-2; an RWKV6 layer through ``rwkv6_chunk`` and its hand-written
 backward (``ops/rwkv6_cuda.py``); a Mamba (v1) mixer through
 ``mamba_scan`` and its hand-written backward (``ops/mamba_cuda.py``). The
-JAX step's mesh, ``auto_layout``, ``hoist_param_cast``, ``unroll_accum`` and
+JAX step's ``auto_layout``, ``hoist_param_cast``, ``unroll_accum`` and
 ``donate`` are XLA machinery with no counterpart here.
 """
 from __future__ import annotations
@@ -27,8 +35,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from lina_speech_tpu_torch.models.accuracy import topk_accuracy
+from lina_speech_tpu_torch.models.accuracy import topk_accuracy, topk_hits
 from lina_speech_tpu_torch.models.lina import LinaModel
+from lina_speech_tpu_torch.parallel.collectives import all_reduce_grads_, all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,10 +111,22 @@ def _loss_and_metrics(model: LinaModel, batch: Dict[str, torch.Tensor]):
     target = batch["audio_token"][:, 1:]
     y_mask = batch.get("y_mask")
     mask = y_mask[:, 1:] if y_mask is not None else None
-    metrics = {"loss": loss.detach()}
+    group = model.data_group
     with torch.no_grad():
+        if group is None:
+            metrics = {"loss": loss.detach()}
+            for i in range(logits.shape[2]):
+                metrics[f"acc_{i}"] = topk_accuracy(logits[:, :, i], target[:, :, i], mask=mask)
+            return loss, metrics
+        # the global loss and accuracies: the loss's shares, each quantizer's
+        # hits and counts summed over the group in one all_reduce
+        parts = [loss.detach().float()]
         for i in range(logits.shape[2]):
-            metrics[f"acc_{i}"] = topk_accuracy(logits[:, :, i], target[:, :, i], mask=mask)
+            parts += [x.float() for x in topk_hits(logits[:, :, i], target[:, :, i], mask=mask)]
+        total = all_reduce_sum(torch.stack(parts), group)
+        metrics = {"loss": total[0]}
+        for i in range(logits.shape[2]):
+            metrics[f"acc_{i}"] = total[1 + 2 * i] / total[2 + 2 * i].clamp(min=1)
     return loss, metrics
 
 
@@ -141,7 +162,14 @@ def make_train_step(model: LinaModel, grad_accum_steps: int = 1) -> Callable:
             loss.backward()
             for k, v in metrics.items():
                 totals[k] = totals[k] + v if k in totals else v
+        if model.data_group is not None:
+            # every rank reduces the same tensors: a parameter this rank's
+            # part of the batch did not reach gets a zero gradient
+            for p in model.parameters():
+                if p.requires_grad and p.grad is None:
+                    p.grad = torch.zeros_like(p)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        all_reduce_grads_(grads, model.data_group)
         if grad_accum_steps > 1:
             torch._foreach_div_(grads, grad_accum_steps)
         metrics = {k: v / grad_accum_steps for k, v in totals.items()}

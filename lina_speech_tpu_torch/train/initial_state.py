@@ -10,6 +10,12 @@ hand-written ``gla_chunk_conv`` backward, or of ``gla_chunk``'s for layers
 without per-projection convs (``ops/gla_cuda.py``). It covers the
 ``AttentiveGLA`` backbones (kinds ``gla`` and ``simple_gla``), as in the JAX
 package.
+
+Under data and context parallelism (a model built with ``mesh=``, batches
+cut by ``parallel/sharding.py:shard_batch``) the S0 params are replicated:
+every rank draws them from the same seed, and their gradients are summed
+over the dp x cp group, as shard_map's transpose sums them in JAX (under
+cp each rank's share reaches S0 through ``ops/gla_cp.py``'s exchange).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from lina_speech_tpu_torch.models.lina import LinaModel
+from lina_speech_tpu_torch.parallel.collectives import all_reduce_grads_, all_reduce_sum
 from lina_speech_tpu_torch.utils.convert import tuning_params_to_arrays
 
 
@@ -77,6 +84,7 @@ def make_tuning_step(model: LinaModel, config: InitialStateTuningConfig,
                 init_state=init_state,
             )
             grads = torch.autograd.grad(loss, leaves)
+        all_reduce_grads_(grads, model.data_group)
         for p, g in zip(leaves, grads):
             p.grad = g if p.grad is None else p.grad + g
         if micro_idx % config.grad_acc == config.grad_acc - 1:
@@ -84,7 +92,7 @@ def make_tuning_step(model: LinaModel, config: InitialStateTuningConfig,
                 p.grad /= config.grad_acc
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-        return loss.detach()
+        return all_reduce_sum(loss, model.data_group)
 
     return step
 

@@ -72,6 +72,16 @@ class StepTimer:
         return self.total / max(self.n - self.warmup, 1)
 
 
+class NullLogger:
+    """The logger of a data-parallel rank other than 0: records nothing."""
+
+    def log(self, step: int, metrics: Dict[str, Any]) -> None:
+        pass
+
+    def close(self):
+        pass
+
+
 class MetricsLogger:
     """JSONL metrics log (one ``{"step": n, <metric>: value, ...}`` record a
     line) and a console line every ``print_every`` steps."""

@@ -263,10 +263,19 @@ def test_average_checkpoints_equals_the_jax_package():
 
 
 # -------------------------------------------------------- what still raises
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--cp", "4"],
-                                  ["--coordinator", "localhost:1234"]], ids=str)
-def test_multi_gpu_flags_raise_naming_item_11(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+@pytest.mark.parametrize("flag,error,match", [
+    (["--dp", "2"], ValueError, "world size 1"),
+    (["--tp", "2"], NotImplementedError, "ROADMAP.md Queue 1 item 11b"),
+    (["--cp", "4"], ValueError, "world size 1"),
+    (["--coordinator", "localhost:1234"], ValueError, "rank")], ids=str)
+def test_multi_gpu_flags_raise_naming_item_11(flag, error, match, monkeypatch):
+    """Data and context parallelism are ported (tests/test_torch_parallel.py):
+    in a single process --dp 2 and --cp 4 ask for more ranks than the world
+    holds, --tp is ROADMAP.md Queue 1 item 11b, and a coordinator needs this
+    process's rank."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(error, match=match):
         cli.main(["fit", "--config", TINY, "--device", "cpu", "--steps", "1", *flag])
 
 

@@ -239,10 +239,15 @@ def test_vq_training_half_matches_jax_with_injected_draws():
     xg = t(lat).requires_grad_(True)
     tvq.vq_train_step(xg, te, 1).quantized.sum().backward()
     assert torch.equal(xg.grad, torch.ones_like(xg))
-    for fn, args in ((tvq.ema_codebook_update, (t(lat), tr.codes, te)),
-                     (tvq.vq_train_step, (t(lat), te, 1)),
-                     (tvq.expire_dead_codes, (None, te, t(batch)))):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    # the JAX functions' axis_name is a dp process group here (its reduction
+    # over two ranks: tests/test_torch_parallel.py); None is one process
+    for fn, args, field in ((tvq.ema_codebook_update, (t(lat), tr.codes, te), "embed"),
+                            (tvq.vq_train_step, (t(lat), te, 1), "quantized"),
+                            (tvq.expire_dead_codes, (None, te, t(batch)), "embed")):
+        kw = dict(idx=draws) if fn is tvq.expire_dead_codes else {}
+        assert torch.equal(getattr(fn(*args, group=None, **kw), field),
+                           getattr(fn(*args, **kw), field))
+        with pytest.raises(TypeError, match="axis_name"):
             fn(*args, axis_name="dp")
 
 
@@ -394,8 +399,9 @@ def test_metric_hooks_policy_matches_jax(tmp_path):
 # ---------------------------------------------------------- codec_cli.py
 def test_codec_cli_fit_on_the_cpu(tmp_path):
     """``codec_cli fit --device cpu --tiny`` for 2 steps with a validation
-    pass: finite JSONL metrics, a checkpoint of the generator, and the
-    multi-GPU flag raising."""
+    pass: finite JSONL metrics, a checkpoint of the generator, and ``--dp
+    2`` in a single process raising (it trains under two processes:
+    tests/test_torch_parallel.py)."""
     import json
 
     log = tmp_path / "metrics.jsonl"
@@ -413,5 +419,5 @@ def test_codec_cli_fit_on_the_cpu(tmp_path):
     assert saved["step"] == 2
     for k, v in state.gen.state_dict().items():
         assert torch.equal(saved["model"][k], v), k
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="world size 1"):
         codec_cli.main(["fit", "--device", "cpu", "--tiny", "--steps", "1", "--dp", "2"])

@@ -265,9 +265,11 @@ def test_unported_options_raise():
     layer = GatedLinearAttention(hidden_size=32, num_heads=2, use_short_conv=True)
     with pytest.raises(ValueError):  # a continuation needs the rings it continues
         layer(torch.zeros(1, 3, 32), conv_history=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    # context parallelism is ported (tests/test_torch_cp.py): a cp_axis needs
+    # a mesh carrying it
+    with pytest.raises(ValueError, match="not an axis of the mesh"):
         torch_build(dataclasses.replace(torch_tiny(), backbone=dataclasses.replace(
-            torch_tiny().backbone, cp_axis="cp")), device="cpu")  # not ported yet
+            torch_tiny().backbone, cp_axis="cp")), device="cpu")
     # remat is ported (tests/test_torch_remat.py): it builds
     assert torch_build(dataclasses.replace(torch_tiny(), backbone=dataclasses.replace(
         torch_tiny().backbone, remat=True)), device="cpu").attentive_rnn.remat

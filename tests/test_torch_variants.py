@@ -305,17 +305,18 @@ def test_mamba2_has_no_lazy_window_and_no_s0_tuning():
 
 
 def test_unported_kinds_still_raise():
-    """What the port has not built yet raises, naming the ROADMAP item that
-    ports it: context parallelism (item 11). Rematerialization builds and
-    trains one step (its gradients: tests/test_torch_remat.py). Every
-    backbone kind of the JAX package and the speaker encoder build."""
+    """A ``cp_axis`` without a mesh carrying it raises ``ValueError``
+    (context parallelism is ported: tests/test_torch_cp.py).
+    Rematerialization builds and trains one step (its gradients:
+    tests/test_torch_remat.py). Every backbone kind of the JAX package and
+    the speaker encoder build."""
     from lina_speech_tpu_torch.train.harness import (
         TrainConfig, batch_to_device, create_train_state, make_train_step,
     )
 
     cfg = torch_tiny()
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, cp_axis="cp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    with pytest.raises(ValueError, match="not an axis of the mesh"):
         torch_build(cfg, device="cpu")
     cfg = torch_tiny()
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, remat=True))
